@@ -1,0 +1,25 @@
+"""Architecture registry of the port: ``get_config(name)`` resolves here.
+
+Each module exports ``config()`` (the assigned configuration) and
+``smoke_config()`` (a reduced configuration of the same family for CPU
+tests). The port has the PDE surrogate only so far.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ["flare_pde"]
+
+
+def _module(name: str):
+    if name not in ARCH_IDS:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str):
+    return _module(name).config()
+
+
+def get_smoke_config(name: str):
+    return _module(name).smoke_config()

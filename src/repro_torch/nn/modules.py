@@ -1,0 +1,124 @@
+"""Core modules: Linear (dense), LayerNorm, ResMLP.
+
+Counterpart of ``repro/nn/modules.py``. Parameters live in ``nn.Module``s;
+compute follows the same mixed-precision rule: parameters are cast to the
+activation dtype at use, norms keep fp32 statistics. Two layouts differ from
+the JAX package and ``repro_torch.interop`` converts them: a dense layer is an
+``nn.Linear`` whose ``weight`` is ``[out, in]`` (JAX stores ``kernel`` as
+``[in, out]``).
+
+Initialisers draw from an explicit ``torch.Generator`` on the CPU and move
+the result to ``device``, so one seed gives the same weights on every device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def truncated_normal_(t: torch.Tensor, stddev: float, generator: torch.Generator) -> torch.Tensor:
+    """In place: a standard normal truncated to [-2, 2], times ``stddev``
+    (``jax.random.truncated_normal(key, -2, 2) * stddev``)."""
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return t.mul_(stddev)
+
+
+def _param(shape, stddev: float, generator, device, dtype) -> nn.Parameter:
+    t = truncated_normal_(torch.empty(shape, dtype=torch.float32), stddev, generator)
+    return nn.Parameter(t.to(device=device, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# Linear
+# ---------------------------------------------------------------------------
+
+def init_dense(in_dim: int, out_dim: int, *, generator: torch.Generator,
+               use_bias: bool = False, device=None, dtype=torch.float32) -> nn.Linear:
+    """Fan-in init: truncated normal with stddev 1/sqrt(in_dim); zero bias."""
+    layer = nn.Linear(in_dim, out_dim, bias=use_bias, device="meta")
+    layer.weight = _param((out_dim, in_dim), 1.0 / math.sqrt(in_dim), generator, device, dtype)
+    if use_bias:
+        layer.bias = nn.Parameter(torch.zeros(out_dim, device=device, dtype=dtype))
+    return layer
+
+
+def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm (fp32 statistics)
+# ---------------------------------------------------------------------------
+
+class LayerNorm(nn.Module):
+    """Parameters ``scale`` and ``bias`` as in the JAX tree."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-5, device=None, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(self, x)
+
+
+def init_layernorm(dim: int, *, device=None, dtype=torch.float32) -> LayerNorm:
+    return LayerNorm(dim, device=device, dtype=dtype)
+
+
+def layernorm(ln: LayerNorm, x: torch.Tensor, *, eps: Optional[float] = None) -> torch.Tensor:
+    eps = ln.eps if eps is None else eps
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * ln.scale.float() + ln.bias.float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ResMLP (paper Appendix B): linear in -> L residual (linear+GELU) -> linear out
+# ---------------------------------------------------------------------------
+
+class ResMLP(nn.Module):
+    def __init__(self, w_in: nn.Linear, res: list, w_out: nn.Linear):
+        super().__init__()
+        self.w_in = w_in
+        self.res = nn.ModuleList(res)
+        self.w_out = w_out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return resmlp(self, x)
+
+
+def init_resmlp(in_dim: int, hidden_dim: int, out_dim: int, num_layers: int, *,
+                generator: torch.Generator, device=None, dtype=torch.float32) -> ResMLP:
+    mk = lambda i, o: init_dense(i, o, generator=generator, use_bias=True,
+                                 device=device, dtype=dtype)
+    return ResMLP(mk(in_dim, hidden_dim),
+                  [mk(hidden_dim, hidden_dim) for _ in range(num_layers)],
+                  mk(hidden_dim, out_dim))
+
+
+def resmlp(mlp: ResMLP, x: torch.Tensor) -> torch.Tensor:
+    """Input residual when C_i == C_h, output residual when C_h == C_o; each
+    residual layer is ``h = h + GELU(W h)`` with the tanh GELU, which is
+    ``jax.nn.gelu``'s default."""
+    in_dim, hid_dim = mlp.w_in.in_features, mlp.w_in.out_features
+    out_dim = mlp.w_out.out_features
+    h = dense(mlp.w_in, x)
+    if in_dim == hid_dim:
+        h = h + x
+    for layer in mlp.res:
+        h = h + F.gelu(dense(layer, h), approximate="tanh")
+    y = dense(mlp.w_out, h)
+    if hid_dim == out_dim:
+        y = y + h
+    return y

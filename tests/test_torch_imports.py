@@ -1,0 +1,49 @@
+"""The port and chip_smoke.py import nothing of JAX or of the JAX package."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [n for n in _imported(tree) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_every_port_module_loads_without_jax():
+    mods = [".".join(p.relative_to(REPO / "src").with_suffix("").parts).removesuffix(".__init__")
+            for p in PORT.rglob("*.py")]
+    code = ("import sys\n"
+            f"for m in {mods!r}: __import__(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('PASS', len(" + repr(mods) + "))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0 and "PASS" in out.stdout, out.stdout + out.stderr
