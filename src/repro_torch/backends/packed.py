@@ -5,21 +5,18 @@ The name stays ``packed`` so that a policy spelled for the JAX package
 resolves to its counterpart; on Hopper nothing is lane-packed. It is the
 "auto" pick for inference on the card. It registers ``grads=False`` until
 the backward kernel is ported, so a differentiated plan resolves elsewhere.
-Tiles are fixed for now. On CPU tensors the wrapper runs the plain version.
+Tiles are fixed in ``csrc/flare.cu`` (the autotuner is not ported). On
+CPU tensors the wrapper runs the plain version.
 """
 from __future__ import annotations
 
 from repro_torch.core.dispatch import Capabilities, MixerBackend, MixerPlan, register
 
-BLOCK_M = 128   # encode: latent rows (threads) per block
-BLOCK_N = 256   # decode: tokens (threads) per block
-
 
 def _run(plan: MixerPlan, q, k, v):
     from repro_torch.kernels.flare_packed import flare_fused_fwd
 
-    y, _, _, _ = flare_fused_fwd(q, k, v, block_m=plan.params["block_m"],
-                                 block_n=plan.params["block_n"])
+    y, _, _, _ = flare_fused_fwd(q, k, v)
     return y
 
 
@@ -27,7 +24,7 @@ register(MixerBackend(
     name="packed",
     caps=Capabilities(device_kinds=("cpu", "cuda"),
                       dtypes=("float32", "bfloat16"), grads=False),
-    plan=lambda shape, dtype: MixerPlan("packed", {"block_m": BLOCK_M, "block_n": BLOCK_N}),
+    plan=lambda shape, dtype: MixerPlan("packed"),
     run=_run,
     score=lambda shape, device: 30.0 if device == "cuda" else 1.5,
     doc="CUDA kernels: fused forward with residuals, one entry point (forward-only)",

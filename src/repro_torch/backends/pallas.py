@@ -2,29 +2,26 @@
 (``kernels/flare.py``), counterparts of the JAX ``pallas`` backend's kernels.
 
 The name stays ``pallas`` so that a policy spelled for the JAX package
-resolves to its counterpart. Tiles are fixed for now (the autotuner is not
-ported). Forward-only. On CPU tensors the wrappers run the plain versions.
+resolves to its counterpart. Tiles are fixed in ``csrc/flare.cu`` (the
+autotuner is not ported). Forward-only. On CPU tensors the wrappers run the
+plain versions.
 """
 from __future__ import annotations
 
 from repro_torch.core.dispatch import Capabilities, MixerBackend, MixerPlan, register
 
-BLOCK_M = 128   # encode: latent rows (threads) per block
-BLOCK_N = 256   # decode: tokens (threads) per block
-
 
 def _run(plan: MixerPlan, q, k, v):
     from repro_torch.kernels.ops import flare_mixer_fused
 
-    return flare_mixer_fused(q, k, v, block_m=plan.params["block_m"],
-                             block_n=plan.params["block_n"])
+    return flare_mixer_fused(q, k, v)
 
 
 register(MixerBackend(
     name="pallas",
     caps=Capabilities(device_kinds=("cpu", "cuda"),
                       dtypes=("float32", "bfloat16"), grads=False),
-    plan=lambda shape, dtype: MixerPlan("pallas", {"block_m": BLOCK_M, "block_n": BLOCK_N}),
+    plan=lambda shape, dtype: MixerPlan("pallas"),
     run=_run,
     # outranked by the fused entry point on the card; named-only on CPU
     score=lambda shape, device: 20.0 if device == "cuda" else 1.0,

@@ -5,7 +5,7 @@ no mesh, no sharded backends, no legacy ``impl`` tuples, and only the
 bidirectional (set-mixer) contract, the one the PDE surrogate uses. Every
 FLARE mixer implementation registers a :class:`MixerBackend` saying what it
 can do (device kinds, dtypes, whether autograd runs through it) and how to
-run (a ``plan`` function that freezes launch parameters, and ``run``).
+run (a ``plan`` function and ``run``).
 
 Device kinds are ``torch.device`` types: ``"cpu"`` and ``"cuda"``. Backends
 live in :mod:`repro_torch.backends`; importing that package fills the
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -47,15 +47,13 @@ class Capabilities:
 
 @dataclasses.dataclass(frozen=True)
 class MixerPlan:
-    """A resolved execution plan: backend name + frozen launch parameters."""
+    """A resolved execution plan. The kernels' tiles are fixed, so a plan is
+    its backend's name; launch parameters join it with the autotuner."""
 
     backend: str
-    params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     def describe(self) -> str:
-        keys = ("block_m", "block_n")
-        inner = ";".join(f"{k}={self.params[k]}" for k in keys if k in self.params)
-        return f"{self.backend}({inner})" if inner else self.backend
+        return self.backend
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,8 @@
 // Replaces the TPU kernels of the JAX package:
 //   encode_kernel  <- repro/kernels/flare.py::_encode_kernel (flare_encode_pallas)
 //   decode_kernel  <- repro/kernels/flare.py::_decode_kernel (flare_decode_pallas)
-//   flare_fused_fwd (encode with statistics, then decode over fp32 Z)
+//   the fused forward: repro_torch/kernels/flare_packed.py calls the
+//   flare_encode entry point with statistics, then flare_decode over fp32 Z
 //                  <- repro/kernels/flare_packed.py::_fused_fwd_kernel (_fwd_launch)
 //
 // What bounds them. At the paper's head dim (D = 8) every (latent, token)
@@ -22,7 +23,9 @@
 //     staged in shared memory and read by every thread of the block as a
 //     broadcast, with no bank conflicts;
 //   * scores are taken in chunks of CH: one running-max rescale per chunk,
-//     not per element;
+//     not per element; the sums run in two levels (per shared tile, then
+//     across tiles): on the model's own operands at N = 40,000 one running
+//     sum was 7.8e-4 off fp64, two levels are 7.2e-6, at no measurable cost;
 //   * the TPU's sequential-grid scratch carry becomes the loop inside the
 //     block; where a batch of one leaves the card underfilled (pde_1m: 128
 //     encode blocks for 132 SMs) the encode splits N over blockIdx.z and a
@@ -47,7 +50,8 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int CH = 16;            // scores per chunk (one rescale per chunk)
 constexpr int TILE_FLOATS = 2048; // floats per shared tile buffer (8 KB)
-constexpr int MAX_THREADS = 256;
+constexpr int ENC_THREADS = 128;  // encode: latent rows per block
+constexpr int DEC_THREADS = 256;  // decode: tokens per block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -73,43 +77,69 @@ __device__ __forceinline__ void stage(float* dst, const T* src, long long row_st
   }
 }
 
-// One online-softmax step over `cnt` (<= CH) staged rows: scores x . key[j],
-// running (mx, den, acc) with a single rescale for the chunk.
+// Online-softmax state of one output row, summed in two levels: the scores
+// of the current shared tile go into partial sums (den, acc) taken against
+// the running max mx, and each finished tile is folded into the totals. A
+// total then carries about N / tile + tile roundings instead of N.
 template <int D>
-__device__ __forceinline__ void softmax_chunk(const float (&x)[D], const float* key,
-                                              const float* val, int cnt, float& mx,
-                                              float& den, float (&acc)[D]) {
-  float s[CH];
-  float cmax = NEG_INF;
-#pragma unroll
-  for (int j = 0; j < CH; ++j) {
-    float a = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) a = fmaf(x[d], key[j * D + d], a);
-    s[j] = j < cnt ? a : NEG_INF;
-    cmax = fmaxf(cmax, s[j]);
-  }
-  const float mnew = fmaxf(mx, cmax);
-  const float alpha = __expf(mx - mnew);
-  den *= alpha;
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-  for (int j = 0; j < CH; ++j) {
-    const float p = j < cnt ? __expf(s[j] - mnew) : 0.f;
-    den += p;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = fmaf(p, val[j * D + d], acc[d]);
-  }
-  mx = mnew;
-}
+struct Online {
+  float mx = NEG_INF, den = 0.f, acc[D];          // this tile, against mx
+  float tot_mx = NEG_INF, tot_den = 0.f, tot[D];  // finished tiles, against tot_mx
 
-// Encode. Grid (ceil(M / blockDim), B*H, splits); thread = latent row m of
+  __device__ __forceinline__ Online() {
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = tot[d] = 0.f;
+  }
+
+  // One step over `cnt` (<= CH) staged rows: scores x . key[j], with a
+  // single rescale of the tile's partial sums for the chunk.
+  __device__ __forceinline__ void chunk(const float (&x)[D], const float* key,
+                                        const float* val, int cnt) {
+    float s[CH];
+    float cmax = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      float a = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) a = fmaf(x[d], key[j * D + d], a);
+      s[j] = j < cnt ? a : NEG_INF;
+      cmax = fmaxf(cmax, s[j]);
+    }
+    const float mnew = fmaxf(mx, cmax);
+    const float alpha = __expf(mx - mnew);
+    den *= alpha;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const float p = j < cnt ? __expf(s[j] - mnew) : 0.f;
+      den += p;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, val[j * D + d], acc[d]);
+    }
+    mx = mnew;
+  }
+
+  // Fold the tile's partial sums into the totals (mx >= tot_mx).
+  __device__ __forceinline__ void fold() {
+    const float alpha = __expf(tot_mx - mx);
+    tot_den = fmaf(tot_den, alpha, den);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      tot[d] = fmaf(tot[d], alpha, acc[d]);
+      acc[d] = 0.f;
+    }
+    tot_mx = mx;
+    den = 0.f;
+  }
+};
+
+// Encode. Grid (ceil(M / ENC_THREADS), B*H, splits); thread = latent row m of
 // group g = b*H + h over tokens [split*split_len, min(N, (split+1)*split_len)).
 // splits == 1: writes z[g, m, :] = num/den (and mx/den when given).
 // splits > 1: writes the partial (max, den, num[D]) to part[split, g, m, :].
 template <typename T, typename TZ, int D>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(ENC_THREADS)
 encode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               TZ* __restrict__ z, float* __restrict__ mx_out, float* __restrict__ den_out,
               float* __restrict__ part, int H, int M, int N, Strides ks, Strides vs,
@@ -118,7 +148,7 @@ encode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   __shared__ float k_s[TILE_FLOATS];
   __shared__ float v_s[TILE_FLOATS];
   const int g = blockIdx.y, b = g / H, h = g % H;
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  const int m = blockIdx.x * ENC_THREADS + threadIdx.x;
   const int n0 = blockIdx.z * split_len;
   const int n1 = min(N, n0 + split_len);
   const T* kg = k + b * ks.b + h * ks.h;
@@ -127,10 +157,7 @@ encode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   float x[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) x[d] = m < M ? to_f(q[((long long)h * M + m) * D + d]) : 0.f;
-  float mx = NEG_INF, den = 0.f, acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-
+  Online<D> st;
   for (int t0 = n0; t0 < n1; t0 += TN) {
     const int tn = min(TN, n1 - t0);
     __syncthreads();
@@ -138,25 +165,26 @@ encode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     stage<T, D>(v_s, vg, vs.n, t0, tn, TN);
     __syncthreads();
     for (int c0 = 0; c0 < tn; c0 += CH)
-      softmax_chunk<D>(x, k_s + c0 * D, v_s + c0 * D, min(CH, tn - c0), mx, den, acc);
+      st.chunk(x, k_s + c0 * D, v_s + c0 * D, min(CH, tn - c0));
+    st.fold();
   }
   if (m >= M) return;
   const long long row = (long long)g * M + m;
   if (part == nullptr) {
-    const float inv = 1.f / den;
+    const float inv = 1.f / st.tot_den;
 #pragma unroll
-    for (int d = 0; d < D; ++d) z[row * D + d] = from_f<TZ>(acc[d] * inv);
+    for (int d = 0; d < D; ++d) z[row * D + d] = from_f<TZ>(st.tot[d] * inv);
     if (mx_out != nullptr) {
-      mx_out[row] = mx;
-      den_out[row] = den;
+      mx_out[row] = st.tot_mx;
+      den_out[row] = st.tot_den;
     }
   } else {
     const long long rows = (long long)gridDim.y * M;
     float* p = part + ((long long)blockIdx.z * rows + row) * (D + 2);
-    p[0] = mx;
-    p[1] = den;
+    p[0] = st.tot_mx;
+    p[1] = st.tot_den;
 #pragma unroll
-    for (int d = 0; d < D; ++d) p[2 + d] = acc[d];
+    for (int d = 0; d < D; ++d) p[2 + d] = st.tot[d];
   }
 }
 
@@ -188,18 +216,18 @@ __global__ void combine_kernel(const float* __restrict__ part, TZ* __restrict__ 
   }
 }
 
-// Decode. Grid (ceil(N / blockDim), B*H); thread = token n of group g:
+// Decode. Grid (ceil(N / DEC_THREADS), B*H); thread = token n of group g:
 // y[b, h, n, :] = softmax_m(k_n . q_m) z[g, m, :], online over latent tiles
 // of the head's Q and the group's Z staged in shared memory.
 template <typename T, typename TZ, int D>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(DEC_THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const TZ* __restrict__ z,
               T* __restrict__ y, int H, int M, int N, Strides ks, Strides ys) {
   constexpr int TM = TILE_FLOATS / D;
   __shared__ float q_s[TILE_FLOATS];
   __shared__ float z_s[TILE_FLOATS];
   const int g = blockIdx.y, b = g / H, h = g % H;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = blockIdx.x * DEC_THREADS + threadIdx.x;
   const T* qh = q + (long long)h * M * D;
   const TZ* zg = z + (long long)g * M * D;
 
@@ -207,10 +235,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const TZ* __rest
   const T* kn = k + b * ks.b + h * ks.h + (long long)n * ks.n;
 #pragma unroll
   for (int d = 0; d < D; ++d) x[d] = n < N ? to_f(kn[d]) : 0.f;
-  float mx = NEG_INF, den = 0.f, acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-
+  Online<D> st;
   for (int m0 = 0; m0 < M; m0 += TM) {
     const int tm = min(TM, M - m0);
     __syncthreads();
@@ -218,13 +243,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const TZ* __rest
     stage<TZ, D>(z_s, zg, D, m0, tm, TM);
     __syncthreads();
     for (int c0 = 0; c0 < tm; c0 += CH)
-      softmax_chunk<D>(x, q_s + c0 * D, z_s + c0 * D, min(CH, tm - c0), mx, den, acc);
+      st.chunk(x, q_s + c0 * D, z_s + c0 * D, min(CH, tm - c0));
+    st.fold();
   }
   if (n >= N) return;
-  const float inv = 1.f / den;
+  const float inv = 1.f / st.tot_den;
   T* yn = y + b * ys.b + h * ys.h + (long long)n * ys.n;
 #pragma unroll
-  for (int d = 0; d < D; ++d) yn[d] = from_f<T>(acc[d] * inv);
+  for (int d = 0; d < D; ++d) yn[d] = from_f<T>(st.tot[d] * inv);
 }
 
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
@@ -232,10 +258,10 @@ inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 template <typename T, typename TZ, int D>
 cudaError_t encode_launch(const void* q, const void* k, const void* v, void* z, float* mx,
                           float* den, float* part, int B, int H, int M, int N, Strides ks,
-                          Strides vs, int splits, int threads, cudaStream_t stream) {
+                          Strides vs, int splits, cudaStream_t stream) {
   const int split_len = cdiv(N, splits);
-  dim3 grid(cdiv(M, threads), B * H, splits);
-  encode_kernel<T, TZ, D><<<grid, threads, 0, stream>>>(
+  dim3 grid(cdiv(M, ENC_THREADS), B * H, splits);
+  encode_kernel<T, TZ, D><<<grid, ENC_THREADS, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (TZ*)z, mx, den, splits > 1 ? part : nullptr,
       H, M, N, ks, vs, split_len);
   cudaError_t err = cudaGetLastError();
@@ -248,10 +274,9 @@ cudaError_t encode_launch(const void* q, const void* k, const void* v, void* z, 
 
 template <typename T, typename TZ, int D>
 cudaError_t decode_launch(const void* q, const void* k, const void* z, void* y, int B, int H,
-                          int M, int N, Strides ks, Strides ys, int threads,
-                          cudaStream_t stream) {
-  dim3 grid(cdiv(N, threads), B * H);
-  decode_kernel<T, TZ, D><<<grid, threads, 0, stream>>>((const T*)q, (const T*)k,
+                          int M, int N, Strides ks, Strides ys, cudaStream_t stream) {
+  dim3 grid(cdiv(N, DEC_THREADS), B * H);
+  decode_kernel<T, TZ, D><<<grid, DEC_THREADS, 0, stream>>>((const T*)q, (const T*)k,
                                                         (const TZ*)z, (T*)y, H, M, N, ks, ys);
   return cudaGetLastError();
 }
@@ -259,42 +284,41 @@ cudaError_t decode_launch(const void* q, const void* k, const void* z, void* y, 
 // dtype codes shared with the Python wrappers
 enum { F32 = 0, BF16 = 1 };
 
-// The head dims the kernels are built for (the paper uses 4 and 8).
+// The head dims the kernels are built for: the paper's 4 and 8.
 template <typename T, typename TZ>
 cudaError_t encode_d(int D, const void* q, const void* k, const void* v, void* z, float* mx,
                      float* den, float* part, int B, int H, int M, int N, Strides ks,
-                     Strides vs, int splits, int threads, cudaStream_t s) {
-#define FLARE_ENC(DD)                                                                      \
-  case DD:                                                                                 \
-    return encode_launch<T, TZ, DD>(q, k, v, z, mx, den, part, B, H, M, N, ks, vs, splits, \
-                                    threads, s);
+                     Strides vs, int splits, cudaStream_t s) {
   switch (D) {
-    FLARE_ENC(4) FLARE_ENC(8) FLARE_ENC(16) FLARE_ENC(32) FLARE_ENC(64)
+    case 4: return encode_launch<T, TZ, 4>(q, k, v, z, mx, den, part, B, H, M, N, ks, vs, splits, s);
+    case 8: return encode_launch<T, TZ, 8>(q, k, v, z, mx, den, part, B, H, M, N, ks, vs, splits, s);
     default: return cudaErrorInvalidValue;
   }
-#undef FLARE_ENC
 }
 
 template <typename T, typename TZ>
 cudaError_t decode_d(int D, const void* q, const void* k, const void* z, void* y, int B,
-                     int H, int M, int N, Strides ks, Strides ys, int threads,
-                     cudaStream_t s) {
-#define FLARE_DEC(DD) \
-  case DD: return decode_launch<T, TZ, DD>(q, k, z, y, B, H, M, N, ks, ys, threads, s);
+                     int H, int M, int N, Strides ks, Strides ys, cudaStream_t s) {
   switch (D) {
-    FLARE_DEC(4) FLARE_DEC(8) FLARE_DEC(16) FLARE_DEC(32) FLARE_DEC(64)
+    case 4: return decode_launch<T, TZ, 4>(q, k, z, y, B, H, M, N, ks, ys, s);
+    case 8: return decode_launch<T, TZ, 8>(q, k, z, y, B, H, M, N, ks, ys, s);
     default: return cudaErrorInvalidValue;
   }
-#undef FLARE_DEC
-}
-
-bool bad_config(int threads, int splits) {
-  return threads < 32 || threads > MAX_THREADS || threads % 32 != 0 || splits < 1;
 }
 
 }  // namespace
 
 extern "C" {
+
+// N-split of the encode for `sms` multiprocessors: enough blocks for about
+// one wave of resident threads (taken as 1024 per SM), each split keeping
+// at least 1024 tokens. The caller sizes the partials' scratch from it.
+int flare_encode_splits(int groups, int M, int N, int sms) {
+  const long long blocks = (long long)groups * cdiv(M, ENC_THREADS);
+  const long long wave = (long long)sms * 1024 / ENC_THREADS;
+  const long long splits = wave / blocks < N / 1024 ? wave / blocks : N / 1024;
+  return splits > 1 ? (int)splits : 1;
+}
 
 // q [H, M, D] contiguous; k, v [B, H, N, D] with strides (D stride 1);
 // z [B, H, M, D] contiguous of zdtype; mx, den [B, H, M] fp32 or null;
@@ -302,19 +326,18 @@ extern "C" {
 int flare_encode(const void* q, const void* k, const void* v, void* z, float* mx, float* den,
                  float* part, int B, int H, int M, int N, int D, long long ksb, long long ksh,
                  long long ksn, long long vsb, long long vsh, long long vsn, int splits,
-                 int threads, int dtype, int zdtype, void* stream) {
-  if (bad_config(threads, splits)) return cudaErrorInvalidValue;
+                 int dtype, int zdtype, void* stream) {
+  if (splits < 1 || (splits > 1 && part == nullptr)) return cudaErrorInvalidValue;
   const Strides ks{ksb, ksh, ksn}, vs{vsb, vsh, vsn};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == F32 && zdtype == F32)
-    return encode_d<float, float>(D, q, k, v, z, mx, den, part, B, H, M, N, ks, vs, splits,
-                                  threads, s);
+    return encode_d<float, float>(D, q, k, v, z, mx, den, part, B, H, M, N, ks, vs, splits, s);
   if (dtype == BF16 && zdtype == BF16)
     return encode_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, z, mx, den, part, B, H, M, N,
-                                                  ks, vs, splits, threads, s);
+                                                  ks, vs, splits, s);
   if (dtype == BF16 && zdtype == F32)
     return encode_d<__nv_bfloat16, float>(D, q, k, v, z, mx, den, part, B, H, M, N, ks, vs,
-                                          splits, threads, s);
+                                          splits, s);
   return cudaErrorInvalidValue;
 }
 
@@ -322,35 +345,16 @@ int flare_encode(const void* q, const void* k, const void* v, void* z, float* mx
 // contiguous of zdtype; y takes dtype.
 int flare_decode(const void* q, const void* k, const void* z, void* y, int B, int H, int M,
                  int N, int D, long long ksb, long long ksh, long long ksn, long long ysb,
-                 long long ysh, long long ysn, int threads, int dtype, int zdtype,
-                 void* stream) {
-  if (bad_config(threads, 1)) return cudaErrorInvalidValue;
+                 long long ysh, long long ysn, int dtype, int zdtype, void* stream) {
   const Strides ks{ksb, ksh, ksn}, ys{ysb, ysh, ysn};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == F32 && zdtype == F32)
-    return decode_d<float, float>(D, q, k, z, y, B, H, M, N, ks, ys, threads, s);
+    return decode_d<float, float>(D, q, k, z, y, B, H, M, N, ks, ys, s);
   if (dtype == BF16 && zdtype == BF16)
-    return decode_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, z, y, B, H, M, N, ks, ys, threads,
-                                                  s);
+    return decode_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, z, y, B, H, M, N, ks, ys, s);
   if (dtype == BF16 && zdtype == F32)
-    return decode_d<__nv_bfloat16, float>(D, q, k, z, y, B, H, M, N, ks, ys, threads, s);
+    return decode_d<__nv_bfloat16, float>(D, q, k, z, y, B, H, M, N, ks, ys, s);
   return cudaErrorInvalidValue;
-}
-
-// The fused forward: encode with statistics into the fp32 residuals
-// (z [B, H, M, D], mx and den [B, H, M]), then decode over fp32 Z. Z is
-// 512 KB per batch element at M = 2048, D = 8, so the decode reads it from L2.
-int flare_fused_fwd(const void* q, const void* k, const void* v, void* y, float* z, float* mx,
-                    float* den, float* part, int B, int H, int M, int N, int D, long long ksb,
-                    long long ksh, long long ksn, long long vsb, long long vsh, long long vsn,
-                    long long ysb, long long ysh, long long ysn, int splits, int enc_threads,
-                    int dec_threads, int dtype, void* stream) {
-  if (mx == nullptr || den == nullptr) return cudaErrorInvalidValue;
-  int err = flare_encode(q, k, v, z, mx, den, part, B, H, M, N, D, ksb, ksh, ksn, vsb, vsh,
-                         vsn, splits, enc_threads, dtype, F32, stream);
-  if (err != cudaSuccess) return err;
-  return flare_decode(q, k, z, y, B, H, M, N, D, ksb, ksh, ksn, ysb, ysh, ysn, dec_threads,
-                      dtype, F32, stream);
 }
 
 const char* flare_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -28,9 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of every C entry point; pointers and the stream are c_void_p
 _SIGNATURES = {
-    "flare_encode": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 4 + [_P],
-    "flare_decode": [_P] * 4 + [_I] * 5 + [_LL] * 6 + [_I] * 3 + [_P],
-    "flare_fused_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 9 + [_I] * 4 + [_P],
+    "flare_encode_splits": [_I] * 4,
+    "flare_encode": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 3 + [_P],
+    "flare_decode": [_P] * 4 + [_I] * 5 + [_LL] * 6 + [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()

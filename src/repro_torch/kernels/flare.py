@@ -8,17 +8,16 @@ Counterparts of ``repro/kernels/flare.py``:
   Y = softmax over latents of (k q^T), applied to Z.
 
 The kernels are in ``csrc/flare.cu``, whose head comment says what bounds
-them on an H100 and what their design does about it. Each wrapper takes the
-Pallas function's layout, q ``[Gq, M, D]`` with k/v ``[G, N, D]``, or the
-per-head layout q ``[H, M, D]`` with k/v ``[B, H, N, D]`` in any strides
-(the model's split-head views go in without a copy). On a CPU tensor it
-runs the plain version in ``kernels/ref.py``; on a CUDA tensor it launches
-the kernel or raises. Each counts its launches in ``<wrapper>.launches``.
-The kernels are forward-only: a call that autograd would record raises.
+them on an H100 and what their design does about it; their tiles are fixed
+there. Each wrapper takes q ``[H, M, D]`` with k/v ``[B, H, N, D]`` in any
+strides with a unit D stride (the model's split-head views go in without a
+copy). On a CPU tensor it runs the plain version in ``kernels/ref.py``; on a
+CUDA tensor it launches the kernel or raises. Each counts its launches in
+``<wrapper>.launches``. The kernels are forward-only: a call that autograd
+would record raises.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -27,19 +26,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flare_decode_ref, flare_encode_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (4, 8, 16, 32, 64)   # the head dims csrc/flare.cu is built for
-MAX_GROUPS = 65535               # B*H rides on gridDim.y
-
-
-def per_head(q: torch.Tensor, x: torch.Tensor):
-    """[G, N, D] -> [G // Gq, Gq, N, D] view (``g`` reads latents ``g % Gq``);
-    [B, H, N, D] passes through. Returns (view, grouped)."""
-    if x.dim() == 4:
-        return x, False
-    if x.dim() != 3 or x.shape[0] % q.shape[0]:
-        raise ValueError(f"expected [G, N, D] with G a multiple of Gq={q.shape[0]}, "
-                         f"got {tuple(x.shape)}")
-    return x.unflatten(0, (x.shape[0] // q.shape[0], q.shape[0])), True
+HEAD_DIMS = (4, 8)   # the head dims csrc/flare.cu is built for (the paper's)
+MAX_GROUPS = 65535   # B*H rides on gridDim.y
 
 
 def forbid_grad(name: str, *ts: torch.Tensor) -> None:
@@ -98,83 +86,75 @@ def heads_out(b: int, h: int, n: int, d: int, dtype, device) -> torch.Tensor:
     return torch.empty((b, n, h, d), dtype=dtype, device=device).permute(0, 2, 1, 3)
 
 
-def encode_splits(groups: int, m: int, n: int, threads: int, device) -> int:
-    """N-split of the encode: enough blocks for about one wave of resident
-    threads (taken as 1024 per SM), each split keeping >= 1024 tokens."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = groups * math.ceil(m / threads)
-    return max(1, min((sms * 1024 // threads) // blocks, n // 1024))
-
-
 def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def stream_of(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def encode_into(q, k, v, z, mx=None, den=None) -> None:
+    """Launch the encode (and, when N is split, its combine) into ``z``
+    [B, H, M, D] (v's dtype or fp32), and the per-latent max and den into
+    ``mx``/``den`` [B, H, M] fp32 when given. Operands already checked."""
+    b, h, n, d = k.shape
+    m = q.shape[1]
+    lib = _build.lib()
+    sms = torch.cuda.get_device_properties(k.device).multi_processor_count
+    splits = lib.flare_encode_splits(b * h, m, n, sms)
+    part = (torch.empty(splits * b * h * m * (d + 2), dtype=torch.float32, device=k.device)
+            if splits > 1 else None)
+    err = lib.flare_encode(
+        ptr(q), ptr(k), ptr(v), ptr(z), ptr(mx), ptr(den), ptr(part),
+        b, h, m, n, d, *k.stride()[:3], *v.stride()[:3],
+        splits, DTYPE_CODES[q.dtype], DTYPE_CODES[z.dtype],
+        torch.cuda.current_stream(k.device).cuda_stream)
+    _build.check(err, "flare_encode")
 
 
-def flare_encode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 block_m: int = 128) -> torch.Tensor:
-    """Z = softmax(q k^T) v, scale 1. q [Gq, M, D] with k/v [G, N, D] -> [G, M, D],
-    or q [H, M, D] with k/v [B, H, N, D] -> [B, H, M, D]; Z takes v's dtype.
-    ``block_m``: latent rows (threads) per block."""
+def decode_into(q, k, z, y) -> None:
+    """Launch the decode of ``z`` into ``y`` [B, H, N, D] (any strides with a
+    unit D stride). Operands already checked."""
+    b, h, n, d = k.shape
+    err = _build.lib().flare_decode(
+        ptr(q), ptr(k), ptr(z), ptr(y), b, h, q.shape[1], n, d,
+        *k.stride()[:3], *y.stride()[:3], DTYPE_CODES[k.dtype], DTYPE_CODES[z.dtype],
+        torch.cuda.current_stream(k.device).cuda_stream)
+    _build.check(err, "flare_decode")
+
+
+def flare_encode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Z = softmax(q k^T) v, scale 1: q [H, M, D], k/v [B, H, N, D] ->
+    Z [B, H, M, D] in v's dtype."""
     forbid_grad("flare_encode", q, k, v)
-    k4, grouped = per_head(q, k)
-    v4, _ = per_head(q, v)
-    check_operands("flare_encode", q, k4, v4)
+    check_operands("flare_encode", q, k, v)
     if not on_cuda("flare_encode", q, k, v):
         return flare_encode_ref(q, k, v)
-    check_kernel_operands("flare_encode", q, k4, v4)
-    b, h, n, d = k4.shape
-    m = q.shape[1]
-    z = torch.empty((b, h, m, d), dtype=v.dtype, device=v.device)
-    splits = encode_splits(b * h, m, n, block_m, v.device)
-    part = (torch.empty(splits * b * h * m * (d + 2), dtype=torch.float32, device=v.device)
-            if splits > 1 else None)
-    code = DTYPE_CODES[q.dtype]
-    err = _build.lib().flare_encode(
-        ptr(q), ptr(k4), ptr(v4), ptr(z), None, None, ptr(part),
-        b, h, m, n, d, *k4.stride()[:3], *v4.stride()[:3],
-        splits, block_m, code, code, stream_of(v.device))
-    _build.check(err, "flare_encode")
+    check_kernel_operands("flare_encode", q, k, v)
+    b, h, _, d = k.shape
+    z = torch.empty((b, h, q.shape[1], d), dtype=v.dtype, device=v.device)
+    encode_into(q, k, v, z)
     flare_encode.launches += 1
-    return z.flatten(0, 1) if grouped else z
+    return z
 
 
 flare_encode.launches = 0
 
 
-def flare_decode(q: torch.Tensor, k: torch.Tensor, z: torch.Tensor, *,
-                 block_n: int = 256) -> torch.Tensor:
-    """Y = softmax over latents of (k q^T), applied to z. q [Gq, M, D], k [G, N, D],
-    z [G, M, D] -> [G, N, D], or q [H, M, D], k [B, H, N, D], z [B, H, M, D]
-    -> [B, H, N, D]. z may be k's dtype or fp32; Y takes k's dtype.
-    ``block_n``: tokens (threads) per block."""
+def flare_decode(q: torch.Tensor, k: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Y = softmax over latents of (k q^T), applied to z: q [H, M, D],
+    k [B, H, N, D], z [B, H, M, D] -> Y [B, H, N, D] in k's dtype. z may be
+    k's dtype or fp32."""
     forbid_grad("flare_decode", q, k, z)
-    k4, grouped = per_head(q, k)
-    check_operands("flare_decode", q, k4)
-    b, h, n, d = k4.shape
+    check_operands("flare_decode", q, k)
+    b, h, n, d = k.shape
     m = q.shape[1]
-    z4 = z.unflatten(0, (b, h)) if grouped else z
-    if tuple(z4.shape) != (b, h, m, d):
-        raise ValueError(f"flare_decode: z must be [{b}, {h}, {m}, {d}] per head, "
-                         f"got {tuple(z.shape)}")
+    if tuple(z.shape) != (b, h, m, d):
+        raise ValueError(f"flare_decode: z must be [{b}, {h}, {m}, {d}], got {tuple(z.shape)}")
     if not on_cuda("flare_decode", q, k, z):
         return flare_decode_ref(q, k, z)
-    check_kernel_operands("flare_decode", q, k4)
+    check_kernel_operands("flare_decode", q, k)
     if z.dtype not in (k.dtype, torch.float32) or not z.is_contiguous():
         raise ValueError(f"flare_decode: z must be contiguous {k.dtype} or float32")
-    if grouped:
-        y = torch.empty((b * h, n, d), dtype=k.dtype, device=k.device)
-        y4 = y.unflatten(0, (b, h))
-    else:
-        y = y4 = heads_out(b, h, n, d, k.dtype, k.device)
-    err = _build.lib().flare_decode(
-        ptr(q), ptr(k4), ptr(z), ptr(y4), b, h, m, n, d,
-        *k4.stride()[:3], *y4.stride()[:3],
-        block_n, DTYPE_CODES[k.dtype], DTYPE_CODES[z.dtype], stream_of(k.device))
-    _build.check(err, "flare_decode")
+    y = heads_out(b, h, n, d, k.dtype, k.device)
+    decode_into(q, k, z, y)
     flare_decode.launches += 1
     return y
 

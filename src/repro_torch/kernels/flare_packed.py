@@ -9,35 +9,32 @@ The TPU kernel packs heads block-diagonally into the 128 lanes and keeps Z
 in VMEM across an encode->decode phase switch of one grid. Neither carries
 to Hopper: lane packing is an MXU artefact, and blocks cannot hand Z over
 without a grid-wide barrier. So the entry point is the encode kernel with
-statistics followed by the decode kernel over fp32 Z in device memory
-(``flare_fused_fwd`` in ``csrc/flare.cu``); Z is 512 KB per batch element at
-M=2048, D=8 and is read from L2. Forward-only until the backward kernel is
-ported: a call that autograd would record raises.
+statistics followed by the decode kernel over fp32 Z in device memory, the
+same two C entry points and ``__global__`` kernels the encode and decode
+wrappers launch (only Z's dtype and the statistics differ); Z is 512 KB per
+batch element at M=2048, D=8 and is read from L2. It counts its own
+launches. Forward-only until the backward kernel is ported: a call that
+autograd would record raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
 from repro_torch.kernels.flare import (
-    DTYPE_CODES,
     check_kernel_operands,
     check_operands,
-    encode_splits,
+    decode_into,
+    encode_into,
     forbid_grad,
     heads_out,
     on_cuda,
-    ptr,
-    stream_of,
 )
 from repro_torch.kernels.ref import flare_fused_fwd_ref
 
 
-def flare_fused_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    block_m: int = 128, block_n: int = 256):
+def flare_fused_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """q [H, M, D], k/v [B, H, N, D] (any strides) -> (y [B, H, N, D] in v's
-    dtype, Z [B, H, M, D] fp32, max [B, H, M] fp32, den [B, H, M] fp32).
-    ``block_m``/``block_n``: threads per block of the encode/decode."""
+    dtype, Z [B, H, M, D] fp32, max [B, H, M] fp32, den [B, H, M] fp32)."""
     forbid_grad("flare_fused_fwd", q, k, v)
     check_operands("flare_fused_fwd", q, k, v)
     if not on_cuda("flare_fused_fwd", q, k, v):
@@ -50,14 +47,8 @@ def flare_fused_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     z = torch.empty((b, h, m, d), dtype=torch.float32, device=dev)
     mx = torch.empty((b, h, m), dtype=torch.float32, device=dev)
     den = torch.empty((b, h, m), dtype=torch.float32, device=dev)
-    splits = encode_splits(b * h, m, n, block_m, dev)
-    part = (torch.empty(splits * b * h * m * (d + 2), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
-    err = _build.lib().flare_fused_fwd(
-        ptr(q), ptr(k), ptr(v), ptr(y), ptr(z), ptr(mx), ptr(den), ptr(part),
-        b, h, m, n, d, *k.stride()[:3], *v.stride()[:3], *y.stride()[:3],
-        splits, block_m, block_n, DTYPE_CODES[q.dtype], stream_of(dev))
-    _build.check(err, "flare_fused_fwd")
+    encode_into(q, k, v, z, mx, den)
+    decode_into(q, k, z, y)
     flare_fused_fwd.launches += 1
     return y, z, mx, den
 

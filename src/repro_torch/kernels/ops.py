@@ -1,9 +1,9 @@
 """Dispatch wrappers around the FLARE kernels.
 
-Counterpart of ``repro/kernels/ops.py``. The group layout the kernels use
-is G = B*H flattened batch-major, with the latents kept at [H, M, D] and read
-as group ``g % H``, never broadcast. The kernels take the [B, H, N, D]
-operands by their strides, so the flattening costs no copy, and they handle
+Counterpart of ``repro/kernels/ops.py``. The kernels index the groups
+G = B*H batch-major, with the latents kept at [H, M, D] and read as group
+``g % H``, never broadcast. They take the [B, H, N, D] operands by their
+strides, so the flattening costs no copy, and they handle
 ragged N and M in the loops, so nothing is padded: the 128-lane padding of
 the Pallas wrappers was for the TPU's matrix unit.
 """
@@ -17,12 +17,11 @@ from repro_torch.kernels.flare_packed import flare_fused_fwd
 KERNELS = (flare_encode, flare_decode, flare_fused_fwd)
 
 
-def flare_mixer_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      block_m: int = 128, block_n: int = 256) -> torch.Tensor:
+def flare_mixer_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The FLARE mixer through the encode and decode kernels (two launches).
     q [H, M, D], k/v [B, H, N, D] -> y [B, H, N, D]."""
     q = q.to(k.dtype)
-    return flare_decode(q, k, flare_encode(q, k, v, block_m=block_m), block_n=block_n)
+    return flare_decode(q, k, flare_encode(q, k, v))
 
 
 def reset_launch_counts() -> None:

@@ -1,51 +1,38 @@
 """Plain PyTorch versions of the FLARE kernels (the allclose targets).
 
-Counterpart of ``repro/kernels/ref.py``. Every function takes the kernels'
-two layouts:
-
-* grouped: q ``[Gq, M, D]``, k/v ``[G, N, D]`` with ``G % Gq == 0`` (group
-  ``g`` reads latent block ``g % Gq``);
-* per head: q ``[H, M, D]``, k/v ``[B, H, N, D]`` (any strides).
-
-The latents are indexed per head through the einsum, never broadcast.
-Scores and softmax statistics are fp32; the outputs take the input dtype,
-except the fused forward's residuals, which are fp32 as the kernel keeps them.
+Counterpart of ``repro/kernels/ref.py``, in the port's per-head layout:
+q ``[H, M, D]`` with k/v ``[B, H, N, D]`` (any strides). The latents are
+indexed per head through the einsum, never broadcast. Scores and softmax
+statistics are fp32 (fp64 for fp64 inputs, an exact yardstick); the outputs
+take the input dtype, except the fused forward's residuals, which are fp32
+(fp64) as the kernel keeps them.
 """
 from __future__ import annotations
 
 import torch
 
 
-def _per_head(q: torch.Tensor, x: torch.Tensor):
-    """View grouped ``[G, N, D]`` as ``[G // Gq, Gq, N, D]`` (always a view);
-    pass ``[B, H, N, D]`` through. Returns (x4, was_grouped)."""
-    if x.dim() == 4:
-        return x, False
-    return x.unflatten(0, (x.shape[0] // q.shape[0], q.shape[0])), True
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32, or in its own dtype where that is wider."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _scores(q: torch.Tensor, k4: torch.Tensor) -> torch.Tensor:
-    """[B, H, M, N] fp32 scores q k^T (scale 1, paper §3.2)."""
-    return torch.einsum("hmd,bhnd->bhmn", q.float(), k4.float())
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """[B, H, M, N] scores q k^T (scale 1, paper §3.2), at least fp32."""
+    return torch.einsum("hmd,bhnd->bhmn", _wide(q), _wide(k))
 
 
 def flare_encode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Encode: Z = softmax(q k^T) v over tokens; -> [G, M, D] or [B, H, M, D]."""
-    k4, grouped = _per_head(q, k)
-    v4, _ = _per_head(q, v)
-    w = torch.softmax(_scores(q, k4), dim=-1)
-    z = torch.einsum("bhmn,bhnd->bhmd", w, v4.float()).to(v.dtype)
-    return z.flatten(0, 1) if grouped else z
+    """Encode: Z = softmax(q k^T) v over tokens -> [B, H, M, D] in v's dtype."""
+    w = torch.softmax(_scores(q, k), dim=-1)
+    return torch.einsum("bhmn,bhnd->bhmd", w, _wide(v)).to(v.dtype)
 
 
 def flare_decode_ref(q: torch.Tensor, k: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """Decode: Y = softmax over latents of (k q^T), applied to z; z has the
-    grouped or per-head shape of the encode output. -> k's shape, k's dtype."""
-    k4, grouped = _per_head(q, k)
-    z4 = z.unflatten(0, k4.shape[:2]) if grouped else z
-    w = torch.softmax(_scores(q, k4), dim=-2)                   # over M
-    y = torch.einsum("bhmn,bhmd->bhnd", w, z4.float()).to(k.dtype)
-    return y.flatten(0, 1) if grouped else y
+    """Decode: Y = softmax over latents of (k q^T), applied to z [B, H, M, D]
+    -> [B, H, N, D] in k's dtype."""
+    w = torch.softmax(_scores(q, k), dim=-2)                   # over M
+    return torch.einsum("bhmn,bhmd->bhnd", w, _wide(z)).to(k.dtype)
 
 
 def flare_mixer_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -57,12 +44,12 @@ def flare_fused_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """The fused forward with its residuals, per head:
     q [H, M, D], k/v [B, H, N, D] -> (y [B, H, N, D] in v's dtype,
     Z [B, H, M, D] fp32, per-latent max [B, H, M] fp32, per-latent den
-    [B, H, M] fp32), where den = sum_n exp(s - max)."""
+    [B, H, M] fp32; fp64 for fp64 inputs), where den = sum_n exp(s - max)."""
     s = _scores(q, k)
     mx = s.amax(dim=-1)
     p = torch.exp(s - mx[..., None])
     den = p.sum(dim=-1)
-    z = torch.einsum("bhmn,bhnd->bhmd", p, v.float()) / den[..., None]
+    z = torch.einsum("bhmn,bhnd->bhmd", p, _wide(v)) / den[..., None]
     w = torch.softmax(s, dim=-2)
     y = torch.einsum("bhmn,bhmd->bhnd", w, z).to(v.dtype)
     return y, z, mx, den

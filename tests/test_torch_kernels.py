@@ -48,10 +48,6 @@ def _close(got, want, atol):
                                atol=atol, rtol=atol)
 
 
-def _tiles(m, n):
-    return dict(block_m=min(128, m)), dict(block_n=n)   # one N tile: no padding needed
-
-
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("grouped_q", [True, False], ids=["q_per_head", "q_per_group"])
@@ -61,12 +57,12 @@ def test_encode_matches_pallas(shape, dtype, grouped_q):
     q, k, v = _inputs(*shape)
     kg, vg = k.reshape(b * h, n, d), v.reshape(b * h, n, d)
     qg = q if grouped_q else np.tile(q, (b, 1, 1))        # Gq = H or Gq = G
-    bm, _ = _tiles(m, n)
     want = flare_encode_pallas(_j(qg, jdt), _j(kg, jdt), _j(vg, jdt), block_n=n,
-                               interpret=True, **bm)
-    got = flare_encode(_t(qg, tdt), _t(kg, tdt), _t(vg, tdt))
-    assert got.shape == (b * h, m, d) and got.dtype == tdt
-    _close(got, want, atol)
+                               block_m=min(128, m), interpret=True)
+    # the port takes the per-head layout: q [H, M, D], k/v [B, H, N, D]
+    got = flare_encode(_t(q, tdt), _t(k, tdt), _t(v, tdt))
+    assert got.shape == (b, h, m, d) and got.dtype == tdt
+    _close(got.reshape(b * h, m, d), want, atol)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -78,24 +74,23 @@ def test_decode_matches_pallas(shape, dtype):
     kg = k.reshape(b * h, n, d)
     z = np.random.default_rng(1).standard_normal((b * h, m, d)).astype(np.float32)
     want = flare_decode_pallas(_j(q, jdt), _j(kg, jdt), _j(z, jdt), block_n=n, interpret=True)
-    got = flare_decode(_t(q, tdt), _t(kg, tdt), _t(z, tdt))
-    assert got.shape == (b * h, n, d) and got.dtype == tdt
-    _close(got, want, atol)
+    got = flare_decode(_t(q, tdt), _t(k, tdt), _t(z.reshape(b, h, m, d), tdt))
+    assert got.shape == (b, h, n, d) and got.dtype == tdt
+    _close(got.reshape(b * h, n, d), want, atol)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-def test_per_head_layout_matches_grouped(shape):
-    """[B, H, N, D] strided views (the model's split heads) give what the
-    grouped [G, N, D] layout gives."""
-    b, h, m, n, d = shape
+def test_strided_views_match_contiguous(shape):
+    """[B, H, N, D] views of [B, N, H, D] storage (the model's split heads)
+    give what contiguous operands give, for every wrapper."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(*shape))
     kv = lambda x: x.transpose(1, 2).contiguous().transpose(1, 2)   # [B,N,H,D] storage
-    z4 = flare_encode(q, kv(k), kv(v))
-    zg = flare_encode(q, k.reshape(b * h, n, d), v.reshape(b * h, n, d))
-    torch.testing.assert_close(z4.reshape(b * h, m, d), zg, atol=1e-6, rtol=1e-6)
-    y4 = flare_decode(q, kv(k), z4)
-    yg = flare_decode(q, k.reshape(b * h, n, d), zg)
-    torch.testing.assert_close(y4.reshape(b * h, n, d), yg, atol=1e-6, rtol=1e-6)
+    z = flare_encode(q, k, v)
+    torch.testing.assert_close(flare_encode(q, kv(k), kv(v)), z, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(flare_decode(q, kv(k), z), flare_decode(q, k, z),
+                               atol=1e-6, rtol=1e-6)
+    for got, want in zip(flare_fused_fwd(q, kv(k), kv(v)), flare_fused_fwd(q, k, v)):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -122,9 +117,8 @@ def test_plain_mixer_matches_jax_reference():
     q, k, v = _inputs(2, 4, 16, 97, 8)
     want = jref.flare_mixer_ref(*(jnp.asarray(x) for x in (np.tile(q, (2, 1, 1)),
                                                            k.reshape(8, 97, 8), v.reshape(8, 97, 8))))
-    got = ref.flare_mixer_ref(*(torch.from_numpy(x) for x in (q, k.reshape(8, 97, 8),
-                                                              v.reshape(8, 97, 8))))
-    _close(got, want, 1e-5)
+    got = ref.flare_mixer_ref(*(torch.from_numpy(x) for x in (q, k, v)))
+    _close(got.reshape(8, 97, 8), want, 1e-5)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "packed"])
@@ -133,7 +127,7 @@ def test_kernel_backends_take_plain_path_on_cpu(backend):
     no launch counted."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(2, 4, 16, 97, 8))
     before = launch_counts()
-    y = run_plan(MixerPlan(backend, {"block_m": 128, "block_n": 256}), q, k, v)
+    y = run_plan(MixerPlan(backend), q, k, v)
     torch.testing.assert_close(y, ref.flare_mixer_ref(q, k, v), atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(flare_mixer_fused(q, k, v), y, atol=1e-5, rtol=1e-5)
     assert launch_counts() == before
@@ -146,8 +140,7 @@ def test_grad_requiring_call_raises(call):
     fns = {"encode": lambda: flare_encode(q, k, v),
            "decode": lambda: flare_decode(q, k, torch.zeros(1, 2, 16, 8)),
            "fused": lambda: flare_fused_fwd(q, k, v),
-           "packed_backend": lambda: run_plan(MixerPlan("packed", {"block_m": 128,
-                                                                   "block_n": 256}), q, k, v)}
+           "packed_backend": lambda: run_plan(MixerPlan("packed"), q, k, v)}
     with pytest.raises(RuntimeError, match="forward-only"):
         fns[call]()
     with torch.no_grad():
@@ -160,8 +153,10 @@ def test_wrappers_reject_bad_operands():
         flare_encode(q, k[:, :1], v[:, :1])                    # head count differs
     with pytest.raises(ValueError, match="dtype"):
         flare_fused_fwd(q, k, v.double())
-    with pytest.raises(ValueError, match="G a multiple"):
-        flare_encode(q, k.reshape(2, 33, 8)[:1], v.reshape(2, 33, 8)[:1])
+    with pytest.raises(ValueError, match="expected"):
+        flare_encode(q, k.reshape(2, 33, 8), v.reshape(2, 33, 8))   # the Pallas [G, N, D]
+    with pytest.raises(ValueError, match="z must be"):
+        flare_decode(q, k, torch.zeros(2, 16, 8))
     with pytest.raises(ValueError, match="no kernel for device"):
         flare_fused_fwd(*(x.to("meta") for x in (q, k, v)))
     with pytest.raises(ValueError, match="empty"):
