@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FLARE inference path on one NVIDIA GPU.
+"""Drive the PyTorch port's FLARE inference and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,14 +9,15 @@ failure so the script exits non-zero:
 
 1. the card: exits non-zero without CUDA; prints ``nvidia-smi``'s name and
    power limit;
-2. build: compiles ``src/repro_torch/csrc/flare.cu`` with nvcc and prints the
-   seconds taken and ptxas's register/shared-memory use of the D=8 kernels;
+2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc (one process per
+   source, in parallel) and prints the seconds taken and ptxas's
+   register/shared-memory use of the D=8 kernels;
 3. kernels on random operands: each CUDA kernel (encode, decode, fused
-   forward) against its plain PyTorch version, bf16 at full width (H=8,
-   M=2048, D=8, B=1, N=40,000) and a ragged shape (M=16, N=97) in fp32 and
-   bf16. Each output is held by absolute error (fp32 1e-4, bf16 2e-2) and by
-   error over the plain output's largest magnitude (fp32 1e-3, bf16 1e-2);
-   the den of the fused forward only by the latter;
+   forward, fused backward) against its plain PyTorch version, bf16 at full
+   width (H=8, M=2048, D=8, B=1, N=40,000) and a ragged shape (M=16, N=97)
+   in fp32 and bf16. Each output is held by absolute error (fp32 1e-4, bf16
+   2e-2) and by error over the plain output's largest magnitude (fp32 1e-5,
+   bf16 1e-2); the den and lse of the fused forward only by the latter;
 4. kernels on the main path's operands: block 0's own q, k, v of the model
    at pde_40k (B=8, N=40,000) and pde_1m (B=1, N=1,048,576), fp32, every
    batch element and head, the plain versions run a head at a time. Each
@@ -25,13 +26,31 @@ failure so the script exits non-zero:
    CUDA events of the kernel, the plain version and one
    ``F.scaled_dot_product_attention`` yardstick per SDPA call, at both
    shapes (the JSON line carries pde_40k's);
+4b. the backward kernel on the same operands with a seeded dy: dq, dk and dv
+   against the plain backward in fp64 on the kernel forward's residuals, a
+   head at a time, chunked over tokens; each must reject a plain backward
+   that dropped one 256-token tile of dZ, and dk also one that dropped one
+   256-latent tile. Timed beside its plain version and autograd's backward
+   through two ``F.scaled_dot_product_attention`` calls;
 5. the slice end to end: ``get_model(flare_pde)`` from a seed, whose infer
    plan must be ``packed``; point-cloud requests at pde_40k and one pde_1m
    forward, with launch counts zeroed just before and read just after; the
    same requests under policy ``pallas`` (the encode and decode kernels);
    both kernel paths held against the plain ``sdpa`` path on all 8 batch
    elements of pde_40k (abs and rel 1e-3 after 8 blocks);
-6. one JSON line of per-kernel numbers, then the card's name and power limit,
+6. training at full width and depth: ``Trainer.fit`` of ``get_model(flare_pde)``,
+   whose train plan must be ``packed``, for 20 steps at pde_40k with
+   checkpoints into a temporary directory (restored after), launch counts
+   zeroed just before and read just after (8 fused forwards and 8 fused
+   backwards a step, no plain backward), ms per step, peak GiB, the loss at
+   every step (the mean of the last 5 must be below the first 5's), a
+   profiler breakdown of one step, and the AdamW update's own time;
+6b. 3 train steps at pde_1m (B=1, N=1,048,576) through the kernels, with
+   their ms per step, peak GiB and launches (8 + 8 a step);
+7. the kernel path against the plain path in training: 5 steps under
+   ``packed`` and 5 under ``sdpa`` from the same weights and batches at B=2,
+   N=4,096, loss and grad_norm per step and the parameters after;
+8. one JSON line of per-kernel numbers, then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
@@ -60,14 +79,32 @@ ATOL = {"float32": 1e-4, "bfloat16": 2e-2}   # absolute: max |kernel - plain|
 # token tile (encode) or one latent tile (decode) must fail it: the script
 # measures that on the main path's operands and raises if it would pass.
 RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# The fp32 gradients differ in scale by three orders: dq sums over all B*N
+# tokens (max |dq| 676 at pde_40k), dk and dv over M latents (3.0, 0.29), and
+# dv shrinks as N grows. So each has its own absolute limit on the main path,
+# none looser than 1e-4 of its max |plain| at either shape (the script checks
+# that too).
+BWD_ATOL = {"dq": 1e-2, "dk": 1e-5, "dv": 1e-6}
 TILE = 256    # tokens per encode tile and latents per decode tile (csrc/flare.cu, D=8)
 PATH_TOL = 1e-3   # the kernel paths against the plain path after 8 blocks, abs and rel
-SOURCE = "src/repro_torch/csrc/flare.cu"
+# Training, the kernel path against the plain path (relative, per step): the
+# loss and grad_norm 1e-4, fp32 sums in another order through 8 blocks and
+# their backward; the parameters after 5 steps within 5% of the peak lr:
+# Adam divides each gradient by its own RMS, so a difference in a small
+# gradient comes through as a fraction of a whole step of size lr.
+TRAIN_TOL = 1e-4
+PARAM_TOL_LR = 0.05
+TRAIN_STEPS, TRAIN_LR = 20, 1e-3
+SOURCES = {name: "src/repro_torch/csrc/flare.cu"
+           for name in ("flare_encode", "flare_decode", "flare_fused_fwd")}
+SOURCES["flare_fused_bwd"] = "src/repro_torch/csrc/flare_bwd.cu"
 REPLACES = {
     "flare_encode": "src/repro/kernels/flare.py:48",
     "flare_decode": "src/repro/kernels/flare.py:150",
     "flare_fused_fwd": "src/repro/kernels/flare_packed.py:162",
+    "flare_fused_bwd": "src/repro/kernels/flare_packed.py:266",
 }
+GRADS = ("dq", "dk", "dv")
 
 
 def gpu_line() -> str:
@@ -101,8 +138,9 @@ def ptxas_summary(log: str) -> list:
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spill = f"spill {m.group(1)}/{m.group(2)} B"
         elif (m := re.search(r"Used (\d+) registers(.*)", line)) and name and "Li8E" in name:
-            kind = next(k for k in ("encode", "decode", "combine") if k in name)
-            rows.append(f"  {kind:<8} {name[:60]:<60} {m.group(1)} regs{m.group(2)} {spill}")
+            kind = next(k for k in ("encode", "decode", "combine", "dz", "dkv", "dq")
+                        if f"{k}_kernel" in name)
+            rows.append(f"  {kind:<8} {name[:70]:<70} {m.group(1)} regs{m.group(2)} {spill}")
     return rows
 
 
@@ -155,11 +193,15 @@ class Checks:
     def __init__(self):
         self.failures, self.max_abs = [], {name: 0.0 for name in REPLACES}
 
-    def hold(self, name, what, got, want, dtype, dropped=None, fp32_plain=None):
+    def hold(self, name, what, got, want, dtype, *, atol, record=False, dropped=None,
+             fp32_plain=None):
         """``want``: the plain version on the same inputs, in the kernel's
         dtype or (with ``fp32_plain``, the plain version's fp32 output) in
-        fp64. ``dropped``: the fp64 plain version with one tile left out, the
-        output of a kernel that lost a tile; the relative limit must reject it."""
+        fp64. ``atol``: the absolute limit, or None for an output held
+        relative to its size only. ``record``: count the error into the
+        kernel's ``max_abs_err``. ``dropped``: {what was left out: the fp64
+        plain version with one tile left out}, the output of a kernel that
+        lost a tile; the relative limit must reject each."""
         key = str(dtype).removeprefix("torch.")
         label = f"{name} {what}"
         like = want if fp32_plain is None else fp32_plain
@@ -169,23 +211,21 @@ class Checks:
             return
         err, scale = max_err(got, want), want.abs().max().item()
         rel = err / scale
-        # den is a sum of up to N terms: held relative to its size only
-        ok = math.isfinite(err) and rel <= RTOL[key] and (what.startswith("den")
-                                                          or err <= ATOL[key])
+        ok = math.isfinite(err) and rel <= RTOL[key] and (atol is None or err <= atol)
         line = (f"  {label:<22} max|plain| {scale:.4g}  abs err {err:.3g} (atol "
-                f"{ATOL[key]:g})  rel {rel:.3g} (rtol {RTOL[key]:g})")
+                f"{'-' if atol is None else f'{atol:g}'})  rel {rel:.3g} (rtol {RTOL[key]:g})")
         if fp32_plain is not None:
             line += f"  [fp32 plain: rel {max_err(fp32_plain, want) / scale:.3g}]"
-        if dropped is not None:
-            rel_drop = max_err(dropped, want) / scale
-            line += f"  one tile dropped: rel {rel_drop:.3g}"
+        for left_out, drop in (dropped or {}).items():
+            rel_drop = max_err(drop, want) / scale
+            line += f"  {left_out} dropped: rel {rel_drop:.3g}"
             if not rel_drop > RTOL[key]:
                 self.failures.append(f"{label}: rtol {RTOL[key]} would pass a kernel that "
-                                     f"dropped a tile (rel {rel_drop:.3g})")
+                                     f"dropped a {left_out} (rel {rel_drop:.3g})")
         print(line + ("" if ok else "  FAILED"), flush=True)
         if not ok:
             self.failures.append(f"{label}: abs {err:.3g}, rel {rel:.3g}")
-        if key == "float32" and what[0] in "yz":
+        if record:
             self.max_abs[name] = max(self.max_abs[name], err)
 
     def raise_failures(self, phase):
@@ -200,7 +240,7 @@ def check_small(checks: Checks, device) -> None:
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flare import flare_decode, flare_encode
-    from repro_torch.kernels.flare_packed import flare_fused_fwd
+    from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
 
     gen = torch.Generator().manual_seed(SEED)
     for shape_name, s in SMALL.items():
@@ -208,13 +248,24 @@ def check_small(checks: Checks, device) -> None:
                       else (torch.float32, torch.bfloat16)):
             q, k, v = inputs(s, dtype, gen, device)
             print(f"kernels {shape_name} {s} {dtype}:", flush=True)
+            atol, f32 = ATOL[str(dtype).removeprefix("torch.")], dtype == torch.float32
             z_ref = ref.flare_encode_ref(q, k, v)
-            checks.hold("flare_encode", "z", flare_encode(q, k, v), z_ref, dtype)
+            checks.hold("flare_encode", "z", flare_encode(q, k, v), z_ref, dtype, atol=atol,
+                        record=f32)
             checks.hold("flare_decode", "y", flare_decode(q, k, z_ref),
-                        ref.flare_decode_ref(q, k, z_ref), dtype)
-            for what, got, want in zip(("y", "z", "max", "den"), flare_fused_fwd(q, k, v),
+                        ref.flare_decode_ref(q, k, z_ref), dtype, atol=atol, record=f32)
+            fwd = flare_fused_fwd(q, k, v)
+            for what, got, want in zip(("y", "z", "max", "den", "lse"), fwd,
                                        ref.flare_fused_fwd_ref(q, k, v)):
-                checks.hold("flare_fused_fwd", what, got, want, dtype)
+                stat = what in ("den", "lse")   # den sums up to N terms: relative only
+                checks.hold("flare_fused_fwd", what, got, want, dtype,
+                            atol=None if stat else atol, record=f32 and what in ("y", "z"))
+            # the backward on the kernel forward's own residuals
+            dy = torch.randn(k.transpose(1, 2).shape, generator=gen).to(device, dtype)
+            bwd_in = (q, k, v, *fwd[1:], fwd[0], dy.transpose(1, 2))
+            for what, got, want in zip(GRADS, flare_fused_bwd(*bwd_in),
+                                       ref.flare_fused_bwd_ref(*bwd_in)):
+                checks.hold("flare_fused_bwd", what, got, want, dtype, atol=atol, record=f32)
     checks.raise_failures("kernels on random operands")
 
 
@@ -244,20 +295,99 @@ def check_main(checks: Checks, label: str, q, k, v) -> None:
     z32 = by_head(ref.flare_encode_ref, q, k, v)
     z64 = by_head(ref.flare_encode_ref, q64, k64, v64)
     z64_drop = by_head(drop_tokens(ref.flare_encode_ref), q64, k64, v64)
-    checks.hold("flare_encode", "z", flare_encode(q, k, v), z64, f32,
-                dropped=z64_drop, fp32_plain=z32)
+    atol = ATOL["float32"]
+    checks.hold("flare_encode", "z", flare_encode(q, k, v), z64, f32, atol=atol, record=True,
+                dropped={"token tile": z64_drop}, fp32_plain=z32)
     y32 = by_head(ref.flare_decode_ref, q, k, z32)
     zz = z32.to(torch.float64)   # the decode's input, the same for every version
     checks.hold("flare_decode", "y", flare_decode(q, k, z32), by_head(ref.flare_decode_ref, q64, k64, zz),
-                f32, dropped=by_head(drop_latents, q64, k64, zz), fp32_plain=y32)
+                f32, atol=atol, record=True, fp32_plain=y32,
+                dropped={"latent tile": by_head(drop_latents, q64, k64, zz)})
     del y32, zz
     got = flare_fused_fwd(q, k, v)
     plain32 = by_head(ref.flare_fused_fwd_ref, q, k, v)
     want = by_head(ref.flare_fused_fwd_ref, q64, k64, v64)
     drops = {"y": by_head(ref.flare_decode_ref, q64, k64, z64_drop), "z": z64_drop}
-    for what, g, w, p32 in zip(("y", "z", "max", "den"), got, want, plain32):
-        checks.hold("flare_fused_fwd", what, g, w, f32, dropped=drops.get(what), fp32_plain=p32)
+    for what, g, w, p32 in zip(("y", "z", "max", "den", "lse"), got, want, plain32):
+        stat = what in ("den", "lse")   # den sums up to N terms: relative only
+        checks.hold("flare_fused_fwd", what, g, w, f32, atol=None if stat else atol,
+                    record=what in drops, fp32_plain=p32,
+                    dropped={"token tile": drops[what]} if what in drops else None)
     checks.raise_failures(f"kernels at {label}")
+
+
+def bwd_chunk(b: int, m: int) -> int:
+    """Tokens per chunk of the plain backward: [B, 1, M, chunk] temporaries of
+    2**25 elements (256 MB in fp64)."""
+    return max(256, 2**25 // (b * m))
+
+
+def bwd_by_head(q, k, v, z, mx, den, lse, y, dy, *, drop=None):
+    """The plain backward a head at a time -> (dq [H, M, D], dk, dv
+    [B, H, N, D]). ``drop="tokens"`` leaves the first 256-token tile out of
+    dZ; ``drop="latents"`` leaves the first 256 latents out of the sums over
+    latents (dk, dv; its dq is that of the other latents)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    chunk = bwd_chunk(k.shape[0], q.shape[1])
+    outs = []
+    for i in range(q.shape[0]):
+        hs = slice(i, i + 1)
+        qh, kh, vh, zh, mxh, denh, lseh, yh, dyh = (
+            q[hs], k[:, hs], v[:, hs], z[:, hs], mx[:, hs], den[:, hs], lse[:, hs], y[:, hs],
+            dy[:, hs])
+        if drop == "tokens":
+            dz = ref.flare_bwd_dz_ref(qh, kh[:, :, TILE:], lseh[:, :, TILE:], dyh[:, :, TILE:],
+                                      chunk=chunk)
+        else:
+            dz = ref.flare_bwd_dz_ref(qh, kh, lseh, dyh, chunk=chunk)
+        if drop == "latents":
+            qh, zh, mxh, denh, dz = qh[:, TILE:], zh[:, :, TILE:], mxh[:, :, TILE:], \
+                denh[:, :, TILE:], dz[:, :, TILE:]
+        outs.append(ref.flare_bwd_grads_ref(qh, kh, vh, zh, mxh, denh, lseh, yh, dyh, dz,
+                                            chunk=chunk))
+    dq, dk, dv = zip(*outs)
+    return torch.cat(dq, dim=0), torch.cat(dk, dim=1), torch.cat(dv, dim=1)
+
+
+def check_bwd_main(checks: Checks, label: str, q, k, v, dy):
+    """The backward kernel on block 0's own q, k, v and a seeded dy, every
+    batch element and head, against the plain backward in fp64 on the kernel
+    forward's residuals (widened), a head at a time and chunked over tokens.
+    Each gradient must reject the fp64 plain backward with one 256-token tile
+    of dZ left out, and dk also the one with 256 latents left out. Returns
+    the forward's residuals for the timing."""
+    import torch
+
+    from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
+
+    b, h, n, d = k.shape
+    print(f"kernels {label} backward (block 0's operands, seeded dy, B={b} H={h} "
+          f"M={q.shape[1]} N={n} D={d} fp32, chunk {bwd_chunk(b, q.shape[1])}; held against "
+          "the plain backward in fp64):", flush=True)
+    y, *res = flare_fused_fwd(q, k, v)
+    inputs = (q, k, v, *res, y, dy)
+    got = flare_fused_bwd(*inputs)
+    torch.cuda.synchronize()
+    plain32 = bwd_by_head(*inputs)
+    wide = tuple(t.to(torch.float64) for t in inputs)
+    want = bwd_by_head(*wide)
+    no_tile = bwd_by_head(*wide, drop="tokens")
+    no_latents = bwd_by_head(*wide, drop="latents")
+    for i, what in enumerate(GRADS):
+        dropped = {"dZ token tile": no_tile[i]}
+        if what == "dk":
+            dropped["latent tile"] = no_latents[i]
+        scale = want[i].abs().max().item()
+        if BWD_ATOL[what] > 1e-4 * scale:
+            checks.failures.append(f"flare_fused_bwd {what}: atol {BWD_ATOL[what]:g} is looser "
+                                   f"than 1e-4 of max|plain| {scale:.4g}")
+        checks.hold("flare_fused_bwd", what, got[i], want[i], torch.float32,
+                    atol=BWD_ATOL[what], record=True, dropped=dropped, fp32_plain=plain32[i])
+    checks.raise_failures(f"backward kernel at {label}")
+    return y, res
 
 
 def time_kernels(q, k, v) -> dict:
@@ -292,7 +422,7 @@ def time_kernels(q, k, v) -> dict:
         "flare_encode": (2 * 2 * mnd, qkv + f4 * b * h * m * d),
         "flare_decode": (2 * 2 * mnd, qkv + f4 * b * h * m * d),
         # the scores are needed once: three products
-        "flare_fused_fwd": (3 * 2 * mnd, qkv + f4 * (b * h * n * d + b * h * m * (d + 2))),
+        "flare_fused_fwd": (3 * 2 * mnd, qkv + f4 * (b * h * n * (d + 1) + b * h * m * (d + 2))),
     }
     stats = {}
     for name, (kern, plain, lib) in runs.items():
@@ -302,6 +432,39 @@ def time_kernels(q, k, v) -> dict:
             ms=cuda_ms(kern, reps=10), plain_ms=cuda_ms(plain, reps=2),
             library_ms=cuda_ms(lib, reps=5), bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return stats
+
+
+def time_bwd(q, k, v, dy, y, res) -> dict:
+    """CUDA-event times of the backward kernel, its plain version (a head at
+    a time, chunked) and autograd's backward through two SDPA calls on the
+    same operands, with the bound of the work: seven products of
+    2*B*H*M*N*D FLOP (S, dZ, dW, dA, dk, dv, dq); bytes of q, k, v, y, dy,
+    the residuals and dq, dk, dv, each once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flare_packed import flare_fused_bwd
+
+    b, h, n, d = k.shape
+    m = q.shape[1]
+    inputs = (q, k, v, *res, y, dy)
+    qe = q.detach().clone().requires_grad_(True)
+    kk, vv = (t.detach().clone().requires_grad_(True) for t in (k, v))
+    qb = qe.expand(b, h, m, d)
+    sdpa = lambda a, bb, c: F.scaled_dot_product_attention(a, bb, c, scale=1.0)
+    y_lib = sdpa(kk, qb, sdpa(qb, kk, vv))
+    f4, mnd = 4, b * h * m * n * d
+    flops = 7 * 2 * mnd
+    nbytes = f4 * (2 * h * m * d + 6 * b * h * n * d + b * h * n + b * h * m * (d + 2))
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BW * 1e3
+    stats = dict(
+        ms=cuda_ms(lambda: flare_fused_bwd(*inputs), reps=5),
+        plain_ms=cuda_ms(lambda: bwd_by_head(*inputs), reps=1, warmup=0),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(y_lib, (qe, kk, vv), dy,
+                                                       retain_graph=True), reps=3),
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+    del y_lib
     return stats
 
 
@@ -360,6 +523,203 @@ def breakdown(model, net, batch, label: str) -> None:
         print(f"  {100 * ms / total:5.1f}%  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
+def train_breakdown(step_fn, label: str) -> None:
+    """Device time of one train step by kernel name (torch.profiler), and
+    the device's busy share of its wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    total = sum(ms for _, ms, _ in rows)
+    if total == 0:
+        print(f"breakdown {label}: the profiler recorded no device time (not measured)")
+        return
+    print(f"breakdown {label}: wall {wall_ms:.3f} ms, device busy {total:.3f} ms "
+          f"({100 * total / wall_ms:.1f}%)")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"  {100 * ms / total:5.1f}%  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+
+
+def train(cfg, shape) -> dict:
+    """Trainer.fit at full width and depth on pde_40k point clouds: launch
+    counts zeroed just before the fit and read just after; checkpoints into
+    a temporary directory, restored by a second trainer."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pde_data import pointcloud_batch
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.api import get_model
+    from repro_torch.train import Trainer
+
+    model = get_model(cfg)
+    plan = model.plans["train"].describe()
+    print(f"training {cfg.name}: plans {{train: {plan}, infer: {model.plans['infer'].describe()}}}"
+          f" at {shape.name} B={shape.global_batch} N={shape.seq_len}, {TRAIN_STEPS} steps, "
+          f"peak lr {TRAIN_LR}", flush=True)
+    if plan != "packed":
+        raise AssertionError(f"train plan {plan} is not the fused kernels")
+    batches = [pointcloud_batch(SEED, i, shape.global_batch, grid=256, num_points=shape.seq_len)
+               for i in range(4)]
+    with tempfile.TemporaryDirectory() as ckdir:
+        tcfg = TrainConfig(steps=TRAIN_STEPS, learning_rate=TRAIN_LR, seed=SEED,
+                           checkpoint_every=10, checkpoint_dir=ckdir, log_every=5)
+        trainer = Trainer(model, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        history = trainer.fit(lambda step: batches[step % len(batches)])
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        resumed = Trainer(model, tcfg)
+        same = all(torch.equal(a, b) for a, b in zip(trainer.net.parameters(),
+                                                    resumed.net.parameters()))
+        steps_saved = trainer.ckpt.all_steps()
+    losses = [h["loss"] for h in history]
+    step_ms = [1e3 * h["time"] for h in history]
+    ms = sum(step_ms[2:]) / len(step_ms[2:])
+    print(f"train losses: {[round(x, 6) for x in losses]}")
+    print(f"train grad_norm: {[round(h['grad_norm'], 4) for h in history]}")
+    print(f"train ms/step: {[round(t, 3) for t in step_ms]}")
+    print(f"train {shape.name}: {ms:.3f} ms/step (mean of steps 3-{TRAIN_STEPS}, host clock "
+          f"around synchronized steps), peak {peak:.2f} GiB; launches {counts}; checkpoints "
+          f"{steps_saved}, restored at step {resumed.step} equal: {same}", flush=True)
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    per_step = TRAIN_STEPS * cfg.num_layers
+    if not (counts["flare_fused_fwd"] == counts["flare_fused_bwd"] == per_step
+            and counts["flare_encode"] == counts["flare_decode"] == 0):
+        raise AssertionError(f"train path launches {counts}")
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"loss did not fall: first 5 mean {first}, last 5 mean {last}")
+    if not (same and resumed.step == TRAIN_STEPS):
+        raise AssertionError("the checkpoint did not restore the trained parameters")
+    print(f"train loss: mean of first 5 {first:.6f}, last 5 {last:.6f}", flush=True)
+    # before the profiler runs: ops after a profiler session took 5x longer
+    print(f"adamw: {adamw_ms(trainer.net):.3f} ms/update over "
+          f"{len(list(trainer.net.parameters()))} parameter tensors", flush=True)
+    batch = batches[0]
+    train_breakdown(lambda: trainer._train_step(trainer.net, trainer.opt_state, batch),
+                    f"train step {shape.name}")
+    return {"counts": counts, "ms": ms, "peak": peak}
+
+
+def adamw_ms(net, reps: int = 10) -> float:
+    """Host clock around synchronized AdamW updates of a copy of the model's
+    parameters with random gradients, after a warm-up."""
+    import torch
+
+    from repro_torch.optim import adamw_update, init_adamw
+
+    params = {k: p.detach().clone() for k, p in net.named_parameters()}
+    grads = {k: torch.randn_like(p) for k, p in params.items()}
+    state = init_adamw(params)
+    update = lambda: adamw_update(params, grads, state, lr=1e-4, weight_decay=1e-5,
+                                  grad_clip=1.0)
+    update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        update()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def train_1m(cfg, shape, steps: int = 3) -> dict:
+    """A few train steps at pde_1m through the kernels: launch counts zeroed
+    just before and read just after, ms per step after the first, peak GiB."""
+    import torch
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pde_data import darcy_batch
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import init_adamw
+    from repro_torch.train import make_train_step
+
+    model = get_model(cfg)
+    net = model.init(SEED)
+    batch = darcy_batch(SEED, 1, shape.global_batch, grid=int(math.isqrt(shape.seq_len)))
+    step_fn = make_train_step(model.loss, TrainConfig(steps=steps, learning_rate=TRAIN_LR,
+                                                      seed=SEED))
+    opt = init_adamw(dict(net.named_parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step_fn(net, opt, batch)[2]["loss"]))   # float() syncs
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = sum(times[1:]) / len(times[1:])
+    print(f"train {shape.name} B={shape.global_batch} N={shape.seq_len}: ms/step "
+          f"{[round(t, 3) for t in times]}, {ms:.3f} ms/step after the first, peak {peak:.2f} "
+          f"GiB, losses {losses}, launches {counts}", flush=True)
+    if not (counts["flare_fused_fwd"] == counts["flare_fused_bwd"] == steps * cfg.num_layers
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"pde_1m training: launches {counts}, losses {losses}")
+    return counts
+
+
+def train_paths_agree(cfg) -> None:
+    """5 steps under the packed kernels and 5 under the plain sdpa path from
+    the same weights and batches, at B=2, N=4,096 (the plain path's saved
+    scores fit there): loss and grad_norm per step, parameters after."""
+    import torch
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.policy import MixerPolicy
+    from repro_torch.data.pde_data import pointcloud_batch
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import init_adamw
+    from repro_torch.train import make_train_step
+
+    steps = 5
+    tcfg = TrainConfig(steps=steps, learning_rate=TRAIN_LR, seed=SEED)
+    batches = [pointcloud_batch(SEED, 100 + i, 2, grid=128, num_points=4096)
+               for i in range(steps)]
+    runs = {}
+    for backend in ("packed", "sdpa"):
+        model = get_model(cfg, policy=MixerPolicy(backends=(backend,)))
+        net = model.init(SEED)
+        step_fn = make_train_step(model.loss, tcfg)
+        opt = init_adamw(dict(net.named_parameters()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        mets = [step_fn(net, opt, batch)[2] for batch in batches]
+        runs[backend] = dict(
+            loss=[float(x["loss"]) for x in mets], gnorm=[float(x["grad_norm"]) for x in mets],
+            params={k: p.detach().clone() for k, p in net.named_parameters()},
+            counts=launch_counts(), peak=torch.cuda.max_memory_allocated() / 2**30)
+        print(f"train path {backend} B=2 N=4096: losses {runs[backend]['loss']}, grad_norm "
+              f"{runs[backend]['gnorm']}, peak {runs[backend]['peak']:.2f} GiB, launches "
+              f"{runs[backend]['counts']}", flush=True)
+    pk, pl = runs["packed"], runs["sdpa"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(pk["loss"], pl["loss"]))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(pk["gnorm"], pl["gnorm"]))
+    param_err = max((pk["params"][k] - pl["params"][k]).abs().max().item() for k in pk["params"])
+    print(f"train path packed vs sdpa over {steps} steps: loss rel {loss_rel:.3g}, grad_norm rel "
+          f"{gnorm_rel:.3g} (limit {TRAIN_TOL:g}), parameters max abs diff {param_err:.3g} "
+          f"(limit {PARAM_TOL_LR:g} x lr = {PARAM_TOL_LR * TRAIN_LR:g})", flush=True)
+    if pk["counts"]["flare_fused_bwd"] != steps * cfg.num_layers or pl["counts"]["flare_fused_bwd"]:
+        raise AssertionError(f"launches packed {pk['counts']}, sdpa {pl['counts']}")
+    if not (loss_rel <= TRAIN_TOL and gnorm_rel <= TRAIN_TOL
+            and param_err <= PARAM_TOL_LR * TRAIN_LR):
+        raise AssertionError("the packed training path differs from the plain path")
+
+
 def drive(model, net, batches: dict, label: str) -> dict:
     """One counted window: launch counts zeroed just before, read just after."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
@@ -415,8 +775,8 @@ def main() -> int:
     cfg = get_config("flare_pde")
     model = get_model(cfg)
     plan = model.plans["infer"].describe()
-    print(f"model {cfg.name}: plans {{infer: {plan}, train: {model.plans['train'].describe()}"
-          " (training runs on plain torch until the backward kernel lands)}}", flush=True)
+    print(f"model {cfg.name}: plans {{infer: {plan}, train: {model.plans['train'].describe()}}}"
+          " (train: the fused forward and backward kernels through autograd)", flush=True)
     if plan != "packed":
         raise AssertionError(f"infer plan {plan} is not the fused kernel")
     net = model.init(SEED)
@@ -428,19 +788,24 @@ def main() -> int:
     print(f"data: pde_40k {tuple(b40['x'].shape)}, pde_1m {tuple(b1m['x'].shape)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    # each kernel on the operands the main path gives it, at both shapes
-    ops40 = mixer_operands(net, b40["x"])
-    check_main(checks, "pde_40k", *ops40)
-    stats = time_kernels(*ops40)
-    for name, st in stats.items():
-        print(f"time {name} pde_40k fp32: {st}", flush=True)
-    del ops40
-    ops1m = mixer_operands(net, b1m["x"])
-    check_main(checks, "pde_1m", *ops1m)
-    for name, st in time_kernels(*ops1m).items():
-        print(f"time {name} pde_1m fp32: {st}", flush=True)
-    del ops1m
-    torch.cuda.empty_cache()
+    # each kernel on the operands the main path gives it, at both shapes; the
+    # backward with a seeded dy laid out as the model's [B, N, H, D] gradient
+    gen = torch.Generator().manual_seed(SEED + 1)
+    stats = {}
+    for label, batch in (("pde_40k", b40), ("pde_1m", b1m)):
+        ops = mixer_operands(net, batch["x"])
+        check_main(checks, label, *ops)
+        b, h, n, d = ops[1].shape
+        dy = torch.randn(b, n, h, d, generator=gen).to(device).transpose(1, 2)
+        y, res = check_bwd_main(checks, label, *ops, dy)
+        times = time_kernels(*ops)
+        times["flare_fused_bwd"] = time_bwd(*ops, dy, y, res)
+        for name, st in times.items():
+            print(f"time {name} {label} fp32: {st}", flush=True)
+        if label == "pde_40k":
+            stats = times
+        del ops, dy, y, res
+        torch.cuda.empty_cache()
 
     packed = drive(model, net, {"pde_40k": (b40, 3), "pde_1m": (b1m, 2)}, "packed")
     pallas_model = get_model(cfg, policy=MixerPolicy(backends=("pallas",)))
@@ -448,13 +813,12 @@ def main() -> int:
     breakdown(model, net, b40, "packed pde_40k")
     breakdown(model, net, b1m, "packed pde_1m")
     c_pk, c_pl = packed["counts"], pallas["counts"]
-    if not (c_pk["flare_fused_fwd"] > 0 and c_pk["flare_encode"] == c_pk["flare_decode"] == 0):
+    if not (c_pk["flare_fused_fwd"] > 0 and c_pk["flare_encode"] == c_pk["flare_decode"]
+            == c_pk["flare_fused_bwd"] == 0):
         raise AssertionError(f"packed path launches {c_pk}")
-    if not (c_pl["flare_encode"] > 0 and c_pl["flare_decode"] > 0 and c_pl["flare_fused_fwd"] == 0):
+    if not (c_pl["flare_encode"] > 0 and c_pl["flare_decode"] > 0
+            and c_pl["flare_fused_fwd"] == c_pl["flare_fused_bwd"] == 0):
         raise AssertionError(f"pallas path launches {c_pl}")
-    for name in stats:
-        stats[name]["launches"] = c_pk[name] + c_pl[name]
-        stats[name]["max_abs_err"] = checks.max_abs[name]
 
     # the kernel paths against the plain path on the same weights, every
     # batch element (the plain path runs one at a time: its scores are
@@ -470,8 +834,24 @@ def main() -> int:
               f"(atol {PATH_TOL}), rel {err / scale:.3g} (rtol {PATH_TOL})", flush=True)
         if not (err <= PATH_TOL and err / scale <= PATH_TOL):
             raise AssertionError(f"{label} path differs from the plain path by {err}")
+    del packed, pallas, y_plain, b1m
+    torch.cuda.empty_cache()
 
-    rows = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+    # training: the fused forward and backward kernels under autograd
+    trained = train(cfg, s40)
+    torch.cuda.empty_cache()
+    trained_1m = train_1m(cfg, s1m)
+    torch.cuda.empty_cache()
+    # a comparison, not a main-path run: its launches are checked there, not counted
+    train_paths_agree(cfg)
+    # launches: every counted window of the main paths (inference under
+    # packed and pallas, the training fit and the pde_1m train steps)
+    for name in stats:
+        stats[name]["launches"] = sum(c[name] for c in (c_pk, c_pl, trained["counts"],
+                                                        trained_1m))
+        stats[name]["max_abs_err"] = checks.max_abs[name]
+
+    rows = [{"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
              **{key: stats[name][key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
                                                   "bound_ms", "bound_by", "library_ms")}}
             for name in REPLACES]

@@ -1,7 +1,7 @@
 """Reference backend: the paper's two SDPA calls (Fig. 3) in plain torch math.
 
-It is the "auto" pick for a differentiated call (the kernels are
-forward-only so far) and the tolerance reference of every other backend.
+It is the "auto" pick on the CPU, for inference and training, and the
+tolerance reference of every other backend.
 It does not call ``F.scaled_dot_product_attention``.
 """
 from __future__ import annotations

@@ -36,46 +36,23 @@
 //     are zero-filled past the edge, and masked scores are -1e30, whose exp
 //     is exactly 0, so no row comes out NaN;
 //   * K, V and Y are taken with strides ([B, H, N, D] views of [B, N, H*D]
-//     activations), so the model never copies a transposed tensor.
+//     activations), so the model never copies a transposed tensor;
+//   * for training, the fused forward also has the decode write each token's
+//     log-sum-exp over the latents (an O(N) fp32 residual): the backward
+//     kernels in flare_bwd.cu recompute the decode weights from it, since a
+//     per-latent thread cannot see all M scores of a token. The pallas path
+//     passes null and writes nothing.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flare_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int CH = 16;            // scores per chunk (one rescale per chunk)
-constexpr int TILE_FLOATS = 2048; // floats per shared tile buffer (8 KB)
-constexpr int ENC_THREADS = 128;  // encode: latent rows per block
-constexpr int DEC_THREADS = 256;  // decode: tokens per block
+using namespace flare;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-struct Strides {  // element strides of a [B, H, N, D] operand; the D stride is 1
-  long long b, h, n;
-};
-
-// Stage rows [r0, r0 + rows) of a strided [*, D] operand into shared memory
-// as fp32, zero-filling up to `cap` rows so that masked lanes read zeros.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long row_stride,
-                                      int r0, int rows, int cap) {
-  for (int i = threadIdx.x; i < cap * D; i += blockDim.x) {
-    const int r = i / D, c = i % D;
-    dst[i] = r < rows ? to_f(src[(long long)(r0 + r) * row_stride + c]) : 0.f;
-  }
-}
+constexpr int CH = 16;  // scores per chunk (one rescale per chunk)
 
 // Online-softmax state of one output row, summed in two levels: the scores
 // of the current shared tile go into partial sums (den, acc) taken against
@@ -222,7 +199,8 @@ __global__ void combine_kernel(const float* __restrict__ part, TZ* __restrict__ 
 template <typename T, typename TZ, int D>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const TZ* __restrict__ z,
-              T* __restrict__ y, int H, int M, int N, Strides ks, Strides ys) {
+              T* __restrict__ y, float* __restrict__ lse_out, int H, int M, int N, Strides ks,
+              Strides ys) {
   constexpr int TM = TILE_FLOATS / D;
   __shared__ float q_s[TILE_FLOATS];
   __shared__ float z_s[TILE_FLOATS];
@@ -251,9 +229,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const TZ* __rest
   T* yn = y + b * ys.b + h * ys.h + (long long)n * ys.n;
 #pragma unroll
   for (int d = 0; d < D; ++d) yn[d] = from_f<T>(st.tot[d] * inv);
+  if (lse_out != nullptr) lse_out[(long long)g * N + n] = st.tot_mx + logf(st.tot_den);
 }
-
-inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 template <typename T, typename TZ, int D>
 cudaError_t encode_launch(const void* q, const void* k, const void* v, void* z, float* mx,
@@ -273,16 +250,14 @@ cudaError_t encode_launch(const void* q, const void* k, const void* v, void* z, 
 }
 
 template <typename T, typename TZ, int D>
-cudaError_t decode_launch(const void* q, const void* k, const void* z, void* y, int B, int H,
-                          int M, int N, Strides ks, Strides ys, cudaStream_t stream) {
+cudaError_t decode_launch(const void* q, const void* k, const void* z, void* y, float* lse,
+                          int B, int H, int M, int N, Strides ks, Strides ys,
+                          cudaStream_t stream) {
   dim3 grid(cdiv(N, DEC_THREADS), B * H);
-  decode_kernel<T, TZ, D><<<grid, DEC_THREADS, 0, stream>>>((const T*)q, (const T*)k,
-                                                        (const TZ*)z, (T*)y, H, M, N, ks, ys);
+  decode_kernel<T, TZ, D><<<grid, DEC_THREADS, 0, stream>>>(
+      (const T*)q, (const T*)k, (const TZ*)z, (T*)y, lse, H, M, N, ks, ys);
   return cudaGetLastError();
 }
-
-// dtype codes shared with the Python wrappers
-enum { F32 = 0, BF16 = 1 };
 
 // The head dims the kernels are built for: the paper's 4 and 8.
 template <typename T, typename TZ>
@@ -297,11 +272,11 @@ cudaError_t encode_d(int D, const void* q, const void* k, const void* v, void* z
 }
 
 template <typename T, typename TZ>
-cudaError_t decode_d(int D, const void* q, const void* k, const void* z, void* y, int B,
-                     int H, int M, int N, Strides ks, Strides ys, cudaStream_t s) {
+cudaError_t decode_d(int D, const void* q, const void* k, const void* z, void* y, float* lse,
+                     int B, int H, int M, int N, Strides ks, Strides ys, cudaStream_t s) {
   switch (D) {
-    case 4: return decode_launch<T, TZ, 4>(q, k, z, y, B, H, M, N, ks, ys, s);
-    case 8: return decode_launch<T, TZ, 8>(q, k, z, y, B, H, M, N, ks, ys, s);
+    case 4: return decode_launch<T, TZ, 4>(q, k, z, y, lse, B, H, M, N, ks, ys, s);
+    case 8: return decode_launch<T, TZ, 8>(q, k, z, y, lse, B, H, M, N, ks, ys, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -342,18 +317,19 @@ int flare_encode(const void* q, const void* k, const void* v, void* z, float* mx
 }
 
 // q [H, M, D] contiguous; k, y [B, H, N, D] with strides; z [B, H, M, D]
-// contiguous of zdtype; y takes dtype.
-int flare_decode(const void* q, const void* k, const void* z, void* y, int B, int H, int M,
-                 int N, int D, long long ksb, long long ksh, long long ksn, long long ysb,
+// contiguous of zdtype; y takes dtype; lse [B, H, N] fp32 or null: each
+// token's log-sum-exp over the latents, the backward's decode statistic.
+int flare_decode(const void* q, const void* k, const void* z, void* y, float* lse, int B, int H,
+                 int M, int N, int D, long long ksb, long long ksh, long long ksn, long long ysb,
                  long long ysh, long long ysn, int dtype, int zdtype, void* stream) {
   const Strides ks{ksb, ksh, ksn}, ys{ysb, ysh, ysn};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == F32 && zdtype == F32)
-    return decode_d<float, float>(D, q, k, z, y, B, H, M, N, ks, ys, s);
+    return decode_d<float, float>(D, q, k, z, y, lse, B, H, M, N, ks, ys, s);
   if (dtype == BF16 && zdtype == BF16)
-    return decode_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, z, y, B, H, M, N, ks, ys, s);
+    return decode_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, z, y, lse, B, H, M, N, ks, ys, s);
   if (dtype == BF16 && zdtype == F32)
-    return decode_d<__nv_bfloat16, float>(D, q, k, z, y, B, H, M, N, ks, ys, s);
+    return decode_d<__nv_bfloat16, float>(D, q, k, z, y, lse, B, H, M, N, ks, ys, s);
   return cudaErrorInvalidValue;
 }
 

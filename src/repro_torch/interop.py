@@ -1,4 +1,4 @@
-"""Carry a JAX parameter pytree into the port's modules.
+"""Carry parameters between a JAX parameter pytree and the port's modules.
 
 The tree arrives as nested dicts and lists of numpy arrays (``jax.tree.map(
 np.asarray, params)``), so this module needs no JAX. Paths become
@@ -6,6 +6,12 @@ np.asarray, params)``), so this module needs no JAX. Paths become
 ``kernel`` ``[in, out]`` becomes the ``weight`` ``[out, in]`` of an
 ``nn.Linear``. Every parity test loads its weights through here: the two
 frameworks' random generators differ, so weights are never re-initialised.
+
+The other direction, :func:`to_jax_flat`, gives the flat form the
+checkpoints hold: the JAX leaf paths joined by ``/``
+(``blocks/0/mixer/k_proj/res/1/kernel``) with dense kernels ``[in, out]``.
+:func:`from_jax_flat` inverts it, so a checkpoint written by either package
+restores in the other.
 """
 from __future__ import annotations
 
@@ -14,23 +20,26 @@ import torch
 from torch import nn
 
 
-def params_from_jax(tree, prefix: str = "") -> dict:
+def params_from_jax(tree) -> dict:
     """Nested dicts/lists of arrays -> a flat ``state_dict`` of CPU tensors."""
-    out = {}
+    return from_jax_flat(_jax_leaves(tree))
+
+
+def _jax_leaves(tree, prefix: str = "") -> dict:
+    """Nested dicts/lists of arrays -> ``{jax/leaf/path: array}``."""
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
         items = ((str(i), t) for i, t in enumerate(tree))
     else:
         raise TypeError(f"unexpected leaf container {type(tree)!r} at {prefix!r}")
+    out = {}
     for key, sub in items:
         path = f"{prefix}{key}"
         if isinstance(sub, (dict, list, tuple)):
-            out.update(params_from_jax(sub, path + "."))
-        elif key == "kernel":
-            out[f"{prefix}weight"] = torch.from_numpy(np.array(sub).T.copy())
+            out.update(_jax_leaves(sub, path + "/"))
         else:
-            out[path] = torch.from_numpy(np.array(sub))
+            out[path] = sub
     return out
 
 
@@ -38,3 +47,34 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
     """Load a JAX parameter tree into ``module`` (strict: every key must match)."""
     module.load_state_dict(params_from_jax(tree), strict=True)
     return module
+
+
+def to_jax_flat(tensors) -> dict:
+    """``state_dict``-keyed tensors (parameters, or per-parameter optimizer
+    moments) -> ``{jax/leaf/path: numpy array}``, dense weights as ``[in, out]``
+    kernels. Copies to the host; bf16, which numpy lacks, widens to fp32."""
+    out = {}
+    for key, t in tensors.items():
+        t = t.detach().cpu()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        out[jax_key(key)] = np.ascontiguousarray(arr.T if key.endswith(".weight") else arr)
+    return out
+
+
+def jax_key(name: str) -> str:
+    """``blocks.0.mixer.k_proj.res.1.weight`` -> ``blocks/0/mixer/k_proj/res/1/kernel``."""
+    *path, leaf = name.split(".")
+    return "/".join([*path, "kernel" if leaf == "weight" else leaf])
+
+
+def from_jax_flat(flat) -> dict:
+    """The inverse of :func:`to_jax_flat`: ``{jax/leaf/path: array}`` -> a
+    flat ``state_dict`` of CPU tensors."""
+    out = {}
+    for key, arr in flat.items():
+        *path, leaf = key.split("/")
+        arr = np.array(arr)
+        if leaf == "kernel":
+            leaf, arr = "weight", arr.T
+        out[".".join([*path, leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out

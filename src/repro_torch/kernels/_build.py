@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/flare.cu`` for ``sm_90a`` into a shared library
+``nvcc`` compiles each source in ``csrc/`` for ``sm_90a`` (one process per
+source, all started together) and links the objects into one shared library
 with a plain C interface, which ``ctypes`` loads; no PyTorch header is
 compiled, so a build takes seconds. It runs at first use, from the sources
 in the checkout only, into ``build/repro_torch/`` at the repository root
 (listed in ``.gitignore``). The library's file name carries a hash of the
-sources and flags, so an edited source is never served by a stale build.
+sources, headers and flags, so an edited source is never served by a stale
+build.
 """
 from __future__ import annotations
 
@@ -20,17 +22,20 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flare.cu",)
+SOURCES = ("flare.cu", "flare_bwd.cu")
+HEADERS = ("flare_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")   # optimize the kernel instances on all cores
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# argtypes of every C entry point; pointers and the stream are c_void_p
+_PLL = ctypes.POINTER(ctypes.c_longlong)
+# argtypes of every C entry point; device pointers and the stream are c_void_p
 _SIGNATURES = {
     "flare_encode_splits": [_I] * 4,
     "flare_encode": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 3 + [_P],
-    "flare_decode": [_P] * 4 + [_I] * 5 + [_LL] * 6 + [_I] * 2 + [_P],
+    "flare_decode": [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_I] * 2 + [_P],
+    "flare_fused_bwd": [_P] * 14 + [_I] * 5 + [_PLL] + [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()
@@ -49,7 +54,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -57,20 +62,31 @@ def _digest() -> str:
 def build(force: bool = False) -> Path:
     """Compile the kernels (unless a library for these sources exists) and
     return the library's path. Safe against concurrent builds: each writes
-    a private file and renames it into place."""
+    private files and renames the library into place."""
     global build_log, build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"libflare_{_digest()}.so"
     if out.exists() and not force:
         return out
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

@@ -13,8 +13,10 @@ there. Each wrapper takes q ``[H, M, D]`` with k/v ``[B, H, N, D]`` in any
 strides with a unit D stride (the model's split-head views go in without a
 copy). On a CPU tensor it runs the plain version in ``kernels/ref.py``; on a
 CUDA tensor it launches the kernel or raises. Each counts its launches in
-``<wrapper>.launches``. The kernels are forward-only: a call that autograd
-would record raises.
+``<wrapper>.launches``. These wrappers are forward-only: a call that
+autograd would record raises. Autograd runs through the fused kernels'
+``FlareFused`` function (``kernels/flare_packed.py``, the ``packed``
+backend), whose backward is a kernel too.
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ MAX_GROUPS = 65535   # B*H rides on gridDim.y
 
 def forbid_grad(name: str, *ts: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError(f"{name} is forward-only: its backward kernel is not ported "
-                           "yet; run it under torch.no_grad() or use a grad-capable backend")
+        raise RuntimeError(f"{name} is forward-only: run it under torch.no_grad(), or "
+                           "differentiate through the 'packed' backend (FlareFused in "
+                           "kernels/flare_packed.py), whose backward is the fused kernel")
 
 
 def on_cuda(name: str, *ts: torch.Tensor) -> bool:
@@ -109,12 +112,13 @@ def encode_into(q, k, v, z, mx=None, den=None) -> None:
     _build.check(err, "flare_encode")
 
 
-def decode_into(q, k, z, y) -> None:
+def decode_into(q, k, z, y, lse=None) -> None:
     """Launch the decode of ``z`` into ``y`` [B, H, N, D] (any strides with a
-    unit D stride). Operands already checked."""
+    unit D stride), and each token's log-sum-exp over the latents into
+    ``lse`` [B, H, N] fp32 when given. Operands already checked."""
     b, h, n, d = k.shape
     err = _build.lib().flare_decode(
-        ptr(q), ptr(k), ptr(z), ptr(y), b, h, q.shape[1], n, d,
+        ptr(q), ptr(k), ptr(z), ptr(y), ptr(lse), b, h, q.shape[1], n, d,
         *k.stride()[:3], *y.stride()[:3], DTYPE_CODES[k.dtype], DTYPE_CODES[z.dtype],
         torch.cuda.current_stream(k.device).cuda_stream)
     _build.check(err, "flare_decode")

@@ -12,9 +12,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flare import flare_decode, flare_encode
-from repro_torch.kernels.flare_packed import flare_fused_fwd
+from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
 
-KERNELS = (flare_encode, flare_decode, flare_fused_fwd)
+KERNELS = (flare_encode, flare_decode, flare_fused_fwd, flare_fused_bwd)
 
 
 def flare_mixer_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,11 @@ Counterpart of ``repro/models/api.py`` for the PDE family:
     loss = m.loss(net, batch)           # differentiable, under m.plans["train"]
 
 The train plan is always resolved with ``requires_grad=True``, so training
-never lands on a forward-only kernel; with only forward-only kernels ported,
-a training plan on the card honestly resolves to ``sdpa``. A policy that can
-only serve inference still builds, and ``loss`` raises its resolve error.
+never lands on a forward-only kernel. On the card both plans resolve to
+``packed``: the fused forward kernel, and under ``loss`` its fused backward
+kernel through autograd. On the CPU both resolve to the plain ``sdpa``. A
+policy that can only serve inference (``pallas``) still builds, and
+``loss`` raises its resolve error.
 """
 from __future__ import annotations
 

@@ -1,0 +1,33 @@
+"""Host-side observability for the port: the counterpart of ``repro.obs``,
+trimmed to what the trainer uses.
+
+  - :mod:`repro_torch.obs.metrics`: a metrics registry (counters, fixed-bucket
+    histograms; thread-safe, near-zero cost when disabled).
+  - :mod:`repro_torch.obs.trace`: span tracing with Chrome-trace-event
+    (Perfetto-loadable) export.
+  - :func:`annotate` / :func:`scope`: ``torch.profiler.record_function``, so a
+    ``torch.profiler`` capture carries the same names as the span stream.
+    PyTorch runs eagerly, so the JAX package's two kinds (host annotation
+    around a compiled program, trace-time scope inside one) are one here.
+
+Clocks and registry mutation stay at host boundaries: nothing here syncs the
+device.
+"""
+from __future__ import annotations
+
+from repro_torch.obs.metrics import Counter, Histogram, MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER, Tracer
+
+__all__ = ["Counter", "Histogram", "MetricsRegistry", "NULL_TRACER", "Tracer",
+           "annotate", "scope"]
+
+
+def annotate(name: str):
+    """A named range in ``torch.profiler`` traces around host dispatch:
+    ``with annotate("train/step"): ...``."""
+    import torch
+
+    return torch.profiler.record_function(name)
+
+
+scope = annotate

@@ -1,0 +1,156 @@
+"""Fault-tolerant training loop on one device.
+
+Counterpart of ``repro/train/trainer.py`` without the mesh (multi-device is
+later work) and without gradient compression:
+  - step-keyed data: ``batch_fn(step)``, so a restart sees the same batches;
+  - async checkpoints every ``checkpoint_every`` steps; SIGTERM/SIGINT make
+    the loop stop after the current step and save once more, blocking;
+  - resume from the latest checkpoint: parameters restored, the optimizer's
+    step fast-forwarded, its moments restarted at zero (a warm restart, as
+    in the JAX trainer; ``save_full_state`` writes the moments too);
+  - straggler watchdog: a step slower than ``straggler_factor`` times the
+    running median fires ``on_straggler``;
+  - metrics (steps, per-step data and step seconds, checkpoints,
+    stragglers) and, with a tracer, one span per step.
+"""
+from __future__ import annotations
+
+import logging
+import signal
+import statistics
+import time
+import zipfile
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.config import TrainConfig
+from repro_torch.interop import from_jax_flat, jax_key, to_jax_flat
+from repro_torch.obs import annotate
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.optim.adamw import init_adamw
+from repro_torch.train.steps import make_train_step
+
+log = logging.getLogger("repro_torch.train")
+
+
+class Trainer:
+    def __init__(
+        self,
+        model,
+        tcfg: TrainConfig,
+        *,
+        num_microbatches: int = 1,
+        on_straggler: Optional[Callable[[int, float, float], None]] = None,
+        straggler_factor: float = 3.0,
+        tracer=None,
+        metrics=None,
+    ):
+        self.model = model
+        self.tcfg = tcfg
+        self.num_microbatches = num_microbatches
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._m_steps = self.metrics.counter("train.steps", "optimizer steps completed")
+        self._m_data_s = self.metrics.histogram("train.data_s", "per-step host data feed seconds")
+        self._m_step_s = self.metrics.histogram(
+            "train.step_s", "per-step device step seconds (incl. metric sync)")
+        self._m_ckpts = self.metrics.counter("train.checkpoints", "checkpoint saves issued")
+        self._m_stragglers = self.metrics.counter(
+            "train.stragglers", "steps flagged by the straggler watchdog")
+        self.on_straggler = on_straggler or (
+            lambda step, dt, med: log.warning("straggler: step %d took %.3fs (median %.3fs)",
+                                              step, dt, med))
+        self.straggler_factor = straggler_factor
+        self.ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
+        self._stop = False
+        self._step_times: list = []
+        self.step = 0
+        self._build()
+
+    def _build(self):
+        self.net = self.model.init(self.tcfg.seed)
+        self.device = next(self.net.parameters()).device
+        keys = [jax_key(name) for name in self.net.state_dict()]
+        try:
+            last, restored = self.ckpt.restore_latest(keys)
+        except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
+            log.warning("checkpoint restore failed (%s); starting fresh", e)
+            last, restored = None, None
+        if restored is not None:
+            self.net.load_state_dict(from_jax_flat(restored), strict=True)
+            self.step = last
+            log.info("resumed from step %d", last)
+        self.opt_state = init_adamw(dict(self.net.named_parameters()))
+        self.opt_state.step = self.step
+        self._train_step = make_train_step(self.model.loss, self.tcfg,
+                                           num_microbatches=self.num_microbatches)
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                signal.signal(sig, self._handle_term)
+            except ValueError:   # not the main thread (tests)
+                pass
+
+    def _handle_term(self, signum, frame):  # noqa: ARG002
+        log.warning("signal %s received: will checkpoint and stop", signum)
+        self._stop = True
+
+    def fit(self, batch_fn: Callable[[int], dict], *, steps: Optional[int] = None):
+        """batch_fn(step) -> global batch (tensors or numpy). Returns the
+        metric history, one dict of floats per step."""
+        steps = steps or self.tcfg.steps
+        history = []
+        while self.step < steps and not self._stop:
+            t0 = time.time()
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in batch_fn(self.step).items()}
+            t1 = time.time()   # host data feed done; device step begins
+            with annotate("train/step"):
+                _, self.opt_state, metrics = self._train_step(self.net, self.opt_state, batch)
+                # float() waits for the step, so everything after t1 is the
+                # device step and the metric readback
+                metrics = {k: float(v) for k, v in metrics.items()}
+            now = time.time()
+            dt = now - t0
+            self._m_steps.inc()
+            self._m_data_s.observe(t1 - t0)
+            self._m_step_s.observe(now - t1)
+            if self.tracer.enabled:
+                self.tracer.complete(
+                    "train_step", t0, dt, cat="train",
+                    args={"step": self.step, "data_s": round(t1 - t0, 6),
+                          "step_s": round(now - t1, 6), "loss": metrics.get("loss")})
+            self._watchdog(dt)
+            self.step += 1
+            metrics["step"] = self.step
+            metrics["time"] = dt
+            history.append(metrics)
+            if self.step % self.tcfg.log_every == 0:
+                log.info("step %d loss %.4f gnorm %.3f lr %.2e (%.2fs)", self.step,
+                         metrics["loss"], metrics["grad_norm"], metrics["lr"], dt)
+            if self.step % self.tcfg.checkpoint_every == 0:
+                self.ckpt.save(self.step, to_jax_flat(self.net.state_dict()))
+                self._m_ckpts.inc()
+                self.tracer.instant("checkpoint", cat="train", args={"step": self.step})
+        # final (blocking) save, also the preemption path
+        self.ckpt.save(self.step, to_jax_flat(self.net.state_dict()), blocking=True)
+        return history
+
+    def _watchdog(self, dt: float):
+        self._step_times.append(dt)
+        if len(self._step_times) >= 5:
+            med = statistics.median(self._step_times[-50:])
+            if dt > self.straggler_factor * med:
+                self._m_stragglers.inc()
+                self.on_straggler(self.step, dt, med)
+
+    def save_full_state(self):
+        """Blocking save of the parameters and the optimizer moments, under
+        the JAX trainer's ``params/``, ``m/`` and ``v/`` prefixes."""
+        flat = {}
+        for prefix, tensors in (("params", self.net.state_dict()), ("m", self.opt_state.m),
+                                ("v", self.opt_state.v)):
+            flat.update({f"{prefix}/{k}": a for k, a in to_jax_flat(tensors).items()})
+        self.ckpt.save(self.step, flat, blocking=True)

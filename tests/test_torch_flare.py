@@ -18,7 +18,6 @@ from repro_torch.interop import load_jax_params
 from repro_torch.models.api import get_model
 
 BACKENDS = ["sdpa", "materialized", "pallas", "packed"]
-KERNEL_BACKENDS = ("pallas", "packed")
 SHAPE = MixerShape(batch=1, heads=8, tokens=4096, latents=2048, head_dim=8)
 
 
@@ -107,8 +106,9 @@ def test_mixer_permutation_equivariant(backend):
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("name", KERNEL_BACKENDS)
+@pytest.mark.parametrize("name", ["pallas"])
 def test_grad_never_resolves_kernel_backends(device, name):
+    """The two-launch kernels are forward-only, as the JAX pallas backend is."""
     backend = get_backend(name)
     assert not eligible(backend, dtype=torch.float32, device=device, grad=True)
     assert eligible(backend, dtype=torch.float32, device=device)
@@ -119,7 +119,24 @@ def test_grad_never_resolves_kernel_backends(device, name):
     plan = resolve_policy(MixerPolicy(backends=(name, "sdpa"), requires_grad=True), SHAPE,
                           device=device)
     assert plan.backend == "sdpa"
-    assert resolve_policy(MixerPolicy(requires_grad=True), SHAPE, device=device).backend == "sdpa"
+    auto = resolve_policy(MixerPolicy(requires_grad=True), SHAPE, device=device).backend
+    assert auto == ("packed" if device == "cuda" else "sdpa")
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_grad_resolves_packed(device):
+    """The fused backend has its backward kernel: a differentiated plan may
+    name it, and "auto" picks it on the card (on the CPU the plain sdpa
+    outscores its plain versions)."""
+    backend = get_backend("packed")
+    assert eligible(backend, dtype=torch.float32, device=device, grad=True)
+    assert resolve("packed", shape=SHAPE, dtype=torch.float32, device=device,
+                   grad=True)[1].backend == "packed"
+    plan = resolve_policy(MixerPolicy(backends=("pallas", "packed", "sdpa"), requires_grad=True),
+                          SHAPE, device=device)
+    assert plan.backend == "packed"
+    auto = resolve_policy(MixerPolicy(requires_grad=True), SHAPE, device=device).backend
+    assert auto == ("packed" if device == "cuda" else "sdpa")
 
 
 def test_auto_picks_fused_kernel_on_cuda_and_sdpa_on_cpu():
@@ -130,12 +147,13 @@ def test_auto_picks_fused_kernel_on_cuda_and_sdpa_on_cpu():
 def test_model_plans_on_cuda_need_no_card():
     m = get_model(get_config("flare_pde"), device="cuda")
     assert m.plans["infer"].describe() == "packed"
-    assert m.plans["train"].describe() == "sdpa"
+    assert m.plans["train"].describe() == "packed"
+    assert get_model(get_config("flare_pde"), device="cpu").plans["train"].describe() == "sdpa"
 
 
 def test_inference_only_policy_builds_and_refuses_to_train():
     m = get_model(get_smoke_config("flare_pde"), device="cpu",
-                  policy=MixerPolicy(backends=("packed",)))
+                  policy=MixerPolicy(backends=("pallas",)))
     assert "train" not in m.plans
     net = m.init(0)
     x = torch.randn(1, 9, 3)

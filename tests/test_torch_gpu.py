@@ -7,7 +7,9 @@ decides, at run time). Run on a machine with the card:
 
 Tolerances: fp32 atol 1e-4 (sums in another order over up to 40,000 terms),
 bf16 2e-2; against the plain version in fp64, 1e-5 of the output's largest
-magnitude."""
+magnitude. The fused backward is held against its plain version in fp64 at
+1e-5 of each gradient's largest magnitude in fp32 (its kernels sit near
+1e-6 there), and at 2e-2 in bf16."""
 import pytest
 import torch
 
@@ -15,7 +17,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.pde_data import pointcloud_batch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flare import flare_decode, flare_encode
-from repro_torch.kernels.flare_packed import flare_fused_fwd
+from repro_torch.kernels.flare_packed import FlareFused, flare_fused_bwd, flare_fused_fwd
 from repro_torch.kernels.ops import launch_counts
 from repro_torch.models.api import get_model
 from repro_torch.nn.modules import layernorm, resmlp
@@ -52,14 +54,15 @@ def test_kernels_match_plain(cuda, shape, dtype):
     torch.testing.assert_close(flare_encode(q, k, v), z_ref, atol=TOL[dtype], rtol=TOL[dtype])
     torch.testing.assert_close(flare_decode(q, k, z_ref), ref.flare_decode_ref(q, k, z_ref),
                                atol=TOL[dtype], rtol=TOL[dtype])
-    y, z, mx, den = flare_fused_fwd(q, k, v)
-    y_ref, z_ref32, mx_ref, den_ref = ref.flare_fused_fwd_ref(q, k, v)
+    y, z, mx, den, lse = flare_fused_fwd(q, k, v)
+    y_ref, z_ref32, mx_ref, den_ref, lse_ref = ref.flare_fused_fwd_ref(q, k, v)
     torch.testing.assert_close(y, y_ref, atol=TOL[dtype], rtol=TOL[dtype])
     torch.testing.assert_close(z, z_ref32, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(mx, mx_ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(den, den_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
     after = launch_counts()
-    assert all(after[name] == before[name] + 1 for name in after)
+    assert all(after[name] == before[name] + (name != "flare_fused_bwd") for name in after)
 
 
 def test_model_operands_stay_near_fp64(cuda):
@@ -76,7 +79,7 @@ def test_model_operands_stay_near_fp64(cuda):
         q = blk.mixer.q_latent.detach()
         heads = lambda t: t.unflatten(2, (q.shape[0], -1)).transpose(1, 2)
         k, v = heads(resmlp(blk.mixer.k_proj, hid)), heads(resmlp(blk.mixer.v_proj, hid))
-    y, z, _, _ = flare_fused_fwd(q, k, v)
+    y, z, _, _, _ = flare_fused_fwd(q, k, v)
     q64, k64, v64 = q[:2].double(), k[:, :2].double(), v[:, :2].double()
     z64 = ref.flare_encode_ref(q64, k64, v64)
     y64 = ref.flare_decode_ref(q64, k64, z64)
@@ -104,3 +107,58 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         flare_encode(q.cpu(), k, v)
     with pytest.raises(ValueError, match="unit D stride"):
         flare_encode(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
+
+
+def _bwd_close(got, want, rel):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g.double() - w).abs().max() <= rel * w.abs().max()
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("shape", SHAPES + [(1, 2, 300, 70000, 8)])
+def test_fused_bwd_matches_plain(cuda, shape, dtype):
+    """The backward kernel against the plain backward in fp64 on the kernel's
+    own residuals (the last shape takes the N-split and its sums)."""
+    q, k, v = _inputs(shape, dtype, cuda)
+    dy = torch.randn(k.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    y, *res = flare_fused_fwd(q, k, v)
+    before = launch_counts()["flare_fused_bwd"]
+    got = flare_fused_bwd(q, k, v, *res, y, dy)
+    torch.cuda.synchronize()
+    assert launch_counts()["flare_fused_bwd"] == before + 1
+    assert [g.dtype for g in got] == [dtype] * 3
+    want = ref.flare_fused_bwd_ref(*(t.double() for t in (q, k, v, *res, y, dy)), chunk=8192)
+    _bwd_close(got, want, 1e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_fused_autograd_on_model_operands_near_fp64(cuda):
+    """Block 0's q, k, v of the paper-scale surrogate on a pde_40k batch (two
+    batch elements, two heads): gradients through FlareFused stay within
+    1e-5 of max |grad| of the plain backward in fp64."""
+    cfg = get_config("flare_pde")
+    net = get_model(cfg, device=cuda).init(0)
+    x = pointcloud_batch(0, 0, 2, grid=256, num_points=40000, device=cuda)["x"]
+    with torch.no_grad():
+        blk = net.blocks[0]
+        hid = layernorm(blk.ln1, resmlp(net.in_proj, x))
+        heads = lambda t: t.unflatten(2, (8, -1)).transpose(1, 2)[:, :2]
+        q = blk.mixer.q_latent.detach()[:2].clone()
+        k, v = heads(resmlp(blk.mixer.k_proj, hid)), heads(resmlp(blk.mixer.v_proj, hid))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    dy = torch.randn(k.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    FlareFused.apply(q, k, v).backward(dy)
+    with torch.no_grad():
+        q64, k64, v64 = (t.detach().double() for t in (q, k, v))
+        y64, *res64 = ref.flare_fused_fwd_ref(q64, k64, v64)
+        want = ref.flare_fused_bwd_ref(q64, k64, v64, *res64, y64, dy.double(), chunk=8192)
+    _bwd_close((q.grad, k.grad, v.grad), want, 1e-5)
+
+
+def test_fused_bwd_raises_instead_of_falling_back(cuda):
+    q, k, v = _inputs((1, 2, 16, 33, 8), torch.float32, cuda)
+    y, z, mx, den, lse = flare_fused_fwd(q, k, v)
+    with pytest.raises(ValueError, match="residuals"):
+        flare_fused_bwd(q, k, v, z.double(), mx, den, lse, y, y)
+    with pytest.raises(ValueError, match="several devices"):
+        flare_fused_bwd(q, k, v, z.cpu(), mx, den, lse, y, y)

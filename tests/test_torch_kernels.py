@@ -3,9 +3,11 @@
 On CPU tensors every wrapper in ``repro_torch.kernels`` runs its plain
 version, which is what these tests hold against the Pallas kernels, run in
 interpret mode as the JAX tests run them. Tolerances: fp32 atol 1e-5
-(tests/test_kernels.py), bf16 2e-2. The CUDA kernels themselves are held
+(tests/test_kernels.py), bf16 2e-2; the fused backward 1e-4 of the largest
+gradient (tests/test_packed.py). The CUDA kernels themselves are held
 against the same plain versions on the card (tests/test_torch_gpu.py and
 chip_smoke.py)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +20,7 @@ from repro_torch.core.dispatch import MixerPlan
 from repro_torch.core.policy import run_plan
 from repro_torch.kernels import ref
 from repro_torch.kernels.flare import flare_decode, flare_encode
-from repro_torch.kernels.flare_packed import flare_fused_fwd
+from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
 from repro_torch.kernels.ops import flare_mixer_fused, launch_counts
 
 # (B, H, M, N, D): ragged N and M=16, the paper's width at a short N
@@ -99,8 +101,8 @@ def test_fused_fwd_matches_packed_and_definitions(shape, dtype):
     b, h, m, n, d = shape
     tdt, jdt, atol = DTYPES[dtype]
     q, k, v = _inputs(*shape)
-    y, z, mx, den = flare_fused_fwd(_t(q, tdt), _t(k, tdt), _t(v, tdt))
-    assert y.dtype == tdt and z.dtype == mx.dtype == den.dtype == torch.float32
+    y, z, mx, den, lse = flare_fused_fwd(_t(q, tdt), _t(k, tdt), _t(v, tdt))
+    assert y.dtype == tdt and z.dtype == mx.dtype == den.dtype == lse.dtype == torch.float32
     _close(y, flare_mixer_packed(_j(q, jdt), _j(k, jdt), _j(v, jdt)), atol)
     # the residuals, by their definitions through the JAX reference
     qj = _j(q, jdt).astype(jnp.float32)
@@ -111,6 +113,44 @@ def test_fused_fwd_matches_packed_and_definitions(shape, dtype):
     smax = jnp.max(s, axis=-1)
     _close(mx.reshape(b * h, m), smax, 1e-5)
     _close(den.reshape(b * h, m), jnp.sum(jnp.exp(s - smax[..., None]), axis=-1), 1e-5)
+    _close(lse.reshape(b * h, n), jax.nn.logsumexp(s, axis=1), 1e-5)
+
+
+# (B, H, M, N, D): ragged N and M (M=20 is not a multiple of 16), B > 1 so
+# that dq's batch sum is covered
+BWD_SHAPES = [(2, 4, 16, 97, 8), (3, 2, 20, 45, 4), (2, 3, 24, 64, 8)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_fused_bwd_matches_jax_grad_of_packed(shape):
+    """The plain fused backward against jax.grad of the JAX packed mixer (its
+    custom VJP, the Pallas backward kernel in interpret mode), at 1e-4 of the
+    largest gradient."""
+    b, h, m, n, d = shape
+    q, k, v = _inputs(*shape)
+    dy = np.random.default_rng(2).standard_normal((b, h, n, d)).astype(np.float32)
+    want = jax.grad(lambda q_, k_, v_: jnp.sum(jnp.asarray(dy) * flare_mixer_packed(
+        q_, k_, v_, block_n=32)), argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt, dyt = map(torch.from_numpy, (q, k, v, dy))
+    before = launch_counts()
+    y, *res = flare_fused_fwd(qt, kt, vt)
+    got = flare_fused_bwd(qt, kt, vt, *res, y, dyt)
+    assert launch_counts() == before
+    for g, w, s in zip(got, want, ((h, m, d), (b, h, n, d), (b, h, n, d))):
+        assert g.shape == s and g.dtype == torch.float32
+        scale = np.abs(np.asarray(w)).max()
+        np.testing.assert_allclose(g.numpy() / scale, np.asarray(w) / scale, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 40])
+def test_fused_bwd_chunked_matches_whole(chunk):
+    """Taking the tokens in chunks changes only the order of the sums."""
+    q, k, v = (torch.from_numpy(x).double() for x in _inputs(2, 3, 24, 97, 8))
+    dy = torch.randn(k.shape, generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+    y, *res = ref.flare_fused_fwd_ref(q, k, v)
+    whole = ref.flare_fused_bwd_ref(q, k, v, *res, y, dy)
+    for got, want in zip(ref.flare_fused_bwd_ref(q, k, v, *res, y, dy, chunk=chunk), whole):
+        torch.testing.assert_close(got, want, atol=1e-12, rtol=1e-12)
 
 
 def test_plain_mixer_matches_jax_reference():
@@ -133,18 +173,39 @@ def test_kernel_backends_take_plain_path_on_cpu(backend):
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("call", ["encode", "decode", "fused", "packed_backend"])
+@pytest.mark.parametrize("call", ["encode", "decode", "fused", "fused_bwd", "pallas_backend"])
 def test_grad_requiring_call_raises(call):
+    """The raw wrappers and the two-launch backend are forward-only; autograd
+    goes through the packed backend (test_packed_backend_differentiates)."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 16, 33, 8))
+    with torch.no_grad():
+        y, *res = flare_fused_fwd(q, k, v)
     q.requires_grad_(True)
     fns = {"encode": lambda: flare_encode(q, k, v),
            "decode": lambda: flare_decode(q, k, torch.zeros(1, 2, 16, 8)),
            "fused": lambda: flare_fused_fwd(q, k, v),
-           "packed_backend": lambda: run_plan(MixerPlan("packed"), q, k, v)}
+           "fused_bwd": lambda: flare_fused_bwd(q, k, v, *res, y, torch.ones_like(y)),
+           "pallas_backend": lambda: run_plan(MixerPlan("pallas"), q, k, v)}
     with pytest.raises(RuntimeError, match="forward-only"):
         fns[call]()
     with torch.no_grad():
         fns[call]()   # inference is fine
+
+
+def test_packed_backend_differentiates():
+    """The packed backend runs through FlareFused: under autograd its
+    gradients are the plain backward's, and no kernel launches on the CPU."""
+    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _inputs(2, 2, 16, 33, 8))
+    before = launch_counts()
+    y = run_plan(MixerPlan("packed"), q, k, v)
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(1))
+    y.backward(dy)
+    assert launch_counts() == before
+    with torch.no_grad():
+        y0, *res = flare_fused_fwd(q, k, v)
+        want = flare_fused_bwd(q, k, v, *res, y0, dy)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(got, w, atol=1e-6, rtol=1e-6)
 
 
 def test_wrappers_reject_bad_operands():
@@ -161,3 +222,8 @@ def test_wrappers_reject_bad_operands():
         flare_fused_fwd(*(x.to("meta") for x in (q, k, v)))
     with pytest.raises(ValueError, match="empty"):
         flare_fused_fwd(q, k[:, :, :0], v[:, :, :0])
+    y, z, mx, den, lse = flare_fused_fwd(q, k, v)
+    with pytest.raises(ValueError, match="lse must be"):
+        flare_fused_bwd(q, k, v, z, mx, den, lse[:, :, 1:], y, y)
+    with pytest.raises(ValueError, match="z must be"):
+        flare_fused_bwd(q, k, v, z[:, :1], mx, den, lse, y, y)
