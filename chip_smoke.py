@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FLARE inference and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's FLARE paths on one NVIDIA GPU: the PDE
+surrogate's inference and training, and the causal FLARE LM's serving.
 
     python3 chip_smoke.py
 
@@ -11,7 +12,7 @@ failure so the script exits non-zero:
    power limit;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc (one process per
    source, in parallel) and prints the seconds taken and ptxas's
-   register/shared-memory use of the D=8 kernels;
+   register/shared-memory use of the D=8 kernels and the D=128 causal kernel;
 3. kernels on random operands: each CUDA kernel (encode, decode, fused
    forward, fused backward) against its plain PyTorch version, bf16 at full
    width (H=8, M=2048, D=8, B=1, N=40,000) and a ragged shape (M=16, N=97)
@@ -50,7 +51,35 @@ failure so the script exits non-zero:
 7. the kernel path against the plain path in training: 5 steps under
    ``packed`` and 5 under ``sdpa`` from the same weights and batches at B=2,
    N=4,096, loss and grad_norm per step and the parameters after;
-8. one JSON line of per-kernel numbers, then the card's name and power limit,
+8. the causal kernel on random operands: bf16 at flare_lm's width (H=16,
+   M=512, D=128, B=1, T=8,192) and a ragged shape (T=97, M=16, D=8) in fp32
+   and bf16, held as in phase 3;
+9. ``get_model(flare_lm)`` at full width and depth (24 layers, d_model 2048,
+   2.6B parameters) from seed 0, whose infer plan must be ``causal_pallas``;
+   the seconds the CPU takes to draw the weights. The causal kernel on layer
+   0's own q, k, v for ``TokenStream`` tokens at B=1, T=32,768
+   (prefill_32k's length; its batch of 32 cut to 1): in fp32 against the
+   plain version in fp64, a head at a time, at 1e-5 of max |plain|, which
+   must reject a plain version that left one 64-token kernel tile out of the
+   carried state; in bf16, as the model runs it, against the plain version
+   on the same operands at 1e-2 of max |plain|. Times of the kernel (bf16
+   and fp32), its bounds and its plain version, and a profiler breakdown of
+   the plain version (its device busy share);
+10. ``Model.forward`` at B=1, T=32,768 in bf16: launch counts zeroed just
+   before and read just after (24 causal kernels a forward, no PDE kernel),
+   ms per forward, peak GiB and a profiler breakdown; its logits held
+   against the plain ``causal_stream`` path on the same weights in bf16 (5e-2
+   of max |logit|) and in fp32 compute (1e-3);
+11. answering requests: 4 ``TokenStream`` prompts of 1,024-2,048 tokens,
+   right-padded to one 2,048 bucket with ``lengths``, through ``prefill`` and
+   64 greedy ``decode_step``s in bf16 (ms per prefill, ms per decode step,
+   tokens/s; launch counts zeroed before and read after) and a profiler
+   breakdown of one decode step (kernels launched, device busy); then in fp32
+   compute (TF32 off), each step's logits against ``Model.forward`` (the
+   kernel path) on the request's prompt and the tokens generated so far,
+   within 1e-3 of max |logit|, with the same greedy tokens; the bf16 run's
+   difference is printed;
+12. one JSON line of per-kernel numbers, then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
@@ -98,12 +127,25 @@ TRAIN_STEPS, TRAIN_LR = 20, 1e-3
 SOURCES = {name: "src/repro_torch/csrc/flare.cu"
            for name in ("flare_encode", "flare_decode", "flare_fused_fwd")}
 SOURCES["flare_fused_bwd"] = "src/repro_torch/csrc/flare_bwd.cu"
+SOURCES["flare_causal_chunk"] = "src/repro_torch/csrc/flare_causal.cu"
 REPLACES = {
     "flare_encode": "src/repro/kernels/flare.py:48",
     "flare_decode": "src/repro/kernels/flare.py:150",
     "flare_fused_fwd": "src/repro/kernels/flare_packed.py:162",
     "flare_fused_bwd": "src/repro/kernels/flare_packed.py:266",
+    "flare_causal_chunk": "src/repro/kernels/flare_causal.py:41",
 }
+PDE_KERNELS = ("flare_encode", "flare_decode", "flare_fused_fwd", "flare_fused_bwd")
+# the causal LM (flare_lm): random operands at its width and a ragged shape
+CAUSAL_SMALL = {"bf16 full width": dict(b=1, h=16, m=512, n=8192, d=128),
+                "ragged": dict(b=2, h=4, m=16, n=97, d=8)}
+PEAK_BF16 = 989e12   # H100 SXM bf16 tensor cores, dense: the peak for bf16 operands
+# flare_lm logits, a kernel path against a plain path on the same weights,
+# over max |logit|: fp32 sums in another order through 24 layers (1e-3, as
+# PATH_TOL); bf16 rounds each layer's mixer output to 8 bits, and a one-ulp
+# flip (3.9e-3) can differ between the two paths in every layer (5e-2)
+LM_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+REQUESTS, BUCKET, DECODE_STEPS = 4, 2048, 64
 GRADS = ("dq", "dk", "dv")
 
 
@@ -130,16 +172,18 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def ptxas_summary(log: str) -> list:
-    """One line per D=8 kernel: registers, shared memory, spills."""
+    """One line per D=8 kernel and D=128 causal kernel: registers, shared
+    memory, spills."""
     rows, name, spill = [], None, ""
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
             name = m.group(1)
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spill = f"spill {m.group(1)}/{m.group(2)} B"
-        elif (m := re.search(r"Used (\d+) registers(.*)", line)) and name and "Li8E" in name:
-            kind = next(k for k in ("encode", "decode", "combine", "dz", "dkv", "dq")
-                        if f"{k}_kernel" in name)
+        elif ((m := re.search(r"Used (\d+) registers(.*)", line)) and name
+              and ("Li8E" in name or ("causal" in name and "Li128E" in name))):
+            kind = next(k for k in ("causal_combine", "causal", "encode", "decode", "combine",
+                                    "dz", "dkv", "dq") if f"{k}_kernel" in name)
             rows.append(f"  {kind:<8} {name[:70]:<70} {m.group(1)} regs{m.group(2)} {spill}")
     return rows
 
@@ -498,17 +542,17 @@ def check_output(name: str, out, batch) -> float:
     return rel
 
 
-def breakdown(model, net, batch, label: str) -> None:
-    """Device time of one forward by kernel name (torch.profiler), and the
-    device's busy share of the forward's wall time."""
+def breakdown(fn, label: str, top: int = 8) -> None:
+    """Device time of one (warm) call of ``fn`` by kernel name
+    (torch.profiler), the number of kernels it launched, and the device's
+    busy share of its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    model.forward(net, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.forward(net, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -518,32 +562,8 @@ def breakdown(model, net, batch, label: str) -> None:
         print(f"breakdown {label}: the profiler recorded no device time (not measured)")
         return
     print(f"breakdown {label}: wall {wall_ms:.3f} ms, device busy {total:.3f} ms "
-          f"({100 * total / wall_ms:.1f}%)")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
-        print(f"  {100 * ms / total:5.1f}%  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
-
-
-def train_breakdown(step_fn, label: str) -> None:
-    """Device time of one train step by kernel name (torch.profiler), and
-    the device's busy share of its wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
-    total = sum(ms for _, ms, _ in rows)
-    if total == 0:
-        print(f"breakdown {label}: the profiler recorded no device time (not measured)")
-        return
-    print(f"breakdown {label}: wall {wall_ms:.3f} ms, device busy {total:.3f} ms "
-          f"({100 * total / wall_ms:.1f}%)")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+          f"({100 * total / wall_ms:.1f}%), {sum(c for _, _, c in rows)} kernels")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {100 * ms / total:5.1f}%  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
@@ -607,8 +627,8 @@ def train(cfg, shape) -> dict:
     print(f"adamw: {adamw_ms(trainer.net):.3f} ms/update over "
           f"{len(list(trainer.net.parameters()))} parameter tensors", flush=True)
     batch = batches[0]
-    train_breakdown(lambda: trainer._train_step(trainer.net, trainer.opt_state, batch),
-                    f"train step {shape.name}")
+    breakdown(lambda: trainer._train_step(trainer.net, trainer.opt_state, batch),
+              f"train step {shape.name}", top=12)
     return {"counts": counts, "ms": ms, "peak": peak}
 
 
@@ -720,6 +740,323 @@ def train_paths_agree(cfg) -> None:
         raise AssertionError("the packed training path differs from the plain path")
 
 
+# --------------------------------------------------------------------------
+# The causal FLARE LM (flare_lm): the causal kernel, forward, prefill, decode
+# --------------------------------------------------------------------------
+
+
+def check_causal_small(checks: Checks, device) -> None:
+    """The causal kernel against its plain version on random operands: bf16
+    at flare_lm's width, and a ragged shape (T=97, M=16, D=8) in both dtypes."""
+    import torch
+
+    from repro_torch.kernels.flare_causal import flare_causal_chunk
+    from repro_torch.kernels.ref import flare_causal_chunk_ref
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for shape_name, s in CAUSAL_SMALL.items():
+        for dtype in ((torch.bfloat16,) if shape_name.startswith("bf16")
+                      else (torch.float32, torch.bfloat16)):
+            q, k, v = inputs(s, dtype, gen, device)
+            print(f"kernels causal {shape_name} {s} {dtype}:", flush=True)
+            checks.hold("flare_causal_chunk", "y", flare_causal_chunk(q, k, v),
+                        flare_causal_chunk_ref(q, k, v), dtype,
+                        atol=ATOL[str(dtype).removeprefix("torch.")],
+                        record=dtype == torch.float32)
+    checks.raise_failures("causal kernel on random operands")
+
+
+def lm_operands(net, cfg, tokens, dtype):
+    """q, k, v as layer 0's mixer receives them for ``tokens``, computed in
+    ``dtype`` by the model's own embed, norm and k/v functions: the main
+    path's own operands, k and v strided split-head views."""
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.models import transformer
+
+    cfg = replace(cfg, compute_dtype=str(dtype).removeprefix("torch."))
+    with torch.no_grad():
+        layer = net.layers[0]
+        x = transformer._norm(cfg, layer.norm1, transformer._embed(net, tokens, cfg))
+        k, v = transformer._kv(layer.attn, x, cfg.attn.num_heads)
+        return layer.attn.q_latent.detach().to(dtype), k, v
+
+
+def drop_tile(fn, t0: int, width: int):
+    """``fn`` (a plain causal version) with tokens [t0, t0 + width) left out
+    of the carried state of every later token: what a kernel that lost one
+    tile of its state would give."""
+    import torch
+
+    def dropped(q, k, v):
+        y = fn(q, k, v)
+        rest = fn(q, torch.cat([k[:, :, :t0], k[:, :, t0 + width:]], 2),
+                  torch.cat([v[:, :, :t0], v[:, :, t0 + width:]], 2))
+        y[:, :, t0 + width:] = rest[:, :, t0:]
+        return y
+
+    return dropped
+
+
+def check_causal_main(checks: Checks, ops32, ops16) -> None:
+    """The causal kernel on layer 0's own operands: fp32 against the plain
+    version in fp64 (tile 256), a head at a time, relative to max |plain|;
+    the limit must reject the fp64 plain version with one 64-token kernel
+    tile left out of the carried state (the tile at T/2). bf16 against the
+    plain version on the same bf16 operands."""
+    import torch
+
+    from repro_torch.kernels.flare_causal import TILE, flare_causal_chunk
+    from repro_torch.kernels.ref import flare_causal_chunk_ref
+
+    q, k, v = ops32
+    b, h, n, d = k.shape
+    print(f"kernels causal flare_lm layer 0 (B={b} H={h} M={q.shape[1]} T={n} D={d}, k/v "
+          f"strides {k.stride()}; fp32 held against the plain version in fp64):", flush=True)
+    plain64 = lambda qh, kh, vh: flare_causal_chunk_ref(qh, kh, vh, tile=256)
+    wide = [t.to(torch.float64) for t in ops32]
+    want = by_head(plain64, *wide)
+    checks.hold("flare_causal_chunk", "y fp32", flare_causal_chunk(q, k, v), want,
+                torch.float32, atol=None, record=True,
+                fp32_plain=by_head(flare_causal_chunk_ref, q, k, v),
+                dropped={"state tile": by_head(drop_tile(plain64, n // 2, TILE), *wide)})
+    del want, wide
+    q, k, v = ops16
+    checks.hold("flare_causal_chunk", "y bf16", flare_causal_chunk(q, k, v),
+                by_head(flare_causal_chunk_ref, q, k, v), torch.bfloat16, atol=None)
+    checks.raise_failures("causal kernel on flare_lm's operands")
+
+
+def time_causal(q, k, v) -> dict:
+    """CUDA-event times of the causal kernel and its plain version on the same
+    operands, with the bound: 3 products of 2*B*H*M*T*D FLOP (scores, state
+    update, decode) over the peak for the operands' type (bf16: the tensor
+    cores' 989 TFLOP/s; fp32: 67 TFLOP/s), or q, k, v and y once over 3.35 TB/s."""
+    import torch
+
+    from repro_torch.kernels.flare_causal import flare_causal_chunk
+    from repro_torch.kernels.ref import flare_causal_chunk_ref
+
+    b, h, n, d = k.shape
+    m = q.shape[1]
+    size = k.element_size()
+    flops = 3 * 2 * b * h * m * n * d
+    nbytes = size * (h * m * d + 3 * b * h * n * d)
+    peak = PEAK_BF16 if k.dtype == torch.bfloat16 else PEAK_FP32
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BW * 1e3
+    return dict(ms=cuda_ms(lambda: flare_causal_chunk(q, k, v), reps=5),
+                plain_ms=cuda_ms(lambda: flare_causal_chunk_ref(q, k, v), reps=1),
+                library_ms=None, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def held(label: str, got, want, tol: float) -> None:
+    """Logits of a kernel path against a plain (or reference) path: max abs
+    difference over max |want|."""
+    err, scale = max_err(got, want), want.abs().max().item()
+    print(f"{label}: max|ref| {scale:.4g}, max abs diff {err:.4g}, rel {err / scale:.3g} "
+          f"(limit {tol:g})", flush=True)
+    if not (math.isfinite(err) and err <= tol * scale):
+        raise AssertionError(f"{label}: rel {err / scale:.3g} above {tol:g}")
+
+
+def lm_forward(cfg, model, net, tokens) -> dict:
+    """Model.forward at B=1, T=32,768 in bf16 through the causal kernel: one
+    counted window of a warm-up and two timed forwards (24 launches each),
+    peak GiB, a profiler breakdown; then held against the plain causal_stream
+    path in bf16 and in fp32 compute."""
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.core.policy import MixerPolicy
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.api import get_model
+
+    batch = {"tokens": tokens}
+    b, n = tokens.shape
+    reps = 2
+    reset_launch_counts()
+    (logits, _), ms, peak = forward_ms(model, net, batch, reps)
+    counts = launch_counts()
+    print(f"path flare_lm causal_pallas B={b} T={n} bf16: {ms:.3f} ms/forward, peak {peak:.2f} "
+          f"GiB, logits {tuple(logits.shape)} {logits.dtype}; launches over {reps + 1} forwards "
+          f"{counts}", flush=True)
+    if not (counts["flare_causal_chunk"] == (reps + 1) * cfg.num_layers
+            and all(counts[name] == 0 for name in PDE_KERNELS)):
+        raise AssertionError(f"flare_lm forward launches {counts}")
+    if tuple(logits.shape) != (b, n, cfg.vocab) or not bool(logits.isfinite().all()):
+        raise AssertionError(f"flare_lm logits {tuple(logits.shape)} not finite or mis-shaped")
+    breakdown(lambda: model.forward(net, batch), f"flare_lm forward B={b} T={n} bf16")
+    plain = get_model(cfg, policy=MixerPolicy(backends=("causal_stream",)))
+    t0 = time.perf_counter()
+    want, _ = plain.forward(net, batch)
+    torch.cuda.synchronize()
+    print(f"path flare_lm causal_stream (plain) B={b} T={n} bf16: "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms (one forward)", flush=True)
+    held("flare_lm forward causal_pallas vs causal_stream bf16", logits, want, LM_TOL["bfloat16"])
+    del logits, want
+    cfg32 = replace(cfg, compute_dtype="float32")
+    got, _ = get_model(cfg32).forward(net, batch)
+    want, _ = get_model(cfg32, policy=MixerPolicy(backends=("causal_stream",))).forward(net, batch)
+    held("flare_lm forward causal_pallas vs causal_stream fp32", got, want, LM_TOL["float32"])
+    del got, want
+    torch.cuda.empty_cache()
+    return {"counts": counts, "ms": ms, "peak": peak}
+
+
+def serve(model, net, batch, steps: int) -> dict:
+    """Prefill then ``steps`` greedy decode steps; host clock around
+    synchronized work. Returns the prefill and per-step logits, the tokens
+    generated (the first from the prefill), and the times."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(net, batch, BUCKET + steps)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    outs, toks = [logits], [logits.argmax(-1)]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, caches = model.decode_step(net, toks[-1][:, None], caches)
+        outs.append(logits)
+        toks.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return {"logits": torch.stack(outs, 1), "tokens": torch.stack(toks, 1),
+            "prefill_ms": prefill_ms, "step_ms": decode_s * 1e3 / steps,
+            "tok_s": batch["tokens"].shape[0] * steps / decode_s, "pos": caches.pos}
+
+
+def reference_logits(model, net, prompts, lengths, generated):
+    """Model.forward on each request's prompt followed by the tokens it
+    generated (right-padded to one length; causality keeps every real
+    position exact), read at the positions the prefill and the decode steps
+    predicted from: [R, steps + 1, V]."""
+    import torch
+
+    r, steps = generated.shape[0], generated.shape[1] - 1
+    seqs = torch.zeros(r, int(lengths.max()) + steps, dtype=torch.long, device=prompts.device)
+    for i in range(r):
+        n = int(lengths[i])
+        seqs[i, :n] = prompts[i, :n]
+        seqs[i, n:n + steps] = generated[i, :steps]
+    logits, _ = model.forward(net, {"tokens": seqs})
+    pos = lengths[:, None] - 1 + torch.arange(steps + 1, device=prompts.device)[None, :]
+    return logits[torch.arange(r, device=prompts.device)[:, None], pos]
+
+
+def lm_requests(cfg, model, net, device) -> dict:
+    """4 TokenStream prompts of 1,024-2,048 tokens in one 2,048 bucket with
+    lengths: prefill and 64 greedy decode steps in bf16 (one counted window),
+    then the same in fp32 compute held against Model.forward (the kernel
+    path) on the prompts and the tokens generated."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.api import get_model
+
+    rng = np.random.default_rng(SEED)
+    lengths = np.sort(rng.integers(BUCKET // 2, BUCKET + 1, REQUESTS))
+    toks = TokenStream(cfg.vocab, BUCKET, seed=SEED).batch(1, 0, 1, REQUESTS)["tokens"]
+    toks[np.arange(BUCKET)[None, :] >= lengths[:, None]] = 0
+    batch = {"tokens": torch.from_numpy(toks).long().to(device),
+             "lengths": torch.from_numpy(lengths).to(device)}
+    serve(model, net, batch, 2)                       # warm-up
+    reset_launch_counts()
+    run16 = serve(model, net, batch, DECODE_STEPS)
+    counts = launch_counts()
+    print(f"requests flare_lm bf16: {REQUESTS} prompts of {lengths.tolist()} tokens in a "
+          f"{BUCKET} bucket: prefill {run16['prefill_ms']:.3f} ms, decode "
+          f"{run16['step_ms']:.3f} ms/step over {DECODE_STEPS} steps ({run16['tok_s']:.1f} "
+          f"tokens/s), positions after {run16['pos'].tolist()}; launches {counts}", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"prefill and decode are plain torch, yet launched {counts}")
+    if not (bool(run16["logits"].isfinite().all())
+            and run16["pos"].tolist() == (lengths + DECODE_STEPS).tolist()):
+        raise AssertionError("bf16 requests: non-finite logits or wrong positions")
+    _, caches = model.prefill(net, batch, BUCKET + 1)
+    breakdown(lambda: model.decode_step(net, run16["tokens"][:, :1], caches),
+              f"flare_lm decode step B={REQUESTS} bf16")
+    del caches
+    ref16 = reference_logits(model, net, batch["tokens"], batch["lengths"], run16["tokens"])
+    err16 = max_err(run16["logits"], ref16) / ref16.abs().max().item()
+    same16 = (ref16.argmax(-1) == run16["tokens"]).float().mean().item()
+    print(f"requests bf16 vs Model.forward bf16 (printed, not held): rel {err16:.3g}, greedy "
+          f"tokens equal {100 * same16:.1f}%", flush=True)
+    del ref16
+    model32 = get_model(replace(cfg, compute_dtype="float32"))
+    run32 = serve(model32, net, batch, DECODE_STEPS)
+    ref32 = reference_logits(model32, net, batch["tokens"], batch["lengths"], run32["tokens"])
+    print(f"requests flare_lm fp32: prefill {run32['prefill_ms']:.3f} ms, decode "
+          f"{run32['step_ms']:.3f} ms/step", flush=True)
+    held(f"requests fp32 prefill + {DECODE_STEPS} decode steps vs Model.forward (kernel path)",
+         run32["logits"], ref32, LM_TOL["float32"])
+    if not torch.equal(ref32.argmax(-1), run32["tokens"]):
+        raise AssertionError("fp32 greedy tokens differ from Model.forward's argmax")
+    print(f"requests fp32: the greedy tokens of all {REQUESTS} x {DECODE_STEPS + 1} positions "
+          "equal Model.forward's", flush=True)
+    return {"counts": counts, **{key: run16[key] for key in ("prefill_ms", "step_ms", "tok_s")}}
+
+
+def lm_phases(checks: Checks, device) -> dict:
+    """The flare_lm slice: the causal kernel on random and on the model's own
+    operands, Model.forward at T=32,768, and requests through prefill and
+    decode. Returns the causal kernel's stats and the main-path windows'
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models.api import get_model
+
+    check_causal_small(checks, device)
+    cfg = get_config("flare_lm")
+    model = get_model(cfg)
+    plan = model.plans["infer"]
+    print(f"model {cfg.name}: plans {{infer: {plan.describe()}, train: "
+          f"{model.plans['train'].describe()}}}", flush=True)
+    if plan.backend != "causal_pallas":
+        raise AssertionError(f"infer plan {plan.describe()} is not the causal kernel")
+    t0 = time.perf_counter()
+    net = model.init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    print(f"init flare_lm: {time.perf_counter() - t0:.1f} s to draw {n_params} parameters "
+          f"({n_params * 4 / 1e9:.2f} GB fp32) on the CPU and move them to the card",
+          flush=True)
+    n = SHAPES["prefill_32k"].seq_len
+    t0 = time.perf_counter()
+    tokens = torch.from_numpy(TokenStream(cfg.vocab, n, seed=SEED).batch(0, 0, 1, 1)["tokens"])
+    tokens = tokens.long().to(device)
+    print(f"data: TokenStream [1, {n}] in {time.perf_counter() - t0:.2f} s; distinct tokens "
+          f"{len(np.unique(tokens.cpu().numpy()))}", flush=True)
+    ops32 = lm_operands(net, cfg, tokens, torch.float32)
+    ops16 = lm_operands(net, cfg, tokens, torch.bfloat16)
+    check_causal_main(checks, ops32, ops16)
+    stats = time_causal(*ops16)
+    print(f"time flare_causal_chunk flare_lm layer 0 bf16: {stats}", flush=True)
+    print(f"time flare_causal_chunk flare_lm layer 0 fp32: {time_causal(*ops32)}", flush=True)
+    # the plain version is a loop of small eager ops per 64-token tile: its
+    # device busy share says how far its time is the host's
+    from repro_torch.kernels.ref import flare_causal_chunk_ref
+    breakdown(lambda: flare_causal_chunk_ref(*ops16), "plain flare_causal_chunk bf16", top=3)
+    del ops32, ops16
+    torch.cuda.empty_cache()
+    fwd = lm_forward(cfg, model, net, tokens)
+    req = lm_requests(cfg, model, net, device)
+    stats["launches"] = fwd["counts"]["flare_causal_chunk"] + req["counts"]["flare_causal_chunk"]
+    del net
+    torch.cuda.empty_cache()
+    return stats
+
+
 def drive(model, net, batches: dict, label: str) -> dict:
     """One counted window: launch counts zeroed just before, read just after."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
@@ -810,8 +1147,8 @@ def main() -> int:
     packed = drive(model, net, {"pde_40k": (b40, 3), "pde_1m": (b1m, 2)}, "packed")
     pallas_model = get_model(cfg, policy=MixerPolicy(backends=("pallas",)))
     pallas = drive(pallas_model, net, {"pde_40k": (b40, 3)}, "pallas")
-    breakdown(model, net, b40, "packed pde_40k")
-    breakdown(model, net, b1m, "packed pde_1m")
+    breakdown(lambda: model.forward(net, b40), "packed pde_40k")
+    breakdown(lambda: model.forward(net, b1m), "packed pde_1m")
     c_pk, c_pl = packed["counts"], pallas["counts"]
     if not (c_pk["flare_fused_fwd"] > 0 and c_pk["flare_encode"] == c_pk["flare_decode"]
             == c_pk["flare_fused_bwd"] == 0):
@@ -849,6 +1186,11 @@ def main() -> int:
     for name in stats:
         stats[name]["launches"] = sum(c[name] for c in (c_pk, c_pl, trained["counts"],
                                                         trained_1m))
+    del net, b40
+    torch.cuda.empty_cache()
+    # the causal FLARE LM: its launches are those of its forward and requests windows
+    stats["flare_causal_chunk"] = lm_phases(checks, device)
+    for name in stats:
         stats[name]["max_abs_err"] = checks.max_abs[name]
 
     rows = [{"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

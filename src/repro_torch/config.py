@@ -1,11 +1,13 @@
 """Model, shape and training configuration for the port.
 
-The port's own copy of the fields of ``repro.config.ModelConfig`` that the
-PDE family reads, of the paper-native PDE shapes, and of the
-``TrainConfig`` fields the trainer reads (the mesh's gradient compression is
-not ported). The family computes in fp32 whatever the JAX config's
-``compute_dtype`` says (``models/api.py`` of the JAX package forces it), so
-the port has no dtype fields.
+The port's own copy of the fields of ``repro.config.ModelConfig`` and
+``AttnConfig`` that the PDE family and the causal FLARE LM (``flare_lm``)
+read, of their shapes, and of the ``TrainConfig`` fields the trainer reads
+(the mesh's gradient compression is not ported). ``param_dtype`` and
+``compute_dtype`` mean what they mean in the JAX package: parameters are
+stored in the first and cast to the second at use. The PDE family computes
+in fp32 whatever ``compute_dtype`` says, as ``models/api.py`` of the JAX
+package forces; ``flare_lm`` computes in ``compute_dtype`` (bf16 by default).
 """
 from __future__ import annotations
 
@@ -16,24 +18,50 @@ from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
+class AttnConfig:
+    """The fields the ``flare_stream`` mixer reads; the gqa/mla fields
+    (rope, windows, MLA) are not ported."""
+    kind: str = "gqa"               # gqa | mla | flare_stream | none (only flare_stream runs)
+    num_heads: int = 8
+    num_kv_heads: int = 8
+    head_dim: int = 64
+    flare_latents: int = 0          # M latents per head
+    flare_chunk: int = 256          # tokens per chunk of the causal scan
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "pde"
-    num_layers: int = 4             # FLARE blocks
+    family: str = "pde"             # pde | flare_lm
+    num_layers: int = 4             # FLARE blocks (pde) or decoder layers (flare_lm)
     d_model: int = 256              # C
-    flare_latents: int = 0          # M
-    flare_heads: int = 0            # H; head dim D = d_model // H
+    flare_latents: int = 0          # M (pde)
+    flare_heads: int = 0            # H (pde); head dim D = d_model // H
+    # decoder-only LM (flare_lm)
+    d_ff: int = 1024
+    vocab: int = 32000
+    attn: AttnConfig = field(default_factory=AttnConfig)
+    norm: str = "rmsnorm"           # the LM's norms (only rmsnorm is ported)
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # numerics
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
 
 
 @dataclass(frozen=True)
 class ShapeConfig:
     name: str
-    seq_len: int                    # points per example (N)
+    seq_len: int                    # points (N) or tokens per example
     global_batch: int               # examples per step (B)
-    step: str = "train"
+    step: str = "train"             # train | prefill | decode
 
 
 SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
     "pde_40k": ShapeConfig("pde_40k", 40000, 8, "train"),
     "pde_1m": ShapeConfig("pde_1m", 1048576, 1, "train"),
 }

@@ -2,13 +2,13 @@
 
 Each module exports ``config()`` (the assigned configuration) and
 ``smoke_config()`` (a reduced configuration of the same family for CPU
-tests). The port has the PDE surrogate only so far.
+tests). The port has the PDE surrogate and the causal FLARE LM so far.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["flare_pde"]
+ARCH_IDS = ["flare_lm", "flare_pde"]
 
 
 def _module(name: str):

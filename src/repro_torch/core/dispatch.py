@@ -1,11 +1,12 @@
 """Typed mixer-backend registry and capability dispatch.
 
 Counterpart of ``repro/core/dispatch.py``, trimmed to what one device needs:
-no mesh, no sharded backends, no legacy ``impl`` tuples, and only the
-bidirectional (set-mixer) contract, the one the PDE surrogate uses. Every
-FLARE mixer implementation registers a :class:`MixerBackend` saying what it
-can do (device kinds, dtypes, whether autograd runs through it) and how to
-run (a ``plan`` function and ``run``).
+no mesh, no sharded backends, no legacy ``impl`` tuples. Every FLARE mixer
+implementation registers a :class:`MixerBackend` saying what it can do
+(which contract: the bidirectional set mixer of the PDE surrogate or the
+causal LM mixer of ``flare_lm``; device kinds, dtypes, whether autograd runs
+through it) and how to run (a ``plan`` function and ``run``). A backend that
+breaks the contract of its path is an error, never a fallback.
 
 Device kinds are ``torch.device`` types: ``"cpu"`` and ``"cuda"``. Backends
 live in :mod:`repro_torch.backends`; importing that package fills the
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import torch
 
@@ -40,6 +41,8 @@ class MixerShape:
 class Capabilities:
     """What a backend may be selected for."""
 
+    causal: bool = False           # satisfies the causal LM-mixer contract
+    bidirectional: bool = True     # satisfies the set-mixer contract
     device_kinds: tuple = ("cpu", "cuda")
     dtypes: Optional[tuple] = None  # dtype names; None = any floating dtype
     grads: bool = True             # autograd runs through ``run``
@@ -47,13 +50,16 @@ class Capabilities:
 
 @dataclasses.dataclass(frozen=True)
 class MixerPlan:
-    """A resolved execution plan. The kernels' tiles are fixed, so a plan is
-    its backend's name; launch parameters join it with the autotuner."""
+    """A resolved execution plan: a backend's name and what its ``run`` needs
+    beyond q, k and v (the plain causal scan's ``chunk_size``). The kernels' tiles
+    are fixed; launch parameters join ``params`` with the autotuner."""
 
     backend: str
+    params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     def describe(self) -> str:
-        return self.backend
+        inner = ";".join(f"{k}={v}" for k, v in self.params.items())
+        return f"{self.backend}({inner})" if inner else self.backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,8 +103,10 @@ def _dtype_name(dtype) -> str:
 
 
 def eligible(backend: MixerBackend, *, dtype, device: str = "cuda",
-             grad: bool = False) -> bool:
+             grad: bool = False, causal: bool = False) -> bool:
     caps = backend.caps
+    if not (caps.causal if causal else caps.bidirectional):
+        return False
     if device not in caps.device_kinds:
         return False
     if grad and not caps.grads:
@@ -106,9 +114,19 @@ def eligible(backend: MixerBackend, *, dtype, device: str = "cuda",
     return caps.dtypes is None or _dtype_name(dtype) in caps.dtypes
 
 
-def _check_contract(backend: MixerBackend, grad: bool) -> None:
-    """A backend named explicitly must still meet the contract: that is an
-    error, never a fallback."""
+def _check_contract(backend: MixerBackend, causal: bool, grad: bool) -> None:
+    """A backend named explicitly must still meet the contract: a
+    bidirectional mixer on the causal path would leak future tokens, so that
+    is an error, never a fallback."""
+    if causal and not backend.caps.causal:
+        raise ValueError(
+            f"backend {backend.name!r} is not causal — using it as an LM mixer "
+            "would leak future tokens (registered causal backends: "
+            f"{sorted(b.name for b in _REGISTRY.values() if b.caps.causal)})")
+    if not causal and not backend.caps.bidirectional:
+        raise ValueError(
+            f"backend {backend.name!r} only implements the causal contract and "
+            "cannot serve the bidirectional (set-mixer) path")
     if grad and not backend.caps.grads:
         raise ValueError(
             f"backend {backend.name!r} is forward-only and cannot serve a "
@@ -116,31 +134,34 @@ def _check_contract(backend: MixerBackend, grad: bool) -> None:
             f"{sorted(b.name for b in _REGISTRY.values() if b.caps.grads)}")
 
 
-def resolve(impl, *, shape: MixerShape, dtype, device: str = "cuda", grad: bool = False):
+def resolve(impl, *, shape: MixerShape, dtype, device: str = "cuda", grad: bool = False,
+            causal: bool = False):
     """Normalize ``impl`` ("auto", a backend name, or a MixerPlan) to a
     ``(MixerBackend, MixerPlan)`` pair for ``device`` (a device kind).
 
     ``grad=True`` marks a differentiated call site: "auto" considers only
-    grad-capable backends, and naming a forward-only one is an error."""
+    grad-capable backends, and naming a forward-only one is an error.
+    ``causal=True`` marks the LM path: only causal backends serve it, and
+    only bidirectional ones serve the default set-mixer path."""
     _ensure_loaded()
     if impl is None:
         impl = "auto"
     if isinstance(impl, MixerPlan):
         backend = get_backend(impl.backend)
-        _check_contract(backend, grad)
+        _check_contract(backend, causal, grad)
         return backend, impl
     if not isinstance(impl, str):
         raise TypeError(f"impl must be str | MixerPlan, got {type(impl)!r}")
     if impl == "auto":
         cands = [b for b in _REGISTRY.values()
-                 if eligible(b, dtype=dtype, device=device, grad=grad)]
+                 if eligible(b, dtype=dtype, device=device, grad=grad, causal=causal)]
         if not cands:
-            raise ValueError(f"no eligible mixer backend (device={device}, "
+            raise ValueError(f"no eligible mixer backend (causal={causal}, device={device}, "
                              f"dtype={_dtype_name(dtype)}, grad={grad})")
         best = max(cands, key=lambda b: b.score(shape, device))
         return best, best.plan(shape, dtype)
     backend = get_backend(impl)
-    _check_contract(backend, grad)
+    _check_contract(backend, causal, grad)
     if device not in backend.caps.device_kinds:
         raise ValueError(f"backend {impl!r} does not run on {device!r}")
     return backend, backend.plan(shape, dtype)

@@ -67,27 +67,31 @@ PolicyLike = Union[MixerPolicy, MixerPlan, None]
 
 
 def resolve_policy(policy: PolicyLike, shape: MixerShape, dtype=torch.float32, *,
-                   device: str = "cuda", requires_grad: Optional[bool] = None) -> MixerPlan:
+                   device: str = "cuda", requires_grad: Optional[bool] = None,
+                   causal: bool = False) -> MixerPlan:
     """Resolve a policy (None = the ambient one) to a plan for ``device``
-    (a device kind). ``requires_grad`` overrides the policy's own field."""
+    (a device kind) on the causal LM path (``causal=True``) or the
+    set-mixer path. ``requires_grad`` overrides the policy's own field."""
     if policy is None:
         policy = current_policy()
     if isinstance(policy, MixerPlan):
         rg = current_policy().requires_grad if requires_grad is None else requires_grad
-        return dispatch.resolve(policy, shape=shape, dtype=dtype, device=device, grad=rg)[1]
+        return dispatch.resolve(policy, shape=shape, dtype=dtype, device=device, grad=rg,
+                                causal=causal)[1]
     if not isinstance(policy, MixerPolicy):
         raise TypeError(f"policy must be MixerPolicy | MixerPlan | None, got {type(policy)!r}")
     rg = policy.requires_grad if requires_grad is None else requires_grad
     errors = []
     for name in policy.backends:
         try:
-            return dispatch.resolve(name, shape=shape, dtype=dtype, device=device, grad=rg)[1]
+            return dispatch.resolve(name, shape=shape, dtype=dtype, device=device, grad=rg,
+                                    causal=causal)[1]
         except ValueError as e:
             if len(policy.backends) == 1:
                 raise
             errors.append(f"{name}: {e}")
     raise ValueError(f"no backend in preference order {policy.backends!r} satisfies "
-                     f"(requires_grad={rg}, device={device}):\n  "
+                     f"(causal={causal}, requires_grad={rg}, device={device}):\n  "
                      + "\n  ".join(errors))
 
 

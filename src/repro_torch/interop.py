@@ -7,6 +7,11 @@ np.asarray, params)``), so this module needs no JAX. Paths become
 ``nn.Linear``. Every parity test loads its weights through here: the two
 frameworks' random generators differ, so weights are never re-initialised.
 
+The JAX LM stacks its layers (every leaf of ``layers`` has a leading [L]
+axis, for ``jax.lax.scan``); :func:`unstack_layers` splits them into the
+list of per-layer trees that the port's ``nn.ModuleList`` reads
+(``layers.3.mlp.w_gate.weight``).
+
 The other direction, :func:`to_jax_flat`, gives the flat form the
 checkpoints hold: the JAX leaf paths joined by ``/``
 (``blocks/0/mixer/k_proj/res/1/kernel``) with dense kernels ``[in, out]``.
@@ -41,6 +46,25 @@ def _jax_leaves(tree, prefix: str = "") -> dict:
         else:
             out[path] = sub
     return out
+
+
+def unstack_layers(tree: dict, key: str = "layers") -> dict:
+    """A copy of ``tree`` with ``tree[key]``, whose leaves carry a leading
+    [L] axis, split into a list of L per-layer trees."""
+    def take(sub, i):
+        if isinstance(sub, dict):
+            return {k: take(x, i) for k, x in sub.items()}
+        if isinstance(sub, (list, tuple)):
+            return [take(x, i) for x in sub]
+        return sub[i]
+
+    def depth(sub):
+        while isinstance(sub, (dict, list, tuple)):
+            sub = next(iter(sub.values())) if isinstance(sub, dict) else sub[0]
+        return sub.shape[0]
+
+    stacked = tree[key]
+    return {**tree, key: [take(stacked, i) for i in range(depth(stacked))]}
 
 
 def load_jax_params(module: nn.Module, tree) -> nn.Module:

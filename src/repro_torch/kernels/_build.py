@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flare.cu", "flare_bwd.cu")
+SOURCES = ("flare.cu", "flare_bwd.cu", "flare_causal.cu")
 HEADERS = ("flare_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,6 +36,8 @@ _SIGNATURES = {
     "flare_encode": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 3 + [_P],
     "flare_decode": [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_I] * 2 + [_P],
     "flare_fused_bwd": [_P] * 14 + [_I] * 5 + [_PLL] + [_I] * 2 + [_P],
+    "flare_causal_splits": [_I],
+    "flare_causal": [_P] * 6 + [_I] * 5 + [_LL] * 9 + [_I] + [_P],
 }
 
 _lock = threading.Lock()

@@ -32,11 +32,16 @@ HEAD_DIMS = (4, 8)   # the head dims csrc/flare.cu is built for (the paper's)
 MAX_GROUPS = 65535   # B*H rides on gridDim.y
 
 
-def forbid_grad(name: str, *ts: torch.Tensor) -> None:
+PACKED_GRADS = ("the 'packed' backend (FlareFused in kernels/flare_packed.py), whose "
+                "backward is the fused kernel")
+
+
+def forbid_grad(name: str, *ts: torch.Tensor, grads_via: str = PACKED_GRADS) -> None:
+    """Raise if autograd would record a call of the forward-only kernel
+    ``name``; ``grads_via`` names the path that differentiates instead."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(f"{name} is forward-only: run it under torch.no_grad(), or "
-                           "differentiate through the 'packed' backend (FlareFused in "
-                           "kernels/flare_packed.py), whose backward is the fused kernel")
+                           f"differentiate through {grads_via}")
 
 
 def on_cuda(name: str, *ts: torch.Tensor) -> bool:
@@ -68,12 +73,14 @@ def check_operands(name: str, q: torch.Tensor, *xs: torch.Tensor) -> None:
         raise ValueError(f"{name}: empty problem (B={b}, M={m}, N={n})")
 
 
-def check_kernel_operands(name: str, q: torch.Tensor, *xs: torch.Tensor) -> None:
-    """What the CUDA kernels take beyond :func:`check_operands`."""
+def check_kernel_operands(name: str, q: torch.Tensor, *xs: torch.Tensor,
+                          head_dims=HEAD_DIMS) -> None:
+    """What the CUDA kernels take beyond :func:`check_operands`; ``head_dims``
+    are those the kernel is built for."""
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not in {list(DTYPE_CODES)}")
-    if q.shape[2] not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {q.shape[2]} not in {HEAD_DIMS}")
+    if q.shape[2] not in head_dims:
+        raise ValueError(f"{name}: head dim {q.shape[2]} not in {head_dims}")
     if not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous")
     for x in xs:

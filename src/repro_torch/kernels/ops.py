@@ -12,9 +12,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flare import flare_decode, flare_encode
+from repro_torch.kernels.flare_causal import flare_causal_chunk
 from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
 
-KERNELS = (flare_encode, flare_decode, flare_fused_fwd, flare_fused_bwd)
+KERNELS = (flare_encode, flare_decode, flare_fused_fwd, flare_fused_bwd, flare_causal_chunk)
 
 
 def flare_mixer_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -22,6 +23,15 @@ def flare_mixer_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
     q [H, M, D], k/v [B, H, N, D] -> y [B, H, N, D]."""
     q = q.to(k.dtype)
     return flare_decode(q, k, flare_encode(q, k, v))
+
+
+def flare_causal_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal FLARE (the flare_lm mixer) through the causal kernel:
+    q [H, M, D], k/v [B, H, N, D] -> y [B, H, N, D]; the semantics of
+    ``core.flare_stream.flare_causal``. The TPU wrapper's tile argument and
+    its padding of N are not needed: the kernel's tile is its own, and
+    ragged N is a loop bound."""
+    return flare_causal_chunk(q.to(k.dtype), k, v)
 
 
 def reset_launch_counts() -> None:

@@ -7,7 +7,8 @@ statistics are fp32 (fp64 for fp64 inputs, an exact yardstick); the outputs
 take the input dtype, except the fused forward's residuals, which are fp32
 (fp64) as the kernel keeps them. The fused backward takes the tokens in
 chunks (``chunk=``), so that its [B, H, M, chunk] temporaries fit where the
-whole [B, H, M, N] would not.
+whole [B, H, M, N] would not. The causal version sweeps the tokens in
+tiles (``tile=``), the factored form of ``core/flare_stream.py``.
 """
 from __future__ import annotations
 
@@ -106,3 +107,23 @@ def flare_fused_bwd_ref(q, k, v, z, mx, den, lse, y, dy, *, chunk=None):
     ``chunk`` tokens at a time."""
     dz = flare_bwd_dz_ref(q, k, lse, dy, chunk=chunk)
     return flare_bwd_grads_ref(q, k, v, z, mx, den, lse, y, dy, dz, chunk=chunk)
+
+
+def flare_causal_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           tile: int = 64) -> torch.Tensor:
+    """Causal FLARE (the math of ``_causal_chunk_kernel``): q [H, M, D],
+    k/v [B, H, T, D] (any strides, T any length) -> y [B, H, T, D] in v's
+    dtype. The factored chunk of ``stream_chunk_factored`` over ``tile``
+    tokens at a time (the last tile ragged), carrying the latent state.
+    Scores and state fp32, fp64 for fp64 inputs; a [B, H, M, tile] and a
+    [B, H, tile, tile] temporary at a time."""
+    from repro_torch.core.flare_stream import stream_chunk_factored, stream_init
+
+    b, h, t, d = k.shape
+    wide = torch.promote_types(v.dtype, torch.float32)
+    state = stream_init(b, h, q.shape[1], d, device=k.device, dtype=wide)
+    ys = []
+    for t0 in range(0, t, tile):
+        state, y = stream_chunk_factored(state, q, k[:, :, t0:t0 + tile], v[:, :, t0:t0 + tile])
+        ys.append(y)
+    return torch.cat(ys, dim=2)

@@ -1,18 +1,29 @@
-"""Model API of the port: ``get_model(cfg)`` -> init / forward / loss / plans.
+"""Model API of the port: ``get_model(cfg)`` -> init / forward / loss / plans,
+and for the causal FLARE LM prefill / decode_step / init_caches.
 
-Counterpart of ``repro/models/api.py`` for the PDE family:
+Counterpart of ``repro/models/api.py`` for the PDE family and ``flare_lm``:
 
     m = get_model(cfg, device="cuda")   # plans resolved here, once, for the device
-    net = m.init(seed)                  # a Surrogate module on that device
+    net = m.init(seed)                  # the model's modules on that device
     pred = m.forward(net, batch)        # inference under m.plans["infer"]
     loss = m.loss(net, batch)           # differentiable, under m.plans["train"]
+    # flare_lm only:
+    logits, caches = m.prefill(net, batch, capacity)      # batch may carry "lengths"
+    logits, caches = m.decode_step(net, token, caches)    # token [B, 1]
+    caches = m.init_caches(batch_size, capacity)
 
 The train plan is always resolved with ``requires_grad=True``, so training
-never lands on a forward-only kernel. On the card both plans resolve to
-``packed``: the fused forward kernel, and under ``loss`` its fused backward
-kernel through autograd. On the CPU both resolve to the plain ``sdpa``. A
+never lands on a forward-only kernel. PDE: on the card both plans resolve
+to ``packed`` (the fused forward kernel, and under ``loss`` its fused
+backward kernel through autograd); on the CPU to the plain ``sdpa``. A
 policy that can only serve inference (``pallas``) still builds, and
-``loss`` raises its resolve error.
+``loss`` raises its resolve error. flare_lm: the plans are resolved on the
+causal path; the infer plan is ``causal_pallas`` (the causal kernel, whose
+tile is its own) on the card and the plain ``causal_stream`` on the CPU, the
+train plan ``causal_stream``, whose ``chunk_size`` is the config's
+``flare_chunk``.
+``forward`` returns ``(logits [B, S, vocab] fp32, aux)``. flare_lm training
+is not ported yet: its ``loss`` raises.
 """
 from __future__ import annotations
 
@@ -36,23 +47,37 @@ class Model:
     loss: Callable[..., torch.Tensor]
     # resolved mixer plans: {"infer": ...[, "train": ...]}
     plans: Mapping[str, Any] = field(default_factory=dict)
+    # serving entry points (flare_lm); None for the PDE family
+    prefill: Optional[Callable[..., Any]] = None
+    decode_step: Optional[Callable[..., Any]] = None
+    init_caches: Optional[Callable[..., Any]] = None
 
 
 def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
                    seq_len_hint: Optional[int]):
-    from repro_torch.core.dispatch import MixerShape
+    from repro_torch.core.dispatch import MixerPlan, MixerShape
     from repro_torch.core.policy import resolve_policy
 
-    shape = MixerShape(batch=1, heads=cfg.flare_heads, tokens=seq_len_hint or DEFAULT_TOKENS_HINT,
-                       latents=cfg.flare_latents, head_dim=cfg.d_model // cfg.flare_heads)
+    causal = cfg.family == "flare_lm"
+    if causal:
+        heads, latents = cfg.attn.num_heads, cfg.attn.flare_latents
+        dtype = getattr(torch, cfg.compute_dtype)
+    else:   # the PDE family computes in fp32 whatever compute_dtype says
+        heads, latents, dtype = cfg.flare_heads, cfg.flare_latents, torch.float32
+    shape = MixerShape(batch=1, heads=heads, tokens=seq_len_hint or DEFAULT_TOKENS_HINT,
+                       latents=latents, head_dim=cfg.d_model // heads)
     kind = device.type
-    plans = {"infer": resolve_policy(policy, shape, torch.float32, device=kind)}
+    plans = {"infer": resolve_policy(policy, shape, dtype, device=kind, causal=causal)}
     try:
-        plans["train"] = resolve_policy(policy, shape, torch.float32, device=kind,
-                                        requires_grad=True)
+        plans["train"] = resolve_policy(policy, shape, dtype, device=kind, requires_grad=True,
+                                        causal=causal)
         train_error = None
     except ValueError as e:
         train_error = e
+    if causal:
+        # the config's chunk drives the plain causal scan; the kernel's tile is its own
+        plans = {key: MixerPlan(p.backend, {**p.params, "chunk_size": cfg.attn.flare_chunk})
+                 if p.backend == "causal_stream" else p for key, p in plans.items()}
     return plans, train_error
 
 
@@ -60,12 +85,14 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
               seq_len_hint: Optional[int] = None) -> Model:
     """``policy``: a MixerPolicy, a MixerPlan, or None (the ambient policy),
     resolved here once for ``device`` (default ``"cuda"``)."""
-    if cfg.family != "pde":
-        raise ValueError(f"family {cfg.family!r} is not ported; the port has 'pde'")
-    from repro_torch.models import pde
-
+    if cfg.family not in ("pde", "flare_lm"):
+        raise ValueError(f"family {cfg.family!r} is not ported; the port has 'pde' "
+                         "and 'flare_lm'")
     dev = torch.device("cuda" if device is None else device)
     plans, train_error = _resolve_plans(cfg, policy, dev, seq_len_hint)
+    if cfg.family == "flare_lm":
+        return _flare_lm(cfg, dev, plans)
+    from repro_torch.models import pde
 
     def init(seed: int) -> pde.Surrogate:
         gen = torch.Generator().manual_seed(seed)
@@ -85,3 +112,31 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
         return pde.relative_l2(pred, batch["y"])
 
     return Model(cfg=cfg, init=init, forward=forward, loss=loss, plans=plans)
+
+
+def _flare_lm(cfg: ModelConfig, dev: torch.device, plans) -> Model:
+    from repro_torch.models import transformer as t
+
+    def init(seed: int) -> t.LM:
+        return t.init_lm(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+
+    def forward(net: t.LM, batch) -> tuple:
+        with torch.no_grad():
+            logits, aux = t.lm_forward(net, batch["tokens"], cfg, plan=plans["infer"])
+        return logits[..., : cfg.vocab], aux
+
+    def prefill(net: t.LM, batch, capacity: int) -> tuple:
+        with torch.no_grad():
+            return t.lm_prefill(net, batch, cfg, capacity)
+
+    def decode_step(net: t.LM, token: torch.Tensor, caches) -> tuple:
+        with torch.no_grad():
+            return t.lm_decode_step(net, token, caches, cfg)
+
+    def loss(net: t.LM, batch) -> torch.Tensor:
+        raise NotImplementedError("flare_lm training is not ported yet")
+
+    return Model(cfg=cfg, init=init, forward=forward, loss=loss, plans=plans,
+                 prefill=prefill, decode_step=decode_step,
+                 init_caches=lambda batch, capacity: t.init_lm_caches(batch, cfg, capacity,
+                                                                      device=dev))

@@ -1,0 +1,240 @@
+"""The decoder-only causal FLARE LM (``flare_lm``): forward, prefill, decode.
+
+Counterpart of the ``flare_stream`` part of ``repro/models/transformer.py``.
+The JAX package stacks the layers (a leading [L] axis on every leaf) and
+runs them with ``jax.lax.scan``; here they are an ``nn.ModuleList`` walked
+in a loop, and ``repro_torch.interop.unstack_layers`` carries a JAX tree in.
+Parameters are stored in ``cfg.param_dtype`` (fp32) and cast to
+``cfg.compute_dtype`` at use; norms keep fp32 statistics and the logits are
+fp32. The gqa/mla attention layers, MoE and the encoder-decoder are not
+ported yet.
+
+Each layer is pre-norm: ``x += mix(norm1(x)); x += swiglu(norm2(x))``, the
+mixer being causal FLARE over ResMLP K/V projections with per-head latent
+queries (``core/flare.py::FlareLayer``). ``lm_forward`` runs the mixer
+through the model's resolved plan (the causal kernel on the card);
+``lm_prefill`` is pinned to the stateful chunked scan
+(``flare_causal_with_state``), since it must return each layer's latent
+state, and ``lm_decode_step`` appends one token to every state
+(``stream_append``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.flare import FlareLayer, _merge_heads, _split_heads, init_flare_layer
+from repro_torch.core.flare_stream import flare_causal_with_state, stream_append, stream_init
+from repro_torch.nn.modules import (
+    Embedding,
+    RMSNorm,
+    SwiGLU,
+    dense,
+    embedding,
+    init_dense,
+    init_embedding,
+    init_rmsnorm,
+    init_swiglu,
+    resmlp,
+    rmsnorm,
+    swiglu,
+)
+
+VOCAB_PAD_MULTIPLE = 256
+
+
+def padded_vocab(vocab: int) -> int:
+    """The vocab rounded up to a multiple of 256, as the JAX package stores
+    the embedding and the head (there, for tensor-parallel sharding)."""
+    return -(-vocab // VOCAB_PAD_MULTIPLE) * VOCAB_PAD_MULTIPLE
+
+
+def mask_padded_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """-inf on the padded tail, so softmax, logsumexp and argmax ignore it."""
+    if logits.shape[-1] == vocab:
+        return logits
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return logits.masked_fill(col >= vocab, -torch.inf)
+
+
+def _last_valid(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """x [B, S, C] -> [B, 1, C] at each row's last real position (prefill
+    right-pads prompts to a bucket)."""
+    if lengths is None:
+        return x[:, -1:]
+    idx = (lengths - 1).clamp(0, x.shape[1] - 1).to(torch.long)
+    return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+class DecoderLayer(nn.Module):
+    """Parameters ``norm1``, ``attn`` (a FlareLayer), ``norm2``, ``mlp``
+    (SwiGLU), as one layer of the JAX tree's stacked ``layers``."""
+
+    def __init__(self, norm1: RMSNorm, attn: FlareLayer, norm2: RMSNorm, mlp: SwiGLU):
+        super().__init__()
+        self.norm1 = norm1
+        self.attn = attn
+        self.norm2 = norm2
+        self.mlp = mlp
+
+
+class LM(nn.Module):
+    def __init__(self, embed: Embedding, final_norm: RMSNorm, layers: list,
+                 lm_head: Optional[nn.Linear]):
+        super().__init__()
+        self.embed = embed
+        self.final_norm = final_norm
+        self.layers = nn.ModuleList(layers)
+        self.lm_head = lm_head
+
+
+def _check_cfg(cfg: ModelConfig) -> None:
+    if cfg.attn.kind != "flare_stream" or cfg.norm != "rmsnorm":
+        raise ValueError(f"the port's LM has flare_stream mixers and rmsnorm, not "
+                         f"{cfg.attn.kind!r} / {cfg.norm!r}")
+
+
+def init_decoder_layer(cfg: ModelConfig, *, generator: torch.Generator, device=None,
+                       dtype=torch.float32) -> DecoderLayer:
+    kw = dict(device=device, dtype=dtype)
+    return DecoderLayer(
+        init_rmsnorm(cfg.d_model, **kw),
+        init_flare_layer(cfg.d_model, cfg.attn.num_heads, cfg.attn.flare_latents,
+                         generator=generator, kv_proj_layers=3, **kw),
+        init_rmsnorm(cfg.d_model, **kw),
+        init_swiglu(cfg.d_model, cfg.d_ff, generator=generator, **kw),
+    )
+
+
+def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device=None) -> LM:
+    """Weights drawn on the CPU from ``generator`` and moved to ``device``
+    tensor by tensor."""
+    _check_cfg(cfg)
+    kw = dict(device=device, dtype=_dtype(cfg.param_dtype))
+    vp = padded_vocab(cfg.vocab)
+    return LM(
+        init_embedding(vp, cfg.d_model, generator=generator, **kw),
+        init_rmsnorm(cfg.d_model, **kw),
+        [init_decoder_layer(cfg, generator=generator, **kw) for _ in range(cfg.num_layers)],
+        None if cfg.tie_embeddings else init_dense(cfg.d_model, vp, generator=generator, **kw),
+    )
+
+
+def _norm(cfg: ModelConfig, norm: RMSNorm, x: torch.Tensor) -> torch.Tensor:
+    return rmsnorm(norm, x, eps=cfg.norm_eps)
+
+
+def _kv(fl: FlareLayer, xin: torch.Tensor, heads: int):
+    """The mixer's k and v [B, H, S, D], strided split-head views."""
+    return _split_heads(resmlp(fl.k_proj, xin), heads), _split_heads(resmlp(fl.v_proj, xin), heads)
+
+
+def _flare_stream_mix(fl: FlareLayer, x: torch.Tensor, cfg: ModelConfig, plan) -> torch.Tensor:
+    """Causal FLARE as the LM mixer, through the plan resolved at model build
+    (a registry lookup, never a re-resolve)."""
+    from repro_torch.core.policy import run_plan
+
+    k, v = _kv(fl, x, cfg.attn.num_heads)
+    y = run_plan(plan, fl.q_latent.to(x.dtype), k, v)
+    return dense(fl.out_proj, _merge_heads(y))
+
+
+def _ffn(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
+    return x + swiglu(layer.mlp, _norm(cfg, layer.norm2, x))
+
+
+def _embed(net: LM, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return embedding(net.embed, tokens, _dtype(cfg.compute_dtype))
+
+
+def _logits(net: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The head of the final-normed x, fp32 (the padded vocab kept)."""
+    if cfg.tie_embeddings:
+        return (x @ net.embed.table.to(x.dtype).T).float()
+    return dense(net.lm_head, x).float()
+
+
+def lm_forward(net: LM, tokens: torch.Tensor, cfg: ModelConfig, *, plan) -> tuple:
+    """Full-sequence forward: tokens [B, S] -> (logits fp32 [B, S, V_padded]
+    with the padded tail at -inf, aux loss 0). ``plan`` is the causal
+    MixerPlan resolved at model build."""
+    x = _embed(net, tokens, cfg)
+    for layer in net.layers:
+        x = x + _flare_stream_mix(layer.attn, _norm(cfg, layer.norm1, x), cfg, plan)
+        x = _ffn(cfg, layer, x)
+    logits = _logits(net, _norm(cfg, net.final_norm, x), cfg)
+    return mask_padded_logits(logits, cfg.vocab), torch.zeros((), device=x.device)
+
+
+class LMCaches(NamedTuple):
+    """The JAX ``LMCaches`` without its ``dense`` field (the leading dense
+    layers of MoE models, not ported)."""
+    layers: list          # one FlareState per layer
+    pos: torch.Tensor     # [B] int32, the next position of each sequence
+
+
+def init_lm_caches(batch: int, cfg: ModelConfig, capacity: int, *, device=None) -> LMCaches:
+    """Fresh caches. A FLARE state is O(M*D) per head whatever the sequence
+    length, so ``capacity`` does not size it."""
+    del capacity
+    heads = cfg.attn.num_heads
+    return LMCaches(
+        layers=[stream_init(batch, heads, cfg.attn.flare_latents, cfg.d_model // heads,
+                            device=device) for _ in range(cfg.num_layers)],
+        pos=torch.zeros(batch, dtype=torch.int32, device=device),
+    )
+
+
+def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int) -> tuple:
+    """Run whole prompts and return (last-token logits fp32 [B, V], caches).
+
+    ``batch["tokens"]`` [B, S]; ``batch["lengths"]`` ([B] int, optional)
+    gives the true prompt lengths of a right-padded bucket: the mask keeps
+    the padding out of the carried states, and the logits are taken at each
+    row's last real position. Each layer runs the stateful chunked scan of
+    ``cfg.attn.flare_chunk`` tokens, not the model's plan: the plan's
+    kernel returns no state."""
+    del capacity
+    tokens = batch["tokens"]
+    lengths = batch.get("lengths")
+    x = _embed(net, tokens, cfg)
+    b, s = tokens.shape
+    mask = None
+    if lengths is not None:
+        mask = torch.arange(s, device=tokens.device)[None, :] < lengths[:, None]
+    states = []
+    for layer in net.layers:
+        fl = layer.attn
+        k, v = _kv(fl, _norm(cfg, layer.norm1, x), cfg.attn.num_heads)
+        st, y = flare_causal_with_state(fl.q_latent.to(x.dtype), k, v,
+                                        chunk_size=cfg.attn.flare_chunk, mask=mask)
+        states.append(st)
+        x = _ffn(cfg, layer, x + dense(fl.out_proj, _merge_heads(y)))
+    x = _norm(cfg, net.final_norm, _last_valid(x, lengths))
+    logits = _logits(net, x, cfg)[:, 0, : cfg.vocab]
+    pos = (torch.full((b,), s, dtype=torch.int32, device=tokens.device) if lengths is None
+           else lengths.to(torch.int32))
+    return logits, LMCaches(states, pos)
+
+
+def lm_decode_step(net: LM, token: torch.Tensor, caches: LMCaches, cfg: ModelConfig) -> tuple:
+    """One token per sequence: token [B, 1] -> (logits fp32 [B, V], caches
+    advanced by one position). Each layer appends the token to its state."""
+    x = _embed(net, token, cfg)
+    heads = cfg.attn.num_heads
+    states = []
+    for layer, state in zip(net.layers, caches.layers):
+        fl = layer.attn
+        k, v = _kv(fl, _norm(cfg, layer.norm1, x), heads)
+        state, y = stream_append(state, fl.q_latent.to(x.dtype), k[:, :, 0], v[:, :, 0])
+        states.append(state)
+        x = _ffn(cfg, layer, x + dense(fl.out_proj, y.reshape(y.shape[0], 1, -1)))
+    logits = _logits(net, _norm(cfg, net.final_norm, x), cfg)[:, 0, : cfg.vocab]
+    return logits, LMCaches(states, caches.pos + 1)

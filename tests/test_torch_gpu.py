@@ -9,14 +9,20 @@ Tolerances: fp32 atol 1e-4 (sums in another order over up to 40,000 terms),
 bf16 2e-2; against the plain version in fp64, 1e-5 of the output's largest
 magnitude. The fused backward is held against its plain version in fp64 at
 1e-5 of each gradient's largest magnitude in fp32 (its kernels sit near
-1e-6 there), and at 2e-2 in bf16."""
+1e-6 there), and at 2e-2 in bf16. The causal kernel is held against its
+plain version in fp64 at 1e-5 of max |y| in fp32, and against the plain
+version on the same bf16 inputs at 2e-2 in bf16."""
 import pytest
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.pde_data import pointcloud_batch
 from repro_torch.kernels import ref
+from repro_torch.config import replace
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.policy import MixerPolicy
 from repro_torch.kernels.flare import flare_decode, flare_encode
+from repro_torch.kernels.flare_causal import flare_causal_chunk
 from repro_torch.kernels.flare_packed import FlareFused, flare_fused_bwd, flare_fused_fwd
 from repro_torch.kernels.ops import launch_counts
 from repro_torch.models.api import get_model
@@ -62,7 +68,8 @@ def test_kernels_match_plain(cuda, shape, dtype):
     torch.testing.assert_close(den, den_ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
     after = launch_counts()
-    assert all(after[name] == before[name] + (name != "flare_fused_bwd") for name in after)
+    assert all(after[name] == before[name] + (name not in ("flare_fused_bwd", "flare_causal_chunk"))
+               for name in after)
 
 
 def test_model_operands_stay_near_fp64(cuda):
@@ -162,3 +169,52 @@ def test_fused_bwd_raises_instead_of_falling_back(cuda):
         flare_fused_bwd(q, k, v, z.double(), mx, den, lse, y, y)
     with pytest.raises(ValueError, match="several devices"):
         flare_fused_bwd(q, k, v, z.cpu(), mx, den, lse, y, y)
+
+
+CAUSAL_SHAPES = [(2, 4, 16, 97, 8), (1, 3, 24, 300, 16), (2, 2, 70, 130, 32),
+                 (1, 2, 64, 64, 64), (1, 2, 512, 1000, 128), (1, 1, 100, 4099, 128)]
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("shape", CAUSAL_SHAPES)
+def test_causal_kernel_matches_plain(cuda, shape, dtype):
+    """Ragged T and ragged latent slices (M not a multiple of 64) included."""
+    q, k, v = _inputs(shape, dtype, cuda)
+    before = launch_counts()["flare_causal_chunk"]
+    y = flare_causal_chunk(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts()["flare_causal_chunk"] == before + 1
+    assert y.dtype == dtype and y.shape == k.shape
+    if dtype == torch.float32:
+        want = ref.flare_causal_chunk_ref(q.double(), k.double(), v.double(), tile=256)
+        assert (y.double() - want).abs().max() <= 1e-5 * want.abs().max()
+    else:
+        torch.testing.assert_close(y, ref.flare_causal_chunk_ref(q, k, v), atol=2e-2, rtol=2e-2)
+
+
+def test_causal_kernel_raises_instead_of_falling_back(cuda):
+    q, k, v = _inputs((1, 2, 16, 33, 12), torch.float32, cuda)     # D=12 is not built
+    with pytest.raises(ValueError, match="head dim"):
+        flare_causal_chunk(q, k, v)
+    q, k, v = _inputs((1, 2, 16, 33, 8), torch.float32, cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        flare_causal_chunk(q.cpu(), k, v)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flare_causal_chunk(q.requires_grad_(True), k, v)
+
+
+def test_flare_lm_kernel_path_matches_plain_path(cuda):
+    """The smoke LM's forward under causal_pallas (the kernel) against
+    causal_stream (plain) on the same weights, fp32 compute: 1e-4 of max
+    |logit|, 2 launches (one a layer)."""
+    cfg = replace(get_smoke_config("flare_lm"), compute_dtype="float32")
+    kern = get_model(cfg, device=cuda)
+    assert kern.plans["infer"].backend == "causal_pallas"
+    plain = get_model(cfg, device=cuda, policy=MixerPolicy(backends=("causal_stream",)))
+    net = kern.init(0)
+    toks = torch.randint(0, cfg.vocab, (2, 300), generator=torch.Generator().manual_seed(0))
+    before = launch_counts()["flare_causal_chunk"]
+    got, _ = kern.forward(net, {"tokens": toks.to(cuda)})
+    assert launch_counts()["flare_causal_chunk"] == before + cfg.num_layers
+    want, _ = plain.forward(net, {"tokens": toks.to(cuda)})
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

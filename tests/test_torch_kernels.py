@@ -20,6 +20,7 @@ from repro_torch.core.dispatch import MixerPlan
 from repro_torch.core.policy import run_plan
 from repro_torch.kernels import ref
 from repro_torch.kernels.flare import flare_decode, flare_encode
+from repro_torch.kernels.flare_causal import flare_causal_chunk
 from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
 from repro_torch.kernels.ops import flare_mixer_fused, launch_counts
 
@@ -173,10 +174,12 @@ def test_kernel_backends_take_plain_path_on_cpu(backend):
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("call", ["encode", "decode", "fused", "fused_bwd", "pallas_backend"])
+@pytest.mark.parametrize("call", ["encode", "decode", "fused", "fused_bwd", "pallas_backend",
+                                  "causal", "causal_pallas_backend"])
 def test_grad_requiring_call_raises(call):
-    """The raw wrappers and the two-launch backend are forward-only; autograd
-    goes through the packed backend (test_packed_backend_differentiates)."""
+    """The raw wrappers and the kernel-route backends are forward-only;
+    autograd goes through the packed backend (test_packed_backend_differentiates)
+    or, on the causal path, the plain causal_stream."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 16, 33, 8))
     with torch.no_grad():
         y, *res = flare_fused_fwd(q, k, v)
@@ -185,7 +188,9 @@ def test_grad_requiring_call_raises(call):
            "decode": lambda: flare_decode(q, k, torch.zeros(1, 2, 16, 8)),
            "fused": lambda: flare_fused_fwd(q, k, v),
            "fused_bwd": lambda: flare_fused_bwd(q, k, v, *res, y, torch.ones_like(y)),
-           "pallas_backend": lambda: run_plan(MixerPlan("pallas"), q, k, v)}
+           "pallas_backend": lambda: run_plan(MixerPlan("pallas"), q, k, v),
+           "causal": lambda: flare_causal_chunk(q, k, v),
+           "causal_pallas_backend": lambda: run_plan(MixerPlan("causal_pallas"), q, k, v)}
     with pytest.raises(RuntimeError, match="forward-only"):
         fns[call]()
     with torch.no_grad():

@@ -103,7 +103,12 @@ def test_configs_match_jax():
             t = getattr(tconfigs, getter)(name)
             j = getattr(jconfigs, getter)(name)
             for f in dataclasses.fields(t):
-                assert getattr(t, f.name) == getattr(j, f.name), (getter, f.name)
+                tv, jv = getattr(t, f.name), getattr(j, f.name)
+                if dataclasses.is_dataclass(tv):   # the port's own AttnConfig
+                    for g in dataclasses.fields(tv):
+                        assert getattr(tv, g.name) == getattr(jv, g.name), (getter, f.name, g.name)
+                else:
+                    assert tv == jv, (getter, f.name)
     for name, s in SHAPES.items():
         assert (s.seq_len, s.global_batch) == (JSHAPES[name].seq_len, JSHAPES[name].global_batch)
 
