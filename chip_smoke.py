@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FLARE paths on one NVIDIA GPU: the PDE
-surrogate's inference and training, and the causal FLARE LM's serving.
+"""Drive the PyTorch port's paths on one NVIDIA GPU: the FLARE PDE
+surrogate's inference and training, the causal FLARE LM's serving, and
+Qwen2-1.5B served from the paged KV pool.
 
     python3 chip_smoke.py
 
@@ -19,6 +20,13 @@ failure so the script exits non-zero:
    in fp32 and bf16. Each output is held by absolute error (fp32 1e-4, bf16
    2e-2) and by error over the plain output's largest magnitude (fp32 1e-5,
    bf16 1e-2); the den and lse of the fused forward only by the latter;
+3b. ``kernels paged``: the paged-attention kernel on random operands, G in
+   {1, 6, 2048} x D in {8, 128}, pages fp32 / bf16 / int8 / fp8 (with
+   per-row scales), with and without q2 k2, lanes of 0, 200 and 384 tokens,
+   a shuffled page table whose unmapped entries point at a NaN trash row:
+   fp32 queries against the plain version in fp64, bf16 queries over bf16
+   pages against the plain version on the same inputs; each limit must
+   reject the plain version with one page of the longest lane left out;
 4. kernels on the main path's operands: block 0's own q, k, v of the model
    at pde_40k (B=8, N=40,000) and pde_1m (B=1, N=1,048,576), fp32, every
    batch element and head, the plain versions run a head at a time. Each
@@ -48,6 +56,11 @@ failure so the script exits non-zero:
    profiler breakdown of one step, and the AdamW update's own time;
 6b. 3 train steps at pde_1m (B=1, N=1,048,576) through the kernels, with
    their ms per step, peak GiB and launches (8 + 8 a step);
+5b. ``kernels paged`` on block 0's encode at pde_40k (B=1; G=2048, D=8,
+   pages of 16 with an identity table) against fp64, a head at a time, with
+   its times; ``path flare_pde paged``: ``get_model(flare_pde)`` under
+   policy ``paged`` on one pde_40k example, 8 paged launches counted, held
+   against the ``sdpa`` path at 1e-3 abs and rel;
 7. the kernel path against the plain path in training: 5 steps under
    ``packed`` and 5 under ``sdpa`` from the same weights and batches at B=2,
    N=4,096, loss and grad_norm per step and the parameters after;
@@ -79,7 +92,28 @@ failure so the script exits non-zero:
    kernel path) on the request's prompt and the tokens generated so far,
    within 1e-3 of max |logit|, with the same greedy tokens; the bf16 run's
    difference is printed;
-12. one JSON line of per-kernel numbers, then the card's name and power limit,
+12. ``serve qwen2-1.5b``: ``get_model(qwen2_1_5b)`` at full width and depth
+   (28 layers, 1.54B parameters) from seed 0, bf16 compute. The paged
+   kernel on layer 0's fp32 query and the pool's bf16 pages after the first
+   decode step (captured from the wrapper's first call), against fp64 a
+   head at a time with a dropped-page rejection, and its times (the kernel,
+   its byte bound, the plain version, one SDPA over the gathered view).
+   Then 16 seeded requests (prompts of 256-2,048 tokens, longest first;
+   64-128 new tokens) through ``ServeEngine`` (8 slots, capacity 4,096,
+   blocks of 16, a 16,384-token pool) three times: the dense pool, the
+   paged pool's gather route and its kernel route. Each prints prefill ms a
+   request, decode ms a step, tokens/s, the resolved decode backend, the
+   paged launches a step (28 on the kernel route, 0 on the others,
+   asserted), ``sample_host_syncs`` (0), the pool's stats (every block
+   returned), page waits (admission must wait for pages at least once),
+   peak GiB and a profiler breakdown of one decode step (device busy, the
+   paged kernel's share). bf16: the first token that differs from the dense
+   pool's is printed, first-step logits held at 5e-2 of max |logit|. Then
+   4 requests in fp32 compute on the three routes: greedy tokens equal,
+   first-step logits within 1e-3. Last, int8 and fp8 pools: first-step
+   logits against the dense pool within the JAX package's envelope
+   (|diff| <= 0.15 + 0.05 |ref|);
+13. one JSON line of per-kernel numbers, then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
@@ -128,12 +162,14 @@ SOURCES = {name: "src/repro_torch/csrc/flare.cu"
            for name in ("flare_encode", "flare_decode", "flare_fused_fwd")}
 SOURCES["flare_fused_bwd"] = "src/repro_torch/csrc/flare_bwd.cu"
 SOURCES["flare_causal_chunk"] = "src/repro_torch/csrc/flare_causal.cu"
+SOURCES["paged_attention"] = "src/repro_torch/csrc/paged_attention.cu"
 REPLACES = {
     "flare_encode": "src/repro/kernels/flare.py:48",
     "flare_decode": "src/repro/kernels/flare.py:150",
     "flare_fused_fwd": "src/repro/kernels/flare_packed.py:162",
     "flare_fused_bwd": "src/repro/kernels/flare_packed.py:266",
     "flare_causal_chunk": "src/repro/kernels/flare_causal.py:41",
+    "paged_attention": "src/repro/kernels/paged_attention.py:64",
 }
 PDE_KERNELS = ("flare_encode", "flare_decode", "flare_fused_fwd", "flare_fused_bwd")
 # the causal LM (flare_lm): random operands at its width and a ragged shape
@@ -147,6 +183,30 @@ PEAK_BF16 = 989e12   # H100 SXM bf16 tensor cores, dense: the peak for bf16 oper
 LM_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 REQUESTS, BUCKET, DECODE_STEPS = 4, 2048, 64
 GRADS = ("dq", "dk", "dv")
+# the paged-attention kernel on random operands: query rows G (1: a decode
+# read, 6: qwen2's query heads per KV head, 2048: the FLARE encode) by head
+# dim, every page dtype, with and without the second score term q2 k2
+PAGED_SMALL = [(g, d) for g in (1, 6, 2048) for d in (8, 128)]
+PAGE_DTYPES = ("float32", "bfloat16", "int8", "fp8")
+PAGED_SCALE = 0.7
+# serving qwen2-1.5b (full width and depth, random weights): 16 requests, the
+# longest prompts first, so the first wave stakes more pages than the pool
+# holds and admission waits for pages, not slots
+SERVE = dict(slots=8, capacity=4096, block_size=16, pool_tokens=16384)
+SERVE_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, (256, 2048), (64, 128)
+SERVE32_REQUESTS, SERVE32_NEW = 4, 24      # fp32 compute: greedy tokens held across routes
+ROUTES = {"dense": dict(pool_tokens=None), "gather": dict(decode_backend="gather"),
+          "paged": dict(decode_backend="paged")}
+# first-step logits of a route against the dense pool's, over max |logit|:
+# fp32 sums in another order (1e-3, as LM_TOL); bf16 rounds every layer's
+# attention output and a one-ulp flip can differ between routes (5e-2)
+ROUTE_TOL = LM_TOL
+# int8 / fp8 pools against the dense pool, elementwise |a - b| <= atol + rtol
+# |b|: the JAX package's envelope (tests/test_paged_pool.py), kept at full
+# width, where the logits' scale is that of the smoke configs' (a few units)
+QUANT_ENVELOPE = dict(atol=0.15, rtol=0.05)
+# qwen2-1.5b's layers and parameters (the tied embedding padded to 152,064 rows)
+QWEN2_SIZE = (28, 1_543_910_912)
 
 
 def gpu_line() -> str:
@@ -171,9 +231,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device ms of ``fn`` captured once in a CUDA graph and replayed: the
+    time of a call whose host cost (Python checks, allocation, the launch)
+    would otherwise exceed its device time and set the pace of ``cuda_ms``."""
+    import torch
+
+    fn()   # warm the allocator and the build outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
 def ptxas_summary(log: str) -> list:
-    """One line per D=8 kernel and D=128 causal kernel: registers, shared
-    memory, spills."""
+    """One line per D=8 kernel, D=128 causal kernel and paged kernel (one
+    per page dtype): registers, shared memory, spills."""
     rows, name, spill = [], None, ""
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
@@ -181,9 +255,11 @@ def ptxas_summary(log: str) -> list:
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spill = f"spill {m.group(1)}/{m.group(2)} B"
         elif ((m := re.search(r"Used (\d+) registers(.*)", line)) and name
-              and ("Li8E" in name or ("causal" in name and "Li128E" in name))):
-            kind = next(k for k in ("causal_combine", "causal", "encode", "decode", "combine",
-                                    "dz", "dkv", "dq") if f"{k}_kernel" in name)
+              and ("Li8E" in name or ("causal" in name and "Li128E" in name)
+                   or "paged" in name)):
+            kind = next(k for k in ("paged_combine", "paged", "causal_combine", "causal",
+                                    "encode", "decode", "combine", "dz", "dkv", "dq")
+                        if f"{k}_kernel" in name)
             rows.append(f"  {kind:<8} {name[:70]:<70} {m.group(1)} regs{m.group(2)} {spill}")
     return rows
 
@@ -542,10 +618,11 @@ def check_output(name: str, out, batch) -> float:
     return rel
 
 
-def breakdown(fn, label: str, top: int = 8) -> None:
+def breakdown(fn, label: str, top: int = 8):
     """Device time of one (warm) call of ``fn`` by kernel name
     (torch.profiler), the number of kernels it launched, and the device's
-    busy share of its wall time."""
+    busy share of its wall time. Returns ({kernel name: device ms}, wall ms),
+    or None where the profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -560,11 +637,12 @@ def breakdown(fn, label: str, top: int = 8) -> None:
     total = sum(ms for _, ms, _ in rows)
     if total == 0:
         print(f"breakdown {label}: the profiler recorded no device time (not measured)")
-        return
+        return None
     print(f"breakdown {label}: wall {wall_ms:.3f} ms, device busy {total:.3f} ms "
           f"({100 * total / wall_ms:.1f}%), {sum(c for _, _, c in rows)} kernels")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {100 * ms / total:5.1f}%  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    return {key: ms for key, ms, _ in rows}, wall_ms
 
 
 def train(cfg, shape) -> dict:
@@ -1057,6 +1135,466 @@ def lm_phases(checks: Checks, device) -> dict:
     return stats
 
 
+# --------------------------------------------------------------------------
+# Serving qwen2-1.5b from the paged pool: the paged-attention kernel, the
+# paged FLARE backend and the continuous-batching engine
+# --------------------------------------------------------------------------
+
+
+def paged_operands(g, d, page_dtype, q2, device, gen, *, qdt=None):
+    """Random paged-attention operands: q [B, H, G, D] and pages [NB, block,
+    H, D] of ``page_dtype`` (int8 / fp8 quantized with per-row scales), a
+    shuffled page table whose unmapped entries point at a trash row of NaN,
+    and lengths 0 (lane 0), a partial page (lane 1) and the whole table.
+    Returns ((q, k, v, page_table, lengths), the optional operands, trash id)."""
+    import torch
+
+    from repro_torch.serve.pool.quant import get_quant, quantize
+
+    qdt = qdt or torch.float32
+    b, h, block, pages = 3, 2, 16, 24
+    nb = b * pages + 1
+    q = torch.randn(b, h, g, d, generator=gen) * d ** -0.5
+    k = torch.randn(nb, block, h, d, generator=gen)
+    v = torch.randn(nb, block, h, d, generator=gen)
+    lengths = torch.tensor([0, block * (pages // 2) + block // 2, block * pages],
+                           dtype=torch.int32)
+    pt = torch.randperm(nb - 1, generator=gen)[: b * pages].reshape(b, pages).int()
+    for i in range(b):
+        pt[i, -(-int(lengths[i]) // block):] = nb - 1
+    kw = {}
+    if page_dtype in ("int8", "fp8"):
+        spec = get_quant(page_dtype)
+        (k, ks), (v, vs) = quantize(spec, k), quantize(spec, v)
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(getattr(torch, page_dtype)), v.to(getattr(torch, page_dtype))
+    if q2:
+        kw["q2"] = (torch.randn(b, h, g, 16, generator=gen) * 0.25).to(qdt)
+        k2 = torch.randn(nb, block, h, 16, generator=gen)
+        if page_dtype in ("int8", "fp8"):
+            k2, kw["k2_scale"] = quantize(get_quant(page_dtype), k2)
+        kw["k2_pages"] = k2.to(k.dtype)
+    k[nb - 1] = v[nb - 1] = (torch.nan if k.is_floating_point() else 127)
+    ops = (q.to(qdt), k, v, pt, lengths)
+    return tuple(t.to(device) for t in ops), {key: t.to(device) for key, t in kw.items()}, nb - 1
+
+
+def drop_page(pt, lengths, block: int, filler: int):
+    """The page table and lengths with page 0 of the longest lane left out:
+    its later pages shift left (``filler`` fills the end) and its length
+    loses that page's tokens. The plain version on these is what a kernel
+    that skipped one page would give."""
+    lane = int(lengths.argmax())
+    pt, lengths = pt.clone(), lengths.clone()
+    pt[lane, :-1] = pt[lane, 1:].clone()
+    pt[lane, -1] = filler
+    lengths[lane] -= min(block, int(lengths[lane]))
+    return pt, lengths
+
+
+def wide_kw(kw: dict) -> dict:
+    return {key: t.double() if key == "q2" else t for key, t in kw.items()}
+
+
+def check_paged_small(checks: Checks, device) -> None:
+    """The paged kernel against its plain version on random operands: fp32
+    queries over every page dtype, with and without q2 k2, against the plain
+    version in fp64 (fp32 limits); bf16 queries over bf16 pages (the plain
+    path, weights rounded to bf16) against the plain version on the same
+    inputs (bf16 limits). Each must reject the plain version that left one
+    page of the longest lane out, and the length-0 lane must be exact zeros."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ref import paged_attention_ref as ref
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    print("kernels paged on random operands (B=3 H=2 block=16 P=24; lanes of 0, 200 and 384 "
+          "tokens; unmapped pages at a NaN trash row; scale 0.7):", flush=True)
+    for g, d in PAGED_SMALL:
+        for page_dtype in PAGE_DTYPES:
+            for q2 in (False, True):
+                ops, kw, trash = paged_operands(g, d, page_dtype, q2, device, gen)
+                q, k, v, pt, lengths = ops
+                got = paged_attention(*ops, scale=PAGED_SCALE, out_dtype=f32, **kw)
+                plain32 = ref(*ops, scale=PAGED_SCALE, out_dtype=f32, **kw)
+                q64, wkw = q.double(), wide_kw(kw)
+                want = ref(q64, k, v, pt, lengths, scale=PAGED_SCALE, out_dtype=torch.float64,
+                           **wkw)
+                drop = ref(q64, k, v, *drop_page(pt, lengths, 16, trash), scale=PAGED_SCALE,
+                           out_dtype=torch.float64, **wkw)
+                what = f"G={g} D={d} {page_dtype}{' +q2' if q2 else ''}"
+                checks.hold("paged_attention", what, got, want, f32, atol=ATOL["float32"],
+                            record=True, dropped={"page": drop}, fp32_plain=plain32)
+                if got[0].any():
+                    checks.failures.append(f"paged_attention {what}: the length-0 lane is not 0")
+        ops, _, trash = paged_operands(g, d, "bfloat16", False, device, gen, qdt=bf16)
+        drop = ref(*ops[:3], *drop_page(ops[3], ops[4], 16, trash), scale=PAGED_SCALE)
+        checks.hold("paged_attention", f"G={g} D={d} bf16 q", paged_attention(
+            *ops, scale=PAGED_SCALE), ref(*ops, scale=PAGED_SCALE), bf16, atol=ATOL["bfloat16"],
+            dropped={"page": drop})
+    checks.raise_failures("paged kernel on random operands")
+
+
+def paged_by_head(q, k, v, pt, lengths, *, scale=1.0, out_dtype=None, **kw):
+    """The plain paged version a KV head at a time (its [B, 1, G, T] scores
+    must fit the card), concatenated over heads."""
+    import torch
+
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    outs = []
+    for i in range(q.shape[1]):
+        head = {key: t[:, i:i + 1] if key == "q2" else t[:, :, i:i + 1] for key, t in kw.items()}
+        outs.append(paged_attention_ref(q[:, i:i + 1], k[:, :, i:i + 1], v[:, :, i:i + 1], pt,
+                                        lengths, scale=scale, out_dtype=out_dtype, **head))
+    return torch.cat(outs, dim=1)
+
+
+def check_paged_main(checks: Checks, label: str, op: dict) -> dict:
+    """The paged kernel on a main path's own operands (``op``: q, pages, page
+    table, lengths and the call's keywords), against the plain version in
+    fp64 a head at a time, with the kernel's output in fp32 (the arithmetic
+    at fp32 limits; the output the model takes, in its own dtype, is printed
+    beside), rejecting one left-out page. Then times: the kernel as the model
+    calls it, its bound, the plain version, and one SDPA over the dense view
+    gathered beforehand (not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ref import _gather_rows, paged_attention_ref
+
+    q, k, v, pt, lengths = (op[key] for key in ("q", "k_pages", "v_pages", "page_table",
+                                                "lengths"))
+    kw = {key: op.get(key) for key in ("scale", "k_scale", "v_scale")}
+    kw = {key: t for key, t in kw.items() if t is not None}
+    b, h, g, d = q.shape
+    block = k.shape[1]
+    print(f"kernels paged {label} (the main path's operands: q {tuple(q.shape)} {q.dtype}, "
+          f"pages {tuple(k.shape)} {k.dtype}, lengths {lengths.tolist()[:8]}, "
+          f"scale {kw.get('scale', 1.0):.5g}; held against the plain version in fp64):",
+          flush=True)
+    got = paged_attention(q, k, v, pt, lengths, out_dtype=torch.float32, **kw)
+    plain32 = paged_by_head(q, k, v, pt, lengths, out_dtype=torch.float32, **kw)
+    want = paged_by_head(q.double(), k, v, pt, lengths, out_dtype=torch.float64, **kw)
+    drop = paged_by_head(q.double(), k, v, *drop_page(pt, lengths, block, int(pt[0, 0])),
+                         out_dtype=torch.float64, **kw)
+    checks.hold("paged_attention", f"{label} fp32 out", got, want, torch.float32,
+                atol=ATOL["float32"], record=True, dropped={"page": drop}, fp32_plain=plain32)
+    out_dtype = op.get("out_dtype") or torch.float32
+    model_out = paged_attention(q, k, v, pt, lengths, out_dtype=out_dtype, **kw)
+    rel = max_err(model_out, want) / want.abs().max().item()
+    print(f"  as the model calls it ({out_dtype} out): rel {rel:.3g}", flush=True)
+    checks.raise_failures(f"paged kernel on {label}")
+    del got, plain32, want, drop
+    # bound: each valid page (and its scales) once, q and the output once;
+    # two products of 2*G*D FLOP a valid token per head on the CUDA cores
+    pages = ((lengths.long() + block - 1) // block).clamp(max=pt.shape[1]).sum().item()
+    row = h * d * k.element_size() + (h * 4 if "k_scale" in kw else 0)
+    nbytes = 2 * pages * block * row + q.numel() * q.element_size() \
+        + q.numel() * model_out.element_size()
+    flops = 4 * g * d * h * lengths.long().sum().item()
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BW * 1e3
+    kd, vd = _gather_rows(k, pt), _gather_rows(v, pt)    # the dense view, in the pages' dtype
+    mask = (torch.arange(kd.shape[2], device=q.device)[None, :]
+            < lengths.long()[:, None])[:, None, None, :]
+    qd = q.to(kd.dtype)
+    kernel = lambda: paged_attention(q, k, v, pt, lengths, out_dtype=out_dtype, **kw)
+    plain = lambda: paged_attention_ref(q, k, v, pt, lengths, out_dtype=out_dtype, **kw)
+    library = lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                     scale=kw.get("scale", 1.0))
+    # device times, each call replayed from a CUDA graph (a decode read's
+    # host cost is about its device time); the eager calls' pace beside
+    stats = dict(ms=graph_ms(kernel, reps=50), plain_ms=graph_ms(plain, reps=10),
+                 library_ms=graph_ms(library, reps=50), bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+    eager = {name: cuda_ms(fn, reps=20) for name, fn in
+             (("kernel", kernel), ("plain", plain), ("library", library))}
+    print(f"time paged_attention {label}: {stats} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} "
+          f"GFLOP); eager calls back to back, ms a call: {eager}", flush=True)
+    return stats
+
+
+def encode_operands(net, x) -> dict:
+    """Block 0's FLARE encode as the ``paged`` backend gives it to the paged
+    kernel: q broadcast to [B, H, M, D], k and v packed into pages of 16
+    with an identity page table, every token valid."""
+    import torch
+
+    from repro_torch.backends.paged import pack_pages
+
+    q, k, v = mixer_operands(net, x)
+    b, h, n, d = k.shape
+    kp, pt = pack_pages(k, 16)
+    vp, _ = pack_pages(v, 16)
+    return {"q": q[None].expand(b, *q.shape).contiguous(), "k_pages": kp, "v_pages": vp,
+            "page_table": pt, "lengths": torch.full((b,), n, dtype=torch.int32, device=k.device),
+            "scale": 1.0}
+
+
+def path_pde_paged(cfg, net, batch, checks: Checks) -> dict:
+    """``get_model(flare_pde)`` under policy ``paged`` (the encode through the
+    paged kernel) on one pde_40k example: launch counts zeroed before and
+    read after (8, one a block), held against the plain ``sdpa`` path at
+    1e-3 abs and rel (the backend's plain decode materialises [B, H, M, N]
+    fp32 scores: 2.6 GB at B=1)."""
+    import torch
+
+    from repro_torch.core.policy import MixerPolicy
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.api import get_model
+
+    model = get_model(cfg, policy=MixerPolicy(backends=("paged",)))
+    plan = model.plans["infer"].describe()
+    one = {"x": batch["x"][:1], "y": batch["y"][:1]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.forward(net, one)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    rel_l2 = check_output("paged pde_40k", out, one)
+    print(f"path flare_pde paged (plan {plan}) pde_40k B=1 N={one['x'].shape[1]}: {ms:.3f} ms "
+          f"(one forward), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, rel-L2 vs "
+          f"target {rel_l2:.4f}; launches {counts}", flush=True)
+    if plan != "paged(block=16)" or counts["paged_attention"] != cfg.num_layers or any(
+            n for name, n in counts.items() if name != "paged_attention"):
+        raise AssertionError(f"paged path: plan {plan}, launches {counts}")
+    want = get_model(cfg, policy=MixerPolicy(backends=("sdpa",))).forward(net, one)
+    err, scale = max_err(out, want), want.abs().max().item()
+    print(f"path paged vs sdpa B=1 N={one['x'].shape[1]} over {cfg.num_layers} blocks: "
+          f"max|plain| {scale:.4g}, max abs err {err:.3g} (atol {PATH_TOL}), rel "
+          f"{err / scale:.3g} (rtol {PATH_TOL})", flush=True)
+    if not (err <= PATH_TOL and err / scale <= PATH_TOL):
+        raise AssertionError(f"paged path differs from the plain path by {err}")
+    return counts
+
+
+def serve_requests(vocab: int, n: int, new_tokens, *, longest_first: bool):
+    """Seeded prompts of 256-2,048 tokens (uniform ids) and their max new
+    tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, n)
+    if longest_first:
+        lens = np.sort(lens)[::-1]
+    news = rng.integers(new_tokens[0], new_tokens[1] + 1, n)
+    return [(rng.integers(0, vocab, int(m)).astype(np.int32), int(k)) for m, k in zip(lens, news)]
+
+
+def serve_run(model, net, reqs, label: str, *, profile: bool = False, **kw) -> dict:
+    """One engine over the requests: launch counts zeroed just before and
+    read just after; the first decode step's logits and the slots it
+    decoded; one decode step profiled once the queue has drained (its time
+    kept out of the step mean and of tokens/s, which is over the wall of
+    every prefill and decode step)."""
+    import torch
+
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ServeEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(model, net, **{**SERVE, **kw})
+    for prompt, max_new in reqs:
+        engine.submit(prompt, max_new_tokens=max_new)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    first, prof, prof_s, prof_steps, prof_wall = None, None, 0.0, 0, 0.0
+    while True:
+        if (profile and prof is None and not engine.sched.waiting
+                and len(engine.sched.running) > 1):
+            s0, n0, w0 = engine.stats["decode_s"], engine.stats["decode_steps"], time.perf_counter()
+            prof = breakdown(engine.step, f"serve qwen2-1.5b {label} decode step "
+                             f"({len(engine.sched.running)} slots busy)") or {}
+            prof_s, prof_steps = engine.stats["decode_s"] - s0, engine.stats["decode_steps"] - n0
+            prof_wall = time.perf_counter() - w0
+            more = engine.sched.has_work()
+        else:
+            more = engine.step()
+        if first is None and engine.last_logits is not None:
+            slots = sorted({slot for _, slot in engine.sched.admission_log})
+            first = (engine.last_logits.float().clone(), slots)
+        if not more:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - prof_wall    # the profiled step (and profiler start) left out
+    counts = launch_counts()
+    st = engine.stats
+    steps = st["decode_steps"] - prof_steps
+    out = {
+        "label": label, "backend": st["decode_backend"], "counts": counts,
+        "tokens": [r.tokens for r in sorted(engine.sched.finished, key=lambda r: r.rid)],
+        "first_logits": first[0], "first_slots": first[1],
+        "prefill_ms": 1e3 * st["prefill_s"] / st["requests"],
+        "step_ms": 1e3 * (st["decode_s"] - prof_s) / steps, "steps": st["decode_steps"],
+        "tok_s": st["tokens_generated"] / wall, "wall_s": wall,
+        "per_step": counts["paged_attention"] / st["decode_steps"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "stats": st, "prof": prof,
+    }
+    pool = st.get("pool")
+    print(f"serve qwen2-1.5b {label}: decode backend {st['decode_backend']}; {st['requests']} "
+          f"requests, {st['tokens_generated']} tokens in {wall:.2f} s ({out['tok_s']:.1f} tok/s); "
+          f"prefill {out['prefill_ms']:.2f} ms/request; decode {out['step_ms']:.3f} ms/step over "
+          f"{steps} steps; paged launches {counts['paged_attention']} ({out['per_step']:g} a "
+          f"step); sample_host_syncs {st['sample_host_syncs']}; admitted_peak "
+          f"{st['admitted_peak']}/{SERVE['slots']}, page_waits {st['page_waits']}; latency "
+          f"p50/p99 {st['latency_p50_s'] * 1e3:.1f}/{st['latency_p99_s'] * 1e3:.1f} ms; peak "
+          f"{out['peak_gib']:.2f} GiB; {st['cache']}"
+          + (f"; pool {pool}" if pool else ""), flush=True)
+    if prof:
+        dev = sum(prof[0].values())
+        kern = sum(ms for key, ms in prof[0].items() if "paged_" in key)
+        out["busy"], out["kernel_share"] = dev / prof[1], kern / dev
+        print(f"  decode step: device busy {100 * out['busy']:.1f}% of {prof[1]:.3f} ms wall, "
+              f"paged kernel {kern:.3f} ms = {100 * out['kernel_share']:.1f}% of device time",
+              flush=True)
+    if st["sample_host_syncs"] or st["finished"] != len(reqs):
+        raise AssertionError(f"{label}: host syncs {st['sample_host_syncs']}, finished "
+                             f"{st['finished']} of {len(reqs)}")
+    if engine.paged:
+        engine.check_invariants()
+        if pool["blocks_free"] != pool["blocks_total"] or pool["blocks_reserved"]:
+            raise AssertionError(f"{label}: the pool kept blocks: {pool}")
+    want = model.cfg.num_layers if kw.get("decode_backend") == "paged" else 0
+    if counts["paged_attention"] != want * st["decode_steps"] or any(
+            n for name, n in counts.items() if name != "paged_attention"):
+        raise AssertionError(f"{label}: launches {counts} over {st['decode_steps']} steps, "
+                             f"expected {want} paged a step")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_divergence(a: list, b: list):
+    """(request, position) of the first token where two runs differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (u, w) in enumerate(zip(x, y)):
+            if u != w:
+                return i, j
+        if len(x) != len(y):
+            return i, min(len(x), len(y))
+    return None
+
+
+def first_step_held(label: str, run: dict, ref: dict, tol: float) -> None:
+    """The first decode step's logits of two runs on the slots both decoded."""
+    slots = sorted(set(run["first_slots"]) & set(ref["first_slots"]))
+    held(f"serve {label} first-step logits vs dense pool ({len(slots)} slots)",
+         run["first_logits"][slots], ref["first_logits"][slots], tol)
+
+
+def qwen2_phases(checks: Checks, device) -> dict:
+    """Qwen2-1.5B at full width and depth from seed 0: the paged kernel on
+    the pool's own operands, then serving through the dense pool, the paged
+    pool's gather route and its kernel route in bf16 (the counted window is
+    the kernel route's), the three routes in fp32 compute (greedy tokens
+    equal), and the int8 and fp8 pools."""
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as paged_module
+    from repro_torch.models.api import get_model
+
+    cfg = get_config("qwen2_1_5b")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    net = model.init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    print(f"init qwen2-1.5b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.attn.num_heads} heads / {cfg.attn.num_kv_heads} KV heads x {cfg.attn.head_dim}, "
+          f"{n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32) drawn on the CPU in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if (cfg.num_layers, n_params) != QWEN2_SIZE:
+        raise AssertionError(f"qwen2-1.5b is not at full size: {cfg.num_layers} layers, "
+                             f"{n_params} parameters")
+    reqs = serve_requests(cfg.vocab, SERVE_REQUESTS, NEW_TOKENS, longest_first=True)
+    print(f"requests: {len(reqs)} prompts of {[len(p) for p, _ in reqs]} tokens, "
+          f"{[m for _, m in reqs]} new tokens each; engine {SERVE}", flush=True)
+
+    # the kernel on layer 0's operands after the first decode step: captured
+    # from the wrapper's first call of an uncounted engine step
+    from repro_torch.serve.engine import ServeEngine
+
+    captured, kernel = {}, paged_module.paged_attention
+
+    def capture(q, k_pages, v_pages, page_table, lengths, **kw):
+        if not captured:
+            captured.update(q=q.clone(), k_pages=k_pages.clone(), v_pages=v_pages.clone(),
+                            page_table=page_table.clone(), lengths=lengths.clone(), **kw)
+        return kernel(q, k_pages, v_pages, page_table, lengths, **kw)
+
+    # while it captures, the wrapper counts its launch through its module's
+    # name, which points here: on capture.launches, outside every count read
+    capture.launches = 0
+    engine = ServeEngine(model, net, **SERVE, decode_backend="paged")
+    for prompt, max_new in reqs:
+        engine.submit(prompt, max_new_tokens=max_new)
+    paged_module.paged_attention = capture
+    try:
+        engine.step()
+    finally:
+        paged_module.paged_attention = kernel
+    del engine
+    torch.cuda.empty_cache()
+    stats = check_paged_main(checks, "qwen2-1.5b decode read layer 0", captured)
+    del captured
+
+    runs = {name: serve_run(model, net, reqs, f"bf16 {name}", profile=True, **kw)
+            for name, kw in ROUTES.items()}
+    for name in ("gather", "paged"):
+        div = first_divergence(runs[name]["tokens"], runs["dense"]["tokens"])
+        print(f"serve bf16 {name} vs dense: greedy tokens "
+              + ("all equal" if div is None else f"first differ at request {div[0]}, token "
+                 f"{div[1]}"), flush=True)
+        first_step_held(f"bf16 {name}", runs[name], runs["dense"], ROUTE_TOL["bfloat16"])
+    if runs["paged"]["stats"]["page_waits"] == 0:
+        raise AssertionError("admission never waited for pages: the pool does not bind")
+
+    model32 = get_model(replace(cfg, compute_dtype="float32"))
+    reqs32 = serve_requests(cfg.vocab, SERVE32_REQUESTS, (SERVE32_NEW, SERVE32_NEW),
+                            longest_first=False)
+    runs32 = {name: serve_run(model32, net, reqs32, f"fp32 {name}", **kw)
+              for name, kw in ROUTES.items()}
+    for name in ("gather", "paged"):
+        first_step_held(f"fp32 {name}", runs32[name], runs32["dense"], ROUTE_TOL["float32"])
+        div = first_divergence(runs32[name]["tokens"], runs32["dense"]["tokens"])
+        if div is not None:
+            raise AssertionError(f"fp32 {name}: greedy tokens differ from the dense pool's at "
+                                 f"request {div[0]}, token {div[1]}")
+    print(f"serve fp32: the greedy tokens of all {SERVE32_REQUESTS} x {SERVE32_NEW} positions "
+          "are equal across the dense, gather and kernel routes", flush=True)
+    del runs32, model32
+
+    for quant in ("int8", "fp8"):
+        run = serve_run(model, net, reqs, f"bf16 paged kv_quant={quant}", kv_quant=quant,
+                        decode_backend="paged")
+        slots = sorted(set(run["first_slots"]) & set(runs["dense"]["first_slots"]))
+        got, want = run["first_logits"][slots], runs["dense"]["first_logits"][slots]
+        excess = ((got - want).abs() - QUANT_ENVELOPE["atol"]
+                  - QUANT_ENVELOPE["rtol"] * want.abs()).max().item()
+        print(f"serve kv_quant={quant} first-step logits vs dense pool: max|ref| "
+              f"{want.abs().max().item():.4g}, max abs diff {max_err(got, want):.4g}, worst "
+              f"|diff| - (atol + rtol |ref|) {excess:.4g} (envelope {QUANT_ENVELOPE})",
+              flush=True)
+        if not excess <= 0:
+            raise AssertionError(f"kv_quant={quant}: first-step logits outside the envelope")
+    stats["launches"] = runs["paged"]["counts"]["paged_attention"]
+    stats["serve"] = {name: {key: run[key] for key in ("step_ms", "tok_s", "prefill_ms")}
+                      for name, run in runs.items()}
+    del net, runs
+    torch.cuda.empty_cache()
+    return stats
+
+
 def drive(model, net, batches: dict, label: str) -> dict:
     """One counted window: launch counts zeroed just before, read just after."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
@@ -1102,6 +1640,7 @@ def main() -> int:
 
     checks = Checks()
     check_small(checks, device)
+    check_paged_small(checks, device)
 
     from repro_torch.configs import get_config
     from repro_torch.config import SHAPES
@@ -1173,6 +1712,13 @@ def main() -> int:
             raise AssertionError(f"{label} path differs from the plain path by {err}")
     del packed, pallas, y_plain, b1m
     torch.cuda.empty_cache()
+    # the paged backend: block 0's encode through the paged kernel, then the
+    # model's forward under it (a counted window)
+    check_paged_main(checks, "flare_pde encode block 0 pde_40k B=1",
+                     encode_operands(net, b40["x"][:1]))
+    torch.cuda.empty_cache()
+    paged_counts = path_pde_paged(cfg, net, b40, checks)
+    torch.cuda.empty_cache()
 
     # training: the fused forward and backward kernels under autograd
     trained = train(cfg, s40)
@@ -1190,6 +1736,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the causal FLARE LM: its launches are those of its forward and requests windows
     stats["flare_causal_chunk"] = lm_phases(checks, device)
+    # qwen2-1.5b served from the paged pool: the launches of its kernel route's
+    # window and of the paged FLARE path's
+    stats["paged_attention"] = qwen2_phases(checks, device)
+    stats["paged_attention"]["launches"] += paged_counts["paged_attention"]
     for name in stats:
         stats[name]["max_abs_err"] = checks.max_abs[name]
 

@@ -5,6 +5,7 @@ from repro_torch.backends import (  # noqa: F401  (import for registration side 
     causal,
     materialized,
     packed,
+    paged,
     pallas,
     sdpa,
 )

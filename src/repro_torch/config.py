@@ -1,13 +1,15 @@
 """Model, shape and training configuration for the port.
 
 The port's own copy of the fields of ``repro.config.ModelConfig`` and
-``AttnConfig`` that the PDE family and the causal FLARE LM (``flare_lm``)
-read, of their shapes, and of the ``TrainConfig`` fields the trainer reads
-(the mesh's gradient compression is not ported). ``param_dtype`` and
-``compute_dtype`` mean what they mean in the JAX package: parameters are
-stored in the first and cast to the second at use. The PDE family computes
-in fp32 whatever ``compute_dtype`` says, as ``models/api.py`` of the JAX
-package forces; ``flare_lm`` computes in ``compute_dtype`` (bf16 by default).
+``AttnConfig`` that the PDE family, the causal FLARE LM (``flare_lm``) and
+the gqa decoder (the ``dense`` family, e.g. qwen2) read, of their shapes,
+and of the ``TrainConfig`` fields the trainer reads (the mesh's gradient
+compression is not ported). MLA, MoE, SSM and the encoder-decoder fields
+are not ported. ``param_dtype`` and ``compute_dtype`` mean what they mean
+in the JAX package: parameters are stored in the first and cast to the
+second at use. The PDE family computes in fp32 whatever ``compute_dtype``
+says, as ``models/api.py`` of the JAX package forces; ``flare_lm`` and
+``dense`` compute in ``compute_dtype`` (bf16 by default).
 """
 from __future__ import annotations
 
@@ -15,29 +17,42 @@ import dataclasses
 import os
 import tempfile
 from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
 class AttnConfig:
-    """The fields the ``flare_stream`` mixer reads; the gqa/mla fields
-    (rope, windows, MLA) are not ported."""
-    kind: str = "gqa"               # gqa | mla | flare_stream | none (only flare_stream runs)
+    """The fields the gqa attention and the ``flare_stream`` mixer read
+    (MLA's are not ported)."""
+    kind: str = "gqa"               # gqa | flare_stream (mla and none are not ported)
     num_heads: int = 8
     num_kv_heads: int = 8
     head_dim: int = 64
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None  # tokens; None => full attention
+    mrope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl M-RoPE
     flare_latents: int = 0          # M latents per head
     flare_chunk: int = 256          # tokens per chunk of the causal scan
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "pde"             # pde | flare_lm
-    num_layers: int = 4             # FLARE blocks (pde) or decoder layers (flare_lm)
+    family: str = "pde"             # pde | flare_lm | dense
+    num_layers: int = 4             # FLARE blocks (pde) or decoder layers (flare_lm, dense)
     d_model: int = 256              # C
     flare_latents: int = 0          # M (pde)
     flare_heads: int = 0            # H (pde); head dim D = d_model // H
-    # decoder-only LM (flare_lm)
+    # decoder-only LM (flare_lm, dense)
     d_ff: int = 1024
     vocab: int = 32000
     attn: AttnConfig = field(default_factory=AttnConfig)

@@ -2,13 +2,14 @@
 
 Each module exports ``config()`` (the assigned configuration) and
 ``smoke_config()`` (a reduced configuration of the same family for CPU
-tests). The port has the PDE surrogate and the causal FLARE LM so far.
+tests). The port has the PDE surrogate, the causal FLARE LM and the gqa
+decoder qwen2-1.5b so far.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["flare_lm", "flare_pde"]
+ARCH_IDS = ["flare_lm", "flare_pde", "qwen2_1_5b"]
 
 
 def _module(name: str):

@@ -22,13 +22,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flare.cu", "flare_bwd.cu", "flare_causal.cu")
+SOURCES = ("flare.cu", "flare_bwd.cu", "flare_causal.cu", "paged_attention.cu")
 HEADERS = ("flare_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")   # optimize the kernel instances on all cores
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _PLL = ctypes.POINTER(ctypes.c_longlong)
 # argtypes of every C entry point; device pointers and the stream are c_void_p
 _SIGNATURES = {
@@ -38,6 +38,8 @@ _SIGNATURES = {
     "flare_fused_bwd": [_P] * 14 + [_I] * 5 + [_PLL] + [_I] * 2 + [_P],
     "flare_causal_splits": [_I],
     "flare_causal": [_P] * 6 + [_I] * 5 + [_LL] * 9 + [_I] + [_P],
+    "paged_attention_splits": [_I] * 5,
+    "paged_attention": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

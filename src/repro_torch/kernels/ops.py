@@ -14,8 +14,10 @@ import torch
 from repro_torch.kernels.flare import flare_decode, flare_encode
 from repro_torch.kernels.flare_causal import flare_causal_chunk
 from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
+from repro_torch.kernels.paged_attention import paged_attention
 
-KERNELS = (flare_encode, flare_decode, flare_fused_fwd, flare_fused_bwd, flare_causal_chunk)
+KERNELS = (flare_encode, flare_decode, flare_fused_fwd, flare_fused_bwd, flare_causal_chunk,
+           paged_attention)
 
 
 def flare_mixer_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,8 @@ take the input dtype, except the fused forward's residuals, which are fp32
 chunks (``chunk=``), so that its [B, H, M, chunk] temporaries fit where the
 whole [B, H, M, N] would not. The causal version sweeps the tokens in
 tiles (``tile=``), the factored form of ``core/flare_stream.py``.
+The paged-attention version gathers each lane's pages into a dense view,
+as ``repro/kernels/paged_attention.py::paged_attention_ref`` does.
 """
 from __future__ import annotations
 
@@ -127,3 +129,65 @@ def flare_causal_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         state, y = stream_chunk_factored(state, q, k[:, :, t0:t0 + tile], v[:, :, t0:t0 + tile])
         ys.append(y)
     return torch.cat(ys, dim=2)
+
+
+def _gather_rows(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """[NB, block, H, ...] pages + [B, P] page table -> [B, H, P*block, ...]
+    (one-byte payloads are gathered through a uint8 view, which every
+    torch version indexes)."""
+    one_byte = pages.element_size() == 1 and pages.dtype not in (torch.int8, torch.uint8)
+    src = pages.view(torch.uint8) if one_byte else pages
+    x = src[page_table.long()]                                   # [B, P, block, H, ...]
+    if one_byte:
+        x = x.view(pages.dtype)
+    b, p, blk = x.shape[:3]
+    return x.reshape(b, p * blk, *x.shape[3:]).movedim(2, 1)
+
+
+def paged_out_dtype(q: torch.Tensor, v_pages: torch.Tensor, out_dtype=None) -> torch.dtype:
+    """The output dtype of a paged-attention call: ``out_dtype``, else the
+    pages' dtype where that is fp32 or bf16, else q's."""
+    if out_dtype is not None:
+        return out_dtype
+    return v_pages.dtype if v_pages.dtype in (torch.float32, torch.bfloat16) else q.dtype
+
+
+def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *, scale: float = 1.0,
+                        k_scale=None, v_scale=None, q2=None, k2_pages=None, k2_scale=None,
+                        out_dtype=None) -> torch.Tensor:
+    """Softmax over each lane's valid tokens (t < lengths[b]) of its pages
+    ``page_table[b, :]``, applied to v: q [B, H, G, D], pages [NB, block, H, D]
+    -> o [B, H, G, D]. Scores s = (q k^T) * k_scale [+ (q2 k2^T) * k2_scale],
+    then ``* scale``, then the mask, an fp32 softmax (fp64 for fp64 q), the
+    weights times v_scale, and the value product. Without scales or q2, and
+    with q's dtype equal to the pages', the weights are cast to v's dtype
+    before the value product, as the kernel does. Rows past a lane's length
+    are zeroed before use, so garbage there (even non-finite) is invisible;
+    a lane of length 0 returns 0."""
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    fused = (k_scale is not None or v_scale is not None or q2 is not None
+             or q.dtype != k_pages.dtype)
+    k = _gather_rows(k_pages, page_table).to(wide)                # [B, H, T, D]
+    v = _gather_rows(v_pages, page_table).to(wide)
+    t = k.shape[2]
+    valid = torch.arange(t, device=q.device)[None, :] < lengths.to(q.device).long()[:, None]
+    valid = valid[:, None, :]                                     # [B, 1, T]
+    k = k.masked_fill(~valid[..., None], 0)
+    v = v.masked_fill(~valid[..., None], 0)
+    s = torch.einsum("bhgd,bhtd->bhgt", q.to(wide), k)
+    if k_scale is not None:
+        s = s * _gather_rows(k_scale, page_table).to(wide)[:, :, None, :]
+    if q2 is not None:
+        k2 = _gather_rows(k2_pages, page_table).to(wide).masked_fill(~valid[..., None], 0)
+        s2 = torch.einsum("bhgd,bhtd->bhgt", q2.to(wide), k2)
+        if k2_scale is not None:
+            s2 = s2 * _gather_rows(k2_scale, page_table).to(wide)[:, :, None, :]
+        s = s + s2
+    s = (s * scale).masked_fill(~valid[:, :, None, :], -torch.inf)
+    w = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)      # all-masked lanes -> 0
+    if v_scale is not None:
+        w = w * _gather_rows(v_scale, page_table).to(wide)[:, :, None, :]
+    if not fused:
+        w = w.to(v_pages.dtype).to(wide)
+    o = torch.einsum("bhgt,bhtd->bhgd", w, v)
+    return o.to(paged_out_dtype(q, v_pages, out_dtype))

@@ -1,16 +1,20 @@
 """Model API of the port: ``get_model(cfg)`` -> init / forward / loss / plans,
-and for the causal FLARE LM prefill / decode_step / init_caches.
+and for the LMs prefill / decode_step / init_caches / prefill_into.
 
-Counterpart of ``repro/models/api.py`` for the PDE family and ``flare_lm``:
+Counterpart of ``repro/models/api.py`` for the PDE family, ``flare_lm`` and
+the gqa decoder (``dense``, e.g. qwen2):
 
     m = get_model(cfg, device="cuda")   # plans resolved here, once, for the device
     net = m.init(seed)                  # the model's modules on that device
     pred = m.forward(net, batch)        # inference under m.plans["infer"]
     loss = m.loss(net, batch)           # differentiable, under m.plans["train"]
-    # flare_lm only:
+    # the LMs (flare_lm, dense) only:
     logits, caches = m.prefill(net, batch, capacity)      # batch may carry "lengths"
     logits, caches = m.decode_step(net, token, caches)    # token [B, 1]
-    caches = m.init_caches(batch_size, capacity)
+    caches = m.init_caches(batch_size, capacity)          # device="meta" allocates nothing
+    # continuous-batching insertion prefill: prefill a request batch and
+    # write its caches into live pool slots (in place)
+    logits, pool = m.prefill_into(net, batch, pool, slots, capacity=capacity)
 
 The train plan is always resolved with ``requires_grad=True``, so training
 never lands on a forward-only kernel. PDE: on the card both plans resolve
@@ -22,8 +26,10 @@ causal path; the infer plan is ``causal_pallas`` (the causal kernel, whose
 tile is its own) on the card and the plain ``causal_stream`` on the CPU, the
 train plan ``causal_stream``, whose ``chunk_size`` is the config's
 ``flare_chunk``.
-``forward`` returns ``(logits [B, S, vocab] fp32, aux)``. flare_lm training
-is not ported yet: its ``loss`` raises.
+dense (gqa): no mixer plan (attention has its own ``impl``, "auto" here);
+the prefix-cache ``prefill_suffix`` is not ported.
+``forward`` returns ``(logits [B, S, vocab] fp32, aux)``. LM training is not
+ported yet: its ``loss`` raises.
 """
 from __future__ import annotations
 
@@ -47,10 +53,27 @@ class Model:
     loss: Callable[..., torch.Tensor]
     # resolved mixer plans: {"infer": ...[, "train": ...]}
     plans: Mapping[str, Any] = field(default_factory=dict)
-    # serving entry points (flare_lm); None for the PDE family
+    # serving entry points (the LMs); None for the PDE family
     prefill: Optional[Callable[..., Any]] = None
     decode_step: Optional[Callable[..., Any]] = None
     init_caches: Optional[Callable[..., Any]] = None
+    prefill_into: Optional[Callable[..., Any]] = None
+
+
+def make_prefill_into(prefill, init_caches):
+    """Generic insertion prefill: run the family prefill on the request
+    batch (right-padded bucket + "lengths"), then write the per-request
+    cache lanes into the pool at ``slots``, in place (``serve.cache``'s
+    slot-axis discovery keeps this family-agnostic). Paged pools use
+    ``serve.pool.PagedModelCache.make_prefill_into`` instead."""
+
+    def prefill_into(net, batch, pool, slots, *, capacity):
+        from repro_torch.serve.cache import insert_slots, slot_axes
+
+        logits, part = prefill(net, batch, capacity)
+        return logits, insert_slots(pool, part, slots, slot_axes(init_caches, capacity))
+
+    return prefill_into
 
 
 def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
@@ -58,6 +81,8 @@ def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
     from repro_torch.core.dispatch import MixerPlan, MixerShape
     from repro_torch.core.policy import resolve_policy
 
+    if cfg.family == "dense":   # gqa attention resolves no mixer plan
+        return {}, None
     causal = cfg.family == "flare_lm"
     if causal:
         heads, latents = cfg.attn.num_heads, cfg.attn.flare_latents
@@ -85,13 +110,15 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
               seq_len_hint: Optional[int] = None) -> Model:
     """``policy``: a MixerPolicy, a MixerPlan, or None (the ambient policy),
     resolved here once for ``device`` (default ``"cuda"``)."""
-    if cfg.family not in ("pde", "flare_lm"):
-        raise ValueError(f"family {cfg.family!r} is not ported; the port has 'pde' "
-                         "and 'flare_lm'")
+    if cfg.family not in ("pde", "flare_lm", "dense"):
+        raise ValueError(f"family {cfg.family!r} is not ported; the port has 'pde', "
+                         "'flare_lm' and 'dense'")
+    if cfg.family == "dense" and cfg.attn.kind != "gqa":
+        raise ValueError(f"the port's dense family has gqa attention, not {cfg.attn.kind!r}")
     dev = torch.device("cuda" if device is None else device)
     plans, train_error = _resolve_plans(cfg, policy, dev, seq_len_hint)
-    if cfg.family == "flare_lm":
-        return _flare_lm(cfg, dev, plans)
+    if cfg.family in ("flare_lm", "dense"):
+        return _lm(cfg, dev, plans)
     from repro_torch.models import pde
 
     def init(seed: int) -> pde.Surrogate:
@@ -114,15 +141,17 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
     return Model(cfg=cfg, init=init, forward=forward, loss=loss, plans=plans)
 
 
-def _flare_lm(cfg: ModelConfig, dev: torch.device, plans) -> Model:
+def _lm(cfg: ModelConfig, dev: torch.device, plans) -> Model:
     from repro_torch.models import transformer as t
+
+    infer = plans.get("infer")
 
     def init(seed: int) -> t.LM:
         return t.init_lm(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
 
     def forward(net: t.LM, batch) -> tuple:
         with torch.no_grad():
-            logits, aux = t.lm_forward(net, batch["tokens"], cfg, plan=plans["infer"])
+            logits, aux = t.lm_forward(net, batch["tokens"], cfg, plan=infer)
         return logits[..., : cfg.vocab], aux
 
     def prefill(net: t.LM, batch, capacity: int) -> tuple:
@@ -133,10 +162,12 @@ def _flare_lm(cfg: ModelConfig, dev: torch.device, plans) -> Model:
         with torch.no_grad():
             return t.lm_decode_step(net, token, caches, cfg)
 
+    def init_caches(batch: int, capacity: int, device=None):
+        return t.init_lm_caches(batch, cfg, capacity, device=dev if device is None else device)
+
     def loss(net: t.LM, batch) -> torch.Tensor:
-        raise NotImplementedError("flare_lm training is not ported yet")
+        raise NotImplementedError(f"{cfg.family} training is not ported yet")
 
     return Model(cfg=cfg, init=init, forward=forward, loss=loss, plans=plans,
-                 prefill=prefill, decode_step=decode_step,
-                 init_caches=lambda batch, capacity: t.init_lm_caches(batch, cfg, capacity,
-                                                                      device=dev))
+                 prefill=prefill, decode_step=decode_step, init_caches=init_caches,
+                 prefill_into=make_prefill_into(prefill, init_caches))

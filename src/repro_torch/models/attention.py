@@ -1,0 +1,287 @@
+"""GQA attention (RoPE / M-RoPE, QKV bias, sliding window): the train and
+prefill forward, and single-token decode against a KV cache.
+
+Counterpart of the gqa half of ``repro/models/attention.py``. MLA and the
+prefix-cache continuation (``gqa_extend``) are not ported yet.
+
+``attn_sdpa`` is written op for op as the JAX package's XLA paths: the score
+einsum in the operands' dtype, then the cast to fp32, then ``* scale``, then
+the ``-inf`` bias or mask, then the softmax, then the value einsum in v's
+dtype. It does not call ``F.scaled_dot_product_attention``: the greedy-parity
+contracts of the serving engine rest on this staging. ``impl="pallas"`` (the
+TPU flash kernel, ``repro/kernels/attention.py``) is not ported yet.
+
+Decode (``gqa_cache_attend``) has two routes:
+  - a dense ``[B, Hkv, cap, D]`` cache: the new row is written at each slot's
+    ring position **in place** (the JAX package returns a new array), then
+    an fp32 masked softmax over the capacity;
+  - a :class:`repro_torch.serve.pool.views.PagedTokenView` (the serving
+    pool's kernel route): the row is appended into block storage and the
+    read runs the paged-attention kernel over the mapped pages, never
+    gathering a dense view.
+Both compute an fp32 dot, then ``* scale``, then the mask, then an fp32
+softmax and value reduction, then the cast: the order that keeps the routes
+token-exact under greedy decode. Sliding-window decode keeps a ring buffer
+of ``window`` rows.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.config import AttnConfig
+from repro_torch.models.rope import apply_rope, mrope_angles, rope_angles
+from repro_torch.nn.modules import dense, init_dense
+
+# ---------------------------------------------------------------------------
+# SDPA
+# ---------------------------------------------------------------------------
+
+
+def _causal_window_bias(sq: int, skv: int, *, causal: bool, window: Optional[int],
+                        q_offset: int = 0, device=None) -> Optional[torch.Tensor]:
+    """Additive fp32 bias [sq, skv] of 0 and -inf."""
+    if not causal and window is None:
+        return None
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    ki = torch.arange(skv, device=device)[None, :]
+    ok = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        ok &= ki <= qi
+    if window is not None:
+        ok &= ki > qi - window
+    return torch.zeros(sq, skv, device=device).masked_fill(~ok, -torch.inf)
+
+
+def attn_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+              causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+              impl: str = "auto", chunk: int = 512) -> torch.Tensor:
+    """q [B, H, Sq, D], k/v [B, H, Skv, D] -> [B, H, Sq, Dv] in v's dtype.
+    ``impl``: "xla" (materialised scores), "chunked" (query blocks of
+    ``chunk`` with an online softmax), "auto" (chunked when both lengths
+    exceed 2048)."""
+    sq, skv = q.shape[-2], k.shape[-2]
+    if impl == "auto":
+        impl = "chunked" if (sq > 2048 and skv > 2048) else "xla"
+    if impl == "pallas":
+        raise NotImplementedError(
+            "attn_sdpa(impl='pallas') is the TPU flash kernel (repro/kernels/attention.py), "
+            "which is not ported yet; use impl='xla' or 'chunked'")
+    if impl == "xla":
+        scores = torch.einsum("bhsd,bhtd->bhst", q, k).float() * scale
+        bias = _causal_window_bias(sq, skv, causal=causal, window=window, q_offset=q_offset,
+                                   device=q.device)
+        if bias is not None:
+            scores = scores + bias
+        w = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhst,bhtd->bhsd", w.to(v.dtype), v)
+    if impl == "chunked":
+        return _chunked_attention(q, k, v, scale=scale, causal=causal, window=window,
+                                  q_offset=q_offset, chunk=chunk)
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _chunked_attention(q, k, v, *, scale, causal, window, q_offset, chunk):
+    """Query blocks of ``chunk`` rows, each against the whole K/V: the
+    [chunk, Skv] score tile is the only large intermediate alive (the JAX
+    package's ``lax.scan`` over blocks, as a loop; the last block ragged)."""
+    sq, skv = q.shape[-2], k.shape[-2]
+    kv_idx = torch.arange(skv, device=q.device)[None, :]
+    outs = []
+    for q0 in range(0, sq, chunk):
+        qblk = q[:, :, q0:q0 + chunk]
+        scores = torch.einsum("bhsd,bhtd->bhst", qblk, k).float() * scale
+        q_idx = torch.arange(q0, q0 + qblk.shape[2], device=q.device)[:, None] + q_offset
+        ok = torch.ones(qblk.shape[2], skv, dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kv_idx <= q_idx
+        if window is not None:
+            ok &= kv_idx > q_idx - window
+        scores = scores.masked_fill(~ok, -torch.inf)
+        m = scores.amax(dim=-1, keepdim=True).clamp_min(-1e30)   # fully masked rows
+        e = torch.exp(scores - m)
+        num = torch.einsum("bhst,bhtd->bhsd", e.to(v.dtype), v)
+        den = e.sum(dim=-1, keepdim=True).to(v.dtype)
+        outs.append(num / den.clamp_min(1e-30))
+    return torch.cat(outs, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # [B, Hkv, S_cap, D] (ring buffer when windowed)
+    v: torch.Tensor        # [B, Hkv, S_cap, D]
+    length: torch.Tensor   # [B] int32: tokens seen so far, per sequence slot
+
+
+def init_kv_cache(batch: int, cfg: AttnConfig, capacity: int, device=None) -> KVCache:
+    """A zero bf16 cache (bf16 whatever the compute dtype, as the JAX
+    package keeps it) of ``capacity`` rows, ``min(capacity, window)`` when
+    windowed."""
+    cap = capacity if cfg.sliding_window is None else min(capacity, cfg.sliding_window)
+    shape = (batch, cfg.num_kv_heads, cap, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                   torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                   torch.zeros(batch, dtype=torch.int32, device=device))
+
+
+def _per_slot(length: torch.Tensor, batch: int) -> torch.Tensor:
+    """A cache length leaf as per-slot [B] (a scalar broadcasts)."""
+    return length.expand(batch) if length.dim() == 0 else length
+
+
+def decode_valid_mask(new_len: torch.Tensor, cap: int) -> torch.Tensor:
+    """[B] lengths -> [B, 1, 1, cap] bool: the cache rows visible to this
+    decode step (index < min(length, cap), per slot). It also makes paged
+    reads exact: rows gathered from unwritten or unmapped pages all sit at
+    indices >= length."""
+    idx = torch.arange(cap, device=new_len.device)
+    return idx[None, None, None, :] < new_len.clamp_max(cap)[:, None, None, None]
+
+
+class GQA(nn.Module):
+    """Parameters ``wq``, ``wk``, ``wv`` (with bias when ``qkv_bias``) and
+    ``wo``, as the JAX tree's ``attn``."""
+
+    def __init__(self, wq: nn.Linear, wk: nn.Linear, wv: nn.Linear, wo: nn.Linear):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+
+
+def init_gqa(cfg: AttnConfig, d_model: int, *, generator: torch.Generator, device=None,
+             dtype=torch.float32) -> GQA:
+    mk = lambda i, o, bias: init_dense(i, o, generator=generator, use_bias=bias,
+                                       device=device, dtype=dtype)
+    return GQA(mk(d_model, cfg.q_dim, cfg.qkv_bias), mk(d_model, cfg.kv_dim, cfg.qkv_bias),
+               mk(d_model, cfg.kv_dim, cfg.qkv_bias), mk(cfg.q_dim, d_model, False))
+
+
+def _heads(x: torch.Tensor, n: int) -> torch.Tensor:   # [B, S, n*D] -> [B, n, S, D]
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1).transpose(1, 2)
+
+
+def _unheads(x: torch.Tensor) -> torch.Tensor:         # [B, n, S, D] -> [B, S, n*D]
+    b, n, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, n * d)
+
+
+def _expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, Hkv, S, D] -> [B, Hkv*groups, S, D] by repeat (GQA group expand)."""
+    if groups == 1:
+        return k
+    b, hkv, s, d = k.shape
+    return k[:, :, None].expand(b, hkv, groups, s, d).reshape(b, hkv * groups, s, d)
+
+
+def _angles(cfg: AttnConfig, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.mrope_sections is not None:
+        return mrope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
+    return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _qkv(attn: GQA, x: torch.Tensor, cfg: AttnConfig, positions: torch.Tensor):
+    """Projected, split-head, rope'd q [B, H, S, D] and k, and v [B, Hkv, S, D]."""
+    q = _heads(dense(attn.wq, x), cfg.num_heads)
+    k = _heads(dense(attn.wk, x), cfg.num_kv_heads)
+    v = _heads(dense(attn.wv, x), cfg.num_kv_heads)
+    ang = _angles(cfg, positions)
+    return apply_rope(q, ang), apply_rope(k, ang), v
+
+
+def gqa_forward(attn: GQA, x: torch.Tensor, cfg: AttnConfig, *, positions: torch.Tensor,
+                causal: bool = True, return_kv: bool = False):
+    """Train / prefill path: x [B, S, C], positions [B, S] (or [3, B, S] for
+    M-RoPE) -> y [B, S, C] (and the rope'd k, v [B, Hkv, S, D]), through
+    ``attn_sdpa``'s "auto" route."""
+    q, k, v = _qkv(attn, x, cfg, positions)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    out = attn_sdpa(q, _expand_kv(k, groups), _expand_kv(v, groups),
+                    scale=1.0 / math.sqrt(cfg.head_dim), causal=causal,
+                    window=cfg.sliding_window)
+    y = dense(attn.wo, _unheads(out))
+    return (y, (k, v)) if return_kv else y
+
+
+def gqa_cache_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: KVCache, *,
+                     groups: int, head_dim: int):
+    """Append the new token's rope'd k/v [B, Hkv, 1, D] to the cache and
+    attend q [B, H, 1, D] over the valid prefix -> (out [B, H, 1, D] in q's
+    dtype, the cache one token longer). A ``PagedTokenView`` cache takes the
+    kernel route; a dense cache is written in place."""
+    from repro_torch.serve.pool.views import PagedTokenView
+
+    b = q.shape[0]
+    new_len = _per_slot(cache.length, b) + 1
+    scale = 1.0 / math.sqrt(head_dim)
+
+    if isinstance(cache.k, PagedTokenView):
+        from repro_torch.kernels.paged_attention import paged_attention
+
+        kview = cache.k.append(k[:, :, 0])    # [B, Hkv, D] row
+        vview = cache.v.append(v[:, :, 0])
+        k_pages, k_scale = kview.pages()
+        v_pages, v_scale = vview.pages()
+        hkv = k_pages.shape[2]
+        qk = q[:, :, 0].reshape(b, hkv, groups, head_dim).float()
+        out = paged_attention(qk, k_pages, v_pages, kview.pt, new_len.to(torch.int32),
+                              scale=scale, k_scale=k_scale, v_scale=v_scale, out_dtype=q.dtype)
+        return out.reshape(b, hkv * groups, head_dim)[:, :, None, :], KVCache(kview, vview, new_len)
+
+    ck, cv = cache.k, cache.v
+    cap = ck.shape[2]
+    slot = (new_len - 1).remainder(cap).long()     # ring position (== length unwindowed)
+    rows = torch.arange(b, device=ck.device)
+    ck[rows, :, slot] = k[:, :, 0].to(ck.dtype)
+    cv[rows, :, slot] = v[:, :, 0].to(cv.dtype)
+    # q grouped per KV head, [B, Hkv, G, D]: the expanded [B, H, cap, D]
+    # cache of the JAX package never materialises; the scores are the same dots
+    hkv = ck.shape[1]
+    qg = q[:, :, 0].reshape(b, hkv, groups, head_dim).float()
+    scores = torch.einsum("bkgd,bktd->bkgt", qg, ck.float()).float() * scale   # f32, then scale
+    scores = scores.masked_fill(~decode_valid_mask(new_len, cap), -torch.inf)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", w, cv.float()).to(q.dtype)
+    return out.reshape(b, hkv * groups, 1, head_dim), KVCache(ck, cv, new_len)
+
+
+def gqa_decode(attn: GQA, x: torch.Tensor, cfg: AttnConfig, cache: KVCache, *,
+               positions: torch.Tensor):
+    """Single-token decode: x [B, 1, C], positions [B, 1] (or [3, B, 1]) ->
+    (y [B, 1, C], cache)."""
+    q, k, v = _qkv(attn, x, cfg, positions)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    out, cache = gqa_cache_attend(q, k, v, cache, groups=groups, head_dim=cfg.head_dim)
+    return dense(attn.wo, _unheads(out)), cache
+
+
+def prefill_kv_cache(k: torch.Tensor, v: torch.Tensor, cfg: AttnConfig, capacity: int,
+                     lengths: Optional[torch.Tensor] = None) -> KVCache:
+    """Pack prefill K/V [B, Hkv, S, D] into a fresh bf16 cache of
+    ``capacity`` rows (``min(capacity, window)`` when windowed).
+    ``lengths`` [B]: the true prompt lengths of a right-padded bucket; the
+    rows past a sequence's length are garbage behind the decode mask. When
+    S exceeds the capacity, each row keeps its last ``cap`` real tokens."""
+    b, hkv, s, d = k.shape
+    cap = capacity if cfg.sliding_window is None else min(capacity, cfg.sliding_window)
+    length = (torch.full((b,), s, dtype=torch.int32, device=k.device) if lengths is None
+              else lengths.to(torch.int32))
+    bf16 = torch.bfloat16
+    if s >= cap:
+        if lengths is None:
+            return KVCache(k[:, :, s - cap:].to(bf16).contiguous(),
+                           v[:, :, s - cap:].to(bf16).contiguous(), length)
+        start = (length.long() - cap).clamp(0, s - cap)
+        idx = (start[:, None] + torch.arange(cap, device=k.device)[None, :])   # [B, cap]
+        idx = idx[:, None, :, None].expand(b, hkv, cap, d)
+        return KVCache(torch.gather(k, 2, idx).to(bf16), torch.gather(v, 2, idx).to(bf16),
+                       length)
+    pad = (0, 0, 0, cap - s)
+    return KVCache(torch.nn.functional.pad(k, pad).to(bf16),
+                   torch.nn.functional.pad(v, pad).to(bf16), length)

@@ -1,22 +1,26 @@
-"""The decoder-only causal FLARE LM (``flare_lm``): forward, prefill, decode.
+"""Decoder-only LMs: the causal FLARE LM (``flare_lm``) and the gqa decoder
+(the ``dense`` family, e.g. qwen2): forward, prefill, decode.
 
-Counterpart of the ``flare_stream`` part of ``repro/models/transformer.py``.
-The JAX package stacks the layers (a leading [L] axis on every leaf) and
-runs them with ``jax.lax.scan``; here they are an ``nn.ModuleList`` walked
-in a loop, and ``repro_torch.interop.unstack_layers`` carries a JAX tree in.
-Parameters are stored in ``cfg.param_dtype`` (fp32) and cast to
-``cfg.compute_dtype`` at use; norms keep fp32 statistics and the logits are
-fp32. The gqa/mla attention layers, MoE and the encoder-decoder are not
-ported yet.
+Counterpart of the ``flare_stream`` and ``gqa`` parts of
+``repro/models/transformer.py``. The JAX package stacks the layers (a
+leading [L] axis on every leaf) and runs them with ``jax.lax.scan``; here
+they are an ``nn.ModuleList`` walked in a loop, and
+``repro_torch.interop.unstack_layers`` carries a JAX tree in. Parameters
+are stored in ``cfg.param_dtype`` (fp32) and cast to ``cfg.compute_dtype``
+at use; norms keep fp32 statistics and the logits are fp32. MLA, MoE, the
+encoder-decoder and the prefix-cache suffix prefill are not ported yet.
 
-Each layer is pre-norm: ``x += mix(norm1(x)); x += swiglu(norm2(x))``, the
-mixer being causal FLARE over ResMLP K/V projections with per-head latent
-queries (``core/flare.py::FlareLayer``). ``lm_forward`` runs the mixer
-through the model's resolved plan (the causal kernel on the card);
+Each layer is pre-norm: ``x += mix(norm1(x)); x += swiglu(norm2(x))``. For
+``flare_lm`` the mixer is causal FLARE over ResMLP K/V projections with
+per-head latent queries (``core/flare.py::FlareLayer``): ``lm_forward`` runs
+it through the model's resolved plan (the causal kernel on the card);
 ``lm_prefill`` is pinned to the stateful chunked scan
 (``flare_causal_with_state``), since it must return each layer's latent
 state, and ``lm_decode_step`` appends one token to every state
-(``stream_append``).
+(``stream_append``). For ``gqa`` the mixer is rope'd grouped-query attention
+(``models/attention.py``); prefill returns each layer's KV cache, and decode
+reads it densely or, when the caches are a paged pool's kernel view,
+through the paged-attention kernel.
 """
 from __future__ import annotations
 
@@ -28,6 +32,14 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.core.flare import FlareLayer, _merge_heads, _split_heads, init_flare_layer
 from repro_torch.core.flare_stream import flare_causal_with_state, stream_append, stream_init
+from repro_torch.models.attention import (
+    gqa_decode,
+    gqa_forward,
+    init_gqa,
+    init_kv_cache,
+    prefill_kv_cache,
+)
+from repro_torch.models.rope import text_mrope_positions, text_positions
 from repro_torch.nn.modules import (
     Embedding,
     RMSNorm,
@@ -74,10 +86,10 @@ def _dtype(name: str) -> torch.dtype:
 
 
 class DecoderLayer(nn.Module):
-    """Parameters ``norm1``, ``attn`` (a FlareLayer), ``norm2``, ``mlp``
-    (SwiGLU), as one layer of the JAX tree's stacked ``layers``."""
+    """Parameters ``norm1``, ``attn`` (a FlareLayer or a GQA), ``norm2``,
+    ``mlp`` (SwiGLU), as one layer of the JAX tree's stacked ``layers``."""
 
-    def __init__(self, norm1: RMSNorm, attn: FlareLayer, norm2: RMSNorm, mlp: SwiGLU):
+    def __init__(self, norm1: RMSNorm, attn, norm2: RMSNorm, mlp: SwiGLU):
         super().__init__()
         self.norm1 = norm1
         self.attn = attn
@@ -96,21 +108,22 @@ class LM(nn.Module):
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.attn.kind != "flare_stream" or cfg.norm != "rmsnorm":
-        raise ValueError(f"the port's LM has flare_stream mixers and rmsnorm, not "
+    if cfg.attn.kind not in ("flare_stream", "gqa") or cfg.norm != "rmsnorm":
+        raise ValueError(f"the port's LM has flare_stream or gqa mixers and rmsnorm, not "
                          f"{cfg.attn.kind!r} / {cfg.norm!r}")
 
 
 def init_decoder_layer(cfg: ModelConfig, *, generator: torch.Generator, device=None,
                        dtype=torch.float32) -> DecoderLayer:
     kw = dict(device=device, dtype=dtype)
-    return DecoderLayer(
-        init_rmsnorm(cfg.d_model, **kw),
-        init_flare_layer(cfg.d_model, cfg.attn.num_heads, cfg.attn.flare_latents,
-                         generator=generator, kv_proj_layers=3, **kw),
-        init_rmsnorm(cfg.d_model, **kw),
-        init_swiglu(cfg.d_model, cfg.d_ff, generator=generator, **kw),
-    )
+    norm1 = init_rmsnorm(cfg.d_model, **kw)
+    if cfg.attn.kind == "gqa":
+        attn = init_gqa(cfg.attn, cfg.d_model, generator=generator, **kw)
+    else:
+        attn = init_flare_layer(cfg.d_model, cfg.attn.num_heads, cfg.attn.flare_latents,
+                                generator=generator, kv_proj_layers=3, **kw)
+    return DecoderLayer(norm1, attn, init_rmsnorm(cfg.d_model, **kw),
+                        init_swiglu(cfg.d_model, cfg.d_ff, generator=generator, **kw))
 
 
 def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device=None) -> LM:
@@ -161,13 +174,27 @@ def _logits(net: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return dense(net.lm_head, x).float()
 
 
-def lm_forward(net: LM, tokens: torch.Tensor, cfg: ModelConfig, *, plan) -> tuple:
+def _positions(cfg: ModelConfig, b: int, s: int, device) -> torch.Tensor:
+    """Text positions [B, S] (M-RoPE: [3, B, S])."""
+    if cfg.attn.mrope_sections is not None:
+        return text_mrope_positions(b, s, device=device)
+    return text_positions(b, s, device=device)
+
+
+def lm_forward(net: LM, tokens: torch.Tensor, cfg: ModelConfig, *, plan=None) -> tuple:
     """Full-sequence forward: tokens [B, S] -> (logits fp32 [B, S, V_padded]
     with the padded tail at -inf, aux loss 0). ``plan`` is the causal
-    MixerPlan resolved at model build."""
+    MixerPlan resolved at model build (flare_lm); gqa attention takes
+    ``attn_sdpa``'s "auto" route."""
     x = _embed(net, tokens, cfg)
+    if cfg.attn.kind == "gqa":
+        positions = _positions(cfg, *tokens.shape, tokens.device)
     for layer in net.layers:
-        x = x + _flare_stream_mix(layer.attn, _norm(cfg, layer.norm1, x), cfg, plan)
+        xin = _norm(cfg, layer.norm1, x)
+        if cfg.attn.kind == "gqa":
+            x = x + gqa_forward(layer.attn, xin, cfg.attn, positions=positions)
+        else:
+            x = x + _flare_stream_mix(layer.attn, xin, cfg, plan)
         x = _ffn(cfg, layer, x)
     logits = _logits(net, _norm(cfg, net.final_norm, x), cfg)
     return mask_padded_logits(logits, cfg.vocab), torch.zeros((), device=x.device)
@@ -176,20 +203,22 @@ def lm_forward(net: LM, tokens: torch.Tensor, cfg: ModelConfig, *, plan) -> tupl
 class LMCaches(NamedTuple):
     """The JAX ``LMCaches`` without its ``dense`` field (the leading dense
     layers of MoE models, not ported)."""
-    layers: list          # one FlareState per layer
+    layers: list          # one FlareState (flare_lm) or KVCache (gqa) per layer
     pos: torch.Tensor     # [B] int32, the next position of each sequence
 
 
 def init_lm_caches(batch: int, cfg: ModelConfig, capacity: int, *, device=None) -> LMCaches:
     """Fresh caches. A FLARE state is O(M*D) per head whatever the sequence
-    length, so ``capacity`` does not size it."""
-    del capacity
+    length, so ``capacity`` does not size it; a gqa layer's KV cache holds
+    ``capacity`` rows (``min(capacity, window)`` when windowed), in bf16."""
     heads = cfg.attn.num_heads
-    return LMCaches(
-        layers=[stream_init(batch, heads, cfg.attn.flare_latents, cfg.d_model // heads,
-                            device=device) for _ in range(cfg.num_layers)],
-        pos=torch.zeros(batch, dtype=torch.int32, device=device),
-    )
+    if cfg.attn.kind == "gqa":
+        layers = [init_kv_cache(batch, cfg.attn, capacity, device=device)
+                  for _ in range(cfg.num_layers)]
+    else:
+        layers = [stream_init(batch, heads, cfg.attn.flare_latents, cfg.d_model // heads,
+                              device=device) for _ in range(cfg.num_layers)]
+    return LMCaches(layers=layers, pos=torch.zeros(batch, dtype=torch.int32, device=device))
 
 
 def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int) -> tuple:
@@ -200,10 +229,12 @@ def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int) -> tuple:
     the padding out of the carried states, and the logits are taken at each
     row's last real position. Each layer runs the stateful chunked scan of
     ``cfg.attn.flare_chunk`` tokens, not the model's plan: the plan's
-    kernel returns no state."""
-    del capacity
+    kernel returns no state. A gqa layer returns its KV cache of
+    ``capacity`` rows."""
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
+    if cfg.attn.kind == "gqa":
+        return _gqa_prefill(net, tokens, lengths, cfg, capacity)
     x = _embed(net, tokens, cfg)
     b, s = tokens.shape
     mask = None
@@ -224,17 +255,65 @@ def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int) -> tuple:
     return logits, LMCaches(states, pos)
 
 
-def lm_decode_step(net: LM, token: torch.Tensor, caches: LMCaches, cfg: ModelConfig) -> tuple:
+def _gqa_prefill(net: LM, tokens: torch.Tensor, lengths: Optional[torch.Tensor],
+                 cfg: ModelConfig, capacity: int) -> tuple:
+    """The gqa prefill: causal attention over the bucket (right-padding
+    cannot reach a real position), each layer's rope'd K/V packed into a
+    cache of ``capacity`` rows with the true ``lengths``."""
+    x = _embed(net, tokens, cfg)
+    b, s = tokens.shape
+    positions = _positions(cfg, b, s, tokens.device)
+    caches = []
+    for layer in net.layers:
+        a, (k, v) = gqa_forward(layer.attn, _norm(cfg, layer.norm1, x), cfg.attn,
+                                positions=positions, return_kv=True)
+        caches.append(prefill_kv_cache(k, v, cfg.attn, capacity, lengths))
+        x = _ffn(cfg, layer, x + a)
+    x = _norm(cfg, net.final_norm, _last_valid(x, lengths))
+    logits = _logits(net, x, cfg)[:, 0, : cfg.vocab]
+    pos = (torch.full((b,), s, dtype=torch.int32, device=tokens.device) if lengths is None
+           else lengths.to(torch.int32))
+    return logits, LMCaches(caches, pos)
+
+
+def _decode_positions(pos: torch.Tensor, b: int, mrope: bool) -> torch.Tensor:
+    """Per-slot decode positions [B, 1] (M-RoPE: [3, B, 1]) from the caches'
+    [B] position vector (a scalar broadcasts)."""
+    if pos.dim() == 0:
+        pos = pos.expand(b)
+    if mrope:
+        return pos[None, :, None].expand(3, b, 1)
+    return pos[:, None]
+
+
+def lm_decode_step(net: LM, token: torch.Tensor, caches, cfg: ModelConfig) -> tuple:
     """One token per sequence: token [B, 1] -> (logits fp32 [B, V], caches
-    advanced by one position). Each layer appends the token to its state."""
+    advanced by one position). A flare_lm layer appends the token to its
+    state; a gqa layer writes its row into the KV cache and attends over it.
+
+    ``caches`` may be a :class:`repro_torch.serve.pool.views.PagedCacheView`
+    (the serving engine's block-paged pool): it resolves here into caches
+    (a dense gather, or kernel views of the pages) and a write-back, which
+    returns the view whose ``pool`` the engine carries on."""
+    from repro_torch.serve.pool.views import resolve_cache_view
+
+    caches, writeback = resolve_cache_view(caches)
     x = _embed(net, token, cfg)
     heads = cfg.attn.num_heads
     states = []
+    if cfg.attn.kind == "gqa":
+        positions = _decode_positions(caches.pos, token.shape[0],
+                                      cfg.attn.mrope_sections is not None)
     for layer, state in zip(net.layers, caches.layers):
-        fl = layer.attn
-        k, v = _kv(fl, _norm(cfg, layer.norm1, x), heads)
-        state, y = stream_append(state, fl.q_latent.to(x.dtype), k[:, :, 0], v[:, :, 0])
+        xin = _norm(cfg, layer.norm1, x)
+        if cfg.attn.kind == "gqa":
+            a, state = gqa_decode(layer.attn, xin, cfg.attn, state, positions=positions)
+        else:
+            fl = layer.attn
+            k, v = _kv(fl, xin, heads)
+            state, y = stream_append(state, fl.q_latent.to(x.dtype), k[:, :, 0], v[:, :, 0])
+            a = dense(fl.out_proj, y.reshape(y.shape[0], 1, -1))
         states.append(state)
-        x = _ffn(cfg, layer, x + dense(fl.out_proj, y.reshape(y.shape[0], 1, -1)))
+        x = _ffn(cfg, layer, x + a)
     logits = _logits(net, _norm(cfg, net.final_norm, x), cfg)[:, 0, : cfg.vocab]
-    return logits, LMCaches(states, caches.pos + 1)
+    return logits, writeback(LMCaches(states, caches.pos + 1))

@@ -1,8 +1,8 @@
 """Host-side observability for the port: the counterpart of ``repro.obs``,
-trimmed to what the trainer uses.
+trimmed to what the trainer and the serving engine use.
 
-  - :mod:`repro_torch.obs.metrics`: a metrics registry (counters, fixed-bucket
-    histograms; thread-safe, near-zero cost when disabled).
+  - :mod:`repro_torch.obs.metrics`: a metrics registry (counters, gauges,
+    fixed-bucket histograms; thread-safe, near-zero cost when disabled).
   - :mod:`repro_torch.obs.trace`: span tracing with Chrome-trace-event
     (Perfetto-loadable) export.
   - :func:`annotate` / :func:`scope`: ``torch.profiler.record_function``, so a
@@ -15,11 +15,11 @@ device.
 """
 from __future__ import annotations
 
-from repro_torch.obs.metrics import Counter, Histogram, MetricsRegistry
+from repro_torch.obs.metrics import NULL_REGISTRY, Counter, Gauge, Histogram, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry", "NULL_TRACER", "Tracer",
-           "annotate", "scope"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_REGISTRY", "NULL_TRACER",
+           "Tracer", "annotate", "scope"]
 
 
 def annotate(name: str):

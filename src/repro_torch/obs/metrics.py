@@ -1,7 +1,9 @@
 """Metrics registry: counters and fixed-bucket histograms.
 
-Counterpart of ``repro/obs/metrics.py`` (stdlib only), with the two kinds
-the trainer records. Every mutator checks its registry's ``enabled`` flag
+Counterpart of ``repro/obs/metrics.py`` (stdlib only), with the kinds the
+trainer and the serving engine record: counters, gauges and histograms.
+``NULL_REGISTRY`` (permanently disabled) is the default sink of a component
+built without one, so instrumented code never branches on ``None``. Every mutator checks its registry's ``enabled`` flag
 first, so a disabled registry costs one attribute read; each metric takes
 its own lock, so counts do not rest on the interpreter lock. ``counter(name)``
 and ``histogram(name)`` get or create, and a name registered as the other
@@ -43,6 +45,27 @@ class Counter(_Metric):
             raise ValueError(f"counter {self.name}: inc({n}) would decrease")
         with self._lock:
             self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def snapshot(self):
+        return self._value
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def __init__(self, registry, name, help=""):
+        super().__init__(registry, name, help)
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        if not self._reg.enabled:
+            return
+        with self._lock:
+            self._value = float(v)
 
     @property
     def value(self) -> float:
@@ -105,6 +128,9 @@ class MetricsRegistry:
     def counter(self, name: str, help: str = "") -> Counter:
         return self._get(Counter, name, help)
 
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get(Gauge, name, help)
+
     def histogram(self, name: str, help: str = "",
                   buckets: Iterable[float] = DEFAULT_BUCKETS) -> Histogram:
         return self._get(Histogram, name, help, buckets=buckets)
@@ -127,3 +153,6 @@ class MetricsRegistry:
                 f.write(text + "\n")
         return text
 
+
+
+NULL_REGISTRY = MetricsRegistry(enabled=False)

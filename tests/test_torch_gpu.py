@@ -11,7 +11,12 @@ magnitude. The fused backward is held against its plain version in fp64 at
 1e-5 of each gradient's largest magnitude in fp32 (its kernels sit near
 1e-6 there), and at 2e-2 in bf16. The causal kernel is held against its
 plain version in fp64 at 1e-5 of max |y| in fp32, and against the plain
-version on the same bf16 inputs at 2e-2 in bf16."""
+version on the same bf16 inputs at 2e-2 in bf16. The paged-attention kernel
+is held against its plain version in fp64 at 1e-5 of max |o| where it
+computes in fp32 (fp32 queries, any pages), and at 1e-2 where it rounds the
+weights to bf16 (bf16 queries over bf16 pages); the smoke qwen2's engine
+gives the same greedy tokens through the kernel route as through the
+gather route."""
 import pytest
 import torch
 
@@ -68,7 +73,8 @@ def test_kernels_match_plain(cuda, shape, dtype):
     torch.testing.assert_close(den, den_ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
     after = launch_counts()
-    assert all(after[name] == before[name] + (name not in ("flare_fused_bwd", "flare_causal_chunk"))
+    assert all(after[name] == before[name]
+               + (name not in ("flare_fused_bwd", "flare_causal_chunk", "paged_attention"))
                for name in after)
 
 
@@ -218,3 +224,112 @@ def test_flare_lm_kernel_path_matches_plain_path(cuda):
     assert launch_counts()["flare_causal_chunk"] == before + cfg.num_layers
     want, _ = plain.forward(net, {"tokens": toks.to(cuda)})
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+PAGED_CASES = [(g, d, dt, q2) for g in (1, 6, 2048) for d in (8, 128)
+               for dt in ("float32", "bfloat16", "int8", "fp8") for q2 in (False, True)]
+
+
+def _paged_case(g, d, page_dtype, q2, device, *, b=3, h=2, block=16, pages=24, qdt=torch.float32):
+    """Random operands: a shuffled page table whose unmapped entries point at
+    a trash row of NaN, lengths 0, a partial page and a full table."""
+    from repro_torch.serve.pool.quant import get_quant, quantize
+
+    gen = torch.Generator().manual_seed(g * 1000 + d)
+    nb = b * pages + 1
+    q = torch.randn(b, h, g, d, generator=gen) * d ** -0.5
+    k = torch.randn(nb, block, h, d, generator=gen)
+    v = torch.randn(nb, block, h, d, generator=gen)
+    lengths = torch.tensor([0, block * (pages // 2) + block // 2, block * pages], dtype=torch.int32)
+    pt = torch.randperm(nb - 1, generator=gen)[: b * pages].reshape(b, pages).int()
+    for i in range(b):
+        pt[i, -(-int(lengths[i]) // block):] = nb - 1
+    k[nb - 1], v[nb - 1] = float("nan"), float("nan")
+    kw = {}
+    if page_dtype in ("int8", "fp8"):
+        spec = get_quant(page_dtype)
+        (k, ks), (v, vs) = quantize(spec, torch.nan_to_num(k)), quantize(spec, torch.nan_to_num(v))
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(getattr(torch, page_dtype)), v.to(getattr(torch, page_dtype))
+    if q2:
+        kw["q2"] = (torch.randn(b, h, g, 16, generator=gen) * 0.25).to(qdt)
+        if k.dtype == torch.int8:
+            kw["k2_pages"] = torch.randint(-100, 100, (nb, block, h, 16), generator=gen,
+                                           dtype=torch.int8)
+            kw["k2_scale"] = torch.full((nb, block, h), 0.01)
+        else:
+            kw["k2_pages"] = torch.randn(nb, block, h, 16, generator=gen).to(k.dtype)
+    ops = (q.to(qdt), k, v, pt, lengths)
+    return (tuple(t.to(device) for t in ops),
+            {key: t.to(device) for key, t in kw.items()})
+
+
+@pytest.mark.parametrize("g,d,page_dtype,q2", PAGED_CASES)
+def test_paged_kernel_matches_plain(cuda, g, d, page_dtype, q2):
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    ops, kw = _paged_case(g, d, page_dtype, q2, cuda)
+    before = launch_counts()["paged_attention"]
+    got = paged_attention(*ops, scale=0.7, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_attention"] == before + 1
+    wide = {key: t.double() if key == "q2" else t for key, t in kw.items()}
+    want = ref.paged_attention_ref(ops[0].double(), *ops[1:], scale=0.7,
+                                   out_dtype=torch.float64, **wide)
+    assert not got[0].any() and torch.isfinite(got).all()
+    assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("g,d", [(6, 128), (2048, 8)])
+def test_paged_kernel_bf16_plain_path(cuda, g, d):
+    """bf16 queries over bf16 pages (the plain path: weights rounded to bf16
+    before the value product) with a bf16 output."""
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    ops, _ = _paged_case(g, d, "bfloat16", False, cuda, qdt=torch.bfloat16)
+    got = paged_attention(*ops, scale=0.7)
+    assert got.dtype == torch.bfloat16
+    want = ref.paged_attention_ref(ops[0].double(), *ops[1:], scale=0.7, out_dtype=torch.float64)
+    assert (got.double() - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+def test_paged_kernel_raises_instead_of_falling_back(cuda):
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    ops, _ = _paged_case(6, 128, "bfloat16", False, cuda)
+    q, k, v, pt, lengths = ops
+    with pytest.raises(ValueError, match="head dim"):
+        paged_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                        v[..., :24].contiguous(), pt, lengths)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention(q, k, v, pt.long(), lengths)
+    with pytest.raises(ValueError, match="several devices"):
+        paged_attention(q, k, v, pt.cpu(), lengths)
+
+
+def test_qwen2_engine_kernel_route_matches_gather(cuda):
+    """The smoke qwen2 on the card: the engine's kernel route (one launch a
+    layer a decode step) gives the gather route's greedy tokens, fp32 compute."""
+    import numpy as np
+
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = replace(get_smoke_config("qwen2_1_5b"), compute_dtype="float32")
+    model = get_model(cfg, device=cuda)
+    net = model.init(0)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab, int(n)), int(m))
+            for n, m in zip(rng.integers(3, 14, 5), rng.integers(3, 11, 5))]
+    outs = {}
+    for route in ("gather", "paged"):
+        eng = ServeEngine(model, net, capacity=32, slots=2, pool_tokens=96, block_size=8,
+                          decode_backend=route)
+        for prompt, max_new in reqs:
+            eng.submit(prompt, max_new_tokens=max_new)
+        before = launch_counts()["paged_attention"]
+        outs[route] = [o.tolist() for o in eng.run_all()]
+        launched = launch_counts()["paged_attention"] - before
+        assert launched == (cfg.num_layers * eng.stats["decode_steps"] if route == "paged" else 0)
+        eng.check_invariants()
+    assert outs["paged"] == outs["gather"]

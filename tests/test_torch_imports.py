@@ -47,3 +47,13 @@ def test_every_port_module_loads_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0 and "PASS" in out.stdout, out.stdout + out.stderr
+
+
+def test_serving_modules_are_checked():
+    """The serving slice's subpackages are among the files checked above."""
+    checked = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    for name in ("serve/engine.py", "serve/scheduler.py", "serve/sampling.py", "serve/cache.py",
+                 "serve/pool/blocks.py", "serve/pool/quant.py", "serve/pool/views.py",
+                 "serve/pool/paged_cache.py", "launch/serve.py", "backends/paged.py",
+                 "kernels/paged_attention.py", "models/attention.py", "models/rope.py"):
+        assert name in checked, name

@@ -232,3 +232,131 @@ def test_wrappers_reject_bad_operands():
         flare_fused_bwd(q, k, v, z, mx, den, lse[:, :, 1:], y, y)
     with pytest.raises(ValueError, match="z must be"):
         flare_fused_bwd(q, k, v, z[:, :1], mx, den, lse, y, y)
+
+
+# --- paged attention ------------------------------------------------------------
+
+
+def _paged_inputs(b=3, h=2, g=4, d=16, nb=9, block=8, p=4, quant=None, q2=False, seed=0):
+    """Random operands of the JAX paged kernel's tests: a shuffled page table
+    (the trash row among its targets), a zero-length lane and a partial page;
+    ``quant`` "int8" or "fp8" stores the pages quantized with per-row scales
+    (the serving pool's), dequantized by the kernel."""
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((nb, block, h, d)).astype(np.float32)
+    v = rng.standard_normal((nb, block, h, d)).astype(np.float32)
+    ops = {"q": rng.standard_normal((b, h, g, d)).astype(np.float32),
+           "page_table": rng.integers(0, nb, (b, p)).astype(np.int32),
+           "lengths": np.asarray([0, 13, p * block][:b], np.int32)}
+    if quant is not None:
+        from repro_torch.serve.pool.quant import get_quant, quantize
+
+        spec = get_quant(quant)
+        (kq, ks), (vq, vs) = (quantize(spec, torch.from_numpy(x)) for x in (k, v))
+        # the JAX oracle takes the payload widened to fp32: exact for int8 and fp8
+        k, v = kq.float().numpy(), vq.float().numpy()
+        ops.update(k_scale=ks.numpy(), v_scale=vs.numpy())
+    ops.update(k_pages=k, v_pages=v)
+    if q2:
+        ops["q2"] = rng.standard_normal((b, h, g, 8)).astype(np.float32)
+        ops["k2_pages"] = rng.standard_normal((nb, block, h, 8)).astype(np.float32)
+        ops["k2_scale"] = (1 + 0.1 * rng.standard_normal((nb, block, h))).astype(np.float32)
+    return ops
+
+
+PAGED_CASES = {"g4": {}, "g1": dict(g=1), "int8": dict(quant="int8"), "fp8": dict(quant="fp8"),
+               "q2_k2": dict(q2=True), "g1_int8_q2": dict(g=1, quant="int8", q2=True)}
+
+
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_attention_matches_jax_oracle_and_pallas(case):
+    """The plain version (what the wrapper runs on CPU tensors) against the
+    JAX oracle and the Pallas kernel in interpret mode, as
+    tests/test_paged_pool.py runs them: fp32 atol 2e-6. The zero-length lane
+    returns exact zeros."""
+    from repro.kernels.paged_attention import paged_attention as jpaged
+    from repro.kernels.paged_attention import paged_attention_ref as jpaged_ref
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    ops = _paged_inputs(**PAGED_CASES[case])
+    names = ("q", "k_pages", "v_pages", "page_table", "lengths")
+    kw = {key: x for key, x in ops.items() if key not in names}
+    jargs = [jnp.asarray(ops[n]) for n in names]
+    jkw = {key: jnp.asarray(x) for key, x in kw.items()}
+    oracle = jpaged_ref(*jargs, scale=0.5, **jkw)
+    pallas = jpaged(*jargs, scale=0.5, interpret=True, **jkw)
+    before = launch_counts()
+    got = paged_attention(*(torch.from_numpy(ops[n]) for n in names), scale=0.5,
+                          **{key: torch.from_numpy(x) for key, x in kw.items()})
+    assert launch_counts() == before and got.shape == ops["q"].shape
+    for want in (oracle, pallas):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6, rtol=2e-6)
+    assert not got[0].any()
+
+
+def test_paged_attention_plain_version_is_fp64_for_fp64_and_skips_garbage():
+    """The plain version computes in fp64 for fp64 q, and rows past a lane's
+    length (the trash row a page table points unmapped entries at, here
+    non-finite) never reach the output."""
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    ops = {key: torch.from_numpy(x) for key, x in _paged_inputs().items()}
+    k, v = ops["k_pages"].clone(), ops["v_pages"].clone()
+    pt = ops["page_table"].clone()
+    pt[1, 2:] = 8                       # lane 1 (13 tokens) maps 2 pages; the rest is trash
+    k[8], v[8] = float("nan"), float("inf")
+    args = (ops["q"], k, v, pt, ops["lengths"])
+    out = paged_attention_ref(*args, scale=0.5)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    wide = paged_attention_ref(ops["q"].double(), k.double(), v.double(), *args[3:], scale=0.5)
+    assert wide.dtype == torch.float64
+    torch.testing.assert_close(out.double(), wide, atol=1e-6, rtol=1e-6)
+
+
+def test_paged_attention_wrapper_checks_operands():
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    ops = {key: torch.from_numpy(x) for key, x in _paged_inputs(quant="int8").items()}
+    base = (ops["q"], ops["k_pages"], ops["v_pages"], ops["page_table"], ops["lengths"])
+    with pytest.raises(ValueError, match="pages must be"):
+        paged_attention(ops["q"], ops["k_pages"][:, :, :1], *base[2:])
+    with pytest.raises(ValueError, match="k_scale"):
+        paged_attention(*base, k_scale=ops["k_scale"][:, :, :1])
+    with pytest.raises(ValueError, match="come together"):
+        paged_attention(*base, q2=ops["q"])
+    with pytest.raises(RuntimeError, match="forward-only"):
+        paged_attention(ops["q"].clone().requires_grad_(True), *base[1:])
+
+
+def test_paged_backend_matches_sdpa():
+    """The paged backend (the encode through the paged kernel's plain
+    version, the decode plain) against sdpa: atol/rtol 1e-5, odd N padded
+    into pages, no launch on the CPU."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 2, 8, 19, 16))
+    before = launch_counts()
+    got = run_plan(MixerPlan("paged", {"block": 16}), q, k, v)
+    torch.testing.assert_close(got, run_plan(MixerPlan("sdpa"), q, k, v), atol=1e-5, rtol=1e-5)
+    assert launch_counts() == before
+
+
+def test_paged_backend_policy_contract():
+    """Registered bidirectional and forward-only; resolves by policy with a
+    block, refuses a differentiated path, and scores 40 at the decode-read
+    signature (latents == 1), where "auto" picks it on either device, but
+    below every dense backend at M > 1."""
+    from repro_torch.core.dispatch import MixerShape, get_backend
+    from repro_torch.core.policy import MixerPolicy, resolve_policy
+
+    b = get_backend("paged")
+    assert b.caps.bidirectional and not b.caps.causal and not b.caps.grads
+    shape = MixerShape(batch=1, heads=2, tokens=64, latents=8, head_dim=16)
+    plan = resolve_policy(MixerPolicy(backends=("paged",)), shape, torch.float32, device="cpu")
+    assert plan.backend == "paged" and plan.params == {"block": 16}
+    with pytest.raises(ValueError, match="forward-only"):
+        resolve_policy(MixerPolicy(backends=("paged",), requires_grad=True), shape,
+                       torch.float32, device="cpu")
+    decode = MixerShape(batch=8, heads=2, tokens=4096, latents=1, head_dim=128)
+    assert b.score(decode, "cuda") == 40.0
+    for device in ("cpu", "cuda"):
+        assert resolve_policy(MixerPolicy(), decode, torch.bfloat16, device=device).backend == "paged"
+        assert resolve_policy(MixerPolicy(), shape, torch.float32, device=device).backend != "paged"
