@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: the FLARE PDE
-surrogate's inference and training, the causal FLARE LM's serving, and
-Qwen2-1.5B served from the paged KV pool.
+surrogate's inference and training, the causal FLARE LM's serving,
+Qwen2-1.5B served from the paged KV pool, and the dense family's prefill
+(Qwen2-1.5B, Phi-3-mini) through the flash-attention kernel.
 
     python3 chip_smoke.py
 
@@ -27,6 +28,13 @@ failure so the script exits non-zero:
    fp32 queries against the plain version in fp64, bf16 queries over bf16
    pages against the plain version on the same inputs; each limit must
    reject the plain version with one page of the longest lane left out;
+3c. ``kernels flash``: the flash-attention kernel on random operands laid
+   out as the model gives them, D in {8, 24, 64, 96, 128} x (Sq, Skv) in
+   {97/97, 300/300, 128/64} x causal, full and causal with a window of 24:
+   fp32 against the plain version in fp64 and bf16 against the plain
+   version on the same operands (fp32 1e-5, bf16 1e-2 of max |plain|); each
+   limit must reject the fp64 plain version with the 64-key tile at Skv/2
+   left out, and rows that see no key must come out exactly 0;
 4. kernels on the main path's operands: block 0's own q, k, v of the model
    at pde_40k (B=8, N=40,000) and pde_1m (B=1, N=1,048,576), fp32, every
    batch element and head, the plain versions run a head at a time. Each
@@ -113,7 +121,32 @@ failure so the script exits non-zero:
    first-step logits within 1e-3. Last, int8 and fp8 pools: first-step
    logits against the dense pool within the JAX package's envelope
    (|diff| <= 0.15 + 0.05 |ref|);
-13. one JSON line of per-kernel numbers, then the card's name and power limit,
+13. ``flash``: the flash kernel on the same qwen2's layer 0 rope'd, expanded
+   q, k, v at B=1, T=32,768 (prefill_32k's length; its batch of 32 cut to
+   1), bf16 as the model runs it: widened to fp32 against the plain version
+   in fp64, a head and 4,096 queries at a time, at 1e-5 of max |plain|,
+   which must reject the fp64 plain version with the 64-key tile at T/2
+   left out; bf16 against the plain version at 1e-2, and against the fp64
+   plain version beyond bf16's output rounding (max(|o - plain| - 2**-8
+   |plain|) at 1e-5 of max |plain|), which must reject the same lost tile
+   rounded to bf16. Times of the kernel,
+   its bound, its plain version (a head at a time), ``attn_sdpa``'s
+   chunked route and ``F.scaled_dot_product_attention`` (the yardstick).
+   Then ``lm_prefill(impl="pallas")`` at B=1, T=32,768 (capacity 32,768;
+   launch counts zeroed before and read after: 28 flash launches), ms, peak
+   GiB, a profiler breakdown, last-token logits against ``impl="chunked"``
+   within 5e-2 of max |logit|; ``lm_forward(impl="pallas")`` in fp32
+   compute at B=2, T=4,096 (28 launches) against ``impl="xla"``, all
+   logits within 1e-3; 8 greedy decode steps after a pallas and an xla
+   prefill in fp32 (right-padded lengths 4,096 / 3,001): the same tokens;
+14. ``phi3-mini-3.8b`` at full width and depth (32 layers, 3.82B
+   parameters; the seconds to draw them printed): the flash kernel at
+   D=96 on layer 0's q, k, v for the prefill's tokens (B=2, H=32, T=4,096),
+   held as in phase 13; ``lm_prefill(impl="pallas")`` at B=2, T=4,096 with right-padded lengths in bf16 (32
+   launches; ms, peak GiB, a profiler breakdown) against ``impl="xla"``
+   (5e-2), and in fp32 (1e-3) with 8 greedy decode steps after each
+   prefill: the same tokens;
+15. one JSON line of per-kernel numbers, then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
@@ -142,6 +175,10 @@ ATOL = {"float32": 1e-4, "bfloat16": 2e-2}   # absolute: max |kernel - plain|
 # token tile (encode) or one latent tile (decode) must fail it: the script
 # measures that on the main path's operands and raises if it would pass.
 RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# bf16's unit roundoff: rounding x to nearest moves it by at most 2**-8 |x|.
+# At T=32,768 a lost 64-key tile moves o by less than that, so a bf16 output
+# of the flash kernel is held beyond this rounding (Checks.hold_rounded).
+BF16_U = 2.0 ** -8
 # The fp32 gradients differ in scale by three orders: dq sums over all B*N
 # tokens (max |dq| 676 at pde_40k), dk and dv over M latents (3.0, 0.29), and
 # dv shrinks as N grows. So each has its own absolute limit on the main path,
@@ -163,6 +200,7 @@ SOURCES = {name: "src/repro_torch/csrc/flare.cu"
 SOURCES["flare_fused_bwd"] = "src/repro_torch/csrc/flare_bwd.cu"
 SOURCES["flare_causal_chunk"] = "src/repro_torch/csrc/flare_causal.cu"
 SOURCES["paged_attention"] = "src/repro_torch/csrc/paged_attention.cu"
+SOURCES["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
 REPLACES = {
     "flare_encode": "src/repro/kernels/flare.py:48",
     "flare_decode": "src/repro/kernels/flare.py:150",
@@ -170,6 +208,7 @@ REPLACES = {
     "flare_fused_bwd": "src/repro/kernels/flare_packed.py:266",
     "flare_causal_chunk": "src/repro/kernels/flare_causal.py:41",
     "paged_attention": "src/repro/kernels/paged_attention.py:64",
+    "flash_attention": "src/repro/kernels/attention.py:26",
 }
 PDE_KERNELS = ("flare_encode", "flare_decode", "flare_fused_fwd", "flare_fused_bwd")
 # the causal LM (flare_lm): random operands at its width and a ragged shape
@@ -207,6 +246,21 @@ ROUTE_TOL = LM_TOL
 QUANT_ENVELOPE = dict(atol=0.15, rtol=0.05)
 # qwen2-1.5b's layers and parameters (the tied embedding padded to 152,064 rows)
 QWEN2_SIZE = (28, 1_543_910_912)
+# the flash kernel on random operands: head dims, (Sq, Skv) ragged and Sq > Skv
+# (128 over 64: with a window of 24, rows >= 87 see no key), and masks
+FLASH_D = (8, 24, 64, 96, 128)
+FLASH_LENGTHS = ((97, 97), (300, 300), (128, 64))
+FLASH_MASKS = {"causal": dict(causal=True, window=None),
+               "full": dict(causal=False, window=None),
+               "causal+window 24": dict(causal=True, window=24)}
+FLASH_QCHUNK = 4096    # query rows a block of the plain version at T=32,768
+# the dense family's prefill through the flash kernel: qwen2 at B=1,
+# T=32,768 (prefill_32k's batch of 32 cut to 1) and in fp32 at B=2, T=4,096
+# (train_4k's length); phi3 at B=2, T=4,096 (its published 4k context) with
+# right-padded lengths; greedy decode steps after each prefill
+DENSE_B, DENSE_T, DENSE_LENGTHS, DENSE_DECODE = 2, 4096, (4096, 3001), 8
+# phi3-mini-3.8b's layers and parameters (the untied head over 32,256 rows)
+PHI3_SIZE = (32, 3_822_259_200)
 
 
 def gpu_line() -> str:
@@ -246,8 +300,9 @@ def graph_ms(fn, reps: int) -> float:
 
 
 def ptxas_summary(log: str) -> list:
-    """One line per D=8 kernel, D=128 causal kernel and paged kernel (one
-    per page dtype): registers, shared memory, spills."""
+    """One line per D=8 kernel, D=128 causal kernel, paged kernel (one per
+    page dtype) and flash kernel (one per dtype and padded D): registers,
+    shared memory, spills."""
     rows, name, spill = [], None, ""
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
@@ -256,9 +311,9 @@ def ptxas_summary(log: str) -> list:
             spill = f"spill {m.group(1)}/{m.group(2)} B"
         elif ((m := re.search(r"Used (\d+) registers(.*)", line)) and name
               and ("Li8E" in name or ("causal" in name and "Li128E" in name)
-                   or "paged" in name)):
+                   or "paged" in name or "flash" in name)):
             kind = next(k for k in ("paged_combine", "paged", "causal_combine", "causal",
-                                    "encode", "decode", "combine", "dz", "dkv", "dq")
+                                    "encode", "decode", "combine", "dz", "dkv", "dq", "flash")
                         if f"{k}_kernel" in name)
             rows.append(f"  {kind:<8} {name[:70]:<70} {m.group(1)} regs{m.group(2)} {spill}")
     return rows
@@ -347,6 +402,37 @@ class Checks:
             self.failures.append(f"{label}: abs {err:.3g}, rel {rel:.3g}")
         if record:
             self.max_abs[name] = max(self.max_abs[name], err)
+
+    def hold_rounded(self, name, what, got, want, *, dropped):
+        """bf16 ``got`` from a kernel that computes in fp32 and rounds only
+        its output, against ``want``, the plain version in fp64 on the same
+        bf16-valued inputs. Rounding to nearest moves o by at most
+        BF16_U |o|; what is left, max(|got - want| - BF16_U |want|) over
+        max |want|, is the fp32 arithmetic's error and must be within the
+        fp32 limit. ``dropped``: {what was left out: the fp64 plain version
+        with it left out}; each, rounded to bf16 as such a kernel would
+        return it, must be rejected."""
+        import torch
+
+        label = f"{name} {what}"
+        scale = want.abs().max().item()
+
+        def excess(o) -> float:
+            return ((o.double() - want).abs() - BF16_U * want.abs()).max().item() / scale
+
+        rel = excess(got)
+        ok = got.dtype == torch.bfloat16 and math.isfinite(rel) and rel <= RTOL["float32"]
+        line = (f"  {label:<22} max|plain| {scale:.4g}  error beyond bf16 rounding: rel "
+                f"{rel:.3g} (rtol {RTOL['float32']:g})")
+        for left_out, drop in dropped.items():
+            rel_drop = excess(drop.to(torch.bfloat16))
+            line += f"  {left_out} dropped: rel {rel_drop:.3g}"
+            if not rel_drop > RTOL["float32"]:
+                self.failures.append(f"{label}: rtol {RTOL['float32']} would pass a kernel that "
+                                     f"dropped a {left_out} (rel {rel_drop:.3g})")
+        print(line + ("" if ok else "  FAILED"), flush=True)
+        if not ok:
+            self.failures.append(f"{label}: {got.dtype}, rel {rel:.3g} beyond bf16 rounding")
 
     def raise_failures(self, phase):
         if self.failures:
@@ -1490,32 +1576,43 @@ def first_step_held(label: str, run: dict, ref: dict, tol: float) -> None:
          run["first_logits"][slots], ref["first_logits"][slots], tol)
 
 
-def qwen2_phases(checks: Checks, device) -> dict:
-    """Qwen2-1.5B at full width and depth from seed 0: the paged kernel on
-    the pool's own operands, then serving through the dense pool, the paged
-    pool's gather route and its kernel route in bf16 (the counted window is
-    the kernel route's), the three routes in fp32 compute (greedy tokens
-    equal), and the int8 and fp8 pools."""
+def init_dense_lm(arch: str, size: tuple):
+    """``get_model(arch)`` at full width and depth from seed 0: (cfg, model,
+    net), the seconds the CPU takes to draw the weights printed; raises
+    unless (layers, parameters) is ``size``."""
     import torch
 
-    from repro_torch.config import replace
     from repro_torch.configs import get_config
-    from repro_torch.kernels import paged_attention as paged_module
     from repro_torch.models.api import get_model
 
-    cfg = get_config("qwen2_1_5b")
+    cfg = get_config(arch)
     model = get_model(cfg)
     t0 = time.perf_counter()
     net = model.init(SEED)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in net.parameters())
-    print(f"init qwen2-1.5b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    print(f"init {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.attn.num_heads} heads / {cfg.attn.num_kv_heads} KV heads x {cfg.attn.head_dim}, "
           f"{n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32) drawn on the CPU in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if (cfg.num_layers, n_params) != QWEN2_SIZE:
-        raise AssertionError(f"qwen2-1.5b is not at full size: {cfg.num_layers} layers, "
+    if (cfg.num_layers, n_params) != size:
+        raise AssertionError(f"{cfg.name} is not at full size: {cfg.num_layers} layers, "
                              f"{n_params} parameters")
+    return cfg, model, net
+
+
+def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
+    """Qwen2-1.5B at full width and depth: the paged kernel on the pool's
+    own operands, then serving through the dense pool, the paged pool's
+    gather route and its kernel route in bf16 (the counted window is the
+    kernel route's), the three routes in fp32 compute (greedy tokens equal),
+    and the int8 and fp8 pools."""
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.kernels import paged_attention as paged_module
+    from repro_torch.models.api import get_model
+
     reqs = serve_requests(cfg.vocab, SERVE_REQUESTS, NEW_TOKENS, longest_first=True)
     print(f"requests: {len(reqs)} prompts of {[len(p) for p, _ in reqs]} tokens, "
           f"{[m for _, m in reqs]} new tokens each; engine {SERVE}", flush=True)
@@ -1590,9 +1687,394 @@ def qwen2_phases(checks: Checks, device) -> dict:
     stats["launches"] = runs["paged"]["counts"]["paged_attention"]
     stats["serve"] = {name: {key: run[key] for key in ("step_ms", "tok_s", "prefill_ms")}
                       for name, run in runs.items()}
-    del net, runs
+    del runs
     torch.cuda.empty_cache()
     return stats
+
+
+# --------------------------------------------------------------------------
+# The flash-attention kernel: the dense family's full-sequence forward and
+# prefill (qwen2-1.5b, phi3-mini-3.8b) through attn_sdpa(impl="pallas")
+# --------------------------------------------------------------------------
+
+
+def flash_keep(sq: int, skv: int, *, causal: bool, window, q_offset: int = 0, device=None):
+    """[Sq, Skv] bool: the keys each query row keeps under the kernel's masks."""
+    import torch
+
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    ki = torch.arange(skv, device=device)[None, :]
+    keep = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        keep &= ki <= qi
+    if window is not None:
+        keep &= ki > qi - window
+    return keep
+
+
+def flash_dropped(q, k, v, *, t0: int, scale: float, causal: bool, window, q_offset: int = 0):
+    """What a flash kernel that skipped the live KV tile [t0, t0 + 64) would
+    give: the plain version's math in fp64 with those keys masked too."""
+    import torch
+
+    from repro_torch.kernels.attention import KV_TILE
+
+    keep = flash_keep(q.shape[-2], k.shape[-2], causal=causal, window=window,
+                      q_offset=q_offset, device=q.device)
+    keep[:, t0:t0 + KV_TILE] = False
+    s = torch.einsum("...sd,...td->...st", q.double(), k.double()) * scale
+    w = torch.nan_to_num(torch.softmax(s.masked_fill(~keep, -torch.inf), dim=-1), nan=0.0)
+    return torch.einsum("...st,...td->...sd", w, v.double())
+
+
+def flash_by_block(fn, q, k, v, *, chunk=None, **kw):
+    """``fn`` (the plain version, or :func:`flash_dropped`) a head at a time
+    and, with ``chunk``, that many query rows at a time, each block given
+    only the keys a causal mask can keep: [B, H, Sq, D]."""
+    import torch
+
+    sq, skv = q.shape[2], k.shape[2]
+    step = chunk or sq
+    heads = []
+    for h in range(q.shape[1]):
+        rows = []
+        for q0 in range(0, sq, step):
+            q1 = min(sq, q0 + step)
+            kend = min(skv, q1) if kw["causal"] else skv
+            rows.append(fn(q[:, h:h + 1, q0:q1], k[:, h:h + 1, :kend], v[:, h:h + 1, :kend],
+                           q_offset=q0, **kw))
+        heads.append(torch.cat(rows, dim=2))
+    return torch.cat(heads, dim=1)
+
+
+def check_flash_small(checks: Checks, device) -> None:
+    """The flash kernel against its plain version on random operands laid out
+    as the model gives them ([B, H, S, D] views of [B, S, H, D]): D 8 / 24 /
+    64 / 96 / 128 x (Sq, Skv) 97/97, 300/300, 128/64 x causal, full, causal
+    with a window of 24; fp32 against the plain version in fp64, bf16 against
+    the plain version on the same operands. Each limit must reject the fp64
+    plain version with the 64-key tile at Skv/2 left out, and the rows that
+    see no key must come out exactly 0."""
+    import torch
+
+    from repro_torch.kernels.attention import KV_TILE, flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    for d in FLASH_D:
+        for sq, skv in FLASH_LENGTHS:
+            base = [torch.randn(2, n, 3, d, generator=gen).transpose(1, 2) for n in (sq, skv, skv)]
+            for mask_name, masks in FLASH_MASKS.items():
+                kw = dict(masks, scale=d ** -0.5)
+                empty = ~flash_keep(sq, skv, **masks, device=device).any(-1)
+                wide = [t.to(device, torch.float64) for t in base]
+                want = flash_attention_ref(*wide, **kw)
+                t0 = (skv // 2) // KV_TILE * KV_TILE
+                drop = {f"KV tile {t0}": flash_dropped(*wide, t0=t0, **kw)}
+                print(f"kernels flash B=2 H=3 Sq={sq} Skv={skv} D={d} {mask_name} "
+                      f"({int(empty.sum())} rows see no key):", flush=True)
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v = (t.to(device, dtype) for t in base)
+                    key = str(dtype).removeprefix("torch.")
+                    got = flash_attention(q, k, v, **kw)
+                    plain = flash_attention_ref(q, k, v, **kw)
+                    if dtype == torch.float32:
+                        checks.hold("flash_attention", "o fp32", got, want, dtype,
+                                    atol=ATOL[key], record=True, dropped=drop, fp32_plain=plain)
+                    else:
+                        checks.hold("flash_attention", "o bf16", got, plain, dtype,
+                                    atol=ATOL[key], dropped=drop)
+                    if not (bool(got.isfinite().all()) and bool((got[:, :, empty] == 0).all())):
+                        checks.failures.append(f"flash D={d} {sq}/{skv} {mask_name} {key}: "
+                                               "non-finite output or a row with no key not 0")
+    checks.raise_failures("flash kernel on random operands")
+
+
+def dense_tokens(vocab: int, b: int, t: int, seed: int, device, lengths=None):
+    """Seeded uniform token ids [B, T] (right-padded with 0 past ``lengths``)."""
+    import numpy as np
+    import torch
+
+    toks = np.random.default_rng(seed).integers(0, vocab, (b, t))
+    if lengths is not None:
+        toks[np.arange(t)[None, :] >= np.asarray(lengths)[:, None]] = 0
+    return torch.from_numpy(toks).long().to(device)
+
+
+def attention_operands(net, cfg, tokens):
+    """Layer 0's rope'd q and expanded k, v for ``tokens`` in the model's
+    compute dtype: what ``gqa_forward`` gives ``attn_sdpa``, strided views
+    and all."""
+    import torch
+
+    from repro_torch.models import attention, transformer
+
+    with torch.no_grad():
+        layer = net.layers[0]
+        x = transformer._norm(cfg, layer.norm1, transformer._embed(net, tokens, cfg))
+        positions = transformer._positions(cfg, *tokens.shape, tokens.device)
+        q, k, v = attention._qkv(layer.attn, x, cfg.attn, positions)
+        groups = cfg.attn.num_heads // cfg.attn.num_kv_heads
+        return q, attention._expand_kv(k, groups), attention._expand_kv(v, groups)
+
+
+def check_flash_main(checks: Checks, label: str, ops16, scale: float) -> None:
+    """The flash kernel on a model's layer 0 operands, as its prefill gives
+    them: widened to fp32 against the plain version in fp64, a head and
+    4,096 queries at a time, relative to max |plain|; the limit must reject
+    the fp64 plain version with the 64-key tile at T/2 left out. bf16, as
+    the model runs it, against the plain version on the same operands, and
+    beyond its output rounding against the fp64 plain version, where the
+    same lost tile must be rejected too."""
+    import functools
+
+    import torch
+
+    from repro_torch.kernels.attention import KV_TILE, flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q, k, v = ops16
+    b, h, n, d = q.shape
+    kw = dict(scale=scale, causal=True, window=None)
+    print(f"kernels flash {label} layer 0 (B={b} H={h} T={n} D={d}, q/k/v strides "
+          f"{q.stride()}/{k.stride()}; fp32 held against the plain version in fp64):", flush=True)
+    ops32 = [t.float() for t in ops16]
+    got = flash_attention(*ops32, **kw)
+    wide = [t.double() for t in ops16]
+    want = flash_by_block(flash_attention_ref, *wide, chunk=FLASH_QCHUNK, **kw)
+    t0 = n // 2 // KV_TILE * KV_TILE
+    drop = {f"KV tile {t0}": flash_by_block(functools.partial(flash_dropped, t0=t0), *wide,
+                                            chunk=FLASH_QCHUNK, **kw)}
+    del wide
+    plain32 = flash_by_block(flash_attention_ref, *ops32, chunk=FLASH_QCHUNK, **kw)
+    checks.hold("flash_attention", "o fp32", got, want, torch.float32, atol=None, record=True,
+                dropped=drop, fp32_plain=plain32)
+    del got, plain32, ops32
+    got = flash_attention(q, k, v, **kw)
+    checks.hold("flash_attention", "o bf16", got,
+                flash_by_block(flash_attention_ref, q, k, v, chunk=FLASH_QCHUNK, **kw),
+                torch.bfloat16, atol=None)
+    checks.hold_rounded("flash_attention", "o bf16 vs fp64", got, want, dropped=drop)
+    del got, want, drop
+    torch.cuda.empty_cache()
+    checks.raise_failures(f"flash kernel on {label}'s operands")
+
+
+def visible_pairs(sq: int, skv: int, *, causal: bool, window) -> int:
+    """(query, key) pairs the masks keep: the work a call needs."""
+    import numpy as np
+
+    r = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(r, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, r - window + 1) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def time_flash(ops16, scale: float) -> dict:
+    """CUDA-event times on qwen2's layer 0 operands (bf16, causal) of the
+    kernel, its plain version (a head at a time), ``attn_sdpa``'s chunked
+    route (what "auto" runs at 32k) and ``F.scaled_dot_product_attention``
+    (the yardstick, which the port never calls), with the bound: 4 * D FLOP
+    a kept (query, key) pair over the bf16 peak, or q, k, v and o once over
+    3.35 TB/s. The kernel's fp32 time is printed beside."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models.attention import attn_sdpa
+
+    q, k, v = ops16
+    b, h, n, d = q.shape
+    kw = dict(scale=scale, causal=True, window=None)
+    flops = 4 * d * b * h * visible_pairs(n, n, causal=True, window=None)
+    nbytes = q.element_size() * b * h * d * 4 * n
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BW * 1e3
+    stats = dict(ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=3),
+                 plain_ms=cuda_ms(lambda: flash_by_block(flash_attention_ref, q, k, v, **kw),
+                                  reps=1),
+                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=True, scale=scale), reps=10),
+                 bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+    chunked_ms = cuda_ms(lambda: attn_sdpa(q, k, v, impl="chunked", **kw), reps=1)
+    ops32 = [t.float() for t in ops16]
+    fp32_ms = cuda_ms(lambda: flash_attention(*ops32, **kw), reps=2)
+    print(f"time flash_attention qwen2-1.5b layer 0 bf16: {stats}; attn_sdpa chunked "
+          f"{chunked_ms:.3f} ms; the kernel on fp32 operands {fp32_ms:.3f} ms "
+          f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB; fp32-rate bound "
+          f"{flops / PEAK_FP32 * 1e3:.3f} ms)", flush=True)
+    return stats
+
+
+def dense_prefill(net, cfg, batch: dict, capacity: int, impl: str, label: str) -> dict:
+    """One counted window: launch counts zeroed just before one lm_prefill
+    and read just after; ms (host clock around synchronized work) and peak
+    GiB. Raises unless it launched one flash kernel a layer (pallas) or none
+    (other routes), and nothing else."""
+    import torch
+
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, caches = transformer.lm_prefill(net, batch, cfg, capacity, impl=impl)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    b, t = batch["tokens"].shape
+    print(f"path {label} prefill impl={impl} B={b} T={t} {cfg.compute_dtype}: {ms:.3f} ms, peak "
+          f"{peak:.2f} GiB, logits {tuple(logits.shape)}; launches {counts}", flush=True)
+    want = cfg.num_layers if impl == "pallas" else 0
+    if counts["flash_attention"] != want or any(
+            c for name, c in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"{label} prefill impl={impl}: launches {counts}, expected {want} "
+                             "flash kernels")
+    if tuple(logits.shape) != (b, cfg.vocab) or not bool(logits.isfinite().all()):
+        raise AssertionError(f"{label} prefill logits {tuple(logits.shape)} not finite or "
+                             "mis-shaped")
+    return {"logits": logits, "caches": caches, "ms": ms, "peak": peak, "counts": counts}
+
+
+def greedy_after(net, cfg, run: dict, steps: int):
+    """``steps`` greedy decode steps from a prefill's caches: logits
+    [B, steps + 1, V] and tokens [B, steps + 1] (the first from the prefill)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    outs, caches = [run["logits"]], run["caches"]
+    with torch.no_grad():
+        for _ in range(steps):
+            logits, caches = transformer.lm_decode_step(net, outs[-1].argmax(-1)[:, None],
+                                                        caches, cfg)
+            outs.append(logits)
+    logits = torch.stack(outs, 1)
+    return logits, logits.argmax(-1)
+
+
+def decode_routes_agree(net, cfg, batch: dict, label: str) -> None:
+    """fp32 compute: prefill through the flash kernel and through the xla
+    route, then DENSE_DECODE greedy steps from each one's caches: the same
+    tokens, the prefill logits within 1e-3 of max |logit|."""
+    import torch
+
+    capacity = batch["tokens"].shape[1] + DENSE_DECODE
+    runs = {impl: dense_prefill(net, cfg, batch, capacity, impl, label)
+            for impl in ("pallas", "xla")}
+    held(f"{label} prefill pallas vs xla fp32 (last-token logits)", runs["pallas"]["logits"],
+         runs["xla"]["logits"], LM_TOL["float32"])
+    got, got_tok = greedy_after(net, cfg, runs["pallas"], DENSE_DECODE)
+    want, want_tok = greedy_after(net, cfg, runs["xla"], DENSE_DECODE)
+    del runs
+    err = max_err(got, want) / want.abs().max().item()
+    print(f"{label} fp32: {DENSE_DECODE} greedy decode steps after each prefill, logits rel "
+          f"{err:.3g}, tokens {'equal' if torch.equal(got_tok, want_tok) else 'DIFFER'}: "
+          f"{got_tok.tolist()}", flush=True)
+    if not torch.equal(got_tok, want_tok):
+        raise AssertionError(f"{label}: greedy tokens after the pallas prefill differ from "
+                             "those after the xla prefill")
+    torch.cuda.empty_cache()
+
+
+def flash_phases(checks: Checks, device, cfg, net) -> dict:
+    """Qwen2-1.5B prefill through the flash kernel: the kernel on layer 0's
+    own operands at T=32,768 and its times; lm_prefill(impl="pallas") at B=1,
+    T=32,768 (a counted window: 28 launches) against the chunked route in
+    bf16 with a profiler breakdown; lm_forward(impl="pallas") in fp32 at
+    B=2, T=4,096 (a counted window) against the xla route; greedy decode
+    after a pallas and an xla prefill in fp32. Returns the kernel's stats
+    with the launches of the counted windows."""
+    import torch
+
+    from repro_torch.config import SHAPES, replace
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer
+
+    n = SHAPES["prefill_32k"].seq_len
+    scale = cfg.attn.head_dim ** -0.5
+    tokens = dense_tokens(cfg.vocab, 1, n, SEED, device)
+    ops16 = attention_operands(net, cfg, tokens)
+    check_flash_main(checks, "qwen2-1.5b", ops16, scale)
+    stats = time_flash(ops16, scale)
+    del ops16
+    torch.cuda.empty_cache()
+
+    batch = {"tokens": tokens}
+    run = dense_prefill(net, cfg, batch, n, "pallas", "qwen2-1.5b")
+    launches = run["counts"]["flash_attention"]
+    logits = run.pop("logits")
+    del run
+    with torch.no_grad():
+        breakdown(lambda: transformer.lm_prefill(net, batch, cfg, n, impl="pallas"),
+                  f"qwen2-1.5b prefill pallas B=1 T={n} bf16")
+    want = dense_prefill(net, cfg, batch, n, "chunked", "qwen2-1.5b")["logits"]
+    held("qwen2-1.5b prefill pallas vs chunked bf16 (last-token logits)", logits, want,
+         LM_TOL["bfloat16"])
+    del logits, want, batch, tokens
+    torch.cuda.empty_cache()
+
+    cfg32 = replace(cfg, compute_dtype="float32")
+    toks = dense_tokens(cfg.vocab, DENSE_B, DENSE_T, SEED + 1, device)
+    with torch.no_grad():
+        reset_launch_counts()
+        got, _ = transformer.lm_forward(net, toks, cfg32, impl="pallas")
+        counts = launch_counts()
+        want, _ = transformer.lm_forward(net, toks, cfg32, impl="xla")
+    print(f"path qwen2-1.5b forward impl=pallas B={DENSE_B} T={DENSE_T} fp32: logits "
+          f"{tuple(got.shape)}; launches {counts}", flush=True)
+    if counts["flash_attention"] != cfg.num_layers or any(
+            c for name, c in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"qwen2-1.5b forward launches {counts}")
+    launches += counts["flash_attention"]
+    held("qwen2-1.5b forward pallas vs xla fp32 (all logits)", got[..., :cfg.vocab],
+         want[..., :cfg.vocab], LM_TOL["float32"])
+    del got, want
+    torch.cuda.empty_cache()
+    decode_routes_agree(net, cfg32, {"tokens": dense_tokens(cfg.vocab, DENSE_B, DENSE_T, SEED + 1,
+                                                            device, DENSE_LENGTHS),
+                                     "lengths": torch.tensor(DENSE_LENGTHS, device=device)},
+                        "qwen2-1.5b")
+    stats["launches"] = launches
+    return stats
+
+
+def phi3_phases(checks: Checks, device) -> int:
+    """Phi-3-mini at full width and depth from seed 0 (the seconds to draw
+    its 3.8B weights printed): the flash kernel at D=96 on layer 0's own
+    operands for the prefill's tokens; lm_prefill(impl="pallas") at B=2,
+    T=4,096 with right-padded lengths in bf16 (a counted window: 32
+    launches; ms, peak GiB, a profiler breakdown) against the xla route;
+    then in fp32 compute, against the xla route and with greedy decode after
+    each prefill. Returns the counted window's flash launches."""
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.models import transformer
+
+    cfg, _, net = init_dense_lm("phi3_mini_3_8b", PHI3_SIZE)
+    batch = {"tokens": dense_tokens(cfg.vocab, DENSE_B, DENSE_T, SEED + 2, device, DENSE_LENGTHS),
+             "lengths": torch.tensor(DENSE_LENGTHS, device=device)}
+    check_flash_main(checks, "phi3-mini-3.8b", attention_operands(net, cfg, batch["tokens"]),
+                     cfg.attn.head_dim ** -0.5)
+    run = dense_prefill(net, cfg, batch, DENSE_T, "pallas", "phi3-mini-3.8b")
+    launches = run["counts"]["flash_attention"]
+    with torch.no_grad():
+        breakdown(lambda: transformer.lm_prefill(net, batch, cfg, DENSE_T, impl="pallas"),
+                  f"phi3-mini-3.8b prefill pallas B={DENSE_B} T={DENSE_T} bf16")
+    want = dense_prefill(net, cfg, batch, DENSE_T, "xla", "phi3-mini-3.8b")["logits"]
+    held("phi3-mini-3.8b prefill pallas vs xla bf16 (last-token logits)", run["logits"], want,
+         LM_TOL["bfloat16"])
+    del run, want
+    torch.cuda.empty_cache()
+    decode_routes_agree(net, replace(cfg, compute_dtype="float32"), batch, "phi3-mini-3.8b")
+    del net
+    torch.cuda.empty_cache()
+    return launches
 
 
 def drive(model, net, batches: dict, label: str) -> dict:
@@ -1641,6 +2123,7 @@ def main() -> int:
     checks = Checks()
     check_small(checks, device)
     check_paged_small(checks, device)
+    check_flash_small(checks, device)
 
     from repro_torch.configs import get_config
     from repro_torch.config import SHAPES
@@ -1738,8 +2221,15 @@ def main() -> int:
     stats["flare_causal_chunk"] = lm_phases(checks, device)
     # qwen2-1.5b served from the paged pool: the launches of its kernel route's
     # window and of the paged FLARE path's
-    stats["paged_attention"] = qwen2_phases(checks, device)
+    cfg_q, model_q, net_q = init_dense_lm("qwen2_1_5b", QWEN2_SIZE)
+    stats["paged_attention"] = qwen2_phases(checks, cfg_q, model_q, net_q)
     stats["paged_attention"]["launches"] += paged_counts["paged_attention"]
+    # the dense family's prefill through the flash kernel: the launches of
+    # qwen2's prefill and forward windows and of phi3's prefill window
+    stats["flash_attention"] = flash_phases(checks, device, cfg_q, net_q)
+    del model_q, net_q
+    torch.cuda.empty_cache()
+    stats["flash_attention"]["launches"] += phi3_phases(checks, device)
     for name in stats:
         stats[name]["max_abs_err"] = checks.max_abs[name]
 

@@ -3,13 +3,13 @@
 Each module exports ``config()`` (the assigned configuration) and
 ``smoke_config()`` (a reduced configuration of the same family for CPU
 tests). The port has the PDE surrogate, the causal FLARE LM and the gqa
-decoder qwen2-1.5b so far.
+decoders qwen2-1.5b and phi3-mini-3.8b so far.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["flare_lm", "flare_pde", "qwen2_1_5b"]
+ARCH_IDS = ["flare_lm", "flare_pde", "phi3_mini_3_8b", "qwen2_1_5b"]
 
 
 def _module(name: str):

@@ -1,23 +1,28 @@
-"""Dispatch wrappers around the FLARE kernels.
+"""Dispatch wrappers around the kernels (FLARE and flash attention).
 
 Counterpart of ``repro/kernels/ops.py``. The kernels index the groups
 G = B*H batch-major, with the latents kept at [H, M, D] and read as group
 ``g % H``, never broadcast. They take the [B, H, N, D] operands by their
 strides, so the flattening costs no copy, and they handle
 ragged N and M in the loops, so nothing is padded: the 128-lane padding of
-the Pallas wrappers was for the TPU's matrix unit.
+the Pallas wrappers was for the TPU's matrix unit. The same holds for
+:func:`flash_attention`, whose TPU wrapper also padded Sq and Skv to its
+tiles and masked the padded keys (``kv_valid``).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.kernels.attention import flash_attention as flash_kernel
 from repro_torch.kernels.flare import flare_decode, flare_encode
 from repro_torch.kernels.flare_causal import flare_causal_chunk
 from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
 from repro_torch.kernels.paged_attention import paged_attention
 
 KERNELS = (flare_encode, flare_decode, flare_fused_fwd, flare_fused_bwd, flare_causal_chunk,
-           paged_attention)
+           paged_attention, flash_kernel)
 
 
 def flare_mixer_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -34,6 +39,17 @@ def flare_causal_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
     its padding of N are not needed: the kernel's tile is its own, and
     ragged N is a loop bound."""
     return flare_causal_chunk(q.to(k.dtype), k, v)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """Flash attention on q [B, H, Sq, D], k/v [B, H, Skv, D] -> [B, H, Sq, D]
+    in v's dtype through the flash kernel (one launch), the counterpart of
+    ``repro/kernels/ops.py::flash_attention``. The strided split-head views
+    go in as they are; ragged Sq and Skv are the kernel's loop bounds."""
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: q must be [B, H, Sq, D], got {tuple(q.shape)}")
+    return flash_kernel(q, k, v, scale=scale, causal=causal, window=window)
 
 
 def reset_launch_counts() -> None:

@@ -10,7 +10,9 @@ chunks (``chunk=``), so that its [B, H, M, chunk] temporaries fit where the
 whole [B, H, M, N] would not. The causal version sweeps the tokens in
 tiles (``tile=``), the factored form of ``core/flare_stream.py``.
 The paged-attention version gathers each lane's pages into a dense view,
-as ``repro/kernels/paged_attention.py::paged_attention_ref`` does.
+as ``repro/kernels/paged_attention.py::paged_attention_ref`` does. The
+flash-attention version takes any leading dims (``[G, S, D]`` as in the JAX
+package, or ``[B, H, S, D]``).
 """
 from __future__ import annotations
 
@@ -129,6 +131,32 @@ def flare_causal_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         state, y = stream_chunk_factored(state, q, k[:, :, t0:t0 + tile], v[:, :, t0:t0 + tile])
         ys.append(y)
     return torch.cat(ys, dim=2)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+                        causal: bool = True, window=None, q_offset: int = 0) -> torch.Tensor:
+    """Masked softmax attention (the math of ``_flash_kernel``): q [..., Sq, D],
+    k/v [..., Skv, D] -> o [..., Sq, D] in v's dtype. Scores q k^T in fp32
+    (fp64 for fp64 inputs) times ``scale``; ``causal`` keeps key j <= query i
+    (top-left aligned when Sq != Skv), ``window`` keeps j > i - window; masked
+    scores are -inf, the softmax's NaN rows (no key left) become 0, and the
+    weights are cast to v's dtype before the value product. ``q_offset`` is
+    the index of q's first row, so that a block of queries can be run alone
+    (the kernel takes no offset)."""
+    sq, skv = q.shape[-2], k.shape[-2]
+    # flarecheck: disable=DS003 -- f32-staged by _wide; the rule sees only astype casts
+    s = torch.einsum("...sd,...td->...st", _wide(q), _wide(k)) * scale
+    qi = torch.arange(sq, device=q.device)[:, None] + q_offset
+    ki = torch.arange(skv, device=q.device)[None, :]
+    ok = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= ki <= qi
+    if window is not None:
+        ok &= ki > qi - window
+    w = torch.softmax(s.masked_fill(~ok, -torch.inf), dim=-1)
+    del s
+    w = torch.nan_to_num(w, nan=0.0)                            # fully masked rows -> 0
+    return torch.einsum("...st,...td->...sd", w.to(v.dtype), v)
 
 
 def _gather_rows(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

@@ -8,8 +8,12 @@ prefix-cache continuation (``gqa_extend``) are not ported yet.
 einsum in the operands' dtype, then the cast to fp32, then ``* scale``, then
 the ``-inf`` bias or mask, then the softmax, then the value einsum in v's
 dtype. It does not call ``F.scaled_dot_product_attention``: the greedy-parity
-contracts of the serving engine rest on this staging. ``impl="pallas"`` (the
-TPU flash kernel, ``repro/kernels/attention.py``) is not ported yet.
+contracts of the serving engine rest on this staging. ``impl="pallas"`` runs
+the flash kernel (``kernels/ops.py::flash_attention``, the port of
+``repro/kernels/attention.py``; its plain version on CPU tensors), which takes
+no ``q_offset``: the JAX package's pallas route drops a ``q_offset`` silently,
+and this one raises. ``gqa_forward`` passes ``impl`` through, and so do the
+LM's forward and prefill (``models/transformer.py``).
 
 Decode (``gqa_cache_attend``) has two routes:
   - a dense ``[B, Hkv, cap, D]`` cache: the new row is written at each slot's
@@ -61,15 +65,19 @@ def attn_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float
               impl: str = "auto", chunk: int = 512) -> torch.Tensor:
     """q [B, H, Sq, D], k/v [B, H, Skv, D] -> [B, H, Sq, Dv] in v's dtype.
     ``impl``: "xla" (materialised scores), "chunked" (query blocks of
-    ``chunk`` with an online softmax), "auto" (chunked when both lengths
-    exceed 2048)."""
+    ``chunk`` with an online softmax), "pallas" (the flash kernel; no
+    ``q_offset``), "auto" (chunked when both lengths exceed 2048)."""
     sq, skv = q.shape[-2], k.shape[-2]
     if impl == "auto":
         impl = "chunked" if (sq > 2048 and skv > 2048) else "xla"
     if impl == "pallas":
-        raise NotImplementedError(
-            "attn_sdpa(impl='pallas') is the TPU flash kernel (repro/kernels/attention.py), "
-            "which is not ported yet; use impl='xla' or 'chunked'")
+        if q_offset:
+            raise ValueError(f"attn_sdpa(impl='pallas'): the flash kernel's causal mask is "
+                             f"top-left aligned and takes no q_offset (got {q_offset}); use "
+                             "impl='xla' or 'chunked'")
+        from repro_torch.kernels.ops import flash_attention
+
+        return flash_attention(q, k, v, scale=scale, causal=causal, window=window)
     if impl == "xla":
         scores = torch.einsum("bhsd,bhtd->bhst", q, k).float() * scale
         bias = _causal_window_bias(sq, skv, causal=causal, window=window, q_offset=q_offset,
@@ -196,15 +204,15 @@ def _qkv(attn: GQA, x: torch.Tensor, cfg: AttnConfig, positions: torch.Tensor):
 
 
 def gqa_forward(attn: GQA, x: torch.Tensor, cfg: AttnConfig, *, positions: torch.Tensor,
-                causal: bool = True, return_kv: bool = False):
+                causal: bool = True, impl: str = "auto", return_kv: bool = False):
     """Train / prefill path: x [B, S, C], positions [B, S] (or [3, B, S] for
     M-RoPE) -> y [B, S, C] (and the rope'd k, v [B, Hkv, S, D]), through
-    ``attn_sdpa``'s "auto" route."""
+    ``attn_sdpa``'s ``impl`` route."""
     q, k, v = _qkv(attn, x, cfg, positions)
     groups = cfg.num_heads // cfg.num_kv_heads
     out = attn_sdpa(q, _expand_kv(k, groups), _expand_kv(v, groups),
                     scale=1.0 / math.sqrt(cfg.head_dim), causal=causal,
-                    window=cfg.sliding_window)
+                    window=cfg.sliding_window, impl=impl)
     y = dense(attn.wo, _unheads(out))
     return (y, (k, v)) if return_kv else y
 

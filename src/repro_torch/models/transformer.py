@@ -18,9 +18,11 @@ it through the model's resolved plan (the causal kernel on the card);
 (``flare_causal_with_state``), since it must return each layer's latent
 state, and ``lm_decode_step`` appends one token to every state
 (``stream_append``). For ``gqa`` the mixer is rope'd grouped-query attention
-(``models/attention.py``); prefill returns each layer's KV cache, and decode
-reads it densely or, when the caches are a paged pool's kernel view,
-through the paged-attention kernel.
+(``models/attention.py``); forward and prefill attend through
+``attn_sdpa``'s ``impl`` route ("auto", or "pallas" for the flash kernel),
+prefill returns each layer's KV cache, and decode reads it densely or, when
+the caches are a paged pool's kernel view, through the paged-attention
+kernel.
 """
 from __future__ import annotations
 
@@ -181,18 +183,20 @@ def _positions(cfg: ModelConfig, b: int, s: int, device) -> torch.Tensor:
     return text_positions(b, s, device=device)
 
 
-def lm_forward(net: LM, tokens: torch.Tensor, cfg: ModelConfig, *, plan=None) -> tuple:
+def lm_forward(net: LM, tokens: torch.Tensor, cfg: ModelConfig, *, impl: str = "auto",
+               plan=None) -> tuple:
     """Full-sequence forward: tokens [B, S] -> (logits fp32 [B, S, V_padded]
     with the padded tail at -inf, aux loss 0). ``plan`` is the causal
     MixerPlan resolved at model build (flare_lm); gqa attention takes
-    ``attn_sdpa``'s "auto" route."""
+    ``attn_sdpa``'s ``impl`` route ("pallas": the flash kernel), which
+    flare_lm ignores, as in the JAX package."""
     x = _embed(net, tokens, cfg)
     if cfg.attn.kind == "gqa":
         positions = _positions(cfg, *tokens.shape, tokens.device)
     for layer in net.layers:
         xin = _norm(cfg, layer.norm1, x)
         if cfg.attn.kind == "gqa":
-            x = x + gqa_forward(layer.attn, xin, cfg.attn, positions=positions)
+            x = x + gqa_forward(layer.attn, xin, cfg.attn, positions=positions, impl=impl)
         else:
             x = x + _flare_stream_mix(layer.attn, xin, cfg, plan)
         x = _ffn(cfg, layer, x)
@@ -221,7 +225,8 @@ def init_lm_caches(batch: int, cfg: ModelConfig, capacity: int, *, device=None) 
     return LMCaches(layers=layers, pos=torch.zeros(batch, dtype=torch.int32, device=device))
 
 
-def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int) -> tuple:
+def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int, *,
+               impl: str = "auto") -> tuple:
     """Run whole prompts and return (last-token logits fp32 [B, V], caches).
 
     ``batch["tokens"]`` [B, S]; ``batch["lengths"]`` ([B] int, optional)
@@ -229,12 +234,13 @@ def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int) -> tuple:
     the padding out of the carried states, and the logits are taken at each
     row's last real position. Each layer runs the stateful chunked scan of
     ``cfg.attn.flare_chunk`` tokens, not the model's plan: the plan's
-    kernel returns no state. A gqa layer returns its KV cache of
-    ``capacity`` rows."""
+    kernel returns no state. A gqa layer attends through ``attn_sdpa``'s
+    ``impl`` route ("pallas": the flash kernel) and returns its KV cache of
+    ``capacity`` rows; flare_lm ignores ``impl``."""
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
     if cfg.attn.kind == "gqa":
-        return _gqa_prefill(net, tokens, lengths, cfg, capacity)
+        return _gqa_prefill(net, tokens, lengths, cfg, capacity, impl)
     x = _embed(net, tokens, cfg)
     b, s = tokens.shape
     mask = None
@@ -256,7 +262,7 @@ def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int) -> tuple:
 
 
 def _gqa_prefill(net: LM, tokens: torch.Tensor, lengths: Optional[torch.Tensor],
-                 cfg: ModelConfig, capacity: int) -> tuple:
+                 cfg: ModelConfig, capacity: int, impl: str) -> tuple:
     """The gqa prefill: causal attention over the bucket (right-padding
     cannot reach a real position), each layer's rope'd K/V packed into a
     cache of ``capacity`` rows with the true ``lengths``."""
@@ -266,7 +272,7 @@ def _gqa_prefill(net: LM, tokens: torch.Tensor, lengths: Optional[torch.Tensor],
     caches = []
     for layer in net.layers:
         a, (k, v) = gqa_forward(layer.attn, _norm(cfg, layer.norm1, x), cfg.attn,
-                                positions=positions, return_kv=True)
+                                positions=positions, impl=impl, return_kv=True)
         caches.append(prefill_kv_cache(k, v, cfg.attn, capacity, lengths))
         x = _ffn(cfg, layer, x + a)
     x = _norm(cfg, net.final_norm, _last_valid(x, lengths))

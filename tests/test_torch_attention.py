@@ -101,12 +101,6 @@ def test_attn_sdpa_matches_jax(dtype, impl, causal, window, q_offset):
     _close(got, want, atol)
 
 
-def test_attn_sdpa_pallas_is_not_ported():
-    x = torch.zeros(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError, match="flash kernel"):
-        tattn.attn_sdpa(x, x, x, scale=1.0, impl="pallas")
-
-
 def _gqa(cfg: AttnConfig, d_model: int, seed: int = 0):
     jp = jattn.init_gqa(jax.random.PRNGKey(seed), _jcfg(cfg), d_model)
     tp = tattn.init_gqa(cfg, d_model, generator=torch.Generator().manual_seed(0))

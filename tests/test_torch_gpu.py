@@ -16,7 +16,12 @@ is held against its plain version in fp64 at 1e-5 of max |o| where it
 computes in fp32 (fp32 queries, any pages), and at 1e-2 where it rounds the
 weights to bf16 (bf16 queries over bf16 pages); the smoke qwen2's engine
 gives the same greedy tokens through the kernel route as through the
-gather route."""
+gather route. The flash-attention kernel is held against its plain version
+in fp64 at 1e-5 of max |o| in fp32, and against the plain version on the
+same bf16 inputs at 1e-2 of max |o| in bf16 (the kernel keeps the weights
+in fp32 where the plain version rounds them to bf16); the smoke qwen2's
+prefill through it agrees with the chunked route within 1e-4 of max |logit|
+in fp32 compute."""
 import pytest
 import torch
 
@@ -74,7 +79,8 @@ def test_kernels_match_plain(cuda, shape, dtype):
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
     after = launch_counts()
     assert all(after[name] == before[name]
-               + (name not in ("flare_fused_bwd", "flare_causal_chunk", "paged_attention"))
+               + (name not in ("flare_fused_bwd", "flare_causal_chunk", "paged_attention",
+                               "flash_attention"))
                for name in after)
 
 
@@ -333,3 +339,76 @@ def test_qwen2_engine_kernel_route_matches_gather(cuda):
         assert launched == (cfg.num_layers * eng.stats["decode_steps"] if route == "paged" else 0)
         eng.check_invariants()
     assert outs["paged"] == outs["gather"]
+
+
+FLASH_SHAPES = [(2, 3, 97, 97, 24), (1, 2, 300, 300, 96), (1, 2, 128, 64, 128),
+                (2, 2, 64, 200, 96), (1, 4, 1030, 1030, 128), (1, 1, 70, 70, 5)]
+FLASH_MASKS = [(True, None), (False, None), (True, 24)]
+
+
+def _flash_inputs(shape, dtype, device, seed=0):
+    """q, k, v as the model gives them: [B, H, S, D] views of [B, S, H, D]."""
+    b, h, sq, skv, d = shape
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(b, n, h, d, generator=gen).to(device, dtype).transpose(1, 2)
+                 for n in (sq, skv, skv))
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, shape, causal, window, dtype):
+    """D 24 / 96 / 128 (and 5: no vector loads), ragged Sq and Skv, Sq > Skv
+    with fully masked rows, Skv > Sq."""
+    from repro_torch.kernels.attention import flash_attention
+
+    q, k, v = _flash_inputs(shape, dtype, cuda)
+    kw = dict(scale=shape[-1] ** -0.5, causal=causal, window=window)
+    before = launch_counts()["flash_attention"]
+    o = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert o.dtype == dtype and o.shape == q.shape and bool(torch.isfinite(o).all())
+    if dtype == torch.float32:
+        want = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+        assert (o.double() - want).abs().max() <= 1e-5 * want.abs().max()
+    else:
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        assert (o.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+
+
+def test_flash_kernel_raises_instead_of_falling_back(cuda):
+    from repro_torch.kernels.attention import flash_attention
+
+    q, k, v = _flash_inputs((1, 2, 33, 33, 136), torch.float32, cuda)     # D above 128
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, v, scale=1.0)
+    q, k, v = _flash_inputs((1, 2, 33, 33, 64), torch.float32, cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        flash_attention(q.cpu(), k, v, scale=1.0)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q.double(), k.double(), v.double(), scale=1.0)
+    with pytest.raises(ValueError, match="unit D stride"):
+        flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, scale=1.0)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention(q.requires_grad_(True), k, v, scale=1.0)
+
+
+def test_qwen2_prefill_pallas_matches_chunked(cuda):
+    """The smoke qwen2's prefill with right-padded lengths through the flash
+    kernel (one launch a layer) against the chunked route, fp32 compute."""
+    from repro_torch.models import transformer
+
+    cfg = replace(get_smoke_config("qwen2_1_5b"), compute_dtype="float32")
+    net = get_model(cfg, device=cuda).init(0)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 300), generator=gen).to(cuda),
+             "lengths": torch.tensor([300, 217], device=cuda)}
+    with torch.no_grad():
+        before = launch_counts()["flash_attention"]
+        got, caches = transformer.lm_prefill(net, batch, cfg, 320, impl="pallas")
+        assert launch_counts()["flash_attention"] == before + cfg.num_layers
+        want, want_caches = transformer.lm_prefill(net, batch, cfg, 320, impl="chunked")
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    for a, b in zip(caches.layers, want_caches.layers):
+        torch.testing.assert_close(a.k, b.k, atol=2e-2, rtol=2e-2)
