@@ -201,6 +201,10 @@ SOURCES["flare_fused_bwd"] = "src/repro_torch/csrc/flare_bwd.cu"
 SOURCES["flare_causal_chunk"] = "src/repro_torch/csrc/flare_causal.cu"
 SOURCES["paged_attention"] = "src/repro_torch/csrc/paged_attention.cu"
 SOURCES["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
+SOURCES.update({"flare_enc_stats": "src/repro_torch/csrc/flare.cu",
+                "flare_shard_decode": "src/repro_torch/csrc/flare.cu",
+                "flare_shard_dz": "src/repro_torch/csrc/flare_bwd.cu",
+                "flare_shard_grads": "src/repro_torch/csrc/flare_bwd.cu"})
 REPLACES = {
     "flare_encode": "src/repro/kernels/flare.py:48",
     "flare_decode": "src/repro/kernels/flare.py:150",
@@ -209,6 +213,10 @@ REPLACES = {
     "flare_causal_chunk": "src/repro/kernels/flare_causal.py:41",
     "paged_attention": "src/repro/kernels/paged_attention.py:64",
     "flash_attention": "src/repro/kernels/attention.py:26",
+    "flare_enc_stats": "src/repro/kernels/flare_packed_shard.py:105",
+    "flare_shard_decode": "src/repro/kernels/flare_packed_shard.py:180",
+    "flare_shard_dz": "src/repro/kernels/flare_packed_shard.py:217",
+    "flare_shard_grads": "src/repro/kernels/flare_packed_shard.py:266",
 }
 PDE_KERNELS = ("flare_encode", "flare_decode", "flare_fused_fwd", "flare_fused_bwd")
 # the causal LM (flare_lm): random operands at its width and a ragged shape
@@ -261,6 +269,15 @@ FLASH_QCHUNK = 4096    # query rows a block of the plain version at T=32,768
 DENSE_B, DENSE_T, DENSE_LENGTHS, DENSE_DECODE = 2, 4096, (4096, 3001), 8
 # phi3-mini-3.8b's layers and parameters (the untied head over 32,256 rows)
 PHI3_SIZE = (32, 3_822_259_200)
+# the FLARE kernels at head dims beside the paper's 8, on random operands
+WIDE_D = (3, 4, 6, 12, 16, 24, 32, 64)
+WIDE_SHAPE = dict(b=2, h=3, m=40, n=700)
+# the sharded mixer: token slices emulated on the card, and the sequence-
+# parallel trainer's steps (pde_40k against the packed plan, then pde_1m);
+# the sharded path against the packed path, losses and parameters (absolute;
+# on one rank it runs the same kernels in the same order, so equal expected)
+SHARD_SLICES, SHARDED_STEPS, SHARDED_STEPS_1M = 4, 5, 2
+SHARD_TOL = 1e-4
 
 
 def gpu_line() -> str:
@@ -300,22 +317,34 @@ def graph_ms(fn, reps: int) -> float:
 
 
 def ptxas_summary(log: str) -> list:
-    """One line per D=8 kernel, D=128 causal kernel, paged kernel (one per
-    page dtype) and flash kernel (one per dtype and padded D): registers,
-    shared memory, spills."""
-    rows, name, spill = [], None, ""
+    """One line per FLARE kernel at D=8 (its own instance, D known at compile
+    time) and at the padded width 64, causal kernel at D=8 and 128, paged
+    kernel (one per page dtype) and flash kernel (one per dtype and padded D):
+    registers, shared memory, stack frame and spills. Each figure is keyed
+    by the function that ptxas's "Function properties" line names, since
+    the parallel compile can interleave the functions' lines."""
+    rows, props, frame = [], None, {}
     for line in log.splitlines():
-        if m := re.search(r"Compiling entry function '(\w+)'", line):
-            name = m.group(1)
-        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
-            spill = f"spill {m.group(1)}/{m.group(2)} B"
-        elif ((m := re.search(r"Used (\d+) registers(.*)", line)) and name
-              and ("Li8E" in name or ("causal" in name and "Li128E" in name)
-                   or "paged" in name or "flash" in name)):
+        if m := re.search(r"Function properties for (\w+)", line):
+            props = m.group(1)
+        elif props and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                       r"(\d+) bytes spill loads", line)):
+            frame[props] = f"stack {m.group(1)} B, spill {m.group(2)}/{m.group(3)} B"
+        elif (m := re.search(r"Used (\d+) registers(.*)", line)) and props and (
+                "Li8ELb1E" in props or "Li64ELb0E" in props
+                or ("causal" in props and re.search(r"Li(8|128)E", props))
+                or "paged" in props or "flash" in props):
             kind = next(k for k in ("paged_combine", "paged", "causal_combine", "causal",
                                     "encode", "decode", "combine", "dz", "dkv", "dq", "flash")
-                        if f"{k}_kernel" in name)
-            rows.append(f"  {kind:<8} {name[:70]:<70} {m.group(1)} regs{m.group(2)} {spill}")
+                        if f"{k}_kernel" in props)
+            args = props.split("_kernelI", 1)[-1]
+            types = ["bf16" if t.startswith("13") else "f32"
+                     for t in re.findall(r"13__nv_bfloat16|f", args.split("Li")[0])]
+            width = re.search(r"Li(\d+)E", args)
+            label = (f"{'/'.join(types)} D={width.group(1)}" if width and types
+                     else props[:60])
+            rows.append(f"  {kind:<8} {label:<16} {m.group(1)} regs{m.group(2)}, "
+                        f"{frame.get(props, 'no frame line')}")
     return rows
 
 
@@ -371,16 +400,20 @@ class Checks:
     def hold(self, name, what, got, want, dtype, *, atol, record=False, dropped=None,
              fp32_plain=None):
         """``want``: the plain version on the same inputs, in the kernel's
-        dtype or (with ``fp32_plain``, the plain version's fp32 output) in
-        fp64. ``atol``: the absolute limit, or None for an output held
+        dtype or in fp64 (with ``fp32_plain`` beside it, the plain version's
+        own output, where there is one). ``atol``: the absolute limit, or None for an output held
         relative to its size only. ``record``: count the error into the
         kernel's ``max_abs_err``. ``dropped``: {what was left out: the fp64
         plain version with one tile left out}, the output of a kernel that
         lost a tile; the relative limit must reject each."""
+        import torch
+
         key = str(dtype).removeprefix("torch.")
         label = f"{name} {what}"
         like = want if fp32_plain is None else fp32_plain
-        if got.shape != like.shape or got.dtype != like.dtype:
+        # an fp64 ``want`` without a plain output beside it: got is the kernel's dtype
+        like_dtype = dtype if like.dtype == torch.float64 else like.dtype
+        if got.shape != like.shape or got.dtype != like_dtype:
             self.failures.append(f"{label}: {tuple(got.shape)}/{got.dtype} vs plain "
                                  f"{tuple(like.shape)}/{like.dtype}")
             return
@@ -475,14 +508,14 @@ def check_small(checks: Checks, device) -> None:
     checks.raise_failures("kernels on random operands")
 
 
-def check_main(checks: Checks, label: str, q, k, v) -> None:
+def check_main(checks: Checks, label: str, q, k, v):
     """Every kernel on block 0's own operands of a main-path shape, every
     batch element and head, against the plain version on the same inputs
     in fp64 (the fp32 plain version is itself a sum over N tokens, off fp64
     by more than the kernels are: its error is printed beside). The plain
     versions run a head at a time. Each output must also reject the fp64
     plain version with one token tile (encode) or latent tile (decode) left
-    out."""
+    out. Returns the fp64 plain y."""
     import torch
 
     from repro_torch.kernels import ref
@@ -520,6 +553,7 @@ def check_main(checks: Checks, label: str, q, k, v) -> None:
                     record=what in drops, fp32_plain=p32,
                     dropped={"token tile": drops[what]} if what in drops else None)
     checks.raise_failures(f"kernels at {label}")
+    return want[0]
 
 
 def bwd_chunk(b: int, m: int) -> int:
@@ -564,7 +598,7 @@ def check_bwd_main(checks: Checks, label: str, q, k, v, dy):
     forward's residuals (widened), a head at a time and chunked over tokens.
     Each gradient must reject the fp64 plain backward with one 256-token tile
     of dZ left out, and dk also the one with 256 latents left out. Returns
-    the forward's residuals for the timing."""
+    the forward's y and residuals for the timing, and the fp64 gradients."""
     import torch
 
     from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
@@ -593,7 +627,7 @@ def check_bwd_main(checks: Checks, label: str, q, k, v, dy):
         checks.hold("flare_fused_bwd", what, got[i], want[i], torch.float32,
                     atol=BWD_ATOL[what], record=True, dropped=dropped, fp32_plain=plain32[i])
     checks.raise_failures(f"backward kernel at {label}")
-    return y, res
+    return y, res, want
 
 
 def time_kernels(q, k, v) -> dict:
@@ -902,6 +936,518 @@ def train_paths_agree(cfg) -> None:
     if not (loss_rel <= TRAIN_TOL and gnorm_rel <= TRAIN_TOL
             and param_err <= PARAM_TOL_LR * TRAIN_LR):
         raise AssertionError("the packed training path differs from the plain path")
+
+
+# --------------------------------------------------------------------------
+# Widened head dims, and the sharded mixer: its four entry points and the
+# sequence-parallel trainer on a process group
+# --------------------------------------------------------------------------
+
+
+def check_wide(checks: Checks, device) -> None:
+    """The bidirectional kernels at head dims beside the paper's (each D runs
+    at the padded width above it, its lanes beyond D zero) on random
+    operands: encode, decode, fused forward and backward, fp32 and bf16,
+    against the plain version in fp64 on the same values (fp32 1e-5, bf16
+    1e-2 of max |plain|). Then what "auto" resolves to on the card at D on
+    both sides of each kernel's limit."""
+    import torch
+
+    from repro_torch.core.dispatch import MixerShape
+    from repro_torch.core.policy import resolve_policy
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flare import flare_decode, flare_encode
+    from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for d in WIDE_D:
+        s = dict(WIDE_SHAPE, d=d)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = inputs(s, dtype, gen, device)
+            print(f"kernels widened-D {s} {dtype}:", flush=True)
+            wide = tuple(t.double() for t in (q, k, v))
+            z64 = ref.flare_encode_ref(*wide)
+            atol = ATOL[str(dtype).removeprefix("torch.")]
+            hold = lambda name, what, got, want, plain, atol=atol: checks.hold(
+                name, f"{what} D={d}", got, want, dtype, atol=atol, fp32_plain=plain)
+            hold("flare_encode", "z", flare_encode(q, k, v), z64, ref.flare_encode_ref(q, k, v))
+            zq = z64.to(dtype)
+            hold("flare_decode", "y", flare_decode(q, k, zq),
+                 ref.flare_decode_ref(*wide[:2], zq.double()), ref.flare_decode_ref(q, k, zq))
+            fwd = flare_fused_fwd(q, k, v)
+            want = ref.flare_fused_fwd_ref(*wide)
+            hold("flare_fused_fwd", "y", fwd[0], want[0], ref.flare_fused_fwd_ref(q, k, v)[0])
+            hold("flare_fused_fwd", "z", fwd[1], want[1], ref.flare_fused_fwd_ref(q, k, v)[1])
+            dy = torch.randn(k.transpose(1, 2).shape, generator=gen).to(device, dtype)
+            bwd_in = (q, k, v, *fwd[1:], fwd[0], dy.transpose(1, 2))
+            plain = ref.flare_fused_bwd_ref(*bwd_in)
+            for what, got, w64, p in zip(GRADS, flare_fused_bwd(*bwd_in),
+                                         ref.flare_fused_bwd_ref(*(t.double() for t in bwd_in)),
+                                         plain):
+                hold("flare_fused_bwd", what, got, w64, p, atol=None)
+    for causal in (False, True):
+        picks = {}
+        for d in (8, 64, 65, 96, 128):
+            shape = MixerShape(batch=8, heads=8, tokens=40000, latents=2048, head_dim=d)
+            picks[d] = resolve_policy(None, shape, device="cuda", requires_grad=not causal,
+                                      causal=causal).backend
+        print(f"resolve auto on cuda ({'causal' if causal else 'bidirectional, grad'}): "
+              f"{picks}", flush=True)
+        want = ({8: "causal_pallas", 64: "causal_pallas", 65: "causal_stream",
+                 96: "causal_stream", 128: "causal_pallas"} if causal else
+                {8: "packed", 64: "packed", 65: "sdpa", 96: "sdpa", 128: "sdpa"})
+        if picks != want:
+            checks.failures.append(f"resolve auto (causal={causal}): {picks}, expected {want}")
+    checks.raise_failures("kernels at widened head dims")
+
+
+def shard_pipeline(q, k, v, dy, cuts, *, lose=None):
+    """The sharded mixer's four entry points over token slices ``cuts`` on
+    one card, the ranks' collectives done by hand: each slice's statistics,
+    merged by the plain merge (without slice ``lose``'s), a decode per slice,
+    dZ summed over the slices, the gradients per slice. Returns {"stats":
+    each slice's (num, mx, den) stacked over the slices, "y", "lse", "dz"
+    (the sum), "grads": (dq, dk, dv)} over all the tokens; without ``dy``,
+    y only."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flare_packed_shard import (
+        flare_enc_stats,
+        flare_shard_decode,
+        flare_shard_dz,
+        flare_shard_grads,
+    )
+
+    parts = [slice(a, b) for a, b in zip(cuts, cuts[1:])]
+    stats = [flare_enc_stats(q, k[:, :, s], v[:, :, s]) for s in parts]
+    kept = [st for i, st in enumerate(stats) if i != lose]
+    z, mx, den = ref.combine_stats_ref(*(torch.stack(t) for t in zip(*kept)))
+    del kept
+    dec = [flare_shard_decode(q, k[:, :, s], z) for s in parts]
+    y = torch.cat([yy for yy, _ in dec], dim=2)
+    if dy is None:
+        return y
+    dz = sum(flare_shard_dz(q, k[:, :, s], lse, dy[:, :, s]) for s, (_, lse) in zip(parts, dec))
+    grads = [flare_shard_grads(q, k[:, :, s], v[:, :, s], z, mx, den, lse, yy, dy[:, :, s], dz)
+             for s, (yy, lse) in zip(parts, dec)]
+    dq = sum(g[0] for g in grads)
+    dk, dv = (torch.cat([g[i] for g in grads], dim=2) for i in (1, 2))
+    return dict(stats=tuple(torch.stack(t) for t in zip(*stats)), y=y,
+                lse=torch.cat([lse for _, lse in dec], dim=2), dz=dz, grads=(dq, dk, dv))
+
+
+def check_shard(checks: Checks, label: str, q, k, v, dy, y64, grads64) -> None:
+    """The four entry points on block 0's own operands: on one slice against
+    the fused kernels (bit-identical expected; a difference is printed and
+    must be within 1e-6 of max |.|), and over SHARD_SLICES slices of the
+    tokens emulated on the card, each against its plain version in fp64:
+    each slice's statistics (num, mx, den) against ``flare_enc_stats_ref``
+    on the widened slice, the summed dZ against ``flare_bwd_dz_ref`` on the
+    pipeline's own lse, y (y64) and the gradients (grads64) against the
+    plain forward and backward at the fused kernels' limits. num must reject
+    its fp64 plain version with each slice's first token tile left out, dZ
+    the one with the first token tile left out, and y the pipeline with
+    slice 2's statistics left out of the merge.
+    num, den and dZ are sums over a slice's or all the tokens, held relative
+    to their size only."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
+    from repro_torch.kernels.flare_packed_shard import (
+        combine_stats,
+        flare_enc_stats,
+        flare_shard_decode,
+        flare_shard_dz,
+        flare_shard_grads,
+    )
+
+    b, _, n, _ = k.shape
+    print(f"kernels shard {label} (block 0's operands, N={n}; one slice against the fused "
+          f"kernels, {SHARD_SLICES} slices against fp64):", flush=True)
+    y, z, mx, den, lse = flare_fused_fwd(q, k, v)
+    fused_grads = flare_fused_bwd(q, k, v, z, mx, den, lse, y, dy)
+    zs, gmx, gden = combine_stats(*flare_enc_stats(q, k, v), None)
+    ys, lses = flare_shard_decode(q, k, zs)
+    dz = flare_shard_dz(q, k, lses, dy)
+    grads = flare_shard_grads(q, k, v, zs, gmx, gden, lses, ys, dy, dz)
+    diffs = {}
+    for what, got, want in zip(("z", "max", "den", "y", "lse", *GRADS),
+                               (zs, gmx, gden, ys, lses, *grads),
+                               (z, mx, den, y, lse, *fused_grads)):
+        d = max_err(got, want)
+        diffs[what] = d
+        if not d <= 1e-6 * want.abs().max().item():
+            checks.failures.append(f"shard one slice {label} {what}: {d:.3g} off the fused kernels")
+    same = all(d == 0 for d in diffs.values())
+    print(f"  one slice vs fused: {'bit-identical' if same else diffs}", flush=True)
+    del y, z, mx, den, lse, fused_grads, zs, gmx, gden, ys, lses, dz, grads
+    cuts = [i * n // SHARD_SLICES for i in range(SHARD_SLICES + 1)]
+    run = shard_pipeline(q, k, v, dy, cuts)
+    f32, atol, tag = torch.float32, ATOL["float32"], f"{SHARD_SLICES} slices"
+    q64, k64, v64, dy64 = (t.to(torch.float64) for t in (q, k, v, dy))
+    parts = [slice(a, c) for a, c in zip(cuts, cuts[1:])]
+    stats64 = [torch.stack(t) for t in zip(*(
+        by_head(ref.flare_enc_stats_ref, q64, k64[:, :, s], v64[:, :, s]) for s in parts))]
+    num_lost = torch.stack([by_head(ref.flare_enc_stats_ref, q64, k64[:, :, s][:, :, TILE:],
+                                    v64[:, :, s][:, :, TILE:])[0] for s in parts])
+    for what, got, want in zip(("num", "max", "den"), run["stats"], stats64):
+        checks.hold("flare_enc_stats", f"{what} {tag}", got, want, f32,
+                    atol=atol if what == "max" else None, record=True,
+                    dropped={"token tile": num_lost} if what == "num" else None)
+    del stats64, num_lost
+    lse64 = run["lse"].to(torch.float64)
+    chunk = bwd_chunk(b, q.shape[1])
+    dz_plain = lambda qh, kh, lh, dyh: ref.flare_bwd_dz_ref(qh, kh, lh, dyh, chunk=chunk)
+    dz_lost = by_head(lambda qh, kh, lh, dyh: dz_plain(qh, kh[:, :, TILE:], lh[:, :, TILE:],
+                                                       dyh[:, :, TILE:]), q64, k64, lse64, dy64)
+    checks.hold("flare_shard_dz", f"dZ {tag}", run["dz"], by_head(dz_plain, q64, k64, lse64, dy64),
+                f32, atol=None, record=True, dropped={"token tile": dz_lost})
+    del lse64, dz_lost
+    lost = shard_pipeline(q, k, v, None, cuts, lose=2).double()
+    checks.hold("flare_shard_decode", f"y {tag}", run["y"], y64, f32, atol=atol, record=True,
+                dropped={"slice 2's statistics": lost})
+    del lost
+    for what, got, want in zip(GRADS, run["grads"], grads64):
+        checks.hold("flare_shard_grads", f"{what} {tag}", got, want, f32,
+                    atol=BWD_ATOL[what], record=True)
+    checks.raise_failures(f"shard entry points at {label}")
+
+
+def time_shard(q, k, v, dy) -> dict:
+    """CUDA-event times of the four entry points on the main path's operands
+    (one rank's tokens: all of them), their plain versions a head at a time,
+    and the ``sdpa`` backend's SDPA calls for the same work, with each bound:
+    the encode's SDPA, the decode's, the decode's backward into its value
+    input alone (dZ), and the rest of the backward given dZ (the decode's
+    backward into its query and key inputs and the encode's into all three:
+    dq, dk and dv)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flare_packed_shard import (
+        combine_stats,
+        flare_enc_stats,
+        flare_shard_decode,
+        flare_shard_dz,
+        flare_shard_grads,
+    )
+
+    b, h, n, d = k.shape
+    m = q.shape[1]
+    z, mx, den = combine_stats(*flare_enc_stats(q, k, v), None)
+    y, lse = flare_shard_decode(q, k, z)
+    dz = flare_shard_dz(q, k, lse, dy)
+    chunk = bwd_chunk(b, m)
+    qb = q.expand(b, h, m, d)
+    sdpa = lambda a, bb, c: F.scaled_dot_product_attention(a, bb, c, scale=1.0)
+    qe = q.detach().clone().requires_grad_(True)
+    kk, vv, zz = (t.detach().clone().requires_grad_(True) for t in (k, v, z))
+    y_dz = sdpa(k, qb, zz)   # only the value input takes a gradient
+    lib_dz = lambda: torch.autograd.grad(y_dz, zz, dy, retain_graph=True)
+    y_qk, z_qkv = sdpa(kk, qe.expand(b, h, m, d), z), sdpa(qe.expand(b, h, m, d), kk, vv)
+    lib_grads = lambda: (torch.autograd.grad(y_qk, (qe, kk), dy, retain_graph=True),
+                         torch.autograd.grad(z_qkv, (qe, kk, vv), dz, retain_graph=True))
+    runs = {
+        "flare_enc_stats": (lambda: flare_enc_stats(q, k, v),
+                            lambda: by_head(ref.flare_enc_stats_ref, q, k, v),
+                            lambda: sdpa(qb, k, v)),
+        "flare_shard_decode": (lambda: flare_shard_decode(q, k, z),
+                               lambda: by_head(ref.flare_decode_stats_ref, q, k, z),
+                               lambda: sdpa(k, qb, z)),
+        "flare_shard_dz": (lambda: flare_shard_dz(q, k, lse, dy),
+                           lambda: by_head(lambda *a: ref.flare_bwd_dz_ref(*a, chunk=chunk),
+                                           q, k, lse, dy), lib_dz),
+        "flare_shard_grads": (lambda: flare_shard_grads(q, k, v, z, mx, den, lse, y, dy, dz),
+                              lambda: by_head(lambda qh, kh, vh, zh, mh, dh, lh, yh, dyh, dzh:
+                                              ref.flare_bwd_grads_ref(qh, kh, vh, zh, mh, dh, lh,
+                                                                      yh, dyh, dzh, chunk=chunk),
+                                              q, k, v, z, mx, den, lse, y, dy, dz), lib_grads),
+    }
+    f4, mnd, bhn, bhm = 4, b * h * m * n * d, b * h * n, b * h * m
+    qkv = f4 * (h * m * d + 2 * bhn * d)
+    work = {   # (FLOP, bytes): each input read once, each output written once
+        # the scores and the numerator: two products; out num, mx, den
+        "flare_enc_stats": (2 * 2 * mnd, qkv + f4 * bhm * (d + 2)),
+        # the scores and y: two products; in q, k, z; out y, lse
+        "flare_shard_decode": (2 * 2 * mnd, f4 * (h * m * d + bhn * d + bhm * d + bhn * (d + 1))),
+        # the scores and dZ: two products; in q, k, dy, lse; out dZ
+        "flare_shard_dz": (2 * 2 * mnd, f4 * (h * m * d + 2 * bhn * d + bhn + bhm * d)),
+        # S, dA, dW, dk, dv, dq: six products; in q, k, v, y, dy, lse, z, dZ,
+        # mx, den; out dq, dk, dv
+        "flare_shard_grads": (6 * 2 * mnd,
+                              f4 * (2 * h * m * d + 6 * bhn * d + bhn + bhm * (2 * d + 2))),
+    }
+    stats = {}
+    for name, (kern, plain, lib) in runs.items():
+        flops, nbytes = work[name]
+        t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BW * 1e3
+        stats[name] = dict(
+            ms=cuda_ms(kern, reps=5), plain_ms=cuda_ms(plain, reps=1, warmup=0),
+            library_ms=cuda_ms(lib, reps=3), bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+    del y_dz, y_qk, z_qkv
+    return stats
+
+
+SHARD_KERNELS = ("flare_enc_stats", "flare_shard_decode", "flare_shard_dz", "flare_shard_grads")
+
+
+def train_sharded(cfg, s40, s1m) -> dict:
+    """The slice's main path: ``Trainer.fit`` of ``get_model(flare_pde)``
+    under the ``packed_shard`` plan on a mesh over an NCCL process group of
+    one rank, 5 steps at pde_40k against 5 steps of the ``packed`` plan from
+    the same seed and batches, then 2 steps at pde_1m. Launch counts and
+    collectives zeroed just before each fit and read just after."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.backends.packed_shard import mesh_shape_tag
+    from repro_torch.core.policy import MixerPolicy
+    from repro_torch.data.pde_data import darcy_batch, pointcloud_batch
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import shard_tokens
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_model
+
+    compat.init("cuda", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        model = get_model(cfg, policy=MixerPolicy(backends=("packed_shard",)), mesh=mesh)
+        plan = model.plans["train"].describe()
+        print(f"train sharded {cfg.name}: {dist.get_backend()} group of "
+              f"{dist.get_world_size()}, mesh {mesh_shape_tag(mesh)}; plans {{train: {plan}, "
+              f"infer: {model.plans['infer'].describe()}}}", flush=True)
+        if not plan.startswith("packed_shard"):
+            raise AssertionError(f"train plan {plan} is not the sharded kernels")
+        steps = SHARDED_STEPS
+        batches = [pointcloud_batch(SEED, 200 + i, s40.global_batch, grid=256,
+                                    num_points=s40.seq_len) for i in range(steps)]
+        runs = {}
+        for name, mdl, msh in (("packed_shard", model, mesh),
+                               ("packed", get_model(cfg, policy=MixerPolicy(backends=("packed",))),
+                                None)):
+            runs[name] = fit_counted(mdl, msh, lambda i: batches[i], steps)
+        sh, pk = runs["packed_shard"], runs["packed"]
+        per_step = sh["per_step"]
+        for i, c in enumerate(per_step):
+            print(f"train sharded pde_40k step {i + 1}: launches {launched(c)}, all-reduce "
+                  f"{c['calls']} calls {c['bytes'] / 1e6:.3f} MB, {sh['ms'][i]:.3f} ms (packed "
+                  f"{pk['ms'][i]:.3f} ms)", flush=True)
+        loss_diff = max(abs(a - b) for a, b in zip(sh["loss"], pk["loss"]))
+        param_diff = max((sh["params"][key] - p).abs().max().item()
+                         for key, p in pk["params"].items())
+        ms_sh, ms_pk = (sum(r["ms"][2:]) / len(r["ms"][2:]) for r in (sh, pk))
+        print(f"train sharded pde_40k: losses {sh['loss']}, packed {pk['loss']}; max loss diff "
+              f"{loss_diff:.3g}, parameters max abs diff {param_diff:.3g} (limit {SHARD_TOL:g}); "
+              f"{ms_sh:.3f} ms/step (mean of steps 3-{steps}; packed {ms_pk:.3f}), peak "
+              f"{sh['peak']:.2f} GiB (packed {pk['peak']:.2f})", flush=True)
+        nb = cfg.num_layers
+        for c in per_step:
+            if not (all(c["launches"][k] == nb for k in SHARD_KERNELS)
+                    and c["launches"]["flare_fused_fwd"] == c["launches"]["flare_fused_bwd"] == 0):
+                raise AssertionError(f"sharded train step launches {c['launches']}")
+            if c["calls"] == 0:
+                raise AssertionError("the sharded train step issued no collective")
+        if not (loss_diff <= SHARD_TOL and param_diff <= SHARD_TOL):
+            raise AssertionError("the sharded training path differs from the packed path")
+        trainer = sh["trainer"]
+        local = shard_tokens(batches[0], mesh)
+        prof = breakdown(lambda: trainer._train_step(trainer.net, trainer.opt_state, local),
+                         "train sharded pde_40k step", top=12)
+        if prof is not None:
+            # on a group of one NCCL launches no kernel of its own: its
+            # all-reduce is a device-to-device copy
+            comm = {key: ms for key, ms in prof[0].items()
+                    if "nccl" in key.lower() or "memcpy" in key.lower()}
+            total = sum(prof[0].values())
+            print(f"breakdown train sharded pde_40k step: NCCL kernels and device copies "
+                  f"{sum(comm.values()):.3f} ms of {total:.3f} ms device time "
+                  f"({100 * sum(comm.values()) / total:.2f}%): {comm}", flush=True)
+        # each collective of the step alone, at its size (CUDA events)
+        group = compat.axis_group(mesh, "data")
+        rows = s40.global_batch * cfg.flare_heads * cfg.flare_latents
+        d = cfg.d_model // cfg.flare_heads
+        params = sum(p.numel() for p in trainer.net.parameters())
+        for label, n, op in (("SUM of num and den", rows * (d + 1), compat.all_reduce_sum_),
+                             ("MAX of mx", rows, compat.all_max),
+                             ("SUM of dZ", rows * d, compat.all_reduce_sum_),
+                             ("SUM of the gradients", params, compat.all_reduce_sum_)):
+            buf = torch.randn(n, device=trainer.device)
+            print(f"collective {label}, {4 * n / 1e6:.3f} MB on the group of one: "
+                  f"{cuda_ms(lambda: op(buf, group), reps=20):.4f} ms", flush=True)
+        del runs, sh, pk, trainer, batches
+        torch.cuda.empty_cache()
+        b1m = darcy_batch(SEED, 1, s1m.global_batch, grid=int(math.isqrt(s1m.seq_len)))
+        big = fit_counted(model, mesh, lambda i: b1m, SHARDED_STEPS_1M)
+        print(f"train sharded pde_1m B={s1m.global_batch} N={s1m.seq_len}: ms/step "
+              f"{[round(t, 3) for t in big['ms']]}, peak {big['peak']:.2f} GiB, losses "
+              f"{big['loss']}, launches a step {[launched(c) for c in big['per_step']]}, "
+              f"all-reduce a step {[(c['calls'], c['bytes']) for c in big['per_step']]}",
+              flush=True)
+        for c in big["per_step"]:
+            if not all(c["launches"][k] == nb for k in SHARD_KERNELS):
+                raise AssertionError(f"pde_1m sharded launches {c['launches']}")
+        if not all(math.isfinite(x) for x in big["loss"]):
+            raise AssertionError(f"pde_1m sharded losses {big['loss']}")
+        return {k: sum(c["launches"][k] for c in per_step + big["per_step"])
+                for k in SHARD_KERNELS}
+    finally:
+        dist.destroy_process_group()
+
+
+def launched(window: dict) -> dict:
+    """The kernels a counted window launched, with their counts."""
+    return {name: n for name, n in window["launches"].items() if n}
+
+
+def fit_counted(model, mesh, batch_fn, steps: int) -> dict:
+    """``Trainer.fit`` for ``steps`` from seed 0 into a temporary checkpoint
+    directory, with the kernel launches and collectives of each step (read
+    when the next step asks for its batch, and after the fit), ms per step,
+    losses, peak GiB and the parameters after."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.distributed import compat
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.train import Trainer
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        tcfg = TrainConfig(steps=steps, learning_rate=TRAIN_LR, seed=SEED,
+                           checkpoint_every=1000, checkpoint_dir=ckdir, log_every=1000)
+        trainer = Trainer(model, tcfg, mesh)
+        per_step = []
+
+        def snapshot():
+            per_step.append(dict(launches=launch_counts(), **compat.COUNTS))
+            reset_launch_counts()
+            compat.reset_counts()
+
+        def fed(i):
+            if i:
+                snapshot()
+            return batch_fn(i)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        compat.reset_counts()
+        history = trainer.fit(fed)
+        snapshot()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    # the last step's window also holds the fit's closing barrier (uncounted)
+    return dict(loss=[h["loss"] for h in history], ms=[1e3 * h["time"] for h in history],
+                grad_norm=[h["grad_norm"] for h in history],
+                params={k: p.detach().clone() for k, p in trainer.net.named_parameters()},
+                per_step=per_step, peak=peak, trainer=trainer)
+
+
+# each rank of the two-rank check: a gloo group on the one card (NCCL takes
+# one rank a card), the packed_shard plan on a (2, 1) mesh, Trainer.fit on
+# its half of every example's tokens; it saves what the parent compares
+TWO_RANK_CODE = r"""
+import os, sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, os.environ["SRC"])
+from repro_torch.config import TrainConfig
+from repro_torch.configs import get_config
+from repro_torch.core.policy import MixerPolicy
+from repro_torch.data.pde_data import pointcloud_batch
+from repro_torch.distributed.compat import COUNTS, make_mesh
+from repro_torch.kernels.ops import launch_counts
+from repro_torch.models.api import get_model
+from repro_torch.train import Trainer
+
+rank, out = int(os.environ["RANK"]), os.environ["OUT"]
+seed, steps, lr = int(os.environ["SEED"]), int(os.environ["STEPS"]), float(os.environ["LR"])
+dist.init_process_group("gloo", init_method=os.environ["INIT"], rank=rank, world_size=2)
+probe = torch.ones(4, device="cuda")
+dist.all_reduce(probe)
+mesh = make_mesh((2, 1), ("data", "model"), device_type="cuda")
+model = get_model(get_config("flare_pde"), policy=MixerPolicy(backends=("packed_shard",)),
+                  mesh=mesh)
+batches = [pointcloud_batch(seed, 300 + i, 2, grid=128, num_points=4096) for i in range(steps)]
+tcfg = TrainConfig(steps=steps, learning_rate=lr, seed=seed, checkpoint_every=1000,
+                   checkpoint_dir=os.path.join(out, "ckpt"), log_every=1000)
+trainer = Trainer(model, tcfg, mesh)
+history = trainer.fit(lambda i: batches[i])
+torch.save(dict(probe=probe.cpu(), plan=model.plans["train"].describe(),
+                loss=[h["loss"] for h in history], grad_norm=[h["grad_norm"] for h in history],
+                params={k: p.detach().cpu() for k, p in trainer.net.named_parameters()},
+                launches=launch_counts(), collectives=dict(COUNTS)),
+           os.path.join(out, f"rank{rank}.pt"))
+dist.destroy_process_group()
+"""
+TWO_RANK_STEPS = 3
+
+
+def train_two_ranks(cfg) -> None:
+    """The cross-rank path on the card: two ranks of a gloo group sharing the
+    one card train under ``packed_shard`` (each rank half of every
+    example's tokens) for TWO_RANK_STEPS steps at B=2, N=4,096, against the
+    ``packed`` path in this process from the same weights and batches: loss
+    and grad_norm per step (1e-4), parameters after (PARAM_TOL_LR x lr), the
+    ranks' parameters equal to each other, 8 launches of each shard entry
+    point a step on each rank. The ranks' launches are a comparison's, not
+    counted in the kernels line."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.policy import MixerPolicy
+    from repro_torch.data.pde_data import pointcloud_batch
+    from repro_torch.models.api import get_model
+
+    steps = TWO_RANK_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, SRC=str(SRC), WORLD_SIZE="2", INIT=f"file://{tmp}/rendezvous",
+                   OUT=tmp, SEED=str(SEED), STEPS=str(steps), LR=str(TRAIN_LR))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", TWO_RANK_CODE], env=dict(env, RANK=str(r)),
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"two-rank training, rank {r} exited {p.returncode}:\n"
+                                     f"{log[-4000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    seconds = time.perf_counter() - t0
+    batches = [pointcloud_batch(SEED, 300 + i, 2, grid=128, num_points=4096) for i in range(steps)]
+    ref = fit_counted(get_model(cfg, policy=MixerPolicy(backends=("packed",))), None,
+                      lambda i: batches[i], steps)
+    r0 = ranks[0]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["loss"], ref["loss"]))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["grad_norm"],
+                                                        [float(x) for x in ref["grad_norm"]]))
+    param_err = max((r0["params"][k] - p.cpu()).abs().max().item()
+                    for k, p in ref["params"].items())
+    same = all(torch.equal(r0["params"][k], ranks[1]["params"][k]) for k in r0["params"])
+    print(f"train two ranks (gloo, one card) {r0['plan']} B=2 N=4096, {steps} steps in "
+          f"{seconds:.1f} s with start-up: losses {r0['loss']}, packed {ref['loss']}; loss rel "
+          f"{loss_rel:.3g}, grad_norm rel {gnorm_rel:.3g} (limit {TRAIN_TOL:g}), parameters max "
+          f"abs diff {param_err:.3g} (limit {PARAM_TOL_LR * TRAIN_LR:g}), ranks' parameters equal "
+          f"{same}; launches {[launched(dict(launches=r['launches'])) for r in ranks]}, "
+          f"all-reduce {[(r['collectives']['calls'], r['collectives']['bytes']) for r in ranks]}",
+          flush=True)
+    want = steps * cfg.num_layers
+    if not all(r["launches"][k] == want for r in ranks for k in SHARD_KERNELS):
+        raise AssertionError(f"two-rank launches {[r['launches'] for r in ranks]}")
+    if not (same and loss_rel <= TRAIN_TOL and gnorm_rel <= TRAIN_TOL
+            and param_err <= PARAM_TOL_LR * TRAIN_LR):
+        raise AssertionError("two ranks on the card differ from the packed path")
 
 
 # --------------------------------------------------------------------------
@@ -2096,6 +2642,7 @@ def drive(model, net, batches: dict, label: str) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc" / "flare.cu").is_file():
         print("chip_smoke.py: run it from the root of a checkout (src/repro_torch missing)",
               file=sys.stderr)
@@ -2122,6 +2669,7 @@ def main() -> int:
 
     checks = Checks()
     check_small(checks, device)
+    check_wide(checks, device)
     check_paged_small(checks, device)
     check_flash_small(checks, device)
 
@@ -2153,12 +2701,16 @@ def main() -> int:
     stats = {}
     for label, batch in (("pde_40k", b40), ("pde_1m", b1m)):
         ops = mixer_operands(net, batch["x"])
-        check_main(checks, label, *ops)
+        y64 = check_main(checks, label, *ops)
         b, h, n, d = ops[1].shape
         dy = torch.randn(b, n, h, d, generator=gen).to(device).transpose(1, 2)
-        y, res = check_bwd_main(checks, label, *ops, dy)
+        y, res, grads64 = check_bwd_main(checks, label, *ops, dy)
+        # the sharded mixer's entry points on the same operands, against the same fp64
+        check_shard(checks, label, *ops, dy, y64, grads64)
+        del y64, grads64
         times = time_kernels(*ops)
         times["flare_fused_bwd"] = time_bwd(*ops, dy, y, res)
+        times.update(time_shard(*ops, dy))
         for name, st in times.items():
             print(f"time {name} {label} fp32: {st}", flush=True)
         if label == "pde_40k":
@@ -2215,6 +2767,13 @@ def main() -> int:
     for name in stats:
         stats[name]["launches"] = sum(c[name] for c in (c_pk, c_pl, trained["counts"],
                                                         trained_1m))
+    # the sequence-parallel trainer on a process group: the shard entry
+    # points' launches are those of its pde_40k and pde_1m fits
+    for name, n in train_sharded(cfg, s40, s1m).items():
+        stats[name]["launches"] = n
+    torch.cuda.empty_cache()
+    # a comparison: two ranks sharing the card against the packed path
+    train_two_ranks(cfg)
     del net, b40
     torch.cuda.empty_cache()
     # the causal FLARE LM: its launches are those of its forward and requests windows
@@ -2237,6 +2796,7 @@ def main() -> int:
              **{key: stats[name][key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
                                                   "bound_ms", "bound_by", "library_ms")}}
             for name in REPLACES]
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,9 @@ from repro_torch.backends import (  # noqa: F401  (import for registration side 
     causal,
     materialized,
     packed,
+    packed_shard,
     paged,
     pallas,
     sdpa,
+    seqparallel,
 )

@@ -10,11 +10,12 @@ for inference on the card; training resolves to ``causal_stream``.
 from __future__ import annotations
 
 from repro_torch.core.dispatch import Capabilities, MixerBackend, MixerPlan, register
+from repro_torch.kernels.flare_causal import HEAD_DIMS
 
 DEFAULT_CHUNK = 256
 
 
-def _plan_stream(shape, dtype) -> MixerPlan:
+def _plan_stream(shape, mesh, dtype) -> MixerPlan:
     return MixerPlan("causal_stream",
                      {"chunk_size": min(DEFAULT_CHUNK, shape.tokens), "mode": "factored"})
 
@@ -26,7 +27,7 @@ def _run_stream(plan: MixerPlan, q, k, v):
                         mode=plan.params.get("mode", "factored"))
 
 
-def _plan_kernel(shape, dtype) -> MixerPlan:
+def _plan_kernel(shape, mesh, dtype) -> MixerPlan:
     # no params: the kernel's token tile is its own (csrc/flare_causal.cu)
     return MixerPlan("causal_pallas")
 
@@ -49,7 +50,7 @@ register(MixerBackend(
 register(MixerBackend(
     name="causal_pallas",
     caps=Capabilities(causal=True, bidirectional=False, device_kinds=("cpu", "cuda"),
-                      dtypes=("float32", "bfloat16"), grads=False),
+                      dtypes=("float32", "bfloat16"), grads=False, head_dims=HEAD_DIMS),
     plan=_plan_kernel,
     run=_run_kernel,
     score=lambda shape, device: 20.0 if device == "cuda" else 1.0,

@@ -7,11 +7,12 @@ resolves to its counterpart; on Hopper nothing is lane-packed. It is the
 "auto" pick on the card, for inference and, since it registers
 ``grads=True``, for training. On the CPU, where its wrappers run the plain
 versions, "auto" keeps ``sdpa``. Tiles are fixed in ``csrc/`` (the
-autotuner is not ported).
+autotuner is not ported). Its kernels take head dims 1 to 64 on the card.
 """
 from __future__ import annotations
 
 from repro_torch.core.dispatch import Capabilities, MixerBackend, MixerPlan, register
+from repro_torch.kernels.flare import HEAD_DIMS
 
 
 def _run(plan: MixerPlan, q, k, v):
@@ -23,8 +24,8 @@ def _run(plan: MixerPlan, q, k, v):
 register(MixerBackend(
     name="packed",
     caps=Capabilities(device_kinds=("cpu", "cuda"),
-                      dtypes=("float32", "bfloat16"), grads=True),
-    plan=lambda shape, dtype: MixerPlan("packed"),
+                      dtypes=("float32", "bfloat16"), grads=True, head_dims=HEAD_DIMS),
+    plan=lambda shape, mesh, dtype: MixerPlan("packed"),
     run=_run,
     score=lambda shape, device: 30.0 if device == "cuda" else 1.5,
     doc="CUDA kernels: fused forward with residuals and fused backward (autograd)",

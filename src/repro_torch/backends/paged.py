@@ -12,18 +12,19 @@ Its score is 40 at ``latents == 1``, the decode-read signature only the
 serving engine's plan resolution produces, so "auto" routes the paged
 pool's decode through the kernel; at M > 1 it scores below every dense
 backend, so dense call sites never land on it unless they name it. The
-slot-sharded ``paged_shard`` waits for the multi-device port.
+slot-sharded ``paged_shard`` is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.dispatch import Capabilities, MixerBackend, MixerPlan, MixerShape, register
+from repro_torch.kernels.paged_attention import HEAD_DIMS
 
 DEFAULT_BLOCK = 16
 
 
-def _plan(shape: MixerShape, dtype) -> MixerPlan:
+def _plan(shape: MixerShape, mesh, dtype) -> MixerPlan:
     return MixerPlan("paged", {"block": min(DEFAULT_BLOCK, shape.tokens)})
 
 
@@ -64,7 +65,7 @@ def _score(shape: MixerShape, device: str) -> float:
 register(MixerBackend(
     name="paged",
     caps=Capabilities(bidirectional=True, causal=False, device_kinds=("cpu", "cuda"),
-                      dtypes=("float32", "bfloat16"), grads=False),
+                      dtypes=("float32", "bfloat16"), grads=False, head_dims=HEAD_DIMS),
     plan=_plan,
     run=_run,
     score=_score,

@@ -83,6 +83,19 @@ SHAPES = {
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     steps: int = 100
     learning_rate: float = 1e-3

@@ -1,12 +1,23 @@
 """Typed mixer-backend registry and capability dispatch.
 
-Counterpart of ``repro/core/dispatch.py``, trimmed to what one device needs:
-no mesh, no sharded backends, no legacy ``impl`` tuples. Every FLARE mixer
-implementation registers a :class:`MixerBackend` saying what it can do
-(which contract: the bidirectional set mixer of the PDE surrogate or the
-causal LM mixer of ``flare_lm``; device kinds, dtypes, whether autograd runs
-through it) and how to run (a ``plan`` function and ``run``). A backend that
-breaks the contract of its path is an error, never a fallback.
+Counterpart of ``repro/core/dispatch.py`` without the legacy ``impl``
+tuples. Every FLARE mixer implementation registers a :class:`MixerBackend`
+saying what it can do (which contract: the bidirectional set mixer of the
+PDE surrogate or the causal LM mixer of ``flare_lm``; device kinds, dtypes,
+whether autograd runs through it, whether it needs a mesh, which head dims
+its kernel takes on the card) and how to run (a ``plan`` function and
+``run``). A backend that breaks the contract of its path is an error, never
+a fallback.
+
+Meshes: a sharded backend runs on this rank's slice of the tokens, so it is
+eligible only with a mesh, and a dense backend never with one (each rank
+would mix its own tokens alone). :func:`sharded_plan` picks the sharded form
+for a mesh and its axes.
+
+Head dims: a kernel backend names the D its kernel takes
+(``Capabilities.head_dims``); on the card "auto" passes over it at any other
+D, and naming it there raises at resolve time, never at launch. The CPU runs
+the plain versions, which take any D.
 
 Device kinds are ``torch.device`` types: ``"cpu"`` and ``"cuda"``. Backends
 live in :mod:`repro_torch.backends`; importing that package fills the
@@ -16,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 import torch
 
@@ -43,9 +54,12 @@ class Capabilities:
 
     causal: bool = False           # satisfies the causal LM-mixer contract
     bidirectional: bool = True     # satisfies the set-mixer contract
+    sharded: bool = False          # runs on this rank's tokens; needs a mesh in its plan
     device_kinds: tuple = ("cpu", "cuda")
     dtypes: Optional[tuple] = None  # dtype names; None = any floating dtype
     grads: bool = True             # autograd runs through ``run``
+    # the head dims the kernel takes on the card (a container); None = any D
+    head_dims: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +72,10 @@ class MixerPlan:
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     def describe(self) -> str:
-        inner = ";".join(f"{k}={v}" for k, v in self.params.items())
+        """``name(key=value;...)``, the mesh left out (``mesh_shape`` names
+        it) and tuples joined by '+', so the string stays comma-free."""
+        fmt = lambda v: "+".join(map(str, v)) if isinstance(v, (tuple, list)) else str(v)
+        inner = ";".join(f"{k}={fmt(v)}" for k, v in self.params.items() if k != "mesh")
         return f"{self.backend}({inner})" if inner else self.backend
 
 
@@ -66,7 +83,7 @@ class MixerPlan:
 class MixerBackend:
     name: str
     caps: Capabilities
-    plan: Callable[[MixerShape, Any], MixerPlan]   # plan(shape, dtype)
+    plan: Callable[[MixerShape, Any, Any], MixerPlan]   # plan(shape, mesh, dtype)
     run: Callable[..., torch.Tensor]               # run(plan, q, k, v) -> y
     # score(shape, device_kind) -> float; the highest eligible score wins "auto"
     score: Callable[[MixerShape, str], float] = lambda shape, device: 0.0
@@ -102,14 +119,25 @@ def _dtype_name(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def eligible(backend: MixerBackend, *, dtype, device: str = "cuda",
-             grad: bool = False, causal: bool = False) -> bool:
+def takes_head_dim(backend: MixerBackend, head_dim: int, device: str) -> bool:
+    """Whether the backend runs head dim ``head_dim`` on ``device`` (its
+    kernel's limit applies on the card only)."""
+    dims = backend.caps.head_dims
+    return device != "cuda" or dims is None or head_dim in dims
+
+
+def eligible(backend: MixerBackend, *, dtype, device: str = "cuda", grad: bool = False,
+             causal: bool = False, mesh=None, shape: Optional[MixerShape] = None) -> bool:
     caps = backend.caps
     if not (caps.causal if causal else caps.bidirectional):
+        return False
+    if caps.sharded != (mesh is not None):
         return False
     if device not in caps.device_kinds:
         return False
     if grad and not caps.grads:
+        return False
+    if shape is not None and not takes_head_dim(backend, shape.head_dim, device):
         return False
     return caps.dtypes is None or _dtype_name(dtype) in caps.dtypes
 
@@ -134,34 +162,91 @@ def _check_contract(backend: MixerBackend, causal: bool, grad: bool) -> None:
             f"{sorted(b.name for b in _REGISTRY.values() if b.caps.grads)}")
 
 
+def _check_head_dim(backend: MixerBackend, shape: MixerShape, device: str) -> None:
+    if not takes_head_dim(backend, shape.head_dim, device):
+        raise ValueError(f"backend {backend.name!r}: its kernel does not take head dim "
+                         f"D={shape.head_dim} on {device!r}")
+
+
 def resolve(impl, *, shape: MixerShape, dtype, device: str = "cuda", grad: bool = False,
-            causal: bool = False):
+            causal: bool = False, mesh=None):
     """Normalize ``impl`` ("auto", a backend name, or a MixerPlan) to a
     ``(MixerBackend, MixerPlan)`` pair for ``device`` (a device kind).
 
     ``grad=True`` marks a differentiated call site: "auto" considers only
     grad-capable backends, and naming a forward-only one is an error.
     ``causal=True`` marks the LM path: only causal backends serve it, and
-    only bidirectional ones serve the default set-mixer path."""
+    only bidirectional ones serve the default set-mixer path. ``mesh``:
+    the call site runs on this rank's tokens of a mesh; "auto" then considers
+    only sharded backends (without one, only dense ones), highest score
+    first, and one whose plan rejects the shape gives way to the next."""
     _ensure_loaded()
     if impl is None:
         impl = "auto"
     if isinstance(impl, MixerPlan):
         backend = get_backend(impl.backend)
         _check_contract(backend, causal, grad)
+        _check_head_dim(backend, shape, device)
         return backend, impl
     if not isinstance(impl, str):
         raise TypeError(f"impl must be str | MixerPlan, got {type(impl)!r}")
     if impl == "auto":
         cands = [b for b in _REGISTRY.values()
-                 if eligible(b, dtype=dtype, device=device, grad=grad, causal=causal)]
+                 if eligible(b, dtype=dtype, device=device, grad=grad, causal=causal,
+                             mesh=mesh, shape=shape)]
         if not cands:
             raise ValueError(f"no eligible mixer backend (causal={causal}, device={device}, "
-                             f"dtype={_dtype_name(dtype)}, grad={grad})")
-        best = max(cands, key=lambda b: b.score(shape, device))
-        return best, best.plan(shape, dtype)
+                             f"dtype={_dtype_name(dtype)}, grad={grad}, "
+                             f"mesh={mesh is not None}, D={shape.head_dim})")
+        cands.sort(key=lambda b: b.score(shape, device), reverse=True)
+        errors = []
+        for backend in cands:
+            try:
+                return backend, backend.plan(shape, mesh, dtype)
+            except ValueError as e:
+                errors.append(f"{backend.name}: {e}")
+        raise ValueError("auto: every eligible backend rejected the shape at plan time:\n  "
+                         + "\n  ".join(errors))
     backend = get_backend(impl)
     _check_contract(backend, causal, grad)
     if device not in backend.caps.device_kinds:
         raise ValueError(f"backend {impl!r} does not run on {device!r}")
-    return backend, backend.plan(shape, dtype)
+    _check_head_dim(backend, shape, device)
+    if mesh is not None and not backend.caps.sharded:
+        raise ValueError(f"backend {impl!r} is not sharded: under a mesh each rank holds a "
+                         "slice of the tokens, which a dense mixer would mix alone")
+    return backend, backend.plan(shape, mesh, dtype)
+
+
+def sharded_plan(mesh, seq_axes, lat_axes="model", *, shape: Optional[MixerShape] = None,
+                 dtype=None, prefer: Sequence[str] = (), device: str = "cuda") -> MixerPlan:
+    """Pick the sharded FLARE form for a mesh: 1D sequence-parallel when the
+    token axes cover the mesh (the ``lat_axes`` included), else the 2D seq x
+    latent form, so that the latent axis keeps its ranks busy.
+
+    With a ``shape``, the kernel form ``packed_shard`` is tried first: always
+    when ``prefer`` names it, and by default on the card (where it is the
+    fast path; on the CPU it runs the plain versions, so the plain forms
+    keep the default). A shape it cannot take falls back to the plain forms
+    unless ``packed_shard`` was named."""
+    from repro_torch.distributed.compat import axes_tuple
+
+    seq, lat = axes_tuple(seq_axes), axes_tuple(lat_axes)
+    named = tuple(prefer or ())
+    want_packed = "packed_shard" in named
+    covered = all(a in seq for a in lat)
+    if shape is not None and (want_packed or (not named and not covered and device == "cuda")):
+        from repro_torch.backends.packed_shard import build_shard_plan
+
+        lat_eff = () if covered else lat
+        seq_eff = tuple(a for a in seq if a not in lat_eff)
+        try:
+            _check_head_dim(get_backend("packed_shard"), shape, device)
+            return build_shard_plan(shape, mesh, seq_eff, lat_eff,
+                                    dtype if dtype is not None else torch.float32)
+        except ValueError:
+            if want_packed:
+                raise
+    if covered:
+        return MixerPlan("seqparallel", {"mesh": mesh, "seq_axes": seq})
+    return MixerPlan("seqlat", {"mesh": mesh, "seq_axes": seq, "lat_axes": lat})

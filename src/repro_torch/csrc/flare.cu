@@ -6,6 +6,11 @@
 //   the fused forward: repro_torch/kernels/flare_packed.py calls the
 //   flare_encode entry point with statistics, then flare_decode over fp32 Z
 //                  <- repro/kernels/flare_packed.py::_fused_fwd_kernel (_fwd_launch)
+//   the sharded forward's two kernels, in repro_torch/kernels/flare_packed_shard.py:
+//   flare_enc_stats, the encode writing its numerator before the normalisation
+//                  <- repro/kernels/flare_packed_shard.py::_enc_stats_kernel
+//   flare_decode against the merged Z, with each token's log-sum-exp
+//                  <- repro/kernels/flare_packed_shard.py::_decode_kernel
 //
 // What bounds them. At the paper's head dim (D = 8) every (latent, token)
 // pair costs 2*D FMAs (score and weighted sum) and one exp, against 2*D*4
@@ -41,7 +46,20 @@
 //     log-sum-exp over the latents (an O(N) fp32 residual): the backward
 //     kernels in flare_bwd.cu recompute the decode weights from it, since a
 //     per-latent thread cannot see all M scores of a token. The pallas path
-//     passes null and writes nothing.
+//     passes null and writes nothing;
+//   * a sharded forward splits the tokens over ranks, and a rank's encode is
+//     only part of the sum over N: flare_enc_stats writes the numerator
+//     against the rank's own max with that max and den (from the unsplit
+//     grid directly, or from combine_kernel), so the ranks can merge them
+//     before the normalisation; the decode then runs against the merged Z;
+//   * any head dim D from 1 to 64: each kernel is built at the padded widths
+//     4, 8, 16, 32 and 64 (flare_common.cuh) and D runs at the next one,
+//     lanes d >= D zero where operands are loaded or staged; in device
+//     memory every tensor keeps its own D. D = 4 and D = 8 have instances
+//     of their own with D known at compile time, so the paper's head dim
+//     pays nothing for the others. At 64 the register arrays of a
+//     row (state, query and partial sums) exceed the register file and
+//     spill; ptxas's spill bytes are printed by chip_smoke.py.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise.
@@ -113,15 +131,19 @@ struct Online {
 
 // Encode. Grid (ceil(M / ENC_THREADS), B*H, splits); thread = latent row m of
 // group g = b*H + h over tokens [split*split_len, min(N, (split+1)*split_len)).
-// splits == 1: writes z[g, m, :] = num/den (and mx/den when given).
-// splits > 1: writes the partial (max, den, num[D]) to part[split, g, m, :].
-template <typename T, typename TZ, int D>
+// D is the padded width, Dr the head dim in device memory (D itself where
+// EXACT, else d_run).
+// splits == 1: writes z[g, m, :] = num/den (and mx/den when given); `raw`
+// writes num itself, against mx, the flash statistics a rank merges.
+// splits > 1: writes the partial (max, den, num[Dr]) to part[split, g, m, :].
+template <typename T, typename TZ, int D, bool EXACT>
 __global__ void __launch_bounds__(ENC_THREADS)
 encode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               TZ* __restrict__ z, float* __restrict__ mx_out, float* __restrict__ den_out,
-              float* __restrict__ part, int H, int M, int N, Strides ks, Strides vs,
-              int split_len) {
+              float* __restrict__ part, int H, int M, int N, int d_run, Strides ks,
+              Strides vs, int split_len, bool raw) {
   constexpr int TN = TILE_FLOATS / D;
+  const int Dr = EXACT ? D : d_run;
   __shared__ float k_s[TILE_FLOATS];
   __shared__ float v_s[TILE_FLOATS];
   const int g = blockIdx.y, b = g / H, h = g % H;
@@ -133,13 +155,14 @@ encode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
   float x[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) x[d] = m < M ? to_f(q[((long long)h * M + m) * D + d]) : 0.f;
+  for (int d = 0; d < D; ++d)
+    x[d] = (m < M && d < Dr) ? to_f(q[((long long)h * M + m) * Dr + d]) : 0.f;
   Online<D> st;
   for (int t0 = n0; t0 < n1; t0 += TN) {
     const int tn = min(TN, n1 - t0);
     __syncthreads();
-    stage<T, D>(k_s, kg, ks.n, t0, tn, TN);
-    stage<T, D>(v_s, vg, vs.n, t0, tn, TN);
+    stage<T, D>(k_s, kg, ks.n, t0, tn, TN, Dr);
+    stage<T, D>(v_s, vg, vs.n, t0, tn, TN, Dr);
     __syncthreads();
     for (int c0 = 0; c0 < tn; c0 += CH)
       st.chunk(x, k_s + c0 * D, v_s + c0 * D, min(CH, tn - c0));
@@ -148,45 +171,51 @@ encode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   if (m >= M) return;
   const long long row = (long long)g * M + m;
   if (part == nullptr) {
-    const float inv = 1.f / st.tot_den;
+    const float inv = raw ? 1.f : 1.f / st.tot_den;
 #pragma unroll
-    for (int d = 0; d < D; ++d) z[row * D + d] = from_f<TZ>(st.tot[d] * inv);
+    for (int d = 0; d < D; ++d)
+      if (d < Dr) z[row * Dr + d] = from_f<TZ>(st.tot[d] * inv);
     if (mx_out != nullptr) {
       mx_out[row] = st.tot_mx;
       den_out[row] = st.tot_den;
     }
   } else {
     const long long rows = (long long)gridDim.y * M;
-    float* p = part + ((long long)blockIdx.z * rows + row) * (D + 2);
+    float* p = part + ((long long)blockIdx.z * rows + row) * (Dr + 2);
     p[0] = st.tot_mx;
     p[1] = st.tot_den;
 #pragma unroll
-    for (int d = 0; d < D; ++d) p[2 + d] = st.tot[d];
+    for (int d = 0; d < D; ++d)
+      if (d < Dr) p[2 + d] = st.tot[d];
   }
 }
 
-// Merge the N-split partials of the encode: one thread per (g, m) row.
-template <typename TZ, int D>
+// Merge the N-split partials of the encode: one thread per (g, m) row; `raw`
+// writes the merged numerator against the merged max, as the unsplit grid does.
+template <typename TZ, int D, bool EXACT>
 __global__ void combine_kernel(const float* __restrict__ part, TZ* __restrict__ z,
                                float* __restrict__ mx_out, float* __restrict__ den_out,
-                               long long rows, int splits) {
+                               long long rows, int splits, int d_run, bool raw) {
+  const int Dr = EXACT ? D : d_run;
   const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= rows) return;
   float mx = NEG_INF;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part[(s * rows + row) * (D + 2)]);
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part[(s * rows + row) * (Dr + 2)]);
   float den = 0.f, acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
   for (int s = 0; s < splits; ++s) {
-    const float* p = part + (s * rows + row) * (D + 2);
+    const float* p = part + (s * rows + row) * (Dr + 2);
     const float w = __expf(p[0] - mx);
     den = fmaf(w, p[1], den);
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = fmaf(w, p[2 + d], acc[d]);
+    for (int d = 0; d < D; ++d)
+      if (d < Dr) acc[d] = fmaf(w, p[2 + d], acc[d]);
   }
-  const float inv = 1.f / den;
+  const float inv = raw ? 1.f : 1.f / den;
 #pragma unroll
-  for (int d = 0; d < D; ++d) z[row * D + d] = from_f<TZ>(acc[d] * inv);
+  for (int d = 0; d < D; ++d)
+    if (d < Dr) z[row * Dr + d] = from_f<TZ>(acc[d] * inv);
   if (mx_out != nullptr) {
     mx_out[row] = mx;
     den_out[row] = den;
@@ -196,29 +225,30 @@ __global__ void combine_kernel(const float* __restrict__ part, TZ* __restrict__ 
 // Decode. Grid (ceil(N / DEC_THREADS), B*H); thread = token n of group g:
 // y[b, h, n, :] = softmax_m(k_n . q_m) z[g, m, :], online over latent tiles
 // of the head's Q and the group's Z staged in shared memory.
-template <typename T, typename TZ, int D>
+template <typename T, typename TZ, int D, bool EXACT>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const TZ* __restrict__ z,
-              T* __restrict__ y, float* __restrict__ lse_out, int H, int M, int N, Strides ks,
-              Strides ys) {
+              T* __restrict__ y, float* __restrict__ lse_out, int H, int M, int N, int d_run,
+              Strides ks, Strides ys) {
   constexpr int TM = TILE_FLOATS / D;
+  const int Dr = EXACT ? D : d_run;
   __shared__ float q_s[TILE_FLOATS];
   __shared__ float z_s[TILE_FLOATS];
   const int g = blockIdx.y, b = g / H, h = g % H;
   const int n = blockIdx.x * DEC_THREADS + threadIdx.x;
-  const T* qh = q + (long long)h * M * D;
-  const TZ* zg = z + (long long)g * M * D;
+  const T* qh = q + (long long)h * M * Dr;
+  const TZ* zg = z + (long long)g * M * Dr;
 
   float x[D];
   const T* kn = k + b * ks.b + h * ks.h + (long long)n * ks.n;
 #pragma unroll
-  for (int d = 0; d < D; ++d) x[d] = n < N ? to_f(kn[d]) : 0.f;
+  for (int d = 0; d < D; ++d) x[d] = (n < N && d < Dr) ? to_f(kn[d]) : 0.f;
   Online<D> st;
   for (int m0 = 0; m0 < M; m0 += TM) {
     const int tm = min(TM, M - m0);
     __syncthreads();
-    stage<T, D>(q_s, qh, D, m0, tm, TM);
-    stage<TZ, D>(z_s, zg, D, m0, tm, TM);
+    stage<T, D>(q_s, qh, Dr, m0, tm, TM, Dr);
+    stage<TZ, D>(z_s, zg, Dr, m0, tm, TM, Dr);
     __syncthreads();
     for (int c0 = 0; c0 < tm; c0 += CH)
       st.chunk(x, q_s + c0 * D, z_s + c0 * D, min(CH, tm - c0));
@@ -228,57 +258,56 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const TZ* __rest
   const float inv = 1.f / st.tot_den;
   T* yn = y + b * ys.b + h * ys.h + (long long)n * ys.n;
 #pragma unroll
-  for (int d = 0; d < D; ++d) yn[d] = from_f<T>(st.tot[d] * inv);
+  for (int d = 0; d < D; ++d)
+    if (d < Dr) yn[d] = from_f<T>(st.tot[d] * inv);
   if (lse_out != nullptr) lse_out[(long long)g * N + n] = st.tot_mx + logf(st.tot_den);
 }
 
-template <typename T, typename TZ, int D>
+template <typename T, typename TZ, int D, bool EXACT>
 cudaError_t encode_launch(const void* q, const void* k, const void* v, void* z, float* mx,
-                          float* den, float* part, int B, int H, int M, int N, Strides ks,
-                          Strides vs, int splits, cudaStream_t stream) {
+                          float* den, float* part, int B, int H, int M, int N, int Dr,
+                          Strides ks, Strides vs, int splits, bool raw, cudaStream_t stream) {
   const int split_len = cdiv(N, splits);
   dim3 grid(cdiv(M, ENC_THREADS), B * H, splits);
-  encode_kernel<T, TZ, D><<<grid, ENC_THREADS, 0, stream>>>(
+  encode_kernel<T, TZ, D, EXACT><<<grid, ENC_THREADS, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (TZ*)z, mx, den, splits > 1 ? part : nullptr,
-      H, M, N, ks, vs, split_len);
+      H, M, N, Dr, ks, vs, split_len, raw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long rows = (long long)B * H * M;
-  combine_kernel<TZ, D><<<cdiv(rows, 256), 256, 0, stream>>>(part, (TZ*)z, mx, den, rows,
-                                                              splits);
+  combine_kernel<TZ, D, EXACT><<<cdiv(rows, 256), 256, 0, stream>>>(part, (TZ*)z, mx, den,
+                                                                     rows, splits, Dr, raw);
   return cudaGetLastError();
 }
 
-template <typename T, typename TZ, int D>
+template <typename T, typename TZ, int D, bool EXACT>
 cudaError_t decode_launch(const void* q, const void* k, const void* z, void* y, float* lse,
-                          int B, int H, int M, int N, Strides ks, Strides ys,
+                          int B, int H, int M, int N, int Dr, Strides ks, Strides ys,
                           cudaStream_t stream) {
   dim3 grid(cdiv(N, DEC_THREADS), B * H);
-  decode_kernel<T, TZ, D><<<grid, DEC_THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const TZ*)z, (T*)y, lse, H, M, N, ks, ys);
+  decode_kernel<T, TZ, D, EXACT><<<grid, DEC_THREADS, 0, stream>>>(
+      (const T*)q, (const T*)k, (const TZ*)z, (T*)y, lse, H, M, N, Dr, ks, ys);
   return cudaGetLastError();
 }
 
-// The head dims the kernels are built for: the paper's 4 and 8.
+// Any D from 1 to 64, at its padded width (flare_common.cuh).
 template <typename T, typename TZ>
 cudaError_t encode_d(int D, const void* q, const void* k, const void* v, void* z, float* mx,
                      float* den, float* part, int B, int H, int M, int N, Strides ks,
-                     Strides vs, int splits, cudaStream_t s) {
-  switch (D) {
-    case 4: return encode_launch<T, TZ, 4>(q, k, v, z, mx, den, part, B, H, M, N, ks, vs, splits, s);
-    case 8: return encode_launch<T, TZ, 8>(q, k, v, z, mx, den, part, B, H, M, N, ks, vs, splits, s);
-    default: return cudaErrorInvalidValue;
-  }
+                     Strides vs, int splits, bool raw, cudaStream_t s) {
+  return at_width(D, [&](auto w, auto exact) {
+    return encode_launch<T, TZ, decltype(w)::value, decltype(exact)::value>(
+        q, k, v, z, mx, den, part, B, H, M, N, D, ks, vs, splits, raw, s);
+  });
 }
 
 template <typename T, typename TZ>
 cudaError_t decode_d(int D, const void* q, const void* k, const void* z, void* y, float* lse,
                      int B, int H, int M, int N, Strides ks, Strides ys, cudaStream_t s) {
-  switch (D) {
-    case 4: return decode_launch<T, TZ, 4>(q, k, z, y, lse, B, H, M, N, ks, ys, s);
-    case 8: return decode_launch<T, TZ, 8>(q, k, z, y, lse, B, H, M, N, ks, ys, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return at_width(D, [&](auto w, auto exact) {
+    return decode_launch<T, TZ, decltype(w)::value, decltype(exact)::value>(
+        q, k, z, y, lse, B, H, M, N, D, ks, ys, s);
+  });
 }
 
 }  // namespace
@@ -306,13 +335,35 @@ int flare_encode(const void* q, const void* k, const void* v, void* z, float* mx
   const Strides ks{ksb, ksh, ksn}, vs{vsb, vsh, vsn};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == F32 && zdtype == F32)
-    return encode_d<float, float>(D, q, k, v, z, mx, den, part, B, H, M, N, ks, vs, splits, s);
+    return encode_d<float, float>(D, q, k, v, z, mx, den, part, B, H, M, N, ks, vs, splits,
+                                  false, s);
   if (dtype == BF16 && zdtype == BF16)
     return encode_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, z, mx, den, part, B, H, M, N,
-                                                  ks, vs, splits, s);
+                                                  ks, vs, splits, false, s);
   if (dtype == BF16 && zdtype == F32)
     return encode_d<__nv_bfloat16, float>(D, q, k, v, z, mx, den, part, B, H, M, N, ks, vs,
-                                          splits, s);
+                                          splits, false, s);
+  return cudaErrorInvalidValue;
+}
+
+// A rank's encode statistics (the sharded forward's first kernel): as
+// flare_encode with fp32 output, but num [B, H, M, D] holds the numerator
+// sum_n exp(s - mx) v_n before the normalisation, with mx and den [B, H, M]
+// (all required, fp32, contiguous). The same grid, splits and scratch.
+int flare_enc_stats(const void* q, const void* k, const void* v, float* num, float* mx,
+                    float* den, float* part, int B, int H, int M, int N, int D, long long ksb,
+                    long long ksh, long long ksn, long long vsb, long long vsh, long long vsn,
+                    int splits, int dtype, void* stream) {
+  if (splits < 1 || (splits > 1 && part == nullptr) || mx == nullptr || den == nullptr)
+    return cudaErrorInvalidValue;
+  const Strides ks{ksb, ksh, ksn}, vs{vsb, vsh, vsn};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == F32)
+    return encode_d<float, float>(D, q, k, v, num, mx, den, part, B, H, M, N, ks, vs, splits,
+                                  true, s);
+  if (dtype == BF16)
+    return encode_d<__nv_bfloat16, float>(D, q, k, v, num, mx, den, part, B, H, M, N, ks, vs,
+                                          splits, true, s);
   return cudaErrorInvalidValue;
 }
 

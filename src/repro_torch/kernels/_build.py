@@ -37,6 +37,9 @@ _SIGNATURES = {
     "flare_encode": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 3 + [_P],
     "flare_decode": [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_I] * 2 + [_P],
     "flare_fused_bwd": [_P] * 14 + [_I] * 5 + [_PLL] + [_I] * 2 + [_P],
+    "flare_enc_stats": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 2 + [_P],
+    "flare_bwd_dz": [_P] * 6 + [_I] * 5 + [_PLL] + [_I] * 2 + [_P],
+    "flare_bwd_grads": [_P] * 14 + [_I] * 5 + [_PLL] + [_I] * 2 + [_P],
     "flare_causal_splits": [_I],
     "flare_causal": [_P] * 6 + [_I] * 5 + [_LL] * 9 + [_I] + [_P],
     "paged_attention_splits": [_I] * 5,

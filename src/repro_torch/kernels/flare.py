@@ -28,7 +28,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flare_decode_ref, flare_encode_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (4, 8)   # the head dims csrc/flare.cu is built for (the paper's)
+# the head dims csrc/flare.cu and csrc/flare_bwd.cu take: any D from 1 to 64,
+# run at the padded width 4, 8, 16, 32 or 64 above it (flare_common.cuh)
+HEAD_DIMS = range(1, 65)
 MAX_GROUPS = 65535   # B*H rides on gridDim.y
 
 
@@ -100,23 +102,35 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def encode_into(q, k, v, z, mx=None, den=None) -> None:
+def encode_splits(k: torch.Tensor, m: int) -> int:
+    """The token splits of the per-latent kernels (the encode, and the
+    backward's passes a and c) for k [B, H, N, D] on its card."""
+    b, h, n, _ = k.shape
+    sms = torch.cuda.get_device_properties(k.device).multi_processor_count
+    return _build.lib().flare_encode_splits(b * h, m, n, sms)
+
+
+def encode_into(q, k, v, z, mx=None, den=None, *, raw: bool = False) -> None:
     """Launch the encode (and, when N is split, its combine) into ``z``
     [B, H, M, D] (v's dtype or fp32), and the per-latent max and den into
-    ``mx``/``den`` [B, H, M] fp32 when given. Operands already checked."""
+    ``mx``/``den`` [B, H, M] fp32 when given. ``raw``: z fp32 receives the
+    numerator before the normalisation (mx and den required), the
+    statistics a rank of a sharded mixer merges. Operands already checked."""
     b, h, n, d = k.shape
     m = q.shape[1]
     lib = _build.lib()
-    sms = torch.cuda.get_device_properties(k.device).multi_processor_count
-    splits = lib.flare_encode_splits(b * h, m, n, sms)
+    splits = encode_splits(k, m)
     part = (torch.empty(splits * b * h * m * (d + 2), dtype=torch.float32, device=k.device)
             if splits > 1 else None)
-    err = lib.flare_encode(
-        ptr(q), ptr(k), ptr(v), ptr(z), ptr(mx), ptr(den), ptr(part),
-        b, h, m, n, d, *k.stride()[:3], *v.stride()[:3],
-        splits, DTYPE_CODES[q.dtype], DTYPE_CODES[z.dtype],
-        torch.cuda.current_stream(k.device).cuda_stream)
-    _build.check(err, "flare_encode")
+    stream = torch.cuda.current_stream(k.device).cuda_stream
+    common = (b, h, m, n, d, *k.stride()[:3], *v.stride()[:3], splits, DTYPE_CODES[q.dtype])
+    if raw:
+        err = lib.flare_enc_stats(ptr(q), ptr(k), ptr(v), ptr(z), ptr(mx), ptr(den), ptr(part),
+                                  *common, stream)
+    else:
+        err = lib.flare_encode(ptr(q), ptr(k), ptr(v), ptr(z), ptr(mx), ptr(den), ptr(part),
+                               *common, DTYPE_CODES[z.dtype], stream)
+    _build.check(err, "flare_enc_stats" if raw else "flare_encode")
 
 
 def decode_into(q, k, z, y, lse=None) -> None:

@@ -42,6 +42,7 @@ from repro_torch.kernels.flare import (
     check_operands,
     decode_into,
     encode_into,
+    encode_splits,
     forbid_grad,
     heads_out,
     on_cuda,
@@ -85,6 +86,13 @@ def _check_residuals(name, q, k, z, mx, den, lse) -> None:
             raise ValueError(f"{name}: {key} must be {list(want[key])}, got {tuple(t.shape)}")
 
 
+def bwd_strides(*ts: torch.Tensor):
+    """The (b, h, n) strides of k, v, y, dy, dk and dv, in that order, as the
+    backward's C entry points take them (any of the six may be None)."""
+    return (ctypes.c_longlong * 18)(*(s for t in ts for s in (t.stride()[:3] if t is not None
+                                                              else (0, 0, 0))))
+
+
 def flare_fused_bwd(q, k, v, z, mx, den, lse, y, dy):
     """The backward of :func:`flare_fused_fwd` from its residuals: q [H, M, D];
     k, v, y, dy [B, H, N, D] (any strides); z, mx, den, lse as the forward
@@ -101,19 +109,17 @@ def flare_fused_bwd(q, k, v, z, mx, den, lse, y, dy):
     b, h, n, d = k.shape
     m = q.shape[1]
     dev = k.device
-    lib = _build.lib()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = lib.flare_encode_splits(b * h, m, n, sms)
+    splits = encode_splits(k, m)
     dq = torch.empty((h, m, d), dtype=q.dtype, device=dev)
     dk = heads_out(b, h, n, d, k.dtype, dev)
     dv = heads_out(b, h, n, d, v.dtype, dev)
     dz = torch.empty((b, h, m, d), dtype=torch.float32, device=dev)
     part = torch.empty(splits * b * h * m * d, dtype=torch.float32, device=dev)
-    strides = (ctypes.c_longlong * 18)(*(s for t in (k, v, y, dy, dk, dv) for s in t.stride()[:3]))
-    err = lib.flare_fused_bwd(
+    err = _build.lib().flare_fused_bwd(
         ptr(q), ptr(k), ptr(v), ptr(z), ptr(mx), ptr(den), ptr(lse), ptr(y), ptr(dy),
-        ptr(dq), ptr(dk), ptr(dv), ptr(dz), ptr(part), b, h, m, n, d, strides, splits,
-        DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        ptr(dq), ptr(dk), ptr(dv), ptr(dz), ptr(part), b, h, m, n, d,
+        bwd_strides(k, v, y, dy, dk, dv), splits, DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flare_fused_bwd")
     flare_fused_bwd.launches += 1
     return dq, dk, dv

@@ -19,10 +19,17 @@ from repro_torch.kernels.attention import flash_attention as flash_kernel
 from repro_torch.kernels.flare import flare_decode, flare_encode
 from repro_torch.kernels.flare_causal import flare_causal_chunk
 from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
+from repro_torch.kernels.flare_packed_shard import (
+    flare_enc_stats,
+    flare_shard_decode,
+    flare_shard_dz,
+    flare_shard_grads,
+)
 from repro_torch.kernels.paged_attention import paged_attention
 
 KERNELS = (flare_encode, flare_decode, flare_fused_fwd, flare_fused_bwd, flare_causal_chunk,
-           paged_attention, flash_kernel)
+           paged_attention, flash_kernel, flare_enc_stats, flare_shard_decode, flare_shard_dz,
+           flare_shard_grads)
 
 
 def flare_mixer_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

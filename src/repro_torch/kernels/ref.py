@@ -64,6 +64,39 @@ def flare_fused_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return y, z, mx, den, lse
 
 
+def flare_enc_stats_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """A rank's encode statistics over its tokens (the math of
+    ``_enc_stats_kernel``): q [H, M, D], k/v [B, H, N, D] -> (num
+    [B, H, M, D], mx [B, H, M], den [B, H, M]), fp32 (fp64 for fp64 inputs),
+    where mx = max_n s, num = sum_n exp(s - mx) v_n, den = sum_n exp(s - mx):
+    the numerator before the normalisation."""
+    s = _scores(q, k)
+    mx = s.amax(dim=-1)
+    p = torch.exp(s - mx[..., None])
+    return torch.einsum("bhmn,bhnd->bhmd", p, _wide(v)), mx, p.sum(dim=-1)
+
+
+def combine_stats_ref(num: torch.Tensor, mx: torch.Tensor, den: torch.Tensor):
+    """Merge S ranks' encode statistics stacked on a leading axis (num
+    [S, B, H, M, D], mx and den [S, B, H, M]) -> (Z [B, H, M, D], the
+    global max and den [B, H, M]): gmax = max mx,
+    Z = sum num e^(mx - gmax) / sum den e^(mx - gmax)."""
+    gmax = mx.amax(dim=0)
+    scale = torch.exp(mx - gmax)
+    gden = (den * scale).sum(dim=0)
+    return (num * scale[..., None]).sum(dim=0) / gden[..., None], gmax, gden
+
+
+def flare_decode_stats_ref(q: torch.Tensor, k: torch.Tensor, z: torch.Tensor):
+    """The decode with each token's log-sum-exp over the latents (the
+    sharded forward's decode against the merged Z): -> (y [B, H, N, D] in
+    k's dtype, lse [B, H, N] fp32, fp64 for fp64 inputs)."""
+    s = _scores(q, k)
+    lse = torch.logsumexp(s, dim=-2)
+    y = torch.einsum("bhmn,bhmd->bhnd", torch.exp(s - lse[:, :, None]), _wide(z))
+    return y.to(k.dtype), lse
+
+
 def _chunks(n: int, chunk):
     step = n if chunk is None else chunk
     return [slice(n0, min(n, n0 + step)) for n0 in range(0, n, step)]

@@ -1,10 +1,19 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch flare_pde [--smoke]``.
 
-Counterpart of ``repro/launch/train.py`` on one device. It trains on
-``cuda`` unless ``--device cpu`` is given, and raises where there is no
-CUDA device rather than falling back to the CPU. ``--smoke`` trains the
-reduced config of the same family (CPU-runnable). Data: Darcy batches on a
-16x16 grid, step-keyed, as the JAX launcher feeds the pde family.
+Counterpart of ``repro/launch/train.py``. It trains on ``cuda`` unless
+``--device cpu`` is given, and raises where there is no CUDA device rather
+than falling back to the CPU. ``--smoke`` trains the reduced config of the
+same family (CPU-runnable). Data: Darcy batches on a 16x16 grid, step-keyed,
+as the JAX launcher feeds the pde family.
+
+``--mesh host`` trains sequence-parallel over every rank of the world, one
+process a rank, as ``torchrun`` starts them (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``; NCCL on CUDA, gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node=1 -m repro_torch.launch.train --arch flare_pde \
+        --mesh host --mixer packed_shard
+
+``single`` and ``multi`` are the production meshes of 256 and 512 ranks.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ from repro_torch.data.pde_data import darcy_batch
 from repro_torch.models.api import get_model
 from repro_torch.train.trainer import Trainer
 
+GRID = 16   # the Darcy grid: N = GRID**2 points an example
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -33,10 +44,12 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
                                                    "repro_torch_train_ckpt"))
+    ap.add_argument("--mesh", choices=["none", "host", "single", "multi"], default="none",
+                    help="train sequence-parallel over the ranks of the world")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mixer", default=None,
                     help="FLARE mixer backend preference, comma-separated "
-                         "(e.g. 'packed,sdpa'); default: auto")
+                         "(e.g. 'packed,sdpa', or 'packed_shard' with --mesh); default: auto")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="record per-step train spans and write Chrome-trace-event JSON here")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
@@ -47,14 +60,26 @@ def main(argv=None):
         raise SystemExit("no CUDA device: pass --device cpu to train on the CPU")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    device, mesh, rank = args.device, None, 0
+    if args.mesh != "none":
+        from repro_torch.distributed.compat import init
+        from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+        init(args.device)
+        rank = torch.distributed.get_rank()
+        if args.device == "cuda":
+            device = f"cuda:{torch.cuda.current_device()}"
+        mesh = (make_host_mesh(device_type=args.device) if args.mesh == "host" else
+                make_production_mesh(multi_pod=args.mesh == "multi", device_type=args.device))
     policy = None
     if args.mixer:
         from repro_torch.core.policy import MixerPolicy
 
         policy = MixerPolicy(backends=tuple(args.mixer.split(",")))
-    model = get_model(cfg, policy=policy, device=args.device)
-    print(f"mixer plans (resolved once at build): train={model.plans['train'].describe()} "
-          f"infer={model.plans['infer'].describe()}")
+    model = get_model(cfg, policy=policy, device=device, mesh=mesh, seq_len_hint=GRID * GRID)
+    if rank == 0:
+        print(f"mixer plans (resolved once at build): train={model.plans['train'].describe()} "
+              f"infer={model.plans['infer'].describe()}")
 
     tcfg = TrainConfig(steps=args.steps, learning_rate=args.lr,
                        checkpoint_every=max(10, args.steps // 4),
@@ -64,9 +89,13 @@ def main(argv=None):
         from repro_torch.obs.trace import Tracer
 
         tracer = Tracer()
-    trainer = Trainer(model, tcfg, num_microbatches=args.microbatches, tracer=tracer)
-    history = trainer.fit(lambda step: darcy_batch(0, step % 16, args.global_batch, grid=16,
-                                                   cg_iters=100, device=args.device))
+    trainer = Trainer(model, tcfg, mesh, num_microbatches=args.microbatches, tracer=tracer)
+    history = trainer.fit(lambda step: darcy_batch(0, step % 16, args.global_batch, grid=GRID,
+                                                   cg_iters=100, device=device))
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+    if rank != 0:
+        return
     if history:
         print(f"\n{cfg.name}: {len(history)} steps, "
               f"loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}")

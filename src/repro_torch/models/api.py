@@ -17,7 +17,13 @@ the gqa decoder (``dense``, e.g. qwen2):
     logits, pool = m.prefill_into(net, batch, pool, slots, capacity=capacity)
 
 The train plan is always resolved with ``requires_grad=True``, so training
-never lands on a forward-only kernel. PDE: on the card both plans resolve
+never lands on a forward-only kernel. PDE under a mesh
+(``get_model(cfg, mesh=mesh)``): both plans are resolved with it, so only
+sharded backends serve (``packed_shard`` through the kernels, or the plain
+``seqparallel``); every rank runs the model on its slice of each example's
+tokens (``distributed.sharding.shard_tokens``), and ``loss`` sums the relative L2's
+squares over the token ranks. The mesh's ``"model"`` axis must be 1: the
+port's model keeps its heads whole. PDE: on the card both plans resolve
 to ``packed`` (the fused forward kernel, and under ``loss`` its fused
 backward kernel through autograd); on the CPU to the plain ``sdpa``. A
 policy that can only serve inference (``pallas``) still builds, and
@@ -53,6 +59,8 @@ class Model:
     loss: Callable[..., torch.Tensor]
     # resolved mixer plans: {"infer": ...[, "train": ...]}
     plans: Mapping[str, Any] = field(default_factory=dict)
+    # the mesh whose token axes the model's plans split over, or None
+    mesh: Any = None
     # serving entry points (the LMs); None for the PDE family
     prefill: Optional[Callable[..., Any]] = None
     decode_step: Optional[Callable[..., Any]] = None
@@ -77,7 +85,7 @@ def make_prefill_into(prefill, init_caches):
 
 
 def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
-                   seq_len_hint: Optional[int]):
+                   seq_len_hint: Optional[int], mesh=None):
     from repro_torch.core.dispatch import MixerPlan, MixerShape
     from repro_torch.core.policy import resolve_policy
 
@@ -92,10 +100,11 @@ def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
     shape = MixerShape(batch=1, heads=heads, tokens=seq_len_hint or DEFAULT_TOKENS_HINT,
                        latents=latents, head_dim=cfg.d_model // heads)
     kind = device.type
-    plans = {"infer": resolve_policy(policy, shape, dtype, device=kind, causal=causal)}
+    plans = {"infer": resolve_policy(policy, shape, dtype, device=kind, causal=causal,
+                                     mesh=mesh)}
     try:
         plans["train"] = resolve_policy(policy, shape, dtype, device=kind, requires_grad=True,
-                                        causal=causal)
+                                        causal=causal, mesh=mesh)
         train_error = None
     except ValueError as e:
         train_error = e
@@ -107,16 +116,29 @@ def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
 
 
 def get_model(cfg: ModelConfig, *, policy=None, device=None,
-              seq_len_hint: Optional[int] = None) -> Model:
+              seq_len_hint: Optional[int] = None, mesh=None) -> Model:
     """``policy``: a MixerPolicy, a MixerPlan, or None (the ambient policy),
-    resolved here once for ``device`` (default ``"cuda"``)."""
+    resolved here once for ``device`` (default ``"cuda"``) and, for the PDE
+    family, ``mesh`` (a DeviceMesh whose token axes split each example)."""
     if cfg.family not in ("pde", "flare_lm", "dense"):
         raise ValueError(f"family {cfg.family!r} is not ported; the port has 'pde', "
                          "'flare_lm' and 'dense'")
     if cfg.family == "dense" and cfg.attn.kind != "gqa":
         raise ValueError(f"the port's dense family has gqa attention, not {cfg.attn.kind!r}")
+    group = None
+    if mesh is not None:
+        from repro_torch.distributed.compat import axis_group, axis_size
+        from repro_torch.distributed.sharding import fsdp_axes
+
+        if cfg.family != "pde":
+            raise ValueError(f"the port runs {cfg.family} on one device; meshes serve the "
+                             "pde family")
+        if "model" in mesh.mesh_dim_names and axis_size(mesh, "model") > 1:
+            raise ValueError("the port's model keeps its heads whole: the mesh's 'model' axis "
+                             f"must be 1, not {axis_size(mesh, 'model')}")
+        group = axis_group(mesh, fsdp_axes(mesh))
     dev = torch.device("cuda" if device is None else device)
-    plans, train_error = _resolve_plans(cfg, policy, dev, seq_len_hint)
+    plans, train_error = _resolve_plans(cfg, policy, dev, seq_len_hint, mesh)
     if cfg.family in ("flare_lm", "dense"):
         return _lm(cfg, dev, plans)
     from repro_torch.models import pde
@@ -136,9 +158,9 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
             raise ValueError("this model was built with an inference-only mixer policy "
                              f"and cannot train: {train_error}")
         pred = pde.surrogate_forward(net, batch["x"], policy=plans["train"])
-        return pde.relative_l2(pred, batch["y"])
+        return pde.relative_l2(pred, batch["y"], group=group)
 
-    return Model(cfg=cfg, init=init, forward=forward, loss=loss, plans=plans)
+    return Model(cfg=cfg, init=init, forward=forward, loss=loss, plans=plans, mesh=mesh)
 
 
 def _lm(cfg: ModelConfig, dev: torch.device, plans) -> Model:

@@ -48,8 +48,20 @@ def surrogate_forward(model: Surrogate, x: torch.Tensor, *, policy=None) -> torc
     return resmlp(model.out_proj, layernorm(model.out_norm, h))
 
 
-def relative_l2(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """Paper Eq. 21/22, averaged over the batch."""
-    num = (pred - target).square().sum(dim=(-2, -1)).sqrt()
-    den = target.square().sum(dim=(-2, -1)).sqrt()
-    return (num / den.clamp_min(1e-12)).mean()
+def relative_l2(pred: torch.Tensor, target: torch.Tensor, *, group=None) -> torch.Tensor:
+    """Paper Eq. 21/22, averaged over the batch. ``group``: the ranks that
+    hold the other tokens of each example (``pred`` and ``target`` are this
+    rank's slice). The norms need the squares summed over every token before
+    the square root, so the other ranks' sums come in by a collective; they
+    come in detached, so that each rank's loss carries the gradient of its
+    own tokens only and the ranks' gradients sum to the global one (a
+    differentiable sum would give each rank the whole gradient)."""
+    sq = (pred - target).square().sum(dim=(-2, -1))
+    ysq = target.square().sum(dim=(-2, -1))
+    if group is not None:
+        from repro_torch.distributed.compat import all_reduce_sum_
+
+        both = all_reduce_sum_(torch.stack([sq.detach(), ysq.detach()]), group)
+        sq = sq + (both[0] - sq.detach())
+        ysq = both[1]
+    return (sq.sqrt() / ysq.sqrt().clamp_min(1e-12)).mean()

@@ -1,8 +1,15 @@
-"""Fault-tolerant training loop on one device.
+"""Fault-tolerant training loop, on one device or sequence-parallel over a mesh.
 
-Counterpart of ``repro/train/trainer.py`` without the mesh (multi-device is
-later work) and without gradient compression:
+Counterpart of ``repro/train/trainer.py`` without gradient compression:
   - step-keyed data: ``batch_fn(step)``, so a restart sees the same batches;
+  - with a mesh (``Trainer(model, tcfg, mesh)``, the model built with the
+    same mesh): every rank holds the whole model and takes its slice of each
+    example's tokens of ``batch_fn(step)``; the gradients are summed over
+    the ranks before clipping, so the clip sees the global norm. The JAX
+    trainer shards parameters FSDP-style and lets GSPMD reshard the tokens;
+    the port is explicitly sequence-parallel, with the same loss and update.
+    Rank 0 writes the checkpoints (the JAX layout) and every rank restores
+    them;
   - async checkpoints every ``checkpoint_every`` steps; SIGTERM/SIGINT make
     the loop stop after the current step and save once more, blocking;
   - resume from the latest checkpoint: parameters restored, the optimizer's
@@ -26,6 +33,8 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import TrainConfig
+from repro_torch.distributed.compat import axis_group, barrier, group_rank
+from repro_torch.distributed.sharding import shard_tokens
 from repro_torch.interop import from_jax_flat, jax_key, to_jax_flat
 from repro_torch.obs import annotate
 from repro_torch.obs.metrics import MetricsRegistry
@@ -41,6 +50,7 @@ class Trainer:
         self,
         model,
         tcfg: TrainConfig,
+        mesh=None,
         *,
         num_microbatches: int = 1,
         on_straggler: Optional[Callable[[int, float, float], None]] = None,
@@ -48,8 +58,13 @@ class Trainer:
         tracer=None,
         metrics=None,
     ):
+        if getattr(model, "mesh", None) is not mesh:
+            raise ValueError("the trainer's mesh must be the one the model was built with "
+                             "(get_model(cfg, mesh=mesh)): its mixer plans decide how the "
+                             "ranks share each example's tokens")
         self.model = model
         self.tcfg = tcfg
+        self.mesh = mesh
         self.num_microbatches = num_microbatches
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -85,8 +100,12 @@ class Trainer:
             log.info("resumed from step %d", last)
         self.opt_state = init_adamw(dict(self.net.named_parameters()))
         self.opt_state.step = self.step
+        # the ranks that share the parameters (all of them: heads stay whole)
+        self._group = (None if self.mesh is None
+                       else axis_group(self.mesh, self.mesh.mesh_dim_names))
         self._train_step = make_train_step(self.model.loss, self.tcfg,
-                                           num_microbatches=self.num_microbatches)
+                                           num_microbatches=self.num_microbatches,
+                                           grad_group=self._group)
         for sig in (signal.SIGTERM, signal.SIGINT):
             try:
                 signal.signal(sig, self._handle_term)
@@ -106,6 +125,8 @@ class Trainer:
             t0 = time.time()
             batch = {k: torch.as_tensor(v, device=self.device)
                      for k, v in batch_fn(self.step).items()}
+            if self.mesh is not None:
+                batch = shard_tokens(batch, self.mesh)
             t1 = time.time()   # host data feed done; device step begins
             with annotate("train/step"):
                 _, self.opt_state, metrics = self._train_step(self.net, self.opt_state, batch)
@@ -130,13 +151,22 @@ class Trainer:
             if self.step % self.tcfg.log_every == 0:
                 log.info("step %d loss %.4f gnorm %.3f lr %.2e (%.2fs)", self.step,
                          metrics["loss"], metrics["grad_norm"], metrics["lr"], dt)
-            if self.step % self.tcfg.checkpoint_every == 0:
+            if self.step % self.tcfg.checkpoint_every == 0 and self._writes:
                 self.ckpt.save(self.step, to_jax_flat(self.net.state_dict()))
                 self._m_ckpts.inc()
                 self.tracer.instant("checkpoint", cat="train", args={"step": self.step})
-        # final (blocking) save, also the preemption path
-        self.ckpt.save(self.step, to_jax_flat(self.net.state_dict()), blocking=True)
+        # final (blocking) save, also the preemption path; then every rank
+        # waits for it, so a restore on any rank sees it
+        if self._writes:
+            self.ckpt.save(self.step, to_jax_flat(self.net.state_dict()), blocking=True)
+        barrier(self._group, self.device)
         return history
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes checkpoints: rank 0 of a mesh, or the
+        only process."""
+        return group_rank(self._group) == 0
 
     def _watchdog(self, dt: float):
         self._step_times.append(dt)
@@ -149,6 +179,8 @@ class Trainer:
     def save_full_state(self):
         """Blocking save of the parameters and the optimizer moments, under
         the JAX trainer's ``params/``, ``m/`` and ``v/`` prefixes."""
+        if not self._writes:
+            return
         flat = {}
         for prefix, tensors in (("params", self.net.state_dict()), ("m", self.opt_state.m),
                                 ("v", self.opt_state.v)):

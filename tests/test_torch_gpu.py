@@ -34,13 +34,25 @@ from repro_torch.core.policy import MixerPolicy
 from repro_torch.kernels.flare import flare_decode, flare_encode
 from repro_torch.kernels.flare_causal import flare_causal_chunk
 from repro_torch.kernels.flare_packed import FlareFused, flare_fused_bwd, flare_fused_fwd
+from repro_torch.kernels.flare_packed_shard import (
+    combine_stats,
+    flare_enc_stats,
+    flare_shard_decode,
+    flare_shard_dz,
+    flare_shard_grads,
+)
 from repro_torch.kernels.ops import launch_counts
 from repro_torch.models.api import get_model
 from repro_torch.nn.modules import layernorm, resmlp
 
 pytestmark = pytest.mark.gpu
 
-SHAPES = [(2, 4, 16, 97, 8), (1, 8, 2048, 4099, 8), (2, 3, 24, 300, 4), (1, 2, 64, 3000, 4)]
+# (B, H, M, N, D): D 4 and 8 (the paper's, instances of their own), then the
+# padded widths and the head dims between them (any other D from 1 to 64
+# runs at the next of 4, 8, 16, 32, 64, its lanes beyond D zero)
+SHAPES = [(2, 4, 16, 97, 8), (1, 8, 2048, 4099, 8), (2, 3, 24, 300, 4), (1, 2, 64, 3000, 4),
+          (2, 3, 24, 300, 3), (1, 2, 40, 500, 12), (2, 2, 64, 1000, 16), (1, 2, 33, 700, 24),
+          (1, 2, 128, 2000, 32), (1, 2, 96, 1500, 64), (1, 2, 16, 97, 1), (2, 3, 24, 300, 6)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -79,8 +91,7 @@ def test_kernels_match_plain(cuda, shape, dtype):
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
     after = launch_counts()
     assert all(after[name] == before[name]
-               + (name not in ("flare_fused_bwd", "flare_causal_chunk", "paged_attention",
-                               "flash_attention"))
+               + (name in ("flare_encode", "flare_decode", "flare_fused_fwd"))
                for name in after)
 
 
@@ -118,7 +129,7 @@ def test_contiguous_operands_and_fp32_z(cuda):
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):
-    q, k, v = _inputs((1, 2, 16, 33, 12), torch.float32, cuda)     # D=12 is not built
+    q, k, v = _inputs((1, 2, 16, 33, 65), torch.float32, cuda)     # D above 64 is not built
     with pytest.raises(ValueError, match="head dim"):
         flare_fused_fwd(q, k, v)
     q, k, v = _inputs((1, 2, 16, 33, 8), torch.float32, cuda)
@@ -412,3 +423,69 @@ def test_qwen2_prefill_pallas_matches_chunked(cuda):
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
     for a, b in zip(caches.layers, want_caches.layers):
         torch.testing.assert_close(a.k, b.k, atol=2e-2, rtol=2e-2)
+
+
+# the sharded mixer's four entry points (kernels/flare_packed_shard.py):
+# ragged N, the N-split at 70,000 tokens, a widened D
+SHARD_SHAPES = [(2, 4, 16, 97, 8), (1, 2, 300, 70000, 8), (2, 3, 24, 301, 12)]
+
+
+def _max_rel(got, want) -> float:
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+def test_shard_entry_points_on_one_rank_equal_the_fused_kernels(cuda, shape, dtype):
+    """On a group of one the merge scales by exp(0) and forms Z as num * (1/den),
+    as the encode does: the pipeline is the fused kernels' own arithmetic
+    (held at 1e-6 of max |.|; expected bit-identical)."""
+    q, k, v = _inputs(shape, dtype, cuda)
+    dy = torch.randn(k.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    y, z, mx, den, lse = flare_fused_fwd(q, k, v)
+    before = launch_counts()
+    zs, gmx, gden = combine_stats(*flare_enc_stats(q, k, v), None)
+    ys, lses = flare_shard_decode(q, k, zs)
+    dz = flare_shard_dz(q, k, lses, dy)
+    got = flare_shard_grads(q, k, v, zs, gmx, gden, lses, ys, dy, dz)
+    after = launch_counts()
+    assert all(after[n] == before[n] + 1 for n in ("flare_enc_stats", "flare_shard_decode",
+                                                     "flare_shard_dz", "flare_shard_grads"))
+    for g, w in zip((zs, gmx, gden, ys, lses), (z, mx, den, y, lse)):
+        assert g.dtype == w.dtype and _max_rel(g, w) <= 1e-6
+    for g, w in zip(got, flare_fused_bwd(q, k, v, z, mx, den, lse, y, dy)):
+        assert g.dtype == w.dtype and _max_rel(g, w) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+def test_shard_entry_points_over_three_slices_match_plain(cuda, shape, dtype):
+    """Three ranks emulated on one card, N cut raggedly: the slices'
+    statistics merged by the plain merge, decoded per slice, dZ summed over
+    the slices, the gradients per slice; against the plain forward and
+    backward in fp64 (fp32 1e-5, bf16 2e-2 of max |.|)."""
+    q, k, v = _inputs(shape, dtype, cuda)
+    n = k.shape[2]
+    cuts = [0, n // 3 + 1, 2 * n // 3 + 1, n]
+    parts = [slice(a, b) for a, b in zip(cuts, cuts[1:])]
+    dy = torch.randn(k.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    stats = [flare_enc_stats(q, k[:, :, s], v[:, :, s]) for s in parts]
+    z, mx, den = ref.combine_stats_ref(*(torch.stack(t) for t in zip(*stats)))
+    dec = [flare_shard_decode(q, k[:, :, s], z) for s in parts]
+    dz = sum(flare_shard_dz(q, k[:, :, s], lse, dy[:, :, s]) for s, (_, lse) in zip(parts, dec))
+    grads = [flare_shard_grads(q, k[:, :, s], v[:, :, s], z, mx, den, lse, y, dy[:, :, s], dz)
+             for s, (y, lse) in zip(parts, dec)]
+    y = torch.cat([y for y, _ in dec], dim=2)
+    dq = sum(g[0].double() for g in grads)
+    dk, dv = (torch.cat([g[i] for g in grads], dim=2) for i in (1, 2))
+    wide = tuple(t.double() for t in (q, k, v))
+    y64, *res64 = ref.flare_fused_fwd_ref(*wide)
+    want = ref.flare_fused_bwd_ref(*wide, *res64, y64, dy.double(), chunk=8192)
+    limit = 1e-5 if dtype == torch.float32 else 2e-2
+    assert y.dtype == dtype and _max_rel(y, y64) <= limit
+    for g, w in zip((dq, dk, dv), want):
+        assert _max_rel(g, w) <= limit
+    # the merge must see every slice: one left out moves y past the limit
+    lost = ref.combine_stats_ref(*(torch.stack([t[0], t[2]]) for t in zip(*stats)))[0]
+    y_lost = torch.cat([flare_shard_decode(q, k[:, :, s], lost)[0] for s in parts], dim=2)
+    assert _max_rel(y_lost, y64) > limit

@@ -57,3 +57,12 @@ def test_serving_modules_are_checked():
                  "serve/pool/paged_cache.py", "launch/serve.py", "backends/paged.py",
                  "kernels/paged_attention.py", "models/attention.py", "models/rope.py"):
         assert name in checked, name
+
+
+def test_sharded_modules_are_checked():
+    """The sequence-parallel slice's modules are among the files checked above."""
+    checked = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    for name in ("distributed/__init__.py", "distributed/compat.py", "distributed/sharding.py",
+                 "launch/mesh.py", "core/flare_sp.py", "kernels/flare_packed_shard.py",
+                 "backends/packed_shard.py", "backends/seqparallel.py"):
+        assert name in checked, name
