@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: the FLARE PDE
 surrogate's inference and training, the causal FLARE LM's serving,
-Qwen2-1.5B served from the paged KV pool, and the dense family's prefill
-(Qwen2-1.5B, Phi-3-mini) through the flash-attention kernel.
+Qwen2-1.5B and Phi-3-mini served from the paged KV pool, and the dense
+family's prefill (Qwen2-1.5B, Phi-3-mini) through the flash-attention
+kernels (bf16 on the tensor cores, fp32 on the CUDA cores).
 
     python3 chip_smoke.py
 
@@ -14,7 +15,9 @@ failure so the script exits non-zero:
    power limit;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc (one process per
    source, in parallel) and prints the seconds taken and ptxas's
-   register/shared-memory use of the D=8 kernels and the D=128 causal kernel;
+   register/shared-memory use and spills of the D=8 kernels, the D=128
+   causal kernel, the paged kernel and both flash kernels, and ptxas's
+   warnings;
 3. kernels on random operands: each CUDA kernel (encode, decode, fused
    forward, fused backward) against its plain PyTorch version, bf16 at full
    width (H=8, M=2048, D=8, B=1, N=40,000) and a ragged shape (M=16, N=97)
@@ -22,19 +25,24 @@ failure so the script exits non-zero:
    2e-2) and by error over the plain output's largest magnitude (fp32 1e-5,
    bf16 1e-2); the den and lse of the fused forward only by the latter;
 3b. ``kernels paged``: the paged-attention kernel on random operands, G in
-   {1, 6, 2048} x D in {8, 128}, pages fp32 / bf16 / int8 / fp8 (with
+   {1, 6, 2048} x D in {8, 24, 96, 128} (24 and 96 at the padded widths 32
+   and 128), pages fp32 / bf16 / int8 / fp8 (with
    per-row scales), with and without q2 k2, lanes of 0, 200 and 384 tokens,
    a shuffled page table whose unmapped entries point at a NaN trash row:
    fp32 queries against the plain version in fp64, bf16 queries over bf16
    pages against the plain version on the same inputs; each limit must
    reject the plain version with one page of the longest lane left out;
-3c. ``kernels flash``: the flash-attention kernel on random operands laid
-   out as the model gives them, D in {8, 24, 64, 96, 128} x (Sq, Skv) in
-   {97/97, 300/300, 128/64} x causal, full and causal with a window of 24:
-   fp32 against the plain version in fp64 and bf16 against the plain
-   version on the same operands (fp32 1e-5, bf16 1e-2 of max |plain|); each
-   limit must reject the fp64 plain version with the 64-key tile at Skv/2
-   left out, and rows that see no key must come out exactly 0;
+3c. ``kernels flash``: the flash-attention kernels on random operands laid
+   out as the model gives them, 6 query heads over 1, 2 or 6 KV heads
+   (unexpanded), D in {8, 16, 24, 32, 64, 96, 128} x (Sq, Skv) in {97/97,
+   300/300, 128/64} x causal, full and causal with a window of 24: fp32 (the
+   CUDA cores) against the plain version in fp64; bf16 on both bf16 routes
+   (the tensor cores, which ``flash_route`` must pick, and the CUDA cores)
+   against the plain version on the same operands (fp32 1e-5, bf16 1e-2 of
+   max |plain|) and beyond bf16's output rounding against the fp64 plain
+   version on the bf16 values (1e-5); each limit must reject the fp64 plain
+   version with the 64-key tile at Skv/2 left out, and rows that see no key
+   must come out exactly 0;
 4. kernels on the main path's operands: block 0's own q, k, v of the model
    at pde_40k (B=8, N=40,000) and pde_1m (B=1, N=1,048,576), fp32, every
    batch element and head, the plain versions run a head at a time. Each
@@ -74,7 +82,10 @@ failure so the script exits non-zero:
    N=4,096, loss and grad_norm per step and the parameters after;
 8. the causal kernel on random operands: bf16 at flare_lm's width (H=16,
    M=512, D=128, B=1, T=8,192) and a ragged shape (T=97, M=16, D=8) in fp32
-   and bf16, held as in phase 3;
+   and bf16, held as in phase 3; at D 24, 40 and 96 (padded widths 32, 64,
+   128) fp32 against the plain version in fp64 with a dropped-tile
+   rejection and bf16 against the plain version; its bf16 time at D=96
+   beside D=128 at flare_lm's width;
 9. ``get_model(flare_lm)`` at full width and depth (24 layers, d_model 2048,
    2.6B parameters) from seed 0, whose infer plan must be ``causal_pallas``;
    the seconds the CPU takes to draw the weights. The causal kernel on layer
@@ -121,32 +132,44 @@ failure so the script exits non-zero:
    first-step logits within 1e-3. Last, int8 and fp8 pools: first-step
    logits against the dense pool within the JAX package's envelope
    (|diff| <= 0.15 + 0.05 |ref|);
-13. ``flash``: the flash kernel on the same qwen2's layer 0 rope'd, expanded
-   q, k, v at B=1, T=32,768 (prefill_32k's length; its batch of 32 cut to
-   1), bf16 as the model runs it: widened to fp32 against the plain version
-   in fp64, a head and 4,096 queries at a time, at 1e-5 of max |plain|,
-   which must reject the fp64 plain version with the 64-key tile at T/2
-   left out; bf16 against the plain version at 1e-2, and against the fp64
-   plain version beyond bf16's output rounding (max(|o - plain| - 2**-8
-   |plain|) at 1e-5 of max |plain|), which must reject the same lost tile
-   rounded to bf16. Times of the kernel,
-   its bound, its plain version (a head at a time), ``attn_sdpa``'s
-   chunked route and ``F.scaled_dot_product_attention`` (the yardstick).
-   Then ``lm_prefill(impl="pallas")`` at B=1, T=32,768 (capacity 32,768;
-   launch counts zeroed before and read after: 28 flash launches), ms, peak
-   GiB, a profiler breakdown, last-token logits against ``impl="chunked"``
-   within 5e-2 of max |logit|; ``lm_forward(impl="pallas")`` in fp32
-   compute at B=2, T=4,096 (28 launches) against ``impl="xla"``, all
-   logits within 1e-3; 8 greedy decode steps after a pallas and an xla
-   prefill in fp32 (right-padded lengths 4,096 / 3,001): the same tokens;
+13. ``flash``: the flash kernels on the same qwen2's layer 0 rope'd q and
+   unexpanded k, v (12 query heads over 2 KV heads) at B=1, T=32,768
+   (prefill_32k's length; its batch of 32 cut to 1): widened to fp32 (the
+   CUDA cores) against the plain version in fp64, a head and 4,096 queries
+   at a time, at 1e-5 of max |plain|, which must reject the fp64 plain
+   version with the 64-key tile at T/2 left out; bf16 as the model runs it
+   (the tensor cores, the route asserted) against the plain version at
+   1e-2, and against the fp64 plain version beyond bf16's output rounding
+   (max(|o - plain| - 2**-8 |plain|) at 1e-5 of max |plain|), which must
+   reject the same lost tile rounded to bf16. Times of the tensor-core
+   kernel and the CUDA-core instance it replaces, in turns (CUDA cores,
+   tensor cores, tensor cores, CUDA cores), the two bounds (two products;
+   with the split P's third), the plain version (a head at a time),
+   ``attn_sdpa``'s chunked route and ``F.scaled_dot_product_attention``
+   (the yardstick); the fp32 route's time, plain version and SDPA. Then
+   ``lm_prefill(impl="pallas")`` at B=1, T=32,768 (capacity 32,768; launch
+   counts zeroed before and read after: 28 flash launches, all on the
+   tensor cores), ms, peak GiB, a profiler breakdown, last-token logits
+   against ``impl="chunked"`` within 5e-2 of max |logit|;
+   ``lm_forward(impl="pallas")`` in fp32 compute at B=2, T=4,096 (28
+   launches on the fp32 route) against ``impl="xla"``, all logits within
+   1e-3; 8 greedy decode steps after a pallas and an xla prefill in fp32
+   (right-padded lengths 4,096 / 3,001): the same tokens;
 14. ``phi3-mini-3.8b`` at full width and depth (32 layers, 3.82B
    parameters; the seconds to draw them printed): the flash kernel at
    D=96 on layer 0's q, k, v for the prefill's tokens (B=2, H=32, T=4,096),
-   held as in phase 13; ``lm_prefill(impl="pallas")`` at B=2, T=4,096 with right-padded lengths in bf16 (32
-   launches; ms, peak GiB, a profiler breakdown) against ``impl="xla"``
-   (5e-2), and in fp32 (1e-3) with 8 greedy decode steps after each
-   prefill: the same tokens;
-15. one JSON line of per-kernel numbers, then the card's name and power limit,
+   held as in phase 13; ``lm_prefill(impl="pallas")`` at B=2, T=4,096 with
+   right-padded lengths in bf16 (32 tensor-core launches; ms, peak GiB, a
+   profiler breakdown) against ``impl="xla"`` (5e-2), and in fp32 (1e-3)
+   with 8 greedy decode steps after each prefill: the same tokens; then
+   served from the paged pool in fp32 compute (the same weights): the paged
+   kernel at D=96 on layer 0's decode read against fp64 with a
+   dropped-page rejection and its times, and 4 requests (prompts of
+   256-1,024 tokens, 32 new tokens each) through ``ServeEngine``'s dense
+   pool and the paged kernel route (32 paged launches a decode step
+   asserted; ms a decode step, peak GiB): the greedy tokens equal;
+15. one JSON line of per-kernel numbers (12 kernels: the two flash kernels
+   are rows of their own), then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
@@ -201,6 +224,7 @@ SOURCES["flare_fused_bwd"] = "src/repro_torch/csrc/flare_bwd.cu"
 SOURCES["flare_causal_chunk"] = "src/repro_torch/csrc/flare_causal.cu"
 SOURCES["paged_attention"] = "src/repro_torch/csrc/paged_attention.cu"
 SOURCES["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
+SOURCES["flash_attention_tc"] = "src/repro_torch/csrc/flash_attention_sm90.cu"
 SOURCES.update({"flare_enc_stats": "src/repro_torch/csrc/flare.cu",
                 "flare_shard_decode": "src/repro_torch/csrc/flare.cu",
                 "flare_shard_dz": "src/repro_torch/csrc/flare_bwd.cu",
@@ -213,6 +237,7 @@ REPLACES = {
     "flare_causal_chunk": "src/repro/kernels/flare_causal.py:41",
     "paged_attention": "src/repro/kernels/paged_attention.py:64",
     "flash_attention": "src/repro/kernels/attention.py:26",
+    "flash_attention_tc": "src/repro/kernels/attention.py:26",
     "flare_enc_stats": "src/repro/kernels/flare_packed_shard.py:105",
     "flare_shard_decode": "src/repro/kernels/flare_packed_shard.py:180",
     "flare_shard_dz": "src/repro/kernels/flare_packed_shard.py:217",
@@ -222,6 +247,10 @@ PDE_KERNELS = ("flare_encode", "flare_decode", "flare_fused_fwd", "flare_fused_b
 # the causal LM (flare_lm): random operands at its width and a ragged shape
 CAUSAL_SMALL = {"bf16 full width": dict(b=1, h=16, m=512, n=8192, d=128),
                 "ragged": dict(b=2, h=4, m=16, n=97, d=8)}
+# the causal kernel at head dims it runs at a padded width (24 at 32, 40 at
+# 64, phi3's 96 at 128), fp32 against the plain version in fp64
+CAUSAL_WIDE = {24: dict(b=1, h=2, m=70, n=300, d=24), 40: dict(b=2, h=2, m=64, n=500, d=40),
+               96: dict(b=1, h=4, m=128, n=1000, d=96)}
 PEAK_BF16 = 989e12   # H100 SXM bf16 tensor cores, dense: the peak for bf16 operands
 # flare_lm logits, a kernel path against a plain path on the same weights,
 # over max |logit|: fp32 sums in another order through 24 layers (1e-3, as
@@ -233,7 +262,7 @@ GRADS = ("dq", "dk", "dv")
 # the paged-attention kernel on random operands: query rows G (1: a decode
 # read, 6: qwen2's query heads per KV head, 2048: the FLARE encode) by head
 # dim, every page dtype, with and without the second score term q2 k2
-PAGED_SMALL = [(g, d) for g in (1, 6, 2048) for d in (8, 128)]
+PAGED_SMALL = [(g, d) for g in (1, 6, 2048) for d in (8, 24, 96, 128)]
 PAGE_DTYPES = ("float32", "bfloat16", "int8", "fp8")
 PAGED_SCALE = 0.7
 # serving qwen2-1.5b (full width and depth, random weights): 16 requests, the
@@ -256,7 +285,8 @@ QUANT_ENVELOPE = dict(atol=0.15, rtol=0.05)
 QWEN2_SIZE = (28, 1_543_910_912)
 # the flash kernel on random operands: head dims, (Sq, Skv) ragged and Sq > Skv
 # (128 over 64: with a window of 24, rows >= 87 see no key), and masks
-FLASH_D = (8, 24, 64, 96, 128)
+FLASH_D = (8, 16, 24, 32, 64, 96, 128)
+FLASH_H, FLASH_HKV = 6, (1, 2, 6)   # query heads, and KV heads: MQA, GQA 3:1, MHA
 FLASH_LENGTHS = ((97, 97), (300, 300), (128, 64))
 FLASH_MASKS = {"causal": dict(causal=True, window=None),
                "full": dict(causal=False, window=None),
@@ -269,6 +299,10 @@ FLASH_QCHUNK = 4096    # query rows a block of the plain version at T=32,768
 DENSE_B, DENSE_T, DENSE_LENGTHS, DENSE_DECODE = 2, 4096, (4096, 3001), 8
 # phi3-mini-3.8b's layers and parameters (the untied head over 32,256 rows)
 PHI3_SIZE = (32, 3_822_259_200)
+# phi3 served from the paged pool through the kernel (D=96) against the
+# dense pool, fp32 compute: 4 requests of 256-1,024 prompt tokens, 32 new each
+PHI3_SERVE = dict(slots=4, capacity=1088, block_size=16, pool_tokens=4352)
+PHI3_REQUESTS, PHI3_PROMPTS, PHI3_NEW = 4, (256, 1024), 32
 # the FLARE kernels at head dims beside the paper's 8, on random operands
 WIDE_D = (3, 4, 6, 12, 16, 24, 32, 64)
 WIDE_SHAPE = dict(b=2, h=3, m=40, n=700)
@@ -319,8 +353,12 @@ def graph_ms(fn, reps: int) -> float:
 def ptxas_summary(log: str) -> list:
     """One line per FLARE kernel at D=8 (its own instance, D known at compile
     time) and at the padded width 64, causal kernel at D=8 and 128, paged
-    kernel (one per page dtype) and flash kernel (one per dtype and padded D):
-    registers, shared memory, stack frame and spills. Each figure is keyed
+    kernel (one per page dtype), the CUDA-core flash kernel (one per dtype and
+    padded D) and the tensor-core flash kernel (one per padded D; its
+    registers are those at entry, before setmaxnreg moves them to the
+    consumer warpgroups): registers, shared memory, stack frame and spills,
+    then ptxas's warnings (a wgmma it had to serialize, a setmaxnreg it
+    ignored). Each figure is keyed
     by the function that ptxas's "Function properties" line names, since
     the parallel compile can interleave the functions' lines."""
     rows, props, frame = [], None, {}
@@ -335,16 +373,27 @@ def ptxas_summary(log: str) -> list:
                 or ("causal" in props and re.search(r"Li(8|128)E", props))
                 or "paged" in props or "flash" in props):
             kind = next(k for k in ("paged_combine", "paged", "causal_combine", "causal",
-                                    "encode", "decode", "combine", "dz", "dkv", "dq", "flash")
+                                    "encode", "decode", "combine", "dz", "dkv", "dq",
+                                    "flash_tc", "flash")
                         if f"{k}_kernel" in props)
             args = props.split("_kernelI", 1)[-1]
             types = ["bf16" if t.startswith("13") else "f32"
                      for t in re.findall(r"13__nv_bfloat16|f", args.split("Li")[0])]
+            if kind == "flash_tc":
+                types = ["bf16"]
             width = re.search(r"Li(\d+)E", args)
             label = (f"{'/'.join(types)} D={width.group(1)}" if width and types
                      else props[:60])
+            if kind in ("causal", "paged") and re.search(r"Lb[01]E", args):
+                # the exact instance (D its own width) or the padded one
+                page = args.split("Lb")[0]
+                label = label if width else {"a": "i8", "f": "f32", "13__nv_bfloat16": "bf16",
+                                             "13__nv_fp8_e4m3": "fp8"}.get(page, page)
+                label += " exact" if "Lb1E" in args else " padded"
             rows.append(f"  {kind:<8} {label:<16} {m.group(1)} regs{m.group(2)}, "
                         f"{frame.get(props, 'no frame line')}")
+    rows += [f"  {line.strip()[:160]}" for line in log.splitlines()
+             if "warning" in line.lower()][:12]
     return rows
 
 
@@ -985,19 +1034,22 @@ def check_wide(checks: Checks, device) -> None:
                                          ref.flare_fused_bwd_ref(*(t.double() for t in bwd_in)),
                                          plain):
                 hold("flare_fused_bwd", what, got, w64, p, atol=None)
-    for causal in (False, True):
+    for kind in ("bidirectional, grad", "causal", "decode read"):
         picks = {}
-        for d in (8, 64, 65, 96, 128):
-            shape = MixerShape(batch=8, heads=8, tokens=40000, latents=2048, head_dim=d)
-            picks[d] = resolve_policy(None, shape, device="cuda", requires_grad=not causal,
-                                      causal=causal).backend
-        print(f"resolve auto on cuda ({'causal' if causal else 'bidirectional, grad'}): "
-              f"{picks}", flush=True)
-        want = ({8: "causal_pallas", 64: "causal_pallas", 65: "causal_stream",
-                 96: "causal_stream", 128: "causal_pallas"} if causal else
-                {8: "packed", 64: "packed", 65: "sdpa", 96: "sdpa", 128: "sdpa"})
-        if picks != want:
-            checks.failures.append(f"resolve auto (causal={causal}): {picks}, expected {want}")
+        for d in (8, 64, 65, 96, 128, 129):
+            shape = MixerShape(batch=8, heads=8, tokens=40000,
+                               latents=1 if kind == "decode read" else 2048, head_dim=d)
+            picks[d] = resolve_policy(None, shape, device="cuda",
+                                      requires_grad=kind.endswith("grad"),
+                                      causal=kind == "causal").backend
+        print(f"resolve auto on cuda ({kind}): {picks}", flush=True)
+        # the FLARE kernels take D up to 64; the causal and paged ones up to 128
+        want = {"bidirectional, grad": {d: "packed" if d <= 64 else "sdpa" for d in picks},
+                "causal": {d: "causal_pallas" if d <= 128 else "causal_stream" for d in picks},
+                "decode read": {d: "paged" for d in picks if d <= 128}}[kind]
+        got = {d: b for d, b in picks.items() if kind != "decode read" or d <= 128}
+        if got != want or (kind == "decode read" and picks[129] == "paged"):
+            checks.failures.append(f"resolve auto ({kind}): {picks}, expected {want}")
     checks.raise_failures("kernels at widened head dims")
 
 
@@ -1457,10 +1509,15 @@ def train_two_ranks(cfg) -> None:
 
 def check_causal_small(checks: Checks, device) -> None:
     """The causal kernel against its plain version on random operands: bf16
-    at flare_lm's width, and a ragged shape (T=97, M=16, D=8) in both dtypes."""
+    at flare_lm's width, and a ragged shape (T=97, M=16, D=8) in both dtypes;
+    then at the head dims it runs at a padded width (CAUSAL_WIDE: 24, 40 and
+    phi3's 96), fp32 against the plain version in fp64 (tile 256) with a
+    limit that must reject one 64-token kernel tile left out of the carried
+    state, and bf16 against the plain version. Last, the kernel's bf16 time
+    at flare_lm's width (H=16, M=512, T=8,192) at D=96 beside D=128."""
     import torch
 
-    from repro_torch.kernels.flare_causal import flare_causal_chunk
+    from repro_torch.kernels.flare_causal import TILE, flare_causal_chunk
     from repro_torch.kernels.ref import flare_causal_chunk_ref
 
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -1473,7 +1530,26 @@ def check_causal_small(checks: Checks, device) -> None:
                         flare_causal_chunk_ref(q, k, v), dtype,
                         atol=ATOL[str(dtype).removeprefix("torch.")],
                         record=dtype == torch.float32)
+    plain64 = lambda qh, kh, vh: flare_causal_chunk_ref(qh, kh, vh, tile=256)
+    for d, s in CAUSAL_WIDE.items():
+        print(f"kernels causal D={d} {s} (fp32 against the plain version in fp64):", flush=True)
+        q, k, v = inputs(s, torch.float32, gen, device)
+        wide = [t.double() for t in (q, k, v)]
+        t0 = s["n"] // 2 // TILE * TILE
+        checks.hold("flare_causal_chunk", f"y fp32 D={d}", flare_causal_chunk(q, k, v),
+                    plain64(*wide), torch.float32, atol=ATOL["float32"], record=True,
+                    fp32_plain=flare_causal_chunk_ref(q, k, v),
+                    dropped={"state tile": drop_tile(plain64, t0, TILE)(*wide)})
+        q, k, v = (t.bfloat16() for t in (q, k, v))
+        checks.hold("flare_causal_chunk", f"y bf16 D={d}", flare_causal_chunk(q, k, v),
+                    flare_causal_chunk_ref(q, k, v), torch.bfloat16, atol=ATOL["bfloat16"])
     checks.raise_failures("causal kernel on random operands")
+    times = {}
+    for d in (96, 128):
+        q, k, v = inputs(dict(CAUSAL_SMALL["bf16 full width"], d=d), torch.bfloat16, gen, device)
+        times[d] = cuda_ms(lambda: flare_causal_chunk(q, k, v), reps=5)
+    print(f"time flare_causal_chunk bf16 B=1 H=16 M=512 T=8192: D=96 {times[96]:.3f} ms, "
+          f"D=128 {times[128]:.3f} ms", flush=True)
 
 
 def lm_operands(net, cfg, tokens, dtype):
@@ -2007,25 +2083,26 @@ def path_pde_paged(cfg, net, batch, checks: Checks) -> dict:
     return counts
 
 
-def serve_requests(vocab: int, n: int, new_tokens, *, longest_first: bool):
-    """Seeded prompts of 256-2,048 tokens (uniform ids) and their max new
-    tokens."""
+def serve_requests(vocab: int, n: int, new_tokens, *, longest_first: bool, lens=PROMPT_LENS):
+    """Seeded prompts of ``lens`` tokens (256-2,048 by default; uniform ids)
+    and their max new tokens."""
     import numpy as np
 
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, n)
+    lens = rng.integers(lens[0], lens[1] + 1, n)
     if longest_first:
         lens = np.sort(lens)[::-1]
     news = rng.integers(new_tokens[0], new_tokens[1] + 1, n)
     return [(rng.integers(0, vocab, int(m)).astype(np.int32), int(k)) for m, k in zip(lens, news)]
 
 
-def serve_run(model, net, reqs, label: str, *, profile: bool = False, **kw) -> dict:
-    """One engine over the requests: launch counts zeroed just before and
-    read just after; the first decode step's logits and the slots it
-    decoded; one decode step profiled once the queue has drained (its time
-    kept out of the step mean and of tokens/s, which is over the wall of
-    every prefill and decode step)."""
+def serve_run(model, net, reqs, label: str, *, profile: bool = False, base=SERVE,
+              **kw) -> dict:
+    """One engine (``base`` settings, updated by ``kw``) over the requests:
+    launch counts zeroed just before and read just after; the first decode
+    step's logits and the slots it decoded; one decode step profiled once
+    the queue has drained (its time kept out of the step mean and of
+    tokens/s, which is over the wall of every prefill and decode step)."""
     import torch
 
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
@@ -2033,7 +2110,8 @@ def serve_run(model, net, reqs, label: str, *, profile: bool = False, **kw) -> d
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    engine = ServeEngine(model, net, **{**SERVE, **kw})
+    engine = ServeEngine(model, net, **{**base, **kw})
+    name = model.cfg.name
     for prompt, max_new in reqs:
         engine.submit(prompt, max_new_tokens=max_new)
     reset_launch_counts()
@@ -2043,7 +2121,7 @@ def serve_run(model, net, reqs, label: str, *, profile: bool = False, **kw) -> d
         if (profile and prof is None and not engine.sched.waiting
                 and len(engine.sched.running) > 1):
             s0, n0, w0 = engine.stats["decode_s"], engine.stats["decode_steps"], time.perf_counter()
-            prof = breakdown(engine.step, f"serve qwen2-1.5b {label} decode step "
+            prof = breakdown(engine.step, f"serve {name} {label} decode step "
                              f"({len(engine.sched.running)} slots busy)") or {}
             prof_s, prof_steps = engine.stats["decode_s"] - s0, engine.stats["decode_steps"] - n0
             prof_wall = time.perf_counter() - w0
@@ -2071,12 +2149,12 @@ def serve_run(model, net, reqs, label: str, *, profile: bool = False, **kw) -> d
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "stats": st, "prof": prof,
     }
     pool = st.get("pool")
-    print(f"serve qwen2-1.5b {label}: decode backend {st['decode_backend']}; {st['requests']} "
+    print(f"serve {name} {label}: decode backend {st['decode_backend']}; {st['requests']} "
           f"requests, {st['tokens_generated']} tokens in {wall:.2f} s ({out['tok_s']:.1f} tok/s); "
           f"prefill {out['prefill_ms']:.2f} ms/request; decode {out['step_ms']:.3f} ms/step over "
           f"{steps} steps; paged launches {counts['paged_attention']} ({out['per_step']:g} a "
           f"step); sample_host_syncs {st['sample_host_syncs']}; admitted_peak "
-          f"{st['admitted_peak']}/{SERVE['slots']}, page_waits {st['page_waits']}; latency "
+          f"{st['admitted_peak']}/{base['slots']}, page_waits {st['page_waits']}; latency "
           f"p50/p99 {st['latency_p50_s'] * 1e3:.1f}/{st['latency_p99_s'] * 1e3:.1f} ms; peak "
           f"{out['peak_gib']:.2f} GiB; {st['cache']}"
           + (f"; pool {pool}" if pool else ""), flush=True)
@@ -2147,24 +2225,13 @@ def init_dense_lm(arch: str, size: tuple):
     return cfg, model, net
 
 
-def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
-    """Qwen2-1.5B at full width and depth: the paged kernel on the pool's
-    own operands, then serving through the dense pool, the paged pool's
-    gather route and its kernel route in bf16 (the counted window is the
-    kernel route's), the three routes in fp32 compute (greedy tokens equal),
-    and the int8 and fp8 pools."""
+def capture_decode_read(model, net, reqs, base: dict) -> dict:
+    """Layer 0's paged-attention operands after the first decode step of an
+    engine (``base`` settings, the kernel route) over ``reqs``: captured from
+    the wrapper's first call in an uncounted engine step."""
     import torch
 
-    from repro_torch.config import replace
     from repro_torch.kernels import paged_attention as paged_module
-    from repro_torch.models.api import get_model
-
-    reqs = serve_requests(cfg.vocab, SERVE_REQUESTS, NEW_TOKENS, longest_first=True)
-    print(f"requests: {len(reqs)} prompts of {[len(p) for p, _ in reqs]} tokens, "
-          f"{[m for _, m in reqs]} new tokens each; engine {SERVE}", flush=True)
-
-    # the kernel on layer 0's operands after the first decode step: captured
-    # from the wrapper's first call of an uncounted engine step
     from repro_torch.serve.engine import ServeEngine
 
     captured, kernel = {}, paged_module.paged_attention
@@ -2178,7 +2245,7 @@ def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
     # while it captures, the wrapper counts its launch through its module's
     # name, which points here: on capture.launches, outside every count read
     capture.launches = 0
-    engine = ServeEngine(model, net, **SERVE, decode_backend="paged")
+    engine = ServeEngine(model, net, **base, decode_backend="paged")
     for prompt, max_new in reqs:
         engine.submit(prompt, max_new_tokens=max_new)
     paged_module.paged_attention = capture
@@ -2188,6 +2255,26 @@ def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
         paged_module.paged_attention = kernel
     del engine
     torch.cuda.empty_cache()
+    return captured
+
+
+def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
+    """Qwen2-1.5B at full width and depth: the paged kernel on the pool's
+    own operands, then serving through the dense pool, the paged pool's
+    gather route and its kernel route in bf16 (the counted window is the
+    kernel route's), the three routes in fp32 compute (greedy tokens equal),
+    and the int8 and fp8 pools."""
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.models.api import get_model
+
+    reqs = serve_requests(cfg.vocab, SERVE_REQUESTS, NEW_TOKENS, longest_first=True)
+    print(f"requests: {len(reqs)} prompts of {[len(p) for p, _ in reqs]} tokens, "
+          f"{[m for _, m in reqs]} new tokens each; engine {SERVE}", flush=True)
+
+    # the kernel on layer 0's operands after the first decode step
+    captured = capture_decode_read(model, net, reqs, SERVE)
     stats = check_paged_main(checks, "qwen2-1.5b decode read layer 0", captured)
     del captured
 
@@ -2260,11 +2347,14 @@ def flash_keep(sq: int, skv: int, *, causal: bool, window, q_offset: int = 0, de
 
 def flash_dropped(q, k, v, *, t0: int, scale: float, causal: bool, window, q_offset: int = 0):
     """What a flash kernel that skipped the live KV tile [t0, t0 + 64) would
-    give: the plain version's math in fp64 with those keys masked too."""
+    give: the plain version's math in fp64 with those keys masked too (k and
+    v of Hkv | H heads expanded, as the plain version expands them)."""
     import torch
 
     from repro_torch.kernels.attention import KV_TILE
 
+    if k.shape[-3] != q.shape[-3]:
+        k, v = (t.repeat_interleave(q.shape[-3] // k.shape[-3], dim=-3) for t in (k, v))
     keep = flash_keep(q.shape[-2], k.shape[-2], causal=causal, window=window,
                       q_offset=q_offset, device=q.device)
     keep[:, t0:t0 + KV_TILE] = False
@@ -2274,42 +2364,53 @@ def flash_dropped(q, k, v, *, t0: int, scale: float, causal: bool, window, q_off
 
 
 def flash_by_block(fn, q, k, v, *, chunk=None, **kw):
-    """``fn`` (the plain version, or :func:`flash_dropped`) a head at a time
-    and, with ``chunk``, that many query rows at a time, each block given
-    only the keys a causal mask can keep: [B, H, Sq, D]."""
+    """``fn`` (the plain version, or :func:`flash_dropped`) a query head at a
+    time, with its KV head (h // (H / Hkv)), and, with ``chunk``, that many
+    query rows at a time, each block given only the keys a causal mask can
+    keep: [B, H, Sq, D]."""
     import torch
 
     sq, skv = q.shape[2], k.shape[2]
+    groups = q.shape[1] // k.shape[1]
     step = chunk or sq
     heads = []
     for h in range(q.shape[1]):
+        kv = h // groups
         rows = []
         for q0 in range(0, sq, step):
             q1 = min(sq, q0 + step)
             kend = min(skv, q1) if kw["causal"] else skv
-            rows.append(fn(q[:, h:h + 1, q0:q1], k[:, h:h + 1, :kend], v[:, h:h + 1, :kend],
+            rows.append(fn(q[:, h:h + 1, q0:q1], k[:, kv:kv + 1, :kend], v[:, kv:kv + 1, :kend],
                            q_offset=q0, **kw))
         heads.append(torch.cat(rows, dim=2))
     return torch.cat(heads, dim=1)
 
 
 def check_flash_small(checks: Checks, device) -> None:
-    """The flash kernel against its plain version on random operands laid out
-    as the model gives them ([B, H, S, D] views of [B, S, H, D]): D 8 / 24 /
-    64 / 96 / 128 x (Sq, Skv) 97/97, 300/300, 128/64 x causal, full, causal
-    with a window of 24; fp32 against the plain version in fp64, bf16 against
-    the plain version on the same operands. Each limit must reject the fp64
-    plain version with the 64-key tile at Skv/2 left out, and the rows that
-    see no key must come out exactly 0."""
+    """The flash kernels against their plain version on random operands laid
+    out as the model gives them ([B, H, S, D] views of [B, S, H, D]), H=6
+    query heads over 1, 2 or 6 KV heads (MQA, GQA 3:1, MHA), unexpanded:
+    D 8 / 16 / 24 / 32 / 64 / 96 / 128 x (Sq, Skv) 97/97, 300/300, 128/64 x
+    causal, full, causal with a window of 24. fp32 (the CUDA cores) against
+    the plain version in fp64; bf16 on both bf16 routes (the tensor cores,
+    which flash_route picks for these operands, and the CUDA cores) against
+    the plain version on the same operands, and beyond bf16's output
+    rounding against the fp64 plain version (Checks.hold_rounded). Each
+    limit must reject the fp64 plain version with the 64-key tile at Skv/2
+    left out, and the rows that see no key must come out exactly 0."""
     import torch
 
-    from repro_torch.kernels.attention import KV_TILE, flash_attention
+    from repro_torch.kernels.attention import KV_TILE, flash_attention, flash_route
     from repro_torch.kernels.ref import flash_attention_ref
 
     gen = torch.Generator().manual_seed(SEED + 4)
+    case = 0
     for d in FLASH_D:
         for sq, skv in FLASH_LENGTHS:
-            base = [torch.randn(2, n, 3, d, generator=gen).transpose(1, 2) for n in (sq, skv, skv)]
+            hkv = FLASH_HKV[case % len(FLASH_HKV)]
+            case += 1
+            base = [torch.randn(2, n, heads, d, generator=gen).transpose(1, 2)
+                    for n, heads in ((sq, FLASH_H), (skv, hkv), (skv, hkv))]
             for mask_name, masks in FLASH_MASKS.items():
                 kw = dict(masks, scale=d ** -0.5)
                 empty = ~flash_keep(sq, skv, **masks, device=device).any(-1)
@@ -2317,23 +2418,38 @@ def check_flash_small(checks: Checks, device) -> None:
                 want = flash_attention_ref(*wide, **kw)
                 t0 = (skv // 2) // KV_TILE * KV_TILE
                 drop = {f"KV tile {t0}": flash_dropped(*wide, t0=t0, **kw)}
-                print(f"kernels flash B=2 H=3 Sq={sq} Skv={skv} D={d} {mask_name} "
-                      f"({int(empty.sum())} rows see no key):", flush=True)
-                for dtype in (torch.float32, torch.bfloat16):
-                    q, k, v = (t.to(device, dtype) for t in base)
-                    key = str(dtype).removeprefix("torch.")
-                    got = flash_attention(q, k, v, **kw)
-                    plain = flash_attention_ref(q, k, v, **kw)
-                    if dtype == torch.float32:
-                        checks.hold("flash_attention", "o fp32", got, want, dtype,
-                                    atol=ATOL[key], record=True, dropped=drop, fp32_plain=plain)
+                print(f"kernels flash B=2 H={FLASH_H} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+                      f"{mask_name} ({int(empty.sum())} rows see no key):", flush=True)
+                ops32 = [t.to(device, torch.float32) for t in base]
+                ops16 = [t.to(device, torch.bfloat16) for t in base]
+                # bf16 is held beyond its output rounding against fp64 on its own values
+                wide16 = [t.double() for t in ops16]
+                want16 = flash_attention_ref(*wide16, **kw)
+                drop16 = {f"KV tile {t0}": flash_dropped(*wide16, t0=t0, **kw)}
+                picked = flash_route(*ops16)
+                if picked != "tensor_core":
+                    checks.failures.append(f"flash D={d}: flash_route picked {picked} for "
+                                           "aligned bf16 operands")
+                for route, ops in (("fp32", ops32), ("tensor_core", ops16),
+                                   ("cuda_core", ops16)):
+                    got = flash_attention(*ops, **kw, route=route)
+                    plain = flash_attention_ref(*ops, **kw)
+                    # the JSON line's rows: the tensor-core kernel, and the CUDA-core one
+                    name = "flash_attention_tc" if route == "tensor_core" else "flash_attention"
+                    if route == "fp32":
+                        checks.hold(name, "o fp32", got, want, torch.float32,
+                                    atol=ATOL["float32"], record=True, dropped=drop,
+                                    fp32_plain=plain)
                     else:
-                        checks.hold("flash_attention", "o bf16", got, plain, dtype,
-                                    atol=ATOL[key], dropped=drop)
+                        checks.hold(name, f"o bf16 {route}", got, plain, torch.bfloat16,
+                                    atol=ATOL["bfloat16"], record=route == "tensor_core",
+                                    dropped=drop)
+                        checks.hold_rounded(name, f"o bf16 {route} vs fp64", got, want16,
+                                            dropped=drop16)
                     if not (bool(got.isfinite().all()) and bool((got[:, :, empty] == 0).all())):
-                        checks.failures.append(f"flash D={d} {sq}/{skv} {mask_name} {key}: "
+                        checks.failures.append(f"flash D={d} {sq}/{skv} {mask_name} {route}: "
                                                "non-finite output or a row with no key not 0")
-    checks.raise_failures("flash kernel on random operands")
+    checks.raise_failures("flash kernels on random operands")
 
 
 def dense_tokens(vocab: int, b: int, t: int, seed: int, device, lengths=None):
@@ -2347,10 +2463,12 @@ def dense_tokens(vocab: int, b: int, t: int, seed: int, device, lengths=None):
     return torch.from_numpy(toks).long().to(device)
 
 
+
+
 def attention_operands(net, cfg, tokens):
-    """Layer 0's rope'd q and expanded k, v for ``tokens`` in the model's
-    compute dtype: what ``gqa_forward`` gives ``attn_sdpa``, strided views
-    and all."""
+    """Layer 0's rope'd q [B, H, T, D] and k, v [B, Hkv, T, D] for ``tokens``
+    in the model's compute dtype: what ``gqa_forward`` gives ``attn_sdpa``
+    on the pallas route (the KV heads unexpanded), strided views and all."""
     import torch
 
     from repro_torch.models import attention, transformer
@@ -2359,31 +2477,31 @@ def attention_operands(net, cfg, tokens):
         layer = net.layers[0]
         x = transformer._norm(cfg, layer.norm1, transformer._embed(net, tokens, cfg))
         positions = transformer._positions(cfg, *tokens.shape, tokens.device)
-        q, k, v = attention._qkv(layer.attn, x, cfg.attn, positions)
-        groups = cfg.attn.num_heads // cfg.attn.num_kv_heads
-        return q, attention._expand_kv(k, groups), attention._expand_kv(v, groups)
+        return attention._qkv(layer.attn, x, cfg.attn, positions)
 
 
 def check_flash_main(checks: Checks, label: str, ops16, scale: float) -> None:
-    """The flash kernel on a model's layer 0 operands, as its prefill gives
-    them: widened to fp32 against the plain version in fp64, a head and
-    4,096 queries at a time, relative to max |plain|; the limit must reject
-    the fp64 plain version with the 64-key tile at T/2 left out. bf16, as
-    the model runs it, against the plain version on the same operands, and
-    beyond its output rounding against the fp64 plain version, where the
-    same lost tile must be rejected too."""
+    """The flash kernels on a model's layer 0 operands, as its prefill gives
+    them (the KV heads unexpanded): widened to fp32 (the CUDA cores' route)
+    against the plain version in fp64, a head and 4,096 queries at a time,
+    relative to max |plain|; the limit must reject the fp64 plain version
+    with the 64-key tile at T/2 left out. bf16, as the model runs it (the
+    tensor cores: the route is asserted), against the plain version on the
+    same operands, and beyond its output rounding against the fp64 plain
+    version, where the same lost tile must be rejected too."""
     import functools
 
     import torch
 
-    from repro_torch.kernels.attention import KV_TILE, flash_attention
+    from repro_torch.kernels.attention import KV_TILE, flash_attention, flash_route
     from repro_torch.kernels.ref import flash_attention_ref
 
     q, k, v = ops16
     b, h, n, d = q.shape
     kw = dict(scale=scale, causal=True, window=None)
-    print(f"kernels flash {label} layer 0 (B={b} H={h} T={n} D={d}, q/k/v strides "
-          f"{q.stride()}/{k.stride()}; fp32 held against the plain version in fp64):", flush=True)
+    print(f"kernels flash {label} layer 0 (B={b} H={h} Hkv={k.shape[1]} T={n} D={d}, q/k/v "
+          f"strides {q.stride()}/{k.stride()}; fp32 held against the plain version in fp64):",
+          flush=True)
     ops32 = [t.float() for t in ops16]
     got = flash_attention(*ops32, **kw)
     wide = [t.double() for t in ops16]
@@ -2396,14 +2514,21 @@ def check_flash_main(checks: Checks, label: str, ops16, scale: float) -> None:
     checks.hold("flash_attention", "o fp32", got, want, torch.float32, atol=None, record=True,
                 dropped=drop, fp32_plain=plain32)
     del got, plain32, ops32
+    route = flash_route(q, k, v)
+    before = dict(flash_attention.launches_by_route)
     got = flash_attention(q, k, v, **kw)
-    checks.hold("flash_attention", "o bf16", got,
+    ran = {r: c - before[r] for r, c in flash_attention.launches_by_route.items()}
+    print(f"  bf16 route: {route}; launches by route {ran}", flush=True)
+    if route != "tensor_core" or ran["tensor_core"] != 1:
+        checks.failures.append(f"{label}: bf16 operands took route {route} ({ran}), not the "
+                               "tensor cores")
+    checks.hold("flash_attention_tc", "o bf16", got,
                 flash_by_block(flash_attention_ref, q, k, v, chunk=FLASH_QCHUNK, **kw),
-                torch.bfloat16, atol=None)
-    checks.hold_rounded("flash_attention", "o bf16 vs fp64", got, want, dropped=drop)
+                torch.bfloat16, atol=None, record=True)
+    checks.hold_rounded("flash_attention_tc", "o bf16 vs fp64", got, want, dropped=drop)
     del got, want, drop
     torch.cuda.empty_cache()
-    checks.raise_failures(f"flash kernel on {label}'s operands")
+    checks.raise_failures(f"flash kernels on {label}'s operands")
 
 
 def visible_pairs(sq: int, skv: int, *, causal: bool, window) -> int:
@@ -2416,14 +2541,44 @@ def visible_pairs(sq: int, skv: int, *, causal: bool, window) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def time_flash(ops16, scale: float) -> dict:
-    """CUDA-event times on qwen2's layer 0 operands (bf16, causal) of the
-    kernel, its plain version (a head at a time), ``attn_sdpa``'s chunked
-    route (what "auto" runs at 32k) and ``F.scaled_dot_product_attention``
-    (the yardstick, which the port never calls), with the bound: 4 * D FLOP
-    a kept (query, key) pair over the bf16 peak, or q, k, v and o once over
-    3.35 TB/s. The kernel's fp32 time is printed beside."""
+
+
+def sdpa_ms(q, k, v, scale: float, reps: int):
+    """``F.scaled_dot_product_attention`` (the yardstick; the port never calls
+    it), causal, on K and V expanded to q's heads beforehand (not timed);
+    fp32 operands are held to its memory-efficient backend (TF32 off), since
+    the math backend would materialise every score. None where that backend
+    refuses the call."""
+    import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    groups = q.shape[1] // k.shape[1]
+    kx, vx = (t.repeat_interleave(groups, 1) for t in (k, v))
+    call = lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True, scale=scale)
+    if q.dtype == torch.bfloat16:
+        return cuda_ms(call, reps=reps)
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return cuda_ms(call, reps=reps)
+    except RuntimeError as err:
+        print(f"  SDPA on {q.dtype}: the memory-efficient backend refused ({err}); not "
+              "measured", flush=True)
+        return None
+
+
+def time_flash(ops16, scale: float) -> dict:
+    """CUDA-event times on qwen2's layer 0 operands (causal, the KV heads
+    unexpanded). bf16: the tensor-core kernel and the CUDA-core instance it
+    replaces for these operands, in one call and in turns (CUDA cores,
+    tensor cores, tensor cores, CUDA cores), its plain version (a head at a
+    time), ``attn_sdpa``'s chunked route (what "auto" runs at 32k) and SDPA;
+    the bound is 4 * D FLOP a kept (query, key) pair over the bf16 peak (the
+    two products), or q, k, v and o once over 3.35 TB/s, and beside it the
+    split P's bound (its third product: 1.5x). fp32 (the CUDA-core route):
+    the kernel, its plain version and SDPA, bound by the fp32 CUDA-core rate.
+    Returns the stats of both kernels' rows."""
+    import torch
 
     from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -2431,34 +2586,49 @@ def time_flash(ops16, scale: float) -> dict:
 
     q, k, v = ops16
     b, h, n, d = q.shape
+    hkv = k.shape[1]
     kw = dict(scale=scale, causal=True, window=None)
     flops = 4 * d * b * h * visible_pairs(n, n, causal=True, window=None)
-    nbytes = q.element_size() * b * h * d * 4 * n
-    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BW * 1e3
-    stats = dict(ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=3),
-                 plain_ms=cuda_ms(lambda: flash_by_block(flash_attention_ref, q, k, v, **kw),
-                                  reps=1),
-                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                     q, k, v, is_causal=True, scale=scale), reps=10),
-                 bound_ms=max(t_ops, t_bytes),
-                 bound_by="operations" if t_ops >= t_bytes else "bytes")
-    chunked_ms = cuda_ms(lambda: attn_sdpa(q, k, v, impl="chunked", **kw), reps=1)
+    elems = b * d * n * 2 * (h + hkv)     # q and o, k and v, once each
+    rows = {}
+    for name, ops, peak in (("flash_attention_tc", ops16, PEAK_BF16),
+                            ("flash_attention", [t.float() for t in ops16], PEAK_FP32)):
+        nbytes = elems * ops[0].element_size()
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BW * 1e3
+        rows[name] = dict(plain_ms=cuda_ms(lambda: flash_by_block(flash_attention_ref, *ops, **kw),
+                                           reps=1),
+                          library_ms=sdpa_ms(*ops, scale, reps=10 if peak == PEAK_BF16 else 2),
+                          bound_ms=max(t_ops, t_bytes),
+                          bound_by="operations" if t_ops >= t_bytes else "bytes")
+    tc = lambda: flash_attention(q, k, v, **kw)
+    cc = lambda: flash_attention(q, k, v, **kw, route="cuda_core")
+    turns = [cuda_ms(cc, reps=2), cuda_ms(tc, reps=5), cuda_ms(tc, reps=5), cuda_ms(cc, reps=2)]
+    rows["flash_attention_tc"]["ms"] = (turns[1] + turns[2]) / 2
     ops32 = [t.float() for t in ops16]
-    fp32_ms = cuda_ms(lambda: flash_attention(*ops32, **kw), reps=2)
-    print(f"time flash_attention qwen2-1.5b layer 0 bf16: {stats}; attn_sdpa chunked "
-          f"{chunked_ms:.3f} ms; the kernel on fp32 operands {fp32_ms:.3f} ms "
-          f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB; fp32-rate bound "
-          f"{flops / PEAK_FP32 * 1e3:.3f} ms)", flush=True)
-    return stats
+    rows["flash_attention"]["ms"] = cuda_ms(lambda: flash_attention(*ops32, **kw), reps=2)
+    chunked_ms = cuda_ms(lambda: attn_sdpa(q, k.repeat_interleave(h // hkv, 1),
+                                           v.repeat_interleave(h // hkv, 1), impl="chunked",
+                                           **kw), reps=1)
+    print(f"time flash_attention_tc qwen2-1.5b layer 0 bf16 (B={b} H={h} Hkv={hkv} T={n} "
+          f"D={d}): {rows['flash_attention_tc']}; in turns: CUDA cores {turns[0]:.3f} ms, "
+          f"tensor cores {turns[1]:.3f} ms, tensor cores {turns[2]:.3f} ms, CUDA cores "
+          f"{turns[3]:.3f} ms; bounds: two products {flops / PEAK_BF16 * 1e3:.3f} ms, with the "
+          f"split P's third {1.5 * flops / PEAK_BF16 * 1e3:.3f} ms; attn_sdpa chunked "
+          f"{chunked_ms:.3f} ms ({flops / 1e12:.3f} TFLOP)", flush=True)
+    print(f"time flash_attention qwen2-1.5b layer 0 fp32 (the CUDA cores): "
+          f"{rows['flash_attention']}", flush=True)
+    return rows
 
 
 def dense_prefill(net, cfg, batch: dict, capacity: int, impl: str, label: str) -> dict:
     """One counted window: launch counts zeroed just before one lm_prefill
     and read just after; ms (host clock around synchronized work) and peak
-    GiB. Raises unless it launched one flash kernel a layer (pallas) or none
-    (other routes), and nothing else."""
+    GiB. Raises unless it launched one flash kernel a layer (pallas), all on
+    the route the compute dtype gives (the tensor cores for bf16, the fp32
+    route for fp32), or none (other routes), and nothing else."""
     import torch
 
+    from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models import transformer
 
@@ -2470,20 +2640,23 @@ def dense_prefill(net, cfg, batch: dict, capacity: int, impl: str, label: str) -
         logits, caches = transformer.lm_prefill(net, batch, cfg, capacity, impl=impl)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    counts = launch_counts()
+    counts, routes = launch_counts(), dict(flash_attention.launches_by_route)
     peak = torch.cuda.max_memory_allocated() / 2**30
     b, t = batch["tokens"].shape
     print(f"path {label} prefill impl={impl} B={b} T={t} {cfg.compute_dtype}: {ms:.3f} ms, peak "
-          f"{peak:.2f} GiB, logits {tuple(logits.shape)}; launches {counts}", flush=True)
+          f"{peak:.2f} GiB, logits {tuple(logits.shape)}; launches {counts}, flash routes "
+          f"{routes}", flush=True)
     want = cfg.num_layers if impl == "pallas" else 0
-    if counts["flash_attention"] != want or any(
+    route = "tensor_core" if cfg.compute_dtype == "bfloat16" else "fp32"
+    if counts["flash_attention"] != want or routes[route] != want or any(
             c for name, c in counts.items() if name != "flash_attention"):
-        raise AssertionError(f"{label} prefill impl={impl}: launches {counts}, expected {want} "
-                             "flash kernels")
+        raise AssertionError(f"{label} prefill impl={impl}: launches {counts}, routes {routes}; "
+                             f"expected {want} flash kernels on the {route} route")
     if tuple(logits.shape) != (b, cfg.vocab) or not bool(logits.isfinite().all()):
         raise AssertionError(f"{label} prefill logits {tuple(logits.shape)} not finite or "
                              "mis-shaped")
-    return {"logits": logits, "caches": caches, "ms": ms, "peak": peak, "counts": counts}
+    return {"logits": logits, "caches": caches, "ms": ms, "peak": peak, "counts": counts,
+            "routes": routes}
 
 
 def greedy_after(net, cfg, run: dict, steps: int):
@@ -2501,6 +2674,7 @@ def greedy_after(net, cfg, run: dict, steps: int):
             outs.append(logits)
     logits = torch.stack(outs, 1)
     return logits, logits.argmax(-1)
+
 
 
 def decode_routes_agree(net, cfg, batch: dict, label: str) -> None:
@@ -2527,17 +2701,21 @@ def decode_routes_agree(net, cfg, batch: dict, label: str) -> None:
     torch.cuda.empty_cache()
 
 
+
+
 def flash_phases(checks: Checks, device, cfg, net) -> dict:
-    """Qwen2-1.5B prefill through the flash kernel: the kernel on layer 0's
-    own operands at T=32,768 and its times; lm_prefill(impl="pallas") at B=1,
-    T=32,768 (a counted window: 28 launches) against the chunked route in
-    bf16 with a profiler breakdown; lm_forward(impl="pallas") in fp32 at
-    B=2, T=4,096 (a counted window) against the xla route; greedy decode
-    after a pallas and an xla prefill in fp32. Returns the kernel's stats
-    with the launches of the counted windows."""
+    """Qwen2-1.5B prefill through the flash kernels: both on layer 0's own
+    operands at T=32,768 and their times; lm_prefill(impl="pallas") at B=1,
+    T=32,768 (a counted window: 28 tensor-core launches) against the chunked
+    route in bf16 with a profiler breakdown; lm_forward(impl="pallas") in
+    fp32 at B=2, T=4,096 (a counted window: 28 launches on the fp32 route)
+    against the xla route; greedy decode after a pallas and an xla prefill
+    in fp32. Returns the two kernels' stats with the launches of the counted
+    windows."""
     import torch
 
     from repro_torch.config import SHAPES, replace
+    from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models import transformer
 
@@ -2552,7 +2730,7 @@ def flash_phases(checks: Checks, device, cfg, net) -> dict:
 
     batch = {"tokens": tokens}
     run = dense_prefill(net, cfg, batch, n, "pallas", "qwen2-1.5b")
-    launches = run["counts"]["flash_attention"]
+    stats["flash_attention_tc"]["launches"] = run["routes"]["tensor_core"]
     logits = run.pop("logits")
     del run
     with torch.no_grad():
@@ -2569,14 +2747,14 @@ def flash_phases(checks: Checks, device, cfg, net) -> dict:
     with torch.no_grad():
         reset_launch_counts()
         got, _ = transformer.lm_forward(net, toks, cfg32, impl="pallas")
-        counts = launch_counts()
+        counts, routes = launch_counts(), dict(flash_attention.launches_by_route)
         want, _ = transformer.lm_forward(net, toks, cfg32, impl="xla")
     print(f"path qwen2-1.5b forward impl=pallas B={DENSE_B} T={DENSE_T} fp32: logits "
-          f"{tuple(got.shape)}; launches {counts}", flush=True)
-    if counts["flash_attention"] != cfg.num_layers or any(
+          f"{tuple(got.shape)}; launches {counts}, flash routes {routes}", flush=True)
+    if counts["flash_attention"] != cfg.num_layers or routes["fp32"] != cfg.num_layers or any(
             c for name, c in counts.items() if name != "flash_attention"):
-        raise AssertionError(f"qwen2-1.5b forward launches {counts}")
-    launches += counts["flash_attention"]
+        raise AssertionError(f"qwen2-1.5b forward launches {counts}, routes {routes}")
+    stats["flash_attention"]["launches"] = routes["fp32"]
     held("qwen2-1.5b forward pallas vs xla fp32 (all logits)", got[..., :cfg.vocab],
          want[..., :cfg.vocab], LM_TOL["float32"])
     del got, want
@@ -2585,18 +2763,60 @@ def flash_phases(checks: Checks, device, cfg, net) -> dict:
                                                             device, DENSE_LENGTHS),
                                      "lengths": torch.tensor(DENSE_LENGTHS, device=device)},
                         "qwen2-1.5b")
-    stats["launches"] = launches
     return stats
 
 
-def phi3_phases(checks: Checks, device) -> int:
+def phi3_serve(checks: Checks, cfg, net) -> dict:
+    """Phi-3-mini (D=96) served from the paged pool in fp32 compute: the paged
+    kernel on layer 0's decode read (captured from the wrapper's first call
+    in an uncounted engine step) against fp64, held as qwen2's is
+    (check_paged_main); then PHI3_REQUESTS requests through ServeEngine's
+    dense pool and the paged pool's kernel route (counted windows: 32 paged
+    launches a decode step on the kernel route, none on the dense pool), the
+    greedy tokens equal. Returns the read's stats with the kernel route's
+    launches."""
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.models.api import get_model
+
+    model32 = get_model(replace(cfg, compute_dtype="float32"))
+    reqs = serve_requests(cfg.vocab, PHI3_REQUESTS, (PHI3_NEW, PHI3_NEW), longest_first=False,
+                          lens=PHI3_PROMPTS)
+    print(f"requests: {len(reqs)} prompts of {[len(p) for p, _ in reqs]} tokens, {PHI3_NEW} new "
+          f"tokens each; engine {PHI3_SERVE}", flush=True)
+    stats = check_paged_main(checks, "phi3-mini-3.8b decode read layer 0",
+                             capture_decode_read(model32, net, reqs, PHI3_SERVE))
+    runs = {name: serve_run(model32, net, reqs, f"fp32 {name}", base=PHI3_SERVE, **kw)
+            for name, kw in (("dense", ROUTES["dense"]), ("paged", ROUTES["paged"]))}
+    if runs["paged"]["backend"] == runs["dense"]["backend"] or runs["paged"]["per_step"] != \
+            cfg.num_layers:
+        raise AssertionError(f"phi3 kernel route: backend {runs['paged']['backend']}, "
+                             f"{runs['paged']['per_step']} paged launches a step")
+    first_step_held("phi3 fp32 paged", runs["paged"], runs["dense"], ROUTE_TOL["float32"])
+    div = first_divergence(runs["paged"]["tokens"], runs["dense"]["tokens"])
+    if div is not None:
+        raise AssertionError(f"phi3 fp32 paged: greedy tokens differ from the dense pool's at "
+                             f"request {div[0]}, token {div[1]}")
+    print(f"serve phi3-mini-3.8b fp32: the greedy tokens of all {PHI3_REQUESTS} x {PHI3_NEW} "
+          "positions are equal on the dense pool and the paged kernel route", flush=True)
+    stats["launches"] = runs["paged"]["counts"]["paged_attention"]
+    del runs, model32
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phi3_phases(checks: Checks, device) -> dict:
     """Phi-3-mini at full width and depth from seed 0 (the seconds to draw
-    its 3.8B weights printed): the flash kernel at D=96 on layer 0's own
+    its 3.8B weights printed): the flash kernels at D=96 on layer 0's own
     operands for the prefill's tokens; lm_prefill(impl="pallas") at B=2,
     T=4,096 with right-padded lengths in bf16 (a counted window: 32
-    launches; ms, peak GiB, a profiler breakdown) against the xla route;
-    then in fp32 compute, against the xla route and with greedy decode after
-    each prefill. Returns the counted window's flash launches."""
+    tensor-core launches; ms, peak GiB, a profiler breakdown) against the
+    xla route; then in fp32 compute, against the xla route and with greedy
+    decode after each prefill; then served from the paged pool through the
+    paged kernel (:func:`phi3_serve`). Returns the counted windows' launches
+    (flash_attention_tc: the bf16 prefill's; paged_attention: the kernel
+    route's) and the paged read's stats."""
     import torch
 
     from repro_torch.config import replace
@@ -2608,7 +2828,7 @@ def phi3_phases(checks: Checks, device) -> int:
     check_flash_main(checks, "phi3-mini-3.8b", attention_operands(net, cfg, batch["tokens"]),
                      cfg.attn.head_dim ** -0.5)
     run = dense_prefill(net, cfg, batch, DENSE_T, "pallas", "phi3-mini-3.8b")
-    launches = run["counts"]["flash_attention"]
+    launches = run["routes"]["tensor_core"]
     with torch.no_grad():
         breakdown(lambda: transformer.lm_prefill(net, batch, cfg, DENSE_T, impl="pallas"),
                   f"phi3-mini-3.8b prefill pallas B={DENSE_B} T={DENSE_T} bf16")
@@ -2618,9 +2838,10 @@ def phi3_phases(checks: Checks, device) -> int:
     del run, want
     torch.cuda.empty_cache()
     decode_routes_agree(net, replace(cfg, compute_dtype="float32"), batch, "phi3-mini-3.8b")
+    paged = phi3_serve(checks, cfg, net)
     del net
     torch.cuda.empty_cache()
-    return launches
+    return {"flash_attention_tc": launches, "paged_attention": paged}
 
 
 def drive(model, net, batches: dict, label: str) -> dict:
@@ -2783,12 +3004,19 @@ def main() -> int:
     cfg_q, model_q, net_q = init_dense_lm("qwen2_1_5b", QWEN2_SIZE)
     stats["paged_attention"] = qwen2_phases(checks, cfg_q, model_q, net_q)
     stats["paged_attention"]["launches"] += paged_counts["paged_attention"]
-    # the dense family's prefill through the flash kernel: the launches of
-    # qwen2's prefill and forward windows and of phi3's prefill window
-    stats["flash_attention"] = flash_phases(checks, device, cfg_q, net_q)
+    # the dense family's prefill through the flash kernels: the tensor-core
+    # kernel's launches are those of qwen2's and phi3's bf16 prefill windows,
+    # the CUDA-core kernel's those of qwen2's fp32 forward window (its route)
+    stats.update(flash_phases(checks, device, cfg_q, net_q))
     del model_q, net_q
     torch.cuda.empty_cache()
-    stats["flash_attention"]["launches"] += phi3_phases(checks, device)
+    phi3 = phi3_phases(checks, device)
+    stats["flash_attention_tc"]["launches"] += phi3["flash_attention_tc"]
+    # phi3 (D=96) served through the paged kernel: its kernel route's launches
+    stats["paged_attention"]["launches"] += phi3["paged_attention"]["launches"]
+    print(f"time paged_attention decode read layer 0: qwen2-1.5b (D=128) "
+          f"{stats['paged_attention']['ms']:.4f} ms, phi3-mini-3.8b (D=96) "
+          f"{phi3['paged_attention']['ms']:.4f} ms", flush=True)
     for name in stats:
         stats[name]["max_abs_err"] = checks.max_abs[name]
 

@@ -54,10 +54,22 @@
 //   * bf16 (a deliberate difference): the TPU kernel rounds f1 to v's dtype
 //     before the state update. This kernel keeps f1 and all state in fp32;
 //     only the loads of q, k, v and the store of y are bf16.
-//   * No padding: a ragged last tile is a loop bound and its missing rows
-//     are zero-filled and given zero weight; a ragged last latent slice gives
-//     its missing latents zero weight. K, V and Y go by strides ([B, H, T, D]
-//     views of [B, T, H*D] activations), so the model copies nothing.
+//   * No padding in device memory: a ragged last tile is a loop bound and
+//     its missing rows are zero-filled and given zero weight; a ragged last
+//     latent slice gives its missing latents zero weight. K, V and Y go by
+//     strides ([B, H, T, D] views of [B, T, H*D] activations), so the model
+//     copies nothing.
+//   * Head dims. The kernel is built for the padded widths DP in {8, 16, 32,
+//     64, 128}, and any D from 1 to 128 runs at the next of them: lanes
+//     D <= d < DP of q, k and v are zero where they are staged, so they add
+//     exactly 0 to every score, and nothing is written to them (the fp32
+//     partials are [.., N, D]). A D equal to its width runs an instance of
+//     its own with D known at compile time, as before the widening. DP must divide the block's 256 threads: the
+//     state update gives each thread one d and LPT = DP / 4 latents. So
+//     D = 96 (phi3's width) runs at DP = 128: a DP = 96 instance would leave
+//     64 of the 256 threads idle in that phase, which costs what the 32 zero
+//     lanes cost, and the score loop's extra lanes are a third of one of the
+//     three products.
 //
 // The entry point launches on the given stream, allocates nothing (the
 // caller gives the fp32 partials), and returns cudaGetLastError().
@@ -74,7 +86,7 @@ constexpr int C_THREADS = 256;
 constexpr int KT_STRIDE = CT + 4;    // padded row of the transposed K tile
 
 template <int D>
-struct Layout {  // shared memory, in floats; every offset a multiple of 4
+struct Layout {  // shared memory, in floats, at the padded width D; offsets multiples of 4
   static constexpr int MG = C_THREADS / D;  // latent groups of the update phase
   static constexpr int LPT = CL / MG;       // latents per thread there
   static constexpr int Q = 0;                        // q_t [D][CL]
@@ -101,14 +113,17 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Grid (M / CL splits, B*H). Block = group g, latents [split*CL, +CL).
-// Writes part[split, g, t, :] (fp32 decode numerator over the slice) and
+// Grid (M / CL splits, B*H). Block = group g, latents [split*CL, +CL), at
+// the padded width D for the head dim Dr <= D (EXACT: Dr == D, known at
+// compile time, so the lane guards fold away).
+// Writes part[split, g, t, :Dr] (fp32 decode numerator over the slice) and
 // stat[split, g, t, :] = (slice max of the token's scores, sum of weights).
-template <typename T, int D>
+template <typename T, int D, bool EXACT>
 __global__ void __launch_bounds__(C_THREADS)
 causal_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               float* __restrict__ part, float* __restrict__ stat, int H, int M, int N,
-              Strides ks, Strides vs) {
+              int d_run, Strides ks, Strides vs) {
+  const int Dr = EXACT ? D : d_run;
   using L = Layout<D>;
   constexpr int LPT = L::LPT;
   extern __shared__ float4 smem4[];
@@ -122,14 +137,14 @@ causal_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int tid = threadIdx.x;
   const T* kg = k + b * ks.b + h * ks.h;
   const T* vg = v + b * vs.b + h * vs.h;
-  const T* qh = q + ((long long)h * M + l0) * D;
+  const T* qh = q + ((long long)h * M + l0) * Dr;
   const long long row = (long long)split * gridDim.y + g;
-  float* part_g = part + row * N * D;
+  float* part_g = part + row * N * Dr;
   float* stat_g = stat + row * N * 2;
 
   for (int i = tid; i < CL * D; i += C_THREADS) {
     const int l = i / D, d = i % D;
-    q_t[d * CL + l] = l < nl ? to_f(qh[(long long)l * D + d]) : 0.f;
+    q_t[d * CL + l] = l < nl && d < Dr ? to_f(qh[(long long)l * Dr + d]) : 0.f;
   }
   if (tid < CL) {
     st_mx[tid] = NEG_INF;
@@ -148,7 +163,7 @@ causal_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     __syncthreads();
     for (int i = tid; i < CT * D; i += C_THREADS) {
       const int j = i / D, d = i % D;
-      const bool in = j < tn;
+      const bool in = j < tn && d < Dr;
       k_t[d * KT_STRIDE + j] = in ? to_f(kg[(long long)(t0 + j) * ks.n + d]) : 0.f;
       v_s[i] = in ? to_f(vg[(long long)(t0 + j) * vs.n + d]) : 0.f;
     }
@@ -290,22 +305,25 @@ causal_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     __syncthreads();
 
     // sum the latent groups in order; the split's fp32 partial for the tile
-    for (int i = tid; i < tn * D; i += C_THREADS) {
+    for (int i = tid; i < tn * Dr; i += C_THREADS) {
+      const int j = i / Dr, d = i % Dr;
       float s = 0.f;
 #pragma unroll 4
-      for (int u = 0; u < L::MG; ++u) s += ybuf[u * CT * D + i];
-      part_g[(long long)t0 * D + i] = s;
+      for (int u = 0; u < L::MG; ++u) s += ybuf[(u * CT + j) * D + d];
+      part_g[(long long)t0 * Dr + i] = s;
     }
   }
 }
 
 // Merge the latent splits per token, flash-decoding style: one thread per
 // (t, d) of group g; y[b, h, t, d] = sum_s w_s part_s / sum_s w_s sum_s,
-// w_s = e^{max_s - max}. A fixed order over the splits.
-template <typename T, int D>
+// w_s = e^{max_s - max}. A fixed order over the splits. D = DC where DC > 0
+// (an exact width), else d_run.
+template <typename T, int DC>
 __global__ void causal_combine_kernel(const float* __restrict__ part,
                                       const float* __restrict__ stat, T* __restrict__ y,
-                                      int H, int N, int splits, Strides ys) {
+                                      int H, int N, int d_run, int splits, Strides ys) {
+  const int D = DC > 0 ? DC : d_run;
   const int g = blockIdx.y, b = g / H, h = g % H;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)N * D) return;
@@ -324,38 +342,44 @@ __global__ void causal_combine_kernel(const float* __restrict__ part,
   y[b * ys.b + h * ys.h + t * ys.n + d] = from_f<T>(num / den);
 }
 
-template <typename T, int D>
+template <typename T, int DP, bool EXACT>
 cudaError_t causal_launch(const void* q, const void* k, const void* v, void* y, float* part,
-                          float* stat, int B, int H, int M, int N, Strides ks, Strides vs,
-                          Strides ys, cudaStream_t stream) {
+                          float* stat, int B, int H, int M, int N, int D, Strides ks,
+                          Strides vs, Strides ys, cudaStream_t stream) {
   const int splits = cdiv(M, CL);
-  constexpr int bytes = Layout<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(causal_kernel<T, D>,
+  constexpr int bytes = Layout<DP>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(causal_kernel<T, DP, EXACT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  causal_kernel<T, D><<<dim3(splits, B * H), C_THREADS, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, part, stat, H, M, N, ks, vs);
+  causal_kernel<T, DP, EXACT><<<dim3(splits, B * H), C_THREADS, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, part, stat, H, M, N, D, ks, vs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  causal_combine_kernel<T, D><<<dim3(cdiv((long long)N * D, 256), B * H), 256, 0, stream>>>(
-      part, stat, (T*)y, H, N, splits, ys);
+  causal_combine_kernel<T, EXACT ? DP : 0>
+      <<<dim3(cdiv((long long)N * D, 256), B * H), 256, 0, stream>>>(part, stat, (T*)y, H, N, D,
+                                                                      splits, ys);
   return cudaGetLastError();
 }
 
-// The head dims the kernel is built for (flare_lm's 128; the smoke
-// configuration's 16; 8 to 64 for tests).
+// D from 1 to 128 at its padded width; a D that is its own width (flare_lm's
+// 128, the smoke configuration's 16) runs an exact instance.
 template <typename T>
 cudaError_t causal_d(int D, const void* q, const void* k, const void* v, void* y, float* part,
                      float* stat, int B, int H, int M, int N, Strides ks, Strides vs,
                      Strides ys, cudaStream_t s) {
-  switch (D) {
-    case 8: return causal_launch<T, 8>(q, k, v, y, part, stat, B, H, M, N, ks, vs, ys, s);
-    case 16: return causal_launch<T, 16>(q, k, v, y, part, stat, B, H, M, N, ks, vs, ys, s);
-    case 32: return causal_launch<T, 32>(q, k, v, y, part, stat, B, H, M, N, ks, vs, ys, s);
-    case 64: return causal_launch<T, 64>(q, k, v, y, part, stat, B, H, M, N, ks, vs, ys, s);
-    case 128: return causal_launch<T, 128>(q, k, v, y, part, stat, B, H, M, N, ks, vs, ys, s);
-    default: return cudaErrorInvalidValue;
-  }
+  auto at = [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return D == DP ? causal_launch<T, DP, true>(q, k, v, y, part, stat, B, H, M, N, D, ks, vs,
+                                                ys, s)
+                   : causal_launch<T, DP, false>(q, k, v, y, part, stat, B, H, M, N, D, ks, vs,
+                                                 ys, s);
+  };
+  if (D < 1 || D > 128) return cudaErrorInvalidValue;
+  if (D <= 8) return at(std::integral_constant<int, 8>{});
+  if (D <= 16) return at(std::integral_constant<int, 16>{});
+  if (D <= 32) return at(std::integral_constant<int, 32>{});
+  if (D <= 64) return at(std::integral_constant<int, 64>{});
+  return at(std::integral_constant<int, 128>{});
 }
 
 }  // namespace
@@ -366,8 +390,8 @@ extern "C" {
 // part [splits, B*H, N, D] and stat [splits, B*H, N, 2], from it.
 int flare_causal_splits(int M) { return cdiv(M, CL); }
 
-// q [H, M, D] contiguous; k, v, y [B, H, N, D] with strides (D stride 1);
-// y takes dtype (fp32 or bf16, as q, k and v).
+// q [H, M, D] contiguous; k, v, y [B, H, N, D] with strides (D stride 1),
+// 1 <= D <= 128; y takes dtype (fp32 or bf16, as q, k and v).
 int flare_causal(const void* q, const void* k, const void* v, void* y, float* part, float* stat,
                  int B, int H, int M, int N, int D, long long ksb, long long ksh, long long ksn,
                  long long vsb, long long vsh, long long vsn, long long ysb, long long ysh,

@@ -1,29 +1,34 @@
-// Flash attention for Hopper (sm_90a), CUDA C++.
+// Flash attention for Hopper (sm_90a) on the CUDA cores, CUDA C++: the fp32
+// route, and the bf16 calls the tensor-core kernel does not take.
 //
 // Replaces the TPU kernel of the JAX package:
 //   flash_kernel <- repro/kernels/attention.py::_flash_kernel (flash_attention_pallas)
+// beside flash_attention_sm90.cu (flash_tc_kernel), which runs every bf16
+// call whose D is a multiple of 8 and whose strides TMA can address
+// (kernels/attention.py::flash_route). This kernel takes the rest: fp32
+// (whose fp64 check, 1e-5 of max |o|, TF32 would fail) and bf16 at D % 8 != 0
+// or unaligned strides.
 //
 // What it computes. For group g = (b, h) and query row i,
 //   o[i, :] = sum_j softmax_j(scale * q_i . k_j) v_j
 // over the keys j the masks keep: causal (j <= i, top-left aligned when
 // Sq != Skv), a sliding window (j > i - window) and the key count (j < Skv,
-// the TPU wrapper's kv_valid). The score is the fp32 dot product (bf16
-// operands are widened on load), then * scale, then -1e30 where masked; the
-// weights of masked keys are zeroed explicitly (the TPU kernel's :69-72), so
-// a row with no key left ends with den = 0, clamped at 1e-30 (:84): its
-// output is exactly 0, the plain version's NaN -> 0. o is stored in v's
-// dtype.
+// the TPU wrapper's kv_valid). k and v have Hkv heads, Hkv | H (GQA): query
+// head h reads KV head h / (H / Hkv), so K and V go in unexpanded. The score
+// is the fp32 dot product (bf16 operands are widened on load), then * scale,
+// then -1e30 where masked; the weights of masked keys are zeroed explicitly
+// (the TPU kernel's :69-72), so a row with no key left ends with den = 0,
+// clamped at 1e-30 (:84): its output is exactly 0, the plain version's NaN
+// -> 0. o is stored in v's dtype.
 //
 // What bounds it. Two products of 2 * D FLOP for each (query, key) pair the
 // masks keep. At qwen2-1.5b's prefill_32k, layer 0 (H = 12 heads, D = 128,
-// S = 32,768, causal), that is 4 * H * D * S^2 / 2 = 3.30 TFLOP: 3.34 ms at
-// the H100's bf16 tensor-core peak (989 TFLOP/s) and 49 ms at its fp32
-// CUDA-core rate (67 TFLOP/s), against 0.40 GB of expanded q, k, v and o,
-// 0.12 ms at 3.35 TB/s. It is bound by arithmetic. This first kernel does it
-// on the CUDA cores in fp32, so its own floor is the 49 ms; tensor cores
-// (mma.sync / wgmma on bf16 tiles) are later work. The design keeps the
-// CUDA cores fed: every operand is staged once a tile in shared memory and
-// each value read from it serves 4 products.
+// S = 32,768, causal), that is 4 * H * D * S^2 / 2 = 3.30 TFLOP: 49 ms at the
+// H100's fp32 CUDA-core rate (67 TFLOP/s), against 0.23 GB of q, unexpanded
+// k, v and o, 0.07 ms at 3.35 TB/s. It is bound by arithmetic, and on the
+// CUDA cores in fp32 its own floor is the 49 ms. The design keeps the CUDA
+// cores fed: every operand is staged once a tile in shared memory and each
+// value read from it serves 4 products.
 //
 // What does not carry over from the TPU, and the design:
 //   * The TPU grid (G, Sq / 256, Skv / 512) walks the KV blocks of a query
@@ -58,6 +63,8 @@
 //   * bf16 (a deliberate difference): the TPU kernel rounds p to v's dtype
 //     before the value product (:75); this kernel keeps p in fp32. Only the
 //     loads of q, k, v and the store of o are bf16.
+//   * GQA: a block reads its KV head's rows; the query heads of one KV head
+//     read the same K and V (from L2), never an expanded copy.
 //   * No padding in device memory. D is a run-time value up to 128: the
 //     kernel is built for padded widths DP in {16, 32, 64, 96, 128} and
 //     zero-fills d >= D in shared memory, so phi3's D = 96 runs at DP = 96.
@@ -88,7 +95,7 @@ struct Args {
   const void* k;   // [B, H, Skv, D]
   const void* v;
   void* o;         // [B, H, Sq, D], v's dtype
-  int B, H, Sq, Skv, D;
+  int B, H, group, Sq, Skv, D;   // group = H / Hkv: query heads a KV head
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
   float scale;
   int causal, window;   // window < 0: no window
@@ -200,8 +207,8 @@ __global__ void __launch_bounds__(THREADS, 2) flash_kernel(Args a) {
   const int g = blockIdx.y, b = g / a.H, h = g % a.H;
   const int q0 = blockIdx.x * BQ;
   const T* q = static_cast<const T*>(a.q) + b * a.q_b + h * a.q_h + q0 * a.q_s;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_b + h * a.k_h;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_b + h * a.v_h;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_b + (h / a.group) * a.k_h;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_b + (h / a.group) * a.v_h;
   const bool vec = a.vec;
   stage_t<T, DP>(q_s, q, a.q_s, min(BQ, a.Sq - q0), a.D, vec);
 
@@ -349,18 +356,21 @@ cudaError_t launch_d(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// q, k, v [B, H, S, D] of one dtype (fp32 / bf16) by element strides (b, h,
-// s; the D stride is 1), o likewise in that dtype. 1 <= D <= 128, B * H <=
-// 65535. window < 0: no window. vec = 1 only when D % 4 == 0 and every
-// stride and base pointer is a multiple of 4 elements (16 / 8 bytes).
-int flash_attention(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
-                    int Skv, int D, long long q_b, long long q_h, long long q_s, long long k_b,
-                    long long k_h, long long k_s, long long v_b, long long v_h, long long v_s,
-                    long long o_b, long long o_h, long long o_s, float scale, int causal,
-                    int window, int vec, int dtype, void* stream) {
-  if (D < 1 || D > 128 || Sq < 1 || Skv < 1 || B * H < 1 || B * H > 65535)
+// q [B, H, Sq, D], k, v [B, Hkv, Skv, D] (Hkv | H) of one dtype (fp32 /
+// bf16) by element strides (b, h, s; the D stride is 1), o [B, H, Sq, D] in
+// that dtype. 1 <= D <= 128, B * H <= 65535. window < 0: no window. vec = 1
+// only when D % 4 == 0 and every stride and base pointer is a multiple of 4
+// elements (16 / 8 bytes).
+int flash_attention(const void* q, const void* k, const void* v, void* o, int B, int H,
+                    int Hkv, int Sq, int Skv, int D, long long q_b, long long q_h,
+                    long long q_s, long long k_b, long long k_h, long long k_s,
+                    long long v_b, long long v_h, long long v_s, long long o_b,
+                    long long o_h, long long o_s, float scale, int causal, int window,
+                    int vec, int dtype, void* stream) {
+  if (D < 1 || D > 128 || Sq < 1 || Skv < 1 || B * H < 1 || B * H > 65535 || Hkv < 1 ||
+      H % Hkv)
     return cudaErrorInvalidValue;
-  Args a{q, k, v, o, B, H, Sq, Skv, D, q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s,
+  Args a{q, k, v, o, B, H, H / Hkv, Sq, Skv, D, q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s,
          o_b, o_h, o_s, scale, causal, window, vec};
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {

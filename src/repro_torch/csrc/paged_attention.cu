@@ -28,7 +28,7 @@
 //   * The TPU grid (B, H, P) walks the pages of a lane in order, carrying
 //     the softmax (max, den, acc) in VMEM. At 8 slots that is B*H = 16
 //     programs: 16 blocks would leave 116 of 132 SMs idle. Here a block
-//     takes (one lane and head, a tile of GT = 1024 / D query rows, a slice
+//     takes (one lane and head, a tile of GT = 1024 / DP query rows, a slice
 //     of the lane's pages) and walks its pages with a running fp32 (max, den,
 //     acc); a second kernel merges the slices in a fixed order (no atomics,
 //     deterministic), the shape of flare.cu's encode + combine N-split. The
@@ -42,9 +42,10 @@
 //     anyway, so skipping changes no bit, and garbage in them (even NaN) is
 //     invisible.
 //   * Each page's K and V rows of one head are strided by H*D elements; a
-//     row (256 B at D = 128 in bf16) is loaded as 16-byte vectors (8-byte for
-//     one-byte payloads with D*1 % 16 != 0) and widened to fp32 in registers
-//     on the way to shared memory. Scales multiply the scores and weights,
+//     row (256 B at D = 128 in bf16) is loaded as 16-byte vectors (8-byte
+//     where D * sizeof(T) % 16 != 0, single elements where it is not a
+//     multiple of 8 either) and widened to fp32 in registers on the way to
+//     shared memory. Scales multiply the scores and weights,
 //     never the payload, so int8 / fp8 pages are never written out wide.
 //   * A block stages a tile of 64 tokens (4 pages of 16) at a time: the
 //     pages' loads are all in flight together, and the tile pays 4
@@ -53,13 +54,21 @@
 //     take a pair of threads per token, and each float4 of the token's K
 //     row serves 8 query rows (the q reads are warp-wide broadcasts); the
 //     online softmax takes 128 / GT lanes a row, reduced by warp shuffles;
-//     the value product keeps 8 accumulators a thread (GT * D = 1024 = 128
+//     the value product keeps 8 accumulators a thread (GT * DP = 1024 = 128
 //     threads x 8, all of one dim), so one v value serves 8 rows, with the
-//     weights read as float4s of 4 tokens. Rows are padded to D + 8 floats
+//     weights read as float4s of 4 tokens. Rows are padded to DP + 8 floats
 //     (16-byte aligned; a quarter warp's float4 reads hit distinct banks).
 //     Blocks hold a multiple of 4 tokens a page. A first version walked one
 //     page at a time, a (row, token) dot product a thread and one thread a
 //     row for the softmax, and took about twice as long (PERF.md).
+//   * Head dims. The shared-memory tiles run at a padded width DP, the next
+//     power of two from 8 to 128 at or above D (phi3's 96 at 128), so that
+//     GT = 1024 / DP is a whole multiple of RC and THREADS a multiple of DP.
+//     Lanes D <= d < DP of q, K and V are zero-filled where they are staged,
+//     so they add exactly 0 to every score, and nothing is written to them.
+//     Pages, q and o keep their real D in device memory. D == DP runs an
+//     instance of its own without the lane guards: with them qwen2's read
+//     at D=128 took 0.0448 ms against 0.0426 (PERF.md).
 //
 // The entry points launch on the given stream, allocate nothing (the caller
 // gives the fp32 partials) and return cudaGetLastError().
@@ -74,7 +83,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 128;
-constexpr int ROW_ELEMS = 1024;   // GT * D: query rows a block takes, times D
+constexpr int ROW_ELEMS = 1024;   // GT * DP: query rows a block takes, times D's padded width
 constexpr int ACC = ROW_ELEMS / THREADS;
 constexpr int TILE_TOKENS = 64;          // tokens a block stages at a time (whole pages)
 constexpr int RC = 8;                    // q rows a thread scores against a token at a time
@@ -103,7 +112,7 @@ struct Args {
   void* out;              // [B, H, G, D] fp32 or bf16
   float* part_acc;        // [splits, B*H, G, D]
   float* part_ml;         // [splits, B*H, G, 2]: (max, den)
-  int B, H, G, D, D2, block, P, splits, pages_per_split;
+  int B, H, G, D, DP, D2, block, P, splits, pages_per_split;   // DP: D's padded width
   float scale;
   int q_dtype, out_dtype, fused;
 };
@@ -113,25 +122,29 @@ __device__ __forceinline__ float load_q(const void* q, int dtype, long long i) {
                       : __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i]);
 }
 
-// Rows [0, rows) of one head of page `pg` into shared memory as fp32 with
-// row stride `stride`; rows [rows, blk) are zero-filled. VB bytes a vector.
-template <typename T, int VB>
+// Rows [0, rows) of one head of page `pg` (D elements a row in memory) into
+// shared memory as fp32 rows of DP lanes at row stride `stride`; rows
+// [rows, blk) and, where PAD, lanes [D, DP) are zero-filled. VB bytes a
+// vector (D * sizeof(T) a multiple of VB).
+template <typename T, int VB, bool PAD>
 __device__ __forceinline__ void load_page(float* dst, int stride, const T* src, int pg, int h,
-                                          int H, int D, int blk, int rows) {
+                                          int H, int D, int DP, int blk, int rows) {
   constexpr int EPV = VB / sizeof(T);
-  const int vpr = D / EPV;   // vectors a row
+  const int vpr = DP / EPV;   // vectors a padded row
   for (int i = threadIdx.x; i < blk * vpr; i += THREADS) {
     const int t = i / vpr, c = i % vpr;
     float* d = dst + t * stride + c * EPV;
-    if (t < rows) {
+    if (t < rows && (!PAD || c * EPV < D)) {
       const T* s = src + (((long long)pg * blk + t) * H + h) * D + c * EPV;
       T e[EPV];
       if constexpr (VB == 16) {
         const uint4 raw = *reinterpret_cast<const uint4*>(s);
         memcpy(e, &raw, VB);
-      } else {
+      } else if constexpr (VB == 8) {
         const uint2 raw = *reinterpret_cast<const uint2*>(s);
         memcpy(e, &raw, VB);
+      } else {
+        e[0] = s[0];
       }
 #pragma unroll
       for (int j = 0; j < EPV; ++j) d[j] = widen(e[j]);
@@ -142,13 +155,18 @@ __device__ __forceinline__ void load_page(float* dst, int stride, const T* src, 
   }
 }
 
-template <typename T>
+// An exact row (PAD false: D == DP, a power of two from 8) is a multiple of
+// 8 bytes; a padded one may need single-element loads.
+template <typename T, bool PAD>
 __device__ __forceinline__ void load_rows(float* dst, int stride, const T* src, int pg, int h,
-                                          int H, int D, int blk, int rows) {
-  if ((D * (int)sizeof(T)) % 16 == 0)
-    load_page<T, 16>(dst, stride, src, pg, h, H, D, blk, rows);
+                                          int H, int D, int DP, int blk, int rows) {
+  const int bytes = D * (int)sizeof(T);
+  if (bytes % 16 == 0)
+    load_page<T, 16, PAD>(dst, stride, src, pg, h, H, D, DP, blk, rows);
+  else if (!PAD || bytes % 8 == 0)
+    load_page<T, 8, PAD>(dst, stride, src, pg, h, H, D, DP, blk, rows);
   else
-    load_page<T, 8>(dst, stride, src, pg, h, H, D, blk, rows);
+    load_page<T, sizeof(T), PAD>(dst, stride, src, pg, h, H, D, DP, blk, rows);
 }
 
 __device__ __forceinline__ void load_scales(float* dst, const float* src, int pg, int h, int H,
@@ -186,33 +204,37 @@ __device__ __forceinline__ void store_out(void* out, int dtype, long long i, flo
 
 // Grid (splits, B*H, G tiles). Block = lane b, head h, rows [g0, g0 + GT),
 // pages [split * pages_per_split, +pages_per_split) of the lane's valid ones,
-// walked a tile of `ppt` pages (TT = ppt * block tokens) at a time.
-template <typename T>
+// walked a tile of `ppt` pages (TT = ppt * block tokens) at a time. PAD:
+// D < DP (lanes to zero-fill); the exact instance (D == DP) has no lane
+// guards.
+template <typename T, bool PAD>
 __global__ void __launch_bounds__(THREADS) paged_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int D = a.D, D2 = a.D2, blk = a.block;
-  const int GT = ROW_ELEMS / D, ppt = pages_per_tile(blk), TT = ppt * blk;
+  const int D = a.D, DP = PAD ? a.DP : a.D, D2 = a.D2, blk = a.block;
+  const int GT = ROW_ELEMS / DP, ppt = pages_per_tile(blk), TT = ppt * blk;
   const int split = blockIdx.x, bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int g0 = blockIdx.z * GT, gn = min(GT, a.G - g0);
   const int tid = threadIdx.x;
-  // rows of D + 8 floats: 16-byte aligned, and a quarter warp's float4 reads
+  // rows of DP + 8 floats: 16-byte aligned, and a quarter warp's float4 reads
   // of 4 tokens x 2 halves land in 8 distinct bank quads
-  const int KS = D + 8, K2S = D2 ? D2 + 8 : 0, PS = TT + 4;
+  const int KS = DP + 8, K2S = D2 ? D2 + 8 : 0, PS = TT + 4;
   float* q_s = smem;                       // [GT][KS]
   float* q2_s = q_s + GT * KS;             // [GT][K2S]
   float* k_s = q2_s + GT * K2S;            // [TT][KS]
   float* k2_s = k_s + TT * KS;             // [TT][K2S]
-  float* v_s = k2_s + TT * K2S;            // [TT][D]
-  float* p_s = v_s + TT * D;               // [GT][PS]: scores, then weights
+  float* v_s = k2_s + TT * K2S;            // [TT][DP]
+  float* p_s = v_s + TT * DP;              // [GT][PS]: scores, then weights
   float* ks_s = p_s + GT * PS;             // [TT] each
   float* vs_s = ks_s + TT;
   float* k2s_s = vs_s + TT;
   float* alpha_s = k2s_s + TT;             // [GT]
 
   const long long qrow = ((long long)b * a.H + h) * a.G + g0;
-  for (int i = tid; i < gn * D; i += THREADS)
-    q_s[(i / D) * KS + i % D] = load_q(a.q, a.q_dtype, qrow * D + i);
+  for (int i = tid; i < gn * DP; i += THREADS) {
+    const int r = i / DP, c = i % DP;
+    q_s[r * KS + c] = !PAD || c < D ? load_q(a.q, a.q_dtype, (qrow + r) * D + c) : 0.f;
+  }
   for (int i = tid; i < gn * D2; i += THREADS)
     q2_s[(i / D2) * K2S + i % D2] = load_q(a.q2, a.q_dtype, qrow * D2 + i);
 
@@ -227,8 +249,8 @@ __global__ void __launch_bounds__(THREADS) paged_kernel(Args a) {
   const int R = THREADS / GT, srow = tid / R, slane = tid % R;
   float m = NEG_INF, l = 0.f;              // row srow's state, the same in its R lanes
   // accumulators: element tid + THREADS * i is (row er + i * estep, dim ed);
-  // THREADS is a multiple of D, so every one of a thread's elements has dim ed
-  const int ed = tid % D, er = tid / D, estep = THREADS / D;
+  // THREADS is a multiple of DP, so every one of a thread's elements has dim ed
+  const int ed = tid % DP, er = tid / DP, estep = THREADS / DP;
   float acc[ACC];
 #pragma unroll
   for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
@@ -241,11 +263,13 @@ __global__ void __launch_bounds__(THREADS) paged_kernel(Args a) {
     for (int j = 0; j < np; ++j) {
       const int pg = a.pt[(long long)b * a.P + p + j];
       const int rows = max(0, min(blk, valid - j * blk));
-      load_rows<T>(k_s + j * blk * KS, KS, static_cast<const T*>(a.k), pg, h, a.H, D, blk, rows);
-      load_rows<T>(v_s + j * blk * D, D, static_cast<const T*>(a.v), pg, h, a.H, D, blk, rows);
-      if (D2)
-        load_rows<T>(k2_s + j * blk * K2S, K2S, static_cast<const T*>(a.k2), pg, h, a.H, D2,
-                     blk, rows);
+      load_rows<T, PAD>(k_s + j * blk * KS, KS, static_cast<const T*>(a.k), pg, h, a.H, D, DP,
+                        blk, rows);
+      load_rows<T, PAD>(v_s + j * blk * DP, DP, static_cast<const T*>(a.v), pg, h, a.H, D, DP,
+                        blk, rows);
+      if (D2)   // a multiple of 8: exact
+        load_rows<T, false>(k2_s + j * blk * K2S, K2S, static_cast<const T*>(a.k2), pg, h, a.H,
+                            D2, D2, blk, rows);
       if (a.ks) load_scales(ks_s + j * blk, a.ks, pg, h, a.H, blk, rows);
       if (a.vs) load_scales(vs_s + j * blk, a.vs, pg, h, a.H, blk, rows);
       if (a.k2s) load_scales(k2s_s + j * blk, a.k2s, pg, h, a.H, blk, rows);
@@ -262,7 +286,7 @@ __global__ void __launch_bounds__(THREADS) paged_kernel(Args a) {
 #pragma unroll
         for (int r = 0; r < RC; ++r) s1[r] = s2[r] = 0.f;
         if (on) {
-          rows_dot(s1, q_s + r0 * KS, KS, k_s + t * KS, D, half);
+          rows_dot(s1, q_s + r0 * KS, KS, k_s + t * KS, DP, half);
           if (D2) rows_dot(s2, q2_s + r0 * K2S, K2S, k2_s + t * K2S, D2, half);
         }
 #pragma unroll
@@ -315,8 +339,8 @@ __global__ void __launch_bounds__(THREADS) paged_kernel(Args a) {
 #pragma unroll
     for (int i = 0; i < ACC; ++i) x[i] = 0.f;
     for (int t = 0; t < valid; t += 4) {
-      const float v0 = v_s[t * D + ed], v1 = v_s[(t + 1) * D + ed];
-      const float v2 = v_s[(t + 2) * D + ed], v3 = v_s[(t + 3) * D + ed];
+      const float v0 = v_s[t * DP + ed], v1 = v_s[(t + 1) * DP + ed];
+      const float v2 = v_s[(t + 2) * DP + ed], v3 = v_s[(t + 3) * DP + ed];
 #pragma unroll
       for (int i = 0; i < ACC; ++i) {
         const float4 w = *reinterpret_cast<const float4*>(p_s + (er + i * estep) * PS + t);
@@ -335,7 +359,8 @@ __global__ void __launch_bounds__(THREADS) paged_kernel(Args a) {
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
       const int g = er + i * estep;
-      if (g < gn) store_out(a.out, a.out_dtype, (qrow + g) * D + ed, acc[i] / alpha_s[g]);
+      if (g < gn && (!PAD || ed < D))
+        store_out(a.out, a.out_dtype, (qrow + g) * D + ed, acc[i] / alpha_s[g]);
     }
     return;
   }
@@ -347,7 +372,7 @@ __global__ void __launch_bounds__(THREADS) paged_kernel(Args a) {
 #pragma unroll
   for (int i = 0; i < ACC; ++i) {
     const int g = er + i * estep;
-    if (g < gn) a.part_acc[(prow + g) * D + ed] = acc[i];
+    if (g < gn && (!PAD || ed < D)) a.part_acc[(prow + g) * D + ed] = acc[i];
   }
 }
 
@@ -369,28 +394,40 @@ __global__ void paged_combine_kernel(Args a) {
   store_out(a.out, a.out_dtype, i, num / fmaxf(den, 1e-30f));
 }
 
+// D's padded width: the next power of two from 8 to 128 (0 above 128).
+__host__ __device__ __forceinline__ int padded_width(int D) {
+  int dp = 8;
+  while (dp < D) dp *= 2;
+  return D <= 128 ? dp : 0;
+}
+
 int smem_bytes(const Args& a) {
-  const int GT = ROW_ELEMS / a.D, TT = pages_per_tile(a.block) * a.block;
-  const int KS = a.D + 8, K2S = a.D2 ? a.D2 + 8 : 0;
-  // GT is a multiple of RC (D <= 128), so the scores' RC-row groups stay in q_s
-  const int floats = GT * KS + GT * K2S + TT * KS + TT * K2S + TT * a.D + GT * (TT + 4) +
+  const int GT = ROW_ELEMS / a.DP, TT = pages_per_tile(a.block) * a.block;
+  const int KS = a.DP + 8, K2S = a.D2 ? a.D2 + 8 : 0;
+  // GT is a multiple of RC (DP <= 128), so the scores' RC-row groups stay in q_s
+  const int floats = GT * KS + GT * K2S + TT * KS + TT * K2S + TT * a.DP + GT * (TT + 4) +
                      3 * TT + GT;
   return floats * 4;
 }
 
-template <typename T>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <typename T, bool PAD>
+cudaError_t launch_at(const Args& a, cudaStream_t stream) {
   const int bytes = smem_bytes(a);
-  cudaError_t err = cudaFuncSetAttribute(paged_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(paged_kernel<T, PAD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const int gtiles = (a.G + ROW_ELEMS / a.D - 1) / (ROW_ELEMS / a.D);
-  paged_kernel<T><<<dim3(a.splits, a.B * a.H, gtiles), THREADS, bytes, stream>>>(a);
+  const int gtiles = (a.G + ROW_ELEMS / a.DP - 1) / (ROW_ELEMS / a.DP);
+  paged_kernel<T, PAD><<<dim3(a.splits, a.B * a.H, gtiles), THREADS, bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   const long long n = (long long)a.B * a.H * a.G * a.D;
   paged_combine_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  return a.D == a.DP ? launch_at<T, false>(a, stream) : launch_at<T, true>(a, stream);
 }
 
 }  // namespace
@@ -401,7 +438,9 @@ extern "C" {
 // [splits, B*H, G, D] and part_ml [splits, B*H, G, 2], from it. From the
 // shapes only: about TARGET_BLOCKS blocks, at least MIN_PAGES pages a slice.
 int paged_attention_splits(int B, int H, int G, int D, int P) {
-  const long long tiles = (long long)B * H * ((G + ROW_ELEMS / D - 1) / (ROW_ELEMS / D));
+  if (D < 1 || D > 128) return 1;
+  const int GT = ROW_ELEMS / padded_width(D);
+  const long long tiles = (long long)B * H * ((G + GT - 1) / GT);
   long long want = (TARGET_BLOCKS + tiles - 1) / tiles;
   long long most = P / MIN_PAGES > 1 ? P / MIN_PAGES : 1;
   if (want > most) want = most;
@@ -411,18 +450,20 @@ int paged_attention_splits(int B, int H, int G, int D, int P) {
 
 // q [B, H, G, D] (fp32 / bf16, q2 likewise with D2, or null and D2 = 0);
 // pages [NB, block, H, D] of page_dtype (k2 with D2); scales [NB, block, H]
-// fp32 or null; out [B, H, G, D] of out_dtype. All contiguous; D in
-// {8, 16, 32, 64, 128}, D2 a multiple of 8 up to 128.
+// fp32 or null; out [B, H, G, D] of out_dtype. All contiguous; 1 <= D <= 128,
+// D2 a multiple of 8 up to 128.
 int paged_attention(const void* q, const void* q2, const void* k, const void* v, const void* k2,
                     const int* page_table, const int* lengths, const float* k_scale,
                     const float* v_scale, const float* k2_scale, void* out, float* part_acc,
                     float* part_ml, int B, int H, int G, int D, int D2, int block, int P,
                     int splits, float scale, int q_dtype, int page_dtype, int out_dtype,
                     int fused, void* stream) {
+  if (D < 1 || D > 128) return cudaErrorInvalidValue;
   const int ppt = pages_per_tile(block);
   const int per_split = ((P + splits - 1) / splits + ppt - 1) / ppt * ppt;   // whole tiles
   Args a{q, q2, k, v, k2, page_table, lengths, k_scale, v_scale, k2_scale, out, part_acc,
-         part_ml, B, H, G, D, D2, block, P, splits, per_split, scale, q_dtype, out_dtype, fused};
+         part_ml, B, H, G, D, padded_width(D), D2, block, P, splits, per_split, scale, q_dtype,
+         out_dtype, fused};
   cudaStream_t s = (cudaStream_t)stream;
   switch (page_dtype) {
     case F32: return launch<float>(a, s);

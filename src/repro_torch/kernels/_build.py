@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flare.cu", "flare_bwd.cu", "flare_causal.cu", "paged_attention.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu")
 HEADERS = ("flare_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,7 +44,8 @@ _SIGNATURES = {
     "flare_causal": [_P] * 6 + [_I] * 5 + [_LL] * 9 + [_I] + [_P],
     "paged_attention_splits": [_I] * 5,
     "paged_attention": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
-    "flash_attention": [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_F] + [_I] * 4 + [_P],
+    "flash_attention": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 4 + [_P],
+    "flash_attention_tc": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()

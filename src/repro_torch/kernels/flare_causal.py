@@ -36,7 +36,7 @@ from repro_torch.kernels.flare import (
 from repro_torch.kernels.ref import flare_causal_chunk_ref
 
 TILE = 64                            # tokens per tile of csrc/flare_causal.cu
-HEAD_DIMS = (8, 16, 32, 64, 128)     # the head dims it is built for
+HEAD_DIMS = range(1, 129)   # D it takes (at padded widths 8 / 16 / 32 / 64 / 128)
 
 
 def flare_causal_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -50,10 +50,12 @@ def flare_causal_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """Flash attention on q [B, H, Sq, D], k/v [B, H, Skv, D] -> [B, H, Sq, D]
-    in v's dtype through the flash kernel (one launch), the counterpart of
-    ``repro/kernels/ops.py::flash_attention``. The strided split-head views
-    go in as they are; ragged Sq and Skv are the kernel's loop bounds."""
+    """Flash attention on q [B, H, Sq, D], k/v [B, Hkv, Skv, D] (Hkv | H: GQA's
+    KV heads unexpanded) -> [B, H, Sq, D] in v's dtype through a flash kernel
+    (one launch, on the route ``kernels/attention.py::flash_route`` picks),
+    the counterpart of ``repro/kernels/ops.py::flash_attention``, which takes
+    K and V expanded to H heads. The strided split-head views go in as they
+    are; ragged Sq and Skv are the kernels' loop bounds."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q must be [B, H, Sq, D], got {tuple(q.shape)}")
     return flash_kernel(q, k, v, scale=scale, causal=causal, window=window)
@@ -62,6 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale:
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    flash_kernel.launches_by_route.update(dict.fromkeys(flash_kernel.launches_by_route, 0))
 
 
 def launch_counts() -> dict:

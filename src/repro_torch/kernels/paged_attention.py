@@ -32,7 +32,7 @@ from repro_torch.kernels.ref import paged_attention_ref, paged_out_dtype
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 32, 64, 128)   # D the kernel tiles for (its row tile is 1024 / D)
+HEAD_DIMS = range(1, 129)   # D it takes (tiled at the next power of two from 8)
 MAX_BLOCK = 128                    # tokens a page (a multiple of 4)
 
 

@@ -168,14 +168,19 @@ def flare_causal_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                         causal: bool = True, window=None, q_offset: int = 0) -> torch.Tensor:
-    """Masked softmax attention (the math of ``_flash_kernel``): q [..., Sq, D],
-    k/v [..., Skv, D] -> o [..., Sq, D] in v's dtype. Scores q k^T in fp32
+    """Masked softmax attention (the math of ``_flash_kernel``): q [..., H, Sq, D],
+    k/v [..., Hkv, Skv, D] with Hkv | H (GQA: query head h reads KV head
+    h // (H / Hkv); k and v are expanded here, as the kernel reads them
+    unexpanded) -> o [..., H, Sq, D] in v's dtype. Scores q k^T in fp32
     (fp64 for fp64 inputs) times ``scale``; ``causal`` keeps key j <= query i
     (top-left aligned when Sq != Skv), ``window`` keeps j > i - window; masked
     scores are -inf, the softmax's NaN rows (no key left) become 0, and the
     weights are cast to v's dtype before the value product. ``q_offset`` is
     the index of q's first row, so that a block of queries can be run alone
     (the kernel takes no offset)."""
+    if q.dim() >= 3 and k.shape[-3] != q.shape[-3]:
+        groups = q.shape[-3] // k.shape[-3]
+        k, v = (t.repeat_interleave(groups, dim=-3) for t in (k, v))
     sq, skv = q.shape[-2], k.shape[-2]
     # flarecheck: disable=DS003 -- f32-staged by _wide; the rule sees only astype casts
     s = torch.einsum("...sd,...td->...st", _wide(q), _wide(k)) * scale

@@ -13,7 +13,9 @@ the flash kernel (``kernels/ops.py::flash_attention``, the port of
 ``repro/kernels/attention.py``; its plain version on CPU tensors), which takes
 no ``q_offset``: the JAX package's pallas route drops a ``q_offset`` silently,
 and this one raises. ``gqa_forward`` passes ``impl`` through, and so do the
-LM's forward and prefill (``models/transformer.py``).
+LM's forward and prefill (``models/transformer.py``); on the ``"pallas"``
+route it hands the kernel the KV heads unexpanded (the JAX package expands
+them on every route; the ``xla`` and ``chunked`` routes still do).
 
 Decode (``gqa_cache_attend``) has two routes:
   - a dense ``[B, Hkv, cap, D]`` cache: the new row is written at each slot's
@@ -66,7 +68,8 @@ def attn_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float
     """q [B, H, Sq, D], k/v [B, H, Skv, D] -> [B, H, Sq, Dv] in v's dtype.
     ``impl``: "xla" (materialised scores), "chunked" (query blocks of
     ``chunk`` with an online softmax), "pallas" (the flash kernel; no
-    ``q_offset``), "auto" (chunked when both lengths exceed 2048)."""
+    ``q_offset``; k/v may have Hkv | H heads, read unexpanded), "auto"
+    (chunked when both lengths exceed 2048)."""
     sq, skv = q.shape[-2], k.shape[-2]
     if impl == "auto":
         impl = "chunked" if (sq > 2048 and skv > 2048) else "xla"
@@ -210,8 +213,9 @@ def gqa_forward(attn: GQA, x: torch.Tensor, cfg: AttnConfig, *, positions: torch
     ``attn_sdpa``'s ``impl`` route."""
     q, k, v = _qkv(attn, x, cfg, positions)
     groups = cfg.num_heads // cfg.num_kv_heads
-    out = attn_sdpa(q, _expand_kv(k, groups), _expand_kv(v, groups),
-                    scale=1.0 / math.sqrt(cfg.head_dim), causal=causal,
+    # the flash kernel reads each KV head for its query heads: no expanded copy
+    kx, vx = (k, v) if impl == "pallas" else (_expand_kv(k, groups), _expand_kv(v, groups))
+    out = attn_sdpa(q, kx, vx, scale=1.0 / math.sqrt(cfg.head_dim), causal=causal,
                     window=cfg.sliding_window, impl=impl)
     y = dense(attn.wo, _unheads(out))
     return (y, (k, v)) if return_kv else y

@@ -132,6 +132,109 @@ def test_flash_attention_rejects():
         ops.flash_attention(x[0], x[0], x[0], scale=1.0)
 
 
+@pytest.mark.parametrize("hkv", [1, 2, 4])
+def test_flash_attention_gqa_reads_unexpanded_kv(hkv):
+    """k and v of Hkv | H heads (query head h reads KV head h // (H / Hkv))
+    give the call on K and V expanded to H heads, bit for bit, through the
+    kernel wrapper (4-D and the flattened [G, S, D]) and ops.flash_attention,
+    on CPU tensors (the plain version, no launch); H % Hkv != 0 raises."""
+    rng = np.random.default_rng(21)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 40, 8)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, hkv, 33, 8)).astype(np.float32))
+            for _ in range(2))
+    kw = dict(scale=0.4, causal=True, window=7)
+    before = ops.launch_counts()
+    got = tkernel.flash_attention(q, k, v, **kw)
+    want = tkernel.flash_attention(q, k.repeat_interleave(4 // hkv, 1),
+                                   v.repeat_interleave(4 // hkv, 1), **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, **kw), want, rtol=0, atol=0)
+    flat = tkernel.flash_attention(q.reshape(8, 40, 8), k.reshape(2 * hkv, 33, 8),
+                                   v.reshape(2 * hkv, 33, 8), **kw)
+    torch.testing.assert_close(flat.reshape(2, 4, 40, 8), want, rtol=0, atol=0)
+    assert ops.launch_counts() == before
+    three = torch.zeros(2, 3, 33, 8)   # 4 query heads over 3 KV heads
+    with pytest.raises(ValueError, match="not a multiple"):
+        tkernel.flash_attention(q, three, three, **kw)
+
+
+def _route_operands(case: str):
+    """q, k, v for :func:`tkernel.flash_route`: the model's [B, H, S, D] views
+    of [B, S, H, D] (GQA k/v of 2 heads) at D 8 / 96 / 128, and the calls TMA
+    cannot take: D=5, a row stride of 30 elements, a base 8 bytes off."""
+    def views(d, dtype=torch.bfloat16, h=6, hkv=2):
+        return (torch.zeros(2, 50, h, d, dtype=dtype).transpose(1, 2),
+                *(torch.zeros(2, 50, hkv, d, dtype=dtype).transpose(1, 2) for _ in range(2)))
+
+    if case.startswith("bf16 D="):
+        return views(int(case.removeprefix("bf16 D=")))
+    if case == "fp32 D=128":
+        return views(128, torch.float32)
+    if case == "bf16 row stride 30":
+        wide = torch.zeros(2, 6, 50, 30, dtype=torch.bfloat16)
+        return wide[..., :24], wide[:, :2, :, :24], wide[:, :2, :, :24]
+    assert case == "bf16 base off by 8 bytes"
+    flat = torch.zeros(2 * 6 * 50 * 24 + 4, dtype=torch.bfloat16)[4:]
+    q = flat.view(2, 6, 50, 24)
+    return q, q[:, :2], q[:, :2]
+
+
+ROUTE_CASES = {"bf16 D=8": "tensor_core", "bf16 D=96": "tensor_core",
+               "bf16 D=128": "tensor_core", "bf16 D=5": "cuda_core",
+               "bf16 row stride 30": "cuda_core", "bf16 base off by 8 bytes": "cuda_core",
+               "fp32 D=128": "fp32"}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_flash_route(case):
+    """flash_route picks the kernel from dtype, D and strides alone: the
+    tensor cores for bf16 at D % 8 == 0 that TMA can address (16-byte base
+    and strides), the CUDA cores for any other bf16 call, fp32's own route;
+    other dtypes raise."""
+    assert tkernel.flash_route(*_route_operands(case)) == ROUTE_CASES[case]
+    with pytest.raises(ValueError, match="dtype"):
+        tkernel.flash_route(*(t.half() for t in _route_operands("bf16 D=8")))
+
+
+def _jcfg(cfg):
+    from repro.config import AttnConfig as JAttn
+
+    return JAttn(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("window", [None, 5])
+def test_gqa_forward_pallas_matches_jax(window, dtype, monkeypatch):
+    """gqa_forward(impl='pallas') at the smoke qwen2's attention (6 query
+    heads over 2 KV heads), which hands the flash kernel the KV heads
+    unexpanded, against the JAX package's gqa_forward(impl='pallas')
+    (expanded K/V, the Pallas kernel in interpret mode): y and the rope'd
+    k, v, fp32 1e-5 and bf16 2e-2 of max |y|."""
+    tdt, jdt = DTYPES[dtype]
+    atol = 1e-5 if dtype == "float32" else 2e-2
+    cfg = replace(get_smoke_config("qwen2_1_5b").attn, sliding_window=window)
+    assert cfg.num_heads // cfg.num_kv_heads == 3
+    jp = jattn.init_gqa(jax.random.PRNGKey(5), _jcfg(cfg), 24)
+    tp = load_jax_params(tattn.init_gqa(cfg, 24, generator=torch.Generator().manual_seed(0)),
+                         _np(jp))
+    x = np.random.default_rng(23).standard_normal((2, 37, 24)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(37, dtype=np.int32), (2, 37))
+    expanded = []
+    monkeypatch.setattr(tattn, "_expand_kv", lambda t, g: expanded.append(g) or t)
+    with torch.no_grad():
+        y, (k, v) = tattn.gqa_forward(tp, torch.from_numpy(x).to(tdt), cfg,
+                                      positions=torch.from_numpy(pos.copy()), impl="pallas",
+                                      return_kv=True)
+    assert expanded == []
+    jy, (jk, jv) = jattn.gqa_forward(jax.tree.map(lambda a: a.astype(jdt), jp),
+                                     jnp.asarray(x, jdt), _jcfg(cfg), positions=jnp.asarray(pos),
+                                     impl="pallas", return_kv=True)
+    assert y.dtype == tdt and tuple(k.shape) == (2, cfg.num_kv_heads, 37, cfg.head_dim)
+    for got, want in ((y, jy), (k, jk), (v, jv)):
+        _close(got, want, atol=atol * max(1.0, float(np.abs(np.asarray(want, np.float32)).max())),
+               rtol=atol)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_attn_sdpa_pallas_matches_jax(causal, window, dtype):

@@ -18,8 +18,11 @@ weights to bf16 (bf16 queries over bf16 pages); the smoke qwen2's engine
 gives the same greedy tokens through the kernel route as through the
 gather route. The flash-attention kernel is held against its plain version
 in fp64 at 1e-5 of max |o| in fp32, and against the plain version on the
-same bf16 inputs at 1e-2 of max |o| in bf16 (the kernel keeps the weights
-in fp32 where the plain version rounds them to bf16); the smoke qwen2's
+same bf16 inputs at 1e-2 of max |o| in bf16 (the kernels keep the weights
+in fp32, or split in two bf16 parts, where the plain version rounds them to
+bf16); on both bf16 routes (tensor cores and CUDA cores) bf16 is also held
+against the plain version in fp64 beyond bf16's output rounding,
+max(|o - want| - 2^-8 |want|) within 1e-5 of max |want|; the smoke qwen2's
 prefill through it agrees with the chunked route within 1e-4 of max |logit|
 in fp32 compute."""
 import pytest
@@ -194,8 +197,10 @@ def test_fused_bwd_raises_instead_of_falling_back(cuda):
         flare_fused_bwd(q, k, v, z.cpu(), mx, den, lse, y, y)
 
 
+# D 24 and 96 run at the padded widths 32 and 128
 CAUSAL_SHAPES = [(2, 4, 16, 97, 8), (1, 3, 24, 300, 16), (2, 2, 70, 130, 32),
-                 (1, 2, 64, 64, 64), (1, 2, 512, 1000, 128), (1, 1, 100, 4099, 128)]
+                 (1, 2, 64, 64, 64), (1, 2, 512, 1000, 128), (1, 1, 100, 4099, 128),
+                 (1, 2, 40, 300, 24), (1, 2, 64, 500, 96)]
 
 
 @pytest.mark.parametrize("dtype", list(TOL), ids=str)
@@ -216,7 +221,7 @@ def test_causal_kernel_matches_plain(cuda, shape, dtype):
 
 
 def test_causal_kernel_raises_instead_of_falling_back(cuda):
-    q, k, v = _inputs((1, 2, 16, 33, 12), torch.float32, cuda)     # D=12 is not built
+    q, k, v = _inputs((1, 2, 16, 33, 130), torch.float32, cuda)    # D above 128
     with pytest.raises(ValueError, match="head dim"):
         flare_causal_chunk(q, k, v)
     q, k, v = _inputs((1, 2, 16, 33, 8), torch.float32, cuda)
@@ -243,7 +248,7 @@ def test_flare_lm_kernel_path_matches_plain_path(cuda):
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
-PAGED_CASES = [(g, d, dt, q2) for g in (1, 6, 2048) for d in (8, 128)
+PAGED_CASES = [(g, d, dt, q2) for g in (1, 6, 2048) for d in (8, 24, 96, 128)
                for dt in ("float32", "bfloat16", "int8", "fp8") for q2 in (False, True)]
 
 
@@ -316,9 +321,9 @@ def test_paged_kernel_raises_instead_of_falling_back(cuda):
 
     ops, _ = _paged_case(6, 128, "bfloat16", False, cuda)
     q, k, v, pt, lengths = ops
+    wide = [torch.cat([t, t[..., :8]], -1) for t in (q, k, v)]   # D = 136, above 128
     with pytest.raises(ValueError, match="head dim"):
-        paged_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
-                        v[..., :24].contiguous(), pt, lengths)
+        paged_attention(*wide, pt, lengths)
     with pytest.raises(ValueError, match="int32"):
         paged_attention(q, k, v, pt.long(), lengths)
     with pytest.raises(ValueError, match="several devices"):
@@ -352,49 +357,69 @@ def test_qwen2_engine_kernel_route_matches_gather(cuda):
     assert outs["paged"] == outs["gather"]
 
 
-FLASH_SHAPES = [(2, 3, 97, 97, 24), (1, 2, 300, 300, 96), (1, 2, 128, 64, 128),
-                (2, 2, 64, 200, 96), (1, 4, 1030, 1030, 128), (1, 1, 70, 70, 5)]
+# (B, H, Hkv, Sq, Skv, D): GQA (Hkv < H) included; D 16 / 32 / 64 / 96 / 128
+# and 24 at padded widths, and 5 (no vector loads, the CUDA cores in bf16)
+FLASH_SHAPES = [(2, 3, 3, 97, 97, 24), (1, 2, 2, 300, 300, 96), (1, 2, 2, 128, 64, 128),
+                (2, 2, 2, 64, 200, 96), (1, 4, 4, 1030, 1030, 128), (1, 1, 1, 70, 70, 5),
+                (1, 6, 2, 300, 300, 16), (2, 6, 1, 200, 200, 32), (1, 6, 3, 257, 257, 64),
+                (1, 12, 2, 1030, 1030, 128)]
 FLASH_MASKS = [(True, None), (False, None), (True, 24)]
+BF16_U = 2.0 ** -8   # bf16's unit roundoff: rounding moves x by at most 2**-8 |x|
 
 
 def _flash_inputs(shape, dtype, device, seed=0):
-    """q, k, v as the model gives them: [B, H, S, D] views of [B, S, H, D]."""
-    b, h, sq, skv, d = shape
+    """q, k, v as the model gives them: [B, H, S, D] views of [B, S, H, D],
+    k and v of Hkv heads."""
+    b, h, hkv, sq, skv, d = shape
     gen = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(b, n, h, d, generator=gen).to(device, dtype).transpose(1, 2)
-                 for n in (sq, skv, skv))
+    return tuple(torch.randn(b, n, heads, d, generator=gen).to(device, dtype).transpose(1, 2)
+                 for n, heads in ((sq, h), (skv, hkv), (skv, hkv)))
 
 
 @pytest.mark.parametrize("dtype", list(TOL), ids=str)
 @pytest.mark.parametrize("causal,window", FLASH_MASKS)
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda, shape, causal, window, dtype):
-    """D 24 / 96 / 128 (and 5: no vector loads), ragged Sq and Skv, Sq > Skv
-    with fully masked rows, Skv > Sq."""
-    from repro_torch.kernels.attention import flash_attention
+    """GQA, D 5 to 128, ragged Sq and Skv, Sq > Skv with fully masked rows,
+    Skv > Sq; every bf16 call on both bf16 routes, and each call's route
+    asserted (flash_route: the tensor cores for bf16 at D % 8 == 0)."""
+    from repro_torch.kernels.attention import flash_attention, flash_route
 
     q, k, v = _flash_inputs(shape, dtype, cuda)
     kw = dict(scale=shape[-1] ** -0.5, causal=causal, window=window)
-    before = launch_counts()["flash_attention"]
-    o = flash_attention(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert launch_counts()["flash_attention"] == before + 1
-    assert o.dtype == dtype and o.shape == q.shape and bool(torch.isfinite(o).all())
-    if dtype == torch.float32:
-        want = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
-        assert (o.double() - want).abs().max() <= 1e-5 * want.abs().max()
-    else:
+    want64 = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    routes = {torch.float32: ["fp32"],
+              torch.bfloat16: ["tensor_core", "cuda_core"] if shape[-1] % 8 == 0
+              else ["cuda_core"]}[dtype]
+    assert flash_route(q, k, v) == routes[0]
+    for route in routes:
+        before = dict(flash_attention.launches_by_route)
+        o = flash_attention(q, k, v, **kw, route=None if route == routes[0] else route)
+        torch.cuda.synchronize()
+        assert {r: n - before[r] for r, n in flash_attention.launches_by_route.items()} == {
+            r: int(r == route) for r in before}
+        assert o.dtype == dtype and o.shape == q.shape and bool(torch.isfinite(o).all())
+        if dtype == torch.float32:
+            assert (o.double() - want64).abs().max() <= 1e-5 * want64.abs().max()
+            continue
         want = ref.flash_attention_ref(q, k, v, **kw)
         assert (o.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+        excess = ((o.double() - want64).abs() - BF16_U * want64.abs()).max()
+        assert excess <= 1e-5 * want64.abs().max(), (route, excess.item())
 
 
 def test_flash_kernel_raises_instead_of_falling_back(cuda):
     from repro_torch.kernels.attention import flash_attention
 
-    q, k, v = _flash_inputs((1, 2, 33, 33, 136), torch.float32, cuda)     # D above 128
+    q, k, v = _flash_inputs((1, 2, 2, 33, 33, 136), torch.float32, cuda)     # D above 128
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, k, v, scale=1.0)
-    q, k, v = _flash_inputs((1, 2, 33, 33, 64), torch.float32, cuda)
+    q, k, v = _flash_inputs((1, 2, 2, 33, 33, 5), torch.bfloat16, cuda)   # D=5: no TMA
+    with pytest.raises(ValueError, match="route 'tensor_core'"):
+        flash_attention(q, k, v, scale=1.0, route="tensor_core")
+    q, k, v = _flash_inputs((1, 2, 2, 33, 33, 64), torch.float32, cuda)
+    with pytest.raises(ValueError, match="route 'tensor_core'"):
+        flash_attention(q, k, v, scale=1.0, route="tensor_core")
     with pytest.raises(ValueError, match="several devices"):
         flash_attention(q.cpu(), k, v, scale=1.0)
     with pytest.raises(ValueError, match="dtype"):

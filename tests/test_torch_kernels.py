@@ -265,7 +265,8 @@ def _paged_inputs(b=3, h=2, g=4, d=16, nb=9, block=8, p=4, quant=None, q2=False,
 
 
 PAGED_CASES = {"g4": {}, "g1": dict(g=1), "int8": dict(quant="int8"), "fp8": dict(quant="fp8"),
-               "q2_k2": dict(q2=True), "g1_int8_q2": dict(g=1, quant="int8", q2=True)}
+               "q2_k2": dict(q2=True), "g1_int8_q2": dict(g=1, quant="int8", q2=True),
+               "d96": dict(g=1, d=96), "d24_int8": dict(d=24, quant="int8")}
 
 
 @pytest.mark.parametrize("case", list(PAGED_CASES))

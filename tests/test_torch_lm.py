@@ -185,11 +185,13 @@ def test_exact_path_is_causal_under_adversarial_future():
 # --- the causal kernel's plain version against the Pallas kernel ----------------
 
 
-@pytest.mark.parametrize("b,h,n,m,d", [(1, 2, 64, 16, 8), (2, 1, 97, 16, 8), (1, 2, 130, 8, 16)])
+@pytest.mark.parametrize("b,h,n,m,d", [(1, 2, 64, 16, 8), (2, 1, 97, 16, 8), (1, 2, 130, 8, 16),
+                                         (1, 2, 70, 8, 24), (1, 1, 66, 8, 96)])
 def test_flare_causal_fused_matches_pallas(b, h, n, m, d):
     """The port's wrapper on CPU tensors (the plain version at the kernel's
-    tile) against the Pallas kernel in interpret mode (tile 32, N padded),
-    ragged N included; no kernel is launched."""
+    tile) against the Pallas kernel in interpret mode (tile 32, N padded, D
+    padded to 128 lanes), ragged N and the head dims the kernel runs at a
+    padded width (24, phi3's 96) included; no kernel is launched."""
     q, k, v = _qkv(b, h, n, m, d, seed=6)
     (jq, jk, jv), (tq, tk, tv) = _both((q, k, v))
     before = launch_counts()
