@@ -15,9 +15,11 @@ failure so the script exits non-zero:
    power limit;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc (one process per
    source, in parallel) and prints the seconds taken and ptxas's
-   register/shared-memory use and spills of the D=8 kernels, the D=128
-   causal kernel, the paged kernel and both flash kernels, and ptxas's
-   warnings;
+   register/shared-memory use and spills of the D=8 kernels (the
+   backward's three tensor-core passes among them), the D=128 causal
+   kernel, the paged kernel's decode instances (page dtype x query rows a
+   block) and encode instances (padded D, plain or scaled), both flash
+   kernels, and ptxas's warnings;
 3. kernels on random operands: each CUDA kernel (encode, decode, fused
    forward, fused backward) against its plain PyTorch version, bf16 at full
    width (H=8, M=2048, D=8, B=1, N=40,000) and a ragged shape (M=16, N=97)
@@ -56,7 +58,10 @@ failure so the script exits non-zero:
    head at a time, chunked over tokens; each must reject a plain backward
    that dropped one 256-token tile of dZ, and dk also one that dropped one
    256-latent tile. Timed beside its plain version and autograd's backward
-   through two ``F.scaled_dot_product_attention`` calls;
+   through two ``F.scaled_dot_product_attention`` calls, with the bound of
+   seven fp32 products and the two floors of the tensor-core design (its
+   exps at the card's top SM clock, its products split three ways at the
+   TF32 peak);
 5. the slice end to end: ``get_model(flare_pde)`` from a seed, whose infer
    plan must be ``packed``; point-cloud requests at pde_40k and one pde_1m
    forward, with launch counts zeroed just before and read just after; the
@@ -188,6 +193,11 @@ SRC = Path(__file__).resolve().parent / "src"
 # tensor cores, and HBM3 bandwidth. Every bound is against these.
 PEAK_FP32 = 67e12
 PEAK_BW = 3.35e12
+PEAK_TF32 = 495e12   # tensor cores, dense
+# the backward kernel's exps and products a (latent, token) pair: W in pass
+# a, A and W in b and in c; S and dZ, S, v dZ^T, dy Z^T, dk and dv, S,
+# dZ v^T, Z dy^T and dq (csrc/flare_bwd.cu)
+BWD_EXPS, BWD_PRODUCTS = 5, 11
 
 SEED = 0
 # bf16 and ragged edges, on random operands (the model itself runs fp32)
@@ -314,6 +324,12 @@ SHARD_SLICES, SHARDED_STEPS, SHARDED_STEPS_1M = 4, 5, 2
 SHARD_TOL = 1e-4
 
 
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.split()[0])
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -350,6 +366,9 @@ def graph_ms(fn, reps: int) -> float:
     return cuda_ms(graph.replay, reps)
 
 
+PAGED_TYPES = {"a": "i8", "f": "f32", "13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8"}
+
+
 def ptxas_summary(log: str) -> list:
     """One line per FLARE kernel at D=8 (its own instance, D known at compile
     time) and at the padded width 64, causal kernel at D=8 and 128, paged
@@ -372,9 +391,9 @@ def ptxas_summary(log: str) -> list:
                 "Li8ELb1E" in props or "Li64ELb0E" in props
                 or ("causal" in props and re.search(r"Li(8|128)E", props))
                 or "paged" in props or "flash" in props):
-            kind = next(k for k in ("paged_combine", "paged", "causal_combine", "causal",
-                                    "encode", "decode", "combine", "dz", "dkv", "dq",
-                                    "flash_tc", "flash")
+            kind = next(k for k in ("paged_combine", "paged_decode", "paged_encode",
+                                    "causal_combine", "causal", "encode", "decode", "combine",
+                                    "dz", "dkv", "dq", "flash_tc", "flash")
                         if f"{k}_kernel" in props)
             args = props.split("_kernelI", 1)[-1]
             types = ["bf16" if t.startswith("13") else "f32"
@@ -384,11 +403,15 @@ def ptxas_summary(log: str) -> list:
             width = re.search(r"Li(\d+)E", args)
             label = (f"{'/'.join(types)} D={width.group(1)}" if width and types
                      else props[:60])
-            if kind in ("causal", "paged") and re.search(r"Lb[01]E", args):
+            if kind == "paged_decode":   # <page dtype, query rows a block at most>
+                page = args.split("Li")[0]
+                label = f"{PAGED_TYPES.get(page, page)} rows<={width.group(1)}"
+            elif kind == "paged_encode":   # <padded D, plain (no scales, scale 1)>
+                label = f"D={width.group(1)} {'plain' if 'Lb1E' in args else 'scaled'}"
+            elif kind == "causal" and re.search(r"Lb[01]E", args):
                 # the exact instance (D its own width) or the padded one
                 page = args.split("Lb")[0]
-                label = label if width else {"a": "i8", "f": "f32", "13__nv_bfloat16": "bf16",
-                                             "13__nv_fp8_e4m3": "fp8"}.get(page, page)
+                label = label if width else PAGED_TYPES.get(page, page)
                 label += " exact" if "Lb1E" in args else " padded"
             rows.append(f"  {kind:<8} {label:<16} {m.group(1)} regs{m.group(2)}, "
                         f"{frame.get(props, 'no frame line')}")
@@ -753,6 +776,12 @@ def time_bwd(q, k, v, dy, y, res) -> dict:
         library_ms=cuda_ms(lambda: torch.autograd.grad(y_lib, (qe, kk, vv), dy,
                                                        retain_graph=True), reps=3),
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+    # the floors of the tensor-core design (csrc/flare_bwd.cu): its exps on
+    # the special-function units (16 a clock an SM) at the card's top SM
+    # clock, and its products, each three TF32 MMAs, at the TF32 peak
+    pairs, sm_hz = b * h * m * n, max_sm_clock_mhz() * 1e6
+    stats["floor_exps_ms"] = BWD_EXPS * pairs / (16 * 132 * sm_hz) * 1e3
+    stats["floor_split_products_ms"] = 3 * BWD_PRODUCTS * 2 * pairs * d / PEAK_TF32 * 1e3
     del y_lib
     return stats
 

@@ -17,8 +17,11 @@
 // bytes of K and V per token that every latent row reuses: at pde_40k the
 // encode does 1.7e11 FLOP on 164 MB, about 1000 FLOP per byte. Each kernel
 // is bound by fp32 arithmetic on the CUDA cores (67 TFLOP/s on an H100 SXM),
-// not by memory. A tensor-core tile is 16 deep and D = 8, so this first
-// version stays on the CUDA cores; wgmma with head packing is later work.
+// not by memory. These kernels stay on the CUDA cores. D = 8 is below a
+// bf16 tensor-core tile (16 deep), but not below a TF32 one: mma.sync
+// m16n8k8 takes k = 8 = D, and flare_bwd.cu runs the backward's products
+// that way, with each fp32 operand split in two TF32 parts for fp32
+// accuracy; the forward's turn is later work.
 //
 // What the design does about it:
 //   * one thread owns one output row (a latent row in the encode, a token in

@@ -1,4 +1,4 @@
-// FLARE fused backward for Hopper (sm_90a), CUDA C++.
+// FLARE fused backward for Hopper (sm_90a), CUDA C++ on the tensor cores.
 //
 // Replaces the TPU kernels of the JAX package:
 //   repro/kernels/flare_packed.py::_fused_bwd_kernel (_bwd_launch), the
@@ -29,34 +29,64 @@
 //
 // What bounds it. Seven products of 2*B*H*M*N*D FLOP each (S, dZ, dW, dA,
 // dk, dv, dq) on 3*B*H*N*D inputs: at pde_40k about 6e11 FLOP on ~50 MB,
-// bound by fp32 arithmetic on the CUDA cores (67 TFLOP/s on an H100 SXM), as
-// the forward is. D = 8 is below a tensor-core tile; this version stays on
-// the CUDA cores.
+// bound by arithmetic, 8.764 ms at fp32's 67 TFLOP/s on an H100 SXM. The
+// previous version ran every product as an fp32 FMA on the CUDA cores, one
+// thread an output row, and said D = 8 was below a tensor-core tile: it took
+// 39.947 ms at pde_40k and 132.787 ms at pde_1m on an NVIDIA H100 80GB HBM3
+// at 700 W (PERF.md section 6, row 4). That holds for bf16, whose MMA is 16 deep, not
+// for TF32: mma.sync.m16n8k8 takes k = 8 = D for the scores, and n = 8 = D
+// with k = 8 tokens or latents for the sums.
 //
-// What the design does about it. The TPU kernel runs two sweeps over token
-// tiles of one sequential grid, holding every latent's dZ and dq in VMEM
-// and all M scores of a token tile at once. Blocks on Hopper run in no
-// order, and a thread can hold one row. So the backward is three passes,
-// each with one thread per output row, as in the forward:
-//   (a) dz_kernel, a thread per latent over the tokens: dZ_m;
-//   (b) dkv_kernel, a thread per token over the latents: dk_n and dv_n
-//       (delta_e is formed from the staged dZ and Z, delta_d in registers);
-//   (c) dq_kernel, a thread per latent over the tokens: dq_m per (b, h).
-// Since the softmax statistics are known, no pass needs an online rescale:
-// each weight is one exp. The streamed operands are staged in shared memory
-// and read as broadcasts; sums run in two levels (per shared tile, then
-// across tiles), as the encode's do. Where B*H leaves the card underfilled
-// (pde_1m: 128 per-latent blocks for 132 SMs), (a) and (c) split the tokens
-// over blockIdx.z into fp32 partial sums, which sum_kernel adds (no rescale
-// is needed). (c) always writes per-(b, h) partials; sum_kernel adds them
-// over the splits and the batch into dq [H, M, D]. Inputs are taken by
-// strides (unit D stride), dk and dv are written through strides (the
-// [B, H, N, D] views of [B, N, H, D] memory the wrapper allocates), ragged N
-// and M are loop bounds, and nothing is padded in device memory: any head
-// dim D from 1 to 64 runs at its padded width (4, 8, 16, 32 or 64), the
-// lanes d >= D zero in registers and shared memory, as in flare.cu, and
-// D = 4 and D = 8 have instances of their own with D known at compile time
-// (flare_common.cuh::at_width). At 64 the per-row arrays spill.
+// The design. Three passes, as before, each a warp per 16 * MT output rows
+// (MT = 4 latent tiles at D = 8 in (a) and (c), 2 token tiles in (b))
+// and every product on the tensor cores (mma.sync m16n8k8, TF32 in, fp32
+// accumulate):
+//   (a) dz_kernel, warps over latents, tokens streamed: S, W, dZ += W dy;
+//   (b) dkv_kernel, warps over tokens, latents streamed: S^T, A, W, dS,
+//       dk += dS^T q, dv += A^T dZ;
+//   (c) dq_kernel, warps over latents, tokens streamed: S, A, W, dS,
+//       dq += dS k, per (b, h) and token slice.
+//   * Precision. One TF32 rounding (2^-11) of an operand would miss the fp32
+//     check (1e-5 of max |grad| against fp64). Each fp32 operand is split
+//     into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest as
+//     cvt.rna.tf32.f32 does (by two integer operations), and a product is
+//     three MMAs, lo.hi + hi.lo +
+//     hi.hi (small terms first), leaving about 2^-21. A bf16 operand is
+//     exact in TF32 (lo = 0), and its MMAs with lo are skipped. The sums
+//     over the streamed dimension leave the tensor core after each 8-wide
+//     step (each step's three MMAs start from zero and are added to the
+//     fp32 sums in registers): the tensor core truncates its fp32 additions,
+//     so a long chain inside it would drift. Those sums then run in two
+//     levels (per staged tile, then across tiles), as the encode's do.
+//   * Fragments. The streamed operand is staged in shared memory already in
+//     the B-fragment order of each lane, split: one 16-byte read a lane for
+//     (hi0, hi1, lo0, lo1). Each warp holds its own rows as split A
+//     fragments in registers for the whole pass. The score accumulator
+//     becomes the next product's A fragment with no data movement: the
+//     C fragment's columns (2t, 2t + 1) are taken as the A fragment's k
+//     indices (t, t + 4), and the B fragment of that product is staged with
+//     its rows in the same order (rows 2t and 2t + 1 for k = t and t + 4).
+//   * Exps. Five a (latent, token) pair, as before: W in (a), A and W in (b)
+//     and in (c), each pass computing each weight it needs once. Forming
+//     dq in (b) instead (dS through shared memory, transposed within its
+//     warp, into dq^T = k^T dS; the warps' parts summed in order; one fp32
+//     part of dq a block of 2,048 tokens) takes three exps a pair and eight
+//     products, but measured slower on an NVIDIA H100 80GB HBM3 at 700 W:
+//     22.5 ms for that pass at pde_40k against 10.9 + 9.6 for (b) and (c)
+//     (PERF.md section 6), its registers spilling at 255.
+//   * Where B*H leaves the card underfilled (pde_1m: 128 per-latent blocks
+//     for 132 SMs), (a) and (c) split the tokens over blockIdx.z into fp32
+//     partial sums, which sum_kernel adds in order (no atomics); (c) always
+//     writes per-(b, h) partials that sum_kernel adds over the splits and
+//     the batch into dq [H, M, D]. Deterministic: two calls give equal bits.
+//   * Inputs are taken by strides (unit D stride), dk and dv are written
+//     through strides; ragged N and M are zero-filled in the staged
+//     fragments and masked by infinite statistics (weight exactly 0), and
+//     nothing is padded in device memory. Any D from 1 to 64 runs at width
+//     8, 16, 32 or 64 (below 8: at 8), lanes d >= D zero; D = 8 has an
+//     instance of its own with D known at compile time. At 64 a warp's
+//     fragments exceed the register file and spill (ptxas's spills are
+//     printed by chip_smoke.py).
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise.
@@ -67,234 +97,456 @@ namespace {
 
 using namespace flare;
 
-// (a) Grid (ceil(M / ENC_THREADS), B*H, splits); thread = latent m of group
-// g over tokens [split*split_len, min(N, (split+1)*split_len)):
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int STAGE_FLOATS = 8192;   // floats of staged fragments a tile (32 KB)
+
+// ---------------------------------------------------------------------------
+// TF32 on the tensor cores
+
+__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds: half of the dropped bits' unit added to the
+// magnitude, then the 13 bits cleared (two integer operations;
+// kernels/ref.py::tf32 rounds finite values the same way, and the CPU tests
+// hold that rounding, split in two, to fp32 accuracy).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// An A fragment (16 x 8) split: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4), g = lane / 4, t = lane % 4.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ void split_a(FragA& f, float x0, float x1, float x2, float x3) {
+  const float x[4] = {x0, x1, x2, x3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = tf32(x[i]);
+    f.lo[i] = tf32(x[i] - __uint_as_float(f.hi[i]));
+  }
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in three TF32 products, small terms first; b is a staged B
+// fragment (b0 hi, b1 hi, b0 lo, b1 lo). An operand exact in TF32 (bf16
+// values) has lo = 0, and its MMA is skipped.
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const uint4& b) {
+  if (!A_EXACT) mma(c, a.lo, b.x, b.y);
+  if (!B_EXACT) mma(c, a.hi, b.z, b.w);
+  mma(c, a.hi, b.x, b.y);
+}
+
+// The A fragment of rows [r0, r0 + 16) and columns [8 kk, 8 kk + 8) of X
+// (row stride rs; rows past `rows` and columns past Dr zero), split.
+template <typename T>
+__device__ __forceinline__ void load_a(FragA& f, const T* X, long long rs, int r0, int rows,
+                                       int kk, int Dr) {
+  const int lane = threadIdx.x & 31, ra = r0 + (lane >> 2), rb = ra + 8;
+  const int ca = 8 * kk + (lane & 3), cb = ca + 4;
+  auto at = [&](int r, int c) { return r < rows && c < Dr ? to_f(X[r * rs + c]) : 0.f; };
+  split_a(f, at(ra, ca), at(rb, ca), at(ra, cb), at(rb, cb));
+}
+
+// Stage B fragments of rows [r0, r0 + 8 * steps) of a streamed X (row
+// stride rs, `rows` of them from r0 valid, Dr columns), split, into
+// dst[(s * KS + kk) * 32 + lane] as (b0 hi, b1 hi, b0 lo, b1 lo):
+//   KDIM (the head dim is the MMA's k): b0 = X[8s + g][8kk + t],
+//        b1 = X[8s + g][8kk + t + 4];
+//   !KDIM (the rows are the MMA's k, in the order an accumulator turned A
+//        fragment takes them): b0 = X[8s + 2t][8kk + g], b1 = X[8s + 2t + 1][8kk + g].
+template <typename T, int KS, bool KDIM>
+__device__ __forceinline__ void stage_b(uint4* dst, const T* X, long long rs, int r0, int rows,
+                                        int steps, int Dr) {
+  for (int i = threadIdx.x; i < steps * KS * 32; i += THREADS) {
+    const int lane = i & 31, kk = (i >> 5) % KS, s = (i >> 5) / KS;
+    const int g = lane >> 2, t = lane & 3;
+    const int ra = KDIM ? 8 * s + g : 8 * s + 2 * t, rb = KDIM ? ra : ra + 1;
+    const int ca = KDIM ? 8 * kk + t : 8 * kk + g, cb = KDIM ? ca + 4 : ca;
+    const float x0 = ra < rows && ca < Dr ? to_f(X[(long long)(r0 + ra) * rs + ca]) : 0.f;
+    const float x1 = rb < rows && cb < Dr ? to_f(X[(long long)(r0 + rb) * rs + cb]) : 0.f;
+    const uint32_t h0 = tf32(x0), h1 = tf32(x1);
+    dst[i] = make_uint4(h0, h1, tf32(x0 - __uint_as_float(h0)), tf32(x1 - __uint_as_float(h1)));
+  }
+}
+
+// 16-row tiles a warp: the per-latent passes (a) and (c) four at D = 8,
+// two up to 16, one above; the per-token pass (b), which holds three
+// operands' fragments a tile, two up to 16 and one above (registers).
+template <int D> __host__ __device__ constexpr int latent_tiles() {
+  return D <= 8 ? 4 : D <= 16 ? 2 : 1;
+}
+template <int D> __host__ __device__ constexpr int token_tiles() { return D <= 16 ? 2 : 1; }
+
+// ---------------------------------------------------------------------------
+// (a) Grid (ceil(M / (WARPS * 16 * MT)), B*H, splits); warp = 16 * MT
+// latents of group g over tokens [split*split_len, min(N, (split+1)*split_len)):
 // out[split, g, m, :] = sum_n W[m, n] dy_n.
 template <typename T, int D, bool EXACT>
-__global__ void __launch_bounds__(ENC_THREADS)
+__global__ void __launch_bounds__(THREADS)
 dz_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ dy,
           const float* __restrict__ lse, float* __restrict__ out, int H, int M, int N,
           int d_run, Strides ks, Strides dys, int split_len) {
-  constexpr int TN = TILE_FLOATS / D;
+  constexpr int KS = D / 8, MT = latent_tiles<D>();
+  constexpr int NS = STAGE_FLOATS / (2 * KS * 128 + 8);   // 8-token steps a tile
+  constexpr bool E = std::is_same<T, __nv_bfloat16>::value;
+  __shared__ uint4 kf_s[NS * KS * 32];    // k, KDIM: the scores' B
+  __shared__ uint4 dyf_s[NS * KS * 32];   // dy, !KDIM: dZ's B
+  __shared__ __align__(16) float l_s[NS * 8];
   const int Dr = EXACT ? D : d_run;
-  __shared__ float k_s[TILE_FLOATS];
-  __shared__ float dy_s[TILE_FLOATS];
-  __shared__ float l_s[TN];
   const int g = blockIdx.y, b = g / H, h = g % H;
-  const int m = blockIdx.x * ENC_THREADS + threadIdx.x;
-  const int n0 = blockIdx.z * split_len;
-  const int n1 = min(N, n0 + split_len);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, ti = lane & 3;
+  const int m0 = (blockIdx.x * WARPS + warp) * 16 * MT;
+  const int n0 = blockIdx.z * split_len, n1 = min(N, n0 + split_len);
   const T* kg = k + b * ks.b + h * ks.h;
   const T* dyg = dy + b * dys.b + h * dys.h;
   const float* lg = lse + (long long)g * N;
 
-  float x[D], tot[D];
+  FragA qa[MT][KS];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    x[d] = (m < M && d < Dr) ? to_f(q[((long long)h * M + m) * Dr + d]) : 0.f;
-    tot[d] = 0.f;
-  }
-  for (int t0 = n0; t0 < n1; t0 += TN) {
-    const int tn = min(TN, n1 - t0);
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      load_a(qa[i][kk], q + (long long)h * M * Dr, Dr, m0 + 16 * i, M, kk, Dr);
+  float tot[MT][KS][4] = {};
+  for (int t0 = n0; t0 < n1; t0 += NS * 8) {
+    const int tn = min(NS * 8, n1 - t0), steps = (tn + 7) / 8;
     __syncthreads();
-    stage<T, D>(k_s, kg, ks.n, t0, tn, TN, Dr);
-    stage<T, D>(dy_s, dyg, dys.n, t0, tn, TN, Dr);
-    for (int i = threadIdx.x; i < tn; i += blockDim.x) l_s[i] = lg[t0 + i];
+    stage_b<T, KS, true>(kf_s, kg, ks.n, t0, tn, steps, Dr);
+    stage_b<T, KS, false>(dyf_s, dyg, dys.n, t0, tn, steps, Dr);
+    for (int i = threadIdx.x; i < steps * 8; i += THREADS) l_s[i] = i < tn ? lg[t0 + i] : inf();
     __syncthreads();
-    float acc[D];
+    if (m0 >= M) continue;
+    float acc[MT][KS][4] = {};
+#pragma unroll 2
+    for (int s = 0; s < steps; ++s) {
+      const float2 l2 = reinterpret_cast<const float2*>(l_s)[s * 4 + ti];   // tokens 2t, 2t+1
+      uint4 kb[KS];
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < tn; ++j) {
-      const float w = __expf(dot<D>(x, k_s + j * D) - l_s[j]);
+      for (int kk = 0; kk < KS; ++kk) kb[kk] = kf_s[(s * KS + kk) * 32 + lane];
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(w, dy_s[j * D + d], acc[d]);
+      for (int i = 0; i < MT; ++i) {
+        float c[4] = {};
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) mma3<E, E>(c, qa[i][kk], kb[kk]);
+        FragA wa;   // the accumulator as an A fragment: columns 2t, 2t+1 as k = t, t+4
+        split_a(wa, __expf(c[0] - l2.x), __expf(c[2] - l2.x), __expf(c[1] - l2.y),
+                __expf(c[3] - l2.y));
+#pragma unroll
+        for (int j = 0; j < KS; ++j) {
+          float p[4] = {};
+          mma3<false, E>(p, wa, dyf_s[(s * KS + j) * 32 + lane]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] += p[r];
+        }
+      }
     }
 #pragma unroll
-    for (int d = 0; d < D; ++d) tot[d] += acc[d];
-  }
-  if (m >= M) return;
-  float* o = out + (((long long)blockIdx.z * gridDim.y + g) * M + m) * Dr;
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-  for (int d = 0; d < D; ++d)
-    if (d < Dr) o[d] = tot[d];
+      for (int j = 0; j < KS; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) tot[i][j][r] += acc[i][j][r];
+  }
+  // C fragment: c0 (row gi, col 2t), c1 (gi, 2t+1), c2 (gi+8, 2t), c3 (gi+8, 2t+1)
+  float* o = out + ((long long)blockIdx.z * gridDim.y + g) * M * Dr;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + 16 * i + (lane >> 2) + (r >= 2 ? 8 : 0), d = 8 * j + 2 * ti + (r & 1);
+        if (m < M && d < Dr) o[(long long)m * Dr + d] = tot[i][j][r];
+      }
 }
 
-// (b) Grid (ceil(N / DEC_THREADS), B*H); thread = token n of group g:
-// dk_n = sum_m dS[m, n] q_m and dv_n = sum_m A[m, n] dZ_m, over latent
-// tiles of the head's q and the group's Z, dZ and statistics.
+// (b) Grid (ceil(N / (WARPS * 16 * MT)), B*H); warp = 16 * MT tokens of
+// group g over all latents: dk_n = sum_m dS[m, n] q_m, dv_n = sum_m A[m, n] dZ_m.
 template <typename T, int D, bool EXACT>
-__global__ void __launch_bounds__(DEC_THREADS)
+__global__ void __launch_bounds__(THREADS)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const float* __restrict__ z, const float* __restrict__ dz,
            const float* __restrict__ mx, const float* __restrict__ den,
            const float* __restrict__ lse, const T* __restrict__ y, const T* __restrict__ dy,
            T* __restrict__ dk, T* __restrict__ dv, int H, int M, int N, int d_run, Strides ks,
            Strides vs, Strides ys, Strides dys, Strides dks, Strides dvs) {
-  constexpr int TM = TILE_FLOATS / D;
+  constexpr int KS = D / 8, MT = token_tiles<D>();
+  constexpr int NS = STAGE_FLOATS / (5 * KS * 128 + 16);   // 8-latent steps a tile
+  constexpr bool E = std::is_same<T, __nv_bfloat16>::value;
+  __shared__ uint4 qk_s[NS * KS * 32];    // q, KDIM: the scores' B
+  __shared__ uint4 dzk_s[NS * KS * 32];   // dZ, KDIM: (v dZ^T)'s B
+  __shared__ uint4 zk_s[NS * KS * 32];    // Z, KDIM: (dy Z^T)'s B
+  __shared__ uint4 qn_s[NS * KS * 32];    // q, !KDIM: dk's B
+  __shared__ uint4 dzn_s[NS * KS * 32];   // dZ, !KDIM: dv's B
+  __shared__ __align__(16) float le_s[NS * 8];   // encode log-sum-exp per latent
+  __shared__ __align__(16) float de_s[NS * 8];   // delta_e = dZ . Z per latent
   const int Dr = EXACT ? D : d_run;
-  __shared__ float q_s[TILE_FLOATS];
-  __shared__ float z_s[TILE_FLOATS];
-  __shared__ float dz_s[TILE_FLOATS];
-  __shared__ float le_s[TM];   // encode log-sum-exp per latent: max + log den
-  __shared__ float de_s[TM];   // delta_e = dZ . Z per latent
   const int g = blockIdx.y, b = g / H, h = g % H;
-  const int n = blockIdx.x * DEC_THREADS + threadIdx.x;
-  const bool live = n < N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gi = lane >> 2, ti = lane & 3;
+  const int n0 = (blockIdx.x * WARPS + warp) * 16 * MT;
   const T* qh = q + (long long)h * M * Dr;
   const float* zg = z + (long long)g * M * Dr;
   const float* dzg = dz + (long long)g * M * Dr;
+  const T* kg = k + b * ks.b + h * ks.h;
+  const T* vg = v + b * vs.b + h * vs.h;
+  const T* yg = y + b * ys.b + h * ys.h;
+  const T* dyg = dy + b * dys.b + h * dys.h;
 
-  float kx[D], vx[D], dyx[D], dk_tot[D], dv_tot[D];
-  const long long nn = live ? n : 0;
-  const T* kn = k + b * ks.b + h * ks.h + nn * ks.n;
-  const T* vn = v + b * vs.b + h * vs.h + nn * vs.n;
-  const T* yn = y + b * ys.b + h * ys.h + nn * ys.n;
-  const T* dyn = dy + b * dys.b + h * dys.h + nn * dys.n;
-  float dd = 0.f;   // delta_d = dy . y
+  FragA ka[MT][KS], va[MT][KS], dya[MT][KS];
+  float ld[MT][2], dd[MT][2];   // rows gi and gi + 8: decode log-sum-exp, delta_d
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const bool on = live && d < Dr;
-    kx[d] = on ? to_f(kn[d]) : 0.f;
-    vx[d] = on ? to_f(vn[d]) : 0.f;
-    dyx[d] = on ? to_f(dyn[d]) : 0.f;
-    dd = fmaf(dyx[d], on ? to_f(yn[d]) : 0.f, dd);
-    dk_tot[d] = dv_tot[d] = 0.f;
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      load_a(ka[i][kk], kg, ks.n, n0 + 16 * i, N, kk, Dr);
+      load_a(va[i][kk], vg, vs.n, n0 + 16 * i, N, kk, Dr);
+      load_a(dya[i][kk], dyg, dys.n, n0 + 16 * i, N, kk, Dr);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = n0 + 16 * i + gi + 8 * r;
+      float x = 0.f;
+      if (n < N) {
+        for (int d = 0; d < Dr; ++d)
+          x = fmaf(to_f(dyg[(long long)n * dys.n + d]), to_f(yg[(long long)n * ys.n + d]), x);
+      }
+      ld[i][r] = n < N ? lse[(long long)g * N + n] : 0.f;
+      dd[i][r] = x;
+    }
   }
-  const float ld = live ? lse[(long long)g * N + n] : 0.f;
-
-  for (int m0 = 0; m0 < M; m0 += TM) {
-    const int tm = min(TM, M - m0);
+  float dk_tot[MT][KS][4] = {}, dv_tot[MT][KS][4] = {};
+  for (int l0 = 0; l0 < M; l0 += NS * 8) {
+    const int tm = min(NS * 8, M - l0), steps = (tm + 7) / 8;
     __syncthreads();
-    stage<T, D>(q_s, qh, Dr, m0, tm, TM, Dr);
-    stage<float, D>(z_s, zg, Dr, m0, tm, TM, Dr);
-    stage<float, D>(dz_s, dzg, Dr, m0, tm, TM, Dr);
-    for (int i = threadIdx.x; i < tm; i += blockDim.x) {
-      const long long r = (long long)g * M + m0 + i;
-      le_s[i] = mx[r] + logf(den[r]);
-      float de = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d)
-        if (d < Dr) de = fmaf(dzg[(m0 + i) * Dr + d], zg[(m0 + i) * Dr + d], de);
+    stage_b<T, KS, true>(qk_s, qh, Dr, l0, tm, steps, Dr);
+    stage_b<float, KS, true>(dzk_s, dzg, Dr, l0, tm, steps, Dr);
+    stage_b<float, KS, true>(zk_s, zg, Dr, l0, tm, steps, Dr);
+    stage_b<T, KS, false>(qn_s, qh, Dr, l0, tm, steps, Dr);
+    stage_b<float, KS, false>(dzn_s, dzg, Dr, l0, tm, steps, Dr);
+    for (int i = threadIdx.x; i < steps * 8; i += THREADS) {
+      float le = inf(), de = 0.f;   // a latent past M: A = 0
+      if (i < tm) {
+        const long long r = (long long)g * M + l0 + i;
+        le = mx[r] + logf(den[r]);
+        for (int d = 0; d < Dr; ++d) de = fmaf(dzg[(l0 + i) * Dr + d], zg[(l0 + i) * Dr + d], de);
+      }
+      le_s[i] = le;
       de_s[i] = de;
     }
     __syncthreads();
-    float dk_acc[D], dv_acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) dk_acc[d] = dv_acc[d] = 0.f;
+    if (n0 >= N) continue;
+    float dk_acc[MT][KS][4] = {}, dv_acc[MT][KS][4] = {};
 #pragma unroll 2
-    for (int j = 0; j < tm; ++j) {
-      const float* qj = q_s + j * D;
-      const float* zj = z_s + j * D;
-      const float* dzj = dz_s + j * D;
-      const float s = dot<D>(kx, qj);
-      const float a = __expf(s - le_s[j]);
-      const float w = __expf(s - ld);
-      const float ds = a * (dot<D>(vx, dzj) - de_s[j]) + w * (dot<D>(dyx, zj) - dd);
+    for (int s = 0; s < steps; ++s) {
+      const float2 le2 = reinterpret_cast<const float2*>(le_s)[s * 4 + ti];   // latents 2t, 2t+1
+      const float2 de2 = reinterpret_cast<const float2*>(de_s)[s * 4 + ti];
+      uint4 qb[KS], dzb[KS], zb[KS];
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dk_acc[d] = fmaf(ds, qj[d], dk_acc[d]);
-        dv_acc[d] = fmaf(a, dzj[d], dv_acc[d]);
+      for (int kk = 0; kk < KS; ++kk) {
+        const int at = (s * KS + kk) * 32 + lane;
+        qb[kk] = qk_s[at], dzb[kk] = dzk_s[at], zb[kk] = zk_s[at];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        float sc[4] = {}, p1[4] = {}, p2[4] = {};
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          mma3<E, E>(sc, ka[i][kk], qb[kk]);
+          mma3<E, false>(p1, va[i][kk], dzb[kk]);
+          mma3<E, false>(p2, dya[i][kk], zb[kk]);
+        }
+        // c0 (token gi, latent 2t), c1 (gi, 2t+1), c2 (gi+8, 2t), c3 (gi+8, 2t+1)
+        float ds[4], aw[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = r >> 1;
+          const float le = r & 1 ? le2.y : le2.x, de = r & 1 ? de2.y : de2.x;
+          aw[r] = __expf(sc[r] - le);
+          const float w = __expf(sc[r] - ld[i][row]);
+          ds[r] = aw[r] * (p1[r] - de) + w * (p2[r] - dd[i][row]);
+        }
+        FragA dsa, aa;
+        split_a(dsa, ds[0], ds[2], ds[1], ds[3]);
+        split_a(aa, aw[0], aw[2], aw[1], aw[3]);
+#pragma unroll
+        for (int j = 0; j < KS; ++j) {
+          const int at = (s * KS + j) * 32 + lane;
+          float pk[4] = {}, pv[4] = {};
+          mma3<false, E>(pk, dsa, qn_s[at]);
+          mma3<false, false>(pv, aa, dzn_s[at]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) dk_acc[i][j][r] += pk[r], dv_acc[i][j][r] += pv[r];
+        }
       }
     }
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dk_tot[d] += dk_acc[d];
-      dv_tot[d] += dv_acc[d];
-    }
-  }
-  if (!live) return;
-  T* dkn = dk + b * dks.b + h * dks.h + (long long)n * dks.n;
-  T* dvn = dv + b * dvs.b + h * dvs.h + (long long)n * dvs.n;
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    if (d < Dr) {
-      dkn[d] = from_f<T>(dk_tot[d]);
-      dvn[d] = from_f<T>(dv_tot[d]);
-    }
+      for (int j = 0; j < KS; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          dk_tot[i][j][r] += dk_acc[i][j][r], dv_tot[i][j][r] += dv_acc[i][j][r];
   }
+  T* dkg = dk + b * dks.b + h * dks.h;
+  T* dvg = dv + b * dvs.b + h * dvs.h;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int n = n0 + 16 * i + gi + (r >= 2 ? 8 : 0), d = 8 * j + 2 * ti + (r & 1);
+        if (n < N && d < Dr) {
+          dkg[(long long)n * dks.n + d] = from_f<T>(dk_tot[i][j][r]);
+          dvg[(long long)n * dvs.n + d] = from_f<T>(dv_tot[i][j][r]);
+        }
+      }
 }
 
-// (c) Grid (ceil(M / ENC_THREADS), B*H, splits); thread = latent m of group
-// g over a token split: part[split, b, h, m, :] = sum_n dS[m, n] k_n.
+// (c) Grid (ceil(M / (WARPS * 16 * MT)), B*H, splits); warp = 16 * MT
+// latents of group g over a token split: part[split, b, h, m, :] = sum_n dS[m, n] k_n.
 template <typename T, int D, bool EXACT>
-__global__ void __launch_bounds__(ENC_THREADS)
+__global__ void __launch_bounds__(THREADS)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const float* __restrict__ z, const float* __restrict__ dz,
           const float* __restrict__ mx, const float* __restrict__ den,
           const float* __restrict__ lse, const T* __restrict__ y, const T* __restrict__ dy,
           float* __restrict__ part, int H, int M, int N, int d_run, Strides ks, Strides vs,
           Strides ys, Strides dys, int split_len) {
-  constexpr int TN = TILE_FLOATS / D;
+  constexpr int KS = D / 8, MT = latent_tiles<D>();
+  constexpr int NS = STAGE_FLOATS / (4 * KS * 128 + 16);   // 8-token steps a tile
+  constexpr bool E = std::is_same<T, __nv_bfloat16>::value;
+  __shared__ uint4 kk_s[NS * KS * 32];    // k, KDIM: the scores' B
+  __shared__ uint4 vk_s[NS * KS * 32];    // v, KDIM: (dZ v^T)'s B
+  __shared__ uint4 dyk_s[NS * KS * 32];   // dy, KDIM: (Z dy^T)'s B
+  __shared__ uint4 kn_s[NS * KS * 32];    // k, !KDIM: dq's B
+  __shared__ __align__(16) float l_s[NS * 8];    // decode log-sum-exp per token
+  __shared__ __align__(16) float dd_s[NS * 8];   // delta_d = dy . y per token
   const int Dr = EXACT ? D : d_run;
-  __shared__ float k_s[TILE_FLOATS];
-  __shared__ float v_s[TILE_FLOATS];
-  __shared__ float dy_s[TILE_FLOATS];
-  __shared__ float l_s[TN];    // decode log-sum-exp per token
-  __shared__ float dd_s[TN];   // delta_d = dy . y per token
   const int g = blockIdx.y, b = g / H, h = g % H;
-  const int m = blockIdx.x * ENC_THREADS + threadIdx.x;
-  const int n0 = blockIdx.z * split_len;
-  const int n1 = min(N, n0 + split_len);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gi = lane >> 2, ti = lane & 3;
+  const int m0 = (blockIdx.x * WARPS + warp) * 16 * MT;
+  const int n0 = blockIdx.z * split_len, n1 = min(N, n0 + split_len);
   const T* kg = k + b * ks.b + h * ks.h;
   const T* vg = v + b * vs.b + h * vs.h;
   const T* yg = y + b * ys.b + h * ys.h;
   const T* dyg = dy + b * dys.b + h * dys.h;
   const float* lg = lse + (long long)g * N;
+  const float* zg = z + (long long)g * M * Dr;
+  const float* dzg = dz + (long long)g * M * Dr;
 
-  const bool live = m < M;
-  const long long row = (long long)g * M + (live ? m : 0);
-  float qx[D], zx[D], dzx[D], tot[D];
-  float de = 0.f;
+  FragA qa[MT][KS], dza[MT][KS], za[MT][KS];
+  float le[MT][2], de[MT][2];   // rows gi and gi + 8: encode log-sum-exp, delta_e
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const bool on = live && d < Dr;
-    qx[d] = on ? to_f(q[((long long)h * M + m) * Dr + d]) : 0.f;
-    zx[d] = on ? z[row * Dr + d] : 0.f;
-    dzx[d] = on ? dz[row * Dr + d] : 0.f;
-    de = fmaf(dzx[d], zx[d], de);
-    tot[d] = 0.f;
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      load_a(qa[i][kk], q + (long long)h * M * Dr, Dr, m0 + 16 * i, M, kk, Dr);
+      load_a(dza[i][kk], dzg, Dr, m0 + 16 * i, M, kk, Dr);
+      load_a(za[i][kk], zg, Dr, m0 + 16 * i, M, kk, Dr);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + 16 * i + gi + 8 * r;
+      float x = 0.f, l = 0.f;   // a latent past M: finite, never written
+      if (m < M) {
+        for (int d = 0; d < Dr; ++d)
+          x = fmaf(dzg[(long long)m * Dr + d], zg[(long long)m * Dr + d], x);
+        l = mx[(long long)g * M + m] + logf(den[(long long)g * M + m]);
+      }
+      le[i][r] = l;
+      de[i][r] = x;
+    }
   }
-  const float le = live ? mx[row] + logf(den[row]) : 0.f;
-
-  for (int t0 = n0; t0 < n1; t0 += TN) {
-    const int tn = min(TN, n1 - t0);
+  float tot[MT][KS][4] = {};
+  for (int t0 = n0; t0 < n1; t0 += NS * 8) {
+    const int tn = min(NS * 8, n1 - t0), steps = (tn + 7) / 8;
     __syncthreads();
-    stage<T, D>(k_s, kg, ks.n, t0, tn, TN, Dr);
-    stage<T, D>(v_s, vg, vs.n, t0, tn, TN, Dr);
-    stage<T, D>(dy_s, dyg, dys.n, t0, tn, TN, Dr);
-    for (int i = threadIdx.x; i < tn; i += blockDim.x) {
-      l_s[i] = lg[t0 + i];
-      const T* yi = yg + (long long)(t0 + i) * ys.n;
-      const T* dyi = dyg + (long long)(t0 + i) * dys.n;
-      float dd = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d)
-        if (d < Dr) dd = fmaf(to_f(dyi[d]), to_f(yi[d]), dd);
-      dd_s[i] = dd;
+    stage_b<T, KS, true>(kk_s, kg, ks.n, t0, tn, steps, Dr);
+    stage_b<T, KS, true>(vk_s, vg, vs.n, t0, tn, steps, Dr);
+    stage_b<T, KS, true>(dyk_s, dyg, dys.n, t0, tn, steps, Dr);
+    stage_b<T, KS, false>(kn_s, kg, ks.n, t0, tn, steps, Dr);
+    for (int i = threadIdx.x; i < steps * 8; i += THREADS) {
+      float l = inf(), x = 0.f;   // a token past the split: W = 0
+      if (i < tn) {
+        const long long n = t0 + i;
+        l = lg[n];
+        for (int d = 0; d < Dr; ++d) x = fmaf(to_f(dyg[n * dys.n + d]), to_f(yg[n * ys.n + d]), x);
+      }
+      l_s[i] = l;
+      dd_s[i] = x;
     }
     __syncthreads();
-    float acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = 0.f;
+    if (m0 >= M) continue;
+    float acc[MT][KS][4] = {};
 #pragma unroll 2
-    for (int j = 0; j < tn; ++j) {
-      const float* kj = k_s + j * D;
-      const float s = dot<D>(qx, kj);
-      const float a = __expf(s - le);
-      const float w = __expf(s - l_s[j]);
-      const float ds = a * (dot<D>(dzx, v_s + j * D) - de) + w * (dot<D>(zx, dy_s + j * D) - dd_s[j]);
+    for (int s = 0; s < steps; ++s) {
+      const float2 l2 = reinterpret_cast<const float2*>(l_s)[s * 4 + ti];   // tokens 2t, 2t+1
+      const float2 d2 = reinterpret_cast<const float2*>(dd_s)[s * 4 + ti];
+      uint4 kb[KS], vb[KS], dyb[KS];
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, kj[d], acc[d]);
+      for (int kk = 0; kk < KS; ++kk) {
+        const int at = (s * KS + kk) * 32 + lane;
+        kb[kk] = kk_s[at], vb[kk] = vk_s[at], dyb[kk] = dyk_s[at];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        float sc[4] = {}, p1[4] = {}, p2[4] = {};
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          mma3<E, E>(sc, qa[i][kk], kb[kk]);
+          mma3<false, E>(p1, dza[i][kk], vb[kk]);
+          mma3<false, E>(p2, za[i][kk], dyb[kk]);
+        }
+        // c0 (latent gi, token 2t), c1 (gi, 2t+1), c2 (gi+8, 2t), c3 (gi+8, 2t+1)
+        float ds[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = r >> 1;
+          const float l = r & 1 ? l2.y : l2.x, dd = r & 1 ? d2.y : d2.x;
+          ds[r] = __expf(sc[r] - le[i][row]) * (p1[r] - de[i][row]) +
+                  __expf(sc[r] - l) * (p2[r] - dd);
+        }
+        FragA dsa;
+        split_a(dsa, ds[0], ds[2], ds[1], ds[3]);
+#pragma unroll
+        for (int j = 0; j < KS; ++j) {
+          float p[4] = {};
+          mma3<false, E>(p, dsa, kn_s[(s * KS + j) * 32 + lane]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] += p[r];
+        }
+      }
     }
 #pragma unroll
-    for (int d = 0; d < D; ++d) tot[d] += acc[d];
-  }
-  if (!live) return;
-  float* o = part + (((long long)blockIdx.z * gridDim.y + g) * M + m) * Dr;
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-  for (int d = 0; d < D; ++d)
-    if (d < Dr) o[d] = tot[d];
+      for (int j = 0; j < KS; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) tot[i][j][r] += acc[i][j][r];
+  }
+  float* o = part + ((long long)blockIdx.z * gridDim.y + g) * M * Dr;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + 16 * i + gi + (r >= 2 ? 8 : 0), d = 8 * j + 2 * ti + (r & 1);
+        if (m < M && d < Dr) o[(long long)m * Dr + d] = tot[i][j][r];
+      }
 }
 
 // out[i] = sum_c part[c * rows + i]: the token splits of (a), and the splits
@@ -318,14 +570,17 @@ cudaError_t sum_launch(const float* part, TO* out, long long rows, int count, cu
 // Operand strides, in the order the entry point takes them.
 enum { K = 0, V, Y, DY, DK, DV, N_STRIDED };
 
+template <int D> int latents_a_block() { return WARPS * 16 * latent_tiles<D>(); }
+template <int D> int tokens_a_block() { return WARPS * 16 * token_tiles<D>(); }
+
 // Pass (a) into dz [B, H, M, D], with its split sum.
 template <typename T, int D, bool EXACT>
 cudaError_t dz_launch(const void* q, const void* k, const void* dy, const float* lse, float* dz,
                       float* part, int B, int H, int M, int N, int Dr, const Strides* st,
                       int splits, cudaStream_t s) {
   const int G = B * H;
-  const dim3 lat_grid(cdiv(M, ENC_THREADS), G, splits);
-  dz_kernel<T, D, EXACT><<<lat_grid, ENC_THREADS, 0, s>>>(
+  const dim3 lat_grid(cdiv(M, latents_a_block<D>()), G, splits);
+  dz_kernel<T, D, EXACT><<<lat_grid, THREADS, 0, s>>>(
       (const T*)q, (const T*)k, (const T*)dy, lse, splits > 1 ? part : dz, H, M, N, Dr, st[K],
       st[DY], cdiv(N, splits));
   cudaError_t err = cudaGetLastError();
@@ -342,27 +597,44 @@ cudaError_t grads_launch(const void* q, const void* k, const void* v, const floa
                          float* part, int B, int H, int M, int N, int Dr, const Strides* st,
                          int splits, cudaStream_t s) {
   const int G = B * H;
-  const dim3 lat_grid(cdiv(M, ENC_THREADS), G, splits);
+  const dim3 lat_grid(cdiv(M, latents_a_block<D>()), G, splits);
   const T *qt = (const T*)q, *kt = (const T*)k, *vt = (const T*)v, *yt = (const T*)y,
           *dyt = (const T*)dy;
-  dkv_kernel<T, D, EXACT><<<dim3(cdiv(N, DEC_THREADS), G), DEC_THREADS, 0, s>>>(
+  dkv_kernel<T, D, EXACT><<<dim3(cdiv(N, tokens_a_block<D>()), G), THREADS, 0, s>>>(
       qt, kt, vt, z, dz, mx, den, lse, yt, dyt, (T*)dk, (T*)dv, H, M, N, Dr, st[K], st[V],
       st[Y], st[DY], st[DK], st[DV]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<T, D, EXACT><<<lat_grid, ENC_THREADS, 0, s>>>(qt, kt, vt, z, dz, mx, den, lse, yt,
-                                                          dyt, part, H, M, N, Dr, st[K], st[V],
-                                                          st[Y], st[DY], cdiv(N, splits));
+  dq_kernel<T, D, EXACT><<<lat_grid, THREADS, 0, s>>>(qt, kt, vt, z, dz, mx, den, lse, yt, dyt,
+                                                      part, H, M, N, Dr, st[K], st[V], st[Y],
+                                                      st[DY], cdiv(N, splits));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // part is [splits, B, H, M, D]: add the splits and the batch per (h, m, d)
   return sum_launch<T>(part, (T*)dq, (long long)H * M * Dr, splits * B, s);
+}
+
+// f(width, exact) at the MMA width of D: 8 (D = 8 exact; below 8 padded),
+// 16, 32 or 64; cudaErrorInvalidValue above 64.
+template <typename F>
+cudaError_t at_mma_width(int D, F&& f) {
+  using std::integral_constant;
+  constexpr std::true_type exact{};
+  constexpr std::false_type padded{};
+  if (D == 8) return f(integral_constant<int, 8>{}, exact);
+  switch (D < 1 ? 0 : D <= 8 ? 8 : padded_width(D)) {
+    case 8: return f(integral_constant<int, 8>{}, padded);
+    case 16: return f(integral_constant<int, 16>{}, padded);
+    case 32: return f(integral_constant<int, 32>{}, padded);
+    case 64: return f(integral_constant<int, 64>{}, padded);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 cudaError_t dz_d(int D, const void* q, const void* k, const void* dy, const float* lse,
                  float* dz, float* part, int B, int H, int M, int N, const Strides* st,
                  int splits, cudaStream_t s) {
-  return at_width(D, [&](auto w, auto exact) {
+  return at_mma_width(D, [&](auto w, auto exact) {
     return dz_launch<T, decltype(w)::value, decltype(exact)::value>(q, k, dy, lse, dz, part, B,
                                                                     H, M, N, D, st, splits, s);
   });
@@ -373,7 +645,7 @@ cudaError_t grads_d(int D, const void* q, const void* k, const void* v, const fl
                     const float* mx, const float* den, const float* lse, const void* y,
                     const void* dy, const float* dz, void* dq, void* dk, void* dv, float* part,
                     int B, int H, int M, int N, const Strides* st, int splits, cudaStream_t s) {
-  return at_width(D, [&](auto w, auto exact) {
+  return at_mma_width(D, [&](auto w, auto exact) {
     return grads_launch<T, decltype(w)::value, decltype(exact)::value>(
         q, k, v, z, mx, den, lse, y, dy, dz, dq, dk, dv, part, B, H, M, N, D, st, splits, s);
   });

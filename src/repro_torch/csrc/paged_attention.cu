@@ -1,7 +1,7 @@
 // Paged attention for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernel of the JAX package:
-//   paged_kernel + paged_combine_kernel
+//   paged_decode_kernel / paged_encode_kernel + paged_combine_kernel
 //       <- repro/kernels/paged_attention.py::_paged_kernel (paged_attention_pallas)
 //
 // What it computes. For lane b, KV head h and query row g,
@@ -9,66 +9,75 @@
 // over the tokens t < lengths[b] of the lane's pages page_table[b, :], read
 // from block storage k/v [NB, block, H, D]. The score is s = q . k in fp32,
 // times k_scale[t] when given, plus (q2 . k2) * k2_scale[t] when q2 is given
-// (MLA's absorbed decode), then times scale, then masked (-1e30). The fp32
-// softmax weights are multiplied by v_scale[t] when given (after the
-// denominator takes them), and on the plain path (no scales, no q2, q of the
-// pages' dtype) rounded to the pages' dtype before the value product, as the
-// TPU kernel does. A lane of length 0 returns exact zeros. Two consumers:
-// the gqa decode read of the serving pool (G = query heads per KV head, q
-// fp32 over bf16 / int8 / fp8 pages) and FLARE's encode off pages (G = M
-// latents, the `paged` backend).
+// (MLA's absorbed decode), then times scale, then masked. The fp32 softmax
+// weights are multiplied by v_scale[t] when given (after the denominator
+// takes them), and on the plain path (no scales, no q2, q of the pages'
+// dtype) rounded to the pages' dtype before the value product, as the TPU
+// kernel does. A lane of length 0 returns exact zeros. Two consumers: the
+// gqa decode read of the serving pool (G = query heads per KV head: qwen2's
+// 6, phi3's 1; q fp32 over bf16 / fp32 / int8 / fp8 pages) and FLARE's
+// encode off pages (G = M = 2048 latents, D = 8, the `paged` backend).
 //
-// What bounds it. Bytes: each valid token's K and V rows (and scales) once,
-// plus q and o. At qwen2-1.5b's decode (8 slots, 2 KV heads, D = 128, bf16
-// pages, ~2,000 tokens a lane) that is ~16 MB a layer, 4.9 us at 3.35 TB/s,
-// against 2 * G * D FLOP a token row (12 FLOP a byte at G = 6). The FLARE
-// encode at G = 2,048 and D = 8 is bound by fp32 operations instead.
+// What bounds it. The decode read: bytes, each valid token's K and V rows
+// (and scales) once, plus q and o: qwen2-1.5b's layer at 8 slots of ~2,000
+// tokens is ~12 MB, 3.64 us at 3.35 TB/s, at 2 * G * D FLOP a token row.
+// The FLARE encode: fp32 operations, 2 * 2 * G * D FLOP and one exp a token
+// and latent (0.313 ms at pde_40k, B = 1).
 //
-// What does not carry over from the TPU, and the design:
-//   * The TPU grid (B, H, P) walks the pages of a lane in order, carrying
-//     the softmax (max, den, acc) in VMEM. At 8 slots that is B*H = 16
-//     programs: 16 blocks would leave 116 of 132 SMs idle. Here a block
-//     takes (one lane and head, a tile of GT = 1024 / DP query rows, a slice
-//     of the lane's pages) and walks its pages with a running fp32 (max, den,
-//     acc); a second kernel merges the slices in a fixed order (no atomics,
-//     deterministic), the shape of flare.cu's encode + combine N-split. The
-//     host picks the slice count from the shapes alone (B, H, G, D, P), never
-//     from lengths: nothing is read back to the host, so a decode step keeps
-//     its one device-to-host copy. With one slice the block writes o itself.
-//   * The page table and lengths are read by each block from device memory
-//     (the TPU kernel has them in scalar-prefetch memory). Pages at or past
-//     ceil(lengths[b] / block) are skipped, and rows past lengths[b] inside
-//     the last page are never loaded (zero-filled): masked rows had weight 0
-//     anyway, so skipping changes no bit, and garbage in them (even NaN) is
-//     invisible.
-//   * Each page's K and V rows of one head are strided by H*D elements; a
-//     row (256 B at D = 128 in bf16) is loaded as 16-byte vectors (8-byte
-//     where D * sizeof(T) % 16 != 0, single elements where it is not a
-//     multiple of 8 either) and widened to fp32 in registers on the way to
-//     shared memory. Scales multiply the scores and weights,
-//     never the payload, so int8 / fp8 pages are never written out wide.
-//   * A block stages a tile of 64 tokens (4 pages of 16) at a time: the
-//     pages' loads are all in flight together, and the tile pays 4
-//     barriers. Shared memory bandwidth, not the card's, bounds the compute
-//     phases, so each reads a value once for several products: the scores
-//     take a pair of threads per token, and each float4 of the token's K
-//     row serves 8 query rows (the q reads are warp-wide broadcasts); the
-//     online softmax takes 128 / GT lanes a row, reduced by warp shuffles;
-//     the value product keeps 8 accumulators a thread (GT * DP = 1024 = 128
-//     threads x 8, all of one dim), so one v value serves 8 rows, with the
-//     weights read as float4s of 4 tokens. Rows are padded to DP + 8 floats
-//     (16-byte aligned; a quarter warp's float4 reads hit distinct banks).
-//     Blocks hold a multiple of 4 tokens a page. A first version walked one
-//     page at a time, a (row, token) dot product a thread and one thread a
-//     row for the softmax, and took about twice as long (PERF.md).
-//   * Head dims. The shared-memory tiles run at a padded width DP, the next
-//     power of two from 8 to 128 at or above D (phi3's 96 at 128), so that
-//     GT = 1024 / DP is a whole multiple of RC and THREADS a multiple of DP.
-//     Lanes D <= d < DP of q, K and V are zero-filled where they are staged,
-//     so they add exactly 0 to every score, and nothing is written to them.
-//     Pages, q and o keep their real D in device memory. D == DP runs an
-//     instance of its own without the lane guards: with them qwen2's read
-//     at D=128 took 0.0448 ms against 0.0426 (PERF.md).
+// The previous version had one design for both: a block took GT = 1024 / DP
+// query rows, padded, and staged 64 tokens of K and V widened to fp32 in
+// shared memory behind four barriers; every score went through shared
+// memory. At phi3's G = 1 seven of a block's eight rows were idle, and the
+// FLARE encode wrote and reread each of its 2048 x N scores. On an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md section 6, row 6): qwen2's read 0.0428
+// ms (SDPA over the gathered view 0.091), phi3's 0.0749 ms (SDPA 0.0296),
+// the encode at pde_40k, B = 1, 5.784 ms (SDPA 5.657). So the
+// host picks one of two instances from the shapes:
+//
+//   * paged_decode_kernel (G <= 32, or any G with q2 or D > 32): a block
+//     takes one (lane, KV head), a slice of its pages and up to ROWS_MAX
+//     query rows: all G of them where G <= ROWS_MAX, else a tile of G split
+//     evenly (ceil(G / ceil(G / ROWS_MAX)) rows). The rows a block takes
+//     are a compile-time count GTM (1, 2, 4, 6, 8), so at qwen2's G = 6 and
+//     phi3's G = 1 no row is padded (a G of 3, 5 or 7 computes one idle
+//     row); every row is computed without a branch, so that the rows'
+//     chains interleave. The slice's K and V rows go through a ring of
+//     STAGES tiles in shared memory, in their stored dtype, by cp.async
+//     (STAGES - 1 tiles in flight ahead of the compute; the slice's page ids
+//     are staged first, so no address waits on a load). A token group of TG
+//     lanes takes one token: each lane reads EPL consecutive elements of D
+//     (TG = DP / EPL) as 16-byte vectors (8-byte for one-byte pages where
+//     the rows are many) and widens them in registers; the group's dot
+//     products are summed by shuffles within the group. A group keeps an
+//     online (max, den, acc) per row in registers with one rescale every U
+//     tokens; at the end the groups of a warp merge by shuffles and the
+//     warps through shared memory, in a fixed order. No score is kept
+//     anywhere but registers. A first version with register loads and no
+//     ring, a page id read before every row, took 0.0638 ms at qwen2's read
+//     on the same card (NVIDIA H100 80GB HBM3, 700 W): latency, not bytes,
+//     bounds this read.
+//   * paged_encode_kernel (G > 32, D <= 32, no q2): flare.cu's encode_kernel
+//     read through the page table: a thread per query row (latent) with its
+//     query, state and sums in registers; the tokens staged in shared memory
+//     as fp32 rows that every thread reads as broadcasts; scores in chunks of
+//     CH with one rescale a chunk and two-level sums (per staged tile, then
+//     across tiles). No score goes through shared memory.
+//
+// Both instances split each lane's valid pages into slices over blockIdx.x
+// where the grid would underfill the card, and paged_combine_kernel merges
+// the slices' fp32 (max, den, acc) in a fixed order (no atomics,
+// deterministic). The host picks the slice count from the shapes and the
+// card alone (the decode instance: one wave of blocks, from the occupancy
+// API), never from lengths: nothing is read back to the host, so a decode
+// step keeps its one device-to-host copy. Each block cuts its slice from its
+// lane's own length on the card, so a short lane's slices are short and no
+// block idles. With one slice the block writes o itself. The page table and lengths are read by each block from device
+// memory; pages at or past ceil(lengths[b] / block) are never touched, and
+// rows past lengths[b] are never loaded, so garbage there (even NaN) is
+// invisible. Scales multiply the scores and weights, never the payload, so
+// int8 / fp8 pages are never written out wide. Head dims: lanes D <= d < DP
+// (DP the next power of two from 8) hold zeros, and nothing is written to
+// them; pages, q and o keep their real D in device memory.
 //
 // The entry points launch on the given stream, allocate nothing (the caller
 // gives the fp32 partials) and return cudaGetLastError().
@@ -79,16 +88,22 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 128;
-constexpr int ROW_ELEMS = 1024;   // GT * DP: query rows a block takes, times D's padded width
-constexpr int ACC = ROW_ELEMS / THREADS;
-constexpr int TILE_TOKENS = 64;          // tokens a block stages at a time (whole pages)
-constexpr int RC = 8;                    // q rows a thread scores against a token at a time
-constexpr int TARGET_BLOCKS = 4 * 132;   // about four blocks a streaming multiprocessor
-constexpr int MIN_PAGES = 4;             // pages a slice walks at least
+constexpr int WARPS = THREADS / 32;
+constexpr int ROWS_MAX = 8;              // query rows a decode block takes at most
+constexpr int ENC_MIN_G = 33;            // the encode instance from this many query rows
+constexpr int ENC_MAX_D = 32;            // ... up to this head dim
+constexpr int TARGET_BLOCKS = 4 * 132;   // decode: about four blocks a streaming multiprocessor
+constexpr int MIN_PAGES = 4;             // decode: pages a slice walks at least
+constexpr int ENC_WAVE = 132 * 1024 / THREADS;   // encode: about 1024 threads an SM
+constexpr int ENC_MIN_TOKENS = 1024;     // encode: tokens a slice walks at least
+constexpr int TILE_FLOATS = 2048;        // encode: floats a staged K or V tile (8 KB)
+constexpr int CH = 16;                   // encode: scores a chunk (one rescale a chunk)
 
 // dtype codes shared with the Python wrapper
 enum { F32 = 0, BF16 = 1, I8 = 2, FP8 = 3 };
@@ -113,86 +128,14 @@ struct Args {
   float* part_acc;        // [splits, B*H, G, D]
   float* part_ml;         // [splits, B*H, G, 2]: (max, den)
   int B, H, G, D, DP, D2, block, P, splits, pages_per_split;   // DP: D's padded width
+  int rows;               // decode: query rows a block (G's tile)
   float scale;
-  int q_dtype, out_dtype, fused;
+  int q_dtype, page_dtype, out_dtype, fused;
 };
 
 __device__ __forceinline__ float load_q(const void* q, int dtype, long long i) {
   return dtype == F32 ? static_cast<const float*>(q)[i]
                       : __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i]);
-}
-
-// Rows [0, rows) of one head of page `pg` (D elements a row in memory) into
-// shared memory as fp32 rows of DP lanes at row stride `stride`; rows
-// [rows, blk) and, where PAD, lanes [D, DP) are zero-filled. VB bytes a
-// vector (D * sizeof(T) a multiple of VB).
-template <typename T, int VB, bool PAD>
-__device__ __forceinline__ void load_page(float* dst, int stride, const T* src, int pg, int h,
-                                          int H, int D, int DP, int blk, int rows) {
-  constexpr int EPV = VB / sizeof(T);
-  const int vpr = DP / EPV;   // vectors a padded row
-  for (int i = threadIdx.x; i < blk * vpr; i += THREADS) {
-    const int t = i / vpr, c = i % vpr;
-    float* d = dst + t * stride + c * EPV;
-    if (t < rows && (!PAD || c * EPV < D)) {
-      const T* s = src + (((long long)pg * blk + t) * H + h) * D + c * EPV;
-      T e[EPV];
-      if constexpr (VB == 16) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(s);
-        memcpy(e, &raw, VB);
-      } else if constexpr (VB == 8) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(s);
-        memcpy(e, &raw, VB);
-      } else {
-        e[0] = s[0];
-      }
-#pragma unroll
-      for (int j = 0; j < EPV; ++j) d[j] = widen(e[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < EPV; ++j) d[j] = 0.f;
-    }
-  }
-}
-
-// An exact row (PAD false: D == DP, a power of two from 8) is a multiple of
-// 8 bytes; a padded one may need single-element loads.
-template <typename T, bool PAD>
-__device__ __forceinline__ void load_rows(float* dst, int stride, const T* src, int pg, int h,
-                                          int H, int D, int DP, int blk, int rows) {
-  const int bytes = D * (int)sizeof(T);
-  if (bytes % 16 == 0)
-    load_page<T, 16, PAD>(dst, stride, src, pg, h, H, D, DP, blk, rows);
-  else if (!PAD || bytes % 8 == 0)
-    load_page<T, 8, PAD>(dst, stride, src, pg, h, H, D, DP, blk, rows);
-  else
-    load_page<T, sizeof(T), PAD>(dst, stride, src, pg, h, H, D, DP, blk, rows);
-}
-
-__device__ __forceinline__ void load_scales(float* dst, const float* src, int pg, int h, int H,
-                                            int blk, int rows) {
-  for (int t = threadIdx.x; t < blk; t += THREADS)
-    dst[t] = t < rows ? src[((long long)pg * blk + t) * H + h] : 0.f;
-}
-
-// Pages a tile takes: TILE_TOKENS tokens, or one page where a page is longer.
-__host__ __device__ __forceinline__ int pages_per_tile(int block) {
-  return block < TILE_TOKENS ? TILE_TOKENS / block : 1;
-}
-
-// s[r] += q[r] . k over the float4 chunks c = half, half + 2, ... of n
-// (n a multiple of 8), for RC rows of q at stride qs: each chunk of k is read
-// once for the RC rows.
-__device__ __forceinline__ void rows_dot(float (&s)[RC], const float* q, int qs, const float* k,
-                                         int n, int half) {
-  for (int c = 4 * half; c < n; c += 8) {
-    const float4 kk = *reinterpret_cast<const float4*>(k + c);
-#pragma unroll
-    for (int r = 0; r < RC; ++r) {
-      const float4 qq = *reinterpret_cast<const float4*>(q + r * qs + c);
-      s[r] = fmaf(qq.x, kk.x, fmaf(qq.y, kk.y, fmaf(qq.z, kk.z, fmaf(qq.w, kk.w, s[r]))));
-    }
-  }
 }
 
 __device__ __forceinline__ void store_out(void* out, int dtype, long long i, float x) {
@@ -202,232 +145,718 @@ __device__ __forceinline__ void store_out(void* out, int dtype, long long i, flo
     static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(x);
 }
 
-// Grid (splits, B*H, G tiles). Block = lane b, head h, rows [g0, g0 + GT),
-// pages [split * pages_per_split, +pages_per_split) of the lane's valid ones,
-// walked a tile of `ppt` pages (TT = ppt * block tokens) at a time. PAD:
-// D < DP (lanes to zero-fill); the exact instance (D == DP) has no lane
-// guards.
-template <typename T, bool PAD>
-__global__ void __launch_bounds__(THREADS) paged_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int D = a.D, DP = PAD ? a.DP : a.D, D2 = a.D2, blk = a.block;
-  const int GT = ROW_ELEMS / DP, ppt = pages_per_tile(blk), TT = ppt * blk;
-  const int split = blockIdx.x, bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int g0 = blockIdx.z * GT, gn = min(GT, a.G - g0);
-  const int tid = threadIdx.x;
-  // rows of DP + 8 floats: 16-byte aligned, and a quarter warp's float4 reads
-  // of 4 tokens x 2 halves land in 8 distinct bank quads
-  const int KS = DP + 8, K2S = D2 ? D2 + 8 : 0, PS = TT + 4;
-  float* q_s = smem;                       // [GT][KS]
-  float* q2_s = q_s + GT * KS;             // [GT][K2S]
-  float* k_s = q2_s + GT * K2S;            // [TT][KS]
-  float* k2_s = k_s + TT * KS;             // [TT][K2S]
-  float* v_s = k2_s + TT * K2S;            // [TT][DP]
-  float* p_s = v_s + TT * DP;              // [GT][PS]: scores, then weights
-  float* ks_s = p_s + GT * PS;             // [TT] each
-  float* vs_s = ks_s + TT;
-  float* k2s_s = vs_s + TT;
-  float* alpha_s = k2s_s + TT;             // [GT]
+// Token t's row of one head, as an element offset into [NB, block, H, *]:
+// (page_table[b, t / block] * block + t % block) * H + h, with the page ids
+// pages[i] = page_table[b, p0 + i] (staged in shared memory, so that no
+// address waits on a load from device memory).
+__device__ __forceinline__ long long token_row(const int* pages, int p0, int t, int blk, int H,
+                                               int h) {
+  const int p = t / blk;
+  return ((long long)pages[p - p0] * blk + (t - p * blk)) * H + h;
+}
 
-  const long long qrow = ((long long)b * a.H + h) * a.G + g0;
-  for (int i = tid; i < gn * DP; i += THREADS) {
-    const int r = i / DP, c = i % DP;
-    q_s[r * KS + c] = !PAD || c < D ? load_q(a.q, a.q_dtype, (qrow + r) * D + c) : 0.f;
+// The tokens [t_lo, t_hi) of page slice `split` of a lane of `len` tokens:
+// the lane's valid pages, ceil(len / block) of at most P, cut in `splits`
+// slices of whole pages. From the lane's own length (read on the card), so
+// the slices of a short lane are short and none of them idles while another
+// walks the lane; each is at most ceil(P / splits) pages.
+__device__ __forceinline__ int2 lane_slice(const Args& a, int len, int split) {
+  const int valid = min(a.P, (len + a.block - 1) / a.block);
+  const int per = (valid + a.splits - 1) / a.splits;
+  const int t_lo = min(len, split * per * a.block);
+  return make_int2(t_lo, min(len, (split + 1) * per * a.block));
+}
+
+// pages[i] = ptb[p0 + i] for the pages [p0, p1) of a slice or tile.
+__device__ __forceinline__ void stage_pages(int* pages, const int* ptb, int p0, int p1) {
+  for (int i = threadIdx.x; i < p1 - p0; i += THREADS) pages[i] = ptb[p0 + i];
+}
+
+// ---------------------------------------------------------------------------
+// The decode instance.
+
+constexpr int STAGES = 3;                // the decode instance's ring of staged token tiles
+constexpr int STAGE_TARGET = 16384;      // ... and the K + V bytes a stage aims at
+
+// Elements of D a lane holds: 16 bytes of the page's dtype, 32 for fp32
+// where the rows are few, 8 for the one-byte dtypes where they are many
+// (query and sums take 2 * GTM * EPL registers).
+template <typename T, int GTM>
+__host__ __device__ constexpr int lane_elems() {
+  return sizeof(T) == 4 ? (GTM <= 2 ? 8 : 4) : sizeof(T) == 2 ? 8 : (GTM <= 4 ? 16 : 8);
+}
+
+// Tokens a token group computes between two rescales (registers: 2 * U *
+// EPL * sizeof(T) / 4 of raw K and V, GTM * U scores).
+template <typename T, int GTM>
+__host__ __device__ constexpr int group_tokens() {
+  return GTM >= 6 || sizeof(T) == 4 ? 2 : 4;
+}
+
+// The decode instance's tiling of the tokens, the same on host and device:
+// TG lanes a token, rows of `srb` bytes in shared memory (D rounded up to
+// whole lanes, then to 16 bytes), `tt` tokens a staged tile (each warp takes
+// `chunks` chunks of TPW * U tokens of it), copies of `cb` bytes.
+struct DecodeTiling {
+  int tg, tpw, srb, tt, chunks, cb;
+};
+
+template <typename T, int GTM>
+__host__ __device__ inline DecodeTiling decode_tiling(int D, int DP) {
+  constexpr int EPL = lane_elems<T, GTM>(), U = group_tokens<T, GTM>();
+  DecodeTiling t;
+  t.tg = DP >= EPL ? DP / EPL : 1;
+  t.tpw = 32 / t.tg;
+  t.srb = ((((D + EPL - 1) / EPL) * EPL * (int)sizeof(T)) + 15) / 16 * 16;
+  const int per = WARPS * t.tpw * U;   // tokens of one chunk for every warp
+  const int want = STAGE_TARGET / (2 * per * t.srb);
+  t.chunks = want < 1 ? 1 : want;
+  t.tt = per * t.chunks;
+  const int rb = D * (int)sizeof(T);
+  t.cb = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : rb % 4 == 0 ? 4 : (int)sizeof(T);
+  return t;
+}
+
+// The ring's stages, then the page ids of the block's slice.
+template <typename T, int GTM>
+int decode_smem_bytes(int D, int DP, int pages_per_split) {
+  const DecodeTiling t = decode_tiling<T, GTM>(D, DP);
+  return STAGES * t.tt * (2 * t.srb + 2 * (int)sizeof(float)) +
+         pages_per_split * (int)sizeof(int);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// cp.async of N bytes, zero-filled where `on` is false (nothing is read).
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool on) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(on ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "n"(N), "r"(on ? N : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+template <typename T> __device__ __forceinline__ T zero_of();
+template <> __device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __ushort_as_bfloat16((unsigned short)0);
+}
+template <> __device__ __forceinline__ int8_t zero_of<int8_t>() { return 0; }
+template <> __device__ __forceinline__ __nv_fp8_e4m3 zero_of<__nv_fp8_e4m3>() {
+  __nv_fp8_e4m3 z;
+  z.__x = 0;
+  return z;
+}
+
+// Stage the K and V rows of tokens [t0, t0 + tt) (those at or past t_hi
+// zero-filled, never read) and their scales into one stage of the ring:
+// K rows, then V rows, srb bytes apart, then k_scale and v_scale.
+template <typename T>
+__device__ __forceinline__ void issue_tile(unsigned char* st, const Args& a, const int* pages,
+                                           int p0, int t0, int t_hi, int h,
+                                           const DecodeTiling& ti) {
+  const int rb = a.D * (int)sizeof(T), cpr = rb / ti.cb;
+  unsigned char* kst = st;
+  unsigned char* vst = st + ti.tt * ti.srb;
+  float* ks = reinterpret_cast<float*>(st + 2 * ti.tt * ti.srb);
+  float* vs = ks + ti.tt;
+  const unsigned char* kp = static_cast<const unsigned char*>(a.k);
+  const unsigned char* vp = static_cast<const unsigned char*>(a.v);
+  for (int i = threadIdx.x; i < ti.tt * cpr; i += THREADS) {
+    const int r = i / cpr, c = (i - r * cpr) * ti.cb, t = t0 + r;
+    const bool on = t < t_hi;
+    const long long off = (on ? token_row(pages, p0, t, a.block, a.H, h) : 0) * rb + c;
+    unsigned char* kd = kst + r * ti.srb + c;
+    unsigned char* vd = vst + r * ti.srb + c;
+    switch (ti.cb) {
+      case 16: cp_async<16>(kd, kp + off, on), cp_async<16>(vd, vp + off, on); break;
+      case 8: cp_async<8>(kd, kp + off, on), cp_async<8>(vd, vp + off, on); break;
+      case 4: cp_async<4>(kd, kp + off, on), cp_async<4>(vd, vp + off, on); break;
+      default:   // rows of no whole 4 bytes: one element a copy, synchronous
+        *reinterpret_cast<T*>(kd) = on ? *reinterpret_cast<const T*>(kp + off) : zero_of<T>();
+        *reinterpret_cast<T*>(vd) = on ? *reinterpret_cast<const T*>(vp + off) : zero_of<T>();
+    }
   }
-  for (int i = tid; i < gn * D2; i += THREADS)
-    q2_s[(i / D2) * K2S + i % D2] = load_q(a.q2, a.q_dtype, qrow * D2 + i);
-
-  const int len = a.lengths[b];
-  const int valid_pages = min(a.P, (len + blk - 1) / blk);
-  const int p0 = split * a.pages_per_split;
-  const int p1 = min(valid_pages, p0 + a.pages_per_split);
-  const bool round_p = !a.fused && sizeof(T) == 2;
-  // the scores: two threads a token (`half` takes every other float4 of D)
-  const int half = tid & 1, tok = tid >> 1;
-  // the softmax: R threads a row (a power of two up to 16, lanes of one warp)
-  const int R = THREADS / GT, srow = tid / R, slane = tid % R;
-  float m = NEG_INF, l = 0.f;              // row srow's state, the same in its R lanes
-  // accumulators: element tid + THREADS * i is (row er + i * estep, dim ed);
-  // THREADS is a multiple of DP, so every one of a thread's elements has dim ed
-  const int ed = tid % DP, er = tid / DP, estep = THREADS / DP;
-  float acc[ACC];
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
-
-  for (int p = p0; p < p1; p += ppt) {
-    const int np = min(ppt, p1 - p);
-    const int tt = np * blk;                       // tokens of this tile, masked ones included
-    const int valid = min(tt, len - p * blk);      // tokens [0, valid) of the tile are real
-    __syncthreads();   // the previous tile's reads are done
-    for (int j = 0; j < np; ++j) {
-      const int pg = a.pt[(long long)b * a.P + p + j];
-      const int rows = max(0, min(blk, valid - j * blk));
-      load_rows<T, PAD>(k_s + j * blk * KS, KS, static_cast<const T*>(a.k), pg, h, a.H, D, DP,
-                        blk, rows);
-      load_rows<T, PAD>(v_s + j * blk * DP, DP, static_cast<const T*>(a.v), pg, h, a.H, D, DP,
-                        blk, rows);
-      if (D2)   // a multiple of 8: exact
-        load_rows<T, false>(k2_s + j * blk * K2S, K2S, static_cast<const T*>(a.k2), pg, h, a.H,
-                            D2, D2, blk, rows);
-      if (a.ks) load_scales(ks_s + j * blk, a.ks, pg, h, a.H, blk, rows);
-      if (a.vs) load_scales(vs_s + j * blk, a.vs, pg, h, a.H, blk, rows);
-      if (a.k2s) load_scales(k2s_s + j * blk, a.k2s, pg, h, a.H, blk, rows);
+  if (a.ks || a.vs) {
+    for (int r = threadIdx.x; r < ti.tt; r += THREADS) {
+      const int t = t0 + r;
+      const bool on = t < t_hi;
+      const long long row = on ? token_row(pages, p0, t, a.block, a.H, h) : 0;
+      if (a.ks) cp_async<4>(ks + r, a.ks + row, on);
+      if (a.vs) cp_async<4>(vs + r, a.vs + row, on);
     }
-    __syncthreads();
-
-    // scores: a thread pair per token, RC rows at a time; each float4 of the
-    // token's K row is read once for RC rows of q (read by the whole warp)
-    for (int t0 = 0; t0 < tt; t0 += THREADS / 2) {
-      const int t = t0 + tok;
-      const bool on = t < tt;   // every lane reaches the shuffles below
-      for (int r0 = 0; r0 < gn; r0 += RC) {
-        float s1[RC], s2[RC];
-#pragma unroll
-        for (int r = 0; r < RC; ++r) s1[r] = s2[r] = 0.f;
-        if (on) {
-          rows_dot(s1, q_s + r0 * KS, KS, k_s + t * KS, DP, half);
-          if (D2) rows_dot(s2, q2_s + r0 * K2S, K2S, k2_s + t * K2S, D2, half);
-        }
-#pragma unroll
-        for (int r = 0; r < RC; ++r) {
-          s1[r] += __shfl_xor_sync(0xffffffffu, s1[r], 1);
-          s2[r] += __shfl_xor_sync(0xffffffffu, s2[r], 1);
-        }
-        if (on && half == 0) {
-#pragma unroll
-          for (int r = 0; r < RC; ++r) {
-            if (r0 + r >= gn) break;
-            float s = a.ks ? s1[r] * ks_s[t] : s1[r];
-            if (D2) s += a.k2s ? s2[r] * k2s_s[t] : s2[r];
-            if (a.scale != 1.f) s *= a.scale;
-            p_s[(r0 + r) * PS + t] = t < valid ? s : NEG_INF;
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // online softmax: R lanes a row, reduced by shuffles. Every lane takes
-    // part (rows past gn hold junk that is never stored), so each shuffle
-    // sees its whole warp.
-    {
-      float* pr = p_s + srow * PS;
-      float mx = m;
-      for (int t = slane; t < tt; t += R) mx = fmaxf(mx, pr[t]);
-      for (int o = R / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o, R));
-      float sum = 0.f;
-      for (int t = slane; t < tt; t += R) {
-        float e = t < valid ? expf(pr[t] - mx) : 0.f;
-        sum += e;
-        if (a.vs) e *= vs_s[t];
-        if (round_p) e = __bfloat162float(__float2bfloat16(e));
-        pr[t] = e;
-      }
-      for (int o = R / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o, R);
-      const float alpha = expf(m - mx);
-      l = l * alpha + sum;
-      m = mx;
-      if (slane == 0) alpha_s[srow] = alpha;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p v, 4 tokens a step: one v value a token serves
-    // the thread's ACC rows, whose weights come as float4s. The weights of
-    // masked tokens are 0 and their v rows zero-filled (tt is a multiple of 4).
-    float x[ACC];
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) x[i] = 0.f;
-    for (int t = 0; t < valid; t += 4) {
-      const float v0 = v_s[t * DP + ed], v1 = v_s[(t + 1) * DP + ed];
-      const float v2 = v_s[(t + 2) * DP + ed], v3 = v_s[(t + 3) * DP + ed];
-#pragma unroll
-      for (int i = 0; i < ACC; ++i) {
-        const float4 w = *reinterpret_cast<const float4*>(p_s + (er + i * estep) * PS + t);
-        x[i] = fmaf(w.x, v0, fmaf(w.y, v1, fmaf(w.z, v2, fmaf(w.w, v3, x[i]))));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < ACC; ++i)
-      if (er + i * estep < gn) acc[i] = fmaf(acc[i], alpha_s[er + i * estep], x[i]);
-  }
-
-  if (a.splits == 1) {   // the whole lane in this block: normalise and store
-    __syncthreads();
-    if (srow < gn && slane == 0) alpha_s[srow] = fmaxf(l, 1e-30f);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) {
-      const int g = er + i * estep;
-      if (g < gn && (!PAD || ed < D))
-        store_out(a.out, a.out_dtype, (qrow + g) * D + ed, acc[i] / alpha_s[g]);
-    }
-    return;
-  }
-  const long long prow = ((long long)split * a.B * a.H + bh) * a.G + g0;
-  if (srow < gn && slane == 0) {
-    a.part_ml[(prow + srow) * 2] = m;
-    a.part_ml[(prow + srow) * 2 + 1] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) {
-    const int g = er + i * estep;
-    if (g < gn && (!PAD || ed < D)) a.part_acc[(prow + g) * D + ed] = acc[i];
   }
 }
 
-// One thread an output element (b, h, g, d): merge the slices in order.
+// EPL elements of a staged row from byte `src` (aligned to EPL * sizeof(T),
+// or 16) into raw words.
+template <typename T, int EPL>
+__device__ __forceinline__ void lds_lane(uint32_t (&raw)[EPL * sizeof(T) / 4],
+                                         const unsigned char* src) {
+  constexpr int BYTES = EPL * sizeof(T);
+  if constexpr (BYTES % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const uint4 x = reinterpret_cast<const uint4*>(src)[i];
+      raw[4 * i] = x.x, raw[4 * i + 1] = x.y, raw[4 * i + 2] = x.z, raw[4 * i + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BYTES / 8; ++i) {
+      const uint2 x = reinterpret_cast<const uint2*>(src)[i];
+      raw[2 * i] = x.x, raw[2 * i + 1] = x.y;
+    }
+  }
+}
+
+// Widened to fp32, the elements at or past `lim` (D - e0) zero.
+template <typename T, int EPL>
+__device__ __forceinline__ void widen_lane(float (&x)[EPL],
+                                           const uint32_t (&raw)[EPL * sizeof(T) / 4], int lim) {
+  T e[EPL];
+  memcpy(e, raw, sizeof(e));
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) x[j] = j < lim ? widen(e[j]) : 0.f;
+}
+
+// Grid (splits, B*H, row tiles). Block = lane b, KV head h, query rows
+// [g0, g0 + gt) (gt <= GTM), the pages of slice `split` of the lane
+// (lane_slice), whose tokens pass through a ring of STAGES staged tiles of
+// `tt` tokens (cp.async, STAGES - 1 tiles in flight ahead of the compute).
+// In a tile, warp w takes `chunks` chunks of TPW * U tokens; token group
+// `grp` of the warp takes tokens u * TPW + grp, u < U, of a chunk.
+template <typename T, int GTM>
+__global__ void __launch_bounds__(THREADS) paged_decode_kernel(Args a) {
+  constexpr int EPL = lane_elems<T, GTM>();
+  constexpr int WORDS = EPL * (int)sizeof(T) / 4;
+  constexpr int U = group_tokens<T, GTM>();
+  extern __shared__ uint4 ring4[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(ring4);
+  __shared__ float ws_acc[WARPS][GTM][128];   // the warps' sums, merged in order
+  __shared__ float ws_ml[WARPS][GTM][2];
+  __shared__ float q2_s[GTM][128];
+
+  const int D = a.D, D2 = a.D2, blk = a.block, H = a.H;
+  const DecodeTiling ti = decode_tiling<T, GTM>(D, a.DP);
+  const int TG = ti.tg, TPW = ti.tpw;
+  const int stage_bytes = ti.tt * (2 * ti.srb + 2 * (int)sizeof(float));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / TG, gl = lane % TG, e0 = gl * EPL, lim = D - e0;
+  const int eoff = (lim > 0 ? e0 : 0) * (int)sizeof(T);   // a lane past D reads lane 0's, zeroed
+  const int split = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int g0 = blockIdx.z * a.rows, gt = min(a.rows, a.G - g0);
+  const long long qrow = ((long long)b * H + h) * a.G + g0;
+  const int* ptb = a.pt + (long long)b * a.P;
+  const int len = a.lengths[b];
+  const int2 sl = lane_slice(a, len, split);
+  const int t_lo = sl.x, t_hi = sl.y;
+  const int ntiles = t_hi > t_lo ? (t_hi - t_lo + ti.tt - 1) / ti.tt : 0;
+  const int p0 = t_lo / blk;
+  int* pages = reinterpret_cast<int*>(ring + STAGES * stage_bytes);
+  stage_pages(pages, ptb, p0, t_hi > t_lo ? (t_hi + blk - 1) / blk : p0);
+  __syncthreads();
+
+  // the first tiles' copies go out before anything else waits on memory
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles)
+      issue_tile<T>(ring + s * stage_bytes, a, pages, p0, t_lo + s * ti.tt, t_hi, h, ti);
+    cp_commit();
+  }
+
+  float qv[GTM][EPL];
+#pragma unroll
+  for (int g = 0; g < GTM; ++g)
+#pragma unroll
+    for (int j = 0; j < EPL; ++j)
+      qv[g][j] = g < gt && j < lim ? load_q(a.q, a.q_dtype, (qrow + g) * D + e0 + j) : 0.f;
+  for (int i = threadIdx.x; i < gt * D2; i += THREADS)
+    q2_s[i / D2][i % D2] = load_q(a.q2, a.q_dtype, qrow * D2 + i);
+
+  const bool round_p = !a.fused && sizeof(T) == 2;
+  float m[GTM], l[GTM], acc[GTM][EPL];
+#pragma unroll
+  for (int g = 0; g < GTM; ++g) {
+    m[g] = NEG_INF, l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) acc[g][j] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int nx = it + STAGES - 1;
+    if (nx < ntiles)
+      issue_tile<T>(ring + (nx % STAGES) * stage_bytes, a, pages, p0, t_lo + nx * ti.tt, t_hi,
+                    h, ti);
+    cp_commit();
+    cp_wait<STAGES - 1>();   // this thread's copies of tile `it` have landed
+    __syncthreads();         // ... and everyone's
+    const unsigned char* kst = ring + (it % STAGES) * stage_bytes;
+    const unsigned char* vst = kst + ti.tt * ti.srb;
+    const float* ks_st = reinterpret_cast<const float*>(kst + 2 * ti.tt * ti.srb);
+    const float* vs_st = ks_st + ti.tt;
+    const int t0 = t_lo + it * ti.tt;
+
+    for (int ch = 0; ch < ti.chunks; ++ch) {
+      // No branch on the rows in here: every row of the instance is computed
+      // (rows past gt have q = 0 and are never stored), so that the rows'
+      // chains interleave; x 1 stands for an absent scale, exactly.
+      const int c0 = (ch * WARPS + warp) * TPW * U;   // the chunk's first token in the tile
+      uint32_t kr[U][WORDS];
+      bool on[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = c0 + u * TPW + grp;
+        on[u] = t0 + r < t_hi;
+        lds_lane<T, EPL>(kr[u], kst + r * ti.srb + eoff);
+      }
+      float s[GTM][U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[EPL];
+        widen_lane<T, EPL>(kf, kr[u], lim);
+#pragma unroll
+        for (int g = 0; g < GTM; ++g) {
+          float x = 0.f;
+#pragma unroll
+          for (int j = 0; j < EPL; ++j) x = fmaf(qv[g][j], kf[j], x);
+          s[g][u] = x;
+        }
+      }
+      for (int off = TG / 2; off > 0; off >>= 1) {   // sums over the token group's lanes
+#pragma unroll
+        for (int g = 0; g < GTM; ++g)
+#pragma unroll
+          for (int u = 0; u < U; ++u) s[g][u] += __shfl_xor_sync(0xffffffffu, s[g][u], off);
+      }
+      // the score order of the plain version: dot, x k_scale, + q2.k2 x
+      // k2_scale, x scale, mask
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float sc = a.ks ? ks_st[c0 + u * TPW + grp] : 1.f;
+#pragma unroll
+        for (int g = 0; g < GTM; ++g) s[g][u] *= sc;
+      }
+      if (D2) {   // the group's lanes take every TG-th element of k2
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int t = t0 + c0 + u * TPW + grp;
+          const long long row = on[u] ? token_row(pages, p0, t, blk, H, h) : 0;
+          const T* k2row = static_cast<const T*>(a.k2) + row * D2;
+          const float k2sc = a.k2s && on[u] ? a.k2s[row] : 1.f;
+#pragma unroll
+          for (int g = 0; g < GTM; ++g) {
+            float x = 0.f;
+            if (on[u]) {
+              for (int d = gl; d < D2; d += TG) x = fmaf(q2_s[g][d], widen(k2row[d]), x);
+            }
+            for (int off = TG / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+            s[g][u] += x * k2sc;
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GTM; ++g) {
+        float cmax = NEG_INF;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          s[g][u] = on[u] ? s[g][u] * a.scale : NEG_INF;
+          cmax = fmaxf(cmax, s[g][u]);
+        }
+        const float mnew = fmaxf(m[g], cmax);
+        const float alpha = __expf(m[g] - mnew);
+        l[g] *= alpha;
+#pragma unroll
+        for (int j = 0; j < EPL; ++j) acc[g][j] *= alpha;
+        m[g] = mnew;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = c0 + u * TPW + grp;
+        float vf[EPL];
+        {
+          uint32_t vr[WORDS];
+          lds_lane<T, EPL>(vr, vst + r * ti.srb + eoff);
+          widen_lane<T, EPL>(vf, vr, lim);
+        }
+        const float vsc = a.vs ? vs_st[r] : 1.f;
+#pragma unroll
+        for (int g = 0; g < GTM; ++g) {
+          float p = on[u] ? __expf(s[g][u] - m[g]) : 0.f;
+          l[g] += p;
+          p *= vsc;
+          p = round_p ? __bfloat162float(__float2bfloat16(p)) : p;
+#pragma unroll
+          for (int j = 0; j < EPL; ++j) acc[g][j] = fmaf(p, vf[j], acc[g][j]);
+        }
+      }
+    }
+    __syncthreads();   // the tile's stage is refilled by the next iteration
+  }
+  cp_wait<0>();
+
+  // merge the warp's token groups (lanes TG apart hold the same elements)
+  for (int off = TG; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GTM; ++g) {
+      if (g >= gt) continue;
+      const float om = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float ol = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mx = fmaxf(m[g], om);
+      const float sa = expf(m[g] - mx), sb = expf(om - mx);
+      l[g] = fmaf(l[g], sa, ol * sb);
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) {
+        const float oa = __shfl_xor_sync(0xffffffffu, acc[g][j], off);
+        acc[g][j] = fmaf(acc[g][j], sa, oa * sb);
+      }
+      m[g] = mx;
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int g = 0; g < GTM; ++g) {
+      if (g >= gt) continue;
+#pragma unroll
+      for (int j = 0; j < EPL; ++j)
+        if (j < lim) ws_acc[warp][g][e0 + j] = acc[g][j];
+      if (gl == 0) ws_ml[warp][g][0] = m[g], ws_ml[warp][g][1] = l[g];
+    }
+  }
+  __syncthreads();
+  // merge the warps in order, one thread an output element
+  const long long prow = ((long long)split * a.B * H + bh) * a.G + g0;
+  for (int i = threadIdx.x; i < gt * D; i += THREADS) {
+    const int g = i / D, d = i % D;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, ws_ml[w][g][0]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float sc = expf(ws_ml[w][g][0] - mx);
+      den = fmaf(sc, ws_ml[w][g][1], den);
+      num = fmaf(sc, ws_acc[w][g][d], num);
+    }
+    if (a.splits == 1) {
+      store_out(a.out, a.out_dtype, (qrow + g) * D + d, num / fmaxf(den, 1e-30f));
+    } else {
+      a.part_acc[(prow + g) * D + d] = num;
+      if (d == 0) a.part_ml[(prow + g) * 2] = mx, a.part_ml[(prow + g) * 2 + 1] = den;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The encode instance.
+
+// Tokens [t0, t0 + tn) of the lane's head into fp32 rows of DP lanes (dst
+// [TN][DP]), rows [tn, TN) and lanes [D, DP) zero: 16-byte loads where a row
+// is a whole number of them and D == DP, else one element a load.
+template <typename T, int DP>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, const int* pages, int p0,
+                                           int t0, int tn, int blk, int H, int h, int D) {
+  constexpr int TN = TILE_FLOATS / DP;
+  constexpr int VE = 16 / sizeof(T) < DP ? 16 / sizeof(T) : DP;   // elements a vector
+  if (D == DP && (DP * sizeof(T)) % 16 == 0) {
+    constexpr int NV = TN * (DP / VE), ITEMS = (NV + THREADS - 1) / THREADS;
+    uint4 raw[ITEMS];   // every load of the tile in flight before the first store
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int i = threadIdx.x + j * THREADS, r = i / (DP / VE), c = (i % (DP / VE)) * VE;
+      raw[j] = i < NV && r < tn ? *reinterpret_cast<const uint4*>(
+                                      src + token_row(pages, p0, t0 + r, blk, H, h) * D + c)
+                                : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i >= NV) break;
+      T e[VE];
+      memcpy(e, &raw[j], sizeof(e));
+#pragma unroll
+      for (int k = 0; k < VE; ++k) dst[i * VE + k] = widen(e[k]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < TN * DP; i += THREADS) {
+      const int r = i / DP, c = i % DP;
+      dst[i] = r < tn && c < D ? widen(src[token_row(pages, p0, t0 + r, blk, H, h) * D + c])
+                                : 0.f;
+    }
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void stage_tile(float* k_s, float* v_s, const Args& a,
+                                           const int* pages, int p0, int t0, int tn, int h) {
+  const int blk = a.block, H = a.H, D = a.D;
+  switch (a.page_dtype) {
+    case F32:
+      stage_rows<float, DP>(k_s, (const float*)a.k, pages, p0, t0, tn, blk, H, h, D);
+      stage_rows<float, DP>(v_s, (const float*)a.v, pages, p0, t0, tn, blk, H, h, D);
+      break;
+    case BF16:
+      stage_rows<__nv_bfloat16, DP>(k_s, (const __nv_bfloat16*)a.k, pages, p0, t0, tn, blk, H,
+                                    h, D);
+      stage_rows<__nv_bfloat16, DP>(v_s, (const __nv_bfloat16*)a.v, pages, p0, t0, tn, blk, H,
+                                    h, D);
+      break;
+    case I8:
+      stage_rows<int8_t, DP>(k_s, (const int8_t*)a.k, pages, p0, t0, tn, blk, H, h, D);
+      stage_rows<int8_t, DP>(v_s, (const int8_t*)a.v, pages, p0, t0, tn, blk, H, h, D);
+      break;
+    default:
+      stage_rows<__nv_fp8_e4m3, DP>(k_s, (const __nv_fp8_e4m3*)a.k, pages, p0, t0, tn, blk, H,
+                                    h, D);
+      stage_rows<__nv_fp8_e4m3, DP>(v_s, (const __nv_fp8_e4m3*)a.v, pages, p0, t0, tn, blk, H,
+                                    h, D);
+  }
+}
+
+// Grid (splits, B*H, ceil(G / THREADS)); thread = query row g of (b, h) over
+// the tokens of the block's page slice. PLAIN: no scales, scale 1 and no
+// rounding of the weights (the FLARE encode); else each is applied in the
+// score order above.
+template <int DP, bool PLAIN>
+__global__ void __launch_bounds__(THREADS) paged_encode_kernel(Args a) {
+  constexpr int TN = TILE_FLOATS / DP;   // tokens a staged tile
+  __shared__ float k_s[TILE_FLOATS];
+  __shared__ float v_s[TILE_FLOATS];
+  __shared__ float ks_s[PLAIN ? 1 : TN];
+  __shared__ float vs_s[PLAIN ? 1 : TN];
+  __shared__ int pg_s[TN / 4 + 2];   // the tile's page ids (pages of at least 4 tokens)
+  const int D = a.D, blk = a.block, H = a.H;
+  const int split = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int g = blockIdx.z * THREADS + threadIdx.x;
+  const bool live = g < a.G;
+  const long long qrow = ((long long)b * H + h) * a.G + (live ? g : 0);
+  const int* ptb = a.pt + (long long)b * a.P;
+  const bool round_p = !a.fused && a.page_dtype == BF16;
+
+  float x[DP];
+#pragma unroll
+  for (int d = 0; d < DP; ++d) x[d] = live && d < D ? load_q(a.q, a.q_dtype, qrow * D + d) : 0.f;
+  float mx = NEG_INF, den = 0.f, acc[DP];           // this tile, against mx
+  float tot_mx = NEG_INF, tot_den = 0.f, tot[DP];   // finished tiles, against tot_mx
+#pragma unroll
+  for (int d = 0; d < DP; ++d) acc[d] = tot[d] = 0.f;
+
+  const int len = a.lengths[b];
+  const int2 sl = lane_slice(a, len, split);
+  const int t_lo = sl.x, t_hi = sl.y;
+  for (int t0 = t_lo; t0 < t_hi; t0 += TN) {
+    const int tn = min(TN, t_hi - t0);
+    __syncthreads();   // the previous tile's reads are done
+    const int pa = t0 / blk;
+    stage_pages(pg_s, ptb, pa, (t0 + tn - 1) / blk + 1);
+    __syncthreads();
+    stage_tile<DP>(k_s, v_s, a, pg_s, pa, t0, tn, h);
+    if (!PLAIN) {
+      for (int i = threadIdx.x; i < tn; i += THREADS) {
+        const long long r = token_row(pg_s, pa, t0 + i, blk, H, h);
+        ks_s[i] = a.ks ? a.ks[r] : 1.f;
+        vs_s[i] = a.vs ? a.vs[r] : 1.f;
+      }
+    }
+    __syncthreads();
+    for (int c0 = 0; c0 < tn; c0 += CH) {
+      const int cnt = min(CH, tn - c0);
+      const float* key = k_s + c0 * DP;
+      const float* val = v_s + c0 * DP;
+      float s[CH];
+      float cmax = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        float e = 0.f;
+#pragma unroll
+        for (int d = 0; d < DP; ++d) e = fmaf(x[d], key[j * DP + d], e);
+        if (!PLAIN) {
+          if (a.ks) e *= ks_s[c0 + j < tn ? c0 + j : 0];
+          if (a.scale != 1.f) e *= a.scale;
+        }
+        s[j] = j < cnt ? e : NEG_INF;
+        cmax = fmaxf(cmax, s[j]);
+      }
+      const float mnew = fmaxf(mx, cmax);
+      const float alpha = __expf(mx - mnew);
+      den *= alpha;
+#pragma unroll
+      for (int d = 0; d < DP; ++d) acc[d] *= alpha;
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        float p = j < cnt ? __expf(s[j] - mnew) : 0.f;
+        den += p;
+        if (!PLAIN) {
+          if (a.vs) p *= vs_s[c0 + j < tn ? c0 + j : 0];
+          if (round_p) p = __bfloat162float(__float2bfloat16(p));
+        }
+#pragma unroll
+        for (int d = 0; d < DP; ++d) acc[d] = fmaf(p, val[j * DP + d], acc[d]);
+      }
+      mx = mnew;
+    }
+    // fold the tile into the totals (mx >= tot_mx)
+    const float alpha = __expf(tot_mx - mx);
+    tot_den = fmaf(tot_den, alpha, den);
+#pragma unroll
+    for (int d = 0; d < DP; ++d) {
+      tot[d] = fmaf(tot[d], alpha, acc[d]);
+      acc[d] = 0.f;
+    }
+    tot_mx = mx;
+    den = 0.f;
+  }
+  if (!live) return;
+  if (a.splits == 1) {
+    const float inv = 1.f / fmaxf(tot_den, 1e-30f);
+#pragma unroll
+    for (int d = 0; d < DP; ++d)
+      if (d < D) store_out(a.out, a.out_dtype, qrow * D + d, tot[d] * inv);
+    return;
+  }
+  const long long prow = ((long long)split * a.B * H + bh) * a.G + g;
+  a.part_ml[prow * 2] = tot_mx;
+  a.part_ml[prow * 2 + 1] = tot_den;
+#pragma unroll
+  for (int d = 0; d < DP; ++d)
+    if (d < D) a.part_acc[prow * D + d] = tot[d];
+}
+
+// ---------------------------------------------------------------------------
+
+// One thread an output element (b, h, g, d): merge the slices in order, in
+// one pass with a running max (every slice's loads independent of the sums).
 __global__ void paged_combine_kernel(Args a) {
   const long long n = (long long)a.B * a.H * a.G * a.D;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long row = i / a.D, stride = (long long)a.B * a.H * a.G;
-  float mx = NEG_INF;
-  for (int s = 0; s < a.splits; ++s) mx = fmaxf(mx, a.part_ml[(s * stride + row) * 2]);
-  float den = 0.f, num = 0.f;
+  float mx = NEG_INF, den = 0.f, num = 0.f;
+#pragma unroll 8
   for (int s = 0; s < a.splits; ++s) {
     const long long r = s * stride + row;
-    const float w = expf(a.part_ml[r * 2] - mx);
-    den = fmaf(w, a.part_ml[r * 2 + 1], den);
-    num = fmaf(w, a.part_acc[r * a.D + i % a.D], num);
+    const float ms = a.part_ml[r * 2], ls = a.part_ml[r * 2 + 1];
+    const float xs = a.part_acc[r * a.D + i % a.D];
+    const float mnew = fmaxf(mx, ms);
+    const float wa = __expf(mx - mnew), wb = __expf(ms - mnew);
+    den = fmaf(den, wa, ls * wb);
+    num = fmaf(num, wa, xs * wb);
+    mx = mnew;
   }
   store_out(a.out, a.out_dtype, i, num / fmaxf(den, 1e-30f));
 }
 
 // D's padded width: the next power of two from 8 to 128 (0 above 128).
-__host__ __device__ __forceinline__ int padded_width(int D) {
+int padded_width(int D) {
   int dp = 8;
   while (dp < D) dp *= 2;
   return D <= 128 ? dp : 0;
 }
 
-int smem_bytes(const Args& a) {
-  const int GT = ROW_ELEMS / a.DP, TT = pages_per_tile(a.block) * a.block;
-  const int KS = a.DP + 8, K2S = a.D2 ? a.D2 + 8 : 0;
-  // GT is a multiple of RC (DP <= 128), so the scores' RC-row groups stay in q_s
-  const int floats = GT * KS + GT * K2S + TT * KS + TT * K2S + TT * a.DP + GT * (TT + 4) +
-                     3 * TT + GT;
-  return floats * 4;
-}
+bool use_encode(int G, int D, int D2) { return D2 == 0 && D <= ENC_MAX_D && G >= ENC_MIN_G; }
 
-template <typename T, bool PAD>
-cudaError_t launch_at(const Args& a, cudaStream_t stream) {
-  const int bytes = smem_bytes(a);
-  cudaError_t err = cudaFuncSetAttribute(paged_kernel<T, PAD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const int gtiles = (a.G + ROW_ELEMS / a.DP - 1) / (ROW_ELEMS / a.DP);
-  paged_kernel<T, PAD><<<dim3(a.splits, a.B * a.H, gtiles), THREADS, bytes, stream>>>(a);
-  err = cudaGetLastError();
+int row_tiles(int G) { return (G + ROWS_MAX - 1) / ROWS_MAX; }
+
+cudaError_t combine(const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   const long long n = (long long)a.B * a.H * a.G * a.D;
   paged_combine_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <typename T, int GTM>
+cudaError_t launch_decode(const Args& a, cudaStream_t stream) {
+  const int bytes = decode_smem_bytes<T, GTM>(a.D, a.DP, a.pages_per_split);
+  cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, GTM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  paged_decode_kernel<T, GTM>
+      <<<dim3(a.splits, a.B * a.H, row_tiles(a.G)), THREADS, bytes, stream>>>(a);
+  return combine(a, stream);
+}
+
 template <typename T>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  return a.D == a.DP ? launch_at<T, false>(a, stream) : launch_at<T, true>(a, stream);
+cudaError_t decode_rows(const Args& a, cudaStream_t stream) {
+  if (a.rows <= 1) return launch_decode<T, 1>(a, stream);
+  if (a.rows <= 2) return launch_decode<T, 2>(a, stream);
+  if (a.rows <= 4) return launch_decode<T, 4>(a, stream);
+  if (a.rows <= 6) return launch_decode<T, 6>(a, stream);
+  return launch_decode<T, 8>(a, stream);
+}
+
+template <int DP>
+cudaError_t launch_encode(const Args& a, cudaStream_t stream) {
+  const bool plain = !a.ks && !a.vs && a.scale == 1.f && (a.fused || a.page_dtype != BF16);
+  const dim3 grid(a.splits, a.B * a.H, (a.G + THREADS - 1) / THREADS);
+  if (plain)
+    paged_encode_kernel<DP, true><<<grid, THREADS, 0, stream>>>(a);
+  else
+    paged_encode_kernel<DP, false><<<grid, THREADS, 0, stream>>>(a);
+  return combine(a, stream);
+}
+
+// Decode blocks the card runs at once: the instance's blocks a
+// multiprocessor (registers, and shared memory with room for every page id
+// of a lane) times the multiprocessors of the current device.
+template <typename T, int GTM>
+int wave_of(int D, int P) {
+  const int bytes = decode_smem_bytes<T, GTM>(D, padded_width(D), P);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (cudaFuncSetAttribute(paged_decode_kernel<T, GTM>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_decode_kernel<T, GTM>,
+                                                    THREADS, bytes) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return TARGET_BLOCKS;
+  return per_sm * sms;
+}
+
+template <typename T>
+int wave_rows(int rows, int D, int P) {
+  if (rows <= 1) return wave_of<T, 1>(D, P);
+  if (rows <= 2) return wave_of<T, 2>(D, P);
+  if (rows <= 4) return wave_of<T, 4>(D, P);
+  if (rows <= 6) return wave_of<T, 6>(D, P);
+  return wave_of<T, 8>(D, P);
+}
+
+// The decode wave of (page dtype, rows a block, D, P), computed once per
+// key and device (a decode step asks for it on every layer).
+int decode_wave(int G, int D, int P, int page_dtype) {
+  struct Entry {
+    int dev, dtype, rows, D, P, wave;
+  };
+  static Entry cache[64];
+  static int used = 0;
+  static std::mutex lock;
+  const int tiles = row_tiles(G), rows = (G + tiles - 1) / tiles;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> hold(lock);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.dev == dev && e.dtype == page_dtype && e.rows == rows && e.D == D && e.P == P)
+      return e.wave;
+  }
+  int wave;
+  switch (page_dtype) {
+    case F32: wave = wave_rows<float>(rows, D, P); break;
+    case BF16: wave = wave_rows<__nv_bfloat16>(rows, D, P); break;
+    case I8: wave = wave_rows<int8_t>(rows, D, P); break;
+    default: wave = wave_rows<__nv_fp8_e4m3>(rows, D, P);
+  }
+  cache[used < 64 ? used++ : dev % 64] = Entry{dev, page_dtype, rows, D, P, wave};
+  return wave;
 }
 
 }  // namespace
@@ -436,13 +865,22 @@ extern "C" {
 
 // Page slices of a call: the caller sizes the fp32 partials, part_acc
 // [splits, B*H, G, D] and part_ml [splits, B*H, G, 2], from it. From the
-// shapes only: about TARGET_BLOCKS blocks, at least MIN_PAGES pages a slice.
-int paged_attention_splits(int B, int H, int G, int D, int P) {
-  if (D < 1 || D > 128) return 1;
-  const int GT = ROW_ELEMS / padded_width(D);
-  const long long tiles = (long long)B * H * ((G + GT - 1) / GT);
-  long long want = (TARGET_BLOCKS + tiles - 1) / tiles;
-  long long most = P / MIN_PAGES > 1 ? P / MIN_PAGES : 1;
+// shapes and the card only, never the lengths. The decode instance: one
+// wave of blocks (as many as the card holds at once), at least MIN_PAGES
+// pages a slice; the encode instance: about ENC_WAVE blocks, at least
+// ENC_MIN_TOKENS tokens a slice.
+int paged_attention_splits(int B, int H, int G, int D, int D2, int block, int P,
+                           int page_dtype) {
+  if (D < 1 || D > 128 || B * H < 1 || G < 1) return 1;
+  long long want, most;
+  if (use_encode(G, D, D2)) {
+    want = ENC_WAVE / ((long long)B * H * ((G + THREADS - 1) / THREADS));
+    most = (long long)P * block / ENC_MIN_TOKENS;
+  } else {
+    const long long tiles = (long long)B * H * row_tiles(G);
+    want = decode_wave(G, D, P, page_dtype) / tiles;
+    most = P / MIN_PAGES;
+  }
   if (want > most) want = most;
   if (want > 65535) want = 65535;
   return (int)(want < 1 ? 1 : want);
@@ -450,26 +888,31 @@ int paged_attention_splits(int B, int H, int G, int D, int P) {
 
 // q [B, H, G, D] (fp32 / bf16, q2 likewise with D2, or null and D2 = 0);
 // pages [NB, block, H, D] of page_dtype (k2 with D2); scales [NB, block, H]
-// fp32 or null; out [B, H, G, D] of out_dtype. All contiguous; 1 <= D <= 128,
-// D2 a multiple of 8 up to 128.
+// fp32 or null; out [B, H, G, D] of out_dtype. All contiguous, pages 16-byte
+// aligned; 1 <= D <= 128, D2 a multiple of 8 up to 128; splits from
+// paged_attention_splits.
 int paged_attention(const void* q, const void* q2, const void* k, const void* v, const void* k2,
                     const int* page_table, const int* lengths, const float* k_scale,
                     const float* v_scale, const float* k2_scale, void* out, float* part_acc,
                     float* part_ml, int B, int H, int G, int D, int D2, int block, int P,
                     int splits, float scale, int q_dtype, int page_dtype, int out_dtype,
                     int fused, void* stream) {
-  if (D < 1 || D > 128) return cudaErrorInvalidValue;
-  const int ppt = pages_per_tile(block);
-  const int per_split = ((P + splits - 1) / splits + ppt - 1) / ppt * ppt;   // whole tiles
+  if (D < 1 || D > 128 || D2 < 0 || D2 > 128 || splits < 1 || G < 1) return cudaErrorInvalidValue;
+  const int tiles = row_tiles(G);
   Args a{q, q2, k, v, k2, page_table, lengths, k_scale, v_scale, k2_scale, out, part_acc,
-         part_ml, B, H, G, D, padded_width(D), D2, block, P, splits, per_split, scale, q_dtype,
-         out_dtype, fused};
+         part_ml, B, H, G, D, padded_width(D), D2, block, P, splits, (P + splits - 1) / splits,
+         (G + tiles - 1) / tiles, scale, q_dtype, page_dtype, out_dtype, fused};
   cudaStream_t s = (cudaStream_t)stream;
+  if (use_encode(G, D, D2)) {
+    if (page_dtype < F32 || page_dtype > FP8) return cudaErrorInvalidValue;
+    return a.DP == 8 ? launch_encode<8>(a, s) : a.DP == 16 ? launch_encode<16>(a, s)
+                                                           : launch_encode<32>(a, s);
+  }
   switch (page_dtype) {
-    case F32: return launch<float>(a, s);
-    case BF16: return launch<__nv_bfloat16>(a, s);
-    case I8: return launch<int8_t>(a, s);
-    case FP8: return launch<__nv_fp8_e4m3>(a, s);
+    case F32: return decode_rows<float>(a, s);
+    case BF16: return decode_rows<__nv_bfloat16>(a, s);
+    case I8: return decode_rows<int8_t>(a, s);
+    case FP8: return decode_rows<__nv_fp8_e4m3>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "flare_bwd_grads": [_P] * 14 + [_I] * 5 + [_PLL] + [_I] * 2 + [_P],
     "flare_causal_splits": [_I],
     "flare_causal": [_P] * 6 + [_I] * 5 + [_LL] * 9 + [_I] + [_P],
-    "paged_attention_splits": [_I] * 5,
+    "paged_attention_splits": [_I] * 8,
     "paged_attention": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
     "flash_attention": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 4 + [_P],
     "flash_attention_tc": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 2 + [_P],

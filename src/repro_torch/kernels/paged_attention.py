@@ -10,7 +10,11 @@ axis G is the consumer: G = query heads per KV head for the gqa decode read
 encode off pages (the ``paged`` backend).
 
 The kernel is in ``csrc/paged_attention.cu``, whose head comment says what
-bounds it on an H100 and what its design does about it. On a CPU tensor the
+bounds it on an H100 and what its design does about it: two instances, the
+decode read's (a block takes the G query rows of one lane and KV head) and
+the FLARE encode's (a thread a latent), which the C entry point picks from
+G, D and q2. The page slices a call splits each lane into come from the
+shapes and the card (``paged_attention_splits``). On a CPU tensor the
 wrapper runs the plain version (``kernels/ref.py::paged_attention_ref``); on
 a CUDA tensor it launches the kernel or raises. The page table and lengths
 stay on the device: nothing is read back to the host, so a decode step that
@@ -118,7 +122,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
         raise ValueError("paged_attention: operands must be contiguous, pages 16-byte aligned")
     fused = bool(opt) or q.dtype != k_pages.dtype
     lib = _build.lib()
-    splits = lib.paged_attention_splits(b, h, g, d, p)
+    splits = lib.paged_attention_splits(b, h, g, d, d2, blk, p, PAGE_DTYPES[k_pages.dtype])
     dev = q.device
     part_acc = torch.empty(splits * b * h * g * d if splits > 1 else 0, dtype=torch.float32,
                            device=dev)

@@ -135,6 +135,24 @@ def flare_bwd_grads_ref(q, k, v, z, mx, den, lse, y, dy, dz, *, chunk=None):
     return (dq.to(q.dtype), torch.cat(dk, dim=2).to(k.dtype), torch.cat(dv, dim=2).to(v.dtype))
 
 
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, by bit arithmetic on the fp32 word, as ``cvt.rna.tf32.f32`` does:
+    add half of the 13 dropped bits' unit to the magnitude, then clear them.
+    Infinities and NaNs pass unchanged."""
+    bits = x.to(torch.float32).view(torch.int32)
+    out = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), out, x.to(torch.float32))
+
+
+def tf32_split(x: torch.Tensor):
+    """fp32 x as (hi, lo): hi = tf32(x), lo = tf32(x - hi), the two TF32
+    parts the backward kernel's tensor-core products take; hi + lo is within
+    about 2**-21 |x| of x."""
+    hi = tf32(x)
+    return hi, tf32(x.to(torch.float32) - hi)
+
+
 def flare_fused_bwd_ref(q, k, v, z, mx, den, lse, y, dy, *, chunk=None):
     """The backward of the fused forward from its residuals (the math of
     ``_fused_bwd_kernel``): q [H, M, D]; k, v, y, dy [B, H, N, D]; z, mx,

@@ -165,6 +165,31 @@ def test_fused_bwd_matches_plain(cuda, shape, dtype):
     _bwd_close(got, want, 1e-5 if dtype == torch.float32 else 2e-2)
 
 
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("d", [1, 4, 8, 12, 16, 32, 64])
+def test_fused_bwd_head_dims_match_plain(cuda, d, dtype):
+    """Every head dim the backends promise runs at its MMA width (8, 16, 32,
+    64), lanes beyond D zero: against the plain backward in fp64."""
+    q, k, v = _inputs((2, 2, 40, 500, d), dtype, cuda)
+    dy = torch.randn(k.shape, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    y, *res = flare_fused_fwd(q, k, v)
+    got = flare_fused_bwd(q, k, v, *res, y, dy)
+    want = ref.flare_fused_bwd_ref(*(t.double() for t in (q, k, v, *res, y, dy)))
+    _bwd_close(got, want, 1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 16, 97, 8), (1, 2, 300, 70000, 8)])
+def test_fused_bwd_gives_equal_bits_twice(cuda, shape):
+    """Deterministic: fixed-order sums of fp32 partials, no float atomics
+    (the second shape takes the token split and its sums)."""
+    q, k, v = _inputs(shape, torch.float32, cuda)
+    dy = torch.randn(k.shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    y, *res = flare_fused_fwd(q, k, v)
+    first = flare_fused_bwd(q, k, v, *res, y, dy)
+    second = flare_fused_bwd(q, k, v, *res, y, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_fused_autograd_on_model_operands_near_fp64(cuda):
     """Block 0's q, k, v of the paper-scale surrogate on a pde_40k batch (two
     batch elements, two heads): gradients through FlareFused stay within
@@ -248,13 +273,16 @@ def test_flare_lm_kernel_path_matches_plain_path(cuda):
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
-PAGED_CASES = [(g, d, dt, q2) for g in (1, 6, 2048) for d in (8, 24, 96, 128)
+# G: a decode read of 1, 2, 6 (qwen2), 8 and 16 query rows a KV head (the
+# decode instance, tiled above 8), 64 and 2048 latents (the encode instance
+# at D <= 32, the decode instance's row tiles above)
+PAGED_CASES = [(g, d, dt, q2) for g in (1, 2, 6, 8, 16, 64, 2048) for d in (8, 24, 96, 128)
                for dt in ("float32", "bfloat16", "int8", "fp8") for q2 in (False, True)]
 
 
-def _paged_case(g, d, page_dtype, q2, device, *, b=3, h=2, block=16, pages=24, qdt=torch.float32):
+def _paged_case(g, d, page_dtype, q2, device, *, b=4, h=2, block=16, pages=24, qdt=torch.float32):
     """Random operands: a shuffled page table whose unmapped entries point at
-    a trash row of NaN, lengths 0, a partial page and a full table."""
+    a trash row of NaN, lengths 0, 1, a partial page and a full table."""
     from repro_torch.serve.pool.quant import get_quant, quantize
 
     gen = torch.Generator().manual_seed(g * 1000 + d)
@@ -262,7 +290,8 @@ def _paged_case(g, d, page_dtype, q2, device, *, b=3, h=2, block=16, pages=24, q
     q = torch.randn(b, h, g, d, generator=gen) * d ** -0.5
     k = torch.randn(nb, block, h, d, generator=gen)
     v = torch.randn(nb, block, h, d, generator=gen)
-    lengths = torch.tensor([0, block * (pages // 2) + block // 2, block * pages], dtype=torch.int32)
+    lengths = torch.tensor([0, 1, block * (pages // 2) + block // 2, block * pages],
+                           dtype=torch.int32)[:b]
     pt = torch.randperm(nb - 1, generator=gen)[: b * pages].reshape(b, pages).int()
     for i in range(b):
         pt[i, -(-int(lengths[i]) // block):] = nb - 1
@@ -314,6 +343,18 @@ def test_paged_kernel_bf16_plain_path(cuda, g, d):
     assert got.dtype == torch.bfloat16
     want = ref.paged_attention_ref(ops[0].double(), *ops[1:], scale=0.7, out_dtype=torch.float64)
     assert (got.double() - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("g,d,page_dtype", [(6, 128, "bfloat16"), (1, 96, "float32"),
+                                             (2048, 8, "float32"), (64, 24, "int8")])
+def test_paged_kernel_gives_equal_bits_twice(cuda, g, d, page_dtype):
+    """Deterministic: the page slices merge in a fixed order, no atomics."""
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    ops, kw = _paged_case(g, d, page_dtype, True, cuda)
+    first = paged_attention(*ops, scale=0.7, out_dtype=torch.float32, **kw)
+    second = paged_attention(*ops, scale=0.7, out_dtype=torch.float32, **kw)
+    assert torch.equal(first, second)
 
 
 def test_paged_kernel_raises_instead_of_falling_back(cuda):

@@ -154,6 +154,55 @@ def test_fused_bwd_chunked_matches_whole(chunk):
         torch.testing.assert_close(got, want, atol=1e-12, rtol=1e-12)
 
 
+def _mm_tf32(a, b, split: bool):
+    """a @ b as the backward kernel's tensor cores form it from fp32
+    operands: TF32 parts (exact products, fp32 sums), lo.hi + hi.lo + hi.hi
+    where ``split``, else hi.hi alone (one rounding of each operand)."""
+    ah, al = ref.tf32_split(a)
+    bh, bl = ref.tf32_split(b)
+    return al @ bh + ah @ bl + ah @ bh if split else ah @ bh
+
+
+def _bwd_on_tensor_cores(q, k, v, z, mx, den, lse, y, dy, split: bool):
+    """One (b, h) group's backward with every product through _mm_tf32, the
+    weights and dS in fp32: q, z [M, D]; k, v, y, dy [N, D]; mx, den [M];
+    lse [N] -> (dq [M, D], dk, dv [N, D])."""
+    s = _mm_tf32(q, k.T, split)
+    w = torch.exp(s - lse[None, :])
+    a = torch.exp(s - (mx + den.log())[:, None])
+    dz = _mm_tf32(w, dy, split)
+    de, dd = (dz * z).sum(-1), (dy * y).sum(-1)
+    ds = a * (_mm_tf32(dz, v.T, split) - de[:, None]) + w * (_mm_tf32(z, dy.T, split) - dd)
+    return _mm_tf32(ds, k, split), _mm_tf32(ds.T, q, split), _mm_tf32(a.T, dz, split)
+
+
+def test_tf32_three_way_split_meets_the_fp32_limit_one_rounding_does_not():
+    """The numeric choice of the backward kernel (csrc/flare_bwd.cu): at a
+    small FLARE shape (D=8, M=256, N=4,096), its products on TF32 operands
+    split three ways stay within 1e-5 of each gradient's max |.| of the fp64
+    backward (chip_smoke.py's RTOL), and on singly rounded operands they do
+    not."""
+    rng = np.random.default_rng(18)
+    m, n, d = 256, 4096, 8
+    q = rng.standard_normal((1, m, d)) / np.sqrt(d)
+    k, v, dy = (rng.standard_normal((1, 1, n, d)) for _ in range(3))
+    q64, k64, v64, dy64 = (torch.from_numpy(x) for x in (q, k, v, dy))
+    y64, *res64 = ref.flare_fused_fwd_ref(q64, k64, v64)
+    want = ref.flare_fused_bwd_ref(q64, k64, v64, *res64, y64, dy64)
+    z, mx, den, lse = (t.float()[0, 0] for t in res64)
+    ops = (q64.float()[0], k64.float()[0, 0], v64.float()[0, 0], z, mx, den, lse,
+           y64.float()[0, 0], dy64.float()[0, 0])
+    assert ref.tf32(torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12])).tolist() == [
+        1 + 2 ** -10, -(1 + 2 ** -10), 1.0]   # to nearest, ties away from zero
+    errs = {}
+    for split in (True, False):
+        got = _bwd_on_tensor_cores(*ops, split=split)
+        errs[split] = [((g.double() - w.reshape(g.shape)).abs().max()
+                        / w.abs().max()).item() for g, w in zip(got, want)]
+    assert max(errs[True]) <= 1e-5, errs
+    assert min(errs[False]) > 1e-5, errs
+
+
 def test_plain_mixer_matches_jax_reference():
     q, k, v = _inputs(2, 4, 16, 97, 8)
     want = jref.flare_mixer_ref(*(jnp.asarray(x) for x in (np.tile(q, (2, 1, 1)),
