@@ -15,11 +15,12 @@ failure so the script exits non-zero:
    power limit;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc (one process per
    source, in parallel) and prints the seconds taken and ptxas's
-   register/shared-memory use and spills of the D=8 kernels (the
-   backward's three tensor-core passes among them), the D=128 causal
-   kernel, the paged kernel's decode instances (page dtype x query rows a
-   block) and encode instances (padded D, plain or scaled), both flash
-   kernels, and ptxas's warnings;
+   register/shared-memory use and spills of the D=8 kernels (the forward's
+   encode_tc and decode_tc and the backward's three passes, all on the
+   tensor cores), the D=128 causal kernels (causal_tc, bf16 on the tensor
+   cores; causal, fp32), the paged kernel's decode instances (page dtype x
+   query rows a block) and encode instances (padded D, plain or scaled),
+   both flash kernels, and ptxas's warnings;
 3. kernels on random operands: each CUDA kernel (encode, decode, fused
    forward, fused backward) against its plain PyTorch version, bf16 at full
    width (H=8, M=2048, D=8, B=1, N=40,000) and a ragged shape (M=16, N=97)
@@ -52,7 +53,10 @@ failure so the script exits non-zero:
    latent tile (decode) left out, so the limits are shown to bite. Times by
    CUDA events of the kernel, the plain version and one
    ``F.scaled_dot_product_attention`` yardstick per SDPA call, at both
-   shapes (the JSON line carries pde_40k's);
+   shapes (the JSON line carries pde_40k's), beside the bound and the two
+   floors of the tensor-core design (FWD_EXPS exps and FWD_PRODUCTS
+   products a pair, each three TF32 MMAs; half of each for the encode and
+   the decode alone);
 4b. the backward kernel on the same operands with a seeded dy: dq, dk and dv
    against the plain backward in fp64 on the kernel forward's residuals, a
    head at a time, chunked over tokens; each must reject a plain backward
@@ -67,14 +71,17 @@ failure so the script exits non-zero:
    forward, with launch counts zeroed just before and read just after; the
    same requests under policy ``pallas`` (the encode and decode kernels);
    both kernel paths held against the plain ``sdpa`` path on all 8 batch
-   elements of pde_40k (abs and rel 1e-3 after 8 blocks);
+   elements of pde_40k (abs and rel 1e-3 after 8 blocks); profiler
+   breakdowns of the packed and the pallas forwards, each asserting that
+   the tensor-core encode_tc and decode_tc kernels ran (``route`` lines);
 6. training at full width and depth: ``Trainer.fit`` of ``get_model(flare_pde)``,
    whose train plan must be ``packed``, for 20 steps at pde_40k with
    checkpoints into a temporary directory (restored after), launch counts
    zeroed just before and read just after (8 fused forwards and 8 fused
    backwards a step, no plain backward), ms per step, peak GiB, the loss at
    every step (the mean of the last 5 must be below the first 5's), a
-   profiler breakdown of one step, and the AdamW update's own time;
+   profiler breakdown of one step (asserting the tensor-core forward
+   kernels ran), and the AdamW update's own time;
 6b. 3 train steps at pde_1m (B=1, N=1,048,576) through the kernels, with
    their ms per step, peak GiB and launches (8 + 8 a step);
 5b. ``kernels paged`` on block 0's encode at pde_40k (B=1; G=2048, D=8,
@@ -87,10 +94,13 @@ failure so the script exits non-zero:
    N=4,096, loss and grad_norm per step and the parameters after;
 8. the causal kernel on random operands: bf16 at flare_lm's width (H=16,
    M=512, D=128, B=1, T=8,192) and a ragged shape (T=97, M=16, D=8) in fp32
-   and bf16, held as in phase 3; at D 24, 40 and 96 (padded widths 32, 64,
-   128) fp32 against the plain version in fp64 with a dropped-tile
-   rejection and bf16 against the plain version; its bf16 time at D=96
-   beside D=128 at flare_lm's width;
+   and bf16, held as in phase 3, and the full-width bf16 output (the
+   tensor cores) also beyond bf16's output rounding against the fp64 plain
+   version on the same bf16 values (``Checks.hold_rounded``, 1e-5), which
+   must reject the 64-token state tile at T/2 left out; at D 24, 40 and 96
+   (padded widths 32, 64, 128) fp32 against the plain version in fp64 with
+   a dropped-tile rejection and bf16 against the plain version; its bf16
+   time at D=96 beside D=128 at flare_lm's width;
 9. ``get_model(flare_lm)`` at full width and depth (24 layers, d_model 2048,
    2.6B parameters) from seed 0, whose infer plan must be ``causal_pallas``;
    the seconds the CPU takes to draw the weights. The causal kernel on layer
@@ -98,13 +108,18 @@ failure so the script exits non-zero:
    (prefill_32k's length; its batch of 32 cut to 1): in fp32 against the
    plain version in fp64, a head at a time, at 1e-5 of max |plain|, which
    must reject a plain version that left one 64-token kernel tile out of the
-   carried state; in bf16, as the model runs it, against the plain version
-   on the same operands at 1e-2 of max |plain|. Times of the kernel (bf16
-   and fp32), its bounds and its plain version, and a profiler breakdown of
-   the plain version (its device busy share);
+   carried state; in bf16, as the model runs it (the tensor cores), against
+   the plain version on the same operands at 1e-2 of max |plain| and beyond
+   bf16's output rounding against the fp64 plain version on the same bf16
+   values at 1e-5, which must reject the same lost tile rounded to bf16.
+   Times of the kernel (bf16 and fp32), its bounds, the bf16 design's three
+   floors (its products as it issues them at the bf16 peak, its two exps a
+   pair, its fp32 partials' round trip) and its plain version, and a
+   profiler breakdown of the plain version (its device busy share);
 10. ``Model.forward`` at B=1, T=32,768 in bf16: launch counts zeroed just
    before and read just after (24 causal kernels a forward, no PDE kernel),
-   ms per forward, peak GiB and a profiler breakdown; its logits held
+   ms per forward, peak GiB and a profiler breakdown, which must show the
+   tensor-core causal_tc kernel and not the fp32 route's; its logits held
    against the plain ``causal_stream`` path on the same weights in bf16 (5e-2
    of max |logit|) and in fp32 compute (1e-3);
 11. answering requests: 4 ``TokenStream`` prompts of 1,024-2,048 tokens,
@@ -198,6 +213,9 @@ PEAK_TF32 = 495e12   # tensor cores, dense
 # a, A and W in b and in c; S and dZ, S, v dZ^T, dy Z^T, dk and dv, S,
 # dZ v^T, Z dy^T and dq (csrc/flare_bwd.cu)
 BWD_EXPS, BWD_PRODUCTS = 5, 11
+# the forward kernels' (csrc/flare.cu): P in the encode, W in the decode; S
+# and P v, S^T and W Z. The encode and the decode alone take half of each.
+FWD_EXPS, FWD_PRODUCTS = 2, 4
 
 SEED = 0
 # bf16 and ragged edges, on random operands (the model itself runs fp32)
@@ -218,7 +236,10 @@ BF16_U = 2.0 ** -8
 # none looser than 1e-4 of its max |plain| at either shape (the script checks
 # that too).
 BWD_ATOL = {"dq": 1e-2, "dk": 1e-5, "dv": 1e-6}
-TILE = 256    # tokens per encode tile and latents per decode tile (csrc/flare.cu, D=8)
+# tokens per staged encode tile and latents per staged decode tile of
+# csrc/flare.cu at D=8 (32 steps of 8 columns; the two-level sums' inner
+# level), the tile a check leaves out; the backward's checks leave out as many
+TILE = 256
 PATH_TOL = 1e-3   # the kernel paths against the plain path after 8 blocks, abs and rel
 # Training, the kernel path against the plain path (relative, per step): the
 # loss and grad_norm 1e-4, fp32 sums in another order through 8 blocks and
@@ -392,13 +413,14 @@ def ptxas_summary(log: str) -> list:
                 or ("causal" in props and re.search(r"Li(8|128)E", props))
                 or "paged" in props or "flash" in props):
             kind = next(k for k in ("paged_combine", "paged_decode", "paged_encode",
-                                    "causal_combine", "causal", "encode", "decode", "combine",
-                                    "dz", "dkv", "dq", "flash_tc", "flash")
+                                    "causal_combine", "causal_tc", "causal", "encode_tc",
+                                    "decode_tc", "combine", "dz", "dkv", "dq", "flash_tc",
+                                    "flash")
                         if f"{k}_kernel" in props)
             args = props.split("_kernelI", 1)[-1]
             types = ["bf16" if t.startswith("13") else "f32"
                      for t in re.findall(r"13__nv_bfloat16|f", args.split("Li")[0])]
-            if kind == "flash_tc":
+            if kind in ("flash_tc", "causal_tc"):
                 types = ["bf16"]
             width = re.search(r"Li(\d+)E", args)
             label = (f"{'/'.join(types)} D={width.group(1)}" if width and types
@@ -408,12 +430,12 @@ def ptxas_summary(log: str) -> list:
                 label = f"{PAGED_TYPES.get(page, page)} rows<={width.group(1)}"
             elif kind == "paged_encode":   # <padded D, plain (no scales, scale 1)>
                 label = f"D={width.group(1)} {'plain' if 'Lb1E' in args else 'scaled'}"
-            elif kind == "causal" and re.search(r"Lb[01]E", args):
+            elif kind.startswith("causal") and re.search(r"Lb[01]E", args):
                 # the exact instance (D its own width) or the padded one
                 page = args.split("Lb")[0]
                 label = label if width else PAGED_TYPES.get(page, page)
                 label += " exact" if "Lb1E" in args else " padded"
-            rows.append(f"  {kind:<8} {label:<16} {m.group(1)} regs{m.group(2)}, "
+            rows.append(f"  {kind:<9} {label:<16} {m.group(1)} regs{m.group(2)}, "
                         f"{frame.get(props, 'no frame line')}")
     rows += [f"  {line.strip()[:160]}" for line in log.splitlines()
              if "warning" in line.lower()][:12]
@@ -736,6 +758,12 @@ def time_kernels(q, k, v) -> dict:
         # the scores are needed once: three products
         "flare_fused_fwd": (3 * 2 * mnd, qkv + f4 * (b * h * n * (d + 1) + b * h * m * (d + 2))),
     }
+    # the floors of the tensor-core design (csrc/flare.cu): its exps on the
+    # special-function units (16 a clock an SM) at the card's top SM clock,
+    # its products, each three TF32 MMAs, at the TF32 peak; the encode and
+    # the decode take half of the fused forward's each
+    pairs, sm_hz = b * h * m * n, max_sm_clock_mhz() * 1e6
+    share = {"flare_encode": 0.5, "flare_decode": 0.5, "flare_fused_fwd": 1.0}
     stats = {}
     for name, (kern, plain, lib) in runs.items():
         flops, nbytes = work[name]
@@ -743,7 +771,10 @@ def time_kernels(q, k, v) -> dict:
         stats[name] = dict(
             ms=cuda_ms(kern, reps=10), plain_ms=cuda_ms(plain, reps=2),
             library_ms=cuda_ms(lib, reps=5), bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            floor_exps_ms=share[name] * FWD_EXPS * pairs / (16 * 132 * sm_hz) * 1e3,
+            floor_split_products_ms=share[name] * 3 * FWD_PRODUCTS * 2 * pairs * d / PEAK_TF32
+            * 1e3)
     return stats
 
 
@@ -843,6 +874,24 @@ def breakdown(fn, label: str, top: int = 8):
     return {key: ms for key, ms, _ in rows}, wall_ms
 
 
+def assert_route(seen, label: str, want: tuple, refuse: tuple = ()) -> None:
+    """The kernels a breakdown saw (its {kernel name: device ms}): every name
+    in ``want`` must be among them and none in ``refuse``, so the path is
+    shown to run the kernels it is meant to."""
+    if seen is None:
+        raise AssertionError(f"{label}: the profiler recorded no kernel, the route is not shown")
+    names = list(seen[0])
+    missing = [w for w in want if not any(w in key for key in names)]
+    found = [r for r in refuse if any(r in key for key in names)]
+    print(f"route {label}: {', '.join(want)} launched"
+          + (f"; none of {', '.join(refuse)}" if refuse else ""), flush=True)
+    if missing or found:
+        raise AssertionError(f"{label}: kernels {missing} not launched, {found} launched")
+
+
+FWD_TC = ("encode_tc_kernel", "decode_tc_kernel")   # csrc/flare.cu's tensor-core instances
+
+
 def train(cfg, shape) -> dict:
     """Trainer.fit at full width and depth on pde_40k point clouds: launch
     counts zeroed just before the fit and read just after; checkpoints into
@@ -903,8 +952,9 @@ def train(cfg, shape) -> dict:
     print(f"adamw: {adamw_ms(trainer.net):.3f} ms/update over "
           f"{len(list(trainer.net.parameters()))} parameter tensors", flush=True)
     batch = batches[0]
-    breakdown(lambda: trainer._train_step(trainer.net, trainer.opt_state, batch),
-              f"train step {shape.name}", top=12)
+    seen = breakdown(lambda: trainer._train_step(trainer.net, trainer.opt_state, batch),
+                     f"train step {shape.name}", top=12)
+    assert_route(seen, f"train step {shape.name}", FWD_TC)
     return {"counts": counts, "ms": ms, "peak": peak}
 
 
@@ -1539,27 +1589,37 @@ def train_two_ranks(cfg) -> None:
 def check_causal_small(checks: Checks, device) -> None:
     """The causal kernel against its plain version on random operands: bf16
     at flare_lm's width, and a ragged shape (T=97, M=16, D=8) in both dtypes;
-    then at the head dims it runs at a padded width (CAUSAL_WIDE: 24, 40 and
-    phi3's 96), fp32 against the plain version in fp64 (tile 256) with a
-    limit that must reject one 64-token kernel tile left out of the carried
-    state, and bf16 against the plain version. Last, the kernel's bf16 time
-    at flare_lm's width (H=16, M=512, T=8,192) at D=96 beside D=128."""
+    the full-width bf16 output (the tensor cores) also beyond bf16's output
+    rounding against the plain version in fp64 on the same bf16 values
+    (Checks.hold_rounded), which must reject one 64-token kernel tile left
+    out of the carried state at T/2; then at the head dims it runs at a
+    padded width (CAUSAL_WIDE: 24, 40 and phi3's 96), fp32 against the plain
+    version in fp64 (tile 256) with a limit that must reject one 64-token
+    kernel tile left out of the carried state, and bf16 against the plain
+    version. Last, the kernel's bf16 time at flare_lm's width (H=16, M=512,
+    T=8,192) at D=96 beside D=128."""
     import torch
 
     from repro_torch.kernels.flare_causal import TILE, flare_causal_chunk
     from repro_torch.kernels.ref import flare_causal_chunk_ref
 
     gen = torch.Generator().manual_seed(SEED + 2)
+    plain64 = lambda qh, kh, vh: flare_causal_chunk_ref(qh, kh, vh, tile=256)
     for shape_name, s in CAUSAL_SMALL.items():
         for dtype in ((torch.bfloat16,) if shape_name.startswith("bf16")
                       else (torch.float32, torch.bfloat16)):
             q, k, v = inputs(s, dtype, gen, device)
             print(f"kernels causal {shape_name} {s} {dtype}:", flush=True)
-            checks.hold("flare_causal_chunk", "y", flare_causal_chunk(q, k, v),
-                        flare_causal_chunk_ref(q, k, v), dtype,
+            got = flare_causal_chunk(q, k, v)
+            checks.hold("flare_causal_chunk", "y", got, flare_causal_chunk_ref(q, k, v), dtype,
                         atol=ATOL[str(dtype).removeprefix("torch.")],
                         record=dtype == torch.float32)
-    plain64 = lambda qh, kh, vh: flare_causal_chunk_ref(qh, kh, vh, tile=256)
+            if shape_name.startswith("bf16"):
+                wide = [t.double() for t in (q, k, v)]
+                t0 = s["n"] // 2 // TILE * TILE
+                checks.hold_rounded("flare_causal_chunk", "y bf16 vs fp64", got, plain64(*wide),
+                                    dropped={"state tile": drop_tile(plain64, t0, TILE)(*wide)})
+                del wide
     for d, s in CAUSAL_WIDE.items():
         print(f"kernels causal D={d} {s} (fp32 against the plain version in fp64):", flush=True)
         q, k, v = inputs(s, torch.float32, gen, device)
@@ -1619,7 +1679,9 @@ def check_causal_main(checks: Checks, ops32, ops16) -> None:
     version in fp64 (tile 256), a head at a time, relative to max |plain|;
     the limit must reject the fp64 plain version with one 64-token kernel
     tile left out of the carried state (the tile at T/2). bf16 against the
-    plain version on the same bf16 operands."""
+    plain version on the same bf16 operands, and beyond bf16's output
+    rounding against the plain version in fp64 on those bf16 values
+    (Checks.hold_rounded), which must reject the same lost tile."""
     import torch
 
     from repro_torch.kernels.flare_causal import TILE, flare_causal_chunk
@@ -1638,8 +1700,14 @@ def check_causal_main(checks: Checks, ops32, ops16) -> None:
                 dropped={"state tile": by_head(drop_tile(plain64, n // 2, TILE), *wide)})
     del want, wide
     q, k, v = ops16
-    checks.hold("flare_causal_chunk", "y bf16", flare_causal_chunk(q, k, v),
-                by_head(flare_causal_chunk_ref, q, k, v), torch.bfloat16, atol=None)
+    got = flare_causal_chunk(q, k, v)
+    checks.hold("flare_causal_chunk", "y bf16", got, by_head(flare_causal_chunk_ref, q, k, v),
+                torch.bfloat16, atol=None)
+    # beyond bf16's output rounding against fp64 on the same bf16 values: the
+    # 1e-2 above cannot see a lost state tile at this T
+    wide = [t.to(torch.float64) for t in ops16]
+    checks.hold_rounded("flare_causal_chunk", "y bf16 vs fp64", got, by_head(plain64, *wide),
+                        dropped={"state tile": by_head(drop_tile(plain64, n // 2, TILE), *wide)})
     checks.raise_failures("causal kernel on flare_lm's operands")
 
 
@@ -1660,10 +1728,35 @@ def time_causal(q, k, v) -> dict:
     nbytes = size * (h * m * d + 3 * b * h * n * d)
     peak = PEAK_BF16 if k.dtype == torch.bfloat16 else PEAK_FP32
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BW * 1e3
-    return dict(ms=cuda_ms(lambda: flare_causal_chunk(q, k, v), reps=5),
-                plain_ms=cuda_ms(lambda: flare_causal_chunk_ref(q, k, v), reps=1),
-                library_ms=None, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    stats = dict(ms=cuda_ms(lambda: flare_causal_chunk(q, k, v), reps=5),
+                 plain_ms=cuda_ms(lambda: flare_causal_chunk_ref(q, k, v), reps=1),
+                 library_ms=None, bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+    if k.dtype == torch.bfloat16:
+        stats.update(causal_tc_floors(b, h, m, n, d))
+    return stats
+
+
+def causal_tc_floors(b: int, h: int, m: int, n: int, d: int) -> dict:
+    """The floors of the causal kernel's tensor-core design
+    (csrc/flare_causal.cu, causal_tc_kernel) on its own work: per 64-latent
+    slice and 64-token tile, the products as it issues them at the bf16
+    peak (S; f1 v in two parts; f2^T num in three; f2^T f1 in three and a v
+    in two over the token tiles up to each warp's own, 10 of 16 16 x 16
+    blocks), its two exps a (latent, token) pair (f1 and the decode weight)
+    at 16 a clock an SM at the card's top SM clock, and the bytes of its
+    fp32 partials written and read back by the combine."""
+    cl = ct = 64
+    dp = max(16, 1 << (d - 1).bit_length())
+    tiles, slices = -(-n // ct), -(-m // cl)
+    per_tile = (2 * cl * ct * dp * (1 + 2 + 3)          # S, f1 v, f2^T num
+                + 2 * cl * 16 * 16 * 10 * 3              # f2^T f1, the causal blocks
+                + 2 * 16 * 16 * 10 * dp * 2)             # a v
+    sm_hz = max_sm_clock_mhz() * 1e6
+    return dict(
+        floor_products_ms=b * h * slices * tiles * per_tile / PEAK_BF16 * 1e3,
+        floor_exps_ms=2 * b * h * m * n / (16 * 132 * sm_hz) * 1e3,
+        floor_partials_ms=2 * 4 * slices * b * h * n * (d + 2) / PEAK_BW * 1e3)
 
 
 def held(label: str, got, want, tol: float) -> None:
@@ -1702,7 +1795,10 @@ def lm_forward(cfg, model, net, tokens) -> dict:
         raise AssertionError(f"flare_lm forward launches {counts}")
     if tuple(logits.shape) != (b, n, cfg.vocab) or not bool(logits.isfinite().all()):
         raise AssertionError(f"flare_lm logits {tuple(logits.shape)} not finite or mis-shaped")
-    breakdown(lambda: model.forward(net, batch), f"flare_lm forward B={b} T={n} bf16")
+    seen = breakdown(lambda: model.forward(net, batch), f"flare_lm forward B={b} T={n} bf16")
+    # bf16 goes to the tensor-core kernel, never the fp32 route's CUDA-core one
+    assert_route(seen, f"flare_lm forward B={b} T={n} bf16", ("causal_tc_kernel",),
+                 refuse=("::causal_kernel<",))
     plain = get_model(cfg, policy=MixerPolicy(backends=("causal_stream",)))
     t0 = time.perf_counter()
     want, _ = plain.forward(net, batch)
@@ -2971,8 +3067,11 @@ def main() -> int:
     packed = drive(model, net, {"pde_40k": (b40, 3), "pde_1m": (b1m, 2)}, "packed")
     pallas_model = get_model(cfg, policy=MixerPolicy(backends=("pallas",)))
     pallas = drive(pallas_model, net, {"pde_40k": (b40, 3)}, "pallas")
-    breakdown(lambda: model.forward(net, b40), "packed pde_40k")
+    assert_route(breakdown(lambda: model.forward(net, b40), "packed pde_40k"), "packed pde_40k",
+                 FWD_TC)
     breakdown(lambda: model.forward(net, b1m), "packed pde_1m")
+    assert_route(breakdown(lambda: pallas_model.forward(net, b40), "pallas pde_40k"),
+                 "pallas pde_40k", FWD_TC)
     c_pk, c_pl = packed["counts"], pallas["counts"]
     if not (c_pk["flare_fused_fwd"] > 0 and c_pk["flare_encode"] == c_pk["flare_decode"]
             == c_pk["flare_fused_bwd"] == 0):

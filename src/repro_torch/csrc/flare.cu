@@ -1,8 +1,9 @@
-// FLARE encode, decode and fused forward for Hopper (sm_90a), CUDA C++.
+// FLARE encode, decode and fused forward for Hopper (sm_90a), CUDA C++ on
+// the tensor cores.
 //
 // Replaces the TPU kernels of the JAX package:
-//   encode_kernel  <- repro/kernels/flare.py::_encode_kernel (flare_encode_pallas)
-//   decode_kernel  <- repro/kernels/flare.py::_decode_kernel (flare_decode_pallas)
+//   encode_tc_kernel  <- repro/kernels/flare.py::_encode_kernel (flare_encode_pallas)
+//   decode_tc_kernel  <- repro/kernels/flare.py::_decode_kernel (flare_decode_pallas)
 //   the fused forward: repro_torch/kernels/flare_packed.py calls the
 //   flare_encode entry point with statistics, then flare_decode over fp32 Z
 //                  <- repro/kernels/flare_packed.py::_fused_fwd_kernel (_fwd_launch)
@@ -12,185 +13,319 @@
 //   flare_decode against the merged Z, with each token's log-sum-exp
 //                  <- repro/kernels/flare_packed_shard.py::_decode_kernel
 //
-// What bounds them. At the paper's head dim (D = 8) every (latent, token)
-// pair costs 2*D FMAs (score and weighted sum) and one exp, against 2*D*4
-// bytes of K and V per token that every latent row reuses: at pde_40k the
-// encode does 1.7e11 FLOP on 164 MB, about 1000 FLOP per byte. Each kernel
-// is bound by fp32 arithmetic on the CUDA cores (67 TFLOP/s on an H100 SXM),
-// not by memory. These kernels stay on the CUDA cores. D = 8 is below a
-// bf16 tensor-core tile (16 deep), but not below a TF32 one: mma.sync
-// m16n8k8 takes k = 8 = D, and flare_bwd.cu runs the backward's products
-// that way, with each fp32 operand split in two TF32 parts for fp32
-// accuracy; the forward's turn is later work.
+// What bounds them. Every (latent, token) pair costs two products of D
+// FMAs each (score and weighted sum) and one exp, against 2*D*4 bytes of K
+// and V per token that every latent row reuses: at pde_40k the encode does
+// 1.7e11 FLOP on 164 MB, about 1000 FLOP per byte, bound by arithmetic:
+// 2.504 ms at fp32's 67 TFLOP/s on an H100 SXM. The previous version ran
+// every product as an fp32 FMA on the CUDA cores, one thread an output row:
+// the fused forward took 17.030 ms at pde_40k and 56.851 at pde_1m on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6, row 3). D = 8 is below
+// a bf16 tensor-core tile (16 deep), not below a TF32 one: mma.sync m16n8k8
+// takes k = 8 = D for the scores, and n = 8 = D with k = 8 tokens (encode)
+// or latents (decode) for the weighted sums. The design's own floors at
+// pde_40k: one exp a pair in each kernel at 16 a clock an SM, 2.508 ms for
+// the two; four products, each three TF32 MMAs, 2.034 ms at 495 TFLOP/s.
 //
-// What the design does about it:
-//   * one thread owns one output row (a latent row in the encode, a token in
-//     the decode) and keeps its online-softmax state (max, den, num[D]) and
-//     its query row in registers, so the inner loop is FMAs and exps only;
-//   * the streamed operand (K and V tiles, or the head's Q and Z tiles) is
-//     staged in shared memory and read by every thread of the block as a
-//     broadcast, with no bank conflicts;
-//   * scores are taken in chunks of CH: one running-max rescale per chunk,
-//     not per element; the sums run in two levels (per shared tile, then
-//     across tiles): on the model's own operands at N = 40,000 one running
-//     sum was 7.8e-4 off fp64, two levels are 7.2e-6, at no measurable cost;
+// The design, one device routine (sweep) for both kernels, as pass (a) of
+// flare_bwd.cu streams tokens against a warp's latent rows:
+//   * a warp owns 16 * MT output rows (latents in the encode, tokens in the
+//     decode; MT = 4 at D = 8, 2 up to 16, 1 above) and holds them as split
+//     A fragments for the whole sweep; the streamed score operand (k, or
+//     the head's q) and value operand (v, or the group's Z) are staged in
+//     shared memory in each lane's B-fragment order, split: one 16-byte
+//     read a lane (flare_mma.cuh); the next tile's rows come in by
+//     cp.async while this tile computes and are split in shared memory
+//     (where their rows are whole aligned 16-byte units: every D that is a
+//     multiple of 4 in fp32 or of 8 in bf16, the model's strided views
+//     included), so the tile's loads are off the critical path;
+//   * scores S = x s^T are three MMAs a step of 8 columns; CH = 4 steps
+//     form a chunk, whose per-row max is taken in registers and across the
+//     quad with two shuffles, so the running max rescales the sums once a
+//     chunk, not once a column; P = e^{S - max} then becomes the A fragment
+//     of P v with no data movement (the C fragment's columns 2t, 2t + 1 as
+//     k = t, t + 4, the value operand staged with its rows in that order),
+//     split: three MMAs, two for a bf16 value operand (exact in TF32);
+//   * each step's MMAs start from zero and are added to fp32 sums in
+//     registers (the tensor core truncates its additions), and the sums run
+//     in two levels: per staged tile (256 columns at D = 8), then across
+//     tiles. On the model's own operands at N = 40,000 one running sum was
+//     7.8e-4 off fp64, two levels 7.2e-6;
+//   * each thread keeps the den of its own two columns of a row; the quad's
+//     four are added at the end, in a fixed order;
 //   * the TPU's sequential-grid scratch carry becomes the loop inside the
-//     block; where a batch of one leaves the card underfilled (pde_1m: 128
+//     block; where a batch of one leaves the card underfilled (pde_1m: 64
 //     encode blocks for 132 SMs) the encode splits N over blockIdx.z and a
 //     combine kernel merges the partial (max, den, num) in fp32;
 //   * the decode cannot hold all M scores per token as the TPU's VMEM does,
-//     so it runs an online softmax over latent chunks too;
-//   * no padding: ragged N and M are bounds in the loops, the shared tiles
-//     are zero-filled past the edge, and masked scores are -1e30, whose exp
-//     is exactly 0, so no row comes out NaN;
+//     so it runs the same online softmax over latent chunks;
+//   * no padding: ragged N and M are bounds in the loops, the staged
+//     fragments are zero past the edge, and scores past it are -1e30, whose
+//     exp is exactly 0, so no row comes out NaN;
 //   * K, V and Y are taken with strides ([B, H, N, D] views of [B, N, H*D]
 //     activations), so the model never copies a transposed tensor;
 //   * for training, the fused forward also has the decode write each token's
 //     log-sum-exp over the latents (an O(N) fp32 residual): the backward
-//     kernels in flare_bwd.cu recompute the decode weights from it, since a
-//     per-latent thread cannot see all M scores of a token. The pallas path
-//     passes null and writes nothing;
+//     kernels in flare_bwd.cu recompute the decode weights from it. The
+//     pallas path passes null and writes nothing;
 //   * a sharded forward splits the tokens over ranks, and a rank's encode is
 //     only part of the sum over N: flare_enc_stats writes the numerator
 //     against the rank's own max with that max and den (from the unsplit
 //     grid directly, or from combine_kernel), so the ranks can merge them
-//     before the normalisation; the decode then runs against the merged Z;
-//   * any head dim D from 1 to 64: each kernel is built at the padded widths
-//     4, 8, 16, 32 and 64 (flare_common.cuh) and D runs at the next one,
-//     lanes d >= D zero where operands are loaded or staged; in device
-//     memory every tensor keeps its own D. D = 4 and D = 8 have instances
-//     of their own with D known at compile time, so the paper's head dim
-//     pays nothing for the others. At 64 the register arrays of a
-//     row (state, query and partial sums) exceed the register file and
-//     spill; ptxas's spill bytes are printed by chip_smoke.py.
+//     before the normalisation; the decode then runs against the merged Z.
+//     The fused forward normalises as num * (1 / den), as the merge does,
+//     so on one rank the two give equal bits;
+//   * any head dim D from 1 to 64 runs at its MMA width 8, 16, 32 or 64
+//     (flare_mma.cuh::at_mma_width), lanes d >= D zero where operands are
+//     loaded or staged; in device memory every tensor keeps its own D.
+//     D = 8 has an instance of its own with D known at compile time. At 64
+//     a warp's fragments exceed the register file and spill; ptxas's spill
+//     bytes are printed by chip_smoke.py.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise.
 
-#include "flare_common.cuh"
+#include <initializer_list>
+
+#include "flare_mma.cuh"
 
 namespace {
 
 using namespace flare;
 
-constexpr int CH = 16;  // scores per chunk (one rescale per chunk)
+constexpr int WARPS = MMA_WARPS;
+constexpr int THREADS = MMA_THREADS;
+constexpr int STAGE_FLOATS = 8192;   // floats of staged fragments a tile, two operands (32 KB)
+constexpr int CH = 4;                // 8-wide steps a chunk: one running-max rescale each
+constexpr int WAVE_BLOCKS = 4;       // blocks of THREADS resident an SM, for the N-split
 
-// Online-softmax state of one output row, summed in two levels: the scores
-// of the current shared tile go into partial sums (den, acc) taken against
-// the running max mx, and each finished tile is folded into the totals. A
-// total then carries about N / tile + tile roundings instead of N.
+// 16-row tiles a warp: four at D = 8, two up to 16, one above (registers)
+template <int D> __host__ __device__ constexpr int row_tiles() {
+  return D <= 8 ? 4 : D <= 16 ? 2 : 1;
+}
+template <int D> __host__ __device__ constexpr int rows_a_block() {
+  return WARPS * 16 * row_tiles<D>();
+}
+// 8-wide steps a staged tile: 32 (256 columns) at D = 8
+template <int D> __host__ __device__ constexpr int tile_steps() {
+  return STAGE_FLOATS / (2 * (D / 8) * 128);
+}
+
+// What a sweep leaves a thread: for rows gi and gi + 8 (h = 0, 1) of each
+// of the warp's MT tiles, the max of the row's scores, their den (the
+// quad's sum) and num, the C fragment of sum_c e^{s_c - mx} v_c.
 template <int D>
-struct Online {
-  float mx = NEG_INF, den = 0.f, acc[D];          // this tile, against mx
-  float tot_mx = NEG_INF, tot_den = 0.f, tot[D];  // finished tiles, against tot_mx
-
-  __device__ __forceinline__ Online() {
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = tot[d] = 0.f;
-  }
-
-  // One step over `cnt` (<= CH) staged rows: scores x . key[j], with a
-  // single rescale of the tile's partial sums for the chunk.
-  __device__ __forceinline__ void chunk(const float (&x)[D], const float* key,
-                                        const float* val, int cnt) {
-    float s[CH];
-    float cmax = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < CH; ++j) {
-      float a = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) a = fmaf(x[d], key[j * D + d], a);
-      s[j] = j < cnt ? a : NEG_INF;
-      cmax = fmaxf(cmax, s[j]);
-    }
-    const float mnew = fmaxf(mx, cmax);
-    const float alpha = __expf(mx - mnew);
-    den *= alpha;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < CH; ++j) {
-      const float p = j < cnt ? __expf(s[j] - mnew) : 0.f;
-      den += p;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, val[j * D + d], acc[d]);
-    }
-    mx = mnew;
-  }
-
-  // Fold the tile's partial sums into the totals (mx >= tot_mx).
-  __device__ __forceinline__ void fold() {
-    const float alpha = __expf(tot_mx - mx);
-    tot_den = fmaf(tot_den, alpha, den);
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      tot[d] = fmaf(tot[d], alpha, acc[d]);
-      acc[d] = 0.f;
-    }
-    tot_mx = mx;
-    den = 0.f;
-  }
+struct Rows {
+  static constexpr int MT = row_tiles<D>(), KS = D / 8;
+  float mx[MT][2], den[MT][2], num[MT][KS][4];
 };
 
-// Encode. Grid (ceil(M / ENC_THREADS), B*H, splits); thread = latent row m of
-// group g = b*H + h over tokens [split*split_len, min(N, (split+1)*split_len)).
-// D is the padded width, Dr the head dim in device memory (D itself where
-// EXACT, else d_run).
-// splits == 1: writes z[g, m, :] = num/den (and mx/den when given); `raw`
-// writes num itself, against mx, the flash statistics a rank merges.
-// splits > 1: writes the partial (max, den, num[Dr]) to part[split, g, m, :].
-template <typename T, typename TZ, int D, bool EXACT>
-__global__ void __launch_bounds__(ENC_THREADS)
-encode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              TZ* __restrict__ z, float* __restrict__ mx_out, float* __restrict__ den_out,
-              float* __restrict__ part, int H, int M, int N, int d_run, Strides ks,
-              Strides vs, int split_len, bool raw) {
-  constexpr int TN = TILE_FLOATS / D;
-  const int Dr = EXACT ? D : d_run;
-  __shared__ float k_s[TILE_FLOATS];
-  __shared__ float v_s[TILE_FLOATS];
-  const int g = blockIdx.y, b = g / H, h = g % H;
-  const int m = blockIdx.x * ENC_THREADS + threadIdx.x;
-  const int n0 = blockIdx.z * split_len;
-  const int n1 = min(N, n0 + split_len);
-  const T* kg = k + b * ks.b + h * ks.h;
-  const T* vg = v + b * vs.b + h * vs.h;
-
-  float x[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d)
-    x[d] = (m < M && d < Dr) ? to_f(q[((long long)h * M + m) * Dr + d]) : 0.f;
-  Online<D> st;
-  for (int t0 = n0; t0 < n1; t0 += TN) {
-    const int tn = min(TN, n1 - t0);
-    __syncthreads();
-    stage<T, D>(k_s, kg, ks.n, t0, tn, TN, Dr);
-    stage<T, D>(v_s, vg, vs.n, t0, tn, TN, Dr);
-    __syncthreads();
-    for (int c0 = 0; c0 < tn; c0 += CH)
-      st.chunk(x, k_s + c0 * D, v_s + c0 * D, min(CH, tn - c0));
-    st.fold();
-  }
-  if (m >= M) return;
-  const long long row = (long long)g * M + m;
-  if (part == nullptr) {
-    const float inv = raw ? 1.f : 1.f / st.tot_den;
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (d < Dr) z[row * Dr + d] = from_f<TZ>(st.tot[d] * inv);
-    if (mx_out != nullptr) {
-      mx_out[row] = st.tot_mx;
-      den_out[row] = st.tot_den;
+// Online softmax of the warp's rows [r0, r0 + 16 MT) of X (row stride xs,
+// `rows` valid) over the columns [c0, c1) of the streamed score operand S
+// (row stride ss), weighting the value operand V (row stride vs). Every
+// warp of the block takes part in the staging; a warp whose rows all lie
+// past `rows` computes nothing. `async`: the rows of S and V are whole
+// 16-byte units at 16-byte aligned addresses, and the next tile's come in
+// by cp.async into a raw buffer while this tile computes; else each tile is
+// read from device memory as it is staged.
+template <typename T, typename TV, int D>
+__device__ __forceinline__ void sweep(Rows<D>& out, const T* X, long long xs, int r0, int rows,
+                                      const T* S, long long ss, const TV* V, long long vs,
+                                      int c0, int c1, int Dr, bool async) {
+  constexpr int KS = D / 8, MT = row_tiles<D>(), NS = tile_steps<D>();
+  constexpr bool EX = std::is_same<T, __nv_bfloat16>::value;    // x and s exact in TF32
+  constexpr bool EV = std::is_same<TV, __nv_bfloat16>::value;   // v exact in TF32
+  static_assert(NS % CH == 0, "a staged tile holds whole chunks");
+  __shared__ uint4 sf_s[NS * KS * 32];   // the score operand, KDIM
+  __shared__ uint4 vf_s[NS * KS * 32];   // the value operand, !KDIM
+  __shared__ __align__(16) T sr_s[NS * 8 * D];    // the next tile's rows as they are
+  __shared__ __align__(16) TV vr_s[NS * 8 * D];
+  const int lane = threadIdx.x & 31, ti = lane & 3;
+  auto fetch = [&](int t0) {   // rows [t0, t0 + NS * 8) of S and V into the raw buffers
+    const int tn = min(NS * 8, c1 - t0);
+    constexpr int US = 16 / sizeof(T), UV = 16 / sizeof(TV);   // elements a unit
+    for (int i = threadIdx.x; i < tn * (Dr / US); i += THREADS) {
+      const int r = i / (Dr / US), c = i % (Dr / US) * US;
+      cp_async16(sr_s + r * D + c, S + (long long)(t0 + r) * ss + c);
     }
-  } else {
-    const long long rows = (long long)gridDim.y * M;
-    float* p = part + ((long long)blockIdx.z * rows + row) * (Dr + 2);
-    p[0] = st.tot_mx;
-    p[1] = st.tot_den;
+    for (int i = threadIdx.x; i < tn * (Dr / UV); i += THREADS) {
+      const int r = i / (Dr / UV), c = i % (Dr / UV) * UV;
+      cp_async16(vr_s + r * D + c, V + (long long)(t0 + r) * vs + c);
+    }
+    asm volatile("cp.async.commit_group;");
+  };
+
+  FragA xa[MT][KS];
 #pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (d < Dr) p[2 + d] = st.tot[d];
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) load_a(xa[i][kk], X, xs, r0 + 16 * i, rows, kk, Dr);
+  // this tile's sums against the running max mx; the finished tiles' against tmx
+  float mx[MT][2], den[MT][2], acc[MT][KS][4] = {}, tden[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[i][h] = out.mx[i][h] = NEG_INF;
+      den[i][h] = tden[i][h] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) out.num[i][j][2 * h] = out.num[i][j][2 * h + 1] = 0.f;
+    }
+  if (async) fetch(c0);
+  for (int t0 = c0; t0 < c1; t0 += NS * 8) {
+    const int tn = min(NS * 8, c1 - t0), steps = (tn + 7) / 8;
+    if (async) asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    if (async) {
+      stage_b<T, KS, true>(sf_s, sr_s, D, 0, tn, steps, Dr);
+      stage_b<TV, KS, false>(vf_s, vr_s, D, 0, tn, steps, Dr);
+    } else {
+      stage_b<T, KS, true>(sf_s, S, ss, t0, tn, steps, Dr);
+      stage_b<TV, KS, false>(vf_s, V, vs, t0, tn, steps, Dr);
+    }
+    __syncthreads();
+    if (async && t0 + NS * 8 < c1) fetch(t0 + NS * 8);
+    if (r0 >= rows) continue;
+    for (int s0 = 0; s0 < steps; s0 += CH) {
+      float sc[MT][CH][4] = {};
+#pragma unroll
+      for (int s = 0; s < CH; ++s) {
+        if (s0 + s >= steps) break;
+        uint4 sb[KS];
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) sb[kk] = sf_s[((s0 + s) * KS + kk) * 32 + lane];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) mma3<EX, EX>(sc[i][s], xa[i][kk], sb[kk]);
+      }
+      // c0 (row gi, column 2t), c1 (gi, 2t+1), c2 (gi+8, 2t), c3 (gi+8, 2t+1); columns
+      // past the edge (of a ragged last tile only) score -1e30
+      if (tn < NS * 8) {
+#pragma unroll
+        for (int s = 0; s < CH; ++s)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (8 * (s0 + s) + 2 * ti + (r & 1) >= tn)
+#pragma unroll
+              for (int i = 0; i < MT; ++i) sc[i][s][r] = NEG_INF;
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float cm = NEG_INF;
+#pragma unroll
+          for (int s = 0; s < CH; ++s) cm = fmaxf(cm, fmaxf(sc[i][s][2 * h], sc[i][s][2 * h + 1]));
+          const float mnew = fmaxf(mx[i][h], quad_max(cm));
+          const float alpha = __expf(mx[i][h] - mnew);
+          mx[i][h] = mnew;
+          den[i][h] *= alpha;
+#pragma unroll
+          for (int j = 0; j < KS; ++j) acc[i][j][2 * h] *= alpha, acc[i][j][2 * h + 1] *= alpha;
+        }
+#pragma unroll
+      for (int s = 0; s < CH; ++s) {
+        if (s0 + s >= steps) break;
+        uint4 vb[KS];
+#pragma unroll
+        for (int j = 0; j < KS; ++j) vb[j] = vf_s[((s0 + s) * KS + j) * 32 + lane];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          float p[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) p[r] = __expf(sc[i][s][r] - mx[i][r >> 1]);
+          den[i][0] += p[0] + p[1];
+          den[i][1] += p[2] + p[3];
+          FragA pa;   // the accumulator as an A fragment: columns 2t, 2t+1 as k = t, t+4
+          split_a(pa, p[0], p[2], p[1], p[3]);
+#pragma unroll
+          for (int j = 0; j < KS; ++j) {
+            float o[4] = {};
+            mma3<false, EV>(o, pa, vb[j]);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] += o[r];
+          }
+        }
+      }
+    }
+    // fold the tile's sums into the totals (mx >= out.mx)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float alpha = __expf(out.mx[i][h] - mx[i][h]);
+        tden[i][h] = fmaf(tden[i][h], alpha, den[i][h]);
+        den[i][h] = 0.f;
+#pragma unroll
+        for (int j = 0; j < KS; ++j)
+#pragma unroll
+          for (int c = 2 * h; c < 2 * h + 2; ++c) {
+            out.num[i][j][c] = fmaf(out.num[i][j][c], alpha, acc[i][j][c]);
+            acc[i][j][c] = 0.f;
+          }
+        out.mx[i][h] = mx[i][h];
+      }
   }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) out.den[i][h] = quad_sum(tden[i][h]);
+}
+
+// Encode. Grid (ceil(M / rows_a_block), B*H, splits); warp = 16 * MT latent
+// rows of group g = b*H + h over tokens [split*split_len,
+// min(N, (split+1)*split_len)). D is the MMA width, Dr the head dim in
+// device memory (D itself where EXACT, else d_run).
+// splits == 1: writes z[g, m, :] = num * (1 / den) (and mx, den when
+// given); `raw` writes num itself, against mx, the flash statistics a rank
+// merges. splits > 1: writes the partial (max, den, num[Dr]) to
+// part[split, g, m, :].
+template <typename T, typename TZ, int D, bool EXACT>
+__global__ void __launch_bounds__(THREADS)
+encode_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 TZ* __restrict__ z, float* __restrict__ mx_out, float* __restrict__ den_out,
+                 float* __restrict__ part, int H, int M, int N, int d_run, Strides ks,
+                 Strides vs, int split_len, bool raw, bool async) {
+  constexpr int KS = D / 8, MT = row_tiles<D>();
+  const int Dr = EXACT ? D : d_run;
+  const int g = blockIdx.y, b = g / H, h = g % H;
+  const int lane = threadIdx.x & 31, gi = lane >> 2, ti = lane & 3;
+  const int m0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * 16 * MT;
+  const int n0 = blockIdx.z * split_len, n1 = min(N, n0 + split_len);
+  Rows<D> st;
+  sweep<T, T, D>(st, q + (long long)h * M * Dr, Dr, m0, M, k + b * ks.b + h * ks.h, ks.n,
+                 v + b * vs.b + h * vs.h, vs.n, n0, n1, Dr, async);
+  const long long rows = (long long)gridDim.y * M;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + 16 * i + gi + 8 * hh;
+      if (m >= M) continue;
+      const long long row = (long long)g * M + m;
+      const float inv = raw ? 1.f : 1.f / st.den[i][hh];
+      float* p = part == nullptr ? nullptr
+                                 : part + ((long long)blockIdx.z * rows + row) * (Dr + 2);
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int d = 8 * j + 2 * ti + c;
+          if (d >= Dr) continue;
+          const float x = st.num[i][j][2 * hh + c];
+          if (p == nullptr) z[row * Dr + d] = from_f<TZ>(x * inv);
+          else p[2 + d] = x;
+        }
+      if (ti != 0) continue;
+      if (p != nullptr) {
+        p[0] = st.mx[i][hh];
+        p[1] = st.den[i][hh];
+      } else if (mx_out != nullptr) {
+        mx_out[row] = st.mx[i][hh];
+        den_out[row] = st.den[i][hh];
+      }
+    }
 }
 
 // Merge the N-split partials of the encode: one thread per (g, m) row; `raw`
@@ -225,45 +360,50 @@ __global__ void combine_kernel(const float* __restrict__ part, TZ* __restrict__ 
   }
 }
 
-// Decode. Grid (ceil(N / DEC_THREADS), B*H); thread = token n of group g:
-// y[b, h, n, :] = softmax_m(k_n . q_m) z[g, m, :], online over latent tiles
-// of the head's Q and the group's Z staged in shared memory.
+// Decode. Grid (ceil(N / rows_a_block), B*H); warp = 16 * MT tokens of
+// group g: y[b, h, n, :] = softmax_m(k_n . q_m) z[g, m, :], online over the
+// head's q and the group's Z streamed as the columns.
 template <typename T, typename TZ, int D, bool EXACT>
-__global__ void __launch_bounds__(DEC_THREADS)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const TZ* __restrict__ z,
-              T* __restrict__ y, float* __restrict__ lse_out, int H, int M, int N, int d_run,
-              Strides ks, Strides ys) {
-  constexpr int TM = TILE_FLOATS / D;
+__global__ void __launch_bounds__(THREADS)
+decode_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const TZ* __restrict__ z,
+                 T* __restrict__ y, float* __restrict__ lse_out, int H, int M, int N, int d_run,
+                 Strides ks, Strides ys, bool async) {
+  constexpr int KS = D / 8, MT = row_tiles<D>();
   const int Dr = EXACT ? D : d_run;
-  __shared__ float q_s[TILE_FLOATS];
-  __shared__ float z_s[TILE_FLOATS];
   const int g = blockIdx.y, b = g / H, h = g % H;
-  const int n = blockIdx.x * DEC_THREADS + threadIdx.x;
-  const T* qh = q + (long long)h * M * Dr;
-  const TZ* zg = z + (long long)g * M * Dr;
+  const int lane = threadIdx.x & 31, gi = lane >> 2, ti = lane & 3;
+  const int n0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * 16 * MT;
+  Rows<D> st;
+  sweep<T, TZ, D>(st, k + b * ks.b + h * ks.h, ks.n, n0, N, q + (long long)h * M * Dr, Dr,
+                  z + (long long)g * M * Dr, Dr, 0, M, Dr, async);
+  T* yg = y + b * ys.b + h * ys.h;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n = n0 + 16 * i + gi + 8 * hh;
+      if (n >= N) continue;
+      const float inv = 1.f / st.den[i][hh];
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int d = 8 * j + 2 * ti + c;
+          if (d < Dr) yg[(long long)n * ys.n + d] = from_f<T>(st.num[i][j][2 * hh + c] * inv);
+        }
+      if (lse_out != nullptr && ti == 0)
+        lse_out[(long long)g * N + n] = st.mx[i][hh] + logf(st.den[i][hh]);
+    }
+}
 
-  float x[D];
-  const T* kn = k + b * ks.b + h * ks.h + (long long)n * ks.n;
-#pragma unroll
-  for (int d = 0; d < D; ++d) x[d] = (n < N && d < Dr) ? to_f(kn[d]) : 0.f;
-  Online<D> st;
-  for (int m0 = 0; m0 < M; m0 += TM) {
-    const int tm = min(TM, M - m0);
-    __syncthreads();
-    stage<T, D>(q_s, qh, Dr, m0, tm, TM, Dr);
-    stage<TZ, D>(z_s, zg, Dr, m0, tm, TM, Dr);
-    __syncthreads();
-    for (int c0 = 0; c0 < tm; c0 += CH)
-      st.chunk(x, q_s + c0 * D, z_s + c0 * D, min(CH, tm - c0));
-    st.fold();
-  }
-  if (n >= N) return;
-  const float inv = 1.f / st.tot_den;
-  T* yn = y + b * ys.b + h * ys.h + (long long)n * ys.n;
-#pragma unroll
-  for (int d = 0; d < D; ++d)
-    if (d < Dr) yn[d] = from_f<T>(st.tot[d] * inv);
-  if (lse_out != nullptr) lse_out[(long long)g * N + n] = st.tot_mx + logf(st.tot_den);
+// Whether rows of Dr elements of T at these element strides from this base
+// are whole 16-byte units at 16-byte aligned addresses (sweep's `async`).
+template <typename T>
+bool units16(const void* base, int Dr, std::initializer_list<long long> strides) {
+  constexpr long long E = 16 / sizeof(T);
+  bool ok = reinterpret_cast<uintptr_t>(base) % 16 == 0 && Dr % E == 0;
+  for (long long st : strides) ok = ok && st % E == 0;
+  return ok;
 }
 
 template <typename T, typename TZ, int D, bool EXACT>
@@ -271,10 +411,11 @@ cudaError_t encode_launch(const void* q, const void* k, const void* v, void* z, 
                           float* den, float* part, int B, int H, int M, int N, int Dr,
                           Strides ks, Strides vs, int splits, bool raw, cudaStream_t stream) {
   const int split_len = cdiv(N, splits);
-  dim3 grid(cdiv(M, ENC_THREADS), B * H, splits);
-  encode_kernel<T, TZ, D, EXACT><<<grid, ENC_THREADS, 0, stream>>>(
+  dim3 grid(cdiv(M, rows_a_block<D>()), B * H, splits);
+  const bool async = units16<T>(k, Dr, {ks.b, ks.h, ks.n}) && units16<T>(v, Dr, {vs.b, vs.h, vs.n});
+  encode_tc_kernel<T, TZ, D, EXACT><<<grid, THREADS, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (TZ*)z, mx, den, splits > 1 ? part : nullptr,
-      H, M, N, Dr, ks, vs, split_len, raw);
+      H, M, N, Dr, ks, vs, split_len, raw, async);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long rows = (long long)B * H * M;
@@ -287,18 +428,20 @@ template <typename T, typename TZ, int D, bool EXACT>
 cudaError_t decode_launch(const void* q, const void* k, const void* z, void* y, float* lse,
                           int B, int H, int M, int N, int Dr, Strides ks, Strides ys,
                           cudaStream_t stream) {
-  dim3 grid(cdiv(N, DEC_THREADS), B * H);
-  decode_kernel<T, TZ, D, EXACT><<<grid, DEC_THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const TZ*)z, (T*)y, lse, H, M, N, Dr, ks, ys);
+  dim3 grid(cdiv(N, rows_a_block<D>()), B * H);
+  const long long head = (long long)M * Dr;   // q and z: heads and groups contiguous
+  const bool async = units16<T>(q, Dr, {head}) && units16<TZ>(z, Dr, {head});
+  decode_tc_kernel<T, TZ, D, EXACT><<<grid, THREADS, 0, stream>>>(
+      (const T*)q, (const T*)k, (const TZ*)z, (T*)y, lse, H, M, N, Dr, ks, ys, async);
   return cudaGetLastError();
 }
 
-// Any D from 1 to 64, at its padded width (flare_common.cuh).
+// Any D from 1 to 64, at its MMA width (flare_mma.cuh).
 template <typename T, typename TZ>
 cudaError_t encode_d(int D, const void* q, const void* k, const void* v, void* z, float* mx,
                      float* den, float* part, int B, int H, int M, int N, Strides ks,
                      Strides vs, int splits, bool raw, cudaStream_t s) {
-  return at_width(D, [&](auto w, auto exact) {
+  return at_mma_width(D, [&](auto w, auto exact) {
     return encode_launch<T, TZ, decltype(w)::value, decltype(exact)::value>(
         q, k, v, z, mx, den, part, B, H, M, N, D, ks, vs, splits, raw, s);
   });
@@ -307,7 +450,7 @@ cudaError_t encode_d(int D, const void* q, const void* k, const void* v, void* z
 template <typename T, typename TZ>
 cudaError_t decode_d(int D, const void* q, const void* k, const void* z, void* y, float* lse,
                      int B, int H, int M, int N, Strides ks, Strides ys, cudaStream_t s) {
-  return at_width(D, [&](auto w, auto exact) {
+  return at_mma_width(D, [&](auto w, auto exact) {
     return decode_launch<T, TZ, decltype(w)::value, decltype(exact)::value>(
         q, k, z, y, lse, B, H, M, N, D, ks, ys, s);
   });
@@ -317,12 +460,14 @@ cudaError_t decode_d(int D, const void* q, const void* k, const void* z, void* y
 
 extern "C" {
 
-// N-split of the encode for `sms` multiprocessors: enough blocks for about
-// one wave of resident threads (taken as 1024 per SM), each split keeping
-// at least 1024 tokens. The caller sizes the partials' scratch from it.
+// N-split of the encode (and of the backward's per-latent passes, which
+// have its geometry: 256 latent rows a block of 128 threads at D = 8) for
+// `sms` multiprocessors: enough blocks for WAVE_BLOCKS a multiprocessor,
+// each split keeping at least 1024 tokens. The caller sizes the partials'
+// scratch from it.
 int flare_encode_splits(int groups, int M, int N, int sms) {
-  const long long blocks = (long long)groups * cdiv(M, ENC_THREADS);
-  const long long wave = (long long)sms * 1024 / ENC_THREADS;
+  const long long blocks = (long long)groups * cdiv(M, rows_a_block<8>());
+  const long long wave = (long long)sms * WAVE_BLOCKS;
   const long long splits = wave / blocks < N / 1024 ? wave / blocks : N / 1024;
   return splits > 1 ? (int)splits : 1;
 }

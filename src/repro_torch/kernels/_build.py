@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flare.cu", "flare_bwd.cu", "flare_causal.cu", "paged_attention.cu",
            "flash_attention.cu", "flash_attention_sm90.cu")
-HEADERS = ("flare_common.cuh",)
+HEADERS = ("flare_common.cuh", "flare_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")   # optimize the kernel instances on all cores

@@ -7,11 +7,11 @@ Counterparts of ``repro/kernels/flare.py``:
 * :func:`flare_decode` replaces ``_decode_kernel`` / ``flare_decode_pallas``:
   Y = softmax over latents of (k q^T), applied to Z.
 
-The kernels are in ``csrc/flare.cu``, whose head comment says what bounds
-them on an H100 and what their design does about it; their tiles are fixed
-there. Each wrapper takes q ``[H, M, D]`` with k/v ``[B, H, N, D]`` in any
-strides with a unit D stride (the model's split-head views go in without a
-copy). On a CPU tensor it runs the plain version in ``kernels/ref.py``; on a
+The kernels are in ``csrc/flare.cu`` (TF32 tensor cores, each fp32 operand
+split in two parts), whose head comment says what bounds them on an H100 and
+what their design does about it; their tiles are fixed there. Each
+wrapper takes q ``[H, M, D]`` with k/v ``[B, H, N, D]`` in any strides with
+a unit D stride (the model's split-head views go in without a copy). On a CPU tensor it runs the plain version in ``kernels/ref.py``; on a
 CUDA tensor it launches the kernel or raises. Each counts its launches in
 ``<wrapper>.launches``. These wrappers are forward-only: a call that
 autograd would record raises. Autograd runs through the fused kernels'
@@ -29,7 +29,7 @@ from repro_torch.kernels.ref import flare_decode_ref, flare_encode_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims csrc/flare.cu and csrc/flare_bwd.cu take: any D from 1 to 64,
-# run at the padded width 4, 8, 16, 32 or 64 above it (flare_common.cuh)
+# run at the MMA width 8, 16, 32 or 64 above it (flare_mma.cuh::at_mma_width)
 HEAD_DIMS = range(1, 65)
 MAX_GROUPS = 65535   # B*H rides on gridDim.y
 

@@ -7,10 +7,12 @@ Counterpart of ``repro/kernels/flare_causal.py``:
 ``Model.forward``.
 
 The kernel is in ``csrc/flare_causal.cu``, whose head comment says what
-bounds it on an H100 and what its design does about it. Its token tile
-(``TILE``) is its own constant: the result depends on the tile only through
-rounding and the bounded-score contract of ``core/flare_stream.py``, so the
-plan carries no tile (the TPU kernel takes the plan's ``chunk_size``). The wrapper
+bounds it on an H100 and what its design does about it: bf16 runs
+``causal_tc_kernel`` on the tensor cores, fp32 ``causal_kernel`` on the CUDA
+cores. Its token tile (``TILE``, both routes) is its own constant: the
+result depends on the tile only through rounding and the bounded-score
+contract of ``core/flare_stream.py``, so the plan carries no tile (the TPU
+kernel takes the plan's ``chunk_size``). The wrapper
 takes q ``[H, M, D]`` with k/v ``[B, H, T, D]`` in any strides with a unit D
 stride, T any length (nothing is padded), and returns y as a ``[B, H, T, D]``
 view of ``[B, T, H, D]`` memory, so merging heads is free. On a CPU tensor it
@@ -36,7 +38,7 @@ from repro_torch.kernels.flare import (
 from repro_torch.kernels.ref import flare_causal_chunk_ref
 
 TILE = 64                            # tokens per tile of csrc/flare_causal.cu
-HEAD_DIMS = range(1, 129)   # D it takes (at padded widths 8 / 16 / 32 / 64 / 128)
+HEAD_DIMS = range(1, 129)   # D it takes (padded: fp32 8 / 16 / 32 / 64 / 128, bf16 32 up)
 
 
 def flare_causal_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

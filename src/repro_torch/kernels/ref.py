@@ -153,6 +153,16 @@ def tf32_split(x: torch.Tensor):
     return hi, tf32(x.to(torch.float32) - hi)
 
 
+def bf16_split(x: torch.Tensor):
+    """x as (hi, lo): hi = bf16(x), lo = bf16(x - hi), both rounded to
+    nearest even as ``__float2bfloat16_rn`` rounds, returned as fp32 tensors
+    holding bf16 values: the two parts the causal kernel's bf16 tensor-core
+    products take; hi + lo is within about 2**-17 |x| of x."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
 def flare_fused_bwd_ref(q, k, v, z, mx, den, lse, y, dy, *, chunk=None):
     """The backward of the fused forward from its residuals (the math of
     ``_fused_bwd_kernel``): q [H, M, D]; k, v, y, dy [B, H, N, D]; z, mx,
@@ -181,6 +191,55 @@ def flare_causal_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t0 in range(0, t, tile):
         state, y = stream_chunk_factored(state, q, k[:, :, t0:t0 + tile], v[:, :, t0:t0 + tile])
         ys.append(y)
+    return torch.cat(ys, dim=2)
+
+
+def flare_causal_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           tile: int = 64, parts: int = 2) -> torch.Tensor:
+    """Causal FLARE with the products of the causal kernel's bf16 route
+    (``csrc/flare_causal.cu::causal_tc_kernel``) emulated: f1, f2, the
+    intra-tile mixing a and the carried numerator enter each product as
+    bf16 parts (``parts=2``: hi + lo, the kernel's choice; ``parts=1``: hi
+    alone, one rounding), a product of two such operands drops lo.lo; the
+    products are exact (fp64), the weights and sums fp32. q [H, M, D],
+    k/v [B, H, T, D] holding bf16 values -> y [B, H, T, D] fp32. Over all M
+    at once: the kernel's 64-latent slices and their merge change only the
+    order of fp32 sums."""
+    def part(x):
+        hi, lo = bf16_split(x)
+        return hi.double(), (lo if parts == 2 else torch.zeros_like(lo)).double()
+
+    def mm(eq, a, b, *, b_exact=False):
+        ah, al = part(a)
+        if b_exact:
+            bd = b.double()
+            return (torch.einsum(eq, al, bd) + torch.einsum(eq, ah, bd)).float()
+        bh, bl = part(b)
+        return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+                + torch.einsum(eq, ah, bh)).float()
+
+    b, h, t, d = k.shape
+    m = q.shape[1]
+    mx = torch.full((b, h, m), -torch.inf, device=k.device)
+    den = torch.zeros((b, h, m), device=k.device)
+    num = torch.zeros((b, h, m, d), device=k.device)
+    ys = []
+    for t0 in range(0, t, tile):
+        kt, vt = k[:, :, t0:t0 + tile], v[:, :, t0:t0 + tile].float()
+        s = torch.einsum("hmd,bhtd->bhmt", q.double(), kt.double()).float()
+        ref = torch.maximum(mx, s.amax(dim=-1))
+        scale = torch.exp(mx - ref)
+        f1 = torch.exp(s - ref[..., None])
+        cden = den[..., None] * scale[..., None] + f1.cumsum(dim=-1)
+        w = torch.exp(s - s.amax(dim=-2, keepdim=True))      # decode weights, over M
+        f2 = w / cden.clamp_min(1e-30)
+        carry = num * scale[..., None]
+        y = mm("bhmt,bhmd->bhtd", f2, carry)
+        a = mm("bhmt,bhmu->bhtu", f2, f1).tril_()
+        y = y + mm("bhtu,bhud->bhtd", a, vt, b_exact=True)
+        num = carry + mm("bhmt,bhtd->bhmd", f1, vt, b_exact=True)
+        den, mx = cden[..., -1], ref
+        ys.append(y / w.sum(dim=-2)[..., None])
     return torch.cat(ys, dim=2)
 
 

@@ -9,9 +9,14 @@ Tolerances: fp32 atol 1e-4 (sums in another order over up to 40,000 terms),
 bf16 2e-2; against the plain version in fp64, 1e-5 of the output's largest
 magnitude. The fused backward is held against its plain version in fp64 at
 1e-5 of each gradient's largest magnitude in fp32 (its kernels sit near
-1e-6 there), and at 2e-2 in bf16. The causal kernel is held against its
-plain version in fp64 at 1e-5 of max |y| in fp32, and against the plain
-version on the same bf16 inputs at 2e-2 in bf16. The paged-attention kernel
+1e-6 there), and at 2e-2 in bf16. The tensor-core forward (encode,
+decode, fused, the raw statistics) is held in fp32 against fp64 at 1e-5 of
+max |out|, a limit shown to reject one of its own tiles left out. The
+causal kernel is held against its plain version in fp64 at 1e-5 of max |y|
+in fp32, and against the plain version on the same bf16 inputs at 2e-2 in
+bf16; its tensor-core route also beyond bf16's output rounding against
+fp64, max(|y - want| - 2^-8 |want|) within 1e-5 of max |want|, a limit that
+rejects a lost state tile, with equal bits on two calls. The paged-attention kernel
 is held against its plain version in fp64 at 1e-5 of max |o| where it
 computes in fp32 (fp32 queries, any pages), and at 1e-2 where it rounds the
 weights to bf16 (bf16 queries over bf16 pages); the smoke qwen2's engine
@@ -67,6 +72,10 @@ def cuda():
     return torch.device("cuda")
 
 
+def _max_rel(got, want) -> float:
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
 def _inputs(shape, dtype, device, seed=0):
     b, h, m, n, d = shape
     g = torch.Generator().manual_seed(seed)
@@ -119,6 +128,52 @@ def test_model_operands_stay_near_fp64(cuda):
     for got, want in ((flare_encode(q, k, v), z64), (z, z64), (y, y64),
                       (flare_decode(q, k, z), ref.flare_decode_ref(q64, k64, z[:, :2].double()))):
         assert (got[:, :2].double() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _fwd_tile(d: int) -> int:
+    """Columns a staged tile of the forward kernels (csrc/flare.cu): 256 at
+    the MMA width 8, halved at each wider one."""
+    width = max(8, 1 << (d - 1).bit_length())
+    return 256 * 8 // width
+
+
+# the tensor-core forward: D 1, 3, 4 (at width 8), the paper's 8 (its own
+# instance), 16, 24 (at 32), 64; ragged N and M; the N-split at pde_1m's
+# geometry (B*H = 8, M = 2048: eight splits)
+FWD_TC_SHAPES = [(2, 3, 24, 300, 1), (2, 3, 40, 700, 3), (1, 2, 70, 1000, 4),
+                 (2, 4, 300, 1500, 8), (1, 2, 96, 1100, 16), (1, 2, 33, 700, 24),
+                 (1, 2, 96, 1500, 64), (1, 8, 2048, 65536, 8)]
+
+
+@pytest.mark.parametrize("shape", FWD_TC_SHAPES)
+def test_forward_tensor_cores_near_fp64(cuda, shape):
+    """fp32: the encode, the decode (of the kernel's own z) and the fused
+    forward's y against the plain version in fp64 at 1e-5 of max |.|, each
+    limit rejecting the fp64 plain version with the kernel's first token
+    tile (encode) or latent tile (decode) left out; the raw statistics of
+    flare_enc_stats against their fp64 plain version; bf16 against the
+    plain version on the same operands."""
+    q, k, v = _inputs(shape, torch.float32, cuda)
+    _, _, m, n, d = shape
+    tn, tm = min(_fwd_tile(d), n // 2), min(_fwd_tile(d), m // 2)   # no more than a tile
+    wide = [t.double() for t in (q, k, v)]
+    z64 = ref.flare_encode_ref(*wide)
+    z = flare_encode(q, k, v)
+    lost = ref.flare_encode_ref(wide[0], wide[1][:, :, tn:], wide[2][:, :, tn:])
+    assert _max_rel(z, z64) <= 1e-5 < _max_rel(lost, z64)
+    y64 = ref.flare_decode_ref(wide[0], wide[1], z.double())
+    lost = ref.flare_decode_ref(wide[0][:, tm:], wide[1], z.double()[:, :, tm:])
+    assert _max_rel(flare_decode(q, k, z), y64) <= 1e-5 < _max_rel(lost, y64)
+    y, zf, mx, den, lse = flare_fused_fwd(q, k, v)
+    for got, want in zip((y, zf, mx, den, lse), ref.flare_fused_fwd_ref(*wide)):
+        assert _max_rel(got, want) <= 1e-5
+    for got, want in zip(flare_enc_stats(q, k, v), ref.flare_enc_stats_ref(*wide)):
+        assert got.dtype == torch.float32 and _max_rel(got, want) <= 1e-5
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    zb = flare_encode(qb, kb, vb)
+    torch.testing.assert_close(zb, ref.flare_encode_ref(qb, kb, vb), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(flare_decode(qb, kb, zb), ref.flare_decode_ref(qb, kb, zb),
+                               atol=2e-2, rtol=2e-2)
 
 
 def test_contiguous_operands_and_fp32_z(cuda):
@@ -243,6 +298,40 @@ def test_causal_kernel_matches_plain(cuda, shape, dtype):
         assert (y.double() - want).abs().max() <= 1e-5 * want.abs().max()
     else:
         torch.testing.assert_close(y, ref.flare_causal_chunk_ref(q, k, v), atol=2e-2, rtol=2e-2)
+
+
+def _beyond_rounding(got, want) -> float:
+    """max(|got - want| - 2^-8 |want|) / max |want|: the error of a bf16
+    output beyond its own rounding."""
+    return (((got.double() - want).abs() - 2.0 ** -8 * want.abs()).max()
+            / want.abs().max()).item()
+
+
+# the tensor-core route at D 8 (width 32), 64, 96 (width 128) and 128; ragged
+# T and ragged latent slices
+CAUSAL_TC_SHAPES = [(2, 2, 70, 300, 8), (1, 3, 100, 1000, 64), (1, 2, 64, 777, 96),
+                    (1, 2, 512, 2050, 128), (2, 1, 130, 4099, 128)]
+
+
+@pytest.mark.parametrize("shape", CAUSAL_TC_SHAPES)
+def test_causal_tensor_cores_beyond_bf16_rounding(cuda, shape):
+    """bf16 through the tensor-core kernel against the plain version in fp64
+    on the same bf16 values: within 1e-5 of max |y| beyond the output's
+    rounding, a limit that rejects the fp64 plain version with the 64-token
+    tile at T/2 left out of the carried state (rounded to bf16); two calls
+    give equal bits."""
+    q, k, v = _inputs(shape, torch.bfloat16, cuda)
+    wide = [t.double() for t in (q, k, v)]
+    want = ref.flare_causal_chunk_ref(*wide, tile=256)
+    y = flare_causal_chunk(q, k, v)
+    assert y.dtype == torch.bfloat16 and _beyond_rounding(y, want) <= 1e-5
+    assert torch.equal(y, flare_causal_chunk(q, k, v))
+    t0 = shape[3] // 2 // 64 * 64
+    kept = [torch.cat([t[:, :, :t0], t[:, :, t0 + 64:]], 2) for t in wide[1:]]
+    rest = ref.flare_causal_chunk_ref(wide[0], *kept, tile=256)
+    lost = want.clone()
+    lost[:, :, t0 + 64:] = rest[:, :, t0:]
+    assert _beyond_rounding(lost.bfloat16(), want) > 1e-5
 
 
 def test_causal_kernel_raises_instead_of_falling_back(cuda):
@@ -494,10 +583,6 @@ def test_qwen2_prefill_pallas_matches_chunked(cuda):
 # the sharded mixer's four entry points (kernels/flare_packed_shard.py):
 # ragged N, the N-split at 70,000 tokens, a widened D
 SHARD_SHAPES = [(2, 4, 16, 97, 8), (1, 2, 300, 70000, 8), (2, 3, 24, 301, 12)]
-
-
-def _max_rel(got, want) -> float:
-    return ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
 
 
 @pytest.mark.parametrize("dtype", list(TOL), ids=str)

@@ -203,6 +203,68 @@ def test_tf32_three_way_split_meets_the_fp32_limit_one_rounding_does_not():
     assert min(errs[False]) > 1e-5, errs
 
 
+def _fwd_on_tensor_cores(q, k, v, split: bool):
+    """One (b, h) group's forward as csrc/flare.cu forms it: the scores and
+    the weighted sums P v and W Z through _mm_tf32, the weights and their
+    sums in fp32: q [M, D]; k, v [N, D] -> (z [M, D], y [N, D])."""
+    s = _mm_tf32(q, k.T, split)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    z = _mm_tf32(p, v, split) / p.sum(-1, keepdim=True)
+    st = _mm_tf32(k, q.T, split)
+    w = torch.exp(st - st.amax(-1, keepdim=True))
+    return z, _mm_tf32(w, z, split) / w.sum(-1, keepdim=True)
+
+
+def test_forward_tf32_three_way_split_meets_the_fp32_limit_one_rounding_does_not():
+    """The numeric choice of the forward kernels (csrc/flare.cu): at D=8,
+    M=256, N=4,096, the encode's P v and the decode's W Z (and the scores)
+    on TF32 operands split three ways stay within 1e-5 of max |.| of the
+    fp64 encode and of the fp64 decode of the same Z (chip_smoke.py's
+    RTOL); on singly rounded operands they do not."""
+    rng = np.random.default_rng(19)
+    m, n, d = 256, 4096, 8
+    q = torch.from_numpy(rng.standard_normal((1, m, d)) / np.sqrt(d))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 1, n, d))) for _ in range(2))
+    z64 = ref.flare_encode_ref(q, k, v)[0, 0]
+    errs = {}
+    for split in (True, False):
+        z, y = _fwd_on_tensor_cores(q.float()[0], k.float()[0, 0], v.float()[0, 0], split)
+        y64 = ref.flare_decode_ref(q, k, z.double()[None, None])[0, 0]
+        errs[split] = [((got.double() - want).abs().max() / want.abs().max()).item()
+                       for got, want in ((z, z64), (y, y64))]
+    assert max(errs[True]) <= 1e-5, errs
+    assert min(errs[False]) > 1e-5, errs
+
+
+def test_causal_bf16_two_part_split_meets_the_limit_one_rounding_does_not():
+    """The numeric choice of the causal kernel's bf16 route (csrc/flare_causal.cu,
+    causal_tc_kernel): on bf16-valued operands (B=1, H=2, M=64, T=512,
+    D=16), f1, f2, the intra-tile mixing and the carried numerator in two
+    bf16 parts give a bf16 output within 1e-5 of max |y| of the fp64 plain
+    version beyond bf16's output rounding (chip_smoke.py's hold_rounded:
+    max(|y - want| - 2^-8 |want|)); rounded once to bf16 they do not. The
+    scores are scaled up (|s| to ~10), as a trained model's are."""
+    rng = np.random.default_rng(13)
+    h, m, t, d = 2, 64, 512, 16
+    q = torch.from_numpy(3 * rng.standard_normal((h, m, d)) / np.sqrt(d)).bfloat16().double()
+    k, v = (torch.from_numpy(rng.standard_normal((1, h, t, d))).bfloat16().double()
+            for _ in range(2))
+    want = ref.flare_causal_chunk_ref(q, k, v, tile=256)
+    scale = want.abs().max()
+
+    def beyond_rounding(y):
+        return (((y.bfloat16().double() - want).abs() - 2.0 ** -8 * want.abs()).max()
+                / scale).item()
+
+    errs = {parts: beyond_rounding(ref.flare_causal_split_ref(q.float(), k.float(), v.float(),
+                                                              parts=parts))
+            for parts in (2, 1)}
+    assert [x.item() for x in ref.bf16_split(torch.tensor([1 + 2 ** -9 + 2 ** -20]))] == [
+        1.0, 2 ** -9]   # hi to nearest, lo the rest to nearest
+    assert errs[2] <= 1e-5, errs
+    assert errs[1] > 1e-5, errs
+
+
 def test_plain_mixer_matches_jax_reference():
     q, k, v = _inputs(2, 4, 16, 97, 8)
     want = jref.flare_mixer_ref(*(jnp.asarray(x) for x in (np.tile(q, (2, 1, 1)),
