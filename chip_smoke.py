@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: the FLARE PDE
 surrogate's inference and training, the causal FLARE LM's serving,
-Qwen2-1.5B and Phi-3-mini served from the paged KV pool, and the dense
+Qwen2-1.5B and Phi-3-mini served from the paged KV pool, the dense
 family's prefill (Qwen2-1.5B, Phi-3-mini) through the flash-attention
-kernels (bf16 on the tensor cores, fp32 on the CUDA cores).
+kernels (bf16 on the tensor cores, fp32 on the CUDA cores), and training
+flare_lm and Qwen2-1.5B at full size.
 
     python3 chip_smoke.py
 
@@ -131,6 +132,31 @@ failure so the script exits non-zero:
    kernel path) on the request's prompt and the tokens generated so far,
    within 1e-3 of max |logit|, with the same greedy tokens; the bf16 run's
    difference is printed;
+11b. ``train flare-lm``: ``Trainer.fit`` of ``get_model(flare_lm)`` at full
+   width and depth (2,609,498,112 parameters drawn anew from seed 0) on
+   ``TokenStream`` batches at train_4k's T=4,096, its global batch of 256
+   cut to 4, 4 microbatches of 1 (``cfg.microbatch``), 4 steps, bf16
+   compute, fp32 parameters, remat "full", train plan
+   ``causal_stream(chunk_size=1024)``. Checks, each raising: (1) step 0's
+   first microbatch's logits on the training route (``lm_forward`` as
+   ``Model.loss`` runs it, without autograd) against those of
+   ``Model.forward`` under ``causal_pallas`` (the causal kernel, asserted
+   from the profiler's names) within 5e-2 of max |logit|, the training
+   route with the last 1,024 tokens' mixer output dropped in every layer
+   rejected; (2) layer 0's mixer gradients dq, dk, dv on the model's own
+   operands at T=4,096 through the train plan, bf16 and fp32, against fp64
+   autograd through the same function (2e-2 and 1e-4 of max |g|), the fp64
+   gradients with the last 1,024-token chunk left out of the loss rejected;
+   (3) remat "full" against "none" on 2 layers at full width, B=1, T=4,096:
+   the same loss and gradients (1e-6 relative; equal expected); (4) finite
+   losses and grad norms at every step, no kernel launched in the fit (a
+   counted window) while the plain mixer ran twice a layer and microbatch
+   (forward and recomputation), and the final checkpoint read back through
+   ``CheckpointManager`` in the JAX LM's stacked layout (``layers/...``,
+   leading dim 24), every parameter equal. Prints ms per step (median of
+   steps 2-4), tokens/s, model FLOP/s over the bf16 peak (6 x params x
+   tokens, the recomputation left out), peak GiB, a profiler breakdown of
+   the fit's step 4 and the phase's seconds by part;
 12. ``serve qwen2-1.5b``: ``get_model(qwen2_1_5b)`` at full width and depth
    (28 layers, 1.54B parameters) from seed 0, bf16 compute. The paged
    kernel on layer 0's fp32 query and the pool's bf16 pages after the first
@@ -175,6 +201,12 @@ failure so the script exits non-zero:
    launches on the fp32 route) against ``impl="xla"``, all logits within
    1e-3; 8 greedy decode steps after a pallas and an xla prefill in fp32
    (right-padded lengths 4,096 / 3,001): the same tokens;
+13b. ``train qwen2-1.5b``: as phase 11b for ``get_model(qwen2_1_5b)``
+   (1,543,910,912 parameters, leading dim 28), which trains on
+   ``attn_sdpa``'s ``chunked`` route (``"auto"`` at T=4,096); check (1)
+   against ``lm_forward(impl="pallas")`` (the tensor-core flash kernel),
+   check (2) on layer 0's rope'd q and unexpanded k, v through the chunked
+   route (its scores cast to fp32, as the function does);
 14. ``phi3-mini-3.8b`` at full width and depth (32 layers, 3.82B
    parameters; the seconds to draw them printed): the flash kernel at
    D=96 on layer 0's q, k, v for the prefill's tokens (B=2, H=32, T=4,096),
@@ -314,6 +346,26 @@ ROUTE_TOL = LM_TOL
 QUANT_ENVELOPE = dict(atol=0.15, rtol=0.05)
 # qwen2-1.5b's layers and parameters (the tied embedding padded to 152,064 rows)
 QWEN2_SIZE = (28, 1_543_910_912)
+# flare_lm's layers and parameters
+FLARE_LM_SIZE = (24, 2_609_498_112)
+# training the LMs: train_4k's length, its global batch of 256 cut to 4, 4 steps
+LM_TRAIN_T, LM_TRAIN_B, LM_TRAIN_STEPS = 4096, 4, 4
+# layer 0's mixer gradients through the training route against fp64 autograd
+# through the same function, over max |g|: bf16 rounds q, k, v and y to 8
+# bits (read at up to 7.6e-3 on qwen2's operands, 3.7e-3 on flare_lm's;
+# 2e-2); fp32 sums in another order (1e-4). The fp64 gradients with the
+# last chunk's tokens (flare_lm's 1,024-token chunk) left out of the loss
+# must fail the bf16 limit (read at 6.8e-2 on qwen2's dq, 2.7e-2 on its dk,
+# 0.41-0.51 on flare_lm's)
+GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LOST_CHUNK = 1024
+# step 0's first microbatch through the training route (lm_forward as
+# Model.loss runs it, without autograd) against the served forward kernels'
+# logits, over max |logit|: LM_TOL's bf16 limit; the training route with the
+# last LOST_CHUNK tokens' mixer output dropped in every layer must fail it
+# remat "full" against "none" at full width on this many layers: the same
+# kernels recomputed on the same inputs, so equal is expected
+REMAT_LAYERS, REMAT_TOL = 2, 1e-6
 # the flash kernel on random operands: head dims, (Sq, Skv) ragged and Sq > Skv
 # (128 over 64: with a window of 24, rows >= 87 see no key), and masks
 FLASH_D = (8, 16, 24, 32, 64, 96, 128)
@@ -847,20 +899,34 @@ def check_output(name: str, out, batch) -> float:
     return rel
 
 
-def breakdown(fn, label: str, top: int = 8):
-    """Device time of one (warm) call of ``fn`` by kernel name
-    (torch.profiler), the number of kernels it launched, and the device's
-    busy share of its wall time. Returns ({kernel name: device ms}, wall ms),
-    or None where the profiler recorded no device time."""
+def traced(fn):
+    """One call of ``fn`` under torch.profiler, recording the device's
+    activity alone (tracing host ops too stretches the wall of a call of
+    ~10^5 kernels by a quarter and leaves the device times as they are).
+    Returns (fn's result, (the profile, wall ms))."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return out, (prof, wall_ms)
+
+
+def breakdown(fn, label: str, top: int = 8):
+    """Device time of one (warm) call of ``fn`` by kernel name, the number
+    of kernels it launched, and the device's busy share of its wall time
+    (see ``report``)."""
+    return report(*traced(fn)[1], label, top)
+
+
+def report(prof, wall_ms: float, label: str, top: int = 8):
+    """Print a profile's device time by kernel name, its kernel count and
+    the device's busy share of ``wall_ms``. Returns ({kernel name: device
+    ms}, wall ms), or None where the profiler recorded no device time."""
     rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_time_total > 0 and e.device_type.name == "CUDA"]
     total = sum(ms for _, ms, _ in rows)
@@ -1966,6 +2032,414 @@ def lm_phases(checks: Checks, device) -> dict:
     del net
     torch.cuda.empty_cache()
     return stats
+
+
+# --------------------------------------------------------------------------
+# Training the LMs (flare_lm, qwen2-1.5b) at full width and depth: Model.loss
+# -> autograd with per-layer activation checkpointing -> AdamW -> Trainer.fit
+# on TokenStream batches
+# --------------------------------------------------------------------------
+
+
+def count_calls(module, name: str):
+    """Replace ``module.name`` with a wrapper that counts its calls (the
+    plain mixer functions the training route runs, which no kernel counter
+    sees); returns the counter dict and an undo function."""
+    fn, calls = getattr(module, name), {"n": 0}
+
+    def counted(*args, **kw):
+        calls["n"] += 1
+        return fn(*args, **kw)
+
+    setattr(module, name, counted)
+    return calls, lambda: setattr(module, name, fn)
+
+
+def lm_cross_entropy(logits, labels):
+    """mean(logsumexp - gold) over fp32 logits [B, T, V] (a padded tail at
+    -inf), in fp64."""
+    logits = logits.double()
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logits.logsumexp(-1) - gold).mean().item()
+
+
+def served_logits(cfg, model, net, tokens):
+    """The logits [B, T, vocab] of ``tokens`` from the serving forward
+    kernels (flare_lm: Model.forward under causal_pallas, the causal kernel;
+    qwen2: lm_forward(impl="pallas"), the tensor-core flash kernel), the
+    kernel asserted from the profiler's names in that window."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    out = {}
+    if cfg.family == "flare_lm":
+        run = lambda: out.update(logits=model.forward(net, {"tokens": tokens})[0])
+        kernel = "causal_tc_kernel"
+    else:
+        def run():
+            with torch.no_grad():
+                out.update(logits=transformer.lm_forward(net, tokens, cfg, impl="pallas")[0])
+        kernel = "flash_tc_kernel"
+    label = f"train {cfg.name} served forward"
+    assert_route(breakdown(run, label, top=4), label, (kernel,))
+    return out["logits"][..., :cfg.vocab]
+
+
+def train_mixer(cfg):
+    """(module, name) of the plain mixer function the training route runs
+    in every layer: causal FLARE's chunked scan (flare_lm) or attn_sdpa's
+    chunked route (qwen2 at T > 2,048); each returns [B, H, T, D]."""
+    from repro_torch.core import flare_stream
+    from repro_torch.models import attention
+
+    return ((flare_stream, "flare_causal") if cfg.family == "flare_lm"
+            else (attention, "_chunked_attention"))
+
+
+def drop_last_tokens(module, name: str, n: int):
+    """Replace the mixer ``module.name`` with a wrapper that zeroes its
+    output's last ``n`` tokens (a lost chunk); returns the undo function."""
+    fn = getattr(module, name)
+
+    def dropped(*args, **kw):
+        out = fn(*args, **kw)
+        out[..., -n:, :] = 0
+        return out
+
+    setattr(module, name, dropped)
+    return lambda: setattr(module, name, fn)
+
+
+def check_train_logits(cfg, model, net, mb) -> tuple:
+    """Check 1: the training route's logits of ``mb`` (lm_forward as
+    Model.loss runs it, without autograd) against the served forward
+    kernels' on the same weights, within LM_TOL's bf16 limit of max |logit|;
+    the training route with the last LOST_CHUNK tokens' mixer output
+    dropped in every layer must fail that limit. Returns the cross-entropy
+    of the training route's and of the served logits (fp64)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    def train_route():
+        with torch.no_grad():
+            logits = transformer.lm_forward(net, mb["tokens"], cfg,
+                                            plan=model.plans.get("train"))[0]
+        return logits[..., :cfg.vocab]
+
+    served = served_logits(cfg, model, net, mb["tokens"])
+    scale = served.abs().max().item()
+    logits = train_route()
+    rel = max_err(logits, served) / scale
+    losses = lm_cross_entropy(logits, mb["labels"]), lm_cross_entropy(served, mb["labels"])
+    del logits
+    undo = drop_last_tokens(*train_mixer(cfg), LOST_CHUNK)
+    try:
+        lost = train_route()
+    finally:
+        undo()
+    rel_lost = max_err(lost, served) / scale
+    del served, lost
+    torch.cuda.empty_cache()
+    ok = math.isfinite(rel) and rel <= LM_TOL["bfloat16"]
+    print(f"train {cfg.name} step 0 microbatch 0 logits, training route vs served forward "
+          f"kernels: max|served| {scale:.4g}, rel {rel:.3g} (limit {LM_TOL['bfloat16']:g}); the "
+          f"last {LOST_CHUNK} tokens' mixer output dropped in every layer: rel {rel_lost:.3g}"
+          + ("" if ok else "  FAILED"), flush=True)
+    if not ok:
+        raise AssertionError(f"train {cfg.name}: the training route's logits differ from the "
+                             f"served forward's by rel {rel:.3g}")
+    if not rel_lost > LM_TOL["bfloat16"]:
+        raise AssertionError(f"train {cfg.name}: the logits limit would pass a lost chunk "
+                             f"(rel {rel_lost:.3g})")
+    return losses
+
+
+def mixer_fn(cfg, model):
+    """Layer 0's mixer as the training route runs it, on (q, k, v) as the
+    model gives them: causal FLARE under the train plan (flare_lm), or
+    attn_sdpa's chunked route over the expanded KV heads (qwen2)."""
+    from repro_torch.core.policy import run_plan
+    from repro_torch.models import attention
+
+    if cfg.family == "flare_lm":
+        return lambda q, k, v: run_plan(model.plans["train"], q, k, v)
+    groups = cfg.attn.num_heads // cfg.attn.num_kv_heads
+    return lambda q, k, v: attention.attn_sdpa(
+        q, attention._expand_kv(k, groups), attention._expand_kv(v, groups),
+        scale=cfg.attn.head_dim ** -0.5, causal=True, impl="chunked")
+
+
+def mixer_grads(fn, ops, dy, drop_last: int = 0):
+    """(dq, dk, dv) of sum(fn(q, k, v) * dy) by autograd, with the last
+    ``drop_last`` tokens left out of the sum."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in ops]
+    if drop_last:
+        dy = dy.clone()
+        dy[:, :, -drop_last:] = 0
+    (fn(*leaves).to(dy.dtype) * dy).sum().backward()
+    return [t.grad for t in leaves]
+
+
+def check_train_grads(cfg, model, net, tokens) -> None:
+    """Layer 0's mixer on the model's own operands at T=LM_TRAIN_T: dq, dk,
+    dv through the training route in bf16 and fp32, against fp64 autograd
+    through the same function on the same values (attn_sdpa casts its
+    scores to fp32, as the JAX package's does, whatever the operands'
+    type), within GRAD_TOL of max |g|; the fp64 gradients with the last
+    LOST_CHUNK tokens dropped from the loss must fail the bf16 limit."""
+    import torch
+
+    from repro_torch.config import replace
+
+    fn = mixer_fn(cfg, model)
+    failures, lost_rel = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg_d = replace(cfg, compute_dtype=str(dtype).removeprefix("torch."))
+        ops = (lm_operands(net, cfg_d, tokens, dtype) if cfg.family == "flare_lm"
+               else attention_operands(net, cfg_d, tokens))
+        gen = torch.Generator().manual_seed(SEED + 3)
+        dy = torch.randn(tokens.shape[0], cfg.attn.num_heads, tokens.shape[1],
+                         cfg.attn.head_dim, generator=gen, dtype=torch.float64).to(tokens.device)
+        got = mixer_grads(fn, ops, dy.to(torch.float32))
+        wide = [t.to(torch.float64) for t in ops]
+        want = mixer_grads(fn, wide, dy)
+        lost = mixer_grads(fn, wide, dy, drop_last=LOST_CHUNK)
+        key = str(dtype).removeprefix("torch.")
+        for name, g, w, x in zip(GRADS, got, want, lost):
+            scale = w.abs().max().item()
+            rel, rel_lost = max_err(g, w) / scale, max_err(x, w) / scale
+            ok = math.isfinite(rel) and rel <= GRAD_TOL[key]
+            print(f"  train {cfg.name} layer 0 {name} {key} vs fp64: max|g| {scale:.4g}, rel "
+                  f"{rel:.3g} (limit {GRAD_TOL[key]:g}); last {LOST_CHUNK} tokens dropped "
+                  f"from the fp64 loss: rel {rel_lost:.3g}" + ("" if ok else "  FAILED"),
+                  flush=True)
+            if not ok:
+                failures.append(f"{name} {key}: rel {rel:.3g}")
+            lost_rel[name, key] = rel_lost
+        del ops, got, want, lost, wide
+        torch.cuda.empty_cache()
+    # the check rejects a lost chunk where one of the three gradients moves
+    # past the bf16 limit (dq does: each query's own; dk and dv of the last
+    # tokens are sums over the few queries after them)
+    for key in ("bfloat16", "float32"):
+        if not max(lost_rel[name, key] for name in GRADS) > GRAD_TOL["bfloat16"]:
+            failures.append(f"{key} operands: the bf16 limit would pass a lost chunk ({lost_rel})")
+    if failures:
+        raise AssertionError(f"train {cfg.name} layer-0 gradients: " + "; ".join(failures))
+
+
+def check_remat(cfg, mb) -> None:
+    """remat="full" against "none" on REMAT_LAYERS layers at full width, on
+    one microbatch: the same loss and gradients (the recomputation runs the
+    same kernels on the same inputs; equal expected, REMAT_TOL relative)."""
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.models.api import get_model
+
+    cut = replace(cfg, num_layers=REMAT_LAYERS)
+    net, out = None, {}
+    for remat in ("full", "none"):
+        model = get_model(replace(cut, remat=remat))
+        net = model.init(SEED) if net is None else net
+        torch.cuda.reset_peak_memory_stats()
+        loss = model.loss(net, mb)
+        loss.backward()
+        out[remat] = (loss.item(), {k: p.grad for k, p in net.named_parameters()},
+                      torch.cuda.max_memory_allocated() / 2**30)
+        for p in net.parameters():
+            p.grad = None
+    (lf, gf, pf), (ln, gn, pn) = out["full"], out["none"]
+    loss_rel = abs(lf - ln) / abs(ln)
+    name, grad_rel = max(((k, max_err(gf[k], gn[k]) / max(gn[k].abs().max().item(), 1e-30))
+                          for k in gn), key=lambda kv: kv[1])
+    print(f"train {cfg.name} remat full vs none ({REMAT_LAYERS} layers, B=1, T={LM_TRAIN_T}): "
+          f"loss {lf:.9g} / {ln:.9g} (rel {loss_rel:.3g}), largest gradient difference "
+          f"rel {grad_rel:.3g} at {name} (limit {REMAT_TOL:g}); peak {pf:.2f} / {pn:.2f} GiB",
+          flush=True)
+    if not (loss_rel <= REMAT_TOL and grad_rel <= REMAT_TOL):
+        raise AssertionError(f"train {cfg.name}: checkpointing changed the loss (rel "
+                             f"{loss_rel:.3g}) or a gradient (rel {grad_rel:.3g} at {name})")
+    del net, out
+    torch.cuda.empty_cache()
+
+
+def check_restore(cfg, trainer, step: int) -> None:
+    """The final checkpoint read back through CheckpointManager: the JAX LM's
+    stacked ``layers/...`` leaves (leading dim num_layers, no per-layer
+    path), every parameter equal to the trainer's (compared on the card,
+    each leaf moved there and laid out as the port holds it)."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.interop import STACKED, jax_leaf
+
+    t0 = time.perf_counter()
+    flat = CheckpointManager(trainer.tcfg.checkpoint_dir).restore(step)
+    read_s = time.perf_counter() - t0
+    stacked = {k: a.shape for k, a in flat.items() if k.startswith(f"{STACKED}/")}
+    if not stacked or any(s[0] != cfg.num_layers for s in stacked.values()) or any(
+            k.split("/")[1].isdigit() for k in stacked):
+        raise AssertionError(f"train {cfg.name}: checkpoint layers not stacked: {stacked}")
+    params = trainer.net.state_dict()
+    keys = set()
+    for name, p in params.items():
+        key, i = jax_leaf(name)
+        got = torch.from_numpy(flat[key] if i is None else flat[key][i]).to(p.device)
+        keys.add(key)
+        if not torch.equal(got.T if name.endswith(".weight") else got, p):
+            raise AssertionError(f"train {cfg.name}: checkpoint leaf {key} differs from {name}")
+    if keys != set(flat):
+        raise AssertionError(f"train {cfg.name}: checkpoint leaves {sorted(set(flat) - keys)} "
+                             "belong to no parameter")
+    print(f"train {cfg.name} checkpoint step {step}: {len(flat)} leaves, {len(stacked)} of them "
+          f"stacked layers/... (e.g. {next(iter(stacked))} {tuple(next(iter(stacked.values())))})"
+          f"; read and checked in {read_s:.1f} s, every parameter equal "
+          f"({time.perf_counter() - t0:.1f} s in all)", flush=True)
+
+
+def train_lm(arch: str, size: tuple) -> dict:
+    """Trainer.fit of get_model(arch) at full width and depth from seed 0 on
+    TokenStream batches at T=LM_TRAIN_T (global batch LM_TRAIN_B, microbatches
+    of cfg.microbatch), bf16 compute, fp32 parameters, remat "full": the
+    checks of the module docstring's phases 11b and 13b, then the fit (a counted
+    window: no kernel launch; every layer's mixer runs twice a microbatch,
+    forward and recomputation; its last step under the profiler), ms per
+    step, tokens/s, model FLOP/s, peak GiB, the breakdown of that step and
+    the phase's seconds by part."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.api import get_model
+    from repro_torch.train import Trainer
+
+    parts, clock = {}, [time.perf_counter()]
+
+    def lap(part):   # the seconds since the last lap, kept under ``part``
+        now = time.perf_counter()
+        parts[part] = round(now - clock[0], 1)
+        clock[0] = now
+
+    cfg = get_config(arch)
+    model = get_model(cfg, seq_len_hint=LM_TRAIN_T)
+    plans = ", ".join(f"{k}: {p.describe()}" for k, p in model.plans.items())
+    route = ("causal_stream" if cfg.family == "flare_lm"
+             else "attn_sdpa impl=auto: chunked at T > 2,048")
+    num_mb = LM_TRAIN_B // cfg.microbatch   # per-device batch / microbatch (one device)
+    print(f"train {cfg.name}: plans {{{plans}}} ({route}); T={LM_TRAIN_T}, global batch "
+          f"{LM_TRAIN_B} (train_4k's 256 cut), {num_mb} microbatches of {cfg.microbatch}, "
+          f"{LM_TRAIN_STEPS} steps; {cfg.compute_dtype} compute, {cfg.param_dtype} parameters, "
+          f"remat {cfg.remat}", flush=True)
+    if cfg.family == "flare_lm" and model.plans["train"].describe() != (
+            f"causal_stream(chunk_size={cfg.attn.flare_chunk};mode=factored)"):
+        raise AssertionError(f"flare_lm train plan {model.plans['train'].describe()}")
+    if cfg.remat != "full" or cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name}: remat {cfg.remat}, compute {cfg.compute_dtype}")
+    stream = TokenStream(cfg.vocab, LM_TRAIN_T, seed=SEED)
+    feed_ms = []
+
+    def batch_fn(step):   # the JAX launcher's LM batches, their host time kept
+        t0 = time.perf_counter()
+        batch = stream.global_batch(step, LM_TRAIN_B, 1)
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+        return batch
+
+    first = []
+
+    def loss(net, mb):   # the train route's loss, its first microbatch kept
+        value = model.loss(net, mb)
+        if not first:
+            first.append(value.item())
+        return value
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        tcfg = TrainConfig(steps=LM_TRAIN_STEPS, seed=SEED, checkpoint_dir=ckdir,
+                           checkpoint_every=10 * LM_TRAIN_STEPS, log_every=1)
+        trainer = Trainer(dataclasses.replace(model, loss=loss), tcfg, num_microbatches=num_mb)
+        n_params = sum(p.numel() for p in trainer.net.parameters())
+        lap("init")
+        print(f"init {cfg.name} for training: {cfg.num_layers} layers, {n_params} parameters "
+              f"drawn on the CPU and AdamW's moments allocated in {parts['init']} s", flush=True)
+        if (cfg.num_layers, n_params) != size:
+            raise AssertionError(f"{cfg.name} is not at full size: {cfg.num_layers} layers, "
+                                 f"{n_params} parameters")
+        device = next(trainer.net.parameters()).device
+        mb0 = {k: torch.from_numpy(v[:cfg.microbatch]).to(device)
+               for k, v in batch_fn(0).items()}
+        route_ce, served_ce = check_train_logits(cfg, model, trainer.net, mb0)
+        lap("check 1 (logits)")
+        check_train_grads(cfg, model, trainer.net, mb0["tokens"])
+        lap("check 2 (gradients)")
+
+        step_fn, trace = trainer._train_step, {}
+
+        def last_step_traced(*args):   # the fit's last step runs under the profiler
+            if trainer.step < LM_TRAIN_STEPS - 1:
+                return step_fn(*args)
+            out, trace["profile"] = traced(lambda: step_fn(*args))
+            return out
+
+        trainer._train_step = last_step_traced
+        module, name = train_mixer(cfg)
+        calls, undo = count_calls(module, name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        try:
+            history = trainer.fit(batch_fn)
+        finally:
+            undo()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms_steps = [1e3 * h["time"] for h in history]
+        lap("fit")
+        ckpt_s = parts["fit's final checkpoint"] = round(parts["fit"] - sum(ms_steps) / 1e3, 1)
+        # the median of steps 2-4: the profiled step 4 moves it at most to
+        # the slower of steps 2 and 3
+        ms = sorted(ms_steps[1:])[len(ms_steps[1:]) // 2]
+        tokens = LM_TRAIN_B * LM_TRAIN_T
+        print(f"train {cfg.name} losses {[h['loss'] for h in history]}, grad_norm "
+              f"{[h['grad_norm'] for h in history]}, lr {[h['lr'] for h in history]}", flush=True)
+        print(f"train {cfg.name} ms/step {[round(t, 3) for t in ms_steps]} (host clock, the "
+              f"TokenStream feed included: {[round(t, 1) for t in feed_ms[-LM_TRAIN_STEPS:]]} ms; "
+              f"step {LM_TRAIN_STEPS} under the profiler); the fit's final blocking checkpoint "
+              f"{ckpt_s} s", flush=True)
+        print(f"train {cfg.name} T={LM_TRAIN_T} B={LM_TRAIN_B}: {ms:.3f} ms/step (median of steps "
+              f"2-{LM_TRAIN_STEPS}), {tokens / ms * 1e3:.1f} tokens/s, model FLOP/s "
+              f"{6 * n_params * tokens / ms * 1e3 / 1e12:.1f} T = "
+              f"{100 * 6 * n_params * tokens / (ms / 1e3) / PEAK_BF16:.2f}% of {PEAK_BF16 / 1e12:.0f} "
+              f"TFLOP/s (6 x params x tokens; the recomputation left out), peak {peak:.2f} GiB; "
+              f"{name} calls {calls['n']}; kernel launches {launched({'launches': counts})}",
+              flush=True)
+        print(f"train {cfg.name} step 0 microbatch 0 loss: the fit's {first[0]:.6f}; the "
+              f"cross-entropy of check 1's training-route logits {route_ce:.6f}, of the served "
+              f"logits {served_ce:.6f}", flush=True)
+        want_calls = LM_TRAIN_STEPS * num_mb * cfg.num_layers * 2
+        if any(counts.values()) or calls["n"] != want_calls:
+            raise AssertionError(f"train {cfg.name}: launches {counts}, {name} calls "
+                                 f"{calls['n']} (expected {want_calls})")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in history):
+            raise AssertionError(f"train {cfg.name}: a loss or grad_norm is not finite")
+        report(*trace["profile"], f"train {cfg.name} step {LM_TRAIN_STEPS} of the fit", top=12)
+        lap("breakdown's processing")
+        check_restore(cfg, trainer, LM_TRAIN_STEPS)
+        lap("check 4 (checkpoint read)")
+    del trainer
+    torch.cuda.empty_cache()
+    check_remat(cfg, mb0)
+    lap("check 3 (remat)")
+    print(f"train {cfg.name} seconds by part: {parts}", flush=True)
+    return {"ms": ms, "peak": peak}
 
 
 # --------------------------------------------------------------------------
@@ -3127,6 +3601,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the causal FLARE LM: its launches are those of its forward and requests windows
     stats["flare_causal_chunk"] = lm_phases(checks, device)
+    # flare_lm trained at full size (its serving net freed): no kernel launches
+    t0 = time.perf_counter()
+    train_lm("flare_lm", FLARE_LM_SIZE)
+    print(f"train flare-lm phase: {time.perf_counter() - t0:.1f} s", flush=True)
     # qwen2-1.5b served from the paged pool: the launches of its kernel route's
     # window and of the paged FLARE path's
     cfg_q, model_q, net_q = init_dense_lm("qwen2_1_5b", QWEN2_SIZE)
@@ -3138,6 +3616,10 @@ def main() -> int:
     stats.update(flash_phases(checks, device, cfg_q, net_q))
     del model_q, net_q
     torch.cuda.empty_cache()
+    # qwen2-1.5b trained at full size (its serving net freed): no kernel launches
+    t0 = time.perf_counter()
+    train_lm("qwen2_1_5b", QWEN2_SIZE)
+    print(f"train qwen2-1.5b phase: {time.perf_counter() - t0:.1f} s", flush=True)
     phi3 = phi3_phases(checks, device)
     stats["flash_attention_tc"]["launches"] += phi3["flash_attention_tc"]
     # phi3 (D=96) served through the paged kernel: its kernel route's launches

@@ -40,6 +40,12 @@ def _host(leaf) -> np.ndarray:
     return np.ascontiguousarray(arr)
 
 
+def _crc32(arr: np.ndarray) -> int:
+    """crc32 of the array's C-order bytes (``tobytes()``'s), read in place:
+    no copy of a multi-GB leaf."""
+    return zlib.crc32(np.ascontiguousarray(arr))
+
+
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3):
         self.dir = directory
@@ -61,7 +67,7 @@ class CheckpointManager:
             np.savez(os.path.join(tmp, "arrays.npz"), **flat)
             meta = {"step": step, "time": time.time(),
                     "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype),
-                                   "crc32": zlib.crc32(v.tobytes())} for k, v in flat.items()}}
+                                   "crc32": _crc32(v)} for k, v in flat.items()}}
             with open(os.path.join(tmp, "meta.json"), "w") as f:
                 json.dump(meta, f)
                 f.flush()
@@ -119,7 +125,7 @@ class CheckpointManager:
         with np.load(os.path.join(path, "arrays.npz")) as data:
             for key in (meta["leaves"] if keys is None else keys):
                 arr = data[key]
-                if zlib.crc32(arr.tobytes()) != meta["leaves"][key]["crc32"]:
+                if _crc32(arr) != meta["leaves"][key]["crc32"]:
                     raise IOError(f"checkpoint corruption detected at leaf {key}")
                 out[key] = arr
         return out

@@ -62,6 +62,10 @@ class ModelConfig:
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # the LMs' training: activation checkpointing per decoder layer, and the
+    # per-device microbatch of a train step (the pde family ignores remat)
+    remat: str = "full"             # full | dots | none
+    microbatch: int = 1
 
 
 @dataclass(frozen=True)

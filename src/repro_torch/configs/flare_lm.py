@@ -21,6 +21,8 @@ def config() -> ModelConfig:
                         head_dim=128, flare_latents=512, flare_chunk=1024),
         norm="rmsnorm",
         tie_embeddings=False,
+        remat="full",
+        microbatch=1,
     )
 
 
@@ -35,4 +37,5 @@ def smoke_config() -> ModelConfig:
         attn=AttnConfig(kind="flare_stream", num_heads=4, num_kv_heads=4,
                         head_dim=16, flare_latents=8, flare_chunk=8),
         norm="rmsnorm",
+        remat="none",
     )

@@ -17,6 +17,8 @@ def config() -> ModelConfig:
         flare_heads=8,
         flare_latents=2048,
         norm="layernorm",
+        remat="full",
+        microbatch=1,
     )
 
 
@@ -32,4 +34,5 @@ def smoke_config() -> ModelConfig:
         flare_heads=4,
         flare_latents=16,
         norm="layernorm",
+        remat="none",
     )

@@ -17,6 +17,8 @@ def config() -> ModelConfig:
                         rope_theta=10000.0, qkv_bias=False),
         norm="rmsnorm",
         tie_embeddings=False,
+        remat="full",
+        microbatch=1,
     )
 
 
@@ -30,4 +32,5 @@ def smoke_config() -> ModelConfig:
         vocab=128,
         attn=AttnConfig(kind="gqa", num_heads=4, num_kv_heads=4, head_dim=24),
         norm="rmsnorm",
+        remat="none",
     )

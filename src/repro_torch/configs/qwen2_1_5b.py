@@ -17,6 +17,8 @@ def config() -> ModelConfig:
                         rope_theta=1000000.0, qkv_bias=True),
         norm="rmsnorm",
         tie_embeddings=True,
+        remat="full",
+        microbatch=1,
     )
 
 
@@ -31,4 +33,5 @@ def smoke_config() -> ModelConfig:
         attn=AttnConfig(kind="gqa", num_heads=6, num_kv_heads=2, head_dim=8, qkv_bias=True),
         norm="rmsnorm",
         tie_embeddings=True,
+        remat="none",
     )

@@ -74,9 +74,11 @@ def stream_append(state: FlareState, q: torch.Tensor, k_t: torch.Tensor,
 
 
 def _safe_exp(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """exp(a - m) with the -inf/-inf case (an all-masked prefix) pinned to 0."""
-    return torch.where(a == -torch.inf, torch.zeros((), dtype=a.dtype, device=a.device),
-                       torch.exp(a - m))
+    """exp(a - m) with the -inf/-inf case (an all-masked prefix) pinned to 0.
+    The exponent is made -inf before the exp, not the exp's NaN replaced
+    after it, so the backward meets no NaN either (0 * NaN would leak
+    through a ``where``)."""
+    return torch.exp((a - m).masked_fill(a == -torch.inf, -torch.inf))
 
 
 def _combine(a, b):
@@ -141,22 +143,54 @@ def stream_chunk_factored(state: FlareState, q: torch.Tensor, k: torch.Tensor,
     T^2) memory. Bounded-score contract: exact unless a FUTURE in-chunk score
     exceeds the running max by more than ~85 nats (fp32; cden then meets the
     1e-30 guard). ``stream_chunk`` is exact for any scores."""
-    t = k.shape[2]
     s = _scores(q, k, "hmd,bhtd->bhmt")                              # [B, H, M, T]
     s_enc = s if mask is None else s.masked_fill(~mask[:, None, None, :], -torch.inf)
     ref = torch.maximum(state.m_max, s_enc.amax(dim=-1))             # [B, H, M]
-    f1 = _safe_exp(s_enc, ref[..., None])
-    carry_scale = _safe_exp(state.m_max, ref)
-    cden = state.den[..., None] * carry_scale[..., None] + f1.cumsum(dim=-1)
     w = torch.softmax(s, dim=-2)                                     # decode, over M
-    f2 = w / cden.clamp_min(1e-30)
+    f1, carry_scale, new_den, f2 = _EncodeWeights.apply(s_enc, ref, state.m_max, state.den, w)
     carry_num = state.num * carry_scale[..., None]                   # [B, H, M, D]
     y = torch.einsum("bhmt,bhmd->bhtd", f2, carry_num)
     a = torch.einsum("bhmt,bhmu->bhtu", f2, f1).tril_()              # tau <= t
     vf = v.to(s.dtype)
     y = y + torch.einsum("bhtu,bhud->bhtd", a, vf)
     new_num = carry_num + torch.einsum("bhmt,bhtd->bhmd", f1, vf)
-    return FlareState(ref, new_num, cden[..., -1]), y.to(v.dtype)
+    return FlareState(ref, new_num, new_den), y.to(v.dtype)
+
+
+def _encode_weights(s_enc, ref, m_max, den, w):
+    """The factored chunk's F1, carry scale, new denominator and F2."""
+    f1 = _safe_exp(s_enc, ref[..., None])
+    carry_scale = _safe_exp(m_max, ref)
+    cden = den[..., None] * carry_scale[..., None] + f1.cumsum(dim=-1)
+    return f1, carry_scale, cden[..., -1], w / cden.clamp_min(1e-30)
+
+
+class _EncodeWeights(torch.autograd.Function):
+    """:func:`_encode_weights`, whose backward runs in fp64. Where a latent's
+    running denominator is tiny (scores tens of nats below the chunk's
+    max), d F2 / d cden = -w / cden^2 overflows fp32 (to inf, then NaN) on
+    its way to a gradient that is finite: it is multiplied by F1 <= cden
+    before it leaves this function. fp64 holds the intermediate; the
+    forward is the fp32 one, bit for bit. (The JAX package's gradient is
+    NaN there.)"""
+
+    @staticmethod
+    def forward(ctx, s_enc, ref, m_max, den, w):
+        ctx.save_for_backward(s_enc, ref, m_max, den, w)
+        return _encode_weights(s_enc, ref, m_max, den, w)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        wide = [t.detach().to(torch.promote_types(t.dtype, torch.float64)).requires_grad_()
+                for t in saved]
+        with torch.enable_grad():
+            outs = _encode_weights(*wide)
+        keep = [(o, g.to(o.dtype)) for o, g in zip(outs, grads) if g is not None]
+        got = torch.autograd.grad([o for o, _ in keep], wide, [g for _, g in keep],
+                                  allow_unused=True)
+        return tuple(None if g is None else g.to(t.dtype)
+                     for g, t in zip(got, saved))
 
 
 def flare_causal_with_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

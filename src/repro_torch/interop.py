@@ -15,8 +15,11 @@ list of per-layer trees that the port's ``nn.ModuleList`` reads
 The other direction, :func:`to_jax_flat`, gives the flat form the
 checkpoints hold: the JAX leaf paths joined by ``/``
 (``blocks/0/mixer/k_proj/res/1/kernel``) with dense kernels ``[in, out]``.
-:func:`from_jax_flat` inverts it, so a checkpoint written by either package
-restores in the other.
+The LM's per-layer keys ``layers.{i}.…`` become the JAX LM's stacked leaves
+``layers/…`` with a leading [L] axis; the PDE family keeps its per-block
+keys, as the JAX package writes them. :func:`from_jax_flat` inverts it
+(per-layer ``layers/{i}/…`` paths pass through), so a checkpoint written by
+either package restores in the other.
 """
 from __future__ import annotations
 
@@ -73,15 +76,39 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
     return module
 
 
+STACKED = "layers"   # the JAX LM's layer stack: every leaf has a leading [L] axis
+
+
+def jax_leaf(name: str) -> tuple:
+    """(the checkpoint path of ``state_dict`` key ``name``, its index along
+    the stacked [L] axis, or None): ``layers.3.mlp.w_up.weight`` ->
+    (``layers/mlp/w_up/kernel``, 3)."""
+    head, _, rest = name.partition(".")
+    i, _, rest = rest.partition(".")
+    if head == STACKED and i.isdigit():
+        return f"{STACKED}/{jax_key(rest)}", int(i)
+    return jax_key(name), None
+
+
 def to_jax_flat(tensors) -> dict:
     """``state_dict``-keyed tensors (parameters, or per-parameter optimizer
     moments) -> ``{jax/leaf/path: numpy array}``, dense weights as ``[in, out]``
-    kernels. Copies to the host; bf16, which numpy lacks, widens to fp32."""
-    out = {}
-    for key, t in tensors.items():
-        t = t.detach().cpu()
+    kernels, the LM's layers stacked along a leading [L] axis. Copies to the
+    host, each weight transposed where it lies (on the card, a fraction of
+    a transpose on the host's cores); bf16, which numpy lacks, widens to
+    fp32."""
+    out, layers = {}, {}
+    for name, t in tensors.items():
+        t = t.detach()
+        t = (t.T if name.endswith(".weight") else t).contiguous().cpu()
         arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-        out[jax_key(key)] = np.ascontiguousarray(arr.T if key.endswith(".weight") else arr)
+        key, i = jax_leaf(name)
+        if i is None:
+            out[key] = np.ascontiguousarray(arr)
+        else:
+            layers.setdefault(key, {})[i] = arr
+    for key, per_layer in layers.items():
+        out[key] = np.stack([per_layer[i] for i in range(len(per_layer))])
     return out
 
 
@@ -91,14 +118,26 @@ def jax_key(name: str) -> str:
     return "/".join([*path, "kernel" if leaf == "weight" else leaf])
 
 
+def jax_keys(names) -> list:
+    """The checkpoint paths :func:`to_jax_flat` writes for ``state_dict``
+    keys ``names``."""
+    return list(dict.fromkeys(jax_leaf(name)[0] for name in names))
+
+
 def from_jax_flat(flat) -> dict:
     """The inverse of :func:`to_jax_flat`: ``{jax/leaf/path: array}`` -> a
-    flat ``state_dict`` of CPU tensors."""
+    flat ``state_dict`` of CPU tensors, a stacked ``layers/…`` leaf split
+    into its layers' keys."""
     out = {}
     for key, arr in flat.items():
         *path, leaf = key.split("/")
         arr = np.array(arr)
         if leaf == "kernel":
-            leaf, arr = "weight", arr.T
-        out[".".join([*path, leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
+            leaf, arr = "weight", np.swapaxes(arr, -1, -2)
+        name = ".".join([*path, leaf])
+        if path[:1] == [STACKED] and not (len(path) > 1 and path[1].isdigit()):
+            out.update({f"{STACKED}.{i}.{name.partition('.')[2]}":
+                        torch.from_numpy(np.ascontiguousarray(a)) for i, a in enumerate(arr)})
+        else:
+            out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

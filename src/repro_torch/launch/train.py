@@ -1,10 +1,14 @@
-"""Training launcher: ``python -m repro_torch.launch.train --arch flare_pde [--smoke]``.
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [--smoke]``.
 
 Counterpart of ``repro/launch/train.py``. It trains on ``cuda`` unless
 ``--device cpu`` is given, and raises where there is no CUDA device rather
 than falling back to the CPU. ``--smoke`` trains the reduced config of the
-same family (CPU-runnable). Data: Darcy batches on a 16x16 grid, step-keyed,
-as the JAX launcher feeds the pde family.
+same family (CPU-runnable). Data, step-keyed, as the JAX launcher feeds it:
+Darcy batches on a 16x16 grid for the pde family; ``TokenStream`` batches
+of ``--seq-len`` tokens for the LMs (``flare_lm``, ``qwen2_1_5b``,
+``phi3_mini_3_8b``)::
+
+    python -m repro_torch.launch.train --arch flare_lm --smoke --device cpu --seq-len 32
 
 ``--mesh host`` trains sequence-parallel over every rank of the world, one
 process a rank, as ``torchrun`` starts them (``RANK``, ``WORLD_SIZE``,
@@ -27,6 +31,7 @@ import torch
 from repro_torch.config import TrainConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pde_data import darcy_batch
+from repro_torch.data.synthetic import TokenStream
 from repro_torch.models.api import get_model
 from repro_torch.train.trainer import Trainer
 
@@ -41,6 +46,7 @@ def main(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64, help="tokens a sequence (the LMs)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
                                                    "repro_torch_train_ckpt"))
@@ -76,10 +82,13 @@ def main(argv=None):
         from repro_torch.core.policy import MixerPolicy
 
         policy = MixerPolicy(backends=tuple(args.mixer.split(",")))
-    model = get_model(cfg, policy=policy, device=device, mesh=mesh, seq_len_hint=GRID * GRID)
+    pde = cfg.family == "pde"
+    model = get_model(cfg, policy=policy, device=device, mesh=mesh,
+                      seq_len_hint=GRID * GRID if pde else args.seq_len)
     if rank == 0:
-        print(f"mixer plans (resolved once at build): train={model.plans['train'].describe()} "
-              f"infer={model.plans['infer'].describe()}")
+        print("mixer plans (resolved once at build): "
+              + (" ".join(f"{k}={p.describe()}" for k, p in model.plans.items())
+                 or "none (gqa attention: attn_sdpa impl=auto)"))
 
     tcfg = TrainConfig(steps=args.steps, learning_rate=args.lr,
                        checkpoint_every=max(10, args.steps // 4),
@@ -90,8 +99,13 @@ def main(argv=None):
 
         tracer = Tracer()
     trainer = Trainer(model, tcfg, mesh, num_microbatches=args.microbatches, tracer=tracer)
-    history = trainer.fit(lambda step: darcy_batch(0, step % 16, args.global_batch, grid=GRID,
-                                                   cg_iters=100, device=device))
+    if pde:
+        batch_fn = lambda step: darcy_batch(0, step % 16, args.global_batch, grid=GRID,
+                                            cg_iters=100, device=device)
+    else:
+        stream = TokenStream(cfg.vocab, args.seq_len, seed=tcfg.seed)
+        batch_fn = lambda step: stream.global_batch(step, args.global_batch, 1)
+    history = trainer.fit(batch_fn)
     if mesh is not None:
         torch.distributed.destroy_process_group()
     if rank != 0:

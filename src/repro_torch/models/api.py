@@ -8,6 +8,7 @@ the gqa decoder (``dense``, e.g. qwen2):
     net = m.init(seed)                  # the model's modules on that device
     pred = m.forward(net, batch)        # inference under m.plans["infer"]
     loss = m.loss(net, batch)           # differentiable, under m.plans["train"]
+                                        # (the LMs: batch {"tokens", "labels"})
     # the LMs (flare_lm, dense) only:
     logits, caches = m.prefill(net, batch, capacity)      # batch may carry "lengths"
     logits, caches = m.decode_step(net, token, caches)    # token [B, 1]
@@ -31,11 +32,14 @@ policy that can only serve inference (``pallas``) still builds, and
 causal path; the infer plan is ``causal_pallas`` (the causal kernel, whose
 tile is its own) on the card and the plain ``causal_stream`` on the CPU, the
 train plan ``causal_stream``, whose ``chunk_size`` is the config's
-``flare_chunk``.
-dense (gqa): no mixer plan (attention has its own ``impl``, "auto" here);
-the prefix-cache ``prefill_suffix`` is not ported.
-``forward`` returns ``(logits [B, S, vocab] fp32, aux)``. LM training is not
-ported yet: its ``loss`` raises.
+``flare_chunk``; a forward-only policy (``causal_pallas`` alone) builds, and
+``loss`` raises as the PDE family's does.
+dense (gqa): no mixer plan (attention has its own ``impl``, "auto" here:
+the ``chunked`` route beyond 2,048 tokens, ``xla`` below); the prefix-cache
+``prefill_suffix`` is not ported.
+``forward`` returns ``(logits [B, S, vocab] fp32, aux)``; the LMs' ``loss``
+is ``transformer.lm_loss``, each decoder layer checkpointed as
+``cfg.remat`` says.
 """
 from __future__ import annotations
 
@@ -115,6 +119,20 @@ def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
     return plans, train_error
 
 
+def _train_guard(loss_fn, train_error):
+    """``loss_fn``, or, for a model built with an inference-only policy, a
+    function that raises the recorded resolve error the moment training is
+    attempted (never a silent fallback onto another backend)."""
+    if train_error is None:
+        return loss_fn
+
+    def refuse(net, batch):
+        raise ValueError("this model was built with an inference-only mixer policy "
+                         f"and cannot train: {train_error}")
+
+    return refuse
+
+
 def get_model(cfg: ModelConfig, *, policy=None, device=None,
               seq_len_hint: Optional[int] = None, mesh=None) -> Model:
     """``policy``: a MixerPolicy, a MixerPlan, or None (the ambient policy),
@@ -140,7 +158,7 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
     dev = torch.device("cuda" if device is None else device)
     plans, train_error = _resolve_plans(cfg, policy, dev, seq_len_hint, mesh)
     if cfg.family in ("flare_lm", "dense"):
-        return _lm(cfg, dev, plans)
+        return _lm(cfg, dev, plans, train_error)
     from repro_torch.models import pde
 
     def init(seed: int) -> pde.Surrogate:
@@ -154,19 +172,17 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
             return pde.surrogate_forward(net, batch["x"], policy=plans["infer"])
 
     def loss(net: pde.Surrogate, batch) -> torch.Tensor:
-        if train_error is not None:
-            raise ValueError("this model was built with an inference-only mixer policy "
-                             f"and cannot train: {train_error}")
         pred = pde.surrogate_forward(net, batch["x"], policy=plans["train"])
         return pde.relative_l2(pred, batch["y"], group=group)
 
-    return Model(cfg=cfg, init=init, forward=forward, loss=loss, plans=plans, mesh=mesh)
+    return Model(cfg=cfg, init=init, forward=forward, loss=_train_guard(loss, train_error),
+                 plans=plans, mesh=mesh)
 
 
-def _lm(cfg: ModelConfig, dev: torch.device, plans) -> Model:
+def _lm(cfg: ModelConfig, dev: torch.device, plans, train_error) -> Model:
     from repro_torch.models import transformer as t
 
-    infer = plans.get("infer")
+    infer, train = plans.get("infer"), plans.get("train")
 
     def init(seed: int) -> t.LM:
         return t.init_lm(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
@@ -188,8 +204,8 @@ def _lm(cfg: ModelConfig, dev: torch.device, plans) -> Model:
         return t.init_lm_caches(batch, cfg, capacity, device=dev if device is None else device)
 
     def loss(net: t.LM, batch) -> torch.Tensor:
-        raise NotImplementedError(f"{cfg.family} training is not ported yet")
+        return t.lm_loss(net, batch, cfg, plan=train)
 
-    return Model(cfg=cfg, init=init, forward=forward, loss=loss, plans=plans,
-                 prefill=prefill, decode_step=decode_step, init_caches=init_caches,
+    return Model(cfg=cfg, init=init, forward=forward, loss=_train_guard(loss, train_error),
+                 plans=plans, prefill=prefill, decode_step=decode_step, init_caches=init_caches,
                  prefill_into=make_prefill_into(prefill, init_caches))

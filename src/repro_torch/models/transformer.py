@@ -1,5 +1,5 @@
 """Decoder-only LMs: the causal FLARE LM (``flare_lm``) and the gqa decoder
-(the ``dense`` family, e.g. qwen2): forward, prefill, decode.
+(the ``dense`` family, e.g. qwen2): forward, loss, prefill, decode.
 
 Counterpart of the ``flare_stream`` and ``gqa`` parts of
 ``repro/models/transformer.py``. The JAX package stacks the layers (a
@@ -23,6 +23,14 @@ state, and ``lm_decode_step`` appends one token to every state
 prefill returns each layer's KV cache, and decode reads it densely or, when
 the caches are a paged pool's kernel view, through the paged-attention
 kernel.
+
+Training (``lm_loss``) runs ``lm_forward`` under autograd, each decoder
+layer through ``_remat(fn, cfg.remat)``, the counterpart of the JAX
+package's ``jax.checkpoint`` around its scanned layer: with ``"full"`` the
+backward keeps only each layer's input and recomputes the layer. The
+mixers train on plain torch (``causal_stream`` for flare_lm; ``attn_sdpa``'s
+``xla`` / ``chunked`` routes for gqa), as in the JAX package, whose causal
+and flash kernels are forward-only.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.flare import FlareLayer, _merge_heads, _split_heads, init_flare_layer
@@ -183,25 +192,76 @@ def _positions(cfg: ModelConfig, b: int, s: int, device) -> torch.Tensor:
     return text_positions(b, s, device=device)
 
 
+# the batch-free matmuls (projections, MLPs, the head) that "dots" saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` under activation checkpointing while autograd records:
+    "full" keeps only its inputs for the backward and recomputes the rest;
+    "dots" also keeps the outputs of the batch-free matmuls (``aten.mm`` /
+    ``aten.addmm``), the counterpart of ``dots_with_no_batch_dims_saveable``,
+    and recomputes the rest, attention's batched products included; "none"
+    keeps everything. Without autograd ``fn`` runs plain."""
+    if mode not in ("full", "dots", "none"):
+        raise ValueError(f"remat must be 'full', 'dots' or 'none', not {mode!r}")
+    if mode == "none":
+        return fn
+    context_fn = (ckpt.noop_context_fn if mode == "full" else
+                  lambda: ckpt.create_selective_checkpoint_contexts(_save_dots))
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+    return run
+
+
+def _decoder_layer(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig, positions,
+                   impl: str, plan) -> torch.Tensor:
+    """One pre-norm layer: the mixer's residual, then the SwiGLU's."""
+    xin = _norm(cfg, layer.norm1, x)
+    if cfg.attn.kind == "gqa":
+        x = x + gqa_forward(layer.attn, xin, cfg.attn, positions=positions, impl=impl)
+    else:
+        x = x + _flare_stream_mix(layer.attn, xin, cfg, plan)
+    return _ffn(cfg, layer, x)
+
+
 def lm_forward(net: LM, tokens: torch.Tensor, cfg: ModelConfig, *, impl: str = "auto",
                plan=None) -> tuple:
     """Full-sequence forward: tokens [B, S] -> (logits fp32 [B, S, V_padded]
     with the padded tail at -inf, aux loss 0). ``plan`` is the causal
     MixerPlan resolved at model build (flare_lm); gqa attention takes
     ``attn_sdpa``'s ``impl`` route ("pallas": the flash kernel), which
-    flare_lm ignores, as in the JAX package."""
+    flare_lm ignores, as in the JAX package. Under autograd each layer runs
+    through ``_remat(..., cfg.remat)``."""
     x = _embed(net, tokens, cfg)
-    if cfg.attn.kind == "gqa":
-        positions = _positions(cfg, *tokens.shape, tokens.device)
+    positions = (_positions(cfg, *tokens.shape, tokens.device) if cfg.attn.kind == "gqa"
+                 else None)
+    layer_fn = _remat(lambda layer, h: _decoder_layer(layer, h, cfg, positions, impl, plan),
+                      cfg.remat)
     for layer in net.layers:
-        xin = _norm(cfg, layer.norm1, x)
-        if cfg.attn.kind == "gqa":
-            x = x + gqa_forward(layer.attn, xin, cfg.attn, positions=positions, impl=impl)
-        else:
-            x = x + _flare_stream_mix(layer.attn, xin, cfg, plan)
-        x = _ffn(cfg, layer, x)
+        x = layer_fn(layer, x)
     logits = _logits(net, _norm(cfg, net.final_norm, x), cfg)
     return mask_padded_logits(logits, cfg.vocab), torch.zeros((), device=x.device)
+
+
+def lm_loss(net: LM, batch: dict, cfg: ModelConfig, *, impl: str = "auto",
+            plan=None) -> torch.Tensor:
+    """Next-token cross-entropy over ``batch["tokens"]`` [B, S] and
+    ``batch["labels"]`` [B, S] (int32 from ``TokenStream``):
+    ``mean(logsumexp(logits) - gold) + 0.01 * aux`` on the fp32 logits, the
+    padded vocab at -inf. ``plan``: flare_lm's train plan (a grad-capable
+    one); gqa attends through ``impl``."""
+    logits, aux = lm_forward(net, batch["tokens"], cfg, impl=impl, plan=plan)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).mean() + 0.01 * aux
 
 
 class LMCaches(NamedTuple):

@@ -6,9 +6,12 @@ dtype. Where the JAX update returns new arrays, this one updates the
 parameters and moments in place (under ``torch.no_grad``), which keeps one
 copy of each in device memory; it returns the same objects so a caller reads
 it like the functional version. Each step of the update is one
-``torch._foreach_*`` call over all tensors, so the update costs a few dozen
-launches, not a dozen per parameter. The gradient norm stays a device
-tensor: no host sync.
+``torch._foreach_*`` call over a group of tensors of at most ``GROUP``
+elements, so the update costs a few dozen launches a group, not a dozen per
+parameter, and its temporaries (four of the group's size) stay small beside
+the state: at the LMs' 1.5-2.6 B parameters, temporaries of the whole model
+would not fit one card beside its fp32 parameters, gradients and moments.
+The gradient norm stays a device tensor: no host sync.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from dataclasses import dataclass
 from typing import Dict
 
 import torch
+
+GROUP = 1 << 28   # elements a group of the update: temporaries of 1 GiB each in fp32
 
 
 @dataclass
@@ -36,11 +41,19 @@ def global_norm(tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
-    """(grads scaled so their global norm is at most ``max_norm``, the norm)."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return dict(zip(grads, torch._foreach_mul(list(grads.values()), scale))), norm
+def _groups(names: list, params: Dict[str, torch.Tensor]):
+    """``names`` in order, cut into runs of at most GROUP elements (a larger
+    tensor alone)."""
+    group, size = [], 0
+    for k in names:
+        n = params[k].numel()
+        if group and size + n > GROUP:
+            yield group
+            group, size = [], 0
+        group.append(k)
+        size += n
+    if group:
+        yield group
 
 
 @torch.no_grad()
@@ -49,29 +62,32 @@ def adamw_update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor]
                  beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
                  grad_clip: float = 0.0):
     """Returns (params, state, grad_norm); params and state updated in place."""
-    if grad_clip:
-        grads, norm = clip_by_global_norm(grads, grad_clip)
-    else:
-        norm = global_norm(grads)
+    norm = global_norm(grads)
+    # global-norm clipping: gradients scaled to a norm of at most grad_clip
+    scale = torch.clamp(grad_clip / torch.clamp(norm, min=1e-9), max=1.0) if grad_clip else None
     state.step += 1
     bc1 = 1.0 - beta1 ** state.step
     bc2 = 1.0 - beta2 ** state.step
-    names = list(params)
-    p32 = [params[k].float() for k in names]
-    g32 = [grads[k].float() for k in names]
-    m = [state.m[k] for k in names]
-    v = [state.v[k] for k in names]
-    torch._foreach_mul_(m, beta1)
-    torch._foreach_add_(m, g32, alpha=1.0 - beta1)
-    torch._foreach_mul_(v, beta2)
-    torch._foreach_addcmul_(v, g32, g32, value=1.0 - beta2)
-    denom = torch._foreach_sqrt(torch._foreach_div(v, bc2))
-    torch._foreach_add_(denom, eps)
-    delta = torch._foreach_div(torch._foreach_div(m, bc1), denom)
-    if weight_decay:
-        torch._foreach_add_(delta, p32, alpha=weight_decay)
-    torch._foreach_add_(p32, delta, alpha=-lr)
-    for k, new in zip(names, p32):
-        if new is not params[k]:
-            params[k].copy_(new)
+    for names in _groups(list(params), params):
+        p32 = [params[k].float() for k in names]
+        g32 = [grads[k].float() for k in names]
+        if scale is not None:
+            g32 = torch._foreach_mul(g32, scale)
+        m = [state.m[k] for k in names]
+        v = [state.v[k] for k in names]
+        torch._foreach_mul_(m, beta1)
+        torch._foreach_add_(m, g32, alpha=1.0 - beta1)
+        torch._foreach_mul_(v, beta2)
+        torch._foreach_addcmul_(v, g32, g32, value=1.0 - beta2)
+        del g32
+        denom = torch._foreach_sqrt(torch._foreach_div(v, bc2))
+        torch._foreach_add_(denom, eps)
+        delta = torch._foreach_div(torch._foreach_div(m, bc1), denom)
+        del denom
+        if weight_decay:
+            torch._foreach_add_(delta, p32, alpha=weight_decay)
+        torch._foreach_add_(p32, delta, alpha=-lr)
+        for k, new in zip(names, p32):
+            if new is not params[k]:
+                params[k].copy_(new)
     return params, state, norm

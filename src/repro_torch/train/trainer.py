@@ -35,7 +35,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import TrainConfig
 from repro_torch.distributed.compat import axis_group, barrier, group_rank
 from repro_torch.distributed.sharding import shard_tokens
-from repro_torch.interop import from_jax_flat, jax_key, to_jax_flat
+from repro_torch.interop import from_jax_flat, jax_keys, to_jax_flat
 from repro_torch.obs import annotate
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
@@ -88,7 +88,7 @@ class Trainer:
     def _build(self):
         self.net = self.model.init(self.tcfg.seed)
         self.device = next(self.net.parameters()).device
-        keys = [jax_key(name) for name in self.net.state_dict()]
+        keys = jax_keys(self.net.state_dict())
         try:
             last, restored = self.ckpt.restore_latest(keys)
         except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
@@ -117,8 +117,10 @@ class Trainer:
         self._stop = True
 
     def fit(self, batch_fn: Callable[[int], dict], *, steps: Optional[int] = None):
-        """batch_fn(step) -> global batch (tensors or numpy). Returns the
-        metric history, one dict of floats per step."""
+        """batch_fn(step) -> global batch (tensors or numpy: the pde
+        family's points, or the LMs' int32 ``tokens`` and ``labels``, moved
+        to the device in their dtype). Returns the metric history, one dict
+        of floats per step."""
         steps = steps or self.tcfg.steps
         history = []
         while self.step < steps and not self._stop:

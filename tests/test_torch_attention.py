@@ -216,8 +216,10 @@ def test_qwen2_smoke_lm_matches_jax(dtype):
 
 def test_dense_family_builds_on_cuda_without_a_card():
     """get_model defaults to cuda and resolves no mixer plan for gqa; its
-    training is not ported."""
+    loss trains (here the smoke config's, on the CPU: a finite scalar)."""
     m = get_model(get_config("qwen2_1_5b"))
     assert m.plans == {} and m.prefill_into is not None
-    with pytest.raises(NotImplementedError, match="dense training"):
-        m.loss(None, None)
+    sm = get_model(get_smoke_config("qwen2_1_5b"), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 9)))
+    loss = sm.loss(sm.init(0), {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert loss.dim() == 0 and loss.requires_grad and math.isfinite(loss.item())

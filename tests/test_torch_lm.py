@@ -290,10 +290,19 @@ def test_decode_continues_forward():
     assert torch.isinf(fresh.layers[0].m_max).all() and fresh.layers[0].num.shape == (2, 4, 8, 16)
 
 
-def test_loss_is_not_ported():
-    _, _, tmod, net = _models("float32")
-    with pytest.raises(NotImplementedError, match="flare_lm training is not ported yet"):
-        tmod.loss(net, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+def test_loss_runs():
+    """The loss trains under the causal_stream plan: a finite scalar whose
+    gradient reaches every parameter, equal to JAX's (tests/test_torch_lm_train.py
+    holds it and its gradients)."""
+    jmod, jp, tmod, net = _models("float32")
+    toks = _tokens(2, 17)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss = tmod.loss(net, {k: torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    assert tmod.plans["train"].backend == "causal_stream" and loss.dim() == 0
+    np.testing.assert_allclose(loss.item(), float(jmod.loss(jp, {k: jnp.asarray(v) for k, v
+                                                                 in batch.items()})), rtol=1e-5)
+    assert all(p.grad is not None and bool(p.grad.isfinite().all()) for p in net.parameters())
 
 
 # --- data and configs -------------------------------------------------------------
@@ -315,7 +324,7 @@ def test_flare_lm_config_matches_jax(smoke):
     jc = (jget_smoke if smoke else jget_config)("flare_lm")
     tc = (get_smoke_config if smoke else get_config)("flare_lm")
     for f in ("name", "family", "num_layers", "d_model", "d_ff", "vocab", "norm", "norm_eps",
-              "tie_embeddings", "param_dtype", "compute_dtype"):
+              "tie_embeddings", "param_dtype", "compute_dtype", "remat", "microbatch"):
         assert getattr(tc, f) == getattr(jc, f), f
     for f in ("kind", "num_heads", "num_kv_heads", "head_dim", "flare_latents", "flare_chunk"):
         assert getattr(tc.attn, f) == getattr(jc.attn, f), f
