@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: the FLARE PDE
-surrogate's inference and training, the causal FLARE LM's serving,
+surrogate's inference and training, the four Table-1 baselines trained
+beside it, the causal FLARE LM's serving,
 Qwen2-1.5B and Phi-3-mini served from the paged KV pool, the dense
 family's prefill (Qwen2-1.5B, Phi-3-mini) through the flash-attention
 kernels (bf16 on the tensor cores, fp32 on the CUDA cores), and training
@@ -93,6 +94,27 @@ failure so the script exits non-zero:
 7. the kernel path against the plain path in training: 5 steps under
    ``packed`` and 5 under ``sdpa`` from the same weights and batches at B=2,
    N=4,096, loss and grad_norm per step and the parameters after;
+7b. ``pde baselines`` (run last, after phase 14, so that its largest
+   tensors come after the host-paced phases): the Table-1 mixers at
+   flare_pde's width (C=64, H=8,
+   D=8, 8 blocks, M=2048 latents, slices or projected length), weights from
+   seed 0. Each baseline (vanilla, Perceiver, Linformer, Transolver) at B=1,
+   N=4,096 against the fp64 plain oracle (the plain ``sdpa`` route on fp64
+   weights and inputs): the forward within 1e-5 of max |y|, every gradient
+   of ``surrogate_loss`` within 1e-4 of its leaf's max |g| (leaves whose
+   exact gradient is zero: of the tree's), the fp32 plain route's reading
+   printed beside; the oracle with the last 1,024 rows of its last
+   attention call zeroed must fail both. Then pde_16k (Darcy at grid 128,
+   B=8, N=16,384, the Linformer's cap): 5 AdamW steps of each mixer through
+   ``make_train_step`` over ``surrogate_loss`` (FLARE under its ``packed``
+   plan, a counted window: 40 fused forward and 40 fused backward launches),
+   ms a step (median of steps 2-5), ms a forward, peak GiB, parameters,
+   losses; a profiled step of each baseline must show SDPA's
+   memory-efficient kernels (``fmha_cutlassF`` / ``fmha_cutlassB``) and no
+   materialised softmax, their ops dispatched once a call each way and no
+   math-route op, its peak below one block's scores and softmax. Last, one block's forward at B=1 over N in
+   {4,096; 16,384; 40,000; 2^20} beside FLARE's (fig. 8; the Linformer to
+   16,384, vanilla to 40,000), and the phase's seconds;
 8. the causal kernel on random operands: bf16 at flare_lm's width (H=16,
    M=512, D=128, B=1, T=8,192) and a ragged shape (T=97, M=16, D=8) in fp32
    and bf16, held as in phase 3, and the full-width bf16 output (the
@@ -395,6 +417,32 @@ WIDE_SHAPE = dict(b=2, h=3, m=40, n=700)
 # on one rank it runs the same kernels in the same order, so equal expected)
 SHARD_SLICES, SHARDED_STEPS, SHARDED_STEPS_1M = 4, 5, 2
 SHARD_TOL = 1e-4
+# the Table-1 mixers at flare_pde's width (C=64, H=8, D=8, 8 blocks, M=2048:
+# FLARE's latents, the Perceiver's latents, the Linformer's projected length,
+# the Transolver's slices). pde_16k: Darcy at grid 128, B=8, N=16,384, the
+# largest N all five take (the Linformer's learned projection has 16,384
+# rows); 5 AdamW steps each (TrainConfig's defaults: weight decay on)
+BASELINES = ("vanilla", "perceiver", "linformer", "transolver")
+TABLE1 = dict(b=8, grid=128, steps=5)
+# each baseline against the fp64 plain oracle (the plain sdpa route, fp64
+# operands and weights) at B=1, N=4,096, where its scores fit: the forward
+# over max |y| and every gradient over its leaf's max |g| (a key bias and
+# the Perceiver's unread enc/dec ln2 and mlp, whose exact gradient is zero,
+# over the tree's max |g|), at the CPU tests' fp32 limits. The oracle with
+# the last LOST_CHUNK rows of one attention output zeroed (the last call:
+# block 7's, the Perceiver's decode) must fail both
+BASE_CHECK_GRID, BASE_FWD_TOL, BASE_GRAD_TOL = 64, 1e-5, 1e-4
+# one block's forward at B=1 over N (fig. 8); the Linformer takes N <= 16,384
+# and vanilla attention is not timed at 2^20 tokens (N^2 = 1.1e12 scores a head)
+FIG8_N = (4096, 16384, 40000, 1 << 20)
+VANILLA_MAX_N = 40000
+# SDPA's memory-efficient kernels (the baselines' attention route), as the
+# profiler names them, and the aten ops that launch them, as a dispatch mode
+# sees them: once each way a call
+MEM_EFF = ("fmha_cutlassF", "fmha_cutlassB")
+MEM_EFF_OPS = ("_scaled_dot_product_efficient_attention",
+               "_scaled_dot_product_efficient_attention_backward")
+SOFTMAX = ("softmax_warp", "SoftMax")   # a materialised softmax: the math route's
 
 
 def max_sm_clock_mhz() -> float:
@@ -3443,6 +3491,313 @@ def phi3_phases(checks: Checks, device) -> dict:
     return {"flash_attention_tc": launches, "paged_attention": paged}
 
 
+def baseline_net(cfg, mixer: str, device):
+    """A Table-1 surrogate at ``cfg``'s width and depth, drawn from seed 0."""
+    import torch
+
+    from repro_torch.models import pde
+
+    return pde.init_surrogate(mixer, in_dim=3, out_dim=1, dim=cfg.d_model,
+                              num_blocks=cfg.num_layers, num_heads=cfg.flare_heads,
+                              num_latents=cfg.flare_latents,
+                              generator=torch.Generator().manual_seed(SEED), device=device)
+
+
+def attention_calls(cfg, mixer: str) -> int:
+    """The attention calls of one forward: one a block; the Perceiver's
+    encode, latent blocks and decode."""
+    return cfg.num_layers + 2 if mixer == "perceiver" else cfg.num_layers
+
+
+def lose_rows(attend, call: int, n: int):
+    """``attend`` with the last ``n`` rows of its ``call``-th output (1-based,
+    counted over one forward) zeroed: a lost chunk (tokens; the Transolver's
+    rows are slices)."""
+    import torch
+
+    seen = [0]
+
+    def lossy(q, k, v):
+        out = attend(q, k, v)
+        seen[0] += 1
+        if seen[0] != call:
+            return out
+        keep = torch.ones(out.shape[-2], 1, dtype=out.dtype, device=out.device)
+        keep[-n:] = 0
+        return out * keep
+
+    return lossy
+
+
+def exact_zero_grad(name: str) -> bool:
+    """Leaves whose exact gradient is zero: a key bias (the softmax cancels a
+    shift of every key) and the Perceiver's unread enc/dec ln2 and mlp."""
+    return name.endswith("wk.bias") or any(
+        name.startswith(f"perceiver.{p}.{leaf}.") for p in ("enc", "dec") for leaf in ("ln2", "mlp"))
+
+
+def loss_grads(net, batch, mixer: str, heads: int, attend) -> dict:
+    """{leaf: the gradient of surrogate_loss} (zeros where no path reads it)."""
+    import torch
+
+    from repro_torch.models.pde import surrogate_loss
+
+    net.zero_grad(set_to_none=True)
+    surrogate_loss(net, batch, mixer=mixer, num_heads=heads, attend=attend).backward()
+    out = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+           for k, p in net.named_parameters()}
+    net.zero_grad(set_to_none=True)
+    return out
+
+
+def leaf_rels(grads: dict, want: dict) -> list:
+    """[(error over the leaf's max |g| (a leaf whose exact gradient is zero:
+    over the tree's), leaf, its max |g|)], the largest first."""
+    tree = max(w.abs().max().item() for w in want.values())
+    out = []
+    for name, w in want.items():
+        peak = w.abs().max().item()
+        out.append((max_err(grads[name], w) / (tree if exact_zero_grad(name) else peak),
+                    name, peak))
+    return sorted(out, reverse=True)
+
+
+def check_baseline(cfg, mixer: str, device) -> list:
+    """``mixer`` at full width on one Darcy example at N=4,096: the forward
+    (SDPA's memory-efficient kernel, fp32) and the gradients of
+    surrogate_loss against the fp64 plain oracle on the same weights, each
+    with the oracle that lost the last LOST_CHUNK rows of its last attention
+    call rejected; the fp32 plain route's reading printed beside. Returns
+    the failures."""
+    import copy
+
+    import torch
+
+    from repro_torch.data.pde_data import darcy_batch
+    from repro_torch.models.pde import attention, plain_attention, surrogate_forward
+
+    heads, calls = cfg.flare_heads, attention_calls(cfg, mixer)
+    net = baseline_net(cfg, mixer, device)
+    net64 = copy.deepcopy(net).double()
+    batch = darcy_batch(SEED, 2, 1, grid=BASE_CHECK_GRID)
+    b64 = {k: v.double() for k, v in batch.items()}
+    lost = lambda: lose_rows(plain_attention, calls, LOST_CHUNK)
+    with torch.no_grad():
+        fwd = lambda m, b, attend: surrogate_forward(m, b["x"], mixer=mixer, num_heads=heads,
+                                                     attend=attend)
+        y64 = fwd(net64, b64, plain_attention)
+        scale = y64.abs().max().item()
+        rel, rel_plain, rel_lost = (max_err(fwd(*a), y64) / scale for a in (
+            (net, batch, attention), (net, batch, plain_attention), (net64, b64, lost())))
+    want = loss_grads(net64, b64, mixer, heads, plain_attention)
+    g = leaf_rels(loss_grads(net, batch, mixer, heads, attention), want)
+    g_plain = leaf_rels(loss_grads(net, batch, mixer, heads, plain_attention), want)
+    g_lost = leaf_rels(loss_grads(net64, b64, mixer, heads, lost()), want)
+    n = batch["x"].shape[1]
+    top = lambda rows: ", ".join(f"{name} {r:.3g} (max|g| {peak:.3g})" for r, name, peak in rows[:3])
+    print(f"check {mixer} B=1 N={n} vs fp64 plain: forward max|y| {scale:.4g} rel {rel:.3g} "
+          f"(limit {BASE_FWD_TOL:g}) [fp32 plain: rel {rel_plain:.3g}], lost {LOST_CHUNK} rows "
+          f"of call {calls}: rel {rel_lost:.3g}", flush=True)
+    print(f"  grads over each leaf's max |g| (tree max "
+          f"{max(w.abs().max().item() for w in want.values()):.4g}; limit "
+          f"{BASE_GRAD_TOL:g}): {top(g)}\n  [fp32 plain: {top(g_plain)}]\n  lost: {top(g_lost)}",
+          flush=True)
+    failures = []
+    if not (math.isfinite(rel) and rel <= BASE_FWD_TOL < rel_lost):
+        failures.append(f"{mixer} forward rel {rel:.3g}, lost {rel_lost:.3g} "
+                        f"(limit {BASE_FWD_TOL})")
+    if not (math.isfinite(g[0][0]) and g[0][0] <= BASE_GRAD_TOL < g_lost[0][0]):
+        failures.append(f"{mixer} grads rel {g[0][0]:.3g} ({g[0][1]}), lost {g_lost[0][0]:.3g}")
+    return failures
+
+
+def aten_ops(fn) -> dict:
+    """{aten op: calls} that one call of ``fn`` dispatches, its backward's
+    included, counted by a dispatch mode (no profiler session)."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return dict(count.ops)
+
+
+def table1_row(checks: Checks, cfg, mixer: str, batch, device) -> dict:
+    """TABLE1's AdamW steps of ``mixer`` through ``make_train_step`` over
+    ``surrogate_loss`` (FLARE: ``get_model``'s loss under its ``packed``
+    train plan) in one counted window; ms a step (median of steps 2-5), ms a
+    forward, peak GiB, parameters, losses. FLARE's fused forward and
+    backward are first held on block 0's operands at this shape (its own
+    split geometry) against the fp64 plain version, a lost tile rejected.
+    A baseline's profiled step shows SDPA's memory-efficient kernels (no
+    materialised softmax beside the Transolver's own), and one more step
+    dispatches their ops once a call each way."""
+    import statistics
+
+    import torch
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.api import get_model
+    from repro_torch.models.pde import surrogate_forward, surrogate_loss
+    from repro_torch.nn.modules import count_params
+    from repro_torch.optim import init_adamw
+    from repro_torch.train import make_train_step
+
+    heads = cfg.flare_heads
+    if mixer == "flare":
+        model = get_model(cfg)
+        if model.plans["train"].describe() != "packed":
+            raise AssertionError(f"flare train plan {model.plans['train'].describe()}")
+        net, loss_fn, policy = model.init(SEED), model.loss, model.plans["infer"]
+        ops = mixer_operands(net, batch["x"])
+        b, h, n, d = ops[1].shape
+        dy = torch.randn(b, n, h, d, generator=torch.Generator().manual_seed(SEED + 7))
+        check_main(checks, "pde_16k", *ops)
+        check_bwd_main(checks, "pde_16k", *ops, dy.to(device).transpose(1, 2))
+        del ops, dy
+        torch.cuda.empty_cache()
+    else:
+        net, policy = baseline_net(cfg, mixer, device), None
+        loss_fn = lambda m, b: surrogate_loss(m, b, mixer=mixer, num_heads=heads)
+    step = make_train_step(loss_fn, TrainConfig(steps=TABLE1["steps"], seed=SEED))
+    opt = init_adamw(dict(net.named_parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, ms = [], []
+    for _ in range(TABLE1["steps"]):
+        t0 = time.perf_counter()
+        _, opt, met = step(net, opt, batch)
+        losses.append(float(met["loss"]))   # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: surrogate_forward(net, batch["x"], mixer=mixer, num_heads=heads,
+                                                   policy=policy), reps=3)
+    row = dict(ms=statistics.median(ms[1:]), fwd_ms=fwd_ms, peak=peak, params=count_params(net),
+               losses=losses, counts={k: n for k, n in counts.items() if n})
+    print(f"table1 {mixer} pde_16k B={TABLE1['b']} N={batch['x'].shape[1]}: "
+          f"{row['ms']:.3f} ms/step (median of steps 2-{TABLE1['steps']}; "
+          f"{[round(t, 3) for t in ms]}), {fwd_ms:.3f} ms/forward, peak {peak:.2f} GiB, "
+          f"{row['params']:,} parameters, losses {[round(x, 6) for x in losses]}, "
+          f"launches {row['counts']}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"table1 {mixer}: non-finite loss {losses}")
+    if mixer == "flare":
+        per_run = TABLE1["steps"] * cfg.num_layers
+        if not counts["flare_fused_fwd"] == counts["flare_fused_bwd"] == per_run:
+            raise AssertionError(f"table1 flare launches {counts}")
+        return row
+    if row["counts"]:
+        raise AssertionError(f"table1 {mixer}: a port kernel launched: {row['counts']}")
+    seen = breakdown(lambda: step(net, opt, batch), f"table1 {mixer} step", top=6)
+    assert_route(seen, f"table1 {mixer} step", MEM_EFF,
+                 refuse=() if mixer == "transolver" else SOFTMAX)
+    ops = aten_ops(lambda: step(net, opt, batch))
+    calls = attention_calls(cfg, mixer)
+    got = {op: n for op, n in ops.items() if "attention" in op}
+    print(f"  {mixer}: attention ops a step {got}", flush=True)
+    if got != {op: calls for op in MEM_EFF_OPS}:
+        raise AssertionError(f"table1 {mixer}: {got} in a step, not the memory-efficient op "
+                             f"once each way for each of its {calls} attention calls")
+    # the math route would hold one block's [B, H, S, T] fp32 scores and their
+    # softmax at once (the Transolver's slice scores are small beside its
+    # slice weights, so its peak shows nothing of the route)
+    b, n, s = TABLE1["b"], batch["x"].shape[1], cfg.flare_latents
+    scores = {"vanilla": n * n, "perceiver": s * n, "linformer": n * s,
+              "transolver": s * s}[mixer] * b * heads * 4 / 2**30
+    print(f"  {mixer}: {calls} memory-efficient attention calls a step each way; one block's "
+          f"fp32 scores would be {scores:.2f} GiB, the step's peak {peak:.2f} GiB", flush=True)
+    if mixer != "transolver" and not peak < 2 * scores:
+        raise AssertionError(f"table1 {mixer}: peak {peak:.2f} GiB is not below one block's "
+                             f"materialised scores and softmax ({2 * scores:.2f} GiB)")
+    return row
+
+
+def fig8_sweep(cfg, device) -> dict:
+    """One block's forward (the Perceiver: encode, one latent block, decode)
+    under no_grad at B=1 over FIG8_N, by CUDA events, each beside FLARE's
+    block (the ``packed`` plan) at the same N."""
+    import torch
+
+    from repro_torch.core.flare import flare_block, init_flare_block
+    from repro_torch.models import pde
+    from repro_torch.models.api import get_model
+
+    c, h, m = cfg.d_model, cfg.flare_heads, cfg.flare_latents
+    plan = get_model(cfg).plans["infer"]
+    gen = torch.Generator().manual_seed(SEED + 5)
+    kw = dict(generator=gen, device=device)
+    gen_x = torch.Generator(device=device).manual_seed(SEED + 6)   # inputs drawn on the card
+    blocks = {"flare": init_flare_block(c, h, m, **kw),
+              "vanilla": pde.init_vanilla_block(c, h, **kw),
+              "perceiver": pde.init_perceiver(c, h, m, 1, **kw),
+              "linformer": pde.init_linformer_block(c, h, m, **kw),
+              "transolver": pde.init_transolver_block(c, h, m, **kw)}
+    run = {"flare": lambda x: flare_block(blocks["flare"], x, policy=plan),
+           "vanilla": lambda x: pde.vanilla_block(blocks["vanilla"], x, h),
+           "perceiver": lambda x: pde.perceiver_forward(blocks["perceiver"], x, h),
+           "linformer": lambda x: pde.linformer_block(blocks["linformer"], x, h),
+           "transolver": lambda x: pde.transolver_block(blocks["transolver"], x, h)}
+    times = {}
+    for n in FIG8_N:
+        x = torch.randn(1, n, c, generator=gen_x, device=device)
+        row = {}
+        for mixer in ("flare",) + BASELINES:
+            if mixer == "linformer" and n > pde.MAX_TOKENS:
+                row[mixer] = f"skipped: N > {pde.MAX_TOKENS}"
+            elif mixer == "vanilla" and n > VANILLA_MAX_N:
+                row[mixer] = "skipped: N²"
+            else:
+                with torch.no_grad():
+                    row[mixer] = cuda_ms(lambda: run[mixer](x), reps=2 if n > 1e5 else 5)
+            times[mixer, n] = row[mixer]
+        flare = row["flare"]
+        print(f"fig8 N={n}: flare {flare:.3f} ms | " + " | ".join(
+            f"{k} {v:.3f} ms ({v / flare:.2f}x flare)" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items() if k != "flare"), flush=True)
+        del x
+        torch.cuda.empty_cache()
+    return times
+
+
+def pde_baselines(checks: Checks, cfg, device) -> dict:
+    """The Table-1 phase: each baseline held against the fp64 plain oracle,
+    the fig. 8 sweep, the five mixers trained at pde_16k. Returns the FLARE
+    row's counted launches (the fused forward and backward)."""
+    import torch
+
+    from repro_torch.data.pde_data import darcy_batch
+
+    t0 = time.perf_counter()
+    failures = []
+    for mixer in BASELINES:
+        failures += check_baseline(cfg, mixer, device)
+        torch.cuda.empty_cache()
+    fig8_sweep(cfg, device)
+    batch = darcy_batch(SEED, 0, TABLE1["b"], grid=TABLE1["grid"])
+    rows = {}
+    for mixer in ("flare",) + BASELINES:
+        rows[mixer] = table1_row(checks, cfg, mixer, batch, device)
+        torch.cuda.empty_cache()
+    print(f"pde baselines phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("pde baselines: " + "; ".join(failures))
+    return rows["flare"]["counts"]
+
+
 def drive(model, net, batches: dict, label: str) -> dict:
     """One counted window: launch counts zeroed just before, read just after."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
@@ -3627,6 +3982,11 @@ def main() -> int:
     print(f"time paged_attention decode read layer 0: qwen2-1.5b (D=128) "
           f"{stats['paged_attention']['ms']:.4f} ms, phi3-mini-3.8b (D=96) "
           f"{phi3['paged_attention']['ms']:.4f} ms", flush=True)
+    # the Table-1 mixers at flare_pde's width. The FLARE row's train steps
+    # are a counted window of the fused forward and backward
+    for name, n in pde_baselines(checks, cfg, device).items():
+        stats[name]["launches"] += n
+    torch.cuda.empty_cache()
     for name in stats:
         stats[name]["max_abs_err"] = checks.max_abs[name]
 

@@ -30,8 +30,10 @@ from repro_torch.nn.modules import (
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
-    """softmax(q k^T * scale) v with an fp32 softmax. q: [..., S, D], k/v: [..., T, D]."""
-    scores = torch.einsum("...sd,...td->...st", q, k).float() * scale
+    """softmax(q k^T * scale) v with an fp32 softmax (fp64 for fp64 operands).
+    q: [..., S, D], k/v: [..., T, D]."""
+    scores = torch.einsum("...sd,...td->...st", q, k)
+    scores = scores.to(torch.promote_types(scores.dtype, torch.float32)) * scale
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("...st,...td->...sd", w.to(v.dtype), v)
 

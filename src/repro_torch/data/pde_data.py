@@ -114,3 +114,13 @@ def pointcloud_batch(seed: int, index: int, batch: int, *, grid: int = 32,
                           device=full["x"].device)[:, :, None]
     return {"x": full["x"].gather(1, idx.expand(-1, -1, 3)),
             "y": full["y"].gather(1, idx)}
+
+
+def darcy_dataset(seed: int, num: int, *, grid: int = 32, batch: int = 8, cg_iters: int = 200,
+                  device="cuda") -> list:
+    """A small dataset materialised as a list of ``num // batch`` batches,
+    batch i ``darcy_batch(seed, i, batch)`` solved on ``device`` and held as
+    host numpy arrays."""
+    return [{k: v.cpu().numpy() for k, v in darcy_batch(
+                seed, i, batch, grid=grid, cg_iters=cg_iters, device=device).items()}
+            for i in range(num // batch)]

@@ -8,7 +8,8 @@ the gqa decoder (``dense``, e.g. qwen2):
     net = m.init(seed)                  # the model's modules on that device
     pred = m.forward(net, batch)        # inference under m.plans["infer"]
     loss = m.loss(net, batch)           # differentiable, under m.plans["train"]
-                                        # (the LMs: batch {"tokens", "labels"})
+                                        # (PDE: surrogate_loss; the LMs: batch
+                                        # {"tokens", "labels"})
     # the LMs (flare_lm, dense) only:
     logits, caches = m.prefill(net, batch, capacity)      # batch may carry "lengths"
     logits, caches = m.decode_step(net, token, caches)    # token [B, 1]
@@ -163,17 +164,18 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
 
     def init(seed: int) -> pde.Surrogate:
         gen = torch.Generator().manual_seed(seed)
-        return pde.init_surrogate(in_dim=3, out_dim=1, dim=cfg.d_model,
+        return pde.init_surrogate("flare", in_dim=3, out_dim=1, dim=cfg.d_model,
                                   num_blocks=cfg.num_layers, num_heads=cfg.flare_heads,
                                   num_latents=cfg.flare_latents, generator=gen, device=dev)
 
     def forward(net: pde.Surrogate, batch) -> torch.Tensor:
         with torch.no_grad():
-            return pde.surrogate_forward(net, batch["x"], policy=plans["infer"])
+            return pde.surrogate_forward(net, batch["x"], num_heads=cfg.flare_heads,
+                                         policy=plans["infer"])
 
     def loss(net: pde.Surrogate, batch) -> torch.Tensor:
-        pred = pde.surrogate_forward(net, batch["x"], policy=plans["train"])
-        return pde.relative_l2(pred, batch["y"], group=group)
+        return pde.surrogate_loss(net, batch, num_heads=cfg.flare_heads,
+                                  policy=plans["train"], group=group)
 
     return Model(cfg=cfg, init=init, forward=forward, loss=_train_guard(loss, train_error),
                  plans=plans, mesh=mesh)

@@ -1,4 +1,5 @@
-"""Core modules: Linear (dense), Embedding, LayerNorm, RMSNorm, ResMLP, SwiGLU.
+"""Core modules: Linear (dense), Embedding, LayerNorm, RMSNorm, ResMLP, SwiGLU,
+GeluMLP.
 
 Counterpart of ``repro/nn/modules.py``. Parameters live in ``nn.Module``s;
 compute follows the same mixed-precision rule: parameters are cast to the
@@ -104,12 +105,14 @@ def init_layernorm(dim: int, *, device=None, dtype=torch.float32) -> LayerNorm:
 
 
 def layernorm(ln: LayerNorm, x: torch.Tensor, *, eps: Optional[float] = None) -> torch.Tensor:
+    """Statistics in fp32, or in x's dtype where it is wider (fp64 oracles)."""
     eps = ln.eps if eps is None else eps
-    x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mu) * torch.rsqrt(var + eps)
-    y = y * ln.scale.float() + ln.bias.float()
+    wide = torch.promote_types(x.dtype, torch.float32)
+    xw = x.to(wide)
+    mu = xw.mean(dim=-1, keepdim=True)
+    var = (xw - mu).square().mean(dim=-1, keepdim=True)
+    y = (xw - mu) * torch.rsqrt(var + eps)
+    y = y * ln.scale.to(wide) + ln.bias.to(wide)
     return y.to(x.dtype)
 
 
@@ -201,3 +204,33 @@ def init_swiglu(dim: int, hidden: int, *, generator: torch.Generator, device=Non
 def swiglu(mlp: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     """w_down(silu(w_gate x) * w_up x), bias-free."""
     return dense(mlp.w_down, F.silu(dense(mlp.w_gate, x)) * dense(mlp.w_up, x))
+
+
+# ---------------------------------------------------------------------------
+# GELU MLP (the classic transformer FFN; the PDE baselines' MLP)
+# ---------------------------------------------------------------------------
+
+class GeluMLP(nn.Module):
+    def __init__(self, w_up: nn.Linear, w_down: nn.Linear):
+        super().__init__()
+        self.w_up = w_up
+        self.w_down = w_down
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu_mlp(self, x)
+
+
+def init_gelu_mlp(dim: int, hidden: int, *, generator: torch.Generator, device=None,
+                  dtype=torch.float32) -> GeluMLP:
+    mk = lambda i, o: init_dense(i, o, generator=generator, use_bias=True,
+                                 device=device, dtype=dtype)
+    return GeluMLP(mk(dim, hidden), mk(hidden, dim))
+
+
+def gelu_mlp(mlp: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+    """w_down(GELU(w_up x)), both biased; the tanh GELU, ``jax.nn.gelu``'s default."""
+    return dense(mlp.w_down, F.gelu(dense(mlp.w_up, x), approximate="tanh"))
+
+
+def count_params(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())

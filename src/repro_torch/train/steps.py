@@ -4,7 +4,8 @@ Counterpart of ``repro/train/steps.py``. The microbatch loop is a Python
 loop that runs backward per microbatch, so only one microbatch of
 activations is alive at a time (the counterpart of the JAX ``lax.scan``).
 Gradients accumulate in each parameter's ``.grad`` and are averaged before
-the update, as the JAX step sums and then scales. Under sequence
+the update, as the JAX step sums and then scales; a parameter that no path
+reads gets a zero gradient, as ``jax.grad`` gives it. Under sequence
 parallelism (``grad_group``) each rank's gradients are its tokens' part,
 and they are summed over the group, in one flat buffer, before the update,
 so that the clip sees the global norm.
@@ -55,6 +56,9 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig, *, num_microbatches: i
             mb_loss = loss_fn(net, mb)
             mb_loss.backward()
             loss = loss + mb_loss.detach()
+        for p in params.values():
+            if p.grad is None:   # no path reads it (the Perceiver's enc/dec ln2 and mlp):
+                p.grad = torch.zeros_like(p)   # JAX's gradient there, so weight decay still applies
         if num_microbatches > 1:
             inv = 1.0 / num_microbatches
             for p in params.values():

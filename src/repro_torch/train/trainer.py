@@ -10,8 +10,9 @@ Counterpart of ``repro/train/trainer.py`` without gradient compression:
     the port is explicitly sequence-parallel, with the same loss and update.
     Rank 0 writes the checkpoints (the JAX layout) and every rank restores
     them;
-  - async checkpoints every ``checkpoint_every`` steps; SIGTERM/SIGINT make
-    the loop stop after the current step and save once more, blocking;
+  - async checkpoints every ``checkpoint_every`` steps; SIGTERM/SIGINT during
+    ``fit`` make the loop stop after the current step and save once more,
+    blocking;
   - resume from the latest checkpoint: parameters restored, the optimizer's
     step fast-forwarded, its moments restarted at zero (a warm restart, as
     in the JAX trainer; ``save_full_state`` writes the moments too);
@@ -22,6 +23,7 @@ Counterpart of ``repro/train/trainer.py`` without gradient compression:
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import signal
 import statistics
@@ -106,11 +108,30 @@ class Trainer:
         self._train_step = make_train_step(self.model.loss, self.tcfg,
                                            num_microbatches=self.num_microbatches,
                                            grad_group=self._group)
+
+    @contextlib.contextmanager
+    def _signals(self):
+        """SIGTERM/SIGINT handled by the trainer for the extent of a fit, the
+        previous handlers restored after. A handler left installed would hold
+        the trainer, and with it the model and its process groups, until the
+        interpreter's own teardown, which then races the groups' threads.
+        A signal whose handler was installed outside Python (``getsignal``
+        gives None) is left alone: that handler could not be restored."""
+        previous = {}
         for sig in (signal.SIGTERM, signal.SIGINT):
+            handler = signal.getsignal(sig)
+            if handler is None:
+                continue
             try:
                 signal.signal(sig, self._handle_term)
             except ValueError:   # not the main thread (tests)
-                pass
+                continue
+            previous[sig] = handler
+        try:
+            yield
+        finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
 
     def _handle_term(self, signum, frame):  # noqa: ARG002
         log.warning("signal %s received: will checkpoint and stop", signum)
@@ -121,7 +142,10 @@ class Trainer:
         family's points, or the LMs' int32 ``tokens`` and ``labels``, moved
         to the device in their dtype). Returns the metric history, one dict
         of floats per step."""
-        steps = steps or self.tcfg.steps
+        with self._signals():
+            return self._fit(batch_fn, steps or self.tcfg.steps)
+
+    def _fit(self, batch_fn: Callable[[int], dict], steps: int):
         history = []
         while self.step < steps and not self._stop:
             t0 = time.time()

@@ -464,6 +464,36 @@ def test_launcher_trains_on_a_mesh_of_one_cpu_rank(tmp_path):
     assert (tmp_path / "ck" / "step_2").is_dir()
 
 
+# the launcher's main() in a process of its own, then the names of the
+# process's threads: what is left running when the interpreter tears down
+LAUNCHER_THREADS_CODE = r"""
+import os, sys
+from repro_torch.launch.train import main
+
+main(["--arch", "flare_pde", "--smoke", "--device", "cpu", "--mesh", "host", "--mixer",
+      "packed_shard", "--steps", "2", "--global-batch", "2", "--ckpt", sys.argv[1]])
+print("THREADS", sorted(open(f"/proc/self/task/{t}/comm").read().strip()
+                        for t in os.listdir("/proc/self/task")))
+"""
+
+
+def test_launcher_leaves_no_group_thread_behind(tmp_path):
+    """When ``launch.train.main`` returns, the gloo group's threads (its
+    workers, its transport loop, the TCP store's server) are gone: nothing
+    holds the trainer, its model or the mesh, so they are not left for the
+    interpreter's teardown to race (the launcher's abort at exit)."""
+    if not os.path.isdir("/proc/self/task"):
+        pytest.skip("thread names come from Linux's /proc")
+    out = subprocess.run(
+        [sys.executable, "-c", LAUNCHER_THREADS_CODE, str(tmp_path / "ck")],
+        cwd=REPO, capture_output=True, text=True, timeout=240,
+        env={k: v for k, v in dict(os.environ, PYTHONPATH=str(REPO / "src")).items()
+             if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")})
+    assert out.returncode == 0, (out.stdout + out.stderr)[-3000:]
+    names = out.stdout.split("THREADS", 1)[1]
+    assert not any(s in names for s in ("gloo", "tcpstore")), names
+
+
 def test_launcher_mesh_without_a_card_raises():
     from repro_torch.launch.train import main
 

@@ -304,6 +304,36 @@ def test_trainer_stop_flag_checkpoints(tmp_path):
     assert tr.ckpt.latest_step() == tr.step == 6
 
 
+def test_trainer_signal_handlers_last_for_fit_alone(tmp_path, monkeypatch):
+    """``fit`` handles SIGTERM/SIGINT while it runs and restores the previous
+    handlers after; a handler installed outside Python (``getsignal`` gives
+    None) could not be restored, so ``fit`` leaves that signal alone."""
+    import signal
+
+    model = get_model(get_smoke_config("flare_pde"), device="cpu")
+    sigs = (signal.SIGTERM, signal.SIGINT)
+    before = [signal.getsignal(s) for s in sigs]
+    seen = []
+    data = _pde_batches(6)
+
+    def batch_fn(step):
+        seen.append([signal.getsignal(s) for s in sigs])
+        return data(step)
+
+    tr = Trainer(model, _tcfg(tmp_path / "a", steps=2))
+    tr.fit(batch_fn)
+    assert seen[0] == [tr._handle_term] * 2
+    assert [signal.getsignal(s) for s in sigs] == before
+
+    real_getsignal, real_signal, installed = signal.getsignal, signal.signal, []
+    monkeypatch.setattr(signal, "getsignal",
+                        lambda s: None if s == signal.SIGTERM else real_getsignal(s))
+    monkeypatch.setattr(signal, "signal", lambda s, h: installed.append(s) or real_signal(s, h))
+    Trainer(model, _tcfg(tmp_path / "b", steps=2)).fit(batch_fn)
+    assert installed == [signal.SIGINT, signal.SIGINT]   # installed, then restored
+    assert real_getsignal(signal.SIGINT) == before[1]
+
+
 def test_trainer_full_state_restores_in_jax_layout(tmp_path):
     model = get_model(get_smoke_config("flare_pde"), device="cpu")
     tr = Trainer(model, _tcfg(tmp_path / "ck", steps=3))
