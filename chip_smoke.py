@@ -2,7 +2,8 @@
 """Drive the PyTorch port's paths on one NVIDIA GPU: the FLARE PDE
 surrogate's inference and training, the four Table-1 baselines trained
 beside it, the causal FLARE LM's serving,
-Qwen2-1.5B and Phi-3-mini served from the paged KV pool, the dense
+Qwen2-1.5B and Phi-3-mini served from the paged KV pool (Qwen2-1.5B also
+with the prefix cache), the dense
 family's prefill (Qwen2-1.5B, Phi-3-mini) through the flash-attention
 kernels (bf16 on the tensor cores, fp32 on the CUDA cores), and training
 flare_lm and Qwen2-1.5B at full size.
@@ -200,6 +201,32 @@ failure so the script exits non-zero:
    first-step logits within 1e-3. Last, int8 and fp8 pools: first-step
    logits against the dense pool within the JAX package's envelope
    (|diff| <= 0.15 + 0.05 |ref|);
+12b. ``serve prefix``: the same qwen2 and engine with the prefix cache, the
+   paged kernel route (alone: ``scripts/torch_serve_prefix.py``). A seeded
+   1,792-token template (112 blocks), pinned first with ``pin_prefix``, and
+   16 requests (0: the template; i: the template and tail i % 4 of 64-448
+   tokens), 64 new tokens each, with the cache off and on in bf16: prefill
+   ms a request (cold and hit apart), decode ms a step, tokens/s, p50/p99
+   latency, page waits, the peaks of resident requests and shared pages,
+   COW copies, the hit rate and the paged launches (28 a step, counts
+   zeroed before and read after each run; the cache-on run's go into the
+   kernels line). Checks: the cache-on run's resident peak above the
+   cache-off run's; every hit's first-token logits within 5e-2 of max
+   |logit| of the cold run's (the first differing greedy token printed); a
+   control, one hit's first shared page pointed at another live block,
+   must exceed that limit; ``check_invariants`` with external references
+   after every step of every run, and after ``release_pins`` and the drain
+   no reference left; the cache-off run again with ``coalesce_prefill``
+   (coalesced prefills > 0, first-token logits within 5e-2 of the solo
+   run's); the cache-on run again with a ``Tracer`` and one expiring
+   request (the Chrome JSON, written to a temporary file, holds every
+   phase; the tokens unchanged; 28 ``kernels.paged_attention`` scopes, one
+   ``serve.decode`` and one ``serve.sample`` in a torch.profiler trace of
+   one decode step); in fp32 compute (a 512-token template, 4 requests, 24
+   new tokens) the cache on against off (greedy tokens printed, the hits'
+   first-token logits against the same suffix prefill run outside the
+   engine within 1e-3), and traced (the same tokens and host syncs). The
+   cold and hit prefills of the control run are profiled;
 13. ``flash``: the flash kernels on the same qwen2's layer 0 rope'd q and
    unexpanded k, v (12 query heads over 2 KV heads) at B=1, T=32,768
    (prefill_32k's length; its batch of 32 cut to 1): widened to fp32 (the
@@ -356,6 +383,15 @@ PAGED_SCALE = 0.7
 SERVE = dict(slots=8, capacity=4096, block_size=16, pool_tokens=16384)
 SERVE_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, (256, 2048), (64, 128)
 SERVE32_REQUESTS, SERVE32_NEW = 4, 24      # fp32 compute: greedy tokens held across routes
+# serving with the prefix cache, the same engine: a 1,792-token template
+# (112 blocks), 16 requests (0: the template; i: the template and tail
+# i % 4 of 64-448 tokens), 64 new tokens each. Cold, a request stakes its
+# bucket's 128 or 256 of the pool's 1,024 pages, so fewer than 8 are
+# resident; a hit stakes 5-32 pages beside the 112 pinned ones. fp32: a
+# 512-token template, 4 requests, 24 new tokens
+PREFIX_TEMPLATE, PREFIX_REQUESTS, PREFIX_NEW = 1792, 16, 64
+PREFIX_TAILS, PREFIX_VARIANTS = (64, 448), 4
+PREFIX32_TEMPLATE, PREFIX32_REQUESTS, PREFIX32_NEW = 512, 4, 24
 ROUTES = {"dense": dict(pool_tokens=None), "gather": dict(decode_backend="gather"),
           "paged": dict(decode_backend="paged")}
 # first-step logits of a route against the dense pool's, over max |logit|:
@@ -2973,6 +3009,357 @@ def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
 
 
 # --------------------------------------------------------------------------
+# The prefix cache: qwen2-1.5b served with a shared prompt template
+# --------------------------------------------------------------------------
+
+
+def prefix_workload(vocab: int, template_len: int, n: int):
+    """(template, prompts): one seeded ``template_len``-token template;
+    request 0 is the exact template, request i > 0 the template and tail
+    ``i % PREFIX_VARIANTS`` (seeded tails of ``PREFIX_TAILS`` tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 22)
+    template = rng.integers(0, vocab, template_len).astype(np.int32)
+    lens = rng.integers(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1, PREFIX_VARIANTS)
+    tails = [rng.integers(0, vocab, int(m)).astype(np.int32) for m in lens]
+    return template, [template.copy()] + [np.concatenate([template, tails[i % len(tails)]])
+                                          for i in range(1, n)]
+
+
+def record_prefills(engine, profile: bool = False) -> dict:
+    """Wrap the engine's prefills (full and suffix) to keep, by request id,
+    the logits its first token is sampled from and whether it was a hit,
+    and each prefill's ms a request (host clock around the call and a
+    synchronize, where the engine synchronizes anyway, to sample).
+    ``profile``: the first prefill of each kind runs under the profiler
+    (its device busy share and kernels printed)."""
+    import torch
+
+    rec = {"logits": {}, "hit": {}, "ms": {"cold": [], "hit": []}}
+
+    def wrap(fn, kind):
+        def run(net, batch, pool, slots, *rest):
+            t0 = time.perf_counter()
+            if profile and not rec["ms"][kind]:
+                (logits, pool), prof = traced(lambda: fn(net, batch, pool, slots, *rest))
+                report(*prof, f"serve prefix {kind} prefill (bucket {batch['tokens'].shape[1]})")
+            else:
+                logits, pool = fn(net, batch, pool, slots, *rest)
+            torch.cuda.synchronize()
+            rec["ms"][kind].append((time.perf_counter() - t0) * 1e3 / len(slots))
+            for i, slot in enumerate(slots.tolist()):
+                rid = engine.sched.running[slot].rid
+                rec["logits"][rid], rec["hit"][rid] = logits[i].float().clone(), kind == "hit"
+            return logits, pool
+        return run
+
+    engine._prefill_into = wrap(engine._prefill_into, "cold")
+    if engine._prefix_enabled:
+        engine._prefill_suffix = wrap(engine._prefill_suffix, "hit")
+    return rec
+
+
+def scope_counts(fn, names) -> dict:
+    """How many times each ``obs.scope`` name in ``names`` opens in one call
+    of ``fn``, from a torch.profiler trace of host ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.name in counts:
+            counts[e.name] += 1
+    return counts
+
+
+def prefix_run(model, net, template, prompts, label: str, *, cache: bool, new: int,
+               corrupt=None, expire: bool = False, profile: bool = False,
+               profile_prefills: bool = False, **kw) -> dict:
+    """One engine (``SERVE``, the paged kernel route, ``kw`` on top) over the
+    prompts, the template pinned first where ``cache``: launch counts zeroed
+    just before and read just after; ``check_invariants`` (every reference
+    held by a lease, a pin or a queued request) after every step; the peaks
+    of resident requests and shared pages. Then the pins are released, and
+    every block must be free or cached-free with no reference left.
+    ``corrupt(engine, req, slot)`` runs after a hit's pages are staked (the
+    control); ``expire`` queues first a request whose deadline has passed;
+    ``profile`` counts the ``obs.scope`` names of one decode step once the
+    queue has drained; ``profile_prefills`` profiles the first cold and the
+    first hit prefill."""
+    import torch
+
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ServeEngine
+
+    torch.cuda.synchronize()
+    engine = ServeEngine(model, net, **{**SERVE, "decode_backend": "paged",
+                                        "prefix_cache": cache, **kw})
+    rec = record_prefills(engine, profile_prefills)
+    if corrupt is not None:
+        stake = engine._stake_suffix
+
+        def staked(req, slot):
+            stake(req, slot)
+            corrupt(engine, req, slot)
+
+        engine._stake_suffix = staked
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pinned = engine.pin_prefix(template) if cache else 0
+    if expire:   # first in the queue: dropped at the first admission, its holds given back
+        engine.submit(prompts[-1], max_new_tokens=new, deadline_s=-1.0)
+    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    shared_peak, scopes, prof_s, prof_wall = 0, None, 0.0, 0.0
+    while True:
+        if profile and scopes is None and not engine.sched.waiting and engine.sched.running:
+            s0, w0 = engine.stats["decode_s"], time.perf_counter()
+            scopes = scope_counts(engine.step, ("kernels.paged_attention", "serve.decode",
+                                                "serve.sample"))
+            prof_s, prof_wall = engine.stats["decode_s"] - s0, time.perf_counter() - w0
+            more = engine.sched.has_work()
+        else:
+            more = engine.step()
+        engine.check_invariants()
+        shared_peak = max(shared_peak, engine.alloc.shared_blocks())
+        if not more:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - prof_wall
+    counts = launch_counts()
+    st = engine.stats
+    engine.release_pins()
+    engine.check_invariants()
+    pool = engine.alloc.stats()
+    done = {r.rid: r.tokens for r in engine.sched.finished}
+    ms = {k: sum(v) / len(v) if v else float("nan") for k, v in rec["ms"].items()}
+    steps = max(1, st["decode_steps"] - (scopes is not None))
+    out = {"label": label, "tokens": [done[r] for r in rids], "counts": counts, "stats": st,
+           "first": [rec["logits"][r] for r in rids],
+           "hits": [i for i, r in enumerate(rids) if rec["hit"][r]],
+           "cold_ms": ms["cold"], "hit_ms": ms["hit"],
+           "step_ms": 1e3 * (st["decode_s"] - prof_s) / steps,
+           "tok_s": st["tokens_generated"] / wall, "shared_peak": shared_peak, "scopes": scopes}
+    print(f"serve prefix {label}: {len(rids)} requests (+{pinned and 1} pin probe, "
+          f"{st['dropped']} dropped), {st['tokens_generated']} tokens in {wall:.2f} s "
+          f"({out['tok_s']:.1f} tok/s); prefill ms a request: cold {ms['cold']:.2f} "
+          f"(x{len(rec['ms']['cold'])}), hit {ms['hit']:.2f} (x{len(rec['ms']['hit'])}); decode "
+          f"{out['step_ms']:.3f} ms/step over {st['decode_steps']} steps; latency p50/p99 "
+          f"{st['latency_p50_s'] * 1e3:.1f}/{st['latency_p99_s'] * 1e3:.1f} ms; page waits "
+          f"{st['page_waits']}; resident peak {st['admitted_peak']}/{SERVE['slots']}; shared "
+          f"pages peak {shared_peak} ({pinned} pinned); cow copies {st['cow_copies']}; hit rate "
+          f"{st['prefix_hit_rate']:.4f}; coalesced prefills {st['coalesced_prefills']}; paged "
+          f"launches {counts['paged_attention']} ({counts['paged_attention'] / steps:g} a "
+          f"step); host syncs/step {st['host_syncs_per_step']}", flush=True)
+    if pool["blocks_free"] != pool["blocks_total"] or pool["blocks_reserved"] or engine.alloc._ref:
+        raise AssertionError(f"{label}: references left after the drain: {pool}")
+    if st["finished"] != len(rids) + (pinned > 0) or st["dropped"] != expire:
+        raise AssertionError(f"{label}: finished {st['finished']}, dropped {st['dropped']}")
+    want = model.cfg.num_layers * st["decode_steps"]
+    if counts["paged_attention"] != want or any(n for k, n in counts.items()
+                                                if k != "paged_attention"):
+        raise AssertionError(f"{label}: launches {counts}, expected {want} paged")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_logits_rel(label: str, pairs, tol: float) -> float:
+    """The worst of max |got - want| over max |want| on (got, want) pairs of
+    first-token logits; printed beside ``tol`` (the caller decides)."""
+    rels = [max_err(got, want) / want.abs().max().item() for got, want in pairs]
+    worst = max(rels)
+    print(f"serve prefix {label}: first-token logits of {len(rels)} requests, worst rel "
+          f"{worst:.4g} (request {rels.index(worst)}; limit {tol:g})", flush=True)
+    return worst
+
+
+def bucketed(prompt, dev) -> dict:
+    """One right-padded request batch of ``prompt`` at its prefill bucket."""
+    import torch
+
+    bucket = 8
+    while bucket < len(prompt):
+        bucket *= 2
+    tokens = torch.zeros(1, bucket, dtype=torch.long, device=dev)
+    tokens[0, :len(prompt)] = torch.from_numpy(prompt).to(dev)
+    return {"tokens": tokens, "lengths": torch.tensor([len(prompt)], dtype=torch.int32,
+                                                      device=dev)}
+
+
+def kv_rows_bitwise(model, net, template, prompt) -> None:
+    """Layer 0's and the last layer's template K/V rows from cold prefills of
+    the template alone and of a longer prompt (two prefill widths), compared
+    bitwise."""
+    dev = next(net.parameters()).device
+    caches = [model.prefill(net, bucketed(p, dev), SERVE["capacity"])[1]
+              for p in (template, prompt)]
+    n = len(template)
+    for layer in (0, len(caches[0].layers) - 1):
+        for name in ("k", "v"):
+            x = getattr(caches[0].layers[layer], name)[:, :, :n]
+            y = getattr(caches[1].layers[layer], name)[:, :, :n]
+            print(f"  layer {layer} {name}: {int((x != y).sum())} of {x.numel()} template "
+                  f"values differ between prefill widths {len(template)} and {len(prompt)} "
+                  f"(max abs {max_err(x, y):.3g})", flush=True)
+
+
+def suffix_outside(model, net, template, prompt):
+    """A hit's first-token logits computed outside the engine: the
+    template's cold prefill into dense caches, then ``prefill_suffix`` of
+    the rest (of the last token alone where the prompt is the template), as
+    the engine splits it where the tail's blocks are not cached."""
+    import torch
+
+    dev = next(net.parameters()).device
+    caches = model.prefill(net, bucketed(template, dev), SERVE["capacity"])[1]
+    offset = len(template) - 1 if len(prompt) == len(template) else len(template)
+    batch = bucketed(prompt[offset:], dev)
+    batch["offsets"] = torch.tensor([offset], dtype=torch.int32, device=dev)
+    return model.prefill_suffix(net, batch, caches)[0][0].float()
+
+
+def prefix_phase(cfg, model, net) -> int:
+    """Qwen2-1.5B at full width and depth served with the prefix cache (the
+    kernel route): the shared-template workload in bf16 with the cache off
+    and on, the hits' first-token logits against the cold run's, a
+    corrupted shared page as the control, the coalesced cache-off run, a
+    traced cache-on run with one decode step's scopes counted, and fp32 on
+    against off (greedy tokens). References are checked after every step of
+    every run. Returns the paged kernel's launches of the cache-on run (the
+    phase's main path)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.models.api import get_model
+    from repro_torch.obs.trace import Tracer
+
+    t_phase = time.perf_counter()
+    template, prompts = prefix_workload(cfg.vocab, PREFIX_TEMPLATE, PREFIX_REQUESTS)
+    print(f"serve prefix requests: a {len(template)}-token template, {len(prompts)} prompts of "
+          f"{[len(p) for p in prompts]} tokens, {PREFIX_NEW} new tokens each; engine {SERVE}",
+          flush=True)
+    off = prefix_run(model, net, template, prompts, "bf16 cache off", cache=False,
+                     new=PREFIX_NEW)
+    on = prefix_run(model, net, template, prompts, "bf16 cache on", cache=True, new=PREFIX_NEW)
+    print(f"serve prefix bf16 on vs off: prefill ms a request, hit {on['hit_ms']:.2f} vs cold "
+          f"{off['cold_ms']:.2f}; decode ms a step {on['step_ms']:.3f} vs {off['step_ms']:.3f}; "
+          f"tok/s {on['tok_s']:.1f} vs {off['tok_s']:.1f}; resident peak "
+          f"{on['stats']['admitted_peak']} vs {off['stats']['admitted_peak']}", flush=True)
+    failures = []
+    if not on["stats"]["admitted_peak"] > off["stats"]["admitted_peak"]:
+        failures.append("the cache-on run's resident peak is not above the cache-off run's")
+    if not (off["stats"]["page_waits"] > 0 and on["stats"]["cow_copies"] >= 1
+            and len(on["hits"]) == len(prompts)):
+        failures.append(f"page waits off {off['stats']['page_waits']}, cow copies "
+                        f"{on['stats']['cow_copies']}, hits {len(on['hits'])} of {len(prompts)}")
+    div = first_divergence(on["tokens"], off["tokens"])
+    print("serve prefix bf16 on vs off: greedy tokens "
+          + ("all equal" if div is None else f"first differ at request {div[0]}, token {div[1]}"),
+          flush=True)
+    # check 2: every hit's first-token logits against the cold run's
+    sound = first_logits_rel("bf16 hits vs cold", [(on["first"][i], off["first"][i])
+                                                   for i in on["hits"]], ROUTE_TOL["bfloat16"])
+    if not sound <= ROUTE_TOL["bfloat16"]:
+        failures.append(f"bf16 hits' first-token logits rel {sound:.4g}")
+
+    # check 3, the control: request 1's first shared page given the id of
+    # another live block (a pinned template block from the middle); the
+    # lease follows, so the references still hold
+    def corrupt(engine, req, slot):
+        other = engine._pins[len(engine._pins) // 2]
+        lease = engine._leases[slot]
+        engine.alloc.acquire(other)
+        engine.alloc.release_ref(lease.mapped[0])
+        lease.mapped[0] = engine._pt[slot, 0] = other
+
+    ctrl = prefix_run(model, net, template, prompts[1:2], "bf16 control", cache=True, new=1,
+                      corrupt=corrupt, profile_prefills=True)
+    control = first_logits_rel("control (request 1, page 0 -> a pinned middle block) vs cold",
+                               [(ctrl["first"][0], off["first"][1])], ROUTE_TOL["bfloat16"])
+    print(f"serve prefix control: sound {sound:.4g}, corrupted page {control:.4g}, limit "
+          f"{ROUTE_TOL['bfloat16']:g}", flush=True)
+    if not control > ROUTE_TOL["bfloat16"]:
+        failures.append(f"the limit passes a corrupted shared page (rel {control:.4g})")
+
+    # check 5: the cache-off run with coalesced prefill
+    coal = prefix_run(model, net, template, prompts, "bf16 cache off coalesced", cache=False,
+                      new=PREFIX_NEW, coalesce_prefill=True)
+    worst = first_logits_rel("coalesced vs solo", list(zip(coal["first"], off["first"])),
+                             ROUTE_TOL["bfloat16"])
+    print(f"serve prefix coalesced: prefill ms a request {coal['cold_ms']:.2f} vs solo "
+          f"{off['cold_ms']:.2f}", flush=True)
+    if not (coal["stats"]["coalesced_prefills"] > 0 and worst <= ROUTE_TOL["bfloat16"]):
+        failures.append(f"coalesced prefills {coal['stats']['coalesced_prefills']}, logits rel "
+                        f"{worst:.4g}")
+
+    # check 6: the cache-on run traced, with an expiring request, and one
+    # decode step's scopes counted
+    tracer = Tracer()
+    traced = prefix_run(model, net, template, prompts, "bf16 cache on traced", cache=True,
+                        new=PREFIX_NEW, tracer=tracer, expire=True, profile=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        tracer.write(str(path))
+        doc = json.loads(path.read_text())
+    phases = {e["name"] for e in doc["traceEvents"]}
+    need = {"enqueue", "prefix_walk", "admit", "prefill", "prefix_hit", "cow_copy", "retire",
+            "expire", "decode"}
+    scopes = {"kernels.paged_attention": cfg.num_layers, "serve.decode": 1, "serve.sample": 1}
+    print(f"serve prefix trace: {len(doc['traceEvents'])} events, phases "
+          f"{sorted(phases & need)}, missing {sorted(need - phases)}; one decode step's scopes "
+          f"{traced['scopes']} (want {scopes})", flush=True)
+    if need - phases or traced["scopes"] != scopes:
+        failures.append(f"trace phases missing {sorted(need - phases)}, scopes {traced['scopes']}")
+    if traced["tokens"] != on["tokens"]:
+        failures.append("bf16 greedy tokens changed with tracing on")
+
+    # check 1: fp32 compute, the cache on against off, and traced. Each hit's
+    # first-token logits are held against the same suffix prefill run outside
+    # the engine (no pages, no sharing); against the cold run they are
+    # printed: in fp32 compute a hit's suffix attends over the bf16 cache with
+    # its value product in bf16 (gqa_extend's staging, the JAX package's),
+    # where a cold prefill attends over its own fp32 K/V
+    model32 = get_model(replace(cfg, compute_dtype="float32"))
+    t32, p32 = prefix_workload(cfg.vocab, PREFIX32_TEMPLATE, PREFIX32_REQUESTS)
+    runs32 = {name: prefix_run(model32, net, t32, p32, f"fp32 cache {name}",
+                               cache=name != "off", new=PREFIX32_NEW,
+                               tracer=Tracer() if name == "on traced" else None)
+              for name in ("off", "on", "on traced")}
+    on32, traced32 = runs32["on"], runs32["on traced"]
+    div = first_divergence(on32["tokens"], runs32["off"]["tokens"])
+    print(f"serve prefix fp32 on vs off: greedy tokens of {PREFIX32_REQUESTS} x {PREFIX32_NEW} "
+          "positions " + ("all equal" if div is None else
+                          f"first differ at request {div[0]}, token {div[1]}"), flush=True)
+    first_logits_rel("fp32 hits vs cold (printed)",
+                     [(on32["first"][i], runs32["off"]["first"][i]) for i in on32["hits"]],
+                     LM_TOL["float32"])
+    engine32 = first_logits_rel("fp32 hits vs the suffix prefill outside the engine",
+                                [(on32["first"][i], suffix_outside(model32, net, t32, p32[i]))
+                                 for i in on32["hits"]], LM_TOL["float32"])
+    if not engine32 <= LM_TOL["float32"]:
+        failures.append(f"fp32 hits' first-token logits rel {engine32:.4g} off the suffix "
+                        "prefill outside the engine")
+    if div is not None:
+        kv_rows_bitwise(model32, net, t32, p32[1])
+    if traced32["tokens"] != on32["tokens"] or (traced32["stats"]["host_syncs_per_step"]
+                                                != on32["stats"]["host_syncs_per_step"]):
+        failures.append("fp32 greedy tokens or host syncs changed with tracing on")
+    print(f"serve prefix phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del model32, runs32
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("serve prefix: " + "; ".join(failures))
+    return on["counts"]["paged_attention"]
+
+
+# --------------------------------------------------------------------------
 # The flash-attention kernel: the dense family's full-sequence forward and
 # prefill (qwen2-1.5b, phi3-mini-3.8b) through attn_sdpa(impl="pallas")
 # --------------------------------------------------------------------------
@@ -3965,6 +4352,8 @@ def main() -> int:
     cfg_q, model_q, net_q = init_dense_lm("qwen2_1_5b", QWEN2_SIZE)
     stats["paged_attention"] = qwen2_phases(checks, cfg_q, model_q, net_q)
     stats["paged_attention"]["launches"] += paged_counts["paged_attention"]
+    # the same qwen2 served with the prefix cache: the cache-on run's launches
+    stats["paged_attention"]["launches"] += prefix_phase(cfg_q, model_q, net_q)
     # the dense family's prefill through the flash kernels: the tensor-core
     # kernel's launches are those of qwen2's and phi3's bf16 prefill windows,
     # the CUDA-core kernel's those of qwen2's fp32 forward window (its route)

@@ -7,6 +7,8 @@ the kernel that serves the slot pool's gqa decode reads also runs the mixer
 off block storage. A dense call site pages its K/V on the fly
 (:func:`pack_pages`, an identity page table). The decode, a softmax over
 the M latents per token, stays plain torch. Forward-only, bidirectional.
+The kernel's launch runs inside ``scope("kernels.paged_attention")``, which
+its wrapper opens for every caller (the reference opens it here).
 
 Its score is 40 at ``latents == 1``, the decode-read signature only the
 serving engine's plan resolution produces, so "auto" routes the paged

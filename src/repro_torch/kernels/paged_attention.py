@@ -16,7 +16,8 @@ the FLARE encode's (a thread a latent), which the C entry point picks from
 G, D and q2. The page slices a call splits each lane into come from the
 shapes and the card (``paged_attention_splits``). On a CPU tensor the
 wrapper runs the plain version (``kernels/ref.py::paged_attention_ref``); on
-a CUDA tensor it launches the kernel or raises. The page table and lengths
+a CUDA tensor it launches the kernel or raises, inside
+``obs.scope("kernels.paged_attention")``. The page table and lengths
 stay on the device: nothing is read back to the host, so a decode step that
 calls it once a layer keeps its one device-to-host copy. It counts its
 launches in ``paged_attention.launches``. Forward-only, as the TPU kernel.
@@ -32,6 +33,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flare import forbid_grad, ptr
 from repro_torch.kernels.ref import paged_attention_ref, paged_out_dtype
+from repro_torch.obs import scope
 
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
@@ -84,7 +86,16 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     and the first ``lengths[b]`` ([B] int32) tokens of them: q [B, H, G, D],
     pages [NB, block, H, D] -> [B, H, G, D] in ``out_dtype`` (default: the
     pages' dtype where that is fp32 or bf16, else q's). Lanes of length 0
-    return 0."""
+    return 0. Each call runs inside ``obs.scope("kernels.paged_attention")``,
+    so a ``torch.profiler`` trace names every launch, whoever the caller."""
+    with scope("kernels.paged_attention"):
+        return _paged_attention(q, k_pages, v_pages, page_table, lengths, scale=scale,
+                                k_scale=k_scale, v_scale=v_scale, q2=q2, k2_pages=k2_pages,
+                                k2_scale=k2_scale, out_dtype=out_dtype)
+
+
+def _paged_attention(q, k_pages, v_pages, page_table, lengths, *, scale, k_scale, v_scale, q2,
+                     k2_pages, k2_scale, out_dtype):
     opt = [t for t in (k_scale, v_scale, q2, k2_pages, k2_scale) if t is not None]
     forbid_grad("paged_attention", q, k_pages, v_pages, *opt,
                 grads_via="no kernel: the paged read is forward-only, as on the TPU")

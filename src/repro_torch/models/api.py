@@ -17,6 +17,9 @@ the gqa decoder (``dense``, e.g. qwen2):
     # continuous-batching insertion prefill: prefill a request batch and
     # write its caches into live pool slots (in place)
     logits, pool = m.prefill_into(net, batch, pool, slots, capacity=capacity)
+    # the prefix cache's suffix prefill (dense family only): continue caches
+    # holding batch["offsets"] prompt tokens by batch["tokens"]
+    logits, caches = m.prefill_suffix(net, batch, caches)
 
 The train plan is always resolved with ``requires_grad=True``, so training
 never lands on a forward-only kernel. PDE under a mesh
@@ -36,8 +39,10 @@ train plan ``causal_stream``, whose ``chunk_size`` is the config's
 ``flare_chunk``; a forward-only policy (``causal_pallas`` alone) builds, and
 ``loss`` raises as the PDE family's does.
 dense (gqa): no mixer plan (attention has its own ``impl``, "auto" here:
-the ``chunked`` route beyond 2,048 tokens, ``xla`` below); the prefix-cache
-``prefill_suffix`` is not ported.
+the ``chunked`` route beyond 2,048 tokens, ``xla`` below). ``prefill_suffix``
+is set where the cache is position-addressable history (gqa, unwindowed) and
+``None`` otherwise (``flare_lm``, the PDE family), as in the JAX package;
+the serving engine's prefix cache is off where it is ``None``.
 ``forward`` returns ``(logits [B, S, vocab] fp32, aux)``; the LMs' ``loss``
 is ``transformer.lm_loss``, each decoder layer checkpointed as
 ``cfg.remat`` says.
@@ -71,6 +76,8 @@ class Model:
     decode_step: Optional[Callable[..., Any]] = None
     init_caches: Optional[Callable[..., Any]] = None
     prefill_into: Optional[Callable[..., Any]] = None
+    # (net, batch, caches) -> (logits, caches): the prefix cache's hit path
+    prefill_suffix: Optional[Callable[..., Any]] = None
 
 
 def make_prefill_into(prefill, init_caches):
@@ -208,6 +215,12 @@ def _lm(cfg: ModelConfig, dev: torch.device, plans, train_error) -> Model:
     def loss(net: t.LM, batch) -> torch.Tensor:
         return t.lm_loss(net, batch, cfg, plan=train)
 
+    def prefill_suffix(net: t.LM, batch, caches) -> tuple:
+        with torch.no_grad():
+            return t.lm_prefill_suffix(net, batch, caches, cfg)
+
     return Model(cfg=cfg, init=init, forward=forward, loss=_train_guard(loss, train_error),
                  plans=plans, prefill=prefill, decode_step=decode_step, init_caches=init_caches,
-                 prefill_into=make_prefill_into(prefill, init_caches))
+                 prefill_into=make_prefill_into(prefill, init_caches),
+                 prefill_suffix=(prefill_suffix if cfg.attn.kind == "gqa"
+                                 and cfg.attn.sliding_window is None else None))

@@ -1,8 +1,8 @@
 """GQA attention (RoPE / M-RoPE, QKV bias, sliding window): the train and
 prefill forward, and single-token decode against a KV cache.
 
-Counterpart of the gqa half of ``repro/models/attention.py``. MLA and the
-prefix-cache continuation (``gqa_extend``) are not ported yet.
+Counterpart of the gqa half of ``repro/models/attention.py``, with the
+prefix cache's continuation (``gqa_extend``). MLA is not ported yet.
 
 ``attn_sdpa`` is written op for op as the JAX package's XLA paths: the score
 einsum in the operands' dtype, then the cast to fp32, then ``* scale``, then
@@ -297,3 +297,45 @@ def prefill_kv_cache(k: torch.Tensor, v: torch.Tensor, cfg: AttnConfig, capacity
     pad = (0, 0, 0, cap - s)
     return KVCache(torch.nn.functional.pad(k, pad).to(bf16),
                    torch.nn.functional.pad(v, pad).to(bf16), length)
+
+
+def gqa_extend(attn: GQA, x: torch.Tensor, cfg: AttnConfig, cache: KVCache, *,
+               positions: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor):
+    """Width-S prefill continuation of an existing cache (the prefix cache's
+    suffix path): x [B, S, C] the right-padded suffix, positions [B, S] (or
+    [3, B, S]) absolute, ``offsets`` [B] the tokens already in the cache,
+    ``lengths`` [B] the true suffix lengths. The suffix's rope'd K/V rows go
+    into the cache at ``offsets + i`` (in place) and each suffix query
+    attends causally over prefix and suffix -> (y [B, S, C], the cache at
+    ``offsets + lengths``).
+
+    The scores follow :func:`attn_sdpa`'s ``xla`` route op for op (the score
+    product in the operands' dtype, the cast to fp32, ``* scale``, the
+    ``-inf`` mask, the softmax, the cast to the cache's dtype, the value
+    product), never SDPA or the flash kernel: a hit's greedy tokens equal a
+    cold prefill's only when every reduction is staged as the prefill's
+    (the masked keys add exact zeros, so the capacity-wide axis rounds as
+    the bucket-wide one). Rows past ``lengths`` are bucket padding: the
+    engine's masked scatter drops their cache rows, and no real query
+    reaches them. Unwindowed caches only: a ring buffer's prefix rows do not
+    stay at their positions."""
+    q, k, v = _qkv(attn, x, cfg, positions)
+    b, s = x.shape[:2]
+    ck, cv = cache.k, cache.v
+    cap = ck.shape[2]
+    pos = offsets.long()[:, None] + torch.arange(s, device=x.device)[None, :]   # [B, S]
+    rows = torch.arange(b, device=x.device)[:, None]
+    # advanced indices around the head axis put [B, S] first: rows as [B, S, Hkv, D]
+    ck[rows, :, pos] = k.transpose(1, 2).to(ck.dtype)
+    cv[rows, :, pos] = v.transpose(1, 2).to(cv.dtype)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    kk, vv = _expand_kv(ck, groups), _expand_kv(cv, groups)
+    dt = torch.promote_types(q.dtype, kk.dtype)   # jnp.einsum's promotion of mixed operands
+    scores = torch.einsum("bhsd,bhtd->bhst", q.to(dt), kk.to(dt)).float()
+    scores = scores * (1.0 / math.sqrt(cfg.head_dim))
+    ti = torch.arange(cap, device=x.device)[None, None, None, :]
+    scores = scores.masked_fill(ti > pos[:, None, :, None], -torch.inf)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bhtd->bhsd", w.to(vv.dtype), vv)
+    y = dense(attn.wo, _unheads(out))
+    return y, KVCache(ck, cv, offsets.to(torch.int32) + lengths.to(torch.int32))

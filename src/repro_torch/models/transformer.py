@@ -7,8 +7,8 @@ leading [L] axis on every leaf) and runs them with ``jax.lax.scan``; here
 they are an ``nn.ModuleList`` walked in a loop, and
 ``repro_torch.interop.unstack_layers`` carries a JAX tree in. Parameters
 are stored in ``cfg.param_dtype`` (fp32) and cast to ``cfg.compute_dtype``
-at use; norms keep fp32 statistics and the logits are fp32. MLA, MoE, the
-encoder-decoder and the prefix-cache suffix prefill are not ported yet.
+at use; norms keep fp32 statistics and the logits are fp32. MLA, MoE and
+the encoder-decoder are not ported yet.
 
 Each layer is pre-norm: ``x += mix(norm1(x)); x += swiglu(norm2(x))``. For
 ``flare_lm`` the mixer is causal FLARE over ResMLP K/V projections with
@@ -22,7 +22,8 @@ state, and ``lm_decode_step`` appends one token to every state
 ``attn_sdpa``'s ``impl`` route ("auto", or "pallas" for the flash kernel),
 prefill returns each layer's KV cache, and decode reads it densely or, when
 the caches are a paged pool's kernel view, through the paged-attention
-kernel.
+kernel. ``lm_prefill_suffix`` continues caches that already hold a shared
+prompt prefix (the serving engine's prefix cache) by the suffix alone.
 
 Training (``lm_loss``) runs ``lm_forward`` under autograd, each decoder
 layer through ``_remat(fn, cfg.remat)``, the counterpart of the JAX
@@ -45,6 +46,7 @@ from repro_torch.core.flare import FlareLayer, _merge_heads, _split_heads, init_
 from repro_torch.core.flare_stream import flare_causal_with_state, stream_append, stream_init
 from repro_torch.models.attention import (
     gqa_decode,
+    gqa_extend,
     gqa_forward,
     init_gqa,
     init_kv_cache,
@@ -340,6 +342,34 @@ def _gqa_prefill(net: LM, tokens: torch.Tensor, lengths: Optional[torch.Tensor],
     pos = (torch.full((b,), s, dtype=torch.int32, device=tokens.device) if lengths is None
            else lengths.to(torch.int32))
     return logits, LMCaches(caches, pos)
+
+
+def lm_prefill_suffix(net: LM, batch: dict, caches: LMCaches, cfg: ModelConfig) -> tuple:
+    """The prefix cache's suffix prefill: ``caches`` already hold each row's
+    shared prompt prefix (``batch["offsets"]`` [B] tokens, gathered from
+    block storage by the serving pool); run only the suffix,
+    ``batch["tokens"]`` [B, S] right-padded with true ``batch["lengths"]``,
+    at absolute positions ``offset + i`` through ``gqa_extend``, and return
+    (the last real token's logits fp32 [B, V], the caches at the full
+    prompt's length). gqa only: a FLARE state is a running summary that no
+    range of shared blocks can rebuild, so ``flare_lm`` keeps the full
+    prompt path (``models/api.py`` leaves its ``prefill_suffix`` unset)."""
+    if cfg.attn.kind != "gqa":
+        raise ValueError(f"prefill_suffix supports gqa, not {cfg.attn.kind!r}")
+    tokens, lengths, offsets = batch["tokens"], batch["lengths"], batch["offsets"]
+    b, s = tokens.shape
+    x = _embed(net, tokens, cfg)
+    pos = offsets.long()[:, None] + torch.arange(s, device=tokens.device)[None, :]
+    positions = pos[None].expand(3, b, s) if cfg.attn.mrope_sections is not None else pos
+    out = []
+    for layer, cache in zip(net.layers, caches.layers):
+        a, cache = gqa_extend(layer.attn, _norm(cfg, layer.norm1, x), cfg.attn, cache,
+                              positions=positions, offsets=offsets, lengths=lengths)
+        out.append(cache)
+        x = _ffn(cfg, layer, x + a)
+    x = _norm(cfg, net.final_norm, _last_valid(x, lengths))
+    logits = _logits(net, x, cfg)[:, 0, : cfg.vocab]
+    return logits, LMCaches(out, offsets.to(torch.int32) + lengths.to(torch.int32))
 
 
 def _decode_positions(pos: torch.Tensor, b: int, mrope: bool) -> torch.Tensor:

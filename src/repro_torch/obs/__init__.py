@@ -4,7 +4,7 @@ trimmed to what the trainer and the serving engine use.
   - :mod:`repro_torch.obs.metrics`: a metrics registry (counters, gauges,
     fixed-bucket histograms; thread-safe, near-zero cost when disabled).
   - :mod:`repro_torch.obs.trace`: span tracing with Chrome-trace-event
-    (Perfetto-loadable) export.
+    (Perfetto-loadable) export, one track a serving slot.
   - :func:`annotate` / :func:`scope`: ``torch.profiler.record_function``, so a
     ``torch.profiler`` capture carries the same names as the span stream.
     PyTorch runs eagerly, so the JAX package's two kinds (host annotation
@@ -16,10 +16,10 @@ device.
 from __future__ import annotations
 
 from repro_torch.obs.metrics import NULL_REGISTRY, Counter, Gauge, Histogram, MetricsRegistry
-from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.obs.trace import NULL_TRACER, PHASES, TID_ENGINE, Span, Tracer
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_REGISTRY", "NULL_TRACER",
-           "Tracer", "annotate", "scope"]
+           "PHASES", "Span", "TID_ENGINE", "Tracer", "annotate", "scope"]
 
 
 def annotate(name: str):

@@ -5,12 +5,15 @@ KV cache at the engine's full capacity, so pool memory, not compute, caps
 concurrency for the gqa family. Here:
 
   - :mod:`blocks`      the host-side block allocator: free list, per-request
-                       page leases, per-slot page tables;
+                       page leases, refcounts and the prefix cache's
+                       content index (``chain_hashes``);
   - :mod:`quant`       int8 / fp8 block storage with per-row scales;
   - :mod:`views`       gather/scatter between block storage and the dense
                        cache layout, and ``PagedCacheView``, the decode
                        step's view of the pool (gather or kernel route);
-  - :mod:`paged_cache` ``PagedModelCache``, the pool the engine drives.
+  - :mod:`paged_cache` ``PagedModelCache``, the pool the engine drives (the
+                       insertion prefill, the suffix prefill of a prefix
+                       hit, the copy-on-write block copy).
 
 The decode read's kernel is ``kernels/paged_attention.py``, registered as
 the ``paged`` backend.

@@ -17,8 +17,9 @@ same physical id in each leaf's storage. Pool capacity is sized in tokens
 (``pool_tokens``); admission stakes pages through ``blocks.BlockAllocator``
 and the engine appends pages as decode crosses block boundaries.
 
-Unlike the JAX package, prefill insertion and reset update the pool's
-tensors in place and return the same pool dict.
+Unlike the JAX package, prefill insertion (full and suffix), the
+copy-on-write block copy and reset update the pool's tensors in place and
+return the same pool dict.
 """
 from __future__ import annotations
 
@@ -31,7 +32,13 @@ from torch.utils import _pytree as pytree
 from repro_torch.serve.cache import _slot_axis, meta_leaves
 from repro_torch.serve.pool.blocks import BlockAllocator
 from repro_torch.serve.pool.quant import get_quant
-from repro_torch.serve.pool.views import PagedLeaf, PoolSpec, scatter_blocks
+from repro_torch.serve.pool.views import (
+    PagedLeaf,
+    PoolSpec,
+    gather_leaf,
+    scatter_blocks,
+    scatter_rows,
+)
 
 
 def _axis_or_none(small, big) -> Optional[int]:
@@ -131,6 +138,53 @@ class PagedModelCache:
             return logits, pool
 
         return prefill_into
+
+    def make_prefill_suffix(self, suffix_fn: Callable[..., Any]):
+        """Suffix insertion prefill for prefix-cache hits: rebuild each
+        lane's cache context from the pages its page-table row ``pt`` [G, P]
+        maps (valid for the first ``batch["offsets"]`` tokens; the dense
+        length leaves set to the offsets), run the model's cache-extend
+        prefill on the suffix, then scatter only the suffix rows ``[offset,
+        offset + length)`` back. Shared prefix blocks are read, never
+        written: every position at or past the offset lies in a private
+        (or copy-on-write) page of the lane."""
+
+        def prefill_suffix_into(net, batch, pool, slots, pt):
+            offsets = batch["offsets"]
+            g = offsets.shape[0]
+            leaves = []
+            for role, j in self.spec.roles:
+                if role == "paged":
+                    leaves.append(gather_leaf(pool["data"][j], pool["scale"][j], pt,
+                                              self.spec.paged[j], self.spec))
+                    continue
+                ref, ax = self._dense_shapes[j], self.spec.dense_slot_axes[j]
+                if ax is None:   # a slot-independent leaf passes through
+                    leaves.append(pool["dense"][j])
+                    continue
+                shape = tuple(g if i == ax else n for i, n in enumerate(ref.shape))
+                view = tuple(g if i == ax else 1 for i in range(len(shape)))
+                leaves.append(offsets.to(ref.dtype).reshape(view).expand(shape))
+            logits, part = suffix_fn(net, batch, pytree.tree_unflatten(leaves, self.spec.treedef))
+            dense_parts = []
+            for leaf, (role, j) in zip(pytree.tree_leaves(part), self.spec.roles):
+                if role == "dense":
+                    dense_parts.append(leaf)
+                else:
+                    scatter_rows(pool["data"][j], pool["scale"][j], leaf, pt, offsets,
+                                 batch["lengths"], batch["tokens"].shape[1],
+                                 self.spec.paged[j], self.spec)
+            self._scatter_dense(pool["dense"], tuple(dense_parts), slots)
+            return logits, pool
+
+        return prefill_suffix_into
+
+    def copy_block(self, pool: dict, src: int, dst: int) -> dict:
+        """Copy one physical block, in place, in every paged leaf (payload
+        and scales): the copy-on-write of a shared block into a private page."""
+        for leaf in (*pool["data"], *(s for s in pool["scale"] if s is not None)):
+            leaf[dst] = leaf[src]
+        return pool
 
     def reset(self, pool: dict, slots: torch.Tensor) -> dict:
         """Retirement: the slots' dense leaves back to their init values (the

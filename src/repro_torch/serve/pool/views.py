@@ -11,6 +11,9 @@ keeps one leaf per layer, so no stacked-layer axis needs moving):
   - :func:`gather_leaf`    page table -> dense leaf (dequantized);
   - :func:`scatter_blocks` prefill insert: a request's bucket, block-split
                            and quantized, into its mapped pages;
+  - :func:`scatter_rows`   suffix-prefill insert (the prefix cache's hit
+                           path): only a lane's true suffix rows, into the
+                           pages its page-table row names;
   - :func:`scatter_token_at` decode write-back: the one column decode wrote,
                            quantized, into (page, offset).
 
@@ -140,6 +143,30 @@ def scatter_blocks(data: torch.Tensor, scale: Optional[torch.Tensor], part_leaf:
     put_(data, idx, q)
     if scale is not None:
         scale[idx] = sc
+
+
+def scatter_rows(data: torch.Tensor, scale: Optional[torch.Tensor], part_leaf: torch.Tensor,
+                 pt: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor, width: int,
+                 meta: PagedLeaf, spec: PoolSpec) -> None:
+    """Suffix-prefill insert, in place. ``part_leaf`` is a full-capacity
+    cache leaf (the extend path returns the whole updated cache); lane g's
+    rows ``[offsets[g], offsets[g] + width)`` go to the (page, in-page
+    offset) its page-table row ``pt`` [G, P] names, and of those only the
+    first ``lengths[g]`` land: bucket padding goes to the trash block. So a
+    suffix may begin mid-block (the copy-on-write target) while the lane's
+    earlier pages stay shared and read-only."""
+    y = to_pool_layout(part_leaf, meta.slot_axis, meta.token_axis)   # [G, T, *rest]
+    g = y.shape[0]
+    pos = offsets.long()[:, None] + torch.arange(width, device=y.device)[None, :]   # [G, S]
+    rows = y[torch.arange(g, device=y.device)[:, None], pos.clamp_max(y.shape[1] - 1)]
+    q, sc = quantize(spec.quant, rows)                                  # [G, S, *rest]
+    page = pt.long().gather(1, (pos // spec.block).clamp_max(spec.max_pages - 1))
+    valid = torch.arange(width, device=y.device)[None, :] < lengths.long()[:, None]
+    page = torch.where(valid, page, torch.full_like(page, data.shape[0] - 1))
+    off = pos % spec.block
+    put_(data, (page, off), q)
+    if scale is not None:
+        scale[page, off] = sc
 
 
 def token_page_off(pt: torch.Tensor, write_pos: torch.Tensor, block: int):

@@ -21,9 +21,9 @@ the scheduler owns *which request lives in which slot*:
     uninstrumented scheduler pays one branch per event). ``stats()``
     surfaces the registry-backed totals plus the live queue depth.
 
-It leaves out what only the JAX engine's prefix cache and streaming use: a
-request's ``prefix_blocks`` / ``prefix_shard`` and ``on_token``, and the
-scheduler's ``on_drop`` hook.
+A queued request may hold prefix-cache references (``prefix_blocks``, taken
+when it was submitted); the engine's ``on_drop`` hook gives them back when
+the request's deadline expires in the queue.
 """
 from __future__ import annotations
 
@@ -59,6 +59,7 @@ class ServeRequest:
     max_new_tokens: int = 32
     eos_id: int = -1                  # -1: never stops early
     deadline_s: Optional[float] = None  # relative to submit_t; None = never
+    on_token: Optional[Callable[[int, int], None]] = None  # (rid, token), as sampled
     submit_t: float = 0.0
     # runtime bookkeeping (engine/scheduler owned)
     slot: Optional[int] = None
@@ -67,6 +68,13 @@ class ServeRequest:
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
     dropped: bool = False
+    # blocks this QUEUED request holds references on from prefix matching;
+    # they move into the slot's lease at admission, and ``on_drop`` must
+    # release them when the request is dropped while still waiting
+    prefix_blocks: List[int] = dataclasses.field(default_factory=list)
+    # the pool shard ``prefix_blocks`` belong to: None until matched, 0 on the
+    # port's one-shard pool
+    prefix_shard: Optional[int] = None
 
     def expired(self, now: float) -> bool:
         return self.deadline_s is not None and now - self.submit_t > self.deadline_s
@@ -97,6 +105,9 @@ class SlotScheduler:
             "sched.expired", "queued requests dropped at deadline expiry")
         self._m_queue = reg.gauge(
             "sched.queue_depth", "waiting requests after the last admit")
+        # the engine's hook for a request dropped while QUEUED (deadline
+        # expiry), so what it took at submit (prefix references) goes back
+        self.on_drop: Optional[Callable[[ServeRequest], None]] = None
 
     # -- queue ------------------------------------------------------------
     def submit(self, req: ServeRequest) -> None:
@@ -125,6 +136,8 @@ class SlotScheduler:
                 req.finish_t = now
                 self.dropped.append(req)
                 self._m_expired.inc()
+                if self.on_drop is not None:
+                    self.on_drop(req)
                 continue
             if can_admit is not None and not can_admit(req):
                 break

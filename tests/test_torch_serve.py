@@ -11,6 +11,7 @@ int8 / fp8 pools' first-step logits are held against the dense pool within
 tests/test_paged_pool.py's envelope (atol 0.15, rtol 0.05). The allocator,
 quantization, sampler, cache discovery and the launcher are tested alone."""
 import dataclasses
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -225,11 +226,11 @@ def test_allocator_reserve_map_append_release():
     assert a.available() == 2
     assert a.map(lease, 2) == [0, 1]              # lowest ids first
     assert a.append(lease) == 2 and a.pages_appended == 1
-    a.check_invariants(held=[0, 1, 2])
+    a.check_invariants(external_refs={0: 1, 1: 1, 2: 1})
     assert a.stats()["blocks_peak_mapped"] == 3
     a.release(lease)
     assert a.available() == 6 and a.mapped_blocks() == 0
-    a.check_invariants(held=[])
+    a.check_invariants(external_refs={})
 
 
 def test_allocator_no_double_free_and_no_overmap():
@@ -244,7 +245,7 @@ def test_allocator_no_double_free_and_no_overmap():
     with pytest.raises(RuntimeError, match="reserved"):
         a.map(a.reserve(1), 2)
     with pytest.raises(RuntimeError, match="sanitizer"):
-        a.check_invariants(held=[3])
+        a.check_invariants(external_refs={3: 1})
 
 
 def test_quantization_bounds():
@@ -299,14 +300,31 @@ def test_paged_discovery_and_block_round_trip(quant):
     torch.testing.assert_close(back.float(), leaf.float(), atol=tol, rtol=0)
 
 
-def test_launch_serve_smoke_on_cpu():
+@pytest.mark.parametrize("case", ["paged", "prefix"])
+def test_launch_serve_smoke_on_cpu(case, tmp_path):
+    """The paged pool; then the prefix cache on a shared-prefix workload
+    with pinned templates, coalesced prefill, a trace and the metrics (the
+    pin's one-token probes are requests of their own)."""
+    extra = {"paged": ["--pool-tokens", "96", "--block-size", "8"],
+             "prefix": ["--pool-tokens", "192", "--block-size", "8", "--capacity", "64",
+                        "--prompt-len", "24", "--prefix-cache", "--share-prefix", "2",
+                        "--pin-prompt", "--coalesce", "--trace-out", str(tmp_path / "t.json"),
+                        "--metrics-out", str(tmp_path / "m.json")]}[case]
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen2_1_5b", "--smoke",
-         "--device", "cpu", "--pool-tokens", "96", "--block-size", "8", "--requests", "3",
-         "--max-new", "4"],
+         "--device", "cpu", "--requests", "3", "--max-new", "4", *extra],
         capture_output=True, text=True, cwd=REPO, timeout=300,
         env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert "decode backend: paged(block=8;quant=none)" in out.stdout
-    assert "3 requests / 12 tokens" in out.stdout
-    assert "0/12 blocks mapped" in out.stdout and "12 free after the run" in out.stdout
+    if case == "paged":
+        assert "3 requests / 12 tokens" in out.stdout
+        assert "0/12 blocks mapped" in out.stdout and "12 free after the run" in out.stdout
+        return
+    assert "pinned 6 template blocks" in out.stdout and "5 requests / 14 tokens" in out.stdout
+    assert "prefix cache: enabled=True" in out.stdout and "cow_copies=1" in out.stdout
+    assert "hit_rate=0.000" not in out.stdout and "pinned=6" in out.stdout
+    trace = json.loads((tmp_path / "t.json").read_text())
+    assert {"enqueue", "admit", "prefill", "decode", "retire", "prefix_hit", "cow_copy"} <= {
+        e["name"] for e in trace["traceEvents"]}
+    assert json.loads((tmp_path / "m.json").read_text())["metrics"]["engine.prefix_hit_tokens"] > 0
