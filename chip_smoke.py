@@ -3,7 +3,8 @@
 surrogate's inference and training, the four Table-1 baselines trained
 beside it, the causal FLARE LM's serving,
 Qwen2-1.5B and Phi-3-mini served from the paged KV pool (Qwen2-1.5B also
-with the prefix cache), the dense
+with the prefix cache), the MLA models DeepSeek-V2-Lite (MLA + MoE) and
+MiniCPM3-4B served through the paged kernel's MLA instance, the dense
 family's prefill (Qwen2-1.5B, Phi-3-mini) through the flash-attention
 kernels (bf16 on the tensor cores, fp32 on the CUDA cores), and training
 flare_lm and Qwen2-1.5B at full size.
@@ -22,7 +23,8 @@ failure so the script exits non-zero:
    encode_tc and decode_tc and the backward's three passes, all on the
    tensor cores), the D=128 causal kernels (causal_tc, bf16 on the tensor
    cores; causal, fp32), the paged kernel's decode instances (page dtype x
-   query rows a block) and encode instances (padded D, plain or scaled),
+   query rows a block), MLA instances (page dtype x padded D x rows a
+   thread) and encode instances (padded D, plain or scaled),
    both flash kernels, and ptxas's warnings;
 3. kernels on random operands: each CUDA kernel (encode, decode, fused
    forward, fused backward) against its plain PyTorch version, bf16 at full
@@ -269,9 +271,41 @@ failure so the script exits non-zero:
    256-1,024 tokens, 32 new tokens each) through ``ServeEngine``'s dense
    pool and the paged kernel route (32 paged launches a decode step
    asserted; ms a decode step, peak GiB): the greedy tokens equal;
-15. one JSON line of per-kernel numbers (12 kernels: the two flash kernels
-   are rows of their own), then the card's name and power limit,
-   then ``{"ok": true, "device": ...}`` as the last line.
+15. ``serve deepseek-v2-lite-16b`` (``mla_phase``; alone:
+   ``scripts/torch_serve_mla.py``): ``get_model(deepseek_v2_lite_16b)`` at
+   full width and depth (27 layers, d_model 2,048, 16 MLA heads, 64 routed
+   experts top-6 and 2 shared, the first layer dense, vocab 102,400), its
+   weights drawn on the card from a CUDA generator seeded with 0 (the
+   parameter count, 13-18 B asserted, and the seconds printed). (a) The
+   paged kernel's MLA read (G=16, D=512, D2=64, one page head, the latents
+   both K and V) on random operands, fp32 q over bf16, int8 and fp8 pages,
+   against the plain version in fp64 at 1e-5 of max |plain|, which must
+   reject the plain version with one page of the longest lane left out; a
+   lane of length 0 exactly 0; its times beside the bound (bytes over 3.35
+   TB/s or fp32 FLOP over 67 TFLOP/s), the plain version and one SDPA over
+   the gathered view. (b) The same on layer 0's own decode operands after a
+   real prefill (int8 / fp8 by quantizing its bf16 pages). (c) 16 requests
+   (prompts of 256-2,048 tokens, 64 new tokens) through ``ServeEngine``
+   (``SERVE``) on the dense pool and the kernel route in bf16 (decode ms a
+   step, tokens/s, prefill ms a request, p50/p99, peak GiB; 27 paged
+   launches a step asserted), then 4 requests of 24 new tokens in fp32
+   compute on the dense pool, the gather route and the kernel route:
+   greedy tokens equal; with
+   all 8 slots busy (prompts cut to 256 tokens), 27
+   ``kernels.paged_attention`` scopes in a trace of one kernel-route decode
+   step and a profiler breakdown of the next; the MoE layers' expert-weight
+   casts timed;
+16. ``serve minicpm3-4b``: the same for ``get_model(minicpm3_4b)`` (62
+   layers, d_model 2,560, 40 MLA heads with q-LoRA; 3.5-5.0 B asserted;
+   the read at G=40, D=256, D2=32; 62 launches and scopes a step), then its
+   prefix cache in bf16: a pinned 512-token template and 4 requests sharing
+   it, cache off and on, the hits' first-token logits within 5e-2 of max
+   |logit| of the cold run's, a control (one hit's first shared page
+   pointed at another live block) that must exceed it;
+17. one JSON line of per-kernel numbers (12 kernels: the two flash kernels
+   are rows of their own; the paged kernel's row also carries its MLA
+   instance's reads under ``mla_read``), then the card's name and power
+   limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
 
@@ -444,6 +478,19 @@ PHI3_SIZE = (32, 3_822_259_200)
 # dense pool, fp32 compute: 4 requests of 256-1,024 prompt tokens, 32 new each
 PHI3_SERVE = dict(slots=4, capacity=1088, block_size=16, pool_tokens=4352)
 PHI3_REQUESTS, PHI3_PROMPTS, PHI3_NEW = 4, (256, 1024), 32
+# the MLA models (random weights drawn on the card): parameter ranges of
+# tests/test_models_smoke.py; the MLA read on random operands (8 lanes: an
+# empty one, a partial page, six of about 2,000 tokens) over bf16, int8 and
+# fp8 pages; 16 requests (SERVE_REQUESTS, PROMPT_LENS) of MLA_NEW new tokens
+# on the dense and kernel routes in bf16, MLA_SERVE32_* on the three routes
+# in fp32 compute; MiniCPM3's
+# prefix cache: a 512-token template and 4 requests sharing it
+DEEPSEEK_PARAMS, MINICPM3_PARAMS = (13e9, 18e9), (3.5e9, 5.0e9)
+MLA_LENGTHS = (0, 17, 1985, 1993, 2000, 2017, 2031, 2048)
+MLA_PAGE_DTYPES = ("bfloat16", "int8", "fp8")
+MLA_NEW = 64
+MLA_SERVE32_REQUESTS, MLA_SERVE32_NEW = 4, 24
+MLA_PREFIX_TEMPLATE, MLA_PREFIX_REQUESTS, MLA_PREFIX_NEW = 512, 4, 16
 # the FLARE kernels at head dims beside the paper's 8, on random operands
 WIDE_D = (3, 4, 6, 12, 16, 24, 32, 64)
 WIDE_SHAPE = dict(b=2, h=3, m=40, n=700)
@@ -548,7 +595,7 @@ def ptxas_summary(log: str) -> list:
                 "Li8ELb1E" in props or "Li64ELb0E" in props
                 or ("causal" in props and re.search(r"Li(8|128)E", props))
                 or "paged" in props or "flash" in props):
-            kind = next(k for k in ("paged_combine", "paged_decode", "paged_encode",
+            kind = next(k for k in ("paged_combine", "paged_decode", "paged_mla", "paged_encode",
                                     "causal_combine", "causal_tc", "causal", "encode_tc",
                                     "decode_tc", "combine", "dz", "dkv", "dq", "flash_tc",
                                     "flash")
@@ -564,6 +611,10 @@ def ptxas_summary(log: str) -> list:
             if kind == "paged_decode":   # <page dtype, query rows a block at most>
                 page = args.split("Li")[0]
                 label = f"{PAGED_TYPES.get(page, page)} rows<={width.group(1)}"
+            elif kind == "paged_mla":   # <page dtype, padded D, rows a thread>
+                page = args.split("Li")[0]
+                dp, per_thread = re.findall(r"Li(\d+)E", args)[:2]
+                label = f"{PAGED_TYPES.get(page, page)} D<={dp} R={per_thread}"
             elif kind == "paged_encode":   # <padded D, plain (no scales, scale 1)>
                 label = f"D={width.group(1)} {'plain' if 'Lb1E' in args else 'scaled'}"
             elif kind.startswith("causal") and re.search(r"Lb[01]E", args):
@@ -1265,19 +1316,20 @@ def check_wide(checks: Checks, device) -> None:
                 hold("flare_fused_bwd", what, got, w64, p, atol=None)
     for kind in ("bidirectional, grad", "causal", "decode read"):
         picks = {}
-        for d in (8, 64, 65, 96, 128, 129):
+        for d in (8, 64, 65, 96, 128, 129, 512, 513):
             shape = MixerShape(batch=8, heads=8, tokens=40000,
                                latents=1 if kind == "decode read" else 2048, head_dim=d)
             picks[d] = resolve_policy(None, shape, device="cuda",
                                       requires_grad=kind.endswith("grad"),
                                       causal=kind == "causal").backend
         print(f"resolve auto on cuda ({kind}): {picks}", flush=True)
-        # the FLARE kernels take D up to 64; the causal and paged ones up to 128
+        # the FLARE kernels take D up to 64, the causal one up to 128, the
+        # paged one up to 512 (its MLA instance above 128)
         want = {"bidirectional, grad": {d: "packed" if d <= 64 else "sdpa" for d in picks},
                 "causal": {d: "causal_pallas" if d <= 128 else "causal_stream" for d in picks},
-                "decode read": {d: "paged" for d in picks if d <= 128}}[kind]
-        got = {d: b for d, b in picks.items() if kind != "decode read" or d <= 128}
-        if got != want or (kind == "decode read" and picks[129] == "paged"):
+                "decode read": {d: "paged" for d in picks if d <= 512}}[kind]
+        got = {d: b for d, b in picks.items() if kind != "decode read" or d <= 512}
+        if got != want or (kind == "decode read" and picks[513] == "paged"):
             checks.failures.append(f"resolve auto ({kind}): {picks}, expected {want}")
     checks.raise_failures("kernels at widened head dims")
 
@@ -2921,7 +2973,9 @@ def capture_decode_read(model, net, reqs, base: dict) -> dict:
 
     def capture(q, k_pages, v_pages, page_table, lengths, **kw):
         if not captured:
-            captured.update(q=q.clone(), k_pages=k_pages.clone(), v_pages=v_pages.clone(),
+            kc = k_pages.clone()   # MLA's read passes one tensor as K and V: kept one
+            captured.update(q=q.clone(), k_pages=kc,
+                            v_pages=kc if v_pages is k_pages else v_pages.clone(),
                             page_table=page_table.clone(), lengths=lengths.clone(), **kw)
         return kernel(q, k_pages, v_pages, page_table, lengths, **kw)
 
@@ -2987,8 +3041,11 @@ def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
           "are equal across the dense, gather and kernel routes", flush=True)
     del runs32, model32
 
+    # the quantized pools are held on the first decode step's logits alone,
+    # which the first wave of admissions fixes: each request decodes 2 tokens
+    short = [(prompt, 2) for prompt, _ in reqs]
     for quant in ("int8", "fp8"):
-        run = serve_run(model, net, reqs, f"bf16 paged kv_quant={quant}", kv_quant=quant,
+        run = serve_run(model, net, short, f"bf16 paged kv_quant={quant}", kv_quant=quant,
                         decode_backend="paged")
         slots = sorted(set(run["first_slots"]) & set(runs["dense"]["first_slots"]))
         got, want = run["first_logits"][slots], runs["dense"]["first_logits"][slots]
@@ -4203,6 +4260,392 @@ def drive(model, net, batches: dict, label: str) -> dict:
     return {"counts": counts, "outs": outs}
 
 
+# --------------------------------------------------------------------------
+# MLA served from the paged pool: DeepSeek-V2-Lite (MLA + MoE) and MiniCPM3-4B
+# --------------------------------------------------------------------------
+
+
+def init_mla_lm(arch: str, params: tuple):
+    """``get_model(arch)`` at full width and depth, its weights drawn on the
+    card from a CUDA generator seeded with SEED (the CPU would take minutes
+    for DeepSeek's 15.7B): (cfg, model, net); raises unless the parameter
+    count lies in ``params`` (tests/test_models_smoke.py's range)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = model.init(SEED, generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    m = cfg.attn.mla
+    moe = (f", {cfg.moe.num_experts} routed experts top-{cfg.moe.top_k} + {cfg.moe.num_shared} "
+           f"shared, {cfg.moe.first_dense_layers} dense layer(s)" if cfg.moe else "")
+    print(f"init {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.attn.num_heads} MLA heads (kv_lora {m.kv_lora_rank}, q_lora {m.q_lora_rank}, "
+          f"rope {m.qk_rope_head_dim}){moe}, vocab {cfg.vocab}: {n_params} parameters "
+          f"({n_params * 4 / 2**30:.2f} GiB fp32) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not params[0] <= n_params <= params[1]:
+        raise AssertionError(f"{cfg.name}: {n_params} parameters outside {params}")
+    return cfg, model, net
+
+
+def mla_operands(g: int, d: int, d2: int, page_dtype: str, scale: float, device, gen) -> dict:
+    """Random operands of MLA's paged read at (G, D, D2): fp32 q [B, 1, G, D]
+    and q2, one page head of latents [NB, 16, 1, D] (both K and V: one
+    tensor) and rotary keys [NB, 16, 1, D2] in ``page_dtype`` (int8 / fp8
+    quantized with per-row scales), a shuffled page table whose unmapped
+    entries point at a trash row of NaN, lanes of MLA_LENGTHS tokens."""
+    import torch
+
+    from repro_torch.serve.pool.quant import get_quant, quantize
+
+    b, block = len(MLA_LENGTHS), 16
+    pages = -(-max(MLA_LENGTHS) // block)
+    nb = b * pages + 1
+    lengths = torch.tensor(MLA_LENGTHS, dtype=torch.int32)
+    pt = torch.randperm(nb - 1, generator=gen)[: b * pages].reshape(b, pages).int()
+    for i in range(b):
+        pt[i, -(-int(lengths[i]) // block):] = nb - 1
+    op = {"q": torch.randn(b, 1, g, d, generator=gen) * d ** -0.5,
+          "q2": torch.randn(b, 1, g, d2, generator=gen) * d2 ** -0.5,
+          "page_table": pt, "lengths": lengths}
+    c = torch.randn(nb, block, 1, d, generator=gen)
+    kr = torch.randn(nb, block, 1, d2, generator=gen)
+    if page_dtype in ("int8", "fp8"):
+        spec = get_quant(page_dtype)
+        (c, cs), (kr, krs) = quantize(spec, c), quantize(spec, kr)
+        op.update(k_scale=cs, v_scale=cs, k2_scale=krs)
+    else:
+        c, kr = c.to(getattr(torch, page_dtype)), kr.to(getattr(torch, page_dtype))
+    c[nb - 1] = torch.nan if c.is_floating_point() else 127
+    op.update(k_pages=c, k2_pages=kr)
+    op = {key: t.to(device) for key, t in op.items()}
+    op.update(v_pages=op["k_pages"], scale=scale, out_dtype=torch.bfloat16, trash=nb - 1)
+    return op
+
+
+def requantize(op: dict, page_dtype: str) -> dict:
+    """A captured MLA read's bf16 pages quantized to ``page_dtype`` with
+    per-row scales (what an int8 / fp8 pool would hold)."""
+    from repro_torch.serve.pool.quant import get_quant, quantize
+
+    spec = get_quant(page_dtype)
+    (c, cs), (kr, krs) = quantize(spec, op["k_pages"].float()), quantize(spec,
+                                                                        op["k2_pages"].float())
+    return {**op, "k_pages": c, "v_pages": c, "k2_pages": kr, "k_scale": cs, "v_scale": cs,
+            "k2_scale": krs}
+
+
+def mla_call(op: dict):
+    """(q, latents, page table, lengths, the call's keywords) of an MLA read."""
+    if op["v_pages"] is not op["k_pages"]:
+        raise AssertionError("the MLA read's V is not its K")
+    kw = {key: op[key] for key in ("scale", "k_scale", "v_scale", "q2", "k2_pages", "k2_scale")
+          if op.get(key) is not None}
+    return op["q"], op["k_pages"], op["page_table"], op["lengths"], kw
+
+
+def check_mla_read(checks: Checks, label: str, op: dict) -> None:
+    """The paged kernel at MLA's read (K and V the same latents, q2 over the
+    rotary key) against the plain version in fp64 at 1e-5 of max |plain|,
+    fp32 out; the plain version with the first valid page of the longest
+    lane left out must fail that limit; a lane of length 0 is exact zeros."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ref import paged_attention_ref as ref
+
+    q, c, pt, lengths, kw = mla_call(op)
+    trash = op.get("trash", int(pt[0, 0]))
+    got = paged_attention(q, c, c, pt, lengths, out_dtype=torch.float32, **kw)
+    if not torch.isfinite(got).all():   # say where, and whether a second call repeats it
+        bad = (~torch.isfinite(got)).nonzero()
+        again = paged_attention(q, c, c, pt, lengths, out_dtype=torch.float32, **kw)
+        print(f"  {label}: {bad.shape[0]} non-finite outputs in lanes "
+              f"{sorted(set(bad[:, 0].tolist()))}, rows {sorted(set(bad[:, 2].tolist()))[:8]}; "
+              f"a second call: {int((~torch.isfinite(again)).sum())}; q finite: "
+              f"{bool(torch.isfinite(q).all())}", flush=True)
+    plain32 = ref(q, c, c, pt, lengths, out_dtype=torch.float32, **kw)
+    wkw = wide_kw(kw)
+    want = ref(q.double(), c, c, pt, lengths, out_dtype=torch.float64, **wkw)
+    drop = ref(q.double(), c, c, *drop_page(pt, lengths, c.shape[1], trash),
+               out_dtype=torch.float64, **wkw)
+    checks.hold("paged_attention", label, got, want, torch.float32, atol=ATOL["float32"],
+                record=True, dropped={"page": drop}, fp32_plain=plain32)
+    empty = lengths == 0
+    if empty.any() and got[empty].any():
+        checks.failures.append(f"paged_attention {label}: a lane of length 0 is not exact 0")
+
+
+def time_mla_read(label: str, op: dict) -> dict:
+    """The kernel as the model calls it (replayed from a CUDA graph, which
+    holds nothing but the kernel's own launches), the plain version and one
+    SDPA over the gathered view (q = [q_abs | q_rope], k = [c | k_rope]
+    broadcast over the heads, v = c), both eager. With those two captured in
+    graphs as well, the start of MiniCPM3's captured layer-0 q was found
+    overwritten after the timings in two whole runs (other data, some of it
+    NaN), and the reads checked after it failed; graph captures of cuBLAS
+    calls, whose workspace a capture takes from its private pool, are the
+    suspect. Every check of the phase now runs before any timing.
+    Beside the bound: each valid page's rows and scales and q, q2, o once;
+    2 G (2 D + D2) FLOP a valid token on the CUDA cores."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ref import _gather_rows, paged_attention_ref as ref
+
+    q, c, pt, lengths, kw = mla_call(op)
+    b, h, g, d = q.shape
+    block = c.shape[1]
+    out_dtype = op.get("out_dtype") or torch.float32
+    d2 = kw["q2"].shape[-1]
+    n_pages = ((lengths.long() + block - 1) // block).clamp(max=pt.shape[1]).sum().item()
+    row = (d + d2) * c.element_size() + (8 if "k_scale" in kw else 0)
+    nbytes = (n_pages * block * row + (q.numel() + kw["q2"].numel()) * 4
+              + q.numel() * torch.empty((), dtype=out_dtype).element_size())
+    flops = 2 * g * (2 * d + d2) * h * lengths.long().sum().item()
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BW * 1e3
+    kernel = lambda: paged_attention(q, c, c, pt, lengths, out_dtype=out_dtype, **kw)
+    plain = lambda: ref(q, c, c, pt, lengths, out_dtype=out_dtype, **kw)
+    stats = dict(ms=graph_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=10),
+                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
+                 else "bytes", library_ms=None)
+    if c.dtype in (torch.bfloat16, torch.float32):
+        # the yardstick over the dense view gathered beforehand (not timed)
+        cd, krd = _gather_rows(c, pt), _gather_rows(kw["k2_pages"], pt)   # [B, 1, T, *]
+        t = cd.shape[2]
+        qd = torch.cat([q, kw["q2"]], dim=-1).to(c.dtype).transpose(1, 2)   # [B, G, 1, D+D2]
+        kd = torch.cat([cd, krd], dim=-1).expand(b, g, t, d + d2)
+        vd = cd.expand(b, g, t, d)
+        mask = (torch.arange(t, device=q.device)[None, :]
+                < lengths.long()[:, None])[:, None, None, :]
+        stats["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, scale=kw.get("scale", 1.0)), reps=50)
+    print(f"time paged_attention {label}: {stats} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} "
+          f"GFLOP over {lengths.long().sum().item()} tokens)", flush=True)
+    return stats
+
+
+def mla_kernel_phase(checks: Checks, cfg, model, net, reqs, device) -> dict:
+    """(a) the MLA read on random operands at cfg's shape, fp32 q over bf16,
+    int8 and fp8 pages; (b) the same checks on layer 0's own decode operands
+    after a real prefill (captured from the wrapper's first call in an
+    uncounted engine step; int8 / fp8 by quantizing its bf16 pages); then
+    the times of the random case at every page dtype and of layer 0's bf16
+    read, after every check. Returns the bf16 random case's times (the JSON
+    line's MLA read)."""
+    import torch
+
+    m = cfg.attn.mla
+    g, d, d2 = cfg.attn.num_heads, m.kv_lora_rank, m.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    gen = torch.Generator().manual_seed(SEED + 23)
+    print(f"kernels paged MLA read {cfg.name} (G={g}, D={d}, D2={d2}, one page head, the "
+          f"latents both K and V; lanes of {list(MLA_LENGTHS)} tokens, blocks of 16, unmapped "
+          f"pages at a NaN trash row; scale {scale:.5g}; held against the plain version in "
+          "fp64):", flush=True)
+    ops = {page_dtype: mla_operands(g, d, d2, page_dtype, scale, device, gen)
+           for page_dtype in MLA_PAGE_DTYPES}
+    for page_dtype, op in ops.items():
+        check_mla_read(checks, f"{cfg.name} random {page_dtype}", op)
+    captured = capture_decode_read(model, net, reqs, SERVE)
+    if captured["q"].shape[1:] != (1, g, d):
+        raise AssertionError(f"captured read q {tuple(captured['q'].shape)}")
+    check_mla_read(checks, f"{cfg.name} layer 0 bf16", captured)
+    for page_dtype in ("int8", "fp8"):
+        check_mla_read(checks, f"{cfg.name} layer 0 {page_dtype}",
+                       requantize(captured, page_dtype))
+    checks.raise_failures(f"MLA read {cfg.name}")
+    times = {page_dtype: time_mla_read(f"{cfg.name} random {page_dtype}", op)
+             for page_dtype, op in ops.items()}
+    time_mla_read(f"{cfg.name} layer 0 bf16", captured)
+    del captured, ops
+    torch.cuda.empty_cache()
+    return times["bfloat16"]
+
+
+def mla_scopes(model, net, reqs) -> dict:
+    """One kernel-route decode step with every slot busy (the first
+    ``SERVE["slots"]`` prompts cut to 256 tokens): its ``obs.scope`` counts
+    (one ``kernels.paged_attention`` a layer), then the next step's profiler
+    breakdown (the device's busy share, the paged kernel's share of it)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    engine = ServeEngine(model, net, **SERVE, decode_backend="paged")
+    for prompt, _ in reqs[:SERVE["slots"]]:
+        engine.submit(prompt[:256], max_new_tokens=8)
+    while engine.sched.waiting or not engine.sched.running:
+        engine.step()
+    counts = scope_counts(engine.step, ("kernels.paged_attention", "serve.decode"))
+    name = model.cfg.name
+    prof = breakdown(engine.step, f"serve {name} bf16 paged decode step "
+                     f"({len(engine.sched.running)} slots busy)")
+    if prof:
+        dev = sum(prof[0].values())
+        kern = sum(ms for key, ms in prof[0].items() if "paged_" in key)
+        print(f"  decode step: device busy {100 * dev / prof[1]:.1f}% of {prof[1]:.3f} ms wall, "
+              f"paged kernel {kern:.3f} ms = {100 * kern / dev:.1f}% of device time", flush=True)
+    del engine
+    return counts
+
+
+def expert_cast_cost(cfg, net) -> None:
+    """The MoE layers' per-call cast of the stacked expert weights to bf16
+    (the JAX package's ``astype`` in ``moe_ffn``): its ms a layer and a
+    decode step, beside one MoE FFN at the decode shape (8 slots)."""
+    import torch
+
+    from repro_torch.models.moe import moe_ffn
+
+    mlp = net.layers[0].mlp
+    weights = (mlp.w_gate, mlp.w_up, mlp.w_down)
+    nbytes = sum(w.numel() for w in weights) * (4 + 2)
+    cast = cuda_ms(lambda: [w.to(torch.bfloat16) for w in weights], reps=5)
+    x = torch.randn(SERVE["slots"], 1, cfg.d_model, device=mlp.w_up.device,
+                    dtype=torch.bfloat16)
+    with torch.no_grad():
+        ffn = cuda_ms(lambda: moe_ffn(mlp, x, cfg.moe), reps=5)
+    layers = len(net.layers)
+    print(f"moe {cfg.name}: the expert weights' cast to bf16 {cast:.3f} ms a layer "
+          f"({nbytes / 1e9:.2f} GB read and written; {nbytes / PEAK_BW * 1e3:.3f} ms at "
+          f"{PEAK_BW / 1e12:g} TB/s), "
+          f"x{layers} = {cast * layers:.2f} ms a decode step; moe_ffn at B={SERVE['slots']}, S=1: "
+          f"{ffn:.3f} ms a layer, x{layers} = {ffn * layers:.2f} ms", flush=True)
+
+
+def mla_serve(cfg, model, net, reqs) -> dict:
+    """The engine over ``reqs`` on the dense pool and the paged pool's kernel
+    route in bf16, then MLA_SERVE32 requests in fp32 compute on the dense
+    pool, the gather route and the kernel route, whose greedy tokens must
+    be equal. Returns the bf16 kernel route's run (its launches are the main
+    path's)."""
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.models.api import get_model
+
+    # bf16 on the dense pool and the kernel route (the gather route, whose
+    # bf16 reading would only be printed, runs in fp32 below, where its tokens
+    # are held: a depth cut for the script's time limit)
+    runs = {name: serve_run(model, net, reqs, f"bf16 {name}", **ROUTES[name])
+            for name in ("dense", "paged")}
+    div = first_divergence(runs["paged"]["tokens"], runs["dense"]["tokens"])
+    print(f"serve {cfg.name} bf16 paged vs dense: greedy tokens "
+          + ("all equal" if div is None else f"first differ at request {div[0]}, token "
+             f"{div[1]}"), flush=True)
+    model32 = get_model(replace(cfg, compute_dtype="float32"))
+    reqs32 = serve_requests(cfg.vocab, MLA_SERVE32_REQUESTS, (MLA_SERVE32_NEW, MLA_SERVE32_NEW),
+                            longest_first=False, lens=PROMPT_LENS)
+    runs32 = {name: serve_run(model32, net, reqs32, f"fp32 {name}", **kw)
+              for name, kw in ROUTES.items()}
+    for name in ("gather", "paged"):
+        first_step_held(f"{cfg.name} fp32 {name}", runs32[name], runs32["dense"],
+                        ROUTE_TOL["float32"])
+        div = first_divergence(runs32[name]["tokens"], runs32["dense"]["tokens"])
+        if div is not None:
+            raise AssertionError(f"{cfg.name} fp32 {name}: greedy tokens differ from the dense "
+                                 f"pool's at request {div[0]}, token {div[1]}")
+    print(f"serve {cfg.name} fp32: the greedy tokens of all {MLA_SERVE32_REQUESTS} x "
+          f"{MLA_SERVE32_NEW} positions are equal across the dense, gather and kernel routes",
+          flush=True)
+    del runs32, model32
+    torch.cuda.empty_cache()
+    return runs["paged"]
+
+
+def mla_prefix(cfg, model, net) -> int:
+    """MiniCPM3 served with the prefix cache in bf16 (the kernel route): a
+    pinned MLA_PREFIX_TEMPLATE-token template and MLA_PREFIX_REQUESTS
+    requests sharing it, the cache off and on; every hit's first-token
+    logits against the cold run's within 5e-2 of max |logit|; a control,
+    one hit's first shared page pointed at another live block, must exceed
+    it. Returns the cache-on run's paged launches."""
+    template, prompts = prefix_workload(cfg.vocab, MLA_PREFIX_TEMPLATE, MLA_PREFIX_REQUESTS)
+    print(f"serve prefix {cfg.name}: a {len(template)}-token template, {len(prompts)} prompts of "
+          f"{[len(p) for p in prompts]} tokens, {MLA_PREFIX_NEW} new tokens each", flush=True)
+    off = prefix_run(model, net, template, prompts, f"{cfg.name} bf16 cache off", cache=False,
+                     new=MLA_PREFIX_NEW)
+    on = prefix_run(model, net, template, prompts, f"{cfg.name} bf16 cache on", cache=True,
+                    new=MLA_PREFIX_NEW)
+    div = first_divergence(on["tokens"], off["tokens"])
+    print(f"serve prefix {cfg.name} bf16 on vs off: greedy tokens "
+          + ("all equal" if div is None else f"first differ at request {div[0]}, token {div[1]}"),
+          flush=True)
+    sound = first_logits_rel(f"{cfg.name} bf16 hits vs cold",
+                             [(on["first"][i], off["first"][i]) for i in on["hits"]],
+                             ROUTE_TOL["bfloat16"])
+
+    def corrupt(engine, req, slot):
+        other = engine._pins[len(engine._pins) // 2]
+        lease = engine._leases[slot]
+        engine.alloc.acquire(other)
+        engine.alloc.release_ref(lease.mapped[0])
+        lease.mapped[0] = engine._pt[slot, 0] = other
+
+    ctrl = prefix_run(model, net, template, prompts[1:2], f"{cfg.name} bf16 control",
+                      cache=True, new=1, corrupt=corrupt)
+    control = first_logits_rel(f"{cfg.name} control (request 1, page 0 -> a pinned middle "
+                               "block) vs cold", [(ctrl["first"][0], off["first"][1])],
+                               ROUTE_TOL["bfloat16"])
+    failures = []
+    if not (on["hits"] and sound <= ROUTE_TOL["bfloat16"]):
+        failures.append(f"hits {on['hits']}, first-token logits rel {sound:.4g}")
+    if not control > ROUTE_TOL["bfloat16"]:
+        failures.append(f"the limit passes a corrupted shared page (rel {control:.4g})")
+    if failures:
+        raise AssertionError(f"serve prefix {cfg.name}: " + "; ".join(failures))
+    return on["counts"]["paged_attention"]
+
+
+def mla_phase(checks: Checks, arch: str, params: tuple, device) -> dict:
+    """One MLA model at full width and depth: its weights drawn on the card,
+    the MLA read held and timed (random and layer 0's operands), requests
+    served on the dense and kernel routes in bf16 and on the three routes in
+    fp32, one kernel-route decode step's scopes (a
+    ``kernels.paged_attention`` a layer) and breakdown, MoE: the expert
+    casts' cost; MiniCPM3: the prefix cache. Returns the MLA read's times
+    with the phase's kernel-route launches."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    # the engines of earlier phases hold their model in reference cycles
+    # (their scheduler's callbacks): collect them before a 58.5 GiB draw
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, net = init_mla_lm(arch, params)
+    reqs = serve_requests(cfg.vocab, SERVE_REQUESTS, (MLA_NEW, MLA_NEW), longest_first=True,
+                          lens=PROMPT_LENS)
+    print(f"requests: {len(reqs)} prompts of {[len(p) for p, _ in reqs]} tokens, {MLA_NEW} new "
+          f"tokens each; engine {SERVE}", flush=True)
+    stats = mla_kernel_phase(checks, cfg, model, net, reqs, device)
+    paged = mla_serve(cfg, model, net, reqs)
+    stats["launches"] = paged["counts"]["paged_attention"]
+    stats["serve"] = {key: paged[key] for key in ("step_ms", "tok_s", "prefill_ms", "peak_gib")}
+    scopes = mla_scopes(model, net, reqs)
+    print(f"serve {cfg.name} scopes of one kernel-route decode step: {scopes} (want "
+          f"{cfg.num_layers} kernels.paged_attention)", flush=True)
+    if scopes["kernels.paged_attention"] != cfg.num_layers or scopes["serve.decode"] != 1:
+        raise AssertionError(f"{cfg.name}: decode step scopes {scopes}")
+    if cfg.moe is not None:
+        expert_cast_cost(cfg, net)
+    else:
+        stats["launches"] += mla_prefix(cfg, model, net)
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve {cfg.name} phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return stats
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc" / "flare.cu").is_file():
@@ -4371,6 +4814,14 @@ def main() -> int:
     print(f"time paged_attention decode read layer 0: qwen2-1.5b (D=128) "
           f"{stats['paged_attention']['ms']:.4f} ms, phi3-mini-3.8b (D=96) "
           f"{phi3['paged_attention']['ms']:.4f} ms", flush=True)
+    # the MLA models served through the paged kernel's MLA instance: the
+    # launches of their kernel routes' windows (and MiniCPM3's prefix cache)
+    mla_read = {}
+    for arch, params in (("deepseek_v2_lite_16b", DEEPSEEK_PARAMS),
+                         ("minicpm3_4b", MINICPM3_PARAMS)):
+        mla_read[arch] = mla_phase(checks, arch, params, device)
+        stats["paged_attention"]["launches"] += mla_read[arch].pop("launches")
+    stats["paged_attention"]["mla_read"] = mla_read
     # the Table-1 mixers at flare_pde's width. The FLARE row's train steps
     # are a counted window of the fused forward and backward
     for name, n in pde_baselines(checks, cfg, device).items():
@@ -4383,6 +4834,8 @@ def main() -> int:
              **{key: stats[name][key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
                                                   "bound_ms", "bound_by", "library_ms")}}
             for name in REPLACES]
+    # the paged kernel's row also carries its MLA instance's reads (bf16 pages)
+    rows[list(REPLACES).index("paged_attention")]["mla_read"] = stats["paged_attention"]["mla_read"]
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

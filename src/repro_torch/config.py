@@ -1,15 +1,16 @@
 """Model, shape and training configuration for the port.
 
-The port's own copy of the fields of ``repro.config.ModelConfig`` and
-``AttnConfig`` that the PDE family, the causal FLARE LM (``flare_lm``) and
-the gqa decoder (the ``dense`` family, e.g. qwen2) read, of their shapes,
-and of the ``TrainConfig`` fields the trainer reads (the mesh's gradient
-compression is not ported). MLA, MoE, SSM and the encoder-decoder fields
-are not ported. ``param_dtype`` and ``compute_dtype`` mean what they mean
-in the JAX package: parameters are stored in the first and cast to the
-second at use. The PDE family computes in fp32 whatever ``compute_dtype``
-says, as ``models/api.py`` of the JAX package forces; ``flare_lm`` and
-``dense`` compute in ``compute_dtype`` (bf16 by default).
+The port's own copy of the fields of ``repro.config.ModelConfig``,
+``AttnConfig``, ``MLAConfig`` and ``MoEConfig`` that the PDE family, the
+causal FLARE LM (``flare_lm``), the gqa and MLA decoders (the ``dense``
+family, e.g. qwen2 and minicpm3) and the MoE decoder (the ``moe`` family,
+deepseek-v2-lite) read, of their shapes, and of the ``TrainConfig`` fields
+the trainer reads (the mesh's gradient compression is not ported). SSM and
+the encoder-decoder fields are not ported. ``param_dtype`` and
+``compute_dtype`` mean what they mean in the JAX package: parameters are
+stored in the first and cast to the second at use. The PDE family computes
+in fp32 whatever ``compute_dtype`` says, as ``models/api.py`` of the JAX
+package forces; the LMs compute in ``compute_dtype`` (bf16 by default).
 """
 from __future__ import annotations
 
@@ -21,10 +22,19 @@ from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention compression."""
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None  # None => full-rank queries
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class AttnConfig:
-    """The fields the gqa attention and the ``flare_stream`` mixer read
-    (MLA's are not ported)."""
-    kind: str = "gqa"               # gqa | flare_stream (mla and none are not ported)
+    """The fields the gqa and MLA attention and the ``flare_stream`` mixer read."""
+    kind: str = "gqa"               # gqa | mla | flare_stream (none is not ported)
     num_heads: int = 8
     num_kv_heads: int = 8
     head_dim: int = 64
@@ -32,6 +42,7 @@ class AttnConfig:
     qkv_bias: bool = False
     sliding_window: Optional[int] = None  # tokens; None => full attention
     mrope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl M-RoPE
+    mla: Optional[MLAConfig] = None
     flare_latents: int = 0          # M latents per head
     flare_chunk: int = 256          # tokens per chunk of the causal scan
 
@@ -45,17 +56,31 @@ class AttnConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    num_shared: int = 0
+    expert_ffn: int = 1408          # per-expert hidden size
+    shared_ffn: int = 0             # hidden size of the shared expert(s)
+    capacity_factor: float = 1.25
+    norm_topk_prob: bool = True     # renormalize gates over the selected k
+    routed_scale: float = 1.0       # deepseek routed_scaling_factor
+    first_dense_layers: int = 0     # leading layers that use a dense FFN
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "pde"             # pde | flare_lm | dense
-    num_layers: int = 4             # FLARE blocks (pde) or decoder layers (flare_lm, dense)
+    family: str = "pde"             # pde | flare_lm | dense | moe
+    num_layers: int = 4             # FLARE blocks (pde) or decoder layers (the LMs)
     d_model: int = 256              # C
     flare_latents: int = 0          # M (pde)
     flare_heads: int = 0            # H (pde); head dim D = d_model // H
-    # decoder-only LM (flare_lm, dense)
-    d_ff: int = 1024
+    # decoder-only LM (flare_lm, dense, moe)
+    d_ff: int = 1024                # the SwiGLU FFN (moe: its leading dense layers')
     vocab: int = 32000
     attn: AttnConfig = field(default_factory=AttnConfig)
+    moe: Optional[MoEConfig] = None
     norm: str = "rmsnorm"           # the LM's norms (only rmsnorm is ported)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False

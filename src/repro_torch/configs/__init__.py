@@ -2,14 +2,16 @@
 
 Each module exports ``config()`` (the assigned configuration) and
 ``smoke_config()`` (a reduced configuration of the same family for CPU
-tests). The port has the PDE surrogate, the causal FLARE LM and the gqa
-decoders qwen2-1.5b and phi3-mini-3.8b so far.
+tests). The port has the PDE surrogate, the causal FLARE LM, the gqa
+decoders qwen2-1.5b and phi3-mini-3.8b, the MLA decoder minicpm3-4b and the
+MLA + MoE decoder deepseek-v2-lite-16b so far.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["flare_lm", "flare_pde", "phi3_mini_3_8b", "qwen2_1_5b"]
+ARCH_IDS = ["deepseek_v2_lite_16b", "flare_lm", "flare_pde", "minicpm3_4b", "phi3_mini_3_8b",
+            "qwen2_1_5b"]
 
 
 def _module(name: str):

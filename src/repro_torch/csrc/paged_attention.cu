@@ -1,7 +1,7 @@
 // Paged attention for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernel of the JAX package:
-//   paged_decode_kernel / paged_encode_kernel + paged_combine_kernel
+//   paged_decode_kernel / paged_mla_kernel / paged_encode_kernel + paged_combine_kernel
 //       <- repro/kernels/paged_attention.py::_paged_kernel (paged_attention_pallas)
 //
 // What it computes. For lane b, KV head h and query row g,
@@ -13,10 +13,13 @@
 // weights are multiplied by v_scale[t] when given (after the denominator
 // takes them), and on the plain path (no scales, no q2, q of the pages'
 // dtype) rounded to the pages' dtype before the value product, as the TPU
-// kernel does. A lane of length 0 returns exact zeros. Two consumers: the
+// kernel does. A lane of length 0 returns exact zeros. Three consumers: the
 // gqa decode read of the serving pool (G = query heads per KV head: qwen2's
-// 6, phi3's 1; q fp32 over bf16 / fp32 / int8 / fp8 pages) and FLARE's
-// encode off pages (G = M = 2048 latents, D = 8, the `paged` backend).
+// 6, phi3's 1; q fp32 over bf16 / fp32 / int8 / fp8 pages), MLA's absorbed
+// decode read (one page head of compressed latents, both K and V, with the
+// rotary key as q2's k2: G = 16, D = 512, D2 = 64 for DeepSeek-V2-Lite, G =
+// 40, D = 256, D2 = 32 for MiniCPM3) and FLARE's encode off pages (G = M =
+// 2048 latents, D = 8, the `paged` backend).
 //
 // What bounds it. The decode read: bytes, each valid token's K and V rows
 // (and scales) once, plus q and o: qwen2-1.5b's layer at 8 slots of ~2,000
@@ -32,7 +35,7 @@
 // H100 80GB HBM3 at 700 W (PERF.md section 6, row 6): qwen2's read 0.0428
 // ms (SDPA over the gathered view 0.091), phi3's 0.0749 ms (SDPA 0.0296),
 // the encode at pde_40k, B = 1, 5.784 ms (SDPA 5.657). So the
-// host picks one of two instances from the shapes:
+// host picks one of three instances from the shapes:
 //
 //   * paged_decode_kernel (G <= 32, or any G with q2 or D > 32): a block
 //     takes one (lane, KV head), a slice of its pages and up to ROWS_MAX
@@ -56,6 +59,23 @@
 //     ring, a page id read before every row, took 0.0638 ms at qwen2's read
 //     on the same card (NVIDIA H100 80GB HBM3, 700 W): latency, not bytes,
 //     bounds this read.
+//   * paged_mla_kernel (D > 128, to 512; D2 to 64): MLA's read, where the G
+//     heads share every latent row, so 2 * G * (D + D2 + D) FLOP a row of
+//     (D + D2) * bytes: the fp32 arithmetic, not the bytes, bounds it
+//     (DeepSeek's read at 8 lanes of ~2,000 tokens: 18.4 MB, 5.5 us at
+//     3.35 TB/s; 0.56 GFLOP, 8.3 us at 67 TFLOP/s). The decode instance,
+//     at most 8 rows a block, would read each row G / 8 times. A block takes
+//     one lane, all G rows (a tile of them past 32 at D 512, 64 at D 256)
+//     and a slice of the lane's pages; each tile of 32 tokens is staged
+//     once in its stored dtype by cp.async (the next tile in flight), rows
+//     16 bytes longer than D so that a warp's lanes, a token each, read
+//     from distinct banks. The scores: warp w takes rows w, w + 8, ... and
+//     lane t token t, the queries read from shared memory as broadcasts;
+//     the online (max, den) of a row stays in its warp's registers, the
+//     tile's max and sum by shuffles. The values: the fp32 accumulators
+//     [G, D] are spread over the block's threads, a thread 8 columns of R
+//     rows (R the instance's 4, 5 or 8), read the tile's weights as
+//     broadcasts. V may be K (the MLA call, staged once) or its own pages.
 //   * paged_encode_kernel (G > 32, D <= 32, no q2): flare.cu's encode_kernel
 //     read through the page table: a thread per query row (latent) with its
 //     query, state and sums in registers; the tokens staged in shared memory
@@ -63,13 +83,13 @@
 //     CH with one rescale a chunk and two-level sums (per staged tile, then
 //     across tiles). No score goes through shared memory.
 //
-// Both instances split each lane's valid pages into slices over blockIdx.x
+// The instances split each lane's valid pages into slices over blockIdx.x
 // where the grid would underfill the card, and paged_combine_kernel merges
 // the slices' fp32 (max, den, acc) in a fixed order (no atomics,
 // deterministic). The host picks the slice count from the shapes and the
-// card alone (the decode instance: one wave of blocks, from the occupancy
-// API), never from lengths: nothing is read back to the host, so a decode
-// step keeps its one device-to-host copy. Each block cuts its slice from its
+// card alone (the decode and MLA instances: one wave of blocks, from the
+// occupancy API), never from lengths: nothing is read back to the host, so
+// a decode step keeps its one device-to-host copy. Each block cuts its slice from its
 // lane's own length on the card, so a short lane's slices are short and no
 // block idles. With one slice the block writes o itself. The page table and lengths are read by each block from device
 // memory; pages at or past ceil(lengths[b] / block) are never touched, and
@@ -731,6 +751,327 @@ __global__ void __launch_bounds__(THREADS) paged_encode_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// The MLA instance.
+
+constexpr int MLA_THREADS = 256;
+constexpr int MLA_WARPS = MLA_THREADS / 32;
+constexpr int MLA_TT = 32;    // tokens a staged tile: one a lane of each warp in the score phase
+constexpr int MLA_CW = 8;     // columns of D a thread takes in the value phase
+constexpr int MLA_MAX_D2 = 64;
+
+// Row sets of the value phase: the threads not needed for D's columns take
+// other rows (DP / MLA_CW threads cover a row).
+template <int DP>
+__host__ __device__ constexpr int mla_row_sets() { return MLA_THREADS / (DP / MLA_CW); }
+
+// The block's shared memory, in bytes from its start: the ring of two
+// staged tiles (K rows, V rows where V is not K, k2 rows, then k_scale,
+// v_scale and k2_scale), the queries widened to fp32, q2, the tile's
+// weights p [rows][MLA_TT], each row's rescale, max and den, the slice's
+// page ids. Row strides carry 16 bytes more than a row, so that the 32
+// lanes of a warp, a token each, read their rows from distinct banks.
+struct MlaLayout {
+  int srb, srb2, stage, qs, q2s, q, q2, p, alpha, m, l, pages, total;
+};
+
+__host__ __device__ inline MlaLayout mla_layout(int esize, int DP, int D2, int rows8, bool sep_v,
+                                                int pages_per_split) {
+  MlaLayout L;
+  const int ve = 16 / esize;
+  L.srb = DP * esize + 16;
+  L.srb2 = D2 ? ((D2 + ve - 1) / ve * ve) * esize + 16 : 0;
+  L.stage = MLA_TT * (L.srb * (sep_v ? 2 : 1) + L.srb2 + 3 * (int)sizeof(float));
+  L.qs = DP;
+  L.q2s = (D2 + 15) / 16 * 16;
+  L.q = 2 * L.stage;
+  L.q2 = L.q + rows8 * L.qs * (int)sizeof(float);
+  L.p = L.q2 + rows8 * L.q2s * (int)sizeof(float);
+  L.alpha = L.p + rows8 * MLA_TT * (int)sizeof(float);
+  L.m = L.alpha + rows8 * (int)sizeof(float);
+  L.l = L.m + rows8 * (int)sizeof(float);
+  L.pages = L.l + rows8 * (int)sizeof(float);
+  L.total = L.pages + (pages_per_split + 3) / 4 * 16;
+  return L;
+}
+
+// Stage the rows of tokens [t0, t0 + MLA_TT) (those at or past t_hi
+// zero-filled, never read) into one stage of the ring: K (which is also V
+// unless sep_v), V, k2, and the three scales.
+template <typename T>
+__device__ __forceinline__ void issue_mla_tile(unsigned char* st, const Args& a, const int* pages,
+                                               int p0, int t0, int t_hi, int h,
+                                               const MlaLayout& L, bool sep_v) {
+  const int rb = a.D * (int)sizeof(T);
+  const int cb = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : rb % 4 == 0 ? 4 : (int)sizeof(T);
+  const int cpr = rb / cb, nk = sep_v ? 2 : 1;
+  unsigned char* k2st = st + MLA_TT * L.srb * nk;
+  float* scales = reinterpret_cast<float*>(k2st + MLA_TT * L.srb2);
+  const unsigned char* src[2] = {static_cast<const unsigned char*>(a.k),
+                                 static_cast<const unsigned char*>(a.v)};
+  for (int i = threadIdx.x; i < nk * MLA_TT * cpr; i += MLA_THREADS) {
+    const int which = i / (MLA_TT * cpr), rest = i - which * MLA_TT * cpr;
+    const int r = rest / cpr, c = (rest - r * cpr) * cb, t = t0 + r;
+    const bool on = t < t_hi;
+    const long long off = (on ? token_row(pages, p0, t, a.block, a.H, h) : 0) * rb + c;
+    unsigned char* dst = st + (which * MLA_TT + r) * L.srb + c;
+    switch (cb) {
+      case 16: cp_async<16>(dst, src[which] + off, on); break;
+      case 8: cp_async<8>(dst, src[which] + off, on); break;
+      case 4: cp_async<4>(dst, src[which] + off, on); break;
+      default:
+        *reinterpret_cast<T*>(dst) = on ? *reinterpret_cast<const T*>(src[which] + off)
+                                        : zero_of<T>();
+    }
+  }
+  if (a.D2) {   // D2 a multiple of 8: rows of 8, 16, 32 or 64 bytes
+    const int rb2 = a.D2 * (int)sizeof(T), cb2 = rb2 % 16 == 0 ? 16 : 8, cpr2 = rb2 / cb2;
+    const unsigned char* k2 = static_cast<const unsigned char*>(a.k2);
+    for (int i = threadIdx.x; i < MLA_TT * cpr2; i += MLA_THREADS) {
+      const int r = i / cpr2, c = (i - r * cpr2) * cb2, t = t0 + r;
+      const bool on = t < t_hi;
+      const long long off = (on ? token_row(pages, p0, t, a.block, a.H, h) : 0) * rb2 + c;
+      if (cb2 == 16)
+        cp_async<16>(k2st + r * L.srb2 + c, k2 + off, on);
+      else
+        cp_async<8>(k2st + r * L.srb2 + c, k2 + off, on);
+    }
+  }
+  const float* sc[3] = {a.ks, a.vs, a.k2s};
+  for (int i = threadIdx.x; i < 3 * MLA_TT; i += MLA_THREADS) {
+    const int which = i / MLA_TT, r = i - which * MLA_TT, t = t0 + r;
+    if (!sc[which]) continue;
+    const bool on = t < t_hi;
+    const long long row = on ? token_row(pages, p0, t, a.block, a.H, h) : 0;
+    cp_async<4>(scales + i, sc[which] + row, on);
+  }
+}
+
+// 16 bytes of a staged row (16 / sizeof(T) elements) widened to fp32.
+template <typename T>
+__device__ __forceinline__ void lds16(float (&x)[16 / sizeof(T)], const unsigned char* src) {
+  constexpr int VE = 16 / sizeof(T);
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  T e[VE];
+  memcpy(e, &raw, sizeof(e));
+#pragma unroll
+  for (int j = 0; j < VE; ++j) x[j] = widen(e[j]);
+}
+
+// Grid (splits, B*H, row tiles). Block = lane b, page head h, query rows
+// [g0, g0 + gt) (gt <= RS * R), the pages of slice `split` of the lane.
+// Each tile of MLA_TT tokens is staged once in its stored dtype (cp.async,
+// the next tile in flight while this one is computed) and read by all of
+// the block's query rows from shared memory:
+//   * scores: warp w takes rows w, w + 8, ... (SR of them) and lane t token
+//     t of the tile: its dot products with the query rows (broadcast reads
+//     of q), the k2 term, the scales, the mask; then per row the tile's max
+//     and sum by shuffles, the online (max, den) kept in the warp's
+//     registers, the weights p (times v_scale) and the rescale of the
+//     accumulators written to shared memory;
+//   * values: thread (row set rs, column chunk cc) holds the fp32
+//     accumulators of rows rs, rs + RS, ... (R of them) and columns
+//     [8 cc, 8 cc + 8): acc = acc * rescale + sum_t p[g][t] v[t][cols].
+template <typename T, int DP, int R>
+__global__ void __launch_bounds__(MLA_THREADS) paged_mla_kernel(Args a) {
+  constexpr int VE = 16 / sizeof(T);            // elements a 16-byte read
+  constexpr int RS = mla_row_sets<DP>();
+  constexpr int CPT = DP / MLA_CW;              // threads a row in the value phase
+  constexpr int SR = (RS * R + MLA_WARPS - 1) / MLA_WARPS;   // score rows a warp
+  constexpr int ROWS8 = SR * MLA_WARPS;
+  extern __shared__ uint4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+
+  const int D = a.D, D2 = a.D2, blk = a.block, H = a.H;
+  const bool sep_v = a.v != a.k;
+  const MlaLayout L = mla_layout(sizeof(T), DP, D2, ROWS8, sep_v, a.pages_per_split);
+  float* q_s = reinterpret_cast<float*>(smem + L.q);
+  float* q2_s = reinterpret_cast<float*>(smem + L.q2);
+  float* p_s = reinterpret_cast<float*>(smem + L.p);
+  float* alpha_s = reinterpret_cast<float*>(smem + L.alpha);
+  float* m_s = reinterpret_cast<float*>(smem + L.m);
+  float* l_s = reinterpret_cast<float*>(smem + L.l);
+  int* pages = reinterpret_cast<int*>(smem + L.pages);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int split = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int g0 = blockIdx.z * a.rows, gt = min(a.rows, a.G - g0);
+  const long long qrow = ((long long)b * H + h) * a.G + g0;
+  const int* ptb = a.pt + (long long)b * a.P;
+  const int len = a.lengths[b];
+  const int2 sl = lane_slice(a, len, split);
+  const int t_lo = sl.x, t_hi = sl.y;
+  const int ntiles = t_hi > t_lo ? (t_hi - t_lo + MLA_TT - 1) / MLA_TT : 0;
+  const int p0 = t_lo / blk, p1 = t_hi > t_lo ? (t_hi + blk - 1) / blk : p0;
+  for (int i = threadIdx.x; i < p1 - p0; i += MLA_THREADS) pages[i] = ptb[p0 + i];
+  // the padding of the staged rows past D (read by the value phase's last
+  // columns) and of k2's rows is zero, never written by a copy
+  if (D < DP || D2 % VE) {
+    for (int i = threadIdx.x; i < 2 * L.stage / 16; i += MLA_THREADS)
+      smem4[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int i = threadIdx.x; i < ROWS8 * DP; i += MLA_THREADS) {
+    const int g = i / DP, d = i - g * DP;
+    q_s[g * L.qs + d] = g < gt && d < D ? load_q(a.q, a.q_dtype, (qrow + g) * D + d) : 0.f;
+  }
+  for (int i = threadIdx.x; i < ROWS8 * L.q2s; i += MLA_THREADS) {
+    const int g = i / L.q2s, d = i - g * L.q2s;
+    q2_s[i] = g < gt && d < D2 ? load_q(a.q2, a.q_dtype, (qrow + g) * D2 + d) : 0.f;
+  }
+  __syncthreads();
+  if (ntiles > 0) issue_mla_tile<T>(smem, a, pages, p0, t_lo, t_hi, h, L, sep_v);
+  cp_commit();
+
+  const bool round_p = !a.fused && sizeof(T) == 2;
+  const int dv = (D + VE - 1) / VE * VE, d2v = (D2 + VE - 1) / VE * VE;
+  float m[SR], l[SR];
+#pragma unroll
+  for (int j = 0; j < SR; ++j) m[j] = NEG_INF, l[j] = 0.f;
+  const int cc = threadIdx.x % CPT, rs = threadIdx.x / CPT;
+  float acc[R][MLA_CW];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int e = 0; e < MLA_CW; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = t_lo + it * MLA_TT;
+    if (it + 1 < ntiles)
+      issue_mla_tile<T>(smem + ((it + 1) & 1) * L.stage, a, pages, p0, t0 + MLA_TT, t_hi, h, L,
+                        sep_v);
+    cp_commit();
+    cp_wait<1>();      // this thread's copies of tile `it` have landed
+    __syncthreads();   // ... and everyone's
+    const unsigned char* kst = smem + (it & 1) * L.stage;
+    const unsigned char* vst = sep_v ? kst + MLA_TT * L.srb : kst;
+    const unsigned char* k2st = kst + MLA_TT * L.srb * (sep_v ? 2 : 1);
+    const float* ks_st = reinterpret_cast<const float*>(k2st + MLA_TT * L.srb2);
+    const float* vs_st = ks_st + MLA_TT;
+    const float* k2s_st = vs_st + MLA_TT;
+
+    // scores: the score order of the plain version (dot, x k_scale, + q2.k2
+    // x k2_scale, x scale, mask)
+    const bool on = t0 + lane < t_hi;
+    float s[SR];
+#pragma unroll
+    for (int j = 0; j < SR; ++j) s[j] = 0.f;
+    const unsigned char* krow = kst + lane * L.srb;
+    for (int d0 = 0; d0 < dv; d0 += VE) {
+      float kv[VE];
+      lds16<T>(kv, krow + d0 * (int)sizeof(T));
+#pragma unroll
+      for (int j = 0; j < SR; ++j) {
+        const float4* qr =
+            reinterpret_cast<const float4*>(q_s + (warp + MLA_WARPS * j) * L.qs + d0);
+#pragma unroll
+        for (int e = 0; e < VE / 4; ++e) {
+          const float4 qv = qr[e];
+          s[j] = fmaf(qv.x, kv[4 * e], s[j]);
+          s[j] = fmaf(qv.y, kv[4 * e + 1], s[j]);
+          s[j] = fmaf(qv.z, kv[4 * e + 2], s[j]);
+          s[j] = fmaf(qv.w, kv[4 * e + 3], s[j]);
+        }
+      }
+    }
+    if (a.ks) {
+#pragma unroll
+      for (int j = 0; j < SR; ++j) s[j] *= ks_st[lane];
+    }
+    if (D2) {
+      float s2[SR];
+#pragma unroll
+      for (int j = 0; j < SR; ++j) s2[j] = 0.f;
+      const unsigned char* k2row = k2st + lane * L.srb2;
+      for (int d0 = 0; d0 < d2v; d0 += VE) {
+        float kv[VE];
+        lds16<T>(kv, k2row + d0 * (int)sizeof(T));
+#pragma unroll
+        for (int j = 0; j < SR; ++j) {
+          const float* qr = q2_s + (warp + MLA_WARPS * j) * L.q2s + d0;
+#pragma unroll
+          for (int e = 0; e < VE; ++e) s2[j] = fmaf(qr[e], kv[e], s2[j]);   // d2v <= q2s
+        }
+      }
+      const float k2sc = a.k2s ? k2s_st[lane] : 1.f;
+#pragma unroll
+      for (int j = 0; j < SR; ++j) s[j] += s2[j] * k2sc;
+    }
+    const float vsc = a.vs ? vs_st[lane] : 1.f;
+#pragma unroll
+    for (int j = 0; j < SR; ++j) {
+      const float x = on ? s[j] * a.scale : NEG_INF;
+      float tmax = x;
+      for (int off = 16; off > 0; off >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float mnew = fmaxf(m[j], tmax);
+      const float alpha = __expf(m[j] - mnew);
+      float p = on ? __expf(x - mnew) : 0.f;
+      float psum = p;
+      for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l[j] = fmaf(l[j], alpha, psum);
+      m[j] = mnew;
+      p *= vsc;
+      p = round_p ? __bfloat162float(__float2bfloat16(p)) : p;
+      const int g = warp + MLA_WARPS * j;
+      p_s[g * MLA_TT + lane] = p;
+      if (lane == 0) alpha_s[g] = alpha;
+    }
+    __syncthreads();
+
+    // values: rescale, then the tile's valid tokens
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float al = alpha_s[rs + RS * j];
+#pragma unroll
+      for (int e = 0; e < MLA_CW; ++e) acc[j][e] *= al;
+    }
+    const int ntok = min(MLA_TT, t_hi - t0);
+    const unsigned char* vcol = vst + cc * MLA_CW * (int)sizeof(T);
+    for (int tt = 0; tt < ntok; ++tt) {
+      float vv[MLA_CW];
+      {
+        uint32_t raw[MLA_CW * sizeof(T) / 4];
+        lds_lane<T, MLA_CW>(raw, vcol + tt * L.srb);
+        widen_lane<T, MLA_CW>(vv, raw, MLA_CW);
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float p = p_s[(rs + RS * j) * MLA_TT + tt];
+#pragma unroll
+        for (int e = 0; e < MLA_CW; ++e) acc[j][e] = fmaf(p, vv[e], acc[j][e]);
+      }
+    }
+    __syncthreads();   // p and the tile's stage are rewritten by the next iteration
+  }
+  cp_wait<0>();
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < SR; ++j) {
+      m_s[warp + MLA_WARPS * j] = m[j];
+      l_s[warp + MLA_WARPS * j] = l[j];
+    }
+  }
+  __syncthreads();
+  const long long prow = ((long long)split * a.B * H + bh) * a.G + g0;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int g = rs + RS * j;
+    if (g >= gt) continue;
+    const float den = l_s[g];
+#pragma unroll
+    for (int e = 0; e < MLA_CW; ++e) {
+      const int d = cc * MLA_CW + e;
+      if (d >= D) continue;
+      if (a.splits == 1)
+        store_out(a.out, a.out_dtype, (qrow + g) * D + d, acc[j][e] / fmaxf(den, 1e-30f));
+      else
+        a.part_acc[(prow + g) * D + d] = acc[j][e];
+    }
+    if (a.splits > 1 && cc == 0)
+      a.part_ml[(prow + g) * 2] = m_s[g], a.part_ml[(prow + g) * 2 + 1] = den;
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 // One thread an output element (b, h, g, d): merge the slices in order, in
 // one pass with a running max (every slice's loads independent of the sums).
@@ -763,7 +1104,26 @@ int padded_width(int D) {
 
 bool use_encode(int G, int D, int D2) { return D2 == 0 && D <= ENC_MAX_D && G >= ENC_MIN_G; }
 
+bool use_mla(int D) { return D > 128; }
+
 int row_tiles(int G) { return (G + ROWS_MAX - 1) / ROWS_MAX; }
+
+// The MLA instance's padded width of D, rows a block at most, and row
+// tiles of G (each tile reads the lane's latents once more).
+int mla_dp(int D) { return D <= 256 ? 256 : 512; }
+constexpr int MLA_R[] = {4, 5, 8};   // value-phase rows a thread: the instances
+int mla_max_rows(int DP) { return MLA_THREADS / (DP / MLA_CW) * 8; }
+int mla_row_tiles(int G, int D) {
+  const int most = mla_max_rows(mla_dp(D));
+  return (G + most - 1) / most;
+}
+// The instance's R for a tile of `rows` query rows.
+int mla_r(int rows, int D) {
+  const int rs = MLA_THREADS / (mla_dp(D) / MLA_CW);
+  for (int r : MLA_R)
+    if (rs * r >= rows) return r;
+  return 8;
+}
 
 cudaError_t combine(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
@@ -804,6 +1164,62 @@ cudaError_t launch_encode(const Args& a, cudaStream_t stream) {
   return combine(a, stream);
 }
 
+template <typename T, int DP, int R>
+cudaError_t launch_mla(const Args& a, cudaStream_t stream) {
+  constexpr int ROWS8 = (MLA_THREADS / (DP / MLA_CW) * R + MLA_WARPS - 1) / MLA_WARPS * MLA_WARPS;
+  const int bytes = mla_layout(sizeof(T), DP, a.D2, ROWS8, a.v != a.k, a.pages_per_split).total;
+  cudaError_t err = cudaFuncSetAttribute(paged_mla_kernel<T, DP, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  paged_mla_kernel<T, DP, R>
+      <<<dim3(a.splits, a.B * a.H, mla_row_tiles(a.G, a.D)), MLA_THREADS, bytes, stream>>>(a);
+  return combine(a, stream);
+}
+
+template <typename T, int DP>
+cudaError_t mla_rows(const Args& a, cudaStream_t stream) {
+  switch (mla_r(a.rows, a.D)) {
+    case 4: return launch_mla<T, DP, 4>(a, stream);
+    case 5: return launch_mla<T, DP, 5>(a, stream);
+    default: return launch_mla<T, DP, 8>(a, stream);
+  }
+}
+
+template <typename T>
+cudaError_t mla_width(const Args& a, cudaStream_t stream) {
+  return mla_dp(a.D) == 256 ? mla_rows<T, 256>(a, stream) : mla_rows<T, 512>(a, stream);
+}
+
+// MLA blocks the card runs at once (K read as V: the serving pool's call).
+template <typename T, int DP, int R>
+int mla_wave_of(int D2, int P) {
+  constexpr int ROWS8 = (MLA_THREADS / (DP / MLA_CW) * R + MLA_WARPS - 1) / MLA_WARPS * MLA_WARPS;
+  const int bytes = mla_layout(sizeof(T), DP, D2, ROWS8, false, P).total;
+  int per_sm = 0, dev = 0, sms = 0;
+  if (cudaFuncSetAttribute(paged_mla_kernel<T, DP, R>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_mla_kernel<T, DP, R>,
+                                                    MLA_THREADS, bytes) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return (per_sm > 0 ? per_sm : 1) * sms;
+}
+
+template <typename T, int DP>
+int mla_wave_rows(int r, int D2, int P) {
+  switch (r) {
+    case 4: return mla_wave_of<T, DP, 4>(D2, P);
+    case 5: return mla_wave_of<T, DP, 5>(D2, P);
+    default: return mla_wave_of<T, DP, 8>(D2, P);
+  }
+}
+
+template <typename T>
+int mla_wave_width(int r, int D, int D2, int P) {
+  return mla_dp(D) == 256 ? mla_wave_rows<T, 256>(r, D2, P) : mla_wave_rows<T, 512>(r, D2, P);
+}
+
 // Decode blocks the card runs at once: the instance's blocks a
 // multiprocessor (registers, and shared memory with room for every page id
 // of a lane) times the multiprocessors of the current device.
@@ -830,32 +1246,46 @@ int wave_rows(int rows, int D, int P) {
   return wave_of<T, 8>(D, P);
 }
 
-// The decode wave of (page dtype, rows a block, D, P), computed once per
-// key and device (a decode step asks for it on every layer).
-int decode_wave(int G, int D, int P, int page_dtype) {
+// The wave of (page dtype, rows a block, D, D2, P) of the decode or the MLA
+// instance, computed once per key and device (a decode step asks for it on
+// every layer).
+int decode_wave(int G, int D, int D2, int P, int page_dtype) {
   struct Entry {
-    int dev, dtype, rows, D, P, wave;
+    int dev, dtype, rows, D, D2, P, wave;
   };
   static Entry cache[64];
   static int used = 0;
   static std::mutex lock;
-  const int tiles = row_tiles(G), rows = (G + tiles - 1) / tiles;
+  const bool mla = use_mla(D);
+  const int tiles = mla ? mla_row_tiles(G, D) : row_tiles(G), rows = (G + tiles - 1) / tiles;
+  const int key_d2 = mla ? D2 : 0;
   int dev = 0;
   cudaGetDevice(&dev);
   std::lock_guard<std::mutex> hold(lock);
   for (int i = 0; i < used; ++i) {
     const Entry& e = cache[i];
-    if (e.dev == dev && e.dtype == page_dtype && e.rows == rows && e.D == D && e.P == P)
+    if (e.dev == dev && e.dtype == page_dtype && e.rows == rows && e.D == D && e.D2 == key_d2 &&
+        e.P == P)
       return e.wave;
   }
   int wave;
-  switch (page_dtype) {
-    case F32: wave = wave_rows<float>(rows, D, P); break;
-    case BF16: wave = wave_rows<__nv_bfloat16>(rows, D, P); break;
-    case I8: wave = wave_rows<int8_t>(rows, D, P); break;
-    default: wave = wave_rows<__nv_fp8_e4m3>(rows, D, P);
+  if (mla) {
+    const int r = mla_r(rows, D);
+    switch (page_dtype) {
+      case F32: wave = mla_wave_width<float>(r, D, D2, P); break;
+      case BF16: wave = mla_wave_width<__nv_bfloat16>(r, D, D2, P); break;
+      case I8: wave = mla_wave_width<int8_t>(r, D, D2, P); break;
+      default: wave = mla_wave_width<__nv_fp8_e4m3>(r, D, D2, P);
+    }
+  } else {
+    switch (page_dtype) {
+      case F32: wave = wave_rows<float>(rows, D, P); break;
+      case BF16: wave = wave_rows<__nv_bfloat16>(rows, D, P); break;
+      case I8: wave = wave_rows<int8_t>(rows, D, P); break;
+      default: wave = wave_rows<__nv_fp8_e4m3>(rows, D, P);
+    }
   }
-  cache[used < 64 ? used++ : dev % 64] = Entry{dev, page_dtype, rows, D, P, wave};
+  cache[used < 64 ? used++ : dev % 64] = Entry{dev, page_dtype, rows, D, key_d2, P, wave};
   return wave;
 }
 
@@ -871,14 +1301,14 @@ extern "C" {
 // ENC_MIN_TOKENS tokens a slice.
 int paged_attention_splits(int B, int H, int G, int D, int D2, int block, int P,
                            int page_dtype) {
-  if (D < 1 || D > 128 || B * H < 1 || G < 1) return 1;
+  if (D < 1 || D > 512 || B * H < 1 || G < 1) return 1;
   long long want, most;
   if (use_encode(G, D, D2)) {
     want = ENC_WAVE / ((long long)B * H * ((G + THREADS - 1) / THREADS));
     most = (long long)P * block / ENC_MIN_TOKENS;
   } else {
-    const long long tiles = (long long)B * H * row_tiles(G);
-    want = decode_wave(G, D, P, page_dtype) / tiles;
+    const long long tiles = (long long)B * H * (use_mla(D) ? mla_row_tiles(G, D) : row_tiles(G));
+    want = decode_wave(G, D, D2, P, page_dtype) / tiles;
     most = P / MIN_PAGES;
   }
   if (want > most) want = most;
@@ -889,20 +1319,33 @@ int paged_attention_splits(int B, int H, int G, int D, int D2, int block, int P,
 // q [B, H, G, D] (fp32 / bf16, q2 likewise with D2, or null and D2 = 0);
 // pages [NB, block, H, D] of page_dtype (k2 with D2); scales [NB, block, H]
 // fp32 or null; out [B, H, G, D] of out_dtype. All contiguous, pages 16-byte
-// aligned; 1 <= D <= 128, D2 a multiple of 8 up to 128; splits from
-// paged_attention_splits.
+// aligned; 1 <= D <= 512, D2 a multiple of 8 up to 128 (up to 64 where D >
+// 128); splits from paged_attention_splits.
 int paged_attention(const void* q, const void* q2, const void* k, const void* v, const void* k2,
                     const int* page_table, const int* lengths, const float* k_scale,
                     const float* v_scale, const float* k2_scale, void* out, float* part_acc,
                     float* part_ml, int B, int H, int G, int D, int D2, int block, int P,
                     int splits, float scale, int q_dtype, int page_dtype, int out_dtype,
                     int fused, void* stream) {
-  if (D < 1 || D > 128 || D2 < 0 || D2 > 128 || splits < 1 || G < 1) return cudaErrorInvalidValue;
-  const int tiles = row_tiles(G);
+  const bool mla = use_mla(D);
+  if (D < 1 || D > 512 || D2 < 0 || D2 > (mla ? MLA_MAX_D2 : 128) || D2 % 8 || splits < 1 ||
+      G < 1)
+    return cudaErrorInvalidValue;
+  const int tiles = mla ? mla_row_tiles(G, D) : row_tiles(G);
   Args a{q, q2, k, v, k2, page_table, lengths, k_scale, v_scale, k2_scale, out, part_acc,
-         part_ml, B, H, G, D, padded_width(D), D2, block, P, splits, (P + splits - 1) / splits,
-         (G + tiles - 1) / tiles, scale, q_dtype, page_dtype, out_dtype, fused};
+         part_ml, B, H, G, D, mla ? mla_dp(D) : padded_width(D), D2, block, P, splits,
+         (P + splits - 1) / splits, (G + tiles - 1) / tiles, scale, q_dtype, page_dtype,
+         out_dtype, fused};
   cudaStream_t s = (cudaStream_t)stream;
+  if (mla) {
+    switch (page_dtype) {
+      case F32: return mla_width<float>(a, s);
+      case BF16: return mla_width<__nv_bfloat16>(a, s);
+      case I8: return mla_width<int8_t>(a, s);
+      case FP8: return mla_width<__nv_fp8_e4m3>(a, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   if (use_encode(G, D, D2)) {
     if (page_dtype < F32 || page_dtype > FP8) return cudaErrorInvalidValue;
     return a.DP == 8 ? launch_encode<8>(a, s) : a.DP == 16 ? launch_encode<16>(a, s)

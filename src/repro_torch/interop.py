@@ -7,19 +7,21 @@ np.asarray, params)``), so this module needs no JAX. Paths become
 ``nn.Linear``. Every parity test loads its weights through here: the two
 frameworks' random generators differ, so weights are never re-initialised.
 
-The JAX LM stacks its layers (every leaf of ``layers`` has a leading [L]
-axis, for ``jax.lax.scan``); :func:`unstack_layers` splits them into the
-list of per-layer trees that the port's ``nn.ModuleList`` reads
-(``layers.3.mlp.w_gate.weight``).
+The JAX LM stacks its layers (every leaf of ``layers``, and of an MoE
+model's ``dense_layers``, has a leading [L] axis, for ``jax.lax.scan``);
+:func:`unstack_layers` splits them into the lists of per-layer trees that
+the port's ``nn.ModuleList``s read (``layers.3.mlp.w_gate.weight``). Leaves
+that are not dense kernels pass as they are: the MoE's stacked expert
+weights ``[E, C, F]`` (``layers.3.mlp.w_gate``) keep the JAX layout.
 
 The other direction, :func:`to_jax_flat`, gives the flat form the
 checkpoints hold: the JAX leaf paths joined by ``/``
 (``blocks/0/mixer/k_proj/res/1/kernel``) with dense kernels ``[in, out]``.
-The LM's per-layer keys ``layers.{i}.…`` become the JAX LM's stacked leaves
-``layers/…`` with a leading [L] axis; the PDE family keeps its per-block
-keys, as the JAX package writes them. :func:`from_jax_flat` inverts it
-(per-layer ``layers/{i}/…`` paths pass through), so a checkpoint written by
-either package restores in the other.
+The LM's per-layer keys ``layers.{i}.…`` (and ``dense_layers.{i}.…``)
+become the JAX LM's stacked leaves ``layers/…`` with a leading [L] axis;
+the PDE family keeps its per-block keys, as the JAX package writes them.
+:func:`from_jax_flat` inverts it (per-layer ``layers/{i}/…`` paths pass
+through), so a checkpoint written by either package restores in the other.
 """
 from __future__ import annotations
 
@@ -51,9 +53,16 @@ def _jax_leaves(tree, prefix: str = "") -> dict:
     return out
 
 
-def unstack_layers(tree: dict, key: str = "layers") -> dict:
+def unstack_layers(tree: dict, key=None) -> dict:
     """A copy of ``tree`` with ``tree[key]``, whose leaves carry a leading
-    [L] axis, split into a list of L per-layer trees."""
+    [L] axis, split into a list of L per-layer trees; ``key=None`` splits
+    every stack of :data:`STACKS` the tree holds."""
+    if key is None:
+        for name in STACKS:
+            if name in tree:
+                tree = unstack_layers(tree, name)
+        return tree
+
     def take(sub, i):
         if isinstance(sub, dict):
             return {k: take(x, i) for k, x in sub.items()}
@@ -77,6 +86,8 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
 
 
 STACKED = "layers"   # the JAX LM's layer stack: every leaf has a leading [L] axis
+# every stack of the JAX LM: ``layers`` and an MoE model's leading ``dense_layers``
+STACKS = (STACKED, "dense_layers")
 
 
 def jax_leaf(name: str) -> tuple:
@@ -85,8 +96,8 @@ def jax_leaf(name: str) -> tuple:
     (``layers/mlp/w_up/kernel``, 3)."""
     head, _, rest = name.partition(".")
     i, _, rest = rest.partition(".")
-    if head == STACKED and i.isdigit():
-        return f"{STACKED}/{jax_key(rest)}", int(i)
+    if head in STACKS and i.isdigit():
+        return f"{head}/{jax_key(rest)}", int(i)
     return jax_key(name), None
 
 
@@ -135,8 +146,8 @@ def from_jax_flat(flat) -> dict:
         if leaf == "kernel":
             leaf, arr = "weight", np.swapaxes(arr, -1, -2)
         name = ".".join([*path, leaf])
-        if path[:1] == [STACKED] and not (len(path) > 1 and path[1].isdigit()):
-            out.update({f"{STACKED}.{i}.{name.partition('.')[2]}":
+        if path[:1] and path[0] in STACKS and not (len(path) > 1 and path[1].isdigit()):
+            out.update({f"{path[0]}.{i}.{name.partition('.')[2]}":
                         torch.from_numpy(np.ascontiguousarray(a)) for i, a in enumerate(arr)})
         else:
             out[name] = torch.from_numpy(np.ascontiguousarray(arr))

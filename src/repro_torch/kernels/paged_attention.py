@@ -6,17 +6,21 @@ straight from the serving pool's block storage ``[NB, block, H, D]``
 through a per-lane page table, masks rows past each lane's length, and
 dequantizes int8 / fp8 rows with per-row scales in registers. The query
 axis G is the consumer: G = query heads per KV head for the gqa decode read
-(``models/attention.py::gqa_cache_attend``), G = M latents for FLARE's
-encode off pages (the ``paged`` backend).
+(``models/attention.py::gqa_cache_attend``), G = the heads over one page
+head of compressed latents for MLA's absorbed decode (``mla_decode``: D =
+kv_lora_rank, the latents both K and V, q2 over the rotary key), G = M
+latents for FLARE's encode off pages (the ``paged`` backend).
 
 The kernel is in ``csrc/paged_attention.cu``, whose head comment says what
-bounds it on an H100 and what its design does about it: two instances, the
-decode read's (a block takes the G query rows of one lane and KV head) and
-the FLARE encode's (a thread a latent), which the C entry point picks from
-G, D and q2. The page slices a call splits each lane into come from the
-shapes and the card (``paged_attention_splits``). On a CPU tensor the
-wrapper runs the plain version (``kernels/ref.py::paged_attention_ref``); on
-a CUDA tensor it launches the kernel or raises, inside
+bounds it on an H100 and what its design does about it: three instances,
+the decode read's (a block takes up to 8 query rows of one lane and KV
+head), MLA's (D > 128: a block stages each token row once and all its
+query rows read it) and the FLARE encode's (a thread a latent), which the C
+entry point picks from G, D and q2. The page slices a call splits each lane
+into come from the shapes and the card (``paged_attention_splits``). On a
+CPU tensor the wrapper runs the plain version
+(``kernels/ref.py::paged_attention_ref``); on a CUDA tensor it launches the
+kernel or raises, inside
 ``obs.scope("kernels.paged_attention")``. The page table and lengths
 stay on the device: nothing is read back to the host, so a decode step that
 calls it once a layer keeps its one device-to-host copy. It counts its
@@ -38,7 +42,8 @@ from repro_torch.obs import scope
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = range(1, 129)   # D it takes (tiled at the next power of two from 8)
+HEAD_DIMS = range(1, 513)   # D it takes (to 128 tiled at the next power of two from 8;
+                            # above, the MLA instance at 256 or 512)
 MAX_BLOCK = 128                    # tokens a page (a multiple of 4)
 
 
@@ -120,9 +125,10 @@ def _paged_attention(q, k_pages, v_pages, page_table, lengths, *, scale, k_scale
         raise ValueError(f"paged_attention: q {q.dtype}, pages {k_pages.dtype}, out {out_dtype}; "
                          f"the kernel takes q in {list(Q_DTYPES)}, pages in {list(PAGE_DTYPES)}, "
                          f"out in {list(OUT_DTYPES)}")
-    if d not in HEAD_DIMS or (d2 and (d2 % 8 or d2 > 128)):
+    d2_max = 64 if d > 128 else 128   # the MLA instance's k2 rows
+    if d not in HEAD_DIMS or (d2 and (d2 % 8 or d2 > d2_max)):
         raise ValueError(f"paged_attention: head dim {d} not in {HEAD_DIMS}, or D2 {d2} not a "
-                         "multiple of 8 up to 128")
+                         f"multiple of 8 up to {d2_max}")
     if not 4 <= blk <= MAX_BLOCK or blk % 4 or b * h > 65535 or p < 1:
         raise ValueError(f"paged_attention: block {blk} (a multiple of 4 up to {MAX_BLOCK}), "
                          f"B*H {b * h} (<= 65535), P {p} (>= 1)")

@@ -9,8 +9,10 @@ same way whether the prefix cache is on or off, so the two runs see the
 same prompts. ``--rate`` submits them as an open-loop Poisson stream (0: all
 up front). It serves on ``cuda`` unless ``--device cpu`` is given, and
 raises where there is no CUDA device rather than falling back to the CPU.
-``--smoke`` serves the reduced config of the same family with random
-weights from ``--seed``. Prints the generated tokens, tok/s, latency
+The weights are random, drawn on that device from ``--seed`` (every
+registered LM: ``--arch qwen2_1_5b``, ``phi3_mini_3_8b``, ``flare_lm``,
+``minicpm3_4b``, ``deepseek_v2_lite_16b``); ``--smoke`` serves the reduced
+config of the same family. Prints the generated tokens, tok/s, latency
 percentiles, the resolved decode backend and, for the paged pool
 (``--pool-tokens``), the pool's and the prefix cache's stats;
 ``--trace-out`` writes the engine's spans as Chrome-trace JSON and
@@ -79,7 +81,7 @@ def main(argv=None):
                          "'causal_pallas,causal_stream'); default: auto")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share the blocks of common prompt prefixes across requests "
-                         "(needs --pool-tokens and a gqa arch; off otherwise)")
+                         "(needs --pool-tokens and a gqa or mla arch; off otherwise)")
     ap.add_argument("--pin-prompt", action="store_true",
                     help="pin the shared templates' blocks before serving (prefilled by a "
                          "one-token request); needs --share-prefix")
@@ -113,7 +115,9 @@ def main(argv=None):
         raise SystemExit(f"{cfg.name} has no slot-pool serving path (family={cfg.family})")
     if model.plans:
         print(f"mixer plan (resolved once at build): infer={model.plans['infer'].describe()}")
-    net = model.init(args.seed)
+    # drawn on the serving device (a 15.7B draw on the host takes minutes)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    net = model.init(args.seed, generator=gen)
     tracer = None
     if args.trace_out:
         from repro_torch.obs.trace import Tracer

@@ -1,23 +1,26 @@
 """Model API of the port: ``get_model(cfg)`` -> init / forward / loss / plans,
 and for the LMs prefill / decode_step / init_caches / prefill_into.
 
-Counterpart of ``repro/models/api.py`` for the PDE family, ``flare_lm`` and
-the gqa decoder (``dense``, e.g. qwen2):
+Counterpart of ``repro/models/api.py`` for the PDE family, ``flare_lm``,
+the gqa and MLA decoders (``dense``, e.g. qwen2, minicpm3) and the MLA + MoE
+decoder (``moe``, deepseek-v2-lite):
 
     m = get_model(cfg, device="cuda")   # plans resolved here, once, for the device
-    net = m.init(seed)                  # the model's modules on that device
+    net = m.init(seed)                  # the model's modules on that device (the LMs:
+                                        # m.init(seed, generator=g) draws from g,
+                                        # e.g. a card's generator for 15.7B weights)
     pred = m.forward(net, batch)        # inference under m.plans["infer"]
     loss = m.loss(net, batch)           # differentiable, under m.plans["train"]
                                         # (PDE: surrogate_loss; the LMs: batch
                                         # {"tokens", "labels"})
-    # the LMs (flare_lm, dense) only:
+    # the LMs (flare_lm, dense, moe) only:
     logits, caches = m.prefill(net, batch, capacity)      # batch may carry "lengths"
     logits, caches = m.decode_step(net, token, caches)    # token [B, 1]
     caches = m.init_caches(batch_size, capacity)          # device="meta" allocates nothing
     # continuous-batching insertion prefill: prefill a request batch and
     # write its caches into live pool slots (in place)
     logits, pool = m.prefill_into(net, batch, pool, slots, capacity=capacity)
-    # the prefix cache's suffix prefill (dense family only): continue caches
+    # the prefix cache's suffix prefill (gqa and mla only): continue caches
     # holding batch["offsets"] prompt tokens by batch["tokens"]
     logits, caches = m.prefill_suffix(net, batch, caches)
 
@@ -38,14 +41,15 @@ tile is its own) on the card and the plain ``causal_stream`` on the CPU, the
 train plan ``causal_stream``, whose ``chunk_size`` is the config's
 ``flare_chunk``; a forward-only policy (``causal_pallas`` alone) builds, and
 ``loss`` raises as the PDE family's does.
-dense (gqa): no mixer plan (attention has its own ``impl``, "auto" here:
-the ``chunked`` route beyond 2,048 tokens, ``xla`` below). ``prefill_suffix``
-is set where the cache is position-addressable history (gqa, unwindowed) and
-``None`` otherwise (``flare_lm``, the PDE family), as in the JAX package;
-the serving engine's prefix cache is off where it is ``None``.
-``forward`` returns ``(logits [B, S, vocab] fp32, aux)``; the LMs' ``loss``
-is ``transformer.lm_loss``, each decoder layer checkpointed as
-``cfg.remat`` says.
+dense and moe (gqa or mla attention): no mixer plan (attention has its own
+``impl``, "auto" here: the ``chunked`` route beyond 2,048 tokens, ``xla``
+below). ``prefill_suffix`` is set where the cache is position-addressable
+history (gqa or mla, unwindowed) and ``None`` otherwise (``flare_lm``, the
+PDE family), as in the JAX package; the serving engine's prefix cache is off
+where it is ``None``. ``forward`` returns ``(logits [B, S, vocab] fp32,
+aux)``, aux the MoE layers' load-balancing loss; the LMs' ``loss`` is
+``transformer.lm_loss``, each decoder layer checkpointed as ``cfg.remat``
+says.
 """
 from __future__ import annotations
 
@@ -101,7 +105,7 @@ def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
     from repro_torch.core.dispatch import MixerPlan, MixerShape
     from repro_torch.core.policy import resolve_policy
 
-    if cfg.family == "dense":   # gqa attention resolves no mixer plan
+    if cfg.family in ("dense", "moe"):   # gqa and mla attention resolve no mixer plan
         return {}, None
     causal = cfg.family == "flare_lm"
     if causal:
@@ -146,11 +150,12 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
     """``policy``: a MixerPolicy, a MixerPlan, or None (the ambient policy),
     resolved here once for ``device`` (default ``"cuda"``) and, for the PDE
     family, ``mesh`` (a DeviceMesh whose token axes split each example)."""
-    if cfg.family not in ("pde", "flare_lm", "dense"):
+    if cfg.family not in ("pde", "flare_lm", "dense", "moe"):
         raise ValueError(f"family {cfg.family!r} is not ported; the port has 'pde', "
-                         "'flare_lm' and 'dense'")
-    if cfg.family == "dense" and cfg.attn.kind != "gqa":
-        raise ValueError(f"the port's dense family has gqa attention, not {cfg.attn.kind!r}")
+                         "'flare_lm', 'dense' and 'moe'")
+    if cfg.family in ("dense", "moe") and cfg.attn.kind not in ("gqa", "mla"):
+        raise ValueError(f"the port's {cfg.family} family has gqa or mla attention, not "
+                         f"{cfg.attn.kind!r}")
     group = None
     if mesh is not None:
         from repro_torch.distributed.compat import axis_group, axis_size
@@ -165,7 +170,7 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
         group = axis_group(mesh, fsdp_axes(mesh))
     dev = torch.device("cuda" if device is None else device)
     plans, train_error = _resolve_plans(cfg, policy, dev, seq_len_hint, mesh)
-    if cfg.family in ("flare_lm", "dense"):
+    if cfg.family in ("flare_lm", "dense", "moe"):
         return _lm(cfg, dev, plans, train_error)
     from repro_torch.models import pde
 
@@ -193,8 +198,11 @@ def _lm(cfg: ModelConfig, dev: torch.device, plans, train_error) -> Model:
 
     infer, train = plans.get("infer"), plans.get("train")
 
-    def init(seed: int) -> t.LM:
-        return t.init_lm(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    def init(seed: int, *, generator: Optional[torch.Generator] = None) -> t.LM:
+        """The weights from ``generator`` when given (its seed is the
+        caller's), else from a CPU generator seeded with ``seed``."""
+        gen = generator if generator is not None else torch.Generator().manual_seed(seed)
+        return t.init_lm(cfg, generator=gen, device=dev)
 
     def forward(net: t.LM, batch) -> tuple:
         with torch.no_grad():
@@ -222,5 +230,5 @@ def _lm(cfg: ModelConfig, dev: torch.device, plans, train_error) -> Model:
     return Model(cfg=cfg, init=init, forward=forward, loss=_train_guard(loss, train_error),
                  plans=plans, prefill=prefill, decode_step=decode_step, init_caches=init_caches,
                  prefill_into=make_prefill_into(prefill, init_caches),
-                 prefill_suffix=(prefill_suffix if cfg.attn.kind == "gqa"
+                 prefill_suffix=(prefill_suffix if cfg.attn.kind in ("gqa", "mla")
                                  and cfg.attn.sliding_window is None else None))

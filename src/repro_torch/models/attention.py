@@ -1,8 +1,12 @@
-"""GQA attention (RoPE / M-RoPE, QKV bias, sliding window): the train and
-prefill forward, and single-token decode against a KV cache.
+"""GQA attention (RoPE / M-RoPE, QKV bias, sliding window) and MLA
+(DeepSeek-V2's multi-head latent attention): the train and prefill forward,
+single-token decode against a cache, and the prefix cache's continuation.
 
-Counterpart of the gqa half of ``repro/models/attention.py``, with the
-prefix cache's continuation (``gqa_extend``). MLA is not ported yet.
+Counterpart of ``repro/models/attention.py``: ``gqa_*`` over a
+:class:`KVCache`, ``mla_*`` over an :class:`MLACache` of compressed latents
+(``mla_decode`` runs attention in the latent space, the absorbed form, and
+reads a paged pool through the paged-attention kernel, the latents both its
+K and V and the rotary key its second score term).
 
 ``attn_sdpa`` is written op for op as the JAX package's XLA paths: the score
 einsum in the operands' dtype, then the cast to fp32, then ``* scale``, then
@@ -40,7 +44,7 @@ from torch import nn
 
 from repro_torch.config import AttnConfig
 from repro_torch.models.rope import apply_rope, mrope_angles, rope_angles
-from repro_torch.nn.modules import dense, init_dense
+from repro_torch.nn.modules import RMSNorm, dense, init_dense, init_rmsnorm, rmsnorm
 
 # ---------------------------------------------------------------------------
 # SDPA
@@ -339,3 +343,225 @@ def gqa_extend(attn: GQA, x: torch.Tensor, cfg: AttnConfig, cache: KVCache, *,
     out = torch.einsum("bhst,bhtd->bhsd", w.to(vv.dtype), vv)
     y = dense(attn.wo, _unheads(out))
     return y, KVCache(ck, cv, offsets.to(torch.int32) + lengths.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor     # [B, S_cap, kv_lora_rank] compressed latents
+    k_rope: torch.Tensor   # [B, S_cap, qk_rope_head_dim] the shared rotary key
+    length: torch.Tensor   # [B] int32: tokens seen so far, per sequence slot
+
+
+def init_mla_cache(batch: int, cfg: AttnConfig, capacity: int, device=None) -> MLACache:
+    """A zero bf16 latent cache of ``capacity`` rows (bf16 whatever the
+    compute dtype, as the JAX package keeps it)."""
+    m = cfg.mla
+    zeros = lambda d: torch.zeros(batch, capacity, d, dtype=torch.bfloat16, device=device)
+    return MLACache(zeros(m.kv_lora_rank), zeros(m.qk_rope_head_dim),
+                    torch.zeros(batch, dtype=torch.int32, device=device))
+
+
+class MLA(nn.Module):
+    """Parameters ``w_dkv``, ``kv_norm``, ``w_kr``, ``w_uk``, ``w_uv``,
+    ``w_o``, and the queries' ``w_dq``, ``q_norm``, ``w_uq`` (q-LoRA) or
+    ``w_q`` (full rank), as the JAX tree's ``attn``."""
+
+    def __init__(self, w_dkv: nn.Linear, kv_norm: RMSNorm, w_kr: nn.Linear, w_uk: nn.Linear,
+                 w_uv: nn.Linear, w_o: nn.Linear, queries: dict):
+        super().__init__()
+        self.w_dkv, self.kv_norm, self.w_kr = w_dkv, kv_norm, w_kr
+        self.w_uk, self.w_uv, self.w_o = w_uk, w_uv, w_o
+        for name, module in queries.items():
+            setattr(self, name, module)
+
+
+def init_mla(cfg: AttnConfig, d_model: int, *, generator: torch.Generator, device=None,
+             dtype=torch.float32) -> MLA:
+    m, h = cfg.mla, cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    mk = lambda i, o: init_dense(i, o, generator=generator, device=device, dtype=dtype)
+    w_dkv = mk(d_model, m.kv_lora_rank)
+    kv_norm = init_rmsnorm(m.kv_lora_rank, device=device, dtype=dtype)
+    w_kr = mk(d_model, m.qk_rope_head_dim)
+    w_uk = mk(m.kv_lora_rank, h * m.qk_nope_head_dim)
+    w_uv = mk(m.kv_lora_rank, h * m.v_head_dim)
+    w_o = mk(h * m.v_head_dim, d_model)
+    if m.q_lora_rank:
+        queries = {"w_dq": mk(d_model, m.q_lora_rank),
+                   "q_norm": init_rmsnorm(m.q_lora_rank, device=device, dtype=dtype),
+                   "w_uq": mk(m.q_lora_rank, h * qk_dim)}
+    else:
+        queries = {"w_q": mk(d_model, h * qk_dim)}
+    return MLA(w_dkv, kv_norm, w_kr, w_uk, w_uv, w_o, queries)
+
+
+def _mla_queries(attn: MLA, x: torch.Tensor, cfg: AttnConfig, positions: torch.Tensor):
+    """(q_nope, rope'd q_rope), each [B, H, S, *]. The q-LoRA norm takes
+    ``rmsnorm``'s default eps (1e-6), as the JAX package's does, not the
+    layers' ``norm_eps``."""
+    m = cfg.mla
+    if m.q_lora_rank:
+        q = dense(attn.w_uq, rmsnorm(attn.q_norm, dense(attn.w_dq, x)))
+    else:
+        q = dense(attn.w_q, x)
+    q_nope, q_rope = _heads(q, cfg.num_heads).split([m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                                    dim=-1)
+    return q_nope, apply_rope(q_rope, rope_angles(positions, m.qk_rope_head_dim,
+                                                  cfg.rope_theta))
+
+
+def _mla_latents(attn: MLA, x: torch.Tensor, cfg: AttnConfig, positions: torch.Tensor):
+    """The new tokens' latents c [B, S, r] (``kv_norm`` at eps 1e-6, as in
+    the JAX package) and rope'd shared key [B, S, rope]."""
+    m = cfg.mla
+    c = rmsnorm(attn.kv_norm, dense(attn.w_dkv, x))
+    kr = apply_rope(dense(attn.w_kr, x), rope_angles(positions, m.qk_rope_head_dim,
+                                                      cfg.rope_theta))
+    return c, kr
+
+
+def _mla_scale(cfg: AttnConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)
+
+
+def _mla_kv(attn: MLA, c: torch.Tensor, kr: torch.Tensor, cfg: AttnConfig):
+    """Per-head k [B, H, T, nope + rope] (the shared rotary key broadcast
+    over the heads) and v [B, H, T, v_dim], decompressed from latents."""
+    h = cfg.num_heads
+    k_nope = _heads(dense(attn.w_uk, c), h)
+    v = _heads(dense(attn.w_uv, c), h)
+    b, _, t, _ = k_nope.shape
+    return torch.cat([k_nope, kr[:, None].expand(b, h, t, kr.shape[-1])], dim=-1), v
+
+
+def mla_forward(attn: MLA, x: torch.Tensor, cfg: AttnConfig, *, positions: torch.Tensor,
+                causal: bool = True, impl: str = "auto", return_kv: bool = False):
+    """Train / prefill path: per-head K/V decompressed from the latents,
+    attended through ``attn_sdpa``'s ``impl`` route -> y [B, S, C] (and the
+    latents c [B, S, r] and rope'd shared key [B, S, rope], what serving
+    caches). The q/k head dim (nope + rope) differs from v's, which the
+    flash kernel does not take: "auto" picks xla or chunked."""
+    q_nope, q_rope = _mla_queries(attn, x, cfg, positions)
+    c, kr = _mla_latents(attn, x, cfg, positions)
+    k, v = _mla_kv(attn, c, kr, cfg)
+    out = attn_sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, scale=_mla_scale(cfg),
+                    causal=causal, window=None, impl=impl)
+    y = dense(attn.w_o, _unheads(out))
+    return (y, (c, kr)) if return_kv else y
+
+
+def mla_decode(attn: MLA, x: torch.Tensor, cfg: AttnConfig, cache: MLACache, *,
+               positions: torch.Tensor):
+    """Absorbed single-token decode in the latent space: x [B, 1, C] ->
+    (y [B, 1, C], cache). ``W_uk`` folds into the query (q_abs [B, H, 1, r]),
+    score_t = q_abs . c_t + q_rope . k_rope_t, the context is a latent
+    (sum_t w_t c_t) and ``W_uv`` folds in on the way out, so a step reads
+    (r + rope) values a cached token. The JAX kernels ``[r, H*d]`` reshape to
+    ``[r, H, d]``; an ``nn.Linear`` weight ``[H*d, r]`` to ``[H, d, r]``.
+
+    A ``PagedTokenView`` cache takes the kernel route: the latents are both
+    K and V of the paged-attention kernel (one page head, G = the heads),
+    the rotary score its second term (q2 / k2). A dense cache is written in
+    place and read by the fp32 formulation of the kernel route."""
+    from repro_torch.serve.pool.views import PagedTokenView
+
+    m, h = cfg.mla, cfg.num_heads
+    b = x.shape[0]
+    q_nope, q_rope = _mla_queries(attn, x, cfg, positions)           # [B, H, 1, *]
+    w_uk = attn.w_uk.weight.to(x.dtype).reshape(h, m.qk_nope_head_dim, m.kv_lora_rank)
+    q_abs = torch.einsum("bhsd,hdr->bhsr", q_nope, w_uk)
+    c_new, kr_new = _mla_latents(attn, x, cfg, positions)            # [B, 1, *]
+    new_len = _per_slot(cache.length, b) + 1
+    scale = _mla_scale(cfg)
+
+    if isinstance(cache.c_kv, PagedTokenView):
+        from repro_torch.kernels.paged_attention import paged_attention
+
+        cview = cache.c_kv.append(c_new[:, 0])       # [B, r] row
+        krview = cache.k_rope.append(kr_new[:, 0])
+        c_pages, c_scale = cview.pages()
+        kr_pages, kr_scale = krview.pages()
+        qa = q_abs[:, :, 0][:, None].float().contiguous()   # [B, 1, H, r]
+        qr = q_rope[:, :, 0][:, None].float().contiguous()  # [B, 1, H, rope]
+        ctx = paged_attention(qa, c_pages, c_pages, cview.pt, new_len.to(torch.int32),
+                              scale=scale, k_scale=c_scale, v_scale=c_scale, q2=qr,
+                              k2_pages=kr_pages, k2_scale=kr_scale, out_dtype=x.dtype)
+        ctx = ctx[:, 0][:, :, None, :]               # [B, H, 1, r] latent context
+        new_cache = MLACache(cview, krview, new_len)
+    else:
+        c_all, kr_all = cache.c_kv, cache.k_rope
+        cap = c_all.shape[1]
+        slot = (new_len - 1).remainder(cap).long()
+        rows = torch.arange(b, device=x.device)
+        c_all[rows, slot] = c_new[:, 0].to(c_all.dtype)
+        kr_all[rows, slot] = kr_new[:, 0].to(kr_all.dtype)
+        c32 = c_all.float()
+        s_nope = torch.einsum("bhsr,btr->bhst", q_abs.float(), c32)
+        s_rope = torch.einsum("bhsd,btd->bhst", q_rope.float(), kr_all.float())
+        # flarecheck: disable=DS003 -- f32 operands (.float()); the rule sees only astype casts
+        scores = (s_nope + s_rope) * scale
+        scores = scores.masked_fill(~decode_valid_mask(new_len, cap), -torch.inf)
+        w = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhst,btr->bhsr", w, c32).to(x.dtype)
+        new_cache = MLACache(c_all, kr_all, new_len)
+    w_uv = attn.w_uv.weight.to(x.dtype).reshape(h, m.v_head_dim, m.kv_lora_rank)
+    out = torch.einsum("bhsr,hdr->bhsd", ctx, w_uv)
+    return dense(attn.w_o, _unheads(out)), new_cache
+
+
+def mla_extend(attn: MLA, x: torch.Tensor, cfg: AttnConfig, cache: MLACache, *,
+               positions: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor):
+    """Width-S prefill continuation of a latent cache (the prefix cache's
+    suffix path; the contract of :func:`gqa_extend`): the suffix's latents
+    go into the cache at ``offsets + i`` (in place), then, as
+    :func:`mla_forward` does and not in the absorbed form, per-head K/V are
+    decompressed from the whole cache and attended with ``attn_sdpa``'s
+    ``xla`` staging (the score product in the operands' promoted dtype, the
+    cast to fp32, ``* scale``, the mask, the softmax, the cast to v's dtype,
+    the value product) -> (y [B, S, C], the cache at ``offsets + lengths``)."""
+    q_nope, q_rope = _mla_queries(attn, x, cfg, positions)
+    c_new, kr_new = _mla_latents(attn, x, cfg, positions)
+    b, s = x.shape[:2]
+    c_all, kr_all = cache.c_kv, cache.k_rope
+    cap = c_all.shape[1]
+    pos = offsets.long()[:, None] + torch.arange(s, device=x.device)[None, :]   # [B, S]
+    rows = torch.arange(b, device=x.device)[:, None]
+    c_all[rows, pos] = c_new.to(c_all.dtype)
+    kr_all[rows, pos] = kr_new.to(kr_all.dtype)
+    k, v = _mla_kv(attn, c_all, kr_all, cfg)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    dt = torch.promote_types(q.dtype, k.dtype)   # jnp.einsum's promotion of mixed operands
+    scores = torch.einsum("bhsd,bhtd->bhst", q.to(dt), k.to(dt)).float() * _mla_scale(cfg)
+    ti = torch.arange(cap, device=x.device)[None, None, None, :]
+    scores = scores.masked_fill(ti > pos[:, None, :, None], -torch.inf)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bhtd->bhsd", w.to(v.dtype), v)
+    y = dense(attn.w_o, _unheads(out))
+    return y, MLACache(c_all, kr_all, offsets.to(torch.int32) + lengths.to(torch.int32))
+
+
+def prefill_mla_cache(c_kv: torch.Tensor, k_rope: torch.Tensor, capacity: int,
+                      lengths: Optional[torch.Tensor] = None) -> MLACache:
+    """Pack prefill latents [B, S, r] and rotary keys [B, S, rope] into a
+    fresh bf16 cache of ``capacity`` rows, with the true ``lengths`` of a
+    right-padded bucket; when S exceeds the capacity each row keeps its
+    last ``capacity`` real tokens."""
+    b, s, _ = c_kv.shape
+    length = (torch.full((b,), s, dtype=torch.int32, device=c_kv.device) if lengths is None
+              else lengths.to(torch.int32))
+    bf16 = torch.bfloat16
+    if s >= capacity:
+        if lengths is None:
+            return MLACache(c_kv[:, s - capacity:].to(bf16).contiguous(),
+                            k_rope[:, s - capacity:].to(bf16).contiguous(), length)
+        start = (length.long() - capacity).clamp(0, s - capacity)
+        idx = start[:, None] + torch.arange(capacity, device=c_kv.device)[None, :]   # [B, cap]
+        take = lambda t: torch.gather(t, 1, idx[:, :, None].expand(b, capacity, t.shape[-1]))
+        return MLACache(take(c_kv).to(bf16), take(k_rope).to(bf16), length)
+    pad = (0, 0, 0, capacity - s)
+    return MLACache(torch.nn.functional.pad(c_kv, pad).to(bf16),
+                    torch.nn.functional.pad(k_rope, pad).to(bf16), length)

@@ -1,29 +1,37 @@
-"""Decoder-only LMs: the causal FLARE LM (``flare_lm``) and the gqa decoder
-(the ``dense`` family, e.g. qwen2): forward, loss, prefill, decode.
+"""Decoder-only LMs: the causal FLARE LM (``flare_lm``), the gqa and MLA
+decoders (the ``dense`` family, e.g. qwen2 and minicpm3) and the MLA + MoE
+decoder (the ``moe`` family, deepseek-v2-lite): forward, loss, prefill,
+decode.
 
-Counterpart of the ``flare_stream`` and ``gqa`` parts of
-``repro/models/transformer.py``. The JAX package stacks the layers (a
-leading [L] axis on every leaf) and runs them with ``jax.lax.scan``; here
-they are an ``nn.ModuleList`` walked in a loop, and
-``repro_torch.interop.unstack_layers`` carries a JAX tree in. Parameters
-are stored in ``cfg.param_dtype`` (fp32) and cast to ``cfg.compute_dtype``
-at use; norms keep fp32 statistics and the logits are fp32. MLA, MoE and
-the encoder-decoder are not ported yet.
+Counterpart of the decoder-only half of ``repro/models/transformer.py``.
+The JAX package stacks the layers (a leading [L] axis on every leaf) and
+runs them with ``jax.lax.scan``; here they are ``nn.ModuleList``s walked in
+a loop, and ``repro_torch.interop.unstack_layers`` carries a JAX tree in.
+An MoE config's ``first_dense_layers`` leading layers take a SwiGLU FFN
+(``LM.dense_layers``, the JAX tree's ``dense_layers`` stack) and run before
+``LM.layers``, whose FFN is the MoE (``models/moe.py``); a layer's FFN is
+the module it holds. Parameters are stored in ``cfg.param_dtype`` (fp32)
+and cast to ``cfg.compute_dtype`` at use; norms keep fp32 statistics and
+the logits are fp32. The encoder-decoder is not ported yet.
 
-Each layer is pre-norm: ``x += mix(norm1(x)); x += swiglu(norm2(x))``. For
+Each layer is pre-norm: ``x += mix(norm1(x)); x += ffn(norm2(x))``. For
 ``flare_lm`` the mixer is causal FLARE over ResMLP K/V projections with
 per-head latent queries (``core/flare.py::FlareLayer``): ``lm_forward`` runs
 it through the model's resolved plan (the causal kernel on the card);
 ``lm_prefill`` is pinned to the stateful chunked scan
 (``flare_causal_with_state``), since it must return each layer's latent
 state, and ``lm_decode_step`` appends one token to every state
-(``stream_append``). For ``gqa`` the mixer is rope'd grouped-query attention
-(``models/attention.py``); forward and prefill attend through
-``attn_sdpa``'s ``impl`` route ("auto", or "pallas" for the flash kernel),
-prefill returns each layer's KV cache, and decode reads it densely or, when
-the caches are a paged pool's kernel view, through the paged-attention
-kernel. ``lm_prefill_suffix`` continues caches that already hold a shared
-prompt prefix (the serving engine's prefix cache) by the suffix alone.
+(``stream_append``). For ``gqa`` the mixer is rope'd grouped-query attention,
+for ``mla`` multi-head latent attention (``models/attention.py``); forward
+and prefill attend through ``attn_sdpa``'s ``impl`` route ("auto", or
+"pallas" for the flash kernel, which MLA's unequal q/v head dims do not
+take), prefill returns each layer's KV or latent cache, and decode reads it
+densely or, when the caches are a paged pool's kernel view, through the
+paged-attention kernel (MLA in the absorbed form). ``lm_prefill_suffix``
+continues caches that already hold a shared prompt prefix (the serving
+engine's prefix cache) by the suffix alone. ``lm_forward`` returns the sum
+of the MoE layers' load-balancing losses beside the logits, and
+``lm_loss`` adds ``0.01`` times it.
 
 Training (``lm_loss``) runs ``lm_forward`` under autograd, each decoder
 layer through ``_remat(fn, cfg.remat)``, the counterpart of the JAX
@@ -41,7 +49,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, replace
 from repro_torch.core.flare import FlareLayer, _merge_heads, _split_heads, init_flare_layer
 from repro_torch.core.flare_stream import flare_causal_with_state, stream_append, stream_init
 from repro_torch.models.attention import (
@@ -50,13 +58,19 @@ from repro_torch.models.attention import (
     gqa_forward,
     init_gqa,
     init_kv_cache,
+    init_mla,
+    init_mla_cache,
+    mla_decode,
+    mla_extend,
+    mla_forward,
     prefill_kv_cache,
+    prefill_mla_cache,
 )
+from repro_torch.models.moe import MoE, init_moe, moe_ffn
 from repro_torch.models.rope import text_mrope_positions, text_positions
 from repro_torch.nn.modules import (
     Embedding,
     RMSNorm,
-    SwiGLU,
     dense,
     embedding,
     init_dense,
@@ -99,10 +113,11 @@ def _dtype(name: str) -> torch.dtype:
 
 
 class DecoderLayer(nn.Module):
-    """Parameters ``norm1``, ``attn`` (a FlareLayer or a GQA), ``norm2``,
-    ``mlp`` (SwiGLU), as one layer of the JAX tree's stacked ``layers``."""
+    """Parameters ``norm1``, ``attn`` (a FlareLayer, a GQA or an MLA),
+    ``norm2``, ``mlp`` (a SwiGLU or an MoE), as one layer of the JAX tree's
+    stacked ``layers`` (or ``dense_layers``)."""
 
-    def __init__(self, norm1: RMSNorm, attn, norm2: RMSNorm, mlp: SwiGLU):
+    def __init__(self, norm1: RMSNorm, attn, norm2: RMSNorm, mlp):
         super().__init__()
         self.norm1 = norm1
         self.attn = attn
@@ -111,46 +126,69 @@ class DecoderLayer(nn.Module):
 
 
 class LM(nn.Module):
+    """``dense_layers`` (an MoE config's leading dense-FFN layers; empty
+    otherwise) run before ``layers``."""
+
     def __init__(self, embed: Embedding, final_norm: RMSNorm, layers: list,
-                 lm_head: Optional[nn.Linear]):
+                 lm_head: Optional[nn.Linear], dense_layers: tuple = ()):
         super().__init__()
         self.embed = embed
         self.final_norm = final_norm
+        self.dense_layers = nn.ModuleList(dense_layers)
         self.layers = nn.ModuleList(layers)
         self.lm_head = lm_head
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.attn.kind not in ("flare_stream", "gqa") or cfg.norm != "rmsnorm":
-        raise ValueError(f"the port's LM has flare_stream or gqa mixers and rmsnorm, not "
+    if cfg.attn.kind not in ("flare_stream", "gqa", "mla") or cfg.norm != "rmsnorm":
+        raise ValueError(f"the port's LM has flare_stream, gqa or mla mixers and rmsnorm, not "
                          f"{cfg.attn.kind!r} / {cfg.norm!r}")
 
 
 def init_decoder_layer(cfg: ModelConfig, *, generator: torch.Generator, device=None,
                        dtype=torch.float32) -> DecoderLayer:
+    """A layer of ``cfg``'s mixer whose FFN is the MoE when ``cfg.moe`` is
+    set, the SwiGLU otherwise."""
     kw = dict(device=device, dtype=dtype)
     norm1 = init_rmsnorm(cfg.d_model, **kw)
     if cfg.attn.kind == "gqa":
         attn = init_gqa(cfg.attn, cfg.d_model, generator=generator, **kw)
+    elif cfg.attn.kind == "mla":
+        attn = init_mla(cfg.attn, cfg.d_model, generator=generator, **kw)
     else:
         attn = init_flare_layer(cfg.d_model, cfg.attn.num_heads, cfg.attn.flare_latents,
                                 generator=generator, kv_proj_layers=3, **kw)
-    return DecoderLayer(norm1, attn, init_rmsnorm(cfg.d_model, **kw),
-                        init_swiglu(cfg.d_model, cfg.d_ff, generator=generator, **kw))
+    mlp = (init_moe(cfg.moe, cfg.d_model, generator=generator, **kw) if cfg.moe is not None
+           else init_swiglu(cfg.d_model, cfg.d_ff, generator=generator, **kw))
+    return DecoderLayer(norm1, attn, init_rmsnorm(cfg.d_model, **kw), mlp)
+
+
+def init_dense_ffn_layer(cfg: ModelConfig, *, generator: torch.Generator, device=None,
+                         dtype=torch.float32) -> DecoderLayer:
+    """As :func:`init_decoder_layer` with a SwiGLU FFN of ``cfg.d_ff``
+    whatever ``cfg.moe`` says (deepseek's leading layer)."""
+    return init_decoder_layer(replace(cfg, moe=None), generator=generator, device=device,
+                              dtype=dtype)
+
+
+def _num_dense(cfg: ModelConfig) -> int:
+    return cfg.moe.first_dense_layers if cfg.moe is not None else 0
 
 
 def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device=None) -> LM:
-    """Weights drawn on the CPU from ``generator`` and moved to ``device``
-    tensor by tensor."""
+    """Weights drawn from ``generator`` (on its device: the CPU's, or a
+    card's) and moved to ``device`` tensor by tensor."""
     _check_cfg(cfg)
     kw = dict(device=device, dtype=_dtype(cfg.param_dtype))
     vp = padded_vocab(cfg.vocab)
-    return LM(
-        init_embedding(vp, cfg.d_model, generator=generator, **kw),
-        init_rmsnorm(cfg.d_model, **kw),
-        [init_decoder_layer(cfg, generator=generator, **kw) for _ in range(cfg.num_layers)],
-        None if cfg.tie_embeddings else init_dense(cfg.d_model, vp, generator=generator, **kw),
-    )
+    n_dense = _num_dense(cfg)
+    embed = init_embedding(vp, cfg.d_model, generator=generator, **kw)
+    final_norm = init_rmsnorm(cfg.d_model, **kw)
+    layers = [init_decoder_layer(cfg, generator=generator, **kw)
+              for _ in range(cfg.num_layers - n_dense)]
+    dense_layers = [init_dense_ffn_layer(cfg, generator=generator, **kw) for _ in range(n_dense)]
+    head = None if cfg.tie_embeddings else init_dense(cfg.d_model, vp, generator=generator, **kw)
+    return LM(embed, final_norm, layers, head, dense_layers)
 
 
 def _norm(cfg: ModelConfig, norm: RMSNorm, x: torch.Tensor) -> torch.Tensor:
@@ -172,8 +210,19 @@ def _flare_stream_mix(fl: FlareLayer, x: torch.Tensor, cfg: ModelConfig, plan) -
     return dense(fl.out_proj, _merge_heads(y))
 
 
+def _ffn_aux(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor) -> tuple:
+    """(x plus the layer's FFN of norm2(x), the MoE's aux loss or None): the
+    module the layer holds decides (a dense layer of an MoE model holds a
+    SwiGLU)."""
+    xin = _norm(cfg, layer.norm2, x)
+    if isinstance(layer.mlp, MoE):
+        m, aux = moe_ffn(layer.mlp, xin, cfg.moe)
+        return x + m, aux
+    return x + swiglu(layer.mlp, xin), None
+
+
 def _ffn(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
-    return x + swiglu(layer.mlp, _norm(cfg, layer.norm2, x))
+    return _ffn_aux(cfg, layer, x)[0]
 
 
 def _embed(net: LM, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -225,33 +274,45 @@ def _remat(fn, mode: str):
 
 
 def _decoder_layer(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig, positions,
-                   impl: str, plan) -> torch.Tensor:
-    """One pre-norm layer: the mixer's residual, then the SwiGLU's."""
+                   impl: str, plan) -> tuple:
+    """One pre-norm layer: the mixer's residual, then the FFN's -> (x, the
+    MoE's aux loss or None)."""
     xin = _norm(cfg, layer.norm1, x)
     if cfg.attn.kind == "gqa":
         x = x + gqa_forward(layer.attn, xin, cfg.attn, positions=positions, impl=impl)
+    elif cfg.attn.kind == "mla":
+        x = x + mla_forward(layer.attn, xin, cfg.attn, positions=positions, impl=impl)
     else:
         x = x + _flare_stream_mix(layer.attn, xin, cfg, plan)
-    return _ffn(cfg, layer, x)
+    return _ffn_aux(cfg, layer, x)
+
+
+def _all_layers(net: LM) -> list:
+    """The leading dense-FFN layers, then the rest, in the order they run."""
+    return [*net.dense_layers, *net.layers]
 
 
 def lm_forward(net: LM, tokens: torch.Tensor, cfg: ModelConfig, *, impl: str = "auto",
                plan=None) -> tuple:
     """Full-sequence forward: tokens [B, S] -> (logits fp32 [B, S, V_padded]
-    with the padded tail at -inf, aux loss 0). ``plan`` is the causal
-    MixerPlan resolved at model build (flare_lm); gqa attention takes
-    ``attn_sdpa``'s ``impl`` route ("pallas": the flash kernel), which
-    flare_lm ignores, as in the JAX package. Under autograd each layer runs
-    through ``_remat(..., cfg.remat)``."""
+    with the padded tail at -inf, the sum of the MoE layers' aux losses,
+    fp32, 0 without MoE). ``plan`` is the causal MixerPlan resolved at model
+    build (flare_lm); gqa and mla attention take ``attn_sdpa``'s ``impl``
+    route ("pallas": the flash kernel), which flare_lm ignores, as in the
+    JAX package. Under autograd each layer runs through
+    ``_remat(..., cfg.remat)``."""
     x = _embed(net, tokens, cfg)
-    positions = (_positions(cfg, *tokens.shape, tokens.device) if cfg.attn.kind == "gqa"
-                 else None)
+    positions = (_positions(cfg, *tokens.shape, tokens.device)
+                 if cfg.attn.kind in ("gqa", "mla") else None)
     layer_fn = _remat(lambda layer, h: _decoder_layer(layer, h, cfg, positions, impl, plan),
                       cfg.remat)
-    for layer in net.layers:
-        x = layer_fn(layer, x)
+    aux = torch.zeros((), device=x.device)
+    for layer in _all_layers(net):
+        x, a = layer_fn(layer, x)
+        if a is not None:
+            aux = aux + a
     logits = _logits(net, _norm(cfg, net.final_norm, x), cfg)
-    return mask_padded_logits(logits, cfg.vocab), torch.zeros((), device=x.device)
+    return mask_padded_logits(logits, cfg.vocab), aux
 
 
 def lm_loss(net: LM, batch: dict, cfg: ModelConfig, *, impl: str = "auto",
@@ -259,32 +320,42 @@ def lm_loss(net: LM, batch: dict, cfg: ModelConfig, *, impl: str = "auto",
     """Next-token cross-entropy over ``batch["tokens"]`` [B, S] and
     ``batch["labels"]`` [B, S] (int32 from ``TokenStream``):
     ``mean(logsumexp(logits) - gold) + 0.01 * aux`` on the fp32 logits, the
-    padded vocab at -inf. ``plan``: flare_lm's train plan (a grad-capable
-    one); gqa attends through ``impl``."""
+    padded vocab at -inf, aux the MoE layers' summed load-balancing loss.
+    ``plan``: flare_lm's train plan (a grad-capable one); gqa and mla
+    attend through ``impl``."""
     logits, aux = lm_forward(net, batch["tokens"], cfg, impl=impl, plan=plan)
     gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
     return (torch.logsumexp(logits, dim=-1) - gold).mean() + 0.01 * aux
 
 
 class LMCaches(NamedTuple):
-    """The JAX ``LMCaches`` without its ``dense`` field (the leading dense
-    layers of MoE models, not ported)."""
-    layers: list          # one FlareState (flare_lm) or KVCache (gqa) per layer
+    """The JAX ``LMCaches``. ``dense`` is an empty list where the JAX
+    package has None (no leading dense layers): a torch pytree takes None
+    for a leaf."""
+    dense: list           # one cache per leading dense-FFN layer (``LM.dense_layers``)
+    layers: list          # one FlareState (flare_lm), KVCache (gqa) or MLACache (mla) a layer
     pos: torch.Tensor     # [B] int32, the next position of each sequence
 
 
 def init_lm_caches(batch: int, cfg: ModelConfig, capacity: int, *, device=None) -> LMCaches:
     """Fresh caches. A FLARE state is O(M*D) per head whatever the sequence
     length, so ``capacity`` does not size it; a gqa layer's KV cache holds
-    ``capacity`` rows (``min(capacity, window)`` when windowed), in bf16."""
+    ``capacity`` rows (``min(capacity, window)`` when windowed), an mla
+    layer's latent cache ``capacity`` rows, both in bf16."""
     heads = cfg.attn.num_heads
-    if cfg.attn.kind == "gqa":
-        layers = [init_kv_cache(batch, cfg.attn, capacity, device=device)
-                  for _ in range(cfg.num_layers)]
-    else:
-        layers = [stream_init(batch, heads, cfg.attn.flare_latents, cfg.d_model // heads,
-                              device=device) for _ in range(cfg.num_layers)]
-    return LMCaches(layers=layers, pos=torch.zeros(batch, dtype=torch.int32, device=device))
+
+    def one():
+        if cfg.attn.kind == "gqa":
+            return init_kv_cache(batch, cfg.attn, capacity, device=device)
+        if cfg.attn.kind == "mla":
+            return init_mla_cache(batch, cfg.attn, capacity, device=device)
+        return stream_init(batch, heads, cfg.attn.flare_latents, cfg.d_model // heads,
+                           device=device)
+
+    n_dense = _num_dense(cfg)
+    return LMCaches(dense=[one() for _ in range(n_dense)],
+                    layers=[one() for _ in range(cfg.num_layers - n_dense)],
+                    pos=torch.zeros(batch, dtype=torch.int32, device=device))
 
 
 def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int, *,
@@ -296,13 +367,13 @@ def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int, *,
     the padding out of the carried states, and the logits are taken at each
     row's last real position. Each layer runs the stateful chunked scan of
     ``cfg.attn.flare_chunk`` tokens, not the model's plan: the plan's
-    kernel returns no state. A gqa layer attends through ``attn_sdpa``'s
-    ``impl`` route ("pallas": the flash kernel) and returns its KV cache of
-    ``capacity`` rows; flare_lm ignores ``impl``."""
+    kernel returns no state. A gqa or mla layer attends through
+    ``attn_sdpa``'s ``impl`` route ("pallas": the flash kernel) and returns
+    its KV or latent cache of ``capacity`` rows; flare_lm ignores ``impl``."""
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
-    if cfg.attn.kind == "gqa":
-        return _gqa_prefill(net, tokens, lengths, cfg, capacity, impl)
+    if cfg.attn.kind in ("gqa", "mla"):
+        return _attn_prefill(net, tokens, lengths, cfg, capacity, impl)
     x = _embed(net, tokens, cfg)
     b, s = tokens.shape
     mask = None
@@ -320,28 +391,41 @@ def lm_prefill(net: LM, batch: dict, cfg: ModelConfig, capacity: int, *,
     logits = _logits(net, x, cfg)[:, 0, : cfg.vocab]
     pos = (torch.full((b,), s, dtype=torch.int32, device=tokens.device) if lengths is None
            else lengths.to(torch.int32))
-    return logits, LMCaches(states, pos)
+    return logits, LMCaches([], states, pos)
 
 
-def _gqa_prefill(net: LM, tokens: torch.Tensor, lengths: Optional[torch.Tensor],
-                 cfg: ModelConfig, capacity: int, impl: str) -> tuple:
-    """The gqa prefill: causal attention over the bucket (right-padding
-    cannot reach a real position), each layer's rope'd K/V packed into a
-    cache of ``capacity`` rows with the true ``lengths``."""
+def _attn_prefill(net: LM, tokens: torch.Tensor, lengths: Optional[torch.Tensor],
+                  cfg: ModelConfig, capacity: int, impl: str) -> tuple:
+    """The gqa / mla prefill: causal attention over the bucket (right-padding
+    cannot reach a real position), each layer's rope'd K/V (gqa) or latents
+    and rotary key (mla) packed into a cache of ``capacity`` rows with the
+    true ``lengths``; the leading dense-FFN layers first."""
     x = _embed(net, tokens, cfg)
     b, s = tokens.shape
     positions = _positions(cfg, b, s, tokens.device)
-    caches = []
-    for layer in net.layers:
-        a, (k, v) = gqa_forward(layer.attn, _norm(cfg, layer.norm1, x), cfg.attn,
-                                positions=positions, impl=impl, return_kv=True)
-        caches.append(prefill_kv_cache(k, v, cfg.attn, capacity, lengths))
-        x = _ffn(cfg, layer, x + a)
+
+    def run(layers, x):
+        caches = []
+        for layer in layers:
+            xin = _norm(cfg, layer.norm1, x)
+            if cfg.attn.kind == "gqa":
+                a, (k, v) = gqa_forward(layer.attn, xin, cfg.attn, positions=positions,
+                                        impl=impl, return_kv=True)
+                caches.append(prefill_kv_cache(k, v, cfg.attn, capacity, lengths))
+            else:
+                a, (c, kr) = mla_forward(layer.attn, xin, cfg.attn, positions=positions,
+                                         impl=impl, return_kv=True)
+                caches.append(prefill_mla_cache(c, kr, capacity, lengths))
+            x = _ffn(cfg, layer, x + a)
+        return x, caches
+
+    x, dense_caches = run(net.dense_layers, x)
+    x, caches = run(net.layers, x)
     x = _norm(cfg, net.final_norm, _last_valid(x, lengths))
     logits = _logits(net, x, cfg)[:, 0, : cfg.vocab]
     pos = (torch.full((b,), s, dtype=torch.int32, device=tokens.device) if lengths is None
            else lengths.to(torch.int32))
-    return logits, LMCaches(caches, pos)
+    return logits, LMCaches(dense_caches, caches, pos)
 
 
 def lm_prefill_suffix(net: LM, batch: dict, caches: LMCaches, cfg: ModelConfig) -> tuple:
@@ -349,27 +433,36 @@ def lm_prefill_suffix(net: LM, batch: dict, caches: LMCaches, cfg: ModelConfig) 
     shared prompt prefix (``batch["offsets"]`` [B] tokens, gathered from
     block storage by the serving pool); run only the suffix,
     ``batch["tokens"]`` [B, S] right-padded with true ``batch["lengths"]``,
-    at absolute positions ``offset + i`` through ``gqa_extend``, and return
-    (the last real token's logits fp32 [B, V], the caches at the full
-    prompt's length). gqa only: a FLARE state is a running summary that no
-    range of shared blocks can rebuild, so ``flare_lm`` keeps the full
-    prompt path (``models/api.py`` leaves its ``prefill_suffix`` unset)."""
-    if cfg.attn.kind != "gqa":
-        raise ValueError(f"prefill_suffix supports gqa, not {cfg.attn.kind!r}")
+    at absolute positions ``offset + i`` through ``gqa_extend`` (or
+    ``mla_extend``), and return (the last real token's logits fp32 [B, V],
+    the caches at the full prompt's length). gqa and mla only: a FLARE
+    state is a running summary that no range of shared blocks can rebuild,
+    so ``flare_lm`` keeps the full prompt path (``models/api.py`` leaves its
+    ``prefill_suffix`` unset)."""
+    if cfg.attn.kind not in ("gqa", "mla"):
+        raise ValueError(f"prefill_suffix supports gqa and mla, not {cfg.attn.kind!r}")
     tokens, lengths, offsets = batch["tokens"], batch["lengths"], batch["offsets"]
     b, s = tokens.shape
     x = _embed(net, tokens, cfg)
     pos = offsets.long()[:, None] + torch.arange(s, device=tokens.device)[None, :]
     positions = pos[None].expand(3, b, s) if cfg.attn.mrope_sections is not None else pos
-    out = []
-    for layer, cache in zip(net.layers, caches.layers):
-        a, cache = gqa_extend(layer.attn, _norm(cfg, layer.norm1, x), cfg.attn, cache,
-                              positions=positions, offsets=offsets, lengths=lengths)
-        out.append(cache)
-        x = _ffn(cfg, layer, x + a)
+    ext = gqa_extend if cfg.attn.kind == "gqa" else mla_extend
+
+    def run(layers, caches, x):
+        out = []
+        for layer, cache in zip(layers, caches):
+            a, cache = ext(layer.attn, _norm(cfg, layer.norm1, x), cfg.attn, cache,
+                           positions=positions, offsets=offsets, lengths=lengths)
+            out.append(cache)
+            x = _ffn(cfg, layer, x + a)
+        return x, out
+
+    x, dense_caches = run(net.dense_layers, caches.dense, x)
+    x, layer_caches = run(net.layers, caches.layers, x)
     x = _norm(cfg, net.final_norm, _last_valid(x, lengths))
     logits = _logits(net, x, cfg)[:, 0, : cfg.vocab]
-    return logits, LMCaches(out, offsets.to(torch.int32) + lengths.to(torch.int32))
+    return logits, LMCaches(dense_caches, layer_caches,
+                            offsets.to(torch.int32) + lengths.to(torch.int32))
 
 
 def _decode_positions(pos: torch.Tensor, b: int, mrope: bool) -> torch.Tensor:
@@ -385,7 +478,9 @@ def _decode_positions(pos: torch.Tensor, b: int, mrope: bool) -> torch.Tensor:
 def lm_decode_step(net: LM, token: torch.Tensor, caches, cfg: ModelConfig) -> tuple:
     """One token per sequence: token [B, 1] -> (logits fp32 [B, V], caches
     advanced by one position). A flare_lm layer appends the token to its
-    state; a gqa layer writes its row into the KV cache and attends over it.
+    state; a gqa layer writes its row into the KV cache and attends over it,
+    an mla layer its latent row, attending in the latent space. The leading
+    dense-FFN layers run first, over ``caches.dense``.
 
     ``caches`` may be a :class:`repro_torch.serve.pool.views.PagedCacheView`
     (the serving engine's block-paged pool): it resolves here into caches
@@ -396,20 +491,29 @@ def lm_decode_step(net: LM, token: torch.Tensor, caches, cfg: ModelConfig) -> tu
     caches, writeback = resolve_cache_view(caches)
     x = _embed(net, token, cfg)
     heads = cfg.attn.num_heads
-    states = []
-    if cfg.attn.kind == "gqa":
+    positions = None
+    if cfg.attn.kind in ("gqa", "mla"):
         positions = _decode_positions(caches.pos, token.shape[0],
                                       cfg.attn.mrope_sections is not None)
-    for layer, state in zip(net.layers, caches.layers):
-        xin = _norm(cfg, layer.norm1, x)
-        if cfg.attn.kind == "gqa":
-            a, state = gqa_decode(layer.attn, xin, cfg.attn, state, positions=positions)
-        else:
-            fl = layer.attn
-            k, v = _kv(fl, xin, heads)
-            state, y = stream_append(state, fl.q_latent.to(x.dtype), k[:, :, 0], v[:, :, 0])
-            a = dense(fl.out_proj, y.reshape(y.shape[0], 1, -1))
-        states.append(state)
-        x = _ffn(cfg, layer, x + a)
+
+    def run(layers, states, x):
+        out = []
+        for layer, state in zip(layers, states):
+            xin = _norm(cfg, layer.norm1, x)
+            if cfg.attn.kind == "gqa":
+                a, state = gqa_decode(layer.attn, xin, cfg.attn, state, positions=positions)
+            elif cfg.attn.kind == "mla":
+                a, state = mla_decode(layer.attn, xin, cfg.attn, state, positions=positions)
+            else:
+                fl = layer.attn
+                k, v = _kv(fl, xin, heads)
+                state, y = stream_append(state, fl.q_latent.to(x.dtype), k[:, :, 0], v[:, :, 0])
+                a = dense(fl.out_proj, y.reshape(y.shape[0], 1, -1))
+            out.append(state)
+            x = _ffn(cfg, layer, x + a)
+        return x, out
+
+    x, dense_states = run(net.dense_layers, caches.dense, x)
+    x, states = run(net.layers, caches.layers, x)
     logits = _logits(net, _norm(cfg, net.final_norm, x), cfg)[:, 0, : cfg.vocab]
-    return logits, writeback(LMCaches(states, caches.pos + 1))
+    return logits, writeback(LMCaches(dense_states, states, caches.pos + 1))

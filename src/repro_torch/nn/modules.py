@@ -8,8 +8,9 @@ the JAX package and ``repro_torch.interop`` converts them: a dense layer is an
 ``nn.Linear`` whose ``weight`` is ``[out, in]`` (JAX stores ``kernel`` as
 ``[in, out]``).
 
-Initialisers draw from an explicit ``torch.Generator`` on the CPU and move
-the result to ``device``, so one seed gives the same weights on every device.
+Initialisers draw from an explicit ``torch.Generator`` and move the result
+to ``device``: a CPU generator gives the same weights on every device; a
+card's generator draws there (its stream differs from the CPU's).
 """
 from __future__ import annotations
 
@@ -36,7 +37,10 @@ def truncated_normal_(t: torch.Tensor, stddev: float, generator: torch.Generator
 
 
 def _param(shape, stddev: float, generator, device, dtype) -> nn.Parameter:
-    t = truncated_normal_(torch.empty(shape, dtype=torch.float32), stddev, generator)
+    """Drawn on the generator's device (the CPU's, or a card's for weights
+    too large to draw on the host in time), then moved to ``device``."""
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    t = truncated_normal_(t, stddev, generator)
     return nn.Parameter(t.to(device=device, dtype=dtype))
 
 

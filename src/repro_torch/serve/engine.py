@@ -35,11 +35,13 @@ later prompt that shares the prefix takes references on those blocks when
 it is submitted (held while it queues, walked again at admission) and
 stakes only its distinct suffix's pages; its page table points at the
 shared blocks, and only the suffix is prefilled (``model.prefill_suffix``,
-through ``gqa_extend``). A prompt made wholly of hit blocks copies its last
-block into a private page first (copy-on-write), so the recomputed last
-token and every decode append land privately. ``pin_prefix`` holds a
-template's blocks against eviction. In bf16 compute, greedy tokens equal
-the cache-off run's.
+through ``gqa_extend`` or ``mla_extend``). A prompt made wholly of hit
+blocks copies its last block into a private page first (copy-on-write), so
+the recomputed last token and every decode append land privately.
+``pin_prefix`` holds a template's blocks against eviction. In bf16 compute,
+greedy tokens equal the cache-off run's (gqa and dense-FFN mla models; an
+MoE's capacity drops depend on which tokens share a batch, and a hit
+prefills its suffix alone).
 
 **Coalesced prefill** (``coalesce_prefill=True``, off by default): cold
 admissions of one cycle that share a bucket run as one batched prefill
@@ -134,7 +136,7 @@ class ServeEngine:
             self._leases: dict = {}
             self._zero_pos = torch.zeros(slots, dtype=torch.int32, device=self.device)
             self._prefill_into = self.slot_cache.make_prefill_into(model.prefill)
-            # needs token-paged leaves and a suffix prefill (unwindowed gqa);
+            # needs token-paged leaves and a suffix prefill (unwindowed gqa or mla);
             # off otherwise, so the flag is safe to pass for any model
             self._prefix_enabled = bool(prefix_cache and self._has_paged
                                         and model.prefill_suffix is not None)
@@ -212,7 +214,8 @@ class ServeEngine:
         from repro_torch.core.policy import MixerPolicy, resolve_policy
 
         spec = self.slot_cache.spec
-        tails = [d.shape[2:] for d in self.pool["data"]]   # [NB + 1, block, *tail]
+        # [NB + 1, block, *tail]: (H, D), or (D,) read with one head (mla latents)
+        tails = [d.shape[2:] if d.dim() == 4 else (1, *d.shape[2:]) for d in self.pool["data"]]
         if any(len(t) != 2 for t in tails):
             return None   # no [NB, block, H, D] kernel layout for this leaf
         shape = MixerShape(batch=self.slots, heads=max(t[0] for t in tails),

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro/serve/pool``. The dense pool allocates every slot's
 KV cache at the engine's full capacity, so pool memory, not compute, caps
-concurrency for the gqa family. Here:
+concurrency for the gqa and mla families. Here:
 
   - :mod:`blocks`      the host-side block allocator: free list, per-request
                        page leases, refcounts and the prefix cache's

@@ -6,7 +6,9 @@ Counterpart of ``repro/serve/pool/views.py``. A paged leaf lives in
 trash sink; ``rest`` = the leaf's shape without its slot and token axes).
 For a gqa layer's ``[B, Hkv, cap, D]`` K or V leaf that is ``[NB + 1,
 block, Hkv, D]``, the paged-attention kernel's own page layout (the port
-keeps one leaf per layer, so no stacked-layer axis needs moving):
+keeps one leaf per layer, so no stacked-layer axis needs moving); an mla
+layer's ``[B, cap, r]`` latent leaf is ``[NB + 1, block, r]``, which the
+kernel reads with a singleton head axis:
 
   - :func:`gather_leaf`    page table -> dense leaf (dequantized);
   - :func:`scatter_blocks` prefill insert: a request's bucket, block-split
@@ -220,8 +222,15 @@ class PagedTokenView:
         return self
 
     def pages(self):
-        """(data [NB, block, H, D], scale [NB, block, H] or None) for the kernel."""
-        return self.data, self.scale
+        """(data [NB, block, H, D], scale [NB, block, H] or None) for the
+        kernel: a featureless leaf (an mla latent row, tail ``(D,)``) gets a
+        singleton head axis (views of the same storage)."""
+        data, scale = self.data, self.scale
+        if data.dim() == 3:
+            data = data.unsqueeze(2)
+            if scale is not None:
+                scale = scale.unsqueeze(2)
+        return data, scale
 
 
 # ---------------------------------------------------------------------------

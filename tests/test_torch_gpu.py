@@ -18,7 +18,8 @@ bf16; its tensor-core route also beyond bf16's output rounding against
 fp64, max(|y - want| - 2^-8 |want|) within 1e-5 of max |want|, a limit that
 rejects a lost state tile, with equal bits on two calls. The paged-attention kernel
 is held against its plain version in fp64 at 1e-5 of max |o| where it
-computes in fp32 (fp32 queries, any pages), and at 1e-2 where it rounds the
+computes in fp32 (fp32 queries, any pages; MLA's read at DeepSeek-V2-Lite's
+and MiniCPM3's shapes on the MLA instance too), and at 1e-2 where it rounds the
 weights to bf16 (bf16 queries over bf16 pages); the smoke qwen2's engine
 gives the same greedy tokens through the kernel route as through the
 gather route. The flash-attention kernel is held against its plain version
@@ -451,13 +452,81 @@ def test_paged_kernel_raises_instead_of_falling_back(cuda):
 
     ops, _ = _paged_case(6, 128, "bfloat16", False, cuda)
     q, k, v, pt, lengths = ops
-    wide = [torch.cat([t, t[..., :8]], -1) for t in (q, k, v)]   # D = 136, above 128
+    wide = [torch.cat([t] * 4 + [t[..., :8]], -1) for t in (q, k, v)]   # D = 520, above 512
     with pytest.raises(ValueError, match="head dim"):
         paged_attention(*wide, pt, lengths)
     with pytest.raises(ValueError, match="int32"):
         paged_attention(q, k, v, pt.long(), lengths)
     with pytest.raises(ValueError, match="several devices"):
         paged_attention(q, k, v, pt.cpu(), lengths)
+
+
+# MLA's absorbed decode read (the MLA instance, D > 128): DeepSeek-V2-Lite's
+# G = 16, D = 512, D2 = 64 and MiniCPM3's G = 40, D = 256, D2 = 32, one page
+# head, the latents both K and V; a tile of query rows (G = 70) and a D that
+# is no power of two (200, D2 16)
+MLA_CASES = [(g, d, d2, dt) for g, d, d2 in ((16, 512, 64), (40, 256, 32), (70, 200, 16))
+             for dt in ("float32", "bfloat16", "int8", "fp8")]
+
+
+def _mla_case(g, d, d2, page_dtype, device, *, b=4, block=16, pages=24):
+    """One page head of latents (the same tensor as K and V) and rotary keys
+    over _paged_case's page table and lengths (0, 1, a partial page, full)."""
+    ops, _ = _paged_case(1, 8, "float32", False, "cpu", b=b, h=1, block=block, pages=pages)
+    pt, lengths = ops[3], ops[4]
+    gen = torch.Generator().manual_seed(g * 1000 + d)
+    nb = pt.numel() + 1
+    q = torch.randn(b, 1, g, d, generator=gen) * d ** -0.5
+    kw = {"q2": torch.randn(b, 1, g, d2, generator=gen) * d2 ** -0.5}
+    c = torch.randn(nb, block, 1, d, generator=gen)
+    kr = torch.randn(nb, block, 1, d2, generator=gen)
+    if page_dtype in ("int8", "fp8"):
+        from repro_torch.serve.pool.quant import get_quant, quantize
+
+        spec = get_quant(page_dtype)
+        (c, cs), (kr, krs) = quantize(spec, c), quantize(spec, kr)
+        kw.update(k_scale=cs, v_scale=cs, k2_scale=krs)
+    else:
+        c, kr = c.to(getattr(torch, page_dtype)), kr.to(getattr(torch, page_dtype))
+    if c.is_floating_point():
+        c[nb - 1] = float("nan")
+    kw["k2_pages"] = kr
+    c = c.to(device)
+    return (q.to(device), c, c, pt.to(device), lengths.to(device)), {
+        key: t.to(device) for key, t in kw.items()}
+
+
+@pytest.mark.parametrize("g,d,d2,page_dtype", MLA_CASES)
+def test_paged_mla_read_matches_plain(cuda, g, d, d2, page_dtype):
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    ops, kw = _mla_case(g, d, d2, page_dtype, cuda)
+    before = launch_counts()["paged_attention"]
+    got = paged_attention(*ops, scale=0.1, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_attention"] == before + 1
+    wide = {key: t.double() if key == "q2" else t for key, t in kw.items()}
+    want = ref.paged_attention_ref(ops[0].double(), *ops[1:], scale=0.1,
+                                   out_dtype=torch.float64, **wide)
+    assert not got[0].any() and torch.isfinite(got).all()
+    assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_paged_mla_read_separate_v_and_equal_bits(cuda):
+    """The MLA instance with V its own pages (D = 256), against fp64; and
+    the same call twice gives equal bits."""
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    ops, kw = _mla_case(16, 256, 32, "bfloat16", cuda)
+    q, c, _, pt, lengths = ops
+    v = torch.randn(c.shape, device=cuda).to(c.dtype)
+    got = paged_attention(q, c, v, pt, lengths, scale=0.1, out_dtype=torch.float32, **kw)
+    wide = {key: t.double() if key == "q2" else t for key, t in kw.items()}
+    want = ref.paged_attention_ref(q.double(), c, v, pt, lengths, scale=0.1,
+                                   out_dtype=torch.float64, **wide)
+    assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+    again = paged_attention(q, c, v, pt, lengths, scale=0.1, out_dtype=torch.float32, **kw)
+    assert torch.equal(got, again)
 
 
 def test_qwen2_engine_kernel_route_matches_gather(cuda):

@@ -228,7 +228,8 @@ def test_lm_prefill_suffix_matches_jax(dtype):
               for i in range(tm.cfg.num_layers)]
     tbatch = {"tokens": torch.from_numpy(sfx).long(), "lengths": torch.from_numpy(lens),
               "offsets": torch.from_numpy(offsets)}
-    tlogits, tout = tm.prefill_suffix(net, tbatch, transformer.LMCaches(layers, torch.from_numpy(offsets)))
+    tlogits, tout = tm.prefill_suffix(net, tbatch,
+                                      transformer.LMCaches([], layers, torch.from_numpy(offsets)))
     assert _rel(tlogits, jlogits) <= TOL[dtype]
     assert _rel(tout.layers[-1].k, jout.layers.k[-1]) <= TOL[dtype]
     assert tout.pos.tolist() == np.asarray(jout.pos).tolist() == [43, 46]

@@ -414,7 +414,7 @@ def test_head_dim_gate():
         resolve("packed_shard", shape=wide, dtype=F32, device="cuda", mesh=_Mesh((2,), ("data",)))
     assert resolve("auto", shape=wide, dtype=F32, device="cuda", grad=True,
                    mesh=_Mesh((2,), ("data",)))[0].name == "seqparallel"
-    # the causal and paged kernels take every D from 1 to 128 (at padded widths)
+    # the causal kernel takes every D from 1 to 128 (at padded widths)
     for d, want in ((8, "causal_pallas"), (24, "causal_pallas"), (96, "causal_pallas"),
                     (128, "causal_pallas"), (129, "causal_stream")):
         shape = MixerShape(batch=1, heads=16, tokens=4096, latents=64, head_dim=d)
@@ -422,13 +422,15 @@ def test_head_dim_gate():
     with pytest.raises(ValueError, match="D=129"):
         resolve("causal_pallas", shape=MixerShape(1, 16, 4096, 64, 129), dtype=F32,
                 device="cuda", causal=True)
-    for d in (65, 96):   # phi3's decode read: one latent, D=96
+    # phi3's decode read (one latent, D=96); the paged kernel's MLA instance
+    # takes D 129-512 (DeepSeek-V2-Lite's latent read: D=512)
+    for d in (65, 96, 129, 512):
         read = MixerShape(batch=8, heads=32, tokens=4096, latents=1, head_dim=d)
         assert resolve("auto", shape=read, dtype=F32, device="cuda")[0].name == "paged"
         assert resolve("paged", shape=read, dtype=F32, device="cuda")[1].backend == "paged"
-    over = MixerShape(batch=8, heads=4, tokens=4096, latents=1, head_dim=129)
+    over = MixerShape(batch=8, heads=4, tokens=4096, latents=1, head_dim=513)
     assert resolve("auto", shape=over, dtype=F32, device="cuda")[0].name != "paged"
-    with pytest.raises(ValueError, match="D=129"):
+    with pytest.raises(ValueError, match="D=513"):
         resolve("paged", shape=over, dtype=F32, device="cuda")
 
 
