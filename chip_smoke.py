@@ -6,7 +6,7 @@ Qwen2-1.5B and Phi-3-mini served from the paged KV pool (Qwen2-1.5B also
 with the prefix cache), the MLA models DeepSeek-V2-Lite (MLA + MoE) and
 MiniCPM3-4B served through the paged kernel's MLA instance, the dense
 family's prefill (Qwen2-1.5B, Phi-3-mini) through the flash-attention
-kernels (bf16 on the tensor cores, fp32 on the CUDA cores), and training
+kernels (bf16 on the tensor cores, fp32 on the TF32 tensor cores), and training
 flare_lm and Qwen2-1.5B at full size.
 
     python3 chip_smoke.py
@@ -44,7 +44,7 @@ failure so the script exits non-zero:
    out as the model gives them, 6 query heads over 1, 2 or 6 KV heads
    (unexpanded), D in {8, 16, 24, 32, 64, 96, 128} x (Sq, Skv) in {97/97,
    300/300, 128/64} x causal, full and causal with a window of 24: fp32 (the
-   CUDA cores) against the plain version in fp64; bf16 on both bf16 routes
+   TF32 tensor cores) against the plain version in fp64; bf16 on both bf16 routes
    (the tensor cores, which ``flash_route`` must pick, and the CUDA cores)
    against the plain version on the same operands (fp32 1e-5, bf16 1e-2 of
    max |plain|) and beyond bf16's output rounding against the fp64 plain
@@ -232,7 +232,7 @@ failure so the script exits non-zero:
 13. ``flash``: the flash kernels on the same qwen2's layer 0 rope'd q and
    unexpanded k, v (12 query heads over 2 KV heads) at B=1, T=32,768
    (prefill_32k's length; its batch of 32 cut to 1): widened to fp32 (the
-   CUDA cores) against the plain version in fp64, a head and 4,096 queries
+   TF32 tensor cores) against the plain version in fp64, a head and 4,096 queries
    at a time, at 1e-5 of max |plain|, which must reject the fp64 plain
    version with the 64-key tile at T/2 left out; bf16 as the model runs it
    (the tensor cores, the route asserted) against the plain version at
@@ -243,14 +243,17 @@ failure so the script exits non-zero:
    tensor cores, tensor cores, CUDA cores), the two bounds (two products;
    with the split P's third), the plain version (a head at a time),
    ``attn_sdpa``'s chunked route and ``F.scaled_dot_product_attention``
-   (the yardstick); the fp32 route's time, plain version and SDPA. Then
+   (the yardstick); the fp32 route's time beside its bound, the floors of
+   its design (split products, exps), its plain version and SDPA. Then
    ``lm_prefill(impl="pallas")`` at B=1, T=32,768 (capacity 32,768; launch
    counts zeroed before and read after: 28 flash launches, all on the
-   tensor cores), ms, peak GiB, a profiler breakdown, last-token logits
-   against ``impl="chunked"`` within 5e-2 of max |logit|;
-   ``lm_forward(impl="pallas")`` in fp32 compute at B=2, T=4,096 (28
-   launches on the fp32 route) against ``impl="xla"``, all logits within
-   1e-3; 8 greedy decode steps after a pallas and an xla prefill in fp32
+   tensor cores), ms, peak GiB, a profiler breakdown (``route`` line:
+   ``flash_tc_kernel``), last-token logits against ``impl="chunked"``
+   within 5e-2 of max |logit|; ``lm_forward(impl="pallas")`` in fp32
+   compute at B=2, T=4,096 (28 launches on the fp32 route) against
+   ``impl="xla"``, all logits within 1e-3, and a profiler breakdown of it
+   (``route`` line: ``flash_tf32_kernel``, no CUDA-core flash kernel); 8
+   greedy decode steps after a pallas and an xla prefill in fp32
    (right-padded lengths 4,096 / 3,001): the same tokens;
 13b. ``train qwen2-1.5b``: as phase 11b for ``get_model(qwen2_1_5b)``
    (1,543,910,912 parameters, leading dim 28), which trains on
@@ -278,22 +281,31 @@ failure so the script exits non-zero:
    weights drawn on the card from a CUDA generator seeded with 0 (the
    parameter count, 13-18 B asserted, and the seconds printed). (a) The
    paged kernel's MLA read (G=16, D=512, D2=64, one page head, the latents
-   both K and V) on random operands, fp32 q over bf16, int8 and fp8 pages,
-   against the plain version in fp64 at 1e-5 of max |plain|, which must
+   both K and V) on random operands, fp32 q over bf16, int8 and fp8 pages
+   (the tensor-core instance) and fp32 pages (``paged_mla_kernel``, the
+   CUDA-core instance, which no serving route reaches: the pool keeps bf16
+   latents whatever the compute dtype), against the plain version in fp64
+   at 1e-5 of max |plain|, which must
    reject the plain version with one page of the longest lane left out; a
-   lane of length 0 exactly 0; its times beside the bound (bytes over 3.35
-   TB/s or fp32 FLOP over 67 TFLOP/s), the plain version and one SDPA over
-   the gathered view. (b) The same on layer 0's own decode operands after a
-   real prefill (int8 / fp8 by quantizing its bf16 pages). (c) 16 requests
+   lane of length 0 exactly 0; its times (the tensor-core instance,
+   ``paged_mla_tc_kernel``) beside the bound (bytes over 3.35 TB/s or fp32
+   FLOP over 67 TFLOP/s), the floors of its design (bytes; its split
+   products at the bf16 peak), the plain version and one SDPA over the
+   gathered view. (b) The same on layer 0's own decode operands after a
+   real prefill (int8 / fp8 by quantizing its bf16 pages, fp32 by widening
+   them). (c) 16 requests
    (prompts of 256-2,048 tokens, 64 new tokens) through ``ServeEngine``
    (``SERVE``) on the dense pool and the kernel route in bf16 (decode ms a
    step, tokens/s, prefill ms a request, p50/p99, peak GiB; 27 paged
    launches a step asserted), then 4 requests of 24 new tokens in fp32
    compute on the dense pool, the gather route and the kernel route:
-   greedy tokens equal; with
+   greedy tokens equal, and a profiled fp32 kernel-route decode step's
+   ``route`` line names ``paged_mla_tc_kernel`` (fp32 q over bf16 pages),
+   not the CUDA-core instance; with
    all 8 slots busy (prompts cut to 256 tokens), 27
    ``kernels.paged_attention`` scopes in a trace of one kernel-route decode
-   step and a profiler breakdown of the next; the MoE layers' expert-weight
+   step and a profiler breakdown of the next (``route`` line:
+   ``paged_mla_tc_kernel``, not the CUDA-core instance); the MoE layers' expert-weight
    casts timed;
 16. ``serve minicpm3-4b``: the same for ``get_model(minicpm3_4b)`` (62
    layers, d_model 2,560, 40 MLA heads with q-LoRA; 3.5-5.0 B asserted;
@@ -481,13 +493,15 @@ PHI3_REQUESTS, PHI3_PROMPTS, PHI3_NEW = 4, (256, 1024), 32
 # the MLA models (random weights drawn on the card): parameter ranges of
 # tests/test_models_smoke.py; the MLA read on random operands (8 lanes: an
 # empty one, a partial page, six of about 2,000 tokens) over bf16, int8 and
-# fp8 pages; 16 requests (SERVE_REQUESTS, PROMPT_LENS) of MLA_NEW new tokens
+# fp8 pages (the tensor-core instance) and fp32 pages (the CUDA-core
+# instance, which only a direct call with fp32 pages reaches); 16 requests (SERVE_REQUESTS, PROMPT_LENS) of MLA_NEW new tokens
 # on the dense and kernel routes in bf16, MLA_SERVE32_* on the three routes
 # in fp32 compute; MiniCPM3's
 # prefix cache: a 512-token template and 4 requests sharing it
 DEEPSEEK_PARAMS, MINICPM3_PARAMS = (13e9, 18e9), (3.5e9, 5.0e9)
 MLA_LENGTHS = (0, 17, 1985, 1993, 2000, 2017, 2031, 2048)
-MLA_PAGE_DTYPES = ("bfloat16", "int8", "fp8")
+MLA_PAGE_DTYPES = ("bfloat16", "int8", "fp8", "float32")
+MLA_P_PARTS = 2   # bf16 parts of the weights in the tensor-core read's value product
 MLA_NEW = 64
 MLA_SERVE32_REQUESTS, MLA_SERVE32_NEW = 4, 24
 MLA_PREFIX_TEMPLATE, MLA_PREFIX_REQUESTS, MLA_PREFIX_NEW = 512, 4, 16
@@ -576,8 +590,11 @@ PAGED_TYPES = {"a": "i8", "f": "f32", "13__nv_bfloat16": "bf16", "13__nv_fp8_e4m
 def ptxas_summary(log: str) -> list:
     """One line per FLARE kernel at D=8 (its own instance, D known at compile
     time) and at the padded width 64, causal kernel at D=8 and 128, paged
-    kernel (one per page dtype), the CUDA-core flash kernel (one per dtype and
-    padded D) and the tensor-core flash kernel (one per padded D; its
+    kernel (decode: page dtype x rows; MLA on the tensor cores: page dtype x
+    padded D, on the CUDA cores for fp32 pages: x rows a thread), the
+    CUDA-core flash kernel (bf16, one per padded D), the TF32
+    flash kernel (fp32, one per padded D) and the tensor-core flash kernel
+    (one per padded D; its
     registers are those at entry, before setmaxnreg moves them to the
     consumer warpgroups): registers, shared memory, stack frame and spills,
     then ptxas's warnings (a wgmma it had to serialize, a setmaxnreg it
@@ -595,16 +612,18 @@ def ptxas_summary(log: str) -> list:
                 "Li8ELb1E" in props or "Li64ELb0E" in props
                 or ("causal" in props and re.search(r"Li(8|128)E", props))
                 or "paged" in props or "flash" in props):
-            kind = next(k for k in ("paged_combine", "paged_decode", "paged_mla", "paged_encode",
-                                    "causal_combine", "causal_tc", "causal", "encode_tc",
-                                    "decode_tc", "combine", "dz", "dkv", "dq", "flash_tc",
-                                    "flash")
+            kind = next(k for k in ("paged_combine", "paged_decode", "paged_mla_tc", "paged_mla",
+                                    "paged_encode", "causal_combine", "causal_tc", "causal",
+                                    "encode_tc", "decode_tc", "combine", "dz", "dkv", "dq",
+                                    "flash_tc", "flash_tf32", "flash")
                         if f"{k}_kernel" in props)
             args = props.split("_kernelI", 1)[-1]
             types = ["bf16" if t.startswith("13") else "f32"
                      for t in re.findall(r"13__nv_bfloat16|f", args.split("Li")[0])]
             if kind in ("flash_tc", "causal_tc"):
                 types = ["bf16"]
+            elif kind == "flash_tf32":
+                types = ["f32"]
             width = re.search(r"Li(\d+)E", args)
             label = (f"{'/'.join(types)} D={width.group(1)}" if width and types
                      else props[:60])
@@ -615,6 +634,9 @@ def ptxas_summary(log: str) -> list:
                 page = args.split("Li")[0]
                 dp, per_thread = re.findall(r"Li(\d+)E", args)[:2]
                 label = f"{PAGED_TYPES.get(page, page)} D<={dp} R={per_thread}"
+            elif kind == "paged_mla_tc":   # <page dtype, padded D>
+                page = args.split("Li")[0]
+                label = f"{PAGED_TYPES.get(page, page)} D<={width.group(1)}"
             elif kind == "paged_encode":   # <padded D, plain (no scales, scale 1)>
                 label = f"D={width.group(1)} {'plain' if 'Lb1E' in args else 'scaled'}"
             elif kind.startswith("causal") and re.search(r"Lb[01]E", args):
@@ -2980,8 +3002,9 @@ def capture_decode_read(model, net, reqs, base: dict) -> dict:
         return kernel(q, k_pages, v_pages, page_table, lengths, **kw)
 
     # while it captures, the wrapper counts its launch through its module's
-    # name, which points here: on capture.launches, outside every count read
+    # name, which points here: on capture's counters, outside every count read
     capture.launches = 0
+    capture.launches_by_route = dict.fromkeys(kernel.launches_by_route, 0)
     engine = ServeEngine(model, net, **base, decode_backend="paged")
     for prompt, max_new in reqs:
         engine.submit(prompt, max_new_tokens=max_new)
@@ -3482,7 +3505,7 @@ def check_flash_small(checks: Checks, device) -> None:
     out as the model gives them ([B, H, S, D] views of [B, S, H, D]), H=6
     query heads over 1, 2 or 6 KV heads (MQA, GQA 3:1, MHA), unexpanded:
     D 8 / 16 / 24 / 32 / 64 / 96 / 128 x (Sq, Skv) 97/97, 300/300, 128/64 x
-    causal, full, causal with a window of 24. fp32 (the CUDA cores) against
+    causal, full, causal with a window of 24. fp32 (the TF32 kernel) against
     the plain version in fp64; bf16 on both bf16 routes (the tensor cores,
     which flash_route picks for these operands, and the CUDA cores) against
     the plain version on the same operands, and beyond bf16's output
@@ -3525,7 +3548,8 @@ def check_flash_small(checks: Checks, device) -> None:
                                    ("cuda_core", ops16)):
                     got = flash_attention(*ops, **kw, route=route)
                     plain = flash_attention_ref(*ops, **kw)
-                    # the JSON line's rows: the tensor-core kernel, and the CUDA-core one
+                    # the JSON line's rows: the bf16 tensor-core kernel, and the
+                    # file of the TF32 and CUDA-core ones
                     name = "flash_attention_tc" if route == "tensor_core" else "flash_attention"
                     if route == "fp32":
                         checks.hold(name, "o fp32", got, want, torch.float32,
@@ -3573,7 +3597,7 @@ def attention_operands(net, cfg, tokens):
 
 def check_flash_main(checks: Checks, label: str, ops16, scale: float) -> None:
     """The flash kernels on a model's layer 0 operands, as its prefill gives
-    them (the KV heads unexpanded): widened to fp32 (the CUDA cores' route)
+    them (the KV heads unexpanded): widened to fp32 (the TF32 kernel's route)
     against the plain version in fp64, a head and 4,096 queries at a time,
     relative to max |plain|; the limit must reject the fp64 plain version
     with the 64-key tile at T/2 left out. bf16, as the model runs it (the
@@ -3666,9 +3690,12 @@ def time_flash(ops16, scale: float) -> dict:
     time), ``attn_sdpa``'s chunked route (what "auto" runs at 32k) and SDPA;
     the bound is 4 * D FLOP a kept (query, key) pair over the bf16 peak (the
     two products), or q, k, v and o once over 3.35 TB/s, and beside it the
-    split P's bound (its third product: 1.5x). fp32 (the CUDA-core route):
-    the kernel, its plain version and SDPA, bound by the fp32 CUDA-core rate.
-    Returns the stats of both kernels' rows."""
+    split P's bound (its third product: 1.5x). fp32 (the TF32 tensor-core
+    kernel, flash_tf32_kernel): the kernel, its plain version and SDPA,
+    bound by the fp32 CUDA-core rate (the work of any fp32 implementation),
+    and beside it the two floors of its design: its products split three
+    ways at the TF32 peak, and its exps (one a kept pair) at 16 a clock an
+    SM at the card's top SM clock. Returns the stats of both kernels' rows."""
     import torch
 
     from repro_torch.kernels.attention import flash_attention
@@ -3696,7 +3723,12 @@ def time_flash(ops16, scale: float) -> dict:
     turns = [cuda_ms(cc, reps=2), cuda_ms(tc, reps=5), cuda_ms(tc, reps=5), cuda_ms(cc, reps=2)]
     rows["flash_attention_tc"]["ms"] = (turns[1] + turns[2]) / 2
     ops32 = [t.float() for t in ops16]
-    rows["flash_attention"]["ms"] = cuda_ms(lambda: flash_attention(*ops32, **kw), reps=2)
+    rows["flash_attention"]["ms"] = cuda_ms(lambda: flash_attention(*ops32, **kw), reps=3)
+    pairs = b * h * visible_pairs(n, n, causal=True, window=None)
+    floors = dict(products=3 * flops / PEAK_TF32 * 1e3,
+                  exps=pairs / (16 * 132 * max_sm_clock_mhz() * 1e6) * 1e3)
+    rows["flash_attention"].update(floor_split_products_ms=floors["products"],
+                                   floor_exps_ms=floors["exps"])
     chunked_ms = cuda_ms(lambda: attn_sdpa(q, k.repeat_interleave(h // hkv, 1),
                                            v.repeat_interleave(h // hkv, 1), impl="chunked",
                                            **kw), reps=1)
@@ -3706,8 +3738,13 @@ def time_flash(ops16, scale: float) -> dict:
           f"{turns[3]:.3f} ms; bounds: two products {flops / PEAK_BF16 * 1e3:.3f} ms, with the "
           f"split P's third {1.5 * flops / PEAK_BF16 * 1e3:.3f} ms; attn_sdpa chunked "
           f"{chunked_ms:.3f} ms ({flops / 1e12:.3f} TFLOP)", flush=True)
-    print(f"time flash_attention qwen2-1.5b layer 0 fp32 (the CUDA cores): "
-          f"{rows['flash_attention']}", flush=True)
+    r32 = rows["flash_attention"]
+    sdpa32 = "not measured" if r32["library_ms"] is None else f"{r32['library_ms']:.3f} ms"
+    print(f"time flash_attention qwen2-1.5b layer 0 fp32 (the TF32 tensor cores, "
+          f"flash_tf32_kernel): {r32['ms']:.3f} ms; bound {r32['bound_ms']:.3f} ms "
+          f"({r32['bound_by']}, the fp32 CUDA cores); floors: split products "
+          f"{floors['products']:.3f} ms, exps {floors['exps']:.3f} ms; plain "
+          f"{r32['plain_ms']:.3f} ms; SDPA (memory-efficient, fp32) {sdpa32}", flush=True)
     return rows
 
 
@@ -3825,8 +3862,10 @@ def flash_phases(checks: Checks, device, cfg, net) -> dict:
     logits = run.pop("logits")
     del run
     with torch.no_grad():
-        breakdown(lambda: transformer.lm_prefill(net, batch, cfg, n, impl="pallas"),
-                  f"qwen2-1.5b prefill pallas B=1 T={n} bf16")
+        assert_route(breakdown(lambda: transformer.lm_prefill(net, batch, cfg, n, impl="pallas"),
+                               f"qwen2-1.5b prefill pallas B=1 T={n} bf16"),
+                     "qwen2-1.5b prefill pallas bf16", ("flash_tc_kernel",),
+                     refuse=("flash_kernel", "flash_tf32_kernel"))
     want = dense_prefill(net, cfg, batch, n, "chunked", "qwen2-1.5b")["logits"]
     held("qwen2-1.5b prefill pallas vs chunked bf16 (last-token logits)", logits, want,
          LM_TOL["bfloat16"])
@@ -3849,6 +3888,11 @@ def flash_phases(checks: Checks, device, cfg, net) -> dict:
     held("qwen2-1.5b forward pallas vs xla fp32 (all logits)", got[..., :cfg.vocab],
          want[..., :cfg.vocab], LM_TOL["float32"])
     del got, want
+    with torch.no_grad():
+        assert_route(breakdown(lambda: transformer.lm_forward(net, toks, cfg32, impl="pallas"),
+                               f"qwen2-1.5b forward pallas B={DENSE_B} T={DENSE_T} fp32"),
+                     "qwen2-1.5b forward pallas fp32", ("flash_tf32_kernel",),
+                     refuse=("flash_kernel", "flash_tc_kernel"))
     torch.cuda.empty_cache()
     decode_routes_agree(net, cfg32, {"tokens": dense_tokens(cfg.vocab, DENSE_B, DENSE_T, SEED + 1,
                                                             device, DENSE_LENGTHS),
@@ -4331,10 +4375,14 @@ def mla_operands(g: int, d: int, d2: int, page_dtype: str, scale: float, device,
 
 
 def requantize(op: dict, page_dtype: str) -> dict:
-    """A captured MLA read's bf16 pages quantized to ``page_dtype`` with
-    per-row scales (what an int8 / fp8 pool would hold)."""
+    """A captured MLA read's bf16 pages as a ``page_dtype`` pool would hold
+    them: widened to fp32 (exact), or quantized to int8 / fp8 with per-row
+    scales."""
     from repro_torch.serve.pool.quant import get_quant, quantize
 
+    if page_dtype == "float32":
+        c = op["k_pages"].float()
+        return {**op, "k_pages": c, "v_pages": c, "k2_pages": op["k2_pages"].float()}
     spec = get_quant(page_dtype)
     (c, cs), (kr, krs) = quantize(spec, op["k_pages"].float()), quantize(spec,
                                                                         op["k2_pages"].float())
@@ -4394,7 +4442,10 @@ def time_mla_read(label: str, op: dict) -> dict:
     calls, whose workspace a capture takes from its private pool, are the
     suspect. Every check of the phase now runs before any timing.
     Beside the bound: each valid page's rows and scales and q, q2, o once;
-    2 G (2 D + D2) FLOP a valid token on the CUDA cores."""
+    2 G (2 D + D2) FLOP a valid token on the CUDA cores. For the tensor-core
+    instance (bf16, int8, fp8 pages) also its floors: the bytes alone, and
+    its products as it issues them at the bf16 peak (G padded to m16 tiles;
+    S with q in three bf16 parts, P V with P in MLA_P_PARTS)."""
     import torch
     import torch.nn.functional as F
 
@@ -4417,6 +4468,10 @@ def time_mla_read(label: str, op: dict) -> dict:
     stats = dict(ms=graph_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=10),
                  bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
                  else "bytes", library_ms=None)
+    if c.dtype != torch.float32:
+        gp, tokens = -(-g // 16) * 16, lengths.long().sum().item()
+        issued = 2 * gp * h * tokens * (3 * (d + d2) + MLA_P_PARTS * d)   # m16 row tiles
+        stats.update(floor_bytes_ms=t_bytes, floor_products_ms=issued / PEAK_BF16 * 1e3)
     if c.dtype in (torch.bfloat16, torch.float32):
         # the yardstick over the dense view gathered beforehand (not timed)
         cd, krd = _gather_rows(c, pt), _gather_rows(kw["k2_pages"], pt)   # [B, 1, T, *]
@@ -4435,9 +4490,10 @@ def time_mla_read(label: str, op: dict) -> dict:
 
 def mla_kernel_phase(checks: Checks, cfg, model, net, reqs, device) -> dict:
     """(a) the MLA read on random operands at cfg's shape, fp32 q over bf16,
-    int8 and fp8 pages; (b) the same checks on layer 0's own decode operands
-    after a real prefill (captured from the wrapper's first call in an
-    uncounted engine step; int8 / fp8 by quantizing its bf16 pages); then
+    int8, fp8 and fp32 pages; (b) the same checks on layer 0's own decode
+    operands after a real prefill (captured from the wrapper's first call in
+    an uncounted engine step; int8 / fp8 by quantizing its bf16 pages, fp32
+    by widening them); then
     the times of the random case at every page dtype and of layer 0's bf16
     read, after every check. Returns the bf16 random case's times (the JSON
     line's MLA read)."""
@@ -4459,7 +4515,7 @@ def mla_kernel_phase(checks: Checks, cfg, model, net, reqs, device) -> dict:
     if captured["q"].shape[1:] != (1, g, d):
         raise AssertionError(f"captured read q {tuple(captured['q'].shape)}")
     check_mla_read(checks, f"{cfg.name} layer 0 bf16", captured)
-    for page_dtype in ("int8", "fp8"):
+    for page_dtype in ("int8", "fp8", "float32"):
         check_mla_read(checks, f"{cfg.name} layer 0 {page_dtype}",
                        requantize(captured, page_dtype))
     checks.raise_failures(f"MLA read {cfg.name}")
@@ -4487,6 +4543,8 @@ def mla_scopes(model, net, reqs) -> dict:
     name = model.cfg.name
     prof = breakdown(engine.step, f"serve {name} bf16 paged decode step "
                      f"({len(engine.sched.running)} slots busy)")
+    assert_route(prof, f"serve {name} bf16 paged decode step", ("paged_mla_tc_kernel",),
+                 refuse=("paged_mla_kernel",))
     if prof:
         dev = sum(prof[0].values())
         kern = sum(ms for key, ms in prof[0].items() if "paged_" in key)
@@ -4524,11 +4582,14 @@ def mla_serve(cfg, model, net, reqs) -> dict:
     """The engine over ``reqs`` on the dense pool and the paged pool's kernel
     route in bf16, then MLA_SERVE32 requests in fp32 compute on the dense
     pool, the gather route and the kernel route, whose greedy tokens must
-    be equal. Returns the bf16 kernel route's run (its launches are the main
-    path's)."""
+    be equal; the fp32 kernel route's reads (fp32 q over the pool's bf16
+    latents) must all run the tensor-core instance (its launches by route,
+    and the kernel names in one profiled decode step). Returns the bf16 kernel route's run (its launches are the
+    main path's)."""
     import torch
 
     from repro_torch.config import replace
+    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.models.api import get_model
 
     # bf16 on the dense pool and the kernel route (the gather route, whose
@@ -4543,8 +4604,18 @@ def mla_serve(cfg, model, net, reqs) -> dict:
     model32 = get_model(replace(cfg, compute_dtype="float32"))
     reqs32 = serve_requests(cfg.vocab, MLA_SERVE32_REQUESTS, (MLA_SERVE32_NEW, MLA_SERVE32_NEW),
                             longest_first=False, lens=PROMPT_LENS)
-    runs32 = {name: serve_run(model32, net, reqs32, f"fp32 {name}", **kw)
-              for name, kw in ROUTES.items()}
+    runs32 = {}
+    for name, kw in ROUTES.items():
+        runs32[name] = serve_run(model32, net, reqs32, f"fp32 {name}",
+                                 profile=name == "paged", **kw)
+        if name == "paged":   # launch counts are zeroed at the start of each run
+            by_route = dict(paged_attention.launches_by_route)
+    label = f"serve {cfg.name} fp32 paged decode step"
+    assert_route(runs32["paged"]["prof"] or None, label, ("paged_mla_tc_kernel",),
+                 refuse=("paged_mla_kernel",))
+    if by_route["mla_tc"] != runs32["paged"]["counts"]["paged_attention"] or by_route["mla"]:
+        raise AssertionError(f"{label}: paged launches by route {by_route}, expected all on "
+                             "the tensor-core MLA instance")
     for name in ("gather", "paged"):
         first_step_held(f"{cfg.name} fp32 {name}", runs32[name], runs32["dense"],
                         ROUTE_TOL["float32"])
@@ -4799,7 +4870,7 @@ def main() -> int:
     stats["paged_attention"]["launches"] += prefix_phase(cfg_q, model_q, net_q)
     # the dense family's prefill through the flash kernels: the tensor-core
     # kernel's launches are those of qwen2's and phi3's bf16 prefill windows,
-    # the CUDA-core kernel's those of qwen2's fp32 forward window (its route)
+    # the TF32 kernel's those of qwen2's fp32 forward window (its route)
     stats.update(flash_phases(checks, device, cfg_q, net_q))
     del model_q, net_q
     torch.cuda.empty_cache()
@@ -4830,9 +4901,11 @@ def main() -> int:
     for name in stats:
         stats[name]["max_abs_err"] = checks.max_abs[name]
 
+    # beside each bound, the floors of a tensor-core design where it has them
     rows = [{"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
              **{key: stats[name][key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
-                                                  "bound_ms", "bound_by", "library_ms")}}
+                                                  "bound_ms", "bound_by", "library_ms")},
+             **{key: v for key, v in stats[name].items() if key.startswith("floor_")}}
             for name in REPLACES]
     # the paged kernel's row also carries its MLA instance's reads (bf16 pages)
     rows[list(REPLACES).index("paged_attention")]["mla_read"] = stats["paged_attention"]["mla_read"]

@@ -5,7 +5,7 @@
 From the root of a checkout: builds the port's kernels, then for each arch
 (both by default) draws the model at full width and depth on the card from
 seed 0 and runs ``chip_smoke.mla_phase``: the paged kernel's MLA read on
-random operands (bf16, int8, fp8 pages) and on layer 0's decode operands
+random operands (bf16, int8, fp8 and fp32 pages) and on layer 0's decode operands
 against the plain version in fp64, with a dropped-page control and its
 times beside the bound, the plain version and SDPA; 16 requests on the
 dense pool and the kernel route in bf16, 4 on those and the gather route

@@ -1,7 +1,8 @@
 // Paged attention for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernel of the JAX package:
-//   paged_decode_kernel / paged_mla_kernel / paged_encode_kernel + paged_combine_kernel
+//   paged_decode_kernel / paged_mla_tc_kernel / paged_mla_kernel / paged_encode_kernel
+//       + paged_combine_kernel
 //       <- repro/kernels/paged_attention.py::_paged_kernel (paged_attention_pallas)
 //
 // What it computes. For lane b, KV head h and query row g,
@@ -35,7 +36,7 @@
 // H100 80GB HBM3 at 700 W (PERF.md section 6, row 6): qwen2's read 0.0428
 // ms (SDPA over the gathered view 0.091), phi3's 0.0749 ms (SDPA 0.0296),
 // the encode at pde_40k, B = 1, 5.784 ms (SDPA 5.657). So the
-// host picks one of three instances from the shapes:
+// host picks an instance from the shapes (and, for MLA, the page dtype):
 //
 //   * paged_decode_kernel (G <= 32, or any G with q2 or D > 32): a block
 //     takes one (lane, KV head), a slice of its pages and up to ROWS_MAX
@@ -59,23 +60,61 @@
 //     ring, a page id read before every row, took 0.0638 ms at qwen2's read
 //     on the same card (NVIDIA H100 80GB HBM3, 700 W): latency, not bytes,
 //     bounds this read.
-//   * paged_mla_kernel (D > 128, to 512; D2 to 64): MLA's read, where the G
-//     heads share every latent row, so 2 * G * (D + D2 + D) FLOP a row of
-//     (D + D2) * bytes: the fp32 arithmetic, not the bytes, bounds it
-//     (DeepSeek's read at 8 lanes of ~2,000 tokens: 18.4 MB, 5.5 us at
-//     3.35 TB/s; 0.56 GFLOP, 8.3 us at 67 TFLOP/s). The decode instance,
-//     at most 8 rows a block, would read each row G / 8 times. A block takes
-//     one lane, all G rows (a tile of them past 32 at D 512, 64 at D 256)
-//     and a slice of the lane's pages; each tile of 32 tokens is staged
-//     once in its stored dtype by cp.async (the next tile in flight), rows
-//     16 bytes longer than D so that a warp's lanes, a token each, read
-//     from distinct banks. The scores: warp w takes rows w, w + 8, ... and
-//     lane t token t, the queries read from shared memory as broadcasts;
-//     the online (max, den) of a row stays in its warp's registers, the
-//     tile's max and sum by shuffles. The values: the fp32 accumulators
-//     [G, D] are spread over the block's threads, a thread 8 columns of R
-//     rows (R the instance's 4, 5 or 8), read the tile's weights as
-//     broadcasts. V may be K (the MLA call, staged once) or its own pages.
+//   * paged_mla_tc_kernel (D > 128, to 512; D2 to 64; bf16, int8 and fp8
+//     pages): MLA's read, where the G heads share every latent row: 2 * G
+//     * (D + D2 + D) FLOP a row of (D + D2) * bytes. DeepSeek-V2-Lite's
+//     read (G 16, D 512, D2 64) at 8 lanes of ~1,500 tokens: 13.9 MB, 4.2
+//     us at 3.35 TB/s; 0.42 GFLOP, 6.3 us at the fp32 CUDA-core rate (the
+//     bound any implementation is held to), 1.1 us for the split products
+//     below at 989 TFLOP/s. Its CUDA-core predecessor (kept for fp32 pages,
+//     next) ran at 10x that bound: one LDS.128 of fp32 q per 4 FMAs in the
+//     scores, one read of p per 8 FMAs in the values, three barriers a
+//     32-token tile. This instance, FlashMLA's layout for mma.sync: a block
+//     of 8 warps takes one lane, one m16 tile of G (DeepSeek's 16 heads;
+//     MiniCPM3's 40 in three row tiles, each reading the lane's latents:
+//     faster on the H100 than one block of three m16 tiles, as the rows'
+//     latency, not the bytes, sets the pace) and a slice of the lane's
+//     pages; each tile of 32 tokens [c | k_rope] comes in through a ring of
+//     up to four stages by cp.async in the stored dtype (one-byte rows then
+//     widened to bf16, exactly: |int8| <= 127, e4m3's 3 mantissa bits), eight
+//     threads a row, and both products read it on the tensor cores
+//     (m16n8k16, bf16 in, fp32 out). S = q [c | k_rope]^T is split over the
+//     reduction: warp w takes columns [w D / 8, +D / 8) of c and k_rope's
+//     16-wide step w, with q's fragments of them in registers, fp32 q in
+//     three bf16 parts (which give it back exactly; the two lower ones
+//     skipped by a block whose q is bf16-valued, as in bf16 serving); the
+//     partial scores meet in shared memory, summed in a fixed order; the
+//     softmax (warp w rows w and w + 8; lane t token t) keeps the online
+//     (max, den) in registers, with the scales where the plain version puts
+//     them (k_scale on the dot, k2_scale on the rope term, v_scale folded
+//     into p), and hands P on through shared memory in two bf16 parts
+//     (hi + lo: ~2^-18 of p). O = P c is split over the columns: warp w
+//     holds the fp32 accumulators of the rows for its D / 8 columns. Each
+//     16-wide step's products are independent MMAs from zero summed into
+//     fp32 registers (the tensor core truncates its additions, and a chain
+//     would wait on MMA latency), and a tile's P V goes into a fresh sum
+//     folded in once a tile. q's loads are unconditional (clamped, then
+//     selected) and in flight with the first tiles': behind a branch each,
+//     they went one DRAM round trip at a time.
+//     At D 256 registers are capped at 128 a thread, so two blocks fit an
+//     SM (MiniCPM3; its int8 instance held one block an SM by its
+//     registers alone); at D 512 the cap spilled and shared memory holds
+//     one block an SM anyway. The ring takes as many stages as fit.
+//     The slices are one wave of blocks (16 at DeepSeek's 8 lanes, 11 at
+//     MiniCPM3's 24 lane row tiles), each walking a few tiles. V may be K (the MLA call, staged once) or its
+//     own pages (two stages at D 512).
+//   * paged_mla_kernel (the same shapes, fp32 pages: the MLA pool under fp32
+//     compute, picked by the page dtype): the CUDA-core version. A block
+//     takes one lane, all G rows (a tile of them past 32 at D 512, 64 at D
+//     256) and a slice of the lane's pages; each tile of 32 tokens is staged
+//     once by cp.async (the next tile in flight), rows 16 bytes longer than D
+//     so that a warp's lanes, a token each, read from distinct banks. The
+//     scores: warp w takes rows w, w + 8, ... and lane t token t, the
+//     queries read from shared memory as broadcasts; the online (max, den)
+//     of a row stays in its warp's registers, the tile's max and sum by
+//     shuffles. The values: the fp32 accumulators [G, D] are spread over the
+//     block's threads, a thread 8 columns of R rows (R the instance's 4, 5
+//     or 8), read the tile's weights as broadcasts.
 //   * paged_encode_kernel (G > 32, D <= 32, no q2): flare.cu's encode_kernel
 //     read through the page table: a thread per query row (latent) with its
 //     query, state and sums in registers; the tokens staged in shared memory
@@ -151,6 +190,7 @@ struct Args {
   int rows;               // decode: query rows a block (G's tile)
   float scale;
   int q_dtype, page_dtype, out_dtype, fused;
+  int stages;             // MLA's tensor-core instance: its ring's stages (2 to 4)
 };
 
 __device__ __forceinline__ float load_q(const void* q, int dtype, long long i) {
@@ -1072,6 +1112,515 @@ __global__ void __launch_bounds__(MLA_THREADS) paged_mla_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// The MLA instance on the tensor cores (bf16, int8 and fp8 pages).
+
+constexpr int MLA_TC_ROWS = 16;      // query rows a block: one m16 tile (G past 16: row tiles)
+constexpr int MLA_PS = MLA_TT + 8;   // row stride of the partial scores (floats) and of P (bf16)
+constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may take on the H100
+constexpr int MLA_TC_STAGES = 4;     // the ring's stages at most: three tiles in flight
+
+using bf16 = __nv_bfloat16;
+
+// The block's shared memory, in bytes from its start: a ring of `stages`
+// tiles of MLA_TT tokens in the stored dtype (each row [c | k_rope], the
+// latents' DP columns then k_rope's D2P, then V's rows where V is not K,
+// then k_scale, v_scale and k2_scale), for one-byte pages the current tile
+// widened to bf16, each warp's partial scores over its columns of c [rows]
+// [MLA_PS] and over its step of k_rope, P in two bf16 parts [rows][MLA_PS],
+// each row's rescale, max and den, the slice's page ids. bf16 row strides are an
+// odd number of 16-byte units, so ldmatrix's eight rows hit eight bank groups.
+struct MlaTcLayout {
+  int d2p, kr, row, vrow, raw_row, raw_vrow, stage, stages, conv, part, rpart, ph, pl, alpha, m,
+      l, pages, total;
+};
+
+__host__ __device__ inline MlaTcLayout mla_tc_layout(int esize, int DP, int D2, bool sep_v,
+                                                     int pages_per_split, int stages) {
+  MlaTcLayout L;
+  constexpr int rows = MLA_TC_ROWS;
+  L.d2p = (D2 + 15) / 16 * 16;
+  L.kr = L.d2p / 16;                          // k_rope's 16-wide steps: warps 0 .. kr - 1
+  L.row = (DP + L.d2p) * 2 + 16;               // a bf16 row of the tile
+  L.vrow = DP * 2 + 16;                        // a bf16 row of a separate V
+  L.raw_row = esize == 2 ? L.row : DP + L.d2p; // the stored rows (one-byte: widened later)
+  L.raw_vrow = esize == 2 ? L.vrow : DP;
+  L.stage = MLA_TT * (L.raw_row + (sep_v ? L.raw_vrow : 0)) + 3 * MLA_TT * (int)sizeof(float);
+  L.stages = stages;
+  L.conv = stages * L.stage;
+  L.part = L.conv + (esize == 2 ? 0 : MLA_TT * (L.row + (sep_v ? L.vrow : 0)));
+  L.rpart = L.part + MLA_WARPS * rows * MLA_PS * (int)sizeof(float);
+  L.ph = L.rpart + L.kr * rows * MLA_PS * (int)sizeof(float);
+  L.pl = L.ph + rows * MLA_PS * 2;
+  L.alpha = L.pl + rows * MLA_PS * 2;
+  L.m = L.alpha + rows * (int)sizeof(float);
+  L.l = L.m + rows * (int)sizeof(float);
+  L.pages = L.l + rows * (int)sizeof(float);
+  L.total = L.pages + (pages_per_split + 3) / 4 * 16;
+  return L;
+}
+
+// As many stages as fit in shared memory, up to MLA_TC_STAGES (two with a
+// separate V at D 512).
+inline MlaTcLayout mla_tc_fit(int esize, int DP, int D2, bool sep_v, int pps) {
+  MlaTcLayout L = mla_tc_layout(esize, DP, D2, sep_v, pps, MLA_TC_STAGES);
+  for (int st = MLA_TC_STAGES - 1; L.total > SMEM_MAX && st >= 2; --st)
+    L = mla_tc_layout(esize, DP, D2, sep_v, pps, st);
+  return L;
+}
+
+// Stage the rows of tokens [t0, t0 + MLA_TT) (those at or past t_hi
+// zero-filled, never read) in the stored dtype into one stage: c at column
+// 0 and k_rope at column DP of each row, V's rows after K's where V is its
+// own, then the three scales. Eight threads take a row, so each finds its
+// row in the page table once a tile (the page ids of the slice are in
+// shared memory) and issues its copies at fixed offsets from it.
+template <typename T>
+__device__ __forceinline__ void issue_mla_tc_tile(unsigned char* st, const Args& a,
+                                                  const int* pages, int p0, int t0, int t_hi,
+                                                  int h, const MlaTcLayout& L, bool sep_v) {
+  static_assert(MLA_THREADS == 8 * MLA_TT, "eight threads a staged row");
+  const int r = threadIdx.x >> 3, j0 = threadIdx.x & 7, t = t0 + r;
+  const bool on = t < t_hi;
+  const long long row = on ? token_row(pages, p0, t, a.block, a.H, h) : 0;
+  const int rb = a.D * (int)sizeof(T);
+  const int cb = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : rb % 4 == 0 ? 4 : (int)sizeof(T);
+  for (int which = 0; which < (sep_v ? 2 : 1); ++which) {
+    const unsigned char* src = static_cast<const unsigned char*>(which ? a.v : a.k) + row * rb;
+    unsigned char* dst = st + (which ? MLA_TT * L.raw_row + r * L.raw_vrow : r * L.raw_row);
+    for (int c = j0 * cb; c < rb; c += 8 * cb) {
+      switch (cb) {
+        case 16: cp_async<16>(dst + c, src + c, on); break;
+        case 8: cp_async<8>(dst + c, src + c, on); break;
+        case 4: cp_async<4>(dst + c, src + c, on); break;
+        default:
+          *reinterpret_cast<T*>(dst + c) = on ? *reinterpret_cast<const T*>(src + c) : zero_of<T>();
+      }
+    }
+  }
+  if (a.D2) {   // D2 a multiple of 8: rows of 8, 16, 32 or 64 bytes
+    const int rb2 = a.D2 * (int)sizeof(T), cb2 = rb2 % 16 == 0 ? 16 : 8;
+    const unsigned char* src = static_cast<const unsigned char*>(a.k2) + row * rb2;
+    unsigned char* dst = st + r * L.raw_row + a.DP * (int)sizeof(T);
+    for (int c = j0 * cb2; c < rb2; c += 8 * cb2) {
+      if (cb2 == 16)
+        cp_async<16>(dst + c, src + c, on);
+      else
+        cp_async<8>(dst + c, src + c, on);
+    }
+  }
+  if (a.ks || a.vs || a.k2s) {
+    float* scales = reinterpret_cast<float*>(st + MLA_TT * (L.raw_row + (sep_v ? L.raw_vrow : 0)));
+    const float* sc = j0 == 0 ? a.ks : j0 == 1 ? a.vs : j0 == 2 ? a.k2s : nullptr;
+    if (sc) cp_async<4>(scales + j0 * MLA_TT + r, sc + row, on);
+  }
+}
+
+// One-byte rows widened to bf16 (exact: |int8| <= 127 and e4m3's 3 mantissa
+// bits fit bf16's 8): `rows` rows of `cols` elements (a multiple of 16).
+template <typename T>
+__device__ __forceinline__ void widen_rows(unsigned char* dst, int drow, const unsigned char* src,
+                                           int srow, int cols) {
+  const int per = cols / 16;
+  for (int i = threadIdx.x; i < MLA_TT * per; i += MLA_THREADS) {
+    const int r = i / per, c = (i - r * per) * 16;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * srow + c);
+    T e[16];
+    memcpy(e, &raw, sizeof(e));
+    uint32_t w[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(widen(e[2 * j]), widen(e[2 * j + 1]));
+      memcpy(&w[j], &pair, 4);
+    }
+    uint4* d = reinterpret_cast<uint4*>(dst + r * drow + 2 * c);
+    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8 (.trans: each matrix transposed)
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// The m16n8k16 fragments (bf16 in, fp32 out), g = lane / 4, t = lane % 4:
+// A 16 x 16 (a0 (g, 2t..2t+1), a1 (g+8, ..), a2 (g, 2t+8..), a3 (g+8,
+// 2t+8..)), B 16 x 8 (b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)), C c0, c1
+// (g, 2t..2t+1), c2, c3 (g+8, ..).
+
+// x = p0 + p1 + p2 exactly, each part bf16 (8 significant bits each, rounded
+// to nearest: together the 24 of fp32)
+__device__ __forceinline__ void split3(float x, bf16& p0, bf16& p1, bf16& p2) {
+  p0 = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(p0);
+  p1 = __float2bfloat16_rn(r);
+  p2 = __float2bfloat16_rn(r - __bfloat162float(p1));
+}
+
+__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// The A fragments, in three bf16 parts, of rows [r0, r0 + 16) and columns
+// [c0, c0 + 16) of a query operand x [rows, D] of type Q (zero past `rows`
+// and D); returns whether the two lower parts are all zero (x bf16-valued).
+// The loads are unconditional (clamped in range, then selected), so all of
+// them are in flight at once: behind a branch each, a block's 32 loads went
+// one DRAM round trip at a time.
+template <typename Q>
+__device__ __forceinline__ bool q_frags(uint32_t (&f)[3][4], const Q* x, long long base, int ld,
+                                        int r0, int rows, int c0, int D) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float v[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = r0 + g + 8 * (i & 1), c = c0 + 2 * t + 8 * (i >> 1) + e;
+      const float y = widen(x[base + (long long)min(r, rows - 1) * ld + min(c, D - 1)]);
+      v[i][e] = r < rows && c < D ? y : 0.f;
+    }
+  bool exact = true;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bf16 p[2][3];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      split3(v[i][e], p[e][0], p[e][1], p[e][2]);
+      exact &= __bfloat162float(p[e][1]) == 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f[k][i] = pack(p[0][k], p[1][k]);
+  }
+  return exact;
+}
+
+// d = a b, m16n8k16 from zero (C = 0): no accumulator to wait on
+__device__ __forceinline__ void mma16z(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// s += q b with q in its parts (the lower two skipped where q is
+// bf16-valued): independent MMAs from zero, summed small terms first in fp32
+__device__ __forceinline__ void mma_q(float (&s)[4], const uint32_t (&f)[3][4], bool exact,
+                                      uint32_t b0, uint32_t b1) {
+  float x[4], y[4], z[4];
+  mma16z(z, f[0], b0, b1);
+  if (exact) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[e] += z[e];
+    return;
+  }
+  mma16z(x, f[2], b0, b1);
+  mma16z(y, f[1], b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s[e] += (x[e] + y[e]) + z[e];
+}
+
+// Grid (splits, B*H, row tiles). Block = lane b, page head h, query rows
+// [g0, g0 + gt) (gt <= 16: one m16 tile), the pages of slice `split` of the
+// lane. Each tile of MLA_TT tokens is staged once (cp.async, STAGES - 1
+// tiles in flight; one-byte rows then widened to bf16) and both products
+// read it on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 out):
+//   * scores: warp w takes the columns [w DP / 8, +DP / 8) of c (and step w
+//     of k_rope, w < kr), with q's and q2's fragments of those columns in
+//     three bf16 parts in registers: its partial S = q c^T over its
+//     columns, each 16-wide step's MMAs from zero into fp32 sums, to shared
+//     memory; then warp w takes rows w and w + 8, lane t token t:
+//     the eight partials summed in a fixed order, the k_rope term, the
+//     scales, the mask, the online (max, den) in registers, and P = p *
+//     v_scale split into two bf16 parts (hi + lo, ~2^-18 of p), with the
+//     rows' rescale, into shared memory;
+//   * values: warp w holds the fp32 accumulators of all rows for its
+//     columns of V: O = O * rescale + (P_hi + P_lo) V, one 16-token step's
+//     two MMAs from zero at a time into a fresh sum folded in once a tile.
+template <typename T, int DP>
+__global__ void __launch_bounds__(MLA_THREADS, DP == 256 ? 2 : 1) paged_mla_tc_kernel(Args a) {
+  constexpr int CW = DP / MLA_WARPS;   // columns of c a warp takes
+  constexpr int KW = CW / 16;          // their 16-wide steps (the scores' k)
+  constexpr int NW = CW / 8;           // their 8-wide tiles (the values' n)
+  constexpr int NT = MLA_TT / 8;       // token tiles of a staged tile
+  constexpr int ROWS = MLA_TC_ROWS;
+  constexpr int SR = ROWS / MLA_WARPS; // softmax rows a warp
+  constexpr bool WIDEN = sizeof(T) == 1;
+  extern __shared__ uint4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+
+  const int D = a.D, blk = a.block, H = a.H;
+  const bool sep_v = a.v != a.k;
+  const MlaTcLayout L = mla_tc_layout(sizeof(T), DP, a.D2, sep_v, a.pages_per_split, a.stages);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  float* rpart = reinterpret_cast<float*>(smem + L.rpart);
+  bf16* ph_s = reinterpret_cast<bf16*>(smem + L.ph);
+  bf16* pl_s = reinterpret_cast<bf16*>(smem + L.pl);
+  float* alpha_s = reinterpret_cast<float*>(smem + L.alpha);
+  float* m_s = reinterpret_cast<float*>(smem + L.m);
+  float* l_s = reinterpret_cast<float*>(smem + L.l);
+  int* pages = reinterpret_cast<int*>(smem + L.pages);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int split = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int g0 = blockIdx.z * a.rows, gt = min(a.rows, a.G - g0);
+  const long long qrow = ((long long)b * H + h) * a.G + g0;
+  const int* ptb = a.pt + (long long)b * a.P;
+  const int len = a.lengths[b];
+  const int2 sl = lane_slice(a, len, split);
+  const int t_lo = sl.x, t_hi = sl.y;
+  const int ntiles = t_hi > t_lo ? (t_hi - t_lo + MLA_TT - 1) / MLA_TT : 0;
+  const int p0 = t_lo / blk, p1 = t_hi > t_lo ? (t_hi + blk - 1) / blk : p0;
+  const int S = L.stages;
+  for (int i = threadIdx.x; i < p1 - p0; i += MLA_THREADS) pages[i] = ptb[p0 + i];
+  // the columns past D and past D2 of the staged rows are zero, never
+  // written by a copy (the products read them)
+  if (D < DP || a.D2 < L.d2p) {
+    for (int i = threadIdx.x; i < S * L.stage / 16; i += MLA_THREADS)
+      smem4[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();   // page ids and zero fill
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ntiles)
+      issue_mla_tc_tile<T>(smem + s * L.stage, a, pages, p0, t_lo + s * MLA_TT, t_hi, h, L,
+                           sep_v);
+    cp_commit();
+  }
+  // q's fragments of this warp's columns and q2's of its step of k_rope
+  // (their loads in flight with the first tiles')
+  uint32_t qf[KW][3][4], qr[3][4];
+  bool exact = true;
+  auto load_frags = [&](auto* q, auto* q2) {
+#pragma unroll
+    for (int kk = 0; kk < KW; ++kk)
+      exact &= q_frags(qf[kk], q, qrow * D, D, 0, gt, warp * CW + 16 * kk, D);
+    if (warp < L.kr) exact &= q_frags(qr, q2, qrow * a.D2, a.D2, 0, gt, 16 * warp, a.D2);
+  };
+  if (a.q_dtype == F32)
+    load_frags(static_cast<const float*>(a.q), static_cast<const float*>(a.q2));
+  else
+    load_frags(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.q2));
+  exact = __syncthreads_and(exact);
+
+  const bool round_p = !a.fused && sizeof(T) == 2;
+  float m[SR], l[SR];
+#pragma unroll
+  for (int j = 0; j < SR; ++j) m[j] = NEG_INF, l[j] = 0.f;
+  float o[NW][4];
+#pragma unroll
+  for (int n = 0; n < NW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // ldmatrix's row and column offsets of this lane (its matrix l / 8, row l %
+  // 8): A fragments and .trans B fragments (lr, lc); the scores' B fragments,
+  // tokens as rows (br, bc)
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
+  const int br = (lane & 7) + (lane >> 4) * 8, bc = ((lane >> 3) & 1) * 8;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = t_lo + it * MLA_TT;
+    if (S == 4)
+      cp_wait<2>();
+    else if (S == 3)
+      cp_wait<1>();
+    else
+      cp_wait<0>();
+    __syncthreads();   // tile `it` has landed for all; the previous tile's reads are done
+    if (it + S - 1 < ntiles)
+      issue_mla_tc_tile<T>(smem + ((it + S - 1) % S) * L.stage, a, pages, p0,
+                           t0 + (S - 1) * MLA_TT, t_hi, h, L, sep_v);
+    cp_commit();
+    const unsigned char* st = smem + (it % S) * L.stage;
+    const float* ks_st = reinterpret_cast<const float*>(
+        st + MLA_TT * (L.raw_row + (sep_v ? L.raw_vrow : 0)));
+    const float* vs_st = ks_st + MLA_TT;
+    const float* k2s_st = vs_st + MLA_TT;
+    const unsigned char* kt = st;   // bf16 rows [c | k_rope], L.row apart
+    const unsigned char* vt = sep_v ? st + MLA_TT * L.raw_row : st;
+    const int vrow = sep_v ? L.vrow : L.row;
+    if constexpr (WIDEN) {
+      unsigned char* conv = smem + L.conv;
+      widen_rows<T>(conv, L.row, st, L.raw_row, DP + L.d2p);
+      if (sep_v) widen_rows<T>(conv + MLA_TT * L.row, L.vrow, st + MLA_TT * L.raw_row,
+                               L.raw_vrow, DP);
+      __syncthreads();
+      kt = conv;
+      vt = sep_v ? conv + MLA_TT * L.row : conv;
+    }
+
+    // ---- partial scores over this warp's columns (and its k_rope step)
+    {
+      float sc[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KW; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bb[4];
+          ldsm(bb, kt + (16 * np + br) * L.row + 2 * (warp * CW + 16 * kk + bc));
+          mma_q(sc[2 * np], qf[kk], exact, bb[0], bb[1]);
+          mma_q(sc[2 * np + 1], qf[kk], exact, bb[2], bb[3]);
+        }
+      }
+      float* pw = part + warp * ROWS * MLA_PS;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        *reinterpret_cast<float2*>(pw + g * MLA_PS + 8 * n + 2 * t) = make_float2(sc[n][0], sc[n][1]);
+        *reinterpret_cast<float2*>(pw + (g + 8) * MLA_PS + 8 * n + 2 * t) =
+            make_float2(sc[n][2], sc[n][3]);
+      }
+      if (warp < L.kr) {
+        float* rw = rpart + warp * ROWS * MLA_PS;
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bb[4];
+          ldsm(bb, kt + (16 * np + br) * L.row + 2 * (DP + 16 * warp + bc));
+          float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_q(c0, qr, exact, bb[0], bb[1]);
+          mma_q(c1, qr, exact, bb[2], bb[3]);
+          const int n = 2 * np;
+          *reinterpret_cast<float2*>(rw + g * MLA_PS + 8 * n + 2 * t) = make_float2(c0[0], c0[1]);
+          *reinterpret_cast<float2*>(rw + (g + 8) * MLA_PS + 8 * n + 2 * t) =
+              make_float2(c0[2], c0[3]);
+          *reinterpret_cast<float2*>(rw + g * MLA_PS + 8 * n + 8 + 2 * t) =
+              make_float2(c1[0], c1[1]);
+          *reinterpret_cast<float2*>(rw + (g + 8) * MLA_PS + 8 * n + 8 + 2 * t) =
+              make_float2(c1[2], c1[3]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- softmax: warp w rows w, w + 8; lane = token. The score order of
+    // the plain version (dot, x k_scale, + q2.k2 x k2_scale, x scale, mask)
+    {
+      const bool on = t0 + lane < t_hi;
+      const float ksc = a.ks ? ks_st[lane] : 1.f, k2sc = a.k2s ? k2s_st[lane] : 1.f;
+      const float vsc = a.vs ? vs_st[lane] : 1.f;
+#pragma unroll
+      for (int j = 0; j < SR; ++j) {
+        const int row = warp + MLA_WARPS * j;
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < MLA_WARPS; ++w) s += part[(w * ROWS + row) * MLA_PS + lane];
+        s *= ksc;
+        if (a.D2) {
+          float s2 = 0.f;
+#pragma unroll
+          for (int w = 0; w < MLA_MAX_D2 / 16; ++w)
+            if (w < L.kr) s2 += rpart[(w * ROWS + row) * MLA_PS + lane];
+          s += s2 * k2sc;
+        }
+        const float x = on ? s * a.scale : NEG_INF;
+        float tmax = x;
+        for (int off = 16; off > 0; off >>= 1)
+          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+        const float mnew = fmaxf(m[j], tmax);
+        const float alpha = __expf(m[j] - mnew);
+        float p = on ? __expf(x - mnew) : 0.f;
+        float psum = p;
+        for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+        l[j] = fmaf(l[j], alpha, psum);
+        m[j] = mnew;
+        p *= vsc;
+        const bf16 hi = __float2bfloat16_rn(p);
+        ph_s[row * MLA_PS + lane] = hi;
+        pl_s[row * MLA_PS + lane] =
+            round_p ? __float2bfloat16_rn(0.f) : __float2bfloat16_rn(p - __bfloat162float(hi));
+        if (lane == 0) alpha_s[row] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // ---- values: this warp's columns of V, all rows
+    {
+      const float al0 = alpha_s[g], al1 = alpha_s[g + 8];
+      uint32_t ah[2][4], alo[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        ldsm(ah[j], ph_s + lr * MLA_PS + 16 * j + lc);
+        ldsm(alo[j], pl_s + lr * MLA_PS + 16 * j + lc);
+      }
+#pragma unroll
+      for (int np = 0; np < NW / 2; ++np) {
+        float f[2][4] = {};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t vb[4];
+          ldsm_t(vb, vt + (16 * j + lr) * vrow + 2 * (warp * CW + 16 * np + lc));
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            float x[4], y[4];
+            mma16z(y, ah[j], vb[2 * p], vb[2 * p + 1]);
+            if (round_p) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) f[p][e] += y[e];
+            } else {
+              mma16z(x, alo[j], vb[2 * p], vb[2 * p + 1]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) f[p][e] += x[e] + y[e];
+            }
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          float* oc = o[2 * np + p];
+          oc[0] = fmaf(oc[0], al0, f[p][0]);
+          oc[1] = fmaf(oc[1], al0, f[p][1]);
+          oc[2] = fmaf(oc[2], al1, f[p][2]);
+          oc[3] = fmaf(oc[3], al1, f[p][3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < SR; ++j) {
+      m_s[warp + MLA_WARPS * j] = m[j];
+      l_s[warp + MLA_WARPS * j] = l[j];
+    }
+  }
+  __syncthreads();
+  const long long prow = ((long long)split * a.B * H + bh) * a.G + g0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int gr = g + 8 * hh;
+    if (gr >= gt) continue;
+    const float den = l_s[gr], dd = fmaxf(den, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NW; ++n) {
+      const int d = warp * CW + 8 * n + 2 * t;   // this thread's two columns d, d + 1
+      const float x0 = o[n][2 * hh], x1 = o[n][2 * hh + 1];
+      if (a.splits > 1) {
+        float* pa = a.part_acc + (prow + gr) * D + d;
+        if (D % 2 == 0 && d < D)
+          *reinterpret_cast<float2*>(pa) = make_float2(x0, x1);
+        else if (d < D) {
+          pa[0] = x0;
+          if (d + 1 < D) pa[1] = x1;
+        }
+      } else if (d < D) {
+        store_out(a.out, a.out_dtype, (qrow + gr) * D + d, x0 / dd);
+        if (d + 1 < D) store_out(a.out, a.out_dtype, (qrow + gr) * D + d + 1, x1 / dd);
+      }
+    }
+    if (a.splits > 1 && warp == 0 && t == 0)
+      a.part_ml[(prow + gr) * 2] = m_s[gr], a.part_ml[(prow + gr) * 2 + 1] = den;
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 // One thread an output element (b, h, g, d): merge the slices in order, in
 // one pass with a running max (every slice's loads independent of the sums).
@@ -1106,17 +1655,32 @@ bool use_encode(int G, int D, int D2) { return D2 == 0 && D <= ENC_MAX_D && G >=
 
 bool use_mla(int D) { return D > 128; }
 
+// The instance a call runs, numbered as kernels/paged_attention.py's ROUTES:
+// the entry point dispatches on it and reports it to the caller.
+enum Route { DECODE = 0, ENCODE = 1, MLA_TC = 2, MLA_CC = 3 };
+int route_of(int G, int D, int D2, int page_dtype) {
+  if (use_mla(D)) return page_dtype == F32 ? MLA_CC : MLA_TC;
+  return use_encode(G, D, D2) ? ENCODE : DECODE;
+}
+
 int row_tiles(int G) { return (G + ROWS_MAX - 1) / ROWS_MAX; }
 
 // The MLA instance's padded width of D, rows a block at most, and row
-// tiles of G (each tile reads the lane's latents once more).
+// tiles of G (each tile reads the lane's latents once more): the
+// tensor-core instance (bf16, int8, fp8 pages) takes 16 rows a block (one
+// m16 tile) at both widths, the CUDA-core one (fp32 pages) 32 at D 512 and
+// 64 at D 256.
 int mla_dp(int D) { return D <= 256 ? 256 : 512; }
 constexpr int MLA_R[] = {4, 5, 8};   // value-phase rows a thread: the instances
-int mla_max_rows(int DP) { return MLA_THREADS / (DP / MLA_CW) * 8; }
-int mla_row_tiles(int G, int D) {
-  const int most = mla_max_rows(mla_dp(D));
+int mla_max_rows(int DP, int page_dtype) {
+  if (page_dtype != F32) return MLA_TC_ROWS;
+  return MLA_THREADS / (DP / MLA_CW) * 8;
+}
+int mla_row_tiles(int G, int D, int page_dtype) {
+  const int most = mla_max_rows(mla_dp(D), page_dtype);
   return (G + most - 1) / most;
 }
+
 // The instance's R for a tile of `rows` query rows.
 int mla_r(int rows, int D) {
   const int rs = MLA_THREADS / (mla_dp(D) / MLA_CW);
@@ -1172,7 +1736,8 @@ cudaError_t launch_mla(const Args& a, cudaStream_t stream) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   paged_mla_kernel<T, DP, R>
-      <<<dim3(a.splits, a.B * a.H, mla_row_tiles(a.G, a.D)), MLA_THREADS, bytes, stream>>>(a);
+      <<<dim3(a.splits, a.B * a.H, mla_row_tiles(a.G, a.D, a.page_dtype)), MLA_THREADS, bytes,
+         stream>>>(a);
   return combine(a, stream);
 }
 
@@ -1188,6 +1753,24 @@ cudaError_t mla_rows(const Args& a, cudaStream_t stream) {
 template <typename T>
 cudaError_t mla_width(const Args& a, cudaStream_t stream) {
   return mla_dp(a.D) == 256 ? mla_rows<T, 256>(a, stream) : mla_rows<T, 512>(a, stream);
+}
+
+template <typename T, int DP>
+cudaError_t launch_mla_tc(Args a, cudaStream_t stream) {
+  const MlaTcLayout L = mla_tc_fit(sizeof(T), DP, a.D2, a.v != a.k, a.pages_per_split);
+  if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
+  a.stages = L.stages;
+  cudaError_t err = cudaFuncSetAttribute(paged_mla_tc_kernel<T, DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return err;
+  paged_mla_tc_kernel<T, DP><<<dim3(a.splits, a.B * a.H, mla_row_tiles(a.G, a.D, a.page_dtype)),
+                               MLA_THREADS, L.total, stream>>>(a);
+  return combine(a, stream);
+}
+
+template <typename T>
+cudaError_t mla_tc(const Args& a, cudaStream_t stream) {
+  return mla_dp(a.D) == 512 ? launch_mla_tc<T, 512>(a, stream) : launch_mla_tc<T, 256>(a, stream);
 }
 
 // MLA blocks the card runs at once (K read as V: the serving pool's call).
@@ -1218,6 +1801,26 @@ int mla_wave_rows(int r, int D2, int P) {
 template <typename T>
 int mla_wave_width(int r, int D, int D2, int P) {
   return mla_dp(D) == 256 ? mla_wave_rows<T, 256>(r, D2, P) : mla_wave_rows<T, 512>(r, D2, P);
+}
+
+// Tensor-core MLA blocks the card runs at once (K read as V).
+template <typename T, int DP>
+int mla_tc_wave_of(int D2, int P) {
+  const MlaTcLayout L = mla_tc_fit(sizeof(T), DP, D2, false, P);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (cudaFuncSetAttribute(paged_mla_tc_kernel<T, DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, L.total) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_mla_tc_kernel<T, DP>,
+                                                    MLA_THREADS, L.total) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return (per_sm > 0 ? per_sm : 1) * sms;
+}
+
+template <typename T>
+int mla_tc_wave(int D, int D2, int P) {
+  return mla_dp(D) == 512 ? mla_tc_wave_of<T, 512>(D2, P) : mla_tc_wave_of<T, 256>(D2, P);
 }
 
 // Decode blocks the card runs at once: the instance's blocks a
@@ -1257,7 +1860,8 @@ int decode_wave(int G, int D, int D2, int P, int page_dtype) {
   static int used = 0;
   static std::mutex lock;
   const bool mla = use_mla(D);
-  const int tiles = mla ? mla_row_tiles(G, D) : row_tiles(G), rows = (G + tiles - 1) / tiles;
+  const int tiles = mla ? mla_row_tiles(G, D, page_dtype) : row_tiles(G);
+  const int rows = (G + tiles - 1) / tiles;
   const int key_d2 = mla ? D2 : 0;
   int dev = 0;
   cudaGetDevice(&dev);
@@ -1270,12 +1874,11 @@ int decode_wave(int G, int D, int D2, int P, int page_dtype) {
   }
   int wave;
   if (mla) {
-    const int r = mla_r(rows, D);
     switch (page_dtype) {
-      case F32: wave = mla_wave_width<float>(r, D, D2, P); break;
-      case BF16: wave = mla_wave_width<__nv_bfloat16>(r, D, D2, P); break;
-      case I8: wave = mla_wave_width<int8_t>(r, D, D2, P); break;
-      default: wave = mla_wave_width<__nv_fp8_e4m3>(r, D, D2, P);
+      case F32: wave = mla_wave_width<float>(mla_r(rows, D), D, D2, P); break;
+      case BF16: wave = mla_tc_wave<__nv_bfloat16>(D, D2, P); break;
+      case I8: wave = mla_tc_wave<int8_t>(D, D2, P); break;
+      default: wave = mla_tc_wave<__nv_fp8_e4m3>(D, D2, P);
     }
   } else {
     switch (page_dtype) {
@@ -1307,7 +1910,8 @@ int paged_attention_splits(int B, int H, int G, int D, int D2, int block, int P,
     want = ENC_WAVE / ((long long)B * H * ((G + THREADS - 1) / THREADS));
     most = (long long)P * block / ENC_MIN_TOKENS;
   } else {
-    const long long tiles = (long long)B * H * (use_mla(D) ? mla_row_tiles(G, D) : row_tiles(G));
+    const long long tiles =
+        (long long)B * H * (use_mla(D) ? mla_row_tiles(G, D, page_dtype) : row_tiles(G));
     want = decode_wave(G, D, D2, P, page_dtype) / tiles;
     most = P / MIN_PAGES;
   }
@@ -1320,43 +1924,42 @@ int paged_attention_splits(int B, int H, int G, int D, int D2, int block, int P,
 // pages [NB, block, H, D] of page_dtype (k2 with D2); scales [NB, block, H]
 // fp32 or null; out [B, H, G, D] of out_dtype. All contiguous, pages 16-byte
 // aligned; 1 <= D <= 512, D2 a multiple of 8 up to 128 (up to 64 where D >
-// 128); splits from paged_attention_splits.
+// 128); splits from paged_attention_splits. Writes the instance it launched
+// (a Route) to *route.
 int paged_attention(const void* q, const void* q2, const void* k, const void* v, const void* k2,
                     const int* page_table, const int* lengths, const float* k_scale,
                     const float* v_scale, const float* k2_scale, void* out, float* part_acc,
                     float* part_ml, int B, int H, int G, int D, int D2, int block, int P,
                     int splits, float scale, int q_dtype, int page_dtype, int out_dtype,
-                    int fused, void* stream) {
+                    int fused, void* stream, int* route) {
   const bool mla = use_mla(D);
   if (D < 1 || D > 512 || D2 < 0 || D2 > (mla ? MLA_MAX_D2 : 128) || D2 % 8 || splits < 1 ||
       G < 1)
     return cudaErrorInvalidValue;
-  const int tiles = mla ? mla_row_tiles(G, D) : row_tiles(G);
+  const int tiles = mla ? mla_row_tiles(G, D, page_dtype) : row_tiles(G);
   Args a{q, q2, k, v, k2, page_table, lengths, k_scale, v_scale, k2_scale, out, part_acc,
          part_ml, B, H, G, D, mla ? mla_dp(D) : padded_width(D), D2, block, P, splits,
          (P + splits - 1) / splits, (G + tiles - 1) / tiles, scale, q_dtype, page_dtype,
          out_dtype, fused};
   cudaStream_t s = (cudaStream_t)stream;
-  if (mla) {
+  if (page_dtype < F32 || page_dtype > FP8) return cudaErrorInvalidValue;
+  *route = route_of(G, D, D2, page_dtype);
+  if (*route == MLA_CC) return mla_width<float>(a, s);
+  if (*route == MLA_TC) {
     switch (page_dtype) {
-      case F32: return mla_width<float>(a, s);
-      case BF16: return mla_width<__nv_bfloat16>(a, s);
-      case I8: return mla_width<int8_t>(a, s);
-      case FP8: return mla_width<__nv_fp8_e4m3>(a, s);
-      default: return cudaErrorInvalidValue;
+      case BF16: return mla_tc<__nv_bfloat16>(a, s);
+      case I8: return mla_tc<int8_t>(a, s);
+      default: return mla_tc<__nv_fp8_e4m3>(a, s);
     }
   }
-  if (use_encode(G, D, D2)) {
-    if (page_dtype < F32 || page_dtype > FP8) return cudaErrorInvalidValue;
+  if (*route == ENCODE)
     return a.DP == 8 ? launch_encode<8>(a, s) : a.DP == 16 ? launch_encode<16>(a, s)
                                                            : launch_encode<32>(a, s);
-  }
   switch (page_dtype) {
     case F32: return decode_rows<float>(a, s);
     case BF16: return decode_rows<__nv_bfloat16>(a, s);
     case I8: return decode_rows<int8_t>(a, s);
-    case FP8: return decode_rows<__nv_fp8_e4m3>(a, s);
-    default: return cudaErrorInvalidValue;
+    default: return decode_rows<__nv_fp8_e4m3>(a, s);
   }
 }
 

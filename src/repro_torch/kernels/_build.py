@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--split-compile=0")   # optimize the kernel instances on all cores
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_PLL = ctypes.POINTER(ctypes.c_longlong)
+_PLL, _PI = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 # argtypes of every C entry point; device pointers and the stream are c_void_p
 _SIGNATURES = {
     "flare_encode_splits": [_I] * 4,
@@ -43,8 +43,9 @@ _SIGNATURES = {
     "flare_causal_splits": [_I],
     "flare_causal": [_P] * 6 + [_I] * 5 + [_LL] * 9 + [_I] + [_P],
     "paged_attention_splits": [_I] * 8,
-    "paged_attention": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
-    "flash_attention": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 4 + [_P],
+    "paged_attention": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 4 + [_P, _PI],
+    "flash_attention": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 3 + [_P],
+    "flash_attention_tf32": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 3 + [_P],
     "flash_attention_tc": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 2 + [_P],
 }
 

@@ -12,10 +12,13 @@ picks from dtype, D and strides alone:
 * ``"tensor_core"``: bf16 with D a multiple of 8 and tensors TMA can
   address, ``csrc/flash_attention_sm90.cu`` (wgmma, TMA loads, a split
   P that keeps the value product to ~2^-18 of p);
-* ``"cuda_core"``: any other bf16 call, ``csrc/flash_attention.cu`` in fp32
-  arithmetic on the CUDA cores;
-* ``"fp32"``: fp32 operands, the same CUDA-core kernel (its fp64 check at
-  1e-5 of max |o| is beyond TF32).
+* ``"cuda_core"``: any other bf16 call, ``csrc/flash_attention.cu``'s
+  ``flash_kernel`` in fp32 arithmetic on the CUDA cores;
+* ``"fp32"``: fp32 operands, ``csrc/flash_attention.cu``'s
+  ``flash_tf32_kernel`` on the TF32 tensor cores, every operand split in
+  two TF32 parts and each product three MMAs (its fp64 check at 1e-5 of
+  max |o| is beyond one TF32 rounding; ``kernels/ref.py::
+  flash_attention_tf32_ref`` emulates its products).
 
 The head comments say what bounds each on an H100 and what their designs do
 about it. The kernels' tiles are their own: the TPU wrapper's ``block_q`` /
@@ -33,9 +36,10 @@ by route, in ``flash_attention.launches_by_route``. Forward-only, as the TPU
 kernel.
 
 One deliberate difference: the TPU kernel rounds the softmax weights to v's
-dtype before the value product; the CUDA-core kernel keeps them in fp32 and
-the tensor-core kernel splits them into two bf16 parts (bf16 is held at its
-tolerance and, on the card, beyond its output rounding against fp64).
+dtype before the value product; the CUDA-core kernel keeps them in fp32, the
+bf16 tensor-core kernel splits them into two bf16 parts and the TF32 kernel
+into two TF32 parts (bf16 is held at its tolerance and, on the card, beyond
+its output rounding against fp64).
 """
 from __future__ import annotations
 
@@ -47,10 +51,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flare import DTYPE_CODES, forbid_grad, heads_out, on_cuda, ptr
 from repro_torch.kernels.ref import flash_attention_ref
 
-KV_TILE = 64          # keys a tile of both kernels
+KV_TILE = 64          # keys a tile of the bf16 kernels (the TF32 kernel's is 32)
 MAX_HEAD_DIM = 128
-MAX_GROUPS = 65535    # B*H rides on gridDim.y of csrc/flash_attention.cu
-TC_QUERY_TILE = 128   # query rows a block of csrc/flash_attention_sm90.cu (gridDim.y)
+MAX_GROUPS = 65535    # B*H rides on gridDim.y of csrc/flash_attention.cu's flash_kernel
+TC_QUERY_TILE = 128   # query rows a block of both tensor-core kernels (gridDim.y)
 ROUTES = ("tensor_core", "cuda_core", "fp32")
 _INT_MAX = 2**31 - 1
 
@@ -132,8 +136,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale:
     b, h, sq, _ = q4.shape
     hkv, skv = k4.shape[1], k4.shape[2]
     tiles = -(-sq // TC_QUERY_TILE)
-    if (b * h > (_INT_MAX if route == "tensor_core" else MAX_GROUPS)
-            or max(sq, skv) > _INT_MAX or (route == "tensor_core" and tiles > 65535)):
+    tensor = route != "cuda_core"
+    if (b * h > (_INT_MAX if tensor else MAX_GROUPS)
+            or max(sq, skv) > _INT_MAX or (tensor and tiles > 65535)):
         raise ValueError(f"flash_attention: B*H {b * h} (<= {MAX_GROUPS} on the CUDA cores), "
                          f"Sq {sq} (<= {65535 * TC_QUERY_TILE} on the tensor cores), Skv {skv}")
     dev = q.device
@@ -147,9 +152,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale:
                                      *strides, float(scale), int(causal), window, stream)
     else:
         vec = d % 4 == 0 and all(_aligned(t, 4) for t in (q4, k4, v4))
-        err = lib.flash_attention(ptr(q4), ptr(k4), ptr(v4), ptr(o), b, h, hkv, sq, skv, d,
-                                  *strides, float(scale), int(causal), window, int(vec),
-                                  DTYPE_CODES[q.dtype], stream)
+        entry = lib.flash_attention_tf32 if route == "fp32" else lib.flash_attention
+        err = entry(ptr(q4), ptr(k4), ptr(v4), ptr(o), b, h, hkv, sq, skv, d, *strides,
+                    float(scale), int(causal), window, int(vec), stream)
     _build.check(err, f"flash_attention ({route})")
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1

@@ -65,6 +65,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     flash_kernel.launches_by_route.update(dict.fromkeys(flash_kernel.launches_by_route, 0))
+    paged_attention.launches_by_route.update(dict.fromkeys(paged_attention.launches_by_route, 0))
 
 
 def launch_counts() -> dict:

@@ -12,24 +12,27 @@ kv_lora_rank, the latents both K and V, q2 over the rotary key), G = M
 latents for FLARE's encode off pages (the ``paged`` backend).
 
 The kernel is in ``csrc/paged_attention.cu``, whose head comment says what
-bounds it on an H100 and what its design does about it: three instances,
-the decode read's (a block takes up to 8 query rows of one lane and KV
-head), MLA's (D > 128: a block stages each token row once and all its
-query rows read it) and the FLARE encode's (a thread a latent), which the C
-entry point picks from G, D and q2. The page slices a call splits each lane
+bounds it on an H100 and what its design does about it: the decode read's
+instance (a block takes up to 8 query rows of one lane and KV head), MLA's
+(D > 128: a block stages each token row once and all its query rows read
+it, both products on the tensor cores for bf16, int8 and fp8 pages, on the
+CUDA cores for fp32 pages) and the FLARE encode's (a thread a latent),
+which the C entry point picks from G, D, q2 and the page dtype. The page slices a call splits each lane
 into come from the shapes and the card (``paged_attention_splits``). On a
 CPU tensor the wrapper runs the plain version
 (``kernels/ref.py::paged_attention_ref``); on a CUDA tensor it launches the
-kernel or raises, inside
+kernel or raises (the instance :func:`paged_route` names), inside
 ``obs.scope("kernels.paged_attention")``. The page table and lengths
 stay on the device: nothing is read back to the host, so a decode step that
 calls it once a layer keeps its one device-to-host copy. It counts its
-launches in ``paged_attention.launches``. Forward-only, as the TPU kernel.
+launches in ``paged_attention.launches`` and, by the instance the entry
+point reports it launched, in ``paged_attention.launches_by_route``. Forward-only, as the TPU kernel.
 The TPU wrapper's padding of D to 128 lanes and of G to 8 sublanes is not
 needed: the kernel takes D and G as they are.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -45,6 +48,21 @@ OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = range(1, 513)   # D it takes (to 128 tiled at the next power of two from 8;
                             # above, the MLA instance at 256 or 512)
 MAX_BLOCK = 128                    # tokens a page (a multiple of 4)
+ROUTES = ("decode", "encode", "mla_tc", "mla")
+
+
+def paged_route(q: torch.Tensor, k_pages: torch.Tensor, q2: Optional[torch.Tensor] = None) -> str:
+    """The instance a call on the card runs, from G, D, q2 and the page dtype
+    alone, as ``csrc/paged_attention.cu``'s entry point picks it: "mla_tc"
+    (``paged_mla_tc_kernel``) for D > 128 over bf16, int8 or fp8 pages,
+    "mla" (``paged_mla_kernel``, the CUDA cores) for D > 128 over fp32
+    pages, "encode" for G > 32 at D <= 32 without q2, else "decode". The
+    entry point reports the instance it launched, and the wrapper raises
+    where that is not this one."""
+    g, d = q.shape[-2:]
+    if d > 128:
+        return "mla" if k_pages.dtype == torch.float32 else "mla_tc"
+    return "encode" if q2 is None and d <= 32 and g > 32 else "decode"
 
 
 def _check(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale, q2, k2_pages, k2_scale):
@@ -146,15 +164,22 @@ def _paged_attention(q, k_pages, v_pages, page_table, lengths, *, scale, k_scale
     part_ml = torch.empty(splits * b * h * g * 2 if splits > 1 else 0, dtype=torch.float32,
                           device=dev)
     out = torch.empty(b, h, g, d, dtype=out_dtype, device=dev)
+    ran = ctypes.c_int(-1)
     err = lib.paged_attention(
         ptr(q), ptr(q2), ptr(k_pages), ptr(v_pages), ptr(k2_pages), ptr(page_table),
         ptr(lengths), ptr(k_scale), ptr(v_scale), ptr(k2_scale), ptr(out),
         ptr(part_acc), ptr(part_ml), b, h, g, d, d2, blk, p, splits, float(scale),
         Q_DTYPES[q.dtype], PAGE_DTYPES[k_pages.dtype], OUT_DTYPES[out_dtype], int(fused),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(ran))
     _build.check(err, "paged_attention")
+    route = ROUTES[ran.value]
+    if route != paged_route(q, k_pages, q2):
+        raise RuntimeError(f"paged_attention: the entry point launched the {route!r} instance, "
+                           f"paged_route names {paged_route(q, k_pages, q2)!r}")
     paged_attention.launches += 1
+    paged_attention.launches_by_route[route] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -163,6 +163,102 @@ def bf16_split(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
 
+def bf16_split3(x: torch.Tensor):
+    """fp32 x as three bf16 parts (p0, p1, p2), each rounded to nearest even
+    from what the parts before it leave, returned as fp32 tensors holding
+    bf16 values: the query parts of MLA's tensor-core read. Each part keeps
+    8 significant bits, so p0 + p1 + p2 == x exactly for fp32 x of normal
+    magnitude; a bf16-valued x has p1 = p2 = 0."""
+    x = x.to(torch.float32)
+    p0 = x.to(torch.bfloat16).to(torch.float32)
+    r = x - p0
+    p1 = r.to(torch.bfloat16).to(torch.float32)
+    return p0, p1, (r - p1).to(torch.bfloat16).to(torch.float32)
+
+
+def flash_attention_tf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             scale: float, causal: bool = True, window=None,
+                             parts: int = 2) -> torch.Tensor:
+    """The fp32 flash route with the products of its TF32 tensor-core kernel
+    (``csrc/flash_attention.cu::flash_tf32_kernel``) emulated: q, k, v and
+    the weights enter S = q k^T and P V as TF32 parts (``parts=2``: hi + lo,
+    the products lo.hi + hi.lo + hi.hi, the kernel's choice; ``parts=1``: hi
+    alone, one rounding), the products exact, the scale, masks, max, weights
+    and den fp32 (den clamped at 1e-30, so a row with no key gives 0). Over a
+    whole row at once: the kernel's 32-key tiles and online rescaling change
+    only the order of fp32 sums. q [..., H, Sq, D], k/v [..., Hkv, Skv, D]
+    fp32 (Hkv | H) -> o [..., H, Sq, D] fp32."""
+    if q.dim() >= 3 and k.shape[-3] != q.shape[-3]:
+        groups = q.shape[-3] // k.shape[-3]
+        k, v = (t.repeat_interleave(groups, dim=-3) for t in (k, v))
+
+    def split(x):
+        hi, lo = tf32_split(x)
+        return (hi, lo) if parts == 2 else (hi,)
+
+    def mm(eq, a, b):   # lo.hi + hi.lo + hi.hi (never lo.lo), each product exact
+        (ah, *al), (bh, *bl) = split(a), split(b)
+        pairs = [(x, bh) for x in al] + [(ah, y) for y in bl] + [(ah, bh)]
+        return sum(torch.einsum(eq, x.double(), y.double()) for x, y in pairs).float()
+
+    sq, skv = q.shape[-2], k.shape[-2]
+    s = mm("...sd,...td->...st", q, k) * scale
+    qi = torch.arange(sq, device=q.device)[:, None]
+    ki = torch.arange(skv, device=q.device)[None, :]
+    keep = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= ki <= qi
+    if window is not None:
+        keep &= ki > qi - window
+    s = s.masked_fill(~keep, -torch.inf)
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - torch.where(torch.isfinite(mx), mx, 0)), 0)
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return mm("...st,...td->...sd", p, v) / den
+
+
+def paged_mla_split_ref(q, k_pages, page_table, lengths, *, scale: float = 1.0, k_scale=None,
+                        v_scale=None, q2=None, k2_pages=None, k2_scale=None, q_parts: int = 3,
+                        p_parts: int = 2) -> torch.Tensor:
+    """MLA's paged read (the latents ``k_pages`` both K and V) with the
+    products of its tensor-core kernel (``csrc/paged_attention.cu::
+    paged_mla_tc_kernel``) emulated: the staged rows widened to bf16 (exact
+    for bf16, int8 and e4m3 pages), q and q2 in ``q_parts`` bf16 parts (3:
+    exactly fp32, the kernel's choice; 1: one rounding), the weights p times
+    v_scale in ``p_parts`` bf16 parts (2: hi + lo, the kernel's; 1: one
+    rounding); the products exact, the scores (dot x k_scale + rope term x
+    k2_scale, x scale, the mask), softmax and den fp32. q [B, H, G, D] fp32,
+    pages [NB, block, H, D] -> [B, H, G, D] fp32; a lane of length 0 gives 0."""
+    c = _gather_rows(k_pages, page_table).float().to(torch.bfloat16).double()   # [B, H, T, D]
+    t = c.shape[2]
+    valid = (torch.arange(t, device=q.device)[None, :]
+             < lengths.to(q.device).long()[:, None])[:, None, :]          # [B, 1, T]
+    c = c.masked_fill(~valid[..., None], 0)
+
+    def qsum(x):
+        return sum(p.double() for p in bf16_split3(x)[:q_parts])
+
+    s = torch.einsum("bhgd,bhtd->bhgt", qsum(q), c).float()
+    if k_scale is not None:
+        s = s * _gather_rows(k_scale, page_table).float()[:, :, None, :]
+    if q2 is not None:
+        k2 = _gather_rows(k2_pages, page_table).float().to(torch.bfloat16).double()
+        s2 = torch.einsum("bhgd,bhtd->bhgt", qsum(q2),
+                          k2.masked_fill(~valid[..., None], 0)).float()
+        if k2_scale is not None:
+            s2 = s2 * _gather_rows(k2_scale, page_table).float()[:, :, None, :]
+        s = s + s2
+    s = (s * scale).masked_fill(~valid[:, :, None, :], -torch.inf)
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(mx), mx, 0))
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if v_scale is not None:
+        p = p * _gather_rows(v_scale, page_table).float()[:, :, None, :]
+    hi, lo = bf16_split(p)
+    pw = hi.double() + (lo.double() if p_parts == 2 else 0)
+    return torch.einsum("bhgt,bhtd->bhgd", pw, c).float() / den
+
+
 def flare_fused_bwd_ref(q, k, v, z, mx, den, lse, y, dy, *, chunk=None):
     """The backward of the fused forward from its residuals (the math of
     ``_fused_bwd_kernel``): q [H, M, D]; k, v, y, dy [B, H, N, D]; z, mx,

@@ -25,8 +25,8 @@ gives the same greedy tokens through the kernel route as through the
 gather route. The flash-attention kernel is held against its plain version
 in fp64 at 1e-5 of max |o| in fp32, and against the plain version on the
 same bf16 inputs at 1e-2 of max |o| in bf16 (the kernels keep the weights
-in fp32, or split in two bf16 parts, where the plain version rounds them to
-bf16); on both bf16 routes (tensor cores and CUDA cores) bf16 is also held
+in fp32, or split in two bf16 or TF32 parts, where the plain version rounds
+them to bf16); on both bf16 routes (tensor cores and CUDA cores) bf16 is also held
 against the plain version in fp64 beyond bf16's output rounding,
 max(|o - want| - 2^-8 |want|) within 1e-5 of max |want|; the smoke qwen2's
 prefill through it agrees with the chunked route within 1e-4 of max |logit|
@@ -469,13 +469,18 @@ MLA_CASES = [(g, d, d2, dt) for g, d, d2 in ((16, 512, 64), (40, 256, 32), (70, 
              for dt in ("float32", "bfloat16", "int8", "fp8")]
 
 
-def _mla_case(g, d, d2, page_dtype, device, *, b=4, block=16, pages=24):
+def _mla_case(g, d, d2, page_dtype, device, *, block=16, pages=24):
     """One page head of latents (the same tensor as K and V) and rotary keys
-    over _paged_case's page table and lengths (0, 1, a partial page, full)."""
-    ops, _ = _paged_case(1, 8, "float32", False, "cpu", b=b, h=1, block=block, pages=pages)
-    pt, lengths = ops[3], ops[4]
+    over a shuffled page table whose unmapped entries point at a trash row of
+    NaN, lanes of 0, 1, 200 and 337 tokens (each ending inside a 32-token
+    tile of the kernel and inside a page) and a full table."""
     gen = torch.Generator().manual_seed(g * 1000 + d)
-    nb = pt.numel() + 1
+    lengths = torch.tensor([0, 1, 200, 337, block * pages], dtype=torch.int32)
+    b = len(lengths)
+    nb = b * pages + 1
+    pt = torch.randperm(nb - 1, generator=gen)[: b * pages].reshape(b, pages).int()
+    for i in range(b):
+        pt[i, -(-int(lengths[i]) // block):] = nb - 1
     q = torch.randn(b, 1, g, d, generator=gen) * d ** -0.5
     kw = {"q2": torch.randn(b, 1, g, d2, generator=gen) * d2 ** -0.5}
     c = torch.randn(nb, block, 1, d, generator=gen)
@@ -498,18 +503,26 @@ def _mla_case(g, d, d2, page_dtype, device, *, b=4, block=16, pages=24):
 
 @pytest.mark.parametrize("g,d,d2,page_dtype", MLA_CASES)
 def test_paged_mla_read_matches_plain(cuda, g, d, d2, page_dtype):
+    """The tensor-core instance for bf16, int8 and fp8 pages, the CUDA-core
+    one for fp32 pages (the route's launch count), against fp64; a lane of
+    length 0 exact zeros; the same call twice gives equal bits."""
     from repro_torch.kernels.paged_attention import paged_attention
 
     ops, kw = _mla_case(g, d, d2, page_dtype, cuda)
     before = launch_counts()["paged_attention"]
+    routes = dict(paged_attention.launches_by_route)
     got = paged_attention(*ops, scale=0.1, out_dtype=torch.float32, **kw)
     torch.cuda.synchronize()
     assert launch_counts()["paged_attention"] == before + 1
+    route = "mla" if page_dtype == "float32" else "mla_tc"
+    assert {r: n - routes[r] for r, n in paged_attention.launches_by_route.items()} == {
+        r: int(r == route) for r in routes}
     wide = {key: t.double() if key == "q2" else t for key, t in kw.items()}
     want = ref.paged_attention_ref(ops[0].double(), *ops[1:], scale=0.1,
                                    out_dtype=torch.float64, **wide)
     assert not got[0].any() and torch.isfinite(got).all()
     assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(paged_attention(*ops, scale=0.1, out_dtype=torch.float32, **kw), got)
 
 
 def test_paged_mla_read_separate_v_and_equal_bits(cuda):
@@ -579,9 +592,11 @@ def _flash_inputs(shape, dtype, device, seed=0):
 @pytest.mark.parametrize("causal,window", FLASH_MASKS)
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda, shape, causal, window, dtype):
-    """GQA, D 5 to 128, ragged Sq and Skv, Sq > Skv with fully masked rows,
-    Skv > Sq; every bf16 call on both bf16 routes, and each call's route
-    asserted (flash_route: the tensor cores for bf16 at D % 8 == 0)."""
+    """GQA, D 5 to 128, ragged Sq and Skv (ending inside the kernels' key
+    tiles), Sq > Skv with fully masked rows, Skv > Sq; every bf16 call on
+    both bf16 routes, and each call's route asserted (flash_route: the
+    tensor cores for bf16 at D % 8 == 0, the TF32 kernel for fp32) by the
+    launch counts; two calls give equal bits."""
     from repro_torch.kernels.attention import flash_attention, flash_route
 
     q, k, v = _flash_inputs(shape, dtype, cuda)
@@ -593,10 +608,12 @@ def test_flash_kernel_matches_plain(cuda, shape, causal, window, dtype):
     assert flash_route(q, k, v) == routes[0]
     for route in routes:
         before = dict(flash_attention.launches_by_route)
-        o = flash_attention(q, k, v, **kw, route=None if route == routes[0] else route)
+        call = lambda: flash_attention(q, k, v, **kw, route=None if route == routes[0] else route)
+        o = call()
         torch.cuda.synchronize()
         assert {r: n - before[r] for r, n in flash_attention.launches_by_route.items()} == {
             r: int(r == route) for r in before}
+        assert torch.equal(call(), o)
         assert o.dtype == dtype and o.shape == q.shape and bool(torch.isfinite(o).all())
         if dtype == torch.float32:
             assert (o.double() - want64).abs().max() <= 1e-5 * want64.abs().max()

@@ -1,0 +1,207 @@
+"""The numeric choices of the fp32 flash route and of MLA's paged read on the
+tensor cores, on the CPU.
+
+``kernels/ref.py::flash_attention_tf32_ref`` emulates the products of
+``csrc/flash_attention.cu::flash_tf32_kernel`` (fp32 q, k, v and the weights
+in two TF32 parts, three MMAs a product) and ``ref.paged_mla_split_ref``
+those of ``csrc/paged_attention.cu::paged_mla_tc_kernel`` (the pages widened
+to bf16, fp32 q in three bf16 parts, the weights in two). Each emulation is
+held within 1e-5 of max |o| of the plain version in fp64 (chip_smoke.py's
+RTOL, the kernels' limit on the card), and a control with each operand
+rounded once must fail that limit; each is also held against the JAX
+package's Pallas kernel in interpret mode on the same numpy inputs (fp32
+sums in another order: 1e-5 of max |o|). Widening int8 and e4m3 pages to
+bf16 is exact, and three bf16 parts give an fp32 value back exactly."""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attention import flash_attention_pallas
+from repro.kernels.paged_attention import paged_attention as jpaged_attention
+from repro_torch.kernels import ref
+
+LIMIT = 1e-5
+FLASH_MASKS = [(True, None), (False, None), (True, 24)]
+
+
+def _rel(got, want) -> float:
+    want = torch.as_tensor(np.array(want)).double()
+    return ((torch.as_tensor(np.array(got)).double() - want).abs().max()
+            / want.abs().max()).item()
+
+
+def _flash_inputs(seed=0, b=1, h=4, hkv=2, s=256, d=64):
+    """q, k, v as numpy fp32 [B, H, S, D] / [B, Hkv, S, D]; q scaled up so the
+    scores reach ~10, as a trained model's do."""
+    rng = np.random.default_rng(seed)
+    q = (3 * rng.standard_normal((b, h, s, d)) / np.sqrt(d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, hkv, s, d)).astype(np.float32) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_tf32_split_meets_the_fp32_limit_one_rounding_does_not(causal, window):
+    """GQA (4 query heads over 2 KV heads), S=256, D=64: the three-way TF32
+    products within 1e-5 of max |o| of fp64; hi alone (one TF32 rounding of
+    each operand) beyond it."""
+    q, k, v = (torch.from_numpy(x) for x in _flash_inputs())
+    kw = dict(scale=64 ** -0.5, causal=causal, window=window)
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    errs = {parts: _rel(ref.flash_attention_tf32_ref(q, k, v, parts=parts, **kw), want)
+            for parts in (2, 1)}
+    assert errs[2] <= LIMIT, errs
+    assert errs[1] > LIMIT, errs
+
+
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_tf32_emulation_matches_jax_pallas(causal, window):
+    """The emulation against ``flash_attention_pallas`` in interpret mode (K
+    and V expanded to the query heads, [G, S, D]); rows with no key are 0 in
+    both."""
+    q, k, v = _flash_inputs(seed=1, s=128)
+    kw = dict(scale=64 ** -0.5, causal=causal, window=window)
+    got = ref.flash_attention_tf32_ref(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+    ke, ve = (np.repeat(x, 2, axis=1) for x in (k, v))
+    want = flash_attention_pallas(*(jnp.asarray(x.reshape(-1, 128, 64)) for x in (q, ke, ve)),
+                                  block_q=64, block_kv=64, interpret=True, **kw)
+    assert _rel(got.reshape(-1, 128, 64), want) <= LIMIT
+
+
+def test_flash_tf32_rows_with_no_key_are_zero():
+    """Sq > Skv with a window: the rows the masks leave no key give exact 0."""
+    q, k, v = (torch.from_numpy(x) for x in _flash_inputs(seed=2, s=64))
+    got = ref.flash_attention_tf32_ref(q, k[:, :, :32], v[:, :, :32], scale=0.125, causal=True,
+                                       window=8)
+    assert not got[:, :, 39:].any() and got[:, :, :39].abs().amax(-1).min() > 0
+    assert torch.isfinite(got).all()
+
+
+MLA_SHAPES = {"deepseek": (16, 512, 64), "minicpm3": (40, 256, 32)}
+
+
+def _mla_inputs(g, d, d2, page_dtype, seed=0):
+    """numpy inputs of MLA's read: fp32 q [B, 1, G, D] and q2, one page head of
+    latents [NB, 16, 1, D] and rotary keys (bf16 values, or int8 / e4m3 with
+    per-row fp32 scales), a shuffled page table, lanes of 0, a partial page,
+    a mid-tile length and several pages; q scaled so the scores reach ~10."""
+    rng = np.random.default_rng(seed)
+    b, block, p = 4, 16, 6
+    nb = b * p + 1
+    lengths = np.array([0, 9, 53, 96], np.int32)
+    pt = rng.permutation(nb - 1)[: b * p].reshape(b, p).astype(np.int32)
+    q = (3 * rng.standard_normal((b, 1, g, d)) / np.sqrt(d)).astype(np.float32)
+    q2 = (rng.standard_normal((b, 1, g, d2)) / np.sqrt(d2)).astype(np.float32)
+    c = rng.standard_normal((nb, block, 1, d)).astype(np.float32)
+    kr = rng.standard_normal((nb, block, 1, d2)).astype(np.float32)
+    scales = {}
+    if page_dtype == "bfloat16":
+        c, kr = (x.astype(ml_dtypes.bfloat16) for x in (c, kr))
+    else:
+        def quant(x):
+            top = 127.0 if page_dtype == "int8" else 448.0
+            sc = np.maximum(np.abs(x).max(-1), 1e-6) / top
+            y = x / sc[..., None]
+            y = np.round(y).astype(np.int8) if page_dtype == "int8" else \
+                y.astype(ml_dtypes.float8_e4m3fn)
+            return y, sc.astype(np.float32)
+        (c, cs), (kr, krs) = quant(c), quant(kr)
+        scales = {"k_scale": cs, "v_scale": cs, "k2_scale": krs}
+    return dict(q=q, q2=q2, c=c, kr=kr, pt=pt, lengths=lengths, **scales)
+
+
+def _torch(x):
+    if x.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(x.view(np.uint16).astype(np.int32)).to(torch.int16).view(
+            torch.bfloat16)
+    if x.dtype == ml_dtypes.float8_e4m3fn:
+        return torch.from_numpy(x.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(x)
+
+
+def _mla_kw(inp, conv):
+    kw = {"q2": conv(inp["q2"]), "k2_pages": conv(inp["kr"])}
+    kw.update({name: conv(inp[name]) for name in ("k_scale", "v_scale", "k2_scale") if name in inp})
+    return kw
+
+
+@pytest.mark.parametrize("page_dtype", ["bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", list(MLA_SHAPES))
+def test_mla_split_meets_the_fp32_limit_one_rounding_does_not(shape, page_dtype):
+    """DeepSeek-V2-Lite's and MiniCPM3's read shapes: q in three bf16 parts
+    and P in two within 1e-5 of max |o| of the plain version in fp64; q and
+    P each rounded once to bf16 beyond it. A lane of length 0 gives 0."""
+    inp = _mla_inputs(*MLA_SHAPES[shape], page_dtype)
+    kw = _mla_kw(inp, _torch)
+    q, c, pt, lengths = (_torch(inp[n]) for n in ("q", "c", "pt", "lengths"))
+    wide = {n: t.double() if n == "q2" else t for n, t in kw.items()}
+    want = ref.paged_attention_ref(q.double(), c, c, pt, lengths, scale=0.1,
+                                   out_dtype=torch.float64, **wide)
+    errs = {}
+    for parts in ((3, 2), (1, 1)):
+        got = ref.paged_mla_split_ref(q, c, pt, lengths, scale=0.1, q_parts=parts[0],
+                                      p_parts=parts[1], **kw)
+        assert not got[0].any() and torch.isfinite(got).all()
+        errs[parts] = _rel(got, want)
+    assert errs[(3, 2)] <= LIMIT, errs
+    assert errs[(1, 1)] > LIMIT, errs
+
+
+@pytest.mark.parametrize("page_dtype", ["bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", list(MLA_SHAPES))
+def test_mla_split_emulation_matches_jax_paged_attention(shape, page_dtype):
+    """The emulation against the JAX ``paged_attention`` in interpret mode on
+    the same numpy inputs (the latents both K and V, q2 over k_rope, the
+    scales of int8 / fp8 pages)."""
+    inp = _mla_inputs(*MLA_SHAPES[shape], page_dtype, seed=1)
+    q, c, pt, lengths = (_torch(inp[n]) for n in ("q", "c", "pt", "lengths"))
+    got = ref.paged_mla_split_ref(q, c, pt, lengths, scale=0.1, **_mla_kw(inp, _torch))
+    jc = jnp.asarray(inp["c"])
+    want = jpaged_attention(jnp.asarray(inp["q"]), jc, jc, jnp.asarray(inp["pt"]),
+                            jnp.asarray(inp["lengths"]), scale=0.1, out_dtype=jnp.float32,
+                            interpret=True, **_mla_kw(inp, jnp.asarray))
+    assert _rel(got, want) <= LIMIT
+
+
+def test_one_byte_pages_widen_to_bf16_exactly():
+    """Every int8 value and every finite e4m3 value is a bf16 value: the
+    kernel's widening of one-byte rows to bf16 (through fp32) loses nothing."""
+    i8 = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    fp8 = torch.arange(256, dtype=torch.int16).to(torch.uint8).view(torch.float8_e4m3fn)
+    fp8 = fp8[torch.isfinite(fp8.float())]
+    for x in (i8, fp8):
+        wide = x.float()
+        assert torch.equal(wide.to(torch.bfloat16).float(), wide)
+    assert fp8.numel() == 254 and fp8.float().abs().max() == 448
+
+
+def test_three_bf16_parts_give_fp32_back_exactly():
+    """q = p0 + p1 + p2 exactly over fp32 values of many magnitudes; two
+    parts do not; a bf16-valued q has p1 = p2 = 0 (the kernel's skip)."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096))
+                         .astype(np.float32))
+    p0, p1, p2 = ref.bf16_split3(x)
+    assert torch.equal(p0.double() + p1.double() + p2.double(), x.double())
+    assert not torch.equal(p0.double() + p1.double(), x.double())
+    b0, b1, b2 = ref.bf16_split3(x.bfloat16().float())
+    assert not b1.any() and not b2.any()
+
+
+@pytest.mark.parametrize("case,want", [
+    ((16, 512, "bfloat16", True), "mla_tc"), ((40, 256, "int8", True), "mla_tc"),
+    ((40, 256, "float8_e4m3fn", True), "mla_tc"), ((16, 512, "float32", True), "mla"),
+    ((6, 128, "bfloat16", False), "decode"), ((2048, 8, "float32", False), "encode"),
+    ((2048, 8, "float32", True), "decode")])
+def test_paged_route_picks_the_instance_from_shape_and_page_dtype(case, want):
+    """The instance the paged kernel's entry point runs, as the wrapper
+    counts it: MLA's read (D > 128) on the tensor cores for bf16, int8 and
+    fp8 pages and on the CUDA cores for fp32 pages; the FLARE encode for
+    G > 32 at D <= 32 without q2; the decode read otherwise."""
+    from repro_torch.kernels.paged_attention import paged_route
+
+    g, d, dtype, with_q2 = case
+    q = torch.zeros(1, 1, g, d)
+    pages = torch.zeros(2, 16, 1, d).to(getattr(torch, dtype))
+    assert paged_route(q, pages, torch.zeros(1, 1, g, 8) if with_q2 else None) == want
