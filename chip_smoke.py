@@ -21,11 +21,11 @@ failure so the script exits non-zero:
    source, in parallel) and prints the seconds taken and ptxas's
    register/shared-memory use and spills of the D=8 kernels (the forward's
    encode_tc and decode_tc and the backward's three passes, all on the
-   tensor cores), the D=128 causal kernels (causal_tc, bf16 on the tensor
-   cores; causal, fp32), the paged kernel's decode instances (page dtype x
-   query rows a block), MLA instances (page dtype x padded D x rows a
-   thread) and encode instances (padded D, plain or scaled),
-   both flash kernels, and ptxas's warnings;
+   tensor cores), the causal kernels at D=32 and 128 (causal_tc, bf16;
+   causal_tf32, fp32; both on the tensor cores), the paged kernel's decode
+   instances (page dtype x query rows a block), MLA instances (page dtype x
+   padded D x rows a thread) and encode instances (padded D, plain or
+   scaled), the three flash kernels, and ptxas's warnings;
 3. kernels on random operands: each CUDA kernel (encode, decode, fused
    forward, fused backward) against its plain PyTorch version, bf16 at full
    width (H=8, M=2048, D=8, B=1, N=40,000) and a ragged shape (M=16, N=97)
@@ -45,12 +45,16 @@ failure so the script exits non-zero:
    (unexpanded), D in {8, 16, 24, 32, 64, 96, 128} x (Sq, Skv) in {97/97,
    300/300, 128/64} x causal, full and causal with a window of 24: fp32 (the
    TF32 tensor cores) against the plain version in fp64; bf16 on both bf16 routes
-   (the tensor cores, which ``flash_route`` must pick, and the CUDA cores)
+   (the wgmma kernel, which ``flash_route`` must pick, and ``bf16_mma``)
    against the plain version on the same operands (fp32 1e-5, bf16 1e-2 of
    max |plain|) and beyond bf16's output rounding against the fp64 plain
    version on the bf16 values (1e-5); each limit must reject the fp64 plain
    version with the 64-key tile at Skv/2 left out, and rows that see no key
-   must come out exactly 0;
+   must come out exactly 0; then the bf16 calls ``flash_route`` itself
+   sends off TMA (D=100, and D=128 with a base 8 bytes off) under the same
+   checks, each launch's route (``bf16_mma``) asserted by count and by the
+   profiler's kernel names (``route`` line: ``flash_bf16_kernel``, neither
+   tensor-core kernel of the other routes);
 4. kernels on the main path's operands: block 0's own q, k, v of the model
    at pde_40k (B=8, N=40,000) and pde_1m (B=1, N=1,048,576), fp32, every
    batch element and head, the plain versions run a head at a time. Each
@@ -138,16 +142,19 @@ failure so the script exits non-zero:
    the plain version on the same operands at 1e-2 of max |plain| and beyond
    bf16's output rounding against the fp64 plain version on the same bf16
    values at 1e-5, which must reject the same lost tile rounded to bf16.
-   Times of the kernel (bf16 and fp32), its bounds, the bf16 design's three
-   floors (its products as it issues them at the bf16 peak, its two exps a
-   pair, its fp32 partials' round trip) and its plain version, and a
+   Times of the kernel (bf16 and fp32), its bounds, each design's three
+   floors (its products as it issues them at the bf16 or TF32 peak, its two
+   exps a pair, its fp32 partials' round trip) and its plain version, and a
    profiler breakdown of the plain version (its device busy share);
 10. ``Model.forward`` at B=1, T=32,768 in bf16: launch counts zeroed just
    before and read just after (24 causal kernels a forward, no PDE kernel),
    ms per forward, peak GiB and a profiler breakdown, which must show the
-   tensor-core causal_tc kernel and not the fp32 route's; its logits held
+   bf16 route's causal_tc kernel and not the fp32 route's; its logits held
    against the plain ``causal_stream`` path on the same weights in bf16 (5e-2
-   of max |logit|) and in fp32 compute (1e-3);
+   of max |logit|); then one forward in fp32 compute, a counted window of
+   its own (24 launches) traced on the device (its ms; ``route`` line:
+   ``causal_tf32_kernel``, never ``causal_tc_kernel``), held against the
+   plain path in fp32 (1e-3);
 11. answering requests: 4 ``TokenStream`` prompts of 1,024-2,048 tokens,
    right-padded to one 2,048 bucket with ``lengths``, through ``prefill`` and
    64 greedy ``decode_step``s in bf16 (ms per prefill, ms per decode step,
@@ -238,13 +245,16 @@ failure so the script exits non-zero:
    (the tensor cores, the route asserted) against the plain version at
    1e-2, and against the fp64 plain version beyond bf16's output rounding
    (max(|o - plain| - 2**-8 |plain|) at 1e-5 of max |plain|), which must
-   reject the same lost tile rounded to bf16. Times of the tensor-core
-   kernel and the CUDA-core instance it replaces, in turns (CUDA cores,
-   tensor cores, tensor cores, CUDA cores), the two bounds (two products;
-   with the split P's third), the plain version (a head at a time),
+   reject the same lost tile rounded to bf16. Times of the wgmma kernel
+   and the ``bf16_mma`` kernel forced onto the same operands, in turns
+   (bf16_mma, wgmma, wgmma, bf16_mma), the two bounds (two products; with
+   the split P's third), the plain version (a head at a time),
    ``attn_sdpa``'s chunked route and ``F.scaled_dot_product_attention``
    (the yardstick); the fp32 route's time beside its bound, the floors of
-   its design (split products, exps), its plain version and SDPA. Then
+   its design (split products, exps), its plain version and SDPA; the
+   ``bf16_mma`` route on a call ``flash_route`` itself sends off TMA
+   (random operands of the same geometry at D=100), its time, SDPA's where
+   a backend takes it, and its bound. Then
    ``lm_prefill(impl="pallas")`` at B=1, T=32,768 (capacity 32,768; launch
    counts zeroed before and read after: 28 flash launches, all on the
    tensor cores), ms, peak GiB, a profiler breakdown (``route`` line:
@@ -252,7 +262,7 @@ failure so the script exits non-zero:
    within 5e-2 of max |logit|; ``lm_forward(impl="pallas")`` in fp32
    compute at B=2, T=4,096 (28 launches on the fp32 route) against
    ``impl="xla"``, all logits within 1e-3, and a profiler breakdown of it
-   (``route`` line: ``flash_tf32_kernel``, no CUDA-core flash kernel); 8
+   (``route`` line: ``flash_tf32_kernel``, no other flash kernel); 8
    greedy decode steps after a pallas and an xla prefill in fp32
    (right-padded lengths 4,096 / 3,001): the same tokens;
 13b. ``train qwen2-1.5b``: as phase 11b for ``get_model(qwen2_1_5b)``
@@ -294,7 +304,7 @@ failure so the script exits non-zero:
    gathered view. (b) The same on layer 0's own decode operands after a
    real prefill (int8 / fp8 by quantizing its bf16 pages, fp32 by widening
    them). (c) 16 requests
-   (prompts of 256-2,048 tokens, 64 new tokens) through ``ServeEngine``
+   (prompts of 256-2,048 tokens, 32 new tokens) through ``ServeEngine``
    (``SERVE``) on the dense pool and the kernel route in bf16 (decode ms a
    step, tokens/s, prefill ms a request, p50/p99, peak GiB; 27 paged
    launches a step asserted), then 4 requests of 24 new tokens in fp32
@@ -314,13 +324,16 @@ failure so the script exits non-zero:
    it, cache off and on, the hits' first-token logits within 5e-2 of max
    |logit| of the cold run's, a control (one hit's first shared page
    pointed at another live block) that must exceed it;
-17. one JSON line of per-kernel numbers (12 kernels: the two flash kernels
-   are rows of their own; the paged kernel's row also carries its MLA
-   instance's reads under ``mla_read``), then the card's name and power
+17. one JSON line of per-kernel numbers (12 kernels: the wgmma flash kernel
+   is a row of its own; the paged kernel's row also carries its MLA
+   instance's reads under ``mla_read``, the ``flash_attention`` row (the
+   TF32 kernel's) its bf16_mma route under ``off_tma_bf16``, the causal
+   kernel's row (bf16) its fp32 route under ``fp32``), then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import re
@@ -479,6 +492,12 @@ FLASH_MASKS = {"causal": dict(causal=True, window=None),
                "full": dict(causal=False, window=None),
                "causal+window 24": dict(causal=True, window=24)}
 FLASH_QCHUNK = 4096    # query rows a block of the plain version at T=32,768
+# bf16 calls flash_route sends off TMA (the bf16_mma route), as random
+# operands [B, S, H, D] at B=2, S=300, 6 query heads over 2: D=100 (200-byte
+# rows: 8-byte copies) and D=128 in memory 8 bytes past a 16-byte boundary
+FLASH_OFF_TMA = {"D=100": 100, "D=128 base off by 8 bytes": 128}
+# the bf16_mma route timed at qwen2's layer-0 geometry with D=100
+OFF_TMA_D = 100
 # the dense family's prefill through the flash kernel: qwen2 at B=1,
 # T=32,768 (prefill_32k's batch of 32 cut to 1) and in fp32 at B=2, T=4,096
 # (train_4k's length); phi3 at B=2, T=4,096 (its published 4k context) with
@@ -502,7 +521,7 @@ DEEPSEEK_PARAMS, MINICPM3_PARAMS = (13e9, 18e9), (3.5e9, 5.0e9)
 MLA_LENGTHS = (0, 17, 1985, 1993, 2000, 2017, 2031, 2048)
 MLA_PAGE_DTYPES = ("bfloat16", "int8", "fp8", "float32")
 MLA_P_PARTS = 2   # bf16 parts of the weights in the tensor-core read's value product
-MLA_NEW = 64
+MLA_NEW = 32   # new tokens a request: each bf16 decode step is host-paced, ~0.2 s
 MLA_SERVE32_REQUESTS, MLA_SERVE32_NEW = 4, 24
 MLA_PREFIX_TEMPLATE, MLA_PREFIX_REQUESTS, MLA_PREFIX_NEW = 512, 4, 16
 # the FLARE kernels at head dims beside the paper's 8, on random operands
@@ -589,11 +608,12 @@ PAGED_TYPES = {"a": "i8", "f": "f32", "13__nv_bfloat16": "bf16", "13__nv_fp8_e4m
 
 def ptxas_summary(log: str) -> list:
     """One line per FLARE kernel at D=8 (its own instance, D known at compile
-    time) and at the padded width 64, causal kernel at D=8 and 128, paged
+    time) and at the padded width 64, causal kernel (both routes) at D=32
+    and 128 and its combine at 128, paged
     kernel (decode: page dtype x rows; MLA on the tensor cores: page dtype x
-    padded D, on the CUDA cores for fp32 pages: x rows a thread), the
-    CUDA-core flash kernel (bf16, one per padded D), the TF32
-    flash kernel (fp32, one per padded D) and the tensor-core flash kernel
+    padded D, on the CUDA cores for fp32 pages: x rows a thread), the bf16
+    flash kernel off TMA's route (one per padded D), the TF32
+    flash kernel (fp32, one per padded D) and the wgmma flash kernel
     (one per padded D; its
     registers are those at entry, before setmaxnreg moves them to the
     consumer warpgroups): registers, shared memory, stack frame and spills,
@@ -610,19 +630,20 @@ def ptxas_summary(log: str) -> list:
             frame[props] = f"stack {m.group(1)} B, spill {m.group(2)}/{m.group(3)} B"
         elif (m := re.search(r"Used (\d+) registers(.*)", line)) and props and (
                 "Li8ELb1E" in props or "Li64ELb0E" in props
-                or ("causal" in props and re.search(r"Li(8|128)E", props))
+                or ("causal_t" in props and re.search(r"Li(32|128)E", props))
+                or ("causal_combine" in props and "Li128E" in props)
                 or "paged" in props or "flash" in props):
             kind = next(k for k in ("paged_combine", "paged_decode", "paged_mla_tc", "paged_mla",
-                                    "paged_encode", "causal_combine", "causal_tc", "causal",
-                                    "encode_tc", "decode_tc", "combine", "dz", "dkv", "dq",
-                                    "flash_tc", "flash_tf32", "flash")
+                                    "paged_encode", "causal_combine", "causal_tc",
+                                    "causal_tf32", "encode_tc", "decode_tc", "combine", "dz",
+                                    "dkv", "dq", "flash_tc", "flash_tf32", "flash_bf16")
                         if f"{k}_kernel" in props)
             args = props.split("_kernelI", 1)[-1]
             types = ["bf16" if t.startswith("13") else "f32"
                      for t in re.findall(r"13__nv_bfloat16|f", args.split("Li")[0])]
-            if kind in ("flash_tc", "causal_tc"):
+            if kind in ("flash_tc", "causal_tc", "flash_bf16"):
                 types = ["bf16"]
-            elif kind == "flash_tf32":
+            elif kind in ("flash_tf32", "causal_tf32"):
                 types = ["f32"]
             width = re.search(r"Li(\d+)E", args)
             label = (f"{'/'.join(types)} D={width.group(1)}" if width and types
@@ -698,7 +719,8 @@ class Checks:
     the whole phase has printed."""
 
     def __init__(self):
-        self.failures, self.max_abs = [], {name: 0.0 for name in REPLACES}
+        # by kernel row, and by extra key (a route's own record within a row)
+        self.failures, self.max_abs = [], collections.defaultdict(float)
 
     def hold(self, name, what, got, want, dtype, *, atol, record=False, dropped=None,
              fp32_plain=None):
@@ -708,7 +730,8 @@ class Checks:
         relative to its size only. ``record``: count the error into the
         kernel's ``max_abs_err``. ``dropped``: {what was left out: the fp64
         plain version with one tile left out}, the output of a kernel that
-        lost a tile; the relative limit must reject each."""
+        lost a tile; the relative limit must reject each. ``record`` may
+        also be a key of its own (a route's record within a kernel's row)."""
         import torch
 
         key = str(dtype).removeprefix("torch.")
@@ -737,7 +760,8 @@ class Checks:
         if not ok:
             self.failures.append(f"{label}: abs {err:.3g}, rel {rel:.3g}")
         if record:
-            self.max_abs[name] = max(self.max_abs[name], err)
+            key = record if isinstance(record, str) else name
+            self.max_abs[key] = max(self.max_abs[key], err)
 
     def hold_rounded(self, name, what, got, want, *, dropped):
         """bf16 ``got`` from a kernel that computes in fp32 and rounds only
@@ -1958,6 +1982,8 @@ def time_causal(q, k, v) -> dict:
                  bound_by="operations" if t_ops >= t_bytes else "bytes")
     if k.dtype == torch.bfloat16:
         stats.update(causal_tc_floors(b, h, m, n, d))
+    else:
+        stats.update(kernel="causal_tf32_kernel", **causal_tf32_floors(b, h, m, n, d))
     return stats
 
 
@@ -1983,6 +2009,28 @@ def causal_tc_floors(b: int, h: int, m: int, n: int, d: int) -> dict:
         floor_partials_ms=2 * 4 * slices * b * h * n * (d + 2) / PEAK_BW * 1e3)
 
 
+def causal_tf32_floors(b: int, h: int, m: int, n: int, d: int) -> dict:
+    """The floors of the causal kernel's fp32 design (csrc/flare_causal.cu,
+    causal_tf32_kernel) on its own work: per 64-latent slice and 32-token
+    tile, every product three TF32 MMAs as it issues them at the TF32 peak
+    (S, f1 v and f2^T num over the whole tile; the mixing f2^T f1 over the
+    token tiles up to each warp's own, 3 of 4 16 x 16 blocks, computed by
+    each of the 4 warps of a token tile; a v over the same blocks), its two
+    exps a (latent, token) pair and the bytes of its fp32 partials, as
+    causal_tc_floors."""
+    cl, ct = 64, 32
+    dp = max(32, 1 << (d - 1).bit_length())
+    tiles, slices = -(-n // ct), -(-m // cl)
+    blocks = 16 * 16 * 3                                  # the causal token pairs' blocks
+    per_tile = 3 * (3 * 2 * cl * ct * dp                  # S, f1 v, f2^T num
+                    + 4 * 2 * blocks * cl                 # f2^T f1, four warps each
+                    + 2 * blocks * dp)                    # a v
+    floors = causal_tc_floors(b, h, m, n, d)
+    return dict(floor_products_ms=b * h * slices * tiles * per_tile / PEAK_TF32 * 1e3,
+                floor_exps_ms=floors["floor_exps_ms"],
+                floor_partials_ms=floors["floor_partials_ms"])
+
+
 def held(label: str, got, want, tol: float) -> None:
     """Logits of a kernel path against a plain (or reference) path: max abs
     difference over max |want|."""
@@ -1997,7 +2045,10 @@ def lm_forward(cfg, model, net, tokens) -> dict:
     """Model.forward at B=1, T=32,768 in bf16 through the causal kernel: one
     counted window of a warm-up and two timed forwards (24 launches each),
     peak GiB, a profiler breakdown; then held against the plain causal_stream
-    path in bf16 and in fp32 compute."""
+    path in bf16. In fp32 compute one forward is a counted window of its own
+    (24 launches on the fp32 route), traced on the device (its ms, and its
+    kernels must name causal_tf32_kernel, never causal_tc_kernel), and held
+    against the plain path in fp32."""
     import torch
 
     from repro_torch.config import replace
@@ -2020,9 +2071,9 @@ def lm_forward(cfg, model, net, tokens) -> dict:
     if tuple(logits.shape) != (b, n, cfg.vocab) or not bool(logits.isfinite().all()):
         raise AssertionError(f"flare_lm logits {tuple(logits.shape)} not finite or mis-shaped")
     seen = breakdown(lambda: model.forward(net, batch), f"flare_lm forward B={b} T={n} bf16")
-    # bf16 goes to the tensor-core kernel, never the fp32 route's CUDA-core one
+    # bf16 goes to the bf16 kernel, never the fp32 route's
     assert_route(seen, f"flare_lm forward B={b} T={n} bf16", ("causal_tc_kernel",),
-                 refuse=("::causal_kernel<",))
+                 refuse=("causal_tf32_kernel",))
     plain = get_model(cfg, policy=MixerPolicy(backends=("causal_stream",)))
     t0 = time.perf_counter()
     want, _ = plain.forward(net, batch)
@@ -2032,12 +2083,26 @@ def lm_forward(cfg, model, net, tokens) -> dict:
     held("flare_lm forward causal_pallas vs causal_stream bf16", logits, want, LM_TOL["bfloat16"])
     del logits, want
     cfg32 = replace(cfg, compute_dtype="float32")
-    got, _ = get_model(cfg32).forward(net, batch)
+    model32 = get_model(cfg32)
+    reset_launch_counts()
+    (got, _), (prof, wall_ms) = traced(lambda: model32.forward(net, batch))
+    counts32 = launch_counts()
+    label = f"flare_lm forward B={b} T={n} fp32"
+    print(f"path flare_lm causal_pallas B={b} T={n} fp32: {wall_ms:.3f} ms (one forward, traced "
+          f"on the device); launches {counts32}", flush=True)
+    if not (counts32["flare_causal_chunk"] == cfg.num_layers
+            and all(counts32[name] == 0 for name in PDE_KERNELS)):
+        raise AssertionError(f"flare_lm fp32 forward launches {counts32}")
+    # fp32 goes to the TF32 kernel, never the bf16 route's
+    assert_route(report(prof, wall_ms, label), label, ("causal_tf32_kernel",),
+                 refuse=("causal_tc_kernel",))
+    del prof
     want, _ = get_model(cfg32, policy=MixerPolicy(backends=("causal_stream",))).forward(net, batch)
     held("flare_lm forward causal_pallas vs causal_stream fp32", got, want, LM_TOL["float32"])
     del got, want
     torch.cuda.empty_cache()
-    return {"counts": counts, "ms": ms, "peak": peak}
+    return {"counts": counts, "ms": ms, "peak": peak, "ms_fp32": wall_ms,
+            "launches_fp32": counts32["flare_causal_chunk"]}
 
 
 def serve(model, net, batch, steps: int) -> dict:
@@ -2177,7 +2242,8 @@ def lm_phases(checks: Checks, device) -> dict:
     check_causal_main(checks, ops32, ops16)
     stats = time_causal(*ops16)
     print(f"time flare_causal_chunk flare_lm layer 0 bf16: {stats}", flush=True)
-    print(f"time flare_causal_chunk flare_lm layer 0 fp32: {time_causal(*ops32)}", flush=True)
+    stats["fp32"] = time_causal(*ops32)
+    print(f"time flare_causal_chunk flare_lm layer 0 fp32: {stats['fp32']}", flush=True)
     # the plain version is a loop of small eager ops per 64-token tile: its
     # device busy share says how far its time is the host's
     from repro_torch.kernels.ref import flare_causal_chunk_ref
@@ -2186,7 +2252,9 @@ def lm_phases(checks: Checks, device) -> dict:
     torch.cuda.empty_cache()
     fwd = lm_forward(cfg, model, net, tokens)
     req = lm_requests(cfg, model, net, device)
-    stats["launches"] = fwd["counts"]["flare_causal_chunk"] + req["counts"]["flare_causal_chunk"]
+    stats["fp32"].update(launches=fwd["launches_fp32"], forward_ms=fwd["ms_fp32"])
+    stats["launches"] = (fwd["counts"]["flare_causal_chunk"] + req["counts"]["flare_causal_chunk"]
+                         + fwd["launches_fp32"])
     del net
     torch.cuda.empty_cache()
     return stats
@@ -3506,12 +3574,16 @@ def check_flash_small(checks: Checks, device) -> None:
     query heads over 1, 2 or 6 KV heads (MQA, GQA 3:1, MHA), unexpanded:
     D 8 / 16 / 24 / 32 / 64 / 96 / 128 x (Sq, Skv) 97/97, 300/300, 128/64 x
     causal, full, causal with a window of 24. fp32 (the TF32 kernel) against
-    the plain version in fp64; bf16 on both bf16 routes (the tensor cores,
-    which flash_route picks for these operands, and the CUDA cores) against
-    the plain version on the same operands, and beyond bf16's output
-    rounding against the fp64 plain version (Checks.hold_rounded). Each
-    limit must reject the fp64 plain version with the 64-key tile at Skv/2
-    left out, and the rows that see no key must come out exactly 0."""
+    the plain version in fp64; bf16 on both bf16 routes (the wgmma kernel,
+    which flash_route picks for these operands, and bf16_mma) against the
+    plain version on the same operands, and beyond bf16's output rounding
+    against the fp64 plain version (Checks.hold_rounded). Each limit must
+    reject the fp64 plain version with the 64-key tile at Skv/2 left out,
+    and the rows that see no key must come out exactly 0. Then the bf16
+    calls flash_route itself sends off TMA (FLASH_OFF_TMA: D=100, and a
+    D=128 view whose base is 8 bytes off) under the same checks, each
+    launch's route asserted by count and, on a profiled window, by the
+    kernel's name."""
     import torch
 
     from repro_torch.kernels.attention import KV_TILE, flash_attention, flash_route
@@ -3545,26 +3617,72 @@ def check_flash_small(checks: Checks, device) -> None:
                     checks.failures.append(f"flash D={d}: flash_route picked {picked} for "
                                            "aligned bf16 operands")
                 for route, ops in (("fp32", ops32), ("tensor_core", ops16),
-                                   ("cuda_core", ops16)):
+                                   ("bf16_mma", ops16)):
                     got = flash_attention(*ops, **kw, route=route)
-                    plain = flash_attention_ref(*ops, **kw)
-                    # the JSON line's rows: the bf16 tensor-core kernel, and the
-                    # file of the TF32 and CUDA-core ones
-                    name = "flash_attention_tc" if route == "tensor_core" else "flash_attention"
-                    if route == "fp32":
-                        checks.hold(name, "o fp32", got, want, torch.float32,
-                                    atol=ATOL["float32"], record=True, dropped=drop,
-                                    fp32_plain=plain)
-                    else:
-                        checks.hold(name, f"o bf16 {route}", got, plain, torch.bfloat16,
-                                    atol=ATOL["bfloat16"], record=route == "tensor_core",
-                                    dropped=drop)
-                        checks.hold_rounded(name, f"o bf16 {route} vs fp64", got, want16,
-                                            dropped=drop16)
+                    hold_flash(checks, route, got, ops, want, want16, drop, drop16, kw)
                     if not (bool(got.isfinite().all()) and bool((got[:, :, empty] == 0).all())):
                         checks.failures.append(f"flash D={d} {sq}/{skv} {mask_name} {route}: "
                                                "non-finite output or a row with no key not 0")
+    for case, d in FLASH_OFF_TMA.items():
+        base = [torch.randn(2, 300, heads, d, generator=gen) for heads in (FLASH_H, 2, 2)]
+        ops16 = [t.to(device, torch.bfloat16) for t in base]
+        if "base" in case:   # the same values in memory 8 bytes past a 16-byte boundary
+            ops16 = [torch.cat([t.new_zeros(4), t.flatten()])[4:].view(t.shape) for t in ops16]
+        ops16 = [t.transpose(1, 2) for t in ops16]
+        wide = [t.transpose(1, 2).to(device, torch.float64) for t in base]
+        picked = flash_route(*ops16)
+        if picked != "bf16_mma":
+            checks.failures.append(f"flash {case}: flash_route picked {picked}, not bf16_mma")
+        for mask_name, masks in FLASH_MASKS.items():
+            kw = dict(masks, scale=d ** -0.5)
+            print(f"kernels flash off TMA {case} B=2 H={FLASH_H} Hkv=2 Sq=Skv=300 {mask_name} "
+                  f"(q strides {ops16[0].stride()}, base mod 16 bytes "
+                  f"{ops16[0].data_ptr() % 16}):", flush=True)
+            t0 = 150 // KV_TILE * KV_TILE
+            drop = {f"KV tile {t0}": flash_dropped(*wide, t0=t0, **kw)}
+            wide16 = [t.double() for t in ops16]
+            want16 = flash_attention_ref(*wide16, **kw)
+            drop16 = {f"KV tile {t0}": flash_dropped(*wide16, t0=t0, **kw)}
+            before = dict(flash_attention.launches_by_route)
+            got = flash_attention(*ops16, **kw)
+            ran = {r: n - before[r] for r, n in flash_attention.launches_by_route.items()}
+            if ran != {r: int(r == "bf16_mma") for r in ran}:
+                checks.failures.append(f"flash {case} {mask_name}: launches by route {ran}")
+            hold_flash(checks, "bf16_mma", got, ops16, None, want16, drop, drop16, kw)
+            if not bool(got.isfinite().all()):
+                checks.failures.append(f"flash {case} {mask_name}: non-finite output")
+        # the route by the profiler's kernel names, on a window of three calls
+        # with a torch op after each (late in this script a window of lone
+        # ctypes launches came back empty on the card)
+        label = f"flash off TMA {case}"
+        assert_route(breakdown(lambda: [flash_attention(*ops16, **kw).float().sum()
+                                        for _ in range(3)], label, top=3),
+                     label, ("flash_bf16_kernel",),
+                     refuse=("flash_tc_kernel", "flash_tf32_kernel"))
     checks.raise_failures("flash kernels on random operands")
+
+
+def hold_flash(checks: Checks, route: str, got, ops, want, want16, drop, drop16, kw) -> None:
+    """One flash call on ``route`` held as check_flash_small holds it: fp32
+    against the fp64 plain version ``want``; bf16 against the plain version
+    on the same operands and beyond its output rounding against ``want16``,
+    the fp64 plain version on its bf16 values. Errors count into the
+    JSON line's rows: the wgmma kernel's, the file of the TF32 and bf16_mma
+    kernels (fp32), and bf16_mma's own record."""
+    import torch
+
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    name = "flash_attention_tc" if route == "tensor_core" else "flash_attention"
+    plain = flash_attention_ref(*ops, **kw)
+    if route == "fp32":
+        checks.hold(name, "o fp32", got, want, torch.float32, atol=ATOL["float32"], record=True,
+                    dropped=drop, fp32_plain=plain)
+        return
+    record = True if route == "tensor_core" else "flash_bf16_mma"
+    checks.hold(name, f"o bf16 {route}", got, plain, torch.bfloat16, atol=ATOL["bfloat16"],
+                record=record, dropped=drop)
+    checks.hold_rounded(name, f"o bf16 {route} vs fp64", got, want16, dropped=drop16)
 
 
 def dense_tokens(vocab: int, b: int, t: int, seed: int, device, lengths=None):
@@ -3661,9 +3779,9 @@ def visible_pairs(sq: int, skv: int, *, causal: bool, window) -> int:
 def sdpa_ms(q, k, v, scale: float, reps: int):
     """``F.scaled_dot_product_attention`` (the yardstick; the port never calls
     it), causal, on K and V expanded to q's heads beforehand (not timed);
-    fp32 operands are held to its memory-efficient backend (TF32 off), since
-    the math backend would materialise every score. None where that backend
-    refuses the call."""
+    any backend but the math one, which would materialise every score (fp32:
+    the memory-efficient one, TF32 off). None where they all refuse the call
+    (bf16 at D % 8 != 0)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3671,22 +3789,23 @@ def sdpa_ms(q, k, v, scale: float, reps: int):
     groups = q.shape[1] // k.shape[1]
     kx, vx = (t.repeat_interleave(groups, 1) for t in (k, v))
     call = lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True, scale=scale)
+    backends = [SDPBackend.EFFICIENT_ATTENTION]
     if q.dtype == torch.bfloat16:
-        return cuda_ms(call, reps=reps)
+        backends += [SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION]
     try:
-        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        with sdpa_kernel(backends):
             return cuda_ms(call, reps=reps)
     except RuntimeError as err:
-        print(f"  SDPA on {q.dtype}: the memory-efficient backend refused ({err}); not "
-              "measured", flush=True)
+        print(f"  SDPA on {q.dtype} D={q.shape[-1]}: every backend but the math one refused "
+              f"({str(err)[:200]}); not measured", flush=True)
         return None
 
 
 def time_flash(ops16, scale: float) -> dict:
     """CUDA-event times on qwen2's layer 0 operands (causal, the KV heads
-    unexpanded). bf16: the tensor-core kernel and the CUDA-core instance it
-    replaces for these operands, in one call and in turns (CUDA cores,
-    tensor cores, tensor cores, CUDA cores), its plain version (a head at a
+    unexpanded). bf16: the wgmma kernel and the bf16_mma kernel (forced onto
+    these operands), in one call and in turns (bf16_mma, wgmma, wgmma,
+    bf16_mma), their plain version (a head at a
     time), ``attn_sdpa``'s chunked route (what "auto" runs at 32k) and SDPA;
     the bound is 4 * D FLOP a kept (query, key) pair over the bf16 peak (the
     two products), or q, k, v and o once over 3.35 TB/s, and beside it the
@@ -3695,7 +3814,12 @@ def time_flash(ops16, scale: float) -> dict:
     bound by the fp32 CUDA-core rate (the work of any fp32 implementation),
     and beside it the two floors of its design: its products split three
     ways at the TF32 peak, and its exps (one a kept pair) at 16 a clock an
-    SM at the card's top SM clock. Returns the stats of both kernels' rows."""
+    SM at the card's top SM clock. The bf16_mma route's own record (the
+    ``flash_attention`` row's ``off_tma_bf16``): its time at qwen2's layer
+    0, beside the same bound, its split products at the bf16 peak and its
+    exps, and on an off-TMA call of the same geometry at D=OFF_TMA_D
+    (random operands, flash_route's own pick, profiled: the route must name
+    flash_bf16_kernel). Returns the stats of both kernels' rows."""
     import torch
 
     from repro_torch.kernels.attention import flash_attention
@@ -3719,8 +3843,8 @@ def time_flash(ops16, scale: float) -> dict:
                           bound_ms=max(t_ops, t_bytes),
                           bound_by="operations" if t_ops >= t_bytes else "bytes")
     tc = lambda: flash_attention(q, k, v, **kw)
-    cc = lambda: flash_attention(q, k, v, **kw, route="cuda_core")
-    turns = [cuda_ms(cc, reps=2), cuda_ms(tc, reps=5), cuda_ms(tc, reps=5), cuda_ms(cc, reps=2)]
+    mma = lambda: flash_attention(q, k, v, **kw, route="bf16_mma")
+    turns = [cuda_ms(mma, reps=3), cuda_ms(tc, reps=5), cuda_ms(tc, reps=5), cuda_ms(mma, reps=3)]
     rows["flash_attention_tc"]["ms"] = (turns[1] + turns[2]) / 2
     ops32 = [t.float() for t in ops16]
     rows["flash_attention"]["ms"] = cuda_ms(lambda: flash_attention(*ops32, **kw), reps=3)
@@ -3733,11 +3857,21 @@ def time_flash(ops16, scale: float) -> dict:
                                            v.repeat_interleave(h // hkv, 1), impl="chunked",
                                            **kw), reps=1)
     print(f"time flash_attention_tc qwen2-1.5b layer 0 bf16 (B={b} H={h} Hkv={hkv} T={n} "
-          f"D={d}): {rows['flash_attention_tc']}; in turns: CUDA cores {turns[0]:.3f} ms, "
-          f"tensor cores {turns[1]:.3f} ms, tensor cores {turns[2]:.3f} ms, CUDA cores "
+          f"D={d}): {rows['flash_attention_tc']}; in turns: bf16_mma {turns[0]:.3f} ms, "
+          f"wgmma {turns[1]:.3f} ms, wgmma {turns[2]:.3f} ms, bf16_mma "
           f"{turns[3]:.3f} ms; bounds: two products {flops / PEAK_BF16 * 1e3:.3f} ms, with the "
           f"split P's third {1.5 * flops / PEAK_BF16 * 1e3:.3f} ms; attn_sdpa chunked "
           f"{chunked_ms:.3f} ms ({flops / 1e12:.3f} TFLOP)", flush=True)
+    tc_row = rows["flash_attention_tc"]
+    off = dict(kernel="flash_bf16_kernel", ms=(turns[0] + turns[3]) / 2,
+               plain_ms=tc_row["plain_ms"], library_ms=tc_row["library_ms"],
+               bound_ms=tc_row["bound_ms"], bound_by=tc_row["bound_by"],
+               floor_split_products_ms=1.5 * flops / PEAK_BF16 * 1e3,
+               floor_exps_ms=floors["exps"])
+    off.update(time_off_tma(b, h, hkv, n, q.device, kw))
+    rows["flash_attention"]["off_tma_bf16"] = off
+    print(f"time flash_attention bf16_mma (flash_bf16_kernel, off TMA's route): {off}",
+          flush=True)
     r32 = rows["flash_attention"]
     sdpa32 = "not measured" if r32["library_ms"] is None else f"{r32['library_ms']:.3f} ms"
     print(f"time flash_attention qwen2-1.5b layer 0 fp32 (the TF32 tensor cores, "
@@ -3746,6 +3880,29 @@ def time_flash(ops16, scale: float) -> dict:
           f"{floors['products']:.3f} ms, exps {floors['exps']:.3f} ms; plain "
           f"{r32['plain_ms']:.3f} ms; SDPA (memory-efficient, fp32) {sdpa32}", flush=True)
     return rows
+
+
+def time_off_tma(b: int, h: int, hkv: int, n: int, device, kw: dict) -> dict:
+    """The bf16_mma route on a call flash_route itself sends off TMA: random
+    bf16 operands of qwen2's layer-0 geometry at D=OFF_TMA_D (the model's
+    [B, H, T, D] views), causal. Its time, SDPA's where a backend takes it,
+    the bound of its two products at the bf16 peak (check_flash_small shows
+    its kernel by name)."""
+    import torch
+
+    from repro_torch.kernels.attention import flash_attention, flash_route
+
+    d = OFF_TMA_D
+    gen = torch.Generator().manual_seed(SEED + 7)
+    q, k, v = (torch.randn(b, n, heads, d, generator=gen).to(device, torch.bfloat16)
+               .transpose(1, 2) for heads in (h, hkv, hkv))
+    kw = dict(kw, scale=d ** -0.5)
+    if flash_route(q, k, v) != "bf16_mma":
+        raise AssertionError(f"D={d}: flash_route picked {flash_route(q, k, v)}")
+    ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=3)
+    flops = 4 * d * b * h * visible_pairs(n, n, causal=True, window=None)
+    return {f"ms_d{d}": ms, f"library_ms_d{d}": sdpa_ms(q, k, v, kw["scale"], reps=3),
+            f"bound_ms_d{d}": flops / PEAK_BF16 * 1e3}
 
 
 def dense_prefill(net, cfg, batch: dict, capacity: int, impl: str, label: str) -> dict:
@@ -3859,13 +4016,14 @@ def flash_phases(checks: Checks, device, cfg, net) -> dict:
     batch = {"tokens": tokens}
     run = dense_prefill(net, cfg, batch, n, "pallas", "qwen2-1.5b")
     stats["flash_attention_tc"]["launches"] = run["routes"]["tensor_core"]
+    stats["flash_attention"]["off_tma_bf16"]["launches"] = run["routes"]["bf16_mma"]
     logits = run.pop("logits")
     del run
     with torch.no_grad():
         assert_route(breakdown(lambda: transformer.lm_prefill(net, batch, cfg, n, impl="pallas"),
                                f"qwen2-1.5b prefill pallas B=1 T={n} bf16"),
                      "qwen2-1.5b prefill pallas bf16", ("flash_tc_kernel",),
-                     refuse=("flash_kernel", "flash_tf32_kernel"))
+                     refuse=("flash_bf16_kernel", "flash_tf32_kernel"))
     want = dense_prefill(net, cfg, batch, n, "chunked", "qwen2-1.5b")["logits"]
     held("qwen2-1.5b prefill pallas vs chunked bf16 (last-token logits)", logits, want,
          LM_TOL["bfloat16"])
@@ -3885,6 +4043,7 @@ def flash_phases(checks: Checks, device, cfg, net) -> dict:
             c for name, c in counts.items() if name != "flash_attention"):
         raise AssertionError(f"qwen2-1.5b forward launches {counts}, routes {routes}")
     stats["flash_attention"]["launches"] = routes["fp32"]
+    stats["flash_attention"]["off_tma_bf16"]["launches"] += routes["bf16_mma"]
     held("qwen2-1.5b forward pallas vs xla fp32 (all logits)", got[..., :cfg.vocab],
          want[..., :cfg.vocab], LM_TOL["float32"])
     del got, want
@@ -3892,7 +4051,7 @@ def flash_phases(checks: Checks, device, cfg, net) -> dict:
         assert_route(breakdown(lambda: transformer.lm_forward(net, toks, cfg32, impl="pallas"),
                                f"qwen2-1.5b forward pallas B={DENSE_B} T={DENSE_T} fp32"),
                      "qwen2-1.5b forward pallas fp32", ("flash_tf32_kernel",),
-                     refuse=("flash_kernel", "flash_tc_kernel"))
+                     refuse=("flash_bf16_kernel", "flash_tc_kernel"))
     torch.cuda.empty_cache()
     decode_routes_agree(net, cfg32, {"tokens": dense_tokens(cfg.vocab, DENSE_B, DENSE_T, SEED + 1,
                                                             device, DENSE_LENGTHS),
@@ -4907,8 +5066,14 @@ def main() -> int:
                                                   "bound_ms", "bound_by", "library_ms")},
              **{key: v for key, v in stats[name].items() if key.startswith("floor_")}}
             for name in REPLACES]
-    # the paged kernel's row also carries its MLA instance's reads (bf16 pages)
+    # the paged kernel's row also carries its MLA instance's reads (bf16 pages),
+    # the flash file's its bf16_mma route, the causal kernel's its fp32 route
     rows[list(REPLACES).index("paged_attention")]["mla_read"] = stats["paged_attention"]["mla_read"]
+    stats["flash_attention"]["off_tma_bf16"]["max_abs_err"] = checks.max_abs["flash_bf16_mma"]
+    rows[list(REPLACES).index("flash_attention")]["off_tma_bf16"] = \
+        stats["flash_attention"]["off_tma_bf16"]
+    stats["flare_causal_chunk"]["fp32"]["max_abs_err"] = checks.max_abs["flare_causal_chunk"]
+    rows[list(REPLACES).index("flare_causal_chunk")]["fp32"] = stats["flare_causal_chunk"]["fp32"]
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

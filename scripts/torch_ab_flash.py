@@ -8,8 +8,8 @@ Random bf16 operands laid out as the model gives them ([B, H, S, D] views of
 [B, S, H, D], K and V unexpanded), causal: qwen2-1.5b's prefill_32k layer 0
 (B=1, 12 heads over 2 KV heads, T=32,768, D=128) and phi3-mini's prefill
 (B=2, 32 heads, T=4,096, D=96). CUDA-event ms a launch after one warm-up:
-the tensor-core kernel, the CUDA-core one on the same operands in turns
-(CUDA cores, tensor cores, tensor cores, CUDA cores) and
+the wgmma kernel, the checkout's other bf16 route on the same operands in
+turns (other, wgmma, wgmma, other) and
 ``F.scaled_dot_product_attention`` on K and V expanded beforehand; then
 ptxas's registers and spills of the tensor-core kernel's instances. Each
 checkout builds its kernels into its own build directory."""
@@ -22,7 +22,9 @@ import torch.nn.functional as F
 root = sys.argv[1]
 sys.path.insert(0, root + "/src")
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.attention import flash_attention  # noqa: E402
+from repro_torch.kernels.attention import ROUTES, flash_attention  # noqa: E402
+
+OFF_TMA = next(r for r in ROUTES if r not in ("tensor_core", "fp32"))   # bf16 off TMA
 
 
 def ms(fn, reps):
@@ -45,13 +47,13 @@ for label, (b, h, hkv, t, d) in (("qwen2 prefill_32k layer 0", (1, 12, 2, 32768,
             for _ in range(2))
     kw = dict(scale=d ** -0.5, causal=True)
     tc = lambda: flash_attention(q, k, v, **kw)
-    cc = lambda: flash_attention(q, k, v, **kw, route="cuda_core")
+    cc = lambda: flash_attention(q, k, v, **kw, route=OFF_TMA)
     kx, vx = (x.repeat_interleave(h // hkv, 1) for x in (k, v))
     turns = [ms(cc, 1), ms(tc, 5), ms(tc, 5), ms(cc, 1)]
     sdpa = ms(lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True, scale=d ** -0.5),
               5)
     flops = 4 * d * b * h * t * (t + 1) / 2
-    print(root, label, {"cuda_core, tensor_core, tensor_core, cuda_core": turns, "sdpa": sdpa,
+    print(root, label, {f"{OFF_TMA}, tensor_core, tensor_core, {OFF_TMA}": turns, "sdpa": sdpa,
                         "bound two products": round(flops / 989e12 * 1e3, 3),
                         "bound with the split P": round(1.5 * flops / 989e12 * 1e3, 3)},
           flush=True)

@@ -1,8 +1,8 @@
-// Causal FLARE for Hopper (sm_90a), CUDA C++: bf16 on the tensor cores,
-// fp32 on the CUDA cores.
+// Causal FLARE for Hopper (sm_90a), CUDA C++: both routes on the tensor
+// cores, bf16 in bf16 MMAs, fp32 in TF32 MMAs on split operands.
 //
 // Replaces the TPU kernel of the JAX package:
-//   causal_tc_kernel (bf16) / causal_kernel (fp32) + causal_combine_kernel
+//   causal_tc_kernel (bf16) / causal_tf32_kernel (fp32) + causal_combine_kernel
 //       <- repro/kernels/flare_causal.py::_causal_chunk_kernel (flare_causal_chunk_pallas)
 //
 // What it computes. Token t of group g = (b, h) decodes against the latent
@@ -13,16 +13,17 @@
 // are swept in tiles carrying (max, num, den) per latent, and ref_m is the
 // running max including the whole current tile: the bounded-score contract
 // of core/flare_stream.py (den underflows only where a later in-tile score
-// exceeds the running max by ~69-85 nats; a 64-token tile narrows that
-// against the TPU kernel's 1024).
+// exceeds the running max by ~69-85 nats; a 64-token tile (bf16) or a
+// 32-token one (fp32) narrows that against the TPU kernel's 1024).
 //
 // What bounds it. Three products of 2*M*T*D FLOP per group (scores, the
 // state update, the decode): at flare_lm's width (H = 16, M = 512, D = 128)
 // and T = 32,768 that is 206 GFLOP a call, 0.208 ms at the H100's bf16
-// tensor-core rate (989 TFLOP/s), 3.08 ms at fp32's 67 on the CUDA cores,
-// against 0.12 ms for the bytes of q, k, v and y. The previous bf16 route
-// ran every product on the CUDA cores in fp32: 17.012 ms at flare_lm's
-// layer 0 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6, row 5).
+// tensor-core rate (989 TFLOP/s), 3.08 ms at fp32's 67 on the CUDA cores
+// (the bound of any fp32 implementation), against 0.12 ms for the bytes of
+// q, k, v and y. Both routes once ran every product on the CUDA cores in
+// fp32: 17.012 ms (bf16) and 16.661 ms (fp32) at flare_lm's layer 0 on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6, row 5).
 //
 // What does not carry over from the TPU, and the design (both routes):
 //   * The TPU kernel is one program per group that walks the T tiles in
@@ -53,8 +54,8 @@
 //     latent slice gives its missing latents zero weight. K, V and Y go by
 //     strides ([B, H, T, D] views of [B, T, H*D] activations), so the model
 //     copies nothing.
-//   * Head dims: any D from 1 to 128 runs at the next padded width DP (fp32:
-//     8, 16, 32, 64, 128; bf16: 32, 64, 128), lanes D <= d < DP
+//   * Head dims: any D from 1 to 128 runs at the next padded width DP (32,
+//     64, 128: a warp takes a quarter or half of it), lanes D <= d < DP
 //     of q, k and v zero where they are staged, so they add exactly 0 to
 //     every score, and nothing is written to them (the fp32 partials are
 //     [.., N, D]). A D equal to its width runs an instance of its own with D
@@ -98,299 +99,64 @@
 //     buffer while this tile computes (16-byte units; a head dim that is
 //     not a multiple of 8 loads through registers instead).
 //
-// fp32, causal_kernel (CUDA cores, as before the tensor cores took bf16):
-//   * Per tile a block of 256 threads: stages K (transposed) and V as fp32
-//     in shared memory; forms the 64 x 64 scores with each thread holding a
-//     4 x 4 register tile (one broadcast float4 of q and one of k per 16
-//     FMAs); takes per latent the tile max, the reference, the weights
-//     f1 = e^{s - ref} and the running den, 4 threads a latent; takes per
-//     token its slice max and decode weights f2 = e^{s - max}/den, 4
-//     threads a token; then each thread owns one d and LPT = D/4 latents
-//     and walks the tile's tokens in order: num += f1 v, y += f2 num. The
-//     decode is the sequential form (two products), not the factored
-//     [tile, tile] matrix. The tile's numerator goes into a fresh fp32
-//     partial (tnum) and its den into a fresh prefix sum, each folded into
-//     the carried state once per tile; the decode reads carry + tnum.
-//     DP must divide the block's 256 threads: the state update gives each
-//     thread one d and LPT = DP / 4 latents.
+// fp32, causal_tf32_kernel: the same factored form and phases on the TF32
+// tensor cores (mma.sync m16n8k8). What bounds it: one TF32 rounding
+// (2^-11) of an operand misses the fp32 check (1e-5 of max |y| against
+// fp64), so every fp32 operand (q, k and v too) enters split, hi = tf32(x)
+// and lo = tf32(x - hi), and every product is three MMAs (lo.hi + hi.lo +
+// hi.hi): 3 x 206 GFLOP at flare_lm's layer 0, 1.25 ms at TF32's 495
+// TFLOP/s, more at mma.sync's measured rate, and the splits (five integer
+// or fp32 operations an element) compete with the MMAs for issue slots.
+// What the design does about it:
+//   * Shared memory. The bf16 layout in fp32 (q, and K and V double-
+//     buffered, alone 174 KB at DP 128) does not fit, so tiles are 32
+//     tokens, and every operand but q is stored raw (fp32) once and split as
+//     a fragment is read: K, V, the carried numerator, f1 (latent-major, and
+//     token-major for the mixing's B operand) and f2 (token-major); q, the
+//     same every tile, is split once at the start. 208 KB at DP 128, one
+//     block an SM (the grid is 128 blocks at flare_lm's layer 0 anyway).
+//   * Fragments. No ldmatrix for 32-bit transposes: every product contracts
+//     in pair order (an 8-wide step's k indices t and t + 4 are columns 2t
+//     and 2t + 1), so an A fragment is two float2 reads and a B fragment of
+//     a [n][k] tile one, an accumulator is the next product's A fragment as
+//     it stands, and the row strides (q, K: DP + 8; V, num: DP + 4; f1:
+//     TT + 8; f1, f2 token-major: CL + 8) keep each read on 32 banks.
+//   * Warps. Phase 1 and the update as the bf16 route's (a 16-latent tile
+//     and a half of the tile's tokens or of the head dim); phase 2 a
+//     16-token tile and a quarter of the head dim. The intra-tile mixing a
+//     is computed once, each of its six 16 x 8 tiles by one warp beside its
+//     carried decode, and shared through shared memory (a barrier), not
+//     computed by each of the four warps of a token tile.
+//   * Precision. The tensor core truncates its additions (flare_mma.cuh):
+//     where a sum is long (S over D, f2^T num and a over 64 latents, and
+//     a v with them) each step's main product (hi.hi) starts from zero and
+//     is added to fp32 sums, the small terms summed in the tensor core; the
+//     update's 32-token f1 v is summed in the tensor core from zero and
+//     added to the carried numerator once a tile (the two-level sums).
+//     kernels/ref.py::flare_causal_split_ref(split="tf32") emulates the
+//     products (tests/test_torch_tc_splits.py: within 1e-5 of fp64 where one
+//     TF32 rounding is not).
 //
 // The entry point launches on the given stream, allocates nothing (the
 // caller gives the fp32 partials), and returns cudaGetLastError().
 
-#include "flare_common.cuh"
+#include "flare_mma.cuh"
 
 namespace {
 
 using namespace flare;
 
-constexpr int CT = 64;               // tokens per tile
-constexpr int CL = 64;               // latents per block (one split of M)
-constexpr int C_THREADS = 256;
-constexpr int KT_STRIDE = CT + 4;    // padded row of the transposed K tile
+constexpr int CT = 64;               // tokens a tile of the bf16 route
+constexpr int CL = 64;               // latents a block (one split of M)
 
-template <int D>
-struct Layout {  // shared memory, in floats, at the padded width D; offsets multiples of 4
-  static constexpr int MG = C_THREADS / D;  // latent groups of the update phase
-  static constexpr int LPT = CL / MG;       // latents per thread there
-  static constexpr int Q = 0;                        // q_t [D][CL]
-  static constexpr int K = Q + D * CL;               // k_t [D][KT_STRIDE]
-  static constexpr int V = K + D * KT_STRIDE;        // v_s [CT][D]
-  static constexpr int S = V + CT * D;               // scores [CT][CL]
-  static constexpr int F1 = S + CT * CL;             // e^{s - ref} [CT][CL]
-  static constexpr int F2 = F1 + CT * CL;            // den, then decode weights [CT][CL]
-  static constexpr int Y = F2 + CT * CL;             // per-group y [MG][CT][D]
-  static constexpr int MX = Y + MG * CT * D;         // carried max [CL]
-  static constexpr int DEN = MX + CL;                // carried den [CL]
-  static constexpr int SCALE = DEN + CL;             // this tile's rescale [CL]
-  static constexpr int FLOATS = SCALE + CL;
-  static constexpr int BYTES = FLOATS * 4;
-};
-
-// Grid (M / CL splits, B*H). Block = group g, latents [split*CL, +CL), at
-// the padded width D for the head dim Dr <= D (EXACT: Dr == D, known at
-// compile time, so the lane guards fold away).
-// Writes part[split, g, t, :Dr] (fp32 decode numerator over the slice) and
-// stat[split, g, t, :] = (slice max of the token's scores, sum of weights).
-template <typename T, int D, bool EXACT>
-__global__ void __launch_bounds__(C_THREADS)
-causal_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              float* __restrict__ part, float* __restrict__ stat, int H, int M, int N,
-              int d_run, Strides ks, Strides vs) {
-  const int Dr = EXACT ? D : d_run;
-  using L = Layout<D>;
-  constexpr int LPT = L::LPT;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float *q_t = smem + L::Q, *k_t = smem + L::K, *v_s = smem + L::V, *s_t = smem + L::S;
-  float *f1 = smem + L::F1, *f2 = smem + L::F2, *ybuf = smem + L::Y;
-  float *st_mx = smem + L::MX, *st_den = smem + L::DEN, *st_scale = smem + L::SCALE;
-
-  const int split = blockIdx.x, g = blockIdx.y, b = g / H, h = g % H;
-  const int l0 = split * CL, nl = min(CL, M - l0);
-  const int tid = threadIdx.x;
-  const T* kg = k + b * ks.b + h * ks.h;
-  const T* vg = v + b * vs.b + h * vs.h;
-  const T* qh = q + ((long long)h * M + l0) * Dr;
-  const long long row = (long long)split * gridDim.y + g;
-  float* part_g = part + row * N * Dr;
-  float* stat_g = stat + row * N * 2;
-
-  for (int i = tid; i < CL * D; i += C_THREADS) {
-    const int l = i / D, d = i % D;
-    q_t[d * CL + l] = l < nl && d < Dr ? to_f(qh[(long long)l * Dr + d]) : 0.f;
-  }
-  if (tid < CL) {
-    st_mx[tid] = NEG_INF;
-    st_den[tid] = 0.f;
-  }
-
-  const int sl = (tid / 16) * 4, sj = (tid % 16) * 4;   // score tile: 4 latents x 4 tokens
-  const int qd = tid >> 2, qp = tid & 3;                // 4 threads a latent / a token
-  const int ud = tid % D, ug = tid / D;                 // update: one d, LPT latents
-  float carry[LPT];
-#pragma unroll
-  for (int l = 0; l < LPT; ++l) carry[l] = 0.f;
-
-  for (int t0 = 0; t0 < N; t0 += CT) {
-    const int tn = min(CT, N - t0);
-    __syncthreads();
-    for (int i = tid; i < CT * D; i += C_THREADS) {
-      const int j = i / D, d = i % D;
-      const bool in = j < tn && d < Dr;
-      k_t[d * KT_STRIDE + j] = in ? to_f(kg[(long long)(t0 + j) * ks.n + d]) : 0.f;
-      v_s[i] = in ? to_f(vg[(long long)(t0 + j) * vs.n + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores s[l, j] = q_l . k_j, stored token-major
-    {
-      float acc[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float4 qa = *reinterpret_cast<const float4*>(q_t + d * CL + sl);
-        const float4 ka = *reinterpret_cast<const float4*>(k_t + d * KT_STRIDE + sj);
-        const float qv[4] = {qa.x, qa.y, qa.z, qa.w}, kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(qv[a], kv[c], acc[a][c]);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        *reinterpret_cast<float4*>(s_t + (sj + c) * CL + sl) =
-            make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
-    }
-    __syncthreads();
-
-    // per latent l (4 threads, 16 tokens each): reference, f1, running den
-    {
-      const int l = qd;
-      const bool lv = l < nl;
-      float tmax = NEG_INF;
-      for (int jj = 0; jj < 16; ++jj) {
-        const int j = qp * 16 + jj;
-        if (j < tn) tmax = fmaxf(tmax, s_t[j * CL + l]);
-      }
-      tmax = quad_max(tmax);
-      const float mx = st_mx[l];
-      const float ref = fmaxf(mx, tmax);
-      const float scale = lv ? expf(mx - ref) : 0.f;
-      float c = 0.f;
-      for (int jj = 0; jj < 16; ++jj) {
-        const int j = qp * 16 + jj;
-        const float e = (lv && j < tn) ? expf(s_t[j * CL + l] - ref) : 0.f;
-        f1[j * CL + l] = e;
-        c += e;
-      }
-      // exclusive prefix of the four parts' sums
-      float before = 0.f, total = 0.f;
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const float cp = __shfl_sync(0xffffffffu, c, (threadIdx.x & 28) | p);
-        before += p < qp ? cp : 0.f;
-        total += cp;
-      }
-      const float base = st_den[l] * scale;
-      float run = base + before;
-      for (int jj = 0; jj < 16; ++jj) {
-        const int j = qp * 16 + jj;
-        run += f1[j * CL + l];
-        f2[j * CL + l] = lv ? run : 1.f;   // the token's den against ref
-      }
-      __syncwarp();
-      if (qp == 0) {
-        st_mx[l] = lv ? ref : NEG_INF;
-        st_den[l] = base + total;
-        st_scale[l] = scale;
-      }
-    }
-    __syncthreads();
-
-    // per token j (4 threads, 16 latents each): decode weights over the
-    // slice against the slice's own max, divided by the latent's den
-    {
-      const int j = qd;
-      float mloc = NEG_INF;
-      for (int ll = 0; ll < 16; ++ll) {
-        const int l = qp * 16 + ll;
-        if (l < nl) mloc = fmaxf(mloc, s_t[j * CL + l]);
-      }
-      mloc = quad_max(mloc);
-      float dsum = 0.f;
-      for (int ll = 0; ll < 16; ++ll) {
-        const int l = qp * 16 + ll;
-        const float e = l < nl ? expf(s_t[j * CL + l] - mloc) : 0.f;
-        dsum += e;
-        f2[j * CL + l] = e / fmaxf(f2[j * CL + l], 1e-30f);
-      }
-      dsum = quad_sum(dsum);
-      if (qp == 0 && j < tn) {
-        stat_g[(long long)(t0 + j) * 2] = mloc;
-        stat_g[(long long)(t0 + j) * 2 + 1] = dsum;
-      }
-    }
-    __syncthreads();
-
-    // state update and decode, token by token: thread (ud, ug) owns d = ud
-    // and latents [ug*LPT, +LPT); tnum is the tile's fresh partial numerator
-    {
-      float tnum[LPT];
-#pragma unroll
-      for (int l = 0; l < LPT; ++l) {
-        carry[l] *= st_scale[ug * LPT + l];
-        tnum[l] = 0.f;
-      }
-      for (int j = 0; j < tn; ++j) {
-        const float vj = v_s[j * D + ud];
-        const float* f1j = f1 + j * CL + ug * LPT;
-        const float* f2j = f2 + j * CL + ug * LPT;
-        float a[4] = {0.f, 0.f, 0.f, 0.f};
-        if constexpr (LPT % 4 == 0) {
-#pragma unroll
-          for (int l = 0; l < LPT; l += 4) {
-            const float4 e1 = *reinterpret_cast<const float4*>(f1j + l);
-            const float4 e2 = *reinterpret_cast<const float4*>(f2j + l);
-            tnum[l] = fmaf(e1.x, vj, tnum[l]);
-            tnum[l + 1] = fmaf(e1.y, vj, tnum[l + 1]);
-            tnum[l + 2] = fmaf(e1.z, vj, tnum[l + 2]);
-            tnum[l + 3] = fmaf(e1.w, vj, tnum[l + 3]);
-            a[0] = fmaf(e2.x, carry[l] + tnum[l], a[0]);
-            a[1] = fmaf(e2.y, carry[l + 1] + tnum[l + 1], a[1]);
-            a[2] = fmaf(e2.z, carry[l + 2] + tnum[l + 2], a[2]);
-            a[3] = fmaf(e2.w, carry[l + 3] + tnum[l + 3], a[3]);
-          }
-        } else {
-#pragma unroll
-          for (int l = 0; l < LPT; ++l) {
-            tnum[l] = fmaf(f1j[l], vj, tnum[l]);
-            a[l & 3] = fmaf(f2j[l], carry[l] + tnum[l], a[l & 3]);
-          }
-        }
-        ybuf[(ug * CT + j) * D + ud] = (a[0] + a[1]) + (a[2] + a[3]);
-      }
-#pragma unroll
-      for (int l = 0; l < LPT; ++l) carry[l] += tnum[l];
-    }
-    __syncthreads();
-
-    // sum the latent groups in order; the split's fp32 partial for the tile
-    for (int i = tid; i < tn * Dr; i += C_THREADS) {
-      const int j = i / Dr, d = i % Dr;
-      float s = 0.f;
-#pragma unroll 4
-      for (int u = 0; u < L::MG; ++u) s += ybuf[(u * CT + j) * D + d];
-      part_g[(long long)t0 * Dr + i] = s;
-    }
-  }
-}
+constexpr int TT = 32;               // tokens a tile of the fp32 route
+constexpr int TC_THREADS = 256;      // eight warps on both routes
 
 // ---------------------------------------------------------------------------
 // The bf16 route on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
 // accumulate), the factored form of the TPU kernel.
 
-constexpr int TC_THREADS = 256;   // eight warps: (16-row tile lt, half hf) each
-
 using bf16 = __nv_bfloat16;
-
-// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 (.trans: each matrix transposed)
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// c += a b, A 16 x 16 (a0 (g, 2t..2t+1), a1 (g+8, ..), a2 (g, 2t+8..), a3
-// (g+8, 2t+8..)), B 16 x 8 (b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)), C as
-// the TF32 MMA's: c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (a, b) as two bf16 parts each, packed in pairs (a in the low half):
-// hi = bf16(x), lo = bf16(x - hi), hi + lo within about 2^-17 |x|
-// (kernels/ref.py::bf16_split rounds the same way)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(a - hf.x, b - hf.y));
-}
 
 // a C fragment's pair of columns (2t, 2t + 1) of one row, split, stored at
 // element `at` of the hi and the lo bf16 tiles
@@ -418,20 +184,26 @@ struct TcLayout {   // shared memory of causal_tc_kernel, in bf16 elements
   static constexpr int BYTES = END * 2 + (9 * CT + 4 * CL) * 4;
 };
 
-struct TcSwap {   // the fp32 arrays after the bf16 tiles
-  float* col_max;   // [4][CT] per latent tile: max over its 16 latents of each token's score
-  float* col_sum;   // [4][CT] per latent tile: sum of each token's decode weights
-  float* tok_mx;    // [CT] max over the slice of each token's scores
+struct TcSwap {   // the fp32 exchange arrays after the tiles, at the route's token tile n
+  float* col_max;   // [4][n] per latent tile: max over its 16 latents of each token's score
+  float* col_sum;   // [4][n] per latent tile: sum of each token's decode weights
+  float* tok_mx;    // [n] max over the slice of each token's scores
   float* row_max;   // [2][CL] per token half: max of each latent's scores
   float* row_sum;   // [2][CL] per token half: sum of each latent's f1
+
+  __device__ TcSwap(float* p, int n)
+      : col_max(p), col_sum(p + 4 * n), tok_mx(p + 8 * n), row_max(p + 9 * n),
+        row_sum(p + 9 * n + 2 * CL) {}
 };
 
 // Grid (M / CL splits, B*H), bf16 q, k, v. Block = group g, latents
 // [split*CL, +CL), at the padded width DP (32, 64, 128) for the head dim
-// Dr <= DP (EXACT: Dr == DP). Writes part and stat as causal_kernel does.
-// `async`: k and v rows are whole 16-byte units (Dr % 8 == 0, aligned
-// strides and bases) and go through cp.async into the next tile's buffer
-// while this tile computes; else they are loaded through registers.
+// Dr <= DP (EXACT: Dr == DP). Writes part[split, g, t, :Dr] (the fp32
+// decode numerator over the slice) and stat[split, g, t, :] = (slice max of
+// the token's scores, sum of its weights). `async`: k and v rows are whole
+// 16-byte units (Dr % 8 == 0, aligned strides and bases) and go through
+// cp.async into the next tile's buffer while this tile computes; else they
+// are loaded through registers.
 template <int DP, bool EXACT>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 causal_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -443,7 +215,7 @@ causal_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ float4 smem4[];
   bf16* sm = reinterpret_cast<bf16*>(smem4);
   float* swap = reinterpret_cast<float*>(sm + L::END);
-  const TcSwap sw{swap, swap + 4 * CT, swap + 8 * CT, swap + 9 * CT, swap + 9 * CT + 2 * CL};
+  const TcSwap sw(swap, CT);
   const int Dr = EXACT ? DP : d_run;
   const int split = blockIdx.x, g = blockIdx.y, b = g / H, h = g % H;
   const int l0 = split * CL, nl = min(CL, M - l0);
@@ -764,6 +536,384 @@ causal_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 route on the TF32 tensor cores (mma.sync m16n8k8; every fp32
+// operand split hi + lo, three MMAs a product), the factored form of the
+// bf16 route on 32-token tiles. Every product contracts in pair order: an
+// 8-wide step's k indices t and t + 4 are its columns (rows) 2t and 2t + 1,
+// so an A fragment is two float2 reads, a [n][k] B fragment one, and an
+// accumulator's columns (2t, 2t + 1) are the next product's A fragment as
+// they stand (flare_mma.cuh).
+
+template <int DP>
+struct TfLayout {   // shared memory of causal_tf32_kernel, in floats: q split once,
+                    // the rest raw fp32, split into TF32 parts as a fragment is read
+  static constexpr int QS = DP + 8;   // q and k rows: float2 reads at (g, 2t) hit 32 banks
+  static constexpr int VS = DP + 4;   // v and numerator rows: reads at (2t, g) hit 32 banks
+  static constexpr int F1S = TT + 8;  // f1 rows, latent-major (float2 reads at (g, 2t))
+  static constexpr int FTS = CL + 8;  // f1 and f2 rows, token-major (float2 reads at (g, 2t))
+  static constexpr int MS = TT + 8;   // the mixing's rows (float2 reads at (g, 2t))
+  static constexpr int QH = 0;                  // the slice's q [CL][QS], split once:
+  static constexpr int QL = QH + CL * QS;       // its TF32 hi and lo words
+  static constexpr int K = QL + CL * QS;        // k, two buffers [2][TT][QS]
+  static constexpr int V = K + 2 * TT * QS;     // v, two buffers [2][TT][VS]
+  static constexpr int NUM = V + 2 * TT * VS;   // the carried numerator [CL][VS]
+  static constexpr int F1 = NUM + CL * VS;      // f1 [CL][F1S]
+  static constexpr int F1T = F1 + CL * F1S;     // f1 transposed [TT][FTS]
+  static constexpr int F2T = F1T + TT * FTS;    // f2 transposed [TT][FTS]
+  static constexpr int MIX = F2T + TT * FTS;    // the intra-tile mixing a [TT][MS]
+  static constexpr int END = MIX + TT * MS;     // then the exchange arrays
+  static constexpr int BYTES = (END + 9 * TT + 4 * CL) * 4;   // 208 KB at DP 128
+};
+
+// The A fragment of rows r and r + 8 (ra, rb at the step's first column) in
+// pair order, split
+__device__ __forceinline__ void frag_pairs(FragA& f, const float* ra, const float* rb) {
+  const float2 x = *reinterpret_cast<const float2*>(ra);
+  const float2 y = *reinterpret_cast<const float2*>(rb);
+  split_a(f, x.x, y.x, x.y, y.y);
+}
+
+// The same from a tile split when it was staged: the hi words at ra and rb,
+// the lo words `lo` floats on
+__device__ __forceinline__ void frag_pairs_split(FragA& f, const float* ra, const float* rb,
+                                                 int lo) {
+  const float2 xh = *reinterpret_cast<const float2*>(ra);
+  const float2 yh = *reinterpret_cast<const float2*>(rb);
+  const float2 xl = *reinterpret_cast<const float2*>(ra + lo);
+  const float2 yl = *reinterpret_cast<const float2*>(rb + lo);
+  const float hi[4] = {xh.x, yh.x, xh.y, yh.y}, lw[4] = {xl.x, yl.x, xl.y, yl.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = __float_as_uint(hi[i]);
+    f.lo[i] = __float_as_uint(lw[i]);
+  }
+}
+
+// A [n][k] B fragment in pair order (b0, b1 at p[0], p[1]), split
+__device__ __forceinline__ uint4 frag_pair_b(const float* p) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  return split_b(x.x, x.y);
+}
+
+// Grid (M / CL splits, B*H), fp32 q, k, v. Block = group g, latents
+// [split*CL, +CL), at the padded width DP (32, 64, 128) for the head dim
+// Dr <= DP (EXACT: Dr == DP). Writes part and stat as causal_tc_kernel does.
+// `async`: k and v rows are whole 16-byte units (Dr % 4 == 0, aligned
+// strides and bases) and go through cp.async into the next tile's buffer
+// while this tile computes; else they are loaded through registers.
+template <int DP, bool EXACT>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+causal_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ part,
+                   float* __restrict__ stat, int H, int M, int N, int d_run, Strides ks,
+                   Strides vs, bool async) {
+  using L = TfLayout<DP>;
+  constexpr int QS = L::QS, VS = L::VS, F1S = L::F1S, FTS = L::FTS;
+  constexpr int DH = DP / 16;   // 8-wide column tiles of a head-dim half (the state update)
+  constexpr int DQ = DP / 32;   // ... of a quarter (phase 2)
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float *f1s = sm + L::F1, *f1t = sm + L::F1T, *f2t = sm + L::F2T, *num = sm + L::NUM;
+  const TcSwap sw(sm + L::END, TT);
+  const int Dr = EXACT ? DP : d_run;
+  const int split = blockIdx.x, g = blockIdx.y, b = g / H, h = g % H;
+  const int l0 = split * CL, nl = min(CL, M - l0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gi = lane >> 2, ti = lane & 3;
+  const float* kg = k + b * ks.b + h * ks.h;
+  const float* vg = v + b * vs.b + h * vs.h;
+  const float* qh = q + ((long long)h * M + l0) * Dr;
+  const long long row = (long long)split * gridDim.y + g;
+  float* part_g = part + row * N * Dr;
+  float* stat_g = stat + row * N * 2;
+
+  // zero all tiles once: the lanes past Dr and the latents past nl stay
+  // zero; q is split into its TF32 parts once, for every tile
+  for (int i = tid; i < L::END / 4; i += TC_THREADS)
+    reinterpret_cast<float4*>(sm)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  for (int i = tid; i < nl * Dr; i += TC_THREADS) {
+    const float x = qh[i];
+    const uint32_t hi = tf32(x);
+    const int at = (i / Dr) * QS + i % Dr;
+    sm[L::QH + at] = __uint_as_float(hi);
+    sm[L::QL + at] = __uint_as_float(tf32(x - __uint_as_float(hi)));
+  }
+
+  auto load_tile = [&](int t0, int buf) {
+    const int tn = min(TT, N - t0);
+    float* kd = sm + L::K + buf * TT * QS;
+    float* vd = sm + L::V + buf * TT * VS;
+    if (async) {
+      const int units = Dr / 4;
+      for (int i = tid; i < TT * units; i += TC_THREADS) {
+        const int j = i / units, c = (i % units) * 4;
+        const long long n = t0 + min(j, tn - 1);   // rows past N: zero-filled, nothing read
+        const int bytes = j < tn ? 16 : 0;
+        cp_async16(kd + j * QS + c, kg + n * ks.n + c, bytes);
+        cp_async16(vd + j * VS + c, vg + n * vs.n + c, bytes);
+      }
+      asm volatile("cp.async.commit_group;");
+    } else {
+      for (int i = tid; i < TT * Dr; i += TC_THREADS) {
+        const int j = i / Dr, d = i % Dr;
+        const bool in = j < tn;
+        kd[j * QS + d] = in ? kg[(long long)(t0 + j) * ks.n + d] : 0.f;
+        vd[j * VS + d] = in ? vg[(long long)(t0 + j) * vs.n + d] : 0.f;
+      }
+    }
+  };
+
+  // warp = (lt, hf) in phase 1 and the state update: the 16-row tile lt of
+  // latents and a half hf of the tile's tokens (scores) or of the head dim
+  // (the update; its carried numerator stays in registers, the max and den
+  // held alike by both warps of lt); (tt, dq) in phase 2: the 16-token tile
+  // tt and a quarter dq of the head dim. Warps w and w + 4 share a scheduler,
+  // so each scheduler holds one warp of each token tile (tt = 1 does twice
+  // the mixing of tt = 0)
+  const int lt = warp & 3, hf = warp >> 2, tt = warp >> 2, dq = warp & 3;
+  float carry[DH][4] = {}, mxr[2] = {NEG_INF, NEG_INF}, denr[2] = {0.f, 0.f};
+  bool lv[2];
+  for (int hh = 0; hh < 2; ++hh) lv[hh] = 16 * lt + gi + 8 * hh < nl;
+  load_tile(0, 0);
+  for (int t0 = 0, it = 0; t0 < N; t0 += TT, ++it) {
+    const int tn = min(TT, N - t0), buf = it & 1;
+    if (async) asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    if (t0 + TT < N) load_tile(t0 + TT, buf ^ 1);
+    const float* kt_s = sm + L::K + buf * TT * QS;
+    const float* vt_s = sm + L::V + buf * TT * VS;
+
+    // ---- phase 1: latents [16 lt, +16) against tokens [16 hf, +16), S over
+    // the head dim with each step's main product in fp32 sums
+    float s[2][4] = {};
+    {
+      float cs[2][4] = {};
+      const float* qa = sm + L::QH + (16 * lt + gi) * QS + 2 * ti;
+      const float* kb = kt_s + (16 * hf + gi) * QS + 2 * ti;
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        FragA qf;
+        frag_pairs_split(qf, qa + 8 * kk, qa + 8 * QS + 8 * kk, L::QL - L::QH);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          mma3_out(s[nt], cs[nt], qf, frag_pair_b(kb + 8 * nt * QS + 8 * kk));
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] += cs[nt][e];
+    }
+    auto tok = [&](int nt, int c) { return 16 * hf + 8 * nt + 2 * ti + c; };
+    // each latent's max over the half's tokens, each token's over the tile's latents
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float tm = NEG_INF;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (tok(nt, c) < tn) tm = fmaxf(tm, s[nt][2 * hh + c]);
+      tm = quad_max(tm);
+      if (ti == 0) sw.row_max[hf * CL + 16 * lt + gi + 8 * hh] = tm;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float x = fmaxf(lv[0] ? s[nt][c] : NEG_INF, lv[1] ? s[nt][2 + c] : NEG_INF);
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 16));
+        if (gi == 0) sw.col_max[lt * TT + tok(nt, c)] = x;
+      }
+    __syncthreads();
+    // per latent: the reference (the running max with the tile's), f1 and
+    // its prefix sums over the half's tokens; per token: the decode weights
+    float f1[2][4], cd[2][4], w[2][4], ref[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int l = 16 * lt + gi + 8 * hh;
+      ref[hh] = fmaxf(mxr[hh], fmaxf(sw.row_max[l], sw.row_max[CL + l]));
+      float run = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float e[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          e[c] = lv[hh] && tok(nt, c) < tn ? __expf(s[nt][2 * hh + c] - ref[hh]) : 0.f;
+        const float pair = e[0] + e[1];
+        float incl = pair;   // inclusive scan over the quad's columns
+        float up = __shfl_up_sync(0xffffffffu, incl, 1, 4);
+        if (ti >= 1) incl += up;
+        up = __shfl_up_sync(0xffffffffu, incl, 2, 4);
+        if (ti >= 2) incl += up;
+        cd[nt][2 * hh] = run + (incl - pair) + e[0];
+        cd[nt][2 * hh + 1] = cd[nt][2 * hh] + e[1];
+        f1[nt][2 * hh] = e[0];
+        f1[nt][2 * hh + 1] = e[1];
+        run += __shfl_sync(0xffffffffu, incl, 3, 4);
+      }
+      if (ti == 0) sw.row_sum[hf * CL + l] = run;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = tok(nt, c);
+        const float tmx = fmaxf(fmaxf(sw.col_max[col], sw.col_max[TT + col]),
+                                fmaxf(sw.col_max[2 * TT + col], sw.col_max[3 * TT + col]));
+        if (lt == 0 && gi == 0) sw.tok_mx[col] = tmx;
+        w[nt][c] = lv[0] ? __expf(s[nt][c] - tmx) : 0.f;
+        w[nt][2 + c] = lv[1] ? __expf(s[nt][2 + c] - tmx) : 0.f;
+        float x = w[nt][c] + w[nt][2 + c];
+        x += __shfl_xor_sync(0xffffffffu, x, 4);
+        x += __shfl_xor_sync(0xffffffffu, x, 8);
+        x += __shfl_xor_sync(0xffffffffu, x, 16);
+        if (gi == 0) sw.col_sum[lt * TT + col] = x;
+      }
+    __syncthreads();
+    // the carried den on the new reference and the first half's f1 under
+    // the second's prefix; f2 = w / cden; f1 (latent-major and transposed),
+    // f2 (transposed) and the rescaled carried numerator (this warp's half
+    // of the head dim) to shared memory, raw
+    float scale[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int l = 16 * lt + gi + 8 * hh;
+      scale[hh] = lv[hh] ? __expf(mxr[hh] - ref[hh]) : 0.f;
+      const float base = denr[hh] * scale[hh];
+      const float below = hf == 1 ? sw.row_sum[l] : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) cd[nt][2 * hh + c] += base + below;
+      denr[hh] = base + sw.row_sum[l] + sw.row_sum[CL + l];
+      mxr[hh] = lv[hh] ? ref[hh] : NEG_INF;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int l = 16 * lt + gi + 8 * hh, j = tok(nt, 0);
+        *reinterpret_cast<float2*>(f1s + l * F1S + j) =
+            make_float2(f1[nt][2 * hh], f1[nt][2 * hh + 1]);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          f1t[(j + c) * FTS + l] = f1[nt][2 * hh + c];
+          f2t[(j + c) * FTS + l] = w[nt][2 * hh + c] / fmaxf(cd[nt][2 * hh + c], 1e-30f);
+        }
+      }
+#pragma unroll
+    for (int dt = 0; dt < DH; ++dt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        carry[dt][2 * hh] *= scale[hh];
+        carry[dt][2 * hh + 1] *= scale[hh];
+        *reinterpret_cast<float2*>(num + (16 * lt + gi + 8 * hh) * VS + 8 * (DH * hf + dt) +
+                                   2 * ti) = make_float2(carry[dt][2 * hh], carry[dt][2 * hh + 1]);
+      }
+    __syncthreads();
+
+    // the state update, latents [16 lt, +16) x the head dim's half hf: this
+    // tile's f1 v (32 tokens, summed in the tensor core from zero), G column
+    // tiles at a time, added to the carry once
+    {
+      constexpr int G = DH < 4 ? DH : 4;
+      const float* fa = f1s + (16 * lt + gi) * F1S + 2 * ti;
+      const float* vb = vt_s + 2 * ti * VS + 8 * DH * hf + gi;
+#pragma unroll
+      for (int n0 = 0; n0 < DH; n0 += G) {
+        float t2[G][4] = {};
+#pragma unroll
+        for (int kt = 0; kt < TT / 8; ++kt) {
+          FragA a;
+          frag_pairs(a, fa + 8 * kt, fa + 8 * F1S + 8 * kt);
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            const float* p = vb + 8 * kt * VS + 8 * (n0 + j);
+            mma3<false, false>(t2[j], a, split_b(p[0], p[VS]));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) carry[n0 + j][r] += t2[j][r];
+      }
+    }
+
+    // ---- phase 2: tokens [16 tt, +16) against the slice's latents, the head
+    // dim's quarter dq: the carried decode f2^T num over 64 latents, each
+    // step's main product in fp32 sums. The intra-tile mixing a = f2^T f1
+    // (its 16 x 8 tiles up to the diagonal: 2 of token tile 0, 4 of tile 1)
+    // is computed once, a tile a warp alongside, masked to i <= j and shared
+    // through shared memory; then y += a v over the token tiles up to the
+    // warp's own
+    {
+      float y[DQ][4] = {}, yc[DQ][4] = {}, ap[4] = {}, ac[4] = {};
+      const bool mixes = dq < 2 * (tt + 1);   // the warp's mixing tile: columns 8 dq
+      const int c0 = 8 * DQ * dq;   // the quarter's first column
+      const float* fa = f2t + (16 * tt + gi) * FTS + 2 * ti;
+      const float* nb = num + 2 * ti * VS + c0 + gi;
+      const float* f1b = f1t + (8 * dq + gi) * FTS + 2 * ti;
+#pragma unroll
+      for (int kt = 0; kt < CL / 8; ++kt) {
+        FragA a;
+        frag_pairs(a, fa + 8 * kt, fa + 8 * FTS + 8 * kt);
+#pragma unroll
+        for (int j = 0; j < DQ; ++j) {
+          const float* p = nb + 8 * kt * VS + 8 * j;
+          mma3_out(y[j], yc[j], a, split_b(p[0], p[VS]));
+        }
+        if (mixes) mma3_out(ap, ac, a, frag_pair_b(f1b + 8 * kt));
+      }
+      float* mix = sm + L::MIX;
+      if (mixes) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 16 * tt + gi + 8 * hh, j = 8 * dq + 2 * ti;
+          *reinterpret_cast<float2*>(mix + i * L::MS + j) =
+              make_float2(j <= i ? ap[2 * hh] + ac[2 * hh] : 0.f,
+                          j + 1 <= i ? ap[2 * hh + 1] + ac[2 * hh + 1] : 0.f);
+        }
+      }
+      __syncthreads();   // the mixing is whole
+      const float* vb = vt_s + 2 * ti * VS + c0 + gi;
+      const float* ma = mix + (16 * tt + gi) * L::MS + 2 * ti;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nt >= 2 * (tt + 1)) break;
+        FragA af;
+        frag_pairs(af, ma + 8 * nt, ma + 8 * L::MS + 8 * nt);
+#pragma unroll
+        for (int j = 0; j < DQ; ++j) {
+          const float* p = vb + 8 * nt * VS + 8 * j;
+          mma3_out(y[j], yc[j], af, split_b(p[0], p[VS]));
+        }
+      }
+      // the slice's partial for the warp's tokens, and their statistics
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int j = 16 * tt + gi + 8 * hh;
+        if (j >= tn) continue;
+        float* pj = part_g + (long long)(t0 + j) * Dr + c0;
+#pragma unroll
+        for (int dt = 0; dt < DQ; ++dt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (c0 + 8 * dt + 2 * ti + c < Dr)
+              pj[8 * dt + 2 * ti + c] = y[dt][2 * hh + c] + yc[dt][2 * hh + c];
+        if (dq == 0 && ti == 0) {
+          float* sj = stat_g + (long long)(t0 + j) * 2;
+          sj[0] = sw.tok_mx[j];
+          sj[1] = (sw.col_sum[j] + sw.col_sum[TT + j]) +
+                  (sw.col_sum[2 * TT + j] + sw.col_sum[3 * TT + j]);
+        }
+      }
+    }
+  }
+}
+
 // Merge the latent splits per token, flash-decoding style: one thread per
 // V consecutive d of a token t of group g (V = 4 where D % 4 == 0: one
 // 16-byte load a split, the statistics read once for the four);
@@ -817,66 +967,58 @@ cudaError_t combine_launch(const float* part, const float* stat, void* y, int B,
   return cudaGetLastError();
 }
 
-// fp32: the CUDA-core kernel
-template <int DP, bool EXACT>
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Either route's kernel, then the combine: fp32 causal_tf32_kernel, bf16
+// causal_tc_kernel; k and v go by cp.async where their rows are whole
+// aligned 16-byte units
+template <typename T, int DP, bool EXACT>
 cudaError_t causal_launch(const void* q, const void* k, const void* v, void* y, float* part,
                           float* stat, int B, int H, int M, int N, int D, Strides ks,
                           Strides vs, Strides ys, cudaStream_t stream) {
+  constexpr int unit = 16 / sizeof(T);   // elements a 16-byte copy
   const int splits = cdiv(M, CL);
-  constexpr int bytes = Layout<DP>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(causal_kernel<float, DP, EXACT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  causal_kernel<float, DP, EXACT><<<dim3(splits, B * H), C_THREADS, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, part, stat, H, M, N, D, ks, vs);
+  const bool async = D % unit == 0 && aligned16(k) && aligned16(v) &&
+                     (ks.b | ks.h | ks.n | vs.b | vs.h | vs.n) % unit == 0;
+  const dim3 grid(splits, B * H);
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int bytes = TfLayout<DP>::BYTES;
+    err = cudaFuncSetAttribute(causal_tf32_kernel<DP, EXACT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    causal_tf32_kernel<DP, EXACT><<<grid, TC_THREADS, bytes, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, part, stat, H, M, N, D, ks, vs, async);
+  } else {
+    constexpr int bytes = TcLayout<DP>::BYTES;
+    err = cudaFuncSetAttribute(causal_tc_kernel<DP, EXACT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    causal_tc_kernel<DP, EXACT><<<grid, TC_THREADS, bytes, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, part, stat, H, M, N, D, ks, vs, async);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return combine_launch<float, DP, EXACT>(part, stat, y, B, H, N, D, splits, ys, stream);
+  return combine_launch<T, DP, EXACT>(part, stat, y, B, H, N, D, splits, ys, stream);
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-// bf16: the tensor-core kernel
-template <int DP, bool EXACT>
-cudaError_t causal_tc_launch(const void* q, const void* k, const void* v, void* y, float* part,
-                             float* stat, int B, int H, int M, int N, int D, Strides ks,
-                             Strides vs, Strides ys, cudaStream_t stream) {
-  const int splits = cdiv(M, CL);
-  constexpr int bytes = TcLayout<DP>::BYTES;
-  const bool async = D % 8 == 0 && aligned16(k) && aligned16(v) &&
-                     (ks.b | ks.h | ks.n | vs.b | vs.h | vs.n) % 8 == 0;
-  cudaError_t err = cudaFuncSetAttribute(causal_tc_kernel<DP, EXACT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  causal_tc_kernel<DP, EXACT><<<dim3(splits, B * H), TC_THREADS, bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, part, stat, H, M, N, D, ks, vs, async);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return combine_launch<bf16, DP, EXACT>(part, stat, y, B, H, N, D, splits, ys, stream);
-}
-
-// D from 1 to 128 at its padded width; a D that is its own width (flare_lm's
-// 128, the smoke configuration's 16 in fp32) runs an exact instance. fp32
-// runs at widths 8 to 128, bf16 (the tensor cores) at 32 to 128: a warp
-// takes half the width, two column tiles of 8 at least.
+// D from 1 to 128 at its padded width 32, 64 or 128 (a warp of phase 2
+// takes a quarter of it, one column tile of 8 at least); a D that is its
+// own width (flare_lm's 128) runs an exact instance. The dtype picks the
+// route.
 cudaError_t causal_d(int dtype, int D, const void* q, const void* k, const void* v, void* y,
                      float* part, float* stat, int B, int H, int M, int N, Strides ks, Strides vs,
                      Strides ys, cudaStream_t s) {
   auto at = [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
-    if (dtype == BF16) {
-      if constexpr (DP >= 32)
-        return D == DP ? causal_tc_launch<DP, true>(q, k, v, y, part, stat, B, H, M, N, D, ks,
-                                                    vs, ys, s)
-                       : causal_tc_launch<DP, false>(q, k, v, y, part, stat, B, H, M, N, D, ks,
-                                                     vs, ys, s);
-      return cudaErrorInvalidValue;
-    }
-    return D == DP ? causal_launch<DP, true>(q, k, v, y, part, stat, B, H, M, N, D, ks, vs, ys, s)
-                   : causal_launch<DP, false>(q, k, v, y, part, stat, B, H, M, N, D, ks, vs, ys,
-                                              s);
+    auto run = [&](auto t, auto exact) {
+      return causal_launch<decltype(t), DP, decltype(exact)::value>(
+          q, k, v, y, part, stat, B, H, M, N, D, ks, vs, ys, s);
+    };
+    if (dtype == BF16)
+      return D == DP ? run(bf16{}, std::true_type{}) : run(bf16{}, std::false_type{});
+    return D == DP ? run(0.f, std::true_type{}) : run(0.f, std::false_type{});
   };
   if (D < 1 || D > 128 || (dtype != F32 && dtype != BF16)) return cudaErrorInvalidValue;
-  if (D <= 8 && dtype == F32) return at(std::integral_constant<int, 8>{});
-  if (D <= 16 && dtype == F32) return at(std::integral_constant<int, 16>{});
   if (D <= 32) return at(std::integral_constant<int, 32>{});
   if (D <= 64) return at(std::integral_constant<int, 64>{});
   return at(std::integral_constant<int, 128>{});

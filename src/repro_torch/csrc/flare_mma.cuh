@@ -1,8 +1,12 @@
-// TF32 tensor-core helpers shared by the FLARE forward (flare.cu) and
-// backward (flare_bwd.cu): mma.sync m16n8k8 with each fp32 operand split in
+// Tensor-core helpers shared by the port's mma.sync kernels. TF32: the FLARE
+// forward (flare.cu), backward (flare_bwd.cu), the causal kernel's fp32
+// route (flare_causal.cu) and the flash kernel's fp32 route
+// (flash_attention.cu): mma.sync m16n8k8 with each fp32 operand split in
 // two TF32 parts, fragments loaded or staged in the order each lane takes
-// them, and the MMA widths of the head dims. Header-only; each translation
-// unit gets its own copy.
+// them, and the MMA widths of the head dims. bf16 (at the end): ldmatrix,
+// mma.sync m16n8k16 and the two-part bf16 split, for the causal kernel's
+// bf16 route, MLA's paged read (paged_attention.cu) and the flash kernel's
+// bf16 route off TMA. Header-only; each translation unit gets its own copy.
 //
 // Precision. One TF32 rounding (2^-11) of an operand misses the kernels'
 // fp32 checks (1e-5 of max |out| against fp64). Each fp32 operand is split
@@ -63,6 +67,22 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a b from zero (C = 0): no accumulator to wait on; a kernel adds d to
+// fp32 sums where the tensor core's truncated additions would be too many
+__device__ __forceinline__ void mma_z(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// A B fragment's two fp32 values (b0, b1) split: (b0 hi, b1 hi, b0 lo, b1 lo)
+__device__ __forceinline__ uint4 split_b(float x0, float x1) {
+  const uint32_t h0 = tf32(x0), h1 = tf32(x1);
+  return make_uint4(h0, h1, tf32(x0 - __uint_as_float(h0)), tf32(x1 - __uint_as_float(h1)));
+}
+
 // c += a b in three TF32 products, small terms first; b is a staged B
 // fragment (b0 hi, b1 hi, b0 lo, b1 lo). An operand exact in TF32 (bf16
 // values) has lo = 0, and its MMA is skipped.
@@ -71,6 +91,19 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const uint4&
   if (!A_EXACT) mma(c, a.lo, b.x, b.y);
   if (!B_EXACT) mma(c, a.hi, b.z, b.w);
   mma(c, a.hi, b.x, b.y);
+}
+
+// c += a b in three TF32 products where the sum is long: the main one
+// (hi.hi) from zero into the fp32 sums `s`, the small ones (2^-11 of it)
+// summed in the tensor core's `c` (fp32 result: s + c)
+__device__ __forceinline__ void mma3_out(float (&s)[4], float (&c)[4], const FragA& a,
+                                         const uint4& b) {
+  mma(c, a.lo, b.x, b.y);
+  mma(c, a.hi, b.z, b.w);
+  float z[4];
+  mma_z(z, a.hi, b.x, b.y);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s[e] += z[e];
 }
 
 // The A fragment of rows [r0, r0 + 16) and columns [8 kk, 8 kk + 8) of X
@@ -102,8 +135,7 @@ __device__ __forceinline__ void stage_b(uint4* dst, const T* X, long long rs, in
     const int ca = KDIM ? 8 * kk + t : 8 * kk + g, cb = KDIM ? ca + 4 : ca;
     const float x0 = ra < rows && ca < Dr ? to_f(X[(long long)(r0 + ra) * rs + ca]) : 0.f;
     const float x1 = rb < rows && cb < Dr ? to_f(X[(long long)(r0 + rb) * rs + cb]) : 0.f;
-    const uint32_t h0 = tf32(x0), h1 = tf32(x1);
-    dst[i] = make_uint4(h0, h1, tf32(x0 - __uint_as_float(h0)), tf32(x1 - __uint_as_float(h1)));
+    dst[i] = split_b(x0, x1);
   }
 }
 
@@ -127,6 +159,56 @@ cudaError_t at_mma_width(int D, F&& f) {
     case 64: return f(integral_constant<int, 64>{}, padded);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---- bf16: mma.sync m16n8k16, bf16 in, fp32 accumulate. Fragments
+// (g = lane / 4, t = lane % 4): A 16 x 16 a0 (g, 2t..2t+1), a1 (g+8, ..),
+// a2 (g, 2t+8..), a3 (g+8, 2t+8..); B 16 x 8 b0 (k 2t..2t+1, n g), b1
+// (k 2t+8.., n g); C as the TF32 MMA's: c0, c1 (g, 2t..2t+1), c2, c3
+// (g+8, 2t..2t+1). Each register holds two bf16 values, the lower k (or
+// column) in the low half.
+
+// four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8 (.trans: each matrix transposed)
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// c += a b
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b from zero (C = 0): no accumulator to wait on
+__device__ __forceinline__ void mma_bf16z(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (a, b) as two bf16 parts each, packed in pairs (a in the low half):
+// hi = bf16(x), lo = bf16(x - hi), hi + lo within about 2^-17 |x|
+// (kernels/ref.py::bf16_split rounds the same way)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(a - hf.x, b - hf.y));
 }
 
 }  // namespace flare

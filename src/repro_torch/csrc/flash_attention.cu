@@ -1,15 +1,15 @@
 // Flash attention for Hopper (sm_90a), CUDA C++: the fp32 route on the TF32
 // tensor cores, and the bf16 calls the wgmma kernel does not take on the
-// CUDA cores.
+// bf16 tensor cores through mma.sync.
 //
 // Replaces the TPU kernel of the JAX package:
-//   flash_tf32_kernel, flash_kernel
+//   flash_tf32_kernel, flash_bf16_kernel
 //       <- repro/kernels/attention.py::_flash_kernel (flash_attention_pallas)
 // beside flash_attention_sm90.cu (flash_tc_kernel), which runs every bf16
 // call whose D is a multiple of 8 and whose strides TMA can address.
 // kernels/attention.py::flash_route picks from dtype, D and strides alone:
-// fp32 runs flash_tf32_kernel; bf16 at D % 8 != 0 or unaligned strides runs
-// flash_kernel (bf16 only).
+// fp32 runs flash_tf32_kernel; bf16 at D % 8 != 0 or strides or bases TMA
+// cannot address runs flash_bf16_kernel.
 //
 // What both compute. For group g = (b, h) and query row i,
 //   o[i, :] = sum_j softmax_j(scale * q_i . k_j) v_j
@@ -22,8 +22,13 @@
 // a row with no key left ends with den = 0, clamped at 1e-30 (:84): its
 // output is exactly 0, the plain version's NaN -> 0. o is stored in v's
 // dtype. Tiles the masks leave empty are skipped with the TPU kernel's test
-// (:41-45) solved for the tile index: a causal block stops at its last live
-// tile, a windowed block starts at its first.
+// (:41-45) solved for the tile index (live_tiles): a causal block stops at
+// its last live tile, a windowed block starts at its first. Both kernels
+// share the tile bounds, the dead-warp test and the online softmax
+// (online_softmax: base 2 on scale * log2(e) scores, exp2f one MUFU op an
+// exp, masked weights zeroed, two-level den parts). The grid is (B * H,
+// ceil(Sq / 128)) with the query tiles longest first (block y takes tile
+// n - 1 - y, the causal tail), so B * H may reach 2^31 - 1.
 //
 // ---- flash_tf32_kernel: fp32 operands on the tensor cores ----------------
 //
@@ -83,35 +88,54 @@
 //     past D when staged; rows past Skv zero-filled; strides as given, 4-byte
 //     copies where rows are no whole 16-byte units (D % 4, unaligned views).
 //
-// ---- flash_kernel: bf16 on the CUDA cores --------------------------------
+// ---- flash_bf16_kernel: bf16 on the tensor cores off TMA's route ----------
 //
-// The bf16 calls flash_tc_kernel does not take (D % 8 != 0 or strides TMA
-// cannot address), in fp32 arithmetic on the CUDA cores (its own floor at
-// qwen2's layer 0 would be the 49 ms above). Each operand is staged once a
-// tile in shared memory as fp32 and each value read serves 4 products:
-//   * A block of 256 threads takes one group and BQ = 64 query rows, and a
-//     loop inside it walks the BK = 64-key tiles in order; the running max,
-//     den and acc stay in registers. Blocks are independent: grid
-//     (Sq / 64, B * H).
-//   * Per tile, the keys (transposed) and values are staged as fp32 in
-//     shared memory, zero-filled past Skv and past D. Thread (ty, tx) of the
-//     16 x 16 holds the scores of rows 4ty..4ty+3 against keys 4tx..4tx+3: one
-//     broadcast float4 of q and one float4 of k per 16 FMAs. The row max is
-//     reduced by shuffles across the row's 16 threads (one half warp), the
-//     weights are written transposed over the keys' buffer, and each thread
-//     accumulates its 4 rows times D / 16 dims of p v, one read of a value
-//     serving 4 rows.
-//   * Precision: two-level sums, as above (512 additions at S = 32,768).
-//   * Registers: two blocks an SM (96 KB of shared memory each at DP = 128)
-//     cap a thread at 128 registers; unrolled 4 and 2 the staging and value
-//     loops spill nothing (ptxas -v).
-//   * A deliberate difference: the TPU kernel rounds p to v's dtype before
-//     the value product (:75); this kernel keeps p in fp32. Only the loads
-//     of q, k, v and the store of o are bf16.
-//   * D is a run-time value up to 128 at the padded widths DP in {16, 32,
-//     64, 96, 128}, zero-filled past D in shared memory. q, k, v and o go
-//     by strides ([B, H, S, D] views of [B, S, H, D] activations), so the
-//     model's head split and merge cost no copy.
+// The bf16 calls flash_tc_kernel does not take: D % 8 != 0 (any D from 1 to
+// 128), or strides or bases TMA cannot address (a view off 16 bytes).
+// What bounds it: the two products, 4 * D FLOP a kept (query, key) pair:
+// 3.30 TFLOP at qwen2-1.5b's prefill_32k layer 0 (the figures above), 3.335
+// ms at the bf16 tensor-core peak; with P in two parts (below) the products
+// as issued are 4.95 TFLOP, 5.0 ms at 989 TFLOP/s and 7.8 ms at mma.sync's
+// measured bf16 rate (635 TFLOP/s, scripts/torch_mma_rate.py); the exps ~1.5
+// ms. Its predecessor ran in fp32 on the CUDA cores (131.6 ms on an NVIDIA
+// H100 80GB HBM3 at 700 W). With mma.sync every B fragment comes from shared
+// memory through ldmatrix, so shared-memory reads rival the MMAs. The
+// design, flash_tf32_kernel's tile loop on the bf16 MMA:
+//   * Products. mma.sync m16n8k16, bf16 in and fp32 accumulate. q, K and V
+//     are bf16 values, exact: S = Q K^T is one MMA a 16-wide step, summed
+//     over D in the tensor core, as flash_tc_kernel's wgmma does. The
+//     weights are not bf16 values: P = P_hi + P_lo, P_hi = bf16(p),
+//     P_lo = bf16(p - P_hi), two MMAs into one accumulator, which leaves
+//     ~2^-18 of p; one rounding (the TPU kernel's :75) moves o by ~2^-9 of
+//     |v| and misses the check beyond bf16's output rounding against fp64.
+//     P V takes P as the A operand straight from S's accumulator (the two
+//     layouts coincide), so P never touches shared memory.
+//   * Blocks. 4 warps of 32 query rows (BQ = 128): a warp's two 16-row
+//     m-tiles share every K and V fragment it reads, which halves the
+//     shared-memory reads a product against one m-tile a warp (8 warps of 16
+//     rows took 27.4 ms at qwen2's layer 0 on that H100, this 23.3:
+//     PERF.md). O (DP registers a thread), S and the two P parts fill the
+//     registers; 104 KB of shared memory at DP 128, two blocks an SM. A warp
+//     all of whose rows a tile masks skips its products; only tiles a mask
+//     crosses test pairs.
+//   * Fragments by ldmatrix from padded rows of DP + 8 elements (an odd
+//     number of 16-byte units, so the eight rows of each 8 x 8 matrix hit
+//     eight bank groups): Q as A fragments each step, K as [n][k] B
+//     fragments, V through .trans.
+//   * Staging. Only the device-memory side is unaligned; shared memory is
+//     laid out by the kernel. A row goes in pieces of `unit` bytes, the
+//     widest of 16, 8 and 4 that divides 2 D, every stride and every base
+//     (flash_route's off-TMA calls: D = 100 or a base off by 8 bytes take 8,
+//     a row stride of 60 bytes 4), by cp.async, rows past Skv (or Sq) zero-filled
+//     and nothing read for them; an odd D (unit 2) goes through registers.
+//     K and V tiles of BK = 64 keys are double-buffered: the next tile is in
+//     flight while this one computes, one barrier a tile. Lanes past D stay
+//     as the kernel zeroed them at its start.
+//   * Precision: two-level sums. A tile's P V goes into a fresh accumulator,
+//     16 columns at a time, folded into the carried O once a tile (a
+//     carried sum takes 512 additions at S = 32,768), and each thread's den
+//     part likewise.
+//   * Widths. D up to 128 at the padded widths DP in {16, 32, 64, 96, 128}.
 //
 // The entry points launch on the given stream, allocate nothing, and
 // return cudaGetLastError().
@@ -125,10 +149,7 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;         // query rows a block
-constexpr int BK = 64;         // keys a tile
-constexpr int THREADS = 256;   // 16 x 16: a 4 x 4 tile of scores each
-constexpr int LDP = BQ + 4;    // row of the transposed weights (float4-aligned, fewer conflicts)
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const void* q;   // [B, H, Sq, D] by strides, unit D stride (fp32 or bf16 by kernel)
@@ -139,258 +160,106 @@ struct Args {
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
   float scale;
   int causal, window;   // window < 0: no window
-  int vec;              // 1: rows load as 4-element vectors (D % 4 == 0, aligned)
+  int unit;             // bytes a copy of q, k, v rows: it divides each row, stride and base
 };
 
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T narrow(float x);
-template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+// This thread's copies of all but the newest N groups have landed (and are
+// visible to it).
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// Elements [d0, d0 + 4) of a row p[0, D) as fp32, zero past D (d0 < D).
-template <typename T>
-__device__ __forceinline__ float4 row4(const T* p, int d0, int D, bool vec) {
-  if (vec) return load4(p + d0);
-  float x[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) x[e] = d0 + e < D ? widen(p[d0 + e]) : 0.f;
-  return make_float4(x[0], x[1], x[2], x[3]);
-}
 
-// Rows [0, rows) of a strided [*, D] operand into shared memory transposed,
-// dst[d * 64 + r], zero for r >= rows or d >= D. Neighbouring threads take
-// neighbouring rows, so the transposed stores hit distinct banks.
-template <typename T, int DP>
-__device__ __forceinline__ void stage_t(float* dst, const T* src, long long stride, int rows,
-                                        int D, bool vec) {
-#pragma unroll 4
-  for (int i = 0; i < DP / 16; ++i) {   // 64 rows x DP / 4 quads over 256 threads
-    const int u = threadIdx.x + i * THREADS;
-    const int r = u % 64, d0 = (u / 64) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows && d0 < D) x = row4(src + r * stride, d0, D, vec);
-    dst[(d0 + 0) * 64 + r] = x.x;
-    dst[(d0 + 1) * 64 + r] = x.y;
-    dst[(d0 + 2) * 64 + r] = x.z;
-    dst[(d0 + 3) * 64 + r] = x.w;
-  }
-}
-
-// The same, row-major: dst[r * DP + d].
-template <typename T, int DP>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long stride, int rows,
-                                      int D, bool vec) {
-  constexpr int QUADS = DP / 4;
-#pragma unroll 4
-  for (int i = 0; i < DP / 16; ++i) {
-    const int u = threadIdx.x + i * THREADS;
-    const int r = u / QUADS, d0 = (u % QUADS) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows && d0 < D) x = row4(src + r * stride, d0, D, vec);
-    *reinterpret_cast<float4*>(dst + r * DP + d0) = x;
-  }
-}
-
-// NV consecutive floats of shared memory, in the widest aligned loads.
-template <int NV>
-__device__ __forceinline__ void read_row(float (&x)[NV], const float* p) {
-  if constexpr (NV % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < NV / 4; ++i) {
-      const float4 t = reinterpret_cast<const float4*>(p)[i];
-      x[4 * i] = t.x, x[4 * i + 1] = t.y, x[4 * i + 2] = t.z, x[4 * i + 3] = t.w;
-    }
-  } else if constexpr (NV % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < NV / 2; ++i) {
-      const float2 t = reinterpret_cast<const float2*>(p)[i];
-      x[2 * i] = t.x, x[2 * i + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) x[i] = p[i];
-  }
-}
-
-template <int DP>
-struct Layout {   // shared memory, in floats; every offset a multiple of 4
-  static constexpr int Q = 0;                                  // q [DP][BQ]
-  static constexpr int KP = Q + DP * BQ;                       // k [DP][BK], then p [BK][LDP]
-  static constexpr int V = KP + BK * (DP > LDP ? DP : LDP);    // v [BK][DP]
-  static constexpr int BYTES = (V + BK * DP) * 4;
-};
-
-// Grid (Sq / BQ, B * H). Block = group g, query rows [q0, q0 + BQ).
-template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS, 2) flash_kernel(Args a) {
-  using L = Layout<DP>;
-  constexpr int NV = DP / 16;   // output dims a thread accumulates
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float *q_s = smem + L::Q, *kp_s = smem + L::KP, *v_s = smem + L::V;
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int g = blockIdx.y, b = g / a.H, h = g % a.H;
-  const int q0 = blockIdx.x * BQ;
-  const T* q = static_cast<const T*>(a.q) + b * a.q_b + h * a.q_h + q0 * a.q_s;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_b + (h / a.group) * a.k_h;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_b + (h / a.group) * a.v_h;
-  const bool vec = a.vec;
-  stage_t<T, DP>(q_s, q, a.q_s, min(BQ, a.Sq - q0), a.D, vec);
-
-  // the live tiles: the TPU kernel's skip test solved for the tile index
-  int t_end = (a.Skv + BK - 1) / BK;
-  if (a.causal) t_end = min(t_end, (q0 + BQ - 1) / BK + 1);
-  int t_begin = 0;
+// The live key tiles [x, y) of a block's query rows [q0, q0 + BQ): the TPU
+// kernel's skip test (:41-45) solved for the tile index.
+template <int BQ, int BK>
+__device__ __forceinline__ int2 live_tiles(const Args& a, int q0) {
+  int end = (a.Skv + BK - 1) / BK;
+  if (a.causal) end = min(end, (q0 + BQ - 1) / BK + 1);
+  int begin = 0;
   if (a.window >= 0) {
     const long long lo = (long long)q0 - a.window - BK + 2;   // the least live k_start
-    if (lo > 0) t_begin = (int)((lo + BK - 1) / BK);
+    if (lo > 0) begin = (int)min((long long)end, (lo + BK - 1) / BK);
   }
-
-  const int r0 = q0 + ty * 4;   // this thread's rows r0..r0+3
-  float m[4], l[4], acc[4][NV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NV; ++n) acc[i][n] = 0.f;
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BK, kn = min(BK, a.Skv - k0);
-    __syncthreads();   // the previous tile's weights and values are read
-    stage_t<T, DP>(kp_s, k + k0 * a.k_s, a.k_s, kn, a.D, vec);
-    stage<T, DP>(v_s, v + k0 * a.v_s, a.v_s, kn, a.D, vec);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(q_s + d * BQ + ty * 4);
-      const float4 kb = *reinterpret_cast<const float4*>(kp_s + d * BK + tx * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w}, kv[4] = {kb.x, kb.y, kb.z, kb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // scale, then mask (:58-67); the row max over the row's 16 threads; the
-    // online softmax update with masked weights zeroed
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + i;
-      bool ok[4];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx * 4 + j;
-        ok[j] = c < a.Skv && (!a.causal || c <= r) && (a.window < 0 || c > r - a.window);
-        s[i][j] = ok[j] ? s[i][j] * a.scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      float tl = 0.f;   // this tile's part of the den: a fresh partial
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        tl += s[i][j];
-      }
-      l[i] = fmaf(l[i], alpha[i], tl);
-    }
-
-    __syncthreads();   // every thread has read the keys: their buffer takes the weights
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(kp_s + (tx * 4 + j) * LDP + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-    // p v over the tile (keys past Skv have p = 0 and zero-filled v)
-    float tacc[4][NV];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int n = 0; n < NV; ++n) tacc[i][n] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < BK; ++c) {
-      const float4 pc = *reinterpret_cast<const float4*>(kp_s + c * LDP + ty * 4);
-      const float pr[4] = {pc.x, pc.y, pc.z, pc.w};
-      float vv[NV];
-      read_row<NV>(vv, v_s + c * DP + tx * NV);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int n = 0; n < NV; ++n) tacc[i][n] = fmaf(pr[i], vv[n], tacc[i][n]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int n = 0; n < NV; ++n) acc[i][n] = fmaf(acc[i][n], alpha[i], tacc[i][n]);
-  }
-
-  // each row's den is the sum of its 16 threads' partials, clamped (:84)
-  T* o = static_cast<T*>(a.o) + b * a.o_b + h * a.o_h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float den = l[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) den += __shfl_xor_sync(0xffffffffu, den, off);
-    den = fmaxf(den, 1e-30f);
-    const int r = r0 + i;
-    if (r >= a.Sq) continue;
-#pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      const int d = tx * NV + n;
-      if (d < a.D) o[r * a.o_s + d] = narrow<T>(acc[i][n] / den);
-    }
-  }
+  return make_int2(begin, end);
 }
 
-template <typename T, int DP>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int bytes = Layout<DP>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
-  flash_kernel<T, DP><<<grid, THREADS, bytes, stream>>>(a);
-  return cudaGetLastError();
+// Whether the masks drop every pair of a warp's rows [R0, R0 + ROWS) and
+// the key tile [k0, k0 + BK): such a warp computes nothing.
+template <int BK, int ROWS = 16>
+__device__ __forceinline__ bool dead_rows(const Args& a, int k0, int R0) {
+  return R0 >= a.Sq || (a.causal && k0 > R0 + ROWS - 1) ||
+         (a.window >= 0 && (long long)k0 + BK - 1 <= (long long)R0 - a.window);
 }
 
-template <typename T>
-cudaError_t launch_d(const Args& a, cudaStream_t stream) {
-  if (a.D <= 16) return launch<T, 16>(a, stream);
-  if (a.D <= 32) return launch<T, 32>(a, stream);
-  if (a.D <= 64) return launch<T, 64>(a, stream);
-  if (a.D <= 96) return launch<T, 96>(a, stream);
-  return launch<T, 128>(a, stream);
+// One key tile of the online softmax, for a warp's rows r0 = R0 + g and
+// r1 = r0 + 8 (g = lane / 4, t = lane % 4): s holds their scores against
+// NT n-tiles of 8 keys from k0 (element e of n-tile n: row e < 2 ? r0 : r1,
+// key k0 + 8n + 2t + (e & 1)). They are scaled to base 2, masked (-1e30)
+// where a mask crosses the tile, and become the weights (masked ones exactly
+// 0); the rows' max (m0, m1, over the quad) and den parts (l0, l1, this
+// thread's, a tile's part formed apart and added once) are carried, and
+// al0, al1 are the rescale of what came before.
+template <int NT>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][4], const Args& a, int k0, int R0,
+                                               float scale2, float& m0, float& m1, float& l0,
+                                               float& l1, float& al0, float& al1) {
+  static_assert(NT <= 8, "a bit of `keep` an element");
+  const int t = threadIdx.x & 3, r0 = R0 + ((threadIdx.x & 31) >> 2), r1 = r0 + 8;
+  const bool whole = k0 + 8 * NT <= a.Skv && (!a.causal || k0 + 8 * NT - 1 <= R0) &&
+                     (a.window < 0 || (long long)k0 > (long long)R0 + 15 - a.window);
+  uint32_t keep = 0xffffffffu;
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[n][e] * scale2;
+      if (!whole) {
+        const int key = k0 + 8 * n + 2 * t + (e & 1), row = e < 2 ? r0 : r1;
+        if (!(key < a.Skv && (!a.causal || key <= row) &&
+              (a.window < 0 || key > row - a.window))) {
+          x = NEG_INF;
+          keep &= ~(1u << (4 * n + e));
+        }
+      }
+      s[n][e] = x;
+      if (e < 2)
+        mx0 = fmaxf(mx0, x);
+      else
+        mx1 = fmaxf(mx1, x);
+    }
+  mx0 = flare::quad_max(mx0);
+  mx1 = flare::quad_max(mx1);
+  const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+  al0 = exp2f(m0 - n0);
+  al1 = exp2f(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  float ts0 = 0.f, ts1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = (keep >> (4 * n + e)) & 1u ? exp2f(s[n][e] - (e < 2 ? n0 : n1)) : 0.f;
+      s[n][e] = p;
+      if (e < 2)
+        ts0 += p;
+      else
+        ts1 += p;
+    }
+  l0 = fmaf(l0, al0, ts0);
+  l1 = fmaf(l1, al1, ts1);
 }
 
 // ---------------------------------------------------------------------------
 // flash_tf32_kernel: fp32 on the TF32 tensor cores (the head comment).
 
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TBQ = 128;              // query rows a block: 8 warps of 16
 constexpr int TBK = 32;               // keys a tile
 constexpr int T_THREADS = 256;
@@ -470,32 +339,6 @@ __device__ __forceinline__ void tf_issue(unsigned char* raw, const float* k, con
   }
 }
 
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// This thread's copies of all but the newest N groups have landed (and are
-// visible to it).
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// d = a b, m16n8k8 TF32 from zero (C = 0): no accumulator to wait on
-__device__ __forceinline__ void mma_z(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                      uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-__device__ __forceinline__ uint4 split2(float x0, float x1) {
-  const uint32_t h0 = flare::tf32(x0), h1 = flare::tf32(x1);
-  return make_uint4(h0, h1, flare::tf32(x0 - __uint_as_float(h0)),
-                    flare::tf32(x1 - __uint_as_float(h1)));
-}
-
 // Split this thread's chunks of a raw stage into the B fragments of the
 // split tiles (flare_mma.cuh's stage_b orders): K's entry (n, kk, lane
 // 4g + t) = K[8n + g][8kk + t], K[8n + g][8kk + t + 4]; V's entry (s, kk,
@@ -514,7 +357,7 @@ __device__ __forceinline__ void tf_split(uint4* sk, uint4* sv, unsigned char* ra
 #pragma unroll
     for (int j = 0; j < 4; ++j) {   // rotated by g: fewer lanes of a store on one bank
       const int t = (j + g) & 3;
-      dst[t] = split2(x[t], x[t + 4]);
+      dst[t] = flare::split_b(x[t], x[t + 4]);
     }
   }
 #pragma unroll
@@ -529,7 +372,7 @@ __device__ __forceinline__ void tf_split(uint4* sk, uint4* sv, unsigned char* ra
     const float rb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
     uint4* dst = sv + (s * L::KS + kk) * 32 + t;
 #pragma unroll
-    for (int g = 0; g < 8; ++g) dst[4 * g] = split2(ra[g], rb[g]);
+    for (int g = 0; g < 8; ++g) dst[4 * g] = flare::split_b(ra[g], rb[g]);
   }
 }
 
@@ -552,18 +395,11 @@ __global__ void __launch_bounds__(T_THREADS, 1) flash_tf32_kernel(Args a) {
   const float* q = static_cast<const float*>(a.q) + b * a.q_b + h * a.q_h;
   const float* k = static_cast<const float*>(a.k) + b * a.k_b + hkv * a.k_h;
   const float* v = static_cast<const float*>(a.v) + b * a.v_b + hkv * a.v_h;
-  const bool vec = a.vec;
+  const bool vec = a.unit == 16;
   const float scale2 = a.scale * LOG2E;   // the softmax in base 2: one MUFU op an exp
 
-  // the live tiles: the TPU kernel's skip test for the block's rows
-  int t_end = (a.Skv + TBK - 1) / TBK;
-  if (a.causal) t_end = min(t_end, (q0 + TBQ - 1) / TBK + 1);
-  int t_begin = 0;
-  if (a.window >= 0) {
-    const long long lo = (long long)q0 - a.window - TBK + 2;   // the least live k_start
-    if (lo > 0) t_begin = (int)min((long long)t_end, (lo + TBK - 1) / TBK);
-  }
-  const int ntiles = t_end - t_begin;
+  const int2 live = live_tiles<TBQ, TBK>(a, q0);
+  const int t_begin = live.x, ntiles = live.y - live.x;
   auto issue = [&](int tile) {
     tf_issue<DP>(raw, k, v, a.k_s, a.v_s, tile * TBK, min(TBK, a.Skv - tile * TBK), a.D, vec);
   };
@@ -628,11 +464,8 @@ __global__ void __launch_bounds__(T_THREADS, 1) flash_tf32_kernel(Args a) {
     const uint4* sk = split + 2 * (i & 1) * L::SPLIT;
     const uint4* sv = sk + L::SPLIT;
 
-    // a warp all of whose pairs the masks drop computes nothing
-    const bool dead = R0 >= a.Sq || (a.causal && k0 > R0 + 15) ||
-                      (a.window >= 0 && (long long)k0 + TBK - 1 <= (long long)R0 - a.window);
     float s[T_NT][4];
-    if (!dead) {
+    if (!dead_rows<TBK>(a, k0, R0)) {
       // S = Q K^T: each 8-wide step's hi.hi product from zero into fp32 sums;
       // the small lo.hi + hi.lo terms (2^-11 of it) summed over D in the
       // tensor core, where its truncation costs ~2^-30 of a score
@@ -647,69 +480,15 @@ __global__ void __launch_bounds__(T_THREADS, 1) flash_tf32_kernel(Args a) {
         flare::FragA qf;
         flare::split_a(qf, x.x, x.y, x.z, x.w);
 #pragma unroll
-        for (int n = 0; n < T_NT; ++n) {
-          const uint4 b = sk[(n * KS + kk) * 32 + lane];
-          flare::mma(cs[n], qf.lo, b.x, b.y);
-          flare::mma(cs[n], qf.hi, b.z, b.w);
-          float z[4];
-          mma_z(z, qf.hi, b.x, b.y);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] += z[e];
-        }
+        for (int n = 0; n < T_NT; ++n)
+          flare::mma3_out(s[n], cs[n], qf, sk[(n * KS + kk) * 32 + lane]);
       }
 #pragma unroll
       for (int n = 0; n < T_NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] += cs[n][e];
-    }
-    if (!dead) {
-
-      // scale, mask (-1e30), the rows' max over the quad; element e of
-      // n-tile n is row e < 2 ? r0 : r1, key k0 + 8n + 2t + (e & 1)
-      const bool whole = k0 + TBK <= a.Skv && (!a.causal || k0 + TBK - 1 <= R0) &&
-                         (a.window < 0 || (long long)k0 > (long long)R0 + 15 - a.window);
-      uint32_t keep = 0xffffu;
-      float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-      for (int n = 0; n < T_NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[n][e] * scale2;
-          if (!whole) {
-            const int key = k0 + 8 * n + 2 * t + (e & 1), row = e < 2 ? r0 : r1;
-            if (!(key < a.Skv && (!a.causal || key <= row) &&
-                  (a.window < 0 || key > row - a.window))) {
-              x = NEG_INF;
-              keep &= ~(1u << (4 * n + e));
-            }
-          }
-          s[n][e] = x;
-          if (e < 2)
-            mx0 = fmaxf(mx0, x);
-          else
-            mx1 = fmaxf(mx1, x);
-        }
-      mx0 = flare::quad_max(mx0);
-      mx1 = flare::quad_max(mx1);
-      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-      const float al0 = exp2f(m0 - n0), al1 = exp2f(m1 - n1);
-      m0 = n0;
-      m1 = n1;
-      // the weights (masked ones exactly 0) and this tile's den parts
-      float ts0 = 0.f, ts1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < T_NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = (keep >> (4 * n + e)) & 1u ? exp2f(s[n][e] - (e < 2 ? n0 : n1)) : 0.f;
-          s[n][e] = p;
-          if (e < 2)
-            ts0 += p;
-          else
-            ts1 += p;
-        }
-      l0 = fmaf(l0, al0, ts0);
-      l1 = fmaf(l1, al1, ts1);
+      float al0, al1;
+      online_softmax(s, a, k0, R0, scale2, m0, m1, l0, l1, al0, al1);
       // P as the A operand of key step n: S's columns (2t, 2t + 1) as k (t, t + 4)
       flare::FragA pf[T_NT];
 #pragma unroll
@@ -760,6 +539,7 @@ __global__ void __launch_bounds__(T_THREADS, 1) flash_tf32_kernel(Args a) {
   }
 }
 
+
 template <int DP>
 cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
   constexpr int bytes = TfTiling<DP>::BYTES;
@@ -771,48 +551,315 @@ cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// flash_bf16_kernel: bf16 on the tensor cores off TMA's route (the head
+// comment).
+
+using bf16 = __nv_bfloat16;
+using flare::ldsm;
+using flare::ldsm_t;
+using flare::mma_bf16;
+using flare::split_bf16;
+
+constexpr int BBQ = 128;              // query rows a block
+constexpr int BBK = 64;               // keys a tile
+constexpr int B_MT = 2;               // 16-row m-tiles a warp: 4 warps, two blocks an SM
+constexpr int B_THREADS = 32 * BBQ / (16 * B_MT);
+constexpr int B_NT = BBK / 8;         // 8-key n-tiles of S a tile
+
+template <int DP>
+struct Bf16Layout {   // shared memory, in bf16 elements
+  static constexpr int DS = DP + 8;              // row stride: an odd number of 16-byte units
+  static constexpr int Q = 0;                    // q [BBQ][DS]
+  static constexpr int K = Q + BBQ * DS;         // k, two buffers [2][BBK][DS]
+  static constexpr int V = K + 2 * BBK * DS;     // v, two buffers [2][BBK][DS]
+  static constexpr int END = V + 2 * BBK * DS;
+  static constexpr int BYTES = END * 2;          // 104 KB at DP 128
+};
+
+// Rows [0, R) of a padded tile dst[r * DS + d] from a strided bf16 operand
+// (row stride `stride`, D elements a row, `rows` of them valid): by cp.async
+// in pieces of `unit` bytes where unit >= 4, rows past `rows` zero-filled
+// and nothing read for them; else through registers, two bytes at a time.
+// Lanes D <= d < DP are not written. Thread i takes pieces i, i + threads,
+// ... of the tile, its (row, piece) stepped without a division a piece.
+template <int DS, int R>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long stride,
+                                           int rows, int D, int unit) {
+  const int per = unit >= 4 ? unit / 2 : 1, pieces = D / per;   // elements a piece, pieces a row
+  const int dr = B_THREADS / pieces, dc = B_THREADS - dr * pieces;
+  int r = threadIdx.x / pieces, c = threadIdx.x - r * pieces;
+  for (; r < R; r += dr, c += dc) {
+    if (c >= pieces) {
+      c -= pieces;
+      if (++r >= R) break;
+    }
+    const bool on = r < rows;
+    const int e = c * per;
+    if (unit < 4) {
+      dst[r * DS + e] = on ? src[r * stride + e] : __float2bfloat16(0.f);
+      continue;
+    }
+    const bf16* from = on ? src + r * stride + e : src;
+    const uint32_t to = flare::smem_addr(dst + r * DS + e);
+    if (unit == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(to), "l"(from),
+                   "r"(on ? 16 : 0));
+    else if (unit == 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(to), "l"(from),
+                   "r"(on ? 8 : 0));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(to), "l"(from),
+                   "r"(on ? 4 : 0));
+  }
+}
+
+// Grid (B * H, ceil(Sq / BBQ)). Block: group (b, h), query tile n - 1 - y;
+// warp w its rows q0 + 16 B_MT w + [0, 16 B_MT), B_MT m-tiles of 16, so each
+// K and V fragment read from shared memory serves them all.
+template <int DP>
+__global__ void __launch_bounds__(B_THREADS, 256 / B_THREADS) flash_bf16_kernel(Args a) {
+  using L = Bf16Layout<DP>;
+  constexpr int DS = L::DS, KT = DP / 16;   // 16-wide steps of D (and column pairs of O)
+  constexpr int MT = B_MT;
+  extern __shared__ float4 smem4[];
+  bf16* sm = reinterpret_cast<bf16*>(smem4);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  // ldmatrix: lane l gives row l % 8 of matrix l / 8; a 16 x 16 block at
+  // (r, c) is read as an A operand from (r + r8 + hi8, c + hi16), a pair of
+  // B operands ([n][k] stored) from (r + r8 + hi16, c + hi8), transposed
+  // ([k][n] stored) from (r + r8 + hi8, c + hi16)
+  const int r8 = lane & 7, hi8 = 8 * ((lane >> 3) & 1), hi16 = 8 * (lane >> 4);
+  const int grp = blockIdx.x, b = grp / a.H, h = grp % a.H, hkv = h / a.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BBQ;
+  const int R0 = q0 + 16 * MT * warp;   // the warp's first row
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h + q0 * a.q_s;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_b + hkv * a.k_h;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_b + hkv * a.v_h;
+  const float scale2 = a.scale * LOG2E;
+
+  // zero all tiles once: the lanes past D stay zero
+  for (int i = threadIdx.x; i < L::END / 8; i += B_THREADS)
+    reinterpret_cast<uint4*>(sm)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  const int2 live = live_tiles<BBQ, BBK>(a, q0);
+  const int t_begin = live.x, ntiles = live.y - live.x;
+  auto load = [&](int tile, int buf) {
+    const int k0 = tile * BBK, kn = min(BBK, a.Skv - k0);
+    stage_rows<DS, BBK>(sm + L::K + buf * BBK * DS, k + k0 * a.k_s, a.k_s, kn, a.D, a.unit);
+    stage_rows<DS, BBK>(sm + L::V + buf * BBK * DS, v + k0 * a.v_s, a.v_s, kn, a.D, a.unit);
+  };
+  stage_rows<DS, BBQ>(sm + L::Q, q, a.q_s, min(BBQ, a.Sq - q0), a.D, a.unit);
+  if (ntiles > 0) load(t_begin, 0);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  // the warp's rows of q, read as A fragments each step (in registers they
+  // would take DP / 2 of them a thread)
+  const bf16* qs = sm + L::Q + (16 * MT * warp + r8 + hi8) * DS + hi16;
+
+  float o[MT][2 * KT][4], m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < 2 * KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.f;
+    m[mt][0] = m[mt][1] = NEG_INF;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int tile = t_begin + i, k0 = tile * BBK, buf = i & 1;
+    if (i > 0) {   // this tile has landed, and every warp is done with the one before
+      cp_wait<0>();
+      __syncthreads();
+    }
+    if (i + 1 < ntiles) load(tile + 1, buf ^ 1);
+    cp_commit();
+    if (dead_rows<BBK, 16 * MT>(a, k0, R0)) continue;
+    const bf16* ks = sm + L::K + buf * BBK * DS;
+    const bf16* vs = sm + L::V + buf * BBK * DS;
+
+    // S = Q K^T over D in the tensor core (q and k exact in bf16)
+    float s[MT][B_NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < B_NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      uint32_t qa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ldsm(qa[mt], qs + 16 * mt * DS + 16 * kt);
+#pragma unroll
+      for (int np = 0; np < B_NT / 2; ++np) {
+        uint32_t bb[4];
+        ldsm(bb, ks + (16 * np + r8 + hi16) * DS + 16 * kt + hi8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * np], qa[mt], bb[0], bb[1]);
+          mma_bf16(s[mt][2 * np + 1], qa[mt], bb[2], bb[3]);
+        }
+      }
+    }
+    // the softmax a m-tile at a time; P in two bf16 parts as the A fragments
+    // of the key steps kk (keys [16 kk, +16)): S's n-tiles 2 kk and 2 kk + 1
+    // as they stand
+    float al[MT][2];
+    uint32_t ph[MT][B_NT / 2][4], pl[MT][B_NT / 2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      online_softmax(s[mt], a, k0, R0 + 16 * mt, scale2, m[mt][0], m[mt][1], l[mt][0], l[mt][1],
+                     al[mt][0], al[mt][1]);
+#pragma unroll
+      for (int kk = 0; kk < B_NT / 2; ++kk) {
+        split_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1], ph[mt][kk][0], pl[mt][kk][0]);
+        split_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3], ph[mt][kk][1], pl[mt][kk][1]);
+        split_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1], ph[mt][kk][2], pl[mt][kk][2]);
+        split_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3], ph[mt][kk][3], pl[mt][kk][3]);
+      }
+    }
+    // O = O * alpha + P V, 16 columns at a time through a fresh accumulator:
+    // the tile's 8 MMAs a column tile summed in the tensor core, small part
+    // first
+#pragma unroll
+    for (int c = 0; c < KT; ++c) {
+      float f[MT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[mt][p][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < B_NT / 2; ++kk) {
+        uint32_t vb[4];
+        ldsm_t(vb, vs + (16 * kk + r8 + hi8) * DS + 16 * c + hi16);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            mma_bf16(f[mt][p], pl[mt][kk], vb[2 * p], vb[2 * p + 1]);
+            mma_bf16(f[mt][p], ph[mt][kk], vb[2 * p], vb[2 * p + 1]);
+          }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          float* oc = o[mt][2 * c + p];
+          oc[0] = fmaf(oc[0], al[mt][0], f[mt][p][0]);
+          oc[1] = fmaf(oc[1], al[mt][0], f[mt][p][1]);
+          oc[2] = fmaf(oc[2], al[mt][1], f[mt][p][2]);
+          oc[3] = fmaf(oc[3], al[mt][1], f[mt][p][3]);
+        }
+    }
+  }
+  cp_wait<0>();
+
+  // each row's den is the sum of its 4 threads' parts, clamped (:84)
+  bf16* og = static_cast<bf16*>(a.o) + b * a.o_b + h * a.o_h;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r0 = R0 + 16 * mt + g, r1 = r0 + 8;
+    const float d0 = fmaxf(flare::quad_sum(l[mt][0]), 1e-30f);
+    const float d1 = fmaxf(flare::quad_sum(l[mt][1]), 1e-30f);
+#pragma unroll
+    for (int n = 0; n < 2 * KT; ++n) {
+      const int col = 8 * n + 2 * t;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (col + c >= a.D) continue;
+        if (r0 < a.Sq) og[r0 * a.o_s + col + c] = __float2bfloat16(o[mt][n][c] / d0);
+        if (r1 < a.Sq) og[r1 * a.o_s + col + c] = __float2bfloat16(o[mt][n][2 + c] / d1);
+      }
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  constexpr int bytes = Bf16Layout<DP>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.Sq + BBQ - 1) / BBQ);
+  flash_bf16_kernel<DP><<<grid, B_THREADS, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// f(DP) at the padded width of D: 16, 32, 64, 96 or 128
+template <typename F>
+cudaError_t at_width(int D, F&& f) {
+  using std::integral_constant;
+  if (D <= 16) return f(integral_constant<int, 16>{});
+  if (D <= 32) return f(integral_constant<int, 32>{});
+  if (D <= 64) return f(integral_constant<int, 64>{});
+  if (D <= 96) return f(integral_constant<int, 96>{});
+  return f(integral_constant<int, 128>{});
+}
+
+// The arguments of either entry point, or false where a kernel does not
+// take them: 1 <= D <= 128, B * H < 2^31, ceil(Sq / 128) <= 65535.
+bool args_of(Args& a, const void* q, const void* k, const void* v, void* o, int B, int H,
+             int Hkv, int Sq, int Skv, int D, const long long* st, float scale, int causal,
+             int window, int unit) {
+  if (D < 1 || D > 128 || Sq < 1 || Skv < 1 || B < 1 || Hkv < 1 || H % Hkv ||
+      (long long)B * H > 2147483647LL || (Sq + BBQ - 1) / BBQ > 65535)
+    return false;
+  a = Args{q, k, v, o, B, H, H / Hkv, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5],
+           st[6], st[7], st[8], st[9], st[10], st[11], scale, causal, window, unit};
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 // bf16 q [B, H, Sq, D], k, v [B, Hkv, Skv, D] (Hkv | H) by element strides
-// (b, h, s; the D stride is 1), o [B, H, Sq, D] bf16: the CUDA-core kernel.
-// 1 <= D <= 128, B * H <= 65535. window < 0: no window. vec = 1 only when
-// D % 4 == 0 and every stride and base pointer is a multiple of 4 elements.
-int flash_attention(const void* q, const void* k, const void* v, void* o, int B, int H,
-                    int Hkv, int Sq, int Skv, int D, long long q_b, long long q_h,
-                    long long q_s, long long k_b, long long k_h, long long k_s,
-                    long long v_b, long long v_h, long long v_s, long long o_b,
-                    long long o_h, long long o_s, float scale, int causal, int window,
-                    int vec, void* stream) {
-  if (D < 1 || D > 128 || Sq < 1 || Skv < 1 || B * H < 1 || B * H > 65535 || Hkv < 1 ||
-      H % Hkv)
+// (b, h, s; the D stride is 1), o [B, H, Sq, D] bf16: the bf16 tensor-core
+// kernel off TMA's route. 1 <= D <= 128, B * H < 2^31, ceil(Sq / 128) <=
+// 65535. window < 0: no window. unit: the bytes of one copy of a row's
+// piece, 16, 8, 4 (cp.async) or 2 (through registers); it divides 2 D, the
+// bytes of every stride of q, k, v and every base address.
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+                         int Hkv, int Sq, int Skv, int D, long long q_b, long long q_h,
+                         long long q_s, long long k_b, long long k_h, long long k_s,
+                         long long v_b, long long v_h, long long v_s, long long o_b,
+                         long long o_h, long long o_s, float scale, int causal, int window,
+                         int unit, void* stream) {
+  const long long st[12] = {q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s};
+  Args a;
+  if ((unit != 16 && unit != 8 && unit != 4 && unit != 2) || (2 * D) % unit ||
+      !args_of(a, q, k, v, o, B, H, Hkv, Sq, Skv, D, st, scale, causal, window, unit))
     return cudaErrorInvalidValue;
-  Args a{q, k, v, o, B, H, H / Hkv, Sq, Skv, D, q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s,
-         o_b, o_h, o_s, scale, causal, window, vec};
-  return launch_d<__nv_bfloat16>(a, (cudaStream_t)stream);
+  return at_width(D, [&](auto dp) {
+    return launch_bf16<decltype(dp)::value>(a, (cudaStream_t)stream);
+  });
 }
 
-// fp32 q, k, v, o as above: the TF32 tensor-core kernel. B * H < 2^31,
-// ceil(Sq / 128) <= 65535. vec = 1 only when D % 4 == 0 and every stride
-// and base pointer is a multiple of 4 elements (16-byte copies).
+// fp32 q, k, v, o as above: the TF32 tensor-core kernel. unit: 16 only
+// when D % 4 == 0 and every stride and base pointer is a multiple of 4
+// elements (16-byte copies), else 4.
 int flash_attention_tf32(const void* q, const void* k, const void* v, void* o, int B, int H,
                          int Hkv, int Sq, int Skv, int D, long long q_b, long long q_h,
                          long long q_s, long long k_b, long long k_h, long long k_s,
                          long long v_b, long long v_h, long long v_s, long long o_b,
                          long long o_h, long long o_s, float scale, int causal, int window,
-                         int vec, void* stream) {
-  if (D < 1 || D > 128 || Sq < 1 || Skv < 1 || B < 1 || Hkv < 1 || H % Hkv ||
-      (long long)B * H > 2147483647LL || (Sq + TBQ - 1) / TBQ > 65535)
+                         int unit, void* stream) {
+  const long long st[12] = {q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s};
+  Args a;
+  if ((unit != 16 && unit != 4) ||
+      !args_of(a, q, k, v, o, B, H, Hkv, Sq, Skv, D, st, scale, causal, window, unit))
     return cudaErrorInvalidValue;
-  Args a{q, k, v, o, B, H, H / Hkv, Sq, Skv, D, q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s,
-         o_b, o_h, o_s, scale, causal, window, vec};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 16) return launch_tf32<16>(a, s);
-  if (D <= 32) return launch_tf32<32>(a, s);
-  if (D <= 64) return launch_tf32<64>(a, s);
-  if (D <= 96) return launch_tf32<96>(a, s);
-  return launch_tf32<128>(a, s);
+  return at_width(D, [&](auto dp) {
+    return launch_tf32<decltype(dp)::value>(a, (cudaStream_t)stream);
+  });
 }
 
 }  // extern "C"

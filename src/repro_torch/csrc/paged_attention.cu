@@ -147,6 +147,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "flare_mma.cuh"
+
 #include <mutex>
 
 namespace {
@@ -1238,21 +1240,11 @@ __device__ __forceinline__ void widen_rows(unsigned char* dst, int drow, const u
   }
 }
 
-// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 (.trans: each matrix transposed)
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// The m16n8k16 fragments (bf16 in, fp32 out), g = lane / 4, t = lane % 4:
-// A 16 x 16 (a0 (g, 2t..2t+1), a1 (g+8, ..), a2 (g, 2t+8..), a3 (g+8,
-// 2t+8..)), B 16 x 8 (b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)), C c0, c1
-// (g, 2t..2t+1), c2, c3 (g+8, ..).
+// ldmatrix and the m16n8k16 MMA (bf16 in, fp32 out; the fragments are
+// flare_mma.cuh's)
+using flare::ldsm;
+using flare::ldsm_t;
+using flare::mma_bf16z;
 
 // x = p0 + p1 + p2 exactly, each part bf16 (8 significant bits each, rounded
 // to nearest: together the 24 of fp32)
@@ -1301,28 +1293,19 @@ __device__ __forceinline__ bool q_frags(uint32_t (&f)[3][4], const Q* x, long lo
   return exact;
 }
 
-// d = a b, m16n8k16 from zero (C = 0): no accumulator to wait on
-__device__ __forceinline__ void mma16z(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
 // s += q b with q in its parts (the lower two skipped where q is
 // bf16-valued): independent MMAs from zero, summed small terms first in fp32
 __device__ __forceinline__ void mma_q(float (&s)[4], const uint32_t (&f)[3][4], bool exact,
                                       uint32_t b0, uint32_t b1) {
   float x[4], y[4], z[4];
-  mma16z(z, f[0], b0, b1);
+  mma_bf16z(z, f[0], b0, b1);
   if (exact) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[e] += z[e];
     return;
   }
-  mma16z(x, f[2], b0, b1);
-  mma16z(y, f[1], b0, b1);
+  mma_bf16z(x, f[2], b0, b1);
+  mma_bf16z(y, f[1], b0, b1);
 #pragma unroll
   for (int e = 0; e < 4; ++e) s[e] += (x[e] + y[e]) + z[e];
 }
@@ -1561,12 +1544,12 @@ __global__ void __launch_bounds__(MLA_THREADS, DP == 256 ? 2 : 1) paged_mla_tc_k
 #pragma unroll
           for (int p = 0; p < 2; ++p) {
             float x[4], y[4];
-            mma16z(y, ah[j], vb[2 * p], vb[2 * p + 1]);
+            mma_bf16z(y, ah[j], vb[2 * p], vb[2 * p + 1]);
             if (round_p) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) f[p][e] += y[e];
             } else {
-              mma16z(x, alo[j], vb[2 * p], vb[2 * p + 1]);
+              mma_bf16z(x, alo[j], vb[2 * p], vb[2 * p + 1]);
 #pragma unroll
               for (int e = 0; e < 4; ++e) f[p][e] += x[e] + y[e];
             }

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "flare_causal": [_P] * 6 + [_I] * 5 + [_LL] * 9 + [_I] + [_P],
     "paged_attention_splits": [_I] * 8,
     "paged_attention": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 4 + [_P, _PI],
-    "flash_attention": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 3 + [_P],
+    "flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 3 + [_P],
     "flash_attention_tf32": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 3 + [_P],
     "flash_attention_tc": [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_F] + [_I] * 2 + [_P],
 }

@@ -1,4 +1,4 @@
-"""Flash attention: two CUDA kernels for Hopper with their plain version.
+"""Flash attention: three CUDA kernels for Hopper with their plain version.
 
 Counterpart of ``repro/kernels/attention.py``: :func:`flash_attention`
 replaces ``_flash_kernel`` / ``flash_attention_pallas``, softmax attention
@@ -12,8 +12,11 @@ picks from dtype, D and strides alone:
 * ``"tensor_core"``: bf16 with D a multiple of 8 and tensors TMA can
   address, ``csrc/flash_attention_sm90.cu`` (wgmma, TMA loads, a split
   P that keeps the value product to ~2^-18 of p);
-* ``"cuda_core"``: any other bf16 call, ``csrc/flash_attention.cu``'s
-  ``flash_kernel`` in fp32 arithmetic on the CUDA cores;
+* ``"bf16_mma"``: any other bf16 call (D % 8 != 0, or strides or bases TMA
+  cannot address), ``csrc/flash_attention.cu``'s ``flash_bf16_kernel``
+  (``mma.sync`` m16n8k16 on the tensor cores, the same split P; rows come
+  in by ``cp.async`` in the widest pieces of 16, 8 or 4 bytes their D,
+  strides and bases allow, else two bytes at a time through registers);
 * ``"fp32"``: fp32 operands, ``csrc/flash_attention.cu``'s
   ``flash_tf32_kernel`` on the TF32 tensor cores, every operand split in
   two TF32 parts and each product three MMAs (its fp64 check at 1e-5 of
@@ -36,10 +39,10 @@ by route, in ``flash_attention.launches_by_route``. Forward-only, as the TPU
 kernel.
 
 One deliberate difference: the TPU kernel rounds the softmax weights to v's
-dtype before the value product; the CUDA-core kernel keeps them in fp32, the
-bf16 tensor-core kernel splits them into two bf16 parts and the TF32 kernel
-into two TF32 parts (bf16 is held at its tolerance and, on the card, beyond
-its output rounding against fp64).
+dtype before the value product; both bf16 kernels split them into two bf16
+parts (``kernels/ref.py::flash_attention_bf16_split_ref`` emulates them) and
+the TF32 kernel into two TF32 parts (bf16 is held at its tolerance and, on
+the card, beyond its output rounding against fp64).
 """
 from __future__ import annotations
 
@@ -53,9 +56,8 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 KV_TILE = 64          # keys a tile of the bf16 kernels (the TF32 kernel's is 32)
 MAX_HEAD_DIM = 128
-MAX_GROUPS = 65535    # B*H rides on gridDim.y of csrc/flash_attention.cu's flash_kernel
-TC_QUERY_TILE = 128   # query rows a block of both tensor-core kernels (gridDim.y)
-ROUTES = ("tensor_core", "cuda_core", "fp32")
+QUERY_TILE = 128      # query rows a block of every kernel (gridDim.y; B*H on gridDim.x)
+ROUTES = ("tensor_core", "bf16_mma", "fp32")
 _INT_MAX = 2**31 - 1
 
 
@@ -87,11 +89,26 @@ def _aligned(t: torch.Tensor, elems: int) -> bool:
             and all(st % elems == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
 
 
+def copy_unit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The bytes of one copy of a q, k or v row's piece in the ``bf16_mma``
+    and ``fp32`` kernels: the widest of 16, 8 and 4 that divides a row (D
+    elements), every stride and every base; else the element (bf16: 2 bytes,
+    through registers; fp32: 4, by ``cp.async``). The TF32 kernel copies 16
+    bytes or 4."""
+    size, d = q.element_size(), q.shape[-1]
+    units = (16, 8, 4) if size == 2 else (16,)
+    for unit in units:
+        elems = unit // size
+        if d % elems == 0 and all(_aligned(t, elems) for t in (q, k, v)):
+            return unit
+    return size
+
+
 def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel a call on the card runs, from dtype, D and strides alone
     (never from a failure): "tensor_core" for bf16 with D % 8 == 0 (D <= 128)
     whose q, k and v TMA can address (a unit D stride, 16-byte bases and
-    every other stride a multiple of 16 bytes); "cuda_core" for any other
+    every other stride a multiple of 16 bytes); "bf16_mma" for any other
     bf16 call; "fp32" for fp32."""
     if q.dtype == torch.float32:
         return "fp32"
@@ -99,7 +116,7 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
         raise ValueError(f"flash_attention: dtype {q.dtype} not in {list(DTYPE_CODES)}")
     d = q.shape[-1]
     tma = all(t.stride(-1) == 1 and _aligned(t, 8) for t in (q, k, v))
-    return "tensor_core" if d % 8 == 0 and d <= MAX_HEAD_DIM and tma else "cuda_core"
+    return "tensor_core" if d % 8 == 0 and d <= MAX_HEAD_DIM and tma else "bf16_mma"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
@@ -109,7 +126,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale:
     the same batch and D with Skv rows and Hkv | H heads -> o of q's shape
     in v's dtype. ``causal`` keeps key j <= query i, ``window`` keeps
     j > i - window; a row with no key left returns 0. ``route``: the kernel
-    to run on the card (default :func:`flash_route`'s pick); "cuda_core" runs
+    to run on the card (default :func:`flash_route`'s pick); "bf16_mma" runs
     any bf16 call, "tensor_core" only the calls :func:`flash_route` gives it."""
     forbid_grad("flash_attention", q, k, v,
                 grads_via="attn_sdpa's 'xla' or 'chunked' route (the flash kernel is "
@@ -135,12 +152,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale:
     q4, k4, v4 = (t.unsqueeze(0) if squeeze else t for t in (q, k, v))
     b, h, sq, _ = q4.shape
     hkv, skv = k4.shape[1], k4.shape[2]
-    tiles = -(-sq // TC_QUERY_TILE)
-    tensor = route != "cuda_core"
-    if (b * h > (_INT_MAX if tensor else MAX_GROUPS)
-            or max(sq, skv) > _INT_MAX or (tensor and tiles > 65535)):
-        raise ValueError(f"flash_attention: B*H {b * h} (<= {MAX_GROUPS} on the CUDA cores), "
-                         f"Sq {sq} (<= {65535 * TC_QUERY_TILE} on the tensor cores), Skv {skv}")
+    if b * h > _INT_MAX or max(sq, skv) > _INT_MAX or -(-sq // QUERY_TILE) > 65535:
+        raise ValueError(f"flash_attention: B*H {b * h} (< 2**31), Sq {sq} "
+                         f"(<= {65535 * QUERY_TILE}), Skv {skv}")
     dev = q.device
     o = heads_out(b, h, sq, d, v.dtype, dev)
     strides = (*q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3], *o.stride()[:3])
@@ -151,10 +165,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale:
         err = lib.flash_attention_tc(ptr(q4), ptr(k4), ptr(v4), ptr(o), b, h, hkv, sq, skv, d,
                                      *strides, float(scale), int(causal), window, stream)
     else:
-        vec = d % 4 == 0 and all(_aligned(t, 4) for t in (q4, k4, v4))
-        entry = lib.flash_attention_tf32 if route == "fp32" else lib.flash_attention
+        entry = lib.flash_attention_tf32 if route == "fp32" else lib.flash_attention_bf16
         err = entry(ptr(q4), ptr(k4), ptr(v4), ptr(o), b, h, hkv, sq, skv, d, *strides,
-                    float(scale), int(causal), window, int(vec), stream)
+                    float(scale), int(causal), window, copy_unit(q4, k4, v4), stream)
     _build.check(err, f"flash_attention ({route})")
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1

@@ -7,9 +7,12 @@ Counterpart of ``repro/kernels/flare_causal.py``:
 ``Model.forward``.
 
 The kernel is in ``csrc/flare_causal.cu``, whose head comment says what
-bounds it on an H100 and what its design does about it: bf16 runs
-``causal_tc_kernel`` on the tensor cores, fp32 ``causal_kernel`` on the CUDA
-cores. Its token tile (``TILE``, both routes) is its own constant: the
+bounds it on an H100 and what its design does about it: both routes run on
+the tensor cores, bf16 ``causal_tc_kernel`` (``mma.sync`` bf16) and fp32
+``causal_tf32_kernel`` (``mma.sync`` TF32, every operand split in two TF32
+parts; ``kernels/ref.py::flare_causal_split_ref(split="tf32")`` emulates
+its products). Its token tile (``TILE``, the bf16 route's; the fp32 route
+takes half of it) is its own constant: the
 result depends on the tile only through rounding and the bounded-score
 contract of ``core/flare_stream.py``, so the plan carries no tile (the TPU
 kernel takes the plan's ``chunk_size``). The wrapper
@@ -37,8 +40,8 @@ from repro_torch.kernels.flare import (
 )
 from repro_torch.kernels.ref import flare_causal_chunk_ref
 
-TILE = 64                            # tokens per tile of csrc/flare_causal.cu
-HEAD_DIMS = range(1, 129)   # D it takes (padded: fp32 8 / 16 / 32 / 64 / 128, bf16 32 up)
+TILE = 64                            # tokens per tile of csrc/flare_causal.cu's bf16 route
+HEAD_DIMS = range(1, 129)   # D it takes (padded to 32, 64 or 128)
 
 
 def flare_causal_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -291,28 +291,31 @@ def flare_causal_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flare_causal_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                           tile: int = 64, parts: int = 2) -> torch.Tensor:
-    """Causal FLARE with the products of the causal kernel's bf16 route
-    (``csrc/flare_causal.cu::causal_tc_kernel``) emulated: f1, f2, the
-    intra-tile mixing a and the carried numerator enter each product as
-    bf16 parts (``parts=2``: hi + lo, the kernel's choice; ``parts=1``: hi
-    alone, one rounding), a product of two such operands drops lo.lo; the
-    products are exact (fp64), the weights and sums fp32. q [H, M, D],
-    k/v [B, H, T, D] holding bf16 values -> y [B, H, T, D] fp32. Over all M
-    at once: the kernel's 64-latent slices and their merge change only the
-    order of fp32 sums."""
+                           tile: int = 64, parts: int = 2, split: str = "bf16") -> torch.Tensor:
+    """Causal FLARE with the products of one of the causal kernel's routes
+    emulated (``csrc/flare_causal.cu``). ``split="bf16"``, the bf16 route
+    (``causal_tc_kernel``, tile 64): q, k, v hold bf16 values and enter
+    exactly; f1, f2, the intra-tile mixing a and the carried numerator enter
+    each product as bf16 parts. ``split="tf32"``, the fp32 route
+    (``causal_tf32_kernel``, tile 32): every operand, q, k and v too, enters
+    as TF32 parts. ``parts=2``: hi + lo, the kernels' choice, a product of
+    two split operands drops lo.lo; ``parts=1``: hi alone, one rounding.
+    The products are exact (fp64), the weights and sums fp32. q [H, M, D],
+    k/v [B, H, T, D] -> y [B, H, T, D] fp32. Over all M at once: the
+    kernel's 64-latent slices and their merge change only the order of fp32
+    sums."""
+    cut = bf16_split if split == "bf16" else tf32_split
+    exact = split == "bf16"   # q, k and v are bf16 values: exact in a bf16 MMA
+
     def part(x):
-        hi, lo = bf16_split(x)
+        hi, lo = cut(x)
         return hi.double(), (lo if parts == 2 else torch.zeros_like(lo)).double()
 
-    def mm(eq, a, b, *, b_exact=False):
-        ah, al = part(a)
-        if b_exact:
-            bd = b.double()
-            return (torch.einsum(eq, al, bd) + torch.einsum(eq, ah, bd)).float()
-        bh, bl = part(b)
-        return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
-                + torch.einsum(eq, ah, bh)).float()
+    def mm(eq, a, b, *, a_exact=False, b_exact=False):
+        (ah, al), (bh, bl) = ((x.double(), None) if ex else part(x)
+                              for x, ex in ((a, a_exact), (b, b_exact)))
+        pairs = ([] if a_exact else [(al, bh)]) + ([] if b_exact else [(ah, bl)]) + [(ah, bh)]
+        return sum(torch.einsum(eq, x, y) for x, y in pairs).float()
 
     b, h, t, d = k.shape
     m = q.shape[1]
@@ -322,7 +325,7 @@ def flare_causal_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ys = []
     for t0 in range(0, t, tile):
         kt, vt = k[:, :, t0:t0 + tile], v[:, :, t0:t0 + tile].float()
-        s = torch.einsum("hmd,bhtd->bhmt", q.double(), kt.double()).float()
+        s = mm("hmd,bhtd->bhmt", q, kt, a_exact=exact, b_exact=exact)
         ref = torch.maximum(mx, s.amax(dim=-1))
         scale = torch.exp(mx - ref)
         f1 = torch.exp(s - ref[..., None])
@@ -332,11 +335,45 @@ def flare_causal_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         carry = num * scale[..., None]
         y = mm("bhmt,bhmd->bhtd", f2, carry)
         a = mm("bhmt,bhmu->bhtu", f2, f1).tril_()
-        y = y + mm("bhtu,bhud->bhtd", a, vt, b_exact=True)
-        num = carry + mm("bhmt,bhtd->bhmd", f1, vt, b_exact=True)
+        y = y + mm("bhtu,bhud->bhtd", a, vt, b_exact=exact)
+        num = carry + mm("bhmt,bhtd->bhmd", f1, vt, b_exact=exact)
         den, mx = cden[..., -1], ref
         ys.append(y / w.sum(dim=-2)[..., None])
     return torch.cat(ys, dim=2)
+
+
+def flash_attention_bf16_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                   scale: float, causal: bool = True, window=None,
+                                   parts: int = 2) -> torch.Tensor:
+    """The bf16 flash routes with their products emulated (``csrc/
+    flash_attention.cu::flash_bf16_kernel``, and ``flash_attention_sm90.cu::
+    flash_tc_kernel`` alike): q, k and v bf16 values (exact in a bf16 MMA),
+    S = q k^T exact, then fp32 scale, masks, max, weights and den (clamped
+    at 1e-30, so a row with no key gives 0); the weights enter P V as bf16
+    parts (``parts=2``: hi + lo, the kernels' choice; ``parts=1``: hi alone,
+    the TPU kernel's one rounding), the product exact. Over a whole row at
+    once: the kernels' key tiles and online rescaling change only the order
+    of fp32 sums. q [..., H, Sq, D], k/v [..., Hkv, Skv, D] (Hkv | H) ->
+    o [..., H, Sq, D] fp32, before its rounding to bf16."""
+    if q.dim() >= 3 and k.shape[-3] != q.shape[-3]:
+        groups = q.shape[-3] // k.shape[-3]
+        k, v = (t.repeat_interleave(groups, dim=-3) for t in (k, v))
+    sq, skv = q.shape[-2], k.shape[-2]
+    s = torch.einsum("...sd,...td->...st", q.double(), k.double()).float() * scale
+    qi = torch.arange(sq, device=q.device)[:, None]
+    ki = torch.arange(skv, device=q.device)[None, :]
+    keep = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= ki <= qi
+    if window is not None:
+        keep &= ki > qi - window
+    s = s.masked_fill(~keep, -torch.inf)
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - torch.where(torch.isfinite(mx), mx, 0)), 0)
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    hi, lo = bf16_split(p)
+    pw = hi.double() + (lo.double() if parts == 2 else 0)
+    return torch.einsum("...st,...td->...sd", pw, v.double()).float() / den
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,

@@ -180,20 +180,37 @@ def _route_operands(case: str):
 
 
 ROUTE_CASES = {"bf16 D=8": "tensor_core", "bf16 D=96": "tensor_core",
-               "bf16 D=128": "tensor_core", "bf16 D=5": "cuda_core",
-               "bf16 row stride 30": "cuda_core", "bf16 base off by 8 bytes": "cuda_core",
+               "bf16 D=128": "tensor_core", "bf16 D=5": "bf16_mma",
+               "bf16 row stride 30": "bf16_mma", "bf16 base off by 8 bytes": "bf16_mma",
                "fp32 D=128": "fp32"}
 
 
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
 def test_flash_route(case):
     """flash_route picks the kernel from dtype, D and strides alone: the
-    tensor cores for bf16 at D % 8 == 0 that TMA can address (16-byte base
-    and strides), the CUDA cores for any other bf16 call, fp32's own route;
-    other dtypes raise."""
+    wgmma kernel for bf16 at D % 8 == 0 that TMA can address (16-byte base
+    and strides), the mma.sync bf16 kernel for any other bf16 call, fp32's
+    own route; other dtypes raise."""
     assert tkernel.flash_route(*_route_operands(case)) == ROUTE_CASES[case]
     with pytest.raises(ValueError, match="dtype"):
         tkernel.flash_route(*(t.half() for t in _route_operands("bf16 D=8")))
+
+
+UNIT_CASES = {"bf16 D=5": 2, "bf16 row stride 30": 4, "bf16 base off by 8 bytes": 8,
+              "bf16 D=100": 8, "bf16 D=128": 16, "fp32 D=128": 16, "fp32 D=5": 4}
+
+
+@pytest.mark.parametrize("case", list(UNIT_CASES))
+def test_copy_unit(case):
+    """The bytes a copy of the bf16_mma and fp32 kernels moves: the widest of
+    16, 8 and 4 (bf16) or 16 (fp32) that divides a row, every stride and
+    every base, else one element (a row stride of 60 bytes takes 4, a base 8
+    bytes off takes 8, D=100 takes 8: 200-byte rows)."""
+    if case == "fp32 D=5":
+        ops = tuple(t.float() for t in _route_operands("bf16 D=5"))
+    else:
+        ops = _route_operands(case)
+    assert tkernel.copy_unit(*ops) == UNIT_CASES[case]
 
 
 def _jcfg(cfg):

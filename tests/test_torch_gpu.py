@@ -570,7 +570,7 @@ def test_qwen2_engine_kernel_route_matches_gather(cuda):
 
 
 # (B, H, Hkv, Sq, Skv, D): GQA (Hkv < H) included; D 16 / 32 / 64 / 96 / 128
-# and 24 at padded widths, and 5 (no vector loads, the CUDA cores in bf16)
+# and 24 at padded widths, and 5 (two-byte loads, the bf16_mma route in bf16)
 FLASH_SHAPES = [(2, 3, 3, 97, 97, 24), (1, 2, 2, 300, 300, 96), (1, 2, 2, 128, 64, 128),
                 (2, 2, 2, 64, 200, 96), (1, 4, 4, 1030, 1030, 128), (1, 1, 1, 70, 70, 5),
                 (1, 6, 2, 300, 300, 16), (2, 6, 1, 200, 200, 32), (1, 6, 3, 257, 257, 64),
@@ -603,8 +603,8 @@ def test_flash_kernel_matches_plain(cuda, shape, causal, window, dtype):
     kw = dict(scale=shape[-1] ** -0.5, causal=causal, window=window)
     want64 = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
     routes = {torch.float32: ["fp32"],
-              torch.bfloat16: ["tensor_core", "cuda_core"] if shape[-1] % 8 == 0
-              else ["cuda_core"]}[dtype]
+              torch.bfloat16: ["tensor_core", "bf16_mma"] if shape[-1] % 8 == 0
+              else ["bf16_mma"]}[dtype]
     assert flash_route(q, k, v) == routes[0]
     for route in routes:
         before = dict(flash_attention.launches_by_route)
@@ -622,6 +622,50 @@ def test_flash_kernel_matches_plain(cuda, shape, causal, window, dtype):
         assert (o.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
         excess = ((o.double() - want64).abs() - BF16_U * want64.abs()).max()
         assert excess <= 1e-5 * want64.abs().max(), (route, excess.item())
+
+
+@pytest.mark.parametrize("case", ["D=100", "base off by 8 bytes"])
+def test_flash_off_tma_calls_take_the_bf16_mma_route(cuda, case):
+    """bf16 calls flash_route itself sends off TMA (D=100: 200-byte rows; a
+    D=128 view whose base is 8 bytes off), GQA, causal with a window:
+    launched on the bf16_mma route (by count), against the plain version and
+    beyond bf16's output rounding against fp64; two calls give equal bits."""
+    from repro_torch.kernels.attention import flash_attention, flash_route
+
+    if case == "D=100":
+        q, k, v = _flash_inputs((1, 6, 2, 300, 300, 100), torch.bfloat16, cuda)
+    else:
+        q, k, v = _flash_inputs((1, 6, 2, 300, 300, 128), torch.bfloat16, cuda)
+        q, k, v = (torch.cat([torch.zeros(4, dtype=t.dtype, device=cuda), t.flatten()])[4:]
+                   .view(t.shape) for t in (q.contiguous(), k.contiguous(), v.contiguous()))
+    assert flash_route(q, k, v) == "bf16_mma"
+    kw = dict(scale=q.shape[-1] ** -0.5, causal=True, window=100)
+    before = dict(flash_attention.launches_by_route)
+    o = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in flash_attention.launches_by_route.items()} == {
+        r: int(r == "bf16_mma") for r in before}
+    assert torch.equal(flash_attention(q, k, v, **kw), o)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert (o.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+    want64 = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    excess = ((o.double() - want64).abs() - BF16_U * want64.abs()).max()
+    assert excess <= 1e-5 * want64.abs().max(), excess.item()
+
+
+def test_flash_bf16_mma_takes_more_than_65535_groups(cuda):
+    """B*H rides on gridDim.x: 65,540 query heads over 16,385 KV heads at a
+    tiny Sq (3) and D=5 run on the bf16_mma route, against the plain version."""
+    from repro_torch.kernels.attention import flash_attention
+
+    q, k, v = _flash_inputs((1, 65540, 16385, 3, 3, 5), torch.bfloat16, cuda)
+    kw = dict(scale=5 ** -0.5, causal=True)
+    before = flash_attention.launches_by_route["bf16_mma"]
+    o = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route["bf16_mma"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert (o.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
 
 
 def test_flash_kernel_raises_instead_of_falling_back(cuda):

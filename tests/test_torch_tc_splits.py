@@ -1,17 +1,23 @@
-"""The numeric choices of the fp32 flash route and of MLA's paged read on the
-tensor cores, on the CPU.
+"""The numeric choices of the tensor-core kernels that split their operands,
+on the CPU.
 
 ``kernels/ref.py::flash_attention_tf32_ref`` emulates the products of
 ``csrc/flash_attention.cu::flash_tf32_kernel`` (fp32 q, k, v and the weights
-in two TF32 parts, three MMAs a product) and ``ref.paged_mla_split_ref``
-those of ``csrc/paged_attention.cu::paged_mla_tc_kernel`` (the pages widened
-to bf16, fp32 q in three bf16 parts, the weights in two). Each emulation is
-held within 1e-5 of max |o| of the plain version in fp64 (chip_smoke.py's
-RTOL, the kernels' limit on the card), and a control with each operand
-rounded once must fail that limit; each is also held against the JAX
-package's Pallas kernel in interpret mode on the same numpy inputs (fp32
-sums in another order: 1e-5 of max |o|). Widening int8 and e4m3 pages to
-bf16 is exact, and three bf16 parts give an fp32 value back exactly."""
+in two TF32 parts, three MMAs a product), ``ref.flash_attention_bf16_split_ref``
+those of the bf16 routes (``flash_bf16_kernel`` off TMA's route and
+``flash_tc_kernel``: bf16 q, k, v exact, the weights in two bf16 parts),
+``ref.flare_causal_split_ref(split="tf32")`` those of
+``csrc/flare_causal.cu::causal_tf32_kernel`` (fp32 q, k, v and every
+intermediate in two TF32 parts) and ``ref.paged_mla_split_ref`` those of
+``csrc/paged_attention.cu::paged_mla_tc_kernel`` (the pages widened to bf16,
+fp32 q in three bf16 parts, the weights in two). Each emulation is held
+within 1e-5 of max |o| of the plain version in fp64 (chip_smoke.py's RTOL,
+the kernels' limit on the card; a bf16 output beyond its own rounding, as
+``Checks.hold_rounded`` holds it), and a control with each operand rounded
+once must fail that limit; each is also held against the JAX package's
+Pallas kernel in interpret mode on the same numpy inputs. Widening int8 and
+e4m3 pages to bf16 is exact, and three bf16 parts give an fp32 value back
+exactly."""
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -19,6 +25,7 @@ import pytest
 import torch
 
 from repro.kernels.attention import flash_attention_pallas
+from repro.kernels.flare_causal import flare_causal_chunk_pallas
 from repro.kernels.paged_attention import paged_attention as jpaged_attention
 from repro_torch.kernels import ref
 
@@ -76,6 +83,108 @@ def test_flash_tf32_rows_with_no_key_are_zero():
                                        window=8)
     assert not got[:, :, 39:].any() and got[:, :, :39].abs().amax(-1).min() > 0
     assert torch.isfinite(got).all()
+
+
+# the bf16 route off TMA: D 5 (pieces of two bytes) and 100 (eight), ragged
+# (Sq, Skv) ending inside the kernel's 64-key tiles, Sq > Skv (rows with no
+# key under the window) and Skv > Sq
+BF16_CASES = [(5, 97, 97), (100, 70, 130), (5, 130, 70), (100, 97, 97)]
+BF16_U = 2.0 ** -8   # bf16's unit roundoff: rounding moves x by at most 2**-8 |x|
+
+
+def _bf16_inputs(d, sq, skv, seed=0, h=4, hkv=2):
+    """q, k, v as numpy fp32 holding bf16 values ([1, H, Sq, D] /
+    [1, Hkv, Skv, D]); q scaled so the scores reach ~10."""
+    rng = np.random.default_rng(seed)
+    q = 3 * rng.standard_normal((1, h, sq, d)) / np.sqrt(d)
+    k, v = (rng.standard_normal((1, hkv, skv, d)) for _ in range(2))
+    return tuple(x.astype(ml_dtypes.bfloat16).astype(np.float32) for x in (q, k, v))
+
+
+def _beyond_rounding(got, want) -> float:
+    """max(|bf16(got) - want| - 2^-8 |want|) / max |want|: the error of a
+    bf16 output beyond its own rounding (chip_smoke.py's hold_rounded)."""
+    return (((got.bfloat16().double() - want).abs() - BF16_U * want.abs()).max()
+            / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("d,sq,skv", BF16_CASES)
+def test_flash_bf16_split_beyond_rounding_one_rounding_is_not(d, sq, skv, causal, window):
+    """GQA (4 query heads over 2 KV heads) on bf16 values: the weights in two
+    bf16 parts give a bf16 output within 1e-5 of max |o| of the plain
+    version in fp64 beyond bf16's output rounding; rounded once (the TPU
+    kernel's choice) they do not where the scores reach ~10. Rows with no
+    key are exactly 0."""
+    q, k, v = (torch.from_numpy(x) for x in _bf16_inputs(d, sq, skv))
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    got = {parts: ref.flash_attention_bf16_split_ref(q, k, v, parts=parts, **kw)
+           for parts in (2, 1)}
+    errs = {parts: _beyond_rounding(o, want) for parts, o in got.items()}
+    assert errs[2] <= LIMIT, errs
+    assert errs[1] > LIMIT, errs
+    qi, ki = torch.arange(sq)[:, None], torch.arange(skv)[None, :]
+    keep = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        keep &= ki <= qi
+    if window is not None:
+        keep &= ki > qi - window
+    empty = ~keep.any(-1)
+    assert not got[2][:, :, empty].any() and torch.isfinite(got[2]).all()
+
+
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("d,sq,skv", BF16_CASES)
+def test_flash_bf16_split_emulation_matches_jax_pallas(d, sq, skv, causal, window):
+    """The emulation against ``flash_attention_pallas`` in interpret mode on
+    the same bf16 inputs (K and V expanded to the query heads, [G, S, D];
+    its weights rounded once to bf16, its output bf16): within bf16's 2e-2."""
+    q, k, v = _bf16_inputs(d, sq, skv, seed=1)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    got = ref.flash_attention_bf16_split_ref(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+    ke, ve = (np.repeat(x, 2, axis=1) for x in (k, v))
+    want = flash_attention_pallas(
+        *(jnp.asarray(x.reshape(-1, x.shape[2], d), jnp.bfloat16) for x in (q, ke, ve)),
+        block_q=sq, block_kv=skv, interpret=True, **kw)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    torch.testing.assert_close(got.reshape(want.shape), want, atol=2e-2, rtol=2e-2)
+
+
+def _causal_inputs(seed, h=2, m=64, t=512, d=16):
+    """fp32 q [H, M, D], k, v [1, H, T, D]; q scaled so |s| reaches ~10."""
+    rng = np.random.default_rng(seed)
+    q = (3 * rng.standard_normal((h, m, d)) / np.sqrt(d)).astype(np.float32)
+    k, v = (rng.standard_normal((1, h, t, d)).astype(np.float32) for _ in range(2))
+    return q, k, v
+
+
+def test_causal_tf32_split_meets_the_fp32_limit_one_rounding_does_not():
+    """The numeric choice of the causal kernel's fp32 route
+    (causal_tf32_kernel, 32-token tiles): on fp32 operands (B=1, H=2, M=64,
+    T=512, D=16) every operand and intermediate in two TF32 parts, three
+    products each, lands within 1e-5 of max |y| of the plain version in
+    fp64; one TF32 rounding of each does not."""
+    q, k, v = (torch.from_numpy(x) for x in _causal_inputs(13))
+    want = ref.flare_causal_chunk_ref(q.double(), k.double(), v.double(), tile=256)
+    errs = {parts: _rel(ref.flare_causal_split_ref(q, k, v, tile=32, parts=parts,
+                                                   split="tf32"), want)
+            for parts in (2, 1)}
+    assert errs[2] <= LIMIT, errs
+    assert errs[1] > LIMIT, errs
+
+
+def test_causal_tf32_emulation_matches_jax_pallas():
+    """The emulation against ``flare_causal_chunk_pallas`` in interpret mode
+    on the same fp32 inputs (the latents shared by the batch's groups): within
+    the causal kernel's atol of 2e-5."""
+    q, k, v = _causal_inputs(14)
+    got = ref.flare_causal_split_ref(*(torch.from_numpy(x) for x in (q, k, v)), tile=32,
+                                     split="tf32")
+    want = flare_causal_chunk_pallas(jnp.asarray(q), *(jnp.asarray(x[0]) for x in (k, v)),
+                                     tile=256, interpret=True)
+    err = (got[0].double() - torch.from_numpy(np.array(want)).double()).abs().max().item()
+    assert err <= 2e-5, err
 
 
 MLA_SHAPES = {"deepseek": (16, 512, 64), "minicpm3": (40, 256, 32)}
