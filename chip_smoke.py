@@ -10,8 +10,13 @@ kernels (bf16 on the tensor cores, fp32 on the TF32 tensor cores), and training
 flare_lm and Qwen2-1.5B at full size.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only deepseek_v2_lite_16b   # build, device lines, one phase
 
-Run from the root of a checkout. It imports only ``repro_torch`` (from
+Run from the root of a checkout. ``--only`` runs the build, the device
+lines and one phase from its own set-up (``paged``, ``flash``, ``spectral``,
+``lm``, ``phi3``, ``deepseek_v2_lite_16b``, ``minicpm3_4b``,
+``pde_baselines``), then the card's line and ``{"ok": true, "only": ...}``;
+it prints no kernels line. It imports only ``repro_torch`` (from
 ``src/``), never JAX or the JAX package. Phases, each of which raises on
 failure so the script exits non-zero:
 
@@ -23,9 +28,10 @@ failure so the script exits non-zero:
    encode_tc and decode_tc and the backward's three passes, all on the
    tensor cores), the causal kernels at D=32 and 128 (causal_tc, bf16;
    causal_tf32, fp32; both on the tensor cores), the paged kernel's decode
-   instances (page dtype x query rows a block), MLA instances (page dtype x
-   padded D x rows a thread) and encode instances (padded D, plain or
-   scaled), the three flash kernels, and ptxas's warnings;
+   instances (page dtype x query rows a block), MLA instances (bf16, int8
+   and fp8 pages x padded D; fp32 pages x padded D) and encode instances
+   (padded D, plain or scaled), the three flash kernels, and ptxas's
+   warnings;
 3. kernels on random operands: each CUDA kernel (encode, decode, fused
    forward, fused backward) against its plain PyTorch version, bf16 at full
    width (H=8, M=2048, D=8, B=1, N=40,000) and a ragged shape (M=16, N=97)
@@ -93,6 +99,12 @@ failure so the script exits non-zero:
    kernels ran), and the AdamW update's own time;
 6b. 3 train steps at pde_1m (B=1, N=1,048,576) through the kernels, with
    their ms per step, peak GiB and launches (8 + 8 a step);
+5a. ``spectral``: ``core/spectral.py``'s ``spectrum_by_head`` (Algorithm
+   1) on block 0's latent queries and the first example's keys at pde_40k
+   (H=8, M=2,048, N=40,000, D=8) in fp32 against the same function in fp64
+   on the card, within 1e-5 of the largest eigenvalue; the fp64 spectrum
+   without the keys' last 1,024 tokens must fail that limit; each head's
+   effective rank and the seconds printed;
 5b. ``kernels paged`` on block 0's encode at pde_40k (B=1; G=2048, D=8,
    pages of 16 with an identity table) against fp64, a head at a time, with
    its times; ``path flare_pde paged``: ``get_model(flare_pde)`` under
@@ -292,16 +304,19 @@ failure so the script exits non-zero:
    parameter count, 13-18 B asserted, and the seconds printed). (a) The
    paged kernel's MLA read (G=16, D=512, D2=64, one page head, the latents
    both K and V) on random operands, fp32 q over bf16, int8 and fp8 pages
-   (the tensor-core instance) and fp32 pages (``paged_mla_kernel``, the
-   CUDA-core instance, which no serving route reaches: the pool keeps bf16
-   latents whatever the compute dtype), against the plain version in fp64
-   at 1e-5 of max |plain|, which must
-   reject the plain version with one page of the longest lane left out; a
-   lane of length 0 exactly 0; its times (the tensor-core instance,
-   ``paged_mla_tc_kernel``) beside the bound (bytes over 3.35 TB/s or fp32
-   FLOP over 67 TFLOP/s), the floors of its design (bytes; its split
-   products at the bf16 peak), the plain version and one SDPA over the
-   gathered view. (b) The same on layer 0's own decode operands after a
+   (``paged_mla_tc_kernel``, bf16 MMAs) and fp32 pages
+   (``paged_mla_tf32_kernel``, TF32 MMAs with every operand in two parts,
+   which no serving route reaches: the pool keeps bf16 latents whatever the
+   compute dtype), against the plain version in fp64 at 1e-5 of max
+   |plain|, which must reject the plain version with one page of the
+   longest lane left out; a lane of length 0 exactly 0; the times of each
+   page dtype's read beside the bound (bytes over 3.35 TB/s, or the
+   fewest tensor-core products exact to fp32 q at their peak: three TF32
+   products a product for fp32 pages, q in three bf16 parts and P in two
+   for the others), the floors of its instance's design (bytes; its split
+   products at the bf16 peak, or at the TF32 peak and ``mma.sync``'s
+   measured TF32 rate), the plain version and one SDPA over the gathered
+   view. (b) The same on layer 0's own decode operands after a
    real prefill (int8 / fp8 by quantizing its bf16 pages, fp32 by widening
    them). (c) 16 requests
    (prompts of 256-2,048 tokens, 32 new tokens) through ``ServeEngine``
@@ -311,12 +326,12 @@ failure so the script exits non-zero:
    compute on the dense pool, the gather route and the kernel route:
    greedy tokens equal, and a profiled fp32 kernel-route decode step's
    ``route`` line names ``paged_mla_tc_kernel`` (fp32 q over bf16 pages),
-   not the CUDA-core instance; with
+   not the fp32-pages instance; with
    all 8 slots busy (prompts cut to 256 tokens), 27
    ``kernels.paged_attention`` scopes in a trace of one kernel-route decode
    step and a profiler breakdown of the next (``route`` line:
-   ``paged_mla_tc_kernel``, not the CUDA-core instance); the MoE layers' expert-weight
-   casts timed;
+   ``paged_mla_tc_kernel``, not the fp32-pages instance); the MoE layers'
+   expert-weight casts timed;
 16. ``serve minicpm3-4b``: the same for ``get_model(minicpm3_4b)`` (62
    layers, d_model 2,560, 40 MLA heads with q-LoRA; 3.5-5.0 B asserted;
    the read at G=40, D=256, D2=32; 62 launches and scopes a step), then its
@@ -326,7 +341,9 @@ failure so the script exits non-zero:
    pointed at another live block) that must exceed it;
 17. one JSON line of per-kernel numbers (12 kernels: the wgmma flash kernel
    is a row of its own; the paged kernel's row also carries its MLA
-   instance's reads under ``mla_read``, the ``flash_attention`` row (the
+   instances' reads under ``mla_read``: each model's bf16-pages read
+   (``paged_mla_tc_kernel``) with its fp32-pages read under ``fp32_pages``
+   (``paged_mla_tf32_kernel``), the ``flash_attention`` row (the
    TF32 kernel's) its bf16_mma route under ``off_tma_bf16``, the causal
    kernel's row (bf16) its fp32 route under ``fp32``), then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
@@ -349,6 +366,9 @@ SRC = Path(__file__).resolve().parent / "src"
 PEAK_FP32 = 67e12
 PEAK_BW = 3.35e12
 PEAK_TF32 = 495e12   # tensor cores, dense
+# mma.sync m16n8k8 TF32 as measured on the H100 (scripts/torch_mma_rate.py):
+# the rate the mma.sync designs' split products are also held to
+MMA_SYNC_TF32 = 316e12
 # the backward kernel's exps and products a (latent, token) pair: W in pass
 # a, A and W in b and in c; S and dZ, S, v dZ^T, dy Z^T, dk and dv, S,
 # dZ v^T, Z dy^T and dq (csrc/flare_bwd.cu)
@@ -512,8 +532,9 @@ PHI3_REQUESTS, PHI3_PROMPTS, PHI3_NEW = 4, (256, 1024), 32
 # the MLA models (random weights drawn on the card): parameter ranges of
 # tests/test_models_smoke.py; the MLA read on random operands (8 lanes: an
 # empty one, a partial page, six of about 2,000 tokens) over bf16, int8 and
-# fp8 pages (the tensor-core instance) and fp32 pages (the CUDA-core
-# instance, which only a direct call with fp32 pages reaches); 16 requests (SERVE_REQUESTS, PROMPT_LENS) of MLA_NEW new tokens
+# fp8 pages (the bf16 tensor-core instance) and fp32 pages (the TF32 one,
+# which only a direct call with fp32 pages reaches); 16 requests
+# (SERVE_REQUESTS, PROMPT_LENS) of MLA_NEW new tokens
 # on the dense and kernel routes in bf16, MLA_SERVE32_* on the three routes
 # in fp32 compute; MiniCPM3's
 # prefix cache: a 512-token template and 4 requests sharing it
@@ -524,6 +545,11 @@ MLA_P_PARTS = 2   # bf16 parts of the weights in the tensor-core read's value pr
 MLA_NEW = 32   # new tokens a request: each bf16 decode step is host-paced, ~0.2 s
 MLA_SERVE32_REQUESTS, MLA_SERVE32_NEW = 4, 24
 MLA_PREFIX_TEMPLATE, MLA_PREFIX_REQUESTS, MLA_PREFIX_NEW = 512, 4, 16
+# Algorithm 1 (core/spectral.py) on block 0's latent queries and keys at
+# pde_40k: the fp32 eigenvalues against fp64's within SPECTRAL_TOL of the
+# largest, which the fp64 spectrum of the keys without their last
+# SPECTRAL_DROP tokens must fail
+SPECTRAL_TOL, SPECTRAL_DROP = 1e-5, 1024
 # the FLARE kernels at head dims beside the paper's 8, on random operands
 WIDE_D = (3, 4, 6, 12, 16, 24, 32, 64)
 WIDE_SHAPE = dict(b=2, h=3, m=40, n=700)
@@ -633,7 +659,8 @@ def ptxas_summary(log: str) -> list:
                 or ("causal_t" in props and re.search(r"Li(32|128)E", props))
                 or ("causal_combine" in props and "Li128E" in props)
                 or "paged" in props or "flash" in props):
-            kind = next(k for k in ("paged_combine", "paged_decode", "paged_mla_tc", "paged_mla",
+            kind = next(k for k in ("paged_combine", "paged_decode", "paged_mla_tc",
+                                    "paged_mla_tf32",
                                     "paged_encode", "causal_combine", "causal_tc",
                                     "causal_tf32", "encode_tc", "decode_tc", "combine", "dz",
                                     "dkv", "dq", "flash_tc", "flash_tf32", "flash_bf16")
@@ -651,10 +678,8 @@ def ptxas_summary(log: str) -> list:
             if kind == "paged_decode":   # <page dtype, query rows a block at most>
                 page = args.split("Li")[0]
                 label = f"{PAGED_TYPES.get(page, page)} rows<={width.group(1)}"
-            elif kind == "paged_mla":   # <page dtype, padded D, rows a thread>
-                page = args.split("Li")[0]
-                dp, per_thread = re.findall(r"Li(\d+)E", args)[:2]
-                label = f"{PAGED_TYPES.get(page, page)} D<={dp} R={per_thread}"
+            elif kind == "paged_mla_tf32":   # <padded D>: fp32 pages
+                label = f"f32 D<={width.group(1)}"
             elif kind == "paged_mla_tc":   # <page dtype, padded D>
                 page = args.split("Li")[0]
                 label = f"{PAGED_TYPES.get(page, page)} D<={width.group(1)}"
@@ -4445,6 +4470,44 @@ def pde_baselines(checks: Checks, cfg, device) -> dict:
     return rows["flare"]["counts"]
 
 
+def spectral_phase(net, x) -> dict:
+    """``spectrum_by_head`` (``core/spectral.py``, Algorithm 1) on the card at
+    flare_pde's width: block 0's latent queries [H, M, D] and the first
+    example's keys [H, N, D] for input ``x``, in fp32 against the same
+    function in fp64 on the card: max |eigval fp32 - fp64| within
+    SPECTRAL_TOL of the largest eigenvalue, which the fp64 spectrum of the
+    keys without their last SPECTRAL_DROP tokens must fail. Prints each
+    head's effective rank (0.99 of the energy) and the seconds. Returns the
+    fp32 call's seconds and the ranks."""
+    import torch
+
+    from repro_torch.core.spectral import effective_rank, spectrum_by_head
+
+    t_phase = time.perf_counter()
+    q, k, _ = mixer_operands(net, x[:1])
+    k = k[0]   # [H, N, D]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals = spectrum_by_head(q, k)
+    torch.cuda.synchronize()
+    fp32_s = time.perf_counter() - t0
+    want = spectrum_by_head(q.double(), k.double())
+    drop = spectrum_by_head(q.double(), k[:, :-SPECTRAL_DROP].double())
+    scale = want.abs().max().item()
+    rel, rel_drop = max_err(vals, want) / scale, max_err(drop, want) / scale
+    ranks = [int(effective_rank(v)) for v in want]
+    h, m, d = q.shape
+    print(f"spectral flare_pde block 0 pde_40k (H={h}, M={m}, N={k.shape[1]}, D={d}): "
+          f"max eigval {scale:.6g}, fp32 vs fp64 rel {rel:.3g} (limit {SPECTRAL_TOL:g}), the keys' "
+          f"last {SPECTRAL_DROP} tokens dropped: rel {rel_drop:.3g}; effective ranks (0.99) "
+          f"{ranks} of {m}; fp32 {fp32_s:.3f} s; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not (math.isfinite(rel) and rel <= SPECTRAL_TOL < rel_drop):
+        raise AssertionError(f"spectral: rel {rel:.3g}, dropped tokens rel {rel_drop:.3g}, "
+                             f"limit {SPECTRAL_TOL}")
+    return {"fp32_s": fp32_s, "effective_ranks": ranks}
+
+
 def drive(model, net, batches: dict, label: str) -> dict:
     """One counted window: launch counts zeroed just before, read just after."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
@@ -4601,10 +4664,18 @@ def time_mla_read(label: str, op: dict) -> dict:
     calls, whose workspace a capture takes from its private pool, are the
     suspect. Every check of the phase now runs before any timing.
     Beside the bound: each valid page's rows and scales and q, q2, o once;
-    2 G (2 D + D2) FLOP a valid token on the CUDA cores. For the tensor-core
-    instance (bf16, int8, fp8 pages) also its floors: the bytes alone, and
-    its products as it issues them at the bf16 peak (G padded to m16 tiles;
-    S with q in three bf16 parts, P V with P in MLA_P_PARTS)."""
+    2 G (2 D + D2) FLOP a valid token; its time is that of the fewest
+    tensor-core products that give it exact to q, which beat the CUDA
+    cores' 67 TFLOP/s: for fp32 pages three TF32 products each (q, the rows
+    and P in two TF32 parts; two in S where q and q2 are bf16-valued, so one
+    TF32 part holds them), at the TF32 peak; for the others S with q in
+    three bf16 parts (one where q and q2 are bf16-valued) and P V with P in
+    MLA_P_PARTS (one-byte rows widen to bf16 exactly), at the bf16 peak.
+    Also the floors of the instance's design: the bytes alone, and its
+    products as it issues them (G padded to m16 tiles; the fp32 instance
+    splits q in every case, the others skip q's lower parts where it is
+    bf16-valued), at that peak and, for fp32 pages, at
+    ``mma.sync``'s measured TF32 rate."""
     import torch
     import torch.nn.functional as F
 
@@ -4620,17 +4691,25 @@ def time_mla_read(label: str, op: dict) -> dict:
     row = (d + d2) * c.element_size() + (8 if "k_scale" in kw else 0)
     nbytes = (n_pages * block * row + (q.numel() + kw["q2"].numel()) * 4
               + q.numel() * torch.empty((), dtype=out_dtype).element_size())
-    flops = 2 * g * (2 * d + d2) * h * lengths.long().sum().item()
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BW * 1e3
+    gp, tokens = -(-g // 16) * 16, lengths.long().sum().item()   # m16 row tiles
+    flops = 2 * g * (2 * d + d2) * h * tokens
+    narrow = all(torch.equal(x, x.bfloat16().to(x.dtype)) for x in (q, kw["q2"]))
+    if c.dtype == torch.float32:   # products a (token, head, column): bound's, design's
+        parts, issued_parts = (2 if narrow else 3) * (d + d2) + 3 * d, 3 * (2 * d + d2)
+        peak = PEAK_TF32
+    else:
+        parts = issued_parts = (1 if narrow else 3) * (d + d2) + MLA_P_PARTS * d
+        peak = PEAK_BF16
+    t_ops, t_bytes = 2 * g * h * tokens * parts / peak * 1e3, nbytes / PEAK_BW * 1e3
     kernel = lambda: paged_attention(q, c, c, pt, lengths, out_dtype=out_dtype, **kw)
     plain = lambda: ref(q, c, c, pt, lengths, out_dtype=out_dtype, **kw)
     stats = dict(ms=graph_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=10),
                  bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
                  else "bytes", library_ms=None)
-    if c.dtype != torch.float32:
-        gp, tokens = -(-g // 16) * 16, lengths.long().sum().item()
-        issued = 2 * gp * h * tokens * (3 * (d + d2) + MLA_P_PARTS * d)   # m16 row tiles
-        stats.update(floor_bytes_ms=t_bytes, floor_products_ms=issued / PEAK_BF16 * 1e3)
+    issued = 2 * gp * h * tokens * issued_parts
+    stats.update(floor_bytes_ms=t_bytes, floor_products_ms=issued / peak * 1e3)
+    if c.dtype == torch.float32:
+        stats["floor_products_mma_sync_ms"] = issued / MMA_SYNC_TF32 * 1e3
     if c.dtype in (torch.bfloat16, torch.float32):
         # the yardstick over the dense view gathered beforehand (not timed)
         cd, krd = _gather_rows(c, pt), _gather_rows(kw["k2_pages"], pt)   # [B, 1, T, *]
@@ -4655,7 +4734,8 @@ def mla_kernel_phase(checks: Checks, cfg, model, net, reqs, device) -> dict:
     by widening them); then
     the times of the random case at every page dtype and of layer 0's bf16
     read, after every check. Returns the bf16 random case's times (the JSON
-    line's MLA read)."""
+    line's MLA read, ``paged_mla_tc_kernel``) with the fp32 random case's
+    under ``fp32_pages`` (``paged_mla_tf32_kernel``)."""
     import torch
 
     m = cfg.attn.mla
@@ -4683,7 +4763,8 @@ def mla_kernel_phase(checks: Checks, cfg, model, net, reqs, device) -> dict:
     time_mla_read(f"{cfg.name} layer 0 bf16", captured)
     del captured, ops
     torch.cuda.empty_cache()
-    return times["bfloat16"]
+    return {"kernel": "paged_mla_tc_kernel", **times["bfloat16"],
+            "fp32_pages": {"kernel": "paged_mla_tf32_kernel", **times["float32"]}}
 
 
 def mla_scopes(model, net, reqs) -> dict:
@@ -4703,7 +4784,7 @@ def mla_scopes(model, net, reqs) -> dict:
     prof = breakdown(engine.step, f"serve {name} bf16 paged decode step "
                      f"({len(engine.sched.running)} slots busy)")
     assert_route(prof, f"serve {name} bf16 paged decode step", ("paged_mla_tc_kernel",),
-                 refuse=("paged_mla_kernel",))
+                 refuse=("paged_mla_tf32_kernel",))
     if prof:
         dev = sum(prof[0].values())
         kern = sum(ms for key, ms in prof[0].items() if "paged_" in key)
@@ -4771,8 +4852,9 @@ def mla_serve(cfg, model, net, reqs) -> dict:
             by_route = dict(paged_attention.launches_by_route)
     label = f"serve {cfg.name} fp32 paged decode step"
     assert_route(runs32["paged"]["prof"] or None, label, ("paged_mla_tc_kernel",),
-                 refuse=("paged_mla_kernel",))
-    if by_route["mla_tc"] != runs32["paged"]["counts"]["paged_attention"] or by_route["mla"]:
+                 refuse=("paged_mla_tf32_kernel",))
+    if (by_route["mla_tc"] != runs32["paged"]["counts"]["paged_attention"]
+            or by_route["mla_tf32"]):
         raise AssertionError(f"{label}: paged launches by route {by_route}, expected all on "
                              "the tensor-core MLA instance")
     for name in ("gather", "paged"):
@@ -4876,7 +4958,43 @@ def mla_phase(checks: Checks, arch: str, params: tuple, device) -> dict:
     return stats
 
 
-def main() -> int:
+def only_phases() -> dict:
+    """The phases ``--only`` runs alone (after the build and the device
+    lines), each from its own set-up: {name: fn(checks, device)}."""
+    def spectral(checks, device):
+        from repro_torch.config import SHAPES
+        from repro_torch.configs import get_config
+        from repro_torch.data.pde_data import pointcloud_batch
+        from repro_torch.models.api import get_model
+
+        s40 = SHAPES["pde_40k"]
+        net = get_model(get_config("flare_pde")).init(SEED)
+        b40 = pointcloud_batch(SEED, 0, s40.global_batch, grid=256, num_points=s40.seq_len)
+        spectral_phase(net, b40["x"])
+
+    def baselines(checks, device):
+        from repro_torch.configs import get_config
+
+        pde_baselines(checks, get_config("flare_pde"), device)
+
+    phases = {"paged": check_paged_small, "flash": check_flash_small, "spectral": spectral,
+              "lm": lm_phases, "phi3": lambda checks, device: phi3_phases(checks, device),
+              "pde_baselines": baselines}
+    for arch, params in (("deepseek_v2_lite_16b", DEEPSEEK_PARAMS),
+                         ("minicpm3_4b", MINICPM3_PARAMS)):
+        phases[arch] = lambda checks, device, arch=arch, params=params: mla_phase(
+            checks, arch, params, device)
+    return phases
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU (see the "
+                                 "module docstring); with no argument, every phase.")
+    ap.add_argument("--only", choices=sorted(only_phases()),
+                    help="run the build, the device lines and this phase alone")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc" / "flare.cu").is_file():
         print("chip_smoke.py: run it from the root of a checkout (src/repro_torch missing)",
@@ -4903,6 +5021,16 @@ def main() -> int:
     print("\n".join(ptxas_summary(_build.build_log)), flush=True)
 
     checks = Checks()
+    if args.only:
+        only_phases()[args.only](checks, device)
+        checks.raise_failures(args.only)
+        print(f"chip_smoke.py --only {args.only}: {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "only": args.only,
+                          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}}))
+        return 0
     check_small(checks, device)
     check_wide(checks, device)
     check_paged_small(checks, device)
@@ -4984,6 +5112,8 @@ def main() -> int:
         if not (err <= PATH_TOL and err / scale <= PATH_TOL):
             raise AssertionError(f"{label} path differs from the plain path by {err}")
     del packed, pallas, y_plain, b1m
+    torch.cuda.empty_cache()
+    spectral_phase(net, b40["x"])
     torch.cuda.empty_cache()
     # the paged backend: block 0's encode through the paged kernel, then the
     # model's forward under it (a counted window)

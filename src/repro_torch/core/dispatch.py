@@ -22,6 +22,13 @@ the plain versions, which take any D.
 Device kinds are ``torch.device`` types: ``"cpu"`` and ``"cuda"``. Backends
 live in :mod:`repro_torch.backends`; importing that package fills the
 registry, which happens lazily here.
+
+Call sites hand their ``impl`` to :func:`resolve`, or to the wrappers
+:func:`run_mixer` / :func:`run_causal_mixer`, which resolve for the device
+of their tensors. ``python -m repro_torch.core.dispatch --list`` prints every
+registered backend against the four canonical policies on this process's
+device (:func:`device_kind`) and exits 1 where a policy has no eligible
+backend or a backend is eligible both with and without a mesh.
 """
 from __future__ import annotations
 
@@ -113,6 +120,27 @@ def get_backend(name: str) -> MixerBackend:
     except KeyError:
         raise ValueError(
             f"unknown mixer backend {name!r}; registered: {sorted(_REGISTRY)}") from None
+
+
+def backends(*, causal: Optional[bool] = None, sharded: Optional[bool] = None) -> list:
+    """The registered backends by name, optionally only those that serve the
+    causal (``causal=True``) or the set-mixer (``causal=False``) contract, or
+    those that are (not) sharded."""
+    _ensure_loaded()
+    out = []
+    for b in _REGISTRY.values():
+        if causal is not None and not (b.caps.causal if causal else b.caps.bidirectional):
+            continue
+        if sharded is not None and b.caps.sharded is not sharded:
+            continue
+        out.append(b)
+    return sorted(out, key=lambda b: b.name)
+
+
+def device_kind() -> str:
+    """The device kind this process runs the port on: ``"cuda"`` where a
+    card is present, else ``"cpu"``."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
 
 
 def _dtype_name(dtype) -> str:
@@ -250,3 +278,119 @@ def sharded_plan(mesh, seq_axes, lat_axes="model", *, shape: Optional[MixerShape
     if covered:
         return MixerPlan("seqparallel", {"mesh": mesh, "seq_axes": seq})
     return MixerPlan("seqlat", {"mesh": mesh, "seq_axes": seq, "lat_axes": lat})
+
+
+def describe(impl, *, shape: MixerShape, dtype=torch.float32, mesh=None,
+             causal: bool = False) -> str:
+    """The backend and plan that would run (``MixerPlan.describe``) on
+    :func:`device_kind`."""
+    _, plan = resolve(impl, shape=shape, dtype=dtype, device=device_kind(), mesh=mesh,
+                      causal=causal)
+    return plan.describe()
+
+
+def run_mixer(impl, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mesh=None,
+              grad: bool = False) -> torch.Tensor:
+    """Bidirectional (set-mixer) FLARE: q [H, M, D], k/v [B, H, N, D] ->
+    [B, H, N, D], resolved for the device of ``k``."""
+    backend, plan = resolve(impl, shape=MixerShape.from_qkv(q, k), dtype=k.dtype,
+                            device=k.device.type, mesh=mesh, causal=False, grad=grad)
+    return backend.run(plan, q, k, v)
+
+
+def run_causal_mixer(impl, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     chunk_size: Optional[int] = None, grad: bool = False) -> torch.Tensor:
+    """Causal (LM-mixer) FLARE: token t sees only the prefix <= t;
+    ``chunk_size`` overrides the plan's."""
+    backend, plan = resolve(impl, shape=MixerShape.from_qkv(q, k), dtype=k.dtype,
+                            device=k.device.type, causal=True, grad=grad)
+    if chunk_size is not None:
+        plan = MixerPlan(plan.backend, {**plan.params, "chunk_size": chunk_size})
+    return backend.run(plan, q, k, v)
+
+
+# A stand-in mesh for the eligibility columns: eligibility asks only whether
+# a call site runs under a mesh, not where its ranks are.
+_PROBE_MESH = object()
+
+
+def _policy_matrix(device: str):
+    """Every registered backend x the four canonical policies (set-mixer or
+    causal x inference or training) on ``device``: eligible, or why not; and
+    the two mesh columns, eligible now (no mesh) and with a mesh, of which
+    exactly one may say "yes"."""
+    from repro_torch.core.policy import MixerPolicy, resolve_policy
+
+    shape = MixerShape(batch=1, heads=4, tokens=1024, latents=16, head_dim=8)
+    policies = {
+        "bidi/infer": (MixerPolicy(), False),
+        "bidi/train": (MixerPolicy(requires_grad=True), False),
+        "causal/infer": (MixerPolicy(), True),
+        "causal/train": (MixerPolicy(requires_grad=True), True),
+    }
+    rows = []
+    for b in backends():
+        cells = {}
+        for label, (pol, causal) in policies.items():
+            try:
+                plan = resolve_policy(pol.with_(backends=(b.name,)), shape, torch.float32,
+                                      device=device, causal=causal)
+                ok = eligible(b, dtype=torch.float32, device=device, grad=pol.requires_grad,
+                              causal=causal, mesh=plan.params.get("mesh"), shape=shape)
+                cells[label] = "yes" if ok else "named-only"
+            except ValueError as e:
+                msg = str(e)
+                cells[label] = ("no-grad" if "forward-only" in msg else
+                                "no-causal" if "not causal" in msg else
+                                "no-bidi" if "causal contract" in msg else "no")
+        cells["now"] = "yes" if eligible(b, dtype=torch.float32, device=device) else "no"
+        cells["with-mesh"] = "yes" if eligible(b, dtype=torch.float32, device=device,
+                                               mesh=_PROBE_MESH) else "no"
+        rows.append((b, cells))
+    return shape, policies, rows
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.core.dispatch",
+        description="Print the mixer-backend registry and each backend's eligibility under "
+                    "the canonical policies.")
+    ap.add_argument("--list", action="store_true",
+                    help="also print each backend's description")
+    args = ap.parse_args(argv)
+    _ensure_loaded()
+    device = device_kind()
+    shape, policies, rows = _policy_matrix(device)
+    print(f"device={device}  probe shape: N={shape.tokens} M={shape.latents} "
+          f"D={shape.head_dim} H={shape.heads}")
+    cols = list(policies)
+    header = (f"{'backend':<14} {'grads':<5} {'now':<4} {'with-mesh':<9} "
+              + " ".join(f"{c:<13}" for c in cols))
+    print(header)
+    print("-" * len(header))
+    for b, cells in rows:
+        print(f"{b.name:<14} {'yes' if b.caps.grads else 'no':<5} {cells['now']:<4} "
+              f"{cells['with-mesh']:<9} " + " ".join(f"{cells[c]:<13}" for c in cols)
+              + (f"  # {b.doc}" if args.list and b.doc else ""))
+    # each canonical policy needs an eligible backend
+    for c in cols:
+        if not any(cells[c] == "yes" for _, cells in rows):
+            print(f"ERROR: no eligible backend for policy {c}")
+            return 1
+    # and no backend may be eligible both with and without a mesh
+    for b, cells in rows:
+        if cells["now"] == "yes" and cells["with-mesh"] == "yes":
+            print(f"ERROR: backend {b.name} eligible both with and without a mesh")
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    # ``python -m repro_torch.core.dispatch`` runs this file as __main__, a
+    # second module instance with its own empty registry: delegate to the
+    # canonical instance the backends register against.
+    from repro_torch.core import dispatch as _canonical
+
+    raise SystemExit(_canonical.main())

@@ -13,6 +13,7 @@ None for the ambient policy. Softmax statistics are fp32.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -29,11 +30,18 @@ from repro_torch.nn.modules import (
 )
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float = 1.0,
+         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v with an fp32 softmax (fp64 for fp64 operands).
-    q: [..., S, D], k/v: [..., T, D]."""
+    q: [..., S, D], k/v: [..., T, D]. ``mask`` (boolean, broadcast against
+    the scores [..., S, T]) keeps the scores where it is True; the rest are
+    -inf before the softmax, as in the reference. A row with no key kept
+    has no finite score: its weights, and so its output, are NaN, as
+    ``jax.nn.softmax`` gives them."""
     scores = torch.einsum("...sd,...td->...st", q, k)
     scores = scores.to(torch.promote_types(scores.dtype, torch.float32)) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, -torch.inf)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("...st,...td->...sd", w.to(v.dtype), v)
 

@@ -23,8 +23,8 @@ Entry points:
 ``mask`` [B, T] (True = real token) keeps right-padding out of the state:
 masked scores are -inf on the state side, so the carried state is exactly
 that of the unpadded prefix; the outputs at masked positions are finite
-values the caller discards. The slot-pool ops of the serving engine
-(``stream_insert_slots`` / ``stream_reset_slots``) are not ported yet.
+values the caller discards. The slot-pool ops of a bare state pool:
+``stream_insert_slots`` (admission) and ``stream_reset_slots`` (retirement).
 """
 from __future__ import annotations
 
@@ -222,6 +222,24 @@ def flare_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  chunk_size: int = 256, mode: str = "factored") -> torch.Tensor:
     """The causal FLARE mixer (see :func:`flare_causal_with_state`)."""
     return flare_causal_with_state(q, k, v, chunk_size=chunk_size, mode=mode)[1]
+
+
+def stream_insert_slots(pool: FlareState, part: FlareState, slots: torch.Tensor) -> FlareState:
+    """Write ``part``'s batch lanes into ``pool`` at ``slots`` ([b] integer):
+    lane i of a prefilled state lands in pool slot ``slots[i]``; the other
+    slots are untouched. Functional, as the reference: ``pool`` is not
+    modified."""
+    idx = slots.to(device=pool.m_max.device, dtype=torch.long)
+    return FlareState(*(p.index_copy(0, idx, x.to(p.dtype)) for p, x in zip(pool, part)))
+
+
+def stream_reset_slots(pool: FlareState, slots: torch.Tensor) -> FlareState:
+    """``slots`` of a state pool back to the ``stream_init`` values: the
+    retirement op. m_max returns to -inf, not 0 (a valid score), so a reused
+    slot carries no trace of the previous request's stream."""
+    _, h, m, d = pool.num.shape
+    fresh = stream_init(slots.shape[0], h, m, d, device=pool.num.device, dtype=pool.num.dtype)
+    return stream_insert_slots(pool, fresh, slots)
 
 
 def flare_causal_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

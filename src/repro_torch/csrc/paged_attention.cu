@@ -1,7 +1,7 @@
 // Paged attention for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernel of the JAX package:
-//   paged_decode_kernel / paged_mla_tc_kernel / paged_mla_kernel / paged_encode_kernel
+//   paged_decode_kernel / paged_mla_tc_kernel / paged_mla_tf32_kernel / paged_encode_kernel
 //       + paged_combine_kernel
 //       <- repro/kernels/paged_attention.py::_paged_kernel (paged_attention_pallas)
 //
@@ -64,13 +64,10 @@
 //     pages): MLA's read, where the G heads share every latent row: 2 * G
 //     * (D + D2 + D) FLOP a row of (D + D2) * bytes. DeepSeek-V2-Lite's
 //     read (G 16, D 512, D2 64) at 8 lanes of ~1,500 tokens: 13.9 MB, 4.2
-//     us at 3.35 TB/s; 0.42 GFLOP, 6.3 us at the fp32 CUDA-core rate (the
-//     bound any implementation is held to), 1.1 us for the split products
-//     below at 989 TFLOP/s. Its CUDA-core predecessor (kept for fp32 pages,
-//     next) ran at 10x that bound: one LDS.128 of fp32 q per 4 FMAs in the
-//     scores, one read of p per 8 FMAs in the values, three barriers a
-//     32-token tile. This instance, FlashMLA's layout for mma.sync: a block
-//     of 8 warps takes one lane, one m16 tile of G (DeepSeek's 16 heads;
+//     us at 3.35 TB/s; 0.42 GFLOP, 1.1 us for the split products below at
+//     989 TFLOP/s. This instance, FlashMLA's layout for mma.sync: a block
+//     of 8 warps takes
+//     one lane, one m16 tile of G (DeepSeek's 16 heads;
 //     MiniCPM3's 40 in three row tiles, each reading the lane's latents:
 //     faster on the H100 than one block of three m16 tiles, as the rows'
 //     latency, not the bytes, sets the pace) and a slice of the lane's
@@ -103,18 +100,14 @@
 //     The slices are one wave of blocks (16 at DeepSeek's 8 lanes, 11 at
 //     MiniCPM3's 24 lane row tiles), each walking a few tiles. V may be K (the MLA call, staged once) or its
 //     own pages (two stages at D 512).
-//   * paged_mla_kernel (the same shapes, fp32 pages: the MLA pool under fp32
-//     compute, picked by the page dtype): the CUDA-core version. A block
-//     takes one lane, all G rows (a tile of them past 32 at D 512, 64 at D
-//     256) and a slice of the lane's pages; each tile of 32 tokens is staged
-//     once by cp.async (the next tile in flight), rows 16 bytes longer than D
-//     so that a warp's lanes, a token each, read from distinct banks. The
-//     scores: warp w takes rows w, w + 8, ... and lane t token t, the
-//     queries read from shared memory as broadcasts; the online (max, den)
-//     of a row stays in its warp's registers, the tile's max and sum by
-//     shuffles. The values: the fp32 accumulators [G, D] are spread over the
-//     block's threads, a thread 8 columns of R rows (R the instance's 4, 5
-//     or 8), read the tile's weights as broadcasts.
+//   * paged_mla_tf32_kernel (the same shapes, fp32 pages: a direct call;
+//     the MLA pool keeps bf16 latents in any compute dtype): the same
+//     blocks and phases on the TF32 tensor cores (mma.sync m16n8k8). One
+//     TF32 rounding of an operand misses the fp32 check (1e-5 of max |o|
+//     against fp64), so q, the pages and P enter in two TF32 parts each,
+//     three MMAs a product; the staged rows are fp32 (twice the bytes of
+//     bf16: two stages of 32 tokens at D 512, 74 KB each; two blocks an SM
+//     of two stages at D 256) and split as each fragment is read.
 //   * paged_encode_kernel (G > 32, D <= 32, no q2): flare.cu's encode_kernel
 //     read through the page table: a thread per query row (latent) with its
 //     query, state and sums in registers; the tokens staged in shared memory
@@ -793,325 +786,12 @@ __global__ void __launch_bounds__(THREADS) paged_encode_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// The MLA instance.
+// The MLA instances.
 
 constexpr int MLA_THREADS = 256;
 constexpr int MLA_WARPS = MLA_THREADS / 32;
-constexpr int MLA_TT = 32;    // tokens a staged tile: one a lane of each warp in the score phase
-constexpr int MLA_CW = 8;     // columns of D a thread takes in the value phase
+constexpr int MLA_TT = 32;    // tokens a staged tile: one a lane of each warp in the softmax
 constexpr int MLA_MAX_D2 = 64;
-
-// Row sets of the value phase: the threads not needed for D's columns take
-// other rows (DP / MLA_CW threads cover a row).
-template <int DP>
-__host__ __device__ constexpr int mla_row_sets() { return MLA_THREADS / (DP / MLA_CW); }
-
-// The block's shared memory, in bytes from its start: the ring of two
-// staged tiles (K rows, V rows where V is not K, k2 rows, then k_scale,
-// v_scale and k2_scale), the queries widened to fp32, q2, the tile's
-// weights p [rows][MLA_TT], each row's rescale, max and den, the slice's
-// page ids. Row strides carry 16 bytes more than a row, so that the 32
-// lanes of a warp, a token each, read their rows from distinct banks.
-struct MlaLayout {
-  int srb, srb2, stage, qs, q2s, q, q2, p, alpha, m, l, pages, total;
-};
-
-__host__ __device__ inline MlaLayout mla_layout(int esize, int DP, int D2, int rows8, bool sep_v,
-                                                int pages_per_split) {
-  MlaLayout L;
-  const int ve = 16 / esize;
-  L.srb = DP * esize + 16;
-  L.srb2 = D2 ? ((D2 + ve - 1) / ve * ve) * esize + 16 : 0;
-  L.stage = MLA_TT * (L.srb * (sep_v ? 2 : 1) + L.srb2 + 3 * (int)sizeof(float));
-  L.qs = DP;
-  L.q2s = (D2 + 15) / 16 * 16;
-  L.q = 2 * L.stage;
-  L.q2 = L.q + rows8 * L.qs * (int)sizeof(float);
-  L.p = L.q2 + rows8 * L.q2s * (int)sizeof(float);
-  L.alpha = L.p + rows8 * MLA_TT * (int)sizeof(float);
-  L.m = L.alpha + rows8 * (int)sizeof(float);
-  L.l = L.m + rows8 * (int)sizeof(float);
-  L.pages = L.l + rows8 * (int)sizeof(float);
-  L.total = L.pages + (pages_per_split + 3) / 4 * 16;
-  return L;
-}
-
-// Stage the rows of tokens [t0, t0 + MLA_TT) (those at or past t_hi
-// zero-filled, never read) into one stage of the ring: K (which is also V
-// unless sep_v), V, k2, and the three scales.
-template <typename T>
-__device__ __forceinline__ void issue_mla_tile(unsigned char* st, const Args& a, const int* pages,
-                                               int p0, int t0, int t_hi, int h,
-                                               const MlaLayout& L, bool sep_v) {
-  const int rb = a.D * (int)sizeof(T);
-  const int cb = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : rb % 4 == 0 ? 4 : (int)sizeof(T);
-  const int cpr = rb / cb, nk = sep_v ? 2 : 1;
-  unsigned char* k2st = st + MLA_TT * L.srb * nk;
-  float* scales = reinterpret_cast<float*>(k2st + MLA_TT * L.srb2);
-  const unsigned char* src[2] = {static_cast<const unsigned char*>(a.k),
-                                 static_cast<const unsigned char*>(a.v)};
-  for (int i = threadIdx.x; i < nk * MLA_TT * cpr; i += MLA_THREADS) {
-    const int which = i / (MLA_TT * cpr), rest = i - which * MLA_TT * cpr;
-    const int r = rest / cpr, c = (rest - r * cpr) * cb, t = t0 + r;
-    const bool on = t < t_hi;
-    const long long off = (on ? token_row(pages, p0, t, a.block, a.H, h) : 0) * rb + c;
-    unsigned char* dst = st + (which * MLA_TT + r) * L.srb + c;
-    switch (cb) {
-      case 16: cp_async<16>(dst, src[which] + off, on); break;
-      case 8: cp_async<8>(dst, src[which] + off, on); break;
-      case 4: cp_async<4>(dst, src[which] + off, on); break;
-      default:
-        *reinterpret_cast<T*>(dst) = on ? *reinterpret_cast<const T*>(src[which] + off)
-                                        : zero_of<T>();
-    }
-  }
-  if (a.D2) {   // D2 a multiple of 8: rows of 8, 16, 32 or 64 bytes
-    const int rb2 = a.D2 * (int)sizeof(T), cb2 = rb2 % 16 == 0 ? 16 : 8, cpr2 = rb2 / cb2;
-    const unsigned char* k2 = static_cast<const unsigned char*>(a.k2);
-    for (int i = threadIdx.x; i < MLA_TT * cpr2; i += MLA_THREADS) {
-      const int r = i / cpr2, c = (i - r * cpr2) * cb2, t = t0 + r;
-      const bool on = t < t_hi;
-      const long long off = (on ? token_row(pages, p0, t, a.block, a.H, h) : 0) * rb2 + c;
-      if (cb2 == 16)
-        cp_async<16>(k2st + r * L.srb2 + c, k2 + off, on);
-      else
-        cp_async<8>(k2st + r * L.srb2 + c, k2 + off, on);
-    }
-  }
-  const float* sc[3] = {a.ks, a.vs, a.k2s};
-  for (int i = threadIdx.x; i < 3 * MLA_TT; i += MLA_THREADS) {
-    const int which = i / MLA_TT, r = i - which * MLA_TT, t = t0 + r;
-    if (!sc[which]) continue;
-    const bool on = t < t_hi;
-    const long long row = on ? token_row(pages, p0, t, a.block, a.H, h) : 0;
-    cp_async<4>(scales + i, sc[which] + row, on);
-  }
-}
-
-// 16 bytes of a staged row (16 / sizeof(T) elements) widened to fp32.
-template <typename T>
-__device__ __forceinline__ void lds16(float (&x)[16 / sizeof(T)], const unsigned char* src) {
-  constexpr int VE = 16 / sizeof(T);
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  T e[VE];
-  memcpy(e, &raw, sizeof(e));
-#pragma unroll
-  for (int j = 0; j < VE; ++j) x[j] = widen(e[j]);
-}
-
-// Grid (splits, B*H, row tiles). Block = lane b, page head h, query rows
-// [g0, g0 + gt) (gt <= RS * R), the pages of slice `split` of the lane.
-// Each tile of MLA_TT tokens is staged once in its stored dtype (cp.async,
-// the next tile in flight while this one is computed) and read by all of
-// the block's query rows from shared memory:
-//   * scores: warp w takes rows w, w + 8, ... (SR of them) and lane t token
-//     t of the tile: its dot products with the query rows (broadcast reads
-//     of q), the k2 term, the scales, the mask; then per row the tile's max
-//     and sum by shuffles, the online (max, den) kept in the warp's
-//     registers, the weights p (times v_scale) and the rescale of the
-//     accumulators written to shared memory;
-//   * values: thread (row set rs, column chunk cc) holds the fp32
-//     accumulators of rows rs, rs + RS, ... (R of them) and columns
-//     [8 cc, 8 cc + 8): acc = acc * rescale + sum_t p[g][t] v[t][cols].
-template <typename T, int DP, int R>
-__global__ void __launch_bounds__(MLA_THREADS) paged_mla_kernel(Args a) {
-  constexpr int VE = 16 / sizeof(T);            // elements a 16-byte read
-  constexpr int RS = mla_row_sets<DP>();
-  constexpr int CPT = DP / MLA_CW;              // threads a row in the value phase
-  constexpr int SR = (RS * R + MLA_WARPS - 1) / MLA_WARPS;   // score rows a warp
-  constexpr int ROWS8 = SR * MLA_WARPS;
-  extern __shared__ uint4 smem4[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-
-  const int D = a.D, D2 = a.D2, blk = a.block, H = a.H;
-  const bool sep_v = a.v != a.k;
-  const MlaLayout L = mla_layout(sizeof(T), DP, D2, ROWS8, sep_v, a.pages_per_split);
-  float* q_s = reinterpret_cast<float*>(smem + L.q);
-  float* q2_s = reinterpret_cast<float*>(smem + L.q2);
-  float* p_s = reinterpret_cast<float*>(smem + L.p);
-  float* alpha_s = reinterpret_cast<float*>(smem + L.alpha);
-  float* m_s = reinterpret_cast<float*>(smem + L.m);
-  float* l_s = reinterpret_cast<float*>(smem + L.l);
-  int* pages = reinterpret_cast<int*>(smem + L.pages);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int split = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int g0 = blockIdx.z * a.rows, gt = min(a.rows, a.G - g0);
-  const long long qrow = ((long long)b * H + h) * a.G + g0;
-  const int* ptb = a.pt + (long long)b * a.P;
-  const int len = a.lengths[b];
-  const int2 sl = lane_slice(a, len, split);
-  const int t_lo = sl.x, t_hi = sl.y;
-  const int ntiles = t_hi > t_lo ? (t_hi - t_lo + MLA_TT - 1) / MLA_TT : 0;
-  const int p0 = t_lo / blk, p1 = t_hi > t_lo ? (t_hi + blk - 1) / blk : p0;
-  for (int i = threadIdx.x; i < p1 - p0; i += MLA_THREADS) pages[i] = ptb[p0 + i];
-  // the padding of the staged rows past D (read by the value phase's last
-  // columns) and of k2's rows is zero, never written by a copy
-  if (D < DP || D2 % VE) {
-    for (int i = threadIdx.x; i < 2 * L.stage / 16; i += MLA_THREADS)
-      smem4[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  for (int i = threadIdx.x; i < ROWS8 * DP; i += MLA_THREADS) {
-    const int g = i / DP, d = i - g * DP;
-    q_s[g * L.qs + d] = g < gt && d < D ? load_q(a.q, a.q_dtype, (qrow + g) * D + d) : 0.f;
-  }
-  for (int i = threadIdx.x; i < ROWS8 * L.q2s; i += MLA_THREADS) {
-    const int g = i / L.q2s, d = i - g * L.q2s;
-    q2_s[i] = g < gt && d < D2 ? load_q(a.q2, a.q_dtype, (qrow + g) * D2 + d) : 0.f;
-  }
-  __syncthreads();
-  if (ntiles > 0) issue_mla_tile<T>(smem, a, pages, p0, t_lo, t_hi, h, L, sep_v);
-  cp_commit();
-
-  const bool round_p = !a.fused && sizeof(T) == 2;
-  const int dv = (D + VE - 1) / VE * VE, d2v = (D2 + VE - 1) / VE * VE;
-  float m[SR], l[SR];
-#pragma unroll
-  for (int j = 0; j < SR; ++j) m[j] = NEG_INF, l[j] = 0.f;
-  const int cc = threadIdx.x % CPT, rs = threadIdx.x / CPT;
-  float acc[R][MLA_CW];
-#pragma unroll
-  for (int j = 0; j < R; ++j)
-#pragma unroll
-    for (int e = 0; e < MLA_CW; ++e) acc[j][e] = 0.f;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int t0 = t_lo + it * MLA_TT;
-    if (it + 1 < ntiles)
-      issue_mla_tile<T>(smem + ((it + 1) & 1) * L.stage, a, pages, p0, t0 + MLA_TT, t_hi, h, L,
-                        sep_v);
-    cp_commit();
-    cp_wait<1>();      // this thread's copies of tile `it` have landed
-    __syncthreads();   // ... and everyone's
-    const unsigned char* kst = smem + (it & 1) * L.stage;
-    const unsigned char* vst = sep_v ? kst + MLA_TT * L.srb : kst;
-    const unsigned char* k2st = kst + MLA_TT * L.srb * (sep_v ? 2 : 1);
-    const float* ks_st = reinterpret_cast<const float*>(k2st + MLA_TT * L.srb2);
-    const float* vs_st = ks_st + MLA_TT;
-    const float* k2s_st = vs_st + MLA_TT;
-
-    // scores: the score order of the plain version (dot, x k_scale, + q2.k2
-    // x k2_scale, x scale, mask)
-    const bool on = t0 + lane < t_hi;
-    float s[SR];
-#pragma unroll
-    for (int j = 0; j < SR; ++j) s[j] = 0.f;
-    const unsigned char* krow = kst + lane * L.srb;
-    for (int d0 = 0; d0 < dv; d0 += VE) {
-      float kv[VE];
-      lds16<T>(kv, krow + d0 * (int)sizeof(T));
-#pragma unroll
-      for (int j = 0; j < SR; ++j) {
-        const float4* qr =
-            reinterpret_cast<const float4*>(q_s + (warp + MLA_WARPS * j) * L.qs + d0);
-#pragma unroll
-        for (int e = 0; e < VE / 4; ++e) {
-          const float4 qv = qr[e];
-          s[j] = fmaf(qv.x, kv[4 * e], s[j]);
-          s[j] = fmaf(qv.y, kv[4 * e + 1], s[j]);
-          s[j] = fmaf(qv.z, kv[4 * e + 2], s[j]);
-          s[j] = fmaf(qv.w, kv[4 * e + 3], s[j]);
-        }
-      }
-    }
-    if (a.ks) {
-#pragma unroll
-      for (int j = 0; j < SR; ++j) s[j] *= ks_st[lane];
-    }
-    if (D2) {
-      float s2[SR];
-#pragma unroll
-      for (int j = 0; j < SR; ++j) s2[j] = 0.f;
-      const unsigned char* k2row = k2st + lane * L.srb2;
-      for (int d0 = 0; d0 < d2v; d0 += VE) {
-        float kv[VE];
-        lds16<T>(kv, k2row + d0 * (int)sizeof(T));
-#pragma unroll
-        for (int j = 0; j < SR; ++j) {
-          const float* qr = q2_s + (warp + MLA_WARPS * j) * L.q2s + d0;
-#pragma unroll
-          for (int e = 0; e < VE; ++e) s2[j] = fmaf(qr[e], kv[e], s2[j]);   // d2v <= q2s
-        }
-      }
-      const float k2sc = a.k2s ? k2s_st[lane] : 1.f;
-#pragma unroll
-      for (int j = 0; j < SR; ++j) s[j] += s2[j] * k2sc;
-    }
-    const float vsc = a.vs ? vs_st[lane] : 1.f;
-#pragma unroll
-    for (int j = 0; j < SR; ++j) {
-      const float x = on ? s[j] * a.scale : NEG_INF;
-      float tmax = x;
-      for (int off = 16; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float mnew = fmaxf(m[j], tmax);
-      const float alpha = __expf(m[j] - mnew);
-      float p = on ? __expf(x - mnew) : 0.f;
-      float psum = p;
-      for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[j] = fmaf(l[j], alpha, psum);
-      m[j] = mnew;
-      p *= vsc;
-      p = round_p ? __bfloat162float(__float2bfloat16(p)) : p;
-      const int g = warp + MLA_WARPS * j;
-      p_s[g * MLA_TT + lane] = p;
-      if (lane == 0) alpha_s[g] = alpha;
-    }
-    __syncthreads();
-
-    // values: rescale, then the tile's valid tokens
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const float al = alpha_s[rs + RS * j];
-#pragma unroll
-      for (int e = 0; e < MLA_CW; ++e) acc[j][e] *= al;
-    }
-    const int ntok = min(MLA_TT, t_hi - t0);
-    const unsigned char* vcol = vst + cc * MLA_CW * (int)sizeof(T);
-    for (int tt = 0; tt < ntok; ++tt) {
-      float vv[MLA_CW];
-      {
-        uint32_t raw[MLA_CW * sizeof(T) / 4];
-        lds_lane<T, MLA_CW>(raw, vcol + tt * L.srb);
-        widen_lane<T, MLA_CW>(vv, raw, MLA_CW);
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float p = p_s[(rs + RS * j) * MLA_TT + tt];
-#pragma unroll
-        for (int e = 0; e < MLA_CW; ++e) acc[j][e] = fmaf(p, vv[e], acc[j][e]);
-      }
-    }
-    __syncthreads();   // p and the tile's stage are rewritten by the next iteration
-  }
-  cp_wait<0>();
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < SR; ++j) {
-      m_s[warp + MLA_WARPS * j] = m[j];
-      l_s[warp + MLA_WARPS * j] = l[j];
-    }
-  }
-  __syncthreads();
-  const long long prow = ((long long)split * a.B * H + bh) * a.G + g0;
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const int g = rs + RS * j;
-    if (g >= gt) continue;
-    const float den = l_s[g];
-#pragma unroll
-    for (int e = 0; e < MLA_CW; ++e) {
-      const int d = cc * MLA_CW + e;
-      if (d >= D) continue;
-      if (a.splits == 1)
-        store_out(a.out, a.out_dtype, (qrow + g) * D + d, acc[j][e] / fmaxf(den, 1e-30f));
-      else
-        a.part_acc[(prow + g) * D + d] = acc[j][e];
-    }
-    if (a.splits > 1 && cc == 0)
-      a.part_ml[(prow + g) * 2] = m_s[g], a.part_ml[(prow + g) * 2 + 1] = den;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The MLA instance on the tensor cores (bf16, int8 and fp8 pages).
@@ -1131,6 +811,8 @@ using bf16 = __nv_bfloat16;
 // [MLA_PS] and over its step of k_rope, P in two bf16 parts [rows][MLA_PS],
 // each row's rescale, max and den, the slice's page ids. bf16 row strides are an
 // odd number of 16-byte units, so ldmatrix's eight rows hit eight bank groups.
+// row and vrow, the strides of a staged row, are bytes in mla_tc_layout and
+// floats in mla_tf32_layout; every other offset is bytes from the start.
 struct MlaTcLayout {
   int d2p, kr, row, vrow, raw_row, raw_vrow, stage, stages, conv, part, rpart, ph, pl, alpha, m,
       l, pages, total;
@@ -1604,6 +1286,364 @@ __global__ void __launch_bounds__(MLA_THREADS, DP == 256 ? 2 : 1) paged_mla_tc_k
 }
 
 // ---------------------------------------------------------------------------
+// The MLA instance on the TF32 tensor cores (fp32 pages).
+
+constexpr int MLA_TF32_PAD = 4;   // words past a staged fp32 row's columns: strides of 4 mod 32
+
+// Blocks an SM the fp32 instance is laid out for: two at D 256 (shared
+// memory then holds two stages a block, registers 128 a thread), one at 512.
+template <int DP>
+__host__ __device__ constexpr int mla_tf32_blocks() { return DP == 256 ? 2 : 1; }
+
+// The block's shared memory in MlaTcLayout's fields (row and vrow in
+// floats, the rest in bytes from its start): a ring of `stages` tiles of
+// MLA_TT fp32 rows [c | k_rope] (the latents' DP columns, k_rope's D2 at
+// column DP, the row rounded up to 32 floats plus MLA_TF32_PAD), then V's
+// rows of DP + MLA_TF32_PAD floats where V is not K, then k_scale, v_scale
+// and k2_scale; each warp's partial scores over its columns of c [rows]
+// [MLA_PS] and, for warps w < D2 / 8, over k_rope's 8-wide step w; P's two
+// TF32 parts [rows][MLA_PS]; each row's rescale, max and den; the slice's
+// page ids. Strides of 4 mod 32 floats keep both products' B fragments on
+// 32 banks (paged_mla_tf32_kernel).
+__host__ __device__ inline MlaTcLayout mla_tf32_layout(int DP, int D2, bool sep_v,
+                                                       int pages_per_split, int stages) {
+  MlaTcLayout L;
+  constexpr int rows = MLA_TC_ROWS, f = (int)sizeof(float);
+  L.d2p = (D2 + 31) / 32 * 32;
+  L.kr = D2 / 8;                              // k_rope's 8-wide steps: warps 0 .. kr - 1
+  L.row = DP + L.d2p + MLA_TF32_PAD;
+  L.vrow = DP + MLA_TF32_PAD;
+  L.raw_row = L.row * f;
+  L.raw_vrow = L.vrow * f;
+  L.stage = MLA_TT * (L.raw_row + (sep_v ? L.raw_vrow : 0)) + 3 * MLA_TT * f;
+  L.stages = stages;
+  L.conv = L.part = stages * L.stage;
+  L.rpart = L.part + MLA_WARPS * rows * MLA_PS * f;
+  L.ph = L.rpart + L.kr * rows * MLA_PS * f;
+  L.pl = L.ph + rows * MLA_PS * f;
+  L.alpha = L.pl + rows * MLA_PS * f;
+  L.m = L.alpha + rows * f;
+  L.l = L.m + rows * f;
+  L.pages = L.l + rows * f;
+  L.total = L.pages + (pages_per_split + 3) / 4 * 16;
+  return L;
+}
+
+// As many stages as fit, up to MLA_TC_STAGES, with room for the instance's
+// blocks an SM (the SM's 228 KB less 1 KB a block); one where a separate V
+// leaves room for no more.
+template <int DP>
+MlaTcLayout mla_tf32_fit(int D2, bool sep_v, int pps) {
+  constexpr int room = mla_tf32_blocks<DP>() == 1 ? SMEM_MAX : 233472 / 2 - 1024;
+  MlaTcLayout L = mla_tf32_layout(DP, D2, sep_v, pps, MLA_TC_STAGES);
+  for (int st = MLA_TC_STAGES - 1; L.total > room && st >= 1; --st)
+    L = mla_tf32_layout(DP, D2, sep_v, pps, st);
+  return L;
+}
+
+// The A fragment (16 x 8: a0 (g, c + t), a1 (g + 8, c + t), a2 (g, c + t +
+// 4), a3 (g + 8, c + t + 4)) of a query operand x [rows, D] of type Q, zero
+// past `rows` and D, split in two TF32 parts. The loads are unconditional
+// (clamped in range, then selected), as q_frags' are.
+template <typename Q>
+__device__ __forceinline__ void q_frag_tf32(flare::FragA& f, const Q* x, long long base, int ld,
+                                            int rows, int c, int D) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i & 1), cc = c + t + 4 * (i >> 1);
+    const float y = widen(x[base + (long long)min(r, rows - 1) * ld + min(cc, D - 1)]);
+    v[i] = r < rows && cc < D ? y : 0.f;
+  }
+  flare::split_a(f, v[0], v[1], v[2], v[3]);
+}
+
+// P's A fragment of rows g, g + 8 over the tokens [8 kk, 8 kk + 8) in pair
+// order (the k index t is token 2t, t + 4 is token 2t + 1: one float2 a row
+// and part), from its hi and lo parts [rows][MLA_PS]
+__device__ __forceinline__ void p_frag(flare::FragA& f, const float* ph, const float* pl, int kk) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int o0 = g * MLA_PS + 8 * kk + 2 * t, o1 = o0 + 8 * MLA_PS;
+  const float2 h0 = *reinterpret_cast<const float2*>(ph + o0);
+  const float2 h1 = *reinterpret_cast<const float2*>(ph + o1);
+  const float2 l0 = *reinterpret_cast<const float2*>(pl + o0);
+  const float2 l1 = *reinterpret_cast<const float2*>(pl + o1);
+  const float hi[4] = {h0.x, h1.x, h0.y, h1.y}, lo[4] = {l0.x, l1.x, l0.y, l1.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = __float_as_uint(hi[i]);
+    f.lo[i] = __float_as_uint(lo[i]);
+  }
+}
+
+// Grid (splits, B*H, row tiles): paged_mla_tc_kernel's blocks and phases
+// over fp32 pages, the products on the TF32 tensor cores (mma.sync m16n8k8,
+// flare_mma.cuh) with every operand in two TF32 parts, hi + lo, and three
+// MMAs a product (lo.hi + hi.lo + hi.hi: about 2^-21 where one rounding
+// leaves 2^-11): q and q2 split once into registers, the staged rows as each
+// B fragment is read, P by the softmax. Each 8-wide step's hi.hi product
+// starts from zero and is added to fp32 sums, the small terms summed in the
+// tensor core (mma3_out: the tensor core truncates its additions).
+//   * scores: warp w takes the columns [w DP / 8, +DP / 8) of c (and step w
+//     of k_rope, w < D2 / 8): B fragments b0 = c[token g][col t], b1 =
+//     c[g][t + 4], two scalar reads; partial S to shared memory, summed in
+//     a fixed order by the softmax (warp w rows w and w + 8, lane t token t);
+//   * values: warp w holds the fp32 accumulators of all rows for its
+//     columns; P V contracts in pair order, so P's A fragment is one float2
+//     a row and part and the B fragment b0 = v[token 2t][col g], b1 =
+//     v[2t + 1][g]; a tile's P V goes into a fresh sum folded in once a tile.
+// There is no 32-bit ldmatrix, and the scores read the tile along a row
+// while P V reads it down the columns. With a row stride of 4 mod 32 floats
+// both reads are conflict-free: the scores' lane (g, t) hits bank 4g + t,
+// the values' 8t + g (pair order). The pair order for both (the scores'
+// b0, b1 as one float2 at (g, 2t)) would want 8 mod 32, where the values'
+// reads at (2t, g) are two-way conflicts.
+template <int DP>
+__global__ void __launch_bounds__(MLA_THREADS, mla_tf32_blocks<DP>())
+    paged_mla_tf32_kernel(Args a) {
+  using flare::FragA;
+  using flare::mma3_out;
+  using flare::split_b;
+  constexpr int CW = DP / MLA_WARPS;   // columns of c a warp takes
+  constexpr int KW = CW / 8;           // their 8-wide steps (the scores' k)
+  constexpr int NW = CW / 8;           // their 8-wide tiles (the values' n)
+  constexpr int NT = MLA_TT / 8;       // 8-token tiles of a staged tile (S's n, P V's k)
+  constexpr int ROWS = MLA_TC_ROWS;
+  constexpr int SR = ROWS / MLA_WARPS; // softmax rows a warp
+  extern __shared__ uint4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+
+  const int D = a.D, blk = a.block, H = a.H;
+  const bool sep_v = a.v != a.k;
+  const MlaTcLayout L = mla_tf32_layout(DP, a.D2, sep_v, a.pages_per_split, a.stages);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  float* rpart = reinterpret_cast<float*>(smem + L.rpart);
+  float* ph_s = reinterpret_cast<float*>(smem + L.ph);
+  float* pl_s = reinterpret_cast<float*>(smem + L.pl);
+  float* alpha_s = reinterpret_cast<float*>(smem + L.alpha);
+  float* m_s = reinterpret_cast<float*>(smem + L.m);
+  float* l_s = reinterpret_cast<float*>(smem + L.l);
+  int* pages = reinterpret_cast<int*>(smem + L.pages);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int split = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int g0 = blockIdx.z * a.rows, gt = min(a.rows, a.G - g0);
+  const long long qrow = (long long)bh * a.G + g0;
+  const int* ptb = a.pt + (long long)b * a.P;
+  const int len = a.lengths[b];
+  const int2 sl = lane_slice(a, len, split);
+  const int t_lo = sl.x, t_hi = sl.y;
+  const int ntiles = t_hi > t_lo ? (t_hi - t_lo + MLA_TT - 1) / MLA_TT : 0;
+  const int p0 = t_lo / blk, p1 = t_hi > t_lo ? (t_hi + blk - 1) / blk : p0;
+  const int S = L.stages;
+  for (int i = threadIdx.x; i < p1 - p0; i += MLA_THREADS) pages[i] = ptb[p0 + i];
+  // the columns past D of the staged rows are zero, never written by a copy
+  // (both products read them)
+  if (D < DP) {
+    for (int i = threadIdx.x; i < S * L.stage / 16; i += MLA_THREADS)
+      smem4[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();   // page ids and zero fill
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ntiles)
+      issue_mla_tc_tile<float>(smem + s * L.stage, a, pages, p0, t_lo + s * MLA_TT, t_hi, h, L,
+                               sep_v);
+    cp_commit();
+  }
+  // q's fragments of this warp's columns and q2's of its step of k_rope
+  // (their loads in flight with the first tiles')
+  FragA qf[KW], qr;
+  auto load_frags = [&](auto* q, auto* q2) {
+#pragma unroll
+    for (int kk = 0; kk < KW; ++kk) q_frag_tf32(qf[kk], q, qrow * D, D, gt, warp * CW + 8 * kk, D);
+    if (warp < L.kr) q_frag_tf32(qr, q2, qrow * a.D2, a.D2, gt, 8 * warp, a.D2);
+  };
+  if (a.q_dtype == F32)
+    load_frags(static_cast<const float*>(a.q), static_cast<const float*>(a.q2));
+  else
+    load_frags(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.q2));
+
+  float m[SR], l[SR];
+#pragma unroll
+  for (int j = 0; j < SR; ++j) m[j] = NEG_INF, l[j] = 0.f;
+  float o[NW][4];
+#pragma unroll
+  for (int n = 0; n < NW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = t_lo + it * MLA_TT;
+    if (S == 1) {   // one stage: the previous tile's reads done, then this tile's copies
+      __syncthreads();
+      issue_mla_tc_tile<float>(smem, a, pages, p0, t0, t_hi, h, L, sep_v);
+      cp_commit();
+    }
+    if (S == 4)
+      cp_wait<2>();
+    else if (S == 3)
+      cp_wait<1>();
+    else
+      cp_wait<0>();
+    __syncthreads();   // tile `it` has landed for all; the previous tile's reads are done
+    if (S > 1) {
+      if (it + S - 1 < ntiles)
+        issue_mla_tc_tile<float>(smem + ((it + S - 1) % S) * L.stage, a, pages, p0,
+                                 t0 + (S - 1) * MLA_TT, t_hi, h, L, sep_v);
+      cp_commit();
+    }
+    const unsigned char* st = smem + (it % S) * L.stage;
+    const float* ks_st = reinterpret_cast<const float*>(
+        st + MLA_TT * (L.raw_row + (sep_v ? L.raw_vrow : 0)));
+    const float* vs_st = ks_st + MLA_TT;
+    const float* k2s_st = vs_st + MLA_TT;
+    const float* kt = reinterpret_cast<const float*>(st);   // rows [c | k_rope], L.row apart
+    const float* vt = sep_v ? reinterpret_cast<const float*>(st + MLA_TT * L.raw_row) : kt;
+    const int vrow = sep_v ? L.vrow : L.row;
+
+    // ---- partial scores over this warp's columns (and its k_rope step)
+    {
+      float sc[NT][4], cs[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = cs[n][e] = 0.f;
+      const float* kb = kt + g * L.row + warp * CW + t;
+#pragma unroll
+      for (int kk = 0; kk < KW; ++kk)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float* x = kb + 8 * n * L.row + 8 * kk;
+          mma3_out(sc[n], cs[n], qf[kk], split_b(x[0], x[4]));
+        }
+      float* pw = part + warp * ROWS * MLA_PS;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        *reinterpret_cast<float2*>(pw + g * MLA_PS + 8 * n + 2 * t) =
+            make_float2(sc[n][0] + cs[n][0], sc[n][1] + cs[n][1]);
+        *reinterpret_cast<float2*>(pw + (g + 8) * MLA_PS + 8 * n + 2 * t) =
+            make_float2(sc[n][2] + cs[n][2], sc[n][3] + cs[n][3]);
+      }
+      if (warp < L.kr) {
+        const float* rb = kt + g * L.row + DP + 8 * warp + t;
+        float* rw = rpart + warp * ROWS * MLA_PS;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          float r[4] = {0.f, 0.f, 0.f, 0.f}, rc[4] = {0.f, 0.f, 0.f, 0.f};
+          const float* x = rb + 8 * n * L.row;
+          mma3_out(r, rc, qr, split_b(x[0], x[4]));
+          *reinterpret_cast<float2*>(rw + g * MLA_PS + 8 * n + 2 * t) =
+              make_float2(r[0] + rc[0], r[1] + rc[1]);
+          *reinterpret_cast<float2*>(rw + (g + 8) * MLA_PS + 8 * n + 2 * t) =
+              make_float2(r[2] + rc[2], r[3] + rc[3]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- softmax: warp w rows w, w + 8; lane = token. The score order of
+    // the plain version (dot, x k_scale, + q2.k2 x k2_scale, x scale, mask)
+    {
+      const bool on = t0 + lane < t_hi;
+      const float ksc = a.ks ? ks_st[lane] : 1.f, k2sc = a.k2s ? k2s_st[lane] : 1.f;
+      const float vsc = a.vs ? vs_st[lane] : 1.f;
+#pragma unroll
+      for (int j = 0; j < SR; ++j) {
+        const int row = warp + MLA_WARPS * j;
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < MLA_WARPS; ++w) s += part[(w * ROWS + row) * MLA_PS + lane];
+        s *= ksc;
+        if (a.D2) {
+          float s2 = 0.f;
+#pragma unroll
+          for (int w = 0; w < MLA_MAX_D2 / 8; ++w)
+            if (w < L.kr) s2 += rpart[(w * ROWS + row) * MLA_PS + lane];
+          s += s2 * k2sc;
+        }
+        const float x = on ? s * a.scale : NEG_INF;
+        float tmax = x;
+        for (int off = 16; off > 0; off >>= 1)
+          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+        const float mnew = fmaxf(m[j], tmax);
+        const float alpha = __expf(m[j] - mnew);
+        float p = on ? __expf(x - mnew) : 0.f;
+        float psum = p;
+        for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+        l[j] = fmaf(l[j], alpha, psum);
+        m[j] = mnew;
+        p *= vsc;
+        const uint32_t hi = flare::tf32(p);
+        ph_s[row * MLA_PS + lane] = __uint_as_float(hi);
+        pl_s[row * MLA_PS + lane] = __uint_as_float(flare::tf32(p - __uint_as_float(hi)));
+        if (lane == 0) alpha_s[row] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // ---- values: this warp's columns of V, all rows
+    {
+      const float al0 = alpha_s[g], al1 = alpha_s[g + 8];
+      FragA pf[NT];
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) p_frag(pf[kk], ph_s, pl_s, kk);
+      const float* vb = vt + 2 * t * vrow + warp * CW + g;
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+        float f[4] = {0.f, 0.f, 0.f, 0.f}, fc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < NT; ++kk) {
+          const float* x = vb + 8 * kk * vrow + 8 * n;
+          mma3_out(f, fc, pf[kk], split_b(x[0], x[vrow]));
+        }
+        o[n][0] = fmaf(o[n][0], al0, f[0] + fc[0]);
+        o[n][1] = fmaf(o[n][1], al0, f[1] + fc[1]);
+        o[n][2] = fmaf(o[n][2], al1, f[2] + fc[2]);
+        o[n][3] = fmaf(o[n][3], al1, f[3] + fc[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+  // the end as paged_mla_tc_kernel's (written out in each: a helper shared by
+  // both spills the bf16 instance's registers at D 256)
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < SR; ++j) {
+      m_s[warp + MLA_WARPS * j] = m[j];
+      l_s[warp + MLA_WARPS * j] = l[j];
+    }
+  }
+  __syncthreads();
+  const long long prow = ((long long)split * a.B * H + bh) * a.G + g0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int gr = g + 8 * hh;
+    if (gr >= gt) continue;
+    const float den = l_s[gr], dd = fmaxf(den, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NW; ++n) {
+      const int d = warp * CW + 8 * n + 2 * t;   // this thread's two columns d, d + 1
+      const float x0 = o[n][2 * hh], x1 = o[n][2 * hh + 1];
+      if (a.splits > 1) {
+        float* pa = a.part_acc + (prow + gr) * D + d;
+        if (D % 2 == 0 && d < D)
+          *reinterpret_cast<float2*>(pa) = make_float2(x0, x1);
+        else if (d < D) {
+          pa[0] = x0;
+          if (d + 1 < D) pa[1] = x1;
+        }
+      } else if (d < D) {
+        store_out(a.out, a.out_dtype, (qrow + gr) * D + d, x0 / dd);
+        if (d + 1 < D) store_out(a.out, a.out_dtype, (qrow + gr) * D + d + 1, x1 / dd);
+      }
+    }
+    if (a.splits > 1 && warp == 0 && t == 0)
+      a.part_ml[(prow + gr) * 2] = m_s[gr], a.part_ml[(prow + gr) * 2 + 1] = den;
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 // One thread an output element (b, h, g, d): merge the slices in order, in
 // one pass with a running max (every slice's loads independent of the sums).
@@ -1640,37 +1680,19 @@ bool use_mla(int D) { return D > 128; }
 
 // The instance a call runs, numbered as kernels/paged_attention.py's ROUTES:
 // the entry point dispatches on it and reports it to the caller.
-enum Route { DECODE = 0, ENCODE = 1, MLA_TC = 2, MLA_CC = 3 };
+enum Route { DECODE = 0, ENCODE = 1, MLA_TC = 2, MLA_TF32 = 3 };
 int route_of(int G, int D, int D2, int page_dtype) {
-  if (use_mla(D)) return page_dtype == F32 ? MLA_CC : MLA_TC;
+  if (use_mla(D)) return page_dtype == F32 ? MLA_TF32 : MLA_TC;
   return use_encode(G, D, D2) ? ENCODE : DECODE;
 }
 
 int row_tiles(int G) { return (G + ROWS_MAX - 1) / ROWS_MAX; }
 
-// The MLA instance's padded width of D, rows a block at most, and row
-// tiles of G (each tile reads the lane's latents once more): the
-// tensor-core instance (bf16, int8, fp8 pages) takes 16 rows a block (one
-// m16 tile) at both widths, the CUDA-core one (fp32 pages) 32 at D 512 and
-// 64 at D 256.
+// The MLA instances' padded width of D, and row tiles of G (each tile
+// reads the lane's latents once more): both take 16 rows a block (one m16
+// tile) at both widths.
 int mla_dp(int D) { return D <= 256 ? 256 : 512; }
-constexpr int MLA_R[] = {4, 5, 8};   // value-phase rows a thread: the instances
-int mla_max_rows(int DP, int page_dtype) {
-  if (page_dtype != F32) return MLA_TC_ROWS;
-  return MLA_THREADS / (DP / MLA_CW) * 8;
-}
-int mla_row_tiles(int G, int D, int page_dtype) {
-  const int most = mla_max_rows(mla_dp(D), page_dtype);
-  return (G + most - 1) / most;
-}
-
-// The instance's R for a tile of `rows` query rows.
-int mla_r(int rows, int D) {
-  const int rs = MLA_THREADS / (mla_dp(D) / MLA_CW);
-  for (int r : MLA_R)
-    if (rs * r >= rows) return r;
-  return 8;
-}
+int mla_row_tiles(int G) { return (G + MLA_TC_ROWS - 1) / MLA_TC_ROWS; }
 
 cudaError_t combine(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
@@ -1711,33 +1733,6 @@ cudaError_t launch_encode(const Args& a, cudaStream_t stream) {
   return combine(a, stream);
 }
 
-template <typename T, int DP, int R>
-cudaError_t launch_mla(const Args& a, cudaStream_t stream) {
-  constexpr int ROWS8 = (MLA_THREADS / (DP / MLA_CW) * R + MLA_WARPS - 1) / MLA_WARPS * MLA_WARPS;
-  const int bytes = mla_layout(sizeof(T), DP, a.D2, ROWS8, a.v != a.k, a.pages_per_split).total;
-  cudaError_t err = cudaFuncSetAttribute(paged_mla_kernel<T, DP, R>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  paged_mla_kernel<T, DP, R>
-      <<<dim3(a.splits, a.B * a.H, mla_row_tiles(a.G, a.D, a.page_dtype)), MLA_THREADS, bytes,
-         stream>>>(a);
-  return combine(a, stream);
-}
-
-template <typename T, int DP>
-cudaError_t mla_rows(const Args& a, cudaStream_t stream) {
-  switch (mla_r(a.rows, a.D)) {
-    case 4: return launch_mla<T, DP, 4>(a, stream);
-    case 5: return launch_mla<T, DP, 5>(a, stream);
-    default: return launch_mla<T, DP, 8>(a, stream);
-  }
-}
-
-template <typename T>
-cudaError_t mla_width(const Args& a, cudaStream_t stream) {
-  return mla_dp(a.D) == 256 ? mla_rows<T, 256>(a, stream) : mla_rows<T, 512>(a, stream);
-}
-
 template <typename T, int DP>
 cudaError_t launch_mla_tc(Args a, cudaStream_t stream) {
   const MlaTcLayout L = mla_tc_fit(sizeof(T), DP, a.D2, a.v != a.k, a.pages_per_split);
@@ -1746,8 +1741,21 @@ cudaError_t launch_mla_tc(Args a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(paged_mla_tc_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return err;
-  paged_mla_tc_kernel<T, DP><<<dim3(a.splits, a.B * a.H, mla_row_tiles(a.G, a.D, a.page_dtype)),
-                               MLA_THREADS, L.total, stream>>>(a);
+  paged_mla_tc_kernel<T, DP><<<dim3(a.splits, a.B * a.H, mla_row_tiles(a.G)), MLA_THREADS,
+                               L.total, stream>>>(a);
+  return combine(a, stream);
+}
+
+template <int DP>
+cudaError_t launch_mla_tf32(Args a, cudaStream_t stream) {
+  const MlaTcLayout L = mla_tf32_fit<DP>(a.D2, a.v != a.k, a.pages_per_split);
+  if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
+  a.stages = L.stages;
+  cudaError_t err = cudaFuncSetAttribute(paged_mla_tf32_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return err;
+  paged_mla_tf32_kernel<DP><<<dim3(a.splits, a.B * a.H, mla_row_tiles(a.G)), MLA_THREADS,
+                              L.total, stream>>>(a);
   return combine(a, stream);
 }
 
@@ -1756,54 +1764,33 @@ cudaError_t mla_tc(const Args& a, cudaStream_t stream) {
   return mla_dp(a.D) == 512 ? launch_mla_tc<T, 512>(a, stream) : launch_mla_tc<T, 256>(a, stream);
 }
 
-// MLA blocks the card runs at once (K read as V: the serving pool's call).
-template <typename T, int DP, int R>
-int mla_wave_of(int D2, int P) {
-  constexpr int ROWS8 = (MLA_THREADS / (DP / MLA_CW) * R + MLA_WARPS - 1) / MLA_WARPS * MLA_WARPS;
-  const int bytes = mla_layout(sizeof(T), DP, D2, ROWS8, false, P).total;
+// MLA blocks of `kernel` the card runs at once with `smem` bytes of shared
+// memory a block.
+template <typename Kernel>
+int mla_wave_of(Kernel kernel, int smem) {
   int per_sm = 0, dev = 0, sms = 0;
-  if (cudaFuncSetAttribute(paged_mla_kernel<T, DP, R>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_mla_kernel<T, DP, R>,
-                                                    MLA_THREADS, bytes) != cudaSuccess ||
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MLA_THREADS, smem) !=
+          cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 132;
   return (per_sm > 0 ? per_sm : 1) * sms;
 }
 
-template <typename T, int DP>
-int mla_wave_rows(int r, int D2, int P) {
-  switch (r) {
-    case 4: return mla_wave_of<T, DP, 4>(D2, P);
-    case 5: return mla_wave_of<T, DP, 5>(D2, P);
-    default: return mla_wave_of<T, DP, 8>(D2, P);
-  }
-}
-
-template <typename T>
-int mla_wave_width(int r, int D, int D2, int P) {
-  return mla_dp(D) == 256 ? mla_wave_rows<T, 256>(r, D2, P) : mla_wave_rows<T, 512>(r, D2, P);
-}
-
-// Tensor-core MLA blocks the card runs at once (K read as V).
-template <typename T, int DP>
-int mla_tc_wave_of(int D2, int P) {
-  const MlaTcLayout L = mla_tc_fit(sizeof(T), DP, D2, false, P);
-  int per_sm = 0, dev = 0, sms = 0;
-  if (cudaFuncSetAttribute(paged_mla_tc_kernel<T, DP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, L.total) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_mla_tc_kernel<T, DP>,
-                                                    MLA_THREADS, L.total) != cudaSuccess ||
-      cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 132;
-  return (per_sm > 0 ? per_sm : 1) * sms;
-}
-
+// The wave of the MLA instance for page dtype T (K read as V).
 template <typename T>
 int mla_tc_wave(int D, int D2, int P) {
-  return mla_dp(D) == 512 ? mla_tc_wave_of<T, 512>(D2, P) : mla_tc_wave_of<T, 256>(D2, P);
+  const int smem = mla_tc_fit(sizeof(T), mla_dp(D), D2, false, P).total;
+  return mla_dp(D) == 512 ? mla_wave_of(paged_mla_tc_kernel<T, 512>, smem)
+                          : mla_wave_of(paged_mla_tc_kernel<T, 256>, smem);
+}
+
+int mla_tf32_wave(int D, int D2, int P) {
+  if (mla_dp(D) == 512)
+    return mla_wave_of(paged_mla_tf32_kernel<512>, mla_tf32_fit<512>(D2, false, P).total);
+  return mla_wave_of(paged_mla_tf32_kernel<256>, mla_tf32_fit<256>(D2, false, P).total);
 }
 
 // Decode blocks the card runs at once: the instance's blocks a
@@ -1843,7 +1830,7 @@ int decode_wave(int G, int D, int D2, int P, int page_dtype) {
   static int used = 0;
   static std::mutex lock;
   const bool mla = use_mla(D);
-  const int tiles = mla ? mla_row_tiles(G, D, page_dtype) : row_tiles(G);
+  const int tiles = mla ? mla_row_tiles(G) : row_tiles(G);
   const int rows = (G + tiles - 1) / tiles;
   const int key_d2 = mla ? D2 : 0;
   int dev = 0;
@@ -1858,7 +1845,9 @@ int decode_wave(int G, int D, int D2, int P, int page_dtype) {
   int wave;
   if (mla) {
     switch (page_dtype) {
-      case F32: wave = mla_wave_width<float>(mla_r(rows, D), D, D2, P); break;
+      case F32:
+        wave = mla_tf32_wave(D, D2, P);
+        break;
       case BF16: wave = mla_tc_wave<__nv_bfloat16>(D, D2, P); break;
       case I8: wave = mla_tc_wave<int8_t>(D, D2, P); break;
       default: wave = mla_tc_wave<__nv_fp8_e4m3>(D, D2, P);
@@ -1894,7 +1883,7 @@ int paged_attention_splits(int B, int H, int G, int D, int D2, int block, int P,
     most = (long long)P * block / ENC_MIN_TOKENS;
   } else {
     const long long tiles =
-        (long long)B * H * (use_mla(D) ? mla_row_tiles(G, D, page_dtype) : row_tiles(G));
+        (long long)B * H * (use_mla(D) ? mla_row_tiles(G) : row_tiles(G));
     want = decode_wave(G, D, D2, P, page_dtype) / tiles;
     most = P / MIN_PAGES;
   }
@@ -1919,7 +1908,7 @@ int paged_attention(const void* q, const void* q2, const void* k, const void* v,
   if (D < 1 || D > 512 || D2 < 0 || D2 > (mla ? MLA_MAX_D2 : 128) || D2 % 8 || splits < 1 ||
       G < 1)
     return cudaErrorInvalidValue;
-  const int tiles = mla ? mla_row_tiles(G, D, page_dtype) : row_tiles(G);
+  const int tiles = mla ? mla_row_tiles(G) : row_tiles(G);
   Args a{q, q2, k, v, k2, page_table, lengths, k_scale, v_scale, k2_scale, out, part_acc,
          part_ml, B, H, G, D, mla ? mla_dp(D) : padded_width(D), D2, block, P, splits,
          (P + splits - 1) / splits, (G + tiles - 1) / tiles, scale, q_dtype, page_dtype,
@@ -1927,7 +1916,8 @@ int paged_attention(const void* q, const void* q2, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (page_dtype < F32 || page_dtype > FP8) return cudaErrorInvalidValue;
   *route = route_of(G, D, D2, page_dtype);
-  if (*route == MLA_CC) return mla_width<float>(a, s);
+  if (*route == MLA_TF32)
+    return a.DP == 512 ? launch_mla_tf32<512>(a, s) : launch_mla_tf32<256>(a, s);
   if (*route == MLA_TC) {
     switch (page_dtype) {
       case BF16: return mla_tc<__nv_bfloat16>(a, s);

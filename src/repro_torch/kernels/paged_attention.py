@@ -15,11 +15,12 @@ The kernel is in ``csrc/paged_attention.cu``, whose head comment says what
 bounds it on an H100 and what its design does about it: the decode read's
 instance (a block takes up to 8 query rows of one lane and KV head), MLA's
 (D > 128: a block stages each token row once and all its query rows read
-it, both products on the tensor cores for bf16, int8 and fp8 pages, on the
-CUDA cores for fp32 pages) and the FLARE encode's (a thread a latent),
-which the C entry point picks from G, D, q2 and the page dtype. The page slices a call splits each lane
-into come from the shapes and the card (``paged_attention_splits``). On a
-CPU tensor the wrapper runs the plain version
+it, both products on the tensor cores: bf16 MMAs over bf16, int8 and fp8
+pages, TF32 MMAs with every operand in two parts over fp32 pages) and the
+FLARE encode's (a thread a latent), which the C entry point picks from G,
+D, q2 and the page dtype. The page slices a call splits each lane into
+come from the shapes and the card (``paged_attention_splits``). On a CPU
+tensor the wrapper runs the plain version
 (``kernels/ref.py::paged_attention_ref``); on a CUDA tensor it launches the
 kernel or raises (the instance :func:`paged_route` names), inside
 ``obs.scope("kernels.paged_attention")``. The page table and lengths
@@ -48,20 +49,21 @@ OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = range(1, 513)   # D it takes (to 128 tiled at the next power of two from 8;
                             # above, the MLA instance at 256 or 512)
 MAX_BLOCK = 128                    # tokens a page (a multiple of 4)
-ROUTES = ("decode", "encode", "mla_tc", "mla")
+ROUTES = ("decode", "encode", "mla_tc", "mla_tf32")
 
 
 def paged_route(q: torch.Tensor, k_pages: torch.Tensor, q2: Optional[torch.Tensor] = None) -> str:
     """The instance a call on the card runs, from G, D, q2 and the page dtype
     alone, as ``csrc/paged_attention.cu``'s entry point picks it: "mla_tc"
     (``paged_mla_tc_kernel``) for D > 128 over bf16, int8 or fp8 pages,
-    "mla" (``paged_mla_kernel``, the CUDA cores) for D > 128 over fp32
-    pages, "encode" for G > 32 at D <= 32 without q2, else "decode". The
+    "mla_tf32" (``paged_mla_tf32_kernel``, the TF32 tensor cores) for D >
+    128 over fp32 pages, "encode" for G > 32 at D <= 32 without q2, else
+    "decode". The
     entry point reports the instance it launched, and the wrapper raises
     where that is not this one."""
     g, d = q.shape[-2:]
     if d > 128:
-        return "mla" if k_pages.dtype == torch.float32 else "mla_tc"
+        return "mla_tf32" if k_pages.dtype == torch.float32 else "mla_tc"
     return "encode" if q2 is None and d <= 32 and g > 32 else "decode"
 
 

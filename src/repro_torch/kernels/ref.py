@@ -10,7 +10,9 @@ chunks (``chunk=``), so that its [B, H, M, chunk] temporaries fit where the
 whole [B, H, M, N] would not. The causal version sweeps the tokens in
 tiles (``tile=``), the factored form of ``core/flare_stream.py``.
 The paged-attention version gathers each lane's pages into a dense view,
-as ``repro/kernels/paged_attention.py::paged_attention_ref`` does. The
+as ``repro/kernels/paged_attention.py::paged_attention_ref`` does; the
+split emulations beside the plain versions repeat the numeric choices of
+the tensor-core kernels (TF32 or bf16 parts, exact products, fp32 sums). The
 flash-attention version takes any leading dims (``[G, S, D]`` as in the JAX
 package, or ``[B, H, S, D]``).
 """
@@ -176,6 +178,15 @@ def bf16_split3(x: torch.Tensor):
     return p0, p1, (r - p1).to(torch.bfloat16).to(torch.float32)
 
 
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, parts: int) -> torch.Tensor:
+    """einsum ``eq`` of a and b as a TF32 tensor-core kernel takes it, fp32
+    out: each operand in ``parts`` TF32 parts (2: hi + lo, the products lo.hi
+    + hi.lo + hi.hi, never lo.lo; 1: hi alone), each product exact (fp64)."""
+    (ah, *al), (bh, *bl) = (tf32_split(x)[:parts] for x in (a, b))
+    pairs = [(x, bh) for x in al] + [(ah, y) for y in bl] + [(ah, bh)]
+    return sum(torch.einsum(eq, x.double(), y.double()) for x, y in pairs).float()
+
+
 def flash_attention_tf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              scale: float, causal: bool = True, window=None,
                              parts: int = 2) -> torch.Tensor:
@@ -191,16 +202,7 @@ def flash_attention_tf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     if q.dim() >= 3 and k.shape[-3] != q.shape[-3]:
         groups = q.shape[-3] // k.shape[-3]
         k, v = (t.repeat_interleave(groups, dim=-3) for t in (k, v))
-
-    def split(x):
-        hi, lo = tf32_split(x)
-        return (hi, lo) if parts == 2 else (hi,)
-
-    def mm(eq, a, b):   # lo.hi + hi.lo + hi.hi (never lo.lo), each product exact
-        (ah, *al), (bh, *bl) = split(a), split(b)
-        pairs = [(x, bh) for x in al] + [(ah, y) for y in bl] + [(ah, bh)]
-        return sum(torch.einsum(eq, x.double(), y.double()) for x, y in pairs).float()
-
+    mm = lambda eq, a, b: _tf32_product(eq, a, b, parts)
     sq, skv = q.shape[-2], k.shape[-2]
     s = mm("...sd,...td->...st", q, k) * scale
     qi = torch.arange(sq, device=q.device)[:, None]
@@ -257,6 +259,46 @@ def paged_mla_split_ref(q, k_pages, page_table, lengths, *, scale: float = 1.0, 
     hi, lo = bf16_split(p)
     pw = hi.double() + (lo.double() if p_parts == 2 else 0)
     return torch.einsum("bhgt,bhtd->bhgd", pw, c).float() / den
+
+
+def paged_mla_tf32_ref(q, k_pages, page_table, lengths, *, scale: float = 1.0, v_pages=None,
+                       k_scale=None, v_scale=None, q2=None, k2_pages=None, k2_scale=None,
+                       parts: int = 2) -> torch.Tensor:
+    """MLA's paged read over fp32 pages (the latents ``k_pages`` both K and
+    V, or V its own ``v_pages``) with the products of its TF32 tensor-core
+    kernel (``csrc/paged_attention.cu::paged_mla_tf32_kernel``) emulated: q,
+    q2, the staged rows and the weights p times v_scale enter S = q c^T (+
+    q2 k_rope^T) and P V as TF32 parts (``parts=2``: hi + lo, the products
+    lo.hi + hi.lo + hi.hi, the kernel's choice; ``parts=1``: hi alone, one
+    rounding), the products exact; the scores (dot x k_scale + rope term x
+    k2_scale, x scale, the mask), softmax and den fp32. Over a whole lane at
+    once: the kernel's 32-token tiles, online rescaling and page slices
+    change only the order of fp32 sums. q [B, H, G, D] fp32, pages [NB,
+    block, H, D] fp32 -> [B, H, G, D] fp32; a lane of length 0 gives 0."""
+    mm = lambda eq, a, b: _tf32_product(eq, a, b, parts)
+    t = page_table.shape[1] * k_pages.shape[1]
+    valid = (torch.arange(t, device=q.device)[None, :]
+             < lengths.to(q.device).long()[:, None])[:, None, :]          # [B, 1, T]
+
+    def rows(pages):   # rows past a lane's length zeroed, so garbage there is invisible
+        return _gather_rows(pages, page_table).float().masked_fill(~valid[..., None], 0)
+
+    s = mm("bhgd,bhtd->bhgt", q, rows(k_pages))
+    if k_scale is not None:
+        s = s * _gather_rows(k_scale, page_table).float()[:, :, None, :]
+    if q2 is not None:
+        s2 = mm("bhgd,bhtd->bhgt", q2, rows(k2_pages))
+        if k2_scale is not None:
+            s2 = s2 * _gather_rows(k2_scale, page_table).float()[:, :, None, :]
+        s = s + s2
+    s = (s * scale).masked_fill(~valid[:, :, None, :], -torch.inf)
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(mx), mx, 0))
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if v_scale is not None:
+        p = p * _gather_rows(v_scale, page_table).float()[:, :, None, :]
+    v = rows(k_pages if v_pages is None else v_pages)
+    return mm("bhgt,bhtd->bhgd", p, v) / den
 
 
 def flare_fused_bwd_ref(q, k, v, z, mx, den, lse, y, dy, *, chunk=None):

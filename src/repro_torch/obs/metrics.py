@@ -154,5 +154,14 @@ class MetricsRegistry:
         return text
 
 
-
+# a permanently disabled sink: the default for uninstrumented construction,
+# so producers never branch on whether observability is on
 NULL_REGISTRY = MetricsRegistry(enabled=False)
+
+# the process-wide default registry (module-level producers)
+REGISTRY = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide default registry."""
+    return REGISTRY

@@ -41,6 +41,21 @@ def global_norm(tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that brings a global norm ``norm`` to at most ``max_norm``."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm
+    before), as new tensors in the gradients' dtypes. :func:`adamw_update`
+    applies the same factor group by group instead, so that no scaled copy
+    of every gradient is held at once (the same fp32 values)."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+    return {k: g * scale.to(g.dtype) for k, g in grads.items()}, norm
+
+
 def _groups(names: list, params: Dict[str, torch.Tensor]):
     """``names`` in order, cut into runs of at most GROUP elements (a larger
     tensor alone)."""
@@ -63,8 +78,8 @@ def adamw_update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor]
                  grad_clip: float = 0.0):
     """Returns (params, state, grad_norm); params and state updated in place."""
     norm = global_norm(grads)
-    # global-norm clipping: gradients scaled to a norm of at most grad_clip
-    scale = torch.clamp(grad_clip / torch.clamp(norm, min=1e-9), max=1.0) if grad_clip else None
+    # global-norm clipping (clip_by_global_norm's factor, applied a group at a time)
+    scale = _clip_scale(norm, grad_clip) if grad_clip else None
     state.step += 1
     bc1 = 1.0 - beta1 ** state.step
     bc2 = 1.0 - beta2 ** state.step

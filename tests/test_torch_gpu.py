@@ -503,7 +503,7 @@ def _mla_case(g, d, d2, page_dtype, device, *, block=16, pages=24):
 
 @pytest.mark.parametrize("g,d,d2,page_dtype", MLA_CASES)
 def test_paged_mla_read_matches_plain(cuda, g, d, d2, page_dtype):
-    """The tensor-core instance for bf16, int8 and fp8 pages, the CUDA-core
+    """The bf16 tensor-core instance for bf16, int8 and fp8 pages, the TF32
     one for fp32 pages (the route's launch count), against fp64; a lane of
     length 0 exact zeros; the same call twice gives equal bits."""
     from repro_torch.kernels.paged_attention import paged_attention
@@ -514,7 +514,7 @@ def test_paged_mla_read_matches_plain(cuda, g, d, d2, page_dtype):
     got = paged_attention(*ops, scale=0.1, out_dtype=torch.float32, **kw)
     torch.cuda.synchronize()
     assert launch_counts()["paged_attention"] == before + 1
-    route = "mla" if page_dtype == "float32" else "mla_tc"
+    route = "mla_tf32" if page_dtype == "float32" else "mla_tc"
     assert {r: n - routes[r] for r, n in paged_attention.launches_by_route.items()} == {
         r: int(r == route) for r in routes}
     wide = {key: t.double() if key == "q2" else t for key, t in kw.items()}
@@ -537,6 +537,29 @@ def test_paged_mla_read_separate_v_and_equal_bits(cuda):
     wide = {key: t.double() if key == "q2" else t for key, t in kw.items()}
     want = ref.paged_attention_ref(q.double(), c, v, pt, lengths, scale=0.1,
                                    out_dtype=torch.float64, **wide)
+    assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+    again = paged_attention(q, c, v, pt, lengths, scale=0.1, out_dtype=torch.float32, **kw)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("d,d2", [(256, 32), (512, 64)])
+def test_paged_mla_read_fp32_separate_v(cuda, d, d2):
+    """The TF32 instance with V its own fp32 pages (at D 512 one stage of
+    the ring: K and V rows do not fit twice), against fp64; a lane of
+    length 0 exact zeros; the same call twice gives equal bits."""
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    ops, kw = _mla_case(16, d, d2, "float32", cuda)
+    q, c, _, pt, lengths = ops
+    v = torch.randn(c.shape, device=cuda)
+    v[-1] = float("nan")
+    routes = dict(paged_attention.launches_by_route)
+    got = paged_attention(q, c, v, pt, lengths, scale=0.1, out_dtype=torch.float32, **kw)
+    assert paged_attention.launches_by_route["mla_tf32"] == routes["mla_tf32"] + 1
+    wide = {key: t.double() if key == "q2" else t for key, t in kw.items()}
+    want = ref.paged_attention_ref(q.double(), c, v, pt, lengths, scale=0.1,
+                                   out_dtype=torch.float64, **wide)
+    assert not got[0].any() and torch.isfinite(got).all()
     assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
     again = paged_attention(q, c, v, pt, lengths, scale=0.1, out_dtype=torch.float32, **kw)
     assert torch.equal(got, again)

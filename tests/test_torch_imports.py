@@ -1,4 +1,6 @@
-"""The port and chip_smoke.py import nothing of JAX or of the JAX package."""
+"""The port, chip_smoke.py, the port's examples (``examples/torch_*.py``) and
+its scripts (``scripts/torch_*.py``) import nothing of JAX or of the JAX
+package."""
 import ast
 import os
 import subprocess
@@ -10,7 +12,9 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
-FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
+FILES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + EXAMPLES
+         + sorted((REPO / "scripts").glob("torch_*.py")))
 
 
 def _imported(tree: ast.AST):
@@ -65,4 +69,33 @@ def test_sharded_modules_are_checked():
     for name in ("distributed/__init__.py", "distributed/compat.py", "distributed/sharding.py",
                  "launch/mesh.py", "core/flare_sp.py", "kernels/flare_packed_shard.py",
                  "backends/packed_shard.py", "backends/seqparallel.py"):
+        assert name in checked, name
+
+
+def test_examples_load_without_jax():
+    """Each example module imports (its ``main`` not run) without pulling in
+    JAX or the JAX package."""
+    code = ("import importlib.util, sys\n"
+            f"for path in {[str(p) for p in EXAMPLES]!r}:\n"
+            "    spec = importlib.util.spec_from_file_location('example', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('PASS')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0 and "PASS" in out.stdout, out.stdout + out.stderr
+
+
+def test_spectral_dispatch_and_examples_are_checked():
+    """The spectral module, the dispatch CLI's module, the five examples and
+    the MLA A/B script are among the files checked above."""
+    checked = {str(p.relative_to(REPO)) for p in FILES}
+    for name in ("src/repro_torch/core/spectral.py", "src/repro_torch/core/dispatch.py",
+                 "src/repro_torch/core/__init__.py", "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/obs/metrics.py", "scripts/torch_ab_mla_fp32_flash.py",
+                 *(f"examples/torch_{n}.py" for n in (
+                     "quickstart", "train_pde_surrogate", "serve_llm", "long_context_stream",
+                     "spectral_analysis"))):
         assert name in checked, name

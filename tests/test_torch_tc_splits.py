@@ -10,7 +10,9 @@ those of the bf16 routes (``flash_bf16_kernel`` off TMA's route and
 ``csrc/flare_causal.cu::causal_tf32_kernel`` (fp32 q, k, v and every
 intermediate in two TF32 parts) and ``ref.paged_mla_split_ref`` those of
 ``csrc/paged_attention.cu::paged_mla_tc_kernel`` (the pages widened to bf16,
-fp32 q in three bf16 parts, the weights in two). Each emulation is held
+fp32 q in three bf16 parts, the weights in two), ``ref.paged_mla_tf32_ref``
+those of ``paged_mla_tf32_kernel`` (fp32 pages: q, the pages and the
+weights in two TF32 parts, three MMAs a product). Each emulation is held
 within 1e-5 of max |o| of the plain version in fp64 (chip_smoke.py's RTOL,
 the kernels' limit on the card; a bf16 output beyond its own rounding, as
 ``Checks.hold_rounded`` holds it), and a control with each operand rounded
@@ -192,8 +194,8 @@ MLA_SHAPES = {"deepseek": (16, 512, 64), "minicpm3": (40, 256, 32)}
 
 def _mla_inputs(g, d, d2, page_dtype, seed=0):
     """numpy inputs of MLA's read: fp32 q [B, 1, G, D] and q2, one page head of
-    latents [NB, 16, 1, D] and rotary keys (bf16 values, or int8 / e4m3 with
-    per-row fp32 scales), a shuffled page table, lanes of 0, a partial page,
+    latents [NB, 16, 1, D] and rotary keys (fp32, bf16 values, or int8 / e4m3
+    with per-row fp32 scales), a shuffled page table, lanes of 0, a partial page,
     a mid-tile length and several pages; q scaled so the scores reach ~10."""
     rng = np.random.default_rng(seed)
     b, block, p = 4, 16, 6
@@ -207,7 +209,7 @@ def _mla_inputs(g, d, d2, page_dtype, seed=0):
     scales = {}
     if page_dtype == "bfloat16":
         c, kr = (x.astype(ml_dtypes.bfloat16) for x in (c, kr))
-    else:
+    elif page_dtype != "float32":
         def quant(x):
             top = 127.0 if page_dtype == "int8" else 448.0
             sc = np.maximum(np.abs(x).max(-1), 1e-6) / top
@@ -273,6 +275,49 @@ def test_mla_split_emulation_matches_jax_paged_attention(shape, page_dtype):
     assert _rel(got, want) <= LIMIT
 
 
+@pytest.mark.parametrize("separate_v", [False, True])
+@pytest.mark.parametrize("shape", list(MLA_SHAPES))
+def test_mla_tf32_split_meets_the_fp32_limit_one_rounding_does_not(shape, separate_v):
+    """The fp32-pages read (paged_mla_tf32_kernel) at DeepSeek-V2-Lite's and
+    MiniCPM3's shapes, the latents both K and V or V its own pages: q, the
+    pages and P in two TF32 parts within 1e-5 of max |o| of the plain
+    version in fp64; each rounded once to TF32 beyond it. A lane of length 0
+    gives 0, and the NaN in every row past a lane's length stays unseen."""
+    inp = _mla_inputs(*MLA_SHAPES[shape], "float32")
+    q, c, pt, lengths = (_torch(inp[n]) for n in ("q", "c", "pt", "lengths"))
+    v = torch.from_numpy(np.random.default_rng(5).standard_normal(c.shape).astype(np.float32))
+    v = v if separate_v else c
+    for lane, n in enumerate(lengths.tolist()):   # NaN in every row past a lane's length
+        for t in range(n, pt.shape[1] * c.shape[1]):
+            c[pt[lane, t // c.shape[1]], t % c.shape[1]] = float("nan")
+            v[pt[lane, t // c.shape[1]], t % c.shape[1]] = float("nan")
+    kw = _mla_kw(inp, _torch)
+    want = ref.paged_attention_ref(q.double(), c, v, pt, lengths, scale=0.1,
+                                   out_dtype=torch.float64, **{**kw, "q2": kw["q2"].double()})
+    errs = {}
+    for parts in (2, 1):
+        got = ref.paged_mla_tf32_ref(q, c, pt, lengths, scale=0.1, v_pages=v, parts=parts, **kw)
+        assert not got[0].any() and torch.isfinite(got).all()
+        errs[parts] = _rel(got, want)
+    assert errs[2] <= LIMIT, errs
+    assert errs[1] > LIMIT, errs
+
+
+@pytest.mark.parametrize("shape", list(MLA_SHAPES))
+def test_mla_tf32_emulation_matches_jax_paged_attention(shape):
+    """The fp32-pages emulation against the JAX ``paged_attention`` in
+    interpret mode on the same numpy inputs (the latents both K and V, q2
+    over k_rope)."""
+    inp = _mla_inputs(*MLA_SHAPES[shape], "float32", seed=1)
+    q, c, pt, lengths = (_torch(inp[n]) for n in ("q", "c", "pt", "lengths"))
+    got = ref.paged_mla_tf32_ref(q, c, pt, lengths, scale=0.1, **_mla_kw(inp, _torch))
+    jc = jnp.asarray(inp["c"])
+    want = jpaged_attention(jnp.asarray(inp["q"]), jc, jc, jnp.asarray(inp["pt"]),
+                            jnp.asarray(inp["lengths"]), scale=0.1, out_dtype=jnp.float32,
+                            interpret=True, **_mla_kw(inp, jnp.asarray))
+    assert _rel(got, want) <= LIMIT
+
+
 def test_one_byte_pages_widen_to_bf16_exactly():
     """Every int8 value and every finite e4m3 value is a bf16 value: the
     kernel's widening of one-byte rows to bf16 (through fp32) loses nothing."""
@@ -300,13 +345,13 @@ def test_three_bf16_parts_give_fp32_back_exactly():
 
 @pytest.mark.parametrize("case,want", [
     ((16, 512, "bfloat16", True), "mla_tc"), ((40, 256, "int8", True), "mla_tc"),
-    ((40, 256, "float8_e4m3fn", True), "mla_tc"), ((16, 512, "float32", True), "mla"),
+    ((40, 256, "float8_e4m3fn", True), "mla_tc"), ((16, 512, "float32", True), "mla_tf32"),
     ((6, 128, "bfloat16", False), "decode"), ((2048, 8, "float32", False), "encode"),
     ((2048, 8, "float32", True), "decode")])
 def test_paged_route_picks_the_instance_from_shape_and_page_dtype(case, want):
     """The instance the paged kernel's entry point runs, as the wrapper
-    counts it: MLA's read (D > 128) on the tensor cores for bf16, int8 and
-    fp8 pages and on the CUDA cores for fp32 pages; the FLARE encode for
+    counts it: MLA's read (D > 128) on the bf16 tensor cores for bf16, int8
+    and fp8 pages and on the TF32 tensor cores for fp32 pages; the FLARE encode for
     G > 32 at D <= 32 without q2; the decode read otherwise."""
     from repro_torch.kernels.paged_attention import paged_route
 
