@@ -241,9 +241,11 @@ failure so the script exits non-zero:
    (coalesced prefills > 0, first-token logits within 5e-2 of the solo
    run's); the cache-on run again with a ``Tracer`` and one expiring
    request (the Chrome JSON, written to a temporary file, holds every
-   phase; the tokens unchanged; 28 ``kernels.paged_attention`` scopes, one
-   ``serve.decode`` and one ``serve.sample`` in a torch.profiler trace of
-   one decode step); in fp32 compute (a 512-token template, 4 requests, 24
+   phase; the tokens unchanged; one ``serve.replay`` scope and none of the
+   step's own in a torch.profiler trace of one replayed decode step), and
+   on the eager step, the graph route's oracle (28
+   ``kernels.paged_attention`` scopes, one ``serve.decode`` and one
+   ``serve.sample`` in one decode step's trace); in fp32 compute (a 512-token template, 4 requests, 24
    new tokens) the cache on against off (greedy tokens printed, the hits'
    first-token logits against the same suffix prefill run outside the
    engine within 1e-3), and traced (the same tokens and host syncs). The
@@ -319,17 +321,18 @@ failure so the script exits non-zero:
    view. (b) The same on layer 0's own decode operands after a
    real prefill (int8 / fp8 by quantizing its bf16 pages, fp32 by widening
    them). (c) 16 requests
-   (prompts of 256-2,048 tokens, 32 new tokens) through ``ServeEngine``
+   (prompts of 256-2,048 tokens, 64 new tokens) through ``ServeEngine``
    (``SERVE``) on the dense pool and the kernel route in bf16 (decode ms a
    step, tokens/s, prefill ms a request, p50/p99, peak GiB; 27 paged
    launches a step asserted), then 4 requests of 24 new tokens in fp32
    compute on the dense pool, the gather route and the kernel route:
    greedy tokens equal, and a profiled fp32 kernel-route decode step's
    ``route`` line names ``paged_mla_tc_kernel`` (fp32 q over bf16 pages),
-   not the fp32-pages instance; with
+   not the fp32-pages instance (a replayed step's kernels, as the bf16
+   kernel route's profiled step's); with
    all 8 slots busy (prompts cut to 256 tokens), 27
-   ``kernels.paged_attention`` scopes in a trace of one kernel-route decode
-   step and a profiler breakdown of the next (``route`` line:
+   ``kernels.paged_attention`` scopes in a trace of one eager kernel-route
+   decode step and a profiler breakdown of the next (``route`` line:
    ``paged_mla_tc_kernel``, not the fp32-pages instance); the MoE layers'
    expert-weight casts timed;
 16. ``serve minicpm3-4b``: the same for ``get_model(minicpm3_4b)`` (62
@@ -339,6 +342,25 @@ failure so the script exits non-zero:
    it, cache off and on, the hits' first-token logits within 5e-2 of max
    |logit| of the cold run's, a control (one hit's first shared page
    pointed at another live block) that must exceed it;
+16b. serving by graph replay, in every serving phase above (11, 12, 12b,
+   14, 15, 16): each engine runs ``ServeEngine.warmup`` first (its prefill
+   buckets, then the decode step captured as one CUDA graph), and must
+   count one decode build after it and still one after serving; its
+   replayed steps' paged launches are layers x steps. Each configuration
+   (flare_lm's 4 requests through the dense pool in bf16 and fp32; qwen2's
+   kernel route in bf16, its three routes in fp32, its int8 and fp8 pools
+   at the requests' full new tokens;
+   phi3's kernel route; the prefix cache on in bf16 and fp32; each MLA
+   model's kernel route in bf16 and its three routes in fp32; MiniCPM3's
+   prefix cache; a bf16 oracle decodes EAGER_NEW = 16 tokens a request) keeps
+   one run on the eager step (``cuda_graph=False``) as its oracle
+   (``graph_held`` lines): fp32 greedy tokens equal, bf16 first-step
+   logits within 5e-2 of max |logit| with the first differing token
+   printed, decode ms a step, busy shares and peak GiB side by side. Then
+   ``launch serve``: ``python -m repro_torch.launch.serve --arch
+   qwen2_1_5b ... --decode-backend paged --warmup --max-decode-compiles 0``
+   at full size in a process of its own must exit 0 with "0 while serving"
+   and "host syncs/step: 0.0". A ``phase seconds`` line closes the run;
 17. one JSON line of per-kernel numbers (12 kernels: the wgmma flash kernel
    is a row of its own; the paged kernel's row also carries its MLA
    instances' reads under ``mla_read``: each model's bf16-pages read
@@ -353,6 +375,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -462,6 +485,9 @@ PAGED_SCALE = 0.7
 SERVE = dict(slots=8, capacity=4096, block_size=16, pool_tokens=16384)
 SERVE_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, (256, 2048), (64, 128)
 SERVE32_REQUESTS, SERVE32_NEW = 4, 24      # fp32 compute: greedy tokens held across routes
+# new tokens a request of a bf16 configuration's eager oracle (the graph
+# route's runs keep theirs; the two are compared over the oracle's tokens)
+EAGER_NEW = 16
 # serving with the prefix cache, the same engine: a 1,792-token template
 # (112 blocks), 16 requests (0: the template; i: the template and tail
 # i % 4 of 64-448 tokens), 64 new tokens each. Cold, a request stakes its
@@ -542,7 +568,7 @@ DEEPSEEK_PARAMS, MINICPM3_PARAMS = (13e9, 18e9), (3.5e9, 5.0e9)
 MLA_LENGTHS = (0, 17, 1985, 1993, 2000, 2017, 2031, 2048)
 MLA_PAGE_DTYPES = ("bfloat16", "int8", "fp8", "float32")
 MLA_P_PARTS = 2   # bf16 parts of the weights in the tensor-core read's value product
-MLA_NEW = 32   # new tokens a request: each bf16 decode step is host-paced, ~0.2 s
+MLA_NEW = 64   # new tokens a request
 MLA_SERVE32_REQUESTS, MLA_SERVE32_NEW = 4, 24
 MLA_PREFIX_TEMPLATE, MLA_PREFIX_REQUESTS, MLA_PREFIX_NEW = 512, 4, 16
 # Algorithm 1 (core/spectral.py) on block 0's latent queries and keys at
@@ -2176,7 +2202,9 @@ def lm_requests(cfg, model, net, device) -> dict:
     """4 TokenStream prompts of 1,024-2,048 tokens in one 2,048 bucket with
     lengths: prefill and 64 greedy decode steps in bf16 (one counted window),
     then the same in fp32 compute held against Model.forward (the kernel
-    path) on the prompts and the tokens generated."""
+    path) on the prompts and the tokens generated; then the 4 prompts
+    served by ServeEngine's dense pool by graph replay, held against its
+    eager step in bf16 and fp32."""
     import numpy as np
     import torch
 
@@ -2225,6 +2253,21 @@ def lm_requests(cfg, model, net, device) -> dict:
         raise AssertionError("fp32 greedy tokens differ from Model.forward's argmax")
     print(f"requests fp32: the greedy tokens of all {REQUESTS} x {DECODE_STEPS + 1} positions "
           "equal Model.forward's", flush=True)
+    # the same prompts through ServeEngine's dense pool, by graph replay
+    # against the eager step, in bf16 and fp32 compute
+    reqs = [(toks[i, :n].astype(np.int32), DECODE_STEPS) for i, n in enumerate(lengths)]
+    base = dict(slots=REQUESTS, capacity=BUCKET + DECODE_STEPS)
+    for dtype, m in (("bfloat16", model), ("float32", model32)):
+        label = f"{'bf16' if dtype == 'bfloat16' else 'fp32'} dense"
+        graph = serve_run(m, net, reqs, label, base=base, profile=True)
+        graph_held(f"flare_lm {label}", graph,
+                   serve_run(m, net, reqs, label, base=base, profile=True, graph=False), dtype)
+        if dtype == "float32":
+            same = np.mean([a == b for g, r in zip(graph["tokens"], run32["tokens"].tolist())
+                            for a, b in zip(g, r)])
+            print(f"serve flare_lm fp32 engine vs the batched prefill + decode above (printed, "
+                  f"not held: one prefill a request against one of all four): greedy tokens "
+                  f"equal {100 * same:.1f}%", flush=True)
     return {"counts": counts, **{key: run16[key] for key in ("prefill_ms", "step_ms", "tok_s")}}
 
 
@@ -2947,12 +2990,18 @@ def serve_requests(vocab: int, n: int, new_tokens, *, longest_first: bool, lens=
 
 
 def serve_run(model, net, reqs, label: str, *, profile: bool = False, base=SERVE,
-              **kw) -> dict:
+              graph: bool = True, **kw) -> dict:
     """One engine (``base`` settings, updated by ``kw``) over the requests:
-    launch counts zeroed just before and read just after; the first decode
-    step's logits and the slots it decoded; one decode step profiled once
-    the queue has drained (its time kept out of the step mean and of
-    tokens/s, which is over the wall of every prefill and decode step)."""
+    on the graph route (``graph``) ``warmup`` first (every prefill bucket of
+    the requests, then the decode step captured as one CUDA graph: one
+    build, and none while serving), else the eager step (no build); launch
+    counts zeroed just before the requests and read just after (a replay
+    adds the launches its capture recorded); the first decode step's logits
+    and the slots it decoded; one decode step profiled once the queue has
+    drained (its time kept out of the step mean and of tokens/s, which is
+    over the wall of every prefill and decode step)."""
+    import gc
+
     import torch
 
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
@@ -2960,8 +3009,14 @@ def serve_run(model, net, reqs, label: str, *, profile: bool = False, base=SERVE
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    engine = ServeEngine(model, net, **{**base, **kw})
+    engine = ServeEngine(model, net, **{**base, **kw}, cuda_graph=graph)
     name = model.cfg.name
+    route = "graph" if graph else "eager"
+    warm_s = 0.0
+    if graph:
+        engine.warmup(max_prompt_len=max(len(p) for p, _ in reqs))
+        warm_s = engine.stats["warmup_s"]
+    builds = engine.stats["decode_compiles"]
     for prompt, max_new in reqs:
         engine.submit(prompt, max_new_tokens=max_new)
     reset_launch_counts()
@@ -2989,21 +3044,23 @@ def serve_run(model, net, reqs, label: str, *, profile: bool = False, base=SERVE
     st = engine.stats
     steps = st["decode_steps"] - prof_steps
     out = {
-        "label": label, "backend": st["decode_backend"], "counts": counts,
+        "label": label, "backend": st["decode_backend"], "counts": counts, "graph": graph,
         "tokens": [r.tokens for r in sorted(engine.sched.finished, key=lambda r: r.rid)],
         "first_logits": first[0], "first_slots": first[1],
         "prefill_ms": 1e3 * st["prefill_s"] / st["requests"],
         "step_ms": 1e3 * (st["decode_s"] - prof_s) / steps, "steps": st["decode_steps"],
-        "tok_s": st["tokens_generated"] / wall, "wall_s": wall,
+        "tok_s": st["tokens_generated"] / wall, "wall_s": wall, "warmup_s": warm_s,
         "per_step": counts["paged_attention"] / st["decode_steps"],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "stats": st, "prof": prof,
     }
     pool = st.get("pool")
-    print(f"serve {name} {label}: decode backend {st['decode_backend']}; {st['requests']} "
-          f"requests, {st['tokens_generated']} tokens in {wall:.2f} s ({out['tok_s']:.1f} tok/s); "
-          f"prefill {out['prefill_ms']:.2f} ms/request; decode {out['step_ms']:.3f} ms/step over "
-          f"{steps} steps; paged launches {counts['paged_attention']} ({out['per_step']:g} a "
-          f"step); sample_host_syncs {st['sample_host_syncs']}; admitted_peak "
+    print(f"serve {name} {label} ({route}): decode backend {st['decode_backend']}; "
+          f"{st['requests']} requests, {st['tokens_generated']} tokens in {wall:.2f} s "
+          f"({out['tok_s']:.1f} tok/s); prefill {out['prefill_ms']:.2f} ms/request; decode "
+          f"{out['step_ms']:.3f} ms/step over {steps} steps; paged launches "
+          f"{counts['paged_attention']} ({out['per_step']:g} a step); decode builds "
+          f"{builds} after warmup ({warm_s:.2f} s), {st['decode_compiles']} after serving; "
+          f"sample_host_syncs {st['sample_host_syncs']}; admitted_peak "
           f"{st['admitted_peak']}/{base['slots']}, page_waits {st['page_waits']}; latency "
           f"p50/p99 {st['latency_p50_s'] * 1e3:.1f}/{st['latency_p99_s'] * 1e3:.1f} ms; peak "
           f"{out['peak_gib']:.2f} GiB; {st['cache']}"
@@ -3012,12 +3069,17 @@ def serve_run(model, net, reqs, label: str, *, profile: bool = False, base=SERVE
         dev = sum(prof[0].values())
         kern = sum(ms for key, ms in prof[0].items() if "paged_" in key)
         out["busy"], out["kernel_share"] = dev / prof[1], kern / dev
-        print(f"  decode step: device busy {100 * out['busy']:.1f}% of {prof[1]:.3f} ms wall, "
-              f"paged kernel {kern:.3f} ms = {100 * out['kernel_share']:.1f}% of device time",
-              flush=True)
+        print(f"  decode step ({route}): device busy {100 * out['busy']:.1f}% of {prof[1]:.3f} ms "
+              f"wall, paged kernel {kern:.3f} ms = {100 * out['kernel_share']:.1f}% of device "
+              "time", flush=True)
     if st["sample_host_syncs"] or st["finished"] != len(reqs):
         raise AssertionError(f"{label}: host syncs {st['sample_host_syncs']}, finished "
                              f"{st['finished']} of {len(reqs)}")
+    if (builds, st["decode_compiles"]) != ((1, 1) if graph else (0, 0)) or (
+            graph and engine.device.type == "cuda" and engine._graph is None):
+        raise AssertionError(f"{label} ({route}): decode builds {builds} after warmup, "
+                             f"{st['decode_compiles']} after serving, graph captured "
+                             f"{engine._graph is not None}")
     if engine.paged:
         engine.check_invariants()
         if pool["blocks_free"] != pool["blocks_total"] or pool["blocks_reserved"]:
@@ -3028,8 +3090,34 @@ def serve_run(model, net, reqs, label: str, *, profile: bool = False, base=SERVE
         raise AssertionError(f"{label}: launches {counts} over {st['decode_steps']} steps, "
                              f"expected {want} paged a step")
     del engine
+    gc.collect()   # an engine's scheduler holds it in a cycle, and it holds its graph's pool
     torch.cuda.empty_cache()
     return out
+
+
+def graph_held(label: str, graph: dict, eager: dict, dtype: str) -> None:
+    """A graph-route run against its eager oracle on the same prompts (the
+    oracle may decode fewer tokens a request): the first decode step's
+    logits on the slots both decoded within ``ROUTE_TOL[dtype]`` of max
+    |logit|; the greedy tokens compared over the oracle's lengths, equal in
+    fp32, the first divergence printed in bf16; decode ms a step, busy
+    shares and peak GiB printed side by side."""
+    slots = sorted(set(graph["first_slots"]) & set(eager["first_slots"]))
+    held(f"serve {label} graph vs eager first-step logits ({len(slots)} slots)",
+         graph["first_logits"][slots], eager["first_logits"][slots], ROUTE_TOL[dtype])
+    div = first_divergence([g[:len(e)] for g, e in zip(graph["tokens"], eager["tokens"])],
+                           eager["tokens"])
+    busy = lambda run: f"{100 * run['busy']:.1f}%" if "busy" in run else "not measured"
+    print(f"serve {label} graph vs eager: greedy tokens over the eager run's "
+          f"{sum(map(len, eager['tokens']))} "
+          + ("all equal" if div is None else f"first differ at request {div[0]}, token {div[1]}")
+          + f"; decode {graph['step_ms']:.3f} vs {eager['step_ms']:.3f} ms/step "
+          f"({eager['step_ms'] / graph['step_ms']:.2f}x); busy {busy(graph)} vs {busy(eager)}; "
+          f"peak {graph['peak_gib']:.2f} vs {eager['peak_gib']:.2f} GiB; warmup "
+          f"{graph['warmup_s']:.2f} s", flush=True)
+    if dtype == "float32" and div is not None:
+        raise AssertionError(f"{label}: fp32 greedy tokens of the graph route differ from the "
+                             f"eager step's at request {div[0]}, token {div[1]}")
 
 
 def first_divergence(a: list, b: list):
@@ -3098,7 +3186,7 @@ def capture_decode_read(model, net, reqs, base: dict) -> dict:
     # name, which points here: on capture's counters, outside every count read
     capture.launches = 0
     capture.launches_by_route = dict.fromkeys(kernel.launches_by_route, 0)
-    engine = ServeEngine(model, net, **base, decode_backend="paged")
+    engine = ServeEngine(model, net, **base, decode_backend="paged", cuda_graph=False)
     for prompt, max_new in reqs:
         engine.submit(prompt, max_new_tokens=max_new)
     paged_module.paged_attention = capture
@@ -3115,13 +3203,16 @@ def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
     """Qwen2-1.5B at full width and depth: the paged kernel on the pool's
     own operands, then serving through the dense pool, the paged pool's
     gather route and its kernel route in bf16 (the counted window is the
-    kernel route's), the three routes in fp32 compute (greedy tokens equal),
-    and the int8 and fp8 pools."""
+    kernel route's), all by graph replay, the kernel route held against its
+    eager oracle; the three routes in fp32 compute, graph and eager (greedy
+    tokens equal across routes and between the two); the int8 and fp8
+    pools, each against an eager oracle of two tokens a request."""
     import torch
 
     from repro_torch.config import replace
     from repro_torch.models.api import get_model
 
+    t_phase = time.perf_counter()
     reqs = serve_requests(cfg.vocab, SERVE_REQUESTS, NEW_TOKENS, longest_first=True)
     print(f"requests: {len(reqs)} prompts of {[len(p) for p, _ in reqs]} tokens, "
           f"{[m for _, m in reqs]} new tokens each; engine {SERVE}", flush=True)
@@ -3141,6 +3232,10 @@ def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
         first_step_held(f"bf16 {name}", runs[name], runs["dense"], ROUTE_TOL["bfloat16"])
     if runs["paged"]["stats"]["page_waits"] == 0:
         raise AssertionError("admission never waited for pages: the pool does not bind")
+    eager = serve_run(model, net, [(p, EAGER_NEW) for p, _ in reqs], "bf16 paged",
+                      profile=True, graph=False, **ROUTES["paged"])
+    graph_held("qwen2-1.5b bf16 paged", runs["paged"], eager, "bfloat16")
+    del eager
 
     model32 = get_model(replace(cfg, compute_dtype="float32"))
     reqs32 = serve_requests(cfg.vocab, SERVE32_REQUESTS, (SERVE32_NEW, SERVE32_NEW),
@@ -3153,15 +3248,19 @@ def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
         if div is not None:
             raise AssertionError(f"fp32 {name}: greedy tokens differ from the dense pool's at "
                                  f"request {div[0]}, token {div[1]}")
+    for name, kw in ROUTES.items():
+        graph_held(f"qwen2-1.5b fp32 {name}", runs32[name],
+                   serve_run(model32, net, reqs32, f"fp32 {name}", graph=False, **kw),
+                   "float32")
     print(f"serve fp32: the greedy tokens of all {SERVE32_REQUESTS} x {SERVE32_NEW} positions "
-          "are equal across the dense, gather and kernel routes", flush=True)
+          "are equal across the dense, gather and kernel routes, graph and eager", flush=True)
     del runs32, model32
 
-    # the quantized pools are held on the first decode step's logits alone,
-    # which the first wave of admissions fixes: each request decodes 2 tokens
+    # the quantized pools, held on the first decode step's logits against
+    # the dense pool's, and against an eager oracle of two tokens a request
     short = [(prompt, 2) for prompt, _ in reqs]
     for quant in ("int8", "fp8"):
-        run = serve_run(model, net, short, f"bf16 paged kv_quant={quant}", kv_quant=quant,
+        run = serve_run(model, net, reqs, f"bf16 paged kv_quant={quant}", kv_quant=quant,
                         decode_backend="paged")
         slots = sorted(set(run["first_slots"]) & set(runs["dense"]["first_slots"]))
         got, want = run["first_logits"][slots], runs["dense"]["first_logits"][slots]
@@ -3173,12 +3272,38 @@ def qwen2_phases(checks: Checks, cfg, model, net) -> dict:
               flush=True)
         if not excess <= 0:
             raise AssertionError(f"kv_quant={quant}: first-step logits outside the envelope")
+        graph_held(f"qwen2-1.5b bf16 paged kv_quant={quant}", run,
+                   serve_run(model, net, short, f"bf16 paged kv_quant={quant}", graph=False,
+                             kv_quant=quant, decode_backend="paged"), "bfloat16")
     stats["launches"] = runs["paged"]["counts"]["paged_attention"]
     stats["serve"] = {name: {key: run[key] for key in ("step_ms", "tok_s", "prefill_ms")}
                       for name, run in runs.items()}
     del runs
     torch.cuda.empty_cache()
+    print(f"serve qwen2-1.5b phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return stats
+
+
+def launcher_run() -> None:
+    """The serving launcher at full size, as scripts/ci.sh runs the JAX one:
+    qwen2-1.5b through the paged kernel with ``--warmup
+    --max-decode-compiles 0`` must exit 0 with no build while serving and
+    ``host syncs/step: 0.0``."""
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen2_1_5b",
+           "--requests", "6", "--max-new", "12", "--capacity", "128", "--slots", "4",
+           "--pool-tokens", "512", "--block-size", "16", "--decode-backend", "paged",
+           "--warmup", "--max-decode-compiles", "0"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith(("warmup:", "decode compiles:", "decode backend:", "6 requests"))]
+    print(f"launch serve qwen2_1_5b --warmup --max-decode-compiles 0: exit {out.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines), flush=True)
+    if out.returncode != 0 or "host syncs/step: 0.0" not in out.stdout or \
+            "0 while serving" not in out.stdout:
+        raise AssertionError(f"the launcher failed its bound: exit {out.returncode}\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
 
 
 # --------------------------------------------------------------------------
@@ -3252,26 +3377,36 @@ def scope_counts(fn, names) -> dict:
 
 def prefix_run(model, net, template, prompts, label: str, *, cache: bool, new: int,
                corrupt=None, expire: bool = False, profile: bool = False,
-               profile_prefills: bool = False, **kw) -> dict:
+               profile_prefills: bool = False, graph: bool = True, **kw) -> dict:
     """One engine (``SERVE``, the paged kernel route, ``kw`` on top) over the
-    prompts, the template pinned first where ``cache``: launch counts zeroed
-    just before and read just after; ``check_invariants`` (every reference
+    prompts, the template pinned first where ``cache``: on the graph route
+    (``graph``) ``warmup`` at the smallest bucket first (its point here is
+    the decode step's capture: one build, none while serving), else the
+    eager step; launch counts zeroed just before and read just after; the
+    first decode step's logits and slots; ``check_invariants`` (every reference
     held by a lease, a pin or a queued request) after every step; the peaks
     of resident requests and shared pages. Then the pins are released, and
     every block must be free or cached-free with no reference left.
     ``corrupt(engine, req, slot)`` runs after a hit's pages are staked (the
     control); ``expire`` queues first a request whose deadline has passed;
     ``profile`` counts the ``obs.scope`` names of one decode step once the
-    queue has drained; ``profile_prefills`` profiles the first cold and the
+    queue has drained (a replayed step opens ``serve.replay`` alone);
+    ``profile_prefills`` profiles the first cold and the
     first hit prefill."""
+    import gc
+
     import torch
 
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import MIN_BUCKET, ServeEngine
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     engine = ServeEngine(model, net, **{**SERVE, "decode_backend": "paged",
-                                        "prefix_cache": cache, **kw})
+                                        "prefix_cache": cache, **kw}, cuda_graph=graph)
+    if graph:
+        engine.warmup(max_prompt_len=MIN_BUCKET)
+    builds = engine.stats["decode_compiles"]
     rec = record_prefills(engine, profile_prefills)
     if corrupt is not None:
         stake = engine._stake_suffix
@@ -3287,16 +3422,19 @@ def prefix_run(model, net, template, prompts, label: str, *, cache: bool, new: i
     if expire:   # first in the queue: dropped at the first admission, its holds given back
         engine.submit(prompts[-1], max_new_tokens=new, deadline_s=-1.0)
     rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
-    shared_peak, scopes, prof_s, prof_wall = 0, None, 0.0, 0.0
+    shared_peak, scopes, prof_s, prof_wall, first = 0, None, 0.0, 0.0, None
     while True:
         if profile and scopes is None and not engine.sched.waiting and engine.sched.running:
             s0, w0 = engine.stats["decode_s"], time.perf_counter()
             scopes = scope_counts(engine.step, ("kernels.paged_attention", "serve.decode",
-                                                "serve.sample"))
+                                                "serve.sample", "serve.replay"))
             prof_s, prof_wall = engine.stats["decode_s"] - s0, time.perf_counter() - w0
             more = engine.sched.has_work()
         else:
             more = engine.step()
+        if first is None and engine.last_logits is not None:
+            first = (engine.last_logits.float().clone(),
+                     sorted({slot for _, slot in engine.sched.admission_log}))
         engine.check_invariants()
         shared_peak = max(shared_peak, engine.alloc.shared_blocks())
         if not more:
@@ -3312,7 +3450,9 @@ def prefix_run(model, net, template, prompts, label: str, *, cache: bool, new: i
     ms = {k: sum(v) / len(v) if v else float("nan") for k, v in rec["ms"].items()}
     steps = max(1, st["decode_steps"] - (scopes is not None))
     out = {"label": label, "tokens": [done[r] for r in rids], "counts": counts, "stats": st,
-           "first": [rec["logits"][r] for r in rids],
+           "first": [rec["logits"][r] for r in rids], "graph": graph,
+           "first_logits": first and first[0], "first_slots": first and first[1],
+           "warmup_s": st["warmup_s"], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "hits": [i for i, r in enumerate(rids) if rec["hit"][r]],
            "cold_ms": ms["cold"], "hit_ms": ms["hit"],
            "step_ms": 1e3 * (st["decode_s"] - prof_s) / steps,
@@ -3327,7 +3467,16 @@ def prefix_run(model, net, template, prompts, label: str, *, cache: bool, new: i
           f"pages peak {shared_peak} ({pinned} pinned); cow copies {st['cow_copies']}; hit rate "
           f"{st['prefix_hit_rate']:.4f}; coalesced prefills {st['coalesced_prefills']}; paged "
           f"launches {counts['paged_attention']} ({counts['paged_attention'] / steps:g} a "
-          f"step); host syncs/step {st['host_syncs_per_step']}", flush=True)
+          f"step); host syncs/step {st['host_syncs_per_step']}; "
+          f"{'graph' if graph else 'eager'}: decode builds {builds} after warmup "
+          f"({st['warmup_s']:.2f} s), {st['decode_compiles']} after serving; peak "
+          f"{out['peak_gib']:.2f} GiB", flush=True)
+    out["replayed"] = engine._graph is not None
+    if (builds, st["decode_compiles"]) != ((1, 1) if graph else (0, 0)) or (
+            graph and engine.device.type == "cuda" and not out["replayed"]):
+        raise AssertionError(f"{label}: decode builds {builds} after warmup, "
+                             f"{st['decode_compiles']} after serving, graph captured "
+                             f"{out['replayed']}")
     if pool["blocks_free"] != pool["blocks_total"] or pool["blocks_reserved"] or engine.alloc._ref:
         raise AssertionError(f"{label}: references left after the drain: {pool}")
     if st["finished"] != len(rids) + (pinned > 0) or st["dropped"] != expire:
@@ -3337,6 +3486,7 @@ def prefix_run(model, net, template, prompts, label: str, *, cache: bool, new: i
                                                 if k != "paged_attention"):
         raise AssertionError(f"{label}: launches {counts}, expected {want} paged")
     del engine
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -3441,6 +3591,17 @@ def prefix_phase(cfg, model, net) -> int:
                                                    for i in on["hits"]], ROUTE_TOL["bfloat16"])
     if not sound <= ROUTE_TOL["bfloat16"]:
         failures.append(f"bf16 hits' first-token logits rel {sound:.4g}")
+    # the graph route's oracle: the cache-on run on the eager step, one of
+    # its decode steps' scopes counted (a kernels.paged_attention a layer,
+    # one serve.decode and one serve.sample, no replay)
+    eager = prefix_run(model, net, template, prompts, "bf16 cache on", cache=True,
+                       new=EAGER_NEW, graph=False, profile=True)
+    graph_held("prefix bf16 cache on", on, eager, "bfloat16")
+    eager_scopes = {"kernels.paged_attention": cfg.num_layers, "serve.decode": 1,
+                    "serve.sample": 1, "serve.replay": 0}
+    if eager["scopes"] != eager_scopes:
+        failures.append(f"eager decode step scopes {eager['scopes']}, want {eager_scopes}")
+    del eager
 
     # check 3, the control: request 1's first shared page given the id of
     # another live block (a pinned template block from the middle); the
@@ -3473,7 +3634,7 @@ def prefix_phase(cfg, model, net) -> int:
                         f"{worst:.4g}")
 
     # check 6: the cache-on run traced, with an expiring request, and one
-    # decode step's scopes counted
+    # replayed decode step's scopes counted (the graph runs no Python scope)
     tracer = Tracer()
     traced = prefix_run(model, net, template, prompts, "bf16 cache on traced", cache=True,
                         new=PREFIX_NEW, tracer=tracer, expire=True, profile=True)
@@ -3484,7 +3645,8 @@ def prefix_phase(cfg, model, net) -> int:
     phases = {e["name"] for e in doc["traceEvents"]}
     need = {"enqueue", "prefix_walk", "admit", "prefill", "prefix_hit", "cow_copy", "retire",
             "expire", "decode"}
-    scopes = {"kernels.paged_attention": cfg.num_layers, "serve.decode": 1, "serve.sample": 1}
+    scopes = ({"kernels.paged_attention": 0, "serve.decode": 0, "serve.sample": 0,
+               "serve.replay": 1} if traced["replayed"] else eager_scopes)
     print(f"serve prefix trace: {len(doc['traceEvents'])} events, phases "
           f"{sorted(phases & need)}, missing {sorted(need - phases)}; one decode step's scopes "
           f"{traced['scopes']} (want {scopes})", flush=True)
@@ -3502,10 +3664,11 @@ def prefix_phase(cfg, model, net) -> int:
     model32 = get_model(replace(cfg, compute_dtype="float32"))
     t32, p32 = prefix_workload(cfg.vocab, PREFIX32_TEMPLATE, PREFIX32_REQUESTS)
     runs32 = {name: prefix_run(model32, net, t32, p32, f"fp32 cache {name}",
-                               cache=name != "off", new=PREFIX32_NEW,
+                               cache=name != "off", new=PREFIX32_NEW, graph=name != "on eager",
                                tracer=Tracer() if name == "on traced" else None)
-              for name in ("off", "on", "on traced")}
+              for name in ("off", "on", "on traced", "on eager")}
     on32, traced32 = runs32["on"], runs32["on traced"]
+    graph_held("prefix fp32 cache on", on32, runs32["on eager"], "float32")
     div = first_divergence(on32["tokens"], runs32["off"]["tokens"])
     print(f"serve prefix fp32 on vs off: greedy tokens of {PREFIX32_REQUESTS} x {PREFIX32_NEW} "
           "positions " + ("all equal" if div is None else
@@ -4090,9 +4253,10 @@ def phi3_serve(checks: Checks, cfg, net) -> dict:
     kernel on layer 0's decode read (captured from the wrapper's first call
     in an uncounted engine step) against fp64, held as qwen2's is
     (check_paged_main); then PHI3_REQUESTS requests through ServeEngine's
-    dense pool and the paged pool's kernel route (counted windows: 32 paged
-    launches a decode step on the kernel route, none on the dense pool), the
-    greedy tokens equal. Returns the read's stats with the kernel route's
+    dense pool and the paged pool's kernel route by graph replay (counted
+    windows: 32 paged launches a decode step on the kernel route, none on
+    the dense pool), the greedy tokens equal, and equal to the kernel
+    route's eager oracle. Returns the read's stats with the kernel route's
     launches."""
     import torch
 
@@ -4106,7 +4270,8 @@ def phi3_serve(checks: Checks, cfg, net) -> dict:
           f"tokens each; engine {PHI3_SERVE}", flush=True)
     stats = check_paged_main(checks, "phi3-mini-3.8b decode read layer 0",
                              capture_decode_read(model32, net, reqs, PHI3_SERVE))
-    runs = {name: serve_run(model32, net, reqs, f"fp32 {name}", base=PHI3_SERVE, **kw)
+    runs = {name: serve_run(model32, net, reqs, f"fp32 {name}", base=PHI3_SERVE,
+                            profile=name == "paged", **kw)
             for name, kw in (("dense", ROUTES["dense"]), ("paged", ROUTES["paged"]))}
     if runs["paged"]["backend"] == runs["dense"]["backend"] or runs["paged"]["per_step"] != \
             cfg.num_layers:
@@ -4119,6 +4284,9 @@ def phi3_serve(checks: Checks, cfg, net) -> dict:
                              f"request {div[0]}, token {div[1]}")
     print(f"serve phi3-mini-3.8b fp32: the greedy tokens of all {PHI3_REQUESTS} x {PHI3_NEW} "
           "positions are equal on the dense pool and the paged kernel route", flush=True)
+    graph_held("phi3-mini-3.8b fp32 paged", runs["paged"],
+               serve_run(model32, net, reqs, "fp32 paged", base=PHI3_SERVE, graph=False,
+                         profile=True, **ROUTES["paged"]), "float32")
     stats["launches"] = runs["paged"]["counts"]["paged_attention"]
     del runs, model32
     torch.cuda.empty_cache()
@@ -4768,29 +4936,39 @@ def mla_kernel_phase(checks: Checks, cfg, model, net, reqs, device) -> dict:
 
 
 def mla_scopes(model, net, reqs) -> dict:
-    """One kernel-route decode step with every slot busy (the first
+    """One eager kernel-route decode step with every slot busy (the first
     ``SERVE["slots"]`` prompts cut to 256 tokens): its ``obs.scope`` counts
     (one ``kernels.paged_attention`` a layer), then the next step's profiler
-    breakdown (the device's busy share, the paged kernel's share of it)."""
+    breakdown (the device's busy share, the paged kernel's share of it);
+    then the same prompts on the graph route and one replayed step's
+    breakdown (``route`` line: the tensor-core MLA instance)."""
+    import gc
+
     from repro_torch.serve.engine import ServeEngine
 
-    engine = ServeEngine(model, net, **SERVE, decode_backend="paged")
-    for prompt, _ in reqs[:SERVE["slots"]]:
-        engine.submit(prompt[:256], max_new_tokens=8)
-    while engine.sched.waiting or not engine.sched.running:
-        engine.step()
-    counts = scope_counts(engine.step, ("kernels.paged_attention", "serve.decode"))
     name = model.cfg.name
-    prof = breakdown(engine.step, f"serve {name} bf16 paged decode step "
-                     f"({len(engine.sched.running)} slots busy)")
-    assert_route(prof, f"serve {name} bf16 paged decode step", ("paged_mla_tc_kernel",),
-                 refuse=("paged_mla_tf32_kernel",))
-    if prof:
+    for graph in (False, True):
+        engine = ServeEngine(model, net, **SERVE, decode_backend="paged", cuda_graph=graph)
+        if graph:
+            engine.warmup(max_prompt_len=256)
+        for prompt, _ in reqs[:SERVE["slots"]]:
+            engine.submit(prompt[:256], max_new_tokens=8)
+        while engine.sched.waiting or not engine.sched.running:
+            engine.step()
+        if not graph:
+            counts = scope_counts(engine.step, ("kernels.paged_attention", "serve.decode"))
+        kind = "replayed" if graph else "eager"
+        prof = breakdown(engine.step, f"serve {name} bf16 paged {kind} decode step "
+                         f"({len(engine.sched.running)} slots busy)")
+        assert_route(prof, f"serve {name} bf16 paged {kind} decode step",
+                     ("paged_mla_tc_kernel",), refuse=("paged_mla_tf32_kernel",))
         dev = sum(prof[0].values())
         kern = sum(ms for key, ms in prof[0].items() if "paged_" in key)
-        print(f"  decode step: device busy {100 * dev / prof[1]:.1f}% of {prof[1]:.3f} ms wall, "
-              f"paged kernel {kern:.3f} ms = {100 * kern / dev:.1f}% of device time", flush=True)
-    del engine
+        print(f"  decode step ({kind}): device busy {100 * dev / prof[1]:.1f}% of "
+              f"{prof[1]:.3f} ms wall, paged kernel {kern:.3f} ms = {100 * kern / dev:.1f}% of "
+              "device time", flush=True)
+        del engine
+        gc.collect()
     return counts
 
 
@@ -4834,13 +5012,17 @@ def mla_serve(cfg, model, net, reqs) -> dict:
 
     # bf16 on the dense pool and the kernel route (the gather route, whose
     # bf16 reading would only be printed, runs in fp32 below, where its tokens
-    # are held: a depth cut for the script's time limit)
+    # are held: a depth cut for the script's time limit), by graph replay;
+    # the kernel route's eager oracle decodes EAGER_NEW tokens a request
     runs = {name: serve_run(model, net, reqs, f"bf16 {name}", **ROUTES[name])
             for name in ("dense", "paged")}
     div = first_divergence(runs["paged"]["tokens"], runs["dense"]["tokens"])
     print(f"serve {cfg.name} bf16 paged vs dense: greedy tokens "
           + ("all equal" if div is None else f"first differ at request {div[0]}, token "
              f"{div[1]}"), flush=True)
+    graph_held(f"{cfg.name} bf16 paged", runs["paged"],
+               serve_run(model, net, [(p, EAGER_NEW) for p, _ in reqs], "bf16 paged",
+                         graph=False, **ROUTES["paged"]), "bfloat16")
     model32 = get_model(replace(cfg, compute_dtype="float32"))
     reqs32 = serve_requests(cfg.vocab, MLA_SERVE32_REQUESTS, (MLA_SERVE32_NEW, MLA_SERVE32_NEW),
                             longest_first=False, lens=PROMPT_LENS)
@@ -4857,6 +5039,9 @@ def mla_serve(cfg, model, net, reqs) -> dict:
             or by_route["mla_tf32"]):
         raise AssertionError(f"{label}: paged launches by route {by_route}, expected all on "
                              "the tensor-core MLA instance")
+    for name, kw in ROUTES.items():
+        graph_held(f"{cfg.name} fp32 {name}", runs32[name],
+                   serve_run(model32, net, reqs32, f"fp32 {name}", graph=False, **kw), "float32")
     for name in ("gather", "paged"):
         first_step_held(f"{cfg.name} fp32 {name}", runs32[name], runs32["dense"],
                         ROUTE_TOL["float32"])
@@ -4865,8 +5050,8 @@ def mla_serve(cfg, model, net, reqs) -> dict:
             raise AssertionError(f"{cfg.name} fp32 {name}: greedy tokens differ from the dense "
                                  f"pool's at request {div[0]}, token {div[1]}")
     print(f"serve {cfg.name} fp32: the greedy tokens of all {MLA_SERVE32_REQUESTS} x "
-          f"{MLA_SERVE32_NEW} positions are equal across the dense, gather and kernel routes",
-          flush=True)
+          f"{MLA_SERVE32_NEW} positions are equal across the dense, gather and kernel routes, "
+          "graph and eager", flush=True)
     del runs32, model32
     torch.cuda.empty_cache()
     return runs["paged"]
@@ -4890,6 +5075,9 @@ def mla_prefix(cfg, model, net) -> int:
     print(f"serve prefix {cfg.name} bf16 on vs off: greedy tokens "
           + ("all equal" if div is None else f"first differ at request {div[0]}, token {div[1]}"),
           flush=True)
+    graph_held(f"prefix {cfg.name} bf16 cache on", on,
+               prefix_run(model, net, template, prompts, f"{cfg.name} bf16 cache on", cache=True,
+                          new=MLA_PREFIX_NEW, graph=False), "bfloat16")
     sound = first_logits_rel(f"{cfg.name} bf16 hits vs cold",
                              [(on["first"][i], off["first"][i]) for i in on["hits"]],
                              ROUTE_TOL["bfloat16"])
@@ -5031,10 +5219,19 @@ def main(argv=None) -> int:
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}))
         return 0
+    marks, t_mark = {}, [t_start]
+
+    def mark(name: str) -> None:
+        """The seconds since the last mark, under ``name``, for the phase line."""
+        now = time.perf_counter()
+        marks[name], t_mark[0] = round(now - t_mark[0], 1), now
+
+    mark("build")
     check_small(checks, device)
     check_wide(checks, device)
     check_paged_small(checks, device)
     check_flash_small(checks, device)
+    mark("kernels small")
 
     from repro_torch.configs import get_config
     from repro_torch.config import SHAPES
@@ -5144,30 +5341,42 @@ def main(argv=None) -> int:
     train_two_ranks(cfg)
     del net, b40
     torch.cuda.empty_cache()
+    mark("pde")
     # the causal FLARE LM: its launches are those of its forward and requests windows
     stats["flare_causal_chunk"] = lm_phases(checks, device)
+    mark("lm")
     # flare_lm trained at full size (its serving net freed): no kernel launches
     t0 = time.perf_counter()
     train_lm("flare_lm", FLARE_LM_SIZE)
     print(f"train flare-lm phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    mark("train flare-lm")
     # qwen2-1.5b served from the paged pool: the launches of its kernel route's
     # window and of the paged FLARE path's
     cfg_q, model_q, net_q = init_dense_lm("qwen2_1_5b", QWEN2_SIZE)
     stats["paged_attention"] = qwen2_phases(checks, cfg_q, model_q, net_q)
     stats["paged_attention"]["launches"] += paged_counts["paged_attention"]
+    mark("serve qwen2")
     # the same qwen2 served with the prefix cache: the cache-on run's launches
     stats["paged_attention"]["launches"] += prefix_phase(cfg_q, model_q, net_q)
+    mark("serve prefix")
+    # the serving launcher at full size in a process of its own: warmup, then
+    # no decode build while serving and no host sync a step
+    launcher_run()
+    mark("launcher")
     # the dense family's prefill through the flash kernels: the tensor-core
     # kernel's launches are those of qwen2's and phi3's bf16 prefill windows,
     # the TF32 kernel's those of qwen2's fp32 forward window (its route)
     stats.update(flash_phases(checks, device, cfg_q, net_q))
+    mark("flash")
     del model_q, net_q
     torch.cuda.empty_cache()
     # qwen2-1.5b trained at full size (its serving net freed): no kernel launches
     t0 = time.perf_counter()
     train_lm("qwen2_1_5b", QWEN2_SIZE)
     print(f"train qwen2-1.5b phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    mark("train qwen2")
     phi3 = phi3_phases(checks, device)
+    mark("phi3")
     stats["flash_attention_tc"]["launches"] += phi3["flash_attention_tc"]
     # phi3 (D=96) served through the paged kernel: its kernel route's launches
     stats["paged_attention"]["launches"] += phi3["paged_attention"]["launches"]
@@ -5181,12 +5390,14 @@ def main(argv=None) -> int:
                          ("minicpm3_4b", MINICPM3_PARAMS)):
         mla_read[arch] = mla_phase(checks, arch, params, device)
         stats["paged_attention"]["launches"] += mla_read[arch].pop("launches")
+        mark(arch)
     stats["paged_attention"]["mla_read"] = mla_read
     # the Table-1 mixers at flare_pde's width. The FLARE row's train steps
     # are a counted window of the fused forward and backward
     for name, n in pde_baselines(checks, cfg, device).items():
         stats[name]["launches"] += n
     torch.cuda.empty_cache()
+    mark("pde baselines")
     for name in stats:
         stats[name]["max_abs_err"] = checks.max_abs[name]
 
@@ -5204,6 +5415,7 @@ def main(argv=None) -> int:
         stats["flash_attention"]["off_tma_bf16"]
     stats["flare_causal_chunk"]["fp32"]["max_abs_err"] = checks.max_abs["flare_causal_chunk"]
     rows[list(REPLACES).index("flare_causal_chunk")]["fp32"] = stats["flare_causal_chunk"]["fp32"]
+    print(f"phase seconds: {marks}", flush=True)
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

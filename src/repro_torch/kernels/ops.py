@@ -70,3 +70,28 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def count_snapshot() -> dict:
+    """Every launch counter: {(wrapper, route or None for its total): count}."""
+    snap = {(fn, None): fn.launches for fn in KERNELS}
+    for fn in (flash_kernel, paged_attention):
+        snap.update({(fn, route): n for route, n in fn.launches_by_route.items()})
+    return snap
+
+
+def count_delta(before: dict, after: dict) -> dict:
+    """The counters that moved between two :func:`count_snapshot` readings."""
+    return {key: after[key] - before[key] for key in after if after[key] != before[key]}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a :func:`count_delta`) to the counters. A
+    CUDA graph's replay runs no wrapper, so the engine adds the launches its
+    capture recorded on each replay (and takes them back from the capture
+    itself, which launches nothing)."""
+    for (fn, route), n in delta.items():
+        if route is None:
+            fn.launches += n * times
+        else:
+            fn.launches_by_route[route] += n * times

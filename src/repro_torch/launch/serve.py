@@ -16,7 +16,12 @@ config of the same family. Prints the generated tokens, tok/s, latency
 percentiles, the resolved decode backend and, for the paged pool
 (``--pool-tokens``), the pool's and the prefix cache's stats;
 ``--trace-out`` writes the engine's spans as Chrome-trace JSON and
-``--metrics-out`` its metrics registry as JSON.
+``--metrics-out`` its metrics registry as JSON. ``--warmup`` runs
+``ServeEngine.warmup`` before serving (every prefill bucket, then the decode
+step captured as one CUDA graph; on the CPU the step is built without a
+capture); ``--max-decode-compiles N`` exits non-zero when the serving loop
+built the decode step more than N times; ``--no-cuda-graph`` serves on the
+eager decode step.
 """
 from __future__ import annotations
 
@@ -97,6 +102,15 @@ def main(argv=None):
                     help="on-device sampler (greedy argmax, or top-k with temperature)")
     ap.add_argument("--top-k", type=int, default=0, help="k for --sample topk")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--warmup", action="store_true",
+                    help="pre-compile every (bucket, lanes) prefill and the fused decode step "
+                         "before serving, so steady state never recompiles")
+    ap.add_argument("--max-decode-compiles", type=int, default=None,
+                    help="exit nonzero if the serving loop compiled the decode step more than "
+                         "this many times (warmup compiles excluded)")
+    ap.add_argument("--no-cuda-graph", action="store_true",
+                    help="run the eager decode step (the CUDA-graph route's oracle) instead of "
+                         "one captured graph a step")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -129,10 +143,14 @@ def main(argv=None):
                          block_size=args.block_size, coalesce_prefill=args.coalesce,
                          sample=args.sample, top_k=args.top_k,
                          decode_backend=args.decode_backend, prefix_cache=args.prefix_cache,
-                         tracer=tracer)
+                         tracer=tracer, cuda_graph=not args.no_cuda_graph)
     print(f"engine: {args.slots} slots, capacity {args.capacity}, {engine.stats['cache']}")
     print(f"decode backend: {engine.stats['decode_backend']}  sampler: {args.sample}"
           + (f"(k={args.top_k})" if args.sample == "topk" else ""))
+    if args.warmup:
+        n = engine.warmup(max_prompt_len=args.prompt_len)
+        print(f"warmup: {n} programs compiled in {engine.stats['warmup_s']:.2f}s")
+    warm_decode_compiles = engine.stats["decode_compiles"]
 
     rng = np.random.default_rng(args.seed)
     prompts, templates = workload(rng, cfg.vocab, args.requests, args.prompt_len,
@@ -170,6 +188,13 @@ def main(argv=None):
           f"{s['admitted_peak']}/{args.slots}, {s['coalesced_prefills']} coalesced prefills, "
           f"{s['dropped']} dropped, host syncs/step {s['host_syncs_per_step']:.1f}")
     print(f"decode backend: {s['decode_backend']}")
+    serve_compiles = s["decode_compiles"] - warm_decode_compiles
+    print(f"decode compiles: {s['decode_compiles']} total, {serve_compiles} while serving; "
+          f"warmup: {s['warmup_compiles']} programs ({s['warmup_s']:.2f}s); host syncs/step: "
+          f"{s['host_syncs_per_step']:.1f}")
+    if args.max_decode_compiles is not None and serve_compiles > args.max_decode_compiles:
+        raise SystemExit(f"decode step compiled {serve_compiles}x while serving (bound "
+                         f"{args.max_decode_compiles}) — the steady-state loop is retracing")
     if engine.paged:
         p = s["pool"]
         print(f"paged pool: {p['blocks_mapped']}/{p['blocks_total']} blocks mapped (peak "

@@ -24,9 +24,29 @@ Two pool layouts:
 ``PagedCacheView`` (the paged-attention kernel when the decode-plan
 resolution picks the ``paged`` backend for the pool's decode-read shape;
 the dense gather otherwise), then on-device sampling; the ``[S]`` int32
-token ids are the step's only device-to-host copy. The device page table
-is uploaded again only when the host's changed. ``decode_backend=`` pins
+token ids are the step's only device-to-host copy. ``decode_backend=`` pins
 the route: "paged" (the kernel), "gather", or "auto" (resolve).
+
+**One device program a step** (``cuda_graph=True``, the default), the
+counterpart of the JAX package's compiled step: the step reads static
+device buffers (the fed tokens, the page table, the write positions),
+filled in place from the host before each step (the page table only when
+the host's changed), and writes every cache leaf the model returns back
+into the pool's own tensor, so it holds the same addresses from step to
+step. On a CUDA device it is captured once an engine as one CUDA graph
+(after an eager run that warms cuBLAS, the allocator and the kernel
+builds) and replayed every later step; the sampler's generator is
+registered with the graph, so each replay draws fresh noise and a seed
+repeats a run. On the CPU the same function runs directly each step. Its
+build (the capture; on the CPU, binding to the pool's addresses) is counted
+in ``stats["decode_compiles"]``; a pool tensor or input buffer whose
+address changed since raises. A capture that fails raises: nothing falls
+back to eager. A replay runs no kernel wrapper, so the engine adds the
+launches its capture recorded (``kernels.ops.add_launches``) and
+``launch_counts()`` stays true. ``last_logits`` is then the graph's static
+output, overwritten by the next step. ``cuda_graph=False`` keeps the eager
+step (the model's returned caches become the pool), the graph route's
+oracle, as the JAX engine under ``jax.disable_jit()``.
 
 **Prefix cache** (``prefix_cache=True``; on the paged pool of a model with
 ``prefill_suffix``, off otherwise): a prompt's full blocks are indexed by
@@ -59,13 +79,22 @@ sampling run inside ``obs.scope("serve.decode")`` / ``("serve.sample")``,
 which name them in a ``torch.profiler`` trace. ``submit(..., on_token=)``
 streams each token as it is sampled.
 
-PyTorch runs eagerly, so there is nothing to compile or warm up and no
-compile counters; greedy outputs of a request are identical to a solo run
-on the same engine geometry, for the paged pool too with ``kv_quant="none"``.
-Not ported yet: the slot-sharded pool (``mesh=``) and CUDA-graph capture of
-the decode step. The engine's metrics registry (``metrics=``, shared with
-its scheduler and allocator) records prefill and decode-step times, the
-pool's events and the prefix cache's hits and copies.
+:meth:`ServeEngine.warmup` front-loads what the steady-state loop would
+otherwise do first (JAX's compiles, the MaxText offline-inference idiom):
+every (bucket, lanes) prefill and, with the prefix cache, every suffix
+bucket and the copy-on-write copy, once each on throwaway inputs into the
+trash pages, then the decode step's build; every slot is reset after, so
+the pool keeps no trace of it. ``stats["prefill_compiles"]`` counts the
+distinct (bucket, lanes) prefill variants run, ``decode_compiles`` the
+decode-step builds (1 after warmup, and it does not grow while serving),
+``warmup_compiles`` / ``warmup_s`` the warmup's work; the
+``engine.prefill_compiles`` / ``engine.decode_compiles`` gauges mirror
+them. Greedy outputs of a request are identical to a solo run on the same
+engine geometry, for the paged pool too with ``kv_quant="none"``. Not
+ported yet: the slot-sharded pool (``mesh=``). The engine's metrics
+registry (``metrics=``, shared with its scheduler and allocator) records
+prefill and decode-step times, the pool's events and the prefix cache's
+hits and copies.
 ``REPRO_SANITIZE=1`` runs :meth:`ServeEngine.check_invariants` after every
 admission cycle and retirement.
 """
@@ -78,6 +107,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.obs import scope
 from repro_torch.obs.metrics import MetricsRegistry
@@ -96,7 +126,8 @@ class ServeEngine:
                  temperature: float = 0.0, seed: int = 0, pool_tokens: Optional[int] = None,
                  kv_quant: str = "none", block_size: int = 16, coalesce_prefill: bool = False,
                  sample: str = "greedy", top_k: int = 0, decode_backend: str = "auto",
-                 prefix_cache: bool = False, tracer=None, metrics=None):
+                 prefix_cache: bool = False, tracer=None, metrics=None,
+                 cuda_graph: bool = True):
         if decode_backend not in ("auto", "paged", "gather"):
             raise ValueError(f"unknown decode_backend {decode_backend!r} (auto | paged | gather)")
         if model.prefill_into is None or model.init_caches is None:
@@ -134,7 +165,6 @@ class ServeEngine:
             self._pt_dirty = False
             self._lengths = np.zeros(slots, np.int64)
             self._leases: dict = {}
-            self._zero_pos = torch.zeros(slots, dtype=torch.int32, device=self.device)
             self._prefill_into = self.slot_cache.make_prefill_into(model.prefill)
             # needs token-paged leaves and a suffix prefill (unwindowed gqa or mla);
             # off otherwise, so the flag is safe to pass for any model
@@ -177,6 +207,10 @@ class ServeEngine:
         self._m_cow = m.counter("engine.cow_copies", "copy-on-write block copies")
         self._m_hit_tokens = m.counter("engine.prefix_hit_tokens",
                                        "prompt tokens served from the prefix cache")
+        self._m_g_prefill_compiles = m.gauge(
+            "engine.prefill_compiles", "distinct (bucket, lanes) prefill program variants run")
+        self._m_g_decode_compiles = m.gauge("engine.decode_compiles",
+                                            "fused decode-step builds (CUDA-graph captures)")
         # the open window of decode steps one "decode" span will cover
         self._win_t0: Optional[float] = None
         self._win_end = 0.0
@@ -188,6 +222,16 @@ class ServeEngine:
         self._next_rid = 0
         self._cur_tok = np.zeros(slots, np.int32)   # the next token fed to each slot
         self.last_logits = None   # the last decode step's logits, on the device
+        # the decode step's static inputs, filled in place before each step
+        self._tok_in = torch.zeros(slots, 1, dtype=torch.int64, device=self.device)
+        self._wpos = torch.zeros(slots, dtype=torch.int32, device=self.device)
+        self.cuda_graph = cuda_graph
+        self._graph = None          # the captured step (CUDA device, cuda_graph=True)
+        self._graph_out = None      # its static outputs: (ids, logits)
+        self._graph_launches = {}   # the kernel launches one replay makes
+        self._bound = None          # the addresses the built step holds
+        self._decode_compiles = 0
+        self._buckets_used: set = set()   # (bucket, lanes) prefills run; ("sfx", bucket, 1)
         self.stats = {
             "requests": 0, "tokens_generated": 0, "prefill_s": 0.0, "decode_s": 0.0,
             "decode_steps": 0, "slot_utilization": 0.0, "admitted_peak": 0,
@@ -199,6 +243,7 @@ class ServeEngine:
             "page_waits": 0,   # admission cycles whose queue head waited for pages, not a slot
             "prefix_cache": self._prefix_enabled, "prefix_hit_rate": 0.0,
             "shared_pages": 0, "cow_copies": 0,
+            "prefill_compiles": 0, "decode_compiles": 0, "warmup_compiles": 0, "warmup_s": 0.0,
         }
 
     # ------------------------------------------------------------------
@@ -239,42 +284,116 @@ class ServeEngine:
             return self._decode_plan.describe()
         return "paged-gather" if self._has_paged else "dense"
 
-    def _decode_pool(self, toks: torch.Tensor) -> torch.Tensor:
+    def _decode_pool(self) -> torch.Tensor:
         """One fused decode step over the whole pool: model decode, then the
         sampler, on the device; returns the sampled ids (not yet copied to
         the host). On the paged pool a slot whose next write position lands
         in an unmapped block gets a page first (its reservation guarantees
         one), and idle lanes write into the trash sink."""
         with torch.no_grad():
-            if not self.paged:
-                with scope("serve.decode"):
-                    logits, self.pool = self.model.decode_step(self.net, toks, self.pool)
+            if self._has_paged:
+                for slot in self.sched.running:
+                    j = int(self._lengths[slot] % self.capacity) // self.block
+                    if self._pt[slot, j] == self.slot_cache.trash:
+                        self._pt[slot, j] = self.alloc.append(self._leases[slot])
+                        self._pt_dirty = True
+            self._load_inputs()
+            if self.cuda_graph:
+                ids = self._static_decode()
             else:
-                from repro_torch.serve.pool import PagedCacheView
+                ids, self.last_logits, self.pool = self._run_step()
+            if self._has_paged:
+                for slot in self.sched.running:
+                    self._lengths[slot] += 1
+            return ids
 
-                if self._has_paged:
-                    for slot in self.sched.running:
-                        j = int(self._lengths[slot] % self.capacity) // self.block
-                        if self._pt[slot, j] == self.slot_cache.trash:
-                            self._pt[slot, j] = self.alloc.append(self._leases[slot])
-                            self._pt_dirty = True
-                    if self._pt_dirty:
-                        self._pt_dev = torch.from_numpy(self._pt).to(self.device)
-                        self._pt_dirty = False
-                    write_pos = torch.from_numpy(
-                        (self._lengths % self.capacity).astype(np.int32)).to(self.device)
-                else:
-                    write_pos = self._zero_pos
-                view = PagedCacheView(self.pool, self._pt_dev, write_pos, self._view_spec)
-                with scope("serve.decode"):
-                    logits, out = self.model.decode_step(self.net, toks, view)
-                self.pool = out.pool
-                if self._has_paged:
-                    for slot in self.sched.running:
-                        self._lengths[slot] += 1
-            self.last_logits = logits
-            with scope("serve.sample"):
-                return self._sampler(logits, self.generator)
+    def _load_inputs(self) -> None:
+        """The host's step state into the static input buffers, in place:
+        the fed tokens, and on token-paged pools the page table (when it
+        changed) and the write positions."""
+        self._tok_in.copy_(torch.from_numpy(self._cur_tok[:, None].astype(np.int64)))
+        if self._has_paged:
+            if self._pt_dirty:
+                self._pt_dev.copy_(torch.from_numpy(self._pt))
+                self._pt_dirty = False
+            self._wpos.copy_(torch.from_numpy((self._lengths % self.capacity).astype(np.int32)))
+
+    def _run_step(self):
+        """Model decode and sampling on the static inputs over the pool:
+        (ids, logits, the pool the model returned), whose written leaves
+        are new tensors (positions, FLARE states, lengths) beside the
+        in-place KV rows."""
+        if self.paged:
+            from repro_torch.serve.pool import PagedCacheView
+
+            view = PagedCacheView(self.pool, self._pt_dev, self._wpos, self._view_spec)
+            with scope("serve.decode"):
+                logits, out = self.model.decode_step(self.net, self._tok_in, view)
+            new = out.pool
+        else:
+            with scope("serve.decode"):
+                logits, new = self.model.decode_step(self.net, self._tok_in, self.pool)
+        with scope("serve.sample"):
+            return self._sampler(logits, self.generator), logits, new
+
+    def _static_step(self):
+        """The step as one capturable function: :meth:`_run_step`, then every
+        leaf the model returned copied into the pool's own tensor, so the
+        pool keeps its addresses. Returns (ids, logits)."""
+        ids, logits, new = self._run_step()
+        for dst, src in zip(pytree.tree_leaves(self.pool), pytree.tree_leaves(new)):
+            if src is not dst:
+                dst.copy_(src)
+        return ids, logits
+
+    def _addresses(self) -> tuple:
+        """The addresses the built step holds: every pool tensor and the
+        static input buffers."""
+        tensors = [*pytree.tree_leaves(self.pool), self._tok_in, self._wpos,
+                   *([self._pt_dev] if self.paged else [])]
+        return tuple(t.data_ptr() for t in tensors if t is not None)   # None: no scales
+
+    def _static_decode(self) -> torch.Tensor:
+        """The static step: replayed where it was captured, else run
+        directly (the first step on a CUDA device, which then captures it;
+        every step on the CPU). Returns the sampled ids."""
+        if self._bound is not None and self._addresses() != self._bound:
+            raise RuntimeError("a pool tensor or static input buffer was replaced after the decode "
+                               "step was built; pool writes must stay in place")
+        if self._graph is not None:
+            from repro_torch.kernels import ops
+
+            with scope("serve.replay"):
+                self._graph.replay()
+            ops.add_launches(self._graph_launches)
+            ids, self.last_logits = self._graph_out
+            return ids
+        ids, self.last_logits = self._static_step()
+        if self._bound is None:
+            self._build_step()
+        return ids
+
+    def _build_step(self) -> None:
+        """Build the static step once its eager run has warmed cuBLAS, the
+        allocator and the kernel builds: on a CUDA device capture it as one
+        CUDA graph (the sampler's generator registered with it), whose
+        launches are taken back from the counters (a capture records and
+        launches nothing) and added on every replay; record the addresses it
+        holds. Counted in ``stats["decode_compiles"]``."""
+        if self.device.type == "cuda":
+            from repro_torch.kernels import ops
+
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            before = ops.count_snapshot()
+            with torch.cuda.graph(graph):
+                out = self._static_step()
+            self._graph_launches = ops.count_delta(before, ops.count_snapshot())
+            ops.add_launches(self._graph_launches, -1)
+            self._graph, self._graph_out = graph, out
+        self._bound = self._addresses()
+        self._decode_compiles += 1
 
     # ------------------------------------------------------------------
     # queueing
@@ -485,6 +604,7 @@ class ServeEngine:
         self._m_hit_tokens.inc(offset)
         self._prefix_prompt_tokens += len(req.prompt)
         bucket = self._bucket(slen)
+        self._buckets_used.add(("sfx", bucket, 1))
         tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :slen] = req.prompt[offset:]
         dev = self.device
@@ -585,6 +705,7 @@ class ServeEngine:
         sharing a bucket (more than one only with ``coalesce_prefill``),
         then their first tokens, sampled on the device."""
         g = len(group)
+        self._buckets_used.add((bucket, g))
         tokens = np.zeros((g, bucket), np.int64)
         lens = np.empty(g, np.int32)
         for i, (req, _) in enumerate(group):
@@ -702,8 +823,7 @@ class ServeEngine:
         self.stats["admitted_peak"] = max(self.stats["admitted_peak"], len(self.sched.running))
         if self.sched.running:
             t0 = time.time()
-            toks = torch.from_numpy(self._cur_tok[:, None].astype(np.int64)).to(self.device)
-            toks_dev = self._decode_pool(toks)
+            toks_dev = self._decode_pool()
             # the step's only device-to-host copy: S int32 token ids
             # flarecheck: disable=HS003 -- the one sanctioned per-step sync
             out = np.asarray(toks_dev.cpu())
@@ -748,7 +868,89 @@ class ServeEngine:
         self._win_steps = 0
         self._win_toks = 0
 
+    def warmup(self, max_prompt_len: Optional[int] = None,
+               max_lanes: Optional[int] = None) -> int:
+        """Front-load what the steady-state loop would otherwise run first
+        (the JAX engine's compiles): one prefill per (bucket, lanes) up to
+        ``max_prompt_len`` / ``max_lanes`` not run yet, with the prefix cache
+        each suffix bucket (up to the capacity, past which a hit takes the
+        cold path) and the copy-on-write copy, all on throwaway inputs into
+        the trash pages; then the decode step, with every lane on the trash
+        page, run eagerly once and built (captured on a CUDA device). The
+        generator's state is put back after, so warmup consumes no entropy,
+        and every slot is reset, so the pool keeps no trace of it. Runs
+        before serving (no request in a slot). Returns the variants run;
+        fills ``stats["warmup_compiles"]`` and ``["warmup_s"]``."""
+        if self.sched.running:
+            raise RuntimeError("warmup runs before serving: it writes throwaway state into "
+                               "every slot, and requests are running")
+        t0 = time.time()
+        top = min(max_prompt_len or self.capacity, self.capacity)
+        buckets = [MIN_BUCKET]
+        while buckets[-1] < top:
+            buckets.append(buckets[-1] * 2)
+        lanes = range(1, (max_lanes or (self.slots if self.coalesce else 1)) + 1)
+        dev, n = self.device, 0
+        trash = self.slot_cache.trash if self.paged else 0
+        with torch.no_grad():
+            for g in lanes:
+                for bucket in buckets:
+                    if (bucket, g) in self._buckets_used:
+                        continue
+                    batch = {"tokens": torch.zeros((g, bucket), dtype=torch.int64, device=dev),
+                             "lengths": torch.ones(g, dtype=torch.int32, device=dev)}
+                    slots = torch.zeros(g, dtype=torch.long, device=dev)
+                    if self.paged:
+                        bids = torch.full((g, self._pages(bucket)), trash, dtype=torch.int32,
+                                          device=dev)
+                        self._prefill_into(self.net, batch, self.pool, slots, bids)
+                    else:
+                        self._prefill_into(self.net, batch, self.pool, slots)
+                    self._buckets_used.add((bucket, g))
+                    n += 1
+            if self._prefix_enabled:
+                pt_row = torch.full((1, self.slot_cache.max_pages), trash, dtype=torch.int32,
+                                    device=dev)
+                for bucket in (b for b in buckets if b <= self.capacity):
+                    if ("sfx", bucket, 1) in self._buckets_used:
+                        continue
+                    batch = {"tokens": torch.zeros((1, bucket), dtype=torch.int64, device=dev),
+                             "lengths": torch.ones(1, dtype=torch.int32, device=dev),
+                             "offsets": torch.zeros(1, dtype=torch.int32, device=dev)}
+                    self._prefill_suffix(self.net, batch, self.pool,
+                                         torch.zeros(1, dtype=torch.long, device=dev), pt_row)
+                    self._buckets_used.add(("sfx", bucket, 1))
+                    n += 1
+                self.slot_cache.copy_block(self.pool, trash, trash)
+                n += 1
+            # the decode step over idle lanes: page tables at the trash sink,
+            # positions and fed tokens 0
+            state = self.generator.get_state() if self.generator is not None else None
+            self._cur_tok[:] = 0
+            self._load_inputs()
+            build = self.cuda_graph and self._bound is None
+            if not self.cuda_graph:
+                self._run_step()     # the eager step: warmed, nothing to build
+            elif build:
+                self._static_step()
+            if state is not None:
+                self.generator.set_state(state)
+            if build:
+                self._build_step()
+                n += 1
+            self.slot_cache.reset(self.pool, torch.arange(self.slots))
+        self.stats["warmup_compiles"] += n
+        dur = time.time() - t0
+        self.stats["warmup_s"] += dur
+        self.tracer.complete("warmup", t0, dur, args={"compiles": n})
+        self._refresh_stats()
+        return n
+
     def _refresh_stats(self) -> None:
+        self.stats["prefill_compiles"] = len(self._buckets_used)
+        self.stats["decode_compiles"] = self._decode_compiles
+        self._m_g_prefill_compiles.set(len(self._buckets_used))
+        self._m_g_decode_compiles.set(self._decode_compiles)
         self.stats["host_syncs_per_step"] = (self.stats["sample_host_syncs"]
                                              / max(1, self.stats["decode_steps"]))
         self.stats.update(self.sched.stats())

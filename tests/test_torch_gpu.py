@@ -22,7 +22,11 @@ computes in fp32 (fp32 queries, any pages; MLA's read at DeepSeek-V2-Lite's
 and MiniCPM3's shapes on the MLA instance too), and at 1e-2 where it rounds the
 weights to bf16 (bf16 queries over bf16 pages); the smoke qwen2's engine
 gives the same greedy tokens through the kernel route as through the
-gather route. The flash-attention kernel is held against its plain version
+gather route; the serving engine's decode step, captured as one CUDA graph
+and replayed, gives the eager step's greedy tokens (fp32 compute) for gqa
+(dense, gather, kernel), ``flare_lm`` and the smoke DeepSeek-V2-Lite, its
+replays draw fresh noise and repeat with a seed, and the launch counters
+count each replay. The flash-attention kernel is held against its plain version
 in fp64 at 1e-5 of max |o| in fp32, and against the plain version on the
 same bf16 inputs at 1e-2 of max |o| in bf16 (the kernels keep the weights
 in fp32, or split in two bf16 or TF32 parts, where the plain version rounds
@@ -590,6 +594,158 @@ def test_qwen2_engine_kernel_route_matches_gather(cuda):
         assert launched == (cfg.num_layers * eng.stats["decode_steps"] if route == "paged" else 0)
         eng.check_invariants()
     assert outs["paged"] == outs["gather"]
+
+
+# the serving engine's decode step captured as one CUDA graph: (arch, engine kw)
+GRAPH_ROUTES = {"gqa-dense": ("qwen2_1_5b", {}),
+                "gqa-gather": ("qwen2_1_5b", dict(pool_tokens=96, block_size=8,
+                                                  decode_backend="gather")),
+                "gqa-kernel": ("qwen2_1_5b", dict(pool_tokens=96, block_size=8,
+                                                  decode_backend="paged")),
+                "flare_lm": ("flare_lm", {}),
+                "deepseek-kernel": ("deepseek_v2_lite_16b", dict(pool_tokens=96, block_size=8,
+                                                                 decode_backend="paged"))}
+
+
+def _smoke_serving(arch, device, n=5, seed=0):
+    """(cfg, model, net, requests): a smoke LM in fp32 compute on the card."""
+    import numpy as np
+
+    cfg = replace(get_smoke_config(arch), compute_dtype="float32")
+    model = get_model(cfg, device=device)
+    net = model.init(0)
+    rng = np.random.default_rng(seed)
+    reqs = [(rng.integers(0, cfg.vocab, int(k)), int(m))
+            for k, m in zip(rng.integers(3, 14, n), rng.integers(3, 11, n))]
+    return cfg, model, net, reqs
+
+
+def _served(engine, reqs):
+    for prompt, max_new in reqs:
+        engine.submit(prompt, max_new_tokens=max_new)
+    return [o.tolist() for o in engine.run_all()]
+
+
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_engine_graph_replay_matches_eager(cuda, route):
+    """Warmup captures the decode step; every serving step replays it: the
+    greedy tokens equal the eager step's (fp32 compute), the step is built
+    once, and the paged launches counted are layers x steps on the kernel
+    routes (a replay adds the launches its capture recorded), none
+    elsewhere."""
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.serve.engine import ServeEngine
+
+    arch, kw = GRAPH_ROUTES[route]
+    cfg, model, net, reqs = _smoke_serving(arch, cuda)
+    graph = ServeEngine(model, net, capacity=32, slots=2, **kw)
+    graph.warmup(max_prompt_len=16)
+    assert graph._graph is not None and graph.stats["decode_compiles"] == 1
+    reset_launch_counts()
+    got = _served(graph, reqs)
+    counts = launch_counts()
+    assert graph.stats["decode_compiles"] == 1
+    per_step = cfg.num_layers if kw.get("decode_backend") == "paged" else 0
+    assert counts["paged_attention"] == per_step * graph.stats["decode_steps"]
+    eager = ServeEngine(model, net, capacity=32, slots=2, cuda_graph=False, **kw)
+    assert got == _served(eager, reqs)
+    assert eager._graph is None and eager.stats["decode_compiles"] == 0
+
+
+def test_engine_graph_replays_draw_fresh_noise(cuda):
+    """Temperature sampling through the replayed step: near-uniform draws
+    (temperature 1e4) differ from step to step within each request, so
+    each replay draws fresh noise; the same seed repeats every token and
+    another seed draws others."""
+    from repro_torch.serve.engine import ServeEngine
+
+    _, model, net, reqs = _smoke_serving("qwen2_1_5b", cuda, n=3)
+    reqs = [(prompt, 12) for prompt, _ in reqs]
+
+    def run(seed):
+        eng = ServeEngine(model, net, capacity=32, slots=4, pool_tokens=128, block_size=8,
+                          temperature=1e4, seed=seed)
+        eng.warmup(max_prompt_len=16)
+        out = _served(eng, reqs)
+        assert eng._graph is not None and eng.stats["decode_compiles"] == 1
+        return out
+
+    first = run(7)
+    assert all(len(set(toks[1:])) > 1 for toks in first)   # toks[0]: the prefill's draw
+    assert run(7) == first
+    assert run(8) != first
+
+
+def test_launch_counts_after_replays(cuda):
+    """N replayed steps of the kernel route: launch_counts() and the per-route
+    counts show N x layers paged launches, and the capture itself none."""
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, model, net, reqs = _smoke_serving("qwen2_1_5b", cuda, n=2)
+    eng = ServeEngine(model, net, capacity=32, slots=2, pool_tokens=96, block_size=8,
+                      decode_backend="paged")
+    reset_launch_counts()
+    eng.warmup(max_prompt_len=16)
+    assert launch_counts()["paged_attention"] == cfg.num_layers   # the eager run alone
+    reset_launch_counts()
+    for prompt, _ in reqs:
+        eng.submit(prompt, max_new_tokens=30)
+    steps = 6
+    for _ in range(steps):
+        eng.step()
+    assert eng.stats["decode_steps"] == steps
+    assert launch_counts()["paged_attention"] == cfg.num_layers * steps
+    assert paged_attention.launches_by_route["decode"] == cfg.num_layers * steps
+
+
+CAPTURE_FAILS = r"""
+import dataclasses, sys
+import numpy as np
+from repro_torch.config import replace
+from repro_torch.configs import get_smoke_config
+from repro_torch.models.api import get_model
+from repro_torch.serve.engine import ServeEngine
+
+model = get_model(replace(get_smoke_config("qwen2_1_5b"), compute_dtype="float32"),
+                  device="cuda")
+step = model.decode_step
+
+
+def syncing(net, token, caches):
+    logits, caches = step(net, token, caches)
+    logits.sum().item()   # a host sync: legal eagerly, refused under capture
+    return logits, caches
+
+
+eng = ServeEngine(dataclasses.replace(model, decode_step=syncing), model.init(0), capacity=32,
+                  slots=2)
+eng.submit(np.arange(5, dtype=np.int32), max_new_tokens=4)
+try:
+    eng.step()
+except RuntimeError:
+    print("raised", eng._graph is None, eng.stats["decode_steps"])
+    sys.exit(3)
+print("served")
+"""
+
+
+def test_engine_capture_failure_raises(cuda):
+    """A decode step that cannot be captured (a host sync inside it) raises
+    at the capture, which follows the first eager run: the engine never
+    falls back to the eager step. In a process of its own, since a failed
+    capture leaves the process on the capture's stream."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", CAPTURE_FAILS], capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": str(src)})
+    assert out.returncode == 3, out.stdout + out.stderr
+    assert "raised True 0" in out.stdout
 
 
 # (B, H, Hkv, Sq, Skv, D): GQA (Hkv < H) included; D 16 / 32 / 64 / 96 / 128
