@@ -14,7 +14,7 @@ flare_lm and Qwen2-1.5B at full size.
 
 Run from the root of a checkout. ``--only`` runs the build, the device
 lines and one phase from its own set-up (``paged``, ``flash``, ``spectral``,
-``lm``, ``phi3``, ``deepseek_v2_lite_16b``, ``minicpm3_4b``,
+``tune``, ``lm``, ``phi3``, ``deepseek_v2_lite_16b``, ``minicpm3_4b``,
 ``pde_baselines``), then the card's line and ``{"ok": true, "only": ...}``;
 it prints no kernels line. It imports only ``repro_torch`` (from
 ``src/``), never JAX or the JAX package. Phases, each of which raises on
@@ -81,6 +81,20 @@ failure so the script exits non-zero:
    seven fp32 products and the two floors of the tensor-core design (its
    exps at the card's top SM clock, its products split three ways at the
    TF32 peak);
+4c. ``tune``: the launch-parameter autotuner (``backends/autotune.py``)
+   on a cache file of its own (every other phase runs with autotuning off
+   and an empty cache): ``pallas``, ``packed`` and ``packed_shard`` (on a
+   group of one) resolved with autotuning forced on at block 0's shape at
+   pde_40k and pde_1m, fp32, each timing its candidates (the rows a block
+   and the encode's token split; forward, and for the fused kinds the
+   backward too) and storing the winner under a key naming torch, CUDA and
+   the card; a ``tune`` line a kind and shape with every candidate's ms,
+   the default's and the winner's; every candidate held against the plain
+   version in fp64 as in phases 4 and 4b (a lost tile rejected); resolved
+   again with autotuning off, a cache hit carrying the winner; ``tune
+   time``: each tuned kernel row under the default and under the winner;
+   ``tune model``: one pde_40k forward and one train step under the tuned
+   ``packed`` plan against the default plan (PATH_TOL, TRAIN_TOL);
 5. the slice end to end: ``get_model(flare_pde)`` from a seed, whose infer
    plan must be ``packed``; point-cloud requests at pde_40k and one pde_1m
    forward, with launch counts zeroed just before and read just after; the
@@ -321,7 +335,7 @@ failure so the script exits non-zero:
    view. (b) The same on layer 0's own decode operands after a
    real prefill (int8 / fp8 by quantizing its bf16 pages, fp32 by widening
    them). (c) 16 requests
-   (prompts of 256-2,048 tokens, 64 new tokens) through ``ServeEngine``
+   (prompts of 256-2,048 tokens, 32 new tokens) through ``ServeEngine``
    (``SERVE``) on the dense pool and the kernel route in bf16 (decode ms a
    step, tokens/s, prefill ms a request, p50/p99, peak GiB; 27 paged
    launches a step asserted), then 4 requests of 24 new tokens in fp32
@@ -568,7 +582,7 @@ DEEPSEEK_PARAMS, MINICPM3_PARAMS = (13e9, 18e9), (3.5e9, 5.0e9)
 MLA_LENGTHS = (0, 17, 1985, 1993, 2000, 2017, 2031, 2048)
 MLA_PAGE_DTYPES = ("bfloat16", "int8", "fp8", "float32")
 MLA_P_PARTS = 2   # bf16 parts of the weights in the tensor-core read's value product
-MLA_NEW = 64   # new tokens a request
+MLA_NEW = 32   # new tokens a request
 MLA_SERVE32_REQUESTS, MLA_SERVE32_NEW = 4, 24
 MLA_PREFIX_TEMPLATE, MLA_PREFIX_REQUESTS, MLA_PREFIX_NEW = 512, 4, 16
 # Algorithm 1 (core/spectral.py) on block 0's latent queries and keys at
@@ -711,6 +725,8 @@ def ptxas_summary(log: str) -> list:
                 label = f"{PAGED_TYPES.get(page, page)} D<={width.group(1)}"
             elif kind == "paged_encode":   # <padded D, plain (no scales, scale 1)>
                 label = f"D={width.group(1)} {'plain' if 'Lb1E' in args else 'scaled'}"
+            elif kind in ("encode_tc", "decode_tc"):   # <.., D, exact, row tiles a warp>
+                label += f" MT={re.search(r'Lb[01]ELi(\d+)E', args).group(1)}"
             elif kind.startswith("causal") and re.search(r"Lb[01]E", args):
                 # the exact instance (D its own width) or the padded one
                 page = args.split("Lb")[0]
@@ -774,7 +790,7 @@ class Checks:
         self.failures, self.max_abs = [], collections.defaultdict(float)
 
     def hold(self, name, what, got, want, dtype, *, atol, record=False, dropped=None,
-             fp32_plain=None):
+             fp32_plain=None, quiet=False):
         """``want``: the plain version on the same inputs, in the kernel's
         dtype or in fp64 (with ``fp32_plain`` beside it, the plain version's
         own output, where there is one). ``atol``: the absolute limit, or None for an output held
@@ -782,7 +798,9 @@ class Checks:
         kernel's ``max_abs_err``. ``dropped``: {what was left out: the fp64
         plain version with one tile left out}, the output of a kernel that
         lost a tile; the relative limit must reject each. ``record`` may
-        also be a key of its own (a route's record within a kernel's row)."""
+        also be a key of its own (a route's record within a kernel's row).
+        ``quiet``: print the line only on a failure. Returns the relative
+        error (None where the shapes or dtypes differ)."""
         import torch
 
         key = str(dtype).removeprefix("torch.")
@@ -793,7 +811,7 @@ class Checks:
         if got.shape != like.shape or got.dtype != like_dtype:
             self.failures.append(f"{label}: {tuple(got.shape)}/{got.dtype} vs plain "
                                  f"{tuple(like.shape)}/{like.dtype}")
-            return
+            return None
         err, scale = max_err(got, want), want.abs().max().item()
         rel = err / scale
         ok = math.isfinite(err) and rel <= RTOL[key] and (atol is None or err <= atol)
@@ -807,12 +825,14 @@ class Checks:
             if not rel_drop > RTOL[key]:
                 self.failures.append(f"{label}: rtol {RTOL[key]} would pass a kernel that "
                                      f"dropped a {left_out} (rel {rel_drop:.3g})")
-        print(line + ("" if ok else "  FAILED"), flush=True)
+        if not (quiet and ok):
+            print(line + ("" if ok else "  FAILED"), flush=True)
         if not ok:
             self.failures.append(f"{label}: abs {err:.3g}, rel {rel:.3g}")
         if record:
             key = record if isinstance(record, str) else name
             self.max_abs[key] = max(self.max_abs[key], err)
+        return rel
 
     def hold_rounded(self, name, what, got, want, *, dropped):
         """bf16 ``got`` from a kernel that computes in fp32 and rounds only
@@ -893,7 +913,8 @@ def check_main(checks: Checks, label: str, q, k, v):
     by more than the kernels are: its error is printed beside). The plain
     versions run a head at a time. Each output must also reject the fp64
     plain version with one token tile (encode) or latent tile (decode) left
-    out. Returns the fp64 plain y."""
+    out. Returns the fp64 references (as tune_refs gives them; ``fwd64[0]``
+    is the fp64 plain y)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -917,9 +938,9 @@ def check_main(checks: Checks, label: str, q, k, v):
                 dropped={"token tile": z64_drop}, fp32_plain=z32)
     y32 = by_head(ref.flare_decode_ref, q, k, z32)
     zz = z32.to(torch.float64)   # the decode's input, the same for every version
-    checks.hold("flare_decode", "y", flare_decode(q, k, z32), by_head(ref.flare_decode_ref, q64, k64, zz),
-                f32, atol=atol, record=True, fp32_plain=y32,
-                dropped={"latent tile": by_head(drop_latents, q64, k64, zz)})
+    dec64, dec_drop = by_head(ref.flare_decode_ref, q64, k64, zz), by_head(drop_latents, q64, k64, zz)
+    checks.hold("flare_decode", "y", flare_decode(q, k, z32), dec64, f32, atol=atol, record=True,
+                fp32_plain=y32, dropped={"latent tile": dec_drop})
     del y32, zz
     got = flare_fused_fwd(q, k, v)
     plain32 = by_head(ref.flare_fused_fwd_ref, q, k, v)
@@ -931,7 +952,7 @@ def check_main(checks: Checks, label: str, q, k, v):
                     record=what in drops, fp32_plain=p32,
                     dropped={"token tile": drops[what]} if what in drops else None)
     checks.raise_failures(f"kernels at {label}")
-    return want[0]
+    return dict(fwd64=want, fwd_drop=drops, z_in=z32, dec64=dec64, dec_drop=dec_drop)
 
 
 def bwd_chunk(b: int, m: int) -> int:
@@ -976,7 +997,9 @@ def check_bwd_main(checks: Checks, label: str, q, k, v, dy):
     forward's residuals (widened), a head at a time and chunked over tokens.
     Each gradient must reject the fp64 plain backward with one 256-token tile
     of dZ left out, and dk also the one with 256 latents left out. Returns
-    the forward's y and residuals for the timing, and the fp64 gradients."""
+    the forward's y and residuals for the timing, the fp64 gradients, and
+    the references as tune_refs gives them (``bwd_in``, ``bwd64``,
+    ``bwd_drop``)."""
     import torch
 
     from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
@@ -1005,7 +1028,7 @@ def check_bwd_main(checks: Checks, label: str, q, k, v, dy):
         checks.hold("flare_fused_bwd", what, got[i], want[i], torch.float32,
                     atol=BWD_ATOL[what], record=True, dropped=dropped, fp32_plain=plain32[i])
     checks.raise_failures(f"backward kernel at {label}")
-    return y, res, want
+    return y, res, want, dict(bwd_in=inputs, bwd64=want, bwd_drop=(no_tile, no_latents))
 
 
 def time_kernels(q, k, v) -> dict:
@@ -1209,7 +1232,7 @@ def train(cfg, shape) -> dict:
     print(f"training {cfg.name}: plans {{train: {plan}, infer: {model.plans['infer'].describe()}}}"
           f" at {shape.name} B={shape.global_batch} N={shape.seq_len}, {TRAIN_STEPS} steps, "
           f"peak lr {TRAIN_LR}", flush=True)
-    if plan != "packed":
+    if model.plans["train"].backend != "packed":
         raise AssertionError(f"train plan {plan} is not the fused kernels")
     batches = [pointcloud_batch(SEED, i, shape.global_batch, grid=256, num_points=shape.seq_len)
                for i in range(4)]
@@ -1362,6 +1385,365 @@ def train_paths_agree(cfg) -> None:
     if not (loss_rel <= TRAIN_TOL and gnorm_rel <= TRAIN_TOL
             and param_err <= PARAM_TOL_LR * TRAIN_LR):
         raise AssertionError("the packed training path differs from the plain path")
+
+
+# --------------------------------------------------------------------------
+# The launch-parameter autotuner (backends/autotune.py) on the card
+# --------------------------------------------------------------------------
+
+
+class OneRankMesh:
+    """What the plan builders read of a DeviceMesh (axis names and sizes), for
+    ``packed_shard`` on its group of one: no process group is needed to
+    plan, and its runner and the checks below run without collectives."""
+
+    mesh_dim_names = ("data",)
+
+    def size(self, dim: int = 0) -> int:
+        return 1
+
+
+def tune_refs(q, k, v, dy) -> dict:
+    """What every candidate is held against at one shape, computed once (the
+    checks of check_main and check_bwd_main): the fused forward's plain
+    version in fp64 (its z is the encode's), with one token tile left out;
+    the decode's of the fp64 z rounded to fp32, with one latent tile left
+    out; the default forward's own residuals, on which every candidate's
+    backward runs, and the plain backward in fp64 on them, with one dZ token
+    tile and one latent tile left out."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flare_packed import flare_fused_fwd
+
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    fwd64 = by_head(ref.flare_fused_fwd_ref, q64, k64, v64)
+    z_drop = by_head(lambda qh, kh, vh: ref.flare_encode_ref(qh, kh[:, :, TILE:], vh[:, :, TILE:]),
+                     q64, k64, v64)
+    z_in = fwd64[1].float()
+    zz = z_in.double()
+    y, *res = flare_fused_fwd(q, k, v)
+    bwd_in = (q, k, v, *res, y, dy)
+    wide = tuple(t.double() for t in bwd_in)
+    return dict(
+        fwd64=fwd64, fwd_drop={"y": by_head(ref.flare_decode_ref, q64, k64, z_drop), "z": z_drop},
+        z_in=z_in, dec64=by_head(ref.flare_decode_ref, q64, k64, zz),
+        dec_drop=by_head(lambda qh, kh, zh: ref.flare_decode_ref(qh[:, TILE:], kh, zh[:, :, TILE:]),
+                         q64, k64, zz),
+        bwd_in=bwd_in, bwd64=bwd_by_head(*wide),
+        bwd_drop=(bwd_by_head(*wide, drop="tokens"), bwd_by_head(*wide, drop="latents")))
+
+
+def tune_hold(checks: Checks, kind: str, params: dict, refs: dict, q, k, v) -> dict:
+    """One candidate of backend ``kind`` against the fp64 references, as
+    check_main and check_bwd_main hold the default (each limit rejecting a
+    lost tile): ``pallas``, the encode and the decode; ``packed``, the fused
+    forward and, with the candidate's split, the backward on the default
+    forward's residuals; ``packed_shard``, its entry points on a group of
+    one. Returns {output: rel error}."""
+    import torch
+
+    from repro_torch.kernels.flare import flare_decode, flare_encode
+    from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
+    from repro_torch.kernels.flare_packed_shard import (
+        combine_stats,
+        flare_enc_stats,
+        flare_shard_decode,
+        flare_shard_dz,
+        flare_shard_grads,
+    )
+
+    f32, atol = torch.float32, ATOL["float32"]
+    bm, bn = params["block_m"], params["block_n"]
+    tag = f"{kind} block_m={bm} block_n={bn}"
+    hold = lambda name, what, got, want, a, drop: checks.hold(
+        f"{name} [{tag}]", what, got, want, f32, atol=a, dropped=drop, quiet=True)
+    fwd64, drops = refs["fwd64"], refs["fwd_drop"]
+    rels = {}
+    if kind == "pallas":
+        rels["z"] = hold("flare_encode", "z", flare_encode(q, k, v, block_m=bm, block_n=bn),
+                         fwd64[1], atol, {"token tile": drops["z"]})
+        rels["y"] = hold("flare_decode", "y", flare_decode(q, k, refs["z_in"], block_m=bm),
+                         refs["dec64"], atol, {"latent tile": refs["dec_drop"]})
+        return rels
+    if kind == "packed":
+        got = flare_fused_fwd(q, k, v, block_m=bm, block_n=bn)
+    else:
+        num, mx, den = flare_enc_stats(q, k, v, block_m=bm, block_n=bn)
+        z, mx, den = combine_stats(num, mx, den, None)
+        y, lse = flare_shard_decode(q, k, z, block_m=bm)
+        got = (y, z, mx, den, lse)
+    for what, g, w in zip(("y", "z", "max", "den", "lse"), got, fwd64):
+        stat = what in ("den", "lse")   # den sums up to N terms: relative only
+        rels[what] = hold("flare_fused_fwd" if kind == "packed" else "flare_shard", what, g, w,
+                          None if stat else atol,
+                          {"token tile": drops[what]} if what in drops else None)
+    q_, k_, v_, z0, mx0, den0, lse0, y0, dy = refs["bwd_in"]
+    if kind == "packed":
+        grads = flare_fused_bwd(*refs["bwd_in"], block_n=bn)
+    else:
+        dz = flare_shard_dz(q_, k_, lse0, dy, block_n=bn)
+        grads = flare_shard_grads(q_, k_, v_, z0, mx0, den0, lse0, y0, dy, dz, block_n=bn)
+    no_tile, no_latents = refs["bwd_drop"]
+    for i, what in enumerate(GRADS):
+        dropped = {"dZ token tile": no_tile[i]}
+        if what == "dk":
+            dropped["latent tile"] = no_latents[i]
+        rels[what] = hold("flare_fused_bwd" if kind == "packed" else "flare_shard", what,
+                          grads[i], refs["bwd64"][i], BWD_ATOL[what], dropped)
+    return rels
+
+
+def tune_line(kind: str, label: str, shape, entry: dict, default: dict) -> dict:
+    """Print the ``tune`` line of a kind and shape from the cache entry the
+    search stored: every candidate's ms, the default's and the winner's.
+    Returns {"default_ms", "winner", "winner_ms"}."""
+    fmt = lambda p: f"block_m={p['block_m']};block_n={p['block_n']}"
+    timed = {fmt(c): c["us"] / 1e3 for c in entry["timed"]}
+    winner = {"block_m": entry["block_m"], "block_n": entry["block_n"]}
+    out = {"default_ms": timed[fmt(default)], "winner": fmt(winner),
+           "winner_ms": entry["us"] / 1e3}
+    print(f"tune {kind} {label} (B={shape.batch} H={shape.heads} M={shape.latents} "
+          f"N={shape.tokens} D={shape.head_dim} fp32, median of 3 by CUDA events"
+          f"{', forward and backward' if kind != 'pallas' else ', forward'}): "
+          f"{len(timed)} candidates {{{', '.join(f'{c}: {ms:.3f}' for c, ms in timed.items())}}} "
+          f"ms; default {fmt(default)} {out['default_ms']:.3f} ms; winner {out['winner']} "
+          f"{out['winner_ms']:.3f} ms ({out['winner_ms'] / out['default_ms']:.3f} of the "
+          "default)", flush=True)
+    return out
+
+
+# the kernel rows whose launch parameters the tuner sets, by the backend
+# (parameter kind) whose winner they take
+TUNED_ROWS = {"flare_encode": "pallas", "flare_decode": "pallas", "flare_fused_fwd": "packed",
+              "flare_fused_bwd": "packed", "flare_enc_stats": "packed_shard",
+              "flare_shard_decode": "packed_shard", "flare_shard_dz": "packed_shard",
+              "flare_shard_grads": "packed_shard"}
+
+
+def tune_times(shape, refs: dict, winners: dict) -> dict:
+    """CUDA-event ms of each tuned kernel row on block 0's operands under the
+    default parameters and under its backend's winner, in turns (default,
+    winner, winner, default; 3 calls each after a warm-up), the two means
+    printed. Returns {row: {"default_ms", "winner_ms"}}."""
+    from repro_torch.backends import autotune
+    from repro_torch.kernels.flare import flare_decode, flare_encode
+    from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
+    from repro_torch.kernels.flare_packed_shard import (
+        flare_enc_stats,
+        flare_shard_decode,
+        flare_shard_dz,
+        flare_shard_grads,
+    )
+
+    q, k, v, z, mx, den, lse, y, dy = refs["bwd_in"]
+    dz = flare_shard_dz(q, k, lse, dy)
+    calls = {
+        "flare_encode": lambda p: flare_encode(q, k, v, **p),
+        "flare_decode": lambda p: flare_decode(q, k, refs["z_in"], block_m=p["block_m"]),
+        "flare_fused_fwd": lambda p: flare_fused_fwd(q, k, v, **p),
+        "flare_fused_bwd": lambda p: flare_fused_bwd(*refs["bwd_in"], block_n=p["block_n"]),
+        "flare_enc_stats": lambda p: flare_enc_stats(q, k, v, **p),
+        "flare_shard_decode": lambda p: flare_shard_decode(q, k, z, block_m=p["block_m"]),
+        "flare_shard_dz": lambda p: flare_shard_dz(q, k, lse, dy, block_n=p["block_n"]),
+        "flare_shard_grads": lambda p: flare_shard_grads(q, k, v, z, mx, den, lse, y, dy, dz,
+                                                         block_n=p["block_n"]),
+    }
+    default = autotune.default_tiles(shape)
+    out = {}
+    for row, call in calls.items():
+        win = winners[TUNED_ROWS[row]]
+        d1, w1, w2, d2 = (cuda_ms(lambda p=p: call(p), reps=3)
+                          for p in (default, win, win, default))
+        out[row] = {"default_ms": (d1 + d2) / 2, "winner_ms": (w1 + w2) / 2}
+    print("tune time (default -> winner ms): " + ", ".join(
+        f"{row} {t['default_ms']:.3f} -> {t['winner_ms']:.3f}" for row, t in out.items()),
+        flush=True)
+    return out
+
+
+def tuned_model_agrees(cfg, net, batch, shape, plans: dict) -> None:
+    """One pde_40k forward and one train step under the tuned ``packed`` plan
+    against the same under the default plan (the default parameters bound to
+    the same shape), from the same weights and batch: the forward at
+    PATH_TOL, the loss and grad norm at TRAIN_TOL, the parameters after at
+    PARAM_TOL_LR x lr; the fused kernels launched under each."""
+    import copy
+
+    import torch
+
+    from repro_torch.backends import autotune
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import init_adamw
+    from repro_torch.train import make_train_step
+
+    runs = {}
+    for name, plan in plans.items():
+        model = get_model(cfg, policy=plan)
+        mine = copy.deepcopy(net)
+        reset_launch_counts()
+        y = model.forward(mine, batch)
+        step_fn = make_train_step(model.loss, TrainConfig(steps=1, learning_rate=TRAIN_LR,
+                                                          seed=SEED))
+        met = step_fn(mine, init_adamw(dict(mine.named_parameters())), batch)[2]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        runs[name] = dict(y=y, loss=float(met["loss"]), gnorm=float(met["grad_norm"]),
+                          params={k: p.detach() for k, p in mine.named_parameters()})
+        print(f"tune model {name} plan {plan.describe()} at B={shape.batch} N={shape.tokens}: "
+              f"loss {runs[name]['loss']:.6f}, grad_norm {runs[name]['gnorm']:.6f}, launches "
+              f"fwd {counts['flare_fused_fwd']} bwd {counts['flare_fused_bwd']}", flush=True)
+        if not (counts["flare_fused_fwd"] == 2 * cfg.num_layers
+                and counts["flare_fused_bwd"] == cfg.num_layers):
+            raise AssertionError(f"tuned model {name}: launches {counts}")
+        dev = batch["x"].device
+        q = torch.empty(shape.heads, shape.latents, shape.head_dim, device=dev)
+        k = torch.empty(shape.batch, shape.heads, shape.tokens, shape.head_dim, device=dev)
+        if autotune.launch_params(plan, q, k, "packed") != {
+                p: plan.params[p] for p in ("block_n", "block_m")}:
+            raise AssertionError(f"{name}: the plan's parameters do not reach its calls")
+    t, d = runs["tuned"], runs["default"]
+    err, scale = max_err(t["y"], d["y"]), d["y"].abs().max().item()
+    loss_rel = abs(t["loss"] - d["loss"]) / abs(d["loss"])
+    gnorm_rel = abs(t["gnorm"] - d["gnorm"]) / abs(d["gnorm"])
+    param_err = max((t["params"][k] - d["params"][k]).abs().max().item() for k in d["params"])
+    print(f"tune model tuned vs default: forward max abs err {err:.3g}, rel {err / scale:.3g} "
+          f"(limit {PATH_TOL}); one train step: loss rel {loss_rel:.3g}, grad_norm rel "
+          f"{gnorm_rel:.3g} (limit {TRAIN_TOL:g}), parameters max abs diff {param_err:.3g} "
+          f"(limit {PARAM_TOL_LR * TRAIN_LR:g})", flush=True)
+    if not (err <= PATH_TOL and err / scale <= PATH_TOL and loss_rel <= TRAIN_TOL
+            and gnorm_rel <= TRAIN_TOL and param_err <= PARAM_TOL_LR * TRAIN_LR):
+        raise AssertionError("the tuned plan's model differs from the default plan's")
+
+
+def tune_phase(checks: Checks, device, net=None, batches=None, refs=None) -> dict:
+    """``tune``: the autotuner's search on the card. With a fresh cache file
+    and autotuning forced on, resolve ``pallas``, ``packed`` and
+    ``packed_shard`` (on a group of one) at block 0's shape of flare_pde at
+    pde_40k and pde_1m, fp32: each times its candidates (backends/autotune.py)
+    and stores the winner under a key naming torch, CUDA and this card. Every
+    candidate, the winner and the default among them, is held against the
+    plain version in fp64 as the kernels' own checks hold the default. A
+    ``tune`` line a kind and shape gives every candidate's ms. Resolved again
+    with autotuning off, each plan must be a cache hit carrying the winner.
+    Each tuned kernel row is then timed under the default and under its
+    backend's winner (tune_times). Last, one pde_40k forward and one train
+    step under the tuned ``packed`` plan against the default plan. The
+    cache file is removed and the previous one restored. ``refs``: {shape:
+    the fp64 references of check_main and check_bwd_main on block 0's
+    operands}, else tune_refs computes them. Returns {row: {shape:
+    {"winner", "default_ms", "winner_ms"}}}."""
+    import torch
+
+    from repro_torch.backends import autotune
+    from repro_torch.config import SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.core.dispatch import MixerPlan, MixerShape, resolve
+    from repro_torch.data.pde_data import darcy_batch, pointcloud_batch
+    from repro_torch.models.api import get_model
+
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cfg = get_config("flare_pde")
+    if net is None:
+        net = get_model(cfg).init(SEED)
+    if batches is None:
+        s40, s1m = SHAPES["pde_40k"], SHAPES["pde_1m"]
+        batches = {"pde_40k": pointcloud_batch(SEED, 0, s40.global_batch, grid=256,
+                                               num_points=s40.seq_len),
+                   "pde_1m": darcy_batch(SEED, 1, s1m.global_batch,
+                                         grid=int(math.isqrt(s1m.seq_len)))}
+    saved = os.environ.get(autotune.CACHE_ENV)
+    tmp = tempfile.TemporaryDirectory(prefix="tune_")
+    cache = Path(tmp.name) / "autotune.json"
+    os.environ[autotune.CACHE_ENV] = str(cache)
+    autotune._MEM_CACHE.clear()
+    counters = lambda: (autotune._M_HITS.value, autotune._M_MEASURED.value)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    mesh = OneRankMesh()
+    found, times, winners, tuned40 = {}, {}, {}, None
+    try:
+        for label, batch in batches.items():
+            if refs is not None:
+                ref_set = refs[label]
+                q, k, v = ref_set["bwd_in"][:3]
+            else:
+                q, k, v = mixer_operands(net, batch["x"])
+                dy = torch.randn(k.shape[0], k.shape[2], k.shape[1], k.shape[3],
+                                 generator=gen).to(device).transpose(1, 2)
+                ref_set = tune_refs(q, k, v, dy)
+            shape = MixerShape.from_qkv(q, k)
+            print(f"tune {label}: block 0's operands B={shape.batch} H={shape.heads} "
+                  f"M={shape.latents} N={shape.tokens} D={shape.head_dim} fp32; cache {cache}",
+                  flush=True)
+            for name in ("pallas", "packed", "packed_shard"):
+                kind = "tiles" if name == "pallas" else "packed"
+                m = mesh if name == "packed_shard" else None
+                mkey = (1,) if m is not None else None
+                hits, measured = counters()
+                with autotune.forced(True):
+                    plan = resolve(name, shape=shape, dtype=torch.float32, device="cuda",
+                                   mesh=m)[1]
+                if counters() != (hits, measured + 1):
+                    raise AssertionError(f"tune {name} {label}: not measured once "
+                                         f"({counters()} after {(hits, measured)})")
+                key = autotune.cache_key(shape, torch.float32, torch.cuda.get_device_name(),
+                                         kind, mkey)
+                if not (autotune.runtime_version() in key
+                        and f"cuda{torch.version.cuda}" in key
+                        and torch.cuda.get_device_name() in key):
+                    raise AssertionError(f"tune key {key}")
+                entry = json.loads(cache.read_text())[key]
+                cands = autotune._CANDIDATES[kind](shape)
+                default = autotune._DEFAULTS[kind](shape)
+                if len(entry["timed"]) != len(cands) or default not in cands:
+                    raise AssertionError(f"tune {name} {label}: timed {len(entry['timed'])} of "
+                                         f"{len(cands)} candidates")
+                found.setdefault(name, {})[label] = tune_line(name, label, shape, entry,
+                                                              default)
+                rels = {}
+                for params in cands:
+                    for what, rel in tune_hold(checks, name, params, ref_set, q, k, v).items():
+                        rels[what] = max(rels.get(what) or 0.0, rel or math.inf)
+                print(f"  tune {name} {label}: every candidate held against fp64, worst rel "
+                      f"{ {w: float(f'{r:.3g}') for w, r in rels.items()} } (rtol "
+                      f"{RTOL['float32']:g}; each limit rejects a lost tile)", flush=True)
+                # resolved again with autotuning off: a hit carrying the winner
+                with autotune.forced(False):
+                    again = resolve(name, shape=shape, dtype=torch.float32, device="cuda",
+                                    mesh=m)[1]
+                winner = {p: entry[p] for p in ("block_m", "block_n")}
+                if counters() != (hits + 1, measured + 1) or any(
+                        again.params[p] != winner[p] or plan.params[p] != winner[p]
+                        for p in winner):
+                    raise AssertionError(f"tune {name} {label}: second resolve "
+                                         f"{again.describe()}, winner {winner}, counters "
+                                         f"{counters()} after {(hits, measured)}")
+                winners[name] = winner
+                if name == "packed" and label == "pde_40k":
+                    tuned40 = (shape, again)
+            checks.raise_failures(f"tune {label}")
+            for row, t in tune_times(shape, ref_set, winners).items():
+                times.setdefault(row, {})[label] = {"winner": found[TUNED_ROWS[row]][label][
+                    "winner"], **t}
+            del q, k, v, ref_set
+            torch.cuda.empty_cache()
+        shape, tuned = tuned40
+        default = MixerPlan("packed", {**autotune.default_packed(shape), "shape": shape})
+        tuned_model_agrees(cfg, net, batches["pde_40k"], shape,
+                           {"default": default, "tuned": tuned})
+    finally:
+        if saved is None:
+            os.environ.pop(autotune.CACHE_ENV, None)
+        else:
+            os.environ[autotune.CACHE_ENV] = saved
+        autotune._MEM_CACHE.clear()
+        tmp.cleanup()
+    print(f"tune phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return times
 
 
 # --------------------------------------------------------------------------
@@ -4497,7 +4879,7 @@ def table1_row(checks: Checks, cfg, mixer: str, batch, device) -> dict:
     heads = cfg.flare_heads
     if mixer == "flare":
         model = get_model(cfg)
-        if model.plans["train"].describe() != "packed":
+        if model.plans["train"].backend != "packed":
             raise AssertionError(f"flare train plan {model.plans['train'].describe()}")
         net, loss_fn, policy = model.init(SEED), model.loss, model.plans["infer"]
         ops = mixer_operands(net, batch["x"])
@@ -5166,6 +5548,7 @@ def only_phases() -> dict:
         pde_baselines(checks, get_config("flare_pde"), device)
 
     phases = {"paged": check_paged_small, "flash": check_flash_small, "spectral": spectral,
+              "tune": lambda checks, device: tune_phase(checks, device),
               "lm": lm_phases, "phi3": lambda checks, device: phi3_phases(checks, device),
               "pde_baselines": baselines}
     for arch, params in (("deepseek_v2_lite_16b", DEEPSEEK_PARAMS),
@@ -5201,11 +5584,20 @@ def main(argv=None) -> int:
     card = gpu_line()
     print(f"gpu: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    import tempfile
+
+    from repro_torch.backends import autotune
     from repro_torch.kernels import _build
 
+    # every phase but ``tune`` runs the kernels' default launch parameters:
+    # autotuning off, and an empty cache of this run's own
+    empty_cache = tempfile.TemporaryDirectory(prefix="autotune_")
+    os.environ[autotune.CACHE_ENV] = str(Path(empty_cache.name) / "autotune.json")
+    os.environ.pop("REPRO_AUTOTUNE", None)
     t0 = time.perf_counter()
     _build.lib()
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds} s)")
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds} s; by source, "
+          f"from the start: {_build.source_seconds})")
     print("\n".join(ptxas_summary(_build.build_log)), flush=True)
 
     checks = Checks()
@@ -5244,7 +5636,7 @@ def main(argv=None) -> int:
     plan = model.plans["infer"].describe()
     print(f"model {cfg.name}: plans {{infer: {plan}, train: {model.plans['train'].describe()}}}"
           " (train: the fused forward and backward kernels through autograd)", flush=True)
-    if plan != "packed":
+    if model.plans["infer"].backend != "packed":
         raise AssertionError(f"infer plan {plan} is not the fused kernel")
     net = model.init(SEED)
     s40, s1m = SHAPES["pde_40k"], SHAPES["pde_1m"]
@@ -5258,16 +5650,17 @@ def main(argv=None) -> int:
     # each kernel on the operands the main path gives it, at both shapes; the
     # backward with a seeded dy laid out as the model's [B, N, H, D] gradient
     gen = torch.Generator().manual_seed(SEED + 1)
-    stats = {}
+    stats, refs = {}, {}
     for label, batch in (("pde_40k", b40), ("pde_1m", b1m)):
         ops = mixer_operands(net, batch["x"])
-        y64 = check_main(checks, label, *ops)
+        refs[label] = check_main(checks, label, *ops)
         b, h, n, d = ops[1].shape
         dy = torch.randn(b, n, h, d, generator=gen).to(device).transpose(1, 2)
-        y, res, grads64 = check_bwd_main(checks, label, *ops, dy)
+        y, res, grads64, bwd_refs = check_bwd_main(checks, label, *ops, dy)
+        refs[label].update(bwd_refs)
         # the sharded mixer's entry points on the same operands, against the same fp64
-        check_shard(checks, label, *ops, dy, y64, grads64)
-        del y64, grads64
+        check_shard(checks, label, *ops, dy, refs[label]["fwd64"][0], grads64)
+        del grads64, bwd_refs
         times = time_kernels(*ops)
         times["flare_fused_bwd"] = time_bwd(*ops, dy, y, res)
         times.update(time_shard(*ops, dy))
@@ -5277,6 +5670,16 @@ def main(argv=None) -> int:
             stats = times
         del ops, dy, y, res
         torch.cuda.empty_cache()
+    mark("pde kernels")
+    # the autotuner's search at both shapes, on a cache of its own, its
+    # candidates held against the fp64 references of the checks above: each
+    # tuned row carries its default's and its winner's ms
+    for name, tuned in tune_phase(checks, device, net, {"pde_40k": b40, "pde_1m": b1m},
+                                  refs).items():
+        stats[name]["tuned"] = tuned
+    del refs
+    torch.cuda.empty_cache()
+    mark("tune")
 
     packed = drive(model, net, {"pde_40k": (b40, 3), "pde_1m": (b1m, 2)}, "packed")
     pallas_model = get_model(cfg, policy=MixerPolicy(backends=("pallas",)))
@@ -5405,7 +5808,8 @@ def main(argv=None) -> int:
     rows = [{"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
              **{key: stats[name][key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
                                                   "bound_ms", "bound_by", "library_ms")},
-             **{key: v for key, v in stats[name].items() if key.startswith("floor_")}}
+             **{key: v for key, v in stats[name].items()
+                if key.startswith("floor_") or key == "tuned"}}
             for name in REPLACES]
     # the paged kernel's row also carries its MLA instance's reads (bf16 pages),
     # the flash file's its bf16_mma route, the causal kernel's its fp32 route

@@ -15,7 +15,7 @@ from repro_torch.kernels.flare_causal import HEAD_DIMS
 DEFAULT_CHUNK = 256
 
 
-def _plan_stream(shape, mesh, dtype) -> MixerPlan:
+def _plan_stream(shape, mesh, dtype, device) -> MixerPlan:
     return MixerPlan("causal_stream",
                      {"chunk_size": min(DEFAULT_CHUNK, shape.tokens), "mode": "factored"})
 
@@ -27,7 +27,7 @@ def _run_stream(plan: MixerPlan, q, k, v):
                         mode=plan.params.get("mode", "factored"))
 
 
-def _plan_kernel(shape, mesh, dtype) -> MixerPlan:
+def _plan_kernel(shape, mesh, dtype, device) -> MixerPlan:
     # no params: the kernel's token tile is its own (csrc/flare_causal.cu)
     return MixerPlan("causal_pallas")
 

@@ -15,7 +15,7 @@ def _run(plan: MixerPlan, q, k, v):
 register(MixerBackend(
     name="materialized",
     caps=Capabilities(device_kinds=("cpu", "cuda")),
-    plan=lambda shape, mesh, dtype: MixerPlan("materialized"),
+    plan=lambda shape, mesh, dtype, device: MixerPlan("materialized"),
     run=_run,
     score=lambda shape, device: 0.0,
     doc="explicit [M,N] weights (paper Fig. 7), analysis fallback",

@@ -8,13 +8,19 @@ that axis needs no collective), the latent statistics and dZ summed over
 the sequence ranks. Eligible only with a mesh (``Capabilities.sharded``),
 so "auto" never routes a single-device call here; with a mesh it outranks
 the plain ``seqparallel`` form on the card wherever the latent axes divide
-the heads. The plan carries the mesh and its axes; the tiles are fixed in
-``csrc/`` (the autotuner is not ported).
+the heads. The plan carries the mesh and its axes, and the ``"packed"``
+kind's launch parameters (:mod:`repro_torch.backends.autotune`) looked up
+with the PER-SHARD problem shape and a mesh component in the key, so a
+``packed_shard`` winner never collides with a one-device ``packed`` entry
+for the same shape. Its runner times the per-shard kernels, forward and
+backward, on a group of one: no collective runs while a rank searches, so
+ranks never wait on each other's search.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+from repro_torch.backends import autotune
 from repro_torch.core.dispatch import Capabilities, MixerBackend, MixerPlan, MixerShape, register
 from repro_torch.distributed.compat import axis_size
 from repro_torch.kernels.flare import HEAD_DIMS
@@ -33,36 +39,57 @@ def mesh_shape_tag(mesh) -> str:
     return "x".join(f"{a}{mesh.size(i)}" for i, a in enumerate(mesh.mesh_dim_names))
 
 
-def build_shard_plan(shape: MixerShape, mesh, seq_axes, lat_axes, dtype) -> MixerPlan:
+def mesh_key(mesh) -> tuple:
+    """The mesh component of the autotuner's key: the axis sizes."""
+    return tuple(mesh.size(i) for i in range(len(mesh.mesh_dim_names)))
+
+
+def _shard_fused(q, k, v, block_m=None, block_n=None):
+    """The runner's call: the per-shard kernels on a group of one."""
+    from repro_torch.kernels.flare_packed_shard import FlareFusedShard
+
+    return FlareFusedShard.apply(q, k, v, None, block_m, block_n)
+
+
+def build_shard_plan(shape: MixerShape, mesh, seq_axes, lat_axes, dtype,
+                     device: str = "cuda") -> MixerPlan:
     """Check the shape against the axis split and freeze a plan. Raises
     ValueError where the latent axes do not divide H, so that "auto" and
     :func:`repro_torch.core.dispatch.sharded_plan` can fall back. N is not
     checked: the mixer runs on this rank's tokens, every sharded form needs
     the batch's tokens to split over the sequence axes alike, and
     ``distributed.sharding.token_slice`` checks the batch's real N when it
-    takes the rank's slice (the shape's N is only a hint at plan time)."""
+    takes the rank's slice (the shape's N is only a hint at plan time, and
+    the per-shard N the launch parameters are looked up for is its share)."""
     seq, lat = tuple(seq_axes), tuple(lat_axes)
     lat_size = axis_size(mesh, lat)
     if shape.heads % lat_size:
         raise ValueError(f"packed_shard: H={shape.heads} not divisible by lat_axes {lat} "
                          f"(size {lat_size})")
-    return MixerPlan("packed_shard", {"mesh": mesh, "seq_axes": seq, "lat_axes": lat,
+    local = MixerShape(batch=shape.batch, heads=shape.heads // lat_size,
+                       tokens=max(1, shape.tokens // axis_size(mesh, seq)),
+                       latents=shape.latents, head_dim=shape.head_dim)
+    tiles = autotune.plan_params("packed", local, dtype, device, _shard_fused, backward=True,
+                                 mesh=mesh_key(mesh))
+    return MixerPlan("packed_shard", {"mesh": mesh, "seq_axes": seq, "lat_axes": lat, **tiles,
                                       "mesh_shape": mesh_shape_tag(mesh)})
 
 
-def _plan(shape: MixerShape, mesh, dtype) -> MixerPlan:
+def _plan(shape: MixerShape, mesh, dtype, device) -> MixerPlan:
     if mesh is None:
         raise ValueError("backend 'packed_shard' needs a mesh: pass one to resolve() or build "
                          "a plan with dispatch.sharded_plan(mesh, seq_axes, lat_axes, shape=...)")
-    return build_shard_plan(shape, mesh, *default_axes(mesh), dtype)
+    return build_shard_plan(shape, mesh, *default_axes(mesh), dtype, device)
 
 
 def _run(plan: MixerPlan, q, k, v):
     from repro_torch.kernels.flare_packed_shard import flare_mixer_packed_shard
 
-    return flare_mixer_packed_shard(q, k, v, mesh=plan.params["mesh"],
-                                    seq_axes=plan.params["seq_axes"],
-                                    lat_axes=plan.params["lat_axes"])
+    mesh = plan.params["mesh"]
+    return flare_mixer_packed_shard(q, k, v, mesh=mesh, seq_axes=plan.params["seq_axes"],
+                                    lat_axes=plan.params["lat_axes"],
+                                    **autotune.launch_params(plan, q, k, "packed",
+                                                             mesh=mesh_key(mesh)))
 
 
 register(MixerBackend(

@@ -26,7 +26,7 @@ from repro_torch.kernels.paged_attention import HEAD_DIMS
 DEFAULT_BLOCK = 16
 
 
-def _plan(shape: MixerShape, mesh, dtype) -> MixerPlan:
+def _plan(shape: MixerShape, mesh, dtype, device) -> MixerPlan:
     return MixerPlan("paged", {"block": min(DEFAULT_BLOCK, shape.tokens)})
 
 

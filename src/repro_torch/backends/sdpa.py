@@ -19,7 +19,7 @@ def _run(plan: MixerPlan, q, k, v):
 register(MixerBackend(
     name="sdpa",
     caps=Capabilities(device_kinds=("cpu", "cuda")),
-    plan=lambda shape, mesh, dtype: MixerPlan("sdpa"),
+    plan=lambda shape, mesh, dtype, device: MixerPlan("sdpa"),
     run=_run,
     score=lambda shape, device: 10.0,
     doc="two plain-torch SDPA calls (paper Fig. 3), the correctness reference",

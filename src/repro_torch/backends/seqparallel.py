@@ -15,7 +15,7 @@ from repro_torch.core.dispatch import Capabilities, MixerBackend, MixerPlan, Mix
 from repro_torch.distributed.compat import axis_group, group_rank, group_size
 
 
-def _plan_sp(shape: MixerShape, mesh, dtype) -> MixerPlan:
+def _plan_sp(shape: MixerShape, mesh, dtype, device) -> MixerPlan:
     if mesh is None:
         raise ValueError("backend 'seqparallel' needs a mesh: pass one to resolve() or build "
                          "a plan with dispatch.sharded_plan(mesh, seq_axes)")
@@ -23,7 +23,7 @@ def _plan_sp(shape: MixerShape, mesh, dtype) -> MixerPlan:
     return MixerPlan("seqparallel", {"mesh": mesh, "seq_axes": tuple(mesh.mesh_dim_names)})
 
 
-def _plan_sp2d(shape: MixerShape, mesh, dtype) -> MixerPlan:
+def _plan_sp2d(shape: MixerShape, mesh, dtype, device) -> MixerPlan:
     # the seq/lat split is a modelling decision a bare mesh does not make
     raise ValueError("backend 'seqlat' needs explicit seq/lat axes: build a plan with "
                      "repro_torch.core.dispatch.sharded_plan(mesh, seq_axes, lat_axes=...)")

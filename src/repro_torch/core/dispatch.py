@@ -72,17 +72,21 @@ class Capabilities:
 @dataclasses.dataclass(frozen=True)
 class MixerPlan:
     """A resolved execution plan: a backend's name and what its ``run`` needs
-    beyond q, k and v (the plain causal scan's ``chunk_size``). The kernels' tiles
-    are fixed; launch parameters join ``params`` with the autotuner."""
+    beyond q, k and v: the plain causal scan's ``chunk_size``, or the FLARE
+    kernels' launch parameters ``block_m`` and ``block_n`` from
+    :mod:`repro_torch.backends.autotune`, with the ``shape`` they were chosen
+    for."""
 
     backend: str
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     def describe(self) -> str:
-        """``name(key=value;...)``, the mesh left out (``mesh_shape`` names
-        it) and tuples joined by '+', so the string stays comma-free."""
+        """``name(key=value;...)``, the mesh and the shape left out
+        (``mesh_shape`` names the one) and tuples joined by '+', so the
+        string stays comma-free."""
         fmt = lambda v: "+".join(map(str, v)) if isinstance(v, (tuple, list)) else str(v)
-        inner = ";".join(f"{k}={fmt(v)}" for k, v in self.params.items() if k != "mesh")
+        inner = ";".join(f"{k}={fmt(v)}" for k, v in self.params.items()
+                         if k not in ("mesh", "shape"))
         return f"{self.backend}({inner})" if inner else self.backend
 
 
@@ -90,7 +94,8 @@ class MixerPlan:
 class MixerBackend:
     name: str
     caps: Capabilities
-    plan: Callable[[MixerShape, Any, Any], MixerPlan]   # plan(shape, mesh, dtype)
+    # plan(shape, mesh, dtype, device kind)
+    plan: Callable[[MixerShape, Any, Any, str], MixerPlan]
     run: Callable[..., torch.Tensor]               # run(plan, q, k, v) -> y
     # score(shape, device_kind) -> float; the highest eligible score wins "auto"
     score: Callable[[MixerShape, str], float] = lambda shape, device: 0.0
@@ -230,7 +235,7 @@ def resolve(impl, *, shape: MixerShape, dtype, device: str = "cuda", grad: bool 
         errors = []
         for backend in cands:
             try:
-                return backend, backend.plan(shape, mesh, dtype)
+                return backend, backend.plan(shape, mesh, dtype, device)
             except ValueError as e:
                 errors.append(f"{backend.name}: {e}")
         raise ValueError("auto: every eligible backend rejected the shape at plan time:\n  "
@@ -243,7 +248,7 @@ def resolve(impl, *, shape: MixerShape, dtype, device: str = "cuda", grad: bool 
     if mesh is not None and not backend.caps.sharded:
         raise ValueError(f"backend {impl!r} is not sharded: under a mesh each rank holds a "
                          "slice of the tokens, which a dense mixer would mix alone")
-    return backend, backend.plan(shape, mesh, dtype)
+    return backend, backend.plan(shape, mesh, dtype, device)
 
 
 def sharded_plan(mesh, seq_axes, lat_axes="model", *, shape: Optional[MixerShape] = None,
@@ -271,7 +276,7 @@ def sharded_plan(mesh, seq_axes, lat_axes="model", *, shape: Optional[MixerShape
         try:
             _check_head_dim(get_backend("packed_shard"), shape, device)
             return build_shard_plan(shape, mesh, seq_eff, lat_eff,
-                                    dtype if dtype is not None else torch.float32)
+                                    dtype if dtype is not None else torch.float32, device)
         except ValueError:
             if want_packed:
                 raise

@@ -30,8 +30,8 @@
 // The design, one device routine (sweep) for both kernels, as pass (a) of
 // flare_bwd.cu streams tokens against a warp's latent rows:
 //   * a warp owns 16 * MT output rows (latents in the encode, tokens in the
-//     decode; MT = 4 at D = 8, 2 up to 16, 1 above) and holds them as split
-//     A fragments for the whole sweep; the streamed score operand (k, or
+//     decode; by default MT = 4 at D = 8, 2 up to 16, 1 above) and holds
+//     them as split A fragments for the whole sweep; the streamed score operand (k, or
 //     the head's q) and value operand (v, or the group's Z) are staged in
 //     shared memory in each lane's B-fragment order, split: one 16-byte
 //     read a lane (flare_mma.cuh); the next tile's rows come in by
@@ -57,6 +57,11 @@
 //     block; where a batch of one leaves the card underfilled (pde_1m: 64
 //     encode blocks for 132 SMs) the encode splits N over blockIdx.z and a
 //     combine kernel merges the partial (max, den, num) in fp32;
+//   * the two launch parameters are the caller's, as the TPU kernels' tiles
+//     are: a block's rows (16 * WARPS * MT; at D <= 16 smaller row tiles
+//     than the default are built too, at_row_tiles) and the encode's token
+//     splits. repro_torch/backends/autotune.py picks them per shape, by
+//     default the MT above and the split of flare_encode_splits;
 //   * the decode cannot hold all M scores per token as the TPU's VMEM does,
 //     so it runs the same online softmax over latent chunks;
 //   * no padding: ragged N and M are bounds in the loops, the staged
@@ -99,7 +104,10 @@ constexpr int STAGE_FLOATS = 8192;   // floats of staged fragments a tile, two o
 constexpr int CH = 4;                // 8-wide steps a chunk: one running-max rescale each
 constexpr int WAVE_BLOCKS = 4;       // blocks of THREADS resident an SM, for the N-split
 
-// 16-row tiles a warp: four at D = 8, two up to 16, one above (registers)
+// 16-row tiles a warp by default: four at D = 8, two up to 16, one above
+// (registers). The row tile is a template parameter of the encode and the
+// decode, and a launch parameter of their entry points (`rows`, a block's
+// rows: 16 * WARPS * MT); at_row_tiles lists the instances built.
 template <int D> __host__ __device__ constexpr int row_tiles() {
   return D <= 8 ? 4 : D <= 16 ? 2 : 1;
 }
@@ -114,9 +122,9 @@ template <int D> __host__ __device__ constexpr int tile_steps() {
 // What a sweep leaves a thread: for rows gi and gi + 8 (h = 0, 1) of each
 // of the warp's MT tiles, the max of the row's scores, their den (the
 // quad's sum) and num, the C fragment of sum_c e^{s_c - mx} v_c.
-template <int D>
+template <int D, int MT>
 struct Rows {
-  static constexpr int MT = row_tiles<D>(), KS = D / 8;
+  static constexpr int KS = D / 8;
   float mx[MT][2], den[MT][2], num[MT][KS][4];
 };
 
@@ -128,11 +136,11 @@ struct Rows {
 // 16-byte units at 16-byte aligned addresses, and the next tile's come in
 // by cp.async into a raw buffer while this tile computes; else each tile is
 // read from device memory as it is staged.
-template <typename T, typename TV, int D>
-__device__ __forceinline__ void sweep(Rows<D>& out, const T* X, long long xs, int r0, int rows,
-                                      const T* S, long long ss, const TV* V, long long vs,
-                                      int c0, int c1, int Dr, bool async) {
-  constexpr int KS = D / 8, MT = row_tiles<D>(), NS = tile_steps<D>();
+template <typename T, typename TV, int D, int MT>
+__device__ __forceinline__ void sweep(Rows<D, MT>& out, const T* X, long long xs, int r0,
+                                      int rows, const T* S, long long ss, const TV* V,
+                                      long long vs, int c0, int c1, int Dr, bool async) {
+  constexpr int KS = D / 8, NS = tile_steps<D>();
   constexpr bool EX = std::is_same<T, __nv_bfloat16>::value;    // x and s exact in TF32
   constexpr bool EV = std::is_same<TV, __nv_bfloat16>::value;   // v exact in TF32
   static_assert(NS % CH == 0, "a staged tile holds whole chunks");
@@ -273,7 +281,7 @@ __device__ __forceinline__ void sweep(Rows<D>& out, const T* X, long long xs, in
     for (int h = 0; h < 2; ++h) out.den[i][h] = quad_sum(tden[i][h]);
 }
 
-// Encode. Grid (ceil(M / rows_a_block), B*H, splits); warp = 16 * MT latent
+// Encode. Grid (ceil(M / (16 * WARPS * MT)), B*H, splits); warp = 16 * MT latent
 // rows of group g = b*H + h over tokens [split*split_len,
 // min(N, (split+1)*split_len)). D is the MMA width, Dr the head dim in
 // device memory (D itself where EXACT, else d_run).
@@ -281,21 +289,21 @@ __device__ __forceinline__ void sweep(Rows<D>& out, const T* X, long long xs, in
 // given); `raw` writes num itself, against mx, the flash statistics a rank
 // merges. splits > 1: writes the partial (max, den, num[Dr]) to
 // part[split, g, m, :].
-template <typename T, typename TZ, int D, bool EXACT>
+template <typename T, typename TZ, int D, bool EXACT, int MT>
 __global__ void __launch_bounds__(THREADS)
 encode_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  TZ* __restrict__ z, float* __restrict__ mx_out, float* __restrict__ den_out,
                  float* __restrict__ part, int H, int M, int N, int d_run, Strides ks,
                  Strides vs, int split_len, bool raw, bool async) {
-  constexpr int KS = D / 8, MT = row_tiles<D>();
+  constexpr int KS = D / 8;
   const int Dr = EXACT ? D : d_run;
   const int g = blockIdx.y, b = g / H, h = g % H;
   const int lane = threadIdx.x & 31, gi = lane >> 2, ti = lane & 3;
   const int m0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * 16 * MT;
   const int n0 = blockIdx.z * split_len, n1 = min(N, n0 + split_len);
-  Rows<D> st;
-  sweep<T, T, D>(st, q + (long long)h * M * Dr, Dr, m0, M, k + b * ks.b + h * ks.h, ks.n,
-                 v + b * vs.b + h * vs.h, vs.n, n0, n1, Dr, async);
+  Rows<D, MT> st;
+  sweep<T, T, D, MT>(st, q + (long long)h * M * Dr, Dr, m0, M, k + b * ks.b + h * ks.h, ks.n,
+                     v + b * vs.b + h * vs.h, vs.n, n0, n1, Dr, async);
   const long long rows = (long long)gridDim.y * M;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -360,22 +368,22 @@ __global__ void combine_kernel(const float* __restrict__ part, TZ* __restrict__ 
   }
 }
 
-// Decode. Grid (ceil(N / rows_a_block), B*H); warp = 16 * MT tokens of
+// Decode. Grid (ceil(N / (16 * WARPS * MT)), B*H); warp = 16 * MT tokens of
 // group g: y[b, h, n, :] = softmax_m(k_n . q_m) z[g, m, :], online over the
 // head's q and the group's Z streamed as the columns.
-template <typename T, typename TZ, int D, bool EXACT>
+template <typename T, typename TZ, int D, bool EXACT, int MT>
 __global__ void __launch_bounds__(THREADS)
 decode_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const TZ* __restrict__ z,
                  T* __restrict__ y, float* __restrict__ lse_out, int H, int M, int N, int d_run,
                  Strides ks, Strides ys, bool async) {
-  constexpr int KS = D / 8, MT = row_tiles<D>();
+  constexpr int KS = D / 8;
   const int Dr = EXACT ? D : d_run;
   const int g = blockIdx.y, b = g / H, h = g % H;
   const int lane = threadIdx.x & 31, gi = lane >> 2, ti = lane & 3;
   const int n0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * 16 * MT;
-  Rows<D> st;
-  sweep<T, TZ, D>(st, k + b * ks.b + h * ks.h, ks.n, n0, N, q + (long long)h * M * Dr, Dr,
-                  z + (long long)g * M * Dr, Dr, 0, M, Dr, async);
+  Rows<D, MT> st;
+  sweep<T, TZ, D, MT>(st, k + b * ks.b + h * ks.h, ks.n, n0, N, q + (long long)h * M * Dr, Dr,
+                      z + (long long)g * M * Dr, Dr, 0, M, Dr, async);
   T* yg = y + b * ys.b + h * ys.h;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -406,14 +414,14 @@ bool units16(const void* base, int Dr, std::initializer_list<long long> strides)
   return ok;
 }
 
-template <typename T, typename TZ, int D, bool EXACT>
+template <typename T, typename TZ, int D, bool EXACT, int MT>
 cudaError_t encode_launch(const void* q, const void* k, const void* v, void* z, float* mx,
                           float* den, float* part, int B, int H, int M, int N, int Dr,
                           Strides ks, Strides vs, int splits, bool raw, cudaStream_t stream) {
   const int split_len = cdiv(N, splits);
-  dim3 grid(cdiv(M, rows_a_block<D>()), B * H, splits);
+  dim3 grid(cdiv(M, WARPS * 16 * MT), B * H, splits);
   const bool async = units16<T>(k, Dr, {ks.b, ks.h, ks.n}) && units16<T>(v, Dr, {vs.b, vs.h, vs.n});
-  encode_tc_kernel<T, TZ, D, EXACT><<<grid, THREADS, 0, stream>>>(
+  encode_tc_kernel<T, TZ, D, EXACT, MT><<<grid, THREADS, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (TZ*)z, mx, den, splits > 1 ? part : nullptr,
       H, M, N, Dr, ks, vs, split_len, raw, async);
   cudaError_t err = cudaGetLastError();
@@ -424,35 +432,60 @@ cudaError_t encode_launch(const void* q, const void* k, const void* v, void* z, 
   return cudaGetLastError();
 }
 
-template <typename T, typename TZ, int D, bool EXACT>
+template <typename T, typename TZ, int D, bool EXACT, int MT>
 cudaError_t decode_launch(const void* q, const void* k, const void* z, void* y, float* lse,
                           int B, int H, int M, int N, int Dr, Strides ks, Strides ys,
                           cudaStream_t stream) {
-  dim3 grid(cdiv(N, rows_a_block<D>()), B * H);
+  dim3 grid(cdiv(N, WARPS * 16 * MT), B * H);
   const long long head = (long long)M * Dr;   // q and z: heads and groups contiguous
   const bool async = units16<T>(q, Dr, {head}) && units16<TZ>(z, Dr, {head});
-  decode_tc_kernel<T, TZ, D, EXACT><<<grid, THREADS, 0, stream>>>(
+  decode_tc_kernel<T, TZ, D, EXACT, MT><<<grid, THREADS, 0, stream>>>(
       (const T*)q, (const T*)k, (const TZ*)z, (T*)y, lse, H, M, N, Dr, ks, ys, async);
   return cudaGetLastError();
 }
 
-// Any D from 1 to 64, at its MMA width (flare_mma.cuh).
+// The row tiles a warp built at MMA width D, for a block of `rows` rows
+// (16 * WARPS * MT): row_tiles<D>() and, at D <= 16, the smaller ones (at
+// D = 8 two, at 16 one). Larger tiles, and any second tile above 16, would
+// spill: the default instances already use 231-244 registers in fp32. Any
+// other `rows` is refused before a launch.
+template <int D, typename F>
+cudaError_t at_row_tiles(int rows, F&& f) {
+  using std::integral_constant;
+  if (rows == WARPS * 16 * row_tiles<D>()) return f(integral_constant<int, row_tiles<D>()>{});
+  if constexpr (D <= 16) {
+    if (rows == WARPS * 16) return f(integral_constant<int, 1>{});
+  }
+  if constexpr (D <= 8) {
+    if (rows == WARPS * 32) return f(integral_constant<int, 2>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Any D from 1 to 64, at its MMA width (flare_mma.cuh), and a built row tile.
 template <typename T, typename TZ>
-cudaError_t encode_d(int D, const void* q, const void* k, const void* v, void* z, float* mx,
-                     float* den, float* part, int B, int H, int M, int N, Strides ks,
-                     Strides vs, int splits, bool raw, cudaStream_t s) {
+cudaError_t encode_d(int D, int rows, const void* q, const void* k, const void* v, void* z,
+                     float* mx, float* den, float* part, int B, int H, int M, int N,
+                     Strides ks, Strides vs, int splits, bool raw, cudaStream_t s) {
   return at_mma_width(D, [&](auto w, auto exact) {
-    return encode_launch<T, TZ, decltype(w)::value, decltype(exact)::value>(
-        q, k, v, z, mx, den, part, B, H, M, N, D, ks, vs, splits, raw, s);
+    return at_row_tiles<decltype(w)::value>(rows, [&](auto mt) {
+      return encode_launch<T, TZ, decltype(w)::value, decltype(exact)::value,
+                           decltype(mt)::value>(
+          q, k, v, z, mx, den, part, B, H, M, N, D, ks, vs, splits, raw, s);
+    });
   });
 }
 
 template <typename T, typename TZ>
-cudaError_t decode_d(int D, const void* q, const void* k, const void* z, void* y, float* lse,
-                     int B, int H, int M, int N, Strides ks, Strides ys, cudaStream_t s) {
+cudaError_t decode_d(int D, int rows, const void* q, const void* k, const void* z, void* y,
+                     float* lse, int B, int H, int M, int N, Strides ks, Strides ys,
+                     cudaStream_t s) {
   return at_mma_width(D, [&](auto w, auto exact) {
-    return decode_launch<T, TZ, decltype(w)::value, decltype(exact)::value>(
-        q, k, z, y, lse, B, H, M, N, D, ks, ys, s);
+    return at_row_tiles<decltype(w)::value>(rows, [&](auto mt) {
+      return decode_launch<T, TZ, decltype(w)::value, decltype(exact)::value,
+                           decltype(mt)::value>(
+          q, k, z, y, lse, B, H, M, N, D, ks, ys, s);
+    });
   });
 }
 
@@ -460,11 +493,12 @@ cudaError_t decode_d(int D, const void* q, const void* k, const void* z, void* y
 
 extern "C" {
 
-// N-split of the encode (and of the backward's per-latent passes, which
-// have its geometry: 256 latent rows a block of 128 threads at D = 8) for
-// `sms` multiprocessors: enough blocks for WAVE_BLOCKS a multiprocessor,
-// each split keeping at least 1024 tokens. The caller sizes the partials'
-// scratch from it.
+// The default N-split of the encode (and of the backward's per-latent
+// passes, which have its geometry: 256 latent rows a block of 128 threads
+// at D = 8) for `sms` multiprocessors: enough blocks for WAVE_BLOCKS a
+// multiprocessor, each split keeping at least 1024 tokens. The wrappers
+// take it from kernels/flare.py::default_splits, the same rule in Python
+// (a GPU test holds the two equal); a plan may name another split.
 int flare_encode_splits(int groups, int M, int N, int sms) {
   const long long blocks = (long long)groups * cdiv(M, rows_a_block<8>());
   const long long wave = (long long)sms * WAVE_BLOCKS;
@@ -474,61 +508,67 @@ int flare_encode_splits(int groups, int M, int N, int sms) {
 
 // q [H, M, D] contiguous; k, v [B, H, N, D] with strides (D stride 1);
 // z [B, H, M, D] contiguous of zdtype; mx, den [B, H, M] fp32 or null;
-// part fp32 scratch of splits * B*H*M * (D + 2) when splits > 1.
+// part fp32 scratch of splits * B*H*M * (D + 2) when splits > 1. `rows`:
+// latent rows a block, one at_row_tiles built at D's MMA width; `splits`
+// at most 65535 (gridDim.z). Anything else is refused before a launch.
 int flare_encode(const void* q, const void* k, const void* v, void* z, float* mx, float* den,
                  float* part, int B, int H, int M, int N, int D, long long ksb, long long ksh,
                  long long ksn, long long vsb, long long vsh, long long vsn, int splits,
-                 int dtype, int zdtype, void* stream) {
-  if (splits < 1 || (splits > 1 && part == nullptr)) return cudaErrorInvalidValue;
+                 int rows, int dtype, int zdtype, void* stream) {
+  if (splits < 1 || splits > 65535 || (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
   const Strides ks{ksb, ksh, ksn}, vs{vsb, vsh, vsn};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == F32 && zdtype == F32)
-    return encode_d<float, float>(D, q, k, v, z, mx, den, part, B, H, M, N, ks, vs, splits,
-                                  false, s);
+    return encode_d<float, float>(D, rows, q, k, v, z, mx, den, part, B, H, M, N, ks, vs,
+                                  splits, false, s);
   if (dtype == BF16 && zdtype == BF16)
-    return encode_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, z, mx, den, part, B, H, M, N,
-                                                  ks, vs, splits, false, s);
+    return encode_d<__nv_bfloat16, __nv_bfloat16>(D, rows, q, k, v, z, mx, den, part, B, H, M,
+                                                  N, ks, vs, splits, false, s);
   if (dtype == BF16 && zdtype == F32)
-    return encode_d<__nv_bfloat16, float>(D, q, k, v, z, mx, den, part, B, H, M, N, ks, vs,
-                                          splits, false, s);
+    return encode_d<__nv_bfloat16, float>(D, rows, q, k, v, z, mx, den, part, B, H, M, N, ks,
+                                          vs, splits, false, s);
   return cudaErrorInvalidValue;
 }
 
 // A rank's encode statistics (the sharded forward's first kernel): as
 // flare_encode with fp32 output, but num [B, H, M, D] holds the numerator
 // sum_n exp(s - mx) v_n before the normalisation, with mx and den [B, H, M]
-// (all required, fp32, contiguous). The same grid, splits and scratch.
+// (all required, fp32, contiguous). The same grid, splits, rows and scratch.
 int flare_enc_stats(const void* q, const void* k, const void* v, float* num, float* mx,
                     float* den, float* part, int B, int H, int M, int N, int D, long long ksb,
                     long long ksh, long long ksn, long long vsb, long long vsh, long long vsn,
-                    int splits, int dtype, void* stream) {
-  if (splits < 1 || (splits > 1 && part == nullptr) || mx == nullptr || den == nullptr)
+                    int splits, int rows, int dtype, void* stream) {
+  if (splits < 1 || splits > 65535 || (splits > 1 && part == nullptr) || mx == nullptr ||
+      den == nullptr)
     return cudaErrorInvalidValue;
   const Strides ks{ksb, ksh, ksn}, vs{vsb, vsh, vsn};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == F32)
-    return encode_d<float, float>(D, q, k, v, num, mx, den, part, B, H, M, N, ks, vs, splits,
-                                  true, s);
+    return encode_d<float, float>(D, rows, q, k, v, num, mx, den, part, B, H, M, N, ks, vs,
+                                  splits, true, s);
   if (dtype == BF16)
-    return encode_d<__nv_bfloat16, float>(D, q, k, v, num, mx, den, part, B, H, M, N, ks, vs,
-                                          splits, true, s);
+    return encode_d<__nv_bfloat16, float>(D, rows, q, k, v, num, mx, den, part, B, H, M, N, ks,
+                                          vs, splits, true, s);
   return cudaErrorInvalidValue;
 }
 
 // q [H, M, D] contiguous; k, y [B, H, N, D] with strides; z [B, H, M, D]
 // contiguous of zdtype; y takes dtype; lse [B, H, N] fp32 or null: each
 // token's log-sum-exp over the latents, the backward's decode statistic.
+// `rows`: token rows a block, as the encode's.
 int flare_decode(const void* q, const void* k, const void* z, void* y, float* lse, int B, int H,
                  int M, int N, int D, long long ksb, long long ksh, long long ksn, long long ysb,
-                 long long ysh, long long ysn, int dtype, int zdtype, void* stream) {
+                 long long ysh, long long ysn, int rows, int dtype, int zdtype, void* stream) {
   const Strides ks{ksb, ksh, ksn}, ys{ysb, ysh, ysn};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == F32 && zdtype == F32)
-    return decode_d<float, float>(D, q, k, z, y, lse, B, H, M, N, ks, ys, s);
+    return decode_d<float, float>(D, rows, q, k, z, y, lse, B, H, M, N, ks, ys, s);
   if (dtype == BF16 && zdtype == BF16)
-    return decode_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, z, y, lse, B, H, M, N, ks, ys, s);
+    return decode_d<__nv_bfloat16, __nv_bfloat16>(D, rows, q, k, z, y, lse, B, H, M, N, ks, ys,
+                                                  s);
   if (dtype == BF16 && zdtype == F32)
-    return decode_d<__nv_bfloat16, float>(D, q, k, z, y, lse, B, H, M, N, ks, ys, s);
+    return decode_d<__nv_bfloat16, float>(D, rows, q, k, z, y, lse, B, H, M, N, ks, ys, s);
   return cudaErrorInvalidValue;
 }
 

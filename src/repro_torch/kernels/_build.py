@@ -34,10 +34,10 @@ _PLL, _PI = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 # argtypes of every C entry point; device pointers and the stream are c_void_p
 _SIGNATURES = {
     "flare_encode_splits": [_I] * 4,
-    "flare_encode": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 3 + [_P],
-    "flare_decode": [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_I] * 2 + [_P],
+    "flare_encode": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 4 + [_P],
+    "flare_decode": [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_I] * 3 + [_P],
     "flare_fused_bwd": [_P] * 14 + [_I] * 5 + [_PLL] + [_I] * 2 + [_P],
-    "flare_enc_stats": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 2 + [_P],
+    "flare_enc_stats": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 3 + [_P],
     "flare_bwd_dz": [_P] * 6 + [_I] * 5 + [_PLL] + [_I] * 2 + [_P],
     "flare_bwd_grads": [_P] * 14 + [_I] * 5 + [_PLL] + [_I] * 2 + [_P],
     "flare_causal_splits": [_I],
@@ -53,6 +53,7 @@ _lock = threading.Lock()
 _lib = None
 build_log = ""          # nvcc's output of the build this process made (ptxas -v)
 build_seconds = None    # wall time of that build; None when a cached library was loaded
+source_seconds = {}     # that build's seconds from the start to each source's object
 
 
 def _nvcc() -> str:
@@ -74,7 +75,7 @@ def build(force: bool = False) -> Path:
     """Compile the kernels (unless a library for these sources exists) and
     return the library's path. Safe against concurrent builds: each writes
     private files and renames the library into place."""
-    global build_log, build_seconds
+    global build_log, build_seconds, source_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"libflare_{_digest()}.so"
     if out.exists() and not force:
@@ -85,8 +86,18 @@ def build(force: bool = False) -> Path:
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / s)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for s, obj in zip(SOURCES, objs)]
-    logs = [p.communicate()[0] for p in procs]
-    build_log = "".join(logs)
+    logs, done = [""] * len(procs), {}
+
+    def drain(i: int) -> None:   # one reader a compile, so each finishes at its own pace
+        logs[i] = procs[i].communicate()[0]
+        done[SOURCES[i]] = round(time.perf_counter() - t0, 1)
+
+    readers = [threading.Thread(target=drain, args=(i,)) for i in range(len(procs))]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
+    build_log, source_seconds = "".join(logs), done
     failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")

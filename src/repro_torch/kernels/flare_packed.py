@@ -32,6 +32,7 @@ call that autograd would record raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -40,6 +41,7 @@ from repro_torch.kernels.flare import (
     DTYPE_CODES,
     check_kernel_operands,
     check_operands,
+    check_tiles,
     decode_into,
     encode_into,
     encode_splits,
@@ -51,12 +53,15 @@ from repro_torch.kernels.flare import (
 from repro_torch.kernels.ref import flare_fused_bwd_ref, flare_fused_fwd_ref
 
 
-def flare_fused_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def flare_fused_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    block_m: Optional[int] = None, block_n: Optional[int] = None):
     """q [H, M, D], k/v [B, H, N, D] (any strides) -> (y [B, H, N, D] in v's
     dtype, Z [B, H, M, D], max [B, H, M], den [B, H, M], lse [B, H, N]; the
-    residuals fp32)."""
+    residuals fp32). ``block_m``: both kernels' rows a block; ``block_n``:
+    the encode's tokens a split (``kernels/flare.py``; None: the default)."""
     forbid_grad("flare_fused_fwd", q, k, v)
     check_operands("flare_fused_fwd", q, k, v)
+    check_tiles("flare_fused_fwd", k.shape[3], k.shape[2], block_m, block_n)
     if not on_cuda("flare_fused_fwd", q, k, v):
         return flare_fused_fwd_ref(q, k, v)
     check_kernel_operands("flare_fused_fwd", q, k, v)
@@ -68,8 +73,8 @@ def flare_fused_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     mx = torch.empty((b, h, m), dtype=torch.float32, device=dev)
     den = torch.empty((b, h, m), dtype=torch.float32, device=dev)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=dev)
-    encode_into(q, k, v, z, mx, den)
-    decode_into(q, k, z, y, lse)
+    encode_into(q, k, v, z, mx, den, block_m=block_m, block_n=block_n)
+    decode_into(q, k, z, y, lse, block_m=block_m)
     flare_fused_fwd.launches += 1
     return y, z, mx, den, lse
 
@@ -93,14 +98,16 @@ def bwd_strides(*ts: torch.Tensor):
                                                               else (0, 0, 0))))
 
 
-def flare_fused_bwd(q, k, v, z, mx, den, lse, y, dy):
+def flare_fused_bwd(q, k, v, z, mx, den, lse, y, dy, *, block_n: Optional[int] = None):
     """The backward of :func:`flare_fused_fwd` from its residuals: q [H, M, D];
     k, v, y, dy [B, H, N, D] (any strides); z, mx, den, lse as the forward
     returns them -> (dq [H, M, D] summed over the batch, dk, dv [B, H, N, D])
-    in the operands' dtype."""
+    in the operands' dtype. ``block_n``: the tokens a split of passes (a)
+    and (c), the forward's (None: the default); their row tiles are fixed."""
     forbid_grad("flare_fused_bwd", q, k, v, y, dy)
     check_operands("flare_fused_bwd", q, k, v, y, dy)
     _check_residuals("flare_fused_bwd", q, k, z, mx, den, lse)
+    check_tiles("flare_fused_bwd", k.shape[3], k.shape[2], block_n=block_n)
     if not on_cuda("flare_fused_bwd", q, k, v, z, mx, den, lse, y, dy):
         return flare_fused_bwd_ref(q, k, v, z, mx, den, lse, y, dy)
     check_kernel_operands("flare_fused_bwd", q, k, v, y, dy)
@@ -109,7 +116,7 @@ def flare_fused_bwd(q, k, v, z, mx, den, lse, y, dy):
     b, h, n, d = k.shape
     m = q.shape[1]
     dev = k.device
-    splits = encode_splits(k, m)
+    splits = encode_splits(k, m, block_n)
     dq = torch.empty((h, m, d), dtype=q.dtype, device=dev)
     dk = heads_out(b, h, n, d, k.dtype, dev)
     dv = heads_out(b, h, n, d, v.dtype, dev)
@@ -131,12 +138,15 @@ flare_fused_bwd.launches = 0
 class FlareFused(torch.autograd.Function):
     """y = FLARE(q, k, v) with the fused kernels both ways: q [H, M, D],
     k/v [B, H, N, D] -> y [B, H, N, D]. Saves q, k, v, y and the forward's
-    O(M*D + N) residuals; no [M, N] matrix is kept for the backward."""
+    O(M*D + N) residuals; no [M, N] matrix is kept for the backward.
+    ``apply(q, k, v, block_m=None, block_n=None)``: the forward's launch
+    parameters; its ``block_n`` is the backward's split too."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        y, z, mx, den, lse = flare_fused_fwd(q, k, v)
+    def forward(ctx, q, k, v, block_m=None, block_n=None):
+        y, z, mx, den, lse = flare_fused_fwd(q, k, v, block_m=block_m, block_n=block_n)
         ctx.save_for_backward(q, k, v, z, mx, den, lse, y)
+        ctx.block_n = block_n
         return y
 
     @staticmethod
@@ -145,4 +155,5 @@ class FlareFused(torch.autograd.Function):
         q, k, v, z, mx, den, lse, y = ctx.saved_tensors
         if dy.stride(3) != 1:
             dy = dy.contiguous()
-        return flare_fused_bwd(q, k, v, z, mx, den, lse, y, dy)
+        return (*flare_fused_bwd(q, k, v, z, mx, den, lse, y, dy, block_n=ctx.block_n),
+                None, None)

@@ -37,7 +37,7 @@ in ``<wrapper>.launches``. The raw wrappers are forward-only.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -47,6 +47,7 @@ from repro_torch.kernels.flare import (
     DTYPE_CODES,
     check_kernel_operands,
     check_operands,
+    check_tiles,
     decode_into,
     encode_into,
     encode_splits,
@@ -82,12 +83,15 @@ def _fp32(name, *ts) -> None:
         raise ValueError(f"{name}: the statistics must be contiguous float32")
 
 
-def flare_enc_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def flare_enc_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    block_m: Optional[int] = None, block_n: Optional[int] = None):
     """This rank's encode statistics: q [H, M, D], k/v [B, H, N, D] (any
     strides) -> (num [B, H, M, D], mx [B, H, M], den [B, H, M], fp32), num
-    the numerator sum_n exp(s - mx) v_n before the normalisation."""
+    the numerator sum_n exp(s - mx) v_n before the normalisation.
+    ``block_m``, ``block_n``: the encode's (``kernels/flare.py``)."""
     forbid_grad("flare_enc_stats", q, k, v)
     check_operands("flare_enc_stats", q, k, v)
+    check_tiles("flare_enc_stats", k.shape[3], k.shape[2], block_m, block_n)
     if not on_cuda("flare_enc_stats", q, k, v):
         return flare_enc_stats_ref(q, k, v)
     check_kernel_operands("flare_enc_stats", q, k, v)
@@ -96,7 +100,7 @@ def flare_enc_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     num = torch.empty((b, h, m, d), dtype=torch.float32, device=k.device)
     mx = torch.empty((b, h, m), dtype=torch.float32, device=k.device)
     den = torch.empty((b, h, m), dtype=torch.float32, device=k.device)
-    encode_into(q, k, v, num, mx, den, raw=True)
+    encode_into(q, k, v, num, mx, den, raw=True, block_m=block_m, block_n=block_n)
     flare_enc_stats.launches += 1
     return num, mx, den
 
@@ -104,13 +108,15 @@ def flare_enc_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 flare_enc_stats.launches = 0
 
 
-def flare_shard_decode(q: torch.Tensor, k: torch.Tensor, z: torch.Tensor):
+def flare_shard_decode(q: torch.Tensor, k: torch.Tensor, z: torch.Tensor, *,
+                       block_m: Optional[int] = None):
     """This rank's tokens against the merged z (fp32 [B, H, M, D]):
     -> (y [B, H, N, D] in k's dtype, lse [B, H, N] fp32, each token's
     log-sum-exp over the latents: a per-token statistic, no collective)."""
     forbid_grad("flare_shard_decode", q, k, z)
     check_operands("flare_shard_decode", q, k)
     _stats_shapes("flare_shard_decode", q, k, z=z)
+    check_tiles("flare_shard_decode", k.shape[3], k.shape[2], block_m)
     if not on_cuda("flare_shard_decode", q, k, z):
         return flare_decode_stats_ref(q, k, z)
     check_kernel_operands("flare_shard_decode", q, k)
@@ -118,7 +124,7 @@ def flare_shard_decode(q: torch.Tensor, k: torch.Tensor, z: torch.Tensor):
     b, h, n, d = k.shape
     y = heads_out(b, h, n, d, k.dtype, k.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=k.device)
-    decode_into(q, k, z, y, lse)
+    decode_into(q, k, z, y, lse, block_m=block_m)
     flare_shard_decode.launches += 1
     return y, lse
 
@@ -127,20 +133,22 @@ flare_shard_decode.launches = 0
 
 
 def flare_shard_dz(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
-                   dy: torch.Tensor) -> torch.Tensor:
+                   dy: torch.Tensor, *, block_n: Optional[int] = None) -> torch.Tensor:
     """This rank's part of dZ = W dy over its tokens (the backward's pass a):
     q [H, M, D]; k, dy [B, H, N, D] (any strides); lse [B, H, N] fp32
-    -> [B, H, M, D] fp32. The ranks' parts sum to dZ."""
+    -> [B, H, M, D] fp32. The ranks' parts sum to dZ. ``block_n``: the
+    tokens a split, as the forward's encode."""
     forbid_grad("flare_shard_dz", q, k, dy)
     check_operands("flare_shard_dz", q, k, dy)
     _stats_shapes("flare_shard_dz", q, k, lse=lse)
+    check_tiles("flare_shard_dz", k.shape[3], k.shape[2], block_n=block_n)
     if not on_cuda("flare_shard_dz", q, k, lse, dy):
         return flare_bwd_dz_ref(q, k, lse, dy)
     check_kernel_operands("flare_shard_dz", q, k, dy)
     _fp32("flare_shard_dz", lse)
     b, h, n, d = k.shape
     m = q.shape[1]
-    splits = encode_splits(k, m)
+    splits = encode_splits(k, m, block_n)
     dz = torch.empty((b, h, m, d), dtype=torch.float32, device=k.device)
     part = torch.empty(splits * b * h * m * d if splits > 1 else 1, dtype=torch.float32,
                        device=k.device)
@@ -156,14 +164,16 @@ def flare_shard_dz(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
 flare_shard_dz.launches = 0
 
 
-def flare_shard_grads(q, k, v, z, mx, den, lse, y, dy, dz):
+def flare_shard_grads(q, k, v, z, mx, den, lse, y, dy, dz, *, block_n: Optional[int] = None):
     """The backward's passes b and c on this rank's tokens, from the merged
     z, mx, den, the summed dz (all fp32) and this rank's lse: q [H, M, D];
     k, v, y, dy [B, H, N, D] (any strides) -> (dq [H, M, D] summed over the
-    batch, dk, dv [B, H, N, D]) in the operands' dtype."""
+    batch, dk, dv [B, H, N, D]) in the operands' dtype. ``block_n``: pass
+    (c)'s tokens a split, as the forward's encode."""
     forbid_grad("flare_shard_grads", q, k, v, y, dy)
     check_operands("flare_shard_grads", q, k, v, y, dy)
     _stats_shapes("flare_shard_grads", q, k, z=z, mx=mx, den=den, lse=lse, dz=dz)
+    check_tiles("flare_shard_grads", k.shape[3], k.shape[2], block_n=block_n)
     if not on_cuda("flare_shard_grads", q, k, v, z, mx, den, lse, y, dy, dz):
         return flare_bwd_grads_ref(q, k, v, z, mx, den, lse, y, dy, dz)
     check_kernel_operands("flare_shard_grads", q, k, v, y, dy)
@@ -171,7 +181,7 @@ def flare_shard_grads(q, k, v, z, mx, den, lse, y, dy, dz):
     b, h, n, d = k.shape
     m = q.shape[1]
     dev = k.device
-    splits = encode_splits(k, m)
+    splits = encode_splits(k, m, block_n)
     dq = torch.empty((h, m, d), dtype=q.dtype, device=dev)
     dk = heads_out(b, h, n, d, k.dtype, dev)
     dv = heads_out(b, h, n, d, v.dtype, dev)
@@ -207,14 +217,16 @@ class FlareFusedShard(torch.autograd.Function):
     replicated, k/v [B, H, N_rank, D] this rank's tokens -> y
     [B, H, N_rank, D]. Saves the merged O(M*D) statistics and this rank's
     O(N_rank) log-sum-exp; the backward sums dZ over the group before the
-    gradients pass. dq is this rank's part."""
+    gradients pass. dq is this rank's part. ``apply(q, k, v, group,
+    block_m=None, block_n=None)``: the launch parameters of the per-shard
+    kernels; the forward's ``block_n`` is the backward's split too."""
 
     @staticmethod
-    def forward(ctx, q, k, v, group):
-        num, mx, den = flare_enc_stats(q, k, v)
+    def forward(ctx, q, k, v, group, block_m=None, block_n=None):
+        num, mx, den = flare_enc_stats(q, k, v, block_m=block_m, block_n=block_n)
         z, gmax, gden = combine_stats(num, mx, den, group)
-        y, lse = flare_shard_decode(q, k, z)
-        ctx.group = group
+        y, lse = flare_shard_decode(q, k, z, block_m=block_m)
+        ctx.group, ctx.block_n = group, block_n
         ctx.save_for_backward(q, k, v, z, gmax, gden, lse, y)
         return y
 
@@ -224,16 +236,18 @@ class FlareFusedShard(torch.autograd.Function):
         q, k, v, z, mx, den, lse, y = ctx.saved_tensors
         if dy.stride(3) != 1:
             dy = dy.contiguous()
-        dz = all_reduce_sum_(flare_shard_dz(q, k, lse, dy), ctx.group)
-        dq, dk, dv = flare_shard_grads(q, k, v, z, mx, den, lse, y, dy, dz)
-        return dq, dk, dv, None
+        dz = all_reduce_sum_(flare_shard_dz(q, k, lse, dy, block_n=ctx.block_n), ctx.group)
+        dq, dk, dv = flare_shard_grads(q, k, v, z, mx, den, lse, y, dy, dz,
+                                       block_n=ctx.block_n)
+        return dq, dk, dv, None, None, None
 
 
 Axes = Union[str, Sequence[str], None]
 
 
 def flare_mixer_packed_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mesh,
-                             seq_axes: Axes = ("data",), lat_axes: Axes = ("model",)):
+                             seq_axes: Axes = ("data",), lat_axes: Axes = ("model",),
+                             block_m: Optional[int] = None, block_n: Optional[int] = None):
     """The mesh-parallel FLARE mixer on this rank's LOCAL shards: q
     [H_rank, M, D], k/v [B, H_rank, N_rank, D] -> y [B, H_rank, N_rank, D],
     differentiable through :class:`FlareFusedShard`.
@@ -242,11 +256,12 @@ def flare_mixer_packed_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     are independent, so that axis needs no collective). The JAX function
     takes global arrays and ``shard_map``s them; torch runs one process per
     rank, so each rank passes its own slices, and the caller splits (the
-    trainer's :func:`repro_torch.distributed.sharding.shard_tokens`) and gathers."""
+    trainer's :func:`repro_torch.distributed.sharding.shard_tokens`) and gathers.
+    ``block_m``, ``block_n``: the per-shard kernels' launch parameters."""
     seq, lat = axes_tuple(seq_axes), axes_tuple(lat_axes)
     for a in seq + lat:
         if a not in mesh.mesh_dim_names:
             raise ValueError(f"axis {a!r} not in mesh axes {mesh.mesh_dim_names}")
     if set(seq) & set(lat):
         raise ValueError(f"seq_axes {seq} and lat_axes {lat} must be disjoint")
-    return FlareFusedShard.apply(q, k, v, axis_group(mesh, seq))
+    return FlareFusedShard.apply(q, k, v, axis_group(mesh, seq), block_m, block_n)

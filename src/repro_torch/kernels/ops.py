@@ -32,11 +32,15 @@ KERNELS = (flare_encode, flare_decode, flare_fused_fwd, flare_fused_bwd, flare_c
            flare_shard_grads)
 
 
-def flare_mixer_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flare_mixer_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      block_m: Optional[int] = None,
+                      block_n: Optional[int] = None) -> torch.Tensor:
     """The FLARE mixer through the encode and decode kernels (two launches).
-    q [H, M, D], k/v [B, H, N, D] -> y [B, H, N, D]."""
+    q [H, M, D], k/v [B, H, N, D] -> y [B, H, N, D]; ``block_m`` and
+    ``block_n`` as the kernels take them (None: their defaults)."""
     q = q.to(k.dtype)
-    return flare_decode(q, k, flare_encode(q, k, v))
+    return flare_decode(q, k, flare_encode(q, k, v, block_m=block_m, block_n=block_n),
+                        block_m=block_m)
 
 
 def flare_causal_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

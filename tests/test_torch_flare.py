@@ -139,15 +139,21 @@ def test_grad_resolves_packed(device):
     assert auto == ("packed" if device == "cuda" else "sdpa")
 
 
+# the fused kernels' default launch parameters at SHAPE on an H100 (132 SMs,
+# also what the defaults assume without a card): 256 latent rows a block,
+# 4 splits of 1,024 tokens (backends/autotune.py)
+PACKED_AT_SHAPE = "packed(block_n=1024;block_m=256)"
+
+
 def test_auto_picks_fused_kernel_on_cuda_and_sdpa_on_cpu():
-    assert resolve_policy(None, SHAPE, device="cuda").describe() == "packed"
+    assert resolve_policy(None, SHAPE, device="cuda").describe() == PACKED_AT_SHAPE
     assert resolve_policy(None, SHAPE, device="cpu").backend == "sdpa"
 
 
 def test_model_plans_on_cuda_need_no_card():
     m = get_model(get_config("flare_pde"), device="cuda")
-    assert m.plans["infer"].describe() == "packed"
-    assert m.plans["train"].describe() == "packed"
+    assert m.plans["infer"].describe() == PACKED_AT_SHAPE
+    assert m.plans["train"].describe() == PACKED_AT_SHAPE
     assert get_model(get_config("flare_pde"), device="cpu").plans["train"].describe() == "sdpa"
 
 

@@ -282,6 +282,86 @@ def test_fused_bwd_raises_instead_of_falling_back(cuda):
         flare_fused_bwd(q, k, v, z.cpu(), mx, den, lse, y, y)
 
 
+# ragged shapes where the autotuner proposes 1 or 2 token splits: D 8 (three
+# row tiles), 12 (at the width 16: two) and 40 (at 64: one)
+TUNE_SHAPES = [(2, 3, 70, 2500, 8), (1, 2, 40, 2100, 12), (1, 2, 33, 2200, 40)]
+
+
+@pytest.mark.parametrize("shape", TUNE_SHAPES)
+def test_every_autotune_candidate_matches_plain(cuda, shape):
+    """Every candidate of both kinds (``backends/autotune.py``), fp32,
+    against the plain version in fp64 at 1e-5 of max |out|: the encode and
+    the decode ("tiles"), the fused forward and the backward with the
+    candidate's split on the default forward's residuals ("packed")."""
+    from repro_torch.backends import autotune
+    from repro_torch.core.dispatch import MixerShape
+
+    q, k, v = _inputs(shape, torch.float32, cuda)
+    dy = torch.randn(k.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    wide = [t.double() for t in (q, k, v)]
+    at = MixerShape.from_qkv(q, k)
+    z64 = ref.flare_encode_ref(*wide)
+    tiles = autotune.tile_candidates(at)
+    assert len(tiles) == 2 * len({c["block_m"] for c in tiles})
+    for c in tiles:
+        z = flare_encode(q, k, v, **c)
+        assert _max_rel(z, z64) <= 1e-5, c
+        y64 = ref.flare_decode_ref(wide[0], wide[1], z.double())
+        assert _max_rel(flare_decode(q, k, z, block_m=c["block_m"]), y64) <= 1e-5, c
+    y0, *res0 = flare_fused_fwd(q, k, v)
+    fwd64 = ref.flare_fused_fwd_ref(*wide)
+    bwd64 = ref.flare_fused_bwd_ref(*(t.double() for t in (q, k, v, *res0, y0, dy)))
+    for c in autotune.packed_candidates(at):
+        for got, want in zip(flare_fused_fwd(q, k, v, **c), fwd64):
+            assert _max_rel(got, want) <= 1e-5, c
+        _bwd_close(flare_fused_bwd(q, k, v, *res0, y0, dy, block_n=c["block_n"]), bwd64, 1e-5)
+
+
+def test_refused_launch_parameters_leave_the_card_usable(cuda):
+    """A row tile the library lacks is refused by the wrapper, and by the C
+    entry point before any launch (an error code, never a sticky fault)."""
+    from repro_torch.kernels.flare import decode_into, encode_into
+
+    q, k, v = _inputs((2, 3, 70, 2500, 8), torch.float32, cuda)
+    with pytest.raises(ValueError, match="block_m=96"):
+        flare_encode(q, k, v, block_m=96)
+    with pytest.raises(ValueError, match="block_n"):
+        flare_fused_fwd(q, k, v, block_n=0)
+    z = torch.empty(2, 3, 70, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        encode_into(q, k, v, z, block_m=96)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        decode_into(q, k, z, torch.empty_like(k), block_m=128 + 64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(flare_encode(q, k, v), ref.flare_encode_ref(q, k, v),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_default_split_rule_matches_the_kernel_library(cuda):
+    """``kernels/flare.py::default_splits`` (the rule the wrappers and the
+    autotuner's defaults use) against ``flare_encode_splits`` in the built
+    library, over a sweep holding pde_40k (B*H 64, M 2,048, N 40,000) and
+    pde_1m (B*H 8, N 2^20); and the plans' defaults on this card."""
+    from repro_torch.backends import autotune
+    from repro_torch.core.dispatch import MixerShape, resolve
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flare import card_sms, default_splits
+
+    lib = _build.lib()
+    for sms in (132, 114, 78, card_sms(cuda)):
+        for groups in (1, 2, 8, 24, 64, 512):
+            for m in (16, 300, 2048, 4096):
+                for n in (97, 1024, 5000, 40000, 300000, 1048576):
+                    assert default_splits(groups, m, n, sms) == \
+                        lib.flare_encode_splits(groups, m, n, sms), (groups, m, n, sms)
+    for shape in (MixerShape(8, 8, 40000, 2048, 8), MixerShape(1, 8, 1048576, 2048, 8)):
+        plan = resolve("packed", shape=shape, dtype=torch.float32, device="cuda")[1]
+        splits = lib.flare_encode_splits(8 * shape.batch, 2048, shape.tokens, card_sms(cuda))
+        if not autotune._load(autotune.cache_path()):   # an empty cache: the defaults
+            assert -(-shape.tokens // plan.params["block_n"]) == splits
+            assert plan.params["block_m"] == 256
+
+
 # D 24 and 96 run at the padded widths 32 and 128
 CAUSAL_SHAPES = [(2, 4, 16, 97, 8), (1, 3, 24, 300, 16), (2, 2, 70, 130, 32),
                  (1, 2, 64, 64, 64), (1, 2, 512, 1000, 128), (1, 1, 100, 4099, 128),

@@ -356,7 +356,7 @@ def test_causal_contract(device):
     assert pinned.describe() == "causal_stream(chunk_size=256;mode=factored)"
     # the PDE path resolves as before
     assert resolve_policy(None, PDE_SHAPE, device=device).describe() == (
-        "packed" if device == "cuda" else "sdpa")
+        "packed(block_n=1024;block_m=256)" if device == "cuda" else "sdpa")
 
 
 def test_flare_lm_plans_on_cuda_need_no_card():

@@ -151,7 +151,9 @@ def test_backends_match_jax(causal, sharded):
 
 def test_device_kind_and_describe_match_jax():
     """device_kind on this CPU; the plain backends' plans as JAX describes
-    them; the kernel backends by name (their tiles are fixed in the port)."""
+    them; the FLARE kernel backends with their own launch parameters (the
+    kernels' defaults here: 256 rows a block, one split of 64 tokens), the
+    causal kernel by name (its tile is fixed in the port)."""
     assert dispatch.device_kind() == jdispatch.device_kind() == "cpu"
     kw = dict(batch=2, heads=4, tokens=64, latents=8, head_dim=8)
     shape, jshape = dispatch.MixerShape(**kw), jdispatch.MixerShape(**kw)
@@ -159,8 +161,10 @@ def test_device_kind_and_describe_match_jax():
                          ("paged", False), ("auto", True), ("causal_stream", True)):
         assert dispatch.describe(impl, shape=shape, causal=causal) == \
             jdispatch.describe(impl, shape=jshape, causal=causal), impl
-    for impl, causal in (("pallas", False), ("packed", False), ("causal_pallas", True)):
-        assert dispatch.describe(impl, shape=shape, causal=causal) == impl
+    for impl, causal, want in (("pallas", False, "pallas(block_m=256;block_n=64)"),
+                               ("packed", False, "packed(block_n=64;block_m=256)"),
+                               ("causal_pallas", True, "causal_pallas")):
+        assert dispatch.describe(impl, shape=shape, causal=causal) == want
         assert jdispatch.describe(impl, shape=jshape, causal=causal).startswith(impl + "(")
 
 

@@ -354,7 +354,8 @@ def test_build_shard_plan_rejects_indivisible_shapes():
 
     mesh = _Mesh((4,), ("data",))
     plan = build_shard_plan(SHAPE, mesh, ("data",), (), F32)
-    assert plan.describe() == "packed_shard(seq_axes=data;lat_axes=;mesh_shape=data4)"
+    assert plan.describe() == ("packed_shard(seq_axes=data;lat_axes=;block_n=16;block_m=256;"
+                               "mesh_shape=data4)")
     with pytest.raises(ValueError, match="H=3"):
         build_shard_plan(MixerShape(2, 3, 64, 6, 8), _Mesh((2, 2), ("data", "model")),
                          ("data",), ("model",), F32)
@@ -461,7 +462,8 @@ def test_launcher_trains_on_a_mesh_of_one_cpu_rank(tmp_path):
         env={k: v for k, v in dict(os.environ, PYTHONPATH=str(REPO / "src")).items()
              if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")})
     assert out.returncode == 0, (out.stdout + out.stderr)[-3000:]
-    assert "train=packed_shard(seq_axes=data;lat_axes=model;mesh_shape=data1xmodel1)" in out.stdout
+    assert ("train=packed_shard(seq_axes=data;lat_axes=model;block_n=256;block_m=256;"
+            "mesh_shape=data1xmodel1)") in out.stdout
     assert "flare-pde-smoke: 2 steps" in out.stdout
     assert (tmp_path / "ck" / "step_2").is_dir()
 

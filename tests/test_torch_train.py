@@ -268,7 +268,46 @@ def test_trainer_restart_mid_run_is_deterministic(tmp_path):
     assert abs(h_straight[-1]["loss"] - h_resumed[-1]["loss"]) < 0.5
 
 
-def test_trainer_straggler_watchdog_fires(tmp_path):
+class _StepClock:
+    """A stand-in for the trainer's ``time`` module: the clock moves only
+    when the batch function advances it, so every step takes exactly what
+    the test says, whatever the machine's load."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def time(self) -> float:
+        return self.now
+
+
+def test_trainer_straggler_watchdog_fires(tmp_path, monkeypatch):
+    """Steps of a fixed 0.1 s on a fake clock, step 6 of 10 s: far more than
+    twice the median, and no other step is."""
+    import repro_torch.train.trainer as trainer_mod
+
+    clock = _StepClock()
+    monkeypatch.setattr(trainer_mod, "time", clock)
+    events = []
+    model = get_model(get_smoke_config("flare_pde"), device="cpu")
+    tr = Trainer(model, _tcfg(tmp_path / "wd", steps=8),
+                 on_straggler=lambda s, dt, med: events.append((s, dt, med)),
+                 straggler_factor=2.0)
+    data = _pde_batches(3)
+
+    def batch_fn(step):
+        clock.now += 10.0 if step == 6 else 0.1    # inject a straggler
+        return data(step)
+
+    tr.fit(batch_fn)
+    assert 6 in [step for step, _, _ in events], events   # the injected step is flagged
+    assert tr.metrics.get("train.stragglers").value == len(events)
+
+
+def test_trainer_straggler_watchdog_fires_real_time(tmp_path):
+    """The same on the real clock: step 6 sleeps three times the slowest
+    step before it (at least 1 s), so it exceeds twice the median of the
+    last steps however slow the machine runs them (the median of steps 0-6
+    is one of steps 0-5)."""
     import time as _time
 
     events = []
@@ -280,7 +319,7 @@ def test_trainer_straggler_watchdog_fires(tmp_path):
 
     def batch_fn(step):
         if step == 6:
-            _time.sleep(1.0)    # inject a straggler
+            _time.sleep(max(1.0, 3 * max(tr._step_times)))    # inject a straggler
         return data(step)
 
     tr.fit(batch_fn)
