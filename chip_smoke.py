@@ -6,8 +6,9 @@ Qwen2-1.5B and Phi-3-mini served from the paged KV pool (Qwen2-1.5B also
 with the prefix cache), the MLA models DeepSeek-V2-Lite (MLA + MoE) and
 MiniCPM3-4B served through the paged kernel's MLA instance, the dense
 family's prefill (Qwen2-1.5B, Phi-3-mini) through the flash-attention
-kernels (bf16 on the tensor cores, fp32 on the TF32 tensor cores), and training
-flare_lm and Qwen2-1.5B at full size.
+kernels (bf16 on the tensor cores, fp32 on the TF32 tensor cores), training
+flare_lm and Qwen2-1.5B at full size, and RWKV-6 3B and Zamba2-7B served at
+full size (Zamba2's shared attention through the paged and flash kernels).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only deepseek_v2_lite_16b   # build, device lines, one phase
@@ -15,7 +16,7 @@ flare_lm and Qwen2-1.5B at full size.
 Run from the root of a checkout. ``--only`` runs the build, the device
 lines and one phase from its own set-up (``paged``, ``flash``, ``spectral``,
 ``tune``, ``lm``, ``phi3``, ``deepseek_v2_lite_16b``, ``minicpm3_4b``,
-``pde_baselines``), then the card's line and ``{"ok": true, "only": ...}``;
+``rwkv6_3b``, ``zamba2_7b``, ``pde_baselines``), then the card's line and ``{"ok": true, "only": ...}``;
 it prints no kernels line. It imports only ``repro_torch`` (from
 ``src/``), never JAX or the JAX package. Phases, each of which raises on
 failure so the script exits non-zero:
@@ -159,8 +160,8 @@ failure so the script exits non-zero:
    time at D=96 beside D=128 at flare_lm's width;
 9. ``get_model(flare_lm)`` at full width and depth (24 layers, d_model 2048,
    2.6B parameters) from seed 0, whose infer plan must be ``causal_pallas``;
-   the seconds the CPU takes to draw the weights. The causal kernel on layer
-   0's own q, k, v for ``TokenStream`` tokens at B=1, T=32,768
+   the seconds the card takes to draw the weights (``card_init``). The
+   causal kernel on layer 0's own q, k, v for ``TokenStream`` tokens at B=1, T=32,768
    (prefill_32k's length; its batch of 32 cut to 1): in fp32 against the
    plain version in fp64, a head at a time, at 1e-5 of max |plain|, which
    must reject a plain version that left one 64-token kernel tile out of the
@@ -356,8 +357,42 @@ failure so the script exits non-zero:
    it, cache off and on, the hits' first-token logits within 5e-2 of max
    |logit| of the cold run's, a control (one hit's first shared page
    pointed at another live block) that must exceed it;
+16a. ``serve rwkv6-3b`` (``rwkv_phase``): ``get_model(rwkv6_3b)`` at full
+   width and depth (32 layers, d_model 2,560, 40 heads of 64,
+   3,099,863,040 parameters asserted), its weights drawn on the card.
+   Layer 0's chunked WKV (fp32, the factored form, 64-token chunks) on the
+   WKV operands the model gives it for a 1,024-token prompt in bf16
+   compute, against the scan in fp64 on the same values: y and the final
+   state within 1e-5 of their largest value; the chunked form run a chunk
+   at a time from a zero state (the inter-chunk term dropped) must fail
+   it. Then 8 requests (prompts of 512-2,048 tokens, 32 new tokens each)
+   through ``ServeEngine``'s dense pool in bf16 by graph replay and on the
+   eager step: greedy tokens equal; decode ms a step (graph and eager),
+   tokens/s, peak GiB. RWKV-6 runs no kernel;
+16b'. ``serve zamba2-7b`` (``zamba_phase``): ``get_model(zamba2_7b)`` at
+   full width and depth (81 layers: 13 groups of 5 Mamba2 layers and one
+   invocation of the shared attention block, 32 heads / 32 KV heads of
+   112, LoRA rank 128, then 3 Mamba2 layers; 5,829,438,784 parameters
+   asserted), drawn on the card. The flash kernels at D=112 on the first
+   invocation's rope'd q, k, v for a 4,096-token prompt, held as in phase
+   13 and timed beside their bounds, plain versions and SDPA;
+   ``zamba_prefill(impl="pallas")`` of that prompt in bf16 (a counted
+   window: 13 tensor-core launches; a profiler breakdown naming
+   ``flash_tc_kernel``), each of its 13 launches (captured in a second
+   run) held beyond bf16's output rounding against ``attn_sdpa``'s chunked
+   route in fp64 on its own operands, which must reject a lost 64-key
+   tile; the bf16 logits against ``impl="chunked"`` printed, not held (the
+   random-weight network amplifies a difference about 1,000x over its 13
+   groups); in fp32 compute the same prefill (13 launches on the fp32
+   route) against ``impl="chunked"`` within 1e-3 of max |logit|. Then in
+   fp32 compute: "auto" must pick the paged kernel route; the
+   paged kernel at D=112 on the first invocation's decode read against
+   fp64 with a dropped-page rejection, and its times; the 8 requests
+   through the dense pool, the gather route and the kernel route by graph
+   replay (13 paged launches a decode step asserted), greedy tokens equal,
+   and the kernel route against its eager oracle;
 16b. serving by graph replay, in every serving phase above (11, 12, 12b,
-   14, 15, 16): each engine runs ``ServeEngine.warmup`` first (its prefill
+   14, 15, 16, 16a, 16b'): each engine runs ``ServeEngine.warmup`` first (its prefill
    buckets, then the decode step captured as one CUDA graph), and must
    count one decode build after it and still one after serving; its
    replayed steps' paged launches are layers x steps. Each configuration
@@ -381,8 +416,10 @@ failure so the script exits non-zero:
    (``paged_mla_tc_kernel``) with its fp32-pages read under ``fp32_pages``
    (``paged_mla_tf32_kernel``), the ``flash_attention`` row (the
    TF32 kernel's) its bf16_mma route under ``off_tma_bf16``, the causal
-   kernel's row (bf16) its fp32 route under ``fp32``), then the card's name and power
-   limit, then ``{"ok": true, "device": ...}`` as the last line.
+   kernel's row (bf16) its fp32 route under ``fp32``; the paged row and
+   both flash rows their reads at Zamba2's D=112 under ``zamba_d112``),
+   then the card's name and power limit, then ``{"ok": true, "device":
+   ...}`` as the last line.
 """
 from __future__ import annotations
 
@@ -585,6 +622,18 @@ MLA_P_PARTS = 2   # bf16 parts of the weights in the tensor-core read's value pr
 MLA_NEW = 32   # new tokens a request
 MLA_SERVE32_REQUESTS, MLA_SERVE32_NEW = 4, 24
 MLA_PREFIX_TEMPLATE, MLA_PREFIX_REQUESTS, MLA_PREFIX_NEW = 512, 4, 16
+# the ssm and hybrid families at full width and depth (random weights drawn
+# on the card): RWKV-6 3B's and Zamba2-7B's (layers, parameters); 8 requests
+# of 512-2,048 prompt tokens, RECURRENT_NEW new tokens each, on SERVE's
+# engine (8 slots, capacity 4,096). One RWKV-6 layer's chunked WKV on a
+# WKV_T-token prompt against the scan in fp64, over max |y| (fp32 sums in
+# another order); the chunked form with the inter-chunk term dropped must
+# fail it. Zamba2's flash check and pallas prefill on one ZAMBA_PREFILL_T
+# prompt
+RWKV_SIZE, ZAMBA_SIZE = (32, 3_099_863_040), (81, 5_829_438_784)
+RECURRENT_REQUESTS, RECURRENT_PROMPTS, RECURRENT_NEW = 8, (512, 2048), 32
+WKV_T, WKV_TOL = 1024, 1e-5
+ZAMBA_PREFILL_T = 4096
 # Algorithm 1 (core/spectral.py) on block 0's latent queries and keys at
 # pde_40k: the fp32 eigenvalues against fp64's within SPECTRAL_TOL of the
 # largest, which the fp64 spectrum of the keys without their last
@@ -653,6 +702,15 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def card_init(model, seed: int = SEED):
+    """``model``'s weights drawn on the card from a CUDA generator seeded
+    with ``seed``: well under a second where the CPU takes 14-37 s for a
+    1.5-3.8 B model (its stream differs from the CPU's)."""
+    import torch
+
+    return model.init(seed, generator=torch.Generator(device="cuda").manual_seed(seed))
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -2675,12 +2733,11 @@ def lm_phases(checks: Checks, device) -> dict:
     if plan.backend != "causal_pallas":
         raise AssertionError(f"infer plan {plan.describe()} is not the causal kernel")
     t0 = time.perf_counter()
-    net = model.init(SEED)
+    net = card_init(model)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in net.parameters())
     print(f"init flare_lm: {time.perf_counter() - t0:.1f} s to draw {n_params} parameters "
-          f"({n_params * 4 / 1e9:.2f} GB fp32) on the CPU and move them to the card",
-          flush=True)
+          f"({n_params * 4 / 1e9:.2f} GB fp32) on the card", flush=True)
     n = SHAPES["prefill_32k"].seq_len
     t0 = time.perf_counter()
     tokens = torch.from_numpy(TokenStream(cfg.vocab, n, seed=SEED).batch(0, 0, 1, 1)["tokens"])
@@ -3041,11 +3098,13 @@ def train_lm(arch: str, size: tuple) -> dict:
     with tempfile.TemporaryDirectory() as ckdir:
         tcfg = TrainConfig(steps=LM_TRAIN_STEPS, seed=SEED, checkpoint_dir=ckdir,
                            checkpoint_every=10 * LM_TRAIN_STEPS, log_every=1)
-        trainer = Trainer(dataclasses.replace(model, loss=loss), tcfg, num_microbatches=num_mb)
+        trainer = Trainer(dataclasses.replace(model, loss=loss,
+                                              init=lambda seed: card_init(model, seed)),
+                          tcfg, num_microbatches=num_mb)
         n_params = sum(p.numel() for p in trainer.net.parameters())
         lap("init")
         print(f"init {cfg.name} for training: {cfg.num_layers} layers, {n_params} parameters "
-              f"drawn on the CPU and AdamW's moments allocated in {parts['init']} s", flush=True)
+              f"drawn on the card and AdamW's moments allocated in {parts['init']} s", flush=True)
         if (cfg.num_layers, n_params) != size:
             raise AssertionError(f"{cfg.name} is not at full size: {cfg.num_layers} layers, "
                                  f"{n_params} parameters")
@@ -3372,7 +3431,7 @@ def serve_requests(vocab: int, n: int, new_tokens, *, longest_first: bool, lens=
 
 
 def serve_run(model, net, reqs, label: str, *, profile: bool = False, base=SERVE,
-              graph: bool = True, **kw) -> dict:
+              graph: bool = True, paged_per_step=None, **kw) -> dict:
     """One engine (``base`` settings, updated by ``kw``) over the requests:
     on the graph route (``graph``) ``warmup`` first (every prefill bucket of
     the requests, then the decode step captured as one CUDA graph: one
@@ -3381,7 +3440,9 @@ def serve_run(model, net, reqs, label: str, *, profile: bool = False, base=SERVE
     adds the launches its capture recorded); the first decode step's logits
     and the slots it decoded; one decode step profiled once the queue has
     drained (its time kept out of the step mean and of tokens/s, which is
-    over the wall of every prefill and decode step)."""
+    over the wall of every prefill and decode step). The kernel route must
+    launch ``paged_per_step`` paged reads a decode step (default: one a
+    layer)."""
     import gc
 
     import torch
@@ -3466,7 +3527,8 @@ def serve_run(model, net, reqs, label: str, *, profile: bool = False, base=SERVE
         engine.check_invariants()
         if pool["blocks_free"] != pool["blocks_total"] or pool["blocks_reserved"]:
             raise AssertionError(f"{label}: the pool kept blocks: {pool}")
-    want = model.cfg.num_layers if kw.get("decode_backend") == "paged" else 0
+    want = ((paged_per_step or model.cfg.num_layers) if kw.get("decode_backend") == "paged"
+            else 0)
     if counts["paged_attention"] != want * st["decode_steps"] or any(
             n for name, n in counts.items() if name != "paged_attention"):
         raise AssertionError(f"{label}: launches {counts} over {st['decode_steps']} steps, "
@@ -3520,10 +3582,10 @@ def first_step_held(label: str, run: dict, ref: dict, tol: float) -> None:
          run["first_logits"][slots], ref["first_logits"][slots], tol)
 
 
-def init_dense_lm(arch: str, size: tuple):
-    """``get_model(arch)`` at full width and depth from seed 0: (cfg, model,
-    net), the seconds the CPU takes to draw the weights printed; raises
-    unless (layers, parameters) is ``size``."""
+def init_dense_lm(arch: str, size: tuple, *, on_card: bool = False):
+    """``get_model(arch)`` at full width and depth from seed 0, drawn on the
+    CPU or, ``on_card``, on the card: (cfg, model, net), the seconds the draw
+    takes printed; raises unless (layers, parameters) is ``size``."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3532,13 +3594,13 @@ def init_dense_lm(arch: str, size: tuple):
     cfg = get_config(arch)
     model = get_model(cfg)
     t0 = time.perf_counter()
-    net = model.init(SEED)
+    net = card_init(model) if on_card else model.init(SEED)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in net.parameters())
     print(f"init {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.attn.num_heads} heads / {cfg.attn.num_kv_heads} KV heads x {cfg.attn.head_dim}, "
-          f"{n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32) drawn on the CPU in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32) drawn on the "
+          f"{'card' if on_card else 'CPU'} in {time.perf_counter() - t0:.1f} s", flush=True)
     if (cfg.num_layers, n_params) != size:
         raise AssertionError(f"{cfg.name} is not at full size: {cfg.num_layers} layers, "
                              f"{n_params} parameters")
@@ -4284,8 +4346,9 @@ def attention_operands(net, cfg, tokens):
 
 
 def check_flash_main(checks: Checks, label: str, ops16, scale: float) -> None:
-    """The flash kernels on a model's layer 0 operands, as its prefill gives
-    them (the KV heads unexpanded): widened to fp32 (the TF32 kernel's route)
+    """The flash kernels on a model's attention operands (layer 0's, or a
+    shared block's invocation's), as its prefill gives them (the KV heads
+    unexpanded): widened to fp32 (the TF32 kernel's route)
     against the plain version in fp64, a head and 4,096 queries at a time,
     relative to max |plain|; the limit must reject the fp64 plain version
     with the 64-key tile at T/2 left out. bf16, as the model runs it (the
@@ -4302,7 +4365,7 @@ def check_flash_main(checks: Checks, label: str, ops16, scale: float) -> None:
     q, k, v = ops16
     b, h, n, d = q.shape
     kw = dict(scale=scale, causal=True, window=None)
-    print(f"kernels flash {label} layer 0 (B={b} H={h} Hkv={k.shape[1]} T={n} D={d}, q/k/v "
+    print(f"kernels flash {label} (B={b} H={h} Hkv={k.shape[1]} T={n} D={d}, q/k/v "
           f"strides {q.stride()}/{k.stride()}; fp32 held against the plain version in fp64):",
           flush=True)
     ops32 = [t.float() for t in ops16]
@@ -4578,7 +4641,7 @@ def flash_phases(checks: Checks, device, cfg, net) -> dict:
     scale = cfg.attn.head_dim ** -0.5
     tokens = dense_tokens(cfg.vocab, 1, n, SEED, device)
     ops16 = attention_operands(net, cfg, tokens)
-    check_flash_main(checks, "qwen2-1.5b", ops16, scale)
+    check_flash_main(checks, "qwen2-1.5b layer 0", ops16, scale)
     stats = time_flash(ops16, scale)
     del ops16
     torch.cuda.empty_cache()
@@ -4691,11 +4754,11 @@ def phi3_phases(checks: Checks, device) -> dict:
     from repro_torch.config import replace
     from repro_torch.models import transformer
 
-    cfg, _, net = init_dense_lm("phi3_mini_3_8b", PHI3_SIZE)
+    cfg, _, net = init_dense_lm("phi3_mini_3_8b", PHI3_SIZE, on_card=True)
     batch = {"tokens": dense_tokens(cfg.vocab, DENSE_B, DENSE_T, SEED + 2, device, DENSE_LENGTHS),
              "lengths": torch.tensor(DENSE_LENGTHS, device=device)}
-    check_flash_main(checks, "phi3-mini-3.8b", attention_operands(net, cfg, batch["tokens"]),
-                     cfg.attn.head_dim ** -0.5)
+    check_flash_main(checks, "phi3-mini-3.8b layer 0",
+                     attention_operands(net, cfg, batch["tokens"]), cfg.attn.head_dim ** -0.5)
     run = dense_prefill(net, cfg, batch, DENSE_T, "pallas", "phi3-mini-3.8b")
     launches = run["routes"]["tensor_core"]
     with torch.no_grad():
@@ -5528,6 +5591,365 @@ def mla_phase(checks: Checks, arch: str, params: tuple, device) -> dict:
     return stats
 
 
+def init_recurrent(arch: str, size: tuple):
+    """``get_model(arch)`` at full width and depth, its weights drawn on the
+    card from a CUDA generator seeded with SEED: (cfg, model, net); raises
+    unless (layers, parameters) is ``size``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = model.init(SEED, generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    m = cfg.ssm
+    shape = (f"{cfg.d_model // m.head_dim} heads of {m.head_dim}" if m.kind == "rwkv6" else
+             f"Mamba2 d_inner {m.expand * cfg.d_model}, state {m.state_dim}, a shared block "
+             f"every {cfg.shared_attn_every} layers ({cfg.attn.num_heads} heads / "
+             f"{cfg.attn.num_kv_heads} KV heads x {cfg.attn.head_dim}, LoRA {cfg.lora_rank})")
+    print(f"init {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {shape}, vocab "
+          f"{cfg.vocab}: {n_params} parameters ({n_params * 4 / 2**30:.2f} GiB fp32) drawn on "
+          f"the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    if (cfg.num_layers, n_params) != size:
+        raise AssertionError(f"{cfg.name} is not at full size: {cfg.num_layers} layers, "
+                             f"{n_params} parameters")
+    return cfg, model, net
+
+
+def recurrent_requests(vocab: int):
+    reqs = serve_requests(vocab, RECURRENT_REQUESTS, (RECURRENT_NEW, RECURRENT_NEW),
+                          longest_first=True, lens=RECURRENT_PROMPTS)
+    print(f"requests: {len(reqs)} prompts of {[len(p) for p, _ in reqs]} tokens, "
+          f"{RECURRENT_NEW} new tokens each; engine {SERVE}", flush=True)
+    return reqs
+
+
+def rel_err(got, want) -> float:
+    return max_err(got, want) / want.abs().max().item()
+
+
+def check_wkv(cfg, net, device) -> None:
+    """Layer 0's chunked WKV (the prefill's form, fp32) on the WKV operands
+    the model gives it for a WKV_T-token prompt (bf16 compute), against the
+    scan on the same values in fp64: y and the final state within WKV_TOL of
+    their largest value; the chunked form run a chunk at a time from a zero
+    state (the inter-chunk term dropped) must fail the limit."""
+    import torch
+
+    from repro_torch.models import rwkv_lm, ssm
+    from repro_torch.nn.modules import layernorm
+
+    layer, chunk = net.layers[0], cfg.ssm.chunk
+    tokens = dense_tokens(cfg.vocab, 1, WKV_T, SEED + 3, device)
+    with torch.no_grad():
+        x = layernorm(layer.ln1, rwkv_lm._embed(net, tokens, cfg))
+        r, k, v, w, _ = ssm.rwkv6_wkv_operands(layer, x, cfg.ssm)
+        y, s = ssm.rwkv6_wkv_chunked(r, k, v, w, layer.u, chunk=chunk)
+        wide = [t.double() for t in (r, k, v, w, layer.u)]
+        y64, s64 = ssm.rwkv6_wkv_scan(*wide)
+        cut = [t.reshape(WKV_T // chunk, chunk, *t.shape[2:]) for t in wide[:4]]
+        y_drop = ssm.rwkv6_wkv_chunked(*cut, wide[4], chunk=chunk)[0].reshape(y64.shape)
+        ms = cuda_ms(lambda: ssm.rwkv6_wkv_chunked(r, k, v, w, layer.u, chunk=chunk), reps=3)
+        scan_ms = cuda_ms(lambda: ssm.rwkv6_wkv_scan(r, k, v, w, layer.u), reps=1)
+    errs = {"y": rel_err(y, y64), "state": rel_err(s, s64), "y inter-chunk dropped":
+            rel_err(y_drop, y64)}
+    print(f"wkv rwkv6-3b layer 0 T={WKV_T} (H={r.shape[2]} D={r.shape[3]}, chunk {chunk}, "
+          f"factored) fp32 chunked vs fp64 scan, over max |ref| (max |y| "
+          f"{y64.abs().max().item():.4g}): " + ", ".join(f"{k_} rel {e:.3g}" for k_, e in
+                                                       errs.items())
+          + f" (limit {WKV_TOL:g}); chunked {ms:.3f} ms, fp32 scan {scan_ms:.3f} ms", flush=True)
+    if not (errs["y"] <= WKV_TOL and errs["state"] <= WKV_TOL):
+        raise AssertionError(f"rwkv6 chunked WKV off the fp64 scan: {errs}")
+    if not errs["y inter-chunk dropped"] > WKV_TOL:
+        raise AssertionError(f"the WKV limit {WKV_TOL} would pass a chunked form without its "
+                             f"inter-chunk term ({errs})")
+
+
+def recurrent_summary(name: str, graph: dict, eager: dict, t_phase: float) -> dict:
+    """The family's serving line: decode ms a step on the graph and eager
+    routes, tokens/s, peak GiB and the phase's seconds so far."""
+    out = {key: graph[key] for key in ("step_ms", "tok_s", "prefill_ms", "peak_gib")}
+    out["eager_step_ms"] = eager["step_ms"]
+    print(f"serve {name}: decode {graph['step_ms']:.3f} ms/step graph, {eager['step_ms']:.3f} "
+          f"ms/step eager; {graph['tok_s']:.1f} tok/s; prefill {graph['prefill_ms']:.2f} "
+          f"ms/request; peak {graph['peak_gib']:.2f} GiB; {time.perf_counter() - t_phase:.1f} s "
+          "into the phase", flush=True)
+    return out
+
+
+def rwkv_phase(checks: Checks, device) -> dict:
+    """RWKV-6 3B at full width and depth, its weights drawn on the card: one
+    layer's chunked WKV against the scan in fp64; the requests served on the
+    dense pool in bf16 compute by graph replay, and on the eager step as its
+    oracle (the same greedy tokens). No kernel: the state has no token axis,
+    and the scans are plain torch. Returns the serving numbers."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, net = init_recurrent("rwkv6_3b", RWKV_SIZE)
+    check_wkv(cfg, net, device)
+    reqs = recurrent_requests(cfg.vocab)
+    graph = serve_run(model, net, reqs, "bf16 dense", profile=True, **ROUTES["dense"])
+    eager = serve_run(model, net, reqs, "bf16 dense", profile=True, graph=False,
+                      **ROUTES["dense"])
+    graph_held("rwkv6-3b bf16 dense", graph, eager, "bfloat16")
+    div = first_divergence(graph["tokens"], eager["tokens"])
+    if div is not None:
+        raise AssertionError(f"rwkv6-3b: the graph route's greedy tokens differ from the eager "
+                             f"step's at request {div[0]}, token {div[1]}")
+    out = recurrent_summary(cfg.name, graph, eager, t_phase)
+    del model, net, graph, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve {cfg.name} phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def zamba_attention_operands(net, cfg, tokens):
+    """The shared block's first invocation's rope'd q [B, H, T, D] and k, v
+    [B, Hkv, T, D] for ``tokens`` in the compute dtype: what
+    ``zamba._shared_block`` gives ``attn_sdpa`` on the pallas route."""
+    import torch
+
+    from repro_torch.models import attention, rope, ssm, transformer, zamba
+    from repro_torch.nn.modules import dense, embedding
+
+    a = cfg.attn
+    sh = net.shared
+    with torch.no_grad():
+        x0 = embedding(net.embed, tokens, getattr(torch, cfg.compute_dtype))
+        x = x0
+        for layer in net.mamba_groups[0]:
+            x, _ = ssm.mamba2_block(layer, x, cfg.ssm)
+        hin = transformer._norm(cfg, sh.norm1, dense(sh.in_proj, torch.cat([x, x0], -1)))
+        q, k, v = (attention._heads(zamba.lora_dense(base, lora, 0, hin), n)
+                   for base, lora, n in ((sh.attn.wq, sh.lora_q, a.num_heads),
+                                         (sh.attn.wk, sh.lora_k, a.num_kv_heads),
+                                         (sh.attn.wv, sh.lora_v, a.num_kv_heads)))
+        ang = rope.rope_angles(rope.text_positions(*tokens.shape, device=tokens.device),
+                               a.head_dim, a.rope_theta)
+        return rope.apply_rope(q, ang), rope.apply_rope(k, ang), v
+
+
+def time_flash_at(label: str, ops16, scale: float) -> dict:
+    """CUDA-event times of the flash kernels on ``ops16`` (causal): the
+    tensor-core kernel on the bf16 operands and the fp32 route on them
+    widened, each beside its bound (4 * D FLOP a kept pair over the bf16 or
+    fp32 peak, or q, k, v and o once over 3.35 TB/s), its plain version (a
+    head at a time) and SDPA."""
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    b, h, n, d = ops16[0].shape
+    kw = dict(scale=scale, causal=True, window=None)
+    flops = 4 * d * b * h * visible_pairs(n, n, causal=True, window=None)
+    elems = b * d * n * 2 * (h + ops16[1].shape[1])
+    rows = {}
+    for name, ops, peak in (("flash_attention_tc", ops16, PEAK_BF16),
+                            ("flash_attention", [t.float() for t in ops16], PEAK_FP32)):
+        t_ops, t_bytes = flops / peak * 1e3, elems * ops[0].element_size() / PEAK_BW * 1e3
+        rows[name] = dict(
+            ms=cuda_ms(lambda: flash_attention(*ops, **kw), reps=5),
+            plain_ms=cuda_ms(lambda: flash_by_block(flash_attention_ref, *ops, **kw), reps=1),
+            library_ms=sdpa_ms(*ops, scale, reps=5), bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        print(f"time {name} {label} (B={b} H={h} Hkv={ops16[1].shape[1]} T={n} D={d}, "
+              f"{ops[0].dtype}): {rows[name]}", flush=True)
+    return rows
+
+
+def zamba_prefill_window(net, cfg, tokens, impl: str, capture=None) -> dict:
+    """One counted window: launch counts zeroed just before one
+    ``zamba_prefill`` of ``tokens`` (capacity their length) and read just
+    after; ms and peak GiB. Raises unless it launched one flash kernel a
+    shared invocation (``pallas``), all on the route of the compute dtype
+    (the tensor cores for bf16, the fp32 route for fp32), or none. With
+    ``capture`` (a list), each flash call's (q, k, v, output) is appended
+    to it (copies, outside the timed work's meaning: ms is then not kept)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.models.zamba import _plan, zamba_prefill
+
+    kernel = ops.flash_kernel
+
+    def capturing(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        capture.append(tuple(t.clone() for t in (q, k, v, out)))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    if capture is not None:
+        ops.flash_kernel = capturing
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            logits, _ = zamba_prefill(net, {"tokens": tokens}, cfg, tokens.shape[1], impl=impl)
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_kernel = kernel
+    ms = (time.perf_counter() - t0) * 1e3
+    counts, routes = ops.launch_counts(), dict(flash_attention.launches_by_route)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"path {cfg.name} prefill impl={impl} B={tokens.shape[0]} T={tokens.shape[1]} "
+          f"{cfg.compute_dtype}: {ms:.3f} ms{' (capturing)' if capture is not None else ''}, "
+          f"peak {peak:.2f} GiB; launches {counts}, flash routes {routes}", flush=True)
+    want = _plan(cfg)[0] if impl == "pallas" else 0
+    route = "tensor_core" if cfg.compute_dtype == "bfloat16" else "fp32"
+    if counts["flash_attention"] != want or routes[route] != want or any(
+            c for name, c in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"{cfg.name} prefill impl={impl}: launches {counts}, routes "
+                             f"{routes}; expected {want} on the {route} route")
+    if not bool(logits.isfinite().all()):
+        raise AssertionError(f"{cfg.name} prefill impl={impl}: logits not finite")
+    return {"logits": logits, "ms": ms, "peak": peak, "launches": routes[route]}
+
+
+def hold_prefill_flash(checks: Checks, label: str, calls: list, scale: float) -> None:
+    """Each flash launch of a bf16 prefill (its q, k, v and output, as
+    captured) against ``attn_sdpa``'s chunked route in fp64 on the same
+    bf16 values, beyond bf16's output rounding (``Checks.hold_rounded``);
+    the fp64 plain version with the 64-key tile at T/2 left out must fail
+    each."""
+    import functools
+
+    import torch
+
+    from repro_torch.kernels.attention import KV_TILE
+    from repro_torch.models.attention import _expand_kv, attn_sdpa
+
+    for i, (q, k, v, out) in enumerate(calls):
+        wide = [t.double() for t in (q, k, v)]
+        groups = q.shape[1] // k.shape[1]
+        kw = dict(scale=scale, causal=True, window=None)
+        with torch.no_grad():
+            want = attn_sdpa(wide[0], _expand_kv(wide[1], groups), _expand_kv(wide[2], groups),
+                             impl="chunked", **kw)
+            t0 = q.shape[2] // 2 // KV_TILE * KV_TILE
+            drop = flash_by_block(functools.partial(flash_dropped, t0=t0), *wide,
+                                  chunk=FLASH_QCHUNK, **kw)
+        checks.hold_rounded("flash_attention_tc", f"{label} call {i} vs chunked fp64", out, want,
+                            dropped={f"KV tile {t0}": drop})
+        del wide, want, drop
+    torch.cuda.empty_cache()
+
+
+def zamba_phase(checks: Checks, device) -> dict:
+    """Zamba2-7B at full width and depth, its weights drawn on the card. The
+    flash kernels at D=112 on the first shared invocation's operands of a
+    ZAMBA_PREFILL_T-token prompt (held and timed as phase 13's); that
+    prompt through ``zamba_prefill(impl="pallas")`` (a counted window: one
+    tensor-core launch a shared invocation, 13), each launch held against
+    the chunked route in fp64 beyond bf16 rounding, and in fp32 compute
+    (13 launches on the fp32 route) against the chunked route's logits;
+    then in fp32 compute the paged kernel at D=112 on the first
+    invocation's decode read, and the requests through the dense pool, the
+    gather route and the kernel route by graph replay (13 paged launches a
+    decode step asserted; "auto" must pick the kernel route), the greedy
+    tokens equal, the kernel route's equal to its eager oracle's. Returns
+    the two kernels' D=112 records with the counted windows' launches, and
+    the serving numbers."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.models.api import get_model
+    from repro_torch.models.zamba import _plan
+    from repro_torch.serve.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, net = init_recurrent("zamba2_7b", ZAMBA_SIZE)
+    invocations = _plan(cfg)[0]
+    scale = cfg.attn.head_dim ** -0.5
+    tokens = dense_tokens(cfg.vocab, 1, ZAMBA_PREFILL_T, SEED + 4, device)
+    ops16 = zamba_attention_operands(net, cfg, tokens)
+    check_flash_main(checks, "zamba2-7b shared invocation 0", ops16, scale)
+    flash = time_flash_at("zamba2-7b shared invocation 0", ops16, scale)
+    del ops16
+    torch.cuda.empty_cache()
+    # the bf16 prefill (the model's compute dtype): a counted window, then
+    # its 13 launches again, captured and held against the chunked route
+    run = zamba_prefill_window(net, cfg, tokens, "pallas")
+    calls = []
+    zamba_prefill_window(net, cfg, tokens, "pallas", capture=calls)
+    hold_prefill_flash(checks, "zamba2-7b prefill pallas", calls, scale)
+    del calls
+    with torch.no_grad():
+        from repro_torch.models.zamba import zamba_prefill
+
+        assert_route(breakdown(lambda: zamba_prefill(net, {"tokens": tokens}, cfg,
+                                                     ZAMBA_PREFILL_T, impl="pallas"),
+                               f"zamba2-7b prefill pallas B=1 T={ZAMBA_PREFILL_T} bf16"),
+                     "zamba2-7b prefill pallas bf16", ("flash_tc_kernel",),
+                     refuse=("flash_bf16_kernel", "flash_tf32_kernel"))
+    want = zamba_prefill_window(net, cfg, tokens, "chunked")["logits"]
+    # not held: the random-weight network amplifies a difference about
+    # 1,000x over its 13 groups (fp32: 5.6e-7 after the first invocation,
+    # 7.6e-4 at the last layer), so one bf16 rounding of an attention
+    # output moves the logits by their own size on any two routes
+    print(f"zamba2-7b prefill pallas vs chunked bf16 (last-token logits, not held): rel "
+          f"{rel_err(run['logits'], want):.3g}", flush=True)
+    cfg32 = replace(cfg, compute_dtype="float32")
+    run32 = zamba_prefill_window(net, cfg32, tokens, "pallas")
+    held("zamba2-7b prefill pallas vs chunked fp32 (last-token logits)", run32["logits"],
+         zamba_prefill_window(net, cfg32, tokens, "chunked")["logits"], LM_TOL["float32"])
+    flash["flash_attention_tc"]["launches"] = run["launches"]
+    flash["flash_attention"]["launches"] = run32["launches"]
+    del run, run32, want, tokens
+    torch.cuda.empty_cache()
+
+    model32 = get_model(cfg32)
+    reqs = recurrent_requests(cfg.vocab)
+    auto = ServeEngine(model32, net, **SERVE).stats["decode_backend"]
+    gc.collect()   # the engine, held in a cycle by its scheduler, and its pool
+    torch.cuda.empty_cache()
+    print(f"serve {cfg.name}: decode backend under \"auto\": {auto}", flush=True)
+    if not auto.startswith("paged("):
+        raise AssertionError(f"{cfg.name}: the paged pool is not kernel-eligible ({auto})")
+    paged = check_paged_main(checks, "zamba2-7b decode read invocation 0",
+                             capture_decode_read(model32, net, reqs, SERVE))
+    runs = {name: serve_run(model32, net, reqs, f"fp32 {name}", profile=name == "paged",
+                            paged_per_step=invocations, **kw)
+            for name, kw in ROUTES.items()}
+    if runs["paged"]["per_step"] != invocations:
+        raise AssertionError(f"{cfg.name} kernel route: {runs['paged']['per_step']} paged "
+                             f"launches a step, not {invocations}")
+    for name in ("gather", "paged"):
+        first_step_held(f"fp32 {name}", runs[name], runs["dense"], ROUTE_TOL["float32"])
+        div = first_divergence(runs[name]["tokens"], runs["dense"]["tokens"])
+        if div is not None:
+            raise AssertionError(f"{cfg.name} fp32 {name}: greedy tokens differ from the dense "
+                                 f"pool's at request {div[0]}, token {div[1]}")
+    eager = serve_run(model32, net, reqs, "fp32 paged", graph=False, profile=True,
+                      paged_per_step=invocations, **ROUTES["paged"])
+    graph_held("zamba2-7b fp32 paged", runs["paged"], eager, "float32")
+    print(f"serve {cfg.name} fp32: the greedy tokens of all {RECURRENT_REQUESTS} x "
+          f"{RECURRENT_NEW} positions are equal on the dense pool, the gather route and the "
+          "kernel route, graph and eager", flush=True)
+    serve = recurrent_summary(cfg.name, runs["paged"], eager, t_phase)
+    paged["launches"] = runs["paged"]["counts"]["paged_attention"]
+    del runs, eager, model, model32, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve {cfg.name} phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"paged_attention": paged, **flash, "serve": serve}
+
+
 def only_phases() -> dict:
     """The phases ``--only`` runs alone (after the build and the device
     lines), each from its own set-up: {name: fn(checks, device)}."""
@@ -5555,6 +5977,7 @@ def only_phases() -> dict:
                          ("minicpm3_4b", MINICPM3_PARAMS)):
         phases[arch] = lambda checks, device, arch=arch, params=params: mla_phase(
             checks, arch, params, device)
+    phases["rwkv6_3b"], phases["zamba2_7b"] = rwkv_phase, zamba_phase
     return phases
 
 
@@ -5795,6 +6218,16 @@ def main(argv=None) -> int:
         stats["paged_attention"]["launches"] += mla_read[arch].pop("launches")
         mark(arch)
     stats["paged_attention"]["mla_read"] = mla_read
+    # the ssm and hybrid families: RWKV-6 runs no kernel; Zamba2's shared
+    # attention reads through the paged kernel (its kernel route's window)
+    # and prefills through the flash kernel (its pallas window), at D=112
+    rwkv_phase(checks, device)
+    mark("rwkv6_3b")
+    zamba = zamba_phase(checks, device)
+    for name in ("paged_attention", "flash_attention_tc", "flash_attention"):
+        stats[name]["launches"] += zamba[name].get("launches", 0)
+        stats[name]["zamba_d112"] = zamba[name]
+    mark("zamba2_7b")
     # the Table-1 mixers at flare_pde's width. The FLARE row's train steps
     # are a counted window of the fused forward and backward
     for name, n in pde_baselines(checks, cfg, device).items():
@@ -5819,6 +6252,9 @@ def main(argv=None) -> int:
         stats["flash_attention"]["off_tma_bf16"]
     stats["flare_causal_chunk"]["fp32"]["max_abs_err"] = checks.max_abs["flare_causal_chunk"]
     rows[list(REPLACES).index("flare_causal_chunk")]["fp32"] = stats["flare_causal_chunk"]["fp32"]
+    # the paged and both flash rows carry their reads at Zamba2's D=112
+    for name in ("paged_attention", "flash_attention_tc", "flash_attention"):
+        rows[list(REPLACES).index(name)]["zamba_d112"] = stats[name]["zamba_d112"]
     print(f"phase seconds: {marks}", flush=True)
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))

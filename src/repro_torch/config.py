@@ -1,12 +1,14 @@
 """Model, shape and training configuration for the port.
 
 The port's own copy of the fields of ``repro.config.ModelConfig``,
-``AttnConfig``, ``MLAConfig`` and ``MoEConfig`` that the PDE family, the
-causal FLARE LM (``flare_lm``), the gqa and MLA decoders (the ``dense``
-family, e.g. qwen2 and minicpm3) and the MoE decoder (the ``moe`` family,
-deepseek-v2-lite) read, of their shapes, and of the ``TrainConfig`` fields
-the trainer reads (the mesh's gradient compression is not ported). SSM and
-the encoder-decoder fields are not ported. ``param_dtype`` and
+``AttnConfig``, ``MLAConfig``, ``MoEConfig`` and ``SSMConfig`` that the
+PDE family, the causal FLARE LM (``flare_lm``), the gqa and MLA decoders
+(the ``dense`` family, e.g. qwen2 and minicpm3), the MoE decoder (the
+``moe`` family, deepseek-v2-lite), RWKV-6 (the ``ssm`` family) and the
+Mamba2 + shared-attention hybrid (the ``hybrid`` family, zamba2) read, of
+their shapes, and of the ``TrainConfig`` fields the trainer reads (the
+mesh's gradient compression is not ported). The encoder-decoder fields are
+not ported. ``param_dtype`` and
 ``compute_dtype`` mean what they mean in the JAX package: parameters are
 stored in the first and cast to the second at use. The PDE family computes
 in fp32 whatever ``compute_dtype`` says, as ``models/api.py`` of the JAX
@@ -34,7 +36,7 @@ class MLAConfig:
 @dataclass(frozen=True)
 class AttnConfig:
     """The fields the gqa and MLA attention and the ``flare_stream`` mixer read."""
-    kind: str = "gqa"               # gqa | mla | flare_stream (none is not ported)
+    kind: str = "gqa"               # gqa | mla | flare_stream | none (the ssm family)
     num_heads: int = 8
     num_kv_heads: int = 8
     head_dim: int = 64
@@ -69,21 +71,38 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "mamba2"            # mamba2 | rwkv6
+    state_dim: int = 64             # N (mamba2) / head_dim (rwkv6 keys)
+    head_dim: int = 64
+    num_heads: int = 0              # 0 => derived from d_inner / head_dim
+    expand: int = 2                 # d_inner = expand * d_model
+    conv_kernel: int = 4            # mamba2 depthwise conv width
+    chunk: int = 64                 # chunked-scan block length
+    dt_rank: int = 0                # unused by mamba2 (scalar dt per head)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "pde"             # pde | flare_lm | dense | moe
+    family: str = "pde"             # pde | flare_lm | dense | moe | ssm | hybrid
     num_layers: int = 4             # FLARE blocks (pde) or decoder layers (the LMs)
     d_model: int = 256              # C
     flare_latents: int = 0          # M (pde)
     flare_heads: int = 0            # H (pde); head dim D = d_model // H
-    # decoder-only LM (flare_lm, dense, moe)
-    d_ff: int = 1024                # the SwiGLU FFN (moe: its leading dense layers')
+    # decoder-only LM (flare_lm, dense, moe, ssm, hybrid)
+    d_ff: int = 1024                # the SwiGLU FFN (moe: its leading dense layers'; ssm:
+                                    # the channel mix's; hybrid: the shared block's)
     vocab: int = 32000
     attn: AttnConfig = field(default_factory=AttnConfig)
     moe: Optional[MoEConfig] = None
-    norm: str = "rmsnorm"           # the LM's norms (only rmsnorm is ported)
+    ssm: Optional[SSMConfig] = None
+    norm: str = "rmsnorm"           # the LM's norms (rmsnorm; the ssm family's are layernorms)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # hybrid (zamba2)
+    shared_attn_every: int = 0      # apply the shared attention block every k layers
+    lora_rank: int = 0              # per-invocation LoRA rank on the shared block
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

@@ -3,15 +3,16 @@
 Each module exports ``config()`` (the assigned configuration) and
 ``smoke_config()`` (a reduced configuration of the same family for CPU
 tests). The port has the PDE surrogate, the causal FLARE LM, the gqa
-decoders qwen2-1.5b and phi3-mini-3.8b, the MLA decoder minicpm3-4b and the
-MLA + MoE decoder deepseek-v2-lite-16b so far.
+decoders qwen2-1.5b and phi3-mini-3.8b, the MLA decoder minicpm3-4b, the
+MLA + MoE decoder deepseek-v2-lite-16b, the RWKV-6 LM rwkv6-3b and the
+Mamba2 + shared-attention hybrid zamba2-7b so far.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = ["deepseek_v2_lite_16b", "flare_lm", "flare_pde", "minicpm3_4b", "phi3_mini_3_8b",
-            "qwen2_1_5b"]
+            "qwen2_1_5b", "rwkv6_3b", "zamba2_7b"]
 
 
 def _module(name: str):

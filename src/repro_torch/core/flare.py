@@ -99,7 +99,7 @@ def init_flare_layer(dim: int, num_heads: int, num_latents: int, *,
     if dim % num_heads:
         raise ValueError(f"dim {dim} not divisible by heads {num_heads}")
     head_dim = dim // num_heads
-    q = truncated_normal_(torch.empty(num_heads, num_latents, head_dim),
+    q = truncated_normal_(torch.empty(num_heads, num_latents, head_dim, device=generator.device),
                           1.0 / math.sqrt(head_dim), generator)
     mk = lambda: init_resmlp(dim, dim, dim, kv_proj_layers, generator=generator,
                              device=device, dtype=dtype)

@@ -7,18 +7,26 @@ np.asarray, params)``), so this module needs no JAX. Paths become
 ``nn.Linear``. Every parity test loads its weights through here: the two
 frameworks' random generators differ, so weights are never re-initialised.
 
-The JAX LM stacks its layers (every leaf of ``layers``, and of an MoE
-model's ``dense_layers``, has a leading [L] axis, for ``jax.lax.scan``);
-:func:`unstack_layers` splits them into the lists of per-layer trees that
-the port's ``nn.ModuleList``s read (``layers.3.mlp.w_gate.weight``). Leaves
-that are not dense kernels pass as they are: the MoE's stacked expert
-weights ``[E, C, F]`` (``layers.3.mlp.w_gate``) keep the JAX layout.
+The JAX LMs stack their layers for ``jax.lax.scan``: every leaf of
+``layers`` (the decoders' and RWKV-6's), of an MoE model's
+``dense_layers`` and of the hybrid's ``mamba_tail`` has a leading [L]
+axis, and every leaf of the hybrid's ``mamba_groups`` two, [G, per_group]
+(:data:`STACKS`). :func:`unstack_layers` splits them into the (nested)
+lists of per-layer trees that the port's ``nn.ModuleList``s read
+(``layers.3.mlp.w_gate.weight``, ``mamba_groups.2.4.in_proj.weight``).
+Leaves that are not dense kernels pass as they are: the MoE's stacked
+expert weights ``[E, C, F]`` (``layers.3.mlp.w_gate``), RWKV-6's raw
+matrices (``layers.3.lora_a`` [C, 5 r]) and the hybrid's per-invocation
+LoRA stacks (``shared.lora_q.a`` [G, C, r], kept stacked: they are one
+module's tensors, not layers) keep the JAX layout. A None subtree (the
+hybrid's ``mamba_tail`` when the layers divide into groups) has no leaves.
 
 The other direction, :func:`to_jax_flat`, gives the flat form the
 checkpoints hold: the JAX leaf paths joined by ``/``
 (``blocks/0/mixer/k_proj/res/1/kernel``) with dense kernels ``[in, out]``.
-The LM's per-layer keys ``layers.{i}.…`` (and ``dense_layers.{i}.…``)
-become the JAX LM's stacked leaves ``layers/…`` with a leading [L] axis;
+The LM's per-layer keys ``layers.{i}.…`` (``dense_layers.{i}.…``,
+``mamba_tail.{i}.…``, ``mamba_groups.{g}.{j}.…``) become the JAX LM's
+stacked leaves ``layers/…`` with their leading axes;
 the PDE family keeps its per-block keys, as the JAX package writes them.
 :func:`from_jax_flat` inverts it (per-layer ``layers/{i}/…`` paths pass
 through), so a checkpoint written by either package restores in the other.
@@ -46,6 +54,8 @@ def _jax_leaves(tree, prefix: str = "") -> dict:
     out = {}
     for key, sub in items:
         path = f"{prefix}{key}"
+        if sub is None:
+            continue
         if isinstance(sub, (dict, list, tuple)):
             out.update(_jax_leaves(sub, path + "/"))
         else:
@@ -54,12 +64,13 @@ def _jax_leaves(tree, prefix: str = "") -> dict:
 
 
 def unstack_layers(tree: dict, key=None) -> dict:
-    """A copy of ``tree`` with ``tree[key]``, whose leaves carry a leading
-    [L] axis, split into a list of L per-layer trees; ``key=None`` splits
-    every stack of :data:`STACKS` the tree holds."""
+    """A copy of ``tree`` with ``tree[key]``, whose leaves carry
+    ``STACKS[key]`` leading axes, split into (nested) lists of per-layer
+    trees; ``key=None`` splits every stack of :data:`STACKS` the tree holds
+    (a None stack is left as it is)."""
     if key is None:
         for name in STACKS:
-            if name in tree:
+            if tree.get(name) is not None:
                 tree = unstack_layers(tree, name)
         return tree
 
@@ -75,8 +86,11 @@ def unstack_layers(tree: dict, key=None) -> dict:
             sub = next(iter(sub.values())) if isinstance(sub, dict) else sub[0]
         return sub.shape[0]
 
-    stacked = tree[key]
-    return {**tree, key: [take(stacked, i) for i in range(depth(stacked))]}
+    def split(sub, axes):
+        parts = [take(sub, i) for i in range(depth(sub))]
+        return parts if axes == 1 else [split(part, axes - 1) for part in parts]
+
+    return {**tree, key: split(tree[key], STACKS.get(key, 1))}
 
 
 def load_jax_params(module: nn.Module, tree) -> nn.Module:
@@ -86,25 +100,28 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
 
 
 STACKED = "layers"   # the JAX LM's layer stack: every leaf has a leading [L] axis
-# every stack of the JAX LM: ``layers`` and an MoE model's leading ``dense_layers``
-STACKS = (STACKED, "dense_layers")
+# every stack of the JAX LMs and its number of leading (layer) axes:
+# ``layers``, an MoE model's leading ``dense_layers``, and the hybrid's
+# ``mamba_groups`` [G, per_group] and ``mamba_tail`` [r]
+STACKS = {STACKED: 1, "dense_layers": 1, "mamba_groups": 2, "mamba_tail": 1}
 
 
 def jax_leaf(name: str) -> tuple:
     """(the checkpoint path of ``state_dict`` key ``name``, its index along
-    the stacked [L] axis, or None): ``layers.3.mlp.w_up.weight`` ->
-    (``layers/mlp/w_up/kernel``, 3)."""
-    head, _, rest = name.partition(".")
-    i, _, rest = rest.partition(".")
-    if head in STACKS and i.isdigit():
-        return f"{head}/{jax_key(rest)}", int(i)
+    the stack's leading axes as a tuple, or None):
+    ``layers.3.mlp.w_up.weight`` -> (``layers/mlp/w_up/kernel``, (3,))."""
+    parts = name.split(".")
+    axes = STACKS.get(parts[0], 0)
+    idx = parts[1:axes + 1]
+    if axes and len(parts) > axes + 1 and all(i.isdigit() for i in idx):
+        return f"{parts[0]}/{jax_key('.'.join(parts[axes + 1:]))}", tuple(map(int, idx))
     return jax_key(name), None
 
 
 def to_jax_flat(tensors) -> dict:
     """``state_dict``-keyed tensors (parameters, or per-parameter optimizer
     moments) -> ``{jax/leaf/path: numpy array}``, dense weights as ``[in, out]``
-    kernels, the LM's layers stacked along a leading [L] axis. Copies to the
+    kernels, the LM's layers stacked along their leading axes. Copies to the
     host, each weight transposed where it lies (on the card, a fraction of
     a transpose on the host's cores); bf16, which numpy lacks, widens to
     fp32."""
@@ -119,7 +136,10 @@ def to_jax_flat(tensors) -> dict:
         else:
             layers.setdefault(key, {})[i] = arr
     for key, per_layer in layers.items():
-        out[key] = np.stack([per_layer[i] for i in range(len(per_layer))])
+        idx = sorted(per_layer)   # row-major over the leading axes
+        lead = tuple(n + 1 for n in map(max, zip(*idx)))
+        arr = np.stack([per_layer[i] for i in idx])
+        out[key] = arr.reshape(lead + arr.shape[1:])
     return out
 
 
@@ -147,8 +167,10 @@ def from_jax_flat(flat) -> dict:
             leaf, arr = "weight", np.swapaxes(arr, -1, -2)
         name = ".".join([*path, leaf])
         if path[:1] and path[0] in STACKS and not (len(path) > 1 and path[1].isdigit()):
-            out.update({f"{path[0]}.{i}.{name.partition('.')[2]}":
-                        torch.from_numpy(np.ascontiguousarray(a)) for i, a in enumerate(arr)})
+            axes, rest = STACKS[path[0]], name.partition(".")[2]
+            out.update({f"{path[0]}.{'.'.join(map(str, i))}.{rest}":
+                        torch.from_numpy(np.ascontiguousarray(arr[i]))
+                        for i in np.ndindex(arr.shape[:axes])})
         else:
             out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

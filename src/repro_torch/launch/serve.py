@@ -11,7 +11,8 @@ up front). It serves on ``cuda`` unless ``--device cpu`` is given, and
 raises where there is no CUDA device rather than falling back to the CPU.
 The weights are random, drawn on that device from ``--seed`` (every
 registered LM: ``--arch qwen2_1_5b``, ``phi3_mini_3_8b``, ``flare_lm``,
-``minicpm3_4b``, ``deepseek_v2_lite_16b``); ``--smoke`` serves the reduced
+``minicpm3_4b``, ``deepseek_v2_lite_16b``, ``rwkv6_3b``, ``zamba2_7b``);
+``--smoke`` serves the reduced
 config of the same family. Prints the generated tokens, tok/s, latency
 percentiles, the resolved decode backend and, for the paged pool
 (``--pool-tokens``), the pool's and the prefix cache's stats;

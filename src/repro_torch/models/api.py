@@ -2,8 +2,9 @@
 and for the LMs prefill / decode_step / init_caches / prefill_into.
 
 Counterpart of ``repro/models/api.py`` for the PDE family, ``flare_lm``,
-the gqa and MLA decoders (``dense``, e.g. qwen2, minicpm3) and the MLA + MoE
-decoder (``moe``, deepseek-v2-lite):
+the gqa and MLA decoders (``dense``, e.g. qwen2, minicpm3), the MLA + MoE
+decoder (``moe``, deepseek-v2-lite), RWKV-6 (``ssm``, rwkv6-3b) and the
+Mamba2 + shared-attention hybrid (``hybrid``, zamba2-7b):
 
     m = get_model(cfg, device="cuda")   # plans resolved here, once, for the device
     net = m.init(seed)                  # the model's modules on that device (the LMs:
@@ -13,7 +14,7 @@ decoder (``moe``, deepseek-v2-lite):
     loss = m.loss(net, batch)           # differentiable, under m.plans["train"]
                                         # (PDE: surrogate_loss; the LMs: batch
                                         # {"tokens", "labels"})
-    # the LMs (flare_lm, dense, moe) only:
+    # the LMs (flare_lm, dense, moe, ssm, hybrid) only:
     logits, caches = m.prefill(net, batch, capacity)      # batch may carry "lengths"
     logits, caches = m.decode_step(net, token, caches)    # token [B, 1]
     caches = m.init_caches(batch_size, capacity)          # device="meta" allocates nothing
@@ -50,6 +51,14 @@ where it is ``None``. ``forward`` returns ``(logits [B, S, vocab] fp32,
 aux)``, aux the MoE layers' load-balancing loss; the LMs' ``loss`` is
 ``transformer.lm_loss``, each decoder layer checkpointed as ``cfg.remat``
 says.
+ssm and hybrid: no mixer plan and no ``prefill_suffix`` (a recurrent state
+is a running summary that no range of shared blocks can rebuild, so the
+prefix cache stays off), as in the JAX package; ``loss`` is the plain
+cross-entropy of ``rwkv_lm.rwkv_loss`` / ``zamba.zamba_loss``, and
+``prefill`` / ``decode_step`` run ``rwkv_prefill`` / ``rwkv_decode_step``
+or ``zamba_prefill`` / ``zamba_decode_step`` (the hybrid's attention on
+"auto"; the dense pool, a paged pool's gather route or its kernel route,
+the paged-attention kernel, at decode).
 """
 from __future__ import annotations
 
@@ -105,7 +114,7 @@ def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
     from repro_torch.core.dispatch import MixerPlan, MixerShape
     from repro_torch.core.policy import resolve_policy
 
-    if cfg.family in ("dense", "moe"):   # gqa and mla attention resolve no mixer plan
+    if cfg.family in ("dense", "moe", "ssm", "hybrid"):   # no FLARE mixer: no plan
         return {}, None
     causal = cfg.family == "flare_lm"
     if causal:
@@ -150,9 +159,9 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
     """``policy``: a MixerPolicy, a MixerPlan, or None (the ambient policy),
     resolved here once for ``device`` (default ``"cuda"``) and, for the PDE
     family, ``mesh`` (a DeviceMesh whose token axes split each example)."""
-    if cfg.family not in ("pde", "flare_lm", "dense", "moe"):
+    if cfg.family not in ("pde", "flare_lm", "dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"family {cfg.family!r} is not ported; the port has 'pde', "
-                         "'flare_lm', 'dense' and 'moe'")
+                         "'flare_lm', 'dense', 'moe', 'ssm' and 'hybrid'")
     if cfg.family in ("dense", "moe") and cfg.attn.kind not in ("gqa", "mla"):
         raise ValueError(f"the port's {cfg.family} family has gqa or mla attention, not "
                          f"{cfg.attn.kind!r}")
@@ -172,6 +181,8 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
     plans, train_error = _resolve_plans(cfg, policy, dev, seq_len_hint, mesh)
     if cfg.family in ("flare_lm", "dense", "moe"):
         return _lm(cfg, dev, plans, train_error)
+    if cfg.family in ("ssm", "hybrid"):
+        return _recurrent(cfg, dev)
     from repro_torch.models import pde
 
     def init(seed: int) -> pde.Surrogate:
@@ -232,3 +243,45 @@ def _lm(cfg: ModelConfig, dev: torch.device, plans, train_error) -> Model:
                  prefill_into=make_prefill_into(prefill, init_caches),
                  prefill_suffix=(prefill_suffix if cfg.attn.kind in ("gqa", "mla")
                                  and cfg.attn.sliding_window is None else None))
+
+
+def _recurrent(cfg: ModelConfig, dev: torch.device) -> Model:
+    """The ssm (RWKV-6) and hybrid (Zamba2) families' entry points."""
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv_lm as r
+
+        make, fwd, lossf = r.init_rwkv_lm, r.rwkv_forward, r.rwkv_loss
+        pre, dec = r.rwkv_prefill, r.rwkv_decode_step
+        caches = lambda bs, cap, device: r.init_rwkv_caches(bs, cfg, cap, device=device)
+    else:
+        from repro_torch.models import zamba as z
+
+        make, fwd, lossf = z.init_zamba, z.zamba_forward, z.zamba_loss
+        pre, dec = z.zamba_prefill, z.zamba_decode_step
+        caches = lambda bs, cap, device: z.init_zamba_caches(bs, cfg, cap, device=device)
+
+    def init(seed: int, *, generator: Optional[torch.Generator] = None):
+        """The weights from ``generator`` when given, else from a CPU
+        generator seeded with ``seed``."""
+        gen = generator if generator is not None else torch.Generator().manual_seed(seed)
+        return make(cfg, generator=gen, device=dev)
+
+    def forward(net, batch) -> tuple:
+        with torch.no_grad():
+            logits, aux = fwd(net, batch["tokens"], cfg)
+        return logits[..., : cfg.vocab], aux
+
+    def prefill(net, batch, capacity: int) -> tuple:
+        with torch.no_grad():
+            return pre(net, batch, cfg, capacity)
+
+    def decode_step(net, token: torch.Tensor, c) -> tuple:
+        with torch.no_grad():
+            return dec(net, token, c, cfg)
+
+    def init_caches(batch: int, capacity: int, device=None):
+        return caches(batch, capacity, dev if device is None else device)
+
+    return Model(cfg=cfg, init=init, forward=forward, loss=lambda net, b: lossf(net, b, cfg),
+                 prefill=prefill, decode_step=decode_step, init_caches=init_caches,
+                 prefill_into=make_prefill_into(prefill, init_caches))

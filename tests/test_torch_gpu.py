@@ -22,9 +22,12 @@ computes in fp32 (fp32 queries, any pages; MLA's read at DeepSeek-V2-Lite's
 and MiniCPM3's shapes on the MLA instance too), and at 1e-2 where it rounds the
 weights to bf16 (bf16 queries over bf16 pages); the smoke qwen2's engine
 gives the same greedy tokens through the kernel route as through the
-gather route; the serving engine's decode step, captured as one CUDA graph
-and replayed, gives the eager step's greedy tokens (fp32 compute) for gqa
-(dense, gather, kernel), ``flare_lm`` and the smoke DeepSeek-V2-Lite, its
+gather route, and the smoke Zamba2's kernel route (one read a shared
+invocation) the gather route's and the dense pool's; the serving engine's
+decode step, captured as one CUDA graph and replayed, gives the eager
+step's greedy tokens (fp32 compute) for gqa (dense, gather, kernel),
+``flare_lm``, the smoke DeepSeek-V2-Lite, RWKV-6 (dense) and Zamba2 (dense,
+kernel), its
 replays draw fresh noise and repeat with a seed, and the launch counters
 count each replay. The flash-attention kernel is held against its plain version
 in fp64 at 1e-5 of max |o| in fp32, and against the plain version on the
@@ -676,6 +679,28 @@ def test_qwen2_engine_kernel_route_matches_gather(cuda):
     assert outs["paged"] == outs["gather"]
 
 
+def test_zamba_engine_kernel_route_matches_gather(cuda):
+    """The smoke Zamba2 on the card: the kernel route (one paged launch a
+    shared invocation a decode step, "auto" picking it) gives the gather
+    route's and the dense pool's greedy tokens, fp32 compute."""
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, model, net, reqs = _smoke_serving("zamba2_7b", cuda)
+    outs = {}
+    for route, kw in (("dense", {}), ("gather", dict(decode_backend="gather")),
+                      ("paged", {})):
+        paged = dict(pool_tokens=96, block_size=8) if route != "dense" else {}
+        eng = ServeEngine(model, net, capacity=32, slots=2, **paged, **kw)
+        before = launch_counts()["paged_attention"]
+        outs[route] = _served(eng, reqs)
+        launched = launch_counts()["paged_attention"] - before
+        assert launched == (_paged_reads(cfg) * eng.stats["decode_steps"] if route == "paged"
+                            else 0)
+        if route != "dense":
+            eng.check_invariants()
+    assert outs["paged"] == outs["gather"] == outs["dense"]
+
+
 # the serving engine's decode step captured as one CUDA graph: (arch, engine kw)
 GRAPH_ROUTES = {"gqa-dense": ("qwen2_1_5b", {}),
                 "gqa-gather": ("qwen2_1_5b", dict(pool_tokens=96, block_size=8,
@@ -684,7 +709,19 @@ GRAPH_ROUTES = {"gqa-dense": ("qwen2_1_5b", {}),
                                                   decode_backend="paged")),
                 "flare_lm": ("flare_lm", {}),
                 "deepseek-kernel": ("deepseek_v2_lite_16b", dict(pool_tokens=96, block_size=8,
-                                                                 decode_backend="paged"))}
+                                                                 decode_backend="paged")),
+                "rwkv-dense": ("rwkv6_3b", {}),
+                "zamba-dense": ("zamba2_7b", {}),
+                "zamba-kernel": ("zamba2_7b", dict(pool_tokens=96, block_size=8,
+                                                   decode_backend="paged"))}
+
+
+def _paged_reads(cfg) -> int:
+    """Paged-kernel reads a decode step on the kernel route: one a layer,
+    one a shared-attention invocation for the hybrid."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    return cfg.num_layers
 
 
 def _smoke_serving(arch, device, n=5, seed=0):
@@ -725,7 +762,7 @@ def test_engine_graph_replay_matches_eager(cuda, route):
     got = _served(graph, reqs)
     counts = launch_counts()
     assert graph.stats["decode_compiles"] == 1
-    per_step = cfg.num_layers if kw.get("decode_backend") == "paged" else 0
+    per_step = _paged_reads(cfg) if kw.get("decode_backend") == "paged" else 0
     assert counts["paged_attention"] == per_step * graph.stats["decode_steps"]
     eager = ServeEngine(model, net, capacity=32, slots=2, cuda_graph=False, **kw)
     assert got == _served(eager, reqs)
