@@ -7,8 +7,11 @@ with the prefix cache), the MLA models DeepSeek-V2-Lite (MLA + MoE) and
 MiniCPM3-4B served through the paged kernel's MLA instance, the dense
 family's prefill (Qwen2-1.5B, Phi-3-mini) through the flash-attention
 kernels (bf16 on the tensor cores, fp32 on the TF32 tensor cores), training
-flare_lm and Qwen2-1.5B at full size, and RWKV-6 3B and Zamba2-7B served at
-full size (Zamba2's shared attention through the paged and flash kernels).
+flare_lm and Qwen2-1.5B at full size, RWKV-6 3B and Zamba2-7B served at
+full size (Zamba2's shared attention through the paged and flash kernels),
+and the encoder-decoder SeamlessM4T-large-v2 prefilled and decoded at full
+size with its attention encoder and its FLARE encoder (the fused FLARE
+kernels in bf16 and fp32, its three attentions through the flash kernels).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only deepseek_v2_lite_16b   # build, device lines, one phase
@@ -16,7 +19,8 @@ full size (Zamba2's shared attention through the paged and flash kernels).
 Run from the root of a checkout. ``--only`` runs the build, the device
 lines and one phase from its own set-up (``paged``, ``flash``, ``spectral``,
 ``tune``, ``lm``, ``phi3``, ``deepseek_v2_lite_16b``, ``minicpm3_4b``,
-``rwkv6_3b``, ``zamba2_7b``, ``pde_baselines``), then the card's line and ``{"ok": true, "only": ...}``;
+``rwkv6_3b``, ``zamba2_7b``, ``seamless_m4t_large_v2``, ``pde_baselines``), then the card's line
+and ``{"ok": true, "only": ...}``;
 it prints no kernels line. It imports only ``repro_torch`` (from
 ``src/``), never JAX or the JAX package. Phases, each of which raises on
 failure so the script exits non-zero:
@@ -391,6 +395,35 @@ failure so the script exits non-zero:
    through the dense pool, the gather route and the kernel route by graph
    replay (13 paged launches a decode step asserted), greedy tokens equal,
    and the kernel route against its eager oracle;
+16c. ``seamless-m4t-large-v2`` (``seamless_phase``): the encoder-decoder
+   at full width and depth, drawn on the card, the attention encoder
+   (24 + 24 layers, 2,035,232,768 parameters asserted) and then the FLARE
+   encoder (2,217,881,600; infer plan ``packed``), each freed before the
+   next. B=2 sources of 4,096 standard normal frames (the stubbed speech
+   frontend) and a 128-token target prefix (capacity 160). The bf16
+   prefill on the kernel route (``encdec_prefill(impl="pallas")`` with the
+   model's plan; a counted window: 72 tensor-core flash launches for the
+   attention encoder, 24 per attention; 24 fused FLARE forwards and 48
+   flash launches for the FLARE encoder; layer 0's flash calls captured
+   from it), each of layer 0's flash calls (the encoder's at 4,096/4,096
+   without a mask, the decoder's causal 128/128, the cross-attention's
+   128/4,096) held as in phase 13 (a lost 64-key tile at Skv/2 rejected)
+   and timed beside its bound, plain version and SDPA; the FLARE kernels
+   (encode, decode, fused forward) on encoder layer 0's own q, k, v (H=16,
+   M=256, N=4,096, D=64) in bf16 and fp32 against fp64 (a lost 256-token
+   or 64-latent tile rejected) and timed; a profiler breakdown (``route``
+   lines: ``flash_tc_kernel``, and ``encode_tc_kernel`` /
+   ``decode_tc_kernel`` for FLARE); the plain route (``chunked``, the
+   ``sdpa`` policy; no launch asserted); the bf16 last-token logits within
+   5e-2 of max |logit| of the plain route's (or, where the network
+   amplifies rounding past that, the encoder memory after layer 0 and
+   after the encoder within 2e-2); 32 greedy decode steps (eager ms a
+   step, no launch asserted) and a profiled step; the FLARE encoder under
+   the ``pallas`` policy (24 encodes, 24 decodes, 48 flash launches); then
+   in fp32 compute both routes (72, or 24 + 48, launches on the fp32
+   route, ``flash_tf32_kernel``), the logits within 1e-3, a control (layer
+   0's encoder mixer output zeroed on the last 1,024 frames) that must
+   exceed it, and 32 greedy tokens equal on both routes;
 16b. serving by graph replay, in every serving phase above (11, 12, 12b,
    14, 15, 16, 16a, 16b'): each engine runs ``ServeEngine.warmup`` first (its prefill
    buckets, then the decode step captured as one CUDA graph), and must
@@ -411,7 +444,8 @@ failure so the script exits non-zero:
    at full size in a process of its own must exit 0 with "0 while serving"
    and "host syncs/step: 0.0". A ``phase seconds`` line closes the run;
 17. one JSON line of per-kernel numbers (12 kernels: the wgmma flash kernel
-   is a row of its own; the paged kernel's row also carries its MLA
+   is a row of its own; the flash rows and the FLARE forward's rows (1-3)
+   carry their seamless-m4t records under ``seamless_m4t``; the paged kernel's row also carries its MLA
    instances' reads under ``mla_read``: each model's bf16-pages read
    (``paged_mla_tc_kernel``) with its fp32-pages read under ``fp32_pages``
    (``paged_mla_tf32_kernel``), the ``flash_attention`` row (the
@@ -424,6 +458,7 @@ failure so the script exits non-zero:
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -431,6 +466,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -634,6 +670,20 @@ RWKV_SIZE, ZAMBA_SIZE = (32, 3_099_863_040), (81, 5_829_438_784)
 RECURRENT_REQUESTS, RECURRENT_PROMPTS, RECURRENT_NEW = 8, (512, 2048), 32
 WKV_T, WKV_TOL = 1024, 1e-5
 ZAMBA_PREFILL_T = 4096
+# the encoder-decoder seamless-m4t-large-v2 at full width and depth (random
+# weights drawn on the card), each encoder variant's (layers, encoder
+# layers, parameters); B=2 source sequences of SEAMLESS_SRC frames (standard
+# normal embeddings, the stubbed speech frontend), a SEAMLESS_T-token
+# target prefix in a cache of SEAMLESS_CAP rows, SEAMLESS_NEW greedy decode
+# steps. The fp32 logits of the kernel route against the plain route at
+# LM_TOL; the control zeroes layer 0's encoder mixer output on the last
+# SEAMLESS_LOST source frames. bf16 logits at LM_TOL's 5e-2 where they
+# hold, else the encoder memory after layer 0 and after the encoder at
+# SEAMLESS_MEM_TOL of max |plain|. The FLARE decode's lost-tile control
+# leaves out FLARE_LATENT_TILE latents (the encode's: TILE tokens)
+SEAMLESS_SIZES = {"attn": (24, 24, 2_035_232_768), "flare": (24, 24, 2_217_881_600)}
+SEAMLESS_B, SEAMLESS_SRC, SEAMLESS_T, SEAMLESS_CAP, SEAMLESS_NEW = 2, 4096, 128, 160, 32
+SEAMLESS_LOST, SEAMLESS_MEM_TOL, FLARE_LATENT_TILE = 1024, 2e-2, 64
 # Algorithm 1 (core/spectral.py) on block 0's latent queries and keys at
 # pde_40k: the fp32 eigenvalues against fp64's within SPECTRAL_TOL of the
 # largest, which the fp64 spectrum of the keys without their last
@@ -4345,13 +4395,15 @@ def attention_operands(net, cfg, tokens):
         return attention._qkv(layer.attn, x, cfg.attn, positions)
 
 
-def check_flash_main(checks: Checks, label: str, ops16, scale: float) -> None:
+def check_flash_main(checks: Checks, label: str, ops16, scale: float, *,
+                     causal: bool = True) -> None:
     """The flash kernels on a model's attention operands (layer 0's, or a
     shared block's invocation's), as its prefill gives them (the KV heads
-    unexpanded): widened to fp32 (the TF32 kernel's route)
+    unexpanded), causal or not, Sq and Skv equal or not: widened to fp32
+    (the TF32 kernel's route)
     against the plain version in fp64, a head and 4,096 queries at a time,
     relative to max |plain|; the limit must reject the fp64 plain version
-    with the 64-key tile at T/2 left out. bf16, as the model runs it (the
+    with the 64-key tile at Skv/2 left out. bf16, as the model runs it (the
     tensor cores: the route is asserted), against the plain version on the
     same operands, and beyond its output rounding against the fp64 plain
     version, where the same lost tile must be rejected too."""
@@ -4364,15 +4416,17 @@ def check_flash_main(checks: Checks, label: str, ops16, scale: float) -> None:
 
     q, k, v = ops16
     b, h, n, d = q.shape
-    kw = dict(scale=scale, causal=True, window=None)
-    print(f"kernels flash {label} (B={b} H={h} Hkv={k.shape[1]} T={n} D={d}, q/k/v "
-          f"strides {q.stride()}/{k.stride()}; fp32 held against the plain version in fp64):",
-          flush=True)
+    skv = k.shape[2]
+    kw = dict(scale=scale, causal=causal, window=None)
+    lengths = f"T={n}" if skv == n else f"Sq={n} Skv={skv}"
+    print(f"kernels flash {label} (B={b} H={h} Hkv={k.shape[1]} {lengths} D={d}"
+          f"{'' if causal else ', no mask'}, q/k/v strides {q.stride()}/{k.stride()}; fp32 "
+          "held against the plain version in fp64):", flush=True)
     ops32 = [t.float() for t in ops16]
     got = flash_attention(*ops32, **kw)
     wide = [t.double() for t in ops16]
     want = flash_by_block(flash_attention_ref, *wide, chunk=FLASH_QCHUNK, **kw)
-    t0 = n // 2 // KV_TILE * KV_TILE
+    t0 = skv // 2 // KV_TILE * KV_TILE
     drop = {f"KV tile {t0}": flash_by_block(functools.partial(flash_dropped, t0=t0), *wide,
                                             chunk=FLASH_QCHUNK, **kw)}
     del wide
@@ -4409,9 +4463,9 @@ def visible_pairs(sq: int, skv: int, *, causal: bool, window) -> int:
 
 
 
-def sdpa_ms(q, k, v, scale: float, reps: int):
+def sdpa_ms(q, k, v, scale: float, reps: int, *, causal: bool = True):
     """``F.scaled_dot_product_attention`` (the yardstick; the port never calls
-    it), causal, on K and V expanded to q's heads beforehand (not timed);
+    it), causal or not, on K and V expanded to q's heads beforehand (not timed);
     any backend but the math one, which would materialise every score (fp32:
     the memory-efficient one, TF32 off). None where they all refuse the call
     (bf16 at D % 8 != 0)."""
@@ -4421,7 +4475,7 @@ def sdpa_ms(q, k, v, scale: float, reps: int):
 
     groups = q.shape[1] // k.shape[1]
     kx, vx = (t.repeat_interleave(groups, 1) for t in (k, v))
-    call = lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True, scale=scale)
+    call = lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=causal, scale=scale)
     backends = [SDPBackend.EFFICIENT_ATTENTION]
     if q.dtype == torch.bfloat16:
         backends += [SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION]
@@ -5740,9 +5794,9 @@ def zamba_attention_operands(net, cfg, tokens):
         return rope.apply_rope(q, ang), rope.apply_rope(k, ang), v
 
 
-def time_flash_at(label: str, ops16, scale: float) -> dict:
-    """CUDA-event times of the flash kernels on ``ops16`` (causal): the
-    tensor-core kernel on the bf16 operands and the fp32 route on them
+def time_flash_at(label: str, ops16, scale: float, *, causal: bool = True) -> dict:
+    """CUDA-event times of the flash kernels on ``ops16`` (causal or not):
+    the tensor-core kernel on the bf16 operands and the fp32 route on them
     widened, each beside its bound (4 * D FLOP a kept pair over the bf16 or
     fp32 peak, or q, k, v and o once over 3.35 TB/s), its plain version (a
     head at a time) and SDPA."""
@@ -5750,9 +5804,10 @@ def time_flash_at(label: str, ops16, scale: float) -> dict:
     from repro_torch.kernels.ref import flash_attention_ref
 
     b, h, n, d = ops16[0].shape
-    kw = dict(scale=scale, causal=True, window=None)
-    flops = 4 * d * b * h * visible_pairs(n, n, causal=True, window=None)
-    elems = b * d * n * 2 * (h + ops16[1].shape[1])
+    hkv, skv = ops16[1].shape[1], ops16[1].shape[2]
+    kw = dict(scale=scale, causal=causal, window=None)
+    flops = 4 * d * b * h * visible_pairs(n, skv, causal=causal, window=None)
+    elems = b * d * (2 * h * n + 2 * hkv * skv)     # q and o, k and v, once each
     rows = {}
     for name, ops, peak in (("flash_attention_tc", ops16, PEAK_BF16),
                             ("flash_attention", [t.float() for t in ops16], PEAK_FP32)):
@@ -5760,9 +5815,11 @@ def time_flash_at(label: str, ops16, scale: float) -> dict:
         rows[name] = dict(
             ms=cuda_ms(lambda: flash_attention(*ops, **kw), reps=5),
             plain_ms=cuda_ms(lambda: flash_by_block(flash_attention_ref, *ops, **kw), reps=1),
-            library_ms=sdpa_ms(*ops, scale, reps=5), bound_ms=max(t_ops, t_bytes),
+            library_ms=sdpa_ms(*ops, scale, reps=5, causal=causal),
+            bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
-        print(f"time {name} {label} (B={b} H={h} Hkv={ops16[1].shape[1]} T={n} D={d}, "
+        lengths = f"T={n}" if skv == n else f"Sq={n} Skv={skv}"
+        print(f"time {name} {label} (B={b} H={h} Hkv={hkv} {lengths} D={d}, "
               f"{ops[0].dtype}): {rows[name]}", flush=True)
     return rows
 
@@ -5950,6 +6007,471 @@ def zamba_phase(checks: Checks, device) -> dict:
     return {"paged_attention": paged, **flash, "serve": serve}
 
 
+def init_seamless(mixer: str):
+    """``get_model(seamless_m4t_large_v2)`` with the ``mixer`` encoder at full
+    width and depth, its weights drawn on the card from a CUDA generator
+    seeded with SEED: (cfg, model, net); raises unless its (layers, encoder
+    layers, parameters) are SEAMLESS_SIZES[mixer]."""
+    import torch
+
+    from repro_torch.configs.seamless_m4t_large_v2 import config
+    from repro_torch.models.api import get_model
+
+    cfg = config(mixer)
+    model = get_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = card_init(model)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    n_enc = sum(p.numel() for p in net.encoder.parameters())
+    plans = {k: p.describe() for k, p in model.plans.items()}
+    print(f"init {cfg.name}: {cfg.num_encoder_layers} encoder layers ({mixer}), "
+          f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, {cfg.attn.num_heads} heads "
+          f"of {cfg.attn.head_dim}, vocab {cfg.vocab}: {n_params} parameters ({n_enc} in the "
+          f"encoder; {n_params * 4 / 2**30:.2f} GiB fp32) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; plans {plans}", flush=True)
+    if (cfg.num_layers, cfg.num_encoder_layers, n_params) != SEAMLESS_SIZES[mixer]:
+        raise AssertionError(f"{cfg.name} is not at full size: {cfg.num_layers} + "
+                             f"{cfg.num_encoder_layers} layers, {n_params} parameters")
+    if mixer == "flare" and model.plans["infer"].backend != "packed":
+        raise AssertionError(f"{cfg.name}: infer plan {plans['infer']}, not the fused kernel")
+    return cfg, model, net
+
+
+def seamless_window(net, cfg, batch, impl: str, plan, label: str, keep=()) -> dict:
+    """One counted window: the launch counters read just before and just
+    after one ``encdec_prefill`` of ``batch`` (``impl`` for the three
+    attentions, ``plan`` for a FLARE encoder); ms and peak GiB. The flash
+    calls whose index is in ``keep`` have their (q, k, v, output) copied
+    into the result's ``calls``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import encdec_prefill
+
+    kernel, calls, seen = ops.flash_kernel, {}, [0]
+
+    def capturing(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        if seen[0] in keep:
+            calls[seen[0]] = tuple(t.clone() for t in (q, k, v, out))
+        seen[0] += 1
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.count_snapshot()
+    ops.flash_kernel = capturing
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            logits, caches = encdec_prefill(net, batch, cfg, SEAMLESS_CAP, impl=impl, plan=plan)
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_kernel = kernel
+    ms = (time.perf_counter() - t0) * 1e3
+    delta = {fn.__name__ + (f"[{route}]" if route else ""): n
+             for (fn, route), n in ops.count_delta(before, ops.count_snapshot()).items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    b, s, _ = batch["embeds"].shape
+    print(f"path {cfg.name} prefill {label} B={b} S_src={s} T={batch['tokens'].shape[1]} "
+          f"{cfg.compute_dtype}: {ms:.3f} ms (host clock, first call), peak {peak:.2f} GiB; "
+          f"launches {delta}", flush=True)
+    if not bool(logits.isfinite().all()) or logits.shape != (b, cfg.vocab):
+        raise AssertionError(f"{cfg.name} prefill {label}: logits {tuple(logits.shape)}, "
+                             "not finite or not [B, vocab]")
+    return dict(logits=logits, caches=caches, ms=ms, peak=peak, launches=delta, calls=calls)
+
+
+def expect_launches(label: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def seamless_greedy(model, net, logits, caches, label: str, *, profile: bool = False) -> dict:
+    """SEAMLESS_NEW greedy ``decode_step``s after a prefill: the tokens (the
+    prefill's argmax and one a step), eager ms a step, and the launches of
+    the steps, which must be none (the decode step runs no port kernel).
+    With ``profile``, one more step from the prefill's caches (a copy) is
+    traced on the device after the timed ones."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    tok = logits.argmax(-1)[:, None]
+    toks = [tok]
+    start = (tok, caches._replace(self_caches=[c._replace(k=c.k.clone(), v=c.v.clone())
+                                               for c in caches.self_caches])) if profile else None
+    torch.cuda.synchronize()
+    before = ops.count_snapshot()
+    t0 = time.perf_counter()
+    for _ in range(SEAMLESS_NEW):
+        logits, caches = model.decode_step(net, tok, caches)
+        tok = logits.argmax(-1)[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / SEAMLESS_NEW
+    delta = ops.count_delta(before, ops.count_snapshot())
+    if delta:
+        raise AssertionError(f"{label} decode: launched {delta}; the decode step runs no kernel")
+    if not bool(logits.isfinite().all()):
+        raise AssertionError(f"{label} decode: logits not finite")
+    if profile:
+        breakdown(lambda: model.decode_step(net, *start), f"{label} decode step (eager)")
+    return dict(tokens=torch.cat(toks, dim=1).tolist(), ms=ms)
+
+
+def seamless_flare_operands(net, cfg, embeds, dtype):
+    """Encoder layer 0's FLARE q [H, M, D] and k, v [B, H, N, D] (strided
+    split-head views) for ``embeds`` in ``dtype`` compute, as ``encode``
+    gives them to the mixer."""
+    import torch
+
+    from repro_torch.core.flare import _split_heads
+    from repro_torch.models.transformer import _norm
+    from repro_torch.nn.modules import resmlp
+
+    layer = net.encoder[0]
+    fl = layer.attn
+    h = fl.q_latent.shape[0]
+    with torch.no_grad():
+        xin = _norm(cfg, layer.norm1, embeds.to(dtype))
+        return (fl.q_latent.detach().to(dtype), _split_heads(resmlp(fl.k_proj, xin), h),
+                _split_heads(resmlp(fl.v_proj, xin), h))
+
+
+def check_flare_seamless(checks: Checks, label: str, q, k, v) -> None:
+    """The FLARE kernels (encode, decode, fused forward) on encoder layer 0's
+    operands in their dtype, every batch element and head, against the
+    plain version in fp64 on the same values (fp32 1e-5, bf16 1e-2 of max
+    |plain|; the plain version on the operands themselves printed beside);
+    each must reject the fp64 plain version with TILE tokens (encode,
+    fused) or FLARE_LATENT_TILE latents (decode) left out. fp32 errors
+    count into the rows' ``max_abs_err``, bf16 into records of their own."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flare import flare_decode, flare_encode
+    from repro_torch.kernels.flare_packed import flare_fused_fwd
+
+    dtype = k.dtype
+    key = str(dtype).removeprefix("torch.")
+    b, h, n, d = k.shape
+    print(f"kernels flare {label} (encoder layer 0's operands, B={b} H={h} M={q.shape[1]} "
+          f"N={n} D={d} {key}, k/v strides {k.stride()}; held against the plain version in "
+          "fp64):", flush=True)
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    lat = FLARE_LATENT_TILE
+    z64 = by_head(ref.flare_encode_ref, q64, k64, v64)
+    z_drop = by_head(lambda qh, kh, vh: ref.flare_encode_ref(qh, kh[:, :, TILE:], vh[:, :, TILE:]),
+                     q64, k64, v64)
+    record = True if dtype == torch.float32 else None
+
+    def hold(name, what, got, want, plain, drop):
+        checks.hold(name, f"{what} {key}", got, want, dtype, atol=None, fp32_plain=plain,
+                    record=record or f"{name} seamless {key}", dropped=drop)
+
+    hold("flare_encode", "z", flare_encode(q, k, v), z64, by_head(ref.flare_encode_ref, q, k, v),
+         {"token tile": z_drop})
+    z_in = z64.to(dtype)   # the decode's input, the same for every version
+    dec64 = by_head(ref.flare_decode_ref, q64, k64, z_in.double())
+    dec_drop = by_head(lambda qh, kh, zh: ref.flare_decode_ref(qh[:, lat:], kh, zh[:, :, lat:]),
+                       q64, k64, z_in.double())
+    hold("flare_decode", "y", flare_decode(q, k, z_in), dec64,
+         by_head(ref.flare_decode_ref, q, k, z_in), {"latent tile": dec_drop})
+    del dec64, dec_drop
+    y, z = flare_fused_fwd(q, k, v)[:2]
+    plain = by_head(ref.flare_fused_fwd_ref, q, k, v)
+    y64 = by_head(ref.flare_decode_ref, q64, k64, z64)
+    y_drop = by_head(ref.flare_decode_ref, q64, k64, z_drop)
+    hold("flare_fused_fwd", "y", y, y64, plain[0], {"token tile": y_drop})
+    hold("flare_fused_fwd", "z", z, z64, plain[1], {"token tile": z_drop})
+    checks.raise_failures(f"FLARE kernels on {label}")
+
+
+def time_flare_seamless(q, k, v) -> dict:
+    """CUDA-event times of the encode, the decode and the fused forward on
+    encoder layer 0's operands, their plain versions (a head at a time) and
+    the SDPA yardstick (one or two ``F.scaled_dot_product_attention``
+    calls), beside the bound: the products (two a kernel, three fused) over
+    the peak of the operands' dtype (bf16 tensor cores; fp32 CUDA cores),
+    or each input read once and each output written once over 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flare import flare_decode, flare_encode
+    from repro_torch.kernels.flare_packed import flare_fused_fwd
+
+    b, h, n, d = k.shape
+    m = q.shape[1]
+    es = k.element_size()
+    peak = PEAK_BF16 if es == 2 else PEAK_FP32
+    z = flare_encode(q, k, v)
+    qb = q.expand(b, h, m, d)
+    sdpa = lambda a, bb, c: F.scaled_dot_product_attention(a, bb, c, scale=1.0)
+    runs = {
+        "flare_encode": (lambda: flare_encode(q, k, v),
+                         lambda: by_head(ref.flare_encode_ref, q, k, v),
+                         lambda: sdpa(qb, k, v)),
+        "flare_decode": (lambda: flare_decode(q, k, z),
+                         lambda: by_head(ref.flare_decode_ref, q, k, z),
+                         lambda: sdpa(k, qb, z)),
+        "flare_fused_fwd": (lambda: flare_fused_fwd(q, k, v),
+                            lambda: by_head(ref.flare_fused_fwd_ref, q, k, v),
+                            lambda: sdpa(k, qb, sdpa(qb, k, v))),
+    }
+    mnd = b * h * m * n * d
+    qkv = es * (h * m * d + 2 * b * h * n * d)
+    work = {   # (FLOP, bytes): each input read once, each output written once
+        "flare_encode": (4 * mnd, qkv + es * b * h * m * d),
+        "flare_decode": (4 * mnd, qkv + es * b * h * m * d),
+        "flare_fused_fwd": (6 * mnd, qkv + es * b * h * (n + m) * d + 4 * b * h * (n + 2 * m)),
+    }
+    stats = {}
+    for name, (kern, plain, lib) in runs.items():
+        flops, nbytes = work[name]
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BW * 1e3
+        stats[name] = dict(ms=cuda_ms(kern, reps=10), plain_ms=cuda_ms(plain, reps=2),
+                           library_ms=cuda_ms(lib, reps=5), bound_ms=max(t_ops, t_bytes),
+                           bound_by="operations" if t_ops >= t_bytes else "bytes")
+        print(f"time {name} seamless encoder layer 0 (B={b} H={h} M={m} N={n} D={d}, "
+              f"{k.dtype}): {stats[name]}", flush=True)
+    return stats
+
+
+@contextlib.contextmanager
+def zero_first_call(module, name: str, rows: slice):
+    """Within the block, the first call of ``module.name`` returns its
+    output with ``rows`` of the token axis zeroed (a lost stretch of
+    frames), the calls after it untouched."""
+    fn, calls = getattr(module, name), [0]
+
+    def lose(*args, **kw):
+        out = fn(*args, **kw)
+        calls[0] += 1
+        if calls[0] == 1:
+            out = out.clone()
+            out[:, rows] = 0
+        return out
+
+    setattr(module, name, lose)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def seamless_variant(checks: Checks, mixer: str, device) -> dict:
+    """One encoder variant at full size: init; the kernels at layer 0's
+    operands; the kernel route's and the plain route's prefill windows in
+    bf16 and fp32 (launches and routes asserted), the logits held, greedy
+    tokens after each fp32 prefill equal; ms, peak GiB. Returns the
+    kernels' records and the windows' launches by kernel row."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.core.policy import MixerPolicy
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_model
+
+    t_var = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, net = init_seamless(mixer)
+    flare = mixer == "flare"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    batch = {"embeds": torch.randn(SEAMLESS_B, SEAMLESS_SRC, cfg.d_model, generator=gen,
+                                   device=device),
+             "tokens": dense_tokens(cfg.vocab, SEAMLESS_B, SEAMLESS_T, SEED + 5, device)}
+    scale = cfg.attn.head_dim ** -0.5
+    plain_model = get_model(cfg, policy=MixerPolicy(backends=("sdpa",)))
+    plan, plain_plan = model.plans.get("infer"), plain_model.plans.get("infer")
+    record, launches = {}, collections.Counter()
+    n_enc, n_dec = cfg.num_encoder_layers, cfg.num_layers
+
+    # bf16, the config's compute dtype: the kernel route's counted window,
+    # layer 0's flash calls captured from it
+    enc_flash = 0 if flare else n_enc
+    first = {"encoder self-attention": 0, "decoder self-attention": enc_flash,
+             "cross-attention": enc_flash + 1}
+    if flare:
+        del first["encoder self-attention"]
+    run = seamless_window(net, cfg, batch, "pallas", plan, "kernel route",
+                          keep=set(first.values()))
+    want = {"flash_attention": enc_flash + 2 * n_dec,
+            "flash_attention[tensor_core]": enc_flash + 2 * n_dec}
+    if flare:
+        want["flare_fused_fwd"] = n_enc
+    expect_launches(f"{cfg.name} bf16 kernel route", run["launches"], want)
+    launches["flash_attention_tc"] += want["flash_attention"]
+    launches["flare_fused_fwd"] += want.get("flare_fused_fwd", 0)
+    for what, i in first.items():
+        q, k, v, _ = run["calls"][i]
+        causal = what == "decoder self-attention"
+        check_flash_main(checks, f"{cfg.name} layer 0 {what}", (q, k, v), scale, causal=causal)
+        if not flare:
+            record[what] = time_flash_at(f"{cfg.name} layer 0 {what}", (q, k, v), scale,
+                                         causal=causal)
+    del run["calls"]
+    if flare:
+        for dtype in (torch.bfloat16, torch.float32):
+            ops_l0 = seamless_flare_operands(net, cfg, batch["embeds"], dtype)
+            check_flare_seamless(checks, f"{cfg.name} {dtype}", *ops_l0)
+            record[str(dtype).removeprefix("torch.")] = time_flare_seamless(*ops_l0)
+            del ops_l0
+    torch.cuda.empty_cache()
+    tc_want = ("flash_tc_kernel",) + (FWD_TC if flare else ())
+    with torch.no_grad():
+        prefill = lambda p, impl, c=cfg: transformer.encdec_prefill(
+            net, batch, c, SEAMLESS_CAP, impl=impl, plan=p)
+        assert_route(breakdown(lambda: prefill(plan, "pallas"),
+                               f"{cfg.name} prefill kernel route bf16"),
+                     f"{cfg.name} prefill kernel route bf16", tc_want,
+                     refuse=("flash_bf16_kernel", "flash_tf32_kernel"))
+        prefill_ms = cuda_ms(lambda: prefill(plan, "pallas"), reps=3)
+        encode_ms = cuda_ms(lambda: transformer.encode(net, batch["embeds"], cfg, impl="pallas",
+                                                       plan=plan), reps=3)
+        plain_ms = cuda_ms(lambda: prefill(plain_plan, "chunked"), reps=3)
+    plain = seamless_window(net, cfg, batch, "chunked", plain_plan, "plain route")
+    expect_launches(f"{cfg.name} bf16 plain route", plain["launches"], {})
+    rel = rel_err(run["logits"], plain["logits"])
+    with torch.no_grad():
+        layer0 = types.SimpleNamespace(encoder=net.encoder[:1], enc_norm=net.enc_norm)
+        mem = {}
+        for depth, sub in (("after layer 0", layer0), ("after the encoder", net)):
+            got = transformer.encode(sub, batch["embeds"], cfg, impl="pallas", plan=plan)
+            ref_mem = transformer.encode(sub, batch["embeds"], cfg, impl="chunked",
+                                         plan=plain_plan)
+            mem[depth] = rel_err(got, ref_mem)
+            del got, ref_mem
+    plain_logits = plain["logits"]
+    print(f"{cfg.name} bf16 kernel route vs plain route: last-token logits rel {rel:.3g} "
+          f"(limit {LM_TOL['bfloat16']:g}); encoder memory rel {mem} (limit "
+          f"{SEAMLESS_MEM_TOL:g} where the logits do not hold)", flush=True)
+    if not rel <= LM_TOL["bfloat16"]:
+        bad = {k: r for k, r in mem.items() if not r <= SEAMLESS_MEM_TOL}
+        print(f"{cfg.name} bf16: the logits differ by {rel / mem['after layer 0']:.3g}x the "
+              "memory's difference after layer 0 (random-weight depth); the memory is held "
+              "instead", flush=True)
+        if bad:
+            raise AssertionError(f"{cfg.name} bf16 kernel vs plain route: memory rel {bad}, "
+                                 f"logits rel {rel:.3g}")
+    eager = seamless_greedy(model, net, run["logits"], run["caches"], f"{cfg.name} bf16",
+                            profile=True)
+    torch.cuda.synchronize()
+    figures = dict(prefill_ms=prefill_ms, prefill_plain_ms=plain_ms, encode_ms=encode_ms,
+                   encoder_share=encode_ms / prefill_ms, decode_ms_per_step=eager["ms"],
+                   peak_gib=run["peak"], bf16_logits_rel=rel, bf16_memory_rel=mem)
+    del run, plain, eager
+    torch.cuda.empty_cache()
+
+    if flare:   # rows 1-2: the same model under the pallas policy (encode and decode kernels)
+        pallas = get_model(cfg, policy=MixerPolicy(backends=("pallas",)))
+        prun = seamless_window(net, cfg, batch, "pallas", pallas.plans["infer"],
+                               "kernel route, pallas policy")
+        want = {"flare_encode": n_enc, "flare_decode": n_enc, "flash_attention": 2 * n_dec,
+                "flash_attention[tensor_core]": 2 * n_dec}
+        expect_launches(f"{cfg.name} bf16 pallas policy", prun["launches"], want)
+        for name in ("flare_encode", "flare_decode"):
+            launches[name] += n_enc
+        launches["flash_attention_tc"] += 2 * n_dec
+        with torch.no_grad():
+            assert_route(breakdown(lambda: prefill(pallas.plans["infer"], "pallas"),
+                                   f"{cfg.name} prefill pallas policy bf16"),
+                         f"{cfg.name} prefill pallas policy bf16", tc_want)
+        print(f"{cfg.name} bf16 pallas policy vs plain route: last-token logits rel "
+              f"{rel_err(prun['logits'], plain_logits):.3g}",
+              flush=True)
+        del prun
+        torch.cuda.empty_cache()
+
+    # fp32 compute: the kernel route's window (the TF32 flash kernel and the
+    # fp32 FLARE kernels) against the plain route, a control, greedy tokens
+    cfg32 = replace(cfg, compute_dtype="float32")
+    model32 = get_model(cfg32)
+    plain32 = get_model(cfg32, policy=MixerPolicy(backends=("sdpa",)))
+    plan32, plain_plan32 = model32.plans.get("infer"), plain32.plans.get("infer")
+    run32 = seamless_window(net, cfg32, batch, "pallas", plan32, "kernel route")
+    want = {"flash_attention": enc_flash + 2 * n_dec, "flash_attention[fp32]": enc_flash + 2 * n_dec}
+    if flare:
+        want["flare_fused_fwd"] = n_enc
+    expect_launches(f"{cfg.name} fp32 kernel route", run32["launches"], want)
+    launches["flash_attention"] += want["flash_attention"]
+    launches["flare_fused_fwd"] += want.get("flare_fused_fwd", 0)
+    with torch.no_grad():
+        assert_route(breakdown(lambda: prefill(plan32, "pallas", cfg32),
+                               f"{cfg.name} prefill kernel route fp32"),
+                     f"{cfg.name} prefill kernel route fp32",
+                     ("flash_tf32_kernel",) + (FWD_TC if flare else ()),
+                     refuse=("flash_tc_kernel", "flash_bf16_kernel"))
+    plain_run32 = seamless_window(net, cfg32, batch, "chunked", plain_plan32, "plain route")
+    expect_launches(f"{cfg.name} fp32 plain route", plain_run32["launches"], {})
+    held(f"{cfg.name} prefill kernel route vs plain route fp32 (last-token logits)",
+         run32["logits"], plain_run32["logits"], LM_TOL["float32"])
+    lost = slice(SEAMLESS_SRC - SEAMLESS_LOST, SEAMLESS_SRC)
+    with zero_first_call(transformer, "flare_layer" if flare else "gqa_forward", lost):
+        control = seamless_window(net, cfg32, batch, "chunked", plain_plan32,
+                                  f"plain route, layer 0's mixer output zeroed on the last "
+                                  f"{SEAMLESS_LOST} frames")
+    rel_control = rel_err(control["logits"], plain_run32["logits"])
+    print(f"{cfg.name} fp32 control: rel {rel_control:.3g} (must exceed "
+          f"{LM_TOL['float32']:g})", flush=True)
+    if not rel_control > LM_TOL["float32"]:
+        raise AssertionError(f"{cfg.name}: the fp32 limit {LM_TOL['float32']} would pass a "
+                             f"prefill that lost {SEAMLESS_LOST} frames (rel {rel_control:.3g})")
+    del control
+    toks = {}
+    for label, r in (("kernel route", run32), ("plain route", plain_run32)):
+        toks[label] = seamless_greedy(model32, net, r["logits"], r["caches"],
+                                      f"{cfg.name} fp32 {label}")
+    div = first_divergence(toks["kernel route"]["tokens"], toks["plain route"]["tokens"])
+    if div is not None:
+        raise AssertionError(f"{cfg.name} fp32: greedy tokens differ between the routes at "
+                             f"sequence {div[0]}, token {div[1]}")
+    print(f"{cfg.name} fp32: the {SEAMLESS_B} x {SEAMLESS_NEW + 1} greedy tokens are equal on "
+          f"the kernel and the plain route; decode {toks['kernel route']['ms']:.3f} ms a step "
+          "(eager, no kernel launched)", flush=True)
+    figures.update(prefill_fp32_ms=run32["ms"], prefill_plain_fp32_ms=plain_run32["ms"],
+                   decode_fp32_ms_per_step=toks["kernel route"]["ms"],
+                   seconds=time.perf_counter() - t_var)
+    print(f"seamless {cfg.name}: {figures}", flush=True)
+    del run32, plain_run32, toks, model, model32, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(record=record, launches=launches, figures=figures)
+
+
+def seamless_phase(checks: Checks, device) -> dict:
+    """seamless-m4t-large-v2 at full width and depth, the attention encoder
+    and then the FLARE encoder (each freed before the next). Returns, by
+    kernel row, this phase's records (``seamless_m4t``: times at its shapes
+    and the counted windows' launches)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    attn = seamless_variant(checks, "attn", device)
+    flare = seamless_variant(checks, "flare", device)
+    launches = attn["launches"] + flare["launches"]
+    out = {}
+    for name in ("flash_attention_tc", "flash_attention"):
+        out[name] = {what: rows[name] for what, rows in attn["record"].items()}
+    for name in ("flare_encode", "flare_decode", "flare_fused_fwd"):
+        out[name] = {dt: rows[name] for dt, rows in flare["record"].items()}
+        for key in ("bfloat16",):
+            out[name][key]["max_abs_err"] = checks.max_abs[f"{name} seamless {key}"]
+    for name in out:
+        out[name]["launches"] = launches[name]
+    out["figures"] = {"attn": attn["figures"], "flare": flare["figures"]}
+    # the phases after this one hold their peaks against limits: nothing of
+    # the two models may stay allocated
+    print(f"seamless phase: {time.perf_counter() - t_phase:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated", flush=True)
+    return out
+
+
 def only_phases() -> dict:
     """The phases ``--only`` runs alone (after the build and the device
     lines), each from its own set-up: {name: fn(checks, device)}."""
@@ -5978,6 +6500,7 @@ def only_phases() -> dict:
         phases[arch] = lambda checks, device, arch=arch, params=params: mla_phase(
             checks, arch, params, device)
     phases["rwkv6_3b"], phases["zamba2_7b"] = rwkv_phase, zamba_phase
+    phases["seamless_m4t_large_v2"] = seamless_phase
     return phases
 
 
@@ -6228,6 +6751,15 @@ def main(argv=None) -> int:
         stats[name]["launches"] += zamba[name].get("launches", 0)
         stats[name]["zamba_d112"] = zamba[name]
     mark("zamba2_7b")
+    # the encoder-decoder, both encoder variants: its kernel-route windows'
+    # launches (the flash kernel on both routes, the fused FLARE forward, and
+    # the encode and decode under the pallas policy)
+    seamless = seamless_phase(checks, device)
+    print(f"seamless figures: {seamless.pop('figures')}", flush=True)
+    for name, rec in seamless.items():
+        stats[name]["launches"] += rec["launches"]
+        stats[name]["seamless_m4t"] = rec
+    mark("seamless_m4t_large_v2")
     # the Table-1 mixers at flare_pde's width. The FLARE row's train steps
     # are a counted window of the fused forward and backward
     for name, n in pde_baselines(checks, cfg, device).items():
@@ -6255,6 +6787,10 @@ def main(argv=None) -> int:
     # the paged and both flash rows carry their reads at Zamba2's D=112
     for name in ("paged_attention", "flash_attention_tc", "flash_attention"):
         rows[list(REPLACES).index(name)]["zamba_d112"] = stats[name]["zamba_d112"]
+    # the flash rows and the FLARE forward's rows their seamless-m4t records
+    for name in ("flash_attention_tc", "flash_attention", "flare_encode", "flare_decode",
+                 "flare_fused_fwd"):
+        rows[list(REPLACES).index(name)]["seamless_m4t"] = stats[name]["seamless_m4t"]
     print(f"phase seconds: {marks}", flush=True)
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))

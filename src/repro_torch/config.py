@@ -4,15 +4,17 @@ The port's own copy of the fields of ``repro.config.ModelConfig``,
 ``AttnConfig``, ``MLAConfig``, ``MoEConfig`` and ``SSMConfig`` that the
 PDE family, the causal FLARE LM (``flare_lm``), the gqa and MLA decoders
 (the ``dense`` family, e.g. qwen2 and minicpm3), the MoE decoder (the
-``moe`` family, deepseek-v2-lite), RWKV-6 (the ``ssm`` family) and the
-Mamba2 + shared-attention hybrid (the ``hybrid`` family, zamba2) read, of
-their shapes, and of the ``TrainConfig`` fields the trainer reads (the
-mesh's gradient compression is not ported). The encoder-decoder fields are
-not ported. ``param_dtype`` and
+``moe`` family, deepseek-v2-lite), RWKV-6 (the ``ssm`` family), the
+Mamba2 + shared-attention hybrid (the ``hybrid`` family, zamba2) and the
+encoder-decoder (the ``encdec`` / ``audio`` family, seamless-m4t-large-v2,
+whose encoder is attention or FLARE) read, of their shapes, and of the
+``TrainConfig`` fields the trainer reads (the mesh's gradient compression
+is not ported). ``param_dtype`` and
 ``compute_dtype`` mean what they mean in the JAX package: parameters are
 stored in the first and cast to the second at use. The PDE family computes
 in fp32 whatever ``compute_dtype`` says, as ``models/api.py`` of the JAX
-package forces; the LMs compute in ``compute_dtype`` (bf16 by default).
+package forces; the LMs and the encoder-decoder (its FLARE encoder too)
+compute in ``compute_dtype`` (bf16 by default).
 """
 from __future__ import annotations
 
@@ -85,21 +87,27 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "pde"             # pde | flare_lm | dense | moe | ssm | hybrid
-    num_layers: int = 4             # FLARE blocks (pde) or decoder layers (the LMs)
+    family: str = "pde"             # pde | flare_lm | dense | moe | ssm | hybrid | encdec | audio
+    num_layers: int = 4             # FLARE blocks (pde) or decoder layers (the LMs, encdec)
     d_model: int = 256              # C
-    flare_latents: int = 0          # M (pde)
-    flare_heads: int = 0            # H (pde); head dim D = d_model // H
-    # decoder-only LM (flare_lm, dense, moe, ssm, hybrid)
+    # M and H of the FLARE mixer: the pde family's blocks, and the encdec
+    # family's FLARE encoder layers (0 there: 256 latents, attn.num_heads
+    # heads); head dim D = d_model // H
+    flare_latents: int = 0
+    flare_heads: int = 0
+    # the LMs (flare_lm, dense, moe, ssm, hybrid) and the encdec decoder
     d_ff: int = 1024                # the SwiGLU FFN (moe: its leading dense layers'; ssm:
                                     # the channel mix's; hybrid: the shared block's)
     vocab: int = 32000
     attn: AttnConfig = field(default_factory=AttnConfig)
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    norm: str = "rmsnorm"           # the LM's norms (rmsnorm; the ssm family's are layernorms)
+    norm: str = "rmsnorm"           # rmsnorm | layernorm (the ssm family's are layernorms)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # enc-dec: the encoder's layers and its mixer
+    num_encoder_layers: int = 0
+    encoder_mixer: str = "attn"     # attn | flare  (seamless FLARE-encoder variant)
     # hybrid (zamba2)
     shared_attn_every: int = 0      # apply the shared attention block every k layers
     lora_rank: int = 0              # per-invocation LoRA rank on the shared block

@@ -9,11 +9,13 @@ frameworks' random generators differ, so weights are never re-initialised.
 
 The JAX LMs stack their layers for ``jax.lax.scan``: every leaf of
 ``layers`` (the decoders' and RWKV-6's), of an MoE model's
-``dense_layers`` and of the hybrid's ``mamba_tail`` has a leading [L]
-axis, and every leaf of the hybrid's ``mamba_groups`` two, [G, per_group]
+``dense_layers``, of the hybrid's ``mamba_tail`` and of the
+encoder-decoder's ``encoder`` and ``decoder`` has a leading [L] axis, and
+every leaf of the hybrid's ``mamba_groups`` two, [G, per_group]
 (:data:`STACKS`). :func:`unstack_layers` splits them into the (nested)
 lists of per-layer trees that the port's ``nn.ModuleList``s read
-(``layers.3.mlp.w_gate.weight``, ``mamba_groups.2.4.in_proj.weight``).
+(``layers.3.mlp.w_gate.weight``, ``mamba_groups.2.4.in_proj.weight``,
+``encoder.5.attn.k_proj.res.1.weight``, ``decoder.0.cross_attn.wq.bias``).
 Leaves that are not dense kernels pass as they are: the MoE's stacked
 expert weights ``[E, C, F]`` (``layers.3.mlp.w_gate``), RWKV-6's raw
 matrices (``layers.3.lora_a`` [C, 5 r]) and the hybrid's per-invocation
@@ -25,11 +27,15 @@ The other direction, :func:`to_jax_flat`, gives the flat form the
 checkpoints hold: the JAX leaf paths joined by ``/``
 (``blocks/0/mixer/k_proj/res/1/kernel``) with dense kernels ``[in, out]``.
 The LM's per-layer keys ``layers.{i}.…`` (``dense_layers.{i}.…``,
-``mamba_tail.{i}.…``, ``mamba_groups.{g}.{j}.…``) become the JAX LM's
-stacked leaves ``layers/…`` with their leading axes;
+``mamba_tail.{i}.…``, ``mamba_groups.{g}.{j}.…``, ``encoder.{i}.…``,
+``decoder.{i}.…``) become the JAX LM's stacked leaves ``layers/…`` with
+their leading axes;
 the PDE family keeps its per-block keys, as the JAX package writes them.
 :func:`from_jax_flat` inverts it (per-layer ``layers/{i}/…`` paths pass
 through), so a checkpoint written by either package restores in the other.
+:func:`encdec_caches_from_jax` carries the JAX encoder-decoder's decode
+caches (``EncDecCaches``, its self-attention caches stacked) into the
+port's.
 """
 from __future__ import annotations
 
@@ -101,9 +107,11 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
 
 STACKED = "layers"   # the JAX LM's layer stack: every leaf has a leading [L] axis
 # every stack of the JAX LMs and its number of leading (layer) axes:
-# ``layers``, an MoE model's leading ``dense_layers``, and the hybrid's
-# ``mamba_groups`` [G, per_group] and ``mamba_tail`` [r]
-STACKS = {STACKED: 1, "dense_layers": 1, "mamba_groups": 2, "mamba_tail": 1}
+# ``layers``, an MoE model's leading ``dense_layers``, the hybrid's
+# ``mamba_groups`` [G, per_group] and ``mamba_tail`` [r], and the
+# encoder-decoder's ``encoder`` and ``decoder``
+STACKS = {STACKED: 1, "dense_layers": 1, "mamba_groups": 2, "mamba_tail": 1, "encoder": 1,
+          "decoder": 1}
 
 
 def jax_leaf(name: str) -> tuple:
@@ -174,3 +182,26 @@ def from_jax_flat(flat) -> dict:
         else:
             out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A numpy array (a JAX array's host copy) as a CPU tensor; bfloat16,
+    which torch cannot take from numpy, through fp32 (exact)."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def encdec_caches_from_jax(caches):
+    """The JAX ``EncDecCaches`` (``self_caches``: a ``KVCache`` whose
+    leaves carry the decoder's leading [L] axis; ``memory``; ``pos``) as
+    the port's ``models.transformer.EncDecCaches`` of CPU tensors, one
+    ``KVCache`` a layer, in the same dtypes."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.transformer import EncDecCaches
+
+    sc = caches.self_caches
+    k, v, length = _tensor(sc.k), _tensor(sc.v), _tensor(sc.length)
+    layers = [KVCache(k[i].clone(), v[i].clone(), length[i].clone()) for i in range(k.shape[0])]
+    return EncDecCaches(layers, _tensor(caches.memory), _tensor(caches.pos))

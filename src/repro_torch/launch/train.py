@@ -6,7 +6,10 @@ than falling back to the CPU. ``--smoke`` trains the reduced config of the
 same family (CPU-runnable). Data, step-keyed, as the JAX launcher feeds it:
 Darcy batches on a 16x16 grid for the pde family; ``TokenStream`` batches
 of ``--seq-len`` tokens for the LMs (``flare_lm``, ``qwen2_1_5b``,
-``phi3_mini_3_8b``)::
+``phi3_mini_3_8b``), and for the encoder-decoder (``seamless_m4t_large_v2``)
+beside them ``embeds``, standard normal source frames [B, seq_len,
+d_model] in fp32 from ``np.random.default_rng(step)``, the arrays the JAX
+launcher draws (its speech frontend is a stub)::
 
     python -m repro_torch.launch.train --arch flare_lm --smoke --device cpu --seq-len 32
 
@@ -26,6 +29,7 @@ import logging
 import os
 import tempfile
 
+import numpy as np
 import torch
 
 from repro_torch.config import TrainConfig
@@ -104,7 +108,13 @@ def main(argv=None):
                                             cg_iters=100, device=device)
     else:
         stream = TokenStream(cfg.vocab, args.seq_len, seed=tcfg.seed)
-        batch_fn = lambda step: stream.global_batch(step, args.global_batch, 1)
+
+        def batch_fn(step):
+            b = stream.global_batch(step, args.global_batch, 1)
+            if cfg.family in ("encdec", "audio"):
+                b["embeds"] = np.random.default_rng(step).standard_normal(
+                    (args.global_batch, args.seq_len, cfg.d_model)).astype("float32")
+            return b
     history = trainer.fit(batch_fn)
     if mesh is not None:
         torch.distributed.destroy_process_group()

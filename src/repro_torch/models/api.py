@@ -3,8 +3,9 @@ and for the LMs prefill / decode_step / init_caches / prefill_into.
 
 Counterpart of ``repro/models/api.py`` for the PDE family, ``flare_lm``,
 the gqa and MLA decoders (``dense``, e.g. qwen2, minicpm3), the MLA + MoE
-decoder (``moe``, deepseek-v2-lite), RWKV-6 (``ssm``, rwkv6-3b) and the
-Mamba2 + shared-attention hybrid (``hybrid``, zamba2-7b):
+decoder (``moe``, deepseek-v2-lite), RWKV-6 (``ssm``, rwkv6-3b), the
+Mamba2 + shared-attention hybrid (``hybrid``, zamba2-7b) and the
+encoder-decoder (``encdec`` / ``audio``, seamless-m4t-large-v2):
 
     m = get_model(cfg, device="cuda")   # plans resolved here, once, for the device
     net = m.init(seed)                  # the model's modules on that device (the LMs:
@@ -13,8 +14,9 @@ Mamba2 + shared-attention hybrid (``hybrid``, zamba2-7b):
     pred = m.forward(net, batch)        # inference under m.plans["infer"]
     loss = m.loss(net, batch)           # differentiable, under m.plans["train"]
                                         # (PDE: surrogate_loss; the LMs: batch
-                                        # {"tokens", "labels"})
-    # the LMs (flare_lm, dense, moe, ssm, hybrid) only:
+                                        # {"tokens", "labels"}; encdec: also "embeds")
+    # the LMs (flare_lm, dense, moe, ssm, hybrid) and encdec (prefill and
+    # decode_step only; encdec's batch: {"embeds", "tokens"}, no "lengths"):
     logits, caches = m.prefill(net, batch, capacity)      # batch may carry "lengths"
     logits, caches = m.decode_step(net, token, caches)    # token [B, 1]
     caches = m.init_caches(batch_size, capacity)          # device="meta" allocates nothing
@@ -59,6 +61,17 @@ cross-entropy of ``rwkv_lm.rwkv_loss`` / ``zamba.zamba_loss``, and
 or ``zamba_prefill`` / ``zamba_decode_step`` (the hybrid's attention on
 "auto"; the dense pool, a paged pool's gather route or its kernel route,
 the paged-attention kernel, at decode).
+encdec and audio (``transformer.encdec_*``): a mixer plan only for the
+FLARE encoder (``encoder_mixer="flare"``), resolved on the set-mixer path
+in the compute dtype (bf16 by default; ``packed`` on the card, ``sdpa`` on
+the CPU) with ``flare_heads or num_heads`` heads and ``flare_latents or
+256`` latents; the attention encoder has none. ``forward`` takes
+``{"embeds", "tokens"}`` and returns ``(logits [B, T, vocab] fp32, 0)``;
+``loss`` also reads ``"labels"``; ``prefill`` encodes and teacher-forces
+the target prefix, ``decode_step`` advances it (``EncDecCaches``: the
+caches need the memory, so ``init_caches``, ``prefill_into`` and
+``prefill_suffix`` are None and the serving engine does not take the
+family), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -114,11 +127,16 @@ def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
     from repro_torch.core.dispatch import MixerPlan, MixerShape
     from repro_torch.core.policy import resolve_policy
 
-    if cfg.family in ("dense", "moe", "ssm", "hybrid"):   # no FLARE mixer: no plan
-        return {}, None
+    encdec = cfg.family in ("encdec", "audio")
+    if cfg.family in ("dense", "moe", "ssm", "hybrid") or (encdec and
+                                                           cfg.encoder_mixer != "flare"):
+        return {}, None   # no FLARE mixer: no plan
     causal = cfg.family == "flare_lm"
     if causal:
         heads, latents = cfg.attn.num_heads, cfg.attn.flare_latents
+        dtype = getattr(torch, cfg.compute_dtype)
+    elif encdec:   # the FLARE encoder computes in compute_dtype, as the decoder does
+        heads, latents = cfg.flare_heads or cfg.attn.num_heads, cfg.flare_latents or 256
         dtype = getattr(torch, cfg.compute_dtype)
     else:   # the PDE family computes in fp32 whatever compute_dtype says
         heads, latents, dtype = cfg.flare_heads, cfg.flare_latents, torch.float32
@@ -132,7 +150,9 @@ def _resolve_plans(cfg: ModelConfig, policy, device: torch.device,
                                         causal=causal, mesh=mesh)
         train_error = None
     except ValueError as e:
-        train_error = e
+        # kept without its traceback: its frames reach the caller's (a model
+        # being built beside its weights), which would live until a gc pass
+        train_error = e.with_traceback(None)
     if causal:
         # the config's chunk drives the plain causal scan; the kernel's tile is its own
         plans = {key: MixerPlan(p.backend, {**p.params, "chunk_size": cfg.attn.flare_chunk})
@@ -159,9 +179,9 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
     """``policy``: a MixerPolicy, a MixerPlan, or None (the ambient policy),
     resolved here once for ``device`` (default ``"cuda"``) and, for the PDE
     family, ``mesh`` (a DeviceMesh whose token axes split each example)."""
-    if cfg.family not in ("pde", "flare_lm", "dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("pde", "flare_lm", "dense", "moe", "ssm", "hybrid", "encdec", "audio"):
         raise ValueError(f"family {cfg.family!r} is not ported; the port has 'pde', "
-                         "'flare_lm', 'dense', 'moe', 'ssm' and 'hybrid'")
+                         "'flare_lm', 'dense', 'moe', 'ssm', 'hybrid', 'encdec' and 'audio'")
     if cfg.family in ("dense", "moe") and cfg.attn.kind not in ("gqa", "mla"):
         raise ValueError(f"the port's {cfg.family} family has gqa or mla attention, not "
                          f"{cfg.attn.kind!r}")
@@ -183,6 +203,8 @@ def get_model(cfg: ModelConfig, *, policy=None, device=None,
         return _lm(cfg, dev, plans, train_error)
     if cfg.family in ("ssm", "hybrid"):
         return _recurrent(cfg, dev)
+    if cfg.family in ("encdec", "audio"):
+        return _encdec(cfg, dev, plans, train_error)
     from repro_torch.models import pde
 
     def init(seed: int) -> pde.Surrogate:
@@ -285,3 +307,36 @@ def _recurrent(cfg: ModelConfig, dev: torch.device) -> Model:
     return Model(cfg=cfg, init=init, forward=forward, loss=lambda net, b: lossf(net, b, cfg),
                  prefill=prefill, decode_step=decode_step, init_caches=init_caches,
                  prefill_into=make_prefill_into(prefill, init_caches))
+
+
+def _encdec(cfg: ModelConfig, dev: torch.device, plans, train_error) -> Model:
+    """The encoder-decoder's entry points: no slot-pool caches (the caches
+    come from prefill, which needs the memory)."""
+    from repro_torch.models import transformer as t
+
+    infer, train = plans.get("infer"), plans.get("train")
+
+    def init(seed: int, *, generator: Optional[torch.Generator] = None) -> t.EncDec:
+        """The weights from ``generator`` when given, else from a CPU
+        generator seeded with ``seed``."""
+        gen = generator if generator is not None else torch.Generator().manual_seed(seed)
+        return t.init_encdec(cfg, generator=gen, device=dev)
+
+    def forward(net: t.EncDec, batch) -> tuple:
+        with torch.no_grad():
+            logits, aux = t.encdec_forward(net, batch, cfg, plan=infer)
+        return logits[..., : cfg.vocab], aux
+
+    def prefill(net: t.EncDec, batch, capacity: int) -> tuple:
+        with torch.no_grad():
+            return t.encdec_prefill(net, batch, cfg, capacity, plan=infer)
+
+    def decode_step(net: t.EncDec, token: torch.Tensor, caches) -> tuple:
+        with torch.no_grad():
+            return t.encdec_decode_step(net, token, caches, cfg)
+
+    def loss(net: t.EncDec, batch) -> torch.Tensor:
+        return t.encdec_loss(net, batch, cfg, plan=train)
+
+    return Model(cfg=cfg, init=init, forward=forward, loss=_train_guard(loss, train_error),
+                 plans=plans, prefill=prefill, decode_step=decode_step)

@@ -1,9 +1,10 @@
 """Decoder-only LMs: the causal FLARE LM (``flare_lm``), the gqa and MLA
 decoders (the ``dense`` family, e.g. qwen2 and minicpm3) and the MLA + MoE
 decoder (the ``moe`` family, deepseek-v2-lite): forward, loss, prefill,
-decode.
+decode; and the encoder-decoder (the ``encdec`` / ``audio`` family,
+seamless-m4t-large-v2): encode, forward, loss, prefill, decode.
 
-Counterpart of the decoder-only half of ``repro/models/transformer.py``.
+Counterpart of ``repro/models/transformer.py``.
 The JAX package stacks the layers (a leading [L] axis on every leaf) and
 runs them with ``jax.lax.scan``; here they are ``nn.ModuleList``s walked in
 a loop, and ``repro_torch.interop.unstack_layers`` carries a JAX tree in.
@@ -12,7 +13,9 @@ An MoE config's ``first_dense_layers`` leading layers take a SwiGLU FFN
 ``LM.layers``, whose FFN is the MoE (``models/moe.py``); a layer's FFN is
 the module it holds. Parameters are stored in ``cfg.param_dtype`` (fp32)
 and cast to ``cfg.compute_dtype`` at use; norms keep fp32 statistics and
-the logits are fp32. The encoder-decoder is not ported yet.
+the logits are fp32. The norms are rmsnorms or layernorms as ``cfg.norm``
+says (the decoder-only LMs take rmsnorms; the encoder-decoder's are
+layernorms).
 
 Each layer is pre-norm: ``x += mix(norm1(x)); x += ffn(norm2(x))``. For
 ``flare_lm`` the mixer is causal FLARE over ResMLP K/V projections with
@@ -40,9 +43,25 @@ backward keeps only each layer's input and recomputes the layer. The
 mixers train on plain torch (``causal_stream`` for flare_lm; ``attn_sdpa``'s
 ``xla`` / ``chunked`` routes for gqa), as in the JAX package, whose causal
 and flash kernels are forward-only.
+
+The encoder-decoder (``EncDec``): ``encode`` runs the source embeddings
+(the stubbed speech frontend's frames) through ``cfg.num_encoder_layers``
+bidirectional pre-norm layers, each mixing by non-causal GQA (through
+``attn_sdpa``'s ``impl`` route: "pallas" is the flash kernel) or, with
+``encoder_mixer="flare"``, by a ``FlareLayer`` through the model's resolved
+plan (on the card the fused FLARE kernel, in the compute dtype). Each
+decoder layer runs causal self-attention, then cross-attention whose
+queries are rope'd at the decoder's positions and whose keys at the
+memory's, then the FFN. ``encdec_forward`` computes every layer's
+cross-attention K/V from the memory before the decoder runs
+(``_precompute_cross_kv``); ``encdec_prefill`` and ``encdec_decode_step``
+compute them in each layer from the memory the caches carry, every step,
+as the JAX package does (no cross-attention K/V cache). The decode step's
+cross-attention is on "auto" whatever route the prefill took.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -50,9 +69,20 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.config import ModelConfig, replace
-from repro_torch.core.flare import FlareLayer, _merge_heads, _split_heads, init_flare_layer
+from repro_torch.core.flare import (
+    FlareLayer,
+    _merge_heads,
+    _split_heads,
+    flare_layer,
+    init_flare_layer,
+)
 from repro_torch.core.flare_stream import flare_causal_with_state, stream_append, stream_init
 from repro_torch.models.attention import (
+    GQA,
+    _expand_kv,
+    _heads,
+    _unheads,
+    attn_sdpa,
     gqa_decode,
     gqa_extend,
     gqa_forward,
@@ -67,7 +97,7 @@ from repro_torch.models.attention import (
     prefill_mla_cache,
 )
 from repro_torch.models.moe import MoE, init_moe, moe_ffn
-from repro_torch.models.rope import text_mrope_positions, text_positions
+from repro_torch.models.rope import apply_rope, rope_angles, text_mrope_positions, text_positions
 from repro_torch.nn.modules import (
     Embedding,
     RMSNorm,
@@ -75,8 +105,10 @@ from repro_torch.nn.modules import (
     embedding,
     init_dense,
     init_embedding,
+    init_layernorm,
     init_rmsnorm,
     init_swiglu,
+    layernorm,
     resmlp,
     rmsnorm,
     swiglu,
@@ -150,7 +182,7 @@ def init_decoder_layer(cfg: ModelConfig, *, generator: torch.Generator, device=N
     """A layer of ``cfg``'s mixer whose FFN is the MoE when ``cfg.moe`` is
     set, the SwiGLU otherwise."""
     kw = dict(device=device, dtype=dtype)
-    norm1 = init_rmsnorm(cfg.d_model, **kw)
+    norm1 = _norm_init(cfg, cfg.d_model, **kw)
     if cfg.attn.kind == "gqa":
         attn = init_gqa(cfg.attn, cfg.d_model, generator=generator, **kw)
     elif cfg.attn.kind == "mla":
@@ -160,7 +192,7 @@ def init_decoder_layer(cfg: ModelConfig, *, generator: torch.Generator, device=N
                                 generator=generator, kv_proj_layers=3, **kw)
     mlp = (init_moe(cfg.moe, cfg.d_model, generator=generator, **kw) if cfg.moe is not None
            else init_swiglu(cfg.d_model, cfg.d_ff, generator=generator, **kw))
-    return DecoderLayer(norm1, attn, init_rmsnorm(cfg.d_model, **kw), mlp)
+    return DecoderLayer(norm1, attn, _norm_init(cfg, cfg.d_model, **kw), mlp)
 
 
 def init_dense_ffn_layer(cfg: ModelConfig, *, generator: torch.Generator, device=None,
@@ -183,7 +215,7 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device=None) -> LM:
     vp = padded_vocab(cfg.vocab)
     n_dense = _num_dense(cfg)
     embed = init_embedding(vp, cfg.d_model, generator=generator, **kw)
-    final_norm = init_rmsnorm(cfg.d_model, **kw)
+    final_norm = _norm_init(cfg, cfg.d_model, **kw)
     layers = [init_decoder_layer(cfg, generator=generator, **kw)
               for _ in range(cfg.num_layers - n_dense)]
     dense_layers = [init_dense_ffn_layer(cfg, generator=generator, **kw) for _ in range(n_dense)]
@@ -191,8 +223,18 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device=None) -> LM:
     return LM(embed, final_norm, layers, head, dense_layers)
 
 
-def _norm(cfg: ModelConfig, norm: RMSNorm, x: torch.Tensor) -> torch.Tensor:
-    return rmsnorm(norm, x, eps=cfg.norm_eps)
+def _norm_init(cfg: ModelConfig, dim: int, *, device=None, dtype=torch.float32):
+    """An RMSNorm or a LayerNorm, as ``cfg.norm`` says."""
+    if cfg.norm == "rmsnorm":
+        return init_rmsnorm(dim, device=device, dtype=dtype)
+    return init_layernorm(dim, device=device, dtype=dtype)
+
+
+def _norm(cfg: ModelConfig, norm, x: torch.Tensor) -> torch.Tensor:
+    """``cfg.norm`` of x at ``cfg.norm_eps`` (fp32 statistics, x's dtype out)."""
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(norm, x, eps=cfg.norm_eps)
+    return layernorm(norm, x, eps=cfg.norm_eps)
 
 
 def _kv(fl: FlareLayer, xin: torch.Tensor, heads: int):
@@ -517,3 +559,267 @@ def lm_decode_step(net: LM, token: torch.Tensor, caches, cfg: ModelConfig) -> tu
     x, states = run(net.layers, caches.layers, x)
     logits = _logits(net, _norm(cfg, net.final_norm, x), cfg)[:, 0, : cfg.vocab]
     return logits, writeback(LMCaches(dense_states, states, caches.pos + 1))
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (seamless-m4t backbone)
+# ---------------------------------------------------------------------------
+
+
+class EncoderLayer(nn.Module):
+    """Parameters ``norm1``, ``attn`` (a FlareLayer, or a GQA with biases),
+    ``norm2``, ``mlp`` (a SwiGLU), as one layer of the JAX tree's stacked
+    ``encoder``."""
+
+    def __init__(self, norm1, attn, norm2, mlp):
+        super().__init__()
+        self.norm1 = norm1
+        self.attn = attn
+        self.norm2 = norm2
+        self.mlp = mlp
+
+
+class CrossDecoderLayer(nn.Module):
+    """Parameters ``norm1``, ``self_attn``, ``norm_x``, ``cross_attn``,
+    ``norm2``, ``mlp``, as one layer of the JAX tree's stacked ``decoder``."""
+
+    def __init__(self, norm1, self_attn: GQA, norm_x, cross_attn: GQA, norm2, mlp):
+        super().__init__()
+        self.norm1 = norm1
+        self.self_attn = self_attn
+        self.norm_x = norm_x
+        self.cross_attn = cross_attn
+        self.norm2 = norm2
+        self.mlp = mlp
+
+
+class EncDec(nn.Module):
+    """``embed`` (the padded vocab's rows), ``encoder``, ``enc_norm``,
+    ``decoder``, ``final_norm``, ``lm_head``, as the JAX tree."""
+
+    def __init__(self, embed: Embedding, encoder: list, enc_norm, decoder: list, final_norm,
+                 lm_head: nn.Linear):
+        super().__init__()
+        self.embed = embed
+        self.encoder = nn.ModuleList(encoder)
+        self.enc_norm = enc_norm
+        self.decoder = nn.ModuleList(decoder)
+        self.final_norm = final_norm
+        self.lm_head = lm_head
+
+
+def _check_encdec_cfg(cfg: ModelConfig) -> None:
+    if cfg.attn.kind != "gqa" or cfg.encoder_mixer not in ("attn", "flare"):
+        raise ValueError(f"the port's encoder-decoder has gqa attention and an 'attn' or "
+                         f"'flare' encoder, not {cfg.attn.kind!r} / {cfg.encoder_mixer!r}")
+
+
+def init_encoder_layer(cfg: ModelConfig, *, generator: torch.Generator, device=None,
+                       dtype=torch.float32) -> EncoderLayer:
+    """A FLARE layer (``flare_heads or num_heads`` heads, ``flare_latents or
+    256`` latents, 3-layer ResMLP K/V projections) when ``encoder_mixer`` is
+    "flare", else a GQA, and a SwiGLU FFN."""
+    kw = dict(device=device, dtype=dtype)
+    if cfg.encoder_mixer == "flare":
+        attn = init_flare_layer(cfg.d_model, cfg.flare_heads or cfg.attn.num_heads,
+                                cfg.flare_latents or 256, generator=generator,
+                                kv_proj_layers=3, **kw)
+    else:
+        attn = init_gqa(cfg.attn, cfg.d_model, generator=generator, **kw)
+    return EncoderLayer(_norm_init(cfg, cfg.d_model, **kw), attn,
+                        _norm_init(cfg, cfg.d_model, **kw),
+                        init_swiglu(cfg.d_model, cfg.d_ff, generator=generator, **kw))
+
+
+def init_crossdec_layer(cfg: ModelConfig, *, generator: torch.Generator, device=None,
+                        dtype=torch.float32) -> CrossDecoderLayer:
+    kw = dict(device=device, dtype=dtype)
+    norm = lambda: _norm_init(cfg, cfg.d_model, **kw)
+    return CrossDecoderLayer(norm(), init_gqa(cfg.attn, cfg.d_model, generator=generator, **kw),
+                             norm(), init_gqa(cfg.attn, cfg.d_model, generator=generator, **kw),
+                             norm(), init_swiglu(cfg.d_model, cfg.d_ff, generator=generator,
+                                                 **kw))
+
+
+def init_encdec(cfg: ModelConfig, *, generator: torch.Generator, device=None) -> EncDec:
+    """Weights drawn from ``generator`` (on its device: the CPU's, or a
+    card's) and moved to ``device`` tensor by tensor."""
+    _check_encdec_cfg(cfg)
+    kw = dict(device=device, dtype=_dtype(cfg.param_dtype))
+    vp = padded_vocab(cfg.vocab)
+    embed = init_embedding(vp, cfg.d_model, generator=generator, **kw)
+    encoder = [init_encoder_layer(cfg, generator=generator, **kw)
+               for _ in range(cfg.num_encoder_layers)]
+    decoder = [init_crossdec_layer(cfg, generator=generator, **kw)
+               for _ in range(cfg.num_layers)]
+    return EncDec(embed, encoder, _norm_init(cfg, cfg.d_model, **kw), decoder,
+                  _norm_init(cfg, cfg.d_model, **kw),
+                  init_dense(cfg.d_model, vp, generator=generator, **kw))
+
+
+def encode(net: EncDec, src_embeds: torch.Tensor, cfg: ModelConfig, *, impl: str = "auto",
+           plan=None) -> torch.Tensor:
+    """src_embeds [B, S, C] from the (stubbed) modality frontend -> the
+    memory [B, S, C] in the compute dtype. ``impl`` is the attention
+    encoder's ``attn_sdpa`` route (non-causal); ``plan`` the FLARE encoder's
+    resolved MixerPlan (None: the ambient policy). Under autograd each layer
+    runs through ``_remat(..., cfg.remat)``."""
+    x = src_embeds.to(_dtype(cfg.compute_dtype))
+    positions = text_positions(x.shape[0], x.shape[1], device=x.device)
+
+    def body(layer: EncoderLayer, x: torch.Tensor) -> torch.Tensor:
+        xin = _norm(cfg, layer.norm1, x)
+        if cfg.encoder_mixer == "flare":
+            a = flare_layer(layer.attn, xin, policy=plan)
+        else:
+            a = gqa_forward(layer.attn, xin, cfg.attn, positions=positions, causal=False,
+                            impl=impl)
+        x = x + a
+        return x + swiglu(layer.mlp, _norm(cfg, layer.norm2, x))
+
+    layer_fn = _remat(body, cfg.remat)
+    for layer in net.encoder:
+        x = layer_fn(layer, x)
+    return _norm(cfg, net.enc_norm, x)
+
+
+def _rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    return apply_rope(x, rope_angles(positions, cfg.attn.head_dim, cfg.attn.rope_theta))
+
+
+def _memory_kv(attn: GQA, memory: torch.Tensor, cfg: ModelConfig, mem_pos: torch.Tensor):
+    """One cross-attention's K (rope'd at the memory's positions) and V
+    [B, Hkv, S, D] from the memory."""
+    hkv = cfg.attn.num_kv_heads
+    k = _heads(dense(attn.wk, memory), hkv)
+    v = _heads(dense(attn.wv, memory), hkv)
+    return _rope(cfg, k, mem_pos), v
+
+
+def _precompute_cross_kv(net: EncDec, memory: torch.Tensor, cfg: ModelConfig) -> list:
+    """Every decoder layer's cross-attention (K, V) [B, Hkv, S, D] at once,
+    before the decoder runs: they depend on the memory alone."""
+    mem_pos = text_positions(memory.shape[0], memory.shape[1], device=memory.device)
+    return [_memory_kv(layer.cross_attn, memory, cfg, mem_pos) for layer in net.decoder]
+
+
+def _cross_attend_kv(attn: GQA, q_in: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg: ModelConfig, q_pos: torch.Tensor, impl: str) -> torch.Tensor:
+    """Cross-attention over precomputed (rope'd) memory K/V: q rope'd at the
+    decoder's positions, no mask, through ``attn_sdpa``'s ``impl`` route."""
+    a = cfg.attn
+    q = _rope(cfg, _heads(dense(attn.wq, q_in), a.num_heads), q_pos)
+    g = a.num_heads // a.num_kv_heads
+    out = attn_sdpa(q, _expand_kv(k, g), _expand_kv(v, g), scale=1.0 / math.sqrt(a.head_dim),
+                    causal=False, impl=impl)
+    return dense(attn.wo, _unheads(out))
+
+
+def _cross_attend(attn: GQA, q_in: torch.Tensor, memory: torch.Tensor, cfg: ModelConfig,
+                  q_pos: torch.Tensor, kv_pos: torch.Tensor, impl: str) -> torch.Tensor:
+    """Cross-attention with its K/V computed from the memory here."""
+    k, v = _memory_kv(attn, memory, cfg, kv_pos)
+    return _cross_attend_kv(attn, q_in, k, v, cfg, q_pos, impl)
+
+
+def encdec_forward(net: EncDec, batch: dict, cfg: ModelConfig, *, impl: str = "auto",
+                   plan=None) -> tuple:
+    """Teacher-forced forward: ``batch["embeds"]`` [B, S, C] and
+    ``batch["tokens"]`` [B, T] -> (logits fp32 [B, T, V_padded] with the
+    padded tail at -inf, 0). Under autograd each encoder and decoder layer
+    runs through ``_remat(..., cfg.remat)``."""
+    memory = encode(net, batch["embeds"], cfg, impl=impl, plan=plan)
+    tokens = batch["tokens"]
+    y = _embed(net, tokens, cfg)
+    positions = text_positions(*tokens.shape, device=tokens.device)
+    cross_kv = _precompute_cross_kv(net, memory, cfg)
+
+    def body(layer: CrossDecoderLayer, y: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+        y = y + gqa_forward(layer.self_attn, _norm(cfg, layer.norm1, y), cfg.attn,
+                            positions=positions, causal=True, impl=impl)
+        y = y + _cross_attend_kv(layer.cross_attn, _norm(cfg, layer.norm_x, y), k, v, cfg,
+                                 positions, impl)
+        return y + swiglu(layer.mlp, _norm(cfg, layer.norm2, y))
+
+    layer_fn = _remat(body, cfg.remat)
+    for layer, (k, v) in zip(net.decoder, cross_kv):
+        y = layer_fn(layer, y, k, v)
+    logits = dense(net.lm_head, _norm(cfg, net.final_norm, y)).float()
+    return mask_padded_logits(logits, cfg.vocab), torch.zeros((), device=y.device)
+
+
+def encdec_loss(net: EncDec, batch: dict, cfg: ModelConfig, *, impl: str = "auto",
+                plan=None) -> torch.Tensor:
+    """Cross-entropy of ``batch["labels"]`` [B, T] under the teacher-forced
+    logits, ``mean(logsumexp(logits) - gold)``. The forward runs under
+    ``mixer_policy(requires_grad=True)``: a bare (plan-less) FLARE encoder
+    then resolves only grad-capable backends."""
+    from repro_torch.core.policy import mixer_policy
+
+    with mixer_policy(requires_grad=True):
+        logits, _ = encdec_forward(net, batch, cfg, impl=impl, plan=plan)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).mean()
+
+
+class EncDecCaches(NamedTuple):
+    """The JAX ``EncDecCaches``: the decoder's self-attention caches (one
+    per layer, the JAX tree's stacked ``KVCache``), the encoder's output and
+    each sequence's next position."""
+    self_caches: list      # one KVCache a decoder layer
+    memory: torch.Tensor   # [B, S_src, C] the encoder's output, compute dtype
+    pos: torch.Tensor      # [B] int32, per sequence slot
+
+
+def encdec_prefill(net: EncDec, batch: dict, cfg: ModelConfig, capacity: int, *,
+                   impl: str = "auto", plan=None) -> tuple:
+    """Encode ``batch["embeds"]`` and teacher-force the target prefix
+    ``batch["tokens"]`` [B, T] (no ``lengths``: every row is T long) ->
+    (the last token's logits fp32 [B, V], EncDecCaches with each layer's
+    self-attention K/V in a bf16 cache of ``capacity`` rows). ``impl``
+    routes all three attentions (the encoder's, the decoder's causal
+    self-attention and the cross-attention); ``plan`` is the FLARE
+    encoder's."""
+    memory = encode(net, batch["embeds"], cfg, impl=impl, plan=plan)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    y = _embed(net, tokens, cfg)
+    positions = text_positions(b, s, device=tokens.device)
+    mem_pos = text_positions(memory.shape[0], memory.shape[1], device=memory.device)
+    caches = []
+    for layer in net.decoder:
+        a, (k, v) = gqa_forward(layer.self_attn, _norm(cfg, layer.norm1, y), cfg.attn,
+                                positions=positions, causal=True, impl=impl, return_kv=True)
+        caches.append(prefill_kv_cache(k, v, cfg.attn, capacity))
+        y = y + a
+        y = y + _cross_attend(layer.cross_attn, _norm(cfg, layer.norm_x, y), memory, cfg,
+                              positions, mem_pos, impl)
+        y = y + swiglu(layer.mlp, _norm(cfg, layer.norm2, y))
+    y = _norm(cfg, net.final_norm, y[:, -1:])
+    logits = dense(net.lm_head, y)[:, 0, : cfg.vocab].float()
+    pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    return logits, EncDecCaches(caches, memory, pos)
+
+
+def encdec_decode_step(net: EncDec, token: torch.Tensor, caches: EncDecCaches,
+                       cfg: ModelConfig) -> tuple:
+    """One token per sequence: token [B, 1] -> (logits fp32 [B, V], caches
+    one position on). Each layer writes its self-attention row into its
+    cache (in place) and attends over it, then attends over the memory,
+    whose K/V it computes anew, on the "auto" route."""
+    y = _embed(net, token, cfg)
+    positions = _decode_positions(caches.pos, token.shape[0], False)
+    memory = caches.memory
+    mem_pos = text_positions(memory.shape[0], memory.shape[1], device=memory.device)
+    new_caches = []
+    for layer, cache in zip(net.decoder, caches.self_caches):
+        a, cache = gqa_decode(layer.self_attn, _norm(cfg, layer.norm1, y), cfg.attn, cache,
+                              positions=positions)
+        new_caches.append(cache)
+        y = y + a
+        y = y + _cross_attend(layer.cross_attn, _norm(cfg, layer.norm_x, y), memory, cfg,
+                              positions, mem_pos, "auto")
+        y = y + swiglu(layer.mlp, _norm(cfg, layer.norm2, y))
+    logits = dense(net.lm_head, _norm(cfg, net.final_norm, y))[:, 0, : cfg.vocab].float()
+    return logits, EncDecCaches(new_caches, memory, caches.pos + 1)

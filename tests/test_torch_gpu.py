@@ -37,7 +37,8 @@ them to bf16); on both bf16 routes (tensor cores and CUDA cores) bf16 is also he
 against the plain version in fp64 beyond bf16's output rounding,
 max(|o - want| - 2^-8 |want|) within 1e-5 of max |want|; the smoke qwen2's
 prefill through it agrees with the chunked route within 1e-4 of max |logit|
-in fp32 compute."""
+in fp32 compute, and the smoke seamless-m4t's prefill through it (and the
+fused FLARE kernel, for the FLARE encoder) with the plain route."""
 import pytest
 import torch
 
@@ -1066,3 +1067,46 @@ def test_shard_entry_points_over_three_slices_match_plain(cuda, shape, dtype):
     lost = ref.combine_stats_ref(*(torch.stack([t[0], t[2]]) for t in zip(*stats)))[0]
     y_lost = torch.cat([flare_shard_decode(q, k[:, :, s], lost)[0] for s in parts], dim=2)
     assert _max_rel(y_lost, y64) > limit
+
+
+@pytest.mark.parametrize("mixer", ["attn", "flare"])
+def test_seamless_prefill_kernel_route_matches_plain(cuda, mixer):
+    """The smoke seamless-m4t on the card, fp32 compute: the prefill on the
+    kernel route (``impl="pallas"``: the flash kernel for the encoder's
+    non-causal self-attention, the decoder's causal one and the
+    cross-attention; the FLARE encoder under the model's plan, the fused
+    kernel) against the plain route (``chunked`` attention, the ``sdpa``
+    policy): the memory and the last token's logits within 1e-4 of their
+    max, the launches counted on the kernel route and none on the plain
+    route or in a decode step."""
+    from repro_torch.configs.seamless_m4t_large_v2 import smoke_config
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.ops import count_delta, count_snapshot
+    from repro_torch.models import transformer
+
+    cfg = replace(smoke_config(mixer), compute_dtype="float32")
+    model = get_model(cfg, device=cuda)
+    plain = get_model(cfg, device=cuda, policy=MixerPolicy(backends=("sdpa",)))
+    net = model.init(0)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"embeds": torch.randn(2, 300, cfg.d_model, generator=gen).to(cuda),
+             "tokens": torch.randint(0, cfg.vocab, (2, 37), generator=gen).to(cuda)}
+    with torch.no_grad():
+        before = count_snapshot()
+        got, caches = transformer.encdec_prefill(net, batch, cfg, 48, impl="pallas",
+                                                 plan=model.plans.get("infer"))
+        kernel_route = count_delta(before, count_snapshot())
+        before = count_snapshot()
+        want, want_caches = transformer.encdec_prefill(net, batch, cfg, 48, impl="chunked",
+                                                       plan=plain.plans.get("infer"))
+        tok = want.argmax(-1)[:, None]
+        model.decode_step(net, tok, want_caches)
+        assert count_delta(before, count_snapshot()) == {}
+    flash = 2 * cfg.num_layers + (cfg.num_encoder_layers if mixer == "attn" else 0)
+    expected = {(flash_attention, None): flash, (flash_attention, "fp32"): flash}
+    if mixer == "flare":
+        assert model.plans["infer"].backend == "packed"
+        expected[flare_fused_fwd, None] = cfg.num_encoder_layers
+    assert kernel_route == expected
+    assert (caches.memory - want_caches.memory).abs().max() <= 1e-4 * want_caches.memory.abs().max()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
