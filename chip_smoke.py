@@ -11,7 +11,9 @@ flare_lm and Qwen2-1.5B at full size, RWKV-6 3B and Zamba2-7B served at
 full size (Zamba2's shared attention through the paged and flash kernels),
 and the encoder-decoder SeamlessM4T-large-v2 prefilled and decoded at full
 size with its attention encoder and its FLARE encoder (the fused FLARE
-kernels in bf16 and fp32, its three attentions through the flash kernels).
+kernels in bf16 and fp32, its three attentions through the flash kernels),
+and trained at full size with both encoders (the FLARE encoder's fused
+backward in bf16 at D=64), and RWKV-6 3B trained at full size.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only deepseek_v2_lite_16b   # build, device lines, one phase
@@ -19,7 +21,8 @@ kernels in bf16 and fp32, its three attentions through the flash kernels).
 Run from the root of a checkout. ``--only`` runs the build, the device
 lines and one phase from its own set-up (``paged``, ``flash``, ``spectral``,
 ``tune``, ``lm``, ``phi3``, ``deepseek_v2_lite_16b``, ``minicpm3_4b``,
-``rwkv6_3b``, ``zamba2_7b``, ``seamless_m4t_large_v2``, ``pde_baselines``), then the card's line
+``rwkv6_3b``, ``zamba2_7b``, ``seamless_m4t_large_v2``, ``train_seamless_m4t_large_v2``,
+``train_rwkv6_3b``, ``pde_baselines``), then the card's line
 and ``{"ok": true, "only": ...}``;
 it prints no kernels line. It imports only ``repro_torch`` (from
 ``src/``), never JAX or the JAX package. Phases, each of which raises on
@@ -424,6 +427,39 @@ failure so the script exits non-zero:
    route, ``flash_tf32_kernel``), the logits within 1e-3, a control (layer
    0's encoder mixer output zeroed on the last 1,024 frames) that must
    exceed it, and 32 greedy tokens equal on both routes;
+16d. ``train seamless-m4t-large-v2`` (``train_seamless_phase``): the FLARE
+   encoder (then the attention encoder, each freed before the next) drawn
+   on the card, bf16 compute, fp32 parameters, remat "full", the train plan
+   asserted ``packed``; the launcher's batches (B=2: 4,096 standard normal
+   source frames and 4,096 ``TokenStream`` tokens a sequence, microbatches
+   of 1). (a) Row 4 on encoder layer 0's own q, k, v for that batch
+   (B=2, H=16, M=256, N=4,096, D=64) and a seeded dy: bf16 beyond its output
+   rounding and fp32 at 1e-5 of max |plain| against the plain backward in
+   fp64, dk and dv rejecting a dZ that lost a 64-token tile and dq one that
+   lost 64 latents; its times beside the bound (bf16 FLOP at the bf16 peak or
+   bytes), its plain version, autograd through two SDPA calls, and ptxas's
+   registers and spills. (b) One microbatch's whole step in fp32 compute
+   under ``packed`` (48 fused forwards, 24 backwards) against ``sdpa`` on the
+   same weights: the loss and every gradient leaf within 1e-4 of the tree's
+   max |g|, which the step with encoder layer 0's mixer output zeroed on the
+   last 1,024 frames must fail. (c) The bf16 step's loss against
+   ``sdpa``'s within 5e-2 (its gradients' distance printed). Then 3 steps of
+   ``Trainer.fit`` (no checkpoint written), the launch counters read at each
+   microbatch: 48 fused forwards (forward and recomputation) and 24 fused
+   backwards, and nothing else, a microbatch; ms a step, tokens/s, model
+   FLOP/s over the bf16 peak, AdamW ms (CUDA events in the step), peak GiB,
+   a profiled step after the fit (its busy share; ``route``: the bf16 D=64
+   ``dz``/``dkv``/``dq`` and forward kernels, no flash kernel). The
+   attention encoder: the same fit, no port kernel launched, its ms and
+   peak; under 0.2 GiB left allocated after the phase;
+16e. ``train rwkv6-3b`` (``train_rwkv_phase``): drawn on the card, the
+   launcher's batches at B=4, T=4,096 (microbatches of 1). Autograd through
+   layer 0's chunked WKV (fp32) on the model's own operands for the first
+   1,024 tokens against autograd through the scan in fp64: dr, dk, dv, dw,
+   du within 1e-4 of each max |g|, the chunks run alone (the inter-chunk
+   term dropped) rejected. 3 steps of ``Trainer.fit`` (no kernel launched in
+   any microbatch), the first loss within a tenth of ln(vocab), the figures
+   and the profiled step of 16d; under 0.2 GiB left allocated;
 16b. serving by graph replay, in every serving phase above (11, 12, 12b,
    14, 15, 16, 16a, 16b'): each engine runs ``ServeEngine.warmup`` first (its prefill
    buckets, then the decode step captured as one CUDA graph), and must
@@ -451,7 +487,9 @@ failure so the script exits non-zero:
    (``paged_mla_tf32_kernel``), the ``flash_attention`` row (the
    TF32 kernel's) its bf16_mma route under ``off_tma_bf16``, the causal
    kernel's row (bf16) its fp32 route under ``fp32``; the paged row and
-   both flash rows their reads at Zamba2's D=112 under ``zamba_d112``),
+   both flash rows their reads at Zamba2's D=112 under ``zamba_d112``;
+   the fused backward's row its bf16 and fp32 records at seamless-m4t's
+   shape under ``seamless_m4t``),
    then the card's name and power limit, then ``{"ok": true, "device":
    ...}`` as the last line.
 """
@@ -684,6 +722,23 @@ ZAMBA_PREFILL_T = 4096
 SEAMLESS_SIZES = {"attn": (24, 24, 2_035_232_768), "flare": (24, 24, 2_217_881_600)}
 SEAMLESS_B, SEAMLESS_SRC, SEAMLESS_T, SEAMLESS_CAP, SEAMLESS_NEW = 2, 4096, 128, 160, 32
 SEAMLESS_LOST, SEAMLESS_MEM_TOL, FLARE_LATENT_TILE = 1024, 2e-2, 64
+# training seamless-m4t-large-v2 (both encoders) and rwkv6-3b at full width
+# and depth, FAMILY_STEPS steps of Trainer.fit on the launcher's batches at
+# T=LM_TRAIN_T (seamless: B=SEAMLESS_TRAIN_B with as many standard normal
+# source frames as target tokens; rwkv6: B=LM_TRAIN_B), microbatches of
+# cfg.microbatch. Row 4 on encoder layer 0's operands at the fit's batch,
+# whose dk and dv must reject a dZ that lost TOKEN_TILE tokens (dq: one that
+# lost FLARE_LATENT_TILE latents). The whole fp32 step, packed against sdpa:
+# the loss and every gradient leaf within STEP_TOL of the tree's max |g|
+# (TRAIN_TOL: fp32 sums in another order through 48 layers and their
+# backward), which a step that lost SEAMLESS_LOST frames of layer 0's mixer
+# output must fail. RWKV-6's first loss within LOSS_NEAR of ln(vocab). A
+# phase leaves under EMPTY_GIB allocated on the card
+SEAMLESS_TRAIN_B, FAMILY_STEPS, TOKEN_TILE = 2, 3, 64
+STEP_TOL, LOSS_NEAR, EMPTY_GIB = TRAIN_TOL, 0.1, 0.2
+# the bf16 D=64 instances of the fused kernels, as the profiler names them
+FLARE_BWD16 = tuple(f"{kind}_kernel<__nv_bfloat16, {d}" for kind, d in (
+    ("dz", 64), ("dkv", 64), ("dq", 64), ("encode_tc", ""), ("decode_tc", "")))
 # Algorithm 1 (core/spectral.py) on block 0's latent queries and keys at
 # pde_40k: the fp32 eigenvalues against fp64's within SPECTRAL_TOL of the
 # largest, which the fp64 spectrum of the keys without their last
@@ -1069,11 +1124,13 @@ def bwd_chunk(b: int, m: int) -> int:
     return max(256, 2**25 // (b * m))
 
 
-def bwd_by_head(q, k, v, z, mx, den, lse, y, dy, *, drop=None):
+def bwd_by_head(q, k, v, z, mx, den, lse, y, dy, *, drop=None, tile=TILE):
     """The plain backward a head at a time -> (dq [H, M, D], dk, dv
-    [B, H, N, D]). ``drop="tokens"`` leaves the first 256-token tile out of
-    dZ; ``drop="latents"`` leaves the first 256 latents out of the sums over
-    latents (dk, dv; its dq is that of the other latents)."""
+    [B, H, N, D]). ``drop="tokens"`` leaves the first ``tile`` tokens out of
+    dZ's sum; ``drop="latents"`` leaves the first ``tile`` latents out of the
+    sums over latents (dk, dv; its dq is that of the other latents);
+    ``drop="dz latents"`` loses dZ's first ``tile`` latents (zeros, as a
+    pass (a) that lost a latent tile would leave them)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1086,13 +1143,15 @@ def bwd_by_head(q, k, v, z, mx, den, lse, y, dy, *, drop=None):
             q[hs], k[:, hs], v[:, hs], z[:, hs], mx[:, hs], den[:, hs], lse[:, hs], y[:, hs],
             dy[:, hs])
         if drop == "tokens":
-            dz = ref.flare_bwd_dz_ref(qh, kh[:, :, TILE:], lseh[:, :, TILE:], dyh[:, :, TILE:],
+            dz = ref.flare_bwd_dz_ref(qh, kh[:, :, tile:], lseh[:, :, tile:], dyh[:, :, tile:],
                                       chunk=chunk)
         else:
             dz = ref.flare_bwd_dz_ref(qh, kh, lseh, dyh, chunk=chunk)
+        if drop == "dz latents":
+            dz[:, :, :tile] = 0
         if drop == "latents":
-            qh, zh, mxh, denh, dz = qh[:, TILE:], zh[:, :, TILE:], mxh[:, :, TILE:], \
-                denh[:, :, TILE:], dz[:, :, TILE:]
+            qh, zh, mxh, denh, dz = qh[:, tile:], zh[:, :, tile:], mxh[:, :, tile:], \
+                denh[:, :, tile:], dz[:, :, tile:]
         outs.append(ref.flare_bwd_grads_ref(qh, kh, vh, zh, mxh, denh, lseh, yh, dyh, dz,
                                             chunk=chunk))
     dq, dk, dv = zip(*outs)
@@ -1197,8 +1256,9 @@ def time_bwd(q, k, v, dy, y, res) -> dict:
     """CUDA-event times of the backward kernel, its plain version (a head at
     a time, chunked) and autograd's backward through two SDPA calls on the
     same operands, with the bound of the work: seven products of
-    2*B*H*M*N*D FLOP (S, dZ, dW, dA, dk, dv, dq); bytes of q, k, v, y, dy,
-    the residuals and dq, dk, dv, each once."""
+    2*B*H*M*N*D FLOP (S, dZ, dW, dA, dk, dv, dq) at the peak of the
+    operands' dtype (bf16 tensor cores; fp32 CUDA cores); bytes of q, k, v,
+    y, dy and dq, dk, dv in that dtype and the fp32 residuals, each once."""
     import torch
     import torch.nn.functional as F
 
@@ -1212,10 +1272,11 @@ def time_bwd(q, k, v, dy, y, res) -> dict:
     qb = qe.expand(b, h, m, d)
     sdpa = lambda a, bb, c: F.scaled_dot_product_attention(a, bb, c, scale=1.0)
     y_lib = sdpa(kk, qb, sdpa(qb, kk, vv))
-    f4, mnd = 4, b * h * m * n * d
+    es, mnd = k.element_size(), b * h * m * n * d
     flops = 7 * 2 * mnd
-    nbytes = f4 * (2 * h * m * d + 6 * b * h * n * d + b * h * n + b * h * m * (d + 2))
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BW * 1e3
+    nbytes = es * (2 * h * m * d + 6 * b * h * n * d) + 4 * (b * h * n + b * h * m * (d + 2))
+    peak = PEAK_BF16 if es == 2 else PEAK_FP32
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BW * 1e3
     stats = dict(
         ms=cuda_ms(lambda: flare_fused_bwd(*inputs), reps=5),
         plain_ms=cuda_ms(lambda: bwd_by_head(*inputs), reps=1, warmup=0),
@@ -1289,9 +1350,19 @@ def breakdown(fn, label: str, top: int = 8):
 def report(prof, wall_ms: float, label: str, top: int = 8):
     """Print a profile's device time by kernel name, its kernel count and
     the device's busy share of ``wall_ms``. Returns ({kernel name: device
-    ms}, wall ms), or None where the profiler recorded no device time."""
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    ms}, wall ms), or None where the profiler recorded no device time. It
+    sums the trace's raw device events (``key_averages`` would first build
+    an object an event: about 0.18 ms each, 35 s for a train step's 2e5
+    kernels)."""
+    from torch.autograd import DeviceType
+
+    sums = collections.defaultdict(lambda: [0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            row = sums[e.name()]
+            row[0] += e.duration_ns()
+            row[1] += 1
+    rows = [(key, ns / 1e6, count) for key, (ns, count) in sums.items()]
     total = sum(ms for _, ms, _ in rows)
     if total == 0:
         print(f"breakdown {label}: the profiler recorded no device time (not measured)")
@@ -5323,8 +5394,11 @@ def check_mla_read(checks: Checks, label: str, op: dict) -> None:
 def time_mla_read(label: str, op: dict) -> dict:
     """The kernel as the model calls it (replayed from a CUDA graph, which
     holds nothing but the kernel's own launches), the plain version and one
-    SDPA over the gathered view (q = [q_abs | q_rope], k = [c | k_rope]
-    broadcast over the heads, v = c), both eager. With those two captured in
+    SDPA over the gathered view (the G heads as G query rows of the one
+    page head: q = [q_abs | q_rope], k = [c | k_rope], v = c; K and V
+    broadcast over G heads instead made SDPA's memory-efficient kernel give
+    outputs that differ run to run at MiniCPM3's shape, 12% off fp64, and
+    fault in whole runs: ``scripts/torch_sdpa_yardstick.py``), both eager. With those two captured in
     graphs as well, the start of MiniCPM3's captured layer-0 q was found
     overwritten after the timings in two whole runs (other data, some of it
     NaN), and the reads checked after it failed; graph captures of cuBLAS
@@ -5381,13 +5455,12 @@ def time_mla_read(label: str, op: dict) -> dict:
         # the yardstick over the dense view gathered beforehand (not timed)
         cd, krd = _gather_rows(c, pt), _gather_rows(kw["k2_pages"], pt)   # [B, 1, T, *]
         t = cd.shape[2]
-        qd = torch.cat([q, kw["q2"]], dim=-1).to(c.dtype).transpose(1, 2)   # [B, G, 1, D+D2]
-        kd = torch.cat([cd, krd], dim=-1).expand(b, g, t, d + d2)
-        vd = cd.expand(b, g, t, d)
+        qd = torch.cat([q, kw["q2"]], dim=-1).to(c.dtype)                   # [B, 1, G, D+D2]
+        kd = torch.cat([cd, krd], dim=-1)
         mask = (torch.arange(t, device=q.device)[None, :]
-                < lengths.long()[:, None])[:, None, None, :]
+                < lengths.long()[:, None])[:, None, None, :].expand(b, 1, g, t).contiguous()
         stats["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask, scale=kw.get("scale", 1.0)), reps=50)
+            qd, kd, cd, attn_mask=mask, scale=kw.get("scale", 1.0)), reps=50)
     print(f"time paged_attention {label}: {stats} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} "
           f"GFLOP over {lengths.long().sum().item()} tokens)", flush=True)
     return stats
@@ -5695,21 +5768,18 @@ def check_wkv(cfg, net, device) -> None:
     state (the inter-chunk term dropped) must fail the limit."""
     import torch
 
-    from repro_torch.models import rwkv_lm, ssm
-    from repro_torch.nn.modules import layernorm
+    from repro_torch.models import ssm
 
-    layer, chunk = net.layers[0], cfg.ssm.chunk
-    tokens = dense_tokens(cfg.vocab, 1, WKV_T, SEED + 3, device)
+    chunk = cfg.ssm.chunk
+    r, k, v, w, u = wkv_operands(cfg, net, dense_tokens(cfg.vocab, 1, WKV_T, SEED + 3, device))
     with torch.no_grad():
-        x = layernorm(layer.ln1, rwkv_lm._embed(net, tokens, cfg))
-        r, k, v, w, _ = ssm.rwkv6_wkv_operands(layer, x, cfg.ssm)
-        y, s = ssm.rwkv6_wkv_chunked(r, k, v, w, layer.u, chunk=chunk)
-        wide = [t.double() for t in (r, k, v, w, layer.u)]
+        y, s = ssm.rwkv6_wkv_chunked(r, k, v, w, u, chunk=chunk)
+        wide = [t.double() for t in (r, k, v, w, u)]
         y64, s64 = ssm.rwkv6_wkv_scan(*wide)
         cut = [t.reshape(WKV_T // chunk, chunk, *t.shape[2:]) for t in wide[:4]]
         y_drop = ssm.rwkv6_wkv_chunked(*cut, wide[4], chunk=chunk)[0].reshape(y64.shape)
-        ms = cuda_ms(lambda: ssm.rwkv6_wkv_chunked(r, k, v, w, layer.u, chunk=chunk), reps=3)
-        scan_ms = cuda_ms(lambda: ssm.rwkv6_wkv_scan(r, k, v, w, layer.u), reps=1)
+        ms = cuda_ms(lambda: ssm.rwkv6_wkv_chunked(r, k, v, w, u, chunk=chunk), reps=3)
+        scan_ms = cuda_ms(lambda: ssm.rwkv6_wkv_scan(r, k, v, w, u), reps=1)
     errs = {"y": rel_err(y, y64), "state": rel_err(s, s64), "y inter-chunk dropped":
             rel_err(y_drop, y64)}
     print(f"wkv rwkv6-3b layer 0 T={WKV_T} (H={r.shape[2]} D={r.shape[3]}, chunk {chunk}, "
@@ -6071,8 +6141,7 @@ def seamless_window(net, cfg, batch, impl: str, plan, label: str, keep=()) -> di
     finally:
         ops.flash_kernel = kernel
     ms = (time.perf_counter() - t0) * 1e3
-    delta = {fn.__name__ + (f"[{route}]" if route else ""): n
-             for (fn, route), n in ops.count_delta(before, ops.count_snapshot()).items()}
+    delta = named_delta(before, ops.count_snapshot())
     peak = torch.cuda.max_memory_allocated() / 2**30
     b, s, _ = batch["embeds"].shape
     print(f"path {cfg.name} prefill {label} B={b} S_src={s} T={batch['tokens'].shape[1]} "
@@ -6241,16 +6310,16 @@ def time_flare_seamless(q, k, v) -> dict:
 
 
 @contextlib.contextmanager
-def zero_first_call(module, name: str, rows: slice):
-    """Within the block, the first call of ``module.name`` returns its
-    output with ``rows`` of the token axis zeroed (a lost stretch of
-    frames), the calls after it untouched."""
-    fn, calls = getattr(module, name), [0]
+def lose_frames(module, name: str, layer, rows: slice):
+    """Within the block, every call of the mixer ``module.name`` on
+    ``layer`` (its first argument; under autograd the forward and its
+    recomputation) returns its output with ``rows`` of the token axis
+    zeroed (a lost stretch of frames), the other layers' calls untouched."""
+    fn = getattr(module, name)
 
-    def lose(*args, **kw):
-        out = fn(*args, **kw)
-        calls[0] += 1
-        if calls[0] == 1:
+    def lose(mixer, *args, **kw):
+        out = fn(mixer, *args, **kw)
+        if mixer is layer:
             out = out.clone()
             out[:, rows] = 0
         return out
@@ -6412,7 +6481,8 @@ def seamless_variant(checks: Checks, mixer: str, device) -> dict:
     held(f"{cfg.name} prefill kernel route vs plain route fp32 (last-token logits)",
          run32["logits"], plain_run32["logits"], LM_TOL["float32"])
     lost = slice(SEAMLESS_SRC - SEAMLESS_LOST, SEAMLESS_SRC)
-    with zero_first_call(transformer, "flare_layer" if flare else "gqa_forward", lost):
+    with lose_frames(transformer, "flare_layer" if flare else "gqa_forward",
+                     net.encoder[0].attn, lost):
         control = seamless_window(net, cfg32, batch, "chunked", plain_plan32,
                                   f"plain route, layer 0's mixer output zeroed on the last "
                                   f"{SEAMLESS_LOST} frames")
@@ -6467,9 +6537,557 @@ def seamless_phase(checks: Checks, device) -> dict:
     out["figures"] = {"attn": attn["figures"], "flare": flare["figures"]}
     # the phases after this one hold their peaks against limits: nothing of
     # the two models may stay allocated
-    print(f"seamless phase: {time.perf_counter() - t_phase:.1f} s; "
-          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated", flush=True)
+    print(f"seamless phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    card_empty("seamless phase")
     return out
+
+
+# --------------------------------------------------------------------------
+# Training the encoder-decoder (both encoders) and RWKV-6 at full width and
+# depth: the fused FLARE backward in bf16 at D=64 on a model's training path
+# --------------------------------------------------------------------------
+
+
+def launcher_batches(cfg, b: int, t: int):
+    """The training launcher's step-keyed batches (``launch/train.py``):
+    ``TokenStream`` tokens and labels [b, t] int32, and for the
+    encoder-decoder standard normal source frames [b, t, d_model] fp32 from
+    ``np.random.default_rng(step)``; the host ms of each feed kept in the
+    function's ``feed_ms``."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import TokenStream
+
+    stream = TokenStream(cfg.vocab, t, seed=SEED)
+
+    def batch_fn(step):
+        t0 = time.perf_counter()
+        batch = stream.global_batch(step, b, 1)
+        if cfg.family in ("encdec", "audio"):
+            batch["embeds"] = np.random.default_rng(step).standard_normal(
+                (b, t, cfg.d_model)).astype("float32")
+        batch_fn.feed_ms.append((time.perf_counter() - t0) * 1e3)
+        return batch
+
+    batch_fn.feed_ms = []
+    return batch_fn
+
+
+def named_delta(before: dict, after: dict) -> dict:
+    """The launch counters that moved between two ``ops.count_snapshot``
+    readings, by wrapper name (a route's count as ``name[route]``)."""
+    from repro_torch.kernels import ops
+
+    return {fn.__name__ + (f"[{route}]" if route else ""): n
+            for (fn, route), n in ops.count_delta(before, after).items()}
+
+
+def fit_family(label: str, model, net, batch_fn, num_mb: int, *, profile: bool) -> dict:
+    """``Trainer.fit`` of the drawn ``net`` for FAMILY_STEPS steps, writing
+    no checkpoint (the LM phases' full-size ones already round-trip). The
+    launch counters are read as each microbatch's loss begins and after the
+    fit, so each window holds one microbatch's forward, recomputation and
+    backward; AdamW is timed by CUDA events inside each step; with
+    ``profile`` one more step runs under the profiler after the fit. Returns
+    the history, the windows, ms a step (the mean of steps 2 on; host clock,
+    the feed included), AdamW ms, peak GiB, the profile and the seconds of
+    the fit and of the profiled step."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.train import Trainer
+    from repro_torch.train import steps as train_steps
+
+    marks = []
+
+    def loss(net_, mb):   # each microbatch's window starts here
+        marks.append(ops.count_snapshot())
+        return model.loss(net_, mb)
+
+    update, events = train_steps.adamw_update, []
+
+    def timed_update(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = update(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    class NoCheckpoints(Trainer):
+        _writes = False   # this process writes no checkpoint
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        tcfg = TrainConfig(steps=FAMILY_STEPS, seed=SEED, checkpoint_dir=ckdir,
+                           checkpoint_every=10 * FAMILY_STEPS, log_every=1)
+        trainer = NoCheckpoints(dataclasses.replace(model, loss=loss, init=lambda seed: net),
+                                tcfg, num_microbatches=num_mb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train_steps.adamw_update = timed_update
+        t0 = time.perf_counter()
+        try:
+            history = trainer.fit(batch_fn)
+        finally:
+            train_steps.adamw_update = update
+        marks.append(ops.count_snapshot())
+        torch.cuda.synchronize()
+        seconds = {"fit": round(time.perf_counter() - t0, 1)}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        windows = [named_delta(a, b) for a, b in zip(marks, marks[1:])]
+        adamw = [s.elapsed_time(e) for s, e in events]
+        trace = None
+        if profile:   # one more step, traced on the device
+            t0 = time.perf_counter()
+            batch = {k: torch.as_tensor(v, device=trainer.device)
+                     for k, v in batch_fn(FAMILY_STEPS).items()}
+            trace = traced(lambda: trainer._train_step(trainer.net, trainer.opt_state, batch))[1]
+            del batch
+            seconds["profiled step"] = round(time.perf_counter() - t0, 1)
+        del trainer
+    steps_ms = [1e3 * h["time"] for h in history]
+    ms = sum(steps_ms[1:]) / len(steps_ms[1:])
+    print(f"train {label} losses {[h['loss'] for h in history]}, grad_norm "
+          f"{[h['grad_norm'] for h in history]}; ms/step {[round(t, 3) for t in steps_ms]} "
+          f"(host clock, the feed included: "
+          f"{[round(t, 1) for t in batch_fn.feed_ms[:FAMILY_STEPS]]} ms); AdamW "
+          f"{[round(t, 3) for t in adamw]} ms (CUDA events in the step); peak {peak:.2f} GiB",
+          flush=True)
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in history):
+        raise AssertionError(f"train {label}: a loss or grad_norm is not finite")
+    return dict(history=history, windows=windows, ms=ms, adamw_ms=sum(adamw) / len(adamw),
+                peak=peak, trace=trace, seconds=seconds)
+
+
+def expect_windows(label: str, windows: list, want: dict, num_mb: int) -> dict:
+    """Every microbatch's window launched exactly ``want``; returns the
+    fit's launches by wrapper name."""
+    if len(windows) != FAMILY_STEPS * num_mb or any(w != want for w in windows):
+        raise AssertionError(f"train {label}: launches a microbatch {windows}, expected "
+                             f"{FAMILY_STEPS * num_mb} x {want}")
+    total = collections.Counter()
+    for w in windows:
+        total.update(w)
+    print(f"train {label}: launches a microbatch {want or 'none'} in each of the fit's "
+          f"{len(windows)} microbatches ({FAMILY_STEPS} steps of {num_mb}): "
+          f"{dict(total) or 'none'} in all", flush=True)
+    return dict(total)
+
+
+def train_line(label: str, fit: dict, flop: float, tokens: int, extra: str = "") -> tuple:
+    """The phase's summary line: ms a step, tokens/s, model FLOP/s over the
+    bf16 peak, AdamW ms, peak GiB and the profiled step's busy share.
+    Returns (those figures, the profiled step's kernels as ``report`` gives
+    them, or None)."""
+    rate = flop / (fit["ms"] / 1e3)
+    busy = seen = None
+    if fit["trace"] is not None:
+        seen = report(*fit["trace"], f"train {label} step {FAMILY_STEPS + 1} (after the fit)",
+                      top=12)
+        busy = None if seen is None else sum(seen[0].values()) / seen[1]
+    out = dict(ms=fit["ms"], tokens_s=tokens / fit["ms"] * 1e3, flop_share=rate / PEAK_BF16,
+               adamw_ms=fit["adamw_ms"], peak_gib=fit["peak"], busy=busy)
+    print(f"train {label}: {fit['ms']:.3f} ms/step (mean of steps 2-{FAMILY_STEPS}), "
+          f"{out['tokens_s']:.1f} tokens/s{extra}, model FLOP/s {rate / 1e12:.1f} T = "
+          f"{100 * out['flop_share']:.2f}% of {PEAK_BF16 / 1e12:.0f} TFLOP/s, AdamW "
+          f"{fit['adamw_ms']:.3f} ms, peak {fit['peak']:.2f} GiB, busy "
+          f"{'not measured' if busy is None else f'{100 * busy:.1f}%'}", flush=True)
+    return out, seen
+
+
+def check_bwd_seamless(checks: Checks, q, k, v, dy) -> dict:
+    """Row 4 on encoder layer 0's q, k, v in their dtype and a seeded dy, at
+    the fit's batch: dq, dk, dv against the plain backward in fp64 on the
+    kernel forward's residuals (widened), a head at a time. bf16 (the
+    model's compute dtype) beyond bf16's output rounding
+    (``Checks.hold_rounded``: the kernel computes in fp32, every fp32
+    operand split in two TF32 parts, and rounds only its outputs); fp32 at
+    1e-5 of max |plain|. dk and dv must reject the plain backward with
+    TOKEN_TILE tokens left out of dZ's sum, dq the one whose dZ lost
+    FLARE_LATENT_TILE latents. Returns the row's record at this shape: the
+    kernel's, the plain version's and SDPA's times, the bound, the largest
+    error and ptxas's registers and spills of the D=64 instances."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flare_packed import flare_fused_bwd, flare_fused_fwd
+
+    b, h, n, d = k.shape
+    key = str(k.dtype).removeprefix("torch.")
+    print(f"kernels flare_fused_bwd seamless encoder layer 0 (B={b} H={h} M={q.shape[1]} N={n} "
+          f"D={d} {key}, seeded dy; held against the plain backward in fp64):", flush=True)
+    y, *res = flare_fused_fwd(q, k, v)
+    inputs = (q, k, v, *res, y, dy)
+    got = flare_fused_bwd(*inputs)
+    torch.cuda.synchronize()
+    wide = tuple(t.to(torch.float64) for t in inputs)
+    want = bwd_by_head(*wide)
+    lost_tokens = bwd_by_head(*wide, drop="tokens", tile=TOKEN_TILE)
+    lost_latents = bwd_by_head(*wide, drop="dz latents", tile=FLARE_LATENT_TILE)
+    plain = bwd_by_head(*inputs) if k.dtype == torch.float32 else None
+    err = 0.0
+    for i, what in enumerate(GRADS):
+        dropped = ({f"{FLARE_LATENT_TILE}-latent tile of dZ": lost_latents[i]} if what == "dq"
+                   else {f"{TOKEN_TILE}-token tile of dZ": lost_tokens[i]})
+        if k.dtype == torch.bfloat16:
+            checks.hold_rounded("flare_fused_bwd", f"{what} bf16", got[i], want[i],
+                                dropped=dropped)
+            err = max(err, max_err(got[i], want[i]))
+        else:
+            checks.hold("flare_fused_bwd", f"{what} {key}", got[i], want[i], k.dtype, atol=None,
+                        record=f"flare_fused_bwd seamless {key}", dropped=dropped,
+                        fp32_plain=plain[i])
+    checks.raise_failures(f"backward kernel on seamless-m4t's operands ({key})")
+    del want, lost_tokens, lost_latents, wide, got, plain
+    torch.cuda.empty_cache()
+    stats = {name: x for name, x in time_bwd(q, k, v, dy, y, res).items()
+             if not name.startswith("floor_")}
+    stats["max_abs_err"] = (err if k.dtype == torch.bfloat16
+                            else checks.max_abs[f"flare_fused_bwd seamless {key}"])
+    width = "bf16" if k.dtype == torch.bfloat16 else "f32"
+    stats["ptxas"] = {row.split()[0]: " ".join(row.split()[3:])
+                      for row in ptxas_summary(_build.build_log)
+                      if row.split()[1:3] == [width, "D=64"]
+                      and row.split()[0] in ("dz", "dkv", "dq")}
+    print(f"time flare_fused_bwd seamless encoder layer 0 (B={b} H={h} M={q.shape[1]} N={n} "
+          f"D={d}, {key}): {stats}", flush=True)
+    return stats
+
+
+def loss_and_grads(model, net, mb) -> tuple:
+    """``model.loss`` on ``mb`` and its gradients ({name: tensor}), the net's
+    ``.grad`` cleared after."""
+    for p in net.parameters():
+        p.grad = None
+    loss = model.loss(net, mb)
+    loss.backward()
+    grads = {name: p.grad for name, p in net.named_parameters()}
+    for p in net.parameters():
+        p.grad = None
+    return loss.item(), grads
+
+
+def tree_rel(grads: dict, want: dict) -> tuple:
+    """The largest gradient difference over the tree's max |g| of ``want``,
+    and the leaf where it is."""
+    scale = max(g.abs().max().item() for g in want.values())
+    name, err = max(((k, max_err(grads[k], want[k])) for k in want), key=lambda kv: kv[1])
+    return err / scale, name
+
+
+def check_seamless_steps(cfg, model, net, mb) -> dict:
+    """Check (b): the whole train step's loss and gradients in fp32 compute
+    on one microbatch (the fit's unit of work) under the ``packed`` plan
+    (2 x layers fused forwards and layers fused backwards asserted) against
+    the same weights under the plain ``sdpa`` plan: the loss and every
+    gradient leaf within STEP_TOL of the tree's max |g|, which the packed
+    step with encoder layer 0's mixer output zeroed on the last
+    SEAMLESS_LOST frames must fail. Check (c): the bf16 step's loss (the
+    fit's plan) against the ``sdpa`` plan's bf16 loss within LM_TOL; its
+    gradients' distance printed, not held (random weights amplify bf16
+    rounding over the encoder's 24 layers)."""
+    import torch
+
+    from repro_torch.config import replace
+    from repro_torch.core.policy import MixerPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_model
+
+    cfg32 = replace(cfg, compute_dtype="float32")
+    packed32 = get_model(cfg32)
+    plain32 = get_model(cfg32, policy=MixerPolicy(backends=("sdpa",)))
+    plans = {k: p.plans["train"].describe() for k, p in (("packed", packed32),
+                                                         ("sdpa", plain32))}
+    if packed32.plans["train"].backend != "packed" or plain32.plans["train"].backend != "sdpa":
+        raise AssertionError(f"{cfg.name} fp32 train plans {plans}")
+    n = cfg.num_encoder_layers
+    before = ops.count_snapshot()
+    ref_loss, ref = loss_and_grads(plain32, net, mb)
+    plain_launches = named_delta(before, ops.count_snapshot())
+    before = ops.count_snapshot()
+    loss, grads = loss_and_grads(packed32, net, mb)
+    launches = named_delta(before, ops.count_snapshot())
+    rel, leaf = tree_rel(grads, ref)
+    del grads
+    src = mb["embeds"].shape[1]
+    with lose_frames(transformer, "flare_layer", net.encoder[0].attn,
+                     slice(src - SEAMLESS_LOST, src)):
+        lost_loss, grads = loss_and_grads(packed32, net, mb)
+    rel_lost, leaf_lost = tree_rel(grads, ref)
+    del grads, ref
+    torch.cuda.empty_cache()
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    lost_loss_rel = abs(lost_loss - ref_loss) / abs(ref_loss)
+    ok = max(loss_rel, rel) <= STEP_TOL
+    print(f"train {cfg.name} step fp32 B={mb['tokens'].shape[0]} packed vs sdpa ({plans}): loss "
+          f"{loss:.9g} / {ref_loss:.9g} (rel {loss_rel:.3g}), gradients rel {rel:.3g} of the "
+          f"tree's max |g| at {leaf} (limit {STEP_TOL:g}); layer 0's mixer output zeroed on the "
+          f"last {SEAMLESS_LOST} frames: loss rel {lost_loss_rel:.3g}, gradients rel "
+          f"{rel_lost:.3g} at {leaf_lost}; launches packed {launches}, sdpa "
+          f"{plain_launches or 'none'}" + ("" if ok else "  FAILED"), flush=True)
+    want = {"flare_fused_fwd": 2 * n, "flare_fused_bwd": n}
+    if launches != want or plain_launches:
+        raise AssertionError(f"{cfg.name} fp32 step: launches {launches} (expected {want}), "
+                             f"sdpa {plain_launches}")
+    if not ok:
+        raise AssertionError(f"{cfg.name} fp32 step: packed vs sdpa loss rel {loss_rel:.3g}, "
+                             f"gradients rel {rel:.3g} at {leaf}")
+    if not max(lost_loss_rel, rel_lost) > STEP_TOL:
+        raise AssertionError(f"{cfg.name}: the step limit {STEP_TOL} would pass a step that lost "
+                             f"{SEAMLESS_LOST} frames (rel {rel_lost:.3g})")
+    plain16 = get_model(cfg, policy=MixerPolicy(backends=("sdpa",)))
+    ref_loss16, ref16 = loss_and_grads(plain16, net, mb)
+    loss16, grads16 = loss_and_grads(model, net, mb)
+    rel16, leaf16 = tree_rel(grads16, ref16)
+    del grads16, ref16
+    torch.cuda.empty_cache()
+    loss_rel16 = abs(loss16 - ref_loss16) / abs(ref_loss16)
+    ok = loss_rel16 <= LM_TOL["bfloat16"]
+    print(f"train {cfg.name} step bf16 packed vs sdpa: loss {loss16:.6f} / {ref_loss16:.6f} (rel "
+          f"{loss_rel16:.3g}, limit {LM_TOL['bfloat16']:g}); gradients rel {rel16:.3g} of the "
+          f"tree's max |g| at {leaf16} (printed, not held)" + ("" if ok else "  FAILED"),
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{cfg.name} bf16 step: packed vs sdpa loss rel {loss_rel16:.3g}")
+    return dict(fp32_loss_rel=loss_rel, fp32_grad_rel=rel, control_grad_rel=rel_lost,
+                bf16_loss_rel=loss_rel16, bf16_grad_rel=rel16)
+
+
+def seamless_flop(net, b: int, t: int) -> float:
+    """6 x parameters x the tokens they see, the recomputation left out: the
+    encoder's over b * t source frames, the decoder's and the head's over
+    b * t target tokens (the embedding table is a lookup, no product)."""
+    n_enc = sum(p.numel() for p in (*net.encoder.parameters(), *net.enc_norm.parameters()))
+    n_all = sum(p.numel() for p in net.parameters())
+    return 6.0 * b * t * (n_enc + n_all - n_enc - net.embed.table.numel())
+
+
+def train_seamless_variant(checks: Checks, mixer: str, device) -> dict:
+    """One encoder variant of seamless-m4t-large-v2 trained at full size
+    (the module docstring's phase 16d). Returns the step's figures and, for
+    the FLARE encoder, row 4's records and the fit's launches."""
+    import gc
+
+    import torch
+
+    from repro_torch.backends import autotune
+
+    t_var = clock = time.perf_counter()
+    parts = {}
+
+    def part(name: str) -> None:
+        nonlocal clock
+        now = time.perf_counter()
+        parts[name], clock = round(now - clock, 1), now
+
+    cfg, model, net = init_seamless(mixer)
+    flare = mixer == "flare"
+    num_mb = SEAMLESS_TRAIN_B // cfg.microbatch
+    plan = model.plans.get("train")
+    if cfg.remat != "full" or cfg.compute_dtype != "bfloat16" or (
+            flare and plan.backend != "packed"):
+        raise AssertionError(f"{cfg.name}: remat {cfg.remat}, compute {cfg.compute_dtype}, "
+                             f"train plan {plan and plan.describe()}")
+    batch_fn = launcher_batches(cfg, SEAMLESS_TRAIN_B, LM_TRAIN_T)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch_fn(0).items()}
+    batch_fn.feed_ms.clear()
+    mb = {k: v[:cfg.microbatch] for k, v in batch.items()}
+    print(f"train {cfg.name}: train plan {plan and plan.describe()} in {cfg.compute_dtype}; "
+          f"the launcher's batches: B={SEAMLESS_TRAIN_B} x {LM_TRAIN_T} source frames (standard "
+          f"normal) and {LM_TRAIN_T} target tokens, {num_mb} microbatches of {cfg.microbatch}, "
+          f"{FAMILY_STEPS} steps; {cfg.param_dtype} parameters, remat {cfg.remat}", flush=True)
+    out = {}
+    if flare:
+        q, k, _ = seamless_flare_operands(net, cfg, mb["embeds"], torch.bfloat16)
+        print(f"train {cfg.name}: a microbatch's FLARE call (B={cfg.microbatch}) takes launch "
+              f"parameters {autotune.launch_params(plan, q, k, 'packed') or 'the defaults'}",
+              flush=True)
+        gen = torch.Generator().manual_seed(SEED + 1)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = seamless_flare_operands(net, cfg, batch["embeds"], dtype)
+            b, h, n, d = k.shape
+            dy = torch.randn(b, n, h, d, generator=gen).to(device, dtype).transpose(1, 2)
+            out[str(dtype).removeprefix("torch.")] = check_bwd_seamless(checks, q, k, v, dy)
+        del q, k, v, dy
+        torch.cuda.empty_cache()
+        part("init, check (a)")
+        out["steps"] = check_seamless_steps(cfg, model, net, mb)
+        part("checks (b), (c)")
+    else:
+        part("init")
+    del batch, mb
+    fit = fit_family(cfg.name, model, net, batch_fn, num_mb, profile=flare)
+    clock += sum(fit["seconds"].values())
+    parts.update(fit["seconds"])
+    want = ({"flare_fused_fwd": 2 * cfg.num_encoder_layers,
+             "flare_fused_bwd": cfg.num_encoder_layers} if flare else {})
+    out["launches"] = expect_windows(cfg.name, fit["windows"], want, num_mb)
+    tokens = SEAMLESS_TRAIN_B * LM_TRAIN_T
+    out["figures"], seen = train_line(
+        cfg.name, fit, seamless_flop(net, SEAMLESS_TRAIN_B, LM_TRAIN_T), tokens,
+        f" of target tokens ({2 * tokens / fit['ms'] * 1e3:.1f} with the source frames)")
+    if flare:
+        assert_route(seen, f"train {cfg.name} step", FLARE_BWD16,
+                     refuse=("flash_tc_kernel", "flash_tf32_kernel", "flash_bf16_kernel"))
+        fused = {k: ms for k, ms in seen[0].items() if any(n in k for n in FLARE_BWD16)}
+        print(f"train {cfg.name} step: the fused FLARE kernels {sum(fused.values()):.3f} ms of "
+              f"{sum(seen[0].values()):.3f} ms device time "
+              f"({100 * sum(fused.values()) / sum(seen[0].values()):.1f}%): "
+              + ", ".join(f"{k.split('<')[0].split('::')[-1]} {ms:.3f}" for k, ms in
+                          sorted(fused.items(), key=lambda kv: -kv[1])), flush=True)
+    out["figures"]["losses"] = [h["loss"] for h in fit["history"]]
+    del fit, model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("report, free")
+    out["figures"]["seconds"] = time.perf_counter() - t_var
+    print(f"train {cfg.name} variant: {out['figures']['seconds']:.1f} s; by part {parts}",
+          flush=True)
+    return out
+
+
+def card_empty(label: str) -> None:
+    """The phase freed what it allocated on the card (under EMPTY_GIB)."""
+    import torch
+
+    left = torch.cuda.memory_allocated() / 2**30
+    print(f"{label}: {left:.3f} GiB still allocated", flush=True)
+    if not left < EMPTY_GIB:
+        raise AssertionError(f"{label}: {left:.3f} GiB still allocated after the phase")
+
+
+def train_seamless_phase(checks: Checks, device) -> dict:
+    """seamless-m4t-large-v2 trained at full width and depth, the FLARE
+    encoder and then the attention encoder (each freed before the next).
+    Returns, by variant, row 4's records at its shape, the fused kernels'
+    launches in the fit and the step's figures."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {mixer: train_seamless_variant(checks, mixer, device) for mixer in ("flare", "attn")}
+    print(f"train seamless phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    card_empty("train seamless phase")
+    return out
+
+
+def wkv_operands(cfg, net, tokens):
+    """Layer 0's WKV operands (r, k, v, w, u) for ``tokens``, bf16 compute,
+    as ``rwkv6_time_mix`` gives them to the WKV."""
+    import torch
+
+    from repro_torch.models import rwkv_lm, ssm
+    from repro_torch.nn.modules import layernorm
+
+    layer = net.layers[0]
+    with torch.no_grad():
+        x = layernorm(layer.ln1, rwkv_lm._embed(net, tokens, cfg))
+        r, k, v, w, _ = ssm.rwkv6_wkv_operands(layer, x, cfg.ssm)
+    return r, k, v, w, layer.u.detach()
+
+
+def check_wkv_grads(cfg, net, tokens) -> dict:
+    """Autograd through layer 0's chunked WKV (fp32, the training path's
+    form) on the model's own operands for ``tokens`` (the fit's first WKV_T
+    tokens), against autograd through the scan in fp64 on the same values:
+    the gradients of sum(y * dy) (a seeded dy) as to r, k, v, w and u, each
+    within GRAD_TOL's fp32 limit of its max |g|; the chunked form run a
+    chunk at a time from a zero state (the inter-chunk term dropped) must
+    fail it."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    chunk, t = cfg.ssm.chunk, tokens.shape[1]
+    ops = wkv_operands(cfg, net, tokens)
+    dy = torch.randn(ops[0].shape, generator=torch.Generator().manual_seed(SEED + 4),
+                     dtype=torch.float64).to(tokens.device)
+
+    def grads(fn, dtype):
+        leaves = [x.detach().to(dtype).requires_grad_() for x in ops]
+        (fn(*leaves) * dy.to(dtype)).sum().backward()
+        return [x.grad for x in leaves]
+
+    def alone(r, k, v, w, u):   # each chunk from a zero state
+        cut = [x.reshape(t // chunk, chunk, *x.shape[2:]) for x in (r, k, v, w)]
+        return ssm.rwkv6_wkv_chunked(*cut, u, chunk=chunk)[0].reshape(r.shape)
+
+    t0 = time.perf_counter()
+    got = grads(lambda *xs: ssm.rwkv6_wkv_chunked(*xs, chunk=chunk)[0], torch.float32)
+    want = grads(lambda *xs: ssm.rwkv6_wkv_scan(*xs)[0], torch.float64)
+    lost = grads(alone, torch.float64)
+    rels = {f"d{name}": rel_err(g, w_) for name, g, w_ in zip("rkvwu", got, want)}
+    lost_rels = {f"d{name}": rel_err(x, w_) for name, x, w_ in zip("rkvwu", lost, want)}
+    tol = GRAD_TOL["float32"]
+    print(f"wkv rwkv6-3b layer 0 gradients T={t} (H={ops[0].shape[2]} D={ops[0].shape[3]}, chunk "
+          f"{chunk}) fp32 chunked vs fp64 scan, over each max |g| (limit {tol:g}): "
+          f"{', '.join(f'{k_} {e:.3g}' for k_, e in rels.items())}; chunks alone (the "
+          f"inter-chunk term dropped): {', '.join(f'{k_} {e:.3g}' for k_, e in lost_rels.items())}"
+          f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    if not max(rels.values()) <= tol:
+        raise AssertionError(f"rwkv6 WKV gradients off the fp64 scan: {rels}")
+    if not max(lost_rels.values()) > tol:
+        raise AssertionError(f"the WKV gradient limit {tol} would pass a chunked form without "
+                             f"its inter-chunk term ({lost_rels})")
+    return rels
+
+
+def train_rwkv_phase(checks: Checks, device) -> dict:
+    """RWKV-6 3B trained at full width and depth (the module docstring's
+    phase 16e). Returns the step's figures."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, net = init_recurrent("rwkv6_3b", RWKV_SIZE)
+    if cfg.remat != "full" or cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name}: remat {cfg.remat}, compute {cfg.compute_dtype}")
+    num_mb = LM_TRAIN_B // cfg.microbatch
+    batch_fn = launcher_batches(cfg, LM_TRAIN_B, LM_TRAIN_T)
+    print(f"train {cfg.name}: the launcher's batches B={LM_TRAIN_B} x T={LM_TRAIN_T}, {num_mb} "
+          f"microbatches of {cfg.microbatch}, {FAMILY_STEPS} steps; {cfg.compute_dtype} compute, "
+          f"{cfg.param_dtype} parameters, remat {cfg.remat}; no kernel (the WKV is plain torch, "
+          "as in the reference)", flush=True)
+    first = torch.as_tensor(batch_fn(0)["tokens"][:1, :WKV_T], device=device)
+    batch_fn.feed_ms.clear()
+    parts = {"init": round(time.perf_counter() - t_phase, 1)}
+    t0 = time.perf_counter()
+    rels = check_wkv_grads(cfg, net, first)
+    parts["wkv gradients"] = round(time.perf_counter() - t0, 1)
+    fit = fit_family(cfg.name, model, net, batch_fn, num_mb, profile=True)
+    parts.update(fit["seconds"])
+    t0 = time.perf_counter()
+    expect_windows(cfg.name, fit["windows"], {}, num_mb)
+    n_params = sum(p.numel() for p in net.parameters())
+    tokens = LM_TRAIN_B * LM_TRAIN_T
+    figures = train_line(cfg.name, fit, 6.0 * n_params * tokens, tokens)[0]
+    losses = [h["loss"] for h in fit["history"]]
+    ln_v = math.log(cfg.vocab)
+    near = abs(losses[0] / ln_v - 1)
+    print(f"train {cfg.name}: step 1's loss {losses[0]:.6f} against ln(vocab) {ln_v:.6f} (rel "
+          f"{near:.3g}, limit {LOSS_NEAR:g}; at random init that holds whatever the mixer "
+          "computes: the WKV gradient check is the one that counts)", flush=True)
+    if not near <= LOSS_NEAR:
+        raise AssertionError(f"{cfg.name}: step 1's loss {losses[0]} is not near ln(vocab)")
+    del fit, model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["report, free"] = round(time.perf_counter() - t0, 1)
+    figures.update(losses=losses, wkv_grad_rel=rels, seconds=time.perf_counter() - t_phase)
+    print(f"train rwkv6 phase: {figures['seconds']:.1f} s; by part {parts}", flush=True)
+    card_empty("train rwkv6 phase")
+    return figures
 
 
 def only_phases() -> dict:
@@ -6501,6 +7119,8 @@ def only_phases() -> dict:
             checks, arch, params, device)
     phases["rwkv6_3b"], phases["zamba2_7b"] = rwkv_phase, zamba_phase
     phases["seamless_m4t_large_v2"] = seamless_phase
+    phases["train_seamless_m4t_large_v2"] = train_seamless_phase
+    phases["train_rwkv6_3b"] = train_rwkv_phase
     return phases
 
 
@@ -6760,6 +7380,20 @@ def main(argv=None) -> int:
         stats[name]["launches"] += rec["launches"]
         stats[name]["seamless_m4t"] = rec
     mark("seamless_m4t_large_v2")
+    # the encoder-decoder trained, both encoders: the FLARE fit's fused
+    # forward and backward launches (row 4 in bf16 at D=64, with its records
+    # at seamless-m4t's shape)
+    fits = train_seamless_phase(checks, device)
+    print(f"train seamless figures: {({mixer: run['figures'] for mixer, run in fits.items()})}",
+          flush=True)
+    for name, n in fits["flare"]["launches"].items():
+        stats[name]["launches"] += n
+    stats["flare_fused_bwd"]["seamless_m4t"] = {
+        "bfloat16": fits["flare"]["bfloat16"], "float32": fits["flare"]["float32"],
+        "launches": fits["flare"]["launches"]["flare_fused_bwd"]}
+    mark("train_seamless_m4t_large_v2")
+    print(f"train rwkv6 figures: {train_rwkv_phase(checks, device)}", flush=True)
+    mark("train_rwkv6_3b")
     # the Table-1 mixers at flare_pde's width. The FLARE row's train steps
     # are a counted window of the fused forward and backward
     for name, n in pde_baselines(checks, cfg, device).items():
@@ -6789,7 +7423,7 @@ def main(argv=None) -> int:
         rows[list(REPLACES).index(name)]["zamba_d112"] = stats[name]["zamba_d112"]
     # the flash rows and the FLARE forward's rows their seamless-m4t records
     for name in ("flash_attention_tc", "flash_attention", "flare_encode", "flare_decode",
-                 "flare_fused_fwd"):
+                 "flare_fused_fwd", "flare_fused_bwd"):
         rows[list(REPLACES).index(name)]["seamless_m4t"] = stats[name]["seamless_m4t"]
     print(f"phase seconds: {marks}", flush=True)
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s", flush=True)

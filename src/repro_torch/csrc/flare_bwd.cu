@@ -57,7 +57,9 @@
 //     step (each step's three MMAs start from zero and are added to the
 //     fp32 sums in registers): the tensor core truncates its fp32 additions,
 //     so a long chain inside it would drift. Those sums then run in two
-//     levels (per staged tile, then across tiles), as the encode's do.
+//     levels (per staged tile, then across tiles), as the encode's do. The
+//     sums over D (S, dZ v^T, Z dy^T) are one MMA step at D = 8; above it
+//     each step's main product leaves the tensor core too (dot_d).
 //   * Fragments. The streamed operand is staged in shared memory already in
 //     the B-fragment order of each lane, split: one 16-byte read a lane for
 //     (hi0, hi1, lo0, lo1). Each warp holds its own rows as split A
@@ -109,6 +111,34 @@ template <int D> __host__ __device__ constexpr int latent_tiles() {
 }
 template <int D> __host__ __device__ constexpr int token_tiles() { return D <= 16 ? 2 : 1; }
 
+// c = sum over the KS steps of a[kk] b[kk] (a product summed over D) in
+// three TF32 products a step. One step (D = 8) is mma3. Over more, the
+// tensor core would truncate its fp32 additions along the chain: at D = 64
+// on seamless-m4t's encoder operands that left dq, dk and dv 1.0-1.06e-5 of
+// their max off fp64 in fp32 (an NVIDIA H100 80GB HBM3 at 700 W) (the S, dZ v^T and Z dy^T rows feed
+// differences such as dZ v^T - delta_e, which cancel). So each step's main
+// product (hi.hi) starts from zero and is added in fp32 registers, and the
+// small ones (2^-11 of it) chain in the tensor core.
+template <bool A_EXACT, bool B_EXACT, int KS>
+__device__ __forceinline__ void dot_d(float (&c)[4], const FragA (&a)[KS], const uint4 (&b)[KS]) {
+  if constexpr (KS == 1) {
+    mma3<A_EXACT, B_EXACT>(c, a[0], b[0]);
+  } else {
+    float small[4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (!A_EXACT) mma(small, a[kk].lo, b[kk].x, b[kk].y);
+      if (!B_EXACT) mma(small, a[kk].hi, b[kk].z, b[kk].w);
+      float z[4];
+      mma_z(z, a[kk].hi, b[kk].x, b[kk].y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[e] += z[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += small[e];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // (a) Grid (ceil(M / (WARPS * 16 * MT)), B*H, splits); warp = 16 * MT
 // latents of group g over tokens [split*split_len, min(N, (split+1)*split_len)):
@@ -158,8 +188,7 @@ dz_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         float c[4] = {};
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) mma3<E, E>(c, qa[i][kk], kb[kk]);
+        dot_d<E, E, KS>(c, qa[i], kb);
         FragA wa;   // the accumulator as an A fragment: columns 2t, 2t+1 as k = t, t+4
         split_a(wa, __expf(c[0] - l2.x), __expf(c[2] - l2.x), __expf(c[1] - l2.y),
                 __expf(c[3] - l2.y));
@@ -281,12 +310,9 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         float sc[4] = {}, p1[4] = {}, p2[4] = {};
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          mma3<E, E>(sc, ka[i][kk], qb[kk]);
-          mma3<E, false>(p1, va[i][kk], dzb[kk]);
-          mma3<E, false>(p2, dya[i][kk], zb[kk]);
-        }
+        dot_d<E, E, KS>(sc, ka[i], qb);
+        dot_d<E, false, KS>(p1, va[i], dzb);
+        dot_d<E, false, KS>(p2, dya[i], zb);
         // c0 (token gi, latent 2t), c1 (gi, 2t+1), c2 (gi+8, 2t), c3 (gi+8, 2t+1)
         float ds[4], aw[4];
 #pragma unroll
@@ -424,12 +450,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         float sc[4] = {}, p1[4] = {}, p2[4] = {};
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          mma3<E, E>(sc, qa[i][kk], kb[kk]);
-          mma3<false, E>(p1, dza[i][kk], vb[kk]);
-          mma3<false, E>(p2, za[i][kk], dyb[kk]);
-        }
+        dot_d<E, E, KS>(sc, qa[i], kb);
+        dot_d<false, E, KS>(p1, dza[i], vb);
+        dot_d<false, E, KS>(p2, za[i], dyb);
         // c0 (latent gi, token 2t), c1 (gi, 2t+1), c2 (gi+8, 2t), c3 (gi+8, 2t+1)
         float ds[4];
 #pragma unroll

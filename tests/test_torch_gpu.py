@@ -1110,3 +1110,77 @@ def test_seamless_prefill_kernel_route_matches_plain(cuda, mixer):
     assert kernel_route == expected
     assert (caches.memory - want_caches.memory).abs().max() <= 1e-4 * want_caches.memory.abs().max()
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+def test_fused_bwd_at_seamless_shape(cuda, dtype):
+    """The backward kernel at one microbatch of seamless-m4t's FLARE encoder
+    (B=1, H=16, M=256, N=4,096, D=64) against the plain backward in fp64:
+    fp32 within 1e-5 of each gradient's max |g|; bf16 beyond its output
+    rounding within 1e-5 (the kernel computes in fp32 and rounds only its
+    outputs). The plain backward whose dZ lost one 64-token tile must fail
+    the same limit."""
+    q, k, v = _inputs((1, 16, 256, 4096, 64), dtype, cuda)
+    dy = torch.randn(k.shape, generator=torch.Generator().manual_seed(5)).to(cuda, dtype)
+    y, *res = flare_fused_fwd(q, k, v)
+    got = flare_fused_bwd(q, k, v, *res, y, dy)
+    wide = [t.double() for t in (q, k, v, *res, y, dy)]
+    q64, k64, v64, z64, mx64, den64, lse64, y64, dy64 = wide
+    want = ref.flare_fused_bwd_ref(*wide)
+    dz = ref.flare_bwd_dz_ref(q64, k64[:, :, 64:], lse64[:, :, 64:], dy64[:, :, 64:])
+    lost = ref.flare_bwd_grads_ref(*wide, dz)
+    err = _beyond_rounding if dtype == torch.bfloat16 else _max_rel
+    for g, w, x in zip(got, want, lost):
+        assert g.dtype == dtype and err(g, w) <= 1e-5
+        assert err(x.to(dtype), w) > 1e-5
+
+
+def test_fused_layer_under_remat_launches_twice_forward(cuda):
+    """One FLARE layer through ``FlareFused`` under ``_remat(.., "full")``
+    (the encoder's checkpointing): a train step launches the fused forward
+    twice (the forward and its recomputation) and the backward once, and
+    gives the gradients of the same layer without checkpointing."""
+    from repro_torch.core.flare import flare_layer, init_flare_layer
+    from repro_torch.models.transformer import _remat
+
+    layer = init_flare_layer(128, 2, 32, generator=torch.Generator().manual_seed(0),
+                             device=cuda)
+    x = torch.randn(2, 300, 128, generator=torch.Generator().manual_seed(1)).to(cuda)
+    policy = MixerPolicy(backends=("packed",))
+    grads = {}
+    for mode in ("full", "none"):
+        fn = _remat(lambda lyr, h: flare_layer(lyr, h, policy=policy), mode)
+        before = launch_counts()
+        fn(layer, x).square().sum().backward()
+        after = launch_counts()
+        grads[mode] = [p.grad.clone() for p in layer.parameters()]
+        layer.zero_grad(set_to_none=True)
+        moved = {name: after[name] - before[name] for name in after if after[name] != before[name]}
+        assert moved == {"flare_fused_fwd": 2 if mode == "full" else 1, "flare_fused_bwd": 1}
+    for a, b in zip(grads["full"], grads["none"]):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_fused_bwd_on_encoder_layer_operands_near_fp64(cuda):
+    """The fp32 backward kernel at D=64 on the operands of a FLARE encoder
+    layer of seamless-m4t's width (d_model 1,024, 16 heads, 256 latents,
+    ResMLP K/V projections; standard normal frames, B=2, N=4,096), whose
+    sums over D cancel in dZ v^T - delta_e: dq, dk and dv within 1e-5 of
+    each max |g| of the plain backward in fp64 (the sums over D chained in
+    the tensor core left 1.0-1.06e-5 on the model's own layer 0)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.flare import _split_heads, init_flare_layer
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    layer = init_flare_layer(1024, 16, 256, generator=gen, device=cuda)
+    x = F.layer_norm(torch.randn(2, 4096, 1024, generator=gen, device=cuda), (1024,))
+    with torch.no_grad():
+        q = layer.q_latent.detach()
+        k, v = (_split_heads(resmlp(proj, x), 16) for proj in (layer.k_proj, layer.v_proj))
+    dy = torch.randn(k.shape, generator=torch.Generator().manual_seed(6)).to(cuda)
+    y, *res = flare_fused_fwd(q, k, v)
+    got = flare_fused_bwd(q, k, v, *res, y, dy)
+    want = ref.flare_fused_bwd_ref(*(t.double() for t in (q, k, v, *res, y, dy)))
+    errs = [_max_rel(g, w) for g, w in zip(got, want)]
+    assert max(errs) <= 1e-5, errs
